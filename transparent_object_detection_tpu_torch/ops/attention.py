@@ -1,0 +1,261 @@
+"""Attention for the detector's spatial token maps: the naive route, two
+flash-attention kernels written in CUDA for Hopper, their plain PyTorch
+versions, and the dispatcher that routes by shape.
+
+Counterpart of transparent_object_detection_tpu/ops/attention.py. Layouts are
+the JAX package's: tokens (B, N, C) with heads packed in C, and the fused qkv
+projection output (B, N, 3C) with sections [q | k | v].
+
+Routing (`attention` / `attention_qkv`), as `_auto_impl` routes in JAX:
+  * N <= 1024: the naive route, a plain matmul + softmax + matmul
+    (`reference_attention`); the N x N scores are small enough.
+  * N > 1024: the flash kernels. Packed multi-head attention reads q/k/v in
+    place out of the qkv array (`flash_mha_packed`) when the head width is a
+    multiple of 128 (the JAX rule); the single-head kernel (`flash_single`)
+    serves the dark3 SelfAttention, whose q/k width C/8 differs from its v
+    width C, and the other multi-head shapes (heads folded into the batch
+    axis).
+At phi='s' 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels
+and node h6 (N=400) to the naive route. The CUDA kernel is instantiated for
+the widths of that path only; on the card the wrappers refuse other widths.
+
+Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
+and runs its plain version only for a CPU tensor. `impl="plain"` runs the
+plain versions on any device, so the same model can be compared on the card
+with and without the kernels; it is never the default.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+LOG2E = 1.4426950408889634
+# Largest token count that takes the naive route (JAX: attention.py _auto_impl).
+NAIVE_MAX_TOKENS = 1024
+# Head widths that take the packed route are multiples of this (JAX rule).
+PACKED_HEAD_MULTIPLE = 128
+# q/k widths the CUDA kernel is instantiated for (those of the phi='s'
+# serving path: dark3 64, neck heads 256) and the width of the v column slice
+# one block accumulates; v widths must be a multiple of it.
+KERNEL_DQ = (64, 256)
+KERNEL_DV_TILE = 256
+IMPLS = (None, "plain")
+
+
+# ---------------------------------------------------------------------------
+# naive route and plain versions
+# ---------------------------------------------------------------------------
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float = 1.0) -> torch.Tensor:
+    """Naive attention (JAX reference_attention): scores in the input type,
+    softmax in fp32, probabilities cast back before the value product.
+    q, k (..., N, dq); v (..., N, dv) -> (..., N, dv)."""
+    scores = torch.matmul(q, k.transpose(-1, -2)).float() * scale
+    attn = torch.softmax(scores, dim=-1)
+    return torch.matmul(attn.to(v.dtype), v)
+
+
+def _online_softmax_attention(q, k, v, scale: float, block_k: int = 1024):
+    """The flash kernels' arithmetic in plain PyTorch: q.k^T accumulated in
+    fp32, exp2-domain online softmax over kv blocks with the running max
+    starting at -1e30, p cast to the input type before the value product,
+    fp32 l/acc, output acc * (1 / l) in the input type.
+    q, k (..., N, dq); v (..., N, dv)."""
+    n = k.shape[-2]
+    s_scale = scale * LOG2E
+    qf = q.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=torch.float32, device=q.device)
+    for j in range(0, n, block_k):
+        kb = k[..., j:j + block_k, :].float()
+        vb = v[..., j:j + block_k, :]
+        s = torch.matmul(qf, kb.transpose(-1, -2)) * s_scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
+        m = m_new
+    return (acc * (1.0 / l)).to(v.dtype)
+
+
+def _heads_first(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, N, H*d) -> (B, H, N, d)."""
+    b, n, c = t.shape
+    return t.reshape(b, n, heads, c // heads).transpose(1, 2)
+
+
+def _heads_last(t: torch.Tensor) -> torch.Tensor:
+    """(B, H, N, d) -> (B, N, H*d)."""
+    b, h, n, d = t.shape
+    return t.transpose(1, 2).reshape(b, n, h * d)
+
+
+def flash_mha_packed_plain(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Plain version of the packed multi-head kernel: (B, N, 3C) -> (B, N, C)."""
+    q, k, v = (_heads_first(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    return _heads_last(_online_softmax_attention(q, k, v, scale))
+
+
+def flash_single_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: float) -> torch.Tensor:
+    """Plain version of the single-head kernel: (B, N, dq) x2, (B, N, dv)."""
+    return _online_softmax_attention(q, k, v, scale)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_attn_fwd")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
+        lib.flash_mha_packed.restype = ci
+        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+        lib.flash_single.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _check_cuda_operand(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: the flash kernel takes bfloat16, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def packed_kernel_supports(c: int, num_heads: int) -> bool:
+    dh = c // num_heads
+    return c % num_heads == 0 and dh in KERNEL_DQ and dh % KERNEL_DV_TILE == 0
+
+
+def single_kernel_supports(dq: int, dv: int) -> bool:
+    return dq in KERNEL_DQ and dv % KERNEL_DV_TILE == 0
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    """Packed multi-head flash attention: (B, N, 3C) -> (B, N, C).
+
+    Port of ops/attention.py::_mha_flash_kernel via flash_attention_mha_packed
+    (JAX). A CUDA tensor launches csrc/flash_attn_fwd.cu; a CPU tensor runs
+    `flash_mha_packed_plain`."""
+    if qkv.device.type == "cpu":
+        return flash_mha_packed_plain(qkv, num_heads, scale)
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    _check_cuda_operand("qkv", qkv)
+    if c3 % 3 or not packed_kernel_supports(c, num_heads):
+        raise ValueError(f"packed flash kernel does not take C={c} with {num_heads} heads")
+    out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
+    err = _lib().flash_mha_packed(
+        qkv.data_ptr(), out.data_ptr(), b, n, num_heads, c // num_heads, scale,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _raise_on(err, "flash_mha_packed")
+    flash_mha_packed.launches += 1
+    return out
+
+
+def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: float) -> torch.Tensor:
+    """Single-head flash attention with q/k width != v width:
+    q, k (B, N, dq), v (B, N, dv) -> (B, N, dv).
+
+    Port of ops/attention.py::_flash_kernel (flash_attention_pallas, JAX).
+    A CUDA tensor launches csrc/flash_attn_fwd.cu; a CPU tensor runs
+    `flash_single_plain`."""
+    if q.device.type == "cpu":
+        return flash_single_plain(q, k, v, scale)
+    b, n, dq = q.shape
+    dv = v.shape[-1]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda_operand(name, t)
+    if k.shape != q.shape or v.shape[:2] != (b, n) or not single_kernel_supports(dq, dv):
+        raise ValueError(f"single-head flash kernel does not take q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
+    err = _lib().flash_single(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, dq, dv, scale,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_single")
+    flash_single.launches += 1
+    return out
+
+
+flash_mha_packed.launches = 0
+flash_single.launches = 0
+
+
+def reset_launch_counts() -> None:
+    flash_mha_packed.launches = 0
+    flash_single.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+
+def _check_impl(impl: Optional[str]) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; choose from {IMPLS}")
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
+              impl: Optional[str] = None, num_heads: int = 1) -> torch.Tensor:
+    """Dispatching front end on (B, N, C) tokens, heads packed in C.
+
+    impl None: naive route for N <= 1024, the flash kernels above.
+    impl "plain": the same routing with the kernels' plain versions."""
+    _check_impl(impl)
+    b, n, c = q.shape
+    if num_heads > 1:
+        out = attention(
+            _heads_first(q, num_heads).reshape(b * num_heads, n, -1),
+            _heads_first(k, num_heads).reshape(b * num_heads, n, -1),
+            _heads_first(v, num_heads).reshape(b * num_heads, n, -1),
+            scale, impl,
+        )
+        return _heads_last(out.reshape(b, num_heads, n, -1))
+    if n <= NAIVE_MAX_TOKENS:
+        return reference_attention(q, k, v, scale)
+    if impl == "plain":
+        return flash_single_plain(q, k, v, scale)
+    return flash_single(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+
+
+def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,
+                  num_heads: int = 1) -> torch.Tensor:
+    """Packed serving front end: one (B, N, 3C) array straight from the fused
+    qkv projection -> (B, N, C). Large maps whose head width is a multiple
+    of PACKED_HEAD_MULTIPLE read q/k/v in place; everything else splits and
+    goes through `attention`."""
+    _check_impl(impl)
+    n, c = qkv.shape[1], qkv.shape[2] // 3
+    if (n > NAIVE_MAX_TOKENS and c % num_heads == 0
+            and (c // num_heads) % PACKED_HEAD_MULTIPLE == 0):
+        if impl == "plain":
+            return flash_mha_packed_plain(qkv, num_heads, scale)
+        return flash_mha_packed(qkv.contiguous(), num_heads, scale)
+    q, k, v = qkv.chunk(3, dim=-1)
+    return attention(q, k, v, scale, impl, num_heads)
