@@ -15,9 +15,13 @@ import numpy as np
 import pytest
 import torch
 
+import transparent_object_detection_tpu.ops.attention as jattn
+import transparent_object_detection_tpu.ops.attention_int8 as ja8
+import transparent_object_detection_tpu.ops.quant_matmul as jqm
 from _torch_parity import random_variables, rel_err, to_jax
 from transparent_object_detection_tpu.models import blocks as jb
 from transparent_object_detection_tpu_torch.models import blocks as tb
+from transparent_object_detection_tpu_torch.ops import quant_matmul as tqm
 from transparent_object_detection_tpu_torch.weights import load_jax_variables
 
 torch.set_num_threads(1)
@@ -47,19 +51,79 @@ CASES = {
 }
 
 
+def _run_pair(jmod, tmod, shape, dtype=jnp.float32):
+    """Both modules on the same seeded input (of `dtype`) and variables."""
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    variables = random_variables(jmod, jnp.zeros(shape, jnp.float32), train=False)
+    xj = jnp.asarray(x).astype(dtype)
+    ref = jax.jit(lambda v, a: jmod.apply(v, a, train=False))(to_jax(variables), xj)
+    load_jax_variables(tmod, variables)
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(getattr(torch, jnp.dtype(dtype).name))
+    with torch.no_grad():
+        out = tmod(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float().numpy()
+    assert out.shape == ref.shape
+    return out, np.asarray(ref, np.float32)
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_block_matches_flax(case):
     make_j, make_t, shape = CASES[case]
-    jmod, tmod = make_j(), make_t()
-    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
-    variables = random_variables(jmod, jnp.zeros(shape, jnp.float32), train=False)
-    ref = np.asarray(jax.jit(lambda v, a: jmod.apply(v, a, train=False))(to_jax(variables),
-                                                                          jnp.asarray(x)))
-    load_jax_variables(tmod, variables)
-    with torch.no_grad():
-        out = tmod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
-    assert out.shape == ref.shape
+    out, ref = _run_pair(make_j(), make_t(), shape)
     assert rel_err(out, ref) <= 2e-4
+
+
+# int8 serving branches at 40 x 40 = 1,600 tokens (the int8 attention route
+# needs N > 1024 and a multiple of 32) and batch 2 (3,200 rows, a multiple of
+# 128, so the JAX dispatch reaches its kernels), with the JAX kernels in the
+# Pallas interpreter. name -> (flax kwargs, port kwargs, channels, dtype, bar).
+# Bars, relative to the output's largest magnitude. fp32: both sides compute
+# the same integers, but a +-1 payload flip (summation order of a statistic)
+# moves a row by ~1e-3 of its projection and the TEB chains five
+# quantizations: 1e-2 for the int8 TEB (measured 5.0e-3, 99.9% of elements
+# within 1.7e-3), 5e-3 for one quantized stage (measured <= 9.5e-4). bf16:
+# 2e-2, the JAX tests' bf16 bar (measured 7.4e-3). In fp32 the LN handoff
+# computes what the plain route computes, so its case runs in bf16.
+INT8_CASES = {
+    "teb_int8": (dict(int8_dense=True, int8_attn=True), dict(int8_dense=True, int8_attn=True),
+                 256, jnp.float32, 1e-2),
+    "teb_int8_ln_handoff": (dict(int8_dense=True, int8_attn=True),
+                            dict(int8_dense=True, int8_attn=True), 256, jnp.bfloat16, 2e-2),
+    "teb_int8_dense_bf16": (dict(int8_dense=True), dict(int8_dense=True), 256, jnp.bfloat16,
+                            2e-2),
+    "teb_int8_attn": (dict(int8_attn=True), dict(int8_attn=True), 256, jnp.float32, 5e-3),
+    "self_attention_int8": (dict(int8_attn=True), dict(int8_attn=True), 256, jnp.float32, 5e-3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_block_matches_flax(case, monkeypatch):
+    monkeypatch.setattr(jqm, "INTERPRET", True)
+    monkeypatch.setattr(ja8, "INTERPRET", True)
+    monkeypatch.setattr(jattn, "INTERPRET", True)
+    if case.endswith("ln_handoff"):  # the handoff's row floor, lowered on both sides
+        monkeypatch.setenv("TOD_LN_HANDOFF_MIN_ROWS", "128")
+        monkeypatch.setattr(tqm, "LN_HANDOFF_MIN_ROWS", 128)
+    jkw, tkw, c, dtype, bar = INT8_CASES[case]
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, jdt.name)
+    if case.startswith("teb"):
+        jmod = jb.TransformerEncoderBlock(num_heads=8, dtype=jdt, attention_impl="pallas", **jkw)
+        tmod = tb.TransformerEncoderBlock(c, 8, dtype=tdt, **tkw)
+    else:
+        jmod = jb.SelfAttention(dtype=jdt, attention_impl="pallas", **jkw)
+        tmod = tb.SelfAttention(c, dtype=tdt, **tkw)
+    out, ref = _run_pair(jmod, tmod, (2, 40, 40, c), dtype)
+    assert rel_err(out, ref) <= bar
+
+
+def test_int8_teb_loads_the_bf16_parameters():
+    """The int8 branch declares the bf16 branch's parameters (the JAX param
+    twins): one set of JAX variables fills both port blocks."""
+    shape = (1, 4, 4, 256)
+    jvars = random_variables(jb.TransformerEncoderBlock(int8_dense=True),
+                             jnp.zeros(shape, jnp.float32), train=False)
+    for kw in (dict(), dict(int8_dense=True, int8_attn=True)):
+        load_jax_variables(tb.TransformerEncoderBlock(256, 8, **kw), jvars)
 
 
 def test_pick_num_heads_and_dfl():

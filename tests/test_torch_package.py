@@ -73,6 +73,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(ModelConfig(phi="n", input_shape=(64, 64), int8_dense=True, int8_attn=True))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     model = build_model(cfg, device="cpu", seed=None)

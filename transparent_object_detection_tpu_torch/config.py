@@ -2,8 +2,8 @@
 the model and predict settings of transparent_object_detection_tpu/config.py
 (the port imports nothing of the JAX package).
 
-Fields the port does not implement yet (the int8 serving flags) are kept so
-a configuration reads the same in both packages; `build_model` refuses them.
+Fields the port does not implement yet (`int8_1x1`, `remat`) are kept so a
+configuration reads the same in both packages; `build_model` refuses them.
 """
 from __future__ import annotations
 
@@ -37,7 +37,10 @@ class ModelConfig:
     # Prefer head counts whose head width is a multiple of 128 (6 x 256 on the
     # phi='s' 1536-channel TEBs); part of the function being computed.
     lane_align_heads: bool = True
-    # int8 serving paths of the JAX package; not ported yet.
+    # int8 serving: the TEB projections as int8 GEMMs (ops/quant_matmul.py)
+    # and int8 flash attention on large maps (ops/attention_int8.py); each
+    # works alone or with the other. int8_1x1 (fused int8 1x1 convs) is not
+    # ported yet and `build_model` refuses it.
     int8_dense: bool = False
     int8_attn: bool = False
     int8_1x1: bool = False

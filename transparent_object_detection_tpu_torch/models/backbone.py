@@ -25,7 +25,8 @@ from transparent_object_detection_tpu_torch.models.blocks import (
 
 class Backbone(nn.Module):
     def __init__(self, base_channels: int, base_depth: int, deep_mul: float,
-                 dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None):
+                 dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
+                 int8_attn: bool = False):
         super().__init__()
         c, d, dt = base_channels, base_depth, dtype
         c5 = int(c * 16 * deep_mul)
@@ -35,7 +36,8 @@ class Backbone(nn.Module):
         self.dark2_cbam = CBAM(c * 2, dtype=dt)
         self.dark3_conv = ConvBNAct(c * 2, c * 4, 3, strides=2, dtype=dt)
         self.dark3_c2f = C2f(c * 4, c * 4, n=d * 2, shortcut=True, dtype=dt)
-        self.dark3_attn = SelfAttention(c * 4, dtype=dt, attention_impl=attention_impl)
+        self.dark3_attn = SelfAttention(c * 4, dtype=dt, attention_impl=attention_impl,
+                                        int8_attn=int8_attn)
         self.dark4_conv = ConvBNAct(c * 4, c * 8, 3, strides=2, dtype=dt)
         self.dark4_c2f = C2f(c * 8, c * 8, n=d * 2, shortcut=True, dtype=dt)
         self.dark4_cbam = CBAM(c * 8, dtype=dt)

@@ -1,4 +1,4 @@
-"""Network blocks of the PyTorch port (bf16 serving branches).
+"""Network blocks of the PyTorch port (bf16 and int8 serving branches).
 
 Counterpart of transparent_object_detection_tpu/models/blocks.py. Tensors are
 NCHW inside (channels_last memory on the card); attention tokens are
@@ -20,6 +20,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from transparent_object_detection_tpu_torch.ops.attention import attention, attention_qkv
+from transparent_object_detection_tpu_torch.ops.quant_matmul import (
+    ln_handoff,
+    prepare_weights,
+    quant_matmul,
+)
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -181,12 +186,13 @@ def _from_tokens(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class SelfAttention(nn.Module):
     """Non-local self-attention: q/k at max(C//8, 1) channels, v at C,
-    unscaled softmax, residual gated by the learnable scalar gamma (init 0)."""
+    unscaled softmax, residual gated by the learnable scalar gamma (init 0).
+    int8_attn: the int8 flash route on large maps (serving)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: Optional[str] = None):
+                 attention_impl: Optional[str] = None, int8_attn: bool = False):
         super().__init__()
-        self.dtype, self.attention_impl = dtype, attention_impl
+        self.dtype, self.attention_impl, self.int8_attn = dtype, attention_impl, int8_attn
         cq = max(features // 8, 1)
         self.query = nn.Linear(features, cq)
         self.key = nn.Linear(features, cq)
@@ -200,7 +206,7 @@ class SelfAttention(nn.Module):
         q = _linear(tokens, self.query, dt)
         k = _linear(tokens, self.key, dt)
         v = _linear(tokens, self.value, dt)
-        out = attention(q, k, v, scale=1.0, impl=self.attention_impl)
+        out = attention(q, k, v, scale=1.0, impl=self.attention_impl, int8=self.int8_attn)
         out = self.gamma.to(dt) * out + tokens
         return _from_tokens(out, h, w)
 
@@ -221,16 +227,24 @@ def _pick_num_heads(channels: int, requested: int, lane_align: bool = True) -> i
 
 
 class TransformerEncoderBlock(nn.Module):
-    """Pre-LN transformer encoder over the H*W tokens of each image (the
-    bf16, non-int8, non-tensor-parallel branch, evaluation only: attention
-    reads the packed qkv projection output in place)."""
+    """Pre-LN transformer encoder over the H*W tokens of each image
+    (evaluation only; not tensor-parallel). Attention reads the packed qkv
+    projection output in place.
+
+    int8_dense: the four projections run as int8 GEMMs (ops/quant_matmul.py)
+    with the JAX int8 branch's handoffs at their defaults: the LN2-normalized
+    attn_out -> mlp1 payload from LN_HANDOFF_MIN_ROWS rows up, and mlp1's
+    quant_out payload into mlp2. The parameters are the bf16 branch's, so
+    one checkpoint serves both. int8_attn: the int8 flash route."""
 
     def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
-                 norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True):
+                 norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
+                 int8_dense: bool = False, int8_attn: bool = False):
         super().__init__()
         c = features
         self.dtype, self.norm_dtype, self.attention_impl = dtype, norm_dtype, attention_impl
+        self.int8_dense, self.int8_attn = int8_dense, int8_attn
         self.heads = _pick_num_heads(c, num_heads, lane_align_heads)
         self.scale = 1.0 / math.sqrt(c // self.heads)
         self.norm1 = nn.LayerNorm(c, eps=1e-6)
@@ -239,6 +253,7 @@ class TransformerEncoderBlock(nn.Module):
         self.norm2 = nn.LayerNorm(c, eps=1e-6)
         self.mlp1 = nn.Linear(c, c * mlp_ratio)
         self.mlp2 = nn.Linear(c * mlp_ratio, c)
+        self._int8_cache = None
 
     def _norm(self, x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
         nd = self.norm_dtype
@@ -249,10 +264,51 @@ class TransformerEncoderBlock(nn.Module):
         dt = self.dtype
         h, w = x.shape[2:]
         tokens = _to_tokens(x)
+        if self.int8_dense:
+            return _from_tokens(self._forward_int8(tokens), h, w)
         qkv = _linear(self._norm(tokens, self.norm1), self.qkv, dt)
         o = attention_qkv(qkv, scale=self.scale, impl=self.attention_impl,
-                          num_heads=self.heads)
+                          num_heads=self.heads, int8=self.int8_attn)
         tokens = tokens + _linear(o, self.attn_out, dt)
         z = _linear(self._norm(tokens, self.norm2), self.mlp1, dt)
         z = _linear(F.gelu(z, approximate="tanh"), self.mlp2, dt)
         return _from_tokens(tokens + z, h, w)
+
+    def _int8_weights(self):
+        """The projections' int8 weights (LN1 folded into qkv, LN2 into
+        mlp1), made once and again whenever a parameter changes."""
+        params = [p for m in (self.norm1, self.qkv, self.attn_out, self.norm2, self.mlp1,
+                              self.mlp2) for p in m.parameters()]
+        key = tuple((p.data_ptr(), p._version) for p in params)
+        if self._int8_cache is None or self._int8_cache[0] != key:
+            with torch.no_grad():
+                prep = {
+                    "qkv": prepare_weights(self.qkv.weight, self.qkv.bias, self.norm1.weight,
+                                           self.norm1.bias),
+                    "attn_out": prepare_weights(self.attn_out.weight, self.attn_out.bias),
+                    "mlp1": prepare_weights(self.mlp1.weight, self.mlp1.bias,
+                                            self.norm2.weight, self.norm2.bias),
+                    "mlp2": prepare_weights(self.mlp2.weight, self.mlp2.bias),
+                }
+            self._int8_cache = (key, prep)
+        return self._int8_cache[1]
+
+    def _forward_int8(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The JAX int8 TEB branch at its defaults (blocks.py:566-747)."""
+        dt, impl = self.dtype, self.attention_impl
+        b, n, c = tokens.shape
+        wts = self._int8_weights()
+        qmm = lambda x, name, **kw: quant_matmul(x, wts[name], out_dtype=dt, impl=impl, **kw)
+        qkv = qmm(tokens, "qkv", ln=True, ln_eps=self.norm1.eps)
+        o = attention_qkv(qkv, scale=self.scale, impl=impl, num_heads=self.heads,
+                          int8=self.int8_attn)
+        if ln_handoff(b * n, c):
+            tokens, zq, zs = qmm(o, "attn_out", residual=tokens, ln_quant_out=True,
+                                 ln_eps=self.norm2.eps)
+            z8 = qmm(None, "mlp1", ln=True, act="gelu", quant_out=True, x_quant=(zq, zs),
+                     x_quant_normalized=True)
+        else:
+            tokens = qmm(o, "attn_out", residual=tokens)
+            z8 = qmm(tokens, "mlp1", ln=True, ln_eps=self.norm2.eps, act="gelu",
+                     quant_out=True)
+        return qmm(None, "mlp2", residual=tokens, x_quant=z8)

@@ -38,12 +38,14 @@ class FocusModel(nn.Module):
                  deep_mul: float = 0.5, num_heads: int = 8, reg_max: int = 16,
                  strides: Tuple[int, int, int] = (8, 16, 32),
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
-                 lane_align_heads: bool = True, attention_impl: Optional[str] = None):
+                 lane_align_heads: bool = True, attention_impl: Optional[str] = None,
+                 int8_dense: bool = False, int8_attn: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl)
+        self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl,
+                                 int8_attn)
         self.neck = Neck(base_channels, base_depth, deep_mul, num_heads, dtype, norm_dtype,
-                         lane_align_heads, attention_impl)
+                         lane_align_heads, attention_impl, int8_dense, int8_attn)
         filters = (base_channels * 4, base_channels * 8, int(base_channels * 16 * deep_mul))
         self.head = Head(num_classes, filters, strides, reg_max, dtype)
 
@@ -67,17 +69,17 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
     unless given). Weights are the seeded initialisation of `init_weights`
     (seed=None keeps PyTorch's defaults); load a JAX checkpoint with
     weights.load_jax_variables. attention_impl="plain" runs the attention
-    kernels' plain PyTorch versions (comparison only)."""
-    if cfg.int8_dense or cfg.int8_attn or cfg.int8_1x1 or cfg.remat:
-        raise NotImplementedError("the port serves the bf16 path only (int8 flags and "
-                                  "remat are not ported yet)")
+    kernels' plain PyTorch versions (comparison only). int8_dense and
+    int8_attn select the int8 serving paths, alone or together."""
+    if cfg.int8_1x1 or cfg.remat:
+        raise NotImplementedError("int8_1x1 and remat are not ported yet")
     device = resolve_device(device)
     model = FocusModel(
         num_classes=cfg.num_classes, base_channels=cfg.base_channels,
         base_depth=cfg.base_depth, deep_mul=cfg.deep_mul, num_heads=cfg.num_heads,
         reg_max=cfg.reg_max, strides=cfg.strides, dtype=getattr(torch, cfg.compute_dtype),
         norm_dtype=getattr(torch, cfg.norm_dtype), lane_align_heads=cfg.lane_align_heads,
-        attention_impl=attention_impl,
+        attention_impl=attention_impl, int8_dense=cfg.int8_dense, int8_attn=cfg.int8_attn,
     )
     if seed is not None:
         init_weights(model, seed)
@@ -85,8 +87,9 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
 
 
 def set_attention_impl(model: nn.Module, impl: Optional[str]) -> nn.Module:
-    """Switch every attention layer of `model` between the kernels (None)
-    and their plain versions ("plain"), weights untouched."""
+    """Switch every kernel of `model` (attention, and the int8 projections
+    of the TEBs) between the kernels (None) and their plain versions
+    ("plain"), weights untouched."""
     for m in model.modules():
         if hasattr(m, "attention_impl"):
             m.attention_impl = impl

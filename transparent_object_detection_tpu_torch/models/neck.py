@@ -27,11 +27,13 @@ class FusionNode(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
-                 lane_align_heads: bool = True, attention_impl: Optional[str] = None):
+                 lane_align_heads: bool = True, attention_impl: Optional[str] = None,
+                 int8_dense: bool = False, int8_attn: bool = False):
         super().__init__()
         self.teb = TransformerEncoderBlock(
             in_features, num_heads, dtype=dtype, attention_impl=attention_impl,
             norm_dtype=norm_dtype, lane_align_heads=lane_align_heads,
+            int8_dense=int8_dense, int8_attn=int8_attn,
         )
         self.reduce = ConvBNAct(in_features, out_features, 1, dtype=dtype)
         self.cbam = CBAM(out_features, dtype=dtype)
@@ -44,12 +46,14 @@ class Neck(nn.Module):
     def __init__(self, base_channels: int, base_depth: int, deep_mul: float,
                  num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
-                 attention_impl: Optional[str] = None):
+                 attention_impl: Optional[str] = None, int8_dense: bool = False,
+                 int8_attn: bool = False):
         super().__init__()
         c = base_channels
         c5 = int(c * 16 * deep_mul)
         node = lambda cin, cout: FusionNode(cin, cout, num_heads, dtype, norm_dtype,
-                                            lane_align_heads, attention_impl)
+                                            lane_align_heads, attention_impl, int8_dense,
+                                            int8_attn)
         self.h1 = node(c5 + c * 8, c * 8)   # top-down, /16
         self.h2 = node(c * 8 + c * 4, c * 4)  # top-down, /8 == P3 out
         self.h3 = ConvBNAct(c * 4, c * 4, 3, strides=2, dtype=dtype)

@@ -15,6 +15,9 @@ Routing (`attention` / `attention_qkv`), as `_auto_impl` routes in JAX:
     serves the dark3 SelfAttention, whose q/k width C/8 differs from its v
     width C, and the other multi-head shapes (heads folded into the batch
     axis).
+  * int8=True (serving): the int8 flash route of ops/attention_int8.py
+    where N > 1024 and its `pick_blocks` tiles the shape, as in JAX; other
+    shapes (N <= 1024, a ragged N such as 3,600) take the routes above.
 At phi='s' 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels
 and node h6 (N=400) to the naive route. The CUDA kernel is instantiated for
 the widths of that path only; on the card the wrappers refuse other widths.
@@ -30,6 +33,8 @@ import ctypes
 from typing import Optional
 
 import torch
+
+from transparent_object_detection_tpu_torch.ops import attention_int8
 
 LOG2E = 1.4426950408889634
 # Largest token count that takes the naive route (JAX: attention.py _auto_impl).
@@ -222,13 +227,20 @@ def _check_impl(impl: Optional[str]) -> None:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
-              impl: Optional[str] = None, num_heads: int = 1) -> torch.Tensor:
+              impl: Optional[str] = None, num_heads: int = 1, int8: bool = False) -> torch.Tensor:
     """Dispatching front end on (B, N, C) tokens, heads packed in C.
 
     impl None: naive route for N <= 1024, the flash kernels above.
-    impl "plain": the same routing with the kernels' plain versions."""
+    impl "plain": the same routing with the kernels' plain versions.
+    int8 (serving): the int8 flash route (ops/attention_int8.py) where N >
+    1024 and `pick_blocks` gives blocks, as in JAX; else the routes above."""
     _check_impl(impl)
     b, n, c = q.shape
+    if int8 and n > NAIVE_MAX_TOKENS:
+        blocks = attention_int8.pick_blocks(n, c, num_heads, cv=v.shape[-1])
+        if blocks is not None:
+            return attention_int8.attention_int8(q, k, v, scale, num_heads, blocks[1],
+                                                 impl=impl)
     if num_heads > 1:
         out = attention(
             _heads_first(q, num_heads).reshape(b * num_heads, n, -1),
@@ -245,17 +257,25 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
 
 
 def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,
-                  num_heads: int = 1) -> torch.Tensor:
+                  num_heads: int = 1, int8: bool = False) -> torch.Tensor:
     """Packed serving front end: one (B, N, 3C) array straight from the fused
-    qkv projection -> (B, N, C). Large maps whose head width is a multiple
-    of PACKED_HEAD_MULTIPLE read q/k/v in place; everything else splits and
+    qkv projection -> (B, N, C). With int8, large maps that `pick_blocks`
+    tiles take the int8 flash kernel, q read in place and k/v quantized from
+    views. Otherwise large maps whose head width is a multiple of
+    PACKED_HEAD_MULTIPLE read q/k/v in place; everything else splits and
     goes through `attention`."""
     _check_impl(impl)
     n, c = qkv.shape[1], qkv.shape[2] // 3
+    if int8 and n > NAIVE_MAX_TOKENS:
+        blocks = attention_int8.pick_blocks(n, c, num_heads)
+        if blocks is not None:
+            return attention_int8.attention_int8(
+                qkv, qkv[..., c:2 * c], qkv[..., 2 * c:], scale, num_heads, blocks[1],
+                q_width=c, impl=impl)
     if (n > NAIVE_MAX_TOKENS and c % num_heads == 0
             and (c // num_heads) % PACKED_HEAD_MULTIPLE == 0):
         if impl == "plain":
             return flash_mha_packed_plain(qkv, num_heads, scale)
         return flash_mha_packed(qkv.contiguous(), num_heads, scale)
     q, k, v = qkv.chunk(3, dim=-1)
-    return attention(q, k, v, scale, impl, num_heads)
+    return attention(q, k, v, scale, impl, num_heads, int8)

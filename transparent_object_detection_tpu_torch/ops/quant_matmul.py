@@ -1,0 +1,492 @@
+"""int8 dense projections of the serving path: [LayerNorm ->] per-row int8
+quantize -> int8 x int8 -> int32 GEMM -> dequant epilogue, with two CUDA
+kernels written for Hopper and their plain PyTorch versions.
+
+Counterpart of transparent_object_detection_tpu/ops/quant_matmul.py. Layouts
+are PyTorch's: a weight is a `Linear.weight` (N, K), so the per-output-channel
+weight scale is a max over dim 1 (the JAX kernel's (K, N) axis 0).
+
+The function (the JAX kernel's, on its TPU dispatch):
+  * weights: LN affine folded in (`fold_ln`), then per-output-channel
+    symmetric int8, `round(w / (amax / 127))` (a divide);
+  * activations: per row, `d = x - mean` when LN runs, `var = max(E[x^2] -
+    mean^2, 0)`, payload `round(d * (127 / amax|d|))` (a reciprocal
+    multiply), scale `amax / 127 * rsqrt(var + eps)` (rsqrt rides the scale);
+  * int32 accumulation to the end, then `acc * row_scale * w_scale (+ bias)
+    (gelu tanh | silu) (+ residual, in fp32)`;
+  * outputs: bf16; or `quant_out`, int8 + one scale per (row, group of
+    `group` columns), `round(v * (127 / amax))`, taken from the fp32 value;
+    or `ln_out`, bf16 plus the LN-normalized int8 payload of the fp32 value
+    and its per-row scale (the attn_out -> mlp1 handoff).
+  * Rounding is half to even throughout, as `jnp.round` rounds.
+
+Kernels (csrc/quant_matmul.cu): `quant_rows` (replaces `_quant_rows_kernel`)
+quantizes bf16 rows; `qmm` (replaces `_qmm_kernel`) takes int8 rows with 1
+or G > 1 scale groups (G > 1: each group is requantized onto the row's
+largest scale first, the JAX prologue). A bf16 input runs as quant_rows then
+qmm, the JAX split route (`_pquant_call`) on every shape.
+
+The quant_out group width is part of the numbers: the consumer (mlp2) sees G
+= N / group scale groups. `quant_out_group_width` is the port's copy of the
+integer rules by which the JAX dispatch on a TPU picks it (`_pick_blocks`,
+`_pick_layout_prequant`), kept as a numerics contract, not as a tuning.
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+plain version for CPU tensors; `impl="plain"` runs the plain versions on any
+device, for comparison only.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+# The LN-handoff gate of the int8 TEB (JAX blocks.py, TOD_LN_HANDOFF=1 and
+# TOD_LN_HANDOFF_MIN_ROWS=51200 at their defaults): attn_out emits the
+# LN2-normalized payload for mlp1 from this many rows (B * N) up.
+LN_HANDOFF_MIN_ROWS = 51200
+ACTS = (None, "gelu", "silu")
+IMPLS = (None, "plain")
+_VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
+
+
+# ---------------------------------------------------------------------------
+# weights and routing rules
+# ---------------------------------------------------------------------------
+
+
+def fold_ln(w: torch.Tensor, bias: Optional[torch.Tensor], ln_scale: torch.Tensor,
+            ln_bias: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LN(x) @ W^T + b == z @ W_eff^T + b_eff for normalized z. w (N, K)
+    fp32; the matrix-vector product runs in fp32 with TF32 off."""
+    w = w.float()
+    w_eff = w * ln_scale.float()[None, :]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        bias_eff = torch.mv(w, ln_bias.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if bias is not None:
+        bias_eff = bias_eff + bias.float()
+    return w_eff, bias_eff
+
+
+def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (N, K) -> (int8 (N, K), f32 (N,) per-output-channel scale)."""
+    w = w.float()
+    w_scale = w.abs().amax(dim=1) / 127.0
+    wq = torch.round(w / torch.clamp(w_scale, min=1e-12)[:, None]).to(torch.int8)
+    return wq, w_scale
+
+
+def dequantize(payload: torch.Tensor, scales: torch.Tensor,
+               dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(..., N) int8 + (..., G) f32 -> (..., N) values."""
+    g = payload.shape[-1] // scales.shape[-1]
+    p3 = payload.reshape(*payload.shape[:-1], scales.shape[-1], g)
+    return (p3.float() * scales[..., None]).reshape(payload.shape).to(dtype)
+
+
+def prefer_split(m: int, k: int, n: int, ln: bool, act, residual) -> bool:
+    """Where the JAX dispatch takes its split route (quant pass + plain int8
+    GEMM): the qkv projections from 51,200 rows. The port runs every bf16
+    input that way (same function as the fused kernel); the rule says which
+    JAX kernel a launch stands for (quant_rows replaces _quant_rows_kernel
+    only there)."""
+    return (ln and act is None and residual is None
+            and n == 3 * k and m >= 51200 and m % 512 == 0)
+
+
+def _pick_blocks(m: int, k: int, n: int, residual: bool = True, x_bytes: int = 2,
+                 out_bytes: int = 2, full_width_only: bool = False) -> Optional[Tuple[int, int]]:
+    """(bm, bn) of the JAX kernel's bf16-input dispatch (v5e VMEM model);
+    only bn matters here, as the quant_out group width."""
+    def vmem(bm: int, bn: int) -> int:
+        chunk = min(bm, 256)
+        resident = bn == n
+        return (2 * bm * k * x_bytes + bm * k + chunk * k * 4
+                + (1 if resident else 2) * k * bn + 2 * bm * bn * out_bytes
+                + (2 * bm * bn * 2 if residual else 0) + bm * bn * 4)
+
+    resident_bms = (1024, 512, 256) if x_bytes == 2 and out_bytes == 2 else (1024, 512, 256, 128)
+    for bm in resident_bms:
+        if m % bm == 0 and vmem(bm, n) <= _VMEM_BUDGET:
+            return bm, n
+    if full_width_only:
+        return None
+    if n <= 1536 and k <= 2048:
+        for bm in (1024, 512, 256, 128):
+            if m % bm:
+                continue
+            for bn in (768, 512, 256):
+                if n % bn == 0 and vmem(bm, bn) <= _VMEM_BUDGET:
+                    return bm, bn
+    else:
+        for bn in (768, 512, 256):
+            if n % bn:
+                continue
+            for bm in (512, 256, 128):
+                if m % bm == 0 and vmem(bm, bn) <= _VMEM_BUDGET:
+                    return bm, bn
+    return None
+
+
+def _pick_layout_prequant(m: int, k: int, n: int, groups: int,
+                          residual: bool) -> Optional[Tuple[bool, int, int]]:
+    """(m_inner, bm, bn) of the JAX kernel's int8-input dispatch."""
+    g = k // groups
+
+    def vmem(bm: int, bn: int, m_in: bool) -> int:
+        resident = (not m_in) and bn == n
+        scratch = 0 if groups == 1 else bm * k + bm * 128 * 4
+        temp = 0 if groups == 1 else bm * g * 4
+        return (2 * bm * k + scratch + temp + (1 if resident else 2) * k * bn
+                + 2 * bm * bn * 2 + (2 * bm * bn * 2 if residual else 0) + bm * bn * 4)
+
+    best = None
+    for bm in (1024, 512, 256, 128):
+        if m % bm:
+            continue
+        for bn in dict.fromkeys((n, 768, 512, 256)):
+            if n % bn:
+                continue
+            for m_in in (False, True):
+                if (m_in and bn == n) or vmem(bm, bn, m_in) > _VMEM_BUDGET:
+                    continue
+                if m_in:
+                    traffic = (n // bn) * m * k + k * n
+                else:
+                    traffic = m * k + (k * n if bn == n else (m // bm) * k * n)
+                key = (traffic, -bm)
+                if best is None or key < best[0]:
+                    best = (key, m_in, bm, bn)
+    return None if best is None else best[1:]
+
+
+def _tiles_on_tpu(k: int, n: int, groups_in: int) -> bool:
+    """Shapes on which the JAX dispatch runs its kernel at all."""
+    return (k % 128 == 0 and n % 256 == 0
+            and (groups_in == 0 or (k % groups_in == 0 and (k // groups_in) % 128 == 0)))
+
+
+def quant_out_group_width(m: int, k: int, n: int, groups_in: int,
+                          residual: bool = False) -> int:
+    """Scale-group width of a quant_out projection's output, as the JAX
+    dispatch on a TPU gives it: the kernel's n-tile where the kernel runs,
+    n (one scale per row) where it falls back. `groups_in` is the input's
+    mode: 0 for bf16 rows, G >= 1 for int8 rows with G scale groups."""
+    if not _tiles_on_tpu(k, n, groups_in):
+        return n
+    if groups_in == 0:
+        blocks = _pick_blocks(m, k, n, residual=residual, out_bytes=1)
+        return n if blocks is None else blocks[1]
+    layout = _pick_layout_prequant(m, k, n, groups_in, residual)
+    return n if layout is None else layout[2]
+
+
+def ln_handoff(m: int, c: int) -> bool:
+    """Whether the int8 TEB hands attn_out's LN2-normalized payload to mlp1
+    (JAX blocks.py: the row floor, then ln_quant_out_supported on a TPU)."""
+    if m < LN_HANDOFF_MIN_ROWS:
+        return False
+    if c % 256:
+        return True  # the JAX dispatch falls back for the whole call
+    return _pick_blocks(m, c, c, residual=True, out_bytes=3, full_width_only=True) is not None
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int8 (M, K) x int8 (N, K)^T as float64 (every partial sum of
+    int8 products below 2^53 is exact), on any device."""
+    return torch.matmul(a.double(), b.double().transpose(-1, -2))
+
+
+def _row_quant(d: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 of fp32 rows d (..., K): payload and amax/127."""
+    amax = torch.clamp(d.abs().amax(dim=-1, keepdim=True), min=floor)
+    q = torch.round(d * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
+    return q, amax * (1.0 / 127.0)
+
+
+def _ln_stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x - mean, rsqrt(max(E[x^2] - mean^2, 0) + eps)) over the last axis."""
+    mu = xf.mean(dim=-1, keepdim=True)
+    m2 = (xf * xf).mean(dim=-1, keepdim=True)
+    var = torch.clamp(m2 - mu * mu, min=0.0)
+    return xf - mu, torch.rsqrt(var + eps)
+
+
+def quant_rows_plain(x: torch.Tensor, ln: bool, eps: float = 1e-6):
+    """(M, K) -> int8 (M, K), f32 (M, 1): [LN-normalize +] per-row quantize."""
+    xf = x.float()
+    if ln:
+        d, rstd = _ln_stats(xf, eps)
+    else:
+        d, rstd = xf, 1.0
+    q, s = _row_quant(d, 1e-12)
+    return q, s * rstd
+
+
+def _requant(xq: torch.Tensor, x_scales: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(row, group) int8 onto the row's largest scale (G > 1)."""
+    groups = x_scales.shape[-1]
+    if groups == 1:
+        return xq, x_scales
+    smax = torch.clamp(x_scales.amax(dim=-1, keepdim=True), min=1e-30)
+    ratio = (x_scales / smax)[..., None]
+    x3 = xq.reshape(*xq.shape[:-1], groups, -1).float()
+    return torch.round(x3 * ratio).reshape(xq.shape).to(torch.int8), smax
+
+
+def _epilogue_plain(acc, row_scale, w_scale, bias, act, residual):
+    out = acc.float() * row_scale * w_scale
+    if bias is not None:
+        out = out + bias
+    if act == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    elif act == "silu":
+        out = out * torch.sigmoid(out)
+    if residual is not None:
+        out = out + residual.float()
+    return out
+
+
+def _output_plain(out, out_dtype, quant_out_group, ln_out_eps):
+    if quant_out_group is not None:
+        n = out.shape[-1]
+        o3 = out.reshape(*out.shape[:-1], n // quant_out_group, quant_out_group)
+        amax = torch.clamp(o3.abs().amax(dim=-1, keepdim=True), min=1e-30)
+        payload = torch.round(o3 * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
+        return payload.reshape(out.shape), amax[..., 0] * (1.0 / 127.0)
+    if ln_out_eps is not None:
+        d, rstd = _ln_stats(out, ln_out_eps)
+        q, s = _row_quant(d, 1e-12)
+        return out.to(out_dtype), q, s * rstd
+    return out.to(out_dtype)
+
+
+def qmm_plain(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
+              quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
+    """Plain version of `qmm` (the JAX `_qmm_reference` on pre-quantized x)."""
+    xq, row_scale = _requant(xq, x_scales)
+    out = _epilogue_plain(_int_dot(xq, wq), row_scale, w_scale, bias, act, residual)
+    return _output_plain(out, out_dtype, quant_out_group, ln_out_eps)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("quant_matmul")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, vp]
+        lib.quant_rows.restype = ci
+        lib.qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.qmm.restype = ci
+        lib.qmm_rows_out.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+        lib.qmm_rows_out.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6):
+    """[LN-normalize +] per-row int8 quantize: bf16 (M, K) -> int8 (M, K),
+    f32 (M, 1). Port of ops/quant_matmul.py::_quant_rows_kernel. A CUDA
+    tensor launches csrc/quant_matmul.cu; a CPU tensor runs
+    `quant_rows_plain`."""
+    if x.device.type == "cpu":
+        return quant_rows_plain(x, ln, eps)
+    m, k = x.shape
+    _check("x", x, torch.bfloat16)
+    if k % 8:
+        raise ValueError(f"quant_rows takes row widths that are a multiple of 8, got {k}")
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    err = _lib().quant_rows(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, int(ln),
+                            eps, _stream(x))
+    _raise_on(err, "quant_rows")
+    quant_rows.launches += 1
+    return xq, xs
+
+
+_ACT_CODE = {None: 0, "gelu": 1, "silu": 2}
+
+
+def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
+        quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
+    """int8 GEMM with the dequant epilogue. xq int8 (M, K) with x_scales f32
+    (M, G); wq int8 (N, K), w_scale f32 (N,); bias f32 (N,); residual bf16
+    (M, N). Returns bf16 (M, N); with `quant_out_group`, int8 (M, N) and f32
+    (M, N / group); with `ln_out_eps`, bf16 (M, N), int8 (M, N), f32 (M, 1).
+
+    Port of ops/quant_matmul.py::_qmm_kernel. A CUDA tensor launches
+    csrc/quant_matmul.cu (the quant_out and ln_out outputs as the GEMM into
+    an fp32 workspace plus a row pass, two CUDA launches counted as one);
+    a CPU tensor runs `qmm_plain`."""
+    if act not in ACTS:
+        raise ValueError(f"unknown act {act!r}; choose from {ACTS}")
+    if quant_out_group is not None and ln_out_eps is not None:
+        raise ValueError("quant_out and ln_out are exclusive")
+    if xq.device.type == "cpu":
+        return qmm_plain(xq, x_scales, wq, w_scale, bias, act, residual, quant_out_group,
+                         ln_out_eps, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"the qmm kernel writes bfloat16, not {out_dtype}")
+    m, k = xq.shape
+    n = wq.shape[0]
+    groups = x_scales.shape[-1]
+    _check("xq", xq, torch.int8)
+    _check("x_scales", x_scales, torch.float32, (m, groups))
+    _check("wq", wq, torch.int8, (n, k))
+    _check("w_scale", w_scale, torch.float32, (n,))
+    if bias is not None:
+        _check("bias", bias, torch.float32, (n,))
+    if residual is not None:
+        _check("residual", residual, torch.bfloat16, (m, n))
+    if n % 128 or k % 64 or k % groups or (k // groups) % 64:
+        raise ValueError(f"qmm takes N % 128 == 0 and K % 64 == 0 with groups of a multiple "
+                         f"of 64 columns, got M={m} K={k} N={n} G={groups}")
+    if quant_out_group is not None and (n % quant_out_group or quant_out_group % 4):
+        raise ValueError(f"quant_out group {quant_out_group} does not tile N={n}")
+    rows_out = quant_out_group is not None or ln_out_eps is not None
+    dev = xq.device
+    out = torch.empty((m, n), dtype=torch.float32 if rows_out else torch.bfloat16, device=dev)
+    null = lambda t: 0 if t is None else t.data_ptr()
+    lib = _lib()
+    err = lib.qmm(xq.data_ptr(), x_scales.data_ptr(), wq.data_ptr(), w_scale.data_ptr(),
+                  null(bias), null(residual), out.data_ptr(), m, n, k, groups,
+                  _ACT_CODE[act], int(rows_out), _stream(xq))
+    _raise_on(err, "qmm")
+    if rows_out:
+        payload = torch.empty((m, n), dtype=torch.int8, device=dev)
+        if quant_out_group is not None:
+            scales = torch.empty((m, n // quant_out_group), dtype=torch.float32, device=dev)
+            err = lib.qmm_rows_out(out.data_ptr(), payload.data_ptr(), scales.data_ptr(), None,
+                                   m, n, quant_out_group, 0, 0.0, _stream(xq))
+            result = (payload, scales)
+        else:
+            scales = torch.empty((m, 1), dtype=torch.float32, device=dev)
+            value = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            err = lib.qmm_rows_out(out.data_ptr(), payload.data_ptr(), scales.data_ptr(),
+                                   value.data_ptr(), m, n, n, 1, ln_out_eps, _stream(xq))
+            result = (value, payload, scales)
+        _raise_on(err, "qmm row pass")
+        out = result
+    qmm.launches += 1
+    return out
+
+
+quant_rows.launches = 0
+qmm.launches = 0
+
+
+def reset_launch_counts() -> None:
+    quant_rows.launches = 0
+    qmm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# front end
+# ---------------------------------------------------------------------------
+
+
+def prepare_weights(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                    ln_scale: Optional[torch.Tensor] = None,
+                    ln_bias: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The weight side of a projection: LN affine folded in, then int8."""
+    if ln_scale is not None:
+        w, bias = fold_ln(w, bias, ln_scale, ln_bias)
+    wq, w_scale = quantize_weights(w)
+    return {"wq": wq, "w_scale": w_scale,
+            "bias": None if bias is None else bias.float().contiguous()}
+
+
+def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln: bool = False,
+                 ln_eps: float = 1e-6, act: Optional[str] = None,
+                 residual: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16,
+                 quant_out: bool = False,
+                 x_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 x_quant_normalized: bool = False, ln_quant_out: bool = False,
+                 impl: Optional[str] = None):
+    """[LayerNorm ->] int8 quantize -> int8 GEMM -> [bias/act/residual], on
+    (..., K) rows; `weights` from `prepare_weights` (LN affine folded in when
+    `ln`). Counterpart of JAX quant_matmul (without its mesh branch):
+
+      * `quant_out`: returns (int8 (..., N), f32 (..., N / g)) with g from
+        `quant_out_group_width` for this call's shapes;
+      * `x_quant=(payload, scales)`: int8 input with G scale groups (pass
+        x=None); with `x_quant_normalized`, the payload is a producer's
+        LN-normalized ln_quant_out (the LN affine is in `weights`);
+      * `ln_quant_out`: returns (value, LN-normalized int8 payload, per-row
+        scale), ln_eps being the output LN's epsilon.
+    """
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    assert not (quant_out and ln_quant_out)
+    if x_quant is not None:
+        assert x is None, "x_quant is exclusive with x"
+        assert ln == x_quant_normalized, (
+            "x_quant + LN requires x_quant_normalized=True (the payload must be a "
+            "producer's ln_quant_out)")
+        x, x_scales = x_quant
+        groups = x_scales.shape[-1]
+    else:
+        groups = 0
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    m = x.numel() // k
+    wq = weights["wq"]
+    n = wq.shape[0]
+    plain = impl == "plain"
+    if groups == 0:
+        rows = quant_rows_plain if plain else quant_rows
+        xq, scales = rows(x.reshape(m, k).contiguous(), ln, ln_eps)
+    else:
+        xq, scales = x.reshape(m, k).contiguous(), x_scales.reshape(m, groups).contiguous()
+    group = (quant_out_group_width(m, k, n, groups, residual is not None)
+             if quant_out else None)
+    res2d = None if residual is None else residual.reshape(m, n).contiguous()
+    out = (qmm_plain if plain else qmm)(
+        xq, scales, wq, weights["w_scale"], weights["bias"], act, res2d, group,
+        ln_eps if ln_quant_out else None, out_dtype)
+    if quant_out:
+        payload, s = out
+        return payload.reshape(*lead, n), s.reshape(*lead, n // group)
+    if ln_quant_out:
+        value, payload, s = out
+        return value.reshape(*lead, n), payload.reshape(*lead, n), s.reshape(*lead, 1)
+    return out.reshape(*lead, n)
