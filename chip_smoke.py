@@ -39,7 +39,23 @@
    planted fault's); every launch of one batch-2 forward against its plain
    version, timed beside its bound and a library yardstick; launches per
    forward at batch 1 and 32; timings beside the bf16 run's; a profile.
-6. Prints a JSON line of the five kernels, the card's name and power limit,
+6. Training kernel phase: flash_fwd_lse (out and lse), flash_bwd_dq and
+   flash_bwd_dkv against their plain versions at the phi='s' training
+   path's shapes (batch 2) and a ragged N, near-flat and peaked inputs, with
+   the kernel bar plus a norm bar on the gradients; planted faults each bar
+   must reject (a kv tile dropped, the scale 2% off, a query tile unwritten;
+   a key tile skipped in the dq loop, a query tile skipped in the dk/dv
+   loop, the -D term dropped, lse off by 0.01, the scale missing from dS);
+   two runs of the backward must give the same bits. Times kernel, plain
+   version and SDPA forward / backward.
+7. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
+   (SGD nesterov, EMA), synthetic batches like the JAX bench_train.py's. One
+   batch-2 step with the launch counts reset before and read after
+   (fwd-lse 4, dq 4, dk/dv 4, no serving kernel), held against the same step
+   on the plain versions from the same weights (gradients, parameters, BN
+   statistics, EMA, losses), and the plain step with planted faults; then
+   timed steps at batch 16 (launches per step asserted) and a profile.
+8. Prints a JSON line of the eight kernels, the card's name and power limit,
    then {"ok": true, "device": ...} last.
 
 Any failed check exits non-zero before the last line. TF32 is off for
@@ -240,9 +256,9 @@ def kernel_phase():
 
 def kernel_entry(name, source, replaces, rows, launches):
     """One line of the kernels report: the main path's shapes summed (one
-    forward's worth of this kernel's launches at batch 2), the ragged shape
-    kept in `shapes` and in the error."""
-    main = [r for r in rows if r["node"] != "ragged"]
+    forward's or training step's worth of this kernel's launches at batch
+    2), the ragged shapes kept in `shapes` and in the error."""
+    main = [r for r in rows if not r["node"].startswith("ragged")]
     total = lambda key: sum(r[key] for r in main)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -256,11 +272,13 @@ def kernel_entry(name, source, replaces, rows, launches):
 
 KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
     ("flash attention (ours)", ("flash_fwd_kernel",)),
+    ("flash attention backward (ours)", ("flash_bwd_kernel",)),
+    ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
     ("int8 flash attention (ours)", ("flash_int8_kernel",)),
     ("int8 GEMM (ours)", ("qmm_kernel", "rows_out_kernel")),
     ("int8 row quantize (ours)", ("quant_rows_kernel",)),
     ("batch/layer norm", ("bn_fw", "batch_norm", "layer_norm")),
-    ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad")),
+    ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
     ("matmul", ("gemm", "xmma", "cutlass", "nvjet", "Kernel2")),
     ("reduction", ("reduce", "softmax")),
     ("elementwise and copies", ("elementwise", "vectorized", "unrolled", "copy", "fill",
@@ -269,22 +287,30 @@ KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
 
 
 def profile_forward(model, images) -> dict:
-    """Device time of one forward by kernel class and the top kernels, from
-    torch.profiler, and the device's idle share of the forward's wall time
+    """`profile_call` of one forward."""
+    return profile_call(lambda: model(images), int(images.shape[0]))
+
+
+def profile_call(fn, batch: int) -> dict:
+    """Device time of one call by kernel class and the top kernels, from
+    torch.profiler, and the device's idle share of the call's wall time
     (profiler overhead included)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model(images)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device kernels only: the aten:: operator rows repeat their kernels' time
+    # device kernels only: operator rows (aten::, autograd Functions) repeat
+    # their kernels' time, and "Command Buffer Full" marks a full launch queue
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
-               if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key != "Command Buffer Full"]
     busy = sum(t for _, t, _ in kernels)
     classes = {}
     for name, t, _ in kernels:
@@ -292,7 +318,7 @@ def profile_forward(model, images) -> dict:
                     if any(k.lower() in name.lower() for k in keys)), "other")
         classes[cls] = classes.get(cls, 0.0) + t
     top = sorted(kernels, key=lambda r: -r[1])[:12]
-    reading = {"profile_batch": int(images.shape[0]), "wall_ms": wall_ms,
+    reading = {"profile_batch": batch, "wall_ms": wall_ms,
                "device_busy_ms": busy, "idle_share": (1 - busy / wall_ms) if busy else None,
                "by_class_ms": classes,
                "top_kernels": [{"name": n[:90], "ms": t, "count": c} for n, t, c in top]}
@@ -1090,6 +1116,509 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
     }
 
 
+# ---------------------------------------------------------------------------
+# training: flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv and the train step
+# ---------------------------------------------------------------------------
+
+# Gradient bar: the kernel bar per element, and besides it
+# ||kernel - plain|| / ||plain|| <= TRAIN_NORM_RTOL. Kernels and plain
+# versions round P and dS to bf16 at the same points, so their sums differ in
+# order only; a fault that scales a gradient by 1% everywhere (lse off by
+# 0.01) stays under a per-element bar a bf16 ulp wide but not under this one.
+TRAIN_NORM_RTOL = 2e-3
+LSE_ATOL = 1e-3  # lse is fp32; kernel and plain sum l in another order
+# name -> (B, N, q/k width, v width, heads): the training path at batch 2
+TRAIN_SHAPES = {"h1": (2, 1600, 2048, 2048, 8), "h2": (2, 6400, 1536, 1536, 6),
+                "h4": (2, 1600, 1536, 1536, 6), "dark3": (2, 6400, 64, 512, 1),
+                "ragged": (2, 3600, 1536, 1536, 6), "ragged_single": (2, 3600, 64, 512, 1)}
+TRAIN_BATCH = 16  # the JAX bench_train.py default
+TRAIN_LR = 1e-3
+# Limits of one batch-2 train step with kernels against the same step with
+# the plain versions, from the same weights (global relative errors, see
+# compare_steps). The gradient and update limits lie between the sound
+# reading (gradients 0.364, parameter and EMA change 0.359) and that of the
+# planted fault in TRAIN_SLICE_REJECTS (3.99, 1.095) on an H100 (PERF.md);
+# no planted backward fault moves the losses or the BatchNorm statistics,
+# whose limits sit above the sound reading (1.2e-3, 6.4e-3).
+TRAIN_GRAD_LIMIT = 1.0
+TRAIN_UPDATE_LIMIT = 0.6
+TRAIN_LOSS_LIMIT = 1e-2
+TRAIN_STATS_LIMIT = 0.05
+TRAIN_SLICE_REJECTS = ("D_term_dropped",)
+TRAIN_SLICE_FAULTS = ("D_term_dropped", "lse_off_by_0.01")
+
+
+def grad_reading(out, ref) -> dict:
+    diff = (out.float() - ref.float())
+    norm_rel = float(diff.norm() / ref.float().norm().clamp(min=1e-30))
+    per_elem = bar_used(out, ref)
+    return {"bar_used": max(per_elem, norm_rel / TRAIN_NORM_RTOL), "elem_bar_used": per_elem,
+            "norm_rel": norm_rel, "max_abs_err": float(diff.abs().max())}
+
+
+def _train_inputs(gen, b, n, cq, cv, h, score_std):
+    """q, k, v (column views of one packed qkv when h > 1) and dO, bf16."""
+    import torch
+
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEVICE)
+    scale = (cq // h) ** -0.5 if h > 1 else 1.0
+    std = (score_std / (scale * (cq // h) ** 0.5)) ** 0.5
+    if h > 1:
+        qkv = randn(b, n, 3 * cq)
+        qkv[..., :2 * cq] *= std
+        qkv = qkv.bfloat16()
+        q, k, v = qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+    else:
+        q, k = ((randn(b, n, cq) * std).bfloat16() for _ in range(2))
+        v = randn(b, n, cv).bfloat16()
+    return q, k, v, randn(b, n, cv).bfloat16(), scale
+
+
+def _drop_rows(t, lo=64, hi=128):
+    """t without rows lo..hi-1 of its token axis (-2 for (.., N, 1) stats)."""
+    import torch
+
+    axis = 1 if t.dim() == 3 and t.shape[-1] != 1 else t.dim() - 2
+    keep = torch.ones(t.shape[axis], dtype=torch.bool, device=t.device)
+    keep[lo:hi] = False
+    return t[(slice(None),) * axis + (keep,)]
+
+
+def _fwd_faults(V, q, k, v, scale, h):
+    """The plain forward with a planted fault: what a kernel that made that
+    mistake would return (out, lse)."""
+    out_tile = V.flash_fwd_lse_plain(q, k, v, scale, h)
+    out_tile[0][:, 64:128] = 0
+    out_tile[1][..., 64:128, :] = 0
+    return {"kv_tile_dropped": V.flash_fwd_lse_plain(q, _drop_rows(k), _drop_rows(v), scale, h),
+            "softmax_scale_x1.02": V.flash_fwd_lse_plain(q, k, v, scale * 1.02, h),
+            "query_tile_unwritten": out_tile}
+
+
+def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
+    """The plain backward with a planted fault -> {fault: {grad: value}}."""
+    import torch
+
+    dq = lambda *a: {"dq": V.flash_bwd_dq_plain(*a, scale, h)}
+    dkv = lambda *a: dict(zip(("dk", "dv"), V.flash_bwd_dkv_plain(*a, scale, h)))
+    both = lambda *a: {**dq(*a), **dkv(*a)}
+    faults = {
+        "key_tile_skipped_in_dq": dq(q, _drop_rows(k), _drop_rows(v), do, lse, dcap),
+        "query_tile_skipped_in_dkv": dkv(_drop_rows(q), k, v, _drop_rows(do), _drop_rows(lse),
+                                         _drop_rows(dcap)),
+        "D_term_dropped": both(q, k, v, do, lse, torch.zeros_like(dcap)),
+        "lse_off_by_0.01": both(q, k, v, do, lse + 0.01, dcap),
+    }
+    if h > 1:  # dark3's scale is 1
+        sound = both(q, k, v, do, lse, dcap)
+        faults["scale_missing_from_dS"] = {"dq": sound["dq"] / scale, "dk": sound["dk"] / scale}
+    return faults
+
+
+def _train_costs(b, n, cq, cv, h):
+    """(operations, bytes) of fwd-lse, dq and dkv at one shape; cq, cv summed
+    over heads. Each input read once, each output written once."""
+    stats = 4 * b * h * n  # one fp32 per (batch, head, query)
+    qkv = 2 * b * n * (2 * cq + cv)
+    return {"flash_fwd_lse": (2.0 * b * n * n * (cq + cv), qkv + 2 * b * n * cv + stats),
+            "flash_bwd_dq": (2.0 * b * n * n * (2 * cq + cv),
+                             qkv + 2 * b * n * cv + 2 * stats + 2 * b * n * cq),
+            "flash_bwd_dkv": (2.0 * b * n * n * (2 * cq + 2 * cv),
+                              qkv + 2 * b * n * cv + 2 * stats + 2 * b * n * (cq + cv))}
+
+
+def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
+    """fwd-lse, dq and dk/dv against their plain versions at the training
+    path's shapes (batch 2) and a ragged N, near-flat and peaked inputs; each
+    planted fault must be rejected; the backward must give the same bits
+    twice. Times kernel, plain version and SDPA (forward; backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    rows = {name: [] for name in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+    for node, (b, n, cq, cv, h) in shapes.items():
+        readings = {name: [] for name in rows}
+        for score_std in SCORE_STDS:
+            q, k, v, do, scale = _train_inputs(gen, b, n, cq, cv, h, score_std)
+            out, lse = V.flash_fwd_lse(q, k, v, scale, h)
+            torch.cuda.synchronize()
+            pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+            fwd = {"score_std": score_std, "bar_used": bar_used(out, pout),
+                   "max_abs_err": float((out.float() - pout.float()).abs().max()),
+                   "lse_max_abs_err": float((lse - plse).abs().max())}
+            fwd["faults_rejected_by"] = {
+                f: max(bar_used(fo, pout), float((fl - plse).abs().max()) / LSE_ATOL)
+                for f, (fo, fl) in _fwd_faults(V, q, k, v, scale, h).items()}
+            readings["flash_fwd_lse"].append(fwd)
+            check(fwd["bar_used"] <= 1.0 and fwd["lse_max_abs_err"] <= LSE_ATOL,
+                  f"flash_fwd_lse {node}: {fwd}")
+            for f, used in fwd["faults_rejected_by"].items():
+                check(used > 1.0, f"flash_fwd_lse {node}: the bar does not reject {f}")
+
+            dcap = V.compute_dcap(pout, do, h)
+            dq = V.flash_bwd_dq(q, k, v, do, plse, dcap, scale, h)
+            dk, dv = V.flash_bwd_dkv(q, k, v, do, plse, dcap, scale, h)
+            dq2 = V.flash_bwd_dq(q, k, v, do, plse, dcap, scale, h)
+            dk2, dv2 = V.flash_bwd_dkv(q, k, v, do, plse, dcap, scale, h)
+            torch.cuda.synchronize()
+            check(torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2),
+                  f"flash backward {node}: two runs gave different bits")
+            got = {"dq": dq, "dk": dk, "dv": dv}
+            ref = {"dq": V.flash_bwd_dq_plain(q, k, v, do, plse, dcap, scale, h)}
+            ref["dk"], ref["dv"] = V.flash_bwd_dkv_plain(q, k, v, do, plse, dcap, scale, h)
+            faults = _bwd_faults(V, q, k, v, do, plse, dcap, scale, h)
+            for name, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+                r = {"score_std": score_std, "bitwise_repeat": True}
+                for gname in grads:
+                    r[gname] = grad_reading(got[gname], ref[gname])
+                    check(r[gname]["bar_used"] <= 1.0, f"{name} {node} {gname}: {r[gname]}")
+                r["bar_used"] = max(r[gname]["bar_used"] for gname in grads)
+                r["max_abs_err"] = max(r[gname]["max_abs_err"] for gname in grads)
+                r["faults_rejected_by"] = {
+                    f: max(grad_reading(fg[gname], ref[gname])["bar_used"]
+                           for gname in grads if gname in fg)
+                    for f, fg in faults.items() if any(gname in fg for gname in grads)}
+                for f, used in r["faults_rejected_by"].items():
+                    check(used > 1.0, f"{name} {node}: the bar does not reject {f} ({used:.3g}x)")
+                readings[name].append(r)
+        # timing on the last (peaked) inputs
+        costs = _train_costs(b, n, cq, cv, h)
+        dcap = V.compute_dcap(pout, do, h)
+        kern = {"flash_fwd_lse": lambda: V.flash_fwd_lse(q, k, v, scale, h),
+                "flash_bwd_dq": lambda: V.flash_bwd_dq(q, k, v, do, plse, dcap, scale, h),
+                "flash_bwd_dkv": lambda: V.flash_bwd_dkv(q, k, v, do, plse, dcap, scale, h)}
+        plain = {"flash_fwd_lse": lambda: V.flash_fwd_lse_plain(q, k, v, scale, h),
+                 "flash_bwd_dq": lambda: V.flash_bwd_dq_plain(q, k, v, do, plse, dcap, scale, h),
+                 "flash_bwd_dkv": lambda: V.flash_bwd_dkv_plain(q, k, v, do, plse, dcap, scale,
+                                                                h)}
+        qh, kh, vh, doh = (V._split_heads(t, h).detach().contiguous() for t in (q, k, v, do))
+        qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+        sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale).backward(doh)
+        sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 10) - sdpa_fwd, 0.0)
+        library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+        for name in rows:
+            ops, nbytes = costs[name]
+            bnd, by = bound_ms(ops, nbytes)
+            rows[name].append(dict(
+                node=node, b=b, n=n, cq=cq, cv=cv, heads=h, readings=readings[name],
+                ms=timed_ms(kern[name], 10), plain_ms=timed_ms(plain[name], 2, 1),
+                library_ms=library[name], bound_ms=bnd, bound_by=by))
+            print(json.dumps({"kernel": name, **rows[name][-1]}), flush=True)
+    return rows
+
+
+def _model_snapshot(model, state):
+    """Copies of everything a train step changes."""
+    clone = lambda d: {k: v.detach().clone() for k, v in d.items()}
+    return (clone(model.state_dict()), {k: clone(v) for k, v in state.opt_state.items()},
+            clone(state.ema_params), clone(state.ema_batch_stats), state.ema_updates, state.step)
+
+
+def _restore(model, state, snap):
+    import torch
+
+    sd, opt, ema_p, ema_b, upd, step = snap
+    with torch.no_grad():
+        model.load_state_dict(sd)
+        for key, tensors in opt.items():
+            for n, t in tensors.items():
+                state.opt_state[key][n].copy_(t)
+        for d, src in ((state.ema_params, ema_p), (state.ema_batch_stats, ema_b)):
+            for n, t in src.items():
+                d[n].copy_(t)
+    state.ema_updates, state.step = upd, step
+
+
+def _step_record(model, state, comps=None):
+    """What a step produced (or, without comps, the state before it)."""
+    import torch
+
+    params = dict(model.named_parameters())
+    rec = {"params": {n: p.detach().clone() for n, p in params.items()},
+           "stats": {n: b.detach().clone() for n, b in model.named_buffers()},
+           "ema": {n: t.clone() for n, t in state.ema_params.items()}}
+    if comps is not None:
+        rec["comps"] = {k: float(v) for k, v in comps.items()}
+        rec["grads"] = {n: p.grad.detach().clone() for n, p in params.items()}
+        rec["finite"] = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
+    return rec
+
+
+def _global_rel(diff: dict, ref: dict, names) -> float:
+    """sqrt(sum ||diff||^2 / sum ||ref||^2) over the named tensors."""
+    num = sum(float(diff[n].double().square().sum()) for n in names)
+    den = sum(float(ref[n].double().square().sum()) for n in names)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def compare_steps(got, ref, old) -> dict:
+    """One step against another from the same state: the losses' relative
+    errors, and the global relative error (over all leaves of a group, as
+    sqrt(sum of squared differences / sum of squared reference values)) of
+    the gradients, of the parameters' change, of the EMA's change and of the
+    BatchNorm statistics' change. The worst single leaf (error over the
+    leaf's largest magnitude) is reported, not bounded: the bf16 gradient of
+    this random-weight model is a small difference of large terms (the
+    classification loss pushes every anchor alike and training-mode
+    BatchNorm removes that mean), so single leaves are noisy."""
+    names = list(ref["grads"])
+    groups = {g: [n for n in names if n.startswith(g + ".")] for g in ("backbone", "neck", "head")}
+    sub = lambda a, b: {n: a[n].float() - b[n].float() for n in a}
+    d_ref = sub(ref["params"], old["params"])
+    out = {"grads": {g: _global_rel(sub(got["grads"], ref["grads"]), ref["grads"], ns)
+                     for g, ns in groups.items()}}
+    out["grads"]["all"] = _global_rel(sub(got["grads"], ref["grads"]), ref["grads"], names)
+    out["param_change"] = _global_rel(sub(got["params"], ref["params"]), d_ref, names)
+    out["ema_change"] = _global_rel(sub(got["ema"], ref["ema"]),
+                                    sub(ref["ema"], old["ema"]), names)
+    stats = list(ref["stats"])
+    out["bn_stats_change"] = _global_rel(sub(got["stats"], ref["stats"]),
+                                         sub(ref["stats"], old["stats"]), stats)
+    out["loss_rel"] = {k: abs(got["comps"][k] - ref["comps"][k]) / max(abs(ref["comps"][k]), 1e-30)
+                       for k in ("loss", "loss_iou", "loss_cls", "loss_dfl")}
+    out["num_fg"] = (got["comps"]["num_fg"], ref["comps"]["num_fg"])
+    worst = max(names, key=lambda n: float((got["grads"][n].float() - ref["grads"][n].float())
+                                           .abs().max() / ref["grads"][n].float().abs().max()
+                                           .clamp(min=1e-30)))
+    out["worst_leaf"] = (worst, float((got["grads"][worst].float() - ref["grads"][worst].float())
+                                     .abs().max() / ref["grads"][worst].float().abs().max()))
+    return out
+
+
+@contextlib.contextmanager
+def planted_train_fault(fault: str):
+    """The plain backward with a planted fault (the D term dropped, or lse
+    off by 0.01 in the recompute)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    real = V._bwd_plain
+
+    def faulty(q, k, v, do, lse, dcap, *args, **kw):
+        if fault == "D_term_dropped":
+            dcap = torch.zeros_like(dcap)
+        else:
+            lse = lse + 0.01
+        return real(q, k, v, do, lse, dcap, *args, **kw)
+    V._bwd_plain = faulty
+    try:
+        yield
+    finally:
+        V._bwd_plain = real
+
+
+def train_path_calls(step, state, batch, restore) -> None:
+    """Every training-kernel launch of one step (uncounted), recorded with
+    its arguments and held against its plain version on the same
+    activations: the forward's out with the kernel bar and its lse within
+    LSE_ATOL, the gradients with the gradient bar."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    calls = []
+    real = {n: getattr(V, n) for n in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
+
+    def recording(name):
+        def launch(*args, **kw):
+            out = real[name](*args, **kw)
+            kept = tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
+            calls.append((name, args, kw, kept))
+            return out
+        launch.launches = 0  # the wrapper counts on the name it is bound to
+        return launch
+
+    for name in real:
+        setattr(V, name, recording(name))
+    try:
+        restore()
+        step(state, batch, TRAIN_LR)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in real.items():
+            setattr(V, name, fn)
+    expected = sum(TRAIN_EXPECTED[name] for name in real)
+    check(len(calls) == expected,
+          f"expected {expected} training-kernel launches in a step, got {len(calls)}")
+    with torch.no_grad():  # the saved inputs require grad; the plain versions need none
+        for i, (name, args, kw, out) in enumerate(calls):
+            kw = {k: v for k, v in kw.items() if k not in ("dq", "dk", "dv")}
+            q, heads = args[0], (args[4] if name == "flash_fwd_lse" else args[7])
+            if name == "flash_fwd_lse":
+                pout, plse = V.flash_fwd_lse_plain(*args, **kw)
+                r = {"bar_used": bar_used(out[0], pout),
+                     "lse_max_abs_err": float((out[1] - plse).abs().max())}
+                r["bar_used"] = max(r["bar_used"], r["lse_max_abs_err"] / LSE_ATOL)
+            elif name == "flash_bwd_dq":
+                r = grad_reading(out, V.flash_bwd_dq_plain(*args, **kw))
+            else:
+                pk, pv = V.flash_bwd_dkv_plain(*args, **kw)
+                r = {"dk": grad_reading(out[0], pk), "dv": grad_reading(out[1], pv)}
+                r["bar_used"] = max(r["dk"]["bar_used"], r["dv"]["bar_used"])
+            print(json.dumps({"train_path_call": name, "launch": i, "n": q.shape[1],
+                              "q_width": q.shape[2], "heads": heads, **r}), flush=True)
+            check(r["bar_used"] <= 1.0, f"{name} launch {i} on the path's activations: {r}")
+
+
+def train_launch_counts():
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    resets = (A.reset_launch_counts, A8.reset_launch_counts, QM.reset_launch_counts,
+              V.reset_launch_counts)
+    read = lambda: {"flash_fwd_lse": V.flash_fwd_lse.launches,
+                    "flash_bwd_dq": V.flash_bwd_dq.launches,
+                    "flash_bwd_dkv": V.flash_bwd_dkv.launches,
+                    "flash_mha_packed": A.flash_mha_packed.launches,
+                    "flash_single": A.flash_single.launches,
+                    "flash_mha_int8": A8.flash_mha_int8.launches, "qmm": QM.qmm.launches,
+                    "quant_rows": QM.quant_rows.launches}
+    return resets, read
+
+
+TRAIN_EXPECTED = {"flash_fwd_lse": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
+                  "flash_mha_packed": 0, "flash_single": 0, "flash_mha_int8": 0, "qmm": 0,
+                  "quant_rows": 0}
+
+
+def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
+    """The port's make_train_step on FocusModel phi='s' 640x640 bf16 (SGD,
+    EMA on; `cfg` another ModelConfig for a rehearsal), on seeded synthetic
+    batches like the JAX bench_train.py's: the counted main path, kernels
+    against plain versions from the same weights (and planted faults), then
+    timed steps at `train_batch` and a profile."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.models.detector import (
+        build_model,
+        set_attention_impl,
+    )
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    from transparent_object_detection_tpu_torch.train.trainer import (
+        create_train_state,
+        loss_config_from,
+        make_train_step,
+    )
+
+    cfg = cfg or ModelConfig()
+    tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+    model = build_model(cfg, device=DEVICE, seed=SEED)
+    with torch.no_grad():  # else dark3's attention gets a zero cotangent
+        model.backbone.dark3_attn.gamma.fill_(0.5)
+    opt = build_optimizer(tcfg, model)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg)
+
+    def batch_of(b, seed):
+        rng = np.random.default_rng(seed)
+        boxes = np.zeros((b, 64, 4), np.float32)
+        boxes[:, 0] = [0.5, 0.5, 0.4, 0.4]
+        boxes[:, 1] = [0.25, 0.3, 0.2, 0.2]
+        h, w = cfg.input_shape
+        return {"image": torch.as_tensor(rng.uniform(size=(b, h, w, 3)).astype(np.float32),
+                                         device=DEVICE),
+                "boxes": torch.as_tensor(boxes, device=DEVICE),
+                "labels": torch.zeros((b, 64), dtype=torch.long, device=DEVICE)}
+
+    resets, read = train_launch_counts()
+    batch2 = batch_of(2, SEED)
+    snap = _model_snapshot(model, state)
+    old = _step_record(model, state)
+    # the main path, counted: counts to 0 just before, read just after
+    for reset in resets:
+        reset()
+    state, comps = step(state, batch2, TRAIN_LR)
+    torch.cuda.synchronize()
+    launches = read()
+    print(json.dumps({"train_main_path_launches": launches}), flush=True)
+    check(launches == TRAIN_EXPECTED, f"train step launches {launches}, expected {TRAIN_EXPECTED}")
+    got = _step_record(model, state, comps)
+    check(got["finite"] and all(np.isfinite(v) for v in got["comps"].values()),
+          f"non-finite loss or gradient: {got['comps']}")
+
+    def plain_step(fault=None):
+        _restore(model, state, snap)
+        set_attention_impl(model, "plain")
+        try:
+            with planted_train_fault(fault) if fault else contextlib.nullcontext():
+                st, c = step(state, batch2, TRAIN_LR)
+            return _step_record(model, st, c)
+        finally:
+            set_attention_impl(model, None)
+
+    ref = plain_step()
+    sound = compare_steps(got, ref, old)
+    plain_again = compare_steps(plain_step(), ref, old)
+    faults = {f: compare_steps(plain_step(f), ref, old) for f in TRAIN_SLICE_FAULTS}
+    limits = {"grads": TRAIN_GRAD_LIMIT, "param_change": TRAIN_UPDATE_LIMIT,
+              "ema_change": TRAIN_UPDATE_LIMIT, "bn_stats_change": TRAIN_STATS_LIMIT,
+              "loss_rel": TRAIN_LOSS_LIMIT}
+    print(json.dumps({"train_slice_parity": {
+        "kernels": sound, "plain_run_twice": plain_again, "planted_faults": faults,
+        "loss_kernels": got["comps"], "loss_plain": ref["comps"], "limits": limits}}),
+        flush=True)
+    readings = lambda r: {"grads": r["grads"]["all"], "param_change": r["param_change"],
+                          "ema_change": r["ema_change"], "bn_stats_change": r["bn_stats_change"],
+                          "loss_rel": max(r["loss_rel"].values())}
+    for key, value in readings(sound).items():
+        check(value <= limits[key], f"a train step with kernels differs from plain: {key} {value}")
+    for f in TRAIN_SLICE_REJECTS:
+        r = readings(faults[f])
+        check(all(r[key] > limits[key] for key in ("grads", "param_change", "ema_change")),
+              f"the train slice limits do not reject {f}: {r}")
+    del got, ref, old
+    train_path_calls(step, state, batch2, lambda: _restore(model, state, snap))
+
+    # launches per step at batch 1 (the routing does not depend on the batch)
+    for reset in resets:
+        reset()
+    step(state, batch_of(1, SEED + 2), TRAIN_LR)
+    torch.cuda.synchronize()
+    check(read() == TRAIN_EXPECTED, f"launches per step at batch 1: {read()}")
+    _restore(model, state, snap)
+    del snap
+    torch.cuda.empty_cache()
+
+    # timing at train_batch: 1 warm-up step, then timed steps, host clock
+    batch = batch_of(train_batch, SEED + 1)
+    torch.cuda.reset_peak_memory_stats()
+    state, comps = step(state, batch, TRAIN_LR)
+    losses = [float(comps["loss"])]
+    per_step, times = [], []
+    for _ in range(3):
+        for reset in resets:
+            reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, comps = step(state, batch, TRAIN_LR)
+        losses.append(float(comps["loss"]))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for counts in per_step:
+        check(counts == TRAIN_EXPECTED, f"launches per step at batch {train_batch}: {counts}")
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    profile = profile_call(lambda: step(state, batch, TRAIN_LR), train_batch)
+    ms = sorted(times)[len(times) // 2]
+    perf = {"card": card, "model": "phi=s 640x640 bf16 train step (SGD nesterov, EMA)",
+            "batch": train_batch, "step_ms": ms, "step_ms_all": times,
+            "imgs_per_s": train_batch / ms * 1e3, "peak_mem_gib": peak, "losses": losses,
+            "launches_per_step": per_step[-1], "profile_idle_share": profile["idle_share"]}
+    print(json.dumps({"train_slice_perf": perf}), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1114,8 +1643,14 @@ def main() -> int:
 
     mha_rows, single_rows = kernel_phase()
     int8_err = int8_kernel_phase()
+    train_rows = train_kernel_phase()
     launches, bf16_model, bf16_perf = slice_phase(card)
     int8_launches, int8_rows = int8_slice_phase(card, bf16_model, bf16_perf)
+    del bf16_model
+    torch.cuda.empty_cache()
+    train_launches = train_slice_phase(card)
+    vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
+    jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
@@ -1135,6 +1670,12 @@ def main() -> int:
                           int8_err["qmm"]),
         int8_kernel_entry("quant_rows", qsrc, f"{jq}:408", int8_rows["quant_rows"],
                           int8_launches["quant_rows"], int8_err["quant_rows"]),
+        kernel_entry("flash_fwd_lse", src, f"{jv}:63", train_rows["flash_fwd_lse"],
+                           train_launches["flash_fwd_lse"]),
+        kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170", train_rows["flash_bwd_dq"],
+                           train_launches["flash_bwd_dq"]),
+        kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197", train_rows["flash_bwd_dkv"],
+                           train_launches["flash_bwd_dkv"]),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -57,7 +57,7 @@ def _run_pair(jmod, tmod, shape, dtype=jnp.float32):
     variables = random_variables(jmod, jnp.zeros(shape, jnp.float32), train=False)
     xj = jnp.asarray(x).astype(dtype)
     ref = jax.jit(lambda v, a: jmod.apply(v, a, train=False))(to_jax(variables), xj)
-    load_jax_variables(tmod, variables)
+    load_jax_variables(tmod, variables).eval()
     xt = torch.from_numpy(np.array(xj, np.float32)).to(getattr(torch, jnp.dtype(dtype).name))
     with torch.no_grad():
         out = tmod(xt.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).float().numpy()

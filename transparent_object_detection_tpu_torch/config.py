@@ -1,6 +1,7 @@
 """Configuration of the PyTorch port: its own copy of the scale table and of
-the model and predict settings of transparent_object_detection_tpu/config.py
-(the port imports nothing of the JAX package).
+the model, training and predict settings of
+transparent_object_detection_tpu/config.py (the port imports nothing of the
+JAX package).
 
 Fields the port does not implement yet (`int8_1x1`, `remat`) are kept so a
 configuration reads the same in both packages; `build_model` refuses them.
@@ -32,7 +33,7 @@ class ModelConfig:
     # Largest head count <= num_heads dividing the TEB width (see
     # models/blocks._pick_num_heads).
     num_heads: int = 8
-    remat: bool = False  # training only; not ported yet
+    remat: bool = False  # activation recomputation in training; not ported yet
     norm_dtype: str = "float32"  # LayerNorm compute dtype
     # Prefer head counts whose head width is a multiple of 128 (6 x 256 on the
     # phi='s' 1536-channel TEBs); part of the function being computed.
@@ -75,6 +76,72 @@ class ModelConfig:
     @property
     def num_anchors(self) -> int:
         return sum(h * w for h, w in self.feat_shapes)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training knobs (the reference trainer's constant block). The data,
+    augmentation and io fields serve the epoch loop, which is not ported
+    yet; they are kept so a configuration reads the same in both packages."""
+
+    seed: int = 11
+    # -- schedule ---------------------------------------------------------
+    init_epoch: int = 0
+    freeze_epoch: int = 50
+    unfreeze_epoch: int = 300
+    freeze_train: bool = True
+    freeze_batch_size: int = 32
+    unfreeze_batch_size: int = 16
+    # -- optimizer --------------------------------------------------------
+    init_lr: float = 1e-2
+    min_lr_ratio: float = 0.01  # min_lr = init_lr * 0.01
+    optimizer_type: str = "sgd"  # "sgd" | "adam"
+    momentum: float = 0.937
+    weight_decay: float = 5e-4
+    lr_decay_type: str = "cos"  # "cos" | "step"
+    nbs: int = 64  # nominal batch size for lr scaling
+    grad_clip_norm: float = 10.0
+    # -- loss -------------------------------------------------------------
+    box_weight: float = 7.5
+    cls_weight: float = 0.5
+    dfl_weight: float = 1.5
+    tal_topk: int = 10
+    tal_alpha: float = 0.5
+    tal_beta: float = 6.0
+    label_smoothing: float = 0.0
+    # -- EMA --------------------------------------------------------------
+    ema: bool = True
+    ema_decay: float = 0.9999
+    ema_tau: int = 2000
+    # -- augmentation -----------------------------------------------------
+    mosaic: bool = True
+    mosaic_prob: float = 0.5
+    mixup: bool = True
+    mixup_prob: float = 0.5
+    special_aug_ratio: float = 0.7
+    max_boxes: int = 128  # padded ground-truth slots per image
+    # -- io / logging -----------------------------------------------------
+    save_period: int = 10
+    save_dir: str = "logs"
+    eval_flag: bool = True
+    eval_period: int = 10
+    num_workers: int = 4
+    train_annotation_path: str = "train.txt"
+    val_annotation_path: str = "val.txt"
+
+    @property
+    def min_lr(self) -> float:
+        return self.init_lr * self.min_lr_ratio
+
+    def fit_lr(self, batch_size: int) -> Tuple[float, float]:
+        """Batch-size-scaled (init, min) lr with per-optimizer clamps."""
+        lr_limit_max = 1e-3 if self.optimizer_type == "adam" else 5e-2
+        lr_limit_min = 3e-4 if self.optimizer_type == "adam" else 5e-4
+        init_lr_fit = min(max(batch_size / self.nbs * self.init_lr, lr_limit_min), lr_limit_max)
+        min_lr_fit = min(
+            max(batch_size / self.nbs * self.min_lr, lr_limit_min * 1e-2), lr_limit_max * 1e-2
+        )
+        return init_lr_fit, min_lr_fit
 
 
 @dataclass(frozen=True)

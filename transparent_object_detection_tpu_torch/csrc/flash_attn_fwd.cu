@@ -1,5 +1,5 @@
 // Flash-attention forward for Hopper (sm_90a): bf16 operands, fp32 softmax
-// state, exp2-domain online softmax. One templated kernel serves both ports:
+// state, exp2-domain online softmax. One templated kernel serves three ports:
 //
 //   * flash_mha_packed: replaces the TPU kernel
 //     transparent_object_detection_tpu/ops/attention.py::_mha_flash_kernel
@@ -11,6 +11,14 @@
 //     transparent_object_detection_tpu/ops/attention.py::_flash_kernel
 //     (flash_attention_pallas): one head, q/k width dq != v width dv (the
 //     dark3 SelfAttention: dq = C/8 = 64, dv = C = 512, scale 1.0).
+//   * flash_fwd_lse (training): replaces
+//     transparent_object_detection_tpu/ops/attention_vjp.py::_fwd_lse_kernel
+//     (flash_fwd_lse), both its packed multi-head and its single-head form:
+//     the same kernel with one more output, the per-(batch, head, query)
+//     logsumexp in the natural-log domain, lse = (m + log2 l) * ln 2 from the
+//     exp2-domain state, which the backward (flash_attn_bwd.cu) recomputes
+//     P from. q/k/v are given by pointer and strides, so the packed form
+//     reads them as column views of the qkv projection output.
 //
 // Both compute, per query row i, out_i = sum_j p_ij v_j / sum_j p_ij with
 //   s_ij = (q_i . k_j) * scale * log2(e)   (fp32 accumulation)
@@ -44,23 +52,21 @@
 // is fetched with cp.async while P.V of the current tile runs. Ragged N is
 // masked: keys past N score -inf, query rows past N are computed on zeros
 // and not stored.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
+using namespace flash;
+
 constexpr int BM = 64;      // query rows per block
 constexpr int BN = 64;      // keys per kv tile
-constexpr int THREADS = 128;
-constexpr int DVT = 256;    // v columns one block accumulates
-constexpr int PAD = 8;      // bf16 row padding in shared memory (bank spread)
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;                                    // (B, heads, N) or null (serving)
   long long q_batch, k_batch, v_batch, o_batch;  // elements between batch items
   int q_row, k_row, v_row, o_row;                // elements between rows
   int q_col, k_col, v_col;                       // column of head 0
@@ -69,72 +75,6 @@ struct Params {
   int dv_splits;                                 // DVT-wide slices per head
   float scale_log2;                              // scale * log2(e)
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination (rows past N).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// rows x COLS bf16 tile from global (row stride `stride`) into shared memory
-// (row stride COLS + PAD); rows at or past `rows_valid` are zero-filled.
-template <int ROWS, int COLS>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          int stride, int rows_valid) {
-  constexpr int CHUNKS = COLS / 8;
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    const bool valid = r < rows_valid;
-    cp_async16(dst + r * (COLS + PAD) + c, src + (valid ? (long long)r * stride : 0) + c,
-               valid);
-  }
-}
 
 template <int DQ>
 __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
@@ -285,6 +225,14 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   const float inv1 = 1.f / l_run[1];
   const int row0 = m0 + warp * 16 + (lane >> 2);
   const int row1 = row0 + 8;
+  // training: the natural-log logsumexp of the scaled scores,
+  // ln(sum_j exp(s_ij * scale)) = (m + log2 l) * ln 2, once per row (every
+  // v slice computes the same m and l)
+  if (p.lse != nullptr && split == 0 && (lane & 3) == 0) {
+    float* lse = p.lse + ((long long)b * (gridDim.y / p.dv_splits) + head) * n;
+    if (row0 < n) lse[row0] = (m_run[0] + log2f(l_run[0])) * LN2;
+    if (row1 < n) lse[row1] = (m_run[1] + log2f(l_run[1])) * LN2;
+  }
 #pragma unroll
   for (int i = 0; i < DVT / 8; ++i) {
     const int col = i * 8 + 2 * (lane & 3);
@@ -333,6 +281,7 @@ int flash_mha_packed(const void* qkv, void* out, int batch, int n, int heads, in
   Params p;
   p.q = p.k = p.v = static_cast<const __nv_bfloat16*>(qkv);
   p.o = static_cast<__nv_bfloat16*>(out);
+  p.lse = nullptr;
   p.q_batch = p.k_batch = p.v_batch = (long long)n * 3 * c;
   p.o_batch = (long long)n * c;
   p.q_row = p.k_row = p.v_row = 3 * c;
@@ -343,7 +292,7 @@ int flash_mha_packed(const void* qkv, void* out, int batch, int n, int heads, in
   p.dq_head = p.dv_head = dh;
   p.n = n;
   p.dv_splits = dh / DVT;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = scale * LOG2E;
   return static_cast<int>(run(p, dh, dh, batch, heads, static_cast<cudaStream_t>(stream)));
 }
 
@@ -355,6 +304,7 @@ int flash_single(const void* q, const void* k, const void* v, void* out, int bat
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(out);
+  p.lse = nullptr;
   p.q_batch = p.k_batch = (long long)n * dq;
   p.v_batch = p.o_batch = (long long)n * dv;
   p.q_row = p.k_row = dq;
@@ -363,8 +313,39 @@ int flash_single(const void* q, const void* k, const void* v, void* out, int bat
   p.dq_head = p.dv_head = 0;
   p.n = n;
   p.dv_splits = dv / DVT;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = scale * LOG2E;
   return static_cast<int>(run(p, dq, dv, batch, 1, static_cast<cudaStream_t>(stream)));
+}
+
+// Forward with logsumexp (training): q, k (B, N, heads * dqk) and v
+// (B, N, heads * dv) given by pointer, batch stride and row stride (so q/k/v
+// may be column views of one packed qkv array; head h at column h * dqk or
+// h * dv) -> out (B, N, heads * dv) bf16, lse (B, heads, N) fp32.
+int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse,
+                  int batch, int n, int heads, int dqk, int dv, long long q_batch, int q_row,
+                  long long k_batch, int k_row, long long v_batch, int v_row, float scale,
+                  void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  p.q_batch = q_batch;
+  p.k_batch = k_batch;
+  p.v_batch = v_batch;
+  p.o_batch = (long long)n * heads * dv;
+  p.q_row = q_row;
+  p.k_row = k_row;
+  p.v_row = v_row;
+  p.o_row = heads * dv;
+  p.q_col = p.k_col = p.v_col = 0;
+  p.dq_head = dqk;
+  p.dv_head = dv;
+  p.n = n;
+  p.dv_splits = dv / DVT;
+  p.scale_log2 = scale * LOG2E;
+  return static_cast<int>(run(p, dqk, dv, batch, heads, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

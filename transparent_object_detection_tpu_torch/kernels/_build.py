@@ -2,9 +2,10 @@
 
 Each `csrc/<name>.cu` is compiled on first use for sm_90a into a shared
 library with a plain C interface under `build/torch_kernels/` at the root of
-the checkout, named after a hash of its source and flags, so an edited source
-rebuilds and an unchanged one loads at once. Nothing here runs at import
-time: the CPU tests import every module on a machine without nvcc.
+the checkout, named after a hash of its source, the shared headers and the
+flags, so an edited source rebuilds and an unchanged one loads at once.
+Nothing here runs at import time: the CPU tests import every module on a
+machine without nvcc.
 """
 from __future__ import annotations
 
@@ -39,8 +40,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Build output of a source, named after a hash of the source, the shared
+    headers (csrc/*.cuh) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,4 +1,5 @@
-"""Network blocks of the PyTorch port (bf16 and int8 serving branches).
+"""Network blocks of the PyTorch port: bf16 and int8 serving branches, and
+training mode (`nn.Module.train()`, the counterpart of flax's `train=True`).
 
 Counterpart of transparent_object_detection_tpu/models/blocks.py. Tensors are
 NCHW inside (channels_last memory on the card); attention tokens are
@@ -36,10 +37,56 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return p
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode BatchNorm as flax computes it: statistics over (B, H, W)
+    in fp32, the fast variance E[x^2] - E[x]^2 clipped at 0, normalisation
+    with those batch statistics, y = (x - mean) * rsqrt(var + eps) * w + b.
+    The backward is that function's gradient written out, so only x (in its
+    own type) and per-channel vectors are kept for it, not fp32 copies of
+    the activation. Returns y (fp32) and the batch mean and biased variance
+    (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps: float):
+        xf = x.float()
+        dims = (0, 2, 3)
+        mean = xf.mean(dims)
+        var_raw = (xf * xf).mean(dims) - mean * mean
+        var = var_raw.clamp(min=0.0)
+        r = torch.rsqrt(var + eps)
+        mul = r * weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, mean, r, weight, var_raw > 0)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, mean, r, weight, var_live = ctx.saved_tensors
+        dims = (0, 2, 3)
+        count = x.numel() // x.shape[1]
+        xc = x.float() - mean[:, None, None]
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xc = (dyf * xc).sum(dims)
+        k1 = weight * r
+        # the variance term carries no gradient where the clip at 0 held
+        k3 = torch.where(var_live, weight * r ** 3, torch.zeros_like(r))
+        dx = (dyf * k1[:, None, None] - (k1 * sum_dy / count)[:, None, None]
+              - xc * (k3 * sum_dy_xc / count)[:, None, None])
+        return dx.to(x.dtype), sum_dy_xc * r, sum_dy, None
+
+
 class BatchNorm(nn.Module):
-    """Inference BatchNorm (eps 1e-5) normalising in fp32; parameters
+    """BatchNorm (eps 1e-5, momentum 0.9) normalising in fp32; parameters
     weight/bias and buffers running_mean/running_var, as flax
-    scale/bias + batch_stats mean/var."""
+    scale/bias + batch_stats mean/var. Evaluation mode normalises with the
+    running statistics. Training mode normalises with the batch statistics
+    (`_BatchNormTrain`) and updates r <- 0.9 r + 0.1 batch with the biased
+    batch variance, as flax does (F.batch_norm would update running_var with
+    the unbiased one)."""
+
+    MOMENTUM = 0.9  # flax's running-average decay
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -50,8 +97,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps)
+        if not self.training:
+            return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
 
 
 class ConvBNAct(nn.Module):
@@ -187,7 +241,8 @@ def _from_tokens(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class SelfAttention(nn.Module):
     """Non-local self-attention: q/k at max(C//8, 1) channels, v at C,
     unscaled softmax, residual gated by the learnable scalar gamma (init 0).
-    int8_attn: the int8 flash route on large maps (serving)."""
+    int8_attn: the int8 flash route on large maps (serving; in training
+    mode the differentiable bf16 route runs instead, as in JAX)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.bfloat16,
                  attention_impl: Optional[str] = None, int8_attn: bool = False):
@@ -206,7 +261,8 @@ class SelfAttention(nn.Module):
         q = _linear(tokens, self.query, dt)
         k = _linear(tokens, self.key, dt)
         v = _linear(tokens, self.value, dt)
-        out = attention(q, k, v, scale=1.0, impl=self.attention_impl, int8=self.int8_attn)
+        out = attention(q, k, v, scale=1.0, impl=self.attention_impl, int8=self.int8_attn,
+                        train=self.training)
         out = self.gamma.to(dt) * out + tokens
         return _from_tokens(out, h, w)
 
@@ -227,15 +283,18 @@ def _pick_num_heads(channels: int, requested: int, lane_align: bool = True) -> i
 
 
 class TransformerEncoderBlock(nn.Module):
-    """Pre-LN transformer encoder over the H*W tokens of each image
-    (evaluation only; not tensor-parallel). Attention reads the packed qkv
-    projection output in place.
+    """Pre-LN transformer encoder over the H*W tokens of each image (not
+    tensor-parallel). Attention reads the packed qkv projection output in
+    place; in training mode through the differentiable flash route, whose
+    gradient is one packed d(qkv).
 
     int8_dense: the four projections run as int8 GEMMs (ops/quant_matmul.py)
     with the JAX int8 branch's handoffs at their defaults: the LN2-normalized
     attn_out -> mlp1 payload from LN_HANDOFF_MIN_ROWS rows up, and mlp1's
     quant_out payload into mlp2. The parameters are the bf16 branch's, so
-    one checkpoint serves both. int8_attn: the int8 flash route."""
+    one checkpoint serves both. int8_attn: the int8 flash route. Both int8
+    flags are serving-only: training mode runs the bf16 branch, as JAX
+    does."""
 
     def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
@@ -264,11 +323,11 @@ class TransformerEncoderBlock(nn.Module):
         dt = self.dtype
         h, w = x.shape[2:]
         tokens = _to_tokens(x)
-        if self.int8_dense:
+        if self.int8_dense and not self.training:
             return _from_tokens(self._forward_int8(tokens), h, w)
         qkv = _linear(self._norm(tokens, self.norm1), self.qkv, dt)
         o = attention_qkv(qkv, scale=self.scale, impl=self.attention_impl,
-                          num_heads=self.heads, int8=self.int8_attn)
+                          num_heads=self.heads, int8=self.int8_attn, train=self.training)
         tokens = tokens + _linear(o, self.attn_out, dt)
         z = _linear(self._norm(tokens, self.norm2), self.mlp1, dt)
         z = _linear(F.gelu(z, approximate="tanh"), self.mlp2, dt)

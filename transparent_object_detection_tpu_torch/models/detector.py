@@ -1,6 +1,7 @@
 """Full detector (counterpart of
 transparent_object_detection_tpu/models/detector.py): FocusModel = Backbone
--> Neck -> Head, evaluation forward with the on-device DFL decode."""
+-> Neck -> Head; the evaluation forward ends in the on-device DFL decode,
+the training forward (`model.train()`) in the raw maps."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -52,13 +53,14 @@ class FocusModel(nn.Module):
     def forward(self, images: torch.Tensor, decode: bool = True) -> Dict[str, Any]:
         """images: (B, H, W, 3) float in [0, 1], H and W divisible by 32.
         Returns {"raw": per-level (B, h, w, 4*reg_max + nc) maps,
-        "decoded": (B, sum(hw), 4 + nc)} (decoded only when decode=True)."""
+        "decoded": (B, sum(hw), 4 + nc)} (decoded only in evaluation mode
+        with decode=True; training mode returns the raw maps alone)."""
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         if x.is_cuda:
             x = x.contiguous(memory_format=torch.channels_last)
         raw = self.head(self.neck(self.backbone(x)))
         out: Dict[str, Any] = {"raw": tuple(raw)}
-        if decode:
+        if decode and not self.training:
             out["decoded"] = self.head.decode(raw)
         return out
 
@@ -66,8 +68,9 @@ class FocusModel(nn.Module):
 def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = None,
                 seed: Optional[int] = 0) -> FocusModel:
     """FocusModel at `cfg`'s scale, in evaluation mode on `device` (CUDA
-    unless given). Weights are the seeded initialisation of `init_weights`
-    (seed=None keeps PyTorch's defaults); load a JAX checkpoint with
+    unless given; a trainer puts it in training mode). Weights are the
+    seeded initialisation of `init_weights` (seed=None keeps PyTorch's
+    defaults); load a JAX checkpoint with
     weights.load_jax_variables. attention_impl="plain" runs the attention
     kernels' plain PyTorch versions (comparison only). int8_dense and
     int8_attn select the int8 serving paths, alone or together."""
@@ -87,9 +90,9 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
 
 
 def set_attention_impl(model: nn.Module, impl: Optional[str]) -> nn.Module:
-    """Switch every kernel of `model` (attention, and the int8 projections
-    of the TEBs) between the kernels (None) and their plain versions
-    ("plain"), weights untouched."""
+    """Switch every kernel of `model` (attention forward and backward, and
+    the int8 projections of the TEBs) between the kernels (None) and their
+    plain versions ("plain"), weights untouched."""
     for m in model.modules():
         if hasattr(m, "attention_impl"):
             m.attention_impl = impl

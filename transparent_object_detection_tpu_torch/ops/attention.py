@@ -18,6 +18,9 @@ Routing (`attention` / `attention_qkv`), as `_auto_impl` routes in JAX:
   * int8=True (serving): the int8 flash route of ops/attention_int8.py
     where N > 1024 and its `pick_blocks` tiles the shape, as in JAX; other
     shapes (N <= 1024, a ragged N such as 3,600) take the routes above.
+  * train=True: N > 1024 goes to the differentiable flash route of
+    ops/attention_vjp.py (forward with logsumexp, flash backward), packed or
+    single-head by the same rules; N <= 1024 stays naive.
 At phi='s' 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels
 and node h6 (N=400) to the naive route. The CUDA kernel is instantiated for
 the widths of that path only; on the card the wrappers refuse other widths.
@@ -37,6 +40,7 @@ import torch
 from transparent_object_detection_tpu_torch.ops import attention_int8
 
 LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 # Largest token count that takes the naive route (JAX: attention.py _auto_impl).
 NAIVE_MAX_TOKENS = 1024
 # Head widths that take the packed route are multiples of this (JAX rule).
@@ -64,12 +68,13 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(attn.to(v.dtype), v)
 
 
-def _online_softmax_attention(q, k, v, scale: float, block_k: int = 1024):
+def _online_softmax(q, k, v, scale: float, block_k: int = 1024):
     """The flash kernels' arithmetic in plain PyTorch: q.k^T accumulated in
     fp32, exp2-domain online softmax over kv blocks with the running max
     starting at -1e30, p cast to the input type before the value product,
-    fp32 l/acc, output acc * (1 / l) in the input type.
-    q, k (..., N, dq); v (..., N, dv)."""
+    fp32 l/acc, output acc * (1 / l) in the input type. Also returns the
+    natural-log logsumexp of the scaled scores, (m + log2 l) * ln 2, fp32.
+    q, k (..., N, dq); v (..., N, dv) -> (..., N, dv), (..., N, 1)."""
     n = k.shape[-2]
     s_scale = scale * LOG2E
     qf = q.float()
@@ -86,7 +91,12 @@ def _online_softmax_attention(q, k, v, scale: float, block_k: int = 1024):
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(v.dtype).float(), vb.float())
         m = m_new
-    return (acc * (1.0 / l)).to(v.dtype)
+    return (acc * (1.0 / l)).to(v.dtype), (m + torch.log2(l)) * LN2
+
+
+def _online_softmax_attention(q, k, v, scale: float, block_k: int = 1024):
+    """`_online_softmax` without the logsumexp (the serving kernels)."""
+    return _online_softmax(q, k, v, scale, block_k)[0]
 
 
 def _heads_first(t: torch.Tensor, heads: int) -> torch.Tensor:
@@ -226,17 +236,32 @@ def _check_impl(impl: Optional[str]) -> None:
         raise ValueError(f"unknown attention impl {impl!r}; choose from {IMPLS}")
 
 
+def _packed_heads(c: int, num_heads: int) -> bool:
+    """Head layouts that take the packed kernels (the JAX rule)."""
+    return c % num_heads == 0 and (c // num_heads) % PACKED_HEAD_MULTIPLE == 0
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
-              impl: Optional[str] = None, num_heads: int = 1, int8: bool = False) -> torch.Tensor:
+              impl: Optional[str] = None, num_heads: int = 1, int8: bool = False,
+              train: bool = False) -> torch.Tensor:
     """Dispatching front end on (B, N, C) tokens, heads packed in C.
 
     impl None: naive route for N <= 1024, the flash kernels above.
     impl "plain": the same routing with the kernels' plain versions.
     int8 (serving): the int8 flash route (ops/attention_int8.py) where N >
-    1024 and `pick_blocks` gives blocks, as in JAX; else the routes above."""
+    1024 and `pick_blocks` gives blocks, as in JAX; else the routes above.
+    train: for N > 1024, the differentiable flash route
+    (ops/attention_vjp.py), packed where the head width is a multiple of
+    PACKED_HEAD_MULTIPLE, single-head otherwise (other multi-head shapes fold
+    their heads into the batch axis); int8 is ignored. N <= 1024 stays naive
+    and autograd differentiates it."""
     _check_impl(impl)
     b, n, c = q.shape
-    if int8 and n > NAIVE_MAX_TOKENS:
+    if train and n > NAIVE_MAX_TOKENS and (num_heads == 1 or _packed_heads(c, num_heads)):
+        from transparent_object_detection_tpu_torch.ops import attention_vjp
+
+        return attention_vjp.flash_attention(q, k, v, scale, num_heads, impl)
+    if int8 and not train and n > NAIVE_MAX_TOKENS:
         blocks = attention_int8.pick_blocks(n, c, num_heads, cv=v.shape[-1])
         if blocks is not None:
             return attention_int8.attention_int8(q, k, v, scale, num_heads, blocks[1],
@@ -246,7 +271,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
             _heads_first(q, num_heads).reshape(b * num_heads, n, -1),
             _heads_first(k, num_heads).reshape(b * num_heads, n, -1),
             _heads_first(v, num_heads).reshape(b * num_heads, n, -1),
-            scale, impl,
+            scale, impl, train=train,
         )
         return _heads_last(out.reshape(b, num_heads, n, -1))
     if n <= NAIVE_MAX_TOKENS:
@@ -257,25 +282,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
 
 
 def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,
-                  num_heads: int = 1, int8: bool = False) -> torch.Tensor:
-    """Packed serving front end: one (B, N, 3C) array straight from the fused
-    qkv projection -> (B, N, C). With int8, large maps that `pick_blocks`
-    tiles take the int8 flash kernel, q read in place and k/v quantized from
-    views. Otherwise large maps whose head width is a multiple of
-    PACKED_HEAD_MULTIPLE read q/k/v in place; everything else splits and
-    goes through `attention`."""
+                  num_heads: int = 1, int8: bool = False, train: bool = False) -> torch.Tensor:
+    """Packed front end: one (B, N, 3C) array straight from the fused qkv
+    projection -> (B, N, C). With int8 (serving), large maps that
+    `pick_blocks` tiles take the int8 flash kernel, q read in place and k/v
+    quantized from views. Otherwise large maps whose head width is a
+    multiple of PACKED_HEAD_MULTIPLE read q/k/v in place (with train, through
+    the differentiable flash route, whose gradient is one packed array);
+    everything else splits and goes through `attention`."""
     _check_impl(impl)
     n, c = qkv.shape[1], qkv.shape[2] // 3
-    if int8 and n > NAIVE_MAX_TOKENS:
+    if train and n > NAIVE_MAX_TOKENS and _packed_heads(c, num_heads):
+        from transparent_object_detection_tpu_torch.ops import attention_vjp
+
+        return attention_vjp.flash_attention_qkv(qkv, scale, num_heads, impl)
+    if int8 and not train and n > NAIVE_MAX_TOKENS:
         blocks = attention_int8.pick_blocks(n, c, num_heads)
         if blocks is not None:
             return attention_int8.attention_int8(
                 qkv, qkv[..., c:2 * c], qkv[..., 2 * c:], scale, num_heads, blocks[1],
                 q_width=c, impl=impl)
-    if (n > NAIVE_MAX_TOKENS and c % num_heads == 0
-            and (c // num_heads) % PACKED_HEAD_MULTIPLE == 0):
+    if not train and n > NAIVE_MAX_TOKENS and _packed_heads(c, num_heads):
         if impl == "plain":
             return flash_mha_packed_plain(qkv, num_heads, scale)
         return flash_mha_packed(qkv.contiguous(), num_heads, scale)
     q, k, v = qkv.chunk(3, dim=-1)
-    return attention(q, k, v, scale, impl, num_heads, int8)
+    return attention(q, k, v, scale, impl, num_heads, int8 and not train, train)

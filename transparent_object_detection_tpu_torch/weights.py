@@ -12,7 +12,8 @@ bottlenecks `m0`, `m1`, ...), so the map is mechanical. Per leaf:
 
 Leaves are taken as numpy arrays (anything `np.asarray` accepts). A leaf
 that maps to no port parameter, a shape mismatch, or a port parameter left
-unfilled raises.
+unfilled raises. `params_from_jax` maps any tree shaped like `params` (a
+gradient, an optimizer moment) onto the port's parameter names.
 """
 from __future__ import annotations
 
@@ -72,10 +73,32 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
                                  f"{tuple(expected[key].shape)}")
             if key in out:
                 raise KeyError(f"{key} filled twice")
-            out[key] = torch.from_numpy(arr).to(expected[key].dtype)
+            out[key] = torch.tensor(arr, dtype=expected[key].dtype)
     unfilled = sorted(set(expected) - set(out))
     if unfilled:
         raise KeyError(f"port parameters left unfilled by the JAX variables: {unfilled[:10]}"
+                       f"{' ...' if len(unfilled) > 10 else ''}")
+    return out
+
+
+def params_from_jax(tree: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Convert a tree shaped like JAX `params` (the parameters themselves,
+    or their gradients, optimizer moments or EMA) into {name: tensor} over
+    `model.named_parameters()`, with the same checks as `state_dict_from_jax`."""
+    expected = dict(model.named_parameters())
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _leaves(tree):
+        key, arr = _convert(path, leaf)
+        if key not in expected:
+            raise KeyError(f"JAX leaf {'/'.join(path)} maps to {key!r}, which is no port "
+                           "parameter")
+        if tuple(arr.shape) != tuple(expected[key].shape):
+            raise ValueError(f"{key}: JAX shape {arr.shape} (converted) != port shape "
+                             f"{tuple(expected[key].shape)}")
+        out[key] = torch.tensor(arr)
+    unfilled = sorted(set(expected) - set(out))
+    if unfilled:
+        raise KeyError(f"port parameters left unfilled: {unfilled[:10]}"
                        f"{' ...' if len(unfilled) > 10 else ''}")
     return out
 
