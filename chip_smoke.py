@@ -39,7 +39,24 @@
    planted fault's); every launch of one batch-2 forward against its plain
    version, timed beside its bound and a library yardstick; launches per
    forward at batch 1 and 32; timings beside the bf16 run's; a profile.
-6. Training kernel phase: flash_fwd_lse (out and lse), flash_bwd_dq and
+6. Variant kernel phase: flash_mha_int8_qout, flash_int8_handoff (int8 and
+   bf16 output; q scale tables of one group a row and of groups of 512
+   columns) and quant_rows(qmax=7) with the w4a4 qmm, against their plain
+   versions at the neck's shapes (batch 2) and a 4-key-block case, score
+   std 1 and 4, with the int8 bars and planted faults each must reject (a
+   q scale from the wrong head, the k/v requantize ratio dropped, one
+   output scale a row instead of a (row, head), p rounded against a
+   running 64-key max, qmax 127 in place of 7, a K slab dropped); timed
+   beside bound, plain version and bf16 SDPA.
+7. Variant slice: the int8 model's weights under configuration A
+   (attn_handoff + w4a4_mlp1) and B (attn_qout) through
+   Predictor.detect_raw_batch at batch 32 and 1 with every count reset
+   before and read after, the counts asserted; `decoded` and detection sets
+   against the same configuration on plain versions (limits a planted
+   fault breaks); every launch of a batch-2 forward against its plain
+   version, timed; timings beside the bf16 and default int8 runs; a
+   profile.
+8. Training kernel phase: flash_fwd_lse (out and lse), flash_bwd_dq and
    flash_bwd_dkv against their plain versions at the phi='s' training
    path's shapes (batch 2) and a ragged N, near-flat and peaked inputs, with
    the kernel bar plus a norm bar on the gradients; planted faults each bar
@@ -48,14 +65,14 @@
    loop, the -D term dropped, lse off by 0.01, the scale missing from dS);
    two runs of the backward must give the same bits. Times kernel, plain
    version and SDPA forward / backward.
-7. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
+9. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
    (SGD nesterov, EMA), synthetic batches like the JAX bench_train.py's. One
    batch-2 step with the launch counts reset before and read after
    (fwd-lse 4, dq 4, dk/dv 4, no serving kernel), held against the same step
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
    timed steps at batch 16 (launches per step asserted) and a profile.
-8. Prints a JSON line of the eight kernels, the card's name and power limit,
+10. Prints the card's name and power limit, a JSON line of the 11 kernels,
    then {"ok": true, "device": ...} last.
 
 Any failed check exits non-zero before the last line. TF32 is off for
@@ -632,12 +649,12 @@ def _group_halved(qm):
 QMM_FAULTS = {"qmm_k_slab_dropped": _k_slab_dropped, "qmm_group_width_halved": _group_halved}
 
 
-def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile):
+def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dtype=None):
     """The int8 attention function with the k/v scales taken per
     `scale_tile` keys and p rounded against the running maximum over
-    `max_tile`-key tiles (float64 sums). At scale_tile = max_tile = bk it is
-    the plain version's function; smaller tiles plant the two faults a
-    tiled kernel could make."""
+    `max_tile`-key tiles (float64 sums), output in out_dtype (q's by
+    default). At scale_tile = max_tile = bk it is the plain version's
+    function; smaller tiles plant the two faults a tiled kernel could make."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
@@ -664,12 +681,15 @@ def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile):
             l = l * corr + p127.sum(-1, keepdim=True)
             acc = acc * corr.double() + torch.round(p127).double() @ vv[:, j:j + max_tile]
             m = m_new
-        outs.append((acc / l.double()).to(q.dtype))
+        outs.append((acc / l.double()).to(out_dtype or q.dtype))
     return torch.stack(outs).transpose(1, 2).reshape(b, n, -1)
 
 
-def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=False, ln=None):
-    """One synthetic qmm (and, for bf16 x, quant_rows) check with faults."""
+def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=False, ln=None,
+              qmax=127):
+    """One synthetic qmm (and, for bf16 x, quant_rows) check with faults;
+    qmax=7: the w4a4 pair (int4-range rows and weights), and quant_rows'
+    bar must reject qmax 127 in place of 7."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
@@ -677,14 +697,18 @@ def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=Fa
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     w = torch.randn(n, k, generator=gen, device=DEVICE) / k ** 0.5
     bias = torch.randn(n, generator=gen, device=DEVICE) * 0.1
-    wts = QM.prepare_weights(w, bias)
+    wts = (QM.prepare_weights4 if qmax == 7 else QM.prepare_weights)(w, bias)
     res = (torch.randn(m, n, generator=gen, device=DEVICE).bfloat16() if residual else None)
     readings = {}
     if ln is not None:  # bf16 rows: quant_rows first
-        xq, xsk = QM.quant_rows(x, ln)
-        xq_p, xs_p = QM.quant_rows_plain(x, ln)
+        xq, xsk = QM.quant_rows(x, ln, qmax=qmax)
+        xq_p, xs_p = QM.quant_rows_plain(x, ln, qmax=qmax)
         readings["quant_rows"] = int8_reading((xq, xsk), (xq_p, xs_p))
         check(readings["quant_rows"]["bar_used"] <= 1.0, f"quant_rows {name}: {readings}")
+        if qmax == 7:
+            used = int8_reading(QM.quant_rows_plain(x, ln, qmax=127), (xq_p, xs_p))["bar_used"]
+            readings["quant_rows_faults_bar_used"] = {"qmax_127_for_7": used}
+            check(used > 1.0, f"quant_rows {name}: the bar does not reject qmax 127 for 7")
         x, xs = xq_p, xs_p
     eps = 1e-6 if ln_out else None
     kern = lambda: QM.qmm(x, xs, wts["wq"], wts["w_scale"], wts["bias"], act, res, group, eps)
@@ -864,7 +888,6 @@ def int8_path_calls(model, images) -> dict:
     then held against its plain version on the same activations and timed
     beside its plain version, its bound and a library yardstick."""
     import torch
-    import torch.nn.functional as F
 
     from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
@@ -872,14 +895,16 @@ def int8_path_calls(model, images) -> dict:
     calls = []
     real = {"quant_rows": (QM, QM.quant_rows, QM.quant_rows_plain),
             "qmm": (QM, QM.qmm, QM.qmm_plain),
-            "flash_mha_int8": (A8, A8.flash_mha_int8, A8.flash_mha_int8_plain)}
+            "flash_mha_int8": (A8, A8.flash_mha_int8, A8.flash_mha_int8_plain),
+            "flash_mha_int8_qout": (A8, A8.flash_mha_int8_qout, A8.flash_mha_int8_qout_plain),
+            "flash_int8_handoff": (A8, A8.flash_int8_handoff, A8.flash_int8_handoff_plain)}
 
     def recording(name, kernel):
         def launch(*args, **kw):
             out = kernel(*args, **kw)
             calls.append((name, args, kw, out))
             return out
-        launch.launches = 0  # the wrapper counts on the name it is bound to
+        launch.launches = launch.launches_int4 = 0  # the wrapper counts on its own name
         return launch
 
     for name, (mod, kernel, _) in real.items():
@@ -890,9 +915,11 @@ def int8_path_calls(model, images) -> dict:
     finally:
         for name, (mod, kernel, _) in real.items():
             setattr(mod, name, kernel)
-    rows = {name: [] for name in real}
+    rows = {name: [] for name in (*real, "quant_rows_int4")}
     for i, (name, args, kw, out) in enumerate(calls):
         mod, kernel, plain = real[name]
+        if name == "quant_rows" and kw.get("qmax", args[3] if len(args) > 3 else 127) == 7:
+            name = "quant_rows_int4"  # the same kernel as JAX's _w4a4_call launches it
         with torch.inference_mode():
             reading = int8_reading(out, plain(*args, **kw))
             check(reading["bar_used"] <= 1.0,
@@ -900,35 +927,40 @@ def int8_path_calls(model, images) -> dict:
             ms = timed_ms(lambda: kernel(*args, **kw), 10, 2)
             plain_ms = timed_ms(lambda: plain(*args, **kw), 2, 1)
             if name == "qmm":
-                ops, nbytes = _qmm_cost(args, out)
-                lib = _library_qmm(args)
-                library_ms = timed_ms(lib, 10, 2)
-                bnd = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
-                by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
+                bnd, by = _bound(*_qmm_cost(args, out))
+                library_ms = timed_ms(_library_qmm(args), 10, 2)
                 shape = {"m": args[0].shape[0], "k": args[0].shape[1], "n": args[2].shape[0],
                          "groups": args[1].shape[-1], "act": args[5],
                          "out": ("quant_out" if args[7] is not None
                                  else "ln_out" if args[8] is not None else "bf16")}
-            elif name == "quant_rows":
+            elif name in ("quant_rows", "quant_rows_int4"):
                 x = args[0]
                 nbytes = x.numel() * 3 + x.shape[0] * 4
                 library_ms, bnd, by = None, nbytes / PEAK_BYTES * 1e3, "bytes"
                 shape = {"m": x.shape[0], "k": x.shape[1], "ln": bool(args[1])}
+            elif name in ("flash_mha_int8_qout", "flash_int8_handoff"):
+                handoff = name == "flash_int8_handoff"
+                kq, vq, h, scale = (args[2], args[4], args[6], args[7]) if handoff else (
+                    args[1], args[3], args[5], args[6])
+                b, n, cq = kq.shape
+                cv = vq.shape[-1]
+                int8_out = isinstance(out, tuple)
+                ops, nbytes = _attention_cost(b, n, cq, cv, h, 1 if handoff else 2,
+                                              1 if int8_out else 2)
+                bnd, by = _bound(ops, nbytes)
+                library_ms = _sdpa_ms(b, n, cq, cv, h, scale)
+                shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
+                         "bk": n // args[3 if handoff else 2].shape[-1],
+                         "int8_out": int8_out}
             else:
                 q, kq, ks, vq, vs, h, scale = args[:7]
                 q_width = args[7] if len(args) > 7 else None
                 b, n, cq = kq.shape
                 cv = vq.shape[-1]
-                ops = 2.0 * b * n * n * (cq + cv)
-                nbytes = (b * n * cq * 2 + kq.numel() + vq.numel() + 8 * ks.numel()
-                          + b * n * cv * 2)
-                bnd = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
-                by = "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes"
-                # bf16 SDPA on the same shapes (values from the int8 payloads)
-                qh = A8._split_heads(q[..., :cq], h).contiguous()
-                kb, vb = (A8._split_heads(t, h).bfloat16().contiguous() for t in (kq, vq))
-                library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kb, vb, scale=scale), 10, 2)
+                bnd, by = _bound(2.0 * b * n * n * (cq + cv),
+                                 b * n * cq * 2 + kq.numel() + vq.numel() + 8 * ks.numel()
+                                 + b * n * cv * 2)
+                library_ms = _sdpa_ms(b, n, cq, cv, h, scale)
                 shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
                          "bk": n // ks.shape[-1], "packed_q": q_width is not None}
         rows[name].append({"launch": i, **shape, "bar_used": reading["bar_used"],
@@ -939,6 +971,34 @@ def int8_path_calls(model, images) -> dict:
     return rows
 
 
+COUNTED = ("flash_mha_packed", "flash_single", "flash_mha_int8", "flash_mha_int8_qout",
+           "flash_int8_handoff", "qmm", "quant_rows", "quant_rows_int4")
+
+
+def reset_counts() -> None:
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    for mod in (A, A8, QM):
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Launches of every serving kernel since the last `reset_counts`."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    return {"flash_mha_packed": A.flash_mha_packed.launches,
+            "flash_single": A.flash_single.launches,
+            "flash_mha_int8": A8.flash_mha_int8.launches,
+            "flash_mha_int8_qout": A8.flash_mha_int8_qout.launches,
+            "flash_int8_handoff": A8.flash_int8_handoff.launches,
+            "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches,
+            "quant_rows_int4": QM.quant_rows.launches_int4}
+
+
 def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
     """The int8 model (int8_dense + int8_attn) at phi='s' 640x640 with the
     bf16 model's weights, through Predictor.detect_raw_batch; launch counts,
@@ -946,19 +1006,22 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
     import numpy as np
     import torch
 
-    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
     from transparent_object_detection_tpu_torch.inference import Predictor
     from transparent_object_detection_tpu_torch.models.detector import (
         build_model,
         set_attention_impl,
     )
-    from transparent_object_detection_tpu_torch.ops import attention as A
-    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
     from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
 
     cfg, pcfg = ModelConfig(int8_dense=True, int8_attn=True), PredictConfig()
-    model = build_model(cfg, device="cuda", seed=SEED)
+    # every variant at its JAX default, whatever the environment says
+    model = build_model(cfg, device="cuda", seed=SEED, int8_variants=Int8Variants())
     model.load_state_dict(bf16_model.state_dict())  # the bf16 run's weights and biases
     predictor = Predictor(model, cfg, pcfg, device="cuda")
     rng = np.random.default_rng(SEED)
@@ -980,23 +1043,16 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
         for t in towers:
             t.out.bias.fill_(-shift)
 
-    counters = (A.reset_launch_counts, A8.reset_launch_counts, QM.reset_launch_counts)
-    read = lambda: {"flash_mha_packed": A.flash_mha_packed.launches,
-                    "flash_single": A.flash_single.launches,
-                    "flash_mha_int8": A8.flash_mha_int8.launches,
-                    "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches}
     # the main path, counted: counts to 0 just before, read just after
-    for reset in counters:
-        reset()
+    reset_counts()
     dets = predictor.detect_raw_batch(raw, shapes)
     torch.cuda.synchronize()
-    launches = read()
+    launches = read_counts()
     print(json.dumps({"int8_main_path_launches": launches}), flush=True)
     # batch 4: 4 TEBs x (qkv, attn_out, mlp1, mlp2), 3 quant_rows each (no
     # TEB reaches the LN handoff's 51,200 rows); int8 attention at h1, h2, h4
-    # and dark3, naive bf16 at h6 (N = 400)
-    expected = {"flash_mha_packed": 0, "flash_single": 0, "flash_mha_int8": 4, "qmm": 16,
-                "quant_rows": 12}
+    # and dark3, naive bf16 at h6 (N = 400); no variant kernel
+    expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8": 4, "qmm": 16, "quant_rows": 12}
     check(launches == expected, f"int8 launches {launches}, expected {expected}")
     nd = dets["num_detections"].cpu()
     check(bool(torch.isfinite(dets["boxes"]).all()), "int8: non-finite boxes")
@@ -1053,13 +1109,31 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
     with torch.inference_mode():
         for b in (1, 32):
             img = images[:1].expand(b, -1, -1, -1).contiguous()
-            for reset in counters:
-                reset()
+            reset_counts()
             model(img)
-            per_batch[b] = read()
+            per_batch[b] = read_counts()
     print(json.dumps({"int8_launches_per_forward": per_batch}), flush=True)
 
-    # timing, as the bf16 slice
+    perf = {"card": card, "model": "phi=s 640x640 int8_dense + int8_attn",
+            **serving_timing(model, predictor, raw, shapes, images, rng),
+            "bf16_same_run": {k: bf16_perf[k] for k in PERF_KEYS}}
+    print(json.dumps({"int8_slice_perf": perf}), flush=True)
+    return launches, rows, perf
+
+
+PERF_KEYS = ("batch1_latency_ms_p50", "batch1_latency_ms_p75", "batch32_imgs_per_s",
+             "batch32_forward_ms")
+
+
+def serving_timing(model, predictor, raw, shapes, images, rng) -> dict:
+    """Batch-1 latency (40 calls after 3 warm-ups, host clock) and forward;
+    batch-32 throughput (3 calls after 1, host clock), forward and peak
+    memory; a profile of one batch-32 forward, as the bf16 slice."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
     with torch.inference_mode():
         one, one_shape = raw[:1], shapes[:1]
         for _ in range(3):
@@ -1082,22 +1156,17 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
             predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
         b32_s = (time.perf_counter() - t0) / iters
         img32 = letterbox_batch(torch.as_tensor(raw32, device="cuda").float() / 255.0,
-                                cfg.input_shape)
+                                predictor.model_cfg.input_shape)
         fwd32 = timed_ms(lambda: model(img32), 3, 1)
         peak = torch.cuda.max_memory_allocated() / 2**30
         profile = profile_forward(model, img32)
-    perf = {
-        "card": card, "model": "phi=s 640x640 int8_dense + int8_attn",
-        "batch1_latency_ms_p50": lat[len(lat) // 2], "batch1_latency_ms_p75": lat[3 * len(lat) // 4],
-        "batch1_latency_ms_min": lat[0], "batch1_forward_ms": fwd1,
-        "batch32_imgs_per_s": 32 / b32_s, "batch32_step_ms": b32_s * 1e3,
-        "batch32_forward_ms": fwd32, "peak_mem_gib_batch32": peak,
-        "bf16_same_run": {k: bf16_perf[k] for k in (
-            "batch1_latency_ms_p50", "batch1_latency_ms_p75", "batch32_imgs_per_s",
-            "batch32_forward_ms")},
-    }
-    print(json.dumps({"int8_slice_perf": perf}), flush=True)
-    return launches, rows
+    return {"batch1_latency_ms_p50": lat[len(lat) // 2],
+            "batch1_latency_ms_p75": lat[3 * len(lat) // 4],
+            "batch1_latency_ms_min": lat[0], "batch1_forward_ms": fwd1,
+            "batch32_imgs_per_s": 32 / b32_s, "batch32_step_ms": b32_s * 1e3,
+            "batch32_forward_ms": fwd32, "peak_mem_gib_batch32": peak,
+            "profile": {k: profile[k] for k in ("device_busy_ms", "idle_share",
+                                                "by_class_ms")}}
 
 
 def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
@@ -1114,6 +1183,445 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
         "library_ms": None if any(x is None for x in lib) else sum(lib),
         "shapes": rows,
     }
+
+
+# ---------------------------------------------------------------------------
+# the int8 TEB's handoff variants: flash_mha_int8_qout, flash_int8_handoff,
+# quant_rows with qmax 7 (w4a4)
+# ---------------------------------------------------------------------------
+
+# The neck's attention shapes (B, N, C, heads) at batch 2, phi='s' 640x640.
+VARIANT_SHAPES = (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)),
+                  ("h4", (2, 1600, 1536, 6)))
+# Configuration A reaches the handoff and w4a4, B the attention quant_out.
+VARIANT_CONFIGS = {
+    "A": {"attn_handoff": True, "w4a4_mlp1": True},
+    "B": {"attn_qout": True},
+}
+# Launches per forward, from the routing (models/blocks.py): the three neck
+# TEBs with N > 1,024 take the variant's attention; w4a4 opens where B * N
+# and the widths are multiples of 128 (batch 1: h2 only; batch 2: h1, h2, h4;
+# batch 32: all four TEBs) and turns the LN handoff off; the LN handoff
+# opens at batch 32 on h1, h2, h4 (B only). Each TEB runs 4 qmm; a bf16 input
+# to qkv, attn_out or mlp1 runs quant_rows first.
+VARIANT_EXPECTED = {
+    "A": {1: dict(quant_rows=8, quant_rows_int4=1, qmm=16, flash_int8_handoff=3),
+          2: dict(quant_rows=6, quant_rows_int4=3, qmm=16, flash_int8_handoff=3),
+          32: dict(quant_rows=5, quant_rows_int4=4, qmm=16, flash_int8_handoff=3)},
+    "B": {1: dict(quant_rows=9, qmm=16, flash_mha_int8_qout=3),
+          2: dict(quant_rows=9, qmm=16, flash_mha_int8_qout=3),
+          32: dict(quant_rows=6, qmm=16, flash_mha_int8_qout=3)},
+}
+# Slice limits of each configuration with kernels against the same
+# configuration on plain versions, between the sound reading and those of
+# the planted faults in VARIANT_SLICE_REJECTS on an H100 (PERF.md). B: the
+# int8 limits. A: its int4-range steps are 18 times the int8 ones, so the
+# last-bit differences kernel and plain carry from earlier layers move more
+# activations across a rounding boundary: its scores read 3.7e-4 (0.259 px)
+# against plain; a dropped K slab 1.27e-3 (0.591 px), the k/v requantize
+# ratio dropped 9.3e-4 (0.375 px).
+VARIANT_BOX_LIMIT_PX = {"A": 0.35, "B": 0.35}
+VARIANT_SCORE_LIMIT = {"A": 6e-4, "B": 3e-4}
+VARIANT_SLICE_REJECTS = ("qmm_k_slab_dropped",)
+
+
+def match_per_anchor(dec_a, dec_b, pcfg) -> dict:
+    """Detection sets of two runs' `decoded` (NMS as detect_step runs it,
+    in letterboxed pixels), compared detection by detection: a detection
+    of run a counts when its score clears the confidence by more than its
+    own anchor's score difference between the runs (so it is a candidate in
+    run b too), and is matched when run b keeps a same-class box at IoU >=
+    0.75 * nms_iou with it (itself, or the box that suppressed it). The
+    global largest difference, the margin of `match_detections`, can exceed
+    every detection's clearance: then nothing would be compared."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops.geometry import pairwise_iou, xywh2xyxy
+    from transparent_object_detection_tpu_torch.ops.nms import batched_nms
+
+    def nms(dec):
+        return batched_nms(xywh2xyxy(dec[..., :4]), dec[..., 4:], conf_thres=pcfg.confidence,
+                           iou_thres=pcfg.nms_iou, max_detections=pcfg.max_detections,
+                           pre_nms_topk=pcfg.pre_nms_topk, mode=pcfg.nms_mode,
+                           class_agnostic=pcfg.class_agnostic)
+
+    da, db = nms(dec_a), nms(dec_b)
+    boxes_a = xywh2xyxy(dec_a[..., :4])  # (B, A, 4)
+    cls_a = da["classes"].clamp(min=0)
+    # each detection's anchor: the one whose box and class score it carries
+    score_at = torch.gather(dec_a[..., 4:], 2, cls_a[:, None, :].expand(-1, dec_a.shape[1], -1))
+    dist = ((boxes_a[:, :, None, :] - da["boxes"][:, None, :, :]).abs().sum(-1)
+            + (score_at - da["scores"][:, None, :]).abs())  # (B, A, D)
+    anchor = dist.argmin(dim=1)  # (B, D)
+    cls_scores = lambda dec: torch.gather(
+        torch.gather(dec[..., 4:], 1, anchor[..., None].expand(-1, -1, dec.shape[-1] - 4)),
+        2, cls_a[..., None])[..., 0]
+    margin = (cls_scores(dec_a) - cls_scores(dec_b)).abs()
+    sel = da["valid"] & (da["scores"] > pcfg.confidence + margin)
+    same = (da["classes"][:, :, None] == db["classes"][:, None, :]) & db["valid"][:, None, :]
+    iou = pairwise_iou(da["boxes"].float(), db["boxes"].float())
+    best = torch.where(same, iou, torch.zeros_like(iou)).amax(dim=-1)
+    return {"detections": da["num_detections"].tolist(),
+            "compared": int(sel.sum()), "identical": int((sel & (best >= 0.9)).sum()),
+            "unmatched": int((sel & (best < 0.75 * pcfg.nms_iou)).sum()),
+            "anchor_found_exactly": bool((dist.amin(dim=1)[da["valid"]] == 0).all())}
+
+
+def _quant_per_head(o, heads):
+    """fp32 (B, N, C) -> the int8 per-(row, head) output of the variants."""
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+
+    return A8._quantize_heads(A8._split_heads(o.float(), heads))
+
+
+def _out_scale_per_row(o, heads):
+    """Planted fault: one output scale per row over all heads, written into
+    every head's column."""
+    import torch
+
+    amax = torch.clamp(o.float().abs().amax(-1, keepdim=True), min=1e-30)
+    payload = torch.round(o.float() * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
+    return payload, (amax * (1.0 / 127.0)).expand(*o.shape[:2], heads).contiguous()
+
+
+def _requantize_ratio_dropped(payload, scales, col0, c, heads, bk, requantize=None):
+    """Planted fault: the k/v section kept as it is, under the block's
+    largest row scale (the requantize ratio dropped)."""
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+
+    _, s_blk = (requantize or A8.requantize_section)(payload, scales, col0, c, heads, bk)
+    return payload[..., col0:col0 + c].contiguous(), s_blk
+
+
+def _qkv_payload(gen, b, n, c, qk_std, group):
+    """A qkv projection's int8 output as the handoff gets it: random values
+    (q and k at std qk_std) quantized per (row, group of `group` columns)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    qkv = torch.randn(b, n, 3 * c, generator=gen, device=DEVICE)
+    qkv[..., :2 * c] *= qk_std
+    return QM._output_plain(qkv, None, group, None)
+
+
+def _attention_cost(b, n, cq, cv, h, q_bytes, out_bytes):
+    """(operations, bytes) of one int8 attention call: q (int8 plus its
+    scale table, or bf16), k/v int8 and their scales read once, the output
+    (int8 plus scales, or bf16) written once."""
+    ops = 2.0 * b * n * n * (cq + cv)
+    scales = 4 * b * n * h if q_bytes == 1 else 0
+    out_scales = 4 * b * n * h if out_bytes == 1 else 0
+    nbytes = (b * n * cq * q_bytes + scales + b * n * (cq + cv) + 8 * b * h
+              + b * n * cv * out_bytes + out_scales)
+    return ops, nbytes
+
+
+def _bound(ops, nbytes):
+    """(ms, what bounds it) of int8 work: operations at the int8 peak or
+    bytes at the memory rate."""
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _sdpa_ms(b, n, cq, cv, h, scale):
+    """bf16 SDPA on the same shapes: the yardstick (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k = (torch.randn(b, h, n, cq // h, generator=gen, device=DEVICE).bfloat16()
+            for _ in range(2))
+    v = torch.randn(b, h, n, cv // h, generator=gen, device=DEVICE).bfloat16()
+    return timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10, 2)
+
+
+def _hold(what, out, ref, faults: dict, record: dict, spread_faults=()) -> dict:
+    """The int8 bars on a kernel's outputs against its plain version's; each
+    planted fault's output must break them (those in `spread_faults` on at
+    least one input spread: the caller checks). Prints the reading."""
+    reading = int8_reading(out, ref)
+    reading["faults_bar_used"] = {f: int8_reading(fn(), ref)["bar_used"] for f, fn in faults.items()}
+    print(json.dumps({"check": what, **record, **reading}), flush=True)
+    check(reading["bar_used"] <= 1.0, f"{what}: kernel off the bar {reading}")
+    for f, used in reading["faults_bar_used"].items():
+        check(used > 1.0 or f in spread_faults,
+              f"{what}: the bar does not reject {f} ({used:.3g}x)")
+    return reading
+
+
+def variant_kernel_phase(shrink: int = 1) -> dict:
+    """flash_mha_int8_qout, flash_int8_handoff (quant_out and bf16 out, G = 1
+    and G = 12 scale tables) and quant_rows(qmax=7) against their plain
+    versions on synthetic inputs at the neck's shapes at batch 2, plus one
+    4-key-block case each, at score std 1 and 4, with the int8 bars and
+    planted faults they must reject. Times each beside its bound, its plain
+    version and bf16 SDPA. Returns per kernel the largest value error and
+    prints the timing rows. `shrink` divides the token and row counts."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    err = {"flash_mha_int8_qout": 0.0, "flash_int8_handoff": 0.0, "quant_rows_int4": 0.0}
+    rows = {k: [] for k in err}
+    qk_std = lambda score_std, scale, d: (score_std / (scale * d ** 0.5)) ** 0.5
+    cases = [(name, shape, None) for name, shape in VARIANT_SHAPES]
+    cases.append(("h2 widths, 4 key blocks", (1, 6400, 1536, 6), 4))
+    for name, (b, n, c, h), nk in cases:
+        n //= shrink
+        scale = (c // h) ** -0.5
+        bk = A8.pick_blocks(n, c, h)[1] if nk is None else n // nk
+        rejected = False  # p on a running 64-key max, on some input spread
+        for score_std in SCORE_STDS:
+            record = {"b": b, "n": n, "c": c, "heads": h, "bk": bk, "score_std": score_std}
+            # qout: bf16 q read in place from the packed qkv, k/v quantized per block
+            qkv = torch.randn(b, n, 3 * c, generator=gen, device=DEVICE)
+            qkv[..., :2 * c] *= qk_std(score_std, scale, c // h)
+            qkv = qkv.bfloat16()
+            k, v = qkv[..., c:2 * c], qkv[..., 2 * c:]
+            kq, ks = A8.quantize_kv(k, h, bk)
+            vq, vs = A8.quantize_kv(v, h, bk)
+            args = (qkv, kq, ks, vq, vs, h, scale, c)
+            out = A8.flash_mha_int8_qout(*args)
+            torch.cuda.synchronize()
+            ref = A8.flash_mha_int8_qout_plain(*args)
+            qc = qkv[..., :c]
+            faults = {
+                "out_scale_per_row": lambda: _out_scale_per_row(
+                    int8_attention_reference(qc, k, v, h, scale, bk, bk, torch.float32), h),
+                "p_rounded_on_running_64_key_max": lambda: _quant_per_head(
+                    int8_attention_reference(qc, k, v, h, scale, bk, 64, torch.float32), h),
+            }
+            r = _hold(f"flash_mha_int8_qout {name}", out, ref, faults, record,
+                      spread_faults=("p_rounded_on_running_64_key_max",))
+            rejected |= r["faults_bar_used"]["p_rounded_on_running_64_key_max"] > 1.0
+            reference = int8_reading(_quant_per_head(int8_attention_reference(
+                qc, k, v, h, scale, bk, bk, torch.float32), h), ref)["bar_used"]
+            check(reference <= 1.0, f"flash_mha_int8_qout {name}: the fault reference is "
+                                    f"not the plain function ({reference})")
+            err["flash_mha_int8_qout"] = max(err["flash_mha_int8_qout"], r["max_abs_err"])
+            if score_std == SCORE_STDS[-1] and nk is None:
+                ops, nbytes = _attention_cost(b, n, c, c, h, 2, 1)
+                bnd, by = _bound(ops, nbytes)
+                rows["flash_mha_int8_qout"].append(dict(
+                    node=name, **record, ms=timed_ms(lambda: A8.flash_mha_int8_qout(*args), 10),
+                    plain_ms=timed_ms(lambda: A8.flash_mha_int8_qout_plain(*args), 2, 1),
+                    bound_ms=bnd, bound_by=by, library_ms=_sdpa_ms(b, n, c, c, h, scale),
+                    max_abs_err=r["max_abs_err"]))
+
+            # handoff: the int8 qkv payload with one scale group per row (G = 1) or
+            # per 512 columns (G = 12 at C = 2,048; 1,536 columns hold 3 groups)
+            path_group = QM.quant_out_group_width(b * n * shrink, c, 3 * c, 0,
+                                                  align=(c, c // h))
+            for group in (3 * c, 512):
+                payload, scales = _qkv_payload(gen, b, n, c, qk_std(score_std, scale, c // h),
+                                               group)
+                g_rec = {**record, "groups": scales.shape[-1]}
+                qs = A8.q_scale_table(scales, c, h)
+                kq, ks = A8.requantize_section(payload, scales, c, c, h, bk)
+                vq, vs = A8.requantize_section(payload, scales, 2 * c, c, h, bk)
+                wrong_qs = qs.roll(1, dims=-1)
+                k_fault = _requantize_ratio_dropped(payload, scales, c, c, h, bk)
+                for quant_out in (True, False):
+                    hargs = (payload, qs, kq, ks, vq, vs, h, scale, quant_out)
+                    out = A8.flash_int8_handoff(*hargs)
+                    torch.cuda.synchronize()
+                    ref = A8.flash_int8_handoff_plain(*hargs)
+                    faults = {
+                        "kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
+                            payload, qs, *k_fault, vq, vs, h, scale, quant_out),
+                    }
+                    if group < 3 * c:  # with one scale a row every head has the same
+                        faults["q_scale_from_wrong_head"] = lambda: A8.flash_int8_handoff_plain(
+                            payload, wrong_qs, kq, ks, vq, vs, h, scale, quant_out)
+                    if quant_out:
+                        faults["out_scale_per_row"] = lambda: _out_scale_per_row(
+                            A8.flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, h, scale,
+                                                        False, torch.float32), h)
+                    r = _hold(f"flash_int8_handoff {name} quant_out={quant_out}", out, ref,
+                              faults, {**g_rec, "quant_out": quant_out})
+                    err["flash_int8_handoff"] = max(err["flash_int8_handoff"], r["max_abs_err"])
+                    if (score_std == SCORE_STDS[-1] and nk is None and quant_out
+                            and group == path_group):  # as the TEB route runs it
+                        ops, nbytes = _attention_cost(b, n, c, c, h, 1, 1)
+                        bnd, by = _bound(ops, nbytes)
+                        rows["flash_int8_handoff"].append(dict(
+                            node=name, **g_rec,
+                            ms=timed_ms(lambda: A8.flash_int8_handoff(*hargs), 10),
+                            plain_ms=timed_ms(lambda: A8.flash_int8_handoff_plain(*hargs), 2, 1),
+                            bound_ms=bnd, bound_by=by, library_ms=_sdpa_ms(b, n, c, c, h, scale),
+                            max_abs_err=r["max_abs_err"]))
+        check(rejected or shrink > 1, f"flash_mha_int8_qout {name}: the bar rejects p rounded "
+                                      "on a running 64-key max on no input spread")
+
+    # quant_rows(qmax=7) and the w4a4 qmm at the mlp1 shapes (LN, gelu,
+    # quant_out one scale per row): h1, h2, h4 at batch 2
+    for name, (b, n, c, h) in VARIANT_SHAPES:
+        m = b * n // shrink
+        x = (torch.randn(m, c, generator=gen, device=DEVICE) * 2 + 0.5).bfloat16()
+        readings, _ = _qmm_case(f"{name} w4a4 mlp1 batch 2", x, None, m, c, 4 * c, 0, "gelu",
+                                False, group=4 * c, ln=True, qmax=7)
+        err["quant_rows_int4"] = max(err["quant_rows_int4"],
+                                     readings["quant_rows"]["max_abs_err"])
+        bnd, by = _bound(0.0, x.numel() * 3 + m * 4)
+        rows["quant_rows_int4"].append(dict(
+            node=name, m=m, k=c, ln=True,
+            ms=timed_ms(lambda: QM.quant_rows(x, True, qmax=7), 10),
+            plain_ms=timed_ms(lambda: QM.quant_rows_plain(x, True, qmax=7), 2, 1),
+            bound_ms=bnd, bound_by=by, library_ms=None,
+            max_abs_err=readings["quant_rows"]["max_abs_err"]))
+    for key, rs in rows.items():
+        for r in rs:
+            print(json.dumps({"variant_kernel": key, **r}), flush=True)
+    return err
+
+
+def variant_slice_phase(card: str, bf16_model, same_run: dict) -> dict:
+    """Configurations A and B (VARIANT_CONFIGS) of the int8 model with the
+    bf16 model's weights through Predictor.detect_raw_batch: launches per
+    forward counted at batch 32 and 1 (the main path) and asserted; `decoded`
+    and the detection sets against the same configuration on plain versions,
+    with limits a planted fault must break; every launch of one batch-2
+    forward against its plain version, timed; timings beside the default int8
+    and bf16 paths of this run (`same_run`); a profile at batch 32."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import (
+        build_model,
+        set_attention_impl,
+    )
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
+    cfg, pcfg = ModelConfig(int8_dense=True, int8_attn=True), PredictConfig()
+    rng = np.random.default_rng(SEED)
+    raw = rng.integers(0, 256, size=(4, 480, 640, 3), dtype=np.uint8)
+    shapes = np.tile(np.array([[480, 640]], np.float32), (4, 1))
+    raw32 = rng.integers(0, 256, size=(32, 480, 640, 3), dtype=np.uint8)
+    shapes32 = np.tile(np.array([[480, 640]], np.float32), (32, 1))
+    images = letterbox_batch(torch.as_tensor(raw, device=DEVICE).float() / 255.0,
+                             cfg.input_shape)
+    # the planted fault of each configuration's own route, read besides
+    variant_fault = {
+        "A": ("kv_requantize_ratio_dropped", A8, "requantize_section",
+              lambda real: lambda *args: _requantize_ratio_dropped(*args, requantize=real)),
+        "B": ("out_scale_per_row", A8, "_quantize_heads",
+              lambda real: lambda o: _out_scale_per_row(A8._merge_heads(o), o.shape[1])),
+    }
+    results, failed = {}, []
+    for tag, fields in VARIANT_CONFIGS.items():
+        variants = Int8Variants(**fields)
+        model = build_model(cfg, device=DEVICE, seed=SEED, int8_variants=variants)
+        model.load_state_dict(bf16_model.state_dict())
+        predictor = Predictor(model, cfg, pcfg, device=DEVICE)
+        with torch.no_grad():  # class biases as the int8 slice sets them
+            towers = [getattr(model.head, f"cls{i}") for i in range(3)]
+            for t in towers:
+                t.out.bias.zero_()
+            logits = torch.logit(model(images)["decoded"][..., 4:].amax(-1), eps=1e-6).flatten()
+            shift = float(logits.topk(INT8_CANDIDATES_PER_IMAGE * len(raw)).values[-1])
+            for t in towers:
+                t.out.bias.fill_(-shift)
+
+        # the main path, counted: counts to 0 just before, read just after
+        launches = {}
+        for b, (r, sh) in ((32, (raw32, shapes32)), (1, (raw[:1], shapes[:1]))):
+            reset_counts()
+            dets_b = predictor.detect_raw_batch(r, sh)
+            torch.cuda.synchronize()
+            launches[b] = read_counts()
+            expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8": 1,
+                        **VARIANT_EXPECTED[tag][b]}
+            check(launches[b] == expected,
+                  f"configuration {tag} batch {b}: launches {launches[b]}, expected {expected}")
+            check(bool(torch.isfinite(dets_b["boxes"]).all()), f"{tag}: non-finite boxes")
+        print(json.dumps({"variant_main_path_launches": {"config": tag, **variants.__dict__,
+                                                         "per_forward": launches}}), flush=True)
+
+        def run_plain():
+            set_attention_impl(model, "plain")
+            try:
+                return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+            finally:
+                set_attention_impl(model, None)
+
+        with torch.inference_mode():
+            dets = predictor.detect_raw_batch(raw, shapes)
+            dec_k = model(images)["decoded"]
+            dec_p, dets_p = run_plain()
+            faulty = {}
+            for fault in VARIANT_SLICE_REJECTS:
+                with QMM_FAULTS[fault](QM):
+                    faulty[fault] = run_plain()
+            name, mod, attr, make = variant_fault[tag]
+            with _patched(mod, attr, make(getattr(mod, attr))):
+                faulty[name] = run_plain()
+        check(bool((dets["num_detections"] > 0).all()),  # the images the biases were set on
+              f"{tag}: empty detections {dets['num_detections'].tolist()}")
+        if not bool((dets["num_detections"] < pcfg.max_detections).all()):
+            failed.append(f"{tag}: max_detections cut the detections; the sets are not "
+                          f"comparable: {dets['num_detections'].tolist()}")
+        check(dec_k.shape == (4, cfg.num_anchors, 4 + cfg.num_classes), f"{tag}: decoded shape")
+        check(bool(torch.isfinite(dec_k).all()), f"{tag}: non-finite decoded")
+
+        def against_plain(dec, d):
+            return {"decoded_box_max_abs_px": float((dec[..., :4] - dec_p[..., :4]).abs().max()),
+                    "decoded_score_max_abs": float((dec[..., 4:] - dec_p[..., 4:]).abs().max()),
+                    "num_detections": d["num_detections"].cpu().tolist(),
+                    "matched_in_plain": match_per_anchor(dec, dec_p, pcfg),
+                    "plain_matched_here": match_per_anchor(dec_p, dec, pcfg)}
+
+        sound = against_plain(dec_k, dets)
+        faults = {f: against_plain(*faulty[f]) for f in faulty}
+        limits = {"box_px": VARIANT_BOX_LIMIT_PX[tag], "score": VARIANT_SCORE_LIMIT[tag]}
+        print(json.dumps({"variant_slice_parity": {
+            "config": tag, "kernels": sound,
+            "num_detections_plain": dets_p["num_detections"].cpu().tolist(),
+            "planted_faults": faults, "limits": limits}}), flush=True)
+        # read both configurations before failing on a limit
+        if sound["decoded_box_max_abs_px"] > limits["box_px"]:
+            failed.append(f"{tag}: decoded boxes differ from plain by "
+                          f"{sound['decoded_box_max_abs_px']}")
+        if sound["decoded_score_max_abs"] > limits["score"]:
+            failed.append(f"{tag}: decoded scores differ from plain by "
+                          f"{sound['decoded_score_max_abs']}")
+        for key in ("matched_in_plain", "plain_matched_here"):
+            m = sound[key]
+            if not (m["compared"] > 0 and m["unmatched"] == 0):
+                failed.append(f"{tag}: detection sets differ: {key} {m}")
+        for fault in VARIANT_SLICE_REJECTS:
+            r = faults[fault]
+            if not (r["decoded_box_max_abs_px"] > limits["box_px"] or
+                    r["decoded_score_max_abs"] > limits["score"]):
+                failed.append(f"{tag}: the slice limits do not reject {fault}: {r}")
+        del dec_k, dec_p, dets_p, faulty
+
+        # every launch of one batch-2 forward against its plain version, timed
+        rows = int8_path_calls(model, images[:2])
+        got = {k: len(v) for k, v in rows.items() if v}
+        want = {k: v for k, v in {"flash_mha_int8": 1, **VARIANT_EXPECTED[tag][2]}.items() if v}
+        check(got == want, f"{tag}: batch-2 launches {got}, expected {want}")
+
+        perf = {"card": card, "model": f"phi=s 640x640 int8_dense + int8_attn, config {tag}",
+                "variants": variants.__dict__,
+                **serving_timing(model, predictor, raw, shapes, images, rng),
+                "same_run": same_run}
+        print(json.dumps({"variant_slice_perf": perf}), flush=True)
+        results[tag] = {"launches": launches, "rows": rows, "perf": perf}
+        del model, predictor
+        torch.cuda.empty_cache()
+    check(not failed, "; ".join(failed))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1643,9 +2151,13 @@ def main() -> int:
 
     mha_rows, single_rows = kernel_phase()
     int8_err = int8_kernel_phase()
+    variant_err = variant_kernel_phase()
     train_rows = train_kernel_phase()
     launches, bf16_model, bf16_perf = slice_phase(card)
-    int8_launches, int8_rows = int8_slice_phase(card, bf16_model, bf16_perf)
+    int8_launches, int8_rows, int8_perf = int8_slice_phase(card, bf16_model, bf16_perf)
+    same_run = {"bf16": {k: bf16_perf[k] for k in PERF_KEYS},
+                "int8": {k: int8_perf[k] for k in PERF_KEYS}}
+    variants = variant_slice_phase(card, bf16_model, same_run)
     del bf16_model
     torch.cuda.empty_cache()
     train_launches = train_slice_phase(card)
@@ -1654,6 +2166,8 @@ def main() -> int:
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
+    a8src = "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu"
+    ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
     kernels = [
         kernel_entry("flash_mha_packed", src,
                      "transparent_object_detection_tpu/ops/attention.py:239", mha_rows,
@@ -1661,15 +2175,27 @@ def main() -> int:
         kernel_entry("flash_single", src,
                      "transparent_object_detection_tpu/ops/attention.py:137", single_rows,
                      launches["flash_single"]),
-        int8_kernel_entry("flash_mha_int8",
-                          "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu",
-                          "transparent_object_detection_tpu/ops/attention_int8.py:58",
+        int8_kernel_entry("flash_mha_int8", a8src, f"{ja8}:58",
                           int8_rows["flash_mha_int8"], int8_launches["flash_mha_int8"],
                           int8_err["flash_mha_int8"]),
         int8_kernel_entry("qmm", qsrc, f"{jq}:80", int8_rows["qmm"], int8_launches["qmm"],
                           int8_err["qmm"]),
         int8_kernel_entry("quant_rows", qsrc, f"{jq}:408", int8_rows["quant_rows"],
                           int8_launches["quant_rows"], int8_err["quant_rows"]),
+        # the variants: launches of the counted batch-32 forward, times of the
+        # batch-2 forward's launches, of configuration A (handoff, w4a4) or B (qout)
+        int8_kernel_entry("flash_mha_int8_qout", a8src, f"{ja8}:184",
+                          variants["B"]["rows"]["flash_mha_int8_qout"],
+                          variants["B"]["launches"][32]["flash_mha_int8_qout"],
+                          variant_err["flash_mha_int8_qout"]),
+        int8_kernel_entry("flash_int8_handoff", a8src, f"{ja8}:435",
+                          variants["A"]["rows"]["flash_int8_handoff"],
+                          variants["A"]["launches"][32]["flash_int8_handoff"],
+                          variant_err["flash_int8_handoff"]),
+        int8_kernel_entry("quant_rows_int4", qsrc, f"{jq}:408",
+                          variants["A"]["rows"]["quant_rows_int4"],
+                          variants["A"]["launches"][32]["quant_rows_int4"],
+                          variant_err["quant_rows_int4"]),
         kernel_entry("flash_fwd_lse", src, f"{jv}:63", train_rows["flash_fwd_lse"],
                            train_launches["flash_fwd_lse"]),
         kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170", train_rows["flash_bwd_dq"],

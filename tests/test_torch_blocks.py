@@ -21,7 +21,6 @@ import transparent_object_detection_tpu.ops.quant_matmul as jqm
 from _torch_parity import random_variables, rel_err, to_jax
 from transparent_object_detection_tpu.models import blocks as jb
 from transparent_object_detection_tpu_torch.models import blocks as tb
-from transparent_object_detection_tpu_torch.ops import quant_matmul as tqm
 from transparent_object_detection_tpu_torch.weights import load_jax_variables
 
 torch.set_num_threads(1)
@@ -101,8 +100,7 @@ def test_int8_block_matches_flax(case, monkeypatch):
     monkeypatch.setattr(ja8, "INTERPRET", True)
     monkeypatch.setattr(jattn, "INTERPRET", True)
     if case.endswith("ln_handoff"):  # the handoff's row floor, lowered on both sides
-        monkeypatch.setenv("TOD_LN_HANDOFF_MIN_ROWS", "128")
-        monkeypatch.setattr(tqm, "LN_HANDOFF_MIN_ROWS", 128)
+        monkeypatch.setenv("TOD_LN_HANDOFF_MIN_ROWS", "128")  # the port reads it at build
     jkw, tkw, c, dtype, bar = INT8_CASES[case]
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, jdt.name)

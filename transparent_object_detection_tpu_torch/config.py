@@ -8,8 +8,9 @@ configuration reads the same in both packages; `build_model` refuses them.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 # (base_channels, base_depth, deep_mul) per model scale.
 SCALE_TABLE: Dict[str, Tuple[int, int, float]] = {
@@ -76,6 +77,43 @@ class ModelConfig:
     @property
     def num_anchors(self) -> int:
         return sum(h * w for h, w in self.feat_shapes)
+
+
+@dataclass(frozen=True)
+class Int8Variants:
+    """The int8 TEB's handoff variants, which the JAX package reads from the
+    environment inside its TEB (the same variable names and defaults;
+    `from_env` reads them). They change nothing unless `int8_dense` and/or
+    `int8_attn` is on, and each is part of the function computed.
+
+    attn_handoff (TOD_ATTN_HANDOFF): the qkv projection emits an int8
+        payload, attention consumes it (k/v requantized per key block) and
+        its int8 output feeds attn_out.
+    attn_qout (TOD_ATTN_QOUT): only the output side of that handoff.
+    w4a4_mlp1 (TOD_W4A4_MLP1): mlp1 on int4-range weights and activations;
+        it turns the LN handoff off.
+    ln_handoff (TOD_LN_HANDOFF) and ln_handoff_min_rows
+        (TOD_LN_HANDOFF_MIN_ROWS): attn_out emits the LN2-normalized payload
+        for mlp1 from this many rows (B * N) up.
+    """
+
+    attn_handoff: bool = False
+    attn_qout: bool = False
+    w4a4_mlp1: bool = False
+    ln_handoff: bool = True
+    ln_handoff_min_rows: int = 51200
+
+    @classmethod
+    def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "Int8Variants":
+        env = os.environ if environ is None else environ
+        on = lambda name, default: env.get(name, default) == "1"
+        return cls(
+            attn_handoff=on("TOD_ATTN_HANDOFF", "0"),
+            attn_qout=on("TOD_ATTN_QOUT", "0"),
+            w4a4_mlp1=on("TOD_W4A4_MLP1", "0"),
+            ln_handoff=on("TOD_LN_HANDOFF", "1"),
+            ln_handoff_min_rows=int(env.get("TOD_LN_HANDOFF_MIN_ROWS", "51200")),
+        )
 
 
 @dataclass(frozen=True)

@@ -1,6 +1,19 @@
-// int8 flash attention for Hopper (sm_90a). Replaces the TPU kernel
-// transparent_object_detection_tpu/ops/attention_int8.py::_mha_flash_int8_kernel
-// (launched by flash_attention_mha_int8).
+// int8 flash attention for Hopper (sm_90a). One templated kernel replaces
+// three TPU kernels of transparent_object_detection_tpu/ops/attention_int8.py:
+//   * _mha_flash_int8_kernel (flash_attention_mha_int8): entry flash_mha_int8,
+//     the function below with a bf16 output;
+//   * _mha_flash_int8_qout_kernel (flash_attention_mha_int8_qout): entry
+//     flash_mha_int8_qout, the same with the output quantized (O8, below);
+//   * _mha_flash_int8_handoff_kernel (flash_attention_int8_handoff): entry
+//     flash_int8_handoff, q int8 from the qkv projection's payload (Q8) and
+//     the output int8 (O8) or bf16.
+// Q8: q is read in place as int8 from the payload's leading columns (row
+// stride q_row = 3C) and used as it is, no re-rounding; its scale per (row,
+// head) comes from a table (B, N, heads). O8: o = acc * (1 / l), amax over the
+// head's dv columns (floor 1e-30), out rint(o * (127 / amax)) and amax / 127
+// into column `head` of (B, N, heads). A block holds a head's whole output
+// row only when dv == 256 (one slice), so O8 refuses other widths; the amax
+// is then a reduction over the 4 threads of a quad.
 //
 // Inputs: q bf16, head-packed, read in place (the (B, N, 3C) qkv array with
 // row stride 3C, or a plain (B, N, Cq) array); kq (B, N, Cq) and vq (B, N, Cv)
@@ -57,12 +70,16 @@ constexpr float LOG2_127 = 6.988684686772166f;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
 struct Params {
-  const __nv_bfloat16* q;
+  const __nv_bfloat16* q;   // bf16 q (Q8 false)
+  const int8_t* q8;         // int8 q, the qkv payload (Q8 true)
+  const float* qs_tab;      // its per-(row, head) scales (B, N, heads)
   const int8_t* kq;
   const int8_t* vq;
   const float* ks;
   const float* vs;
-  __nv_bfloat16* o;
+  __nv_bfloat16* o;         // bf16 out (O8 false)
+  int8_t* o8;               // int8 out (O8 true)
+  float* os;                // its per-(row, head) scales (B, N, heads)
   int n, heads, dq, dv, q_row, bk, nk, dv_splits;
   float scale_log2;
 };
@@ -104,7 +121,9 @@ struct Smem {
 // MULTI: more than one key block (nk > 1), the fp32 acc in shared memory.
 // With one block (the serving path: bk = N) acc is float(pv) * vs, formed at
 // the end; the block then needs 95.5 KB of shared memory and two fit an SM.
-template <int DQ, bool MULTI>
+// Q8: q arrives int8 (the handoff), with its scale from the table. O8: the
+// output is quantized per (row, head); the block holds the head's whole dv.
+template <int DQ, bool MULTI, bool Q8, bool O8>
 __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(const Params p) {
   using S = Smem<DQ, MULTI>;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -122,6 +141,7 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   const int b = blockIdx.z;
   const int cq = p.heads * DQ, cv = p.heads * p.dv;
   const __nv_bfloat16* qg = p.q + (long long)b * p.n * p.q_row + head * DQ;
+  const int8_t* q8g = p.q8 + (long long)b * p.n * p.q_row + head * DQ;
   const int8_t* kg = p.kq + (long long)b * p.n * cq + head * DQ;
   const int8_t* vg = p.vq + (long long)b * p.n * cv + head * p.dv + split * DVT;
   const float* ksg = p.ks + ((long long)b * p.heads + head) * p.nk;
@@ -151,7 +171,14 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   load(0);
 
   // q: per (row, head) int8 in shared memory; each warp its 16 rows
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+  for (int r = warp * 16; r < warp * 16 + 16 && Q8; ++r) {
+    // int8 q from the payload as it is, no re-rounding; scale from the table
+    if (lane * 16 < DQ)
+      *reinterpret_cast<uint4*>(sQ + r * (DQ + PADB) + lane * 16) =
+          *reinterpret_cast<const uint4*>(q8g + (long long)(m0 + r) * p.q_row + lane * 16);
+    if (lane == 0) sQs[r] = p.qs_tab[((long long)b * p.n + m0 + r) * p.heads + head];
+  }
+  for (int r = warp * 16; r < warp * 16 + 16 && !Q8; ++r) {
     float f[8];
     float amax = 0.f;
     const bool mine = lane * 8 < DQ;
@@ -330,37 +357,89 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   }
 
   const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
+  // one block: acc = 0 * corr + float(pv) * vs, as the plain version forms it
+  auto acc_at = [&](int i, int e) {
+    return MULTI ? sAcc[((e >> 1) ? r1 : r0) * DVT + i * 8 + 2 * t4 + (e & 1)]
+                 : __fmul_rn(static_cast<float>(pv[i][e]), vsc);
+  };
+  if (O8) {
+    // o = acc / l per (row, head); amax over the head's dv columns, which
+    // the 4 threads of a quad hold between them; rint(o * (127 / amax))
+    float amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DVT / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        amax[e >> 1] = fmaxf(amax[e >> 1],
+                             fabsf(__fmul_rn(acc_at(i, e), (e >> 1) ? inv1 : inv0)));
+    float qmul[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 1));
+      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 2));
+      amax[r] = fmaxf(amax[r], 1e-30f);
+      qmul[r] = 127.f / amax[r];
+    }
+    int8_t* o8g = p.o8 + (long long)b * p.n * cv + head * p.dv;
+#pragma unroll
+    for (int i = 0; i < DVT / 8; ++i) {
+      const int col = i * 8 + 2 * t4;
+      char2 v0, v1;
+      v0.x = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 0), inv0), qmul[0])));
+      v0.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 1), inv0), qmul[0])));
+      v1.x = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 2), inv1), qmul[1])));
+      v1.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 3), inv1), qmul[1])));
+      *reinterpret_cast<char2*>(o8g + (long long)(m0 + r0) * cv + col) = v0;
+      *reinterpret_cast<char2*>(o8g + (long long)(m0 + r1) * cv + col) = v1;
+    }
+    if (t4 == 0) {
+      p.os[((long long)b * p.n + m0 + r0) * p.heads + head] = amax[0] * INV127;
+      p.os[((long long)b * p.n + m0 + r1) * p.heads + head] = amax[1] * INV127;
+    }
+    return;
+  }
 #pragma unroll
   for (int i = 0; i < DVT / 8; ++i) {
     const int col = i * 8 + 2 * t4;
-    float a[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // one block: acc = 0 * corr + float(pv) * vs, as the plain version forms it
-      a[e] = MULTI ? sAcc[((e >> 1) ? r1 : r0) * DVT + col + (e & 1)]
-                   : __fmul_rn(static_cast<float>(pv[i][e]), vsc);
-    }
     *reinterpret_cast<__nv_bfloat162*>(og + (long long)(m0 + r0) * cv + col) =
-        __floats2bfloat162_rn(a[0] * inv0, a[1] * inv0);
+        __floats2bfloat162_rn(acc_at(i, 0) * inv0, acc_at(i, 1) * inv0);
     *reinterpret_cast<__nv_bfloat162*>(og + (long long)(m0 + r1) * cv + col) =
-        __floats2bfloat162_rn(a[2] * inv1, a[3] * inv1);
+        __floats2bfloat162_rn(acc_at(i, 2) * inv1, acc_at(i, 3) * inv1);
   }
 }
 
-template <int DQ, bool MULTI>
+template <int DQ, bool MULTI, bool Q8, bool O8>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr int smem = Smem<DQ, MULTI>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(flash_int8_kernel<DQ, MULTI>,
+  cudaError_t err = cudaFuncSetAttribute(flash_int8_kernel<DQ, MULTI, Q8, O8>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(p.n / BM, p.heads * p.dv_splits, batch);
-  flash_int8_kernel<DQ, MULTI><<<grid, THREADS, smem, stream>>>(p);
+  flash_int8_kernel<DQ, MULTI, Q8, O8><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DQ>
-cudaError_t launch_dq(const Params& p, int batch, cudaStream_t stream) {
-  return p.nk == 1 ? launch<DQ, false>(p, batch, stream) : launch<DQ, true>(p, batch, stream);
+template <int DQ, bool Q8, bool O8>
+cudaError_t launch_blocks(const Params& p, int batch, cudaStream_t stream) {
+  return p.nk == 1 ? launch<DQ, false, Q8, O8>(p, batch, stream)
+                   : launch<DQ, true, Q8, O8>(p, batch, stream);
+}
+
+// The shape checks shared by the entry points; the int8-out forms need a
+// head's whole dv in one block (dv == DVT), the variants q/k width 256.
+bool shapes_ok(int n, int dq, int dv, int bk, int nk, bool variant, bool int8_out) {
+  if (n % BM || bk % BN || bk * nk != n || dv % DVT) return false;
+  if (variant && dq != 256) return false;
+  return !int8_out || dv == DVT;
+}
+
+Params make_params(int n, int heads, int dq, int dv, int q_row, int bk, int nk,
+                   float scale_log2) {
+  Params p = {};
+  p.n = n; p.heads = heads; p.dq = dq; p.dv = dv; p.q_row = q_row; p.bk = bk; p.nk = nk;
+  p.dv_splits = dv / DVT;
+  p.scale_log2 = scale_log2;
+  return p;
 }
 
 }  // namespace
@@ -376,24 +455,68 @@ extern "C" {
 int flash_mha_int8(const void* q, const void* kq, const void* ks, const void* vq,
                    const void* vs, void* out, int batch, int n, int heads, int dq, int dv,
                    int q_row, int bk, int nk, float scale_log2, void* stream) {
-  if (n % BM || bk % BN || bk * nk != n || dv % DVT)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+  if (!shapes_ok(n, dq, dv, bk, nk, false, false)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.kq = static_cast<const int8_t*>(kq);
   p.vq = static_cast<const int8_t*>(vq);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
   p.o = static_cast<__nv_bfloat16*>(out);
-  p.n = n; p.heads = heads; p.dq = dq; p.dv = dv; p.q_row = q_row; p.bk = bk; p.nk = nk;
-  p.dv_splits = dv / DVT;
-  p.scale_log2 = scale_log2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dq) {
-    case 64: return static_cast<int>(launch_dq<64>(p, batch, st));
-    case 256: return static_cast<int>(launch_dq<256>(p, batch, st));
+    case 64: return static_cast<int>(launch_blocks<64, false, false>(p, batch, st));
+    case 256: return static_cast<int>(launch_blocks<256, false, false>(p, batch, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Replaces _mha_flash_int8_qout_kernel: flash_mha_int8's arguments, the
+// output int8 (B, N, heads * dv) with f32 scales (B, N, heads) per (row,
+// head). dq == 256, dv == 256.
+int flash_mha_int8_qout(const void* q, const void* kq, const void* ks, const void* vq,
+                        const void* vs, void* out, void* out_scales, int batch, int n,
+                        int heads, int dq, int dv, int q_row, int bk, int nk, float scale_log2,
+                        void* stream) {
+  if (!shapes_ok(n, dq, dv, bk, nk, true, true)) return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.kq = static_cast<const int8_t*>(kq);
+  p.vq = static_cast<const int8_t*>(vq);
+  p.ks = static_cast<const float*>(ks);
+  p.vs = static_cast<const float*>(vs);
+  p.o8 = static_cast<int8_t*>(out);
+  p.os = static_cast<float*>(out_scales);
+  return static_cast<int>(launch_blocks<256, false, true>(p, batch,
+                                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Replaces _mha_flash_int8_handoff_kernel: q int8, the leading heads * dq
+// columns of the qkv payload (B, N, q_row), with f32 scales qs (B, N, heads);
+// kq, vq requantized per key block with scales (B, heads, nk). quant_out:
+// int8 out with f32 out_scales (B, N, heads) (dv == 256), else bf16 out and
+// out_scales unused. dq == 256.
+int flash_int8_handoff(const void* payload, const void* qs, const void* kq, const void* ks,
+                       const void* vq, const void* vs, void* out, void* out_scales, int batch,
+                       int n, int heads, int dq, int dv, int q_row, int bk, int nk,
+                       float scale_log2, int quant_out, void* stream) {
+  if (!shapes_ok(n, dq, dv, bk, nk, true, quant_out != 0) || q_row % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
+  p.q8 = static_cast<const int8_t*>(payload);
+  p.qs_tab = static_cast<const float*>(qs);
+  p.kq = static_cast<const int8_t*>(kq);
+  p.vq = static_cast<const int8_t*>(vq);
+  p.ks = static_cast<const float*>(ks);
+  p.vs = static_cast<const float*>(vs);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (quant_out) {
+    p.o8 = static_cast<int8_t*>(out);
+    p.os = static_cast<float*>(out_scales);
+    return static_cast<int>(launch_blocks<256, true, true>(p, batch, st));
+  }
+  p.o = static_cast<__nv_bfloat16*>(out);
+  return static_cast<int>(launch_blocks<256, true, false>(p, batch, st));
 }
 
 }  // extern "C"

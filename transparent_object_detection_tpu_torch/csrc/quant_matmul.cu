@@ -3,9 +3,11 @@
 //
 //   * quant_rows replaces the TPU kernel
 //     transparent_object_detection_tpu/ops/quant_matmul.py::_quant_rows_kernel
-//     (via _pquant_call): bf16 (M, K) -> int8 (M, K) + f32 (M, 1), optionally
-//     LayerNorm-normalized first (d = x - mean, var = max(E[x^2] - mean^2, 0),
-//     rsqrt folded into the scale). One warp per row.
+//     in both its launches: qmax 127 (via _pquant_call) and qmax 7, the
+//     int4-range activations of the w4a4 mlp1 (via _w4a4_call). bf16 (M, K)
+//     -> int8 (M, K) + f32 (M, 1), optionally LayerNorm-normalized first
+//     (d = x - mean, var = max(E[x^2] - mean^2, 0), rsqrt folded into the
+//     scale). One warp per row.
 //   * qmm replaces ops/quant_matmul.py::_qmm_kernel (via _qmm_call): int8 x
 //     with G >= 1 scale groups per row (G > 1: the JAX prologue, each group
 //     requantized onto the row's largest scale, round(x * s_g / s_max)), int8
@@ -21,7 +23,7 @@
 //     (M, N) and one block per row reduces and quantizes it. At batch 32 the
 //     largest workspace is h2's mlp1, 204,800 x 6,144 fp32 = 5.0 GB.
 // Rounding is half to even (rintf), as jnp.round; activations, outputs and q
-// are quantized by a reciprocal multiply d * (127 / amax), as in JAX.
+// are quantized by a reciprocal multiply d * (qmax / amax), as in JAX.
 //
 // Bound. The serving path's GEMMs (M = B * {1,600, 6,400}, K x N = C x 3C,
 // C x C, C x 4C, 4C x C at C = 1,536 / 2,048) do 2*M*K*N int8 operations and
@@ -98,7 +100,8 @@ __device__ __forceinline__ int8_t q8(float v) { return static_cast<int8_t>(__flo
 __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* __restrict__ x,
                                                          int8_t* __restrict__ xq,
                                                          float* __restrict__ xs, int m, int k,
-                                                         int ln, float eps) {
+                                                         int ln, float eps, float qmax,
+                                                         float inv_qmax) {
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
   if (row >= m) return;
@@ -137,7 +140,7 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* __
     for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i] - mu));
   }
   amax = fmaxf(warp_max(amax), 1e-12f);
-  const float inv = 127.f / amax;
+  const float inv = qmax / amax;
   for (int c = lane; c < chunks; c += 32) {
     float f[8];
     load8(c, f);
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* __
     dst[0] = lo;
     dst[1] = hi;
   }
-  if (lane == 0) xs[row] = amax * INV127 * rstd;
+  if (lane == 0) xs[row] = amax * inv_qmax * rstd;
 }
 
 // ---------------------------------------------------------------------------
@@ -426,13 +429,16 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_out_kernel(
 
 extern "C" {
 
-// bf16 (m, k) -> int8 (m, k), f32 (m, 1). k % 8 == 0.
-int quant_rows(const void* x, void* xq, void* xs, int m, int k, int ln, float eps,
-               void* stream) {
-  if (k % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+// bf16 (m, k) -> int8 (m, k) on [-qmax, qmax], f32 (m, 1). k % 8 == 0; qmax
+// 127 (int8) or 7 (the int4 range of w4a4), inv_qmax = 1 / qmax rounded to
+// f32 from double, as JAX rounds its weakly typed constant.
+int quant_rows(const void* x, void* xq, void* xs, int m, int k, int ln, float eps, float qmax,
+               float inv_qmax, void* stream) {
+  if (k % 8 != 0 || !(qmax == 127.f || qmax == 7.f))
+    return static_cast<int>(cudaErrorInvalidValue);
   quant_rows_kernel<<<(m + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs),
-      m, k, ln, eps);
+      m, k, ln, eps, qmax, inv_qmax);
   return static_cast<int>(cudaGetLastError());
 }
 

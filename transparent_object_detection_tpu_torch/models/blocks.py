@@ -20,11 +20,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transparent_object_detection_tpu_torch.config import Int8Variants
 from transparent_object_detection_tpu_torch.ops.attention import attention, attention_qkv
+from transparent_object_detection_tpu_torch.ops.attention_int8 import (
+    attention_int8_quant_out,
+    teb_attention_handoff,
+)
 from transparent_object_detection_tpu_torch.ops.quant_matmul import (
+    dequantize,
     ln_handoff,
     prepare_weights,
+    prepare_weights4,
     quant_matmul,
+    quant_matmul_w4a4,
 )
 
 
@@ -289,21 +297,25 @@ class TransformerEncoderBlock(nn.Module):
     gradient is one packed d(qkv).
 
     int8_dense: the four projections run as int8 GEMMs (ops/quant_matmul.py)
-    with the JAX int8 branch's handoffs at their defaults: the LN2-normalized
-    attn_out -> mlp1 payload from LN_HANDOFF_MIN_ROWS rows up, and mlp1's
-    quant_out payload into mlp2. The parameters are the bf16 branch's, so
-    one checkpoint serves both. int8_attn: the int8 flash route. Both int8
-    flags are serving-only: training mode runs the bf16 branch, as JAX
-    does."""
+    with the JAX int8 branch's handoffs: mlp1's quant_out payload into mlp2
+    always, and the routes that `int8_variants` selects (the LN2-normalized
+    attn_out -> mlp1 payload from its row floor up by default; the
+    attention handoff, the attention quant_out and the w4a4 mlp1 when
+    switched on). None reads `Int8Variants.from_env()` once, here. The
+    parameters are the bf16 branch's, so one checkpoint serves both.
+    int8_attn: the int8 flash route. Both int8 flags are serving-only:
+    training mode runs the bf16 branch, as JAX does."""
 
     def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
-                 int8_dense: bool = False, int8_attn: bool = False):
+                 int8_dense: bool = False, int8_attn: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         c = features
         self.dtype, self.norm_dtype, self.attention_impl = dtype, norm_dtype, attention_impl
         self.int8_dense, self.int8_attn = int8_dense, int8_attn
+        self.int8_variants = int8_variants or Int8Variants.from_env()
         self.heads = _pick_num_heads(c, num_heads, lane_align_heads)
         self.scale = 1.0 / math.sqrt(c // self.heads)
         self.norm1 = nn.LayerNorm(c, eps=1e-6)
@@ -335,7 +347,8 @@ class TransformerEncoderBlock(nn.Module):
 
     def _int8_weights(self):
         """The projections' int8 weights (LN1 folded into qkv, LN2 into
-        mlp1), made once and again whenever a parameter changes."""
+        mlp1; with w4a4, also mlp1's int4-range weights), made once and again
+        whenever a parameter changes."""
         params = [p for m in (self.norm1, self.qkv, self.attn_out, self.norm2, self.mlp1,
                               self.mlp2) for p in m.parameters()]
         key = tuple((p.data_ptr(), p._version) for p in params)
@@ -349,25 +362,69 @@ class TransformerEncoderBlock(nn.Module):
                                             self.norm2.weight, self.norm2.bias),
                     "mlp2": prepare_weights(self.mlp2.weight, self.mlp2.bias),
                 }
+                if self.int8_variants.w4a4_mlp1:
+                    prep["mlp1_w4"] = prepare_weights4(self.mlp1.weight, self.mlp1.bias,
+                                                       self.norm2.weight, self.norm2.bias)
             self._int8_cache = (key, prep)
         return self._int8_cache[1]
 
     def _forward_int8(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The JAX int8 TEB branch at its defaults (blocks.py:566-747)."""
-        dt, impl = self.dtype, self.attention_impl
+        """The JAX int8 TEB branch (blocks.py:566-747) with its routes as
+        `int8_variants` selects them. impl="plain" takes the same routes with
+        the plain versions (JAX takes them for impl None or "pallas")."""
+        dt, impl, var = self.dtype, self.attention_impl, self.int8_variants
         b, n, c = tokens.shape
+        heads = self.heads
+        dh = c // heads
         wts = self._int8_weights()
         qmm = lambda x, name, **kw: quant_matmul(x, wts[name], out_dtype=dt, impl=impl, **kw)
-        qkv = qmm(tokens, "qkv", ln=True, ln_eps=self.norm1.eps)
-        o = attention_qkv(qkv, scale=self.scale, impl=impl, num_heads=self.heads,
-                          int8=self.int8_attn)
-        if ln_handoff(b * n, c):
-            tokens, zq, zs = qmm(o, "attn_out", residual=tokens, ln_quant_out=True,
-                                 ln_eps=self.norm2.eps)
-            z8 = qmm(None, "mlp1", ln=True, act="gelu", quant_out=True, x_quant=(zq, zs),
-                     x_quant_normalized=True)
+        w4a4 = (var.w4a4_mlp1 and (b * n) % 128 == 0 and c % 128 == 0
+                and self.mlp1.out_features % 128 == 0)
+        ln_out = (not w4a4 and var.ln_handoff
+                  and ln_handoff(b * n, c, var.ln_handoff_min_rows))
+
+        def attn_out_call(o_val, o_quant=None):
+            """attn_out + residual -> (tokens, LN2-normalized payload for
+            mlp1 or None); o_quant is an int8 attention output (x_quant)."""
+            if ln_out:
+                t, zq, zs = qmm(o_val, "attn_out", residual=tokens, x_quant=o_quant,
+                                ln_quant_out=True, ln_eps=self.norm2.eps)
+                return t, (zq, zs)
+            return qmm(o_val, "attn_out", residual=tokens, x_quant=o_quant), None
+
+        big = self.int8_attn and n > 1024
+        handoff = None
+        if big and var.attn_handoff:
+            # qkv emits int8 + scale groups that cover whole heads; attention
+            # consumes them (k/v requantized per key block)
+            qkv8 = qmm(tokens, "qkv", ln=True, ln_eps=self.norm1.eps, quant_out=True,
+                       quant_out_align=(c, dh))
+            handoff = teb_attention_handoff(qkv8[0], qkv8[1], heads, self.scale,
+                                            quant_out=True, out_dtype=dt, impl=impl)
+            if handoff is None:
+                qkv = dequantize(qkv8[0], qkv8[1], dt)
         else:
-            tokens = qmm(o, "attn_out", residual=tokens)
+            qkv = qmm(tokens, "qkv", ln=True, ln_eps=self.norm1.eps)
+        if handoff is not None:
+            tokens, z_in = attn_out_call(None, handoff)
+        else:
+            oq = None
+            if big and dh % 128 == 0 and var.attn_qout:
+                oq = attention_int8_quant_out(qkv, qkv[..., c:2 * c], qkv[..., 2 * c:],
+                                              self.scale, heads, q_width=c, impl=impl)
+            if oq is not None:
+                tokens, z_in = attn_out_call(None, oq)
+            else:
+                o = attention_qkv(qkv, scale=self.scale, impl=impl, num_heads=heads,
+                                  int8=self.int8_attn)
+                tokens, z_in = attn_out_call(o)
+        if z_in is not None:
+            z8 = qmm(None, "mlp1", ln=True, act="gelu", quant_out=True, x_quant=z_in,
+                     x_quant_normalized=True)
+        elif w4a4:
+            z8 = quant_matmul_w4a4(tokens, wts["mlp1_w4"], ln=True, ln_eps=self.norm2.eps,
+                                   act="gelu", out_dtype=dt, quant_out=True, impl=impl)
+        else:
             z8 = qmm(tokens, "mlp1", ln=True, ln_eps=self.norm2.eps, act="gelu",
                      quant_out=True)
         return qmm(None, "mlp2", residual=tokens, x_quant=z8)

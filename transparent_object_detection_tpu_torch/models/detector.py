@@ -9,7 +9,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from transparent_object_detection_tpu_torch.config import ModelConfig
+from transparent_object_detection_tpu_torch.config import Int8Variants, ModelConfig
 from transparent_object_detection_tpu_torch.models.backbone import Backbone
 from transparent_object_detection_tpu_torch.models.head import BranchTower, Head
 from transparent_object_detection_tpu_torch.models.neck import Neck
@@ -40,13 +40,15 @@ class FocusModel(nn.Module):
                  strides: Tuple[int, int, int] = (8, 16, 32),
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
-                 int8_dense: bool = False, int8_attn: bool = False):
+                 int8_dense: bool = False, int8_attn: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         self.dtype = dtype
         self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl,
                                  int8_attn)
         self.neck = Neck(base_channels, base_depth, deep_mul, num_heads, dtype, norm_dtype,
-                         lane_align_heads, attention_impl, int8_dense, int8_attn)
+                         lane_align_heads, attention_impl, int8_dense, int8_attn,
+                         int8_variants)
         filters = (base_channels * 4, base_channels * 8, int(base_channels * 16 * deep_mul))
         self.head = Head(num_classes, filters, strides, reg_max, dtype)
 
@@ -66,14 +68,18 @@ class FocusModel(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = None,
-                seed: Optional[int] = 0) -> FocusModel:
+                seed: Optional[int] = 0,
+                int8_variants: Optional[Int8Variants] = None) -> FocusModel:
     """FocusModel at `cfg`'s scale, in evaluation mode on `device` (CUDA
     unless given; a trainer puts it in training mode). Weights are the
     seeded initialisation of `init_weights` (seed=None keeps PyTorch's
     defaults); load a JAX checkpoint with
     weights.load_jax_variables. attention_impl="plain" runs the attention
     kernels' plain PyTorch versions (comparison only). int8_dense and
-    int8_attn select the int8 serving paths, alone or together."""
+    int8_attn select the int8 serving paths, alone or together;
+    `int8_variants` their TEB handoff variants (None reads
+    `Int8Variants.from_env()`, the JAX package's TOD_* variables, once
+    here); they change nothing with both int8 flags off."""
     if cfg.int8_1x1 or cfg.remat:
         raise NotImplementedError("int8_1x1 and remat are not ported yet")
     device = resolve_device(device)
@@ -83,6 +89,7 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
         reg_max=cfg.reg_max, strides=cfg.strides, dtype=getattr(torch, cfg.compute_dtype),
         norm_dtype=getattr(torch, cfg.norm_dtype), lane_align_heads=cfg.lane_align_heads,
         attention_impl=attention_impl, int8_dense=cfg.int8_dense, int8_attn=cfg.int8_attn,
+        int8_variants=int8_variants or Int8Variants.from_env(),
     )
     if seed is not None:
         init_weights(model, seed)

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transparent_object_detection_tpu_torch.config import Int8Variants
 from transparent_object_detection_tpu_torch.models.blocks import (
     CBAM,
     ConvBNAct,
@@ -28,12 +29,13 @@ class FusionNode(nn.Module):
     def __init__(self, in_features: int, out_features: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
-                 int8_dense: bool = False, int8_attn: bool = False):
+                 int8_dense: bool = False, int8_attn: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         self.teb = TransformerEncoderBlock(
             in_features, num_heads, dtype=dtype, attention_impl=attention_impl,
             norm_dtype=norm_dtype, lane_align_heads=lane_align_heads,
-            int8_dense=int8_dense, int8_attn=int8_attn,
+            int8_dense=int8_dense, int8_attn=int8_attn, int8_variants=int8_variants,
         )
         self.reduce = ConvBNAct(in_features, out_features, 1, dtype=dtype)
         self.cbam = CBAM(out_features, dtype=dtype)
@@ -47,13 +49,13 @@ class Neck(nn.Module):
                  num_heads: int = 8, dtype: torch.dtype = torch.bfloat16,
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
                  attention_impl: Optional[str] = None, int8_dense: bool = False,
-                 int8_attn: bool = False):
+                 int8_attn: bool = False, int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         c = base_channels
         c5 = int(c * 16 * deep_mul)
         node = lambda cin, cout: FusionNode(cin, cout, num_heads, dtype, norm_dtype,
                                             lane_align_heads, attention_impl, int8_dense,
-                                            int8_attn)
+                                            int8_attn, int8_variants)
         self.h1 = node(c5 + c * 8, c * 8)   # top-down, /16
         self.h2 = node(c * 8 + c * 4, c * 4)  # top-down, /8 == P3 out
         self.h3 = ConvBNAct(c * 4, c * 4, 3, strides=2, dtype=dtype)

@@ -24,6 +24,21 @@ running maximum of smaller tiles would compute another function.
 
 bk comes from `pick_blocks` (the JAX rule): the full N up to 6,400 on the
 serving path, so k and v get one scale per (batch, head).
+
+The int8 TEB's handoff variants (`config.Int8Variants`) run the same
+function with other ends:
+  * `attention_int8_quant_out` (TOD_ATTN_QOUT; kernel
+    `flash_mha_int8_qout`, replaces `_mha_flash_int8_qout_kernel`): the
+    output quantized per (row, head), `round(o * (127 / amax))` with amax
+    over the head's columns (floor 1e-30), scales (B, N, H), for attn_out's
+    x_quant input;
+  * `teb_attention_handoff` (TOD_ATTN_HANDOFF; kernel `flash_int8_handoff`,
+    replaces `_mha_flash_int8_handoff_kernel`): q is the int8 qkv payload
+    of a quant_out projection, read in place and not re-rounded, with its
+    (row, group) scale picked per head; k and v are that payload
+    requantized onto per-(batch, head, key block) scalars by
+    `requantize_section` (plain PyTorch: XLA in JAX); the output int8 as
+    above or bf16.
 """
 from __future__ import annotations
 
@@ -38,6 +53,8 @@ LOG2_127 = 6.988684686772166
 # the v column slice one block accumulates, and the key tile of its loop.
 KERNEL_DQ = (64, 256)
 KERNEL_DV_TILE = 256
+# the q/k width of the int8-out and int8-q-in forms (the neck's heads)
+KERNEL_VARIANT_DQ = 256
 KERNEL_KEY_TILE = 64
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
 
@@ -110,25 +127,23 @@ def _split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
     return t.reshape(b, n, heads, c // heads).transpose(1, 2)
 
 
-def flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads: int, scale: float,
-                         q_width: Optional[int] = None) -> torch.Tensor:
-    """Plain version of `flash_mha_int8`, block by block as the kernel goes.
-    q (B, N, Cq) or packed (B, N, 3C) with q_width = C; kq (B, N, Cq) and
-    vq (B, N, Cv) int8 with scales (B, H, N / bk) -> (B, N, Cv)."""
-    cq = kq.shape[-1]
+def _flash_plain_core(qq, qs, kq, ks, vq, vs, num_heads: int, scale: float) -> torch.Tensor:
+    """The int8 flash function block by block as the kernel goes, from
+    quantized q: qq int8 (B, H, N, dq) with scales qs (B, H, N, 1); kq
+    (B, N, Cq) and vq (B, N, Cv) int8 with scales (B, H, N / bk). Returns
+    o = acc / l in fp32, (B, H, N, dv)."""
     b, n = kq.shape[:2]
     nk = ks.shape[-1]
     bk = n // nk
-    qq, qs = _quantize_q(_split_heads(q[..., :cq], num_heads))  # (B, H, N, dq)
     kh, vh = _split_heads(kq, num_heads), _split_heads(vq, num_heads)
     sl2 = scale * LOG2E
     outs = []
     for bi in range(b):  # one image at a time bounds the (H, N, bk) score tensors
         qd = qq[bi].double()
-        m = torch.full(qs[bi].shape, -1e30, dtype=torch.float32, device=q.device)
+        m = torch.full(qs[bi].shape, -1e30, dtype=torch.float32, device=kq.device)
         l = torch.zeros_like(m)
         acc = torch.zeros(vh.shape[1:2] + (n, vh.shape[-1]), dtype=torch.float32,
-                          device=q.device)
+                          device=kq.device)
         for j in range(nk):
             blk = slice(j * bk, (j + 1) * bk)
             s32 = torch.matmul(qd, kh[bi, :, blk].double().transpose(-1, -2))  # exact
@@ -141,13 +156,81 @@ def flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads: int, scale: float,
             pv32 = torch.matmul(torch.round(p127).double(), vh[bi, :, blk].double())
             acc = acc * corr + pv32.float() * vs[bi, :, j][:, None, None]
             m = m_new
-        outs.append((acc * (1.0 / l)).to(q.dtype))
-    out = torch.stack(outs)  # (B, H, N, dv)
-    return out.transpose(1, 2).reshape(b, n, -1)
+        outs.append(acc * (1.0 / l))
+    return torch.stack(outs)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    b, h, n, d = o.shape
+    return o.transpose(1, 2).reshape(b, n, h * d)
+
+
+def _quantize_heads(o: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (B, H, N, dv) -> int8 (B, N, H * dv) and f32 (B, N, H): one
+    scale per (row, head), `round(o * (127 / amax))`, amax floored at 1e-30."""
+    amax = torch.clamp(o.abs().amax(dim=-1, keepdim=True), min=1e-30)
+    payload = torch.round(o * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
+    return _merge_heads(payload), (amax[..., 0] * (1.0 / 127.0)).transpose(1, 2).contiguous()
+
+
+def flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads: int, scale: float,
+                         q_width: Optional[int] = None) -> torch.Tensor:
+    """Plain version of `flash_mha_int8`, block by block as the kernel goes.
+    q (B, N, Cq) or packed (B, N, 3C) with q_width = C; kq (B, N, Cq) and
+    vq (B, N, Cv) int8 with scales (B, H, N / bk) -> (B, N, Cv)."""
+    qq, qs = _quantize_q(_split_heads(q[..., :kq.shape[-1]], num_heads))  # (B, H, N, dq)
+    o = _flash_plain_core(qq, qs, kq, ks, vq, vs, num_heads, scale)
+    return _merge_heads(o.to(q.dtype))
+
+
+def flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads: int, scale: float,
+                              q_width: Optional[int] = None):
+    """Plain version of `flash_mha_int8_qout`: the function of
+    `flash_mha_int8_plain` with its fp32 output quantized per (row, head):
+    int8 (B, N, Cv) and f32 scales (B, N, H)."""
+    qq, qs = _quantize_q(_split_heads(q[..., :kq.shape[-1]], num_heads))
+    return _quantize_heads(_flash_plain_core(qq, qs, kq, ks, vq, vs, num_heads, scale))
+
+
+def flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float,
+                             quant_out: bool, out_dtype=torch.bfloat16):
+    """Plain version of `flash_int8_handoff`: q is the leading Cq columns of
+    the int8 qkv payload (B, N, >= Cq), used as it is (no re-rounding), with
+    per-(row, head) scales qs (B, N, H); kq, vq from `requantize_section`.
+    Returns int8 (B, N, Cv) and f32 (B, N, H) with quant_out, else
+    (B, N, Cv) in out_dtype."""
+    qq = _split_heads(payload[..., :kq.shape[-1]], num_heads)
+    o = _flash_plain_core(qq, qs.transpose(1, 2)[..., None], kq, ks, vq, vs, num_heads, scale)
+    return _quantize_heads(o) if quant_out else _merge_heads(o.to(out_dtype))
+
+
+def requantize_section(payload: torch.Tensor, scales: torch.Tensor, col0: int, c: int,
+                       num_heads: int, block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Columns [col0, col0 + c) of an int8 qkv payload (B, N, Ctot) with
+    per-(row, group) scales (B, N, G) -> int8 (B, N, c) with one scale per
+    (batch, head, key block), (B, H, N / bk): each head's row scale (its
+    covering group's) over the block's largest, `round(x * ratio)`. Needs
+    G == 1 or groups that cover whole heads (the caller checks). Plain
+    PyTorch on every device: an XLA pre-pass in JAX, not a Pallas kernel."""
+    b, n, ctot = payload.shape
+    groups = scales.shape[-1]
+    g = ctot // groups
+    dh = c // num_heads
+    nk = n // block_k
+    if groups == 1:
+        s_head = scales.float().expand(b, n, num_heads)
+    else:
+        s_head = scales.float()[..., [(col0 + hh * dh) // g for hh in range(num_heads)]]
+    s4 = s_head.reshape(b, nk, block_k, num_heads)
+    s_blk = s4.amax(dim=2)  # (B, nk, H)
+    ratio = s4 / torch.clamp(s_blk[:, :, None, :], min=1e-30)
+    sec = payload[..., col0:col0 + c].reshape(b, nk, block_k, num_heads, dh).float()
+    xq = torch.round(sec * ratio[..., None]).to(torch.int8)
+    return xq.reshape(b, n, c), s_blk.transpose(1, 2).contiguous()
 
 
 # ---------------------------------------------------------------------------
-# CUDA kernel wrapper
+# CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
 
@@ -160,6 +243,12 @@ def _lib():
         lib.flash_mha_int8.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                                        cf, vp]
         lib.flash_mha_int8.restype = ci
+        lib.flash_mha_int8_qout.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                            ci, ci, cf, vp]
+        lib.flash_mha_int8_qout.restype = ci
+        lib.flash_int8_handoff.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                           ci, ci, ci, cf, ci, vp]
+        lib.flash_int8_handoff.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -180,6 +269,44 @@ def kernel_supports(n: int, dq: int, dv: int, bk: int) -> bool:
             and bk % KERNEL_KEY_TILE == 0)
 
 
+def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs, num_heads: int,
+              variant: bool, int8_out: bool) -> Tuple[int, int, int, int, int, int]:
+    """Device, type and shape checks shared by the three wrappers; returns
+    (b, n, dq, dv, nk, q_row). The variants (qout, handoff) are built for
+    q/k width KERNEL_VARIANT_DQ; the int8-out forms take only a head width
+    that one block holds whole (dv == KERNEL_DV_TILE): the per-(row, head)
+    amax is never split across blocks."""
+    b, n, cq = kq.shape
+    cv = vq.shape[-1]
+    nk = ks.shape[-1]
+    _check("q", q, q_dtype)
+    for name, t, dt in (("kq", kq, torch.int8), ("vq", vq, torch.int8),
+                        ("ks", ks, torch.float32), ("vs", vs, torch.float32)):
+        _check(name, t, dt)
+    q_row = q.shape[-1]
+    dq, dv = cq // num_heads, cv // num_heads
+    if (q.shape[:2] != (b, n) or q_row != q_row_expected or vq.shape[:2] != (b, n)
+            or tuple(ks.shape) != (b, num_heads, nk) or ks.shape != vs.shape
+            or n % nk or cq % num_heads or cv % num_heads
+            or not kernel_supports(n, dq, dv, n // nk)
+            or (variant and dq != KERNEL_VARIANT_DQ)
+            or (int8_out and dv != KERNEL_DV_TILE)):
+        raise ValueError(f"int8 flash kernel does not take q {tuple(q.shape)}, "
+                         f"kq {tuple(kq.shape)}, vq {tuple(vq.shape)}, scales "
+                         f"{tuple(ks.shape)} with {num_heads} heads"
+                         + (" and an int8 output" if int8_out else ""))
+    return b, n, dq, dv, nk, q_row
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
                    q_width: Optional[int] = None) -> torch.Tensor:
     """int8 flash attention: q bf16 (B, N, Cq), or the packed (B, N, 3C) qkv
@@ -191,40 +318,99 @@ def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
     `flash_mha_int8_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
-    b, n, cq = kq.shape
-    cv = vq.shape[-1]
-    nk = ks.shape[-1]
-    _check("q", q, torch.bfloat16)
-    for name, t, dt in (("kq", kq, torch.int8), ("vq", vq, torch.int8),
-                        ("ks", ks, torch.float32), ("vs", vs, torch.float32)):
-        _check(name, t, dt)
-    q_row = q.shape[-1]
-    dq, dv = cq // num_heads, cv // num_heads
-    if (q.shape[:2] != (b, n) or q_row != (cq if q_width is None else 3 * q_width)
-            or (q_width is not None and q_width != cq) or vq.shape[:2] != (b, n)
-            or tuple(ks.shape) != (b, num_heads, nk) or ks.shape != vs.shape
-            or n % nk or cq % num_heads or cv % num_heads
-            or not kernel_supports(n, dq, dv, n // nk)):
-        raise ValueError(f"int8 flash kernel does not take q {tuple(q.shape)}, "
-                         f"kq {tuple(kq.shape)}, vq {tuple(vq.shape)}, scales "
-                         f"{tuple(ks.shape)} with {num_heads} heads")
-    out = torch.empty((b, n, cv), dtype=torch.bfloat16, device=q.device)
+    cq = kq.shape[-1]
+    if q_width is not None and q_width != cq:
+        raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
+    b, n, dq, dv, nk, q_row = _check_kv(q, torch.bfloat16, cq if q_width is None else 3 * cq,
+                                        kq, ks, vq, vs, num_heads, False, False)
+    out = torch.empty((b, n, vq.shape[-1]), dtype=torch.bfloat16, device=q.device)
     err = _lib().flash_mha_int8(
         q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        out.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"flash_mha_int8: CUDA launch failed with cudaError_t {err}")
+        out.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, _stream(q))
+    _raise_on(err, "flash_mha_int8")
     flash_mha_int8.launches += 1
     return out
 
 
+def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
+                        q_width: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`flash_mha_int8` with its output quantized per (row, head): int8
+    (B, N, Cv) and f32 scales (B, N, H), for attn_out's x_quant input.
+
+    Port of ops/attention_int8.py::_mha_flash_int8_qout_kernel. A CUDA
+    tensor launches csrc/flash_attn_int8.cu; a CPU tensor runs
+    `flash_mha_int8_qout_plain`."""
+    if q.device.type == "cpu":
+        return flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
+    cq = kq.shape[-1]
+    if q_width is not None and q_width != cq:
+        raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
+    b, n, dq, dv, nk, q_row = _check_kv(q, torch.bfloat16, cq if q_width is None else 3 * cq,
+                                        kq, ks, vq, vs, num_heads, True, True)
+    out = torch.empty((b, n, vq.shape[-1]), dtype=torch.int8, device=q.device)
+    out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
+    err = _lib().flash_mha_int8_qout(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        out.data_ptr(), out_scales.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
+        scale * LOG2E, _stream(q))
+    _raise_on(err, "flash_mha_int8_qout")
+    flash_mha_int8_qout.launches += 1
+    return out, out_scales
+
+
+def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float,
+                       quant_out: bool, out_dtype=torch.bfloat16):
+    """int8 flash attention on the int8 qkv payload: q is its leading Cq
+    columns, read in place (row stride = the payload's width) and used
+    as it is, with per-(row, head) scales qs (B, N, H); kq, vq from
+    `requantize_section`. Returns int8 (B, N, Cv) and f32 (B, N, H) with
+    quant_out, else bf16 (B, N, Cv).
+
+    Port of ops/attention_int8.py::_mha_flash_int8_handoff_kernel (both its
+    output forms count as launches of it). A CUDA tensor launches
+    csrc/flash_attn_int8.cu; a CPU tensor runs `flash_int8_handoff_plain`."""
+    if payload.device.type == "cpu":
+        return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads, scale,
+                                        quant_out, out_dtype)
+    if not quant_out and out_dtype != torch.bfloat16:
+        raise ValueError(f"the int8 handoff kernel writes bfloat16 or int8, not {out_dtype}")
+    b, n, dq, dv, nk, q_row = _check_kv(payload, torch.int8, payload.shape[-1], kq, ks, vq, vs,
+                                        num_heads, True, quant_out)
+    _check("qs", qs, torch.float32)
+    if tuple(qs.shape) != (b, n, num_heads) or q_row < kq.shape[-1] or q_row % 16:
+        raise ValueError(f"int8 handoff kernel does not take payload {tuple(payload.shape)} "
+                         f"with q scales {tuple(qs.shape)}")
+    cv = vq.shape[-1]
+    if quant_out:
+        out = torch.empty((b, n, cv), dtype=torch.int8, device=payload.device)
+        out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=payload.device)
+    else:
+        out = torch.empty((b, n, cv), dtype=torch.bfloat16, device=payload.device)
+        out_scales = None
+    err = _lib().flash_int8_handoff(
+        payload.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), out.data_ptr(), 0 if out_scales is None else out_scales.data_ptr(),
+        b, n, num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, int(quant_out),
+        _stream(payload))
+    _raise_on(err, "flash_int8_handoff")
+    flash_int8_handoff.launches += 1
+    return (out, out_scales) if quant_out else out
+
+
 flash_mha_int8.launches = 0
+flash_mha_int8_qout.launches = 0
+flash_int8_handoff.launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_mha_int8.launches = 0
+    flash_mha_int8_qout.launches = 0
+    flash_int8_handoff.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# front ends
+# ---------------------------------------------------------------------------
 
 
 def attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -237,3 +423,66 @@ def attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     if impl == "plain":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     return flash_mha_int8(q.contiguous(), kq, ks, vq, vs, num_heads, scale, q_width)
+
+
+def attention_int8_quant_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                             num_heads: int, q_width: Optional[int] = None,
+                             impl: Optional[str] = None
+                             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The quant_out attention variant (JAX `attention_int8_quant_out`):
+    (int8 (B, N, Cv), f32 per-(row, head) scales (B, N, H)) for attn_out's
+    x_quant input, or None where `pick_blocks` does not tile the shapes (the
+    caller takes the bf16-output route). q may be the packed (B, N, 3C) qkv
+    with q_width = C and k, v views into it, read in place."""
+    cq = k.shape[-1]
+    blocks = pick_blocks(q.shape[1], cq, num_heads, cv=v.shape[-1])
+    if blocks is None:
+        return None
+    kq, ks = quantize_kv(k, num_heads, blocks[1])
+    vq, vs = quantize_kv(v, num_heads, blocks[1])
+    if impl == "plain":
+        return flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
+    return flash_mha_int8_qout(q.contiguous(), kq, ks, vq, vs, num_heads, scale, q_width)
+
+
+def q_scale_table(scales: torch.Tensor, c: int, num_heads: int) -> torch.Tensor:
+    """Per-(row, head) q scales (B, N, H) of a qkv payload's per-(row, group)
+    scales (B, N, G): each head's covering group (G == 1: the row's)."""
+    b, n, groups = scales.shape
+    if groups == 1:
+        return scales.float().expand(b, n, num_heads).contiguous()
+    g, dh = 3 * c // groups, c // num_heads
+    return scales.float()[..., [(hh * dh) // g for hh in range(num_heads)]].contiguous()
+
+
+def teb_attention_handoff(payload: torch.Tensor, scales: torch.Tensor, num_heads: int,
+                          scale: float, quant_out: bool = True, out_dtype=torch.bfloat16,
+                          impl: Optional[str] = None):
+    """Attention over a quant_out qkv projection (JAX
+    `teb_attention_handoff`): payload int8 (B, N, 3C) with per-(row, group)
+    scales (B, N, G). Returns (int8 (B, N, C), f32 (B, N, H)) with quant_out
+    (for attn_out's x_quant input), else (B, N, C) in out_dtype; None where
+    the handoff does not apply (C not divisible by the heads, scale groups
+    that do not cover whole heads, shapes `pick_blocks` rejects): the caller
+    then dequantizes and takes the bf16 route."""
+    b, n, c3 = payload.shape
+    c = c3 // 3
+    h = num_heads
+    if c % h:
+        return None
+    dh = c // h
+    groups = scales.shape[-1]
+    g = c3 // groups
+    aligned = groups == 1 or (c % g == 0 and g % dh == 0)
+    blocks = pick_blocks(n, c, h, cv=c)
+    if not aligned or blocks is None:
+        return None
+    bk = blocks[1]
+    qs = q_scale_table(scales, c, h)
+    kq, ks = requantize_section(payload, scales, c, c, h, bk)
+    vq, vs = requantize_section(payload, scales, 2 * c, c, h, bk)
+    if impl == "plain":
+        return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, h, scale, quant_out,
+                                        out_dtype)
+    return flash_int8_handoff(payload.contiguous(), qs, kq, ks, vq, vs, h, scale, quant_out,
+                              out_dtype)

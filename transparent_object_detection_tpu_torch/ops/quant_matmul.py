@@ -26,10 +26,17 @@ or G > 1 scale groups (G > 1: each group is requantized onto the row's
 largest scale first, the JAX prologue). A bf16 input runs as quant_rows then
 qmm, the JAX split route (`_pquant_call`) on every shape.
 
-The quant_out group width is part of the numbers: the consumer (mlp2) sees G
-= N / group scale groups. `quant_out_group_width` is the port's copy of the
-integer rules by which the JAX dispatch on a TPU picks it (`_pick_blocks`,
+The quant_out group width is part of the numbers: the consumer (mlp2, or
+attention in the qkv handoff) sees G = N / group scale groups.
+`quant_out_group_width` is the port's copy of the integer rules by which the
+JAX dispatch on a TPU picks it (`_pick_blocks` with its `align` rule,
 `_pick_layout_prequant`), kept as a numerics contract, not as a tuning.
+
+w4a4 (`quant_matmul_w4a4`, the TOD_W4A4_MLP1 mlp1): weights per output
+channel and rows onto the int4 range [-7, 7] (scale amax / 7), stored int8:
+the same integers on Hopper's int8 tensor cores as an int4 MMA would give.
+On the card `quant_rows(qmax=7)` (the JAX `_w4a4_call` launch of
+`_quant_rows_kernel`) then `qmm`.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version for CPU tensors; `impl="plain"` runs the plain versions on any
@@ -43,10 +50,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# The LN-handoff gate of the int8 TEB (JAX blocks.py, TOD_LN_HANDOFF=1 and
-# TOD_LN_HANDOFF_MIN_ROWS=51200 at their defaults): attn_out emits the
-# LN2-normalized payload for mlp1 from this many rows (B * N) up.
-LN_HANDOFF_MIN_ROWS = 51200
+from transparent_object_detection_tpu_torch.config import Int8Variants
+
 ACTS = (None, "gelu", "silu")
 IMPLS = (None, "plain")
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
@@ -101,15 +106,24 @@ def prefer_split(m: int, k: int, n: int, ln: bool, act, residual) -> bool:
 
 
 def _pick_blocks(m: int, k: int, n: int, residual: bool = True, x_bytes: int = 2,
-                 out_bytes: int = 2, full_width_only: bool = False) -> Optional[Tuple[int, int]]:
+                 out_bytes: int = 2, align: Optional[Tuple[int, int]] = None,
+                 full_width_only: bool = False) -> Optional[Tuple[int, int]]:
     """(bm, bn) of the JAX kernel's bf16-input dispatch (v5e VMEM model);
-    only bn matters here, as the quant_out group width."""
+    only bn matters here, as the quant_out group width. `align=(section,
+    dh)`: a tile narrower than n must tile the section and cover whole
+    heads (the qkv -> attention handoff)."""
     def vmem(bm: int, bn: int) -> int:
         chunk = min(bm, 256)
         resident = bn == n
         return (2 * bm * k * x_bytes + bm * k + chunk * k * 4
                 + (1 if resident else 2) * k * bn + 2 * bm * bn * out_bytes
                 + (2 * bm * bn * 2 if residual else 0) + bm * bn * 4)
+
+    def bn_ok(bn: int) -> bool:
+        if align is None or bn == n:
+            return True
+        section, dh = align
+        return section % bn == 0 and bn % dh == 0
 
     resident_bms = (1024, 512, 256) if x_bytes == 2 and out_bytes == 2 else (1024, 512, 256, 128)
     for bm in resident_bms:
@@ -122,11 +136,11 @@ def _pick_blocks(m: int, k: int, n: int, residual: bool = True, x_bytes: int = 2
             if m % bm:
                 continue
             for bn in (768, 512, 256):
-                if n % bn == 0 and vmem(bm, bn) <= _VMEM_BUDGET:
+                if n % bn == 0 and bn_ok(bn) and vmem(bm, bn) <= _VMEM_BUDGET:
                     return bm, bn
     else:
         for bn in (768, 512, 256):
-            if n % bn:
+            if n % bn or not bn_ok(bn):
                 continue
             for bm in (512, 256, 128):
                 if m % bm == 0 and vmem(bm, bn) <= _VMEM_BUDGET:
@@ -172,25 +186,28 @@ def _tiles_on_tpu(k: int, n: int, groups_in: int) -> bool:
             and (groups_in == 0 or (k % groups_in == 0 and (k // groups_in) % 128 == 0)))
 
 
-def quant_out_group_width(m: int, k: int, n: int, groups_in: int,
-                          residual: bool = False) -> int:
+def quant_out_group_width(m: int, k: int, n: int, groups_in: int, residual: bool = False,
+                          align: Optional[Tuple[int, int]] = None) -> int:
     """Scale-group width of a quant_out projection's output, as the JAX
     dispatch on a TPU gives it: the kernel's n-tile where the kernel runs,
     n (one scale per row) where it falls back. `groups_in` is the input's
-    mode: 0 for bf16 rows, G >= 1 for int8 rows with G scale groups."""
+    mode: 0 for bf16 rows, G >= 1 for int8 rows with G scale groups.
+    `align=(section, dh)` (bf16 rows only, as in JAX): groups that tile
+    the section and cover whole heads of width dh."""
     if not _tiles_on_tpu(k, n, groups_in):
         return n
     if groups_in == 0:
-        blocks = _pick_blocks(m, k, n, residual=residual, out_bytes=1)
+        blocks = _pick_blocks(m, k, n, residual=residual, out_bytes=1, align=align)
         return n if blocks is None else blocks[1]
     layout = _pick_layout_prequant(m, k, n, groups_in, residual)
     return n if layout is None else layout[2]
 
 
-def ln_handoff(m: int, c: int) -> bool:
+def ln_handoff(m: int, c: int, min_rows: int = Int8Variants.ln_handoff_min_rows) -> bool:
     """Whether the int8 TEB hands attn_out's LN2-normalized payload to mlp1
-    (JAX blocks.py: the row floor, then ln_quant_out_supported on a TPU)."""
-    if m < LN_HANDOFF_MIN_ROWS:
+    (JAX blocks.py: the row floor, then ln_quant_out_supported on a TPU);
+    the TEB also needs `Int8Variants.ln_handoff` on and w4a4 off."""
+    if m < min_rows:
         return False
     if c % 256:
         return True  # the JAX dispatch falls back for the whole call
@@ -208,11 +225,13 @@ def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(a.double(), b.double().transpose(-1, -2))
 
 
-def _row_quant(d: torch.Tensor, floor: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row symmetric int8 of fp32 rows d (..., K): payload and amax/127."""
+def _row_quant(d: torch.Tensor, floor: float,
+               qmax: int = 127) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric quantize of fp32 rows d (..., K) onto [-qmax, qmax]
+    (stored int8): payload and amax / qmax."""
     amax = torch.clamp(d.abs().amax(dim=-1, keepdim=True), min=floor)
-    q = torch.round(d * (torch.full_like(amax, 127.0) / amax)).to(torch.int8)
-    return q, amax * (1.0 / 127.0)
+    q = torch.round(d * (torch.full_like(amax, float(qmax)) / amax)).to(torch.int8)
+    return q, amax * (1.0 / qmax)
 
 
 def _ln_stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -223,14 +242,15 @@ def _ln_stats(xf: torch.Tensor, eps: float) -> Tuple[torch.Tensor, torch.Tensor]
     return xf - mu, torch.rsqrt(var + eps)
 
 
-def quant_rows_plain(x: torch.Tensor, ln: bool, eps: float = 1e-6):
-    """(M, K) -> int8 (M, K), f32 (M, 1): [LN-normalize +] per-row quantize."""
+def quant_rows_plain(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
+    """(M, K) -> int8 (M, K), f32 (M, 1): [LN-normalize +] per-row quantize
+    onto [-qmax, qmax] (127: int8; 7: the int4 range of w4a4)."""
     xf = x.float()
     if ln:
         d, rstd = _ln_stats(xf, eps)
     else:
         d, rstd = xf, 1.0
-    q, s = _row_quant(d, 1e-12)
+    q, s = _row_quant(d, 1e-12, qmax)
     return q, s * rstd
 
 
@@ -291,7 +311,7 @@ def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, vp]
+        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, vp]
         lib.quant_rows.restype = ci
         lib.qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
         lib.qmm.restype = ci
@@ -323,13 +343,20 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6):
-    """[LN-normalize +] per-row int8 quantize: bf16 (M, K) -> int8 (M, K),
-    f32 (M, 1). Port of ops/quant_matmul.py::_quant_rows_kernel. A CUDA
-    tensor launches csrc/quant_matmul.cu; a CPU tensor runs
-    `quant_rows_plain`."""
+QMAX = (127, 7)
+
+
+def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
+    """[LN-normalize +] per-row quantize onto [-qmax, qmax]: bf16 (M, K) ->
+    int8 (M, K), f32 (M, 1). Port of ops/quant_matmul.py::_quant_rows_kernel,
+    which JAX launches with qmax 127 (`_pquant_call`; counted on
+    `quant_rows.launches`) and with qmax 7 (`_w4a4_call`; counted on
+    `quant_rows.launches_int4`). A CUDA tensor launches csrc/quant_matmul.cu;
+    a CPU tensor runs `quant_rows_plain`."""
+    if qmax not in QMAX:
+        raise ValueError(f"quant_rows takes qmax in {QMAX}, got {qmax}")
     if x.device.type == "cpu":
-        return quant_rows_plain(x, ln, eps)
+        return quant_rows_plain(x, ln, eps, qmax)
     m, k = x.shape
     _check("x", x, torch.bfloat16)
     if k % 8:
@@ -337,9 +364,12 @@ def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6):
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     err = _lib().quant_rows(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, int(ln),
-                            eps, _stream(x))
+                            eps, float(qmax), 1.0 / qmax, _stream(x))
     _raise_on(err, "quant_rows")
-    quant_rows.launches += 1
+    if qmax == 127:
+        quant_rows.launches += 1
+    else:
+        quant_rows.launches_int4 += 1
     return xq, xs
 
 
@@ -411,11 +441,13 @@ def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
 
 
 quant_rows.launches = 0
+quant_rows.launches_int4 = 0
 qmm.launches = 0
 
 
 def reset_launch_counts() -> None:
     quant_rows.launches = 0
+    quant_rows.launches_int4 = 0
     qmm.launches = 0
 
 
@@ -438,7 +470,7 @@ def prepare_weights(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
 def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln: bool = False,
                  ln_eps: float = 1e-6, act: Optional[str] = None,
                  residual: Optional[torch.Tensor] = None, out_dtype=torch.bfloat16,
-                 quant_out: bool = False,
+                 quant_out: bool = False, quant_out_align: Optional[Tuple[int, int]] = None,
                  x_quant: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                  x_quant_normalized: bool = False, ln_quant_out: bool = False,
                  impl: Optional[str] = None):
@@ -447,7 +479,8 @@ def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln
     `ln`). Counterpart of JAX quant_matmul (without its mesh branch):
 
       * `quant_out`: returns (int8 (..., N), f32 (..., N / g)) with g from
-        `quant_out_group_width` for this call's shapes;
+        `quant_out_group_width` for this call's shapes (and
+        `quant_out_align`, for bf16 rows);
       * `x_quant=(payload, scales)`: int8 input with G scale groups (pass
         x=None); with `x_quant_normalized`, the payload is a producer's
         LN-normalized ln_quant_out (the LN affine is in `weights`);
@@ -477,7 +510,7 @@ def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln
         xq, scales = rows(x.reshape(m, k).contiguous(), ln, ln_eps)
     else:
         xq, scales = x.reshape(m, k).contiguous(), x_scales.reshape(m, groups).contiguous()
-    group = (quant_out_group_width(m, k, n, groups, residual is not None)
+    group = (quant_out_group_width(m, k, n, groups, residual is not None, quant_out_align)
              if quant_out else None)
     res2d = None if residual is None else residual.reshape(m, n).contiguous()
     out = (qmm_plain if plain else qmm)(
@@ -489,4 +522,63 @@ def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln
     if ln_quant_out:
         value, payload, s = out
         return value.reshape(*lead, n), payload.reshape(*lead, n), s.reshape(*lead, 1)
+    return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# w4a4: int4-range weights and activations (the mlp1 variant)
+# ---------------------------------------------------------------------------
+
+
+def quantize_weights4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 (N, K) -> (int8 (N, K) holding [-7, 7], f32 (N,) per-output-
+    channel scale amax / 7), a divide as JAX `quantize_weights4`."""
+    w = w.float()
+    w_scale = w.abs().amax(dim=1) / 7.0
+    wq = torch.round(w / torch.clamp(w_scale, min=1e-12)[:, None]).to(torch.int8)
+    return wq, w_scale
+
+
+def prepare_weights4(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                     ln_scale: Optional[torch.Tensor] = None,
+                     ln_bias: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """`prepare_weights` for w4a4: LN affine folded in, then int4-range."""
+    if ln_scale is not None:
+        w, bias = fold_ln(w, bias, ln_scale, ln_bias)
+    wq, w_scale = quantize_weights4(w)
+    return {"wq": wq, "w_scale": w_scale,
+            "bias": None if bias is None else bias.float().contiguous()}
+
+
+def w4a4_supported(m: int, k: int, n: int) -> bool:
+    """Shapes of JAX `w4a4_supported` (without its TPU backend test)."""
+    return k % 128 == 0 and n % 128 == 0 and m % 128 == 0
+
+
+def quant_matmul_w4a4(x: torch.Tensor, weights4: Dict[str, torch.Tensor], ln: bool = False,
+                      ln_eps: float = 1e-6, act: Optional[str] = None,
+                      out_dtype=torch.bfloat16, quant_out: bool = False,
+                      impl: Optional[str] = None):
+    """[LayerNorm ->] per-row int4-range quantize -> int GEMM -> bias/act
+    [-> int8 quant_out, one scale per row], on (..., K) rows; `weights4` from
+    `prepare_weights4`. Counterpart of JAX `quant_matmul_w4a4`: activations
+    `round(d * (7 / amax))` with scale `amax / 7 * rstd`, weights
+    `round(w / (amax / 7))` per output channel. Hopper has no int4 MMA;
+    int4-range values in int8 containers give the same integers on the int8
+    tensor cores, so the card runs `quant_rows(qmax=7)` then `qmm` (G = 1,
+    quant_out group = N, as `_w4a4_call` gives it)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; choose from {IMPLS}")
+    lead, k = x.shape[:-1], x.shape[-1]
+    m = x.numel() // k
+    n = weights4["wq"].shape[0]
+    plain = impl == "plain"
+    xq, xs = (quant_rows_plain if plain else quant_rows)(x.reshape(m, k).contiguous(), ln,
+                                                         ln_eps, 7)
+    out = (qmm_plain if plain else qmm)(
+        xq, xs, weights4["wq"], weights4["w_scale"], weights4["bias"], act, None,
+        n if quant_out else None, None, out_dtype)
+    if quant_out:
+        payload, s = out
+        return payload.reshape(*lead, n), s.reshape(*lead, 1)
     return out.reshape(*lead, n)
