@@ -72,8 +72,35 @@
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
    timed steps at batch 16 (launches per step asserted) and a profile.
-10. Prints the card's name and power limit, a JSON line of the 11 kernels,
-   then {"ok": true, "device": ...} last.
+10. Scale kernel phase: rows 1-8 at every attention site and int8 TEB
+   projection of phi 'n', 'm', 'l' and 'x' 640x640 (the widths and key
+   blocks the JAX dispatch gives them: folded heads of 283 and 599, heads
+   of 128 to 3,584, dark3 q/k 32 to 512 and v 256 to 4,096, key blocks of
+   320 to 6,400; qmm K = 849 and 4,792 and one quant_out scale a row where
+   JAX takes its reference route), at the 480x576 input (N = 4,320, key
+   blocks of 4,320 and 1,440) and in fp32, each against its plain version
+   with the bars above; each planted fault (those above, a q/k slab of the
+   width loop dropped, the tail key tile dropped, an int8 output quantized
+   per 256-column slice, the K tail of qmm dropped) rejected on some input
+   spread.
+11. phi='m' 640x640 slice at full width (1.354 B parameters, seeded random
+   weights): bf16, int8, configurations A and B through
+   Predictor.detect_raw_batch at batch 32 and 1 with every count reset
+   before and read after, asserted against the route table
+   (`expected_launches`); `decoded` and the detection sets against the same
+   configuration on plain versions under the limits above (which must
+   reject their planted fault); every launch of a batch-2 forward against
+   its plain version, timed beside bound, plain and library; batch-1
+   latency, batch-32 throughput, a profile. Then one fp32 forward at batch
+   2, counted, against plain.
+12. phi='n' slice: bf16 and int8 at batch 2, counted, against plain; one
+   fp32 int8 forward at batch 2, counted, against plain and timed.
+13. Serve matrix: phi 'n', 's', 'm' in bf16 and fp32 compute, each in
+   bf16, int8, A and B: one counted batch-1 detection each, launches
+   asserted against the route table.
+14. Prints the smoke's total time, the card's name and power limit, a JSON
+   line of the kernels (the 11 phi='s' entries, then the phi='m' and fp32
+   forms), then {"ok": true, "device": ...} last.
 
 Any failed check exits non-zero before the last line. TF32 is off for
 matmuls and convolutions wherever numbers are compared.
@@ -169,6 +196,34 @@ PLANTED_FAULTS = {"kv_tile_dropped": _kv_tile_dropped, "softmax_scale_x1.02": _s
                   "query_tile_unwritten": _query_tile_unwritten}
 
 
+def _qk_slab_dropped(attend):
+    """The width loop skipping one q/k slab: columns 128..255 of wide heads,
+    the upper half of heads of 128 columns or fewer."""
+    def faulty(q, k, v, scale, block_k=1024):
+        d = q.shape[-1]
+        lo, hi = (128, 256) if d > 128 else (d // 2, d)
+        q, k = q.clone(), k.clone()
+        q[..., lo:hi] = 0
+        k[..., lo:hi] = 0
+        return attend(q, k, v, scale, block_k)
+    return faulty
+
+
+def _tail_key_tile_dropped(attend):
+    """The last key tile skipped: the last 32 keys where N is an odd
+    multiple of 32, else the last 64."""
+    def faulty(q, k, v, scale, block_k=1024):
+        n = k.shape[-2]
+        cut = n - (32 if n % 64 else 64)
+        return attend(q, k[..., :cut, :], v[..., :cut, :], scale, block_k)
+    return faulty
+
+
+# faults of the width loop and the key tail, held in the scale kernel phase
+SCALE_FAULTS = {"qk_slab_dropped": _qk_slab_dropped,
+                "tail_key_tile_dropped": _tail_key_tile_dropped}
+
+
 @contextlib.contextmanager
 def planted(fault: str):
     """The plain attention versions with a planted fault: what a kernel that
@@ -176,33 +231,35 @@ def planted(fault: str):
     from transparent_object_detection_tpu_torch.ops import attention as A
 
     real = A._online_softmax_attention
-    A._online_softmax_attention = PLANTED_FAULTS[fault](real)
+    A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS}[fault](real)
     try:
         yield
     finally:
         A._online_softmax_attention = real
 
 
-def hold_against_plain(kernel, plain, what: str, faults_must_fail: bool = True) -> dict:
+def hold_against_plain(kernel, plain, what: str, faults_must_fail: bool = True,
+                       faults=tuple(PLANTED_FAULTS), bar=None) -> dict:
     """Kernel output against its plain version, and the plain version with
-    each planted fault against the same bar (which, on synthetic inputs,
-    must reject every fault)."""
+    each planted fault in `faults` against the same bar (by default the
+    kernel bar above; which, on synthetic inputs, must reject every fault
+    when `faults_must_fail`)."""
     import torch
 
+    bar = bar or bar_used
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out.float()).all()), f"{what}: non-finite output")
     diff = float((out.float() - ref.float()).abs().max())
     ref_max = float(ref.float().abs().max())
     reading = {"max_abs_err": diff, "max_rel_err": diff / ref_max, "ref_max_abs": ref_max,
-               "bar_used": bar_used(out, ref), "fault_bar_used": {}}
-    for fault in PLANTED_FAULTS:
+               "bar_used": bar(out, ref), "fault_bar_used": {}}
+    for fault in faults:
         with planted(fault):
-            reading["fault_bar_used"][fault] = bar_used(plain(), ref)
+            reading["fault_bar_used"][fault] = bar(plain(), ref)
     print(json.dumps({"check": what, **reading}), flush=True)
     check(reading["bar_used"] <= 1.0,
-          f"{what}: kernel off by {reading['bar_used']:.3g}x the bar "
-          f"{RTOL}*|plain| + {ATOL_OF_MAX}*max|plain| (max abs {diff})")
+          f"{what}: kernel off by {reading['bar_used']:.3g}x its bar (max abs {diff})")
     for fault, used in reading["fault_bar_used"].items():
         check(used > 1.0 or not faults_must_fail,
               f"{what}: the bar does not reject the planted fault {fault} ({used:.3g}x the bar)")
@@ -554,7 +611,7 @@ DEVICE = "cuda"
 # int8 bars. Payloads: the same integers, except that a value on a rounding
 # boundary may land one step away (sums in another order, another exp2 or
 # tanh): |diff| <= 1 on at most PAYLOAD_FLIP_SHARE of the elements. Scales:
-# SCALE_RTOL relative. Values (bf16): |diff| <= RTOL8 * |plain| + ATOL8_OF_MAX
+# SCALE_RTOL relative. Values (bf16 or fp32): |diff| <= RTOL8 * |plain| + ATOL8_OF_MAX
 # * max|plain|, one bf16 ulp of a value plus a little; the kernels compute
 # the plain versions' integers, so this is tighter than the bf16 bar. On the
 # CPU, the planted attention faults read 9-74 times it (phi='s' shapes at
@@ -575,9 +632,9 @@ INT8_CANDIDATES_PER_IMAGE = 200
 INT8_SLICE_REJECTS = ("qmm_k_slab_dropped",)
 
 
-def _component_reading(out, ref) -> dict:
+def _component_reading(out, ref, scales: bool = False) -> dict:
     """Bar use (<= 1 passes) of one output component against its plain
-    version: int8 payload, f32 scales or bf16 values."""
+    version: int8 payload, f32 scales (`scales`) or bf16 / fp32 values."""
     import torch
 
     check(tuple(out.shape) == tuple(ref.shape),
@@ -588,7 +645,7 @@ def _component_reading(out, ref) -> dict:
         return {"kind": "payload", "max_step": int(diff.max()), "flip_share": share,
                 "bar_used": max(float(diff.max()) / 1.0 if int(diff.max()) > 1 else 0.0,
                                 share / PAYLOAD_FLIP_SHARE)}
-    if out.dtype == torch.float32:
+    if scales:
         rel = float(((out - ref).abs() / ref.abs().clamp(min=1e-30)).max())
         return {"kind": "scales", "max_rel": rel, "bar_used": rel / SCALE_RTOL}
     diff = (out.float() - ref.float()).abs()
@@ -604,9 +661,15 @@ def int8_reading(out, ref) -> dict:
     scales dequantized)."""
     from transparent_object_detection_tpu_torch.ops.quant_matmul import dequantize
 
+    import torch
+
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    parts = [_component_reading(o, r) for o, r in zip(outs, refs)]
+    # an f32 component right after an int8 payload is its scales; any other
+    # f32 component is a value (the fp32 models' outputs)
+    parts = [_component_reading(o, r, scales=i > 0 and o.dtype == torch.float32
+                                and outs[i - 1].dtype == torch.int8)
+             for i, (o, r) in enumerate(zip(outs, refs))]
     errs = [p["max_abs_err"] for p in parts if p["kind"] == "values"]
     if len(outs) >= 2 and parts[-2]["kind"] == "payload" and parts[-1]["kind"] == "scales":
         deq = lambda t: dequantize(t[-2], t[-1], outs[-1].dtype)
@@ -646,15 +709,32 @@ def _group_halved(qm):
     return _patched(qm, "_output_plain", faulty)
 
 
-QMM_FAULTS = {"qmm_k_slab_dropped": _k_slab_dropped, "qmm_group_width_halved": _group_halved}
+def _k_tail_dropped(qm):
+    """The last K slab of the int8 dot left out: the K % 64 columns past the
+    last whole 64-byte slab (a whole slab of 64 where K is a multiple)."""
+    real = qm._int_dot
+
+    def faulty(a, b):
+        k = a.shape[-1]
+        a = a.clone()
+        a[..., k - (k % 64 or 64):] = 0
+        return real(a, b)
+    return _patched(qm, "_int_dot", faulty)
 
 
-def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dtype=None):
+QMM_FAULTS = {"qmm_k_slab_dropped": _k_slab_dropped, "qmm_group_width_halved": _group_halved,
+              "qmm_k_tail_dropped": _k_tail_dropped}
+
+
+def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dtype=None,
+                             key_keep=None):
     """The int8 attention function with the k/v scales taken per
     `scale_tile` keys and p rounded against the running maximum over
     `max_tile`-key tiles (float64 sums), output in out_dtype (q's by
     default). At scale_tile = max_tile = bk it is the plain version's
-    function; smaller tiles plant the two faults a tiled kernel could make."""
+    function; smaller tiles plant the two faults a tiled kernel could make.
+    `key_keep` (N,) bool leaves the other keys out of the max, the sum and
+    p.v (a skipped key tile), their k/v scales unchanged."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
@@ -669,6 +749,8 @@ def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dt
         rep = lambda t: t[bi].repeat_interleave(scale_tile, dim=-1)  # (H, N)
         s32 = torch.matmul(qq[0].double(), kh.double().transpose(-1, -2))
         s = s32.float() * (qs[0] * (rep(ks) * (scale * A8.LOG2E))[:, None, :])
+        if key_keep is not None:
+            s = s.masked_fill(~key_keep, float("-inf"))
         vv = vh.double() * rep(vs).double()[..., None]
         m = torch.full(qs[0].shape, -1e30, device=q.device)
         l = torch.zeros_like(m)
@@ -686,10 +768,11 @@ def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dt
 
 
 def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=False, ln=None,
-              qmax=127):
-    """One synthetic qmm (and, for bf16 x, quant_rows) check with faults;
-    qmax=7: the w4a4 pair (int4-range rows and weights), and quant_rows'
-    bar must reject qmax 127 in place of 7."""
+              qmax=127, dtype="bfloat16"):
+    """One synthetic qmm (and, for bf16 or fp32 x, quant_rows) check with
+    faults; qmax=7: the w4a4 pair (int4-range rows and weights), and
+    quant_rows' bar must reject qmax 127 in place of 7. `dtype`: the
+    residual's and output's type (bf16, or fp32 as the fp32 models run)."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
@@ -698,7 +781,8 @@ def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=Fa
     w = torch.randn(n, k, generator=gen, device=DEVICE) / k ** 0.5
     bias = torch.randn(n, generator=gen, device=DEVICE) * 0.1
     wts = (QM.prepare_weights4 if qmax == 7 else QM.prepare_weights)(w, bias)
-    res = (torch.randn(m, n, generator=gen, device=DEVICE).bfloat16() if residual else None)
+    dt = getattr(torch, dtype)
+    res = (torch.randn(m, n, generator=gen, device=DEVICE).to(dt) if residual else None)
     readings = {}
     if ln is not None:  # bf16 rows: quant_rows first
         xq, xsk = QM.quant_rows(x, ln, qmax=qmax)
@@ -711,9 +795,10 @@ def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=Fa
             check(used > 1.0, f"quant_rows {name}: the bar does not reject qmax 127 for 7")
         x, xs = xq_p, xs_p
     eps = 1e-6 if ln_out else None
-    kern = lambda: QM.qmm(x, xs, wts["wq"], wts["w_scale"], wts["bias"], act, res, group, eps)
+    kern = lambda: QM.qmm(x, xs, wts["wq"], wts["w_scale"], wts["bias"], act, res, group, eps,
+                          dt)
     plain = lambda: QM.qmm_plain(x, xs, wts["wq"], wts["w_scale"], wts["bias"], act, res, group,
-                                 eps)
+                                 eps, dt)
     out = kern()
     torch.cuda.synchronize()
     ref = plain()
@@ -727,7 +812,7 @@ def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=Fa
     readings["qmm_faults_bar_used"] = faults
     print(json.dumps({"check": f"qmm {name}", "m": m, "k": k, "n": n, "groups": groups,
                       "act": act, "residual": residual, "group": group, "ln_out": ln_out,
-                      **readings}), flush=True)
+                      "dtype": dtype, **readings}), flush=True)
     check(readings["qmm"]["bar_used"] <= 1.0, f"qmm {name}: kernel off the bar {readings['qmm']}")
     for fault, used in faults.items():
         check(used > 1.0, f"qmm {name}: the bar does not reject {fault} ({used:.3g}x)")
@@ -856,7 +941,8 @@ def _qmm_cost(args, out):
     n = wq.shape[0]
     outs = out if isinstance(out, tuple) else (out,)
     nbytes = (xq.numel() + xs.numel() * 4 + wq.numel() + ws.numel() * 4
-              + (0 if bias is None else n * 4) + (0 if res is None else res.numel() * 2)
+              + (0 if bias is None else n * 4)
+              + (0 if res is None else res.numel() * res.element_size())
               + sum(o.numel() * o.element_size() for o in outs))
     return 2.0 * m * k * n, nbytes
 
@@ -869,6 +955,8 @@ def _library_qmm(args):
     import torch.nn.functional as F
 
     xq, xs, wq, ws, bias, act, res = args[:7]
+    if xq.shape[1] % 8 or wq.shape[0] % 8:
+        return None  # torch._int_mm takes K and N in multiples of 8
     rs = xs if xs.shape[-1] == 1 else xs.amax(-1, keepdim=True)
 
     def run():
@@ -928,14 +1016,15 @@ def int8_path_calls(model, images) -> dict:
             plain_ms = timed_ms(lambda: plain(*args, **kw), 2, 1)
             if name == "qmm":
                 bnd, by = _bound(*_qmm_cost(args, out))
-                library_ms = timed_ms(_library_qmm(args), 10, 2)
+                lib = _library_qmm(args)
+                library_ms = None if lib is None else timed_ms(lib, 10, 2)
                 shape = {"m": args[0].shape[0], "k": args[0].shape[1], "n": args[2].shape[0],
                          "groups": args[1].shape[-1], "act": args[5],
                          "out": ("quant_out" if args[7] is not None
                                  else "ln_out" if args[8] is not None else "bf16")}
             elif name in ("quant_rows", "quant_rows_int4"):
                 x = args[0]
-                nbytes = x.numel() * 3 + x.shape[0] * 4
+                nbytes = x.numel() * (x.element_size() + 1) + x.shape[0] * 4
                 library_ms, bnd, by = None, nbytes / PEAK_BYTES * 1e3, "bytes"
                 shape = {"m": x.shape[0], "k": x.shape[1], "ln": bool(args[1])}
             elif name in ("flash_mha_int8_qout", "flash_int8_handoff"):
@@ -958,8 +1047,8 @@ def int8_path_calls(model, images) -> dict:
                 b, n, cq = kq.shape
                 cv = vq.shape[-1]
                 bnd, by = _bound(2.0 * b * n * n * (cq + cv),
-                                 b * n * cq * 2 + kq.numel() + vq.numel() + 8 * ks.numel()
-                                 + b * n * cv * 2)
+                                 b * n * cq * q.element_size() + kq.numel() + vq.numel()
+                                 + 8 * ks.numel() + b * n * cv * out.element_size())
                 library_ms = _sdpa_ms(b, n, cq, cv, h, scale)
                 shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
                          "bk": n // ks.shape[-1], "packed_q": q_width is not None}
@@ -2127,6 +2216,642 @@ def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# every scale: the serving kernels over their whole JAX domain (phi 'n', 'm',
+# 'l', 'x' widths, N = 4,320, fp32), phi='m' 640x640 serving at full width,
+# phi='n' serving
+# ---------------------------------------------------------------------------
+
+PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+# fp32 kernel bar, per element: kernel and plain version compute in fp32 and
+# differ in summation order (and exp2) only
+F32_RTOL, F32_ATOL_OF_MAX = 1e-4, 1e-4
+SCALE_PHIS = ("n", "m", "l", "x")
+# Slice limits of the fp32 model (every int8 flag off) with kernels against
+# plain versions, between the sound reading and the planted fault in
+# SLICE_REJECTS on an H100 (PERF.md).
+F32_BOX_LIMIT_PX = 0.05
+F32_SCORE_LIMIT = 1e-4
+
+
+def scale_sites(phi: str, hw=(640, 640)) -> dict:
+    """{site: (N, q/k width, v width, heads, packed qkv input)} of the
+    attention calls of one forward at `phi` (dark3's SelfAttention, the
+    neck's TEBs with the heads they pick)."""
+    from transparent_object_detection_tpu_torch.config import SCALE_TABLE
+    from transparent_object_detection_tpu_torch.models.blocks import _pick_num_heads
+
+    c, _, mul = SCALE_TABLE[phi]
+    c5 = int(c * 16 * mul)
+    h, w = hw
+    n8, n16, n32 = (h // 8) * (w // 8), (h // 16) * (w // 16), (h // 32) * (w // 32)
+    out = {"dark3": (n8, max(4 * c // 8, 1), 4 * c, 1, False)}
+    for name, n, ch in (("h1", n16, c5 + 8 * c), ("h2", n8, 12 * c), ("h4", n16, 12 * c),
+                        ("h6", n32, 8 * c + c5)):
+        out[name] = (n, ch, ch, _pick_num_heads(ch, 8), True)
+    return out
+
+
+def expected_launches(phi: str, batch: int, tag: str) -> dict:
+    """Launches of every serving kernel in one forward of configuration
+    `tag` ("bf16", "int8", "A", "B") at `phi` 640x640 and `batch`, from the
+    route table (`serving_route`, `pick_blocks`, the quant_out groups) and
+    the int8 TEB's rules (models/blocks.py): each int8 TEB runs 4 qmm and a
+    quant_rows before each projection that takes bf16 rows."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    int8 = tag != "bf16"
+    var = VARIANT_CONFIGS.get(tag, {})
+    counts = dict.fromkeys(COUNTED, 0)
+    kernel_of = {"int8": "flash_mha_int8", "packed": "flash_mha_packed",
+                 "single": "flash_single", "folded": "flash_single"}
+
+    def attend(route):
+        if route in kernel_of:
+            counts[kernel_of[route]] += 1
+
+    for n, cq, cv, heads, packed in scale_sites(phi).values():
+        if not (packed and int8):
+            attend(A.serving_route(n, cq, heads, cv, int8, packed)[0])
+            continue
+        c, dh, m = cq, cq // heads, batch * n
+        w4a4 = var.get("w4a4_mlp1", False) and m % 128 == 0 and c % 128 == 0
+        big = n > A.NAIVE_MAX_TOKENS
+        tiles = A8.pick_blocks(n, c, heads, cv=c) is not None
+        counts["qmm"] += 4
+        counts["quant_rows"] += 1  # qkv
+        x_quant = False
+        if big and var.get("attn_handoff", False):
+            g = QM.quant_out_group_width(m, c, 3 * c, 0, align=(c, dh))
+            if tiles and (g == 3 * c or (c % g == 0 and g % dh == 0)):
+                counts["flash_int8_handoff"] += 1
+                x_quant = True
+            else:  # dequantized qkv, the int8 route
+                attend(A.serving_route(n, c, heads, c, True, True)[0])
+        elif big and var.get("attn_qout", False) and dh % 128 == 0 and tiles:
+            counts["flash_mha_int8_qout"] += 1
+            x_quant = True
+        else:
+            attend(A.serving_route(n, c, heads, c, True, True)[0])
+        counts["quant_rows"] += 0 if x_quant else 1  # attn_out
+        if w4a4:
+            counts["quant_rows_int4"] += 1
+        elif not QM.ln_handoff(m, c):
+            counts["quant_rows"] += 1  # mlp1 (else the LN handoff's payload)
+    return counts
+
+
+def check_launch_model() -> None:
+    """`expected_launches` reproduces the phi='s' counts the slices assert."""
+    zero = dict.fromkeys(COUNTED, 0)
+    check(expected_launches("s", 4, "bf16") == {**zero, "flash_mha_packed": 3,
+                                                "flash_single": 1},
+          "expected_launches: phi='s' bf16")
+    check(expected_launches("s", 4, "int8") == {**zero, "flash_mha_int8": 4, "qmm": 16,
+                                                "quant_rows": 12}, "expected_launches: int8")
+    for tag in VARIANT_EXPECTED:
+        for b, want in VARIANT_EXPECTED[tag].items():
+            got = expected_launches("s", b, tag)
+            check(got == {**zero, "flash_mha_int8": 1, **want},
+                  f"expected_launches: configuration {tag} batch {b}: {got}")
+
+
+def _f32_bar_used(out, ref) -> float:
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return float((diff / (F32_RTOL * mag + F32_ATOL_OF_MAX * mag.max())).max())
+
+
+def _amax_per_slice(o, heads, width=256):
+    """Planted fault: the int8 output quantized per 256-column slice of a
+    head (each slice on its own amax), the last slice's scale written."""
+    import torch
+
+    b, n, c = o.shape
+    dv = c // heads
+    o4 = o.float().reshape(b, n, heads, dv)
+    payload = torch.empty_like(o4, dtype=torch.int8)
+    scale = None
+    for j in range(0, dv, width):
+        sl = o4[..., j:j + width]
+        amax = torch.clamp(sl.abs().amax(-1, keepdim=True), min=1e-30)
+        payload[..., j:j + width] = torch.round(sl * (torch.full_like(amax, 127.0) / amax)).to(
+            torch.int8)
+        scale = amax[..., 0] * (1.0 / 127.0)
+    return payload.reshape(b, n, c), scale.contiguous()
+
+
+def scale_kernel_phase() -> dict:
+    """Rows 1-8 at every site of phi 'n', 'm', 'l' and 'x' 640x640 (batch 2,
+    batch 1 at 'l' and 'x'), at the 480x576 input (N = 4,320) of phi 's'
+    and 'm', and in fp32: each kernel against its plain version with the
+    existing bars, each planted fault rejected on some input spread (the
+    phi='s' faults, a dropped q/k slab of the width loop, a dropped tail key
+    tile, an int8 output quantized per 256-column slice, a dropped K tail
+    in qmm). Returns per kernel form the largest value error."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    check_launch_model()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEVICE)
+    qk_std = lambda score_std, scale, d: (score_std / (scale * d ** 0.5)) ** 0.5
+    err = {}
+
+    def note(form, value):
+        err[form] = max(err.get(form, 0.0), value)
+
+    def flash_case(tag, b, n, cq, cv, heads, packed, dt):
+        f32 = dt == torch.float32
+        scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
+        faults = {}
+        for score_std in SCORE_STDS:
+            std = qk_std(score_std, scale, cq // heads)
+            if packed:
+                qkv = randn(b, n, 3 * cq)
+                qkv[..., :2 * cq] *= std
+                qkv = qkv.to(dt)
+                if A._packed_heads(cq, heads):
+                    kern = lambda: A.flash_mha_packed(qkv, heads, scale)
+                    plain = lambda: A.flash_mha_packed_plain(qkv, heads, scale)
+                    form = "flash_mha_packed"
+                else:  # folded
+                    q, k, v = qkv.chunk(3, dim=-1)
+                    kern = lambda: A.attention(q, k, v, scale, num_heads=heads)
+                    plain = lambda: A.attention(q, k, v, scale, impl="plain", num_heads=heads)
+                    form = "flash_single"
+            else:
+                q, k = ((randn(b, n, cq) * std).to(dt) for _ in range(2))
+                v = randn(b, n, cv).to(dt)
+                kern = lambda: A.flash_single(q, k, v, scale)
+                plain = lambda: A.flash_single_plain(q, k, v, scale)
+                form = "flash_single"
+            form += "_f32" if f32 else ""
+            # every fault is held to be rejected on some input spread, below
+            r = hold_against_plain(kern, plain, f"{form} {tag} n={n} cq={cq} cv={cv} "
+                                                f"heads={heads} score_std {score_std}",
+                                   faults_must_fail=False,
+                                   faults=(*PLANTED_FAULTS, *SCALE_FAULTS),
+                                   bar=_f32_bar_used if f32 else bar_used)
+            note(form, r["max_abs_err"])
+            for f, used in r["fault_bar_used"].items():
+                faults[f] = max(faults.get(f, 0.0), used)
+        for f, used in faults.items():
+            check(used > 1.0, f"{tag}: the bar rejects {f} on no input spread ({used:.3g}x)")
+
+    def int8_case(tag, b, n, cq, cv, heads, bk, dt, variants):
+        scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
+        dv = cv // heads
+        rejected = {}
+        for score_std in SCORE_STDS:
+            std = qk_std(score_std, scale, cq // heads)
+            q, k = ((randn(b, n, cq) * std).to(dt) for _ in range(2))
+            v = randn(b, n, cv).to(dt)
+            kq, ks = A8.quantize_kv(k, heads, bk)
+            vq, vs = A8.quantize_kv(v, heads, bk)
+            keep = torch.ones(n, dtype=torch.bool, device=DEVICE)
+            for j in range(0, n, bk):  # each block's last (partial) key tile
+                keep[j + bk - (bk % 64 or 64):j + bk] = False
+            lo, hi = (128, 256) if cq // heads > 128 else (cq // heads // 2, cq // heads)
+            cols = torch.zeros(cq // heads, device=DEVICE)
+            cols[lo:hi] = 1
+            drop = lambda t: t * (1 - cols).repeat(heads).to(t.dtype)
+            ref_fn = lambda od=None, **kw: (lambda: int8_attention_reference(
+                q, k, v, heads, scale, bk, bk, od, **kw))
+            faults = {
+                "p_rounded_on_running_64_key_max": lambda od=None: int8_attention_reference(
+                    q, k, v, heads, scale, bk, 64, od),
+                "tail_key_tile_dropped": lambda od=None: int8_attention_reference(
+                    q, k, v, heads, scale, bk, bk, od, key_keep=keep),
+                "qk_slab_dropped": lambda od=None: int8_attention_reference(
+                    drop(q), drop(k), v, heads, scale, bk, bk, od),
+            }
+            record = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": heads, "bk": bk,
+                      "dtype": str(dt), "score_std": score_std}
+            args = (q, kq, ks, vq, vs, heads, scale)
+            out = A8.flash_mha_int8(*args)
+            torch.cuda.synchronize()
+            ref = A8.flash_mha_int8_plain(*args)
+            check(int8_reading(ref_fn()(), ref)["bar_used"] <= 1.0,
+                  f"flash_mha_int8 {tag}: the fault reference is not the plain function")
+            form = "flash_mha_int8" + ("_f32" if dt == torch.float32 else "")
+            r = _hold(f"{form} {tag}", out, ref, {f: fn for f, fn in faults.items()}, record,
+                      spread_faults=tuple(faults))
+            note(form, r["max_abs_err"])
+            for f, used in r["faults_bar_used"].items():
+                rejected[f] = rejected.get(f, False) or used > 1.0
+            if not variants:
+                continue
+            # qout: the same inputs, the output quantized per (row, head)
+            out = A8.flash_mha_int8_qout(*args)
+            torch.cuda.synchronize()
+            ref = A8.flash_mha_int8_qout_plain(*args)
+            o32 = lambda: int8_attention_reference(q, k, v, heads, scale, bk, bk, torch.float32)
+            qfaults = {"out_scale_per_row": lambda: _out_scale_per_row(o32(), heads),
+                       "p_rounded_on_running_64_key_max": lambda: _quant_per_head(
+                           faults["p_rounded_on_running_64_key_max"](torch.float32), heads)}
+            if dv > A8.KERNEL_DV_TILE:
+                qfaults["amax_per_slice"] = lambda: _amax_per_slice(o32(), heads)
+            r = _hold(f"flash_mha_int8_qout {tag}", out, ref, qfaults, record,
+                      spread_faults=("p_rounded_on_running_64_key_max",))
+            note("flash_mha_int8_qout", r["max_abs_err"])
+            rejected["qout p_rounded_on_running_64_key_max"] = (
+                rejected.get("qout p_rounded_on_running_64_key_max", False)
+                or r["faults_bar_used"]["p_rounded_on_running_64_key_max"] > 1.0)
+            # handoff: the int8 qkv payload (one scale a row, and the path's groups)
+            c = cq
+            path_group = QM.quant_out_group_width(2 * n, c, 3 * c, 0, align=(c, c // heads))
+            for group in sorted({3 * c, path_group}):
+                qkv = torch.cat([q, k, v], dim=-1).float()
+                payload, scales = QM._output_plain(qkv, None, group, None)
+                qs = A8.q_scale_table(scales, c, heads)
+                hk = A8.requantize_section(payload, scales, c, c, heads, bk)
+                hv = A8.requantize_section(payload, scales, 2 * c, c, heads, bk)
+                k_fault = _requantize_ratio_dropped(payload, scales, c, c, heads, bk)
+                for quant_out in (True, False):
+                    hargs = (payload, qs, *hk, *hv, heads, scale, quant_out, dt)
+                    out = A8.flash_int8_handoff(*hargs)
+                    torch.cuda.synchronize()
+                    ref = A8.flash_int8_handoff_plain(*hargs)
+                    hfaults = {"kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
+                        payload, qs, *k_fault, *hv, heads, scale, quant_out, dt)}
+                    o32h = lambda: A8.flash_int8_handoff_plain(payload, qs, *hk, *hv, heads,
+                                                               scale, False, torch.float32)
+                    if quant_out:
+                        hfaults["out_scale_per_row"] = lambda: _out_scale_per_row(o32h(), heads)
+                        if dv > A8.KERNEL_DV_TILE:
+                            hfaults["amax_per_slice"] = lambda: _amax_per_slice(o32h(), heads)
+                    r = _hold(f"flash_int8_handoff {tag} quant_out={quant_out}", out, ref,
+                              hfaults, {**record, "groups": scales.shape[-1],
+                                        "quant_out": quant_out})
+                    note("flash_int8_handoff", r["max_abs_err"])
+        for f, ok in rejected.items():
+            check(ok, f"{tag}: the int8 bar rejects {f} on no input spread")
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(phi, (640, 640)) for phi in SCALE_PHIS] + [("s", (480, 576)), ("m", (480, 576))]
+    for phi, hw in cases:
+        b = 1 if phi in ("l", "x") else 2
+        for name, (n, cq, cv, heads, packed) in scale_sites(phi, hw).items():
+            if n <= A.NAIVE_MAX_TOKENS or (hw != (640, 640) and name not in ("dark3", "h2")):
+                continue
+            tag = f"phi={phi} {hw[0]}x{hw[1]} {name}"
+            if hw == (640, 640) or name == "h2":
+                flash_case(tag, b, n, cq, cv, heads, packed, bf)
+            route, bk = A.serving_route(n, cq, heads, cv, True, packed)
+            if route == "int8":
+                variants = packed and (cq // heads) % 128 == 0
+                int8_case(tag, b, n, cq, cv, heads, bk, bf, variants)
+    # fp32: the packed, single-head and folded forms, int8 with fp32 q
+    n, cq, _, heads, _ = scale_sites("m")["h4"]
+    flash_case("phi=m h4 fp32", 2, n, cq, cq, heads, True, f32)
+    n, cq, cv, _, _ = scale_sites("m")["dark3"]
+    flash_case("phi=m dark3 fp32", 1, n, cq, cv, 1, False, f32)
+    n, cq, _, heads, _ = scale_sites("n")["h1"]
+    flash_case("phi=n h1 fp32 (folded)", 2, n, cq, cq, heads, True, f32)
+    n, cq, _, heads, _ = scale_sites("m")["h4"]
+    int8_case("phi=m h4 fp32", 2, n, cq, cq, heads, A8.pick_blocks(n, cq, heads)[1], f32, True)
+
+    # qmm and quant_rows at the int8 TEB projections: (name, M, C, kinds);
+    # phi='l'/'x' h1 at 256 rows, K and N at full width (phi='x' qkv and the
+    # MLP, 2.5-3.3 G weights, would need 20-26 GB for the float64 plain dot)
+    rows = lambda m, c, dt: (torch.randn(m, c, generator=gen, device=DEVICE) * 2 + 0.5).to(dt)
+    proj = []
+    for phi in ("n", "m"):
+        for name in ("h1", "h2"):
+            n, c = scale_sites(phi)[name][:2]
+            proj.append((f"phi={phi} {name} batch 2", 2 * n, c, ("qkv", "attn_out", "mlp")))
+    proj.append(("phi=l h1, 256 rows", 256, scale_sites("l")["h1"][1], ("qkv", "attn_out")))
+    proj.append(("phi=x h1, 256 rows", 256, scale_sites("x")["h1"][1], ("attn_out",)))
+
+    def run(form, *args, **kw):
+        r, out = _qmm_case(*args, **kw)
+        for key in ("quant_rows", "qmm"):
+            if key in r:
+                note(key + ("_int4" if kw.get("qmax") == 7 and key == "quant_rows" else "")
+                     + ("_f32" if kw.get("dtype") == "float32" else ""), r[key]["max_abs_err"])
+        return out
+
+    for name, m, c, kinds in proj:
+        if "qkv" in kinds:
+            run("qmm", f"{name} qkv", rows(m, c, bf), None, m, c, 3 * c, 0, None, False,
+                ln=True)
+        run("qmm", f"{name} attn_out", rows(m, c, bf), None, m, c, c, 0, None, True, ln=False)
+        if "mlp" not in kinds:
+            continue
+        g = QM.quant_out_group_width(m, c, 4 * c, 0)
+        z8 = run("qmm", f"{name} mlp1", rows(m, c, bf), None, m, c, 4 * c, 0, "gelu", False,
+                 group=g, ln=True)
+        run("qmm", f"{name} mlp2", z8[0], z8[1], m, 4 * c, c, 4 * c // g, None, True)
+        if c % 128 == 0:  # the w4a4 mlp1 (configuration A)
+            run("qmm", f"{name} w4a4 mlp1", rows(m, c, bf), None, m, c, 4 * c, 0, "gelu", False,
+                group=4 * c, ln=True, qmax=7)
+    # fp32: quant_rows of fp32 rows, qmm with an fp32 residual and output
+    name, m, c, _ = proj[2]  # phi='m' h1 (K = 4,792)
+    run("qmm", f"{name} qkv fp32", rows(m, c, f32), None, m, c, 3 * c, 0, None, False, ln=True,
+        dtype="float32")
+    run("qmm", f"{name} attn_out fp32 ln_out", rows(m, c, f32), None, m, c, c, 0, None, True,
+        ln_out=True, ln=False, dtype="float32")
+    print(json.dumps({"scale_kernel_max_abs_err": err}), flush=True)
+    return err
+
+
+def bf16_path_calls(model, images, f32: bool = False) -> dict:
+    """Every flash_mha_packed / flash_single launch of one forward, recorded
+    with its arguments, held against its plain version on the same
+    activations (the kernel bar; fp32: the fp32 bar) and timed beside its
+    bound, its plain version and SDPA on the same shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    calls = []
+    real = {"flash_mha_packed": (A.flash_mha_packed, A.flash_mha_packed_plain),
+            "flash_single": (A.flash_single, A.flash_single_plain)}
+
+    def recording(name, kernel):
+        def launch(*args):
+            out = kernel(*args)
+            calls.append((name, args, out))
+            return out
+        launch.launches = 0
+        return launch
+
+    for name, (kernel, _) in real.items():
+        setattr(A, name, recording(name, kernel))
+    try:
+        with torch.inference_mode():
+            model(images)
+    finally:
+        for name, (kernel, _) in real.items():
+            setattr(A, name, kernel)
+    rows = {name: [] for name in real}
+    bar = _f32_bar_used if f32 else bar_used
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    for i, (name, args, out) in enumerate(calls):
+        kernel, plain = real[name]
+        with torch.inference_mode():
+            ref = plain(*args)
+            used = bar(out, ref)
+            check(used <= 1.0, f"{name} launch {i} on the path's activations: {used:.3g}x the bar")
+            if name == "flash_mha_packed":
+                qkv, h, scale = args
+                b, n, c3 = qkv.shape
+                cq = cv = c3 // 3
+                q, k, v = (A._heads_first(t, h).contiguous() for t in qkv.chunk(3, dim=-1))
+            else:
+                q, k, v, scale = args
+                b, n, cq = q.shape
+                cv, h = v.shape[-1], 1
+            ops = 2.0 * b * n * n * (cq + cv)
+            nbytes = out.element_size() * (b * n * (2 * cq + cv) + b * n * cv)
+            t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+            ms = timed_ms(lambda: kernel(*args), 5, 1)
+            plain_ms = timed_ms(lambda: plain(*args), 1, 1)
+            lib = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 1)
+        rows[name].append({"launch": i, "b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
+                           "bar_used": used,
+                           "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                           "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": max(t_ops, t_bytes) * 1e3,
+                           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                           "library_ms": lib})
+        print(json.dumps({"path_call": name + ("_f32" if f32 else ""), **rows[name][-1]}),
+              flush=True)
+    return rows
+
+
+def _set_class_biases(model, images, candidates):
+    """Class biases so that about `candidates` anchors an image pass the 0.5
+    confidence (as a trained detector's few dozen would)."""
+    import torch
+
+    with torch.no_grad():
+        towers = [getattr(model.head, f"cls{i}") for i in range(3)]
+        for t in towers:
+            t.out.bias.zero_()
+        logits = torch.logit(model(images)["decoded"][..., 4:].amax(-1), eps=1e-6).flatten()
+        shift = float(logits.topk(candidates * images.shape[0]).values[-1])
+        for t in towers:
+            t.out.bias.fill_(-shift)
+
+
+SCALE_LIMITS = {"bf16": (BOX_LIMIT_PX, SCORE_LIMIT, SLICE_REJECTS[0]),
+                "int8": (INT8_BOX_LIMIT_PX, INT8_SCORE_LIMIT, INT8_SLICE_REJECTS[0]),
+                "A": (VARIANT_BOX_LIMIT_PX["A"], VARIANT_SCORE_LIMIT["A"],
+                      VARIANT_SLICE_REJECTS[0]),
+                "B": (VARIANT_BOX_LIMIT_PX["B"], VARIANT_SCORE_LIMIT["B"],
+                      VARIANT_SLICE_REJECTS[0]),
+                "fp32": (F32_BOX_LIMIT_PX, F32_SCORE_LIMIT, SLICE_REJECTS[0]),
+                "fp32 int8": (INT8_BOX_LIMIT_PX, INT8_SCORE_LIMIT, INT8_SLICE_REJECTS[0])}
+
+
+def _parity(model, predictor, images, raw, shapes, pcfg, tag) -> dict:
+    """`decoded` and the detection sets of the kernels against the same
+    model on plain versions, and the plain versions with the planted fault
+    that the limits must reject; returns the reading, or raises."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.models.detector import set_attention_impl
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    box_limit, score_limit, fault = SCALE_LIMITS[tag]
+
+    def run_plain():
+        set_attention_impl(model, "plain")
+        try:
+            return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+        finally:
+            set_attention_impl(model, None)
+
+    with torch.inference_mode():
+        dec_k = model(images)["decoded"]
+        dets = predictor.detect_raw_batch(raw, shapes)
+        dec_p, dets_p = run_plain()
+        with (planted(fault) if fault in PLANTED_FAULTS else QMM_FAULTS[fault](QM)):
+            dec_f, _ = run_plain()
+    check(bool(torch.isfinite(dec_k).all()), f"{tag}: non-finite decoded")
+    diff = lambda d: {"decoded_box_max_abs_px": float((d[..., :4] - dec_p[..., :4]).abs().max()),
+                      "decoded_score_max_abs": float((d[..., 4:] - dec_p[..., 4:]).abs().max())}
+    sound, faulty = diff(dec_k), diff(dec_f)
+    reading = {"kernels": sound, "planted_fault": {fault: faulty},
+               "num_detections": dets["num_detections"].cpu().tolist(),
+               "num_detections_plain": dets_p["num_detections"].cpu().tolist(),
+               "matched_in_plain": match_per_anchor(dec_k, dec_p, pcfg),
+               "plain_matched_here": match_per_anchor(dec_p, dec_k, pcfg),
+               "limits": {"box_px": box_limit, "score": score_limit}}
+    print(json.dumps({"scale_slice_parity": tag, **reading}), flush=True)
+    check(sound["decoded_box_max_abs_px"] <= box_limit and
+          sound["decoded_score_max_abs"] <= score_limit,
+          f"{tag}: decoded differs from the plain run by {sound}")
+    check(faulty["decoded_box_max_abs_px"] > box_limit or
+          faulty["decoded_score_max_abs"] > score_limit,
+          f"{tag}: the limits do not reject the planted fault {fault}: {faulty}")
+    check(bool((dets["num_detections"] > 0).all()), f"{tag}: empty detections")
+    check(bool((dets["num_detections"] < pcfg.max_detections).all()),
+          f"{tag}: max_detections cut the detections; the sets are not comparable")
+    for key in ("matched_in_plain", "plain_matched_here"):
+        m = reading[key]
+        check(m["compared"] > 0 and m["unmatched"] == 0, f"{tag}: detection sets differ: {m}")
+    return reading
+
+
+def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
+    """FocusModel at `phi` 640x640, full width, seeded random weights, served
+    through Predictor.detect_raw_batch in each configuration of `tags`
+    ("bf16", "int8", "A", "B") from the bf16 model's weights: the launches of
+    each counted batch in `batches` equal to `expected_launches`; `decoded`
+    and the detection sets against the same configuration on plain versions
+    (batch 4, or 2 when 2 is the largest counted batch); with `timed`, every
+    launch of a batch-2 forward against its plain version and timed, batch-1
+    latency, batch-32 throughput and a profile. Then one fp32 forward at
+    batch 2 (every int8 flag off at phi='m', int8 at phi='n') against plain,
+    its launches counted."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
+    pcfg = PredictConfig()
+    t0 = time.perf_counter()
+    base = build_model(ModelConfig(phi=phi), device=DEVICE, seed=SEED)
+    n_params = sum(p.numel() for p in base.parameters())
+    print(json.dumps({"scale_model": phi, "params": n_params,
+                      "build_s": time.perf_counter() - t0}), flush=True)
+    rng = np.random.default_rng(SEED)
+    nimg = 4 if max(batches) > 2 else 2
+    raw = rng.integers(0, 256, size=(nimg, 480, 640, 3), dtype=np.uint8)
+    shapes = np.tile(np.array([[480, 640]], np.float32), (nimg, 1))
+    raw32 = rng.integers(0, 256, size=(32, 480, 640, 3), dtype=np.uint8)
+    shapes32 = np.tile(np.array([[480, 640]], np.float32), (32, 1))
+    images = letterbox_batch(torch.as_tensor(raw, device=DEVICE).float() / 255.0, (640, 640))
+    with torch.no_grad():
+        base.backbone.dark3_attn.gamma.fill_(0.5)
+
+    def clone(cfg, variants=None):
+        model = build_model(cfg, device=DEVICE, seed=None, int8_variants=variants)
+        model.load_state_dict(base.state_dict())
+        return model
+
+    results = {}
+    for tag in tags:
+        int8 = tag != "bf16"
+        cfg = ModelConfig(phi=phi, int8_dense=int8, int8_attn=int8)
+        model = clone(cfg, Int8Variants(**VARIANT_CONFIGS.get(tag, {}))) if int8 else base
+        _set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE if int8
+                          else CANDIDATES_PER_IMAGE)
+        predictor = Predictor(model, cfg, pcfg, device=DEVICE)
+        launches = {}
+        for b in batches:  # the main path, counted: counts to 0 just before, read just after
+            r, sh = (raw32, shapes32) if b == 32 else (raw[:b], shapes[:b])
+            reset_counts()
+            dets_b = predictor.detect_raw_batch(r, sh)
+            torch.cuda.synchronize()
+            launches[b] = read_counts()
+            want = expected_launches(phi, b, tag)
+            check(launches[b] == want, f"phi={phi} {tag} batch {b}: launches {launches[b]}, "
+                                       f"expected {want}")
+            check(bool(torch.isfinite(dets_b["boxes"]).all()), f"phi={phi} {tag}: non-finite")
+        print(json.dumps({"scale_main_path_launches": {"phi": phi, "config": tag,
+                                                       "per_forward": launches}}), flush=True)
+        parity = _parity(model, predictor, images, raw, shapes, pcfg, tag)
+        record = {"launches": launches, "parity": parity}
+        if timed:
+            record["rows"] = (bf16_path_calls(model, images[:2]) if not int8
+                              else int8_path_calls(model, images[:2]))
+            record["perf"] = {"card": card, "model": f"phi={phi} 640x640 {tag}",
+                              "params": n_params,
+                              **serving_timing(model, predictor, raw, shapes, images, rng)}
+            print(json.dumps({"scale_slice_perf": record["perf"]}), flush=True)
+        results[tag] = record
+        if model is not base:
+            del model, predictor
+            torch.cuda.empty_cache()
+
+    # one fp32 forward at batch 2, counted, against plain
+    tag = "fp32" if phi != "n" else "fp32 int8"
+    int8 = tag == "fp32 int8"
+    cfg = ModelConfig(phi=phi, compute_dtype="float32", int8_dense=int8, int8_attn=int8)
+    model = clone(cfg, Int8Variants())
+    predictor = Predictor(model, cfg, pcfg, device=DEVICE)
+    reset_counts()
+    with torch.inference_mode():
+        model(images[:2])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected_launches(phi, 2, "int8" if int8 else "bf16")
+    check(counts == want, f"phi={phi} {tag}: launches {counts}, expected {want}")
+    parity = _parity(model, predictor, images[:2], raw[:2], shapes[:2], pcfg, tag)
+    rows = (int8_path_calls(model, images[:2]) if int8
+            else bf16_path_calls(model, images[:2], f32=True))
+    results[tag] = {"launches": {2: counts}, "parity": parity, "rows": rows}
+    del model, predictor, base
+    torch.cuda.empty_cache()
+    return results
+
+
+def serve_matrix_phase(card: str) -> dict:
+    """Every scale the card holds (phi 'n', 's', 'm') in bf16 and fp32
+    compute, in each serving configuration (bf16, int8, A, B), from one set
+    of seeded weights per scale: one counted batch-1
+    Predictor.detect_raw_batch each, its launches equal to
+    `expected_launches` and its boxes finite. Parity is held by the slices
+    above."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    rng = np.random.default_rng(SEED)
+    raw = rng.integers(0, 256, size=(1, 480, 640, 3), dtype=np.uint8)
+    shapes = np.array([[480, 640]], np.float32)
+    served = {}
+    for phi in ("n", "s", "m"):
+        base = build_model(ModelConfig(phi=phi), device=DEVICE, seed=SEED)
+        for dtype in ("bfloat16", "float32"):
+            for tag in ("bf16", "int8", *VARIANT_CONFIGS):
+                int8 = tag != "bf16"
+                cfg = ModelConfig(phi=phi, compute_dtype=dtype, int8_dense=int8, int8_attn=int8)
+                model = build_model(cfg, device=DEVICE, seed=None,
+                                    int8_variants=Int8Variants(**VARIANT_CONFIGS.get(tag, {})))
+                model.load_state_dict(base.state_dict())
+                predictor = Predictor(model, cfg, PredictConfig(), device=DEVICE)
+                reset_counts()
+                with torch.inference_mode():
+                    dets = predictor.detect_raw_batch(raw, shapes)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                want = expected_launches(phi, 1, tag)
+                what = f"phi={phi} {dtype} {tag}"
+                check(counts == want, f"{what}: launches {counts}, expected {want}")
+                check(bool(torch.isfinite(dets["boxes"]).all()), f"{what}: non-finite boxes")
+                served[what] = {k: v for k, v in counts.items() if v}
+                del model, predictor
+        del base
+        torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "served_batch1": served}), flush=True)
+    return served
+
+
 def main() -> int:
     import torch
 
@@ -2141,12 +2866,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build(_build.all_sources())
     print(json.dumps({"build_s": time.perf_counter() - t0, "built": sorted(logs)}), flush=True)
     for log in logs.values():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry function" in line:  # the mangled name's template arguments
+                print("  " + line.split("'")[1][-64:])
+            elif "registers" in line or "spill" in line:
                 print("  " + line.strip())
 
     mha_rows, single_rows = kernel_phase()
@@ -2161,6 +2888,10 @@ def main() -> int:
     del bf16_model
     torch.cuda.empty_cache()
     train_launches = train_slice_phase(card)
+    scale_err = scale_kernel_phase()
+    m_run = scale_slice_phase(card, "m", ("bf16", "int8", "A", "B"), (32, 1), timed=True)
+    n_run = scale_slice_phase(card, "n", ("bf16", "int8"), (2,), timed=False)
+    serve_matrix_phase(card)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
@@ -2203,6 +2934,28 @@ def main() -> int:
         kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197", train_rows["flash_bwd_dkv"],
                            train_launches["flash_bwd_dkv"]),
     ]
+    # the other scales' forms: phi='m' at full width (launches of the counted
+    # batch-32 forward, times of the batch-2 forward's launches), fp32
+    # (phi='m' flags off, phi='n' int8: launches and times of one batch-2
+    # forward); errors the largest of those launches and the scale kernel phase
+    ja = "transparent_object_detection_tpu/ops/attention.py"
+    forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", src, f"{ja}:137"),
+             ("flash_mha_int8", a8src, f"{ja8}:58"), ("flash_mha_int8_qout", a8src, f"{ja8}:184"),
+             ("flash_int8_handoff", a8src, f"{ja8}:435"), ("qmm", qsrc, f"{jq}:80"),
+             ("quant_rows", qsrc, f"{jq}:408"), ("quant_rows_int4", qsrc, f"{jq}:408"))
+    runs = (("phi=m", m_run, ("bf16", "int8", "A", "B"), 32, ""),
+            ("fp32 phi=m", m_run, ("fp32",), 2, "_f32"),
+            ("fp32 phi=n", n_run, ("fp32 int8",), 2, "_f32"))
+    for label, run, tags, batch, suffix in runs:
+        for name, source, replaces in forms:
+            tag = next((t for t in tags if run[t].get("rows", {}).get(name)), None)
+            if tag is None:
+                continue
+            r = run[tag]
+            kernels.append(int8_kernel_entry(
+                f"{name} {label}", source, replaces, r["rows"][name],
+                r["launches"][batch][name], scale_err.get(name + suffix, 0.0)))
+    print(json.dumps({"smoke_total_s": time.perf_counter() - t_start}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -132,14 +132,17 @@ def test_wrappers_never_fall_back_off_cpu():
 
 
 def test_kernel_shape_support():
-    """The phi='s' 640x640 shapes are all kernel shapes: neck heads of 256,
-    dark3 dq 64 / dv 512 (the v-slice width divides both v widths); q/k
-    widths the kernel is not instantiated for are refused."""
-    for c, heads in ((2048, 8), (1536, 6)):
+    """The phi='s' 640x640 shapes are kernel shapes (neck heads of 256, dark3
+    dq 64 / dv 512), and so are the other scales': the packed kernel reads
+    any head width that is a multiple of 8 in place (phi='n' heads of 128,
+    phi='m' 384, phi='x' 3,584), the single-head wrapper takes any width
+    (phi='n' h1's folded 283, zero-padded to 288); a head layout that does
+    not divide C or a width that is not a multiple of 8 is refused by the
+    packed kernel."""
+    for c, heads in ((2048, 8), (1536, 6), (768, 6), (3072, 8), (28672, 8)):
         assert tattn.packed_kernel_supports(c, heads)
-        assert (c // heads) % tattn.KERNEL_DV_TILE == 0
-    assert tattn.single_kernel_supports(64, 512)
-    assert not tattn.packed_kernel_supports(849, 3)
-    assert not tattn.packed_kernel_supports(768, 6)  # phi='n' heads of 128
-    assert not tattn.single_kernel_supports(283, 283)
-    assert not tattn.single_kernel_supports(64, 448)
+    for dq, dv in ((64, 512), (32, 256), (128, 1024), (283, 283), (599, 599), (64, 448)):
+        assert tattn.single_kernel_supports(dq, dv)
+    assert not tattn.packed_kernel_supports(849, 3)  # heads of 283
+    assert not tattn.packed_kernel_supports(1536, 7)
+    assert not tattn.single_kernel_supports(0, 256)

@@ -1,32 +1,35 @@
 // int8 flash attention for Hopper (sm_90a). One templated kernel replaces
 // three TPU kernels of transparent_object_detection_tpu/ops/attention_int8.py:
 //   * _mha_flash_int8_kernel (flash_attention_mha_int8): entry flash_mha_int8,
-//     the function below with a bf16 output;
+//     the function below with an output in q's type (bf16 or fp32);
 //   * _mha_flash_int8_qout_kernel (flash_attention_mha_int8_qout): entry
-//     flash_mha_int8_qout, the same with the output quantized (O8, below);
+//     flash_mha_int8_qout, the same with the output quantized per (row, head);
 //   * _mha_flash_int8_handoff_kernel (flash_attention_int8_handoff): entry
-//     flash_int8_handoff, q int8 from the qkv projection's payload (Q8) and
-//     the output int8 (O8) or bf16.
-// Q8: q is read in place as int8 from the payload's leading columns (row
-// stride q_row = 3C) and used as it is, no re-rounding; its scale per (row,
-// head) comes from a table (B, N, heads). O8: o = acc * (1 / l), amax over the
-// head's dv columns (floor 1e-30), out rint(o * (127 / amax)) and amax / 127
-// into column `head` of (B, N, heads). A block holds a head's whole output
-// row only when dv == 256 (one slice), so O8 refuses other widths; the amax
-// is then a reduction over the 4 threads of a quad.
+//     flash_int8_handoff, q int8 from the qkv projection's payload, used as it
+//     is (no re-rounding) with its scale per (row, head) from a table, and the
+//     output int8 or in bf16 / fp32.
 //
-// Inputs: q bf16, head-packed, read in place (the (B, N, 3C) qkv array with
-// row stride 3C, or a plain (B, N, Cq) array); kq (B, N, Cq) and vq (B, N, Cv)
-// int8 with one f32 scale per (batch, head, block of bk keys), (B, H, N / bk).
-// Per query row and head, with s_scale = scale * log2(e):
-//   qq = rint(q * (127 / amax_row)), qs = amax_row / 127     (in the block)
+// Inputs: q int8 with one scale per (row, head) (B, N, heads), head-packed
+// with row stride q_row. flash_mha_int8 and flash_mha_int8_qout first
+// quantize q from bf16 or fp32 (quant_q_kernel: per (row, head), amax over
+// the head's dq columns floored at 1e-12, qq = rint(q * (127 / amax)),
+// qs = amax / 127) into a workspace, then run the main kernel; the two
+// launches count as one. kq (B, N, Cq) and vq (B, N, Cv) int8 with one f32
+// scale per (batch, head, block of bk keys), (B, H, N / bk). Per query row
+// and head, with s_scale = scale * log2(e):
 //   per key block j:
 //     s = float(qq . kq) * (qs * (ks_j * s_scale))          (int32 dot, exact)
 //     pass 1: m_new = max(m, max of s over the WHOLE block)  (m starts -1e30)
 //     pass 2: p127 = exp2(s - (m_new - log2 127)); l = l * exp2(m - m_new)
 //             + sum p127 (unrounded); pv = int32 sum over the block of
 //             rint(p127) * vq; acc = acc * exp2(m - m_new) + float(pv) * vs_j
-//   out = acc * (1 / l), bf16.
+//   out = acc * (1 / l).
+// int8 out: amax of o over the head's whole dv (floor 1e-30), rint(o * (127 /
+// amax)) and amax / 127 into column `head` of (B, N, heads). Where one block
+// holds the head's row (dv == 256) the amax is a reduction over the 4 threads
+// of a quad; wider heads write o in fp32 to a workspace and a row pass
+// (quant_heads_kernel) takes each (row, head)'s amax over all its slices and
+// quantizes: never per slice.
 // p is rounded against the maximum of its whole quantization block, as the
 // TPU kernel does (its key block is the whole quantization block). A
 // textbook online softmax over 64-key tiles would round against a running
@@ -37,27 +40,34 @@
 //
 // Bound. At phi='s' 640x640 per image: h2 2 * 6,400^2 * 2 * 1,536 = 252 G
 // int8 operations (one q.k^T and one p.v pass), dark3 47 G, h1 21 G, h4 16 G;
-// inputs and outputs are tens of MB, so the work is bound by operations:
-// >= 0.17 ms an image at the H100 SXM data sheet's 1,979 int8 TOPS.
+// phi='m' doubles the neck's (h2 503 G). Inputs and outputs are tens of MB,
+// so the work is bound by operations: >= 0.17 ms an image at phi='s' at the
+// H100 SXM data sheet's 1,979 int8 TOPS.
 //
 // Design. A block owns 64 query rows (16 per warp) of one head and one
-// 256-wide slice of its v columns (dark3's 512 splits across 2 blocks, which
-// recompute q.k^T). q is quantized into shared memory once. Keys stream in
-// tiles of 64 through a 2-stage cp.async ring, both passes and all blocks in
-// one sequence of steps. Both products are mma.sync m16n8k32 s8 x s8 -> s32.
-// The s32 C fragment of that instruction holds 2 adjacent key columns of an
-// 8-wide tile, the s8 A fragment wants 4, so rint(p127) goes through a small
-// shared tile (one per warp's rows) and comes back with ldmatrix. The B
-// operand of p.v needs keys contiguous per v column: each v tile is
-// transposed in shared memory (4 x 4 byte blocks with byte permutes).
-// pv stays int32 over a whole block (128 registers a thread); with more than
-// one block the fp32 acc lives in shared memory, touched once per block (one
-// block of 157 KB an SM); with one block, the serving path's, it is formed
-// from pv at the end (95.5 KB, two blocks an SM). Requires N and bk to be
-// multiples of 64 (the wrapper checks; the serving path's are 1,600 / 6,400).
+// 256-wide slice of its v columns (wider v splits across blocks, which
+// recompute q.k^T; the last slice is masked where dv is not a multiple of
+// 256). Keys stream in tiles of 64 through a 2-stage cp.async ring, both
+// passes and all blocks in one sequence of steps; a quantization block whose
+// bk is not a multiple of 64 ends in a half tile, its missing keys masked
+// (-inf in the max, p = 0). The q/k width is a loop: widths up to 64 and
+// exactly 256 keep the int8 q tile in shared memory (the phi='s' path);
+// others stream q and k together in 128-byte slabs, S accumulating in
+// registers. Both products are mma.sync m16n8k32 s8 x s8 -> s32. The s32 C
+// fragment of that instruction holds 2 adjacent key columns of an 8-wide
+// tile, the s8 A fragment wants 4, so rint(p127) goes through a small shared
+// tile (one per warp's rows) and comes back with ldmatrix. The B operand of
+// p.v needs keys contiguous per v column: each v tile is transposed in shared
+// memory (4 x 4 byte blocks with byte permutes). pv stays int32 over a whole
+// block (128 registers a thread); with more than one block the fp32 acc
+// lives in shared memory, touched once per block (one block an SM); with one
+// block, the phi='s' serving path's, it is formed from pv at the end (two
+// blocks an SM). N and bk are multiples of 32, dq of 32, dv of 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -66,20 +76,21 @@ constexpr int BN = 64;       // keys per tile
 constexpr int THREADS = 128;
 constexpr int DVT = 256;     // v columns one block accumulates
 constexpr int PADB = 16;     // byte padding of a shared row (bank spread)
+constexpr int SLAB = 128;    // q/k bytes a streamed step holds
 constexpr float LOG2_127 = 6.988684686772166f;
 constexpr float INV127 = (float)(1.0 / 127.0);
 
+enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_I8 = 2 };
+
 struct Params {
-  const __nv_bfloat16* q;   // bf16 q (Q8 false)
-  const int8_t* q8;         // int8 q, the qkv payload (Q8 true)
+  const int8_t* q8;         // int8 q, row stride q_row, head h at column h * dq
   const float* qs_tab;      // its per-(row, head) scales (B, N, heads)
   const int8_t* kq;
   const int8_t* vq;
   const float* ks;
   const float* vs;
-  __nv_bfloat16* o;         // bf16 out (O8 false)
-  int8_t* o8;               // int8 out (O8 true)
-  float* os;                // its per-(row, head) scales (B, N, heads)
+  void* o;                  // (B, N, heads * dv): bf16, fp32 or int8
+  float* os;                // OUT_I8: per-(row, head) scales (B, N, heads)
   int n, heads, dq, dv, q_row, bk, nk, dv_splits;
   float scale_log2;
 };
@@ -87,8 +98,11 @@ struct Params {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
+// 16-byte async copy; valid = false zero-fills the destination
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
@@ -105,27 +119,55 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffff, v, o));
+  return v;
+}
 
-template <int DQ, bool MULTI>
+// ROWS x COLS bytes from global (row stride `stride`) into shared memory (row
+// stride COLS + PADB), reading rows [0, rows_valid) and columns
+// [0, cols_valid) (a multiple of 16); the rest is zero-filled.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_bytes(int8_t* dst, const int8_t* src, long long stride,
+                                           int rows_valid, int cols_valid) {
+  constexpr int CHUNKS = COLS / 16;
+  for (int c = threadIdx.x; c < ROWS * CHUNKS; c += THREADS) {
+    const int r = c / CHUNKS, col = (c % CHUNKS) * 16;
+    const bool valid = r < rows_valid && col < cols_valid;
+    cp_async16(dst + r * (COLS + PADB) + col, src + (valid ? r * stride + col : 0), valid);
+  }
+}
+
+// QW: the q/k columns one step holds: the whole (padded) width when QRES, a
+// slab of SLAB bytes otherwise (q then streams beside k, 2 stages).
+template <int QW, bool QRES, bool MULTI>
 struct Smem {
-  static constexpr int Q = BM * (DQ + PADB);          // quantized q
-  static constexpr int K = BN * (DQ + PADB);          // one k stage
-  static constexpr int VRAW = BN * (DVT + PADB);      // v tile as loaded
-  static constexpr int VT = DVT * (BN + PADB);        // v tile transposed
-  static constexpr int P = BM * (BN + PADB);          // rint(p127)
-  static constexpr int ACC = MULTI ? BM * DVT * 4 : 0; // fp32 acc (nk > 1)
-  static constexpr int QS = BM * 4;                   // q row scales
+  static constexpr int QROW = QW + PADB;
+  static constexpr int Q = (QRES ? 1 : 2) * BM * QROW;  // q tile, or 2 q slabs
+  static constexpr int K = BN * QROW;                   // one k stage
+  static constexpr int VRAW = BN * (DVT + PADB);        // v tile as loaded
+  static constexpr int VT = DVT * (BN + PADB);          // v tile transposed
+  static constexpr int P = BM * (BN + PADB);            // rint(p127)
+  static constexpr int ACC = MULTI ? BM * DVT * 4 : 0;  // fp32 acc (nk > 1)
+  static constexpr int QS = BM * 4;                     // q row scales
   static constexpr int TOTAL = Q + 2 * K + VRAW + VT + P + ACC + QS;
 };
 
+// Position of a step in the sequence: block, pass, key tile, q/k slab.
+struct Step {
+  int blk, pass, tile, slab;
+};
+
 // MULTI: more than one key block (nk > 1), the fp32 acc in shared memory.
-// With one block (the serving path: bk = N) acc is float(pv) * vs, formed at
-// the end; the block then needs 95.5 KB of shared memory and two fit an SM.
-// Q8: q arrives int8 (the handoff), with its scale from the table. O8: the
-// output is quantized per (row, head); the block holds the head's whole dv.
-template <int DQ, bool MULTI, bool Q8, bool O8>
+// With one block (the phi='s' serving path: bk = N) acc is float(pv) * vs,
+// formed at the end; the block then needs 95.5 KB of shared memory and two
+// fit an SM. TAIL: bk is not a multiple of 64, so each block's last key tile
+// is masked. OUT: bf16 or fp32 values, or int8 per (row, head) (dv == DVT).
+template <int QW, bool QRES, bool MULTI, bool TAIL, int OUT>
 __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(const Params p) {
-  using S = Smem<DQ, MULTI>;
+  using S = Smem<QW, QRES, MULTI>;
+  constexpr int QROW = S::QROW;
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* sQ = reinterpret_cast<int8_t*>(smem);
   int8_t* sK = sQ + S::Q;
@@ -139,77 +181,51 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   const int m0 = blockIdx.x * BM;
   const int head = blockIdx.y / p.dv_splits, split = blockIdx.y % p.dv_splits;
   const int b = blockIdx.z;
-  const int cq = p.heads * DQ, cv = p.heads * p.dv;
-  const __nv_bfloat16* qg = p.q + (long long)b * p.n * p.q_row + head * DQ;
-  const int8_t* q8g = p.q8 + (long long)b * p.n * p.q_row + head * DQ;
-  const int8_t* kg = p.kq + (long long)b * p.n * cq + head * DQ;
-  const int8_t* vg = p.vq + (long long)b * p.n * cv + head * p.dv + split * DVT;
+  const int n = p.n;
+  const int cq = p.heads * p.dq, cv = p.heads * p.dv;
+  const int8_t* q8g = p.q8 + (long long)b * n * p.q_row + head * p.dq;
+  const int8_t* kg = p.kq + (long long)b * n * cq + head * p.dq;
+  const int8_t* vg = p.vq + (long long)b * n * cv + head * p.dv + split * DVT;
   const float* ksg = p.ks + ((long long)b * p.heads + head) * p.nk;
   const float* vsg = p.vs + ((long long)b * p.heads + head) * p.nk;
-  __nv_bfloat16* og = p.o + (long long)b * p.n * cv + head * p.dv + split * DVT;
+  const int v_cols = p.dv - split * DVT;  // valid columns of this v slice
 
-  const int tiles = p.bk / BN;   // key tiles per quantization block
-  const int steps = 2 * tiles * p.nk;
-  // step s: block s / (2 tiles), pass (s / tiles) & 1, key tile
-  auto key0 = [&](int s) { return ((s / (2 * tiles)) * tiles + s % tiles) * BN; };
-  auto is_pass2 = [&](int s) { return ((s / tiles) & 1) == 1; };
-  auto load = [&](int s) {
-    const int k0 = key0(s);
-    int8_t* dk = sK + (s & 1) * S::K;
-    for (int c = threadIdx.x; c < BN * (DQ / 16); c += THREADS) {
-      const int r = c / (DQ / 16), col = (c % (DQ / 16)) * 16;
-      cp_async16(dk + r * (DQ + PADB) + col, kg + (long long)(k0 + r) * cq + col);
-    }
-    if (is_pass2(s)) {
-      for (int c = threadIdx.x; c < BN * (DVT / 16); c += THREADS) {
-        const int r = c / (DVT / 16), col = (c % (DVT / 16)) * 16;
-        cp_async16(sVraw + r * (DVT + PADB) + col, vg + (long long)(k0 + r) * cv + col);
+  const int tiles = (p.bk + BN - 1) / BN;  // key tiles per quantization block
+  const int slabs = QRES ? 1 : (p.dq + QW - 1) / QW;
+  // steps in order: per block, pass 1 then pass 2, per key tile, per slab;
+  // step s loads into and reads from ring stage s & 1
+  auto advance = [&](Step c) {
+    if (++c.slab == slabs) {
+      c.slab = 0;
+      if (++c.tile == tiles) {
+        c.tile = 0;
+        if (++c.pass == 2) {
+          c.pass = 0;
+          ++c.blk;
+        }
       }
     }
+    return c;
+  };
+  auto load = [&](const Step& c, int stage) {
+    const int k0 = c.blk * p.bk + c.tile * BN;
+    const int kv = TAIL ? min(BN, p.bk - c.tile * BN) : BN;
+    const int c0 = QRES ? 0 : c.slab * QW;
+    load_bytes<BN, QW>(sK + stage * S::K, kg + (long long)k0 * cq + c0, cq, kv, p.dq - c0);
+    if (!QRES)
+      load_bytes<BM, QW>(sQ + stage * BM * QROW, q8g + (long long)m0 * p.q_row + c0, p.q_row,
+                         n - m0, p.dq - c0);
+    if (c.pass == 1 && c.slab == 0)
+      load_bytes<BN, DVT>(reinterpret_cast<int8_t*>(sVraw), vg + (long long)k0 * cv, cv, kv,
+                          v_cols);
     cp_async_commit();
   };
-  load(0);
-
-  // q: per (row, head) int8 in shared memory; each warp its 16 rows
-  for (int r = warp * 16; r < warp * 16 + 16 && Q8; ++r) {
-    // int8 q from the payload as it is, no re-rounding; scale from the table
-    if (lane * 16 < DQ)
-      *reinterpret_cast<uint4*>(sQ + r * (DQ + PADB) + lane * 16) =
-          *reinterpret_cast<const uint4*>(q8g + (long long)(m0 + r) * p.q_row + lane * 16);
-    if (lane == 0) sQs[r] = p.qs_tab[((long long)b * p.n + m0 + r) * p.heads + head];
-  }
-  for (int r = warp * 16; r < warp * 16 + 16 && !Q8; ++r) {
-    float f[8];
-    float amax = 0.f;
-    const bool mine = lane * 8 < DQ;
-    if (mine) {
-      const uint4 raw =
-          *reinterpret_cast<const uint4*>(qg + (long long)(m0 + r) * p.q_row + lane * 8);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 t = __bfloat1622float2(h[i]);
-        f[2 * i] = t.x;
-        f[2 * i + 1] = t.y;
-        amax = fmaxf(amax, fmaxf(fabsf(t.x), fabsf(t.y)));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffff, amax, o));
-    amax = fmaxf(amax, 1e-12f);
-    if (mine) {
-      const float inv = 127.f / amax;
-      char4 lo, hi;
-      lo.x = __float2int_rn(f[0] * inv); lo.y = __float2int_rn(f[1] * inv);
-      lo.z = __float2int_rn(f[2] * inv); lo.w = __float2int_rn(f[3] * inv);
-      hi.x = __float2int_rn(f[4] * inv); hi.y = __float2int_rn(f[5] * inv);
-      hi.z = __float2int_rn(f[6] * inv); hi.w = __float2int_rn(f[7] * inv);
-      char4* dst = reinterpret_cast<char4*>(sQ + r * (DQ + PADB) + lane * 8);
-      dst[0] = lo;
-      dst[1] = hi;
-    }
-    if (lane == 0) sQs[r] = amax * INV127;
-  }
+  if (QRES)  // q stays: its first group is the first step's
+    load_bytes<BM, QW>(sQ, q8g + (long long)m0 * p.q_row, p.q_row, n - m0, p.dq);
+  Step next = {0, 0, 0, 0};
+  load(next, 0);
+  for (int r = threadIdx.x; r < BM; r += THREADS)
+    sQs[r] = m0 + r < n ? p.qs_tab[((long long)b * n + m0 + r) * p.heads + head] : 0.f;
   if (MULTI)
     for (int i = threadIdx.x; i < BM * DVT; i += THREADS) sAcc[i] = 0.f;
   __syncthreads();
@@ -220,14 +236,17 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   float m_run[2] = {-1e30f, -1e30f}, l_run[2] = {0.f, 0.f};
   float m_new[2], rs[2], bmax[2], lsum[2], vsc = 0.f;
   int pv[DVT / 8][4];
+  int sc[BN / 8][4];
 
-  for (int s = 0; s < steps; ++s) {
-    const int blk = s / (2 * tiles);
-    const bool pass2 = is_pass2(s);
-    const bool first = s % tiles == 0;
+  for (int s = 0; next.blk < p.nk; ++s) {
+    const Step cur = next;
+    next = advance(cur);
+    const int blk = cur.blk, tile = cur.tile, slab = cur.slab;
+    const bool pass2 = cur.pass == 1;
+    const int kv = TAIL ? min(BN, p.bk - tile * BN) : BN;
     cp_async_wait_all();
     __syncthreads();
-    if (pass2) {
+    if (pass2 && slab == 0) {
       // transpose v (keys x DVT) into (DVT x keys): 4 x 4 byte blocks
       for (int w = threadIdx.x; w < (BN / 4) * (DVT / 4); w += THREADS) {
         const int kq4 = w % (BN / 4), c4 = w / (BN / 4);
@@ -246,9 +265,9 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
       }
     }
     __syncthreads();
-    if (s + 1 < steps) load(s + 1);
+    if (next.blk < p.nk) load(next, (s + 1) & 1);
 
-    if (first) {
+    if (tile == 0 && slab == 0) {
       const float kss = ksg[blk] * p.scale_log2;
       rs[0] = qs0 * kss;
       rs[1] = qs1 * kss;
@@ -261,32 +280,37 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
       }
     }
 
-    // S = qq . kq^T for this warp's 16 rows x 64 keys (int32)
-    int sc[BN / 8][4];
+    // S += qq . kq^T over this step's columns, this warp's 16 rows x 64 keys
+    if (slab == 0) {
 #pragma unroll
-    for (int i = 0; i < BN / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0;
+      for (int i = 0; i < BN / 8; ++i) sc[i][0] = sc[i][1] = sc[i][2] = sc[i][3] = 0;
+    }
+    const int8_t* sq = sQ + (QRES ? 0 : (s & 1) * BM * QROW);
     const int8_t* sk = sK + (s & 1) * S::K;
 #pragma unroll
-    for (int kk = 0; kk < DQ / 32; ++kk) {
+    for (int kk = 0; kk < QW / 32; ++kk) {
       uint32_t a[4];
-      ldsm_x4(a, sQ + (warp * 16 + (lane & 15)) * (DQ + PADB) + kk * 32 + (lane >> 4) * 16);
+      ldsm_x4(a, sq + (warp * 16 + (lane & 15)) * QROW + kk * 32 + (lane >> 4) * 16);
 #pragma unroll
       for (int nn = 0; nn < BN / 16; ++nn) {
         uint32_t bf[4];
-        ldsm_x4(bf, sk + (nn * 16 + ((lane >> 4) << 3) + (lane & 7)) * (DQ + PADB) + kk * 32 +
+        ldsm_x4(bf, sk + (nn * 16 + ((lane >> 4) << 3) + (lane & 7)) * QROW + kk * 32 +
                         ((lane >> 3) & 1) * 16);
         mma_s8(sc[2 * nn], a, bf[0], bf[1]);
         mma_s8(sc[2 * nn + 1], a, bf[2], bf[3]);
       }
     }
+    if (slab != slabs - 1) continue;
 
     if (!pass2) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          bmax[e >> 1] = fmaxf(bmax[e >> 1], __fmul_rn(static_cast<float>(sc[i][e]), rs[e >> 1]));
-      if (s % tiles == tiles - 1) {  // end of pass 1: the block's row max
+          if (!TAIL || i * 8 + 2 * t4 + (e & 1) < kv)  // keys past the block's end: none
+            bmax[e >> 1] =
+                fmaxf(bmax[e >> 1], __fmul_rn(static_cast<float>(sc[i][e]), rs[e >> 1]));
+      if (tile == tiles - 1) {  // end of pass 1: the block's row max
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           bmax[r] = fmaxf(bmax[r], __shfl_xor_sync(0xffffffff, bmax[r], 1));
@@ -307,7 +331,8 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float x = __fmul_rn(static_cast<float>(sc[i][e]), rs[e >> 1]);
-        pe[e] = exp2f(x - ((e >> 1) ? sub1 : sub0));
+        pe[e] = !TAIL || i * 8 + 2 * t4 + (e & 1) < kv ? exp2f(x - ((e >> 1) ? sub1 : sub0))
+                                                       : 0.f;
         lsum[e >> 1] += pe[e];
       }
       const int col = i * 8 + 2 * t4;
@@ -331,7 +356,7 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
       }
     }
 
-    if (s % tiles == tiles - 1) {  // end of the block: fold into l and acc
+    if (tile == tiles - 1) {  // end of the block: fold into l and acc
       vsc = vsg[blk];
       float corr[2];
 #pragma unroll
@@ -357,14 +382,15 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   }
 
   const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
+  const int row0 = m0 + r0, row1 = m0 + r1;
   // one block: acc = 0 * corr + float(pv) * vs, as the plain version forms it
   auto acc_at = [&](int i, int e) {
     return MULTI ? sAcc[((e >> 1) ? r1 : r0) * DVT + i * 8 + 2 * t4 + (e & 1)]
                  : __fmul_rn(static_cast<float>(pv[i][e]), vsc);
   };
-  if (O8) {
-    // o = acc / l per (row, head); amax over the head's dv columns, which
-    // the 4 threads of a quad hold between them; rint(o * (127 / amax))
+  if (OUT == OUT_I8) {
+    // o = acc / l per (row, head); amax over the head's dv == DVT columns,
+    // which the 4 threads of a quad hold between them; rint(o * (127 / amax))
     float amax[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < DVT / 8; ++i)
@@ -380,7 +406,7 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
       amax[r] = fmaxf(amax[r], 1e-30f);
       qmul[r] = 127.f / amax[r];
     }
-    int8_t* o8g = p.o8 + (long long)b * p.n * cv + head * p.dv;
+    int8_t* o8g = static_cast<int8_t*>(p.o) + (long long)b * n * cv + head * p.dv;
 #pragma unroll
     for (int i = 0; i < DVT / 8; ++i) {
       const int col = i * 8 + 2 * t4;
@@ -389,47 +415,166 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
       v0.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 1), inv0), qmul[0])));
       v1.x = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 2), inv1), qmul[1])));
       v1.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 3), inv1), qmul[1])));
-      *reinterpret_cast<char2*>(o8g + (long long)(m0 + r0) * cv + col) = v0;
-      *reinterpret_cast<char2*>(o8g + (long long)(m0 + r1) * cv + col) = v1;
+      if (row0 < n) *reinterpret_cast<char2*>(o8g + (long long)row0 * cv + col) = v0;
+      if (row1 < n) *reinterpret_cast<char2*>(o8g + (long long)row1 * cv + col) = v1;
     }
     if (t4 == 0) {
-      p.os[((long long)b * p.n + m0 + r0) * p.heads + head] = amax[0] * INV127;
-      p.os[((long long)b * p.n + m0 + r1) * p.heads + head] = amax[1] * INV127;
+      if (row0 < n) p.os[((long long)b * n + row0) * p.heads + head] = amax[0] * INV127;
+      if (row1 < n) p.os[((long long)b * n + row1) * p.heads + head] = amax[1] * INV127;
     }
     return;
   }
+  const long long obase = (long long)b * n * cv + head * p.dv + split * DVT;
+  // guarded: rows past N or columns past dv in this block; an unguarded
+  // copy of the loop for whole tiles keeps the stores free of branches
+  auto store_values = [&](auto guarded_type) {
+    constexpr bool guarded = decltype(guarded_type)::value;
 #pragma unroll
-  for (int i = 0; i < DVT / 8; ++i) {
-    const int col = i * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(og + (long long)(m0 + r0) * cv + col) =
-        __floats2bfloat162_rn(acc_at(i, 0) * inv0, acc_at(i, 1) * inv0);
-    *reinterpret_cast<__nv_bfloat162*>(og + (long long)(m0 + r1) * cv + col) =
-        __floats2bfloat162_rn(acc_at(i, 2) * inv1, acc_at(i, 3) * inv1);
+    for (int i = 0; i < DVT / 8; ++i) {
+      const int col = i * 8 + 2 * t4;
+      if (guarded && col >= v_cols) continue;
+      // _rn: the quotient the row pass of the wide int8 outputs quantizes
+      const float o00 = __fmul_rn(acc_at(i, 0), inv0), o01 = __fmul_rn(acc_at(i, 1), inv0);
+      const float o10 = __fmul_rn(acc_at(i, 2), inv1), o11 = __fmul_rn(acc_at(i, 3), inv1);
+      if (OUT == OUT_F32) {
+        float* of = static_cast<float*>(p.o) + obase + col;
+        if (!guarded || row0 < n)
+          *reinterpret_cast<float2*>(of + (long long)row0 * cv) = make_float2(o00, o01);
+        if (!guarded || row1 < n)
+          *reinterpret_cast<float2*>(of + (long long)row1 * cv) = make_float2(o10, o11);
+      } else {
+        __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + obase + col;
+        if (!guarded || row0 < n)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row0 * cv) =
+              __floats2bfloat162_rn(o00, o01);
+        if (!guarded || row1 < n)
+          *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row1 * cv) =
+              __floats2bfloat162_rn(o10, o11);
+      }
+    }
+  };
+  if (n % BM == 0 && v_cols >= DVT) {
+    store_values(std::false_type{});
+  } else {
+    store_values(std::true_type{});
   }
 }
 
-template <int DQ, bool MULTI, bool Q8, bool O8>
+// 16 bytes of q as floats: 8 bf16 or 4 fp32
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[4]) {
+  f[0] = __uint_as_float(raw.x);
+  f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z);
+  f[3] = __uint_as_float(raw.w);
+}
+
+// q (bf16 or fp32, row stride q_row, head h at column h * dq) -> int8
+// (B * N, heads * dq) and f32 scales (B * N, heads): one warp per (row,
+// head), 16-byte loads (dq and q_row multiples of 16 bytes' worth of T).
+template <typename T>
+__global__ void __launch_bounds__(256) quant_q_kernel(const T* __restrict__ q, int q_row,
+                                                      int rows, int heads, int dq,
+                                                      int8_t* __restrict__ qq,
+                                                      float* __restrict__ qs) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (item >= (long long)rows * heads) return;
+  const long long row = item / heads;
+  const int head = static_cast<int>(item % heads);
+  const uint4* src = reinterpret_cast<const uint4*>(q + row * q_row + head * dq);
+  const int nv = dq / VEC;
+  float amax = 0.f;
+  for (int c = lane; c < nv; c += 32) {
+    float f[VEC];
+    unpack16(src[c], f);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(f[i]));
+  }
+  amax = fmaxf(warp_max(amax), 1e-12f);
+  const float inv = 127.f / amax;
+  int8_t* dst = qq + row * heads * dq + head * dq;
+  for (int c = lane; c < nv; c += 32) {
+    float f[VEC];
+    unpack16(src[c], f);
+    __align__(8) int8_t o[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) o[i] = static_cast<int8_t>(__float2int_rn(f[i] * inv));
+    if (VEC == 8) {
+      *reinterpret_cast<uint2*>(dst + c * VEC) = *reinterpret_cast<const uint2*>(o);
+    } else {
+      *reinterpret_cast<uint32_t*>(dst + c * VEC) = *reinterpret_cast<const uint32_t*>(o);
+    }
+  }
+  if (lane == 0) qs[item] = amax * INV127;
+}
+
+// o fp32 (rows, heads * dv) -> int8 and f32 scales (rows, heads): per
+// (row, head), amax over the head's dv columns floored at 1e-30,
+// rint(o * (127 / amax)), amax / 127. One warp per (row, head).
+__global__ void __launch_bounds__(256) quant_heads_kernel(const float* __restrict__ o, int rows,
+                                                          int heads, int dv,
+                                                          int8_t* __restrict__ o8,
+                                                          float* __restrict__ os) {
+  const int lane = threadIdx.x & 31;
+  const long long item = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (item >= (long long)rows * heads) return;
+  const float* src = o + item * dv;  // (row, head) rows are contiguous
+  float amax = 0.f;
+  for (int c = lane; c < dv; c += 32) amax = fmaxf(amax, fabsf(src[c]));
+  amax = fmaxf(warp_max(amax), 1e-30f);
+  const float qmul = 127.f / amax;
+  int8_t* dst = o8 + item * dv;
+  for (int c = lane; c < dv; c += 32)
+    dst[c] = static_cast<int8_t>(__float2int_rn(__fmul_rn(src[c], qmul)));
+  if (lane == 0) os[item] = amax * INV127;
+}
+
+template <int QW, bool QRES, bool MULTI, bool TAIL, int OUT>
 cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
-  constexpr int smem = Smem<DQ, MULTI>::TOTAL;
-  cudaError_t err = cudaFuncSetAttribute(flash_int8_kernel<DQ, MULTI, Q8, O8>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = Smem<QW, QRES, MULTI>::TOTAL;
+  auto kernel = flash_int8_kernel<QW, QRES, MULTI, TAIL, OUT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(p.n / BM, p.heads * p.dv_splits, batch);
-  flash_int8_kernel<DQ, MULTI, Q8, O8><<<grid, THREADS, smem, stream>>>(p);
+  dim3 grid((p.n + BM - 1) / BM, p.heads * p.dv_splits, batch);
+  kernel<<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int DQ, bool Q8, bool O8>
+template <int QW, bool QRES, int OUT>
 cudaError_t launch_blocks(const Params& p, int batch, cudaStream_t stream) {
-  return p.nk == 1 ? launch<DQ, false, Q8, O8>(p, batch, stream)
-                   : launch<DQ, true, Q8, O8>(p, batch, stream);
+  const bool tail = p.bk % BN != 0;
+  if (p.nk > 1)
+    return tail ? launch<QW, QRES, true, true, OUT>(p, batch, stream)
+                : launch<QW, QRES, true, false, OUT>(p, batch, stream);
+  return tail ? launch<QW, QRES, false, true, OUT>(p, batch, stream)
+              : launch<QW, QRES, false, false, OUT>(p, batch, stream);
 }
 
-// The shape checks shared by the entry points; the int8-out forms need a
-// head's whole dv in one block (dv == DVT), the variants q/k width 256.
-bool shapes_ok(int n, int dq, int dv, int bk, int nk, bool variant, bool int8_out) {
-  if (n % BM || bk % BN || bk * nk != n || dv % DVT) return false;
-  if (variant && dq != 256) return false;
+template <int OUT>
+cudaError_t launch_width(const Params& p, int batch, cudaStream_t stream) {
+  if (p.dq <= 64) return launch_blocks<64, true, OUT>(p, batch, stream);
+  if (p.dq == 256) return launch_blocks<256, true, OUT>(p, batch, stream);
+  return launch_blocks<SLAB, false, OUT>(p, batch, stream);
+}
+
+// The shape rules shared by the entry points (JAX pick_blocks tiles these):
+// N and bk multiples of 32, bk * nk == N, dq % 32, dv % 128; q rows 16-byte
+// aligned. An in-kernel int8 output needs the head's whole dv in one block.
+bool shapes_ok(int n, int dq, int dv, int q_row, int bk, int nk, bool int8_out) {
+  if (n <= 0 || n % 32 || bk % 32 || bk * nk != n || dq <= 0 || dq % 32 || dv <= 0 ||
+      dv % 128 || q_row % 16)
+    return false;
   return !int8_out || dv == DVT;
 }
 
@@ -437,70 +582,112 @@ Params make_params(int n, int heads, int dq, int dv, int q_row, int bk, int nk,
                    float scale_log2) {
   Params p = {};
   p.n = n; p.heads = heads; p.dq = dq; p.dv = dv; p.q_row = q_row; p.bk = bk; p.nk = nk;
-  p.dv_splits = dv / DVT;
+  p.dv_splits = (dv + DVT - 1) / DVT;
   p.scale_log2 = scale_log2;
   return p;
+}
+
+cudaError_t run(const Params& p, int batch, int out, cudaStream_t stream) {
+  switch (out) {
+    case OUT_BF16: return launch_width<OUT_BF16>(p, batch, stream);
+    case OUT_F32: return launch_width<OUT_F32>(p, batch, stream);
+    case OUT_I8: return launch_width<OUT_I8>(p, batch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t quant_q(const void* q, int q_f32, int q_row, int rows, int heads, int dq, void* qq,
+                    void* qs, cudaStream_t stream) {
+  if (q_row % (q_f32 ? 4 : 8) || dq % 32) return cudaErrorInvalidValue;  // 16-byte loads
+  const long long items = (long long)rows * heads;
+  const unsigned blocks = static_cast<unsigned>((items + 7) / 8);
+  if (q_f32)
+    quant_q_kernel<float><<<blocks, 256, 0, stream>>>(static_cast<const float*>(q), q_row, rows,
+                                                      heads, dq, static_cast<int8_t*>(qq),
+                                                      static_cast<float*>(qs));
+  else
+    quant_q_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(q), q_row, rows, heads, dq, static_cast<int8_t*>(qq),
+        static_cast<float*>(qs));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// q bf16 (B, N, *) with row stride q_row, head h at column h * dq; kq
-// (B, N, heads * dq), vq (B, N, heads * dv) int8; ks, vs (B, heads, nk) f32;
-// out (B, N, heads * dv) bf16; scale_log2 = scale * log2(e), rounded to f32
-// from double as JAX rounds its weakly typed constant. n % 64 == 0,
-// bk % 64 == 0, n == bk * nk, dq in {64, 256}, dv % 256 == 0. Returns the
-// cudaError_t of the launch.
-int flash_mha_int8(const void* q, const void* kq, const void* ks, const void* vq,
-                   const void* vs, void* out, int batch, int n, int heads, int dq, int dv,
-                   int q_row, int bk, int nk, float scale_log2, void* stream) {
-  if (!shapes_ok(n, dq, dv, bk, nk, false, false)) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
-  p.q = static_cast<const __nv_bfloat16*>(q);
+// q bf16 (q_f32 = 0) or fp32 (B, N, *) with row stride q_row, head h at
+// column h * dq; kq (B, N, heads * dq), vq (B, N, heads * dv) int8; ks, vs
+// (B, heads, nk) f32; q8 (B, N, heads * dq) int8 and q_scales (B, N, heads)
+// f32 a workspace; out (B, N, heads * dv) in q's type. scale_log2 = scale *
+// log2(e), rounded to f32 from double as JAX rounds its weakly typed
+// constant. Returns the cudaError_t of the launches.
+int flash_mha_int8(const void* q, int q_f32, const void* kq, const void* ks, const void* vq,
+                   const void* vs, void* q8, void* q_scales, void* out, int batch, int n,
+                   int heads, int dq, int dv, int q_row, int bk, int nk, float scale_log2,
+                   void* stream) {
+  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = quant_q(q, q_f32, q_row, batch * n, heads, dq, q8, q_scales, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p = make_params(n, heads, dq, dv, heads * dq, bk, nk, scale_log2);
+  p.q8 = static_cast<const int8_t*>(q8);
+  p.qs_tab = static_cast<const float*>(q_scales);
   p.kq = static_cast<const int8_t*>(kq);
   p.vq = static_cast<const int8_t*>(vq);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
-  p.o = static_cast<__nv_bfloat16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dq) {
-    case 64: return static_cast<int>(launch_blocks<64, false, false>(p, batch, st));
-    case 256: return static_cast<int>(launch_blocks<256, false, false>(p, batch, st));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  p.o = out;
+  return static_cast<int>(run(p, batch, q_f32 ? OUT_F32 : OUT_BF16, st));
 }
 
 // Replaces _mha_flash_int8_qout_kernel: flash_mha_int8's arguments, the
 // output int8 (B, N, heads * dv) with f32 scales (B, N, heads) per (row,
-// head). dq == 256, dv == 256.
-int flash_mha_int8_qout(const void* q, const void* kq, const void* ks, const void* vq,
-                        const void* vs, void* out, void* out_scales, int batch, int n,
-                        int heads, int dq, int dv, int q_row, int bk, int nk, float scale_log2,
-                        void* stream) {
-  if (!shapes_ok(n, dq, dv, bk, nk, true, true)) return static_cast<int>(cudaErrorInvalidValue);
-  Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
-  p.q = static_cast<const __nv_bfloat16*>(q);
+// head). dv == 256 quantizes in the kernel; other widths write o in fp32
+// to `work` (B, N, heads * dv) and quantize it in a row pass.
+int flash_mha_int8_qout(const void* q, int q_f32, const void* kq, const void* ks,
+                        const void* vq, const void* vs, void* q8, void* q_scales, void* out,
+                        void* out_scales, void* work, int batch, int n, int heads, int dq,
+                        int dv, int q_row, int bk, int nk, float scale_log2, void* stream) {
+  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk, false) || (dv != DVT && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = quant_q(q, q_f32, q_row, batch * n, heads, dq, q8, q_scales, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Params p = make_params(n, heads, dq, dv, heads * dq, bk, nk, scale_log2);
+  p.q8 = static_cast<const int8_t*>(q8);
+  p.qs_tab = static_cast<const float*>(q_scales);
   p.kq = static_cast<const int8_t*>(kq);
   p.vq = static_cast<const int8_t*>(vq);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
-  p.o8 = static_cast<int8_t*>(out);
-  p.os = static_cast<float*>(out_scales);
-  return static_cast<int>(launch_blocks<256, false, true>(p, batch,
-                                                          static_cast<cudaStream_t>(stream)));
+  if (dv == DVT) {
+    p.o = out;
+    p.os = static_cast<float*>(out_scales);
+    return static_cast<int>(run(p, batch, OUT_I8, st));
+  }
+  p.o = work;
+  err = run(p, batch, OUT_F32, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = (long long)batch * n * heads;
+  quant_heads_kernel<<<static_cast<unsigned>((items + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(work), batch * n, heads, dv, static_cast<int8_t*>(out),
+      static_cast<float*>(out_scales));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Replaces _mha_flash_int8_handoff_kernel: q int8, the leading heads * dq
 // columns of the qkv payload (B, N, q_row), with f32 scales qs (B, N, heads);
-// kq, vq requantized per key block with scales (B, heads, nk). quant_out:
-// int8 out with f32 out_scales (B, N, heads) (dv == 256), else bf16 out and
-// out_scales unused. dq == 256.
+// kq, vq requantized per key block with scales (B, heads, nk). out_mode 2:
+// int8 out with f32 out_scales (B, N, heads) (dv != 256 through `work`, as
+// flash_mha_int8_qout); 0: bf16 out; 1: fp32 out.
 int flash_int8_handoff(const void* payload, const void* qs, const void* kq, const void* ks,
-                       const void* vq, const void* vs, void* out, void* out_scales, int batch,
-                       int n, int heads, int dq, int dv, int q_row, int bk, int nk,
-                       float scale_log2, int quant_out, void* stream) {
-  if (!shapes_ok(n, dq, dv, bk, nk, true, quant_out != 0) || q_row % 16)
+                       const void* vq, const void* vs, void* out, void* out_scales, void* work,
+                       int batch, int n, int heads, int dq, int dv, int q_row, int bk, int nk,
+                       float scale_log2, int out_mode, void* stream) {
+  if (!shapes_ok(n, dq, dv, q_row, bk, nk, false) || out_mode < 0 || out_mode > 2 ||
+      (out_mode == OUT_I8 && dv != DVT && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
   p.q8 = static_cast<const int8_t*>(payload);
@@ -510,13 +697,19 @@ int flash_int8_handoff(const void* payload, const void* qs, const void* kq, cons
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (quant_out) {
-    p.o8 = static_cast<int8_t*>(out);
+  if (out_mode != OUT_I8 || dv == DVT) {
+    p.o = out;
     p.os = static_cast<float*>(out_scales);
-    return static_cast<int>(launch_blocks<256, true, true>(p, batch, st));
+    return static_cast<int>(run(p, batch, out_mode, st));
   }
-  p.o = static_cast<__nv_bfloat16*>(out);
-  return static_cast<int>(launch_blocks<256, true, false>(p, batch, st));
+  p.o = work;
+  cudaError_t err = run(p, batch, OUT_F32, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long items = (long long)batch * n * heads;
+  quant_heads_kernel<<<static_cast<unsigned>((items + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(work), batch * n, heads, dv, static_cast<int8_t*>(out),
+      static_cast<float*>(out_scales));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -82,4 +82,21 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// rows x COLS bf16 tile from global into shared memory (row stride
+// COLS + PAD), reading only columns [0, cols_valid) of rows [0, rows_valid);
+// the rest is zero-filled. cols_valid is a multiple of 8.
+template <int ROWS, int COLS>
+__device__ __forceinline__ void load_tile_cols(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                               int stride, int rows_valid, int cols_valid) {
+  constexpr int CHUNKS = COLS / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < ROWS * CHUNKS; i += THREADS) {
+    const int r = i / CHUNKS;
+    const int c = (i % CHUNKS) * 8;
+    const bool valid = r < rows_valid && c < cols_valid;
+    cp_async16(dst + r * (COLS + PAD) + c, src + (valid ? (long long)r * stride + c : 0),
+               valid);
+  }
+}
+
 }  // namespace flash

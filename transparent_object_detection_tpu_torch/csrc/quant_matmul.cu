@@ -4,24 +4,30 @@
 //   * quant_rows replaces the TPU kernel
 //     transparent_object_detection_tpu/ops/quant_matmul.py::_quant_rows_kernel
 //     in both its launches: qmax 127 (via _pquant_call) and qmax 7, the
-//     int4-range activations of the w4a4 mlp1 (via _w4a4_call). bf16 (M, K)
-//     -> int8 (M, K) + f32 (M, 1), optionally LayerNorm-normalized first
-//     (d = x - mean, var = max(E[x^2] - mean^2, 0), rsqrt folded into the
-//     scale). One warp per row.
+//     int4-range activations of the w4a4 mlp1 (via _w4a4_call). bf16 or
+//     fp32 (M, K) -> int8 (M, K) + f32 (M, 1), optionally
+//     LayerNorm-normalized first (d = x - mean, var = max(E[x^2] - mean^2,
+//     0), rsqrt folded into the scale). One warp per row; bf16 rows whose K
+//     is a multiple of 8 in 16-byte loads, any other row (K = 849, fp32)
+//     element by element.
 //   * qmm replaces ops/quant_matmul.py::_qmm_kernel (via _qmm_call): int8 x
 //     with G >= 1 scale groups per row (G > 1: the JAX prologue, each group
 //     requantized onto the row's largest scale, round(x * s_g / s_max)), int8
 //     weights (N, K) with per-column scales, int32 accumulation over all of K,
 //     then out = acc * row_scale * w_scale (+ bias) (gelu tanh | silu)
-//     (+ bf16 residual, in fp32), stored as bf16 or, for the quantized outputs,
-//     as fp32 into a workspace.
+//     (+ bf16 or fp32 residual, in fp32), stored as bf16 or fp32 (the fp32
+//     models' output, and the quantized outputs' workspace). Any M and N:
+//     rows and columns past the edge are zero-filled and not stored; K is a
+//     multiple of 16 (16-byte rows; the wrapper zero-pads other K in a copy,
+//     which leaves every dot product unchanged), its last slab masked.
 //   * qmm_rows_out is the quantized outputs' row pass over that workspace:
 //     quant_out (int8 + one scale per (row, group of `group` columns)) or
 //     ln_out (bf16 value + LN-normalized int8 + per-row scale). Their
-//     statistics span up to 8,192 columns of a row, wider than one GEMM
-//     block's tile, and must come from the fp32 value: the GEMM writes fp32
-//     (M, N) and one block per row reduces and quantizes it. At batch 32 the
-//     largest workspace is h2's mlp1, 204,800 x 6,144 fp32 = 5.0 GB.
+//     statistics span a whole row or group, wider than one GEMM block's tile,
+//     and must come from the fp32 value: the GEMM writes fp32 (M, N) and one
+//     block per row reduces and quantizes it (the row in registers up to
+//     8,192 columns, else read again from the workspace). At batch 32 the
+//     largest phi='s' workspace is h2's mlp1, 204,800 x 6,144 fp32 = 5.0 GB.
 // Rounding is half to even (rintf), as jnp.round; activations, outputs and q
 // are quantized by a reciprocal multiply d * (qmax / amax), as in JAX.
 //
@@ -156,6 +162,40 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* __
   if (lane == 0) xs[row] = amax * inv_qmax * rstd;
 }
 
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// quant_rows on any row: element by element, bf16 or fp32.
+template <typename T>
+__global__ void __launch_bounds__(256) quant_rows_any_kernel(const T* __restrict__ x,
+                                                             int8_t* __restrict__ xq,
+                                                             float* __restrict__ xs, int m,
+                                                             int k, int ln, float eps,
+                                                             float qmax, float inv_qmax) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const T* xr = x + (long long)row * k;
+  float mu = 0.f, rstd = 1.f, amax = 0.f;
+  if (ln) {
+    float s = 0.f, s2 = 0.f;
+    for (int c = lane; c < k; c += 32) {
+      const float f = to_f32(xr[c]);
+      s += f;
+      s2 += f * f;
+    }
+    mu = warp_sum(s) / k;
+    const float m2 = warp_sum(s2) / k;
+    rstd = rsqrtf(fmaxf(m2 - __fmul_rn(mu, mu), 0.f) + eps);
+  }
+  for (int c = lane; c < k; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c]) - mu));
+  amax = fmaxf(warp_max(amax), 1e-12f);
+  const float inv = qmax / amax;
+  int8_t* dst = xq + (long long)row * k;
+  for (int c = lane; c < k; c += 32) dst[c] = q8((to_f32(xr[c]) - mu) * inv);
+  if (lane == 0) xs[row] = amax * inv_qmax * rstd;
+}
+
 // ---------------------------------------------------------------------------
 // qmm: 128 x 128 tile per block, int32 accumulation over all of K.
 // ---------------------------------------------------------------------------
@@ -165,11 +205,15 @@ struct QmmParams {
   const int8_t* wq;     // (N, K)
   const float* ws;      // (N,)
   const float* bias;    // (N,) or null
-  const __nv_bfloat16* residual;  // (M, N) or null
+  const void* residual; // (M, N) bf16, or fp32 when res_f32; or null
   void* out;            // (M, N) bf16, or fp32 when out_f32
-  int m, n, k, groups, act, out_f32;
+  int m, n, k, groups, act, out_f32, res_f32;
 };
 
+// EDGE: N or K is not a multiple of the tile (N % 128, K % 64): columns past
+// N and bytes past K are zero-filled and not stored. Without it, the kernel
+// is the aligned one (only rows past M are masked).
+template <bool EDGE>
 __device__ __forceinline__ void load_stage(unsigned char* st, const QmmParams& p, int m0,
                                            int n0, int kt) {
   // A: 128 rows x 64 bytes = 512 chunks of 16 bytes; B the same: 2 + 2 a thread
@@ -177,14 +221,24 @@ __device__ __forceinline__ void load_stage(unsigned char* st, const QmmParams& p
   for (int i = 0; i < 2; ++i) {
     const int c = threadIdx.x + i * THREADS;
     const int r = c >> 2, col = (c & 3) * 16;
-    const bool valid = m0 + r < p.m;
-    cp_async16(st + r * LDS + col,
-               p.xq + (valid ? (long long)(m0 + r) * p.k : 0) + kt * BK + col, valid);
-    cp_async16(st + (BM + r) * LDS + col, p.wq + (long long)(n0 + r) * p.k + kt * BK + col,
-               true);
+    if (EDGE) {
+      const int kc = kt * BK + col;
+      const bool a_ok = m0 + r < p.m && kc < p.k;
+      const bool b_ok = n0 + r < p.n && kc < p.k;
+      cp_async16(st + r * LDS + col, p.xq + (a_ok ? (long long)(m0 + r) * p.k + kc : 0), a_ok);
+      cp_async16(st + (BM + r) * LDS + col,
+                 p.wq + (b_ok ? (long long)(n0 + r) * p.k + kc : 0), b_ok);
+    } else {
+      const bool valid = m0 + r < p.m;
+      cp_async16(st + r * LDS + col,
+                 p.xq + (valid ? (long long)(m0 + r) * p.k : 0) + kt * BK + col, valid);
+      cp_async16(st + (BM + r) * LDS + col, p.wq + (long long)(n0 + r) * p.k + kt * BK + col,
+                 true);
+    }
   }
 }
 
+template <bool EDGE>
 __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_row = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);  // BM row scales
@@ -192,7 +246,7 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int ktiles = p.k / BK;
+  const int ktiles = (p.k + BK - 1) / BK;
   const int gwidth = p.k / p.groups;
 
   // row scale: the row's scale (G = 1) or its largest group scale (G > 1)
@@ -215,7 +269,7 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(smem + s * STAGE_BYTES, p, m0, n0, s);
+    if (s < ktiles) load_stage<EDGE>(smem + s * STAGE_BYTES, p, m0, n0, s);
     cp_async_commit();
   }
 
@@ -229,17 +283,19 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     if (kt + STAGES - 1 < ktiles)
-      load_stage(smem + ((kt + STAGES - 1) % STAGES) * STAGE_BYTES, p, m0, n0, kt + STAGES - 1);
+      load_stage<EDGE>(smem + ((kt + STAGES - 1) % STAGES) * STAGE_BYTES, p, m0, n0,
+                       kt + STAGES - 1);
     cp_async_commit();
     unsigned char* st = smem + (kt % STAGES) * STAGE_BYTES;
 
     if (p.groups > 1) {
-      // requantize this slab's group onto the row's largest scale, in place
-      const int g = (kt * BK) / gwidth;
+      // requantize this slab's groups onto the row's largest scale, in place
+      // (group widths are multiples of 4; bytes past K are 0 and stay 0)
 #pragma unroll
       for (int i = 0; i < (BM * BK / 4) / THREADS; ++i) {
         const int w = threadIdx.x + i * THREADS;
         const int r = w / (BK / 4), c = (w % (BK / 4)) * 4;
+        const int g = min((kt * BK + c) / gwidth, p.groups - 1);
         if (m0 + r < p.m) {
           const float ratio = s_ratio[r * p.groups + g];
           char4 v = *reinterpret_cast<char4*>(st + r * LDS + c);
@@ -288,9 +344,12 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
 #pragma unroll
       for (int j = 0; j < WN / 8; ++j) {
         const int col = n0 + wn * WN + j * 8 + 2 * (lane & 3);
-        float v[2];
+        if (EDGE && col >= p.n) continue;
+        const int width = !EDGE || col + 1 < p.n ? 2 : 1;  // columns of the pair inside N
+        float v[2] = {0.f, 0.f};
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
+          if (e >= width) break;
           // _rn intrinsics: no FMA contraction, the plain version's roundings
           float o = __fmul_rn(__fmul_rn(static_cast<float>(acc[i][j][2 * h + e]), rs),
                               p.ws[col + e]);
@@ -303,17 +362,39 @@ __global__ void __launch_bounds__(THREADS) qmm_kernel(const QmmParams p) {
           v[e] = o;
         }
         const long long idx = (long long)row * p.n + col;
-        if (p.residual) {
-          const float2 r = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(p.residual + idx));
+        // an even N keeps every pair aligned for one vector access
+        const bool vec = width == 2 && (p.n & 1) == 0;
+        if (p.residual && vec) {
+          const float2 r =
+              p.res_f32 ? *reinterpret_cast<const float2*>(static_cast<const float*>(p.residual) +
+                                                            idx)
+                        : __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                              static_cast<const __nv_bfloat16*>(p.residual) + idx));
           v[0] = __fadd_rn(v[0], r.x);
           v[1] = __fadd_rn(v[1], r.y);
+        } else if (p.residual) {
+          for (int e = 0; e < width; ++e) {
+            const float r = p.res_f32
+                                ? static_cast<const float*>(p.residual)[idx + e]
+                                : __bfloat162float(
+                                      static_cast<const __nv_bfloat16*>(p.residual)[idx + e]);
+            v[e] = __fadd_rn(v[e], r);
+          }
         }
         if (p.out_f32) {
-          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + idx) = make_float2(v[0], v[1]);
+          float* o = static_cast<float*>(p.out) + idx;
+          if (vec) {
+            *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+          } else {
+            for (int e = 0; e < width; ++e) o[e] = v[e];
+          }
         } else {
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) + idx) =
-              __floats2bfloat162_rn(v[0], v[1]);
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.out) + idx;
+          if (vec) {
+            *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+          } else {
+            for (int e = 0; e < width; ++e) o[e] = __float2bfloat16_rn(v[e]);
+          }
         }
       }
     }
@@ -391,8 +472,10 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_out_kernel(
       if (c < nch) {
         dst[c] = make_char4(q8((v[i].x - mu) * inv), q8((v[i].y - mu) * inv),
                             q8((v[i].z - mu) * inv), q8((v[i].w - mu) * inv));
-        vo[2 * c] = __floats2bfloat162_rn(v[i].x, v[i].y);
-        vo[2 * c + 1] = __floats2bfloat162_rn(v[i].z, v[i].w);
+        if (value) {
+          vo[2 * c] = __floats2bfloat162_rn(v[i].x, v[i].y);
+          vo[2 * c + 1] = __floats2bfloat162_rn(v[i].z, v[i].w);
+        }
       }
     }
     if (threadIdx.x == 0) scales[row] = amax * INV127 * rstd;
@@ -425,30 +508,83 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_out_kernel(
     scales[row * groups + g] = fmaxf(__int_as_float(gmax[g]), 1e-30f) * INV127;
 }
 
+// The row pass on any row: the row read again from the workspace for each
+// statistic, groups one after another.
+__global__ void __launch_bounds__(ROW_THREADS) rows_out_any_kernel(
+    const float* __restrict__ val, int8_t* __restrict__ payload, float* __restrict__ scales,
+    __nv_bfloat16* __restrict__ value, int n, int group, int ln, float eps) {
+  __shared__ float red[ROW_THREADS / 32];
+  const long long row = blockIdx.x;
+  const float* src = val + row * n;
+  int8_t* dst = payload + row * n;
+  if (ln) {
+    float s = 0.f, s2 = 0.f;
+    for (int c = threadIdx.x; c < n; c += ROW_THREADS) {
+      s += src[c];
+      s2 += src[c] * src[c];
+    }
+    const float mu = block_sum(s, red) / n;
+    const float m2 = block_sum(s2, red) / n;
+    const float rstd = rsqrtf(fmaxf(m2 - __fmul_rn(mu, mu), 0.f) + eps);
+    float a = 0.f;
+    for (int c = threadIdx.x; c < n; c += ROW_THREADS) a = fmaxf(a, fabsf(src[c] - mu));
+    const float amax = fmaxf(block_max(a, red), 1e-12f);
+    const float inv = 127.f / amax;
+    for (int c = threadIdx.x; c < n; c += ROW_THREADS) {
+      dst[c] = q8((src[c] - mu) * inv);
+      if (value) value[row * n + c] = __float2bfloat16_rn(src[c]);
+    }
+    if (threadIdx.x == 0) scales[row] = amax * INV127 * rstd;
+    return;
+  }
+  const int groups = n / group;
+  for (int g = 0; g < groups; ++g) {
+    float a = 0.f;
+    for (int c = g * group + threadIdx.x; c < (g + 1) * group; c += ROW_THREADS)
+      a = fmaxf(a, fabsf(src[c]));
+    const float amax = fmaxf(block_max(a, red), 1e-30f);
+    const float inv = 127.f / amax;
+    for (int c = g * group + threadIdx.x; c < (g + 1) * group; c += ROW_THREADS)
+      dst[c] = q8(src[c] * inv);
+    if (threadIdx.x == 0) scales[row * groups + g] = amax * INV127;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// bf16 (m, k) -> int8 (m, k) on [-qmax, qmax], f32 (m, 1). k % 8 == 0; qmax
-// 127 (int8) or 7 (the int4 range of w4a4), inv_qmax = 1 / qmax rounded to
-// f32 from double, as JAX rounds its weakly typed constant.
+// bf16 (x_f32 = 0) or fp32 (m, k) -> int8 (m, k) on [-qmax, qmax], f32
+// (m, 1). qmax 127 (int8) or 7 (the int4 range of w4a4), inv_qmax = 1 /
+// qmax rounded to f32 from double, as JAX rounds its weakly typed constant.
 int quant_rows(const void* x, void* xq, void* xs, int m, int k, int ln, float eps, float qmax,
-               float inv_qmax, void* stream) {
-  if (k % 8 != 0 || !(qmax == 127.f || qmax == 7.f))
-    return static_cast<int>(cudaErrorInvalidValue);
-  quant_rows_kernel<<<(m + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(xq), static_cast<float*>(xs),
-      m, k, ln, eps, qmax, inv_qmax);
+               float inv_qmax, int x_f32, void* stream) {
+  if (k <= 0 || !(qmax == 127.f || qmax == 7.f)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int8_t* q = static_cast<int8_t*>(xq);
+  float* s = static_cast<float*>(xs);
+  if (x_f32) {
+    quant_rows_any_kernel<float><<<(m + 7) / 8, 256, 0, st>>>(
+        static_cast<const float*>(x), q, s, m, k, ln, eps, qmax, inv_qmax);
+  } else if (k % 8 == 0) {
+    quant_rows_kernel<<<(m + 7) / 8, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x), q, s,
+                                                   m, k, ln, eps, qmax, inv_qmax);
+  } else {
+    quant_rows_any_kernel<__nv_bfloat16><<<(m + 7) / 8, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), q, s, m, k, ln, eps, qmax, inv_qmax);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// int8 GEMM with the dequant epilogue. n % 128 == 0, k % 64 == 0, (k / groups)
-// % 64 == 0; act 0 none, 1 gelu (tanh), 2 silu; out_f32 selects the fp32
-// workspace output of the quantized modes.
+// int8 GEMM with the dequant epilogue. Any m, n; k % 16 == 0; groups == 1
+// or k % groups == 0 with (k / groups) % 4 == 0; act 0 none, 1 gelu (tanh),
+// 2 silu; out_f32 selects the fp32 output (the fp32 models', and the
+// quantized modes' workspace); res_f32 an fp32 residual.
 int qmm(const void* xq, const void* xs, const void* wq, const void* ws, const void* bias,
         const void* residual, void* out, int m, int n, int k, int groups, int act, int out_f32,
-        void* stream) {
-  if (n % BN || k % BK || groups < 1 || k % groups || (k / groups) % BK)
+        int res_f32, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 16 || groups < 1 ||
+      (groups > 1 && (k % groups || (k / groups) % 4)))
     return static_cast<int>(cudaErrorInvalidValue);
   QmmParams p;
   p.xq = static_cast<const int8_t*>(xq);
@@ -456,29 +592,37 @@ int qmm(const void* xq, const void* xs, const void* wq, const void* ws, const vo
   p.wq = static_cast<const int8_t*>(wq);
   p.ws = static_cast<const float*>(ws);
   p.bias = static_cast<const float*>(bias);
-  p.residual = static_cast<const __nv_bfloat16*>(residual);
+  p.residual = residual;
   p.out = out;
   p.m = m; p.n = n; p.k = k; p.groups = groups; p.act = act; p.out_f32 = out_f32;
+  p.res_f32 = res_f32;
   const int smem = STAGES * STAGE_BYTES + BM * 4 * (1 + (groups > 1 ? groups : 0));
+  auto kernel = (n % BN || k % BK) ? qmm_kernel<true> : qmm_kernel<false>;
   cudaError_t err =
-      cudaFuncSetAttribute(qmm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n / BN, (m + BM - 1) / BM);
-  qmm_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Row pass over the fp32 (m, n) GEMM output: ln = 0, quant_out (int8 payload,
-// scales (m, n / group)); ln = 1, ln_out (bf16 value, LN-normalized payload,
-// scales (m, 1)).
+// scales (m, n / group)); ln = 1, ln_out (bf16 value, or none when value is
+// null, LN-normalized payload, scales (m, 1)).
 int qmm_rows_out(const void* val, void* payload, void* scales, void* value, int m, int n,
                  int group, int ln, float eps, void* stream) {
-  if (n % 4 || n > ROW_CHUNKS * 4 * ROW_THREADS || group % 4 || n % group ||
-      n / group > MAX_GROUPS)
-    return static_cast<int>(cudaErrorInvalidValue);
-  rows_out_kernel<<<m, ROW_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(val), static_cast<int8_t*>(payload),
-      static_cast<float*>(scales), static_cast<__nv_bfloat16*>(value), n, group, ln, eps);
+  if (n <= 0 || group <= 0 || n % group) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(val);
+  int8_t* q = static_cast<int8_t*>(payload);
+  float* s = static_cast<float*>(scales);
+  __nv_bfloat16* vo = static_cast<__nv_bfloat16*>(value);
+  if (n % 4 == 0 && group % 4 == 0 && n <= ROW_CHUNKS * 4 * ROW_THREADS &&
+      n / group <= MAX_GROUPS) {
+    rows_out_kernel<<<m, ROW_THREADS, 0, st>>>(v, q, s, vo, n, group, ln, eps);
+  } else {
+    rows_out_any_kernel<<<m, ROW_THREADS, 0, st>>>(v, q, s, vo, n, group, ln, eps);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,24 +6,33 @@ Counterpart of transparent_object_detection_tpu/ops/attention.py. Layouts are
 the JAX package's: tokens (B, N, C) with heads packed in C, and the fused qkv
 projection output (B, N, 3C) with sections [q | k | v].
 
-Routing (`attention` / `attention_qkv`), as `_auto_impl` routes in JAX:
-  * N <= 1024: the naive route, a plain matmul + softmax + matmul
+Serving routes (`serving_route`, used by `attention` / `attention_qkv`), as
+the JAX dispatch (`_auto_impl`, `attention_qkv`, `attention`) routes on a
+TPU:
+  * N <= 1024: "naive", a plain matmul + softmax + matmul
     (`reference_attention`); the N x N scores are small enough.
-  * N > 1024: the flash kernels. Packed multi-head attention reads q/k/v in
-    place out of the qkv array (`flash_mha_packed`) when the head width is a
-    multiple of 128 (the JAX rule); the single-head kernel (`flash_single`)
-    serves the dark3 SelfAttention, whose q/k width C/8 differs from its v
-    width C, and the other multi-head shapes (heads folded into the batch
-    axis).
-  * int8=True (serving): the int8 flash route of ops/attention_int8.py
-    where N > 1024 and its `pick_blocks` tiles the shape, as in JAX; other
-    shapes (N <= 1024, a ragged N such as 3,600) take the routes above.
+  * int8=True: "int8", the int8 flash route of ops/attention_int8.py where
+    N > 1024 and its `pick_blocks` tiles the shape (q/k head width a
+    multiple of 32, v head width a multiple of 128, N and the key block
+    multiples of 32), with JAX's key block.
+  * "packed": multi-head attention read in place out of the qkv array
+    (`flash_mha_packed`) when the head width is a multiple of 128 (the JAX
+    rule).
+  * "single": the single-head kernel (`flash_single`) for the dark3
+    SelfAttention, whose q/k width C/8 differs from its v width C; "folded":
+    the same kernel on the other multi-head shapes, heads folded into the
+    batch axis (phi='n' h1: 3 heads of 283; phi='m' h1: 8 of 599), their
+    odd widths zero-padded to a multiple of 8 in the fold copy.
   * train=True: N > 1024 goes to the differentiable flash route of
     ops/attention_vjp.py (forward with logsumexp, flash backward), packed or
     single-head by the same rules; N <= 1024 stays naive.
-At phi='s' 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels
-and node h6 (N=400) to the naive route. The CUDA kernel is instantiated for
-the widths of that path only; on the card the wrappers refuse other widths.
+At 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels at
+every scale and node h6 (N=400) to the naive route. One difference of
+route is kept on purpose: where the TPU's VMEM fit fails (phi='l'/'x' h1,
+heads of 1,536 and 3,584) JAX falls to its bf16-scored `chunked` route; the
+port keeps the packed kernel, which scores in fp32 (ROADMAP section 3).
+The kernels take bf16 or fp32 (the fp32 models: fp32 products on the CUDA
+cores, as the Pallas kernel computes on fp32 inputs).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
 and runs its plain version only for a CPU tensor. `impl="plain"` runs the
@@ -33,7 +42,7 @@ with and without the kernels; it is never the default.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,11 +54,10 @@ LN2 = 0.6931471805599453
 NAIVE_MAX_TOKENS = 1024
 # Head widths that take the packed route are multiples of this (JAX rule).
 PACKED_HEAD_MULTIPLE = 128
-# q/k widths the CUDA kernel is instantiated for (those of the phi='s'
-# serving path: dark3 64, neck heads 256) and the width of the v column slice
-# one block accumulates; v widths must be a multiple of it.
-KERNEL_DQ = (64, 256)
-KERNEL_DV_TILE = 256
+# The CUDA kernels take q/k and v widths that are multiples of this (16-byte
+# rows); the single-head wrapper zero-pads other widths in its input copy.
+KERNEL_WIDTH_MULTIPLE = 8
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 IMPLS = (None, "plain")
 
 
@@ -134,19 +142,20 @@ def _lib():
     lib = _build.load("flash_attn_fwd")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
+        lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, ci, vp]
         lib.flash_mha_packed.restype = ci
-        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
+        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
         lib.flash_single.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _check_cuda_operand(name: str, t: torch.Tensor) -> None:
+def _check_cuda_operand(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the flash kernel takes bfloat16, got {t.dtype}")
+    if t.dtype not in KERNEL_DTYPES or t.dtype != dtype:
+        raise ValueError(f"{name}: the flash kernel takes bfloat16 or float32 operands of one "
+                         f"type, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
@@ -154,12 +163,24 @@ def _check_cuda_operand(name: str, t: torch.Tensor) -> None:
 
 
 def packed_kernel_supports(c: int, num_heads: int) -> bool:
-    dh = c // num_heads
-    return c % num_heads == 0 and dh in KERNEL_DQ and dh % KERNEL_DV_TILE == 0
+    """Head layouts the packed kernel reads in place: any head width that is
+    a multiple of 8."""
+    return (num_heads >= 1 and c % num_heads == 0 and c // num_heads > 0
+            and (c // num_heads) % KERNEL_WIDTH_MULTIPLE == 0)
 
 
 def single_kernel_supports(dq: int, dv: int) -> bool:
-    return dq in KERNEL_DQ and dv % KERNEL_DV_TILE == 0
+    """Widths `flash_single` takes: any (widths that are not a multiple of 8
+    are zero-padded in the wrapper's input copy)."""
+    return dq > 0 and dv > 0
+
+
+def _padded(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy (or t itself) whose last axis is zero-padded to a
+    multiple of KERNEL_WIDTH_MULTIPLE: padded q/k columns leave q.k^T
+    unchanged, padded v columns are sliced off the output."""
+    pad = -t.shape[-1] % KERNEL_WIDTH_MULTIPLE
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t.contiguous()
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -177,13 +198,13 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
         return flash_mha_packed_plain(qkv, num_heads, scale)
     b, n, c3 = qkv.shape
     c = c3 // 3
-    _check_cuda_operand("qkv", qkv)
+    _check_cuda_operand("qkv", qkv, qkv.dtype)
     if c3 % 3 or not packed_kernel_supports(c, num_heads):
         raise ValueError(f"packed flash kernel does not take C={c} with {num_heads} heads")
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     err = _lib().flash_mha_packed(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, c // num_heads, scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        int(qkv.dtype == torch.float32), torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _raise_on(err, "flash_mha_packed")
     flash_mha_packed.launches += 1
@@ -192,29 +213,35 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
 
 def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  scale: float) -> torch.Tensor:
-    """Single-head flash attention with q/k width != v width:
-    q, k (B, N, dq), v (B, N, dv) -> (B, N, dv).
+    """Single-head flash attention with q/k width dq and v width dv:
+    q, k (B, N, dq), v (B, N, dv) -> (B, N, dv), bf16 or fp32.
 
     Port of ops/attention.py::_flash_kernel (flash_attention_pallas, JAX).
-    A CUDA tensor launches csrc/flash_attn_fwd.cu; a CPU tensor runs
-    `flash_single_plain`."""
+    A CUDA tensor launches csrc/flash_attn_fwd.cu on contiguous copies
+    (widths not a multiple of 8 zero-padded; views such as folded heads are
+    copied once here); a CPU tensor runs `flash_single_plain`."""
     if q.device.type == "cpu":
         return flash_single_plain(q, k, v, scale)
     b, n, dq = q.shape
     dv = v.shape[-1]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_cuda_operand(name, t)
     if k.shape != q.shape or v.shape[:2] != (b, n) or not single_kernel_supports(dq, dv):
         raise ValueError(f"single-head flash kernel does not take q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    q, k, v = _padded(q), _padded(k), _padded(v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_cuda_operand(name, t, q.dtype)
+    dqp, dvp = q.shape[-1], v.shape[-1]
+    out = torch.empty((b, n, dvp), dtype=v.dtype, device=v.device)
     err = _lib().flash_single(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, dq, dv, scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, dqp, dvp, scale,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_single")
     flash_single.launches += 1
-    return out
+    return out if dvp == dv else out[..., :dv]
 
 
 flash_mha_packed.launches = 0
@@ -241,15 +268,34 @@ def _packed_heads(c: int, num_heads: int) -> bool:
     return c % num_heads == 0 and (c // num_heads) % PACKED_HEAD_MULTIPLE == 0
 
 
+def serving_route(n: int, cq: int, num_heads: int = 1, cv: Optional[int] = None,
+                  int8: bool = False, packed: bool = False) -> Tuple[str, Optional[int]]:
+    """(route, key block) of a serving attention call on (B, n, cq) q/k and
+    (B, n, cv) v with `num_heads` heads packed in the channels, as the JAX
+    dispatch routes it on a TPU: "naive" (n <= 1024), "int8" (with
+    `pick_blocks`'s key block, the k/v scale granularity), "packed" (a packed
+    qkv input, `packed`, whose head width is a multiple of 128), "single"
+    (one head) or "folded" (heads folded into the batch axis, then the
+    single-head kernel)."""
+    cv = cq if cv is None else cv
+    if n <= NAIVE_MAX_TOKENS:
+        return "naive", None
+    if int8:
+        blocks = attention_int8.pick_blocks(n, cq, num_heads, cv=cv)
+        if blocks is not None:
+            return "int8", blocks[1]
+    if packed and cq == cv and _packed_heads(cq, num_heads):
+        return "packed", None
+    return ("single" if num_heads == 1 else "folded"), None
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
               impl: Optional[str] = None, num_heads: int = 1, int8: bool = False,
               train: bool = False) -> torch.Tensor:
     """Dispatching front end on (B, N, C) tokens, heads packed in C.
 
-    impl None: naive route for N <= 1024, the flash kernels above.
+    impl None: the routes of `serving_route`, with the kernels.
     impl "plain": the same routing with the kernels' plain versions.
-    int8 (serving): the int8 flash route (ops/attention_int8.py) where N >
-    1024 and `pick_blocks` gives blocks, as in JAX; else the routes above.
     train: for N > 1024, the differentiable flash route
     (ops/attention_vjp.py), packed where the head width is a multiple of
     PACKED_HEAD_MULTIPLE, single-head otherwise (other multi-head shapes fold
@@ -261,11 +307,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
         from transparent_object_detection_tpu_torch.ops import attention_vjp
 
         return attention_vjp.flash_attention(q, k, v, scale, num_heads, impl)
-    if int8 and not train and n > NAIVE_MAX_TOKENS:
-        blocks = attention_int8.pick_blocks(n, c, num_heads, cv=v.shape[-1])
-        if blocks is not None:
-            return attention_int8.attention_int8(q, k, v, scale, num_heads, blocks[1],
-                                                 impl=impl)
+    route, bk = serving_route(n, c, num_heads, v.shape[-1], int8 and not train)
+    if route == "int8":
+        return attention_int8.attention_int8(q, k, v, scale, num_heads, bk, impl=impl)
     if num_heads > 1:
         out = attention(
             _heads_first(q, num_heads).reshape(b * num_heads, n, -1),
@@ -278,7 +322,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
         return reference_attention(q, k, v, scale)
     if impl == "plain":
         return flash_single_plain(q, k, v, scale)
-    return flash_single(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    return flash_single(q, k, v, scale)  # copies (and pads) the views once
 
 
 def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,
@@ -296,13 +340,12 @@ def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = N
         from transparent_object_detection_tpu_torch.ops import attention_vjp
 
         return attention_vjp.flash_attention_qkv(qkv, scale, num_heads, impl)
-    if int8 and not train and n > NAIVE_MAX_TOKENS:
-        blocks = attention_int8.pick_blocks(n, c, num_heads)
-        if blocks is not None:
-            return attention_int8.attention_int8(
-                qkv, qkv[..., c:2 * c], qkv[..., 2 * c:], scale, num_heads, blocks[1],
-                q_width=c, impl=impl)
-    if not train and n > NAIVE_MAX_TOKENS and _packed_heads(c, num_heads):
+    route, bk = (None, None) if train else serving_route(n, c, num_heads, c, int8, packed=True)
+    if route == "int8":
+        return attention_int8.attention_int8(
+            qkv, qkv[..., c:2 * c], qkv[..., 2 * c:], scale, num_heads, bk, q_width=c,
+            impl=impl)
+    if route == "packed":
         if impl == "plain":
             return flash_mha_packed_plain(qkv, num_heads, scale)
         return flash_mha_packed(qkv.contiguous(), num_heads, scale)

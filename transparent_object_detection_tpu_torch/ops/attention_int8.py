@@ -22,8 +22,13 @@ p is rounded against the maximum of its whole key block, so weights below
 1/254 of the block's largest round to 0. A kernel that rounded against the
 running maximum of smaller tiles would compute another function.
 
-bk comes from `pick_blocks` (the JAX rule): the full N up to 6,400 on the
-serving path, so k and v get one scale per (batch, head).
+bk comes from `pick_blocks` (the JAX rule): the full N up to 6,400 at
+phi='s' 640x640, so k and v get one scale per (batch, head); half or a
+quarter of it at the wider heads of phi='m', 'l', 'x' (3,200, 1,600, 800,
+320). The kernels take every shape `pick_blocks` tiles: q/k head widths
+that are multiples of 32, v head widths multiples of 128, N and bk multiples
+of 32 (a ragged last key tile is masked), q in bf16 or fp32 (the output in
+q's type); the int8 output at any v head width.
 
 The int8 TEB's handoff variants (`config.Int8Variants`) run the same
 function with other ends:
@@ -49,13 +54,15 @@ import torch
 
 LOG2E = 1.4426950408889634
 LOG2_127 = 6.988684686772166
-# q/k widths the CUDA kernel is instantiated for (dark3 64, neck heads 256),
-# the v column slice one block accumulates, and the key tile of its loop.
-KERNEL_DQ = (64, 256)
+# The kernels' domain, that of `pick_blocks`: q/k head widths, v head widths,
+# N and key blocks multiples of these.
+KERNEL_DQ_MULTIPLE = 32
+KERNEL_DV_MULTIPLE = 128
+KERNEL_N_MULTIPLE = 32
+# v head width one block of the kernel holds: the int8 outputs of wider heads
+# go through an fp32 workspace and a row pass (the amax is a head's whole row)
 KERNEL_DV_TILE = 256
-# the q/k width of the int8-out and int8-q-in forms (the neck's heads)
-KERNEL_VARIANT_DQ = 256
-KERNEL_KEY_TILE = 64
+Q_DTYPES = (torch.bfloat16, torch.float32)
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
 
 
@@ -240,24 +247,25 @@ def _lib():
     lib = _build.load("flash_attn_int8")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_mha_int8.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                                       cf, vp]
+        lib.flash_mha_int8.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       ci, ci, ci, cf, vp]
         lib.flash_mha_int8.restype = ci
-        lib.flash_mha_int8_qout.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
-                                            ci, ci, cf, vp]
+        lib.flash_mha_int8_qout.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
+                                            ci, ci, ci, ci, ci, ci, cf, vp]
         lib.flash_mha_int8_qout.restype = ci
-        lib.flash_int8_handoff.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                           ci, ci, ci, cf, ci, vp]
+        lib.flash_int8_handoff.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
+                                           ci, ci, ci, ci, cf, ci, vp]
         lib.flash_int8_handoff.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+def _check(name: str, t: torch.Tensor, dtype) -> None:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: the int8 flash kernel takes {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: the int8 flash kernel takes {dtypes}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
@@ -265,17 +273,16 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
 
 
 def kernel_supports(n: int, dq: int, dv: int, bk: int) -> bool:
-    return (dq in KERNEL_DQ and dv % KERNEL_DV_TILE == 0 and n % KERNEL_KEY_TILE == 0
-            and bk % KERNEL_KEY_TILE == 0)
+    """Shapes the int8 kernels take: those `pick_blocks` tiles."""
+    return (dq > 0 and dq % KERNEL_DQ_MULTIPLE == 0 and dv > 0
+            and dv % KERNEL_DV_MULTIPLE == 0 and n > 0 and n % KERNEL_N_MULTIPLE == 0
+            and bk > 0 and bk % KERNEL_N_MULTIPLE == 0 and n % bk == 0)
 
 
-def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs, num_heads: int,
-              variant: bool, int8_out: bool) -> Tuple[int, int, int, int, int, int]:
+def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs,
+              num_heads: int) -> Tuple[int, int, int, int, int, int]:
     """Device, type and shape checks shared by the three wrappers; returns
-    (b, n, dq, dv, nk, q_row). The variants (qout, handoff) are built for
-    q/k width KERNEL_VARIANT_DQ; the int8-out forms take only a head width
-    that one block holds whole (dv == KERNEL_DV_TILE): the per-(row, head)
-    amax is never split across blocks."""
+    (b, n, dq, dv, nk, q_row)."""
     b, n, cq = kq.shape
     cv = vq.shape[-1]
     nk = ks.shape[-1]
@@ -288,14 +295,26 @@ def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs, num_heads: int,
     if (q.shape[:2] != (b, n) or q_row != q_row_expected or vq.shape[:2] != (b, n)
             or tuple(ks.shape) != (b, num_heads, nk) or ks.shape != vs.shape
             or n % nk or cq % num_heads or cv % num_heads
-            or not kernel_supports(n, dq, dv, n // nk)
-            or (variant and dq != KERNEL_VARIANT_DQ)
-            or (int8_out and dv != KERNEL_DV_TILE)):
+            or not kernel_supports(n, dq, dv, n // nk)):
         raise ValueError(f"int8 flash kernel does not take q {tuple(q.shape)}, "
                          f"kq {tuple(kq.shape)}, vq {tuple(vq.shape)}, scales "
-                         f"{tuple(ks.shape)} with {num_heads} heads"
-                         + (" and an int8 output" if int8_out else ""))
+                         f"{tuple(ks.shape)} with {num_heads} heads")
     return b, n, dq, dv, nk, q_row
+
+
+def _q_workspace(b: int, n: int, cq: int, num_heads: int, device):
+    """The quantized q the kernel's first launch writes: int8 (B, N, Cq) and
+    per-(row, head) scales (B, N, H)."""
+    return (torch.empty((b, n, cq), dtype=torch.int8, device=device),
+            torch.empty((b, n, num_heads), dtype=torch.float32, device=device))
+
+
+def _out_workspace(b: int, n: int, cv: int, dv: int, device) -> Optional[torch.Tensor]:
+    """fp32 (B, N, Cv) for an int8 output whose head is wider than one block
+    holds (the row pass takes each head's amax over all its columns)."""
+    if dv == KERNEL_DV_TILE:
+        return None
+    return torch.empty((b, n, cv), dtype=torch.float32, device=device)
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -309,24 +328,27 @@ def _stream(t: torch.Tensor) -> int:
 
 def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
                    q_width: Optional[int] = None) -> torch.Tensor:
-    """int8 flash attention: q bf16 (B, N, Cq), or the packed (B, N, 3C) qkv
-    with q_width = C (q read in place); kq (B, N, Cq), vq (B, N, Cv) int8
-    with f32 scales (B, H, N / bk) -> bf16 (B, N, Cv).
+    """int8 flash attention: q bf16 or fp32 (B, N, Cq), or the packed
+    (B, N, 3C) qkv with q_width = C (q read in place); kq (B, N, Cq), vq
+    (B, N, Cv) int8 with f32 scales (B, H, N / bk) -> (B, N, Cv) in q's type.
 
     Port of ops/attention_int8.py::_mha_flash_int8_kernel. A CUDA tensor
-    launches csrc/flash_attn_int8.cu; a CPU tensor runs
-    `flash_mha_int8_plain`."""
+    launches csrc/flash_attn_int8.cu (q quantized per (row, head) into a
+    workspace, then the attention kernel: two launches counted as one); a
+    CPU tensor runs `flash_mha_int8_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     cq = kq.shape[-1]
     if q_width is not None and q_width != cq:
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
-    b, n, dq, dv, nk, q_row = _check_kv(q, torch.bfloat16, cq if q_width is None else 3 * cq,
-                                        kq, ks, vq, vs, num_heads, False, False)
-    out = torch.empty((b, n, vq.shape[-1]), dtype=torch.bfloat16, device=q.device)
+    b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
+                                        kq, ks, vq, vs, num_heads)
+    q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
+    out = torch.empty((b, n, vq.shape[-1]), dtype=q.dtype, device=q.device)
     err = _lib().flash_mha_int8(
-        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        out.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, _stream(q))
+        q.data_ptr(), int(q.dtype == torch.float32), kq.data_ptr(), ks.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), q8.data_ptr(), q_scales.data_ptr(), out.data_ptr(), b, n,
+        num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, _stream(q))
     _raise_on(err, "flash_mha_int8")
     flash_mha_int8.launches += 1
     return out
@@ -345,14 +367,18 @@ def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
     cq = kq.shape[-1]
     if q_width is not None and q_width != cq:
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
-    b, n, dq, dv, nk, q_row = _check_kv(q, torch.bfloat16, cq if q_width is None else 3 * cq,
-                                        kq, ks, vq, vs, num_heads, True, True)
-    out = torch.empty((b, n, vq.shape[-1]), dtype=torch.int8, device=q.device)
+    b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
+                                        kq, ks, vq, vs, num_heads)
+    cv = vq.shape[-1]
+    q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
+    work = _out_workspace(b, n, cv, dv, q.device)
+    out = torch.empty((b, n, cv), dtype=torch.int8, device=q.device)
     out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
     err = _lib().flash_mha_int8_qout(
-        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        out.data_ptr(), out_scales.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
-        scale * LOG2E, _stream(q))
+        q.data_ptr(), int(q.dtype == torch.float32), kq.data_ptr(), ks.data_ptr(),
+        vq.data_ptr(), vs.data_ptr(), q8.data_ptr(), q_scales.data_ptr(), out.data_ptr(),
+        out_scales.data_ptr(), 0 if work is None else work.data_ptr(), b, n, num_heads, dq, dv,
+        q_row, n // nk, nk, scale * LOG2E, _stream(q))
     _raise_on(err, "flash_mha_int8_qout")
     flash_mha_int8_qout.launches += 1
     return out, out_scales
@@ -364,7 +390,7 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     columns, read in place (row stride = the payload's width) and used
     as it is, with per-(row, head) scales qs (B, N, H); kq, vq from
     `requantize_section`. Returns int8 (B, N, Cv) and f32 (B, N, H) with
-    quant_out, else bf16 (B, N, Cv).
+    quant_out, else (B, N, Cv) in out_dtype (bf16 or fp32).
 
     Port of ops/attention_int8.py::_mha_flash_int8_handoff_kernel (both its
     output forms count as launches of it). A CUDA tensor launches
@@ -372,26 +398,30 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     if payload.device.type == "cpu":
         return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads, scale,
                                         quant_out, out_dtype)
-    if not quant_out and out_dtype != torch.bfloat16:
-        raise ValueError(f"the int8 handoff kernel writes bfloat16 or int8, not {out_dtype}")
+    if not quant_out and out_dtype not in Q_DTYPES:
+        raise ValueError(f"the int8 handoff kernel writes {Q_DTYPES} or int8, not {out_dtype}")
     b, n, dq, dv, nk, q_row = _check_kv(payload, torch.int8, payload.shape[-1], kq, ks, vq, vs,
-                                        num_heads, True, quant_out)
+                                        num_heads)
     _check("qs", qs, torch.float32)
     if tuple(qs.shape) != (b, n, num_heads) or q_row < kq.shape[-1] or q_row % 16:
         raise ValueError(f"int8 handoff kernel does not take payload {tuple(payload.shape)} "
                          f"with q scales {tuple(qs.shape)}")
     cv = vq.shape[-1]
+    work = None
     if quant_out:
         out = torch.empty((b, n, cv), dtype=torch.int8, device=payload.device)
         out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=payload.device)
+        work = _out_workspace(b, n, cv, dv, payload.device)
+        mode = 2
     else:
-        out = torch.empty((b, n, cv), dtype=torch.bfloat16, device=payload.device)
+        out = torch.empty((b, n, cv), dtype=out_dtype, device=payload.device)
         out_scales = None
+        mode = int(out_dtype == torch.float32)
     err = _lib().flash_int8_handoff(
         payload.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), out.data_ptr(), 0 if out_scales is None else out_scales.data_ptr(),
-        b, n, num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, int(quant_out),
-        _stream(payload))
+        0 if work is None else work.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
+        scale * LOG2E, mode, _stream(payload))
     _raise_on(err, "flash_int8_handoff")
     flash_int8_handoff.launches += 1
     return (out, out_scales) if quant_out else out

@@ -21,10 +21,16 @@ The function (the JAX kernel's, on its TPU dispatch):
   * Rounding is half to even throughout, as `jnp.round` rounds.
 
 Kernels (csrc/quant_matmul.cu): `quant_rows` (replaces `_quant_rows_kernel`)
-quantizes bf16 rows; `qmm` (replaces `_qmm_kernel`) takes int8 rows with 1
-or G > 1 scale groups (G > 1: each group is requantized onto the row's
-largest scale first, the JAX prologue). A bf16 input runs as quant_rows then
-qmm, the JAX split route (`_pquant_call`) on every shape.
+quantizes bf16 or fp32 rows of any width; `qmm` (replaces `_qmm_kernel`)
+takes int8 rows with 1 or G > 1 scale groups (G > 1: each group is
+requantized onto the row's largest scale first, the JAX prologue), any M, N
+and K, and writes bf16 or fp32 (with a bf16 or fp32 residual). A bf16 or
+fp32 input runs as quant_rows then qmm, the JAX split route (`_pquant_call`)
+on every shape. Where the JAX dispatch leaves its kernel for
+`_qmm_reference` (K not a multiple of 128, N not of 256: phi='n' and 'm'
+h1 / h6, every fp32-compute model's odd widths), that reference computes
+the same function with one quant_out scale a row; `quant_out_group_width`
+says G = 1 there, and the kernels compute it.
 
 The quant_out group width is part of the numbers: the consumer (mlp2, or
 attention in the qkv handoff) sees G = N / group scale groups.
@@ -311,9 +317,9 @@ def _lib():
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, vp]
+        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp]
         lib.quant_rows.restype = ci
-        lib.qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        lib.qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         lib.qmm.restype = ci
         lib.qmm_rows_out.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
         lib.qmm_rows_out.restype = ci
@@ -321,11 +327,12 @@ def _lib():
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape=None) -> None:
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: the kernel takes {dtypes}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -344,11 +351,14 @@ def _stream(t: torch.Tensor) -> int:
 
 
 QMAX = (127, 7)
+FLOAT_DTYPES = (torch.bfloat16, torch.float32)
+K_MULTIPLE = 16  # qmm's rows are read in 16-byte chunks
 
 
 def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
-    """[LN-normalize +] per-row quantize onto [-qmax, qmax]: bf16 (M, K) ->
-    int8 (M, K), f32 (M, 1). Port of ops/quant_matmul.py::_quant_rows_kernel,
+    """[LN-normalize +] per-row quantize onto [-qmax, qmax]: bf16 or fp32
+    (M, K), any K -> int8 (M, K), f32 (M, 1). Port of
+    ops/quant_matmul.py::_quant_rows_kernel,
     which JAX launches with qmax 127 (`_pquant_call`; counted on
     `quant_rows.launches`) and with qmax 7 (`_w4a4_call`; counted on
     `quant_rows.launches_int4`). A CUDA tensor launches csrc/quant_matmul.cu;
@@ -358,13 +368,12 @@ def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
     if x.device.type == "cpu":
         return quant_rows_plain(x, ln, eps, qmax)
     m, k = x.shape
-    _check("x", x, torch.bfloat16)
-    if k % 8:
-        raise ValueError(f"quant_rows takes row widths that are a multiple of 8, got {k}")
+    _check("x", x, FLOAT_DTYPES)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
     err = _lib().quant_rows(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, int(ln),
-                            eps, float(qmax), 1.0 / qmax, _stream(x))
+                            eps, float(qmax), 1.0 / qmax, int(x.dtype == torch.float32),
+                            _stream(x))
     _raise_on(err, "quant_rows")
     if qmax == 127:
         quant_rows.launches += 1
@@ -376,17 +385,28 @@ def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
 _ACT_CODE = {None: 0, "gelu": 1, "silu": 2}
 
 
+def kernel_supports(m: int, k: int, n: int, groups: int = 1) -> bool:
+    """Shapes `qmm` takes: any M, N and K; G > 1 input scale groups of a
+    multiple of 4 columns (every producer's: quant_out tiles of 256 and up,
+    one group a head of a multiple of 128)."""
+    return (min(m, k, n, groups) >= 1 and k % groups == 0
+            and (groups == 1 or (k // groups) % 4 == 0))
+
+
 def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
         quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
     """int8 GEMM with the dequant epilogue. xq int8 (M, K) with x_scales f32
     (M, G); wq int8 (N, K), w_scale f32 (N,); bias f32 (N,); residual bf16
-    (M, N). Returns bf16 (M, N); with `quant_out_group`, int8 (M, N) and f32
-    (M, N / group); with `ln_out_eps`, bf16 (M, N), int8 (M, N), f32 (M, 1).
+    or fp32 (M, N). Returns (M, N) in out_dtype (bf16 or fp32); with
+    `quant_out_group`, int8 (M, N) and f32 (M, N / group); with
+    `ln_out_eps`, the value (M, N) in out_dtype, int8 (M, N), f32 (M, 1).
+    Any M, N and K (G > 1: groups of a multiple of 4 columns).
 
     Port of ops/quant_matmul.py::_qmm_kernel. A CUDA tensor launches
     csrc/quant_matmul.cu (the quant_out and ln_out outputs as the GEMM into
-    an fp32 workspace plus a row pass, two CUDA launches counted as one);
-    a CPU tensor runs `qmm_plain`."""
+    an fp32 workspace plus a row pass, two CUDA launches counted as one; K
+    not a multiple of 16 zero-padded in a copy of xq and wq first, which
+    leaves every dot product unchanged); a CPU tensor runs `qmm_plain`."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; choose from {ACTS}")
     if quant_out_group is not None and ln_out_eps is not None:
@@ -394,8 +414,8 @@ def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
     if xq.device.type == "cpu":
         return qmm_plain(xq, x_scales, wq, w_scale, bias, act, residual, quant_out_group,
                          ln_out_eps, out_dtype)
-    if out_dtype != torch.bfloat16:
-        raise ValueError(f"the qmm kernel writes bfloat16, not {out_dtype}")
+    if out_dtype not in FLOAT_DTYPES:
+        raise ValueError(f"the qmm kernel writes {FLOAT_DTYPES}, not {out_dtype}")
     m, k = xq.shape
     n = wq.shape[0]
     groups = x_scales.shape[-1]
@@ -406,20 +426,26 @@ def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
     if bias is not None:
         _check("bias", bias, torch.float32, (n,))
     if residual is not None:
-        _check("residual", residual, torch.bfloat16, (m, n))
-    if n % 128 or k % 64 or k % groups or (k // groups) % 64:
-        raise ValueError(f"qmm takes N % 128 == 0 and K % 64 == 0 with groups of a multiple "
-                         f"of 64 columns, got M={m} K={k} N={n} G={groups}")
-    if quant_out_group is not None and (n % quant_out_group or quant_out_group % 4):
+        _check("residual", residual, FLOAT_DTYPES, (m, n))
+    if not kernel_supports(m, k, n, groups):
+        raise ValueError(f"qmm takes groups of a multiple of 4 columns, got M={m} K={k} N={n} "
+                         f"G={groups}")
+    if quant_out_group is not None and (quant_out_group < 1 or n % quant_out_group):
         raise ValueError(f"quant_out group {quant_out_group} does not tile N={n}")
+    pad = -k % K_MULTIPLE
+    if pad:  # 16-byte rows; G > 1 implies groups of 4-byte multiples, K = G * g
+        xq = torch.nn.functional.pad(xq, (0, pad))
+        wq = torch.nn.functional.pad(wq, (0, pad))
     rows_out = quant_out_group is not None or ln_out_eps is not None
     dev = xq.device
-    out = torch.empty((m, n), dtype=torch.float32 if rows_out else torch.bfloat16, device=dev)
+    out_f32 = rows_out or out_dtype == torch.float32
+    out = torch.empty((m, n), dtype=torch.float32 if out_f32 else torch.bfloat16, device=dev)
     null = lambda t: 0 if t is None else t.data_ptr()
     lib = _lib()
     err = lib.qmm(xq.data_ptr(), x_scales.data_ptr(), wq.data_ptr(), w_scale.data_ptr(),
-                  null(bias), null(residual), out.data_ptr(), m, n, k, groups,
-                  _ACT_CODE[act], int(rows_out), _stream(xq))
+                  null(bias), null(residual), out.data_ptr(), m, n, k + pad, groups,
+                  _ACT_CODE[act], int(out_f32),
+                  int(residual is not None and residual.dtype == torch.float32), _stream(xq))
     _raise_on(err, "qmm")
     if rows_out:
         payload = torch.empty((m, n), dtype=torch.int8, device=dev)
@@ -430,9 +456,12 @@ def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
             result = (payload, scales)
         else:
             scales = torch.empty((m, 1), dtype=torch.float32, device=dev)
-            value = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
+            # an fp32 value is the workspace itself; the row pass writes bf16
+            value = (out if out_dtype == torch.float32
+                     else torch.empty((m, n), dtype=torch.bfloat16, device=dev))
             err = lib.qmm_rows_out(out.data_ptr(), payload.data_ptr(), scales.data_ptr(),
-                                   value.data_ptr(), m, n, n, 1, ln_out_eps, _stream(xq))
+                                   None if value is out else value.data_ptr(), m, n, n, 1,
+                                   ln_out_eps, _stream(xq))
             result = (value, payload, scales)
         _raise_on(err, "qmm row pass")
         out = result
