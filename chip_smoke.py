@@ -98,9 +98,31 @@
 13. Serve matrix: phi 'n', 's', 'm' in bf16 and fp32 compute, each in
    bf16, int8, A and B: one counted batch-1 detection each, launches
    asserted against the route table.
-14. Prints the smoke's total time, the card's name and power limit, a JSON
+14. Train scale kernel phase: rows 9-11 (flash_fwd_lse, flash_bwd_dq,
+   flash_bwd_dkv) at every training site of phi 'n', 'm', 'l' and 'x'
+   640x640 (packed heads of 128 to 1,536 and 3,584, dark3 q/k 32 to 512 and
+   v 256 to 4,096, folded heads of 283 and 599 as the fold copy pads them),
+   at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and peaked
+   inputs, with the bars of phase 8 (fp32: 1e-4) and a bit-identical
+   backward; the phi='s' faults and those of the width loop (a q/k slab
+   left out of S, a v/dO slab left out of dP, the last dv pass unwritten,
+   the tail key tile left out) each rejected on some input spread; phi='m'
+   (bf16) and phi='n' (fp32) sites timed beside bound, plain and SDPA.
+   Then the folded route through attention(..., train=True) at phi 'n' and
+   'm' h1 against plain, and a padded fold column leaking into dq rejected.
+15. phi='m' 640x640 training at full width with remat (1.354 B parameters):
+   the counted batch-2 step (forward 7 launches: the neck's three rerun in
+   the recompute), against the same step on plain versions within the
+   phi='s' limits, every launch against its plain version; timed steps at
+   batch 16 if it fits on the card, else 8 (the choice printed), peak
+   memory and step time with and without remat at that batch, a profile.
+16. phi='n' training, bf16 and fp32 compute: a counted batch-2 step each
+   against plain within the same limits (the planted faults' readings
+   printed), every launch against its plain version.
+17. Prints the smoke's total time, the card's name and power limit, a JSON
    line of the kernels (the 11 phi='s' entries, then the phi='m' and fp32
-   forms), then {"ok": true, "device": ...} last.
+   forms, rows 9-11 at phi='m' and in fp32 last), then {"ok": true,
+   "device": ...} last.
 
 Any failed check exits non-zero before the last line. TF32 is off for
 matmuls and convolutions wherever numbers are compared.
@@ -108,6 +130,7 @@ matmuls and convolutions wherever numbers are compared.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -345,8 +368,8 @@ def kernel_entry(name, source, replaces, rows, launches):
 
 
 KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
-    ("flash attention (ours)", ("flash_fwd_kernel",)),
-    ("flash attention backward (ours)", ("flash_bwd_kernel",)),
+    ("flash attention (ours)", ("flash_fwd_",)),   # bf16 and fp32 forms
+    ("flash attention backward (ours)", ("flash_bwd_",)),  # phi='s', wide and fp32 forms
     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
     ("int8 flash attention (ours)", ("flash_int8_kernel",)),
     ("int8 GEMM (ours)", ("qmm_kernel", "rows_out_kernel")),
@@ -1745,11 +1768,14 @@ TRAIN_SLICE_REJECTS = ("D_term_dropped",)
 TRAIN_SLICE_FAULTS = ("D_term_dropped", "lse_off_by_0.01")
 
 
-def grad_reading(out, ref) -> dict:
+def grad_reading(out, ref, f32: bool = False) -> dict:
+    """The gradient bar: the kernel bar per element (fp32: the fp32 bar) and
+    the norm of the difference (fp32: F32_TRAIN_NORM_RTOL)."""
     diff = (out.float() - ref.float())
     norm_rel = float(diff.norm() / ref.float().norm().clamp(min=1e-30))
-    per_elem = bar_used(out, ref)
-    return {"bar_used": max(per_elem, norm_rel / TRAIN_NORM_RTOL), "elem_bar_used": per_elem,
+    per_elem = _f32_bar_used(out, ref) if f32 else bar_used(out, ref)
+    tol = F32_TRAIN_NORM_RTOL if f32 else TRAIN_NORM_RTOL
+    return {"bar_used": max(per_elem, norm_rel / tol), "elem_bar_used": per_elem,
             "norm_rel": norm_rel, "max_abs_err": float(diff.abs().max())}
 
 
@@ -1933,25 +1959,37 @@ def _restore(model, state, snap):
 
 
 def _step_record(model, state, comps=None):
-    """What a step produced (or, without comps, the state before it)."""
+    """What a step produced (or, without comps, the state before it), copied
+    to the host: three records of phi='m' (1.35 B parameters: parameters,
+    gradients and EMA, 16 GB each) do not fit beside the model on the card."""
     import torch
 
+    host = lambda t: t.detach().to("cpu", copy=True)
     params = dict(model.named_parameters())
-    rec = {"params": {n: p.detach().clone() for n, p in params.items()},
-           "stats": {n: b.detach().clone() for n, b in model.named_buffers()},
-           "ema": {n: t.clone() for n, t in state.ema_params.items()}}
+    rec = {"params": {n: host(p) for n, p in params.items()},
+           "stats": {n: host(b) for n, b in model.named_buffers()},
+           "ema": {n: host(t) for n, t in state.ema_params.items()}}
     if comps is not None:
         rec["comps"] = {k: float(v) for k, v in comps.items()}
-        rec["grads"] = {n: p.grad.detach().clone() for n, p in params.items()}
+        rec["grads"] = {n: host(p.grad) for n, p in params.items()}
         rec["finite"] = all(bool(torch.isfinite(p.grad).all()) for p in params.values())
     return rec
 
 
-def _global_rel(diff: dict, ref: dict, names) -> float:
-    """sqrt(sum ||diff||^2 / sum ||ref||^2) over the named tensors."""
-    num = sum(float(diff[n].double().square().sum()) for n in names)
-    den = sum(float(ref[n].double().square().sum()) for n in names)
-    return (num / max(den, 1e-300)) ** 0.5
+def _global_rel(num: dict, den: dict, names) -> float:
+    """sqrt(sum of num / sum of den) over the named leaves."""
+    return (sum(num[n] for n in names) / max(sum(den[n] for n in names), 1e-300)) ** 0.5
+
+
+def _sq_sums(a: dict, b: dict, c: dict = None):
+    """Per leaf, on the card: ||a - b||^2 and ||b - c||^2 (||b||^2 without
+    c), in float64."""
+    num, den = {}, {}
+    for n in b:
+        x, y = a[n].to(DEVICE).double(), b[n].to(DEVICE).double()
+        num[n] = float((x - y).square().sum())
+        den[n] = float((y if c is None else y - c[n].to(DEVICE).double()).square().sum())
+    return num, den
 
 
 def compare_steps(got, ref, old) -> dict:
@@ -1966,25 +2004,23 @@ def compare_steps(got, ref, old) -> dict:
     BatchNorm removes that mean), so single leaves are noisy."""
     names = list(ref["grads"])
     groups = {g: [n for n in names if n.startswith(g + ".")] for g in ("backbone", "neck", "head")}
-    sub = lambda a, b: {n: a[n].float() - b[n].float() for n in a}
-    d_ref = sub(ref["params"], old["params"])
-    out = {"grads": {g: _global_rel(sub(got["grads"], ref["grads"]), ref["grads"], ns)
-                     for g, ns in groups.items()}}
-    out["grads"]["all"] = _global_rel(sub(got["grads"], ref["grads"]), ref["grads"], names)
-    out["param_change"] = _global_rel(sub(got["params"], ref["params"]), d_ref, names)
-    out["ema_change"] = _global_rel(sub(got["ema"], ref["ema"]),
-                                    sub(ref["ema"], old["ema"]), names)
-    stats = list(ref["stats"])
-    out["bn_stats_change"] = _global_rel(sub(got["stats"], ref["stats"]),
-                                         sub(ref["stats"], old["stats"]), stats)
+    num, den = _sq_sums(got["grads"], ref["grads"])
+    out = {"grads": {g: _global_rel(num, den, ns) for g, ns in groups.items()}}
+    out["grads"]["all"] = _global_rel(num, den, names)
+    out["param_change"] = _global_rel(*_sq_sums(got["params"], ref["params"], old["params"]),
+                                      names)
+    out["ema_change"] = _global_rel(*_sq_sums(got["ema"], ref["ema"], old["ema"]), names)
+    out["bn_stats_change"] = _global_rel(*_sq_sums(got["stats"], ref["stats"], old["stats"]),
+                                         list(ref["stats"]))
     out["loss_rel"] = {k: abs(got["comps"][k] - ref["comps"][k]) / max(abs(ref["comps"][k]), 1e-30)
                        for k in ("loss", "loss_iou", "loss_cls", "loss_dfl")}
     out["num_fg"] = (got["comps"]["num_fg"], ref["comps"]["num_fg"])
-    worst = max(names, key=lambda n: float((got["grads"][n].float() - ref["grads"][n].float())
-                                           .abs().max() / ref["grads"][n].float().abs().max()
-                                           .clamp(min=1e-30)))
-    out["worst_leaf"] = (worst, float((got["grads"][worst].float() - ref["grads"][worst].float())
-                                     .abs().max() / ref["grads"][worst].float().abs().max()))
+    leaf = lambda n: float((got["grads"][n].to(DEVICE).float() - ref["grads"][n].to(DEVICE).float())
+                           .abs().max() / ref["grads"][n].to(DEVICE).float().abs().max()
+                           .clamp(min=1e-30))
+    errs = {n: leaf(n) for n in names}
+    worst = max(errs, key=errs.get)
+    out["worst_leaf"] = (worst, errs[worst])
     return out
 
 
@@ -2011,7 +2047,7 @@ def planted_train_fault(fault: str):
         V._bwd_plain = real
 
 
-def train_path_calls(step, state, batch, restore) -> None:
+def train_path_calls(step, state, batch, restore, expected_counts) -> None:
     """Every training-kernel launch of one step (uncounted), recorded with
     its arguments and held against its plain version on the same
     activations: the forward's out with the kernel bar and its lse within
@@ -2041,23 +2077,25 @@ def train_path_calls(step, state, batch, restore) -> None:
     finally:
         for name, fn in real.items():
             setattr(V, name, fn)
-    expected = sum(TRAIN_EXPECTED[name] for name in real)
+    expected = sum(expected_counts[name] for name in real)
     check(len(calls) == expected,
           f"expected {expected} training-kernel launches in a step, got {len(calls)}")
     with torch.no_grad():  # the saved inputs require grad; the plain versions need none
         for i, (name, args, kw, out) in enumerate(calls):
             kw = {k: v for k, v in kw.items() if k not in ("dq", "dk", "dv")}
             q, heads = args[0], (args[4] if name == "flash_fwd_lse" else args[7])
+            f32 = q.dtype == torch.float32
             if name == "flash_fwd_lse":
                 pout, plse = V.flash_fwd_lse_plain(*args, **kw)
-                r = {"bar_used": bar_used(out[0], pout),
+                r = {"bar_used": (_f32_bar_used if f32 else bar_used)(out[0], pout),
                      "lse_max_abs_err": float((out[1] - plse).abs().max())}
-                r["bar_used"] = max(r["bar_used"], r["lse_max_abs_err"] / LSE_ATOL)
+                r["bar_used"] = max(r["bar_used"], r["lse_max_abs_err"]
+                                    / (F32_LSE_ATOL if f32 else LSE_ATOL))
             elif name == "flash_bwd_dq":
-                r = grad_reading(out, V.flash_bwd_dq_plain(*args, **kw))
+                r = grad_reading(out, V.flash_bwd_dq_plain(*args, **kw), f32)
             else:
                 pk, pv = V.flash_bwd_dkv_plain(*args, **kw)
-                r = {"dk": grad_reading(out[0], pk), "dv": grad_reading(out[1], pv)}
+                r = {"dk": grad_reading(out[0], pk, f32), "dv": grad_reading(out[1], pv, f32)}
                 r["bar_used"] = max(r["dk"]["bar_used"], r["dv"]["bar_used"])
             print(json.dumps({"train_path_call": name, "launch": i, "n": q.shape[1],
                               "q_width": q.shape[2], "heads": heads, **r}), flush=True)
@@ -2082,17 +2120,42 @@ def train_launch_counts():
     return resets, read
 
 
-TRAIN_EXPECTED = {"flash_fwd_lse": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4,
-                  "flash_mha_packed": 0, "flash_single": 0, "flash_mha_int8": 0, "qmm": 0,
-                  "quant_rows": 0}
+def train_expected(cfg) -> dict:
+    """Launches of each kernel in one training step of `cfg` (its scale and
+    input, remat or not), from the training route table: one forward, dq and
+    dk/dv launch a site that leaves the naive route; with remat, every neck
+    site's forward runs again in the backward's recompute; no serving
+    kernel."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    counts = {"flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_mha_packed": 0,
+              "flash_single": 0, "flash_mha_int8": 0, "qmm": 0, "quant_rows": 0}
+    for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
+        if A.train_route(n, cq, heads, cv) == "naive":
+            continue
+        counts["flash_fwd_lse"] += 2 if cfg.remat and name != "dark3" else 1
+        counts["flash_bwd_dq"] += 1
+        counts["flash_bwd_dkv"] += 1
+    return counts
 
 
-def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
-    """The port's make_train_step on FocusModel phi='s' 640x640 bf16 (SGD,
-    EMA on; `cfg` another ModelConfig for a rehearsal), on seeded synthetic
-    batches like the JAX bench_train.py's: the counted main path, kernels
-    against plain versions from the same weights (and planted faults), then
-    timed steps at `train_batch` and a profile."""
+def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
+                      faults=TRAIN_SLICE_FAULTS, rejects=TRAIN_SLICE_REJECTS,
+                      timed: bool = True) -> dict:
+    """The port's make_train_step on FocusModel at `cfg` (default phi='s'
+    640x640 bf16; SGD, EMA on), on seeded synthetic batches like the JAX
+    bench_train.py's: the counted main path (launches equal to
+    `train_expected`), kernels against plain versions from the same weights
+    (and, for each of `faults`, the plain step with that planted fault,
+    which the limits must reject where it is in `rejects`: the limits come
+    from phi='s', where the dropped D term reads 3.99 of the gradient
+    limit; the kernel bars reject it at every scale), each training-kernel
+    launch of a step against its plain version; then, with
+    `timed`, steps at the first batch of `train_batches` that fits on the
+    card (the choice printed), with remat the same batch's peak memory and
+    step time without it, and a profile. Returns {"launches", "perf"}."""
+    import gc
+
     import numpy as np
     import torch
 
@@ -2109,8 +2172,15 @@ def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
     )
 
     cfg = cfg or ModelConfig()
+    label = (f"phi={cfg.phi} {cfg.input_shape[0]}x{cfg.input_shape[1]} {cfg.compute_dtype}"
+             + (" remat" if cfg.remat else ""))
+    expected = train_expected(cfg)
     tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+    t0 = time.perf_counter()
     model = build_model(cfg, device=DEVICE, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(json.dumps({"train_model": label, "params": n_params,
+                      "build_s": time.perf_counter() - t0}), flush=True)
     with torch.no_grad():  # else dark3's attention gets a zero cotangent
         model.backbone.dark3_attn.gamma.fill_(0.5)
     opt = build_optimizer(tcfg, model)
@@ -2138,11 +2208,11 @@ def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
     state, comps = step(state, batch2, TRAIN_LR)
     torch.cuda.synchronize()
     launches = read()
-    print(json.dumps({"train_main_path_launches": launches}), flush=True)
-    check(launches == TRAIN_EXPECTED, f"train step launches {launches}, expected {TRAIN_EXPECTED}")
+    print(json.dumps({"train_main_path_launches": launches, "model": label}), flush=True)
+    check(launches == expected, f"{label}: train step launches {launches}, expected {expected}")
     got = _step_record(model, state, comps)
     check(got["finite"] and all(np.isfinite(v) for v in got["comps"].values()),
-          f"non-finite loss or gradient: {got['comps']}")
+          f"{label}: non-finite loss or gradient: {got['comps']}")
 
     def plain_step(fault=None):
         _restore(model, state, snap)
@@ -2156,64 +2226,117 @@ def train_slice_phase(card: str, cfg=None, train_batch: int = TRAIN_BATCH):
 
     ref = plain_step()
     sound = compare_steps(got, ref, old)
-    plain_again = compare_steps(plain_step(), ref, old)
-    faults = {f: compare_steps(plain_step(f), ref, old) for f in TRAIN_SLICE_FAULTS}
+    del got
+    plain_again = compare_steps(plain_step(), ref, old) if faults else None
+    fault_readings = {f: compare_steps(plain_step(f), ref, old) for f in faults}
     limits = {"grads": TRAIN_GRAD_LIMIT, "param_change": TRAIN_UPDATE_LIMIT,
               "ema_change": TRAIN_UPDATE_LIMIT, "bn_stats_change": TRAIN_STATS_LIMIT,
               "loss_rel": TRAIN_LOSS_LIMIT}
     print(json.dumps({"train_slice_parity": {
-        "kernels": sound, "plain_run_twice": plain_again, "planted_faults": faults,
-        "loss_kernels": got["comps"], "loss_plain": ref["comps"], "limits": limits}}),
+        "model": label, "kernels": sound, "plain_run_twice": plain_again,
+        "planted_faults": fault_readings, "loss_plain": ref["comps"], "limits": limits}}),
         flush=True)
     readings = lambda r: {"grads": r["grads"]["all"], "param_change": r["param_change"],
                           "ema_change": r["ema_change"], "bn_stats_change": r["bn_stats_change"],
                           "loss_rel": max(r["loss_rel"].values())}
     for key, value in readings(sound).items():
-        check(value <= limits[key], f"a train step with kernels differs from plain: {key} {value}")
-    for f in TRAIN_SLICE_REJECTS:
-        r = readings(faults[f])
-        check(all(r[key] > limits[key] for key in ("grads", "param_change", "ema_change")),
-              f"the train slice limits do not reject {f}: {r}")
-    del got, ref, old
-    train_path_calls(step, state, batch2, lambda: _restore(model, state, snap))
+        check(value <= limits[key],
+              f"{label}: a train step with kernels differs from plain: {key} {value}")
+    for f in rejects:
+        if f in fault_readings:
+            r = readings(fault_readings[f])
+            check(all(r[key] > limits[key] for key in ("grads", "param_change", "ema_change")),
+                  f"{label}: the train slice limits do not reject {f}: {r}")
+    del ref, old, fault_readings
+    train_path_calls(step, state, batch2, lambda: _restore(model, state, snap), expected)
 
     # launches per step at batch 1 (the routing does not depend on the batch)
     for reset in resets:
         reset()
     step(state, batch_of(1, SEED + 2), TRAIN_LR)
     torch.cuda.synchronize()
-    check(read() == TRAIN_EXPECTED, f"launches per step at batch 1: {read()}")
+    check(read() == expected, f"{label}: launches per step at batch 1: {read()}")
     _restore(model, state, snap)
     del snap
+    gc.collect()
     torch.cuda.empty_cache()
+    if not timed:
+        del model, state, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"launches": launches, "perf": None}
 
-    # timing at train_batch: 1 warm-up step, then timed steps, host clock
+    def peak_gib(b):
+        """Peak memory of one step at batch b (a warm-up), or None when it
+        does not fit on the card."""
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            step(state, batch_of(b, SEED + 1), TRAIN_LR)
+            torch.cuda.synchronize()
+            return torch.cuda.max_memory_allocated() / 2**30
+        except torch.cuda.OutOfMemoryError:
+            return None
+        finally:
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    tried = {}
+    for b in train_batches:
+        tried[b] = peak_gib(b)
+        if tried[b] is not None:
+            train_batch = b
+            break
+    else:
+        raise SmokeFailure(f"{label}: no batch of {train_batches} fits on the card")
+    print(json.dumps({"train_batch_choice": label, "peak_gib_by_batch": tried,
+                      "chosen": train_batch}), flush=True)
     batch = batch_of(train_batch, SEED + 1)
+
+    def timed_steps(want):
+        """3 steps after a warm-up, host clock; launches per step equal to `want`."""
+        nonlocal state
+        losses, times = [], []
+        for _ in range(3):
+            for reset in resets:
+                reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, comps = step(state, batch, TRAIN_LR)
+            losses.append(float(comps["loss"]))  # synchronises
+            times.append((time.perf_counter() - t0) * 1e3)
+            check(read() == want, f"{label}: launches per step at batch {train_batch}: {read()}")
+        check(all(np.isfinite(losses)), f"{label}: non-finite losses {losses}")
+        return losses, times
+
+    without_remat = ms_without_remat = None
+    if cfg.remat:  # the same batch without remat: its peak and, where it fits, its step
+        model.neck.remat = False
+        without_remat = peak_gib(train_batch)
+        if without_remat is not None:
+            no_remat = dataclasses.replace(cfg, remat=False)
+            ms_without_remat = sorted(timed_steps(train_expected(no_remat))[1])[1]
+        model.neck.remat = True
+        peak_gib(train_batch)  # warm-up with remat again
+
+    # timing at train_batch: timed steps after the warm-up, host clock
     torch.cuda.reset_peak_memory_stats()
-    state, comps = step(state, batch, TRAIN_LR)
-    losses = [float(comps["loss"])]
-    per_step, times = [], []
-    for _ in range(3):
-        for reset in resets:
-            reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, comps = step(state, batch, TRAIN_LR)
-        losses.append(float(comps["loss"]))  # synchronises
-        times.append((time.perf_counter() - t0) * 1e3)
-        per_step.append(read())
+    losses, times = timed_steps(expected)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for counts in per_step:
-        check(counts == TRAIN_EXPECTED, f"launches per step at batch {train_batch}: {counts}")
-    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    per_step = read()
     profile = profile_call(lambda: step(state, batch, TRAIN_LR), train_batch)
     ms = sorted(times)[len(times) // 2]
-    perf = {"card": card, "model": "phi=s 640x640 bf16 train step (SGD nesterov, EMA)",
-            "batch": train_batch, "step_ms": ms, "step_ms_all": times,
-            "imgs_per_s": train_batch / ms * 1e3, "peak_mem_gib": peak, "losses": losses,
-            "launches_per_step": per_step[-1], "profile_idle_share": profile["idle_share"]}
+    perf = {"card": card, "model": f"{label} train step (SGD nesterov, EMA)",
+            "params": n_params, "batch": train_batch, "step_ms": ms, "step_ms_all": times,
+            "imgs_per_s": train_batch / ms * 1e3, "peak_mem_gib": peak,
+            "peak_mem_gib_without_remat": without_remat, "step_ms_without_remat": ms_without_remat,
+            "losses": losses, "launches_per_step": per_step,
+            "profile_idle_share": profile["idle_share"], "profile_by_class_ms":
+            profile["by_class_ms"]}
     print(json.dumps({"train_slice_perf": perf}), flush=True)
-    return launches
+    del model, state, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "perf": perf}
 
 
 # ---------------------------------------------------------------------------
@@ -2852,6 +2975,341 @@ def serve_matrix_phase(card: str) -> dict:
     return served
 
 
+# ---------------------------------------------------------------------------
+# training at every scale: rows 9-11 over their whole JAX domain (phi 'n',
+# 'm', 'l', 'x' widths, N = 4,320, fp32), the folded route's padding, phi='m'
+# 640x640 training at full width with remat, phi='n' in bf16 and fp32
+# ---------------------------------------------------------------------------
+
+F32_TRAIN_NORM_RTOL = 1e-4  # fp32: kernels and plain versions differ in summation order only
+F32_LSE_ATOL = 1e-4
+TRAIN_KERNELS = ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def train_call_sites(phi: str, hw=(640, 640)) -> dict:
+    """{site: (route, N, q/k width, v width, heads, scale)} of the training
+    kernel calls of one step at `phi`: the operands as the route hands them
+    to the kernels (folded heads: one call on B*H single heads, each width
+    zero-padded to a multiple of 8; per image, so B*H is heads * batch)."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    out = {}
+    for name, (n, cq, cv, heads, _) in scale_sites(phi, hw).items():
+        route = A.train_route(n, cq, heads, cv)
+        if route == "naive":
+            continue
+        scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
+        if route == "folded":
+            pad8 = lambda d: -(-d // 8) * 8
+            out[name] = (route, n, pad8(cq // heads), pad8(cv // heads), heads, scale)
+        else:
+            out[name] = (route, n, cq, cv, heads, scale)
+    return out
+
+
+def _train_call_inputs(gen, b, route, n, cq, cv, heads, scale, score_std, dtype):
+    """q, k, v, dO and the call's head count of one training site at batch
+    b: packed heads as column views of one packed qkv; folded heads as the
+    fold copy makes them, (b * heads, N, width) with the columns past the
+    head width (scale ** -2) zero."""
+    import torch
+
+    randn = lambda *s: torch.randn(*s, generator=gen, device=DEVICE)
+    if route == "packed":
+        std = (score_std / (scale * (cq // heads) ** 0.5)) ** 0.5
+        qkv = randn(b, n, 3 * cq)
+        qkv[..., :2 * cq] *= std
+        qkv = qkv.to(dtype)
+        return qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:], randn(b, n, cv).to(dtype), \
+            heads
+    bb, d = (b * heads, round(scale ** -2)) if route == "folded" else (b, cq)
+    std = (score_std / (scale * d ** 0.5)) ** 0.5
+    q, k = (randn(bb, n, cq) * std for _ in range(2))
+    v, do = randn(bb, n, cv), randn(bb, n, cv)
+    if route == "folded":
+        for t in (q, k):
+            t[..., d:] = 0
+        for t in (v, do):
+            t[..., d:] = 0
+    return q.to(dtype), k.to(dtype), v.to(dtype), do.to(dtype), 1
+
+
+def _bwd_variant(q, k, v, do, lse, dcap, scale, h, qk_cols=None, v_cols=None, keys=None):
+    """The plain backward's arithmetic (attention_vjp._bwd_plain) with a
+    planted fault: q/k columns `qk_cols` (lo, hi) left out of the
+    recomputed S, v/dO columns `v_cols` left out of dP, or only the first
+    `keys` keys read. -> {"dq", "dk", "dv"}"""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    qh, kh, vh, doh = (V._split_heads(t, h).float() for t in (q, k, v, do))
+    if keys is not None:
+        kh, vh = kh[..., :keys, :], vh[..., :keys, :]
+    lse4, d4 = V._stats4(lse, h).float(), V._stats4(dcap, h).float()
+
+    def without(t, cols):
+        if cols is None:
+            return t
+        t = t.clone()
+        t[..., cols[0]:cols[1]] = 0
+        return t
+
+    qs, ks = without(qh, qk_cols), without(kh, qk_cols)
+    vd = without(vh, v_cols)
+    s_scale = scale * V.A.LOG2E
+    dq = torch.empty_like(qh)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for i in range(0, qh.shape[-2], 1024):
+        rows = slice(i, i + 1024)
+        s = torch.matmul(qs[..., rows, :], ks.transpose(-1, -2))
+        p = torch.exp2(s * s_scale - lse4[..., rows, :] * V.A.LOG2E)
+        dob = doh[..., rows, :]
+        dob_d = without(dob, v_cols)
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dob)
+        ds = p * (torch.matmul(dob_d, vd.transpose(-1, -2)) - d4[..., rows, :]) * scale
+        dq[..., rows, :] = torch.matmul(ds.to(k.dtype).float(), kh)
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2), qh[..., rows, :])
+    if keys is not None:  # the dropped keys' gradients stay unwritten
+        pad = lambda t: torch.nn.functional.pad(t, (0, 0, 0, q.shape[1] - keys))
+        dk, dv = pad(dk), pad(dv)
+    return {name: V.A._heads_last(t).to(q.dtype)
+            for name, t in (("dq", dq), ("dk", dk), ("dv", dv))}
+
+
+def _scale_train_faults(q, k, v, do, lse, dcap, scale, h, sound):
+    """The planted faults of the width loop and the tails, as the plain
+    backward with each fault computes them -> {fault: {grad: value}}: a
+    q/k slab left out of S (columns 128..255, or the upper half of widths
+    up to 128), a v/dO slab left out of dP in the dq and dk passes, the last
+    dv pass (columns from the last multiple of 256) unwritten, the tail key
+    tile (the last 32 keys) left out."""
+    d1, d2 = q.shape[-1] // h, v.shape[-1] // h
+    half = lambda d: (128, 256) if d > 128 else (d // 2, d)
+    n = q.shape[1]
+    faults = {"qk_slab_dropped": _bwd_variant(q, k, v, do, lse, dcap, scale, h,
+                                              qk_cols=half(d1))}
+    vf = _bwd_variant(q, k, v, do, lse, dcap, scale, h, v_cols=half(d2))
+    faults["v_slab_dropped_from_dP"] = {"dq": vf["dq"], "dk": vf["dk"]}
+    last = (d2 - 1) // 256 * 256
+    dv = sound["dv"].clone().reshape(*sound["dv"].shape[:2], h, d2)
+    dv[..., last:] = 0
+    faults["last_dv_pass_dropped"] = {"dv": dv.reshape(sound["dv"].shape)}
+    tail = _bwd_variant(q, k, v, do, lse, dcap, scale, h, keys=n - (n % 32 or 32))
+    faults["tail_key_tile_dropped"] = {"dq": tail["dq"]}
+    return faults
+
+
+TRAIN_SCALE_CASES = tuple((phi, (640, 640), "bfloat16") for phi in SCALE_PHIS) + (
+    ("s", (480, 576), "bfloat16"), ("m", (480, 576), "bfloat16"),
+    ("n", (640, 640), "float32"), ("n", (480, 576), "float32"))
+
+
+def train_scale_kernel_phase() -> dict:
+    """Rows 9-11 at every training site of phi 'n', 'm', 'l' and 'x'
+    640x640, at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and
+    peaked inputs: the forward's out within the kernel bar (fp32: the fp32
+    bar) and lse within LSE_ATOL (fp32: 1e-4), the gradients within the
+    gradient bar, the backward bit-identical over two runs; each planted
+    fault (those of the phi='s' phase, a q/k slab left out of S, a v/dO
+    slab left out of dP, the last dv pass unwritten, the tail key tile
+    left out) rejected on some input spread. Times the phi='m' sites (bf16)
+    and the phi='n' sites (fp32) beside bound, plain and SDPA forward /
+    backward. Returns {"rows": {form: [site rows]}, "err": {form: max abs}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    rows = {}
+    err = {}
+    for phi, hw, dtype in TRAIN_SCALE_CASES:
+        dt = getattr(torch, dtype)
+        is32 = dt == torch.float32
+        sites = train_call_sites(phi, hw)
+        if is32 and phi == "n" and hw == (640, 640):
+            m_h4 = train_call_sites("m")["h4"]
+            sites = {**sites, "phi=m h4": m_h4}
+        for name, (route, n, cq, cv, heads, scale) in sites.items():
+            if hw != (640, 640) and name not in ("dark3", "h2"):
+                continue
+            tag = f"phi={phi} {hw[0]}x{hw[1]} {name} {route}" + (" fp32" if is32 else "")
+            bar = _f32_bar_used if is32 else bar_used
+            lse_tol = F32_LSE_ATOL if is32 else LSE_ATOL
+            rejected = {}
+            readings = {k: [] for k in TRAIN_KERNELS}
+            for score_std in SCORE_STDS:
+                q, k, v, do, h = _train_call_inputs(gen, 2, route, n, cq, cv, heads, scale,
+                                                    score_std, dt)
+                out, lse = V.flash_fwd_lse(q, k, v, scale, h)
+                torch.cuda.synchronize()
+                pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+                fwd = {"score_std": score_std, "bar_used": bar(out, pout),
+                       "max_abs_err": float((out.float() - pout.float()).abs().max()),
+                       "lse_max_abs_err": float((lse - plse).abs().max())}
+                check(fwd["bar_used"] <= 1.0 and fwd["lse_max_abs_err"] <= lse_tol,
+                      f"flash_fwd_lse {tag}: {fwd}")
+                for f, (fo, fl) in _fwd_faults(V, q, k, v, scale, h).items():
+                    used = max(bar(fo, pout), float((fl - plse).abs().max()) / lse_tol)
+                    rejected[f"fwd {f}"] = max(rejected.get(f"fwd {f}", 0.0), used)
+                readings["flash_fwd_lse"].append(fwd)
+
+                dcap = V.compute_dcap(pout, do, h)
+                args = (q, k, v, do, plse, dcap, scale, h)
+                got = {"dq": V.flash_bwd_dq(*args)}
+                got["dk"], got["dv"] = V.flash_bwd_dkv(*args)
+                again = {"dq": V.flash_bwd_dq(*args)}
+                again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
+                torch.cuda.synchronize()
+                check(all(torch.equal(got[g], again[g]) for g in got),
+                      f"flash backward {tag}: two runs gave different bits")
+                ref = {"dq": V.flash_bwd_dq_plain(*args)}
+                ref["dk"], ref["dv"] = V.flash_bwd_dkv_plain(*args)
+                faults = {**_bwd_faults(V, *args),
+                          **_scale_train_faults(*args, sound=ref)}
+                for kname, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+                    r = {"score_std": score_std, "bitwise_repeat": True}
+                    for g in grads:
+                        r[g] = grad_reading(got[g], ref[g], is32)
+                        check(r[g]["bar_used"] <= 1.0, f"{kname} {tag} {g}: {r[g]}")
+                    r["bar_used"] = max(r[g]["bar_used"] for g in grads)
+                    r["max_abs_err"] = max(r[g]["max_abs_err"] for g in grads)
+                    readings[kname].append(r)
+                    for f, fg in faults.items():
+                        used = [grad_reading(fg[g], ref[g], is32)["bar_used"]
+                                for g in grads if g in fg]
+                        if used:
+                            key = f"{kname} {f}"
+                            rejected[key] = max(rejected.get(key, 0.0), max(used))
+            for f, used in rejected.items():
+                check(used > 1.0, f"{tag}: the bar rejects {f} on no input spread ({used:.3g}x)")
+            print(json.dumps({"train_scale_case": tag, "n": n, "cq": cq, "cv": cv, "heads": h,
+                              "readings": readings, "faults_rejected_by": rejected}), flush=True)
+            suffix = " fp32" if is32 else ""
+            for kname in TRAIN_KERNELS:
+                form = kname + suffix
+                err[form] = max(err.get(form, 0.0),
+                                max(x["max_abs_err"] for x in readings[kname]))
+            timed = (phi == "m" and hw == (640, 640) and not is32) or \
+                (is32 and phi == "n" and hw == (640, 640) and name != "phi=m h4")
+            if not timed:
+                continue
+            # time on the last (peaked) inputs
+            b = q.shape[0]
+            cq_all, cv_all = q.shape[-1], v.shape[-1]
+            costs = _train_costs(b, n, cq_all, cv_all, h)
+            kern = {"flash_fwd_lse": lambda: V.flash_fwd_lse(q, k, v, scale, h),
+                    "flash_bwd_dq": lambda: V.flash_bwd_dq(*args),
+                    "flash_bwd_dkv": lambda: V.flash_bwd_dkv(*args)}
+            plain = {"flash_fwd_lse": lambda: V.flash_fwd_lse_plain(q, k, v, scale, h),
+                     "flash_bwd_dq": lambda: V.flash_bwd_dq_plain(*args),
+                     "flash_bwd_dkv": lambda: V.flash_bwd_dkv_plain(*args)}
+            qh, kh, vh, doh = (V._split_heads(t, h).detach().contiguous() for t in (q, k, v, do))
+            qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+            sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                                5, 1)
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(qh, kh, vh, scale=scale).backward(doh)
+            sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 5, 1) - sdpa_fwd, 0.0)
+            library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
+                       "flash_bwd_dkv": sdpa_bwd}
+            peak = PEAK_F32_FLOPS if is32 else PEAK_BF16_FLOPS
+            for kname in TRAIN_KERNELS:
+                ops, nbytes = costs[kname]
+                nbytes *= q.element_size() / 2
+                t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+                row = dict(node=name, route=route, b=b, n=n, cq=cq_all, cv=cv_all, heads=h,
+                           readings=readings[kname],
+                           max_abs_err=max(x["max_abs_err"] for x in readings[kname]),
+                           ms=timed_ms(kern[kname], 5, 1),
+                           plain_ms=timed_ms(plain[kname], 1, 1), library_ms=library[kname],
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes else "bytes")
+                rows.setdefault(kname + (" fp32 phi=n" if is32 else " phi=m"), []).append(row)
+                print(json.dumps({"kernel": kname + suffix, **row}), flush=True)
+    print(json.dumps({"train_scale_kernel_max_abs_err": err}), flush=True)
+    return {"rows": rows, "err": err}
+
+
+def _leaky_fold(real_fold):
+    """Planted fault: the fold copy's backward hands dq's first padded
+    column back in place of its last real column (a padded fold column
+    leaking into dq; q only)."""
+    import torch
+
+    class Leak(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, heads):
+            ctx.heads, ctx.shape = heads, t.shape
+            return real_fold(t.detach(), heads)
+
+        @staticmethod
+        def backward(ctx, g):
+            b, n, c = ctx.shape
+            d = c // ctx.heads
+            g4 = g.reshape(b, ctx.heads, n, -1)
+            cols = torch.cat([g4[..., :d - 1], g4[..., d:d + 1]], dim=-1)
+            return cols.transpose(1, 2).reshape(b, n, c), None
+
+    calls = []
+
+    def fold(t, heads):
+        calls.append(1)
+        return Leak.apply(t, heads) if len(calls) % 3 == 1 else real_fold(t, heads)
+    return fold
+
+
+def folded_route_check() -> dict:
+    """The folded training route through `attention(..., train=True)` at
+    the odd-width sites (phi='n' h1, 3 heads of 283; phi='m' h1, 8 of 599;
+    batch 2): output and the gradients of q, k, v with kernels against the
+    plain route, and the plain route with the padded fold column leaking
+    into dq, which the gradient bar must reject."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    out = {}
+    for phi in ("n", "m"):
+        n, c, _, heads, _ = scale_sites(phi)["h1"]
+        check(A.train_route(n, c, heads) == "folded" and (c // heads) % 8,
+              f"phi={phi} h1 is not an odd-width folded site")
+        scale = (c // heads) ** -0.5
+        std = (2.0 / (scale * (c // heads) ** 0.5)) ** 0.5
+        base = [(torch.randn(2, n, c, generator=gen, device=DEVICE) * w).bfloat16()
+                for w in (std, std, 1.0)]
+        g = torch.randn(2, n, c, generator=gen, device=DEVICE).bfloat16()
+
+        def run(impl):
+            leaves = [t.clone().requires_grad_() for t in base]
+            o = A.attention(*leaves, scale, impl=impl, num_heads=heads, train=True)
+            o.backward(g)
+            return o.detach(), [t.grad for t in leaves]
+
+        ok, gk = run(None)
+        op, gp = run("plain")
+        real = A._fold_heads
+        A._fold_heads = _leaky_fold(real)
+        try:
+            _, gf = run("plain")
+        finally:
+            A._fold_heads = real
+        r = {"out_bar_used": bar_used(ok, op),
+             "grads": [grad_reading(a, b)["bar_used"] for a, b in zip(gk, gp)],
+             "leak_into_dq_bar_used": grad_reading(gf[0], gp[0])["bar_used"]}
+        print(json.dumps({"folded_route": f"phi={phi} h1", "n": n, "heads": heads,
+                          "width": c // heads, **r}), flush=True)
+        check(r["out_bar_used"] <= 1.0 and max(r["grads"]) <= 1.0,
+              f"phi={phi} h1 folded route with kernels differs from plain: {r}")
+        check(r["leak_into_dq_bar_used"] > 1.0,
+              f"phi={phi} h1: the bar does not reject a padded column leaking into dq: {r}")
+        out[phi] = r
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2887,11 +3345,20 @@ def main() -> int:
     variants = variant_slice_phase(card, bf16_model, same_run)
     del bf16_model
     torch.cuda.empty_cache()
-    train_launches = train_slice_phase(card)
+    train_launches = train_slice_phase(card)["launches"]
     scale_err = scale_kernel_phase()
     m_run = scale_slice_phase(card, "m", ("bf16", "int8", "A", "B"), (32, 1), timed=True)
     n_run = scale_slice_phase(card, "n", ("bf16", "int8"), (2,), timed=False)
     serve_matrix_phase(card)
+    train_scale = train_scale_kernel_phase()
+    folded_route_check()
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+
+    m_train = train_slice_phase(card, ModelConfig(phi="m", remat=True), train_batches=(16, 8),
+                                faults=(), rejects=())
+    n_train = train_slice_phase(card, ModelConfig(phi="n"), rejects=(), timed=False)
+    n32_train = train_slice_phase(card, ModelConfig(phi="n", compute_dtype="float32"),
+                                  rejects=(), timed=False)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
@@ -2955,6 +3422,18 @@ def main() -> int:
             kernels.append(int8_kernel_entry(
                 f"{name} {label}", source, replaces, r["rows"][name],
                 r["launches"][batch][name], scale_err.get(name + suffix, 0.0)))
+    # rows 9-11 at the other scales: phi='m' 640x640 bf16 (launches of the
+    # counted batch-2 remat step, times of its four sites at batch 2) and
+    # fp32 (launches of the phi='n' fp32 step, times of its sites); errors
+    # the largest of the train scale kernel phase
+    for label, run, suffix in (("phi=m", m_train, ""), ("fp32 phi=n", n32_train, " fp32")):
+        for name, source, line in (("flash_fwd_lse", src, 63), ("flash_bwd_dq", vsrc, 170),
+                                   ("flash_bwd_dkv", vsrc, 197)):
+            kernels.append(int8_kernel_entry(
+                f"{name} {label}", source, f"{jv}:{line}",
+                train_scale["rows"][f"{name}{suffix} {label.split()[-1]}"],
+                run["launches"][name], train_scale["err"][name + suffix]))
+    check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))

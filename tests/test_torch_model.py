@@ -88,6 +88,10 @@ def test_build_model_on_cpu():
     int8 = build_model(ModelConfig(phi="n", input_shape=(64, 64), int8_dense=True,
                                    int8_attn=True), device="cpu", seed=3)
     assert int8.neck.h1.teb.int8_dense and int8.backbone.dark3_attn.int8_attn
-    for flags in (dict(int8_1x1=True), dict(remat=True)):
-        with pytest.raises(NotImplementedError):
-            build_model(ModelConfig(**flags), device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_model(ModelConfig(int8_1x1=True), device="cpu")
+    remat = build_model(ModelConfig(phi="n", input_shape=(64, 64), compute_dtype="float32",
+                                    remat=True), device="cpu", seed=3)
+    assert remat.neck.remat and not model.neck.remat
+    for a, b in zip(model.parameters(), remat.parameters()):
+        assert torch.equal(a, b)

@@ -3,8 +3,8 @@ the model, training and predict settings of
 transparent_object_detection_tpu/config.py (the port imports nothing of the
 JAX package).
 
-Fields the port does not implement yet (`int8_1x1`, `remat`) are kept so a
-configuration reads the same in both packages; `build_model` refuses them.
+The field the port does not implement yet (`int8_1x1`) is kept so a
+configuration reads the same in both packages; `build_model` refuses it.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class ModelConfig:
     # Largest head count <= num_heads dividing the TEB width (see
     # models/blocks._pick_num_heads).
     num_heads: int = 8
-    remat: bool = False  # activation recomputation in training; not ported yet
+    remat: bool = False  # recompute each neck fusion node's activations in the backward
     norm_dtype: str = "float32"  # LayerNorm compute dtype
     # Prefer head counts whose head width is a multiple of 128 (6 x 256 on the
     # phi='s' 1536-channel TEBs); part of the function being computed.

@@ -1,7 +1,8 @@
-// Flash-attention backward for Hopper (sm_90a): bf16 operands, fp32
-// accumulation, P and dS recomputed from q, k and the forward's logsumexp.
-// Replaces the two TPU kernels of
-// transparent_object_detection_tpu/ops/attention_vjp.py (flash_bwd):
+// Flash-attention backward for Hopper (sm_90a): fp32 accumulation, P and dS
+// recomputed from q, k and the forward's logsumexp. Replaces the two TPU
+// kernels of transparent_object_detection_tpu/ops/attention_vjp.py
+// (flash_bwd) over their whole domain: bf16 or fp32 operands, any q/k and v
+// head widths that are multiples of 8, any N:
 //
 //   * _bwd_dq_kernel:  dq = sum_k dS K          (one block per query block)
 //   * _bwd_dkv_kernel: dk = sum_q dS^T Q,  dv = sum_q P^T dO
@@ -11,42 +12,57 @@
 //   P  = exp(S * scale - lse)   (computed as exp2(S * scale * log2 e - lse * log2 e))
 //   dP = dO V^T
 //   dS = P * (dP - D) * scale,  D = rowsum(dO * O) (computed in PyTorch)
-// and P and dS cast to bf16 before their products, as the Pallas kernels
-// cast them (attention_vjp.py:187-189, 216-223). Both forms of the JAX
-// launcher: packed multi-head (q/k/v and dq/dk/dv as column views of packed
-// (B, N, 3C) arrays, head h at column h * dh) and single-head with q/k width
-// != v width (the dark3 SelfAttention, dq 64, dv 512).
+// and P and dS cast to the input type before their products, as the Pallas
+// kernels cast them (attention_vjp.py:187-189, 216-223): bf16, or nothing on
+// fp32 inputs. Both forms of the JAX launcher: packed multi-head (q/k/v and
+// dq/dk/dv as column views of packed (B, N, 3C) arrays, head h at column
+// h * dh) and single-head with q/k width != v width (the dark3
+// SelfAttention, and folded heads, zero-padded by the wrapper's fold copy).
 //
-// Bound. At phi='s' 640x640 the backward does 2*N^2*(4*dq + 3*dv) operations
-// per image (the count attention.py logs for the Pallas backward): 1.155e12
-// over the four sites, on inputs of a few tens of MB, so it is bound by the
-// tensor cores (~1.17 ms an image at 989 TFLOP/s bf16; derived, not
-// measured).
+// Bound. The backward does 2*N^2*(4*dq + 3*dv) operations per image and
+// head (the count attention.py logs for the Pallas backward): 1.155e12 per
+// image over the four phi='s' 640x640 sites, 2.34e12 at phi='m', on inputs
+// of tens of MB, so it is bound by the tensor cores (~1.17 and ~2.4 ms an
+// image at 989 TFLOP/s bf16; derived, not measured); fp32 by the 67 TFLOP/s
+// of fp32 FMA.
 //
-// Design. One templated kernel computes all three gradients. A block owns 64
-// "rows" (4 warps x 16) and walks the other axis in tiles of 32 inside the
-// block, so nothing is reduced across blocks: there are no atomics, and the
-// gradient has the same bits from run to run.
-//   MODE_DQ: rows are queries (q, dO in shared memory), columns keys (k, v
-//            tiles); lse and D per row; acc += dS K.
-//   MODE_DK: rows are keys (k, v), columns queries (q, dO tiles); S^T = K Q^T
-//            and dP^T = V dO^T on the same mma tiles, lse and D per column;
+// Design. Three modes, each a launch; a block owns 64 "rows" (4 warps x 16)
+// and walks the other axis in tiles of 32 inside the block, so nothing is
+// reduced across blocks: there are no atomics, and the gradient has the
+// same bits from run to run.
+//   MODE_DQ: rows are queries (q, dO), columns keys (k, v); lse and D per
+//            row; acc += dS K.
+//   MODE_DK: rows are keys (k, v), columns queries (q, dO); S^T = K Q^T and
+//            dP^T = V dO^T on the same mma tiles, lse and D per column;
 //            acc += dS^T Q.
-//   MODE_DV: rows are keys (k), columns queries (q, and a 256-wide slice of
-//            dO); acc += P^T dO.
-// The fp32 accumulator of 16 rows x W columns takes W/2 registers a thread;
-// W = 256 is the widest that fits beside the score tiles (the forward's
-// limit too). dk and dv together would be 512 wide, so the dkv kernel of the
-// TPU is two launches here: the dk pass (needs dP, contracts over all of dv)
-// and the dv pass (needs only P; dark3's 512-wide dv in two 256-wide slices,
-// each recomputing S over dq = 64). That recomputes S once more per key
-// block: 2*N^2*dq more operations (+14% on the neck's dh = 256, +4% on
-// dark3). Shared memory a block: 101 KB (packed dq/dk), 114 KB (dark3
-// dq/dk), 66 KB and 30 KB (dv), so up to two blocks an SM. P and dS go from the fp32
-// accumulator layout straight into the bf16 A operand (registers, as P in
-// the forward); the column tile that the last product does not read is
-// refetched with cp.async while it runs. Ragged N is masked: columns past N
-// get P = 0, rows past N are computed on zeros and not stored.
+//   MODE_DV: rows are keys (k), columns queries (q, dO); acc += P^T dO.
+// The fp32 accumulator of 16 rows x W columns takes W/2 registers a thread,
+// so a block accumulates at most 256 output columns; the dkv kernel of the
+// TPU is two launches here (dk needs dP, dv only P).
+//   * The phi='s' widths (q/k, v) = (256, 256) and (64, 512) keep their own
+//     kernel (flash_bwd_kernel, templated on the widths): rows resident in
+//     shared memory, full-width column tiles, dv in 256-wide slices.
+//   * Every other width takes flash_bwd_wide_kernel: a column tile is a
+//     sequence of steps on one 3-stage cp.async ring of 128-column slabs:
+//     S accumulates over ceil(dq / 128) slabs of q and k, dP over ceil(dv /
+//     128) slabs of dO and v, then the output product streams its operand
+//     (K, Q or dO) in slabs too. The block's rows stay in shared memory
+//     where its blocks an SM still fit, else they stream with the columns.
+//     An output up to 256 columns wide is one pass of 4 warps; a wider one
+//     (dq, dk; dv when q/k is 768 or wider) takes passes of 512 columns
+//     with 8 warps, two column halves that split each score tile and trade
+//     its P or dS through shared memory; each pass recomputes S and dP (the
+//     registers hold one pass), the last one masked. Extra operations
+//     against the Pallas count: (passes - 1) * 2*N^2*(dq + dv) for dq and
+//     for dk, (passes - 1) * 2*N^2*dq for dv, and 2*N^2*dq for the dv
+//     launch's own S: at phi='m' h2 (8 heads of 384: one pass for dq and
+//     dk, two for dv) 1.29x the Pallas count, at h1 (folded 600: two, two,
+//     three) 2.0x.
+//   * fp32 (flash_bwd_f32_kernel): 32 rows a block, CUDA-core FFMA from
+//     shared-memory slabs, 128-column output passes.
+// P and dS go from the fp32 accumulator layout straight into the bf16 A
+// operand (registers, as P in the forward). Ragged N is masked: columns
+// past N get P = 0, rows past N are computed on zeros and not stored.
 #include "flash_common.cuh"
 
 namespace {
@@ -69,6 +85,8 @@ struct BwdParams {
   int q_row, k_row, v_row, do_row, out_row;                  // elements between rows
   int qk_head, v_head;  // column step between heads: q/k/dq/dk, and v/dO/dv
   int n, dv_splits;     // dv_splits: DVT-wide slices of dv (MODE_DV), else 1
+  int d1, d2;           // q/k and v widths of one head
+  int splits;           // output passes of the wide and fp32 kernels
   float scale, scale_log2;
 };
 
@@ -272,13 +290,462 @@ cudaError_t launch(const BwdParams& p, int batch, int heads, cudaStream_t stream
   return cudaGetLastError();
 }
 
-// the (q/k, v) head widths of the phi='s' training path: neck heads (256,
-// 256), dark3 (64, 512); any other pair is refused
+// ---------------------------------------------------------------------------
+// every other width: q/k, v and the output's operand streamed in SL-column
+// slabs through one ring; 4 warps a block for outputs up to 256 columns, 8
+// (two column halves) for wider ones, in passes of at most 512 columns
+// ---------------------------------------------------------------------------
+constexpr int SL = 128;              // columns of one streamed slab
+constexpr int STAGES = 3;            // slabs in flight
+constexpr int XT = BC + PAD;         // row stride of the X (P or dS) tile
+constexpr int SM_SMEM = 233472;      // shared memory of one SM (228 KB)
+constexpr int MAX_SMEM = 232448;     // dynamic shared memory a block may use
+
+// ROWS x cols bf16 tile into shared memory (row stride ld), columns [0,
+// cols_valid) of rows [0, rows_valid) read, the rest zero-filled; cols and
+// cols_valid multiples of 8. All NT threads of the block take part.
+template <int ROWS, int NT>
+__device__ __forceinline__ void load_block(__nv_bfloat16* dst, int ld, const __nv_bfloat16* src,
+                                           int stride, int cols, int rows_valid,
+                                           int cols_valid) {
+  const int chunks = cols / 8;
+  for (int i = threadIdx.x; i < ROWS * chunks; i += NT) {
+    const int r = i / chunks;
+    const int c = (i % chunks) * 8;
+    const bool valid = r < rows_valid && c < cols_valid;
+    cp_async16(dst + r * ld + c, src + (valid ? (long long)r * stride + c : 0), valid);
+  }
+}
+
+// acc (this warp's 16 rows x 16 * NG columns) += A (16 x SL at a_s) B^T
+// (b_s: the warp's columns, SL wide, row stride SL + PAD)
+template <int NG>
+__device__ __forceinline__ void slab_product(float (&acc)[2 * NG][4], const __nv_bfloat16* a_s,
+                                             const __nv_bfloat16* b_s) {
+#pragma unroll
+  for (int kk = 0; kk < SL / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_s + kk * 16);
+#pragma unroll
+    for (int nn = 0; nn < NG; ++nn) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b_s + nn * 16 * (SL + PAD) + kk * 16);
+      mma_16816(acc[2 * nn], a, bf[0], bf[1]);
+      mma_16816(acc[2 * nn + 1], a, bf[2], bf[3]);
+    }
+  }
+}
+
+// The same three modes as flash_bwd_kernel for any widths d1 (q/k) and d2
+// (v) that are multiples of 8. A block owns 64 rows and an OW-wide pass of
+// the output, columns o0 .. o0 + OW (the last pass masked), with 4 * WC
+// warps: warp w takes rows (w % 4) * 16 and column half w / 4 (WC = 2) or
+// all columns (WC = 1). A column tile of 32 is a sequence of steps on one
+// STAGES-deep cp.async ring of SL-column slabs: S = R1 C1^T over s1 =
+// ceil(d1 / SL) slabs and dP = R2 C2^T over s2 = ceil(d2 / SL), each warp
+// its 16 x 32 / WC part of the 64 x 32 tile; X = P (dv) or dS (dq, dk)
+// becomes the bf16 A operand, straight from the accumulators (WC = 1) or
+// through shared memory, so that both halves read their 16 rows in full
+// (WC = 2); then acc += X Y over the OW / SL slabs of Y, the column tile's
+// slice of K (dq), Q (dk) or dO (dv), each column half accumulating its
+// half of every slab (16 x OW / WC a warp: OW / (2 WC) registers). With
+// RRES the block's rows of R1 and R2 stay in shared memory; otherwise each
+// S and dP step brings its row slab too.
+template <int MODE, int OW, int WC, bool RRES>
+__global__ void __launch_bounds__(THREADS * WC) flash_bwd_wide_kernel(const BwdParams p) {
+  constexpr bool WITH_DP = MODE != MODE_DV;
+  constexpr int NT = THREADS * WC;
+  constexpr int ST = SL + PAD;
+  constexpr int RT = BR * ST, CT = BC * ST;
+  constexpr int NY = OW / SL;       // Y slabs a pass
+  constexpr int HSL = SL / WC;      // a warp's columns of a Y slab
+  constexpr int NG = BC / WC / 16;  // a warp's 16-column groups of the score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d1 = p.d1, d2 = p.d2;
+  const int s1 = (d1 + SL - 1) / SL;
+  const int s2 = WITH_DP ? (d2 + SL - 1) / SL : 0;
+  const int ns = s1 + s2 + NY;  // steps per column tile
+  const int ld1 = s1 * SL + PAD, ld2 = (d2 + SL - 1) / SL * SL + PAD;  // resident row strides
+  __nv_bfloat16* sX = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BR x XT (WC = 2)
+  __nv_bfloat16* sR = sX + (WC == 2 ? BR * XT : 0);
+  __nv_bfloat16* sC = sR + (RRES ? BR * ld1 + (WITH_DP ? BR * ld2 : 0) : STAGES * RT);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wr = warp & 3, wc = warp >> 2;  // row group, column half
+  const int r0 = blockIdx.x * BR;
+  const int head = blockIdx.y / p.splits;
+  const int o0 = (blockIdx.y % p.splits) * OW;  // first output column of this pass
+  const int b = blockIdx.z;
+  const int n = p.n;
+
+  const __nv_bfloat16* qg = p.q + b * p.q_batch + head * p.qk_head;
+  const __nv_bfloat16* kg = p.k + b * p.k_batch + head * p.qk_head;
+  const __nv_bfloat16* vg = p.v + b * p.v_batch + head * p.v_head;
+  const __nv_bfloat16* dog = p.dO + b * p.do_batch + head * p.v_head;
+  const long long stat = ((long long)b * (gridDim.y / p.splits) + head) * n;
+  const float* lse_g = p.lse + stat;
+  const float* d_g = p.dcap + stat;
+
+  const __nv_bfloat16* r1 = MODE == MODE_DQ ? qg : kg;
+  const int r1_row = MODE == MODE_DQ ? p.q_row : p.k_row;
+  const __nv_bfloat16* r2 = MODE == MODE_DQ ? dog : vg;
+  const int r2_row = MODE == MODE_DQ ? p.do_row : p.v_row;
+  const __nv_bfloat16* c1 = MODE == MODE_DQ ? kg : qg;
+  const int c1_row = MODE == MODE_DQ ? p.k_row : p.q_row;
+  const __nv_bfloat16* c2 = MODE == MODE_DQ ? vg : dog;
+  const int c2_row = MODE == MODE_DQ ? p.v_row : p.do_row;
+  const __nv_bfloat16* yg = MODE == MODE_DQ ? kg : MODE == MODE_DK ? qg : dog;
+  const int y_row = MODE == MODE_DQ ? p.k_row : MODE == MODE_DK ? p.q_row : p.do_row;
+  const int wout = MODE == MODE_DV ? d2 : d1;
+  __nv_bfloat16* og = p.out + b * p.out_batch +
+                      (MODE == MODE_DV ? head * p.v_head : head * p.qk_head) + o0;
+
+  const int n_tiles = (n + BC - 1) / BC;
+  const int total = n_tiles * ns;
+  // step g of column tile g / ns: slab j = g % ns of S (j < s1), of dP
+  // (j < s1 + s2) or of Y, into ring stage g % STAGES
+  auto load_step = [&](int g) {
+    if (g >= total) return;
+    const int t = g / ns, j = g % ns, st = g % STAGES;
+    const long long row0 = (long long)t * BC;
+    if (j >= s1 + s2) {
+      const int y0 = o0 + (j - s1 - s2) * SL;
+      load_block<BC, NT>(sC + st * CT, ST, yg + row0 * y_row + y0, y_row, SL, n - t * BC,
+                         wout - y0);
+      return;
+    }
+    const bool second = j >= s1;
+    const int c0 = (second ? j - s1 : j) * SL;
+    const int w = second ? d2 : d1;
+    if (!RRES) {
+      const __nv_bfloat16* src = second ? r2 : r1;
+      const int row = second ? r2_row : r1_row;
+      load_block<BR, NT>(sR + st * RT, ST, src + (long long)r0 * row + c0, row, SL, n - r0,
+                         w - c0);
+    }
+    const __nv_bfloat16* src = second ? c2 : c1;
+    const int row = second ? c2_row : c1_row;
+    load_block<BC, NT>(sC + st * CT, ST, src + row0 * row + c0, row, SL, n - t * BC, w - c0);
+  };
+
+  if (RRES) {
+    load_block<BR, NT>(sR, ld1, r1 + (long long)r0 * r1_row, r1_row, ld1 - PAD, n - r0, d1);
+    if (WITH_DP)
+      load_block<BR, NT>(sR + BR * ld1, ld2, r2 + (long long)r0 * r2_row, r2_row, ld2 - PAD,
+                         n - r0, d2);
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    load_step(i);
+    cp_async_commit();
+  }
+  int g = 0;
+  // wait for step g's slabs; the stage step g - 1 read takes step g + STAGES - 1
+  auto advance = [&]() {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    load_step(g + STAGES - 1);
+    cp_async_commit();
+  };
+
+  // this thread's rows of the score tile: lane / 4 and lane / 4 + 8 of the
+  // warp's 16; its columns 2 * (lane % 4) + {0, 1} of each 8-column group
+  const int row0 = r0 + wr * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
+  if constexpr (MODE == MODE_DQ) {
+    if (row0 < n) lse_r[0] = lse_g[row0] * LOG2E, d_r[0] = d_g[row0];
+    if (row1 < n) lse_r[1] = lse_g[row1] * LOG2E, d_r[1] = d_g[row1];
+  }
+
+  float acc[NY * HSL / 8][4];
+#pragma unroll
+  for (int i = 0; i < NY * HSL / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int a_row = wr * 16 + (lane & 15);  // A operand ([m][k] tile)
+  const int a_off = (lane >> 4) * 8;
+  // the warp's columns of a C slab, as the B operand ([n][k] tile)
+  const int b_off = (wc * (BC / WC) + (lane & 7) + ((lane >> 4) << 3)) * ST + ((lane >> 3) & 1) * 8;
+  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);  // transposed B ([k][n] tile)
+  const int t_col = (lane >> 4) * 8;
+  __nv_bfloat16* x_w = sX + (wr * 16 + (lane >> 2)) * XT + wc * (BC / WC) + 2 * (lane & 3);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int c0 = t * BC;
+    float s[2 * NG][4], dp[2 * NG][4];
+#pragma unroll
+    for (int i = 0; i < 2 * NG; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    }
+    for (int j = 0; j < s1; ++j, ++g) {
+      advance();
+      const int st = g % STAGES;
+      const __nv_bfloat16* a_s = RRES ? sR + a_row * ld1 + j * SL : sR + st * RT + a_row * ST;
+      slab_product<NG>(s, a_s + a_off, sC + st * CT + b_off);
+    }
+    if constexpr (WITH_DP) {
+      for (int j = 0; j < s2; ++j, ++g) {
+        advance();
+        const int st = g % STAGES;
+        const __nv_bfloat16* a_s = RRES ? sR + BR * ld1 + a_row * ld2 + j * SL
+                                        : sR + st * RT + a_row * ST;
+        slab_product<NG>(dp, a_s + a_off, sC + st * CT + b_off);
+      }
+    }
+
+    // P, then dS = P * (dP - D) * scale; columns past N get P = 0; X in
+    // bf16 (WC = 2: to shared memory, read after the next step's barrier)
+    uint32_t xa[BC / 16][4];
+#pragma unroll
+    for (int i = 0; i < 2 * NG; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + wc * (BC / WC) + i * 8 + 2 * (lane & 3) + (e & 1);
+        float l2, dd = 0.f;
+        if constexpr (MODE == MODE_DQ) {
+          l2 = lse_r[e >> 1];
+          dd = d_r[e >> 1];
+        } else {
+          l2 = col < n ? lse_g[col] * LOG2E : 0.f;
+          if constexpr (WITH_DP) dd = col < n ? d_g[col] : 0.f;
+        }
+        const float pe = col < n ? fast_exp2(s[i][e] * p.scale_log2 - l2) : 0.f;
+        if constexpr (WITH_DP) {
+          s[i][e] = pe * (dp[i][e] - dd) * p.scale;
+        } else {
+          s[i][e] = pe;
+        }
+      }
+      if constexpr (WC == 2) {
+        *reinterpret_cast<uint32_t*>(x_w + i * 8) = pack_bf16(s[i][0], s[i][1]);
+        *reinterpret_cast<uint32_t*>(x_w + 8 * XT + i * 8) = pack_bf16(s[i][2], s[i][3]);
+      }
+    }
+    if constexpr (WC == 1) {
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+        xa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        xa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        xa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        xa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+    }
+
+    // acc[:, this warp's part of slab ys] += X Y_ys, contracted over the BC columns
+#pragma unroll
+    for (int ys = 0; ys < NY; ++ys, ++g) {
+      advance();
+      if (WC == 2 && ys == 0) {
+#pragma unroll
+        for (int kk = 0; kk < BC / 16; ++kk) ldsm_x4(xa[kk], sX + a_row * XT + a_off + kk * 16);
+      }
+      if (o0 + ys * SL + wc * HSL >= wout) continue;  // a masked part of the last pass
+      const __nv_bfloat16* y_s = sC + (g % STAGES) * CT + wc * HSL;
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk) {
+#pragma unroll
+        for (int dn = 0; dn < HSL / 16; ++dn) {
+          uint32_t bf[4];
+          ldsm_x4_trans(bf, y_s + (kk * 16 + t_row) * ST + dn * 16 + t_col);
+          mma_16816(acc[ys * (HSL / 8) + 2 * dn], xa[kk], bf[0], bf[1]);
+          mma_16816(acc[ys * (HSL / 8) + 2 * dn + 1], xa[kk], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < NY * HSL / 8; ++i) {
+    const int col = (i / (HSL / 8)) * SL + wc * HSL + (i % (HSL / 8)) * 8 + 2 * (lane & 3);
+    if (o0 + col >= wout) continue;  // widths are multiples of 8: the pair is whole
+    if (row0 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row0 * p.out_row + col) =
+          __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    }
+    if (row1 < n) {
+      *reinterpret_cast<__nv_bfloat162*>(og + (long long)row1 * p.out_row + col) =
+          __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+    }
+  }
+}
+
+template <int MODE, int OW, int WC, bool RRES>
+cudaError_t launch_wide(const BwdParams& p, int batch, int heads, int smem,
+                        cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_kernel<MODE, OW, WC, RRES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.n + BR - 1) / BR, heads * p.splits, batch);
+  flash_bwd_wide_kernel<MODE, OW, WC, RRES><<<grid, THREADS * WC, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// The rows stay resident where the blocks an SM still fit (the registers
+// allow two 4-warp blocks, or one 8-warp block), else they stream with the
+// columns.
+template <int MODE, int OW, int WC>
+cudaError_t launch_pass(BwdParams& p, int batch, int heads, cudaStream_t stream) {
+  p.splits = ((MODE == MODE_DV ? p.d2 : p.d1) + OW - 1) / OW;
+  const int d1s = (p.d1 + SL - 1) / SL * SL, d2s = (p.d2 + SL - 1) / SL * SL;
+  const int fixed = ((WC == 2 ? BR * XT : 0) + STAGES * BC * (SL + PAD)) * 2;
+  const int resident =
+      (BR * (d1s + PAD) + (MODE != MODE_DV ? BR * (d2s + PAD) : 0)) * 2 + fixed;
+  const bool rres = WC == 1 ? 2 * (resident + 1024) <= SM_SMEM : resident <= MAX_SMEM;
+  if (rres) return launch_wide<MODE, OW, WC, true>(p, batch, heads, resident, stream);
+  return launch_wide<MODE, OW, WC, false>(p, batch, heads, STAGES * BR * (SL + PAD) * 2 + fixed,
+                                          stream);
+}
+
+// Outputs up to 256 columns wide: one pass of 4 warps (two blocks an SM).
+// Wider dq and dk: passes of 512 columns, 8 warps in two column halves
+// sharing each score tile (one block an SM), half the passes and so half
+// the recomputed S and dP. The dv pass recomputes only S (over q/k), so
+// fewer passes pay for the larger block only where q/k is wide: 8 warps
+// from a q/k width of 768, else 4-warp passes of 256. (A sweep of both
+// forms over the training sites of phi n/m/l/x on an H100 set these
+// thresholds: one 8-warp block an SM loses to two 4-warp blocks wherever
+// the pass count does not drop.)
 template <int MODE>
-cudaError_t run(const BwdParams& p, int dqk, int dv, int batch, int heads, cudaStream_t stream) {
+cudaError_t run_wide(BwdParams& p, int batch, int heads, cudaStream_t stream) {
+  const int wout = MODE == MODE_DV ? p.d2 : p.d1;
+  if (wout <= 128) return launch_pass<MODE, 128, 1>(p, batch, heads, stream);
+  if (wout <= 256 || (MODE == MODE_DV && p.d1 < 768))
+    return launch_pass<MODE, 256, 1>(p, batch, heads, stream);
+  return launch_pass<MODE, 512, 2>(p, batch, heads, stream);
+}
+
+// ---------------------------------------------------------------------------
+// fp32 form: CUDA-core FFMA throughout, nothing cast
+// ---------------------------------------------------------------------------
+constexpr int FBR = 32;   // rows per block
+constexpr int FBC = 32;   // columns per tile
+constexpr int FSL = 32;   // contraction columns per slab
+constexpr int FOW = 128;  // output columns per pass
+
+// The three modes in fp32 (compute_dtype="float32" models): each thread owns
+// one row (tid / 4) and a quarter of its 32 scores and FOW output columns;
+// row and column slabs, P or dS, and the Y slice pass through shared memory.
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) flash_bwd_f32_kernel(const BwdParams p) {
+  constexpr bool WITH_DP = MODE != MODE_DV;
+  __shared__ float sA[FBR][FSL + 1];
+  __shared__ float sB[FBC][FSL + 1];
+  __shared__ float sX[FBR][FBC + 1];
+  __shared__ float sY[FBC][FOW];
+  const int tid = threadIdx.x;
+  const int r = tid >> 2, qd = tid & 3;
+  const int r0 = blockIdx.x * FBR;
+  const int head = blockIdx.y / p.splits;
+  const int o0 = (blockIdx.y % p.splits) * FOW;
+  const int b = blockIdx.z;
+  const int n = p.n, d1 = p.d1, d2 = p.d2;
+
+  const float* qg = reinterpret_cast<const float*>(p.q) + b * p.q_batch + head * p.qk_head;
+  const float* kg = reinterpret_cast<const float*>(p.k) + b * p.k_batch + head * p.qk_head;
+  const float* vg = reinterpret_cast<const float*>(p.v) + b * p.v_batch + head * p.v_head;
+  const float* dog = reinterpret_cast<const float*>(p.dO) + b * p.do_batch + head * p.v_head;
+  const long long stat = ((long long)b * (gridDim.y / p.splits) + head) * n;
+  const float* lse_g = p.lse + stat;
+  const float* d_g = p.dcap + stat;
+  const float* r1 = MODE == MODE_DQ ? qg : kg;
+  const int r1_row = MODE == MODE_DQ ? p.q_row : p.k_row;
+  const float* r2 = MODE == MODE_DQ ? dog : vg;
+  const int r2_row = MODE == MODE_DQ ? p.do_row : p.v_row;
+  const float* c1 = MODE == MODE_DQ ? kg : qg;
+  const int c1_row = MODE == MODE_DQ ? p.k_row : p.q_row;
+  const float* c2 = MODE == MODE_DQ ? vg : dog;
+  const int c2_row = MODE == MODE_DQ ? p.v_row : p.do_row;
+  const float* yg = (MODE == MODE_DQ ? kg : MODE == MODE_DK ? qg : dog) + o0;
+  const int y_row = MODE == MODE_DQ ? p.k_row : MODE == MODE_DK ? p.q_row : p.do_row;
+  const int wout = MODE == MODE_DV ? d2 : d1;
+  float* og = reinterpret_cast<float*>(p.out) + b * p.out_batch +
+              (MODE == MODE_DV ? head * p.v_head : head * p.qk_head) + o0;
+
+  const int row = r0 + r;
+  float lse_r = 0.f, d_r = 0.f;
+  if (MODE == MODE_DQ && row < n) lse_r = lse_g[row] * LOG2E, d_r = d_g[row];
+  float acc[FOW / 4];  // columns qd + 4 * c of the pass
+#pragma unroll
+  for (int c = 0; c < FOW / 4; ++c) acc[c] = 0.f;
+
+  // x[jj] += R[row] . C[c0 + qd * 8 + jj] over width w, in FSL-column slabs
+  auto product = [&](float (&x)[FBC / 4], const float* rs, int rs_row, const float* cs,
+                     int cs_row, int w, int c0) {
+    for (int k0 = 0; k0 < w; k0 += FSL) {
+      __syncthreads();
+      for (int i = tid; i < FBR * FSL; i += THREADS) {
+        const int rr = i / FSL, cc = i % FSL;
+        const bool col_ok = k0 + cc < w;
+        sA[rr][cc] = (r0 + rr < n && col_ok) ? rs[(long long)(r0 + rr) * rs_row + k0 + cc] : 0.f;
+        sB[rr][cc] = (c0 + rr < n && col_ok) ? cs[(long long)(c0 + rr) * cs_row + k0 + cc] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int cc = 0; cc < FSL; ++cc) {
+        const float a = sA[r][cc];
+#pragma unroll
+        for (int jj = 0; jj < FBC / 4; ++jj) x[jj] = fmaf(a, sB[qd * (FBC / 4) + jj][cc], x[jj]);
+      }
+    }
+  };
+
+  for (int c0 = 0; c0 < n; c0 += FBC) {
+    float s[FBC / 4], dp[FBC / 4];
+#pragma unroll
+    for (int jj = 0; jj < FBC / 4; ++jj) s[jj] = dp[jj] = 0.f;
+    product(s, r1, r1_row, c1, c1_row, d1, c0);
+    if constexpr (WITH_DP) product(dp, r2, r2_row, c2, c2_row, d2, c0);
+#pragma unroll
+    for (int jj = 0; jj < FBC / 4; ++jj) {
+      const int col = c0 + qd * (FBC / 4) + jj;
+      float l2 = lse_r, dd = d_r;
+      if constexpr (MODE != MODE_DQ) {
+        l2 = col < n ? lse_g[col] * LOG2E : 0.f;
+        dd = (WITH_DP && col < n) ? d_g[col] : 0.f;
+      }
+      const float pe = col < n ? exp2f(s[jj] * p.scale_log2 - l2) : 0.f;
+      sX[r][qd * (FBC / 4) + jj] = WITH_DP ? pe * (dp[jj] - dd) * p.scale : pe;
+    }
+    for (int i = tid; i < FBC * FOW; i += THREADS) {
+      const int rr = i / FOW, cc = i % FOW;
+      sY[rr][cc] = (c0 + rr < n && o0 + cc < wout) ? yg[(long long)(c0 + rr) * y_row + cc] : 0.f;
+    }
+    __syncthreads();
+    for (int jj = 0; jj < FBC; ++jj) {
+      const float x = sX[r][jj];
+#pragma unroll
+      for (int c = 0; c < FOW / 4; ++c) acc[c] = fmaf(x, sY[jj][qd + 4 * c], acc[c]);
+    }
+  }
+  if (row >= n) return;
+#pragma unroll
+  for (int c = 0; c < FOW / 4; ++c) {
+    const int col = qd + 4 * c;
+    if (o0 + col < wout) og[(long long)row * p.out_row + col] = acc[c];
+  }
+}
+
+template <int MODE>
+cudaError_t run_f32(BwdParams& p, int batch, int heads, cudaStream_t stream) {
+  p.splits = ((MODE == MODE_DV ? p.d2 : p.d1) + FOW - 1) / FOW;
+  dim3 grid((p.n + FBR - 1) / FBR, heads * p.splits, batch);
+  flash_bwd_f32_kernel<MODE><<<grid, THREADS, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// bf16 (q/k, v) head widths of the phi='s' training path, neck heads (256,
+// 256) and dark3 (64, 512), keep their own instantiations; every other pair
+// of multiples of 8 takes the wide kernel, fp32 the FFMA kernel
+template <int MODE>
+cudaError_t run(BwdParams& p, int dqk, int dv, int batch, int heads, bool f32,
+                cudaStream_t stream) {
+  if (f32) return run_f32<MODE>(p, batch, heads, stream);
   if (dqk == 256 && dv == 256) return launch<MODE, 256, 256>(p, batch, heads, stream);
   if (dqk == 64 && dv == 512) return launch<MODE, 64, 512>(p, batch, heads, stream);
-  return cudaErrorInvalidValue;
+  return run_wide<MODE>(p, batch, heads, stream);
 }
 
 }  // namespace
@@ -288,13 +755,16 @@ extern "C" {
 // One gradient of the flash backward. mode 0: dq, 1: dk, 2: dv, written to
 // `out` (B, N, heads * width) through its batch and row strides (a column
 // view of a packed dqkv array is fine). q, k (heads * dqk wide), v, dO
-// (heads * dv wide) by pointer and strides; lse and dcap (B, heads, N) fp32,
+// (heads * dv wide) by pointer and strides, bf16 (f32 = 0) or fp32 (f32 =
+// 1); dqk and dv multiples of 8; lse and dcap (B, heads, N) fp32,
 // contiguous. Returns the cudaError_t of the launch.
 int flash_bwd(int mode, const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* dcap, void* out, int batch, int n, int heads,
               int dqk, int dv, long long q_batch, int q_row, long long k_batch, int k_row,
               long long v_batch, int v_row, long long do_batch, int do_row,
-              long long out_batch, int out_row, float scale, void* stream) {
+              long long out_batch, int out_row, float scale, int f32, void* stream) {
+  if (batch <= 0 || n <= 0 || heads <= 0 || dqk <= 0 || dv <= 0 || dqk % 8 || dv % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
@@ -315,16 +785,19 @@ int flash_bwd(int mode, const void* q, const void* k, const void* v, const void*
   p.out_row = out_row;
   p.qk_head = dqk;
   p.v_head = dv;
+  p.d1 = dqk;
+  p.d2 = dv;
   p.n = n;
   p.dv_splits = mode == MODE_DV ? dv / DVT : 1;
+  p.splits = 1;
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dv % DVT != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool fp = f32 != 0;
   switch (mode) {
-    case MODE_DQ: return static_cast<int>(run<MODE_DQ>(p, dqk, dv, batch, heads, s));
-    case MODE_DK: return static_cast<int>(run<MODE_DK>(p, dqk, dv, batch, heads, s));
-    case MODE_DV: return static_cast<int>(run<MODE_DV>(p, dqk, dv, batch, heads, s));
+    case MODE_DQ: return static_cast<int>(run<MODE_DQ>(p, dqk, dv, batch, heads, fp, s));
+    case MODE_DK: return static_cast<int>(run<MODE_DK>(p, dqk, dv, batch, heads, fp, s));
+    case MODE_DV: return static_cast<int>(run<MODE_DV>(p, dqk, dv, batch, heads, fp, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -16,8 +16,8 @@
 //     h1's 3 x 283 and phi='m' h1's 8 x 599, zero-padded by the wrapper).
 //   * flash_fwd_lse (training): replaces
 //     transparent_object_detection_tpu/ops/attention_vjp.py::_fwd_lse_kernel
-//     (flash_fwd_lse), both its packed multi-head and its single-head form:
-//     the bf16 kernel with one more output, the per-(batch, head, query)
+//     (flash_fwd_lse), both its packed multi-head and its single-head form,
+//     at every width and in both types: the same kernels with one more output, the per-(batch, head, query)
 //     logsumexp in the natural-log domain, lse = (m + log2 l) * ln 2 from the
 //     exp2-domain state, which the backward (flash_attn_bwd.cu) recomputes
 //     P from. q/k/v are given by pointer and strides, so the packed form
@@ -393,6 +393,10 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) 
     }
   }
   if (m0 + r >= n) return;
+  // training: lse = (m + log2 l) * ln 2, once per row, as the bf16 kernel
+  if (p.lse != nullptr && split == 0 && qd == 0)
+    p.lse[((long long)b * (gridDim.y / p.dv_splits) + head) * n + m0 + r] =
+        (m_run + log2f(l_run)) * LN2;
   const float inv = 1.f / l_run;
 #pragma unroll
   for (int c = 0; c < FDVT / 4; ++c) {
@@ -419,7 +423,6 @@ cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 cudaError_t run(Params& p, int batch, int heads, bool f32, cudaStream_t stream) {
   if (p.dq <= 0 || p.dv <= 0 || p.dq % 8 || p.dv % 8) return cudaErrorInvalidValue;
   if (f32) {
-    if (p.lse != nullptr) return cudaErrorInvalidValue;
     p.dv_splits = (p.dv + FDVT - 1) / FDVT;
     dim3 grid((p.n + FBM - 1) / FBM, heads * p.dv_splits, batch);
     flash_fwd_f32_kernel<<<grid, THREADS, 0, stream>>>(p);
@@ -483,14 +486,15 @@ int flash_single(const void* q, const void* k, const void* v, void* out, int bat
   return static_cast<int>(run(p, batch, 1, f32 != 0, static_cast<cudaStream_t>(stream)));
 }
 
-// Forward with logsumexp (training, bf16): q, k (B, N, heads * dqk) and v
-// (B, N, heads * dv) given by pointer, batch stride and row stride (so q/k/v
-// may be column views of one packed qkv array; head h at column h * dqk or
-// h * dv) -> out (B, N, heads * dv) bf16, lse (B, heads, N) fp32.
+// Forward with logsumexp (training): q, k (B, N, heads * dqk) and v (B, N,
+// heads * dv) given by pointer, batch stride and row stride (so q/k/v may be
+// column views of one packed qkv array; head h at column h * dqk or h * dv)
+// -> out (B, N, heads * dv) in the input type, lse (B, heads, N) fp32. bf16
+// (f32 = 0) or fp32 (f32 = 1); dqk % 8 == 0, dv % 8 == 0.
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse,
                   int batch, int n, int heads, int dqk, int dv, long long q_batch, int q_row,
                   long long k_batch, int k_row, long long v_batch, int v_row, float scale,
-                  void* stream) {
+                  int f32, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -512,7 +516,7 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, float*
   p.dv = dv;
   p.n = n;
   p.scale_log2 = scale * LOG2E;
-  return static_cast<int>(run(p, batch, heads, false, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(p, batch, heads, f32 != 0, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
-"""Time the serving kernels of this checkout at the phi='s' 640x640 shapes,
-batch 2, on one GPU; prints one JSON line (ms per call, CUDA events, 20
-calls after 3 warm-ups).
+"""Time the serving kernels (rows 1-8) and the training kernels (rows 9-11:
+flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
+this checkout at the phi='s' 640x640 shapes, batch 2, on one GPU; prints one
+JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
-that .gitignore lists) are compared on one card by running each one's copy
-of this script in turns: A, B, B, A.
+that .gitignore lists, with this file copied over its own) are compared on
+one card by running each one's copy of this script in turns: A, B, B, A.
 """
 from __future__ import annotations
 
@@ -24,10 +25,14 @@ import torch  # noqa: E402
 from transparent_object_detection_tpu_torch.kernels import _build  # noqa: E402
 from transparent_object_detection_tpu_torch.ops import attention as A  # noqa: E402
 from transparent_object_detection_tpu_torch.ops import attention_int8 as A8  # noqa: E402
+from transparent_object_detection_tpu_torch.ops import attention_vjp as V  # noqa: E402
 from transparent_object_detection_tpu_torch.ops import quant_matmul as QM  # noqa: E402
 
 # (name, (batch, tokens, channels, heads)) of the phi='s' neck TEBs at 640x640
 NECK = (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)), ("h4", (2, 1600, 1536, 6)))
+# (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training sites
+TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)),
+               ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)))
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -43,6 +48,27 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_training_kernels(randn) -> dict:
+    """ms of flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at each phi='s'
+    training site (q/k/v as column views of one packed qkv for the neck)."""
+    out = {}
+    for name, (b, n, cq, cv, h) in TRAIN_SITES:
+        scale = (cq // h) ** -0.5 if h > 1 else 1.0
+        if h > 1:
+            qkv = randn(b, n, 3 * cq).bfloat16()
+            q, k, v = qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+        else:
+            q, k, v = randn(b, n, cq).bfloat16(), randn(b, n, cq).bfloat16(), \
+                randn(b, n, cv).bfloat16()
+        do = randn(b, n, cv).bfloat16()
+        o, lse = V.flash_fwd_lse(q, k, v, scale, h)
+        args = (q, k, v, do, lse, V.compute_dcap(o, do, h), scale, h)
+        out[f"flash_fwd_lse {name}"] = timed_ms(lambda: V.flash_fwd_lse(q, k, v, scale, h))
+        out[f"flash_bwd_dq {name}"] = timed_ms(lambda: V.flash_bwd_dq(*args))
+        out[f"flash_bwd_dkv {name}"] = timed_ms(lambda: V.flash_bwd_dkv(*args))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_serving: no CUDA device", file=sys.stderr)
@@ -50,6 +76,7 @@ def main() -> int:
     _build.build(_build.all_sources())
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    training = time_training_kernels(randn)
     out = {}
     for name, (b, n, c, h) in NECK:
         scale = (c // h) ** -0.5
@@ -79,7 +106,7 @@ def main() -> int:
     out["qmm h2 qkv"] = timed_ms(lambda: QM.qmm(xq, xs, w["wq"], w["w_scale"], w["bias"]))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"checkout": str(ROOT), "card": card, "ms": out}))
+    print(json.dumps({"checkout": str(ROOT), "card": card, "ms": out, "training_ms": training}))
     return 0
 
 

@@ -13,6 +13,7 @@ autocast); BatchNorm normalises in fp32 before the cast; LayerNorm runs in
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Tuple
 
@@ -85,6 +86,22 @@ class _BatchNormTrain(torch.autograd.Function):
         return dx.to(x.dtype), sum_dy_xc * r, sum_dy, None
 
 
+@contextlib.contextmanager
+def recomputing(module: nn.Module):
+    """The context of a remat recompute of `module` (`torch.utils.checkpoint`'s
+    recompute context): its BatchNorms compute their batch statistics but
+    leave their running statistics alone, which the first forward already
+    moved (in flax the recompute is pure)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
 class BatchNorm(nn.Module):
     """BatchNorm (eps 1e-5, momentum 0.9) normalising in fp32; parameters
     weight/bias and buffers running_mean/running_var, as flax
@@ -92,7 +109,7 @@ class BatchNorm(nn.Module):
     running statistics. Training mode normalises with the batch statistics
     (`_BatchNormTrain`) and updates r <- 0.9 r + 0.1 batch with the biased
     batch variance, as flax does (F.batch_norm would update running_var with
-    the unbiased one)."""
+    the unbiased one), except inside a remat recompute (`recomputing`)."""
 
     MOMENTUM = 0.9  # flax's running-average decay
 
@@ -103,12 +120,15 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.recomputing = False  # set by `recomputing`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+        if self.recomputing:
+            return y
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

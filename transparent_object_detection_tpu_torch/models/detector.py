@@ -41,14 +41,14 @@ class FocusModel(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
                  int8_dense: bool = False, int8_attn: bool = False,
-                 int8_variants: Optional[Int8Variants] = None):
+                 int8_variants: Optional[Int8Variants] = None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl,
                                  int8_attn)
         self.neck = Neck(base_channels, base_depth, deep_mul, num_heads, dtype, norm_dtype,
                          lane_align_heads, attention_impl, int8_dense, int8_attn,
-                         int8_variants)
+                         int8_variants, remat)
         filters = (base_channels * 4, base_channels * 8, int(base_channels * 16 * deep_mul))
         self.head = Head(num_classes, filters, strides, reg_max, dtype)
 
@@ -79,9 +79,10 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
     int8_attn select the int8 serving paths, alone or together;
     `int8_variants` their TEB handoff variants (None reads
     `Int8Variants.from_env()`, the JAX package's TOD_* variables, once
-    here); they change nothing with both int8 flags off."""
-    if cfg.int8_1x1 or cfg.remat:
-        raise NotImplementedError("int8_1x1 and remat are not ported yet")
+    here); they change nothing with both int8 flags off. `cfg.remat`
+    recomputes each neck fusion node's activations in the backward."""
+    if cfg.int8_1x1:
+        raise NotImplementedError("int8_1x1 is not ported yet")
     device = resolve_device(device)
     with device:  # parameters made where they live (1.35 B at phi='m')
         model = FocusModel(
@@ -90,7 +91,7 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
             reg_max=cfg.reg_max, strides=cfg.strides, dtype=getattr(torch, cfg.compute_dtype),
             norm_dtype=getattr(torch, cfg.norm_dtype), lane_align_heads=cfg.lane_align_heads,
             attention_impl=attention_impl, int8_dense=cfg.int8_dense, int8_attn=cfg.int8_attn,
-            int8_variants=int8_variants or Int8Variants.from_env(),
+            int8_variants=int8_variants or Int8Variants.from_env(), remat=cfg.remat,
         )
     if seed is not None:
         init_weights(model, seed)

@@ -23,14 +23,20 @@ TPU:
     the same kernel on the other multi-head shapes, heads folded into the
     batch axis (phi='n' h1: 3 heads of 283; phi='m' h1: 8 of 599), their
     odd widths zero-padded to a multiple of 8 in the fold copy.
-  * train=True: N > 1024 goes to the differentiable flash route of
-    ops/attention_vjp.py (forward with logsumexp, flash backward), packed or
-    single-head by the same rules; N <= 1024 stays naive.
+Training routes (`train_route`, used with train=True), as JAX's
+`attention` (the training path's front end, `_diff_flash`) routes on a TPU:
+N > 1024 goes to the differentiable flash route of ops/attention_vjp.py
+(forward with logsumexp, flash backward): "packed" heads whose width is a
+multiple of 128 (q/k/v read in place, packed qkv input or not), "single"
+(one head) or "folded" (heads folded into the batch axis in one copy, odd
+widths zero-padded to a multiple of 8, the padded gradient columns cut off
+by that copy's backward); N <= 1024 stays naive.
 At 640x640 this sends neck nodes h1, h2, h4 and dark3 to the kernels at
 every scale and node h6 (N=400) to the naive route. One difference of
-route is kept on purpose: where the TPU's VMEM fit fails (phi='l'/'x' h1,
-heads of 1,536 and 3,584) JAX falls to its bf16-scored `chunked` route; the
-port keeps the packed kernel, which scores in fp32 (ROADMAP section 3).
+route is kept on purpose, in serving and in training: where the TPU's VMEM
+fit fails (phi='l' h1, phi='x' h1 and h4) JAX falls to its bf16-scored
+`chunked` route; the port keeps its kernels, which score in fp32 (ROADMAP
+section 3).
 The kernels take bf16 or fp32 (the fp32 models: fp32 products on the CUDA
 cores, as the Pallas kernel computes on fp32 inputs).
 
@@ -289,6 +295,44 @@ def serving_route(n: int, cq: int, num_heads: int = 1, cv: Optional[int] = None,
     return ("single" if num_heads == 1 else "folded"), None
 
 
+def train_route(n: int, cq: int, num_heads: int = 1, cv: Optional[int] = None) -> str:
+    """Route of a training attention call on (B, n, cq) q/k and (B, n, cv)
+    v with `num_heads` heads packed in the channels, as JAX's `attention`
+    routes it on a TPU: "naive" (n <= 1024), "packed" (a head width that is
+    a multiple of 128; the differentiable multi-head flash route, from a
+    packed qkv array or from q, k, v), "single" (one head) or "folded"
+    (heads folded into the batch axis, then the single-head route)."""
+    if n <= NAIVE_MAX_TOKENS:
+        return "naive"
+    if num_heads == 1:
+        return "single"
+    cv = cq if cv is None else cv
+    return "packed" if _packed_heads(cq, num_heads) and cv % num_heads == 0 else "folded"
+
+
+def _fold_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, N, H*d) -> (B*H, N, d + pad) in one copy, d zero-padded to a
+    multiple of KERNEL_WIDTH_MULTIPLE. Differentiable: the backward cuts the
+    padded gradient columns off and unfolds the heads."""
+    b, n, c = t.shape
+    pad = -(c // num_heads) % KERNEL_WIDTH_MULTIPLE
+    t4 = _heads_first(t, num_heads)
+    return (torch.nn.functional.pad(t4, (0, pad)) if pad else t4).reshape(b * num_heads, n, -1)
+
+
+def _train_folded(q, k, v, scale: float, num_heads: int, impl: Optional[str]) -> torch.Tensor:
+    """The "folded" training route: heads folded into the batch axis (odd
+    widths zero-padded: padded q/k columns leave q.k^T unchanged, padded v
+    columns are cut off the output), then the single-head flash route."""
+    from transparent_object_detection_tpu_torch.ops import attention_vjp
+
+    b, n, _ = q.shape
+    dv = v.shape[-1] // num_heads
+    out = attention_vjp.flash_attention(_fold_heads(q, num_heads), _fold_heads(k, num_heads),
+                                        _fold_heads(v, num_heads), scale, 1, impl)
+    return _heads_last(out[..., :dv].reshape(b, num_heads, n, dv))
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0,
               impl: Optional[str] = None, num_heads: int = 1, int8: bool = False,
               train: bool = False) -> torch.Tensor:
@@ -296,17 +340,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
 
     impl None: the routes of `serving_route`, with the kernels.
     impl "plain": the same routing with the kernels' plain versions.
-    train: for N > 1024, the differentiable flash route
-    (ops/attention_vjp.py), packed where the head width is a multiple of
-    PACKED_HEAD_MULTIPLE, single-head otherwise (other multi-head shapes fold
-    their heads into the batch axis); int8 is ignored. N <= 1024 stays naive
-    and autograd differentiates it."""
+    train: the routes of `train_route`, through the differentiable flash
+    route (ops/attention_vjp.py) for N > 1024; int8 is ignored. N <= 1024
+    stays naive and autograd differentiates it."""
     _check_impl(impl)
     b, n, c = q.shape
-    if train and n > NAIVE_MAX_TOKENS and (num_heads == 1 or _packed_heads(c, num_heads)):
+    route = train_route(n, c, num_heads, v.shape[-1]) if train else None
+    if route == "packed" or (route == "single" and not (c % KERNEL_WIDTH_MULTIPLE
+                                                        or v.shape[-1] % KERNEL_WIDTH_MULTIPLE)):
         from transparent_object_detection_tpu_torch.ops import attention_vjp
 
         return attention_vjp.flash_attention(q, k, v, scale, num_heads, impl)
+    if route in ("single", "folded"):  # padded in the fold copy
+        return _train_folded(q, k, v, scale, num_heads, impl)
     route, bk = serving_route(n, c, num_heads, v.shape[-1], int8 and not train)
     if route == "int8":
         return attention_int8.attention_int8(q, k, v, scale, num_heads, bk, impl=impl)
@@ -336,7 +382,7 @@ def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = N
     everything else splits and goes through `attention`."""
     _check_impl(impl)
     n, c = qkv.shape[1], qkv.shape[2] // 3
-    if train and n > NAIVE_MAX_TOKENS and _packed_heads(c, num_heads):
+    if train and train_route(n, c, num_heads) == "packed":
         from transparent_object_detection_tpu_torch.ops import attention_vjp
 
         return attention_vjp.flash_attention_qkv(qkv, scale, num_heads, impl)

@@ -17,8 +17,10 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
-kernels are instantiated for the head widths of the phi='s' training path,
-(q/k, v) = (256, 256) on the neck and (64, 512) on dark3.
+kernels take the Pallas kernels' whole domain (`kernel_supports`): any q/k
+and v head widths that are multiples of 8 (the folded odd heads are
+zero-padded by ops/attention.py), any N, bf16 (tensor cores) or fp32 (CUDA
+cores, nothing cast, as the Pallas kernels compute on fp32 inputs).
 """
 from __future__ import annotations
 
@@ -29,7 +31,6 @@ import torch
 
 from transparent_object_detection_tpu_torch.ops import attention as A
 
-KERNEL_WIDTHS = ((256, 256), (64, 512))  # (q/k, v) head widths the kernels take
 MODE_DQ, MODE_DK, MODE_DV = 0, 1, 2
 
 
@@ -131,7 +132,7 @@ def _fwd_lib():
     if not getattr(lib, "_lse_argtypes_set", False):
         vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.flash_fwd_lse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      cl, ci, cl, ci, cl, ci, cf, vp]
+                                      cl, ci, cl, ci, cl, ci, cf, ci, vp]
         lib.flash_fwd_lse.restype = ci
         lib._lse_argtypes_set = True
     return lib
@@ -144,19 +145,29 @@ def _bwd_lib():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.flash_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                  cl, ci, cl, ci, cl, ci, cl, ci, cl, ci, cf, vp]
+                                  cl, ci, cl, ci, cl, ci, cl, ci, cl, ci, cf, ci, vp]
         lib.flash_bwd.restype = ci
         lib._argtypes_set = True
     return lib
 
 
-def _check_view(name: str, t: torch.Tensor) -> None:
-    """A (B, N, C) bf16 CUDA operand whose rows the kernel reads with 16-byte
-    copies: last axis contiguous, row and batch strides multiples of 8."""
+def kernel_supports(n: int, dqk: int, dv: int, heads: int, dtype: torch.dtype) -> bool:
+    """The domain of the training kernels: any N, q/k and v head widths that
+    are multiples of 8 (16-byte rows), packed heads or one, bf16 or fp32."""
+    return (n >= 1 and heads >= 1 and dqk > 0 and dv > 0
+            and dqk % A.KERNEL_WIDTH_MULTIPLE == 0 and dv % A.KERNEL_WIDTH_MULTIPLE == 0
+            and dtype in A.KERNEL_DTYPES)
+
+
+def _check_view(name: str, t: torch.Tensor, dtype: torch.dtype) -> None:
+    """A (B, N, C) CUDA operand of the call's type whose rows the kernel
+    reads with 16-byte copies: last axis contiguous, row and batch strides
+    multiples of 8."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != torch.bfloat16:
-        raise ValueError(f"{name}: the flash kernels take bfloat16, got {t.dtype}")
+    if t.dtype not in A.KERNEL_DTYPES or t.dtype != dtype:
+        raise ValueError(f"{name}: the flash kernels take bfloat16 or float32 operands of one "
+                         f"type, got {t.dtype}")
     if t.dim() != 3 or t.stride(-1) != 1 or t.stride(1) % 8 or t.stride(0) % 8:
         raise ValueError(f"{name} must be (B, N, C) with a contiguous last axis and row and "
                          f"batch strides that are multiples of 8, got strides {t.stride()}")
@@ -175,8 +186,9 @@ def _widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
     """(b, n, dqk, dv) of a kernel call; raises on shapes the kernels do not take."""
     b, n, c = q.shape
     cv = v.shape[-1]
-    if (k.shape != q.shape or v.shape[:2] != (b, n) or c % num_heads or cv % num_heads
-            or (c // num_heads, cv // num_heads) not in KERNEL_WIDTHS):
+    if (k.shape != q.shape or v.shape[:2] != (b, n) or num_heads < 1 or c % num_heads
+            or cv % num_heads
+            or not kernel_supports(n, c // num_heads, cv // num_heads, num_heads, q.dtype)):
         raise ValueError(f"flash training kernels do not take q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} with {num_heads} heads")
     return b, n, c // num_heads, cv // num_heads
@@ -191,14 +203,15 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale, num_heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_view(name, t)
+        _check_view(name, t, q.dtype)
     b, n, dqk, dv = _widths(q, k, v, num_heads)
     out = torch.empty((b, n, v.shape[-1]), dtype=v.dtype, device=v.device)
     lse = torch.empty(_stat_shape(b, n, num_heads), dtype=torch.float32, device=q.device)
     err = _fwd_lib().flash_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, n, num_heads, dqk, dv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), scale, torch.cuda.current_stream(q.device).cuda_stream,
+        v.stride(0), v.stride(1), scale, int(q.dtype == torch.float32),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     A._raise_on(err, "flash_fwd_lse")
     flash_fwd_lse.launches += 1
@@ -207,7 +220,7 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
 
 def _check_bwd(q, k, v, do, lse, dcap, num_heads):
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
-        _check_view(name, t)
+        _check_view(name, t, q.dtype)
     b, n, dqk, dv = _widths(q, k, v, num_heads)
     if do.shape != v.shape:
         raise ValueError(f"do has shape {tuple(do.shape)}, expected {tuple(v.shape)}")
@@ -219,7 +232,7 @@ def _check_bwd(q, k, v, do, lse, dcap, num_heads):
 def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str) -> torch.Tensor:
     if t is None:
         return torch.empty(like.shape, dtype=like.dtype, device=like.device)
-    _check_view(name, t)
+    _check_view(name, t, like.dtype)
     if t.shape != like.shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(like.shape)}")
     return t
@@ -233,7 +246,7 @@ def _bwd_launch(mode: int, q, k, v, do, lse, dcap, out, scale: float, num_heads:
         dcap.data_ptr(), out.data_ptr(), b, n, num_heads, dqk, dv,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         do.stride(0), do.stride(1), out.stride(0), out.stride(1), scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
     )
     A._raise_on(err, ("flash_bwd dq", "flash_bwd dk", "flash_bwd dv")[mode])
 
@@ -298,7 +311,8 @@ class FlashAttention(torch.autograd.Function):
     forward is `flash_fwd_lse` and saves q, k, v, out and lse; the backward
     is `compute_dcap` and then the dq and dk/dv kernels. Inputs are q, k, v,
     or one packed (B, N, 3C) qkv (then the gradient is one packed array).
-    `plain` runs the plain versions on any device."""
+    `plain` runs the plain versions on any device; on CPU tensors the
+    backward runs them too, all three gradients in one pass."""
 
     @staticmethod
     def forward(ctx, scale: float, num_heads: int, plain: bool, *inputs):
@@ -318,8 +332,8 @@ class FlashAttention(torch.autograd.Function):
         g = g.contiguous()
         dcap = compute_dcap(out, g, h)
         args = (q, k, v, g, lse, dcap, scale, h)
-        if ctx.plain:
-            grads = (flash_bwd_dq_plain(*args),) + flash_bwd_dkv_plain(*args)
+        if ctx.plain or q.device.type == "cpu":  # the plain versions, in one pass
+            grads = _bwd_plain(*args, ("dq", "dk", "dv"))
             return (None, None, None) + ((torch.cat(grads, dim=-1),) if packed else grads)
         dqkv = torch.empty_like(inputs[0]) if packed else None
         dq, dk, dv = _qkv_views(dqkv) if packed else (None, None, None)
