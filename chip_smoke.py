@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all sources at once) and prints the card's name and power limit.
+   nvcc (all five sources at once) and prints the card's name and power
+   limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
    forward gives it (batch 2) and at a ragged N, with near-flat (score std 1)
@@ -12,8 +13,15 @@
    |kernel - plain| <= RTOL * |plain| + ATOL_OF_MAX * max|plain|, a bar set
    from the output's own scale; the same bar must reject the plain version
    with a planted fault (one kv tile of 64 keys left out, or the softmax
-   scale 2% off), else the check would be blind to such a kernel. Times
-   kernel, plain version, and as a yardstick only
+   scale 2% off), else the check would be blind to such a kernel. The
+   packed sites run csrc/flash_fwd_sm90.cu (TMA ring, wgmma): each input
+   twice, for the same bits, and with the faults its ring can commit (a key
+   tile read twice and its neighbour never; on a ragged N, with scores
+   shifted well below 0, the zero-filled keys past N scored 0), and at
+   widths off the routed grid (64, 192, 320, 448 on the sm90 kernel; 72 on
+   the mma_sync template, which the rule keeps for widths that are not
+   multiples of 64), serving and lse forms. Times kernel (the packed sites
+   at batch 2 and batch 1), plain version, and as a yardstick only
    F.scaled_dot_product_attention (which the port never calls).
 3. Slice phase: builds FocusModel at phi='s' 640x640 (bf16, seeded random
    weights, dark3 gamma 0.5 so the attention output reaches the detections,
@@ -119,10 +127,14 @@
 16. phi='n' training, bf16 and fp32 compute: a counted batch-2 step each
    against plain within the same limits (the planted faults' readings
    printed), every launch against its plain version.
-17. Prints the smoke's total time, the card's name and power limit, a JSON
-   line of the kernels (the 11 phi='s' entries, then the phi='m' and fp32
-   forms, rows 9-11 at phi='m' and in fp32 last), then {"ok": true,
-   "device": ...} last.
+   The sm90 kernel's sites everywhere above run twice for the same bits and
+   hold its ring's faults.
+17. Prints each phase's seconds and the smoke's total time, the card's name
+   and power limit, a JSON line of the kernels (the phi='s' entries: row 1
+   on the sm90 kernel, rows 2-11 with row 9's single-head site, then row
+   9's packed sites on the sm90 kernel; then the phi='m' and fp32 forms,
+   rows 9-11 at phi='m' and in fp32 last), then {"ok": true, "device": ...}
+   last.
 
 Any failed check exits non-zero before the last line. TF32 is off for
 matmuls and convolutions wherever numbers are compared.
@@ -247,6 +259,54 @@ SCALE_FAULTS = {"qk_slab_dropped": _qk_slab_dropped,
                 "tail_key_tile_dropped": _tail_key_tile_dropped}
 
 
+def _pad_keys(t, tile=64):
+    """t with zero rows appended on its key axis (-2) to a multiple of `tile`."""
+    import torch
+
+    pad = -t.shape[-2] % tile
+    return torch.nn.functional.pad(t, (0, 0, 0, pad)) if pad else t
+
+
+def _keys_past_n_scored_zero(attend):
+    """The TMA zero-fill trap of csrc/flash_fwd_sm90.cu: the keys past N up
+    to the next 64-key tile read as zeros and scored 0 instead of -inf. Only
+    a ragged N shows it, and only where a row's own scores lie well below 0
+    (SHIFTED_SPREAD)."""
+    return lambda q, k, v, scale, block_k=1024: attend(q, _pad_keys(k), _pad_keys(v), scale,
+                                                       block_k)
+
+
+def _tile_twice(t, lo=64, hi=128):
+    """t with key tile [hi, 2 hi - lo) replaced by tile [lo, hi): a ring stage
+    reused one tile early, the tile read twice and its neighbour never."""
+    t = t.clone()
+    t[..., hi:2 * hi - lo, :] = t[..., lo:hi, :]
+    return t
+
+
+def _key_tile_used_twice(attend):
+    return lambda q, k, v, scale, block_k=1024: attend(q, _tile_twice(k), _tile_twice(v), scale,
+                                                       block_k)
+
+
+# faults the TMA ring of the sm90 kernel can commit
+RING_FAULTS = {"keys_past_n_scored_zero": _keys_past_n_scored_zero,
+               "key_tile_used_twice": _key_tile_used_twice}
+# Input spread that shows the zero-fill trap: score std 1 around a mean of
+# -8 (natural log), so that one key scored 0 outweighs e^8 of the row's own.
+# Held only against that fault: a uniform shift cancels in the softmax.
+SHIFTED_SPREAD = (1.0, -8.0)
+
+
+def _score_shift(q, k, scale, mean, d):
+    """q + a and k - a (a = sqrt(-mean / (scale * d)) on every column), which
+    moves every score scale * q.k of heads `d` wide by `mean`, cross terms
+    aside; q, k (..., heads * d) in place."""
+    a = (-mean / (scale * d)) ** 0.5
+    q.add_(a)
+    k.sub_(a)
+
+
 @contextlib.contextmanager
 def planted(fault: str):
     """The plain attention versions with a planted fault: what a kernel that
@@ -254,7 +314,7 @@ def planted(fault: str):
     from transparent_object_detection_tpu_torch.ops import attention as A
 
     real = A._online_softmax_attention
-    A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS}[fault](real)
+    A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS, **RING_FAULTS}[fault](real)
     try:
         yield
     finally:
@@ -262,21 +322,25 @@ def planted(fault: str):
 
 
 def hold_against_plain(kernel, plain, what: str, faults_must_fail: bool = True,
-                       faults=tuple(PLANTED_FAULTS), bar=None) -> dict:
+                       faults=tuple(PLANTED_FAULTS), bar=None, twice: bool = False) -> dict:
     """Kernel output against its plain version, and the plain version with
     each planted fault in `faults` against the same bar (by default the
     kernel bar above; which, on synthetic inputs, must reject every fault
-    when `faults_must_fail`)."""
+    when `faults_must_fail`). With `twice`, a second launch must give the
+    same bits (a missing wgmma fence or a barrier phase flipped once too
+    often is right on most runs only)."""
     import torch
 
     bar = bar or bar_used
     out, ref = kernel(), plain()
+    again = kernel() if twice else out
     torch.cuda.synchronize()
+    check(torch.equal(out, again), f"{what}: two launches gave different bits")
     check(bool(torch.isfinite(out.float()).all()), f"{what}: non-finite output")
     diff = float((out.float() - ref.float()).abs().max())
     ref_max = float(ref.float().abs().max())
     reading = {"max_abs_err": diff, "max_rel_err": diff / ref_max, "ref_max_abs": ref_max,
-               "bar_used": bar(out, ref), "fault_bar_used": {}}
+               "bar_used": bar(out, ref), "bitwise_repeat": twice, "fault_bar_used": {}}
     for fault in faults:
         with planted(fault):
             reading["fault_bar_used"][fault] = bar(plain(), ref)
@@ -287,6 +351,78 @@ def hold_against_plain(kernel, plain, what: str, faults_must_fail: bool = True,
         check(used > 1.0 or not faults_must_fail,
               f"{what}: the bar does not reject the planted fault {fault} ({used:.3g}x the bar)")
     return reading
+
+
+def _packed_timing(qkv, h, scale, plain: bool = True) -> dict:
+    """ms of flash_mha_packed (its rule's kernel), of the plain version and
+    of SDPA (the yardstick, never called by the port), beside the bound."""
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    b, n, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (A._heads_first(t, h).contiguous() for t in qkv.chunk(3, dim=-1))
+    bnd, by = bound_ms(2.0 * b * n * n * (c + c), 2.0 * (b * n * 3 * c + b * n * c))
+    row = dict(ms=timed_ms(lambda: A.flash_mha_packed(qkv, h, scale), 20),
+               library_ms=timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                                   20),
+               bound_ms=bnd, bound_by=by)
+    if plain:
+        row["plain_ms"] = timed_ms(lambda: A.flash_mha_packed_plain(qkv, h, scale), 3, 1)
+    return row
+
+
+# (B, N, C, heads) of packed widths no route reaches, each on a ragged N: the
+# sm90 kernel's plans that no routed site takes (v in one slice of 64 on
+# 128-key tiles, one slice of 192; the warpgroup split with its second half
+# running past v at 320 and 448), and heads of 72, which the rule keeps on
+# the mma_sync template
+OFF_GRID = ((1, 1300, 128, 2), (1, 1100, 384, 2), (1, 1100, 640, 2), (1, 1300, 896, 2),
+            (1, 1100, 144, 2))
+
+
+def off_grid_phase(randn, qk_std) -> None:
+    """flash_mha_packed and flash_fwd_lse at the OFF_GRID widths against
+    their plain versions: the kernel bar, lse within LSE_ATOL, and (the
+    sm90 kernel) a second launch's bits; each launch counted on the kernel
+    the rule names."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    for b, n, c, h in OFF_GRID:
+        d, scale = c // h, (c // h) ** -0.5
+        form = A.packed_fwd_form(d, torch.bfloat16)
+        check(form == ("mma_sync" if d % 64 else "sm90"), f"heads of {d}: form {form}")
+        for score_std in SCORE_STDS:
+            qkv = randn(b, n, 3 * c)
+            qkv[..., :2 * c] *= qk_std(score_std, scale, d)
+            qkv = qkv.to(torch.bfloat16)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            what = f"off grid {h} x {d} n={n} score_std {score_std} ({form})"
+            A.reset_launch_counts()
+            V.reset_launch_counts()
+            r = hold_against_plain(lambda: A.flash_mha_packed(qkv, h, scale),
+                                   lambda: A.flash_mha_packed_plain(qkv, h, scale),
+                                   f"flash_mha_packed {what}", faults=(), twice=form == "sm90")
+            out, lse = V.flash_fwd_lse(q, k, v, scale, h)
+            out2, lse2 = V.flash_fwd_lse(q, k, v, scale, h)
+            pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+            torch.cuda.synchronize()
+            sm90 = form == "sm90"
+            counts = (A.flash_mha_packed.sm90_launches if sm90 else A.flash_mha_packed.launches,
+                      V.flash_fwd_lse.sm90_launches if sm90 else V.flash_fwd_lse.launches)
+            check(counts == (2 if sm90 else 1, 2), f"{what}: launches {counts} on {form}")
+            check(not sm90 or (torch.equal(out, out2) and torch.equal(lse, lse2)),
+                  f"flash_fwd_lse {what}: two runs gave different bits")
+            lse_err = float((lse - plse).abs().max())
+            used = bar_used(out, pout)
+            check(used <= 1.0 and lse_err <= LSE_ATOL,
+                  f"flash_fwd_lse {what}: {used:.3g}x the bar, lse {lse_err:.3g}")
+            print(json.dumps({"off_grid": what, "bar_used": r["bar_used"],
+                              "lse_bar_used": used, "lse_max_abs_err": lse_err}), flush=True)
 
 
 def kernel_phase():
@@ -301,30 +437,36 @@ def kernel_phase():
     qk_std = lambda score_std, scale, d: (score_std / (scale * d ** 0.5)) ** 0.5
     mha_rows, single_rows = [], []
 
-    # packed multi-head: (B, N, C, heads); neck h1, h2, h4 at 640x640, then ragged
+    # packed multi-head: (B, N, C, heads); neck h1, h2, h4 at 640x640, then
+    # ragged. The sm90 kernel (the form every bf16 packed site takes) twice
+    # on every input, with the ring's faults; the zero-fill trap on a ragged
+    # N with scores shifted well below 0
     for name, (b, n, c, h) in (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)),
                                ("h4", (2, 1600, 1536, 6)), ("ragged", (2, 3600, 1536, 6))):
         scale = (c // h) ** -0.5
+        check(A.packed_fwd_form(c // h, torch.bfloat16) == "sm90",
+              f"flash_mha_packed {name}: heads of {c // h} do not take the sm90 kernel")
         readings = []
-        for score_std in SCORE_STDS:
+        spreads = [(std, 0.0) for std in SCORE_STDS] + ([SHIFTED_SPREAD] if n % 64 else [])
+        for score_std, mean in spreads:
             qkv = randn(b, n, 3 * c)
             qkv[..., :2 * c] *= qk_std(score_std, scale, c // h)
+            if mean:
+                _score_shift(qkv[..., :c], qkv[..., c:2 * c], scale, mean, c // h)
             qkv = qkv.to(torch.bfloat16)
-            readings.append({"score_std": score_std, **hold_against_plain(
+            faults = (("keys_past_n_scored_zero",) if mean
+                      else (*PLANTED_FAULTS, "key_tile_used_twice"))
+            readings.append({"score_std": score_std, "score_mean": mean, **hold_against_plain(
                 lambda: A.flash_mha_packed(qkv, h, scale),
                 lambda: A.flash_mha_packed_plain(qkv, h, scale),
-                f"flash_mha_packed {name} score_std {score_std}")})
-        q, k, v = (A._heads_first(t, h).contiguous() for t in qkv.chunk(3, dim=-1))
-        flops = 2.0 * b * n * n * (c + c)
-        bnd, by = bound_ms(flops, 2.0 * (b * n * 3 * c + b * n * c))
-        mha_rows.append(dict(
-            node=name, b=b, n=n, c=c, heads=h, readings=readings,
-            ms=timed_ms(lambda: A.flash_mha_packed(qkv, h, scale), 20),
-            plain_ms=timed_ms(lambda: A.flash_mha_packed_plain(qkv, h, scale), 3, 1),
-            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 20),
-            bound_ms=bnd, bound_by=by,
-        ))
+                f"flash_mha_packed sm90 {name} score_std {score_std} mean {mean}",
+                faults=faults, twice=True)})
+        mha_rows.append(dict(node=name, b=b, n=n, c=c, heads=h, form="sm90", readings=readings,
+                             **_packed_timing(qkv, h, scale)))
+        if name != "ragged":  # batch 1: the latency path's grid
+            mha_rows[-1]["batch1"] = _packed_timing(qkv[:1].contiguous(), h, scale, plain=False)
         print(json.dumps({"kernel": "flash_mha_packed", **mha_rows[-1]}), flush=True)
+    off_grid_phase(randn, qk_std)
 
     # single head, dq = C/8, dv = C, scale 1.0: dark3 at 640x640, then ragged
     for name, (b, n, dq, dv) in (("dark3", (2, 6400, 64, 512)), ("ragged", (2, 3600, 64, 512))):
@@ -357,14 +499,18 @@ def kernel_entry(name, source, replaces, rows, launches):
     2), the ragged shapes kept in `shapes` and in the error."""
     main = [r for r in rows if not r["node"].startswith("ragged")]
     total = lambda key: sum(r[key] for r in main)
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
         "max_abs_err": max(x["max_abs_err"] for r in rows for x in r["readings"]),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": "operations" if all(r["bound_by"] == "operations" for r in main) else "bytes",
-        "library_ms": total("library_ms"), "shapes": rows,
+        "library_ms": total("library_ms"),
     }
+    if main and all("batch1" in r for r in main):
+        entry["batch1"] = {k: sum(r["batch1"][k] for r in main)
+                           for k in ("ms", "library_ms", "bound_ms")}
+    return {**entry, "shapes": rows}
 
 
 KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
@@ -490,10 +636,12 @@ def slice_phase(card: str):
     dets = predictor.detect_raw_batch(raw, shapes)
     torch.cuda.synchronize()
     launches = {"flash_mha_packed": A.flash_mha_packed.launches,
+                "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                 "flash_single": A.flash_single.launches}
     print(json.dumps({"main_path_launches": launches}), flush=True)
-    check(launches == {"flash_mha_packed": 3, "flash_single": 1},
-          f"expected 3 packed and 1 single-head launch per forward, got {launches}")
+    check(launches == {"flash_mha_packed": 0, "flash_mha_packed_sm90": 3, "flash_single": 1},
+          f"expected 3 packed launches of the sm90 kernel and 1 single-head launch per "
+          f"forward, got {launches}")
     nd = dets["num_detections"].cpu()
     check(dets["boxes"].shape == (4, pcfg.max_detections, 4),
           f"boxes shape {tuple(dets['boxes'].shape)}")
@@ -559,7 +707,7 @@ def slice_phase(card: str):
             out = kernel(*args)
             calls.append((kernel.__name__, args, out, plain))
             return out
-        launch.launches = 0  # the wrapper counts on the name it is bound to
+        launch.launches = launch.sm90_launches = 0  # the wrapper counts on the name it is bound to
         return launch
 
     A.flash_mha_packed = recording(real[0], A.flash_mha_packed_plain)
@@ -1083,8 +1231,8 @@ def int8_path_calls(model, images) -> dict:
     return rows
 
 
-COUNTED = ("flash_mha_packed", "flash_single", "flash_mha_int8", "flash_mha_int8_qout",
-           "flash_int8_handoff", "qmm", "quant_rows", "quant_rows_int4")
+COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_single", "flash_mha_int8",
+           "flash_mha_int8_qout", "flash_int8_handoff", "qmm", "quant_rows", "quant_rows_int4")
 
 
 def reset_counts() -> None:
@@ -1103,6 +1251,7 @@ def read_counts() -> dict:
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
 
     return {"flash_mha_packed": A.flash_mha_packed.launches,
+            "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
             "flash_single": A.flash_single.launches,
             "flash_mha_int8": A8.flash_mha_int8.launches,
             "flash_mha_int8_qout": A8.flash_mha_int8_qout.launches,
@@ -1286,15 +1435,15 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
     this kernel summed."""
     total = lambda key: sum(r[key] for r in rows)
     lib = [r["library_ms"] for r in rows]
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max(max_err, max(r["max_abs_err"] for r in rows)),
         "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": ("operations" if all(r["bound_by"] == "operations" for r in rows)
                      else "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "mixed"),
         "library_ms": None if any(x is None for x in lib) else sum(lib),
-        "shapes": rows,
     }
+    return {**entry, "shapes": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1809,13 +1958,23 @@ def _drop_rows(t, lo=64, hi=128):
 
 def _fwd_faults(V, q, k, v, scale, h):
     """The plain forward with a planted fault: what a kernel that made that
-    mistake would return (out, lse)."""
+    mistake would return (out, lse). The faults of the sm90 kernel's TMA
+    ring too: a key tile read twice and its neighbour never, and (ragged N
+    only) the zero-filled keys past N scored 0, which lse shows at any
+    spread."""
     out_tile = V.flash_fwd_lse_plain(q, k, v, scale, h)
     out_tile[0][:, 64:128] = 0
     out_tile[1][..., 64:128, :] = 0
-    return {"kv_tile_dropped": V.flash_fwd_lse_plain(q, _drop_rows(k), _drop_rows(v), scale, h),
-            "softmax_scale_x1.02": V.flash_fwd_lse_plain(q, k, v, scale * 1.02, h),
-            "query_tile_unwritten": out_tile}
+    faults = {
+        "kv_tile_dropped": V.flash_fwd_lse_plain(q, _drop_rows(k), _drop_rows(v), scale, h),
+        "softmax_scale_x1.02": V.flash_fwd_lse_plain(q, k, v, scale * 1.02, h),
+        "query_tile_unwritten": out_tile,
+        "key_tile_used_twice": V.flash_fwd_lse_plain(q, _tile_twice(k), _tile_twice(v), scale,
+                                                     h)}
+    if q.shape[1] % 64:  # (B, N, C): keys on axis -2
+        faults["keys_past_n_scored_zero"] = V.flash_fwd_lse_plain(q, _pad_keys(k), _pad_keys(v),
+                                                                   scale, h)
+    return faults
 
 
 def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
@@ -1864,10 +2023,14 @@ def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
     rows = {name: [] for name in ("flash_fwd_lse", "flash_bwd_dq", "flash_bwd_dkv")}
     for node, (b, n, cq, cv, h) in shapes.items():
         readings = {name: [] for name in rows}
+        zero_fill = {}
         for score_std in SCORE_STDS:
             q, k, v, do, scale = _train_inputs(gen, b, n, cq, cv, h, score_std)
             out, lse = V.flash_fwd_lse(q, k, v, scale, h)
+            out2, lse2 = V.flash_fwd_lse(q, k, v, scale, h)
             torch.cuda.synchronize()
+            check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                  f"flash_fwd_lse {node}: two runs gave different bits")
             pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
             fwd = {"score_std": score_std, "bar_used": bar_used(out, pout),
                    "max_abs_err": float((out.float() - pout.float()).abs().max()),
@@ -1879,7 +2042,11 @@ def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
             check(fwd["bar_used"] <= 1.0 and fwd["lse_max_abs_err"] <= LSE_ATOL,
                   f"flash_fwd_lse {node}: {fwd}")
             for f, used in fwd["faults_rejected_by"].items():
-                check(used > 1.0, f"flash_fwd_lse {node}: the bar does not reject {f}")
+                zero_fill[f] = max(zero_fill.get(f, 0.0), used)
+                # the zero-filled keys weigh nothing against peaked rows: that
+                # fault is held on some spread (below), every other on each
+                check(used > 1.0 or f == "keys_past_n_scored_zero",
+                      f"flash_fwd_lse {node}: the bar does not reject {f}")
 
             dcap = V.compute_dcap(pout, do, h)
             dq = V.flash_bwd_dq(q, k, v, do, plse, dcap, scale, h)
@@ -1907,6 +2074,8 @@ def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
                 for f, used in r["faults_rejected_by"].items():
                     check(used > 1.0, f"{name} {node}: the bar does not reject {f} ({used:.3g}x)")
                 readings[name].append(r)
+        check(zero_fill.get("keys_past_n_scored_zero", 2.0) > 1.0,
+              f"flash_fwd_lse {node}: the bars reject keys_past_n_scored_zero on no spread")
         # timing on the last (peaked) inputs
         costs = _train_costs(b, n, cq, cv, h)
         dcap = V.compute_dcap(pout, do, h)
@@ -1925,13 +2094,15 @@ def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
             F.scaled_dot_product_attention(qh, kh, vh, scale=scale).backward(doh)
         sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 10) - sdpa_fwd, 0.0)
         library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
+        form = V.lse_fwd_form(cq // h, cv // h, h, q.dtype)
         for name in rows:
             ops, nbytes = costs[name]
             bnd, by = bound_ms(ops, nbytes)
+            extra = {"form": form} if name == "flash_fwd_lse" else {}
             rows[name].append(dict(
                 node=node, b=b, n=n, cq=cq, cv=cv, heads=h, readings=readings[name],
                 ms=timed_ms(kern[name], 10), plain_ms=timed_ms(plain[name], 2, 1),
-                library_ms=library[name], bound_ms=bnd, bound_by=by))
+                library_ms=library[name], bound_ms=bnd, bound_by=by, **extra))
             print(json.dumps({"kernel": name, **rows[name][-1]}), flush=True)
     return rows
 
@@ -2065,7 +2236,7 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             kept = tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
             calls.append((name, args, kw, kept))
             return out
-        launch.launches = 0  # the wrapper counts on the name it is bound to
+        launch.launches = launch.sm90_launches = 0  # the wrapper counts on the name it is bound to
         return launch
 
     for name in real:
@@ -2077,7 +2248,8 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
     finally:
         for name, fn in real.items():
             setattr(V, name, fn)
-    expected = sum(expected_counts[name] for name in real)
+    expected = sum(count for name, count in expected_counts.items()
+                   if name.startswith(tuple(real)))  # flash_fwd_lse_sm90 too
     check(len(calls) == expected,
           f"expected {expected} training-kernel launches in a step, got {len(calls)}")
     with torch.no_grad():  # the saved inputs require grad; the plain versions need none
@@ -2111,9 +2283,11 @@ def train_launch_counts():
     resets = (A.reset_launch_counts, A8.reset_launch_counts, QM.reset_launch_counts,
               V.reset_launch_counts)
     read = lambda: {"flash_fwd_lse": V.flash_fwd_lse.launches,
+                    "flash_fwd_lse_sm90": V.flash_fwd_lse.sm90_launches,
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
                     "flash_bwd_dkv": V.flash_bwd_dkv.launches,
                     "flash_mha_packed": A.flash_mha_packed.launches,
+                    "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_single": A.flash_single.launches,
                     "flash_mha_int8": A8.flash_mha_int8.launches, "qmm": QM.qmm.launches,
                     "quant_rows": QM.quant_rows.launches}
@@ -2123,17 +2297,27 @@ def train_launch_counts():
 def train_expected(cfg) -> dict:
     """Launches of each kernel in one training step of `cfg` (its scale and
     input, remat or not), from the training route table: one forward, dq and
-    dk/dv launch a site that leaves the naive route; with remat, every neck
+    dk/dv launch a site that leaves the naive route, the forward of packed
+    bf16 heads on the sm90 kernel (`lse_fwd_form`); with remat, every neck
     site's forward runs again in the backward's recompute; no serving
     kernel."""
-    from transparent_object_detection_tpu_torch.ops import attention as A
+    import torch
 
-    counts = {"flash_fwd_lse": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_mha_packed": 0,
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
               "flash_single": 0, "flash_mha_int8": 0, "qmm": 0, "quant_rows": 0}
+    dtype = getattr(torch, cfg.compute_dtype)
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
-        if A.train_route(n, cq, heads, cv) == "naive":
+        route = A.train_route(n, cq, heads, cv)
+        if route == "naive":
             continue
-        counts["flash_fwd_lse"] += 2 if cfg.remat and name != "dark3" else 1
+        sm90 = route == "packed" and V.lse_fwd_form(cq // heads, cv // heads, heads,
+                                                     dtype) == "sm90"
+        counts["flash_fwd_lse_sm90" if sm90 else "flash_fwd_lse"] += (
+            2 if cfg.remat and name != "dark3" else 1)
         counts["flash_bwd_dq"] += 1
         counts["flash_bwd_dkv"] += 1
     return counts
@@ -2375,12 +2559,16 @@ def scale_sites(phi: str, hw=(640, 640)) -> dict:
     return out
 
 
-def expected_launches(phi: str, batch: int, tag: str) -> dict:
+def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict:
     """Launches of every serving kernel in one forward of configuration
-    `tag` ("bf16", "int8", "A", "B") at `phi` 640x640 and `batch`, from the
-    route table (`serving_route`, `pick_blocks`, the quant_out groups) and
-    the int8 TEB's rules (models/blocks.py): each int8 TEB runs 4 qmm and a
-    quant_rows before each projection that takes bf16 rows."""
+    `tag` ("bf16", "int8", "A", "B") at `phi` 640x640 and `batch` (`f32`:
+    fp32 compute), from the route table (`serving_route`, `pick_blocks`,
+    the quant_out groups, `packed_fwd_form`: bf16 packed heads take the
+    sm90 kernel) and the int8 TEB's rules (models/blocks.py): each int8 TEB
+    runs 4 qmm and a quant_rows before each projection that takes bf16
+    rows."""
+    import torch
+
     from transparent_object_detection_tpu_torch.ops import attention as A
     from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
     from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
@@ -2391,13 +2579,17 @@ def expected_launches(phi: str, batch: int, tag: str) -> dict:
     kernel_of = {"int8": "flash_mha_int8", "packed": "flash_mha_packed",
                  "single": "flash_single", "folded": "flash_single"}
 
-    def attend(route):
-        if route in kernel_of:
+    dtype = torch.float32 if f32 else torch.bfloat16
+
+    def attend(route, dh):
+        if route == "packed" and A.packed_fwd_form(dh, dtype) == "sm90":
+            counts["flash_mha_packed_sm90"] += 1
+        elif route in kernel_of:
             counts[kernel_of[route]] += 1
 
     for n, cq, cv, heads, packed in scale_sites(phi).values():
         if not (packed and int8):
-            attend(A.serving_route(n, cq, heads, cv, int8, packed)[0])
+            attend(A.serving_route(n, cq, heads, cv, int8, packed)[0], cq // heads)
             continue
         c, dh, m = cq, cq // heads, batch * n
         w4a4 = var.get("w4a4_mlp1", False) and m % 128 == 0 and c % 128 == 0
@@ -2412,12 +2604,12 @@ def expected_launches(phi: str, batch: int, tag: str) -> dict:
                 counts["flash_int8_handoff"] += 1
                 x_quant = True
             else:  # dequantized qkv, the int8 route
-                attend(A.serving_route(n, c, heads, c, True, True)[0])
+                attend(A.serving_route(n, c, heads, c, True, True)[0], dh)
         elif big and var.get("attn_qout", False) and dh % 128 == 0 and tiles:
             counts["flash_mha_int8_qout"] += 1
             x_quant = True
         else:
-            attend(A.serving_route(n, c, heads, c, True, True)[0])
+            attend(A.serving_route(n, c, heads, c, True, True)[0], dh)
         counts["quant_rows"] += 0 if x_quant else 1  # attn_out
         if w4a4:
             counts["quant_rows_int4"] += 1
@@ -2429,9 +2621,12 @@ def expected_launches(phi: str, batch: int, tag: str) -> dict:
 def check_launch_model() -> None:
     """`expected_launches` reproduces the phi='s' counts the slices assert."""
     zero = dict.fromkeys(COUNTED, 0)
-    check(expected_launches("s", 4, "bf16") == {**zero, "flash_mha_packed": 3,
+    check(expected_launches("s", 4, "bf16") == {**zero, "flash_mha_packed_sm90": 3,
                                                 "flash_single": 1},
           "expected_launches: phi='s' bf16")
+    check(expected_launches("s", 4, "bf16", f32=True) == {**zero, "flash_mha_packed": 3,
+                                                          "flash_single": 1},
+          "expected_launches: phi='s' fp32")
     check(expected_launches("s", 4, "int8") == {**zero, "flash_mha_int8": 4, "qmm": 16,
                                                 "quant_rows": 12}, "expected_launches: int8")
     for tag in VARIANT_EXPECTED:
@@ -2493,11 +2688,19 @@ def scale_kernel_phase() -> dict:
         f32 = dt == torch.float32
         scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
         faults = {}
-        for score_std in SCORE_STDS:
+        sm90 = (packed and A._packed_heads(cq, heads)
+                and A.packed_fwd_form(cq // heads, dt) == "sm90")
+        ring = ("key_tile_used_twice",) + (("keys_past_n_scored_zero",) if n % 64 else ())
+        spreads = [(std, 0.0) for std in SCORE_STDS]
+        if sm90 and n % 64:  # the zero-fill trap shows on shifted scores
+            spreads.append(SHIFTED_SPREAD)
+        for score_std, mean in spreads:
             std = qk_std(score_std, scale, cq // heads)
             if packed:
                 qkv = randn(b, n, 3 * cq)
                 qkv[..., :2 * cq] *= std
+                if mean:
+                    _score_shift(qkv[..., :cq], qkv[..., cq:2 * cq], scale, mean, cq // heads)
                 qkv = qkv.to(dt)
                 if A._packed_heads(cq, heads):
                     kern = lambda: A.flash_mha_packed(qkv, heads, scale)
@@ -2516,11 +2719,14 @@ def scale_kernel_phase() -> dict:
                 form = "flash_single"
             form += "_f32" if f32 else ""
             # every fault is held to be rejected on some input spread, below
+            # (the sm90 kernel's: also the ring's, and a second launch's bits)
             r = hold_against_plain(kern, plain, f"{form} {tag} n={n} cq={cq} cv={cv} "
-                                                f"heads={heads} score_std {score_std}",
+                                                f"heads={heads} score_std {score_std} "
+                                                f"mean {mean}",
                                    faults_must_fail=False,
-                                   faults=(*PLANTED_FAULTS, *SCALE_FAULTS),
-                                   bar=_f32_bar_used if f32 else bar_used)
+                                   faults=(*PLANTED_FAULTS, *SCALE_FAULTS,
+                                           *(ring if sm90 else ())),
+                                   bar=_f32_bar_used if f32 else bar_used, twice=sm90)
             note(form, r["max_abs_err"])
             for f, used in r["fault_bar_used"].items():
                 faults[f] = max(faults.get(f, 0.0), used)
@@ -2621,11 +2827,17 @@ def scale_kernel_phase() -> dict:
     for phi, hw in cases:
         b = 1 if phi in ("l", "x") else 2
         for name, (n, cq, cv, heads, packed) in scale_sites(phi, hw).items():
-            if n <= A.NAIVE_MAX_TOKENS or (hw != (640, 640) and name not in ("dark3", "h2")):
+            # at 480x576: dark3 and h2, and every packed site (h1 and h4 at
+            # N = 1,080 too) for the sm90 kernel
+            packed_site = packed and A._packed_heads(cq, heads)
+            other = hw != (640, 640) and name not in ("dark3", "h2")
+            if n <= A.NAIVE_MAX_TOKENS or (other and not packed_site):
                 continue
             tag = f"phi={phi} {hw[0]}x{hw[1]} {name}"
-            if hw == (640, 640) or name == "h2":
+            if hw == (640, 640) or name == "h2" or packed_site:
                 flash_case(tag, b, n, cq, cv, heads, packed, bf)
+            if other:
+                continue
             route, bk = A.serving_route(n, cq, heads, cv, True, packed)
             if route == "int8":
                 variants = packed and (cq // heads) % 128 == 0
@@ -2703,7 +2915,7 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             out = kernel(*args)
             calls.append((name, args, out))
             return out
-        launch.launches = 0
+        launch.launches = launch.sm90_launches = 0
         return launch
 
     for name, (kernel, _) in real.items():
@@ -2738,8 +2950,10 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             ms = timed_ms(lambda: kernel(*args), 5, 1)
             plain_ms = timed_ms(lambda: plain(*args), 1, 1)
             lib = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 1)
+            form = (A.packed_fwd_form(cq // h, out.dtype) if name == "flash_mha_packed"
+                    else ("f32" if f32 else "mma_sync"))
         rows[name].append({"launch": i, "b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
-                           "bar_used": used,
+                           "form": form, "bar_used": used,
                            "max_abs_err": float((out.float() - ref.float()).abs().max()),
                            "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -2915,7 +3129,7 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
         model(images[:2])
     torch.cuda.synchronize()
     counts = read_counts()
-    want = expected_launches(phi, 2, "int8" if int8 else "bf16")
+    want = expected_launches(phi, 2, "int8" if int8 else "bf16", f32=True)
     check(counts == want, f"phi={phi} {tag}: launches {counts}, expected {want}")
     parity = _parity(model, predictor, images[:2], raw[:2], shapes[:2], pcfg, tag)
     rows = (int8_path_calls(model, images[:2]) if int8
@@ -2963,7 +3177,7 @@ def serve_matrix_phase(card: str) -> dict:
                     dets = predictor.detect_raw_batch(raw, shapes)
                 torch.cuda.synchronize()
                 counts = read_counts()
-                want = expected_launches(phi, 1, tag)
+                want = expected_launches(phi, 1, tag, f32=dtype == "float32")
                 what = f"phi={phi} {dtype} {tag}"
                 check(counts == want, f"{what}: launches {counts}, expected {want}")
                 check(bool(torch.isfinite(dets["boxes"]).all()), f"{what}: non-finite boxes")
@@ -3132,7 +3346,8 @@ def train_scale_kernel_phase() -> dict:
             m_h4 = train_call_sites("m")["h4"]
             sites = {**sites, "phi=m h4": m_h4}
         for name, (route, n, cq, cv, heads, scale) in sites.items():
-            if hw != (640, 640) and name not in ("dark3", "h2"):
+            # at 480x576: dark3, h2 and every packed site (h1, h4 at N = 1,080)
+            if hw != (640, 640) and name not in ("dark3", "h2") and route != "packed":
                 continue
             tag = f"phi={phi} {hw[0]}x{hw[1]} {name} {route}" + (" fp32" if is32 else "")
             bar = _f32_bar_used if is32 else bar_used
@@ -3143,7 +3358,10 @@ def train_scale_kernel_phase() -> dict:
                 q, k, v, do, h = _train_call_inputs(gen, 2, route, n, cq, cv, heads, scale,
                                                     score_std, dt)
                 out, lse = V.flash_fwd_lse(q, k, v, scale, h)
+                out2, lse2 = V.flash_fwd_lse(q, k, v, scale, h)
                 torch.cuda.synchronize()
+                check(torch.equal(out, out2) and torch.equal(lse, lse2),
+                      f"flash_fwd_lse {tag}: two runs gave different bits")
                 pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
                 fwd = {"score_std": score_std, "bar_used": bar(out, pout),
                        "max_abs_err": float((out.float() - pout.float()).abs().max()),
@@ -3220,8 +3438,10 @@ def train_scale_kernel_phase() -> dict:
                 ops, nbytes = costs[kname]
                 nbytes *= q.element_size() / 2
                 t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
+                extra = ({"form": V.lse_fwd_form(cq_all // h, cv_all // h, h, q.dtype)}
+                         if kname == "flash_fwd_lse" else {})
                 row = dict(node=name, route=route, b=b, n=n, cq=cq_all, cv=cv_all, heads=h,
-                           readings=readings[kname],
+                           **extra, readings=readings[kname],
                            max_abs_err=max(x["max_abs_err"] for x in readings[kname]),
                            ms=timed_ms(kern[kname], 5, 1),
                            plain_ms=timed_ms(plain[kname], 1, 1), library_ms=library[kname],
@@ -3334,42 +3554,59 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print("  " + line.strip())
 
-    mha_rows, single_rows = kernel_phase()
-    int8_err = int8_kernel_phase()
-    variant_err = variant_kernel_phase()
-    train_rows = train_kernel_phase()
-    launches, bf16_model, bf16_perf = slice_phase(card)
-    int8_launches, int8_rows, int8_perf = int8_slice_phase(card, bf16_model, bf16_perf)
+    phase_s = {}
+
+    def phase(name, fn, *args, **kw):
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t
+        print(json.dumps({"phase": name, "s": phase_s[name]}), flush=True)
+        return out
+
+    mha_rows, single_rows = phase("kernel", kernel_phase)
+    int8_err = phase("int8 kernel", int8_kernel_phase)
+    variant_err = phase("variant kernel", variant_kernel_phase)
+    train_rows = phase("train kernel", train_kernel_phase)
+    launches, bf16_model, bf16_perf = phase("slice", slice_phase, card)
+    int8_launches, int8_rows, int8_perf = phase("int8 slice", int8_slice_phase, card, bf16_model,
+                                                bf16_perf)
     same_run = {"bf16": {k: bf16_perf[k] for k in PERF_KEYS},
                 "int8": {k: int8_perf[k] for k in PERF_KEYS}}
-    variants = variant_slice_phase(card, bf16_model, same_run)
+    variants = phase("variant slice", variant_slice_phase, card, bf16_model, same_run)
     del bf16_model
     torch.cuda.empty_cache()
-    train_launches = train_slice_phase(card)["launches"]
-    scale_err = scale_kernel_phase()
-    m_run = scale_slice_phase(card, "m", ("bf16", "int8", "A", "B"), (32, 1), timed=True)
-    n_run = scale_slice_phase(card, "n", ("bf16", "int8"), (2,), timed=False)
-    serve_matrix_phase(card)
-    train_scale = train_scale_kernel_phase()
-    folded_route_check()
+    train_launches = phase("train slice", train_slice_phase, card)["launches"]
+    scale_err = phase("scale kernel", scale_kernel_phase)
+    m_run = phase("phi=m slice", scale_slice_phase, card, "m", ("bf16", "int8", "A", "B"),
+                  (32, 1), timed=True)
+    n_run = phase("phi=n slice", scale_slice_phase, card, "n", ("bf16", "int8"), (2,),
+                  timed=False)
+    phase("serve matrix", serve_matrix_phase, card)
+    train_scale = phase("train scale kernel", train_scale_kernel_phase)
+    phase("folded route", folded_route_check)
     from transparent_object_detection_tpu_torch.config import ModelConfig
 
-    m_train = train_slice_phase(card, ModelConfig(phi="m", remat=True), train_batches=(16, 8),
-                                faults=(), rejects=())
-    n_train = train_slice_phase(card, ModelConfig(phi="n"), rejects=(), timed=False)
-    n32_train = train_slice_phase(card, ModelConfig(phi="n", compute_dtype="float32"),
-                                  rejects=(), timed=False)
+    m_train = phase("phi=m train", train_slice_phase, card, ModelConfig(phi="m", remat=True),
+                    train_batches=(16, 8), faults=(), rejects=())
+    n_train = phase("phi=n train", train_slice_phase, card, ModelConfig(phi="n"), rejects=(),
+                    timed=False)
+    n32_train = phase("phi=n fp32 train", train_slice_phase, card,
+                      ModelConfig(phi="n", compute_dtype="float32"), rejects=(), timed=False)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
+    sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     a8src = "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
+    # row 1 and row 9's packed sites run the sm90 kernel; row 9's single-head
+    # site (dark3) the mma_sync template
+    lse_rows = lambda rows, sm90: [r for r in rows if (r.get("form") == "sm90") == sm90]
     kernels = [
-        kernel_entry("flash_mha_packed", src,
+        kernel_entry("flash_mha_packed", sm90_src,
                      "transparent_object_detection_tpu/ops/attention.py:239", mha_rows,
-                     launches["flash_mha_packed"]),
+                     launches["flash_mha_packed_sm90"]),
         kernel_entry("flash_single", src,
                      "transparent_object_detection_tpu/ops/attention.py:137", single_rows,
                      launches["flash_single"]),
@@ -3394,12 +3631,15 @@ def main() -> int:
                           variants["A"]["rows"]["quant_rows_int4"],
                           variants["A"]["launches"][32]["quant_rows_int4"],
                           variant_err["quant_rows_int4"]),
-        kernel_entry("flash_fwd_lse", src, f"{jv}:63", train_rows["flash_fwd_lse"],
-                           train_launches["flash_fwd_lse"]),
+        kernel_entry("flash_fwd_lse", src, f"{jv}:63",
+                     lse_rows(train_rows["flash_fwd_lse"], False), train_launches["flash_fwd_lse"]),
         kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170", train_rows["flash_bwd_dq"],
-                           train_launches["flash_bwd_dq"]),
+                     train_launches["flash_bwd_dq"]),
         kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197", train_rows["flash_bwd_dkv"],
-                           train_launches["flash_bwd_dkv"]),
+                     train_launches["flash_bwd_dkv"]),
+        kernel_entry("flash_fwd_lse sm90", sm90_src, f"{jv}:63",
+                     lse_rows(train_rows["flash_fwd_lse"], True),
+                     train_launches["flash_fwd_lse_sm90"]),
     ]
     # the other scales' forms: phi='m' at full width (launches of the counted
     # batch-32 forward, times of the batch-2 forward's launches), fp32
@@ -3419,9 +3659,11 @@ def main() -> int:
             if tag is None:
                 continue
             r = run[tag]
+            sm90 = name == "flash_mha_packed" and not suffix  # bf16 packed: the sm90 kernel
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", source, replaces, r["rows"][name],
-                r["launches"][batch][name], scale_err.get(name + suffix, 0.0)))
+                f"{name} {label}", sm90_src if sm90 else source, replaces, r["rows"][name],
+                r["launches"][batch][name + ("_sm90" if sm90 else "")],
+                scale_err.get(name + suffix, 0.0)))
     # rows 9-11 at the other scales: phi='m' 640x640 bf16 (launches of the
     # counted batch-2 remat step, times of its four sites at batch 2) and
     # fp32 (launches of the phi='n' fp32 step, times of its sites); errors
@@ -3429,12 +3671,18 @@ def main() -> int:
     for label, run, suffix in (("phi=m", m_train, ""), ("fp32 phi=n", n32_train, " fp32")):
         for name, source, line in (("flash_fwd_lse", src, 63), ("flash_bwd_dq", vsrc, 170),
                                    ("flash_bwd_dkv", vsrc, 197)):
+            rows = train_scale["rows"][f"{name}{suffix} {label.split()[-1]}"]
+            if name == "flash_fwd_lse" and lse_rows(rows, True):  # packed bf16 sites
+                kernels.append(int8_kernel_entry(
+                    f"{name} sm90 {label}", sm90_src, f"{jv}:{line}", lse_rows(rows, True),
+                    run["launches"]["flash_fwd_lse_sm90"], train_scale["err"][name + suffix]))
+                rows = lse_rows(rows, False)
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", source, f"{jv}:{line}",
-                train_scale["rows"][f"{name}{suffix} {label.split()[-1]}"],
-                run["launches"][name], train_scale["err"][name + suffix]))
+                f"{name} {label}", source, f"{jv}:{line}", rows, run["launches"][name],
+                train_scale["err"][name + suffix]))
     check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
-    print(json.dumps({"smoke_total_s": time.perf_counter() - t_start}), flush=True)
+    print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),
+          flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -119,9 +119,15 @@ def test_plain_impl_matches_default_on_cpu():
 def test_wrappers_never_fall_back_off_cpu():
     """A tensor that is not on the CPU never reaches the plain version: the
     wrapper launches the kernel or raises (here on the meta device, before
-    any library is built), and counts nothing."""
+    any library is built), and counts nothing, with the sm90 kernel the
+    rule gives bf16 heads of 128 (csrc/flash_fwd_sm90.cu) as with the
+    others. reset_launch_counts clears every counter, the sm90 kernel's
+    too."""
+    tattn.flash_mha_packed.launches = tattn.flash_mha_packed.sm90_launches = 3
     tattn.reset_launch_counts()
+    assert tattn.flash_mha_packed.launches == 0 and tattn.flash_mha_packed.sm90_launches == 0
     qkv = torch.empty((1, 2048, 3 * 256), dtype=torch.bfloat16, device="meta")
+    assert tattn.packed_fwd_form(128, qkv.dtype) == "sm90"
     with pytest.raises(ValueError, match="CUDA tensor"):
         tattn.flash_mha_packed(qkv, 2, 0.1)
     q = torch.empty((1, 2048, 64), dtype=torch.bfloat16, device="meta")
@@ -129,6 +135,7 @@ def test_wrappers_never_fall_back_off_cpu():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tattn.flash_single(q, q, v, 1.0)
     assert tattn.flash_mha_packed.launches == 0 and tattn.flash_single.launches == 0
+    assert tattn.flash_mha_packed.sm90_launches == 0
 
 
 def test_kernel_shape_support():

@@ -1,14 +1,27 @@
 """Time the serving kernels (rows 1-8) and the training kernels (rows 9-11:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
-this checkout at the phi='s' 640x640 shapes, batch 2, on one GPU; prints one
-JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
+this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites also
+at batch 1), on one GPU; prints one JSON line (ms per call, CUDA events, 20
+calls after 3 warm-ups).
 
-    python3 transparent_object_detection_tpu_torch/kernels/time_serving.py
+    python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
+        [--forward | --wide-heads]
+
+With --forward it times only the phi='s' 640x640 bf16 FocusModel forward
+(seeded weights): batch 1 on the host clock (the latency path) and by the
+device's busy time, batch 32 with CUDA events. With --wide-heads
+it times only the two forms csrc/flash_fwd_sm90.cu has for heads wider
+than 256, at phi='m' (8 heads of 384): the warpgroup split that
+`attention.sm90_plan` picks and the sliced form (v in two slices of 192
+across blocks, S recomputed per slice), each held to 1e-2 of max|plain|.
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
 that .gitignore lists, with this file copied over its own) are compared on
 one card by running each one's copy of this script in turns: A, B, B, A.
+A checkout before the sm90 kernel times the packed sites on the mma_sync
+template of csrc/flash_attn_fwd.cu, so such a pair gives both kernels'
+times on the same inputs.
 """
 from __future__ import annotations
 
@@ -69,13 +82,80 @@ def time_training_kernels(randn) -> dict:
     return out
 
 
+def time_forward() -> dict:
+    """The phi='s' 640x640 bf16 forward: at batch 1 the host clock (median
+    and mean of 100 synchronised calls after 5 warm-ups) and the device's
+    busy ms a call (torch.profiler over 10 calls: the kernels' own time,
+    which the host's pace does not move); at batch 32 ms on CUDA events."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    model = build_model(ModelConfig(), device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    img32 = torch.rand(32, 640, 640, 3, generator=gen, device="cuda")  # (B, H, W, 3)
+    img1 = img32[:1].contiguous()
+    lat = []
+    with torch.inference_mode():
+        for i in range(105):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(img1)
+            torch.cuda.synchronize()
+            if i >= 5:
+                lat.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                model(img1)
+            torch.cuda.synchronize()
+        b32 = timed_ms(lambda: model(img32), 5, 2)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.key != "Command Buffer Full")
+    return {"forward_batch1_ms_p50": sorted(lat)[len(lat) // 2],
+            "forward_batch1_ms_mean": sum(lat) / len(lat),
+            "forward_batch1_device_busy_ms": busy / 1e3 / 10, "forward_batch32_ms": b32}
+
+
+def time_wide_heads(randn) -> dict:
+    """ms of the sm90 kernel's two forms for heads of 384 (phi='m' 640x640
+    h2 and h4 at batch 2, h4 at batch 1), serving: the plan's (split) and
+    the sliced one, each held to 1e-2 of max|plain| first."""
+    out = {}
+    for name, (b, n, c, h) in (("h2", (2, 6400, 3072, 8)), ("h4", (2, 1600, 3072, 8)),
+                               ("h4 batch 1", (1, 1600, 3072, 8))):
+        d, scale = c // h, (c // h) ** -0.5
+        qkv = randn(b, n, 3 * c).bfloat16()
+        views = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
+        ref = A.flash_mha_packed_plain(qkv, h, scale).float()
+        for form, plan in (("split", A.sm90_plan(d, d)), ("sliced", A._sm90_layout(d, d, False))):
+            run = lambda: A._launch_sm90_plan(*views, h, scale, None, plan)
+            err = float((run().float() - ref).abs().max() / ref.abs().max())
+            if err > 1e-2:
+                raise RuntimeError(f"{form} plan at phi=m {name}: {err:.3g} of max|plain|")
+            out[f"flash_mha_packed phi=m {name} {form}"] = timed_ms(run)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_serving: no CUDA device", file=sys.stderr)
         return 1
     _build.build(_build.all_sources())
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    result = {"checkout": str(ROOT), "card": card}
+    if "--forward" in sys.argv[1:]:
+        print(json.dumps({**result, "forward": time_forward()}))
+        return 0
+    if "--wide-heads" in sys.argv[1:]:
+        print(json.dumps({**result, "ms": time_wide_heads(randn)}))
+        return 0
     training = time_training_kernels(randn)
     out = {}
     for name, (b, n, c, h) in NECK:
@@ -84,7 +164,10 @@ def main() -> int:
         kq, ks = A8.quantize_kv(qkv[..., c:2 * c], h, n)
         vq, vs = A8.quantize_kv(qkv[..., 2 * c:], h, n)
         args = (qkv, kq, ks, vq, vs, h, scale, c)
+        one = qkv[:1].contiguous()
         out[f"flash_mha_packed {name}"] = timed_ms(lambda: A.flash_mha_packed(qkv, h, scale))
+        out[f"flash_mha_packed {name} batch 1"] = timed_ms(
+            lambda: A.flash_mha_packed(one, h, scale))
         out[f"flash_mha_int8 {name}"] = timed_ms(lambda: A8.flash_mha_int8(*args))
         out[f"flash_mha_int8_qout {name}"] = timed_ms(lambda: A8.flash_mha_int8_qout(*args))
         payload, scales = QM._output_plain(qkv.float(), None, 3 * c, None)
@@ -104,9 +187,7 @@ def main() -> int:
     xq, xs = QM.quant_rows(x, True)
     out["quant_rows h2 qkv"] = timed_ms(lambda: QM.quant_rows(x, True))
     out["qmm h2 qkv"] = timed_ms(lambda: QM.qmm(xq, xs, w["wq"], w["w_scale"], w["bias"]))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"checkout": str(ROOT), "card": card, "ms": out, "training_ms": training}))
+    print(json.dumps({**result, "ms": out, "training_ms": training}))
     return 0
 
 

@@ -38,7 +38,12 @@ fit fails (phi='l' h1, phi='x' h1 and h4) JAX falls to its bf16-scored
 `chunked` route; the port keeps its kernels, which score in fp32 (ROADMAP
 section 3).
 The kernels take bf16 or fp32 (the fp32 models: fp32 products on the CUDA
-cores, as the Pallas kernel computes on fp32 inputs).
+cores, as the Pallas kernel computes on fp32 inputs). A packed call takes
+one of three kernels, by one rule (`packed_fwd_form`): bf16 heads whose
+widths are multiples of 64 (every packed site a route reaches) the Hopper
+kernel of csrc/flash_fwd_sm90.cu (wgmma fed by a TMA ring, launched with the
+plan of `sm90_plan`), other bf16 widths the mma.sync template of
+csrc/flash_attn_fwd.cu, fp32 that source's FFMA form.
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
 and runs its plain version only for a CPU tensor. `impl="plain"` runs the
@@ -65,6 +70,21 @@ PACKED_HEAD_MULTIPLE = 128
 KERNEL_WIDTH_MULTIPLE = 8
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 IMPLS = (None, "plain")
+# The Hopper kernel (csrc/flash_fwd_sm90.cu) and the launch plans it is built
+# for: 64-column q/k slabs through a ring of 1-8 stages, and either 128 query
+# rows a block with v in one slice of 64-256 columns a block (sliced; 128-key
+# tiles for slices up to 128, else 64), or 64 rows a block with v split
+# between its two consumer warpgroups, 192 or 256 columns each (wg_split;
+# 64-key tiles); shared memory within the card's 227 KB.
+SM90_WIDTH_MULTIPLE = 64
+SM90_ROWS, SM90_SLAB = 128, 64
+SM90_V_SLICES = (64, 128, 192, 256)
+SM90_MAX_STAGES = 8
+SM90_SMEM_LIMIT = 232448
+SM90_Q_RESIDENT_BYTES = 96 * 1024  # q heads up to 384 wide stay in shared memory
+SM90_SPLIT_V_SLICES = (192, 256)
+SM90_PLAN_KEYS = ("rows", "keys", "slab", "v_slice", "stages", "q_resident", "dv_splits",
+                  "wg_split", "smem_bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +201,130 @@ def single_kernel_supports(dq: int, dv: int) -> bool:
     return dq > 0 and dv > 0
 
 
+def packed_fwd_form(dh: int, dtype: torch.dtype, dv: Optional[int] = None) -> str:
+    """The kernel of a packed multi-head forward (serving, or training with
+    lse) on heads of q/k width `dh` and v width `dv` (default `dh`): "f32"
+    for fp32 (csrc/flash_attn_fwd.cu, CUDA-core FFMA); "sm90" for bf16 when
+    both widths are multiples of 64, which every packed site a route reaches
+    is (csrc/flash_fwd_sm90.cu); "mma_sync" for the other bf16 widths that
+    are multiples of 8 (csrc/flash_attn_fwd.cu)."""
+    dv = dh if dv is None else dv
+    if dtype == torch.float32:
+        return "f32"
+    if dh % SM90_WIDTH_MULTIPLE == 0 and dv % SM90_WIDTH_MULTIPLE == 0:
+        return "sm90"
+    return "mma_sync"
+
+
+def sm90_smem_bytes(dqk: int, v_slice: int, stages: int, q_resident: bool,
+                    wg_split: bool = False, keys: int = 64) -> int:
+    """Dynamic shared memory of an sm90 plan (as csrc/flash_fwd_sm90.cu
+    computes it): 1024 bytes of alignment slack, 1024 of barriers, q when
+    resident, the K ring (each stage a 64-key x 64-column slab, plus the q
+    slab when q streams), two v stages of `keys` keys x the v the block
+    covers, and with wg_split two 64-row bf16 P tiles."""
+    rows = 64 if wg_split else SM90_ROWS
+    stage = 2 * SM90_SLAB * (keys + (0 if q_resident else rows))
+    return (2048 + (2 * rows * dqk if q_resident else 0) + stages * stage
+            + 2 * 2 * keys * v_slice * (2 if wg_split else 1)
+            + (2 * 2 * 64 * keys if wg_split else 0))
+
+
+def _sm90_stages(dqk: int, v_slice: int, q_resident: bool, wg_split: bool,
+                 keys: int = 64) -> int:
+    """The most K stages (up to 8) whose plan fits the shared memory, or 0."""
+    return next((st for st in range(SM90_MAX_STAGES, 0, -1)
+                 if sm90_smem_bytes(dqk, v_slice, st, q_resident, wg_split, keys)
+                 <= SM90_SMEM_LIMIT), 0)
+
+
+def sm90_split_fits(dqk: int, dv: int) -> bool:
+    """Whether the wg_split plan takes these widths: v wider than one
+    warpgroup's 256 columns but not than two, q resident at 64 rows, and
+    the shared memory fits."""
+    v_slice = -(-dv // (2 * SM90_SLAB)) * SM90_SLAB
+    return (SM90_V_SLICES[-1] < dv <= 2 * SM90_V_SLICES[-1] and v_slice in SM90_SPLIT_V_SLICES
+            and 2 * 64 * dqk <= SM90_Q_RESIDENT_BYTES
+            and _sm90_stages(dqk, v_slice, True, True) > 0)
+
+
+def _sm90_layout(dqk: int, dv: int, wg_split: bool) -> dict:
+    """The plan of one form (the library is built for both): sliced, v in
+    the fewest slices of at most 256 columns, each a multiple of 64 (384:
+    two of 192), one a block of 128 rows, q resident while 128 rows of it
+    fit in 96 KB, 128-key tiles for slices up to 128 (at 192 and 256 the S
+    accumulator no longer fits beside O), else 64; or wg_split, one 64-row
+    block a head's rows, v split between its two consumer warpgroups, 64-key
+    tiles. The most K stages (up to 8) that fit the shared memory."""
+    if wg_split:
+        splits, rows, q_resident, keys = 1, 64, True, 64
+        v_slice = -(-dv // (2 * SM90_SLAB)) * SM90_SLAB
+    else:
+        splits, rows = -(-dv // SM90_V_SLICES[-1]), SM90_ROWS
+        v_slice = -(-dv // (splits * SM90_SLAB)) * SM90_SLAB
+        q_resident = 2 * SM90_ROWS * dqk <= SM90_Q_RESIDENT_BYTES
+        keys = 128 if v_slice <= 128 else 64
+    stages = _sm90_stages(dqk, v_slice, q_resident, wg_split, keys)
+    if not stages:
+        raise ValueError(f"no sm90 plan fits q/k {dqk}, v {dv}")
+    return {"rows": rows, "keys": keys, "slab": SM90_SLAB, "v_slice": v_slice,
+            "stages": stages, "q_resident": int(q_resident), "dv_splits": splits,
+            "wg_split": int(wg_split),
+            "smem_bytes": sm90_smem_bytes(dqk, v_slice, stages, q_resident, wg_split, keys)}
+
+
+def sm90_plan(dqk: int, dv: int) -> dict:
+    """Launch plan of csrc/flash_fwd_sm90.cu for q/k width `dqk` and v width
+    `dv` (multiples of 64): the wg_split form wherever it fits (heads wider
+    than 256 and up to 512: S computed once, not once a 256-column v slice;
+    measured at phi='m' heads of 384, PERF.md), else the sliced form."""
+    if dqk <= 0 or dv <= 0 or dqk % SM90_WIDTH_MULTIPLE or dv % SM90_WIDTH_MULTIPLE:
+        raise ValueError(f"the sm90 kernel takes widths that are multiples of "
+                         f"{SM90_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    return _sm90_layout(dqk, dv, sm90_split_fits(dqk, dv))
+
+
+def _sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_fwd_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_fwd_sm90.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                       cl, cl, cl, cl, cl, cl, cf, vp, vp]
+        lib.flash_fwd_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _launch_sm90_plan(q, k, v, num_heads: int, scale: float, lse, plan: dict) -> torch.Tensor:
+    b, n, cq = q.shape
+    plan_arr = (ctypes.c_int * len(SM90_PLAN_KEYS))(*(plan[key] for key in SM90_PLAN_KEYS))
+    out = torch.empty((b, n, v.shape[-1]), dtype=v.dtype, device=v.device)
+    err = _sm90_lib().flash_fwd_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, n, num_heads, cq // num_heads,
+        v.shape[-1] // num_heads, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), scale, ctypes.cast(plan_arr, ctypes.c_void_p),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_fwd_sm90")
+    return out
+
+
+def launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                scale: float, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of csrc/flash_fwd_sm90.cu on checked bf16 CUDA operands: q,
+    k (B, N, H*dqk) and v (B, N, H*dv), each a view whose last axis is
+    contiguous and whose row and batch strides are multiples of 8 (the
+    sections of a packed qkv array are such views), with `sm90_plan`'s plan
+    (the library refuses one it was not built for); writes lse (B, H, N[,
+    1]) fp32 when given. Returns out (B, N, H*dv). Raises if the launch
+    fails; never falls back."""
+    plan = sm90_plan(q.shape[-1] // num_heads, v.shape[-1] // num_heads)
+    return _launch_sm90_plan(q, k, v, num_heads, scale, lse, plan)
+
+
 def _padded(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy (or t itself) whose last axis is zero-padded to a
     multiple of KERNEL_WIDTH_MULTIPLE: padded q/k columns leave q.k^T
@@ -198,8 +342,9 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     """Packed multi-head flash attention: (B, N, 3C) -> (B, N, C).
 
     Port of ops/attention.py::_mha_flash_kernel via flash_attention_mha_packed
-    (JAX). A CUDA tensor launches csrc/flash_attn_fwd.cu; a CPU tensor runs
-    `flash_mha_packed_plain`."""
+    (JAX). A CUDA tensor launches the kernel of `packed_fwd_form`; a CPU
+    tensor runs `flash_mha_packed_plain`. `launches` counts launches of
+    csrc/flash_attn_fwd.cu, `sm90_launches` those of csrc/flash_fwd_sm90.cu."""
     if qkv.device.type == "cpu":
         return flash_mha_packed_plain(qkv, num_heads, scale)
     b, n, c3 = qkv.shape
@@ -207,6 +352,10 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     _check_cuda_operand("qkv", qkv, qkv.dtype)
     if c3 % 3 or not packed_kernel_supports(c, num_heads):
         raise ValueError(f"packed flash kernel does not take C={c} with {num_heads} heads")
+    if packed_fwd_form(c // num_heads, qkv.dtype) == "sm90":
+        out = launch_sm90(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], num_heads, scale)
+        flash_mha_packed.sm90_launches += 1
+        return out
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     err = _lib().flash_mha_packed(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, c // num_heads, scale,
@@ -251,11 +400,13 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_mha_packed.launches = 0
+flash_mha_packed.sm90_launches = 0
 flash_single.launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_mha_packed.launches = 0
+    flash_mha_packed.sm90_launches = 0
     flash_single.launches = 0
 
 

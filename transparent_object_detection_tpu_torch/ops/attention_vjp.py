@@ -10,7 +10,10 @@ for packed heads. q/k/v may be column views of one packed (B, N, 3C) qkv
 array (last axis contiguous): the kernels read them in place, and the
 Function given the packed array writes one packed (B, N, 3C) gradient.
 
-  flash_fwd_lse  replaces _fwd_lse_kernel (csrc/flash_attn_fwd.cu)
+  flash_fwd_lse  replaces _fwd_lse_kernel (csrc/flash_fwd_sm90.cu for bf16
+                 packed heads whose widths are multiples of 64, the rule
+                 of attention.packed_fwd_form; csrc/flash_attn_fwd.cu for
+                 one head, fp32 and other widths)
   flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_attn_bwd.cu, 1 launch)
   flash_bwd_dkv  replaces _bwd_dkv_kernel (csrc/flash_attn_bwd.cu, 2 launches:
                  the dk pass and the dv pass; counted once, as the TPU kernel)
@@ -194,19 +197,34 @@ def _widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
     return b, n, c // num_heads, cv // num_heads
 
 
+def lse_fwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
+    """The kernel of a forward with logsumexp: packed heads (num_heads > 1)
+    follow `attention.packed_fwd_form` ("sm90" for bf16 widths that are
+    multiples of 64); one head (dark3, folded heads) stays on
+    csrc/flash_attn_fwd.cu ("mma_sync" in bf16, "f32")."""
+    form = A.packed_fwd_form(dqk, dtype, dv)
+    return "mma_sync" if form == "sm90" and num_heads == 1 else form
+
+
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                   num_heads: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash forward with logsumexp: -> out (B, N, H*dv), lse (B, N, 1) or
     (B, H, N, 1) fp32. Port of ops/attention_vjp.py::_fwd_lse_kernel
-    (flash_fwd_lse, JAX). A CUDA tensor launches csrc/flash_attn_fwd.cu; a CPU
-    tensor runs `flash_fwd_lse_plain`."""
+    (flash_fwd_lse, JAX). A CUDA tensor launches the kernel of
+    `lse_fwd_form`; a CPU tensor runs `flash_fwd_lse_plain`. `launches`
+    counts launches of csrc/flash_attn_fwd.cu, `sm90_launches` those of
+    csrc/flash_fwd_sm90.cu."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale, num_heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_view(name, t, q.dtype)
     b, n, dqk, dv = _widths(q, k, v, num_heads)
-    out = torch.empty((b, n, v.shape[-1]), dtype=v.dtype, device=v.device)
     lse = torch.empty(_stat_shape(b, n, num_heads), dtype=torch.float32, device=q.device)
+    if lse_fwd_form(dqk, dv, num_heads, q.dtype) == "sm90":
+        out = A.launch_sm90(q, k, v, num_heads, scale, lse)
+        flash_fwd_lse.sm90_launches += 1
+        return out, lse
+    out = torch.empty((b, n, v.shape[-1]), dtype=v.dtype, device=v.device)
     err = _fwd_lib().flash_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, n, num_heads, dqk, dv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -286,12 +304,14 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
 
 
 flash_fwd_lse.launches = 0
+flash_fwd_lse.sm90_launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_fwd_lse.launches = 0
+    flash_fwd_lse.sm90_launches = 0
     flash_bwd_dq.launches = 0
     flash_bwd_dkv.launches = 0
 
