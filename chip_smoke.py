@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all five sources at once) and prints the card's name and power
+   nvcc (all six sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -39,9 +39,16 @@
    (payloads equal but for +-1 on a tiny share, scales, values) and planted
    faults each bar must reject: a K slab of 32 dropped and a halved
    quant_out group width (qmm), p rounded against a running 64-key max and
-   k/v scales per 64 keys (flash_mha_int8).
+   k/v scales per 64 keys (flash_mha_int8). Every phi='s' int8 attention
+   site runs csrc/flash_int8_sm90.cu (int8 wgmma fed by a TMA ring; its
+   launches counted in each entry point's `sm90_launches`): each case
+   launches twice for the same bits and must also reject the faults of its
+   ring and layout (a key tile read twice and its neighbour never, a tail
+   tile's next-block keys left unmasked in 8 key blocks of 800, V's key
+   order not matched to P's fragments: the kernel launched on V in its
+   natural key order).
 5. int8 slice phase: the same weights as ModelConfig(int8_dense=True,
-   int8_attn=True) through Predictor.detect_raw_batch with all five counts
+   int8_attn=True) through Predictor.detect_raw_batch with every count
    reset before and read after; `decoded` and detection sets against the
    same model on plain versions (limits between the sound reading and a
    planted fault's); every launch of one batch-2 forward against its plain
@@ -54,8 +61,10 @@
    std 1 and 4, with the int8 bars and planted faults each must reject (a
    q scale from the wrong head, the k/v requantize ratio dropped, one
    output scale a row instead of a (row, head), p rounded against a
-   running 64-key max, qmax 127 in place of 7, a K slab dropped); timed
-   beside bound, plain version and bf16 SDPA.
+   running 64-key max, qmax 127 in place of 7, a K slab dropped), the
+   sm90 kernel's outputs twice for the same bits; timed at batch 2 and 1
+   beside bound (three int8 products; two beside it), plain version and
+   bf16 SDPA.
 7. Variant slice: the int8 model's weights under configuration A
    (attn_handoff + w4a4_mlp1) and B (attn_qout) through
    Predictor.detect_raw_batch at batch 32 and 1 with every count reset
@@ -89,8 +98,10 @@
    blocks of 4,320 and 1,440) and in fp32, each against its plain version
    with the bars above; each planted fault (those above, a q/k slab of the
    width loop dropped, the tail key tile dropped, an int8 output quantized
-   per 256-column slice, the K tail of qmm dropped) rejected on some input
-   spread.
+   per 256-column slice or, on the sm90 kernel, per warpgroup half, the K
+   tail of qmm dropped; and at the sm90 kernel's int8 sites its ring and
+   layout faults, each launch twice for the same bits) rejected on some
+   input spread.
 11. phi='m' 640x640 slice at full width (1.354 B parameters, seeded random
    weights): bf16, int8, configurations A and B through
    Predictor.detect_raw_batch at batch 32 and 1 with every count reset
@@ -131,10 +142,14 @@
    hold its ring's faults.
 17. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
-   on the sm90 kernel, rows 2-11 with row 9's single-head site, then row
-   9's packed sites on the sm90 kernel; then the phi='m' and fp32 forms,
-   rows 9-11 at phi='m' and in fp32 last), then {"ok": true, "device": ...}
-   last.
+   on the sm90 kernel, rows 2-11 with row 9's single-head site, rows 3-5
+   on csrc/flash_int8_sm90.cu, then row 9's packed sites on the sm90
+   kernel; then the phi='m' and fp32 forms, rows 3-5 split by kernel: the
+   sm90 one's sites and the mma_sync template's (dark3), rows 9-11 at
+   phi='m' and in fp32 last), then {"ok": true, "device": ...} last.
+   Every int8 attention launch of a counted forward is timed at batch 2
+   and 1 beside its bound (three int8 products, and two), plain version
+   and bf16 SDPA.
 
 Any failed check exits non-zero before the last line. TF32 is off for
 matmuls and convolutions wherever numbers are compared.
@@ -517,7 +532,7 @@ KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
     ("flash attention (ours)", ("flash_fwd_",)),   # bf16 and fp32 forms
     ("flash attention backward (ours)", ("flash_bwd_",)),  # phi='s', wide and fp32 forms
     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
-    ("int8 flash attention (ours)", ("flash_int8_kernel",)),
+    ("int8 flash attention (ours)", ("flash_int8_kernel", "flash_int8_sm90_kernel")),
     ("int8 GEMM (ours)", ("qmm_kernel", "rows_out_kernel")),
     ("int8 row quantize (ours)", ("quant_rows_kernel",)),
     ("batch/layer norm", ("bn_fw", "batch_norm", "layer_norm")),
@@ -938,6 +953,100 @@ def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dt
     return torch.stack(outs).transpose(1, 2).reshape(b, n, -1)
 
 
+SM90_RING_FAULTS = ("key_tile_read_twice", "tail_keys_unmasked", "v_key_order_unmatched")
+
+
+def int8_tiled_reference(q, k, v, heads, scale, bk, keys, fault, out_dtype=None):
+    """The int8 attention function as csrc/flash_int8_sm90.cu computes it
+    with one of the faults its ring could commit (float64 sums): each key
+    block read in tiles of `keys`, "key_tile_read_twice" reading its tile 1
+    in place of tile 2 (never read), "tail_keys_unmasked" reading its last
+    tile whole, the next block's keys scored with this block's scales (zero
+    keys past N). The block's k/v scales apply to every key it reads, as in
+    the kernel."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+
+    b, n, _ = k.shape
+    kq, ks = A8.quantize_kv(k, heads, bk)
+    vq, vs = A8.quantize_kv(v, heads, bk)
+    kh = torch.cat([A8._split_heads(kq, heads).double(),
+                    torch.zeros(b, heads, keys, kq.shape[-1] // heads, dtype=torch.float64,
+                                device=q.device)], 2)  # the zero-filled keys past N
+    vh = torch.cat([A8._split_heads(vq, heads).double(),
+                    torch.zeros(b, heads, keys, vq.shape[-1] // heads, dtype=torch.float64,
+                                device=q.device)], 2)
+    tiles = -(-bk // keys)
+    outs = []
+    for bi in range(b):
+        qq, qs = A8._quantize_q(A8._split_heads(q[bi:bi + 1], heads))
+        qd = qq[0].double()
+        m = torch.full(qs[0].shape, -1e30, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(heads, n, vh.shape[-1], dtype=torch.float64, device=q.device)
+        for j in range(n // bk):
+            idx = torch.arange(j * bk, (j + 1) * bk, device=q.device)
+            if fault == "key_tile_read_twice" and tiles > 2:
+                idx[2 * keys:min(3 * keys, bk)] = idx[keys:keys + min(keys, bk - 2 * keys)]
+            elif fault == "tail_keys_unmasked":
+                idx = torch.arange(j * bk, j * bk + tiles * keys, device=q.device).clamp(max=n)
+            s32 = qd @ kh[bi][:, idx].transpose(-1, -2)
+            s = s32.float() * (qs[0] * (ks[bi, :, j] * (scale * A8.LOG2E))[:, None, None])
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p127 = torch.exp2(s - (m_new - A8.LOG2_127))
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p127.sum(-1, keepdim=True)
+            pv = torch.round(p127).double() @ vh[bi][:, idx]
+            acc = acc * corr.double() + pv * vs[bi, :, j].double()[:, None, None]
+            m = m_new
+        outs.append((acc / l.double()).to(out_dtype or q.dtype))
+    return torch.stack(outs).transpose(1, 2).reshape(b, n, -1)
+
+
+def sm90_ring_faults(q, kq, ks, vq, vs, heads, scale, k, v, bk, quant=None):
+    """{fault: thunk} of the int8 sm90 kernel's own faults at these inputs
+    (q bf16 or fp32, possibly the packed qkv; k, v before quantization):
+    the tiled reference with a key tile read twice (three tiles or more a
+    block) or the tail keys unmasked (several blocks that are not multiples
+    of the key tile: a tail tile then holds the next block's keys), and the
+    kernel itself launched on V in its natural key
+    order (a layout that does not match P's fragments). With `quant` (the
+    per-(row, head) quantizer) the int8 output of flash_mha_int8_qout."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+
+    keys = A8.int8_sm90_plan(kq.shape[-1] // heads, vq.shape[-1] // heads, ks.shape[-1])["keys"]
+    qc = q[..., :kq.shape[-1]]
+    out_dtype = None if quant is None else torch.float32
+    tiled = lambda fault: (quant or (lambda o: o))(
+        int8_tiled_reference(qc, k, v, heads, scale, bk, keys, fault, out_dtype))
+    faults = {}
+    if -(-bk // keys) > 2:
+        faults["key_tile_read_twice"] = lambda: tiled("key_tile_read_twice")
+    if bk % keys and ks.shape[-1] > 1:  # a tail tile that runs into the next block
+        faults["tail_keys_unmasked"] = lambda: tiled("tail_keys_unmasked")
+    natural = A8._split_heads(vq, heads).transpose(-1, -2).contiguous()  # (B, H, dv, N)
+    faults["v_key_order_unmatched"] = lambda: A8._launch_sm90(
+        q, None, kq, ks, vq, vs, heads, scale, torch.int8 if quant else q.dtype, vt=natural)
+    return faults
+
+
+def twice_same_bits(kernel, out, what: str) -> None:
+    """A second launch on the same inputs gives the same bits: a missing
+    wgmma wait or an mbarrier parity error shows as a run-to-run
+    difference."""
+    import torch
+
+    again = kernel()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    agains = again if isinstance(again, tuple) else (again,)
+    check(all(torch.equal(a, b) for a, b in zip(outs, agains)),
+          f"{what}: a second launch gave other bits")
+
+
 def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=False, ln=None,
               qmax=127, dtype="bfloat16"):
     """One synthetic qmm (and, for bf16 or fp32 x, quant_rows) check with
@@ -1051,7 +1160,7 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
         n //= shrink
         scale = (cq // h) ** -0.5 if h > 1 else 1.0
         bk = A8.pick_blocks(n, cq, h, cv=cv)[1]
-        rejected = {f: False for f in faults}
+        rejected = {}
         for score_std in SCORE_STDS:
             std = qk_std(score_std, scale, cq // h)
             if h > 1:  # packed (B, N, 3C) as the TEB hands it over
@@ -1064,8 +1173,12 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
                 v, q_width = randn(b, n, cv).bfloat16(), None
             kq, ks = A8.quantize_kv(k, h, bk)
             vq, vs = A8.quantize_kv(v, h, bk)
-            out = A8.flash_mha_int8(q, kq, ks, vq, vs, h, scale, q_width)
+            kern = lambda: A8.flash_mha_int8(q, kq, ks, vq, vs, h, scale, q_width)
+            out = kern()
             torch.cuda.synchronize()
+            sm90 = q.is_cuda and A8.int8_fwd_form(cq // h, cv // h) == "sm90"
+            if sm90:
+                twice_same_bits(kern, out, f"flash_mha_int8 {name}")
             ref = A8.flash_mha_int8_plain(q, kq, ks, vq, vs, h, scale, q_width)
             qc = q[..., :cq]
             reading = int8_reading(out, ref)
@@ -1074,8 +1187,12 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
             reading["faults_bar_used"] = {
                 f: int8_reading(fn(qc, k, v, h, scale, bk), ref)["bar_used"]
                 for f, fn in faults.items()}
+            if sm90:  # and the faults of the sm90 kernel's ring and layout
+                reading["faults_bar_used"].update(
+                    (f, int8_reading(fn(), ref)["bar_used"])
+                    for f, fn in sm90_ring_faults(q, kq, ks, vq, vs, h, scale, k, v, bk).items())
             for f, used in reading["faults_bar_used"].items():
-                rejected[f] |= used > 1.0
+                rejected[f] = rejected.get(f, False) or used > 1.0
             print(json.dumps({"check": f"flash_mha_int8 {name} score_std {score_std}",
                               "b": b, "n": n, "cq": cq, "cv": cv, "heads": h, "bk": bk,
                               **reading}), flush=True)
@@ -1085,22 +1202,36 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
             err["flash_mha_int8"] = max(err["flash_mha_int8"], reading["max_abs_err"])
         for f, ok in rejected.items():
             check(ok, f"flash_mha_int8 {name}: the bar rejects {f} on no input spread")
-    # several key blocks (pick_blocks gives bk < N past 6,400 tokens): the
-    # kernel's variant with the fp32 acc in shared memory, at h2's widths
+    # several key blocks (pick_blocks gives bk < N past 6,400 tokens), of
+    # 800 keys, not a multiple of the key tile: the fp32 acc in shared
+    # memory, each block's tail tile running into the next block
     n, h, cq = 6400 // shrink, 6, 1536
-    bk = n // 4
+    bk = n // 8
+    scale = (cq // h) ** -0.5
     qkv = randn(1, n, 3 * cq)
-    qkv[..., :2 * cq] *= qk_std(4.0, (cq // h) ** -0.5, cq // h)
+    qkv[..., :2 * cq] *= qk_std(4.0, scale, cq // h)
     qkv = qkv.bfloat16()
-    kq, ks = A8.quantize_kv(qkv[..., cq:2 * cq], h, bk)
-    vq, vs = A8.quantize_kv(qkv[..., 2 * cq:], h, bk)
-    args = (qkv, kq, ks, vq, vs, h, (cq // h) ** -0.5, cq)
+    k, v = qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+    kq, ks = A8.quantize_kv(k, h, bk)
+    vq, vs = A8.quantize_kv(v, h, bk)
+    args = (qkv, kq, ks, vq, vs, h, scale, cq)
     out = A8.flash_mha_int8(*args)
     torch.cuda.synchronize()
-    reading = int8_reading(out, A8.flash_mha_int8_plain(*args))
-    print(json.dumps({"check": "flash_mha_int8 h2 widths, 4 key blocks", "n": n, "bk": bk,
+    ref = A8.flash_mha_int8_plain(*args)
+    reading = int8_reading(out, ref)
+    if qkv.is_cuda:
+        twice_same_bits(lambda: A8.flash_mha_int8(*args), out, "flash_mha_int8 8 key blocks")
+        reading["faults_bar_used"] = {
+            f: int8_reading(fn(), ref)["bar_used"]
+            for f, fn in sm90_ring_faults(qkv, kq, ks, vq, vs, h, scale, k, v, bk).items()}
+    print(json.dumps({"check": "flash_mha_int8 h2 widths, 8 key blocks", "n": n, "bk": bk,
                       **reading}), flush=True)
-    check(reading["bar_used"] <= 1.0, f"flash_mha_int8 with 4 key blocks: {reading}")
+    check(reading["bar_used"] <= 1.0, f"flash_mha_int8 with 8 key blocks: {reading}")
+    check(set(reading.get("faults_bar_used", SM90_RING_FAULTS)) == set(SM90_RING_FAULTS),
+          "flash_mha_int8 with 8 key blocks: not every sm90 fault planted")
+    for f, used in reading.get("faults_bar_used", {}).items():
+        check(used > 1.0, f"flash_mha_int8 with 8 key blocks: the bar does not reject {f} "
+                          f"({used:.3g}x)")
     return err
 
 
@@ -1163,7 +1294,8 @@ def int8_path_calls(model, images) -> dict:
             out = kernel(*args, **kw)
             calls.append((name, args, kw, out))
             return out
-        launch.launches = launch.launches_int4 = 0  # the wrapper counts on its own name
+        # the wrapper counts on its own name
+        launch.launches = launch.launches_int4 = launch.sm90_launches = 0
         return launch
 
     for name, (mod, kernel, _) in real.items():
@@ -1198,31 +1330,28 @@ def int8_path_calls(model, images) -> dict:
                 nbytes = x.numel() * (x.element_size() + 1) + x.shape[0] * 4
                 library_ms, bnd, by = None, nbytes / PEAK_BYTES * 1e3, "bytes"
                 shape = {"m": x.shape[0], "k": x.shape[1], "ln": bool(args[1])}
-            elif name in ("flash_mha_int8_qout", "flash_int8_handoff"):
+            else:  # the int8 attention entry points
                 handoff = name == "flash_int8_handoff"
                 kq, vq, h, scale = (args[2], args[4], args[6], args[7]) if handoff else (
                     args[1], args[3], args[5], args[6])
                 b, n, cq = kq.shape
                 cv = vq.shape[-1]
                 int8_out = isinstance(out, tuple)
-                ops, nbytes = _attention_cost(b, n, cq, cv, h, 1 if handoff else 2,
-                                              1 if int8_out else 2)
+                q_bytes = 1 if handoff else args[0].element_size()
+                out_bytes = 1 if int8_out else out.element_size()
+                ops, nbytes = _attention_cost(b, n, cq, cv, h, q_bytes, out_bytes)
                 bnd, by = _bound(ops, nbytes)
                 library_ms = _sdpa_ms(b, n, cq, cv, h, scale)
+                one = _int8_attention_batch1(name, args)
                 shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
                          "bk": n // args[3 if handoff else 2].shape[-1],
-                         "int8_out": int8_out}
-            else:
-                q, kq, ks, vq, vs, h, scale = args[:7]
-                q_width = args[7] if len(args) > 7 else None
-                b, n, cq = kq.shape
-                cv = vq.shape[-1]
-                bnd, by = _bound(2.0 * b * n * n * (cq + cv),
-                                 b * n * cq * q.element_size() + kq.numel() + vq.numel()
-                                 + 8 * ks.numel() + b * n * cv * out.element_size())
-                library_ms = _sdpa_ms(b, n, cq, cv, h, scale)
-                shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
-                         "bk": n // ks.shape[-1], "packed_q": q_width is not None}
+                         "form": A8.int8_fwd_form(cq // h, cv // h), "int8_out": int8_out,
+                         "packed_q": not handoff and len(args) > 7 and args[7] is not None,
+                         "bound2_ms": _bound(_two_product_ops(b, n, cq, cv), nbytes)[0],
+                         "ms_b1": timed_ms(lambda: kernel(*one, **kw), 10, 2),
+                         "bound_b1_ms": _bound(*_attention_cost(1, n, cq, cv, h, q_bytes,
+                                                                out_bytes))[0],
+                         "library_b1_ms": _sdpa_ms(1, n, cq, cv, h, scale)}
         rows[name].append({"launch": i, **shape, "bar_used": reading["bar_used"],
                            "max_abs_err": reading["max_abs_err"], "ms": ms,
                            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
@@ -1232,7 +1361,9 @@ def int8_path_calls(model, images) -> dict:
 
 
 COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_single", "flash_mha_int8",
-           "flash_mha_int8_qout", "flash_int8_handoff", "qmm", "quant_rows", "quant_rows_int4")
+           "flash_mha_int8_sm90", "flash_mha_int8_qout", "flash_mha_int8_qout_sm90",
+           "flash_int8_handoff", "flash_int8_handoff_sm90", "qmm", "quant_rows",
+           "quant_rows_int4")
 
 
 def reset_counts() -> None:
@@ -1253,9 +1384,9 @@ def read_counts() -> dict:
     return {"flash_mha_packed": A.flash_mha_packed.launches,
             "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
             "flash_single": A.flash_single.launches,
-            "flash_mha_int8": A8.flash_mha_int8.launches,
-            "flash_mha_int8_qout": A8.flash_mha_int8_qout.launches,
-            "flash_int8_handoff": A8.flash_int8_handoff.launches,
+            **{name + sm90: getattr(getattr(A8, name), "sm90_launches" if sm90 else "launches")
+               for name in ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")
+               for sm90 in ("", "_sm90")},
             "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches,
             "quant_rows_int4": QM.quant_rows.launches_int4}
 
@@ -1313,7 +1444,8 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
     # batch 4: 4 TEBs x (qkv, attn_out, mlp1, mlp2), 3 quant_rows each (no
     # TEB reaches the LN handoff's 51,200 rows); int8 attention at h1, h2, h4
     # and dark3, naive bf16 at h6 (N = 400); no variant kernel
-    expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8": 4, "qmm": 16, "quant_rows": 12}
+    expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8_sm90": 4, "qmm": 16,
+                "quant_rows": 12}
     check(launches == expected, f"int8 launches {launches}, expected {expected}")
     nd = dets["num_detections"].cpu()
     check(bool(torch.isfinite(dets["boxes"]).all()), "int8: non-finite boxes")
@@ -1446,6 +1578,25 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
     return {**entry, "shapes": rows}
 
 
+I8_SRC = "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu"
+I8_SM90_SRC = "transparent_object_detection_tpu_torch/csrc/flash_int8_sm90.cu"
+
+
+def int8_attention_entries(name, label, rows, launches, max_err, replaces):
+    """The kernels-line entries of one int8 attention entry point: one for
+    each kernel its launches took (`int8_fwd_form`): the sm90 kernel's rows
+    and counter under csrc/flash_int8_sm90.cu, the mma_sync template's under
+    csrc/flash_attn_int8.cu."""
+    out = []
+    for form, source, counter, tag in (("sm90", I8_SM90_SRC, name + "_sm90", ""),
+                                       ("mma_sync", I8_SRC, name, " mma_sync")):
+        mine = [r for r in rows if r["form"] == form]
+        if mine:
+            out.append(int8_kernel_entry(f"{name}{tag}{label}", source, replaces, mine,
+                                         launches[counter], max_err))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the int8 TEB's handoff variants: flash_mha_int8_qout, flash_int8_handoff,
 # quant_rows with qmax 7 (w4a4)
@@ -1466,12 +1617,12 @@ VARIANT_CONFIGS = {
 # opens at batch 32 on h1, h2, h4 (B only). Each TEB runs 4 qmm; a bf16 input
 # to qkv, attn_out or mlp1 runs quant_rows first.
 VARIANT_EXPECTED = {
-    "A": {1: dict(quant_rows=8, quant_rows_int4=1, qmm=16, flash_int8_handoff=3),
-          2: dict(quant_rows=6, quant_rows_int4=3, qmm=16, flash_int8_handoff=3),
-          32: dict(quant_rows=5, quant_rows_int4=4, qmm=16, flash_int8_handoff=3)},
-    "B": {1: dict(quant_rows=9, qmm=16, flash_mha_int8_qout=3),
-          2: dict(quant_rows=9, qmm=16, flash_mha_int8_qout=3),
-          32: dict(quant_rows=6, qmm=16, flash_mha_int8_qout=3)},
+    "A": {1: dict(quant_rows=8, quant_rows_int4=1, qmm=16, flash_int8_handoff_sm90=3),
+          2: dict(quant_rows=6, quant_rows_int4=3, qmm=16, flash_int8_handoff_sm90=3),
+          32: dict(quant_rows=5, quant_rows_int4=4, qmm=16, flash_int8_handoff_sm90=3)},
+    "B": {1: dict(quant_rows=9, qmm=16, flash_mha_int8_qout_sm90=3),
+          2: dict(quant_rows=9, qmm=16, flash_mha_int8_qout_sm90=3),
+          32: dict(quant_rows=6, qmm=16, flash_mha_int8_qout_sm90=3)},
 }
 # Slice limits of each configuration with kernels against the same
 # configuration on plain versions, between the sound reading and those of
@@ -1567,15 +1718,27 @@ def _qkv_payload(gen, b, n, c, qk_std, group):
 
 
 def _attention_cost(b, n, cq, cv, h, q_bytes, out_bytes):
-    """(operations, bytes) of one int8 attention call: q (int8 plus its
-    scale table, or bf16), k/v int8 and their scales read once, the output
-    (int8 plus scales, or bf16) written once."""
-    ops = 2.0 * b * n * n * (cq + cv)
+    """(operations, bytes) of one int8 attention call: the three int8
+    products the function needs (q.k^T for the block max, again for p, and
+    p.v: the max comes before any p), q (int8 plus its scale table, or bf16),
+    k/v int8 and their scales read once, the output (int8 plus scales, or
+    bf16) written once. `_two_product_ops` counts a bf16 flash's two."""
+    ops = 2.0 * b * n * n * (2 * cq + cv)
     scales = 4 * b * n * h if q_bytes == 1 else 0
     out_scales = 4 * b * n * h if out_bytes == 1 else 0
     nbytes = (b * n * cq * q_bytes + scales + b * n * (cq + cv) + 8 * b * h
               + b * n * cv * out_bytes + out_scales)
     return ops, nbytes
+
+
+def _two_product_ops(b, n, cq, cv):
+    return 2.0 * b * n * n * (cq + cv)
+
+
+def _int8_attention_batch1(name, args):
+    """The arguments of an int8 attention call cut to its first image."""
+    first = 6 if name == "flash_int8_handoff" else 5
+    return tuple(a[:1] for a in args[:first]) + tuple(args[first:])
 
 
 def _bound(ops, nbytes):
@@ -1647,6 +1810,9 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
             args = (qkv, kq, ks, vq, vs, h, scale, c)
             out = A8.flash_mha_int8_qout(*args)
             torch.cuda.synchronize()
+            if A8.int8_fwd_form(c // h, c // h) == "sm90":
+                twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
+                                f"flash_mha_int8_qout {name}")
             ref = A8.flash_mha_int8_qout_plain(*args)
             qc = qkv[..., :c]
             faults = {
@@ -1666,11 +1832,15 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
             if score_std == SCORE_STDS[-1] and nk is None:
                 ops, nbytes = _attention_cost(b, n, c, c, h, 2, 1)
                 bnd, by = _bound(ops, nbytes)
+                one = _int8_attention_batch1("flash_mha_int8_qout", args)
                 rows["flash_mha_int8_qout"].append(dict(
-                    node=name, **record, ms=timed_ms(lambda: A8.flash_mha_int8_qout(*args), 10),
+                    node=name, **record, form=A8.int8_fwd_form(c // h, c // h),
+                    ms=timed_ms(lambda: A8.flash_mha_int8_qout(*args), 10),
+                    ms_b1=timed_ms(lambda: A8.flash_mha_int8_qout(*one), 10),
                     plain_ms=timed_ms(lambda: A8.flash_mha_int8_qout_plain(*args), 2, 1),
-                    bound_ms=bnd, bound_by=by, library_ms=_sdpa_ms(b, n, c, c, h, scale),
-                    max_abs_err=r["max_abs_err"]))
+                    bound_ms=bnd, bound_by=by,
+                    bound2_ms=_bound(_two_product_ops(b, n, c, c), nbytes)[0],
+                    library_ms=_sdpa_ms(b, n, c, c, h, scale), max_abs_err=r["max_abs_err"]))
 
             # handoff: the int8 qkv payload with one scale group per row (G = 1) or
             # per 512 columns (G = 12 at C = 2,048; 1,536 columns hold 3 groups)
@@ -1689,6 +1859,9 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
                     hargs = (payload, qs, kq, ks, vq, vs, h, scale, quant_out)
                     out = A8.flash_int8_handoff(*hargs)
                     torch.cuda.synchronize()
+                    if A8.int8_fwd_form(c // h, c // h) == "sm90":
+                        twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
+                                        f"flash_int8_handoff {name} quant_out={quant_out}")
                     ref = A8.flash_int8_handoff_plain(*hargs)
                     faults = {
                         "kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
@@ -1708,11 +1881,15 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
                             and group == path_group):  # as the TEB route runs it
                         ops, nbytes = _attention_cost(b, n, c, c, h, 1, 1)
                         bnd, by = _bound(ops, nbytes)
+                        one = _int8_attention_batch1("flash_int8_handoff", hargs)
                         rows["flash_int8_handoff"].append(dict(
-                            node=name, **g_rec,
+                            node=name, **g_rec, form=A8.int8_fwd_form(c // h, c // h),
                             ms=timed_ms(lambda: A8.flash_int8_handoff(*hargs), 10),
+                            ms_b1=timed_ms(lambda: A8.flash_int8_handoff(*one), 10),
                             plain_ms=timed_ms(lambda: A8.flash_int8_handoff_plain(*hargs), 2, 1),
-                            bound_ms=bnd, bound_by=by, library_ms=_sdpa_ms(b, n, c, c, h, scale),
+                            bound_ms=bnd, bound_by=by,
+                            bound2_ms=_bound(_two_product_ops(b, n, c, c), nbytes)[0],
+                            library_ms=_sdpa_ms(b, n, c, c, h, scale),
                             max_abs_err=r["max_abs_err"]))
         check(rejected or shrink > 1, f"flash_mha_int8_qout {name}: the bar rejects p rounded "
                                       "on a running 64-key max on no input spread")
@@ -1801,7 +1978,7 @@ def variant_slice_phase(card: str, bf16_model, same_run: dict) -> dict:
             dets_b = predictor.detect_raw_batch(r, sh)
             torch.cuda.synchronize()
             launches[b] = read_counts()
-            expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8": 1,
+            expected = {**dict.fromkeys(COUNTED, 0), "flash_mha_int8_sm90": 1,
                         **VARIANT_EXPECTED[tag][b]}
             check(launches[b] == expected,
                   f"configuration {tag} batch {b}: launches {launches[b]}, expected {expected}")
@@ -1870,7 +2047,8 @@ def variant_slice_phase(card: str, bf16_model, same_run: dict) -> dict:
         # every launch of one batch-2 forward against its plain version, timed
         rows = int8_path_calls(model, images[:2])
         got = {k: len(v) for k, v in rows.items() if v}
-        want = {k: v for k, v in {"flash_mha_int8": 1, **VARIANT_EXPECTED[tag][2]}.items() if v}
+        want = {k.removesuffix("_sm90"): v for k, v in
+                {"flash_mha_int8": 1, **VARIANT_EXPECTED[tag][2]}.items() if v}
         check(got == want, f"{tag}: batch-2 launches {got}, expected {want}")
 
         perf = {"card": card, "model": f"phi=s 640x640 int8_dense + int8_attn, config {tag}",
@@ -2289,8 +2467,9 @@ def train_launch_counts():
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_single": A.flash_single.launches,
-                    "flash_mha_int8": A8.flash_mha_int8.launches, "qmm": QM.qmm.launches,
-                    "quant_rows": QM.quant_rows.launches}
+                    "flash_mha_int8": A8.flash_mha_int8.launches,
+                    "flash_mha_int8_sm90": A8.flash_mha_int8.sm90_launches,
+                    "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches}
     return resets, read
 
 
@@ -2308,7 +2487,8 @@ def train_expected(cfg) -> dict:
 
     counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_bwd_dq": 0,
               "flash_bwd_dkv": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
-              "flash_single": 0, "flash_mha_int8": 0, "qmm": 0, "quant_rows": 0}
+              "flash_single": 0, "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0,
+              "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
         route = A.train_route(n, cq, heads, cv)
@@ -2581,15 +2761,22 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
 
     dtype = torch.float32 if f32 else torch.bfloat16
 
-    def attend(route, dh):
-        if route == "packed" and A.packed_fwd_form(dh, dtype) == "sm90":
-            counts["flash_mha_packed_sm90"] += 1
-        elif route in kernel_of:
-            counts[kernel_of[route]] += 1
+    def sm90(kernel, dq, dv):
+        """The counter of `kernel` on heads of these widths: the Hopper
+        kernels' where their rules take the call."""
+        if kernel == "flash_mha_packed":
+            return kernel + ("_sm90" if A.packed_fwd_form(dq, dtype) == "sm90" else "")
+        if kernel.startswith(("flash_mha_int8", "flash_int8")):
+            return kernel + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
+        return kernel
+
+    def attend(route, dq, dv):
+        if route in kernel_of:
+            counts[sm90(kernel_of[route], dq, dv)] += 1
 
     for n, cq, cv, heads, packed in scale_sites(phi).values():
         if not (packed and int8):
-            attend(A.serving_route(n, cq, heads, cv, int8, packed)[0], cq // heads)
+            attend(A.serving_route(n, cq, heads, cv, int8, packed)[0], cq // heads, cv // heads)
             continue
         c, dh, m = cq, cq // heads, batch * n
         w4a4 = var.get("w4a4_mlp1", False) and m % 128 == 0 and c % 128 == 0
@@ -2601,15 +2788,15 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
         if big and var.get("attn_handoff", False):
             g = QM.quant_out_group_width(m, c, 3 * c, 0, align=(c, dh))
             if tiles and (g == 3 * c or (c % g == 0 and g % dh == 0)):
-                counts["flash_int8_handoff"] += 1
+                counts[sm90("flash_int8_handoff", dh, dh)] += 1
                 x_quant = True
             else:  # dequantized qkv, the int8 route
-                attend(A.serving_route(n, c, heads, c, True, True)[0], dh)
+                attend(A.serving_route(n, c, heads, c, True, True)[0], dh, dh)
         elif big and var.get("attn_qout", False) and dh % 128 == 0 and tiles:
-            counts["flash_mha_int8_qout"] += 1
+            counts[sm90("flash_mha_int8_qout", dh, dh)] += 1
             x_quant = True
         else:
-            attend(A.serving_route(n, c, heads, c, True, True)[0], dh)
+            attend(A.serving_route(n, c, heads, c, True, True)[0], dh, dh)
         counts["quant_rows"] += 0 if x_quant else 1  # attn_out
         if w4a4:
             counts["quant_rows_int4"] += 1
@@ -2627,12 +2814,12 @@ def check_launch_model() -> None:
     check(expected_launches("s", 4, "bf16", f32=True) == {**zero, "flash_mha_packed": 3,
                                                           "flash_single": 1},
           "expected_launches: phi='s' fp32")
-    check(expected_launches("s", 4, "int8") == {**zero, "flash_mha_int8": 4, "qmm": 16,
+    check(expected_launches("s", 4, "int8") == {**zero, "flash_mha_int8_sm90": 4, "qmm": 16,
                                                 "quant_rows": 12}, "expected_launches: int8")
     for tag in VARIANT_EXPECTED:
         for b, want in VARIANT_EXPECTED[tag].items():
             got = expected_launches("s", b, tag)
-            check(got == {**zero, "flash_mha_int8": 1, **want},
+            check(got == {**zero, "flash_mha_int8_sm90": 1, **want},
                   f"expected_launches: configuration {tag} batch {b}: {got}")
 
 
@@ -2643,8 +2830,10 @@ def _f32_bar_used(out, ref) -> float:
 
 
 def _amax_per_slice(o, heads, width=256):
-    """Planted fault: the int8 output quantized per 256-column slice of a
-    head (each slice on its own amax), the last slice's scale written."""
+    """Planted fault: the int8 output quantized per `width`-column slice of
+    a head (each slice on its own amax: the template's 256-column blocks, or
+    the sm90 kernel's warpgroup halves without their exchange), the last
+    slice's scale written."""
     import torch
 
     b, n, c = o.shape
@@ -2765,6 +2954,15 @@ def scale_kernel_phase() -> dict:
             args = (q, kq, ks, vq, vs, heads, scale)
             out = A8.flash_mha_int8(*args)
             torch.cuda.synchronize()
+            sm90 = A8.int8_fwd_form(cq // heads, dv) == "sm90"
+            # the width over which a faulty int8 output would take its amax:
+            # the template's 256-column slices, the sm90 kernel's warpgroup halves
+            slice_w = A8.int8_sm90_plan(cq // heads, dv, n // bk)["v_cols"] if sm90 else \
+                A8.KERNEL_DV_TILE
+            if sm90:  # the second launch's bits, and the faults of its ring and layout
+                twice_same_bits(lambda: A8.flash_mha_int8(*args), out, f"flash_mha_int8 {tag}")
+                faults.update((f, lambda od=None, fn=fn: fn()) for f, fn in sm90_ring_faults(
+                    q, kq, ks, vq, vs, heads, scale, k, v, bk).items())
             ref = A8.flash_mha_int8_plain(*args)
             check(int8_reading(ref_fn()(), ref)["bar_used"] <= 1.0,
                   f"flash_mha_int8 {tag}: the fault reference is not the plain function")
@@ -2779,13 +2977,16 @@ def scale_kernel_phase() -> dict:
             # qout: the same inputs, the output quantized per (row, head)
             out = A8.flash_mha_int8_qout(*args)
             torch.cuda.synchronize()
+            if sm90:
+                twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
+                                f"flash_mha_int8_qout {tag}")
             ref = A8.flash_mha_int8_qout_plain(*args)
             o32 = lambda: int8_attention_reference(q, k, v, heads, scale, bk, bk, torch.float32)
             qfaults = {"out_scale_per_row": lambda: _out_scale_per_row(o32(), heads),
                        "p_rounded_on_running_64_key_max": lambda: _quant_per_head(
                            faults["p_rounded_on_running_64_key_max"](torch.float32), heads)}
-            if dv > A8.KERNEL_DV_TILE:
-                qfaults["amax_per_slice"] = lambda: _amax_per_slice(o32(), heads)
+            if dv > slice_w:
+                qfaults["amax_per_slice"] = lambda: _amax_per_slice(o32(), heads, slice_w)
             r = _hold(f"flash_mha_int8_qout {tag}", out, ref, qfaults, record,
                       spread_faults=("p_rounded_on_running_64_key_max",))
             note("flash_mha_int8_qout", r["max_abs_err"])
@@ -2806,6 +3007,9 @@ def scale_kernel_phase() -> dict:
                     hargs = (payload, qs, *hk, *hv, heads, scale, quant_out, dt)
                     out = A8.flash_int8_handoff(*hargs)
                     torch.cuda.synchronize()
+                    if sm90:
+                        twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
+                                        f"flash_int8_handoff {tag} quant_out={quant_out}")
                     ref = A8.flash_int8_handoff_plain(*hargs)
                     hfaults = {"kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
                         payload, qs, *k_fault, *hv, heads, scale, quant_out, dt)}
@@ -2813,8 +3017,9 @@ def scale_kernel_phase() -> dict:
                                                                scale, False, torch.float32)
                     if quant_out:
                         hfaults["out_scale_per_row"] = lambda: _out_scale_per_row(o32h(), heads)
-                        if dv > A8.KERNEL_DV_TILE:
-                            hfaults["amax_per_slice"] = lambda: _amax_per_slice(o32h(), heads)
+                        if dv > slice_w:
+                            hfaults["amax_per_slice"] = lambda: _amax_per_slice(o32h(), heads,
+                                                                                slice_w)
                     r = _hold(f"flash_int8_handoff {tag} quant_out={quant_out}", out, ref,
                               hfaults, {**record, "groups": scales.shape[-1],
                                         "quant_out": quant_out})
@@ -3598,7 +3803,6 @@ def main() -> int:
     sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
-    a8src = "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
     # row 1 and row 9's packed sites run the sm90 kernel; row 9's single-head
     # site (dark3) the mma_sync template
@@ -3610,23 +3814,22 @@ def main() -> int:
         kernel_entry("flash_single", src,
                      "transparent_object_detection_tpu/ops/attention.py:137", single_rows,
                      launches["flash_single"]),
-        int8_kernel_entry("flash_mha_int8", a8src, f"{ja8}:58",
-                          int8_rows["flash_mha_int8"], int8_launches["flash_mha_int8"],
-                          int8_err["flash_mha_int8"]),
+        *int8_attention_entries("flash_mha_int8", "", int8_rows["flash_mha_int8"],
+                                int8_launches, int8_err["flash_mha_int8"], f"{ja8}:58"),
         int8_kernel_entry("qmm", qsrc, f"{jq}:80", int8_rows["qmm"], int8_launches["qmm"],
                           int8_err["qmm"]),
         int8_kernel_entry("quant_rows", qsrc, f"{jq}:408", int8_rows["quant_rows"],
                           int8_launches["quant_rows"], int8_err["quant_rows"]),
         # the variants: launches of the counted batch-32 forward, times of the
         # batch-2 forward's launches, of configuration A (handoff, w4a4) or B (qout)
-        int8_kernel_entry("flash_mha_int8_qout", a8src, f"{ja8}:184",
-                          variants["B"]["rows"]["flash_mha_int8_qout"],
-                          variants["B"]["launches"][32]["flash_mha_int8_qout"],
-                          variant_err["flash_mha_int8_qout"]),
-        int8_kernel_entry("flash_int8_handoff", a8src, f"{ja8}:435",
-                          variants["A"]["rows"]["flash_int8_handoff"],
-                          variants["A"]["launches"][32]["flash_int8_handoff"],
-                          variant_err["flash_int8_handoff"]),
+        *int8_attention_entries("flash_mha_int8_qout", "",
+                                variants["B"]["rows"]["flash_mha_int8_qout"],
+                                variants["B"]["launches"][32],
+                                variant_err["flash_mha_int8_qout"], f"{ja8}:184"),
+        *int8_attention_entries("flash_int8_handoff", "",
+                                variants["A"]["rows"]["flash_int8_handoff"],
+                                variants["A"]["launches"][32],
+                                variant_err["flash_int8_handoff"], f"{ja8}:435"),
         int8_kernel_entry("quant_rows_int4", qsrc, f"{jq}:408",
                           variants["A"]["rows"]["quant_rows_int4"],
                           variants["A"]["launches"][32]["quant_rows_int4"],
@@ -3647,8 +3850,8 @@ def main() -> int:
     # forward); errors the largest of those launches and the scale kernel phase
     ja = "transparent_object_detection_tpu/ops/attention.py"
     forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", src, f"{ja}:137"),
-             ("flash_mha_int8", a8src, f"{ja8}:58"), ("flash_mha_int8_qout", a8src, f"{ja8}:184"),
-             ("flash_int8_handoff", a8src, f"{ja8}:435"), ("qmm", qsrc, f"{jq}:80"),
+             ("flash_mha_int8", I8_SRC, f"{ja8}:58"), ("flash_mha_int8_qout", I8_SRC, f"{ja8}:184"),
+             ("flash_int8_handoff", I8_SRC, f"{ja8}:435"), ("qmm", qsrc, f"{jq}:80"),
              ("quant_rows", qsrc, f"{jq}:408"), ("quant_rows_int4", qsrc, f"{jq}:408"))
     runs = (("phi=m", m_run, ("bf16", "int8", "A", "B"), 32, ""),
             ("fp32 phi=m", m_run, ("fp32",), 2, "_f32"),
@@ -3659,6 +3862,11 @@ def main() -> int:
             if tag is None:
                 continue
             r = run[tag]
+            if name.startswith(("flash_mha_int8", "flash_int8")):  # by each call's kernel
+                kernels += int8_attention_entries(name, f" {label}", r["rows"][name],
+                                                  r["launches"][batch],
+                                                  scale_err.get(name + suffix, 0.0), replaces)
+                continue
             sm90 = name == "flash_mha_packed" and not suffix  # bf16 packed: the sm90 kernel
             kernels.append(int8_kernel_entry(
                 f"{name} {label}", sm90_src if sm90 else source, replaces, r["rows"][name],

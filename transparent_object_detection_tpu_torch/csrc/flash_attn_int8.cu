@@ -1,5 +1,10 @@
-// int8 flash attention for Hopper (sm_90a). One templated kernel replaces
-// three TPU kernels of transparent_object_detection_tpu/ops/attention_int8.py:
+// int8 flash attention for Hopper (sm_90a), the mma.sync template. Since the
+// Hopper kernel of flash_int8_sm90.cu took every head whose q/k and v widths
+// are multiples of 64 up to 512 (ops/attention_int8.py::int8_fwd_form), this
+// source serves the other int8 sites: phi='n' dark3 (q/k 32), phi='m'
+// dark3 (v 1,024) and every site of phi 'l' and 'x' (heads of 768 and
+// wider, dark3 v 2,048 and 4,096). It replaces, there, three TPU kernels of
+// transparent_object_detection_tpu/ops/attention_int8.py:
 //   * _mha_flash_int8_kernel (flash_attention_mha_int8): entry flash_mha_int8,
 //     the function below with an output in q's type (bf16 or fp32);
 //   * _mha_flash_int8_qout_kernel (flash_attention_mha_int8_qout): entry
@@ -11,12 +16,12 @@
 //
 // Inputs: q int8 with one scale per (row, head) (B, N, heads), head-packed
 // with row stride q_row. flash_mha_int8 and flash_mha_int8_qout first
-// quantize q from bf16 or fp32 (quant_q_kernel: per (row, head), amax over
-// the head's dq columns floored at 1e-12, qq = rint(q * (127 / amax)),
-// qs = amax / 127) into a workspace, then run the main kernel; the two
-// launches count as one. kq (B, N, Cq) and vq (B, N, Cv) int8 with one f32
-// scale per (batch, head, block of bk keys), (B, H, N / bk). Per query row
-// and head, with s_scale = scale * log2(e):
+// quantize q from bf16 or fp32 (quant_q_kernel, flash_int8_common.cuh: per
+// (row, head), amax over the head's dq columns floored at 1e-12, qq =
+// rint(q * (127 / amax)), qs = amax / 127) into a workspace, then run the
+// main kernel; the two launches count as one. kq (B, N, Cq) and vq (B, N, Cv)
+// int8 with one f32 scale per (batch, head, block of bk keys), (B, H, N / bk).
+// Per query row and head, with s_scale = scale * log2(e):
 //   per key block j:
 //     s = float(qq . kq) * (qs * (ks_j * s_scale))          (int32 dot, exact)
 //     pass 1: m_new = max(m, max of s over the WHOLE block)  (m starts -1e30)
@@ -24,12 +29,10 @@
 //             + sum p127 (unrounded); pv = int32 sum over the block of
 //             rint(p127) * vq; acc = acc * exp2(m - m_new) + float(pv) * vs_j
 //   out = acc * (1 / l).
-// int8 out: amax of o over the head's whole dv (floor 1e-30), rint(o * (127 /
-// amax)) and amax / 127 into column `head` of (B, N, heads). Where one block
-// holds the head's row (dv == 256) the amax is a reduction over the 4 threads
-// of a quad; wider heads write o in fp32 to a workspace and a row pass
-// (quant_heads_kernel) takes each (row, head)'s amax over all its slices and
-// quantizes: never per slice.
+// int8 out: the kernel writes o in fp32 to a workspace and a row pass
+// (quant_heads_kernel) takes each (row, head)'s amax over all its v columns
+// (floor 1e-30), rint(o * (127 / amax)) and amax / 127 into column `head` of
+// (B, N, heads): never per 256-column slice.
 // p is rounded against the maximum of its whole quantization block, as the
 // TPU kernel does (its key block is the whole quantization block). A
 // textbook online softmax over 64-key tiles would round against a running
@@ -38,11 +41,10 @@
 // +50% of the MMA work on the neck heads (dq = dv), +11% on dark3 (dq 64,
 // dv 512).
 //
-// Bound. At phi='s' 640x640 per image: h2 2 * 6,400^2 * 2 * 1,536 = 252 G
-// int8 operations (one q.k^T and one p.v pass), dark3 47 G, h1 21 G, h4 16 G;
-// phi='m' doubles the neck's (h2 503 G). Inputs and outputs are tens of MB,
-// so the work is bound by operations: >= 0.17 ms an image at phi='s' at the
-// H100 SXM data sheet's 1,979 int8 TOPS.
+// Bound. Operations: 2 * N^2 * (2 dq + dv) int8 operations a (batch, head)
+// (both q.k^T passes and p.v) against inputs and outputs of tens of MB, so
+// the work is bound by operations (the H100 SXM data sheet's 1,979 int8
+// TOPS).
 //
 // Design. A block owns 64 query rows (16 per warp) of one head and one
 // 256-wide slice of its v columns (wider v splits across blocks, which
@@ -51,25 +53,29 @@
 // passes and all blocks in one sequence of steps; a quantization block whose
 // bk is not a multiple of 64 ends in a half tile, its missing keys masked
 // (-inf in the max, p = 0). The q/k width is a loop: widths up to 64 and
-// exactly 256 keep the int8 q tile in shared memory (the phi='s' path);
-// others stream q and k together in 128-byte slabs, S accumulating in
-// registers. Both products are mma.sync m16n8k32 s8 x s8 -> s32. The s32 C
-// fragment of that instruction holds 2 adjacent key columns of an 8-wide
-// tile, the s8 A fragment wants 4, so rint(p127) goes through a small shared
-// tile (one per warp's rows) and comes back with ldmatrix. The B operand of
-// p.v needs keys contiguous per v column: each v tile is transposed in shared
-// memory (4 x 4 byte blocks with byte permutes). pv stays int32 over a whole
-// block (128 registers a thread); with more than one block the fp32 acc
-// lives in shared memory, touched once per block (one block an SM); with one
-// block, the phi='s' serving path's, it is formed from pv at the end (two
-// blocks an SM). N and bk are multiples of 32, dq of 32, dv of 128.
+// exactly 256 keep the int8 q tile in shared memory (phi='n' dark3 and
+// phi='l' dark3); others stream q and k together in 128-byte slabs, S
+// accumulating in registers. Both products are mma.sync m16n8k32 s8 x s8 ->
+// s32. The s32 C fragment of that instruction holds 2 adjacent key columns
+// of an 8-wide tile, the s8 A fragment wants 4, so rint(p127) goes through a
+// small shared tile (one per warp's rows) and comes back with ldmatrix. The
+// B operand of p.v needs keys contiguous per v column: each v tile is
+// transposed in shared memory (4 x 4 byte blocks with byte permutes). pv
+// stays int32 over a whole block (128 registers a thread); with more than
+// one block the fp32 acc lives in shared memory, touched once per block (one
+// block an SM); with one block it is formed from pv at the end (two blocks
+// an SM). N and bk are multiples of 32, dq of 32, dv of 128.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "flash_int8_common.cuh"
+
 namespace {
+
+using namespace int8attn;
 
 constexpr int BM = 64;       // query rows per block
 constexpr int BN = 64;       // keys per tile
@@ -77,11 +83,6 @@ constexpr int THREADS = 128;
 constexpr int DVT = 256;     // v columns one block accumulates
 constexpr int PADB = 16;     // byte padding of a shared row (bank spread)
 constexpr int SLAB = 128;    // q/k bytes a streamed step holds
-constexpr float LOG2_127 = 6.988684686772166f;
-constexpr float INV127 = (float)(1.0 / 127.0);
-
-enum Out { OUT_BF16 = 0, OUT_F32 = 1, OUT_I8 = 2 };
-
 struct Params {
   const int8_t* q8;         // int8 q, row stride q_row, head h at column h * dq
   const float* qs_tab;      // its per-(row, head) scales (B, N, heads)
@@ -89,8 +90,7 @@ struct Params {
   const int8_t* vq;
   const float* ks;
   const float* vs;
-  void* o;                  // (B, N, heads * dv): bf16, fp32 or int8
-  float* os;                // OUT_I8: per-(row, head) scales (B, N, heads)
+  void* o;                  // (B, N, heads * dv): bf16 or fp32
   int n, heads, dq, dv, q_row, bk, nk, dv_splits;
   float scale_log2;
 };
@@ -119,12 +119,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffff, v, o));
-  return v;
-}
-
 // ROWS x COLS bytes from global (row stride `stride`) into shared memory (row
 // stride COLS + PADB), reading rows [0, rows_valid) and columns
 // [0, cols_valid) (a multiple of 16); the rest is zero-filled.
@@ -160,10 +154,10 @@ struct Step {
 };
 
 // MULTI: more than one key block (nk > 1), the fp32 acc in shared memory.
-// With one block (the phi='s' serving path: bk = N) acc is float(pv) * vs,
+// With one block (bk = N) acc is float(pv) * vs,
 // formed at the end; the block then needs 95.5 KB of shared memory and two
 // fit an SM. TAIL: bk is not a multiple of 64, so each block's last key tile
-// is masked. OUT: bf16 or fp32 values, or int8 per (row, head) (dv == DVT).
+// is masked. OUT: bf16 or fp32 values.
 template <int QW, bool QRES, bool MULTI, bool TAIL, int OUT>
 __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(const Params p) {
   using S = Smem<QW, QRES, MULTI>;
@@ -388,42 +382,6 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
     return MULTI ? sAcc[((e >> 1) ? r1 : r0) * DVT + i * 8 + 2 * t4 + (e & 1)]
                  : __fmul_rn(static_cast<float>(pv[i][e]), vsc);
   };
-  if (OUT == OUT_I8) {
-    // o = acc / l per (row, head); amax over the head's dv == DVT columns,
-    // which the 4 threads of a quad hold between them; rint(o * (127 / amax))
-    float amax[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < DVT / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        amax[e >> 1] = fmaxf(amax[e >> 1],
-                             fabsf(__fmul_rn(acc_at(i, e), (e >> 1) ? inv1 : inv0)));
-    float qmul[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 1));
-      amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 2));
-      amax[r] = fmaxf(amax[r], 1e-30f);
-      qmul[r] = 127.f / amax[r];
-    }
-    int8_t* o8g = static_cast<int8_t*>(p.o) + (long long)b * n * cv + head * p.dv;
-#pragma unroll
-    for (int i = 0; i < DVT / 8; ++i) {
-      const int col = i * 8 + 2 * t4;
-      char2 v0, v1;
-      v0.x = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 0), inv0), qmul[0])));
-      v0.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 1), inv0), qmul[0])));
-      v1.x = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 2), inv1), qmul[1])));
-      v1.y = static_cast<char>(__float2int_rn(__fmul_rn(__fmul_rn(acc_at(i, 3), inv1), qmul[1])));
-      if (row0 < n) *reinterpret_cast<char2*>(o8g + (long long)row0 * cv + col) = v0;
-      if (row1 < n) *reinterpret_cast<char2*>(o8g + (long long)row1 * cv + col) = v1;
-    }
-    if (t4 == 0) {
-      if (row0 < n) p.os[((long long)b * n + row0) * p.heads + head] = amax[0] * INV127;
-      if (row1 < n) p.os[((long long)b * n + row1) * p.heads + head] = amax[1] * INV127;
-    }
-    return;
-  }
   const long long obase = (long long)b * n * cv + head * p.dv + split * DVT;
   // guarded: rows past N or columns past dv in this block; an unguarded
   // copy of the loop for whole tiles keeps the stores free of branches
@@ -433,7 +391,7 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
     for (int i = 0; i < DVT / 8; ++i) {
       const int col = i * 8 + 2 * t4;
       if (guarded && col >= v_cols) continue;
-      // _rn: the quotient the row pass of the wide int8 outputs quantizes
+      // _rn: the quotient the row pass of the int8 outputs quantizes
       const float o00 = __fmul_rn(acc_at(i, 0), inv0), o01 = __fmul_rn(acc_at(i, 1), inv0);
       const float o10 = __fmul_rn(acc_at(i, 2), inv1), o11 = __fmul_rn(acc_at(i, 3), inv1);
       if (OUT == OUT_F32) {
@@ -458,64 +416,6 @@ __global__ void __launch_bounds__(THREADS, MULTI ? 1 : 2) flash_int8_kernel(cons
   } else {
     store_values(std::true_type{});
   }
-}
-
-// 16 bytes of q as floats: 8 bf16 or 4 fp32
-__device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-__device__ __forceinline__ void unpack16(const uint4& raw, float (&f)[4]) {
-  f[0] = __uint_as_float(raw.x);
-  f[1] = __uint_as_float(raw.y);
-  f[2] = __uint_as_float(raw.z);
-  f[3] = __uint_as_float(raw.w);
-}
-
-// q (bf16 or fp32, row stride q_row, head h at column h * dq) -> int8
-// (B * N, heads * dq) and f32 scales (B * N, heads): one warp per (row,
-// head), 16-byte loads (dq and q_row multiples of 16 bytes' worth of T).
-template <typename T>
-__global__ void __launch_bounds__(256) quant_q_kernel(const T* __restrict__ q, int q_row,
-                                                      int rows, int heads, int dq,
-                                                      int8_t* __restrict__ qq,
-                                                      float* __restrict__ qs) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int lane = threadIdx.x & 31;
-  const long long item = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (item >= (long long)rows * heads) return;
-  const long long row = item / heads;
-  const int head = static_cast<int>(item % heads);
-  const uint4* src = reinterpret_cast<const uint4*>(q + row * q_row + head * dq);
-  const int nv = dq / VEC;
-  float amax = 0.f;
-  for (int c = lane; c < nv; c += 32) {
-    float f[VEC];
-    unpack16(src[c], f);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) amax = fmaxf(amax, fabsf(f[i]));
-  }
-  amax = fmaxf(warp_max(amax), 1e-12f);
-  const float inv = 127.f / amax;
-  int8_t* dst = qq + row * heads * dq + head * dq;
-  for (int c = lane; c < nv; c += 32) {
-    float f[VEC];
-    unpack16(src[c], f);
-    __align__(8) int8_t o[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = static_cast<int8_t>(__float2int_rn(f[i] * inv));
-    if (VEC == 8) {
-      *reinterpret_cast<uint2*>(dst + c * VEC) = *reinterpret_cast<const uint2*>(o);
-    } else {
-      *reinterpret_cast<uint32_t*>(dst + c * VEC) = *reinterpret_cast<const uint32_t*>(o);
-    }
-  }
-  if (lane == 0) qs[item] = amax * INV127;
 }
 
 // o fp32 (rows, heads * dv) -> int8 and f32 scales (rows, heads): per
@@ -551,31 +451,31 @@ cudaError_t launch(const Params& p, int batch, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int QW, bool QRES, int OUT>
-cudaError_t launch_blocks(const Params& p, int batch, cudaStream_t stream) {
-  const bool tail = p.bk % BN != 0;
-  if (p.nk > 1)
-    return tail ? launch<QW, QRES, true, true, OUT>(p, batch, stream)
-                : launch<QW, QRES, true, false, OUT>(p, batch, stream);
-  return tail ? launch<QW, QRES, false, true, OUT>(p, batch, stream)
-              : launch<QW, QRES, false, false, OUT>(p, batch, stream);
-}
-
+// The instantiations the routes reach (tests/test_torch_scales.py's route
+// tables; every other int8 site runs flash_int8_sm90.cu): q/k 32 in one key
+// block (phi='n' dark3), q/k 256 in several (phi='l' dark3), and the slab
+// loop: one block of whole 64-key tiles (phi='l' h4) or, in general, acc in
+// shared memory with a masked tail tile, which computes the same function
+// for any block count and bk (the form every other shape takes).
 template <int OUT>
 cudaError_t launch_width(const Params& p, int batch, cudaStream_t stream) {
-  if (p.dq <= 64) return launch_blocks<64, true, OUT>(p, batch, stream);
-  if (p.dq == 256) return launch_blocks<256, true, OUT>(p, batch, stream);
-  return launch_blocks<SLAB, false, OUT>(p, batch, stream);
+  const bool tail = p.bk % BN != 0;
+  if (p.dq <= 64 && p.nk == 1)
+    return tail ? launch<64, true, false, true, OUT>(p, batch, stream)
+                : launch<64, true, false, false, OUT>(p, batch, stream);
+  if (p.dq == 256 && p.nk > 1)
+    return tail ? launch<256, true, true, true, OUT>(p, batch, stream)
+                : launch<256, true, true, false, OUT>(p, batch, stream);
+  if (p.nk == 1 && !tail) return launch<SLAB, false, false, false, OUT>(p, batch, stream);
+  return launch<SLAB, false, true, true, OUT>(p, batch, stream);
 }
 
 // The shape rules shared by the entry points (JAX pick_blocks tiles these):
 // N and bk multiples of 32, bk * nk == N, dq % 32, dv % 128; q rows 16-byte
-// aligned. An in-kernel int8 output needs the head's whole dv in one block.
-bool shapes_ok(int n, int dq, int dv, int q_row, int bk, int nk, bool int8_out) {
-  if (n <= 0 || n % 32 || bk % 32 || bk * nk != n || dq <= 0 || dq % 32 || dv <= 0 ||
-      dv % 128 || q_row % 16)
-    return false;
-  return !int8_out || dv == DVT;
+// aligned.
+bool shapes_ok(int n, int dq, int dv, int q_row, int bk, int nk) {
+  return n > 0 && n % 32 == 0 && bk % 32 == 0 && bk * nk == n && dq > 0 && dq % 32 == 0 &&
+         dv > 0 && dv % 128 == 0 && q_row % 16 == 0;
 }
 
 Params make_params(int n, int heads, int dq, int dv, int q_row, int bk, int nk,
@@ -591,24 +491,17 @@ cudaError_t run(const Params& p, int batch, int out, cudaStream_t stream) {
   switch (out) {
     case OUT_BF16: return launch_width<OUT_BF16>(p, batch, stream);
     case OUT_F32: return launch_width<OUT_F32>(p, batch, stream);
-    case OUT_I8: return launch_width<OUT_I8>(p, batch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t quant_q(const void* q, int q_f32, int q_row, int rows, int heads, int dq, void* qq,
-                    void* qs, cudaStream_t stream) {
-  if (q_row % (q_f32 ? 4 : 8) || dq % 32) return cudaErrorInvalidValue;  // 16-byte loads
+// o (fp32, `work`) -> the int8 output and its per-(row, head) scales
+cudaError_t quant_heads(const void* work, int rows, int heads, int dv, void* out,
+                        void* out_scales, cudaStream_t st) {
   const long long items = (long long)rows * heads;
-  const unsigned blocks = static_cast<unsigned>((items + 7) / 8);
-  if (q_f32)
-    quant_q_kernel<float><<<blocks, 256, 0, stream>>>(static_cast<const float*>(q), q_row, rows,
-                                                      heads, dq, static_cast<int8_t*>(qq),
-                                                      static_cast<float*>(qs));
-  else
-    quant_q_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), q_row, rows, heads, dq, static_cast<int8_t*>(qq),
-        static_cast<float*>(qs));
+  quant_heads_kernel<<<static_cast<unsigned>((items + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(work), rows, heads, dv, static_cast<int8_t*>(out),
+      static_cast<float*>(out_scales));
   return cudaGetLastError();
 }
 
@@ -626,7 +519,7 @@ int flash_mha_int8(const void* q, int q_f32, const void* kq, const void* ks, con
                    const void* vs, void* q8, void* q_scales, void* out, int batch, int n,
                    int heads, int dq, int dv, int q_row, int bk, int nk, float scale_log2,
                    void* stream) {
-  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk, false))
+  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quant_q(q, q_f32, q_row, batch * n, heads, dq, q8, q_scales, st);
@@ -644,13 +537,12 @@ int flash_mha_int8(const void* q, int q_f32, const void* kq, const void* ks, con
 
 // Replaces _mha_flash_int8_qout_kernel: flash_mha_int8's arguments, the
 // output int8 (B, N, heads * dv) with f32 scales (B, N, heads) per (row,
-// head). dv == 256 quantizes in the kernel; other widths write o in fp32
-// to `work` (B, N, heads * dv) and quantize it in a row pass.
+// head): o in fp32 into `work` (B, N, heads * dv), then a row pass.
 int flash_mha_int8_qout(const void* q, int q_f32, const void* kq, const void* ks,
                         const void* vq, const void* vs, void* q8, void* q_scales, void* out,
                         void* out_scales, void* work, int batch, int n, int heads, int dq,
                         int dv, int q_row, int bk, int nk, float scale_log2, void* stream) {
-  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk, false) || (dv != DVT && work == nullptr))
+  if (!shapes_ok(n, dq, dv, heads * dq, bk, nk) || work == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = quant_q(q, q_f32, q_row, batch * n, heads, dq, q8, q_scales, st);
@@ -662,32 +554,23 @@ int flash_mha_int8_qout(const void* q, int q_f32, const void* kq, const void* ks
   p.vq = static_cast<const int8_t*>(vq);
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
-  if (dv == DVT) {
-    p.o = out;
-    p.os = static_cast<float*>(out_scales);
-    return static_cast<int>(run(p, batch, OUT_I8, st));
-  }
   p.o = work;
   err = run(p, batch, OUT_F32, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = (long long)batch * n * heads;
-  quant_heads_kernel<<<static_cast<unsigned>((items + 7) / 8), 256, 0, st>>>(
-      static_cast<const float*>(work), batch * n, heads, dv, static_cast<int8_t*>(out),
-      static_cast<float*>(out_scales));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(quant_heads(work, batch * n, heads, dv, out, out_scales, st));
 }
 
 // Replaces _mha_flash_int8_handoff_kernel: q int8, the leading heads * dq
 // columns of the qkv payload (B, N, q_row), with f32 scales qs (B, N, heads);
 // kq, vq requantized per key block with scales (B, heads, nk). out_mode 2:
-// int8 out with f32 out_scales (B, N, heads) (dv != 256 through `work`, as
-// flash_mha_int8_qout); 0: bf16 out; 1: fp32 out.
+// int8 out with f32 out_scales (B, N, heads) through `work`, as
+// flash_mha_int8_qout; 0: bf16 out; 1: fp32 out.
 int flash_int8_handoff(const void* payload, const void* qs, const void* kq, const void* ks,
                        const void* vq, const void* vs, void* out, void* out_scales, void* work,
                        int batch, int n, int heads, int dq, int dv, int q_row, int bk, int nk,
                        float scale_log2, int out_mode, void* stream) {
-  if (!shapes_ok(n, dq, dv, q_row, bk, nk, false) || out_mode < 0 || out_mode > 2 ||
-      (out_mode == OUT_I8 && dv != DVT && work == nullptr))
+  if (!shapes_ok(n, dq, dv, q_row, bk, nk) || out_mode < 0 || out_mode > 2 ||
+      (out_mode == OUT_I8 && work == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p = make_params(n, heads, dq, dv, q_row, bk, nk, scale_log2);
   p.q8 = static_cast<const int8_t*>(payload);
@@ -697,19 +580,14 @@ int flash_int8_handoff(const void* payload, const void* qs, const void* kq, cons
   p.ks = static_cast<const float*>(ks);
   p.vs = static_cast<const float*>(vs);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_mode != OUT_I8 || dv == DVT) {
+  if (out_mode != OUT_I8) {
     p.o = out;
-    p.os = static_cast<float*>(out_scales);
     return static_cast<int>(run(p, batch, out_mode, st));
   }
   p.o = work;
   cudaError_t err = run(p, batch, OUT_F32, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long items = (long long)batch * n * heads;
-  quant_heads_kernel<<<static_cast<unsigned>((items + 7) / 8), 256, 0, st>>>(
-      static_cast<const float*>(work), batch * n, heads, dv, static_cast<int8_t*>(out),
-      static_cast<float*>(out_scales));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(quant_heads(work, batch * n, heads, dv, out, out_scales, st));
 }
 
 }  // extern "C"

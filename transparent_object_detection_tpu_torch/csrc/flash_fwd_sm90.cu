@@ -75,10 +75,12 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace sm90;
 
 // [small grids] 128 rows a block (two consumer warpgroups sharing each K/V
 // tile) halves the L2 traffic of 64-row blocks, at one block an SM (the
@@ -95,6 +97,10 @@ constexpr int ALIGN = 1024;         // a swizzle atom: 8 rows of 128 bytes
 constexpr int BARRIER_BYTES = 1024;
 constexpr int ROW_BYTES = SLAB * 2;  // one row of a box
 
+// Named barriers of the split form (sm90_common.cuh's named_sync and
+// named_arrive): P_FULL, P_EMPTY two buffers each, then the row sums.
+enum { BAR_P_FULL = 1, BAR_P_EMPTY = 3, BAR_L = 5 };
+
 struct Sm90Params {
   __nv_bfloat16* o;  // (B, N, heads * dv)
   float* lse;        // (B, heads, N), or null (serving)
@@ -105,88 +111,6 @@ struct Sm90Params {
   int q_resident;    // Q loaded once (else a Q slab in every K stage)
   float scale_log2;  // scale * log2(e)
 };
-
-// ---------------------------------------------------------------------------
-// mbarrier, TMA, wgmma
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// [fences] blocks until the phase of parity `parity` has completed: a fresh
-// barrier is in phase 0, so waiting on parity 0 waits for its first
-// completion and waiting on parity 1 passes (the producer's first pass over
-// the empty barriers). Each side flips its parity when its stage index wraps.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One 64-column box of a (width, heads, N, B) map into shared memory; the
-// barrier counts its bytes, zero-filled ones included.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int col, int head, int row, int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(b)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle (layout type 1).
-// K-major (Q, K): rows of 128 bytes, 8-row groups 1024 bytes apart (SBO);
-// LBO unused. A k16 step inside a box adds 32 bytes to the start address
-// (the box is 1024-aligned, so the swizzle phase stays 0).
-// MN-major (V): LBO = bytes between 64-column boxes, SBO = 1024 bytes
-// between 8-key groups; a k16 step adds 16 rows (2048 bytes).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Named barriers of the split form, over the 256 consumer threads: one
-// warpgroup syncs, the other arrives (never 0: __syncthreads)
-enum { BAR_P_FULL = 1, BAR_P_EMPTY = 3, BAR_L = 5 };  // P_FULL, P_EMPTY: two buffers each
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
 
 // d[32] = A (64x16, smem, K-major) * B (64x16, smem, K-major) + (scale_d ? d : 0)
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
@@ -770,31 +694,6 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// [tensor maps] cuTensorMapEncodeTiled is a driver-API call; the runtime
-// hands out its entry point, so the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
 
 // [columns] [ragged N] a (B, N, heads * width) view with its head width
 // innermost, dims (width, heads, N, B), strides (width, row, batch) elements:

@@ -1,15 +1,18 @@
 """Time the serving kernels (rows 1-8) and the training kernels (rows 9-11:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
-this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites also
-at batch 1), on one GPU; prints one JSON line (ms per call, CUDA events, 20
-calls after 3 warm-ups).
+this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites and
+the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 also
+at phi='m' h2 and h4), on one GPU; prints one JSON line (ms per call, CUDA
+events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
         [--forward | --wide-heads]
 
-With --forward it times only the phi='s' 640x640 bf16 FocusModel forward
-(seeded weights): batch 1 on the host clock (the latency path) and by the
-device's busy time, batch 32 with CUDA events. With --wide-heads
+With --forward it times only the phi='s' 640x640 FocusModel forward
+(seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
+TEB's configurations A (attn_handoff + w4a4_mlp1) and B (attn_qout):
+batch 1 on the host clock (the latency path) and by the device's busy
+time, batch 32 with CUDA events. With --wide-heads
 it times only the two forms csrc/flash_fwd_sm90.cu has for heads wider
 than 256, at phi='m' (8 heads of 384): the warpgroup split that
 `attention.sm90_plan` picks and the sliced form (v in two slices of 192
@@ -43,6 +46,11 @@ from transparent_object_detection_tpu_torch.ops import quant_matmul as QM  # noq
 
 # (name, (batch, tokens, channels, heads)) of the phi='s' neck TEBs at 640x640
 NECK = (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)), ("h4", (2, 1600, 1536, 6)))
+# the int8 attention sites of rows 3-5 beyond phi='s': phi='m' h2 (two key
+# blocks of 3,200) and h4, 8 heads of 384
+INT8_WIDE = (("phi=m h2", (2, 6400, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 8)))
+# configurations of the --forward timing
+FORWARDS = ("bf16", "int8", "A", "B")
 # (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training sites
 TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)),
                ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)))
@@ -83,41 +91,78 @@ def time_training_kernels(randn) -> dict:
 
 
 def time_forward() -> dict:
-    """The phi='s' 640x640 bf16 forward: at batch 1 the host clock (median
-    and mean of 100 synchronised calls after 5 warm-ups) and the device's
-    busy ms a call (torch.profiler over 10 calls: the kernels' own time,
-    which the host's pace does not move); at batch 32 ms on CUDA events."""
+    """The phi='s' 640x640 forward of each configuration in FORWARDS: at
+    batch 1 the host clock (median and mean of 100 synchronised calls after
+    5 warm-ups) and the device's busy ms a call (torch.profiler over 10
+    calls: the kernels' own time, which the host's pace does not move); at
+    batch 32 ms on CUDA events."""
     import time
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.config import Int8Variants, ModelConfig
     from transparent_object_detection_tpu_torch.models.detector import build_model
 
-    model = build_model(ModelConfig(), device="cuda", seed=0)
     gen = torch.Generator(device="cuda").manual_seed(1)
     img32 = torch.rand(32, 640, 640, 3, generator=gen, device="cuda")  # (B, H, W, 3)
     img1 = img32[:1].contiguous()
-    lat = []
-    with torch.inference_mode():
-        for i in range(105):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(img1)
-            torch.cuda.synchronize()
-            if i >= 5:
-                lat.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
+    variants = {"int8": Int8Variants(), "A": Int8Variants(attn_handoff=True, w4a4_mlp1=True),
+                "B": Int8Variants(attn_qout=True)}
+    out = {}
+    for tag in FORWARDS:
+        int8 = tag != "bf16"
+        model = build_model(ModelConfig(int8_dense=int8, int8_attn=int8), device="cuda", seed=0,
+                            int8_variants=variants.get(tag, Int8Variants()))
+        lat = []
+        with torch.inference_mode():
+            for i in range(105):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
                 model(img1)
-            torch.cuda.synchronize()
-        b32 = timed_ms(lambda: model(img32), 5, 2)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.key != "Command Buffer Full")
-    return {"forward_batch1_ms_p50": sorted(lat)[len(lat) // 2],
-            "forward_batch1_ms_mean": sum(lat) / len(lat),
-            "forward_batch1_device_busy_ms": busy / 1e3 / 10, "forward_batch32_ms": b32}
+                torch.cuda.synchronize()
+                if i >= 5:
+                    lat.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    model(img1)
+                torch.cuda.synchronize()
+            b32 = timed_ms(lambda: model(img32), 5, 2)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.key != "Command Buffer Full")
+        key = "forward" if tag == "bf16" else f"forward_{tag}"
+        out.update({f"{key}_batch1_ms_p50": sorted(lat)[len(lat) // 2],
+                    f"{key}_batch1_ms_mean": sum(lat) / len(lat),
+                    f"{key}_batch1_device_busy_ms": busy / 1e3 / 10,
+                    f"{key}_batch32_ms": b32})
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_int8_attention(randn, name, b, n, c, h, out) -> None:
+    """ms of rows 3-5 (flash_mha_int8, flash_mha_int8_qout, flash_int8_handoff
+    with its int8 output) on one neck site at batch b and batch 1: q read
+    in place from the packed qkv, k/v quantized per `pick_blocks` key block
+    (the handoff's requantized from the int8 payload)."""
+    scale = (c // h) ** -0.5
+    bk = A8.pick_blocks(n, c, h)[1]
+    qkv = randn(b, n, 3 * c).bfloat16()
+    kq, ks = A8.quantize_kv(qkv[..., c:2 * c], h, bk)
+    vq, vs = A8.quantize_kv(qkv[..., 2 * c:], h, bk)
+    payload, scales = QM._output_plain(qkv.float(), None, 3 * c, None)
+    qs = A8.q_scale_table(scales, c, h)
+    hk = A8.requantize_section(payload, scales, c, c, h, bk)
+    hv = A8.requantize_section(payload, scales, 2 * c, c, h, bk)
+    for suffix, sl in (("", slice(None)), (" batch 1", slice(0, 1))):
+        args = (qkv[sl].contiguous(), kq[sl], ks[sl], vq[sl], vs[sl], h, scale, c)
+        hargs = (payload[sl], qs[sl], hk[0][sl], hk[1][sl], hv[0][sl], hv[1][sl], h, scale,
+                 True)
+        out[f"flash_mha_int8 {name}{suffix}"] = timed_ms(lambda: A8.flash_mha_int8(*args))
+        out[f"flash_mha_int8_qout {name}{suffix}"] = timed_ms(
+            lambda: A8.flash_mha_int8_qout(*args))
+        out[f"flash_int8_handoff {name}{suffix}"] = timed_ms(
+            lambda: A8.flash_int8_handoff(*hargs))
 
 
 def time_wide_heads(randn) -> dict:
@@ -161,27 +206,21 @@ def main() -> int:
     for name, (b, n, c, h) in NECK:
         scale = (c // h) ** -0.5
         qkv = randn(b, n, 3 * c).bfloat16()
-        kq, ks = A8.quantize_kv(qkv[..., c:2 * c], h, n)
-        vq, vs = A8.quantize_kv(qkv[..., 2 * c:], h, n)
-        args = (qkv, kq, ks, vq, vs, h, scale, c)
         one = qkv[:1].contiguous()
         out[f"flash_mha_packed {name}"] = timed_ms(lambda: A.flash_mha_packed(qkv, h, scale))
         out[f"flash_mha_packed {name} batch 1"] = timed_ms(
             lambda: A.flash_mha_packed(one, h, scale))
-        out[f"flash_mha_int8 {name}"] = timed_ms(lambda: A8.flash_mha_int8(*args))
-        out[f"flash_mha_int8_qout {name}"] = timed_ms(lambda: A8.flash_mha_int8_qout(*args))
-        payload, scales = QM._output_plain(qkv.float(), None, 3 * c, None)
-        qs = A8.q_scale_table(scales, c, h)
-        hk = A8.requantize_section(payload, scales, c, c, h, n)
-        hv = A8.requantize_section(payload, scales, 2 * c, c, h, n)
-        out[f"flash_int8_handoff {name}"] = timed_ms(
-            lambda: A8.flash_int8_handoff(payload, qs, *hk, *hv, h, scale, True))
+        time_int8_attention(randn, name, b, n, c, h, out)
+    for name, (b, n, c, h) in INT8_WIDE:
+        time_int8_attention(randn, name, b, n, c, h, out)
     q, k = randn(2, 6400, 64).bfloat16(), randn(2, 6400, 64).bfloat16()
     v = randn(2, 6400, 512).bfloat16()
     kq, ks = A8.quantize_kv(k, 1, 6400)
     vq, vs = A8.quantize_kv(v, 1, 6400)
     out["flash_single dark3"] = timed_ms(lambda: A.flash_single(q, k, v, 1.0))
     out["flash_mha_int8 dark3"] = timed_ms(lambda: A8.flash_mha_int8(q, kq, ks, vq, vs, 1, 1.0))
+    out["flash_mha_int8 dark3 batch 1"] = timed_ms(
+        lambda: A8.flash_mha_int8(q[:1], kq[:1], ks[:1], vq[:1], vs[:1], 1, 1.0))
     x = randn(12800, 1536).bfloat16()
     w = QM.prepare_weights(randn(4608, 1536) / 1536 ** 0.5, randn(4608) * 0.1)
     xq, xs = QM.quant_rows(x, True)

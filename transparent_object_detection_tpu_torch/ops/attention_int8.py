@@ -1,5 +1,5 @@
-"""int8 flash attention of the serving path: a CUDA kernel written for
-Hopper, its plain PyTorch version, the k/v quantize pre-pass and the block
+"""int8 flash attention of the serving path: two CUDA kernels written for
+Hopper, their plain PyTorch version, the k/v quantize pre-pass and the block
 rule that sets the k/v scale granularity.
 
 Counterpart of transparent_object_detection_tpu/ops/attention_int8.py
@@ -30,6 +30,14 @@ that are multiples of 32, v head widths multiples of 128, N and bk multiples
 of 32 (a ragged last key tile is masked), q in bf16 or fp32 (the output in
 q's type); the int8 output at any v head width.
 
+The kernels, by one rule (`int8_fwd_form`): heads whose q/k and v widths
+are multiples of 64 up to 512 (phi 'n', 's', 'm' neck heads of 128 to 384,
+phi='s' dark3) run csrc/flash_int8_sm90.cu (int8 wgmma fed by a TMA ring,
+launched with the plan of `int8_sm90_plan`; V reaches it as the key-major
+copy of `vq_key_major`); the other sites (phi='n' dark3 with q/k 32, phi='m'
+dark3 with v 1,024, phi 'l' and 'x') the mma.sync template of
+csrc/flash_attn_int8.cu. All three entry points below follow the rule.
+
 The int8 TEB's handoff variants (`config.Int8Variants`) run the same
 function with other ends:
   * `attention_int8_quant_out` (TOD_ATTN_QOUT; kernel
@@ -59,10 +67,21 @@ LOG2_127 = 6.988684686772166
 KERNEL_DQ_MULTIPLE = 32
 KERNEL_DV_MULTIPLE = 128
 KERNEL_N_MULTIPLE = 32
-# v head width one block of the kernel holds: the int8 outputs of wider heads
-# go through an fp32 workspace and a row pass (the amax is a head's whole row)
+# v columns one block of the mma.sync template holds (wider heads split
+# across blocks); its int8 outputs go through an fp32 workspace and a row
+# pass (the amax is a head's whole row)
 KERNEL_DV_TILE = 256
 Q_DTYPES = (torch.bfloat16, torch.float32)
+# The Hopper kernel (csrc/flash_int8_sm90.cu): q/k and v head widths that
+# are multiples of 64 up to 512 (with the domain above: v 128 to 512), and
+# the launch plans it is built for (`int8_sm90_plan`).
+SM90_WIDTH_MULTIPLE = 64
+SM90_MAX_WIDTH = 512
+SM90_MAX_STAGES = 8
+SM90_SMEM_LIMIT = 232448
+SM90_PLAN_KEYS = ("rows", "keys", "swq", "v_cols", "split", "stages", "v_stages", "multi",
+                  "smem_bytes")
+OUT_MODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
 
 
@@ -309,12 +328,123 @@ def _q_workspace(b: int, n: int, cq: int, num_heads: int, device):
             torch.empty((b, n, num_heads), dtype=torch.float32, device=device))
 
 
-def _out_workspace(b: int, n: int, cv: int, dv: int, device) -> Optional[torch.Tensor]:
-    """fp32 (B, N, Cv) for an int8 output whose head is wider than one block
-    holds (the row pass takes each head's amax over all its columns)."""
-    if dv == KERNEL_DV_TILE:
-        return None
+def _out_workspace(b: int, n: int, cv: int, device) -> torch.Tensor:
+    """fp32 (B, N, Cv): the mma.sync template's o before its row pass
+    quantizes each (row, head) over all the head's columns."""
     return torch.empty((b, n, cv), dtype=torch.float32, device=device)
+
+
+def int8_fwd_form(dq: int, dv: int) -> str:
+    """The kernel of an int8 attention call on heads of q/k width `dq` and v
+    width `dv`, for all three entry points and every output form: "sm90"
+    (csrc/flash_int8_sm90.cu) when both are multiples of 64 up to 512 (every
+    int8 site of phi 'n', 's' and 'm' but two dark3s), else "mma_sync"
+    (csrc/flash_attn_int8.cu: phi='n' dark3 q/k 32, phi='m' dark3 v 1,024,
+    phi 'l' and 'x')."""
+    if (0 < dq <= SM90_MAX_WIDTH and 0 < dv <= SM90_MAX_WIDTH
+            and dq % SM90_WIDTH_MULTIPLE == 0 and dv % SM90_WIDTH_MULTIPLE == 0):
+        return "sm90"
+    return "mma_sync"
+
+
+def int8_sm90_smem_bytes(plan: dict, dq: int) -> int:
+    """Dynamic shared memory of an sm90 plan (as csrc/flash_int8_sm90.cu
+    computes it): 1024 bytes of alignment slack, 1024 of barriers, the int8
+    q tile, the K ring (one `swq`-byte slab of `keys` keys a stage), the V
+    ring (stages of `keys` keys x the v columns a block covers), and with
+    several key blocks the fp32 acc of both warpgroups."""
+    slabs = -(-dq // plan["swq"])
+    return (2048 + plan["rows"] * slabs * plan["swq"] + plan["stages"] * plan["keys"] * plan["swq"]
+            + plan["v_stages"] * (2 if plan["split"] else 1) * plan["v_cols"] * plan["keys"]
+            + (2 * 64 * plan["v_cols"] * 4 if plan["multi"] else 0))
+
+
+def int8_sm90_plan(dq: int, dv: int, nk: int) -> dict:
+    """Launch plan of csrc/flash_int8_sm90.cu for heads of q/k width `dq`
+    and v width `dv` (the sm90 domain of `int8_fwd_form`, v a multiple of
+    128) in `nk` key blocks. v up to 256: 128 rows a block, each consumer
+    warpgroup on 64 of them with all of v (key tiles of 128 at dv 128, else
+    64). Wider v (phi='m' heads of 384, phi='s' dark3's 512): split, 64
+    rows a block, both warpgroups on the same rows, each computing S and
+    P.V on its half of v (192 or 256 columns) on 64-key tiles (measured
+    faster than sharing one S at the three sites, PERF.md). q/k boxes of 64 bytes
+    at dq 64, else 128. Two V stages where at least two K stages fit beside
+    them, else one; the most K stages (up to 8) that fit the card's 227 KB."""
+    if int8_fwd_form(dq, dv) != "sm90" or dv % KERNEL_DV_MULTIPLE or nk < 1:
+        raise ValueError(f"the sm90 int8 kernel takes q/k widths that are multiples of 64 and v "
+                         f"widths that are multiples of 128, up to 512, got q/k {dq}, v {dv}")
+    split = dv > 256
+    plan = {"rows": 64 if split else 128, "keys": 128 if dv <= 128 else 64,
+            "swq": 64 if dq == 64 else 128, "v_cols": dv // 2 if split else dv,
+            "split": int(split), "multi": int(nk > 1)}
+    for v_stages, least in ((2, 2), (1, 1)):
+        fits = [st for st in range(SM90_MAX_STAGES, 0, -1)
+                if int8_sm90_smem_bytes({**plan, "stages": st, "v_stages": v_stages}, dq)
+                <= SM90_SMEM_LIMIT]
+        if fits and fits[0] >= least:
+            plan.update(stages=fits[0], v_stages=v_stages)
+            plan["smem_bytes"] = int8_sm90_smem_bytes(plan, dq)
+            return plan
+    raise ValueError(f"no sm90 int8 plan fits q/k {dq}, v {dv}, {nk} key blocks")
+
+
+def vq_key_major(vq: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The key-major copy of vq that the sm90 kernel's P.V product reads
+    (8-bit wgmma takes both operands K-major): (B, N, H * dv) ->
+    (B, H, dv, N), one pass over B * N * Cv bytes. Within each 32-key group
+    key 16h + 8c + 2t + e lands at position 16h + 4t + 2c + e (h, c, e in
+    {0, 1}, t in 0..3): the order in which the s32 accumulator of q.k^T
+    holds a thread's keys, so the accumulator is the int8 A fragment of the
+    product as it stands (csrc/flash_int8_sm90.cu, [P layout]); pv is an
+    exact int32 sum, so the order changes no bit. N is a multiple of 32."""
+    b, n, cv = vq.shape
+    dv = cv // num_heads
+    grouped = vq.reshape(b, n // 32, 2, 2, 4, 2, num_heads, dv)  # (.., h, c, t, e, H, dv)
+    return grouped.permute(0, 6, 7, 1, 2, 4, 3, 5).reshape(b, num_heads, dv, n).contiguous()
+
+
+def _sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_int8_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_int8_sm90.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                        ci, ci, ci, cl, ci, ci, cf, vp, vp]
+        lib.flash_int8_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _launch_sm90(q, qs, kq, ks, vq, vs, num_heads: int, scale: float, out_dtype,
+                 vt: Optional[torch.Tensor] = None):
+    """One launch of csrc/flash_int8_sm90.cu with the plan of
+    `int8_sm90_plan` on checked CUDA operands: q bf16 or fp32 (quantized per
+    (row, head) into a workspace first) or the int8 qkv payload with its
+    scale table qs; V as `vq_key_major(vq)` (`vt`: that layout made by the
+    caller, which chip_smoke.py's planted fault replaces). Returns out in
+    out_dtype (bf16, fp32, or int8 with its (B, N, H) scales). Raises if the
+    launch fails; never falls back."""
+    b, n, cq = kq.shape
+    cv = vq.shape[-1]
+    nk = ks.shape[-1]
+    dq, dv = cq // num_heads, cv // num_heads
+    plan = int8_sm90_plan(dq, dv, nk)
+    vt = vq_key_major(vq, num_heads) if vt is None else vt
+    q_kind = 2 if q.dtype == torch.int8 else int(q.dtype == torch.float32)
+    q8, q_scales = (None, None) if q_kind == 2 else _q_workspace(b, n, cq, num_heads, q.device)
+    out = torch.empty((b, n, cv), dtype=out_dtype, device=q.device)
+    out_scales = (torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
+                  if out_dtype == torch.int8 else None)
+    plan_arr = (ctypes.c_int * len(SM90_PLAN_KEYS))(*(plan[key] for key in SM90_PLAN_KEYS))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _sm90_lib().flash_int8_sm90(
+        q.data_ptr(), q_kind, ptr(qs), kq.data_ptr(), ks.data_ptr(), vt.data_ptr(),
+        vs.data_ptr(), ptr(q8), ptr(q_scales), out.data_ptr(), ptr(out_scales),
+        OUT_MODES[out_dtype], b, n, num_heads, dq, dv, q.shape[-1], n // nk, nk, scale * LOG2E,
+        ctypes.cast(plan_arr, ctypes.c_void_p), _stream(q))
+    _raise_on(err, "flash_int8_sm90")
+    return (out, out_scales) if out_dtype == torch.int8 else out
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -333,9 +463,10 @@ def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
     (B, N, Cv) int8 with f32 scales (B, H, N / bk) -> (B, N, Cv) in q's type.
 
     Port of ops/attention_int8.py::_mha_flash_int8_kernel. A CUDA tensor
-    launches csrc/flash_attn_int8.cu (q quantized per (row, head) into a
-    workspace, then the attention kernel: two launches counted as one); a
-    CPU tensor runs `flash_mha_int8_plain`."""
+    quantizes q per (row, head) into a workspace, then runs the attention
+    kernel of `int8_fwd_form` (two launches counted as one): `sm90_launches`
+    counts csrc/flash_int8_sm90.cu, `launches` csrc/flash_attn_int8.cu. A CPU
+    tensor runs `flash_mha_int8_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     cq = kq.shape[-1]
@@ -343,6 +474,10 @@ def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
     b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
                                         kq, ks, vq, vs, num_heads)
+    if int8_fwd_form(dq, dv) == "sm90":
+        out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, q.dtype)
+        flash_mha_int8.sm90_launches += 1
+        return out
     q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
     out = torch.empty((b, n, vq.shape[-1]), dtype=q.dtype, device=q.device)
     err = _lib().flash_mha_int8(
@@ -360,8 +495,10 @@ def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
     (B, N, Cv) and f32 scales (B, N, H), for attn_out's x_quant input.
 
     Port of ops/attention_int8.py::_mha_flash_int8_qout_kernel. A CUDA
-    tensor launches csrc/flash_attn_int8.cu; a CPU tensor runs
-    `flash_mha_int8_qout_plain`."""
+    tensor runs the kernel of `int8_fwd_form` (`sm90_launches`: the
+    quantization in csrc/flash_int8_sm90.cu's epilogue; `launches`:
+    csrc/flash_attn_int8.cu with an fp32 workspace and a row pass); a CPU
+    tensor runs `flash_mha_int8_qout_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     cq = kq.shape[-1]
@@ -369,16 +506,20 @@ def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
     b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
                                         kq, ks, vq, vs, num_heads)
+    if int8_fwd_form(dq, dv) == "sm90":
+        out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, torch.int8)
+        flash_mha_int8_qout.sm90_launches += 1
+        return out
     cv = vq.shape[-1]
     q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
-    work = _out_workspace(b, n, cv, dv, q.device)
+    work = _out_workspace(b, n, cv, q.device)
     out = torch.empty((b, n, cv), dtype=torch.int8, device=q.device)
     out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
     err = _lib().flash_mha_int8_qout(
         q.data_ptr(), int(q.dtype == torch.float32), kq.data_ptr(), ks.data_ptr(),
         vq.data_ptr(), vs.data_ptr(), q8.data_ptr(), q_scales.data_ptr(), out.data_ptr(),
-        out_scales.data_ptr(), 0 if work is None else work.data_ptr(), b, n, num_heads, dq, dv,
-        q_row, n // nk, nk, scale * LOG2E, _stream(q))
+        out_scales.data_ptr(), work.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
+        scale * LOG2E, _stream(q))
     _raise_on(err, "flash_mha_int8_qout")
     flash_mha_int8_qout.launches += 1
     return out, out_scales
@@ -393,8 +534,9 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     quant_out, else (B, N, Cv) in out_dtype (bf16 or fp32).
 
     Port of ops/attention_int8.py::_mha_flash_int8_handoff_kernel (both its
-    output forms count as launches of it). A CUDA tensor launches
-    csrc/flash_attn_int8.cu; a CPU tensor runs `flash_int8_handoff_plain`."""
+    output forms count as launches of it). A CUDA tensor runs the kernel of
+    `int8_fwd_form` (`sm90_launches`: csrc/flash_int8_sm90.cu; `launches`:
+    csrc/flash_attn_int8.cu); a CPU tensor runs `flash_int8_handoff_plain`."""
     if payload.device.type == "cpu":
         return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads, scale,
                                         quant_out, out_dtype)
@@ -406,12 +548,17 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     if tuple(qs.shape) != (b, n, num_heads) or q_row < kq.shape[-1] or q_row % 16:
         raise ValueError(f"int8 handoff kernel does not take payload {tuple(payload.shape)} "
                          f"with q scales {tuple(qs.shape)}")
+    if int8_fwd_form(dq, dv) == "sm90":
+        out = _launch_sm90(payload, qs, kq, ks, vq, vs, num_heads, scale,
+                           torch.int8 if quant_out else out_dtype)
+        flash_int8_handoff.sm90_launches += 1
+        return out
     cv = vq.shape[-1]
     work = None
     if quant_out:
         out = torch.empty((b, n, cv), dtype=torch.int8, device=payload.device)
         out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=payload.device)
-        work = _out_workspace(b, n, cv, dv, payload.device)
+        work = _out_workspace(b, n, cv, payload.device)
         mode = 2
     else:
         out = torch.empty((b, n, cv), dtype=out_dtype, device=payload.device)
@@ -427,15 +574,16 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     return (out, out_scales) if quant_out else out
 
 
-flash_mha_int8.launches = 0
-flash_mha_int8_qout.launches = 0
-flash_int8_handoff.launches = 0
+ENTRY_POINTS = (flash_mha_int8, flash_mha_int8_qout, flash_int8_handoff)
 
 
 def reset_launch_counts() -> None:
-    flash_mha_int8.launches = 0
-    flash_mha_int8_qout.launches = 0
-    flash_int8_handoff.launches = 0
+    for fn in ENTRY_POINTS:
+        fn.launches = 0
+        fn.sm90_launches = 0
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
