@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all six sources at once) and prints the card's name and power
+   nvcc (all seven sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -20,9 +20,13 @@
    shifted well below 0, the zero-filled keys past N scored 0), and at
    widths off the routed grid (64, 192, 320, 448 on the sm90 kernel; 72 on
    the mma_sync template, which the rule keeps for widths that are not
-   multiples of 64), serving and lse forms. Times kernel (the packed sites
-   at batch 2 and batch 1), plain version, and as a yardstick only
-   F.scaled_dot_product_attention (which the port never calls).
+   multiples of 64), serving and lse forms; and the backward at the same
+   widths on the kernels `bwd_form` names (two heads of 64, 192 and 320 on
+   csrc/flash_bwd_sm90.cu, twice for the same bits; 448 and 72 on the
+   template), within the gradient bar, every planted fault of phase 8
+   rejected. Times kernel (the packed sites at batch 2 and batch 1), plain
+   version, and as a yardstick only F.scaled_dot_product_attention (which
+   the port never calls).
 3. Slice phase: builds FocusModel at phi='s' 640x640 (bf16, seeded random
    weights, dark3 gamma 0.5 so the attention output reaches the detections,
    class biases set so that about CANDIDATES_PER_IMAGE anchors an image pass
@@ -79,13 +83,17 @@
    the kernel bar plus a norm bar on the gradients; planted faults each bar
    must reject (a kv tile dropped, the scale 2% off, a query tile unwritten;
    a key tile skipped in the dq loop, a query tile skipped in the dk/dv
-   loop, the -D term dropped, lse off by 0.01, the scale missing from dS);
-   two runs of the backward must give the same bits. Times kernel, plain
-   version and SDPA forward / backward.
+   loop, the -D term dropped, lse off by 0.01, the scale missing from dS;
+   at the packed sites, which run csrc/flash_bwd_sm90.cu, also a key tile
+   read twice in dq, a query tile read twice in dk/dv, each with its
+   neighbour never read, and dS^T formed with the previous query tile's
+   P^T); two runs of the backward must give the same bits. Times kernel,
+   plain version and SDPA forward / backward.
 9. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
    (SGD nesterov, EMA), synthetic batches like the JAX bench_train.py's. One
    batch-2 step with the launch counts reset before and read after
-   (fwd-lse 4, dq 4, dk/dv 4, no serving kernel), held against the same step
+   (fwd-lse 3 sm90 + 1, dq and dk/dv 3 sm90 + 1 each, no serving kernel),
+   held against the same step
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
    timed steps at batch 16 (launches per step asserted) and a profile.
@@ -123,10 +131,12 @@
    v 256 to 4,096, folded heads of 283 and 599 as the fold copy pads them),
    at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and peaked
    inputs, with the bars of phase 8 (fp32: 1e-4) and a bit-identical
-   backward; the phi='s' faults and those of the width loop (a q/k slab
-   left out of S, a v/dO slab left out of dP, the last dv pass unwritten,
-   the tail key tile left out) each rejected on some input spread; phi='m'
-   (bf16) and phi='n' (fp32) sites timed beside bound, plain and SDPA.
+   backward (packed bf16 heads of 128 to 384 on csrc/flash_bwd_sm90.cu);
+   the phi='s' faults (with the sm90 kernels' own where they run) and those
+   of the width loop (a q/k slab left out of S, a v/dO slab left out of dP,
+   the last dv pass unwritten, the tail key tile left out) each rejected on
+   some input spread; phi='m' (bf16) and phi='n' (fp32) sites timed beside
+   bound, plain and SDPA.
    Then the folded route through attention(..., train=True) at phi 'n' and
    'm' h1 against plain, and a padded fold column leaking into dq rejected.
 15. phi='m' 640x640 training at full width with remat (1.354 B parameters):
@@ -142,11 +152,12 @@
    hold its ring's faults.
 17. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
-   on the sm90 kernel, rows 2-11 with row 9's single-head site, rows 3-5
-   on csrc/flash_int8_sm90.cu, then row 9's packed sites on the sm90
-   kernel; then the phi='m' and fp32 forms, rows 3-5 split by kernel: the
-   sm90 one's sites and the mma_sync template's (dark3), rows 9-11 at
-   phi='m' and in fp32 last), then {"ok": true, "device": ...} last.
+   on the sm90 kernel, rows 2-11 with rows 9-11's single-head site, rows
+   3-5 on csrc/flash_int8_sm90.cu, then rows 9-11's packed sites on the
+   sm90 kernels; then the phi='m' and fp32 forms, rows 3-5 split by
+   kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
+   9-11 at phi='m' (split likewise) and in fp32 last), then {"ok": true,
+   "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
    and bf16 SDPA.
@@ -401,7 +412,7 @@ def off_grid_phase(randn, qk_std) -> None:
     """flash_mha_packed and flash_fwd_lse at the OFF_GRID widths against
     their plain versions: the kernel bar, lse within LSE_ATOL, and (the
     sm90 kernel) a second launch's bits; each launch counted on the kernel
-    the rule names."""
+    the rule names. Then the backward there (`off_grid_backward`)."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention as A
@@ -438,6 +449,61 @@ def off_grid_phase(randn, qk_std) -> None:
                   f"flash_fwd_lse {what}: {used:.3g}x the bar, lse {lse_err:.3g}")
             print(json.dumps({"off_grid": what, "bar_used": r["bar_used"],
                               "lse_bar_used": used, "lse_max_abs_err": lse_err}), flush=True)
+    off_grid_backward(randn, qk_std)
+
+
+def off_grid_backward(randn, qk_std) -> None:
+    """flash_bwd_dq and flash_bwd_dkv at the OFF_GRID widths, each launch
+    counted on the kernel `bwd_form` names (two heads of 64, 192 and 320 on
+    the sm90 kernels, 448 and 72 on the template): against their plain
+    versions within the gradient bar, twice for the same bits, each planted
+    fault of `_bwd_faults` (with the sm90 kernels' own) rejected on some
+    input spread."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    for b, n, c, h in OFF_GRID:
+        d, scale = c // h, (c // h) ** -0.5
+        form = V.bwd_form(d, d, h, torch.bfloat16)
+        check(form == ("sm90" if d % 64 == 0 and d <= 384 else "mma_sync"),
+              f"backward, heads of {d}: form {form}")
+        sm90 = form == "sm90"
+        rejected = {}
+        for score_std in SCORE_STDS:
+            qkv = randn(b, n, 3 * c)
+            qkv[..., :2 * c] *= qk_std(score_std, scale, d)
+            qkv = qkv.to(torch.bfloat16)
+            q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
+            do = randn(b, n, c).to(torch.bfloat16)
+            pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+            args = (q, k, v, do, plse, V.compute_dcap(pout, do, h), scale, h)
+            what = f"off grid {h} x {d} n={n} score_std {score_std} ({form} backward)"
+            V.reset_launch_counts()
+            got = {"dq": V.flash_bwd_dq(*args)}
+            got["dk"], got["dv"] = V.flash_bwd_dkv(*args)
+            again = {"dq": V.flash_bwd_dq(*args)}
+            again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            counts = ((V.flash_bwd_dq.sm90_launches, V.flash_bwd_dkv.sm90_launches) if sm90
+                      else (V.flash_bwd_dq.launches, V.flash_bwd_dkv.launches))
+            check(counts == (2, 2), f"{what}: launches {counts}")
+            check(all(torch.equal(got[g], again[g]) for g in got),
+                  f"{what}: two runs gave different bits")
+            ref = {"dq": V.flash_bwd_dq_plain(*args)}
+            ref["dk"], ref["dv"] = V.flash_bwd_dkv_plain(*args)
+            reading = {g: grad_reading(got[g], ref[g]) for g in got}
+            for g, r in reading.items():
+                check(r["bar_used"] <= 1.0, f"{what} {g}: {r}")
+            for fault, fg in _bwd_faults(V, *args).items():
+                used = max(grad_reading(fg[g], ref[g])["bar_used"] for g in fg)
+                rejected[fault] = max(rejected.get(fault, 0.0), used)
+            print(json.dumps({"off_grid_backward": what,
+                              **{g: r["bar_used"] for g, r in reading.items()}}), flush=True)
+        print(json.dumps({"off_grid_backward_faults": f"{h} x {d}", "rejected_by": rejected}),
+              flush=True)
+        for fault, used in rejected.items():
+            check(used > 1.0, f"backward {h} x {d}: the bar rejects {fault} on no spread")
 
 
 def kernel_phase():
@@ -530,7 +596,7 @@ def kernel_entry(name, source, replaces, rows, launches):
 
 KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
     ("flash attention (ours)", ("flash_fwd_",)),   # bf16 and fp32 forms
-    ("flash attention backward (ours)", ("flash_bwd_",)),  # phi='s', wide and fp32 forms
+    ("flash attention backward (ours)", ("flash_bwd_",)),  # sm90, template and fp32 forms
     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
     ("int8 flash attention (ours)", ("flash_int8_kernel", "flash_int8_sm90_kernel")),
     ("int8 GEMM (ours)", ("qmm_kernel", "rows_out_kernel")),
@@ -2155,8 +2221,34 @@ def _fwd_faults(V, q, k, v, scale, h):
     return faults
 
 
+def _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h):
+    """dk of the plain backward with each 64-query tile's dS^T formed from
+    the P^T of the tile before it (the first tile its own): what the sm90
+    dk/dv kernel computes if the hand-over of P^T between its warpgroups
+    lost a barrier."""
+    import torch
+
+    qh, kh, vh, doh = (V._split_heads(t, h).float() for t in (q, k, v, do))
+    lse4, d4 = V._stats4(lse, h).float(), V._stats4(dcap, h).float()
+    s_scale, n = scale * V.A.LOG2E, q.shape[1]
+    dk = torch.zeros_like(kh)
+    for i in range(0, n, 1024):
+        rows = torch.arange(i, min(i + 1024, n), device=q.device)
+        prev = torch.where(rows >= 64, rows - 64, rows)
+        p_prev = torch.exp2(qh[..., prev, :] @ kh.transpose(-1, -2) * s_scale
+                            - lse4[..., prev, :] * V.A.LOG2E)
+        dp = doh[..., rows, :] @ vh.transpose(-1, -2)
+        ds = p_prev * (dp - d4[..., rows, :]) * scale
+        dk += ds.to(q.dtype).float().transpose(-1, -2) @ qh[..., rows, :]
+    return V.A._heads_last(dk).to(k.dtype)
+
+
 def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
-    """The plain backward with a planted fault -> {fault: {grad: value}}."""
+    """The plain backward with a planted fault -> {fault: {grad: value}}.
+    Where `bwd_form` sends the call to the sm90 kernels, also the faults
+    their ring and hand-over can commit: a key tile read twice in dq and a
+    query tile read twice in dk/dv, each with its neighbour never read, and
+    dS^T formed with the previous query tile's P^T."""
     import torch
 
     dq = lambda *a: {"dq": V.flash_bwd_dq_plain(*a, scale, h)}
@@ -2172,7 +2264,21 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
     if h > 1:  # dark3's scale is 1
         sound = both(q, k, v, do, lse, dcap)
         faults["scale_missing_from_dS"] = {"dq": sound["dq"] / scale, "dk": sound["dk"] / scale}
+    if V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype) == "sm90":
+        faults.update(_sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
     return faults
+
+
+def _sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
+    """The sm90 backward's own faults (see `_bwd_faults`)."""
+    tw = _tile_twice
+    return {
+        "key_tile_read_twice_in_dq": {"dq": V.flash_bwd_dq_plain(q, tw(k), tw(v), do, lse, dcap,
+                                                                 scale, h)},
+        "query_tile_read_twice_in_dkv": dict(zip(("dk", "dv"), V.flash_bwd_dkv_plain(
+            tw(q), k, v, tw(do), tw(lse), tw(dcap), scale, h))),
+        "dS_from_previous_P": {"dk": _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h)},
+    }
 
 
 def _train_costs(b, n, cq, cv, h):
@@ -2273,10 +2379,11 @@ def train_kernel_phase(shapes=TRAIN_SHAPES) -> dict:
         sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 10) - sdpa_fwd, 0.0)
         library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd, "flash_bwd_dkv": sdpa_bwd}
         form = V.lse_fwd_form(cq // h, cv // h, h, q.dtype)
+        bwd = V.bwd_form(cq // h, cv // h, h, q.dtype)
         for name in rows:
             ops, nbytes = costs[name]
             bnd, by = bound_ms(ops, nbytes)
-            extra = {"form": form} if name == "flash_fwd_lse" else {}
+            extra = {"form": form if name == "flash_fwd_lse" else bwd}
             rows[name].append(dict(
                 node=node, b=b, n=n, cq=cq, cv=cv, heads=h, readings=readings[name],
                 ms=timed_ms(kern[name], 10), plain_ms=timed_ms(plain[name], 2, 1),
@@ -2463,7 +2570,9 @@ def train_launch_counts():
     read = lambda: {"flash_fwd_lse": V.flash_fwd_lse.launches,
                     "flash_fwd_lse_sm90": V.flash_fwd_lse.sm90_launches,
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
+                    "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
                     "flash_bwd_dkv": V.flash_bwd_dkv.launches,
+                    "flash_bwd_dkv_sm90": V.flash_bwd_dkv.sm90_launches,
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_single": A.flash_single.launches,
@@ -2477,16 +2586,18 @@ def train_expected(cfg) -> dict:
     """Launches of each kernel in one training step of `cfg` (its scale and
     input, remat or not), from the training route table: one forward, dq and
     dk/dv launch a site that leaves the naive route, the forward of packed
-    bf16 heads on the sm90 kernel (`lse_fwd_form`); with remat, every neck
-    site's forward runs again in the backward's recompute; no serving
-    kernel."""
+    bf16 heads on the sm90 kernel (`lse_fwd_form`), their backward on the
+    sm90 kernels where `bwd_form` sends it (heads of 128 to 384); with
+    remat, every neck site's forward runs again in the backward's
+    recompute; no serving kernel."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention as A
     from transparent_object_detection_tpu_torch.ops import attention_vjp as V
 
     counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_bwd_dq": 0,
-              "flash_bwd_dkv": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
+              "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
+              "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
               "flash_single": 0, "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0,
               "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
@@ -2498,8 +2609,10 @@ def train_expected(cfg) -> dict:
                                                      dtype) == "sm90"
         counts["flash_fwd_lse_sm90" if sm90 else "flash_fwd_lse"] += (
             2 if cfg.remat and name != "dark3" else 1)
-        counts["flash_bwd_dq"] += 1
-        counts["flash_bwd_dkv"] += 1
+        bwd = "_sm90" if route == "packed" and V.bwd_form(cq // heads, cv // heads, heads,
+                                                          dtype) == "sm90" else ""
+        counts["flash_bwd_dq" + bwd] += 1
+        counts["flash_bwd_dkv" + bwd] += 1
     return counts
 
 
@@ -3610,8 +3723,10 @@ def train_scale_kernel_phase() -> dict:
             print(json.dumps({"train_scale_case": tag, "n": n, "cq": cq, "cv": cv, "heads": h,
                               "readings": readings, "faults_rejected_by": rejected}), flush=True)
             suffix = " fp32" if is32 else ""
-            for kname in TRAIN_KERNELS:
-                form = kname + suffix
+            for kname in TRAIN_KERNELS:  # by kernel: the sm90 ones' sites apart
+                rule = V.lse_fwd_form if kname == "flash_fwd_lse" else V.bwd_form
+                form = kname + suffix + (" sm90" if rule(q.shape[-1] // h, v.shape[-1] // h, h,
+                                                         q.dtype) == "sm90" else "")
                 err[form] = max(err.get(form, 0.0),
                                 max(x["max_abs_err"] for x in readings[kname]))
             timed = (phi == "m" and hw == (640, 640) and not is32) or \
@@ -3643,8 +3758,8 @@ def train_scale_kernel_phase() -> dict:
                 ops, nbytes = costs[kname]
                 nbytes *= q.element_size() / 2
                 t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
-                extra = ({"form": V.lse_fwd_form(cq_all // h, cv_all // h, h, q.dtype)}
-                         if kname == "flash_fwd_lse" else {})
+                extra = {"form": (V.lse_fwd_form if kname == "flash_fwd_lse" else V.bwd_form)(
+                    cq_all // h, cv_all // h, h, q.dtype)}
                 row = dict(node=name, route=route, b=b, n=n, cq=cq_all, cv=cv_all, heads=h,
                            **extra, readings=readings[kname],
                            max_abs_err=max(x["max_abs_err"] for x in readings[kname]),
@@ -3801,12 +3916,13 @@ def main() -> int:
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
     sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
+    bsrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
-    # row 1 and row 9's packed sites run the sm90 kernel; row 9's single-head
-    # site (dark3) the mma_sync template
-    lse_rows = lambda rows, sm90: [r for r in rows if (r.get("form") == "sm90") == sm90]
+    # row 1 and rows 9-11's packed sites run the sm90 kernels; rows 9-11's
+    # single-head site (dark3) the mma_sync templates
+    form_rows = lambda rows, sm90: [r for r in rows if (r.get("form") == "sm90") == sm90]
     kernels = [
         kernel_entry("flash_mha_packed", sm90_src,
                      "transparent_object_detection_tpu/ops/attention.py:239", mha_rows,
@@ -3835,14 +3951,22 @@ def main() -> int:
                           variants["A"]["launches"][32]["quant_rows_int4"],
                           variant_err["quant_rows_int4"]),
         kernel_entry("flash_fwd_lse", src, f"{jv}:63",
-                     lse_rows(train_rows["flash_fwd_lse"], False), train_launches["flash_fwd_lse"]),
-        kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170", train_rows["flash_bwd_dq"],
-                     train_launches["flash_bwd_dq"]),
-        kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197", train_rows["flash_bwd_dkv"],
+                     form_rows(train_rows["flash_fwd_lse"], False),
+                     train_launches["flash_fwd_lse"]),
+        kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170",
+                     form_rows(train_rows["flash_bwd_dq"], False), train_launches["flash_bwd_dq"]),
+        kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197",
+                     form_rows(train_rows["flash_bwd_dkv"], False),
                      train_launches["flash_bwd_dkv"]),
         kernel_entry("flash_fwd_lse sm90", sm90_src, f"{jv}:63",
-                     lse_rows(train_rows["flash_fwd_lse"], True),
+                     form_rows(train_rows["flash_fwd_lse"], True),
                      train_launches["flash_fwd_lse_sm90"]),
+        kernel_entry("flash_bwd_dq sm90", bsrc, f"{jv}:170",
+                     form_rows(train_rows["flash_bwd_dq"], True),
+                     train_launches["flash_bwd_dq_sm90"]),
+        kernel_entry("flash_bwd_dkv sm90", bsrc, f"{jv}:197",
+                     form_rows(train_rows["flash_bwd_dkv"], True),
+                     train_launches["flash_bwd_dkv_sm90"]),
     ]
     # the other scales' forms: phi='m' at full width (launches of the counted
     # batch-32 forward, times of the batch-2 forward's launches), fp32
@@ -3877,17 +4001,18 @@ def main() -> int:
     # fp32 (launches of the phi='n' fp32 step, times of its sites); errors
     # the largest of the train scale kernel phase
     for label, run, suffix in (("phi=m", m_train, ""), ("fp32 phi=n", n32_train, " fp32")):
-        for name, source, line in (("flash_fwd_lse", src, 63), ("flash_bwd_dq", vsrc, 170),
-                                   ("flash_bwd_dkv", vsrc, 197)):
+        for name, source, sm90_source, line in (("flash_fwd_lse", src, sm90_src, 63),
+                                                ("flash_bwd_dq", vsrc, bsrc, 170),
+                                                ("flash_bwd_dkv", vsrc, bsrc, 197)):
             rows = train_scale["rows"][f"{name}{suffix} {label.split()[-1]}"]
-            if name == "flash_fwd_lse" and lse_rows(rows, True):  # packed bf16 sites
+            if form_rows(rows, True):  # packed bf16 sites: the sm90 kernels
                 kernels.append(int8_kernel_entry(
-                    f"{name} sm90 {label}", sm90_src, f"{jv}:{line}", lse_rows(rows, True),
-                    run["launches"]["flash_fwd_lse_sm90"], train_scale["err"][name + suffix]))
-                rows = lse_rows(rows, False)
+                    f"{name} sm90 {label}", sm90_source, f"{jv}:{line}", form_rows(rows, True),
+                    run["launches"][name + "_sm90"], train_scale["err"][name + suffix + " sm90"]))
+                rows = form_rows(rows, False)
             kernels.append(int8_kernel_entry(
                 f"{name} {label}", source, f"{jv}:{line}", rows, run["launches"][name],
-                train_scale["err"][name + suffix]))
+                train_scale["err"].get(name + suffix, 0.0)))
     check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),
           flush=True)

@@ -1,8 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a): fp32 accumulation, P and dS
-// recomputed from q, k and the forward's logsumexp. Replaces the two TPU
-// kernels of transparent_object_detection_tpu/ops/attention_vjp.py
-// (flash_bwd) over their whole domain: bf16 or fp32 operands, any q/k and v
-// head widths that are multiples of 8, any N:
+// Flash-attention backward with mma.sync (the template): fp32 accumulation,
+// P and dS recomputed from q, k and the forward's logsumexp. Replaces the
+// two TPU kernels of transparent_object_detection_tpu/ops/attention_vjp.py
+// (flash_bwd) over the part of their domain that csrc/flash_bwd_sm90.cu
+// does not take (ops/attention_vjp.py::bwd_form): one head (dark3 at every
+// scale, the folded heads of phi 'n' and 'm'), fp32, packed bf16 heads of
+// 448 and wider (phi 'l' and 'x': 768 to 3,584) and widths that are not
+// multiples of 64 (no route reaches those); any q/k and v head widths that
+// are multiples of 8, any N:
 //
 //   * _bwd_dq_kernel:  dq = sum_k dS K          (one block per query block)
 //   * _bwd_dkv_kernel: dk = sum_q dS^T Q,  dv = sum_q P^T dO
@@ -18,13 +22,14 @@
 // dq/dk/dv as column views of packed (B, N, 3C) arrays, head h at column
 // h * dh) and single-head with q/k width != v width (the dark3
 // SelfAttention, and folded heads, zero-padded by the wrapper's fold copy).
+// The packed bf16 heads of 128 to 384 (the neck of phi 'n', 's', 'm') run
+// csrc/flash_bwd_sm90.cu.
 //
 // Bound. The backward does 2*N^2*(4*dq + 3*dv) operations per image and
-// head (the count attention.py logs for the Pallas backward): 1.155e12 per
-// image over the four phi='s' 640x640 sites, 2.34e12 at phi='m', on inputs
-// of tens of MB, so it is bound by the tensor cores (~1.17 and ~2.4 ms an
-// image at 989 TFLOP/s bf16; derived, not measured); fp32 by the 67 TFLOP/s
-// of fp32 FMA.
+// head (the count attention.py logs for the Pallas backward) on inputs of
+// tens of MB, so it is bound by the tensor cores (989 TFLOP/s bf16; dark3
+// at phi='s' 640x640: 0.11 ms an image); fp32 by the 67 TFLOP/s of fp32
+// FMA.
 //
 // Design. Three modes, each a launch; a block owns 64 "rows" (4 warps x 16)
 // and walks the other axis in tiles of 32 inside the block, so nothing is
@@ -39,7 +44,7 @@
 // The fp32 accumulator of 16 rows x W columns takes W/2 registers a thread,
 // so a block accumulates at most 256 output columns; the dkv kernel of the
 // TPU is two launches here (dk needs dP, dv only P).
-//   * The phi='s' widths (q/k, v) = (256, 256) and (64, 512) keep their own
+//   * dark3's widths at phi='s', (q/k, v) = (64, 512), keep their own
 //     kernel (flash_bwd_kernel, templated on the widths): rows resident in
 //     shared memory, full-width column tiles, dv in 256-wide slices.
 //   * Every other width takes flash_bwd_wide_kernel: a column tile is a
@@ -55,9 +60,8 @@
 //     registers hold one pass), the last one masked. Extra operations
 //     against the Pallas count: (passes - 1) * 2*N^2*(dq + dv) for dq and
 //     for dk, (passes - 1) * 2*N^2*dq for dv, and 2*N^2*dq for the dv
-//     launch's own S: at phi='m' h2 (8 heads of 384: one pass for dq and
-//     dk, two for dv) 1.29x the Pallas count, at h1 (folded 600: two, two,
-//     three) 2.0x.
+//     launch's own S: at phi='m' h1 (folded 600: two passes for dq and
+//     dk, three for dv) 2.0x the Pallas count.
 //   * fp32 (flash_bwd_f32_kernel): 32 rows a block, CUDA-core FFMA from
 //     shared-memory slabs, 128-column output passes.
 // P and dS go from the fp32 accumulator layout straight into the bf16 A
@@ -736,14 +740,13 @@ cudaError_t run_f32(BwdParams& p, int batch, int heads, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// bf16 (q/k, v) head widths of the phi='s' training path, neck heads (256,
-// 256) and dark3 (64, 512), keep their own instantiations; every other pair
-// of multiples of 8 takes the wide kernel, fp32 the FFMA kernel
+// bf16 dark3 at phi='s', (q/k, v) = (64, 512), keeps its own instantiation;
+// every other pair of multiples of 8 takes the wide kernel, fp32 the FFMA
+// kernel
 template <int MODE>
 cudaError_t run(BwdParams& p, int dqk, int dv, int batch, int heads, bool f32,
                 cudaStream_t stream) {
   if (f32) return run_f32<MODE>(p, batch, heads, stream);
-  if (dqk == 256 && dv == 256) return launch<MODE, 256, 256>(p, batch, heads, stream);
   if (dqk == 64 && dv == 512) return launch<MODE, 64, 512>(p, batch, heads, stream);
   return run_wide<MODE>(p, batch, heads, stream);
 }

@@ -1,12 +1,12 @@
 """Time the serving kernels (rows 1-8) and the training kernels (rows 9-11:
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
 this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites and
-the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 also
-at phi='m' h2 and h4), on one GPU; prints one JSON line (ms per call, CUDA
-events, 20 calls after 3 warm-ups).
+the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 and
+9-11 also at phi='m' h2 and h4, 8 heads of 384), on one GPU; prints one
+JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads]
+        [--forward | --wide-heads | --train-step]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -17,6 +17,10 @@ it times only the two forms csrc/flash_fwd_sm90.cu has for heads wider
 than 256, at phi='m' (8 heads of 384): the warpgroup split that
 `attention.sm90_plan` picks and the sliced form (v in two slices of 192
 across blocks, S recomputed per slice), each held to 1e-2 of max|plain|.
+With --train-step it times only two training steps of `make_train_step`
+(SGD nesterov, EMA; seeded weights, synthetic batches like chip_smoke.py's):
+phi='s' 640x640 at batch 16 and phi='m' 640x640 with remat at batch 16,
+each on CUDA events, the median of 3 steps after 1 warm-up.
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
@@ -53,7 +57,10 @@ INT8_WIDE = (("phi=m h2", (2, 6400, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 8)))
 FORWARDS = ("bf16", "int8", "A", "B")
 # (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training sites
 TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)),
-               ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)))
+               ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)),
+               ("phi=m h2", (2, 6400, 3072, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 3072, 8)))
+# the --train-step configurations: (label, ModelConfig keywords, batch)
+TRAIN_STEPS = (("phi=s", {}, 16), ("phi=m remat", {"phi": "m", "remat": True}, 16))
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -87,6 +94,56 @@ def time_training_kernels(randn) -> dict:
         out[f"flash_fwd_lse {name}"] = timed_ms(lambda: V.flash_fwd_lse(q, k, v, scale, h))
         out[f"flash_bwd_dq {name}"] = timed_ms(lambda: V.flash_bwd_dq(*args))
         out[f"flash_bwd_dkv {name}"] = timed_ms(lambda: V.flash_bwd_dkv(*args))
+    return out
+
+
+def time_train_steps() -> dict:
+    """ms of one training step (forward, loss, backward, SGD, EMA) of each
+    TRAIN_STEPS configuration on CUDA events: 1 warm-up, then the median of
+    3 steps."""
+    import numpy as np
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    from transparent_object_detection_tpu_torch.train.trainer import (
+        create_train_state,
+        loss_config_from,
+        make_train_step,
+    )
+
+    out = {}
+    for label, kw, b in TRAIN_STEPS:
+        cfg = ModelConfig(**kw)
+        tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+        model = build_model(cfg, device="cuda", seed=0)
+        with torch.no_grad():  # as chip_smoke.py: dark3's attention gets a gradient
+            model.backbone.dark3_attn.gamma.fill_(0.5)
+        opt = build_optimizer(tcfg, model)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg)
+        rng = np.random.default_rng(1)
+        boxes = np.zeros((b, 64, 4), np.float32)
+        boxes[:, 0] = [0.5, 0.5, 0.4, 0.4]
+        boxes[:, 1] = [0.25, 0.3, 0.2, 0.2]
+        h, w = cfg.input_shape
+        batch = {"image": torch.as_tensor(rng.uniform(size=(b, h, w, 3)).astype(np.float32),
+                                          device="cuda"),
+                 "boxes": torch.as_tensor(boxes, device="cuda"),
+                 "labels": torch.zeros((b, 64), dtype=torch.long, device="cuda")}
+        times = []
+        for i in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, _ = step(state, batch, 1e-3)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+        out[f"train step {label} batch {b}"] = sorted(times)[1]
+        out[f"train step {label} batch {b} all"] = times
+        del model, opt, state, step, batch
+        torch.cuda.empty_cache()
     return out
 
 
@@ -200,6 +257,9 @@ def main() -> int:
         return 0
     if "--wide-heads" in sys.argv[1:]:
         print(json.dumps({**result, "ms": time_wide_heads(randn)}))
+        return 0
+    if "--train-step" in sys.argv[1:]:
+        print(json.dumps({**result, "ms": time_train_steps()}))
         return 0
     training = time_training_kernels(randn)
     out = {}

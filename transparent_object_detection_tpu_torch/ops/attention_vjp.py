@@ -14,9 +14,14 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
                  packed heads whose widths are multiples of 64, the rule
                  of attention.packed_fwd_form; csrc/flash_attn_fwd.cu for
                  one head, fp32 and other widths)
-  flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_attn_bwd.cu, 1 launch)
-  flash_bwd_dkv  replaces _bwd_dkv_kernel (csrc/flash_attn_bwd.cu, 2 launches:
-                 the dk pass and the dv pass; counted once, as the TPU kernel)
+  flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_bwd_sm90.cu for bf16
+                 packed heads of equal widths that are multiples of 64 up to
+                 384, the rule of `bwd_form`; csrc/flash_attn_bwd.cu for one
+                 head, fp32 and other widths)
+  flash_bwd_dkv  replaces _bwd_dkv_kernel (the same two sources: on the
+                 sm90 kernel one launch up to heads of 256 and two, a dv and
+                 a dk launch, at 320 and 384; on the template two, the dk
+                 pass and the dv pass; counted once, as the TPU kernel)
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
@@ -154,6 +159,90 @@ def _bwd_lib():
     return lib
 
 
+# The Hopper backward (csrc/flash_bwd_sm90.cu): heads up to six 64-column
+# slabs wide, streamed as operand tiles through one ring; from five slabs
+# (320) the split forms.
+SM90_BWD_SLAB = 64
+SM90_BWD_MAX_WIDTH = 384
+SM90_BWD_SPLIT_FROM = 320
+SM90_BWD_MAX_STAGES = 24
+SM90_BWD_PLAN_KEYS = ("rows", "slab", "stages", "split", "smem_bytes")
+
+
+def bwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
+    """The kernel of a flash backward (dq and dk/dv alike): "sm90"
+    (csrc/flash_bwd_sm90.cu) for bf16 packed heads (num_heads > 1) whose
+    q/k and v widths are equal multiples of 64 up to 384, which every
+    packed training site of phi 'n', 's' and 'm' is; else
+    csrc/flash_attn_bwd.cu: "f32" for fp32, "mma_sync" in bf16 (one head:
+    dark3 and the folded heads; packed heads of 448 and wider; widths that
+    are not multiples of 64)."""
+    if dtype == torch.float32:
+        return "f32"
+    if (num_heads > 1 and dqk == dv and dqk % SM90_BWD_SLAB == 0
+            and 0 < dqk <= SM90_BWD_MAX_WIDTH):
+        return "sm90"
+    return "mma_sync"
+
+
+def bwd_sm90_smem_bytes(kernel: str, d: int, stages: int) -> int:
+    """Dynamic shared memory of a plan, as csrc/flash_bwd_sm90.cu computes
+    it: 1024 bytes of alignment slack and 1024 of barriers; dq: Q and dO
+    resident (128 rows, or 64 in the split form) and, split, the fp32 P and
+    dP tiles the warpgroups trade (16 KB each); dkv: K and V resident (64
+    keys) and the fp32 P^T handed over (split: also dP^T, the DK launch's);
+    then the ring: `stages` operand tiles of 64 rows by the head's width
+    (the split forms: 384, the columns past 320 zero)."""
+    slabs = d // SM90_BWD_SLAB
+    split = d >= SM90_BWD_SPLIT_FROM
+    slab_bytes, xchg = SM90_BWD_SLAB * SM90_BWD_SLAB * 2, 64 * 64 * 4
+    if kernel == "dq":
+        fixed = 2 * slabs * (1 if split else 2) * slab_bytes + (2 * xchg if split else 0)
+    else:
+        fixed = 2 * slabs * slab_bytes + (2 if split else 1) * xchg
+    tile = (SM90_BWD_MAX_WIDTH // SM90_BWD_SLAB if split else slabs) * slab_bytes
+    return 2048 + fixed + stages * tile
+
+
+def bwd_sm90_plan(d: int) -> dict:
+    """Launch plans of csrc/flash_bwd_sm90.cu for heads of width `d` (q/k and
+    v alike; a multiple of 64 up to 384): {"dq": plan, "dkv": plan}, each
+    with `rows` (query rows a dq block: 128, two warpgroups of 64, or 64 in
+    the split form; keys a dk/dv block: 64), `slab` (64), `split` (heads of
+    320 and 384: dq's warpgroups share 64 rows and split dQ's columns; dk/dv
+    takes two launches, each splitting its columns between the warpgroups),
+    `stages` (the most ring stages, one operand tile each, up to 24, that
+    fit; at least one query or key tile's two) and `smem_bytes`. The
+    library refuses any other plan."""
+    if d <= 0 or d % SM90_BWD_SLAB or d > SM90_BWD_MAX_WIDTH:
+        raise ValueError(f"the sm90 backward takes head widths that are multiples of "
+                         f"{SM90_BWD_SLAB} up to {SM90_BWD_MAX_WIDTH}, got {d}")
+    split = int(d >= SM90_BWD_SPLIT_FROM)
+    out = {}
+    for kernel, rows in (("dq", 64 if split else 128), ("dkv", 64)):
+        stages = next(st for st in range(SM90_BWD_MAX_STAGES, 0, -1)
+                      if bwd_sm90_smem_bytes(kernel, d, st) <= A.SM90_SMEM_LIMIT)
+        if stages < 2:
+            raise ValueError(f"no sm90 backward plan fits heads of {d}")
+        out[kernel] = {"rows": rows, "slab": SM90_BWD_SLAB, "stages": stages, "split": split,
+                       "smem_bytes": bwd_sm90_smem_bytes(kernel, d, stages)}
+    return out
+
+
+def _bwd_sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_bwd_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_bwd_dq_sm90.argtypes = [vp] * 7 + [ci] * 4 + [cl] * 10 + [cf, vp, vp]
+        lib.flash_bwd_dq_sm90.restype = ci
+        lib.flash_bwd_dkv_sm90.argtypes = [vp] * 8 + [ci] * 4 + [cl] * 12 + [cf, vp, vp]
+        lib.flash_bwd_dkv_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
 def kernel_supports(n: int, dqk: int, dv: int, heads: int, dtype: torch.dtype) -> bool:
     """The domain of the training kernels: any N, q/k and v head widths that
     are multiples of 8 (16-byte rows), packed heads or one, bf16 or fp32."""
@@ -269,17 +358,42 @@ def _bwd_launch(mode: int, q, k, v, do, lse, dcap, out, scale: float, num_heads:
     A._raise_on(err, ("flash_bwd dq", "flash_bwd dk", "flash_bwd dv")[mode])
 
 
+def _sm90_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float,
+                     num_heads: int, widths) -> None:
+    """One call of csrc/flash_bwd_sm90.cu (`kernel` "dq" or "dkv") with the
+    plan of `bwd_sm90_plan`; raises if the launch fails, never falls back."""
+    b, n, d, _ = widths
+    plan = bwd_sm90_plan(d)[kernel]
+    keys = SM90_BWD_PLAN_KEYS
+    plan_arr = (ctypes.c_int * len(keys))(*(plan[key] for key in keys))
+    lib = _bwd_sm90_lib()
+    fn = lib.flash_bwd_dq_sm90 if kernel == "dq" else lib.flash_bwd_dkv_sm90
+    strides = [s for t in (q, k, v, do) for s in (t.stride(0), t.stride(1))]
+    strides += [s for t in outs for s in (t.stride(0), t.stride(1))]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             dcap.data_ptr(), *(t.data_ptr() for t in outs), b, n, num_heads, d, *strides,
+             scale, ctypes.cast(plan_arr, ctypes.c_void_p),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    A._raise_on(err, f"flash_bwd_{kernel}_sm90")
+
+
 def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
                  dq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq of the flash backward, written into `dq` (e.g. a column view of a
     packed gradient) when given. Port of ops/attention_vjp.py::_bwd_dq_kernel
-    (JAX). A CUDA tensor launches csrc/flash_attn_bwd.cu; a CPU tensor runs
+    (JAX). A CUDA tensor launches the kernel of `bwd_form`
+    (csrc/flash_bwd_sm90.cu, counted in `sm90_launches`, or
+    csrc/flash_attn_bwd.cu, in `launches`); a CPU tensor runs
     `flash_bwd_dq_plain`."""
     if q.device.type == "cpu":
         res = flash_bwd_dq_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return res if dq is None else dq.copy_(res)
     widths = _check_bwd(q, k, v, do, lse, dcap, num_heads)
     dq = _out(dq, q, "dq")
+    if bwd_form(widths[2], widths[3], num_heads, q.dtype) == "sm90":
+        _sm90_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
+        flash_bwd_dq.sm90_launches += 1
+        return dq
     _bwd_launch(MODE_DQ, q, k, v, do, lse, dcap, dq, scale, num_heads, widths)
     flash_bwd_dq.launches += 1
     return dq
@@ -289,14 +403,22 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
                   dk: Optional[torch.Tensor] = None,
                   dv: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk and dv of the flash backward (into `dk`/`dv` when given). Port of
-    ops/attention_vjp.py::_bwd_dkv_kernel (JAX): on the card two launches of
-    csrc/flash_attn_bwd.cu (the dk pass and the dv pass), counted as one; a
-    CPU tensor runs `flash_bwd_dkv_plain`."""
+    ops/attention_vjp.py::_bwd_dkv_kernel (JAX). A CUDA tensor launches the
+    kernel of `bwd_form`: csrc/flash_bwd_sm90.cu (one launch for heads up to
+    256, a dv and a dk launch at 320 and 384; counted once in
+    `sm90_launches`) or csrc/flash_attn_bwd.cu, which keeps one head (dark3,
+    the folded heads), fp32 and the other widths (the dk pass and the dv
+    pass, counted once in `launches`); a CPU tensor runs
+    `flash_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
     widths = _check_bwd(q, k, v, do, lse, dcap, num_heads)
     dk, dv = _out(dk, k, "dk"), _out(dv, v, "dv")
+    if bwd_form(widths[2], widths[3], num_heads, q.dtype) == "sm90":
+        _sm90_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
+        flash_bwd_dkv.sm90_launches += 1
+        return dk, dv
     _bwd_launch(MODE_DK, q, k, v, do, lse, dcap, dk, scale, num_heads, widths)
     _bwd_launch(MODE_DV, q, k, v, do, lse, dcap, dv, scale, num_heads, widths)
     flash_bwd_dkv.launches += 1
@@ -306,14 +428,18 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
 flash_fwd_lse.launches = 0
 flash_fwd_lse.sm90_launches = 0
 flash_bwd_dq.launches = 0
+flash_bwd_dq.sm90_launches = 0
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.sm90_launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_fwd_lse.launches = 0
     flash_fwd_lse.sm90_launches = 0
     flash_bwd_dq.launches = 0
+    flash_bwd_dq.sm90_launches = 0
     flash_bwd_dkv.launches = 0
+    flash_bwd_dkv.sm90_launches = 0
 
 
 # ---------------------------------------------------------------------------
