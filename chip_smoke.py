@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all seven sources at once) and prints the card's name and power
+   nvcc (all eight sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -109,7 +109,13 @@
    per 256-column slice or, on the sm90 kernel, per warpgroup half, the K
    tail of qmm dropped; and at the sm90 kernel's int8 sites its ring and
    layout faults, each launch twice for the same bits) rejected on some
-   input spread.
+   input spread. Every fp32 flash site (phi='m' h2, h4, dark3 and the
+   folded h1 of 600; phi='n' h2, dark3 and the folded h1 of 288) runs
+   csrc/flash_fwd_f32_sm90.cu (3xTF32 wgmma fed by a TMA ring, after a
+   pre-pass): each launch twice for the same bits, and the faults of its
+   ring, split and layout rejected on some spread too (a key tile read
+   twice and its neighbour never; the low parts dropped from S, or from
+   P.V; V^T's keys left in natural order, not P's fragment order).
 11. phi='m' 640x640 slice at full width (1.354 B parameters, seeded random
    weights): bf16, int8, configurations A and B through
    Predictor.detect_raw_batch at batch 32 and 1 with every count reset
@@ -119,9 +125,12 @@
    reject their planted fault); every launch of a batch-2 forward against
    its plain version, timed beside bound, plain and library; batch-1
    latency, batch-32 throughput, a profile. Then one fp32 forward at batch
-   2, counted, against plain.
+   2, counted (the f32_sm90 counters), against plain, every fp32 flash
+   launch against its plain version, twice for the same bits, and timed
+   beside its bound (three tf32 products), plain and SDPA.
 12. phi='n' slice: bf16 and int8 at batch 2, counted, against plain; one
-   fp32 int8 forward at batch 2, counted, against plain and timed.
+   fp32 int8 forward at batch 2, counted, against plain and timed (its
+   fp32 flash launches, the folded h1, as in 11).
 13. Serve matrix: phi 'n', 's', 'm' in bf16 and fp32 compute, each in
    bf16, int8, A and B: one counted batch-1 detection each, launches
    asserted against the route table.
@@ -131,7 +140,10 @@
    v 256 to 4,096, folded heads of 283 and 599 as the fold copy pads them),
    at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and peaked
    inputs, with the bars of phase 8 (fp32: 1e-4) and a bit-identical
-   backward (packed bf16 heads of 128 to 384 on csrc/flash_bwd_sm90.cu);
+   forward and backward (packed bf16 heads of 128 to 384 on
+   csrc/flash_bwd_sm90.cu; every fp32 forward on csrc/flash_fwd_f32_sm90.cu,
+   with its faults as in 10 and lse written from the running max of the
+   tile before the last);
    the phi='s' faults (with the sm90 kernels' own where they run) and those
    of the width loop (a q/k slab left out of S, a v/dO slab left out of dP,
    the last dv pass unwritten, the tail key tile left out) each rejected on
@@ -147,7 +159,8 @@
    memory and step time with and without remat at that batch, a profile.
 16. phi='n' training, bf16 and fp32 compute: a counted batch-2 step each
    against plain within the same limits (the planted faults' readings
-   printed), every launch against its plain version.
+   printed), every launch against its plain version (the fp32 forward's
+   twice for the same bits).
    The sm90 kernel's sites everywhere above run twice for the same bits and
    hold its ring's faults.
 17. Prints each phase's seconds and the smoke's total time, the card's name
@@ -156,7 +169,9 @@
    3-5 on csrc/flash_int8_sm90.cu, then rows 9-11's packed sites on the
    sm90 kernels; then the phi='m' and fp32 forms, rows 3-5 split by
    kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
-   9-11 at phi='m' (split likewise) and in fp32 last), then {"ok": true,
+   9-11 at phi='m' (split likewise) and in fp32 last; the fp32 forms of
+   rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu, their bound three
+   tf32 products at 495 TFLOP/s), then {"ok": true,
    "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
@@ -333,6 +348,77 @@ def _score_shift(q, k, scale, mean, d):
     k.sub_(a)
 
 
+def _tf32(t):
+    """t in fp32 with the 13 low mantissa bits cleared: the tf32 value the
+    tensor core multiplies (a copy, contiguous)."""
+    import torch
+
+    return (t.float().contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _online_softmax_pv_tf32(q, k, v, scale, block_k=1024):
+    """attention._online_softmax with P.V taken as one tf32 product (p and v
+    truncated, l summed from the full p): csrc/flash_fwd_f32_sm90.cu with
+    the low parts dropped from P.V. -> (out, lse)"""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    s_scale = scale * A.LOG2E
+    qf = q.float()
+    m = torch.full(q.shape[:-1] + (1,), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],), dtype=torch.float32, device=q.device)
+    for j in range(0, k.shape[-2], block_k):
+        s = torch.matmul(qf, k[..., j:j + block_k, :].float().transpose(-1, -2)) * s_scale
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(_tf32(p), _tf32(v[..., j:j + block_k, :]))
+        m = m_new
+    return (acc * (1.0 / l)).to(v.dtype), (m + torch.log2(l)) * A.LN2
+
+
+# The pre-pass of csrc/flash_fwd_f32_sm90.cu stores each group of 8 keys of
+# V^T in the order [0, 2, 4, 6, 1, 3, 5, 7], P's fragment order; with V^T
+# left in natural order the kernel would weigh key j's p against the v of
+# key 8 (j // 8) + V_KEY_ORDER_INVERSE[j % 8].
+V_KEY_ORDER_INVERSE = (0, 4, 1, 5, 2, 6, 3, 7)
+
+
+def _v_key_order_undone_of(v):
+    """v (keys on axis -2) as that kernel would meet it (keys past N zero)."""
+    import torch
+
+    n = v.shape[-2]
+    pad = -n % 8
+    vp = torch.nn.functional.pad(v, (0, 0, 0, pad)) if pad else v
+    idx = torch.arange(n + pad, device=v.device)
+    idx = idx // 8 * 8 + torch.tensor(V_KEY_ORDER_INVERSE, device=v.device)[idx % 8]
+    return vp[..., idx, :][..., :n, :]
+
+
+def _s_lo_dropped(attend):
+    """S = q.k^T as one tf32 product (q and k truncated)."""
+    return lambda q, k, v, scale, block_k=1024: attend(_tf32(q), _tf32(k), v, scale, block_k)
+
+
+def _pv_lo_dropped(attend):
+    return lambda q, k, v, scale, block_k=1024: _online_softmax_pv_tf32(q, k, v, scale,
+                                                                        block_k)[0]
+
+
+def _v_key_order_undone(attend):
+    return lambda q, k, v, scale, block_k=1024: attend(q, k, _v_key_order_undone_of(v), scale,
+                                                       block_k)
+
+
+# faults of the fp32 Hopper kernel's split and layout (on top of RING_FAULTS)
+F32_FAULTS = {"s_lo_terms_dropped": _s_lo_dropped, "pv_lo_terms_dropped": _pv_lo_dropped,
+              "v_key_order_undone": _v_key_order_undone}
+
+
 @contextlib.contextmanager
 def planted(fault: str):
     """The plain attention versions with a planted fault: what a kernel that
@@ -340,7 +426,8 @@ def planted(fault: str):
     from transparent_object_detection_tpu_torch.ops import attention as A
 
     real = A._online_softmax_attention
-    A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS, **RING_FAULTS}[fault](real)
+    A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS, **RING_FAULTS,
+                                   **F32_FAULTS}[fault](real)
     try:
         yield
     finally:
@@ -788,7 +875,8 @@ def slice_phase(card: str):
             out = kernel(*args)
             calls.append((kernel.__name__, args, out, plain))
             return out
-        launch.launches = launch.sm90_launches = 0  # the wrapper counts on the name it is bound to
+        # the wrapper counts on the name it is bound to
+        launch.launches = launch.sm90_launches = launch.f32_launches = 0
         return launch
 
     A.flash_mha_packed = recording(real[0], A.flash_mha_packed_plain)
@@ -1426,7 +1514,8 @@ def int8_path_calls(model, images) -> dict:
     return rows
 
 
-COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_single", "flash_mha_int8",
+COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_mha_packed_f32", "flash_single",
+           "flash_single_f32", "flash_mha_int8",
            "flash_mha_int8_sm90", "flash_mha_int8_qout", "flash_mha_int8_qout_sm90",
            "flash_int8_handoff", "flash_int8_handoff_sm90", "qmm", "quant_rows",
            "quant_rows_int4")
@@ -1449,7 +1538,9 @@ def read_counts() -> dict:
 
     return {"flash_mha_packed": A.flash_mha_packed.launches,
             "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
+            "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
             "flash_single": A.flash_single.launches,
+            "flash_single_f32": A.flash_single.f32_launches,
             **{name + sm90: getattr(getattr(A8, name), "sm90_launches" if sm90 else "launches")
                for name in ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")
                for sm90 in ("", "_sm90")},
@@ -2218,7 +2309,45 @@ def _fwd_faults(V, q, k, v, scale, h):
     if q.shape[1] % 64:  # (B, N, C): keys on axis -2
         faults["keys_past_n_scored_zero"] = V.flash_fwd_lse_plain(q, _pad_keys(k), _pad_keys(v),
                                                                    scale, h)
+    if V.lse_fwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype) == "f32_sm90":
+        faults.update(_f32_fwd_faults(V, q, k, v, scale, h))
     return faults
+
+
+def _last_tile_max_gain(V, q, k, scale, h, tile=64):
+    """Per query row, how far the exp2-domain row max rises in the last key
+    tile: max over all keys less max over the keys before the last tile,
+    shaped like lse."""
+    import torch
+
+    qh, kh = (V._split_heads(t, h).float() for t in (q, k))
+    n = k.shape[1]
+    last = (n - 1) // tile * tile
+    gain = torch.empty(qh.shape[:-1] + (1,), device=q.device)
+    for i in range(0, n, 1024):
+        s = torch.matmul(qh[..., i:i + 1024, :], kh.transpose(-1, -2)) * (scale * V.A.LOG2E)
+        gain[..., i:i + 1024, :] = (s.amax(-1, keepdim=True)
+                                    - s[..., :last].amax(-1, keepdim=True))
+    return gain if h > 1 else gain[:, 0]
+
+
+def _f32_fwd_faults(V, q, k, v, scale, h):
+    """The faults of csrc/flash_fwd_f32_sm90.cu in (out, lse): the low parts
+    dropped from S or from P.V, V^T's key order undone, and lse written
+    with the running max of the tile before the last."""
+    real = V.A._online_softmax
+    V.A._online_softmax = _online_softmax_pv_tf32
+    try:
+        pv = V.flash_fwd_lse_plain(q, k, v, scale, h)
+    finally:
+        V.A._online_softmax = real
+    out, lse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+    return {"s_lo_terms_dropped": V.flash_fwd_lse_plain(_tf32(q), _tf32(k), v, scale, h),
+            "pv_lo_terms_dropped": pv,
+            "v_key_order_undone": V.flash_fwd_lse_plain(q, k, _v_key_order_undone_of(v), scale,
+                                                        h),
+            "lse_from_previous_tile_max": (out, lse - _last_tile_max_gain(V, q, k, scale, h)
+                                           * V.A.LN2)}
 
 
 def _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h):
@@ -2521,7 +2650,8 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             kept = tuple(o.clone() for o in out) if isinstance(out, tuple) else out.clone()
             calls.append((name, args, kw, kept))
             return out
-        launch.launches = launch.sm90_launches = 0  # the wrapper counts on the name it is bound to
+        # the wrapper counts on the name it is bound to
+        launch.launches = launch.sm90_launches = launch.f32_launches = 0
         return launch
 
     for name in real:
@@ -2543,6 +2673,10 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             q, heads = args[0], (args[4] if name == "flash_fwd_lse" else args[7])
             f32 = q.dtype == torch.float32
             if name == "flash_fwd_lse":
+                if f32:  # the f32_sm90 kernel: a second launch, the same bits
+                    again = real[name](*args, **kw)
+                    check(torch.equal(again[0], out[0]) and torch.equal(again[1], out[1]),
+                          f"{name} launch {i}: two launches gave different bits")
                 pout, plse = V.flash_fwd_lse_plain(*args, **kw)
                 r = {"bar_used": (_f32_bar_used if f32 else bar_used)(out[0], pout),
                      "lse_max_abs_err": float((out[1] - plse).abs().max())}
@@ -2569,13 +2703,16 @@ def train_launch_counts():
               V.reset_launch_counts)
     read = lambda: {"flash_fwd_lse": V.flash_fwd_lse.launches,
                     "flash_fwd_lse_sm90": V.flash_fwd_lse.sm90_launches,
+                    "flash_fwd_lse_f32": V.flash_fwd_lse.f32_launches,
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
                     "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
                     "flash_bwd_dkv": V.flash_bwd_dkv.launches,
                     "flash_bwd_dkv_sm90": V.flash_bwd_dkv.sm90_launches,
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
+                    "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
                     "flash_single": A.flash_single.launches,
+                    "flash_single_f32": A.flash_single.f32_launches,
                     "flash_mha_int8": A8.flash_mha_int8.launches,
                     "flash_mha_int8_sm90": A8.flash_mha_int8.sm90_launches,
                     "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches}
@@ -2586,7 +2723,8 @@ def train_expected(cfg) -> dict:
     """Launches of each kernel in one training step of `cfg` (its scale and
     input, remat or not), from the training route table: one forward, dq and
     dk/dv launch a site that leaves the naive route, the forward of packed
-    bf16 heads on the sm90 kernel (`lse_fwd_form`), their backward on the
+    bf16 heads on the sm90 kernel and every fp32 forward on the f32_sm90
+    kernel (`lse_fwd_form`), the backward of packed bf16 heads on the
     sm90 kernels where `bwd_form` sends it (heads of 128 to 384); with
     remat, every neck site's forward runs again in the backward's
     recompute; no serving kernel."""
@@ -2595,19 +2733,19 @@ def train_expected(cfg) -> dict:
     from transparent_object_detection_tpu_torch.ops import attention as A
     from transparent_object_detection_tpu_torch.ops import attention_vjp as V
 
-    counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_bwd_dq": 0,
-              "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
-              "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
-              "flash_single": 0, "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0,
-              "quant_rows": 0}
+    counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_f32": 0,
+              "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0,
+              "flash_bwd_dkv_sm90": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
+              "flash_mha_packed_f32": 0, "flash_single": 0, "flash_single_f32": 0,
+              "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
         route = A.train_route(n, cq, heads, cv)
         if route == "naive":
             continue
-        sm90 = route == "packed" and V.lse_fwd_form(cq // heads, cv // heads, heads,
-                                                     dtype) == "sm90"
-        counts["flash_fwd_lse_sm90" if sm90 else "flash_fwd_lse"] += (
+        form = V.lse_fwd_form(cq // heads, cv // heads, heads if route == "packed" else 1,
+                              dtype)
+        counts["flash_fwd_lse" + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")] += (
             2 if cfg.remat and name != "dark3" else 1)
         bwd = "_sm90" if route == "packed" and V.bwd_form(cq // heads, cv // heads, heads,
                                                           dtype) == "sm90" else ""
@@ -2823,6 +2961,10 @@ def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
 # ---------------------------------------------------------------------------
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM data sheet, dense tf32 on the tensor cores
+# the fp32 forward (csrc/flash_fwd_f32_sm90.cu) takes each fp32 product as
+# three tf32 products: its bound is the operations at a third of that rate
+F32_FWD_FLOPS = PEAK_TF32_FLOPS / 3
 # fp32 kernel bar, per element: kernel and plain version compute in fp32 and
 # differ in summation order (and exp2) only
 F32_RTOL, F32_ATOL_OF_MAX = 1e-4, 1e-4
@@ -2857,7 +2999,7 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
     `tag` ("bf16", "int8", "A", "B") at `phi` 640x640 and `batch` (`f32`:
     fp32 compute), from the route table (`serving_route`, `pick_blocks`,
     the quant_out groups, `packed_fwd_form`: bf16 packed heads take the
-    sm90 kernel) and the int8 TEB's rules (models/blocks.py): each int8 TEB
+    sm90 kernel, fp32 calls the f32_sm90 kernel) and the int8 TEB's rules (models/blocks.py): each int8 TEB
     runs 4 qmm and a quant_rows before each projection that takes bf16
     rows."""
     import torch
@@ -2878,7 +3020,10 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
         """The counter of `kernel` on heads of these widths: the Hopper
         kernels' where their rules take the call."""
         if kernel == "flash_mha_packed":
-            return kernel + ("_sm90" if A.packed_fwd_form(dq, dtype) == "sm90" else "")
+            form = A.packed_fwd_form(dq, dtype)
+            return kernel + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")
+        if kernel == "flash_single":
+            return kernel + ("_f32" if f32 else "")
         if kernel.startswith(("flash_mha_int8", "flash_int8")):
             return kernel + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
         return kernel
@@ -2924,8 +3069,8 @@ def check_launch_model() -> None:
     check(expected_launches("s", 4, "bf16") == {**zero, "flash_mha_packed_sm90": 3,
                                                 "flash_single": 1},
           "expected_launches: phi='s' bf16")
-    check(expected_launches("s", 4, "bf16", f32=True) == {**zero, "flash_mha_packed": 3,
-                                                          "flash_single": 1},
+    check(expected_launches("s", 4, "bf16", f32=True) == {**zero, "flash_mha_packed_f32": 3,
+                                                          "flash_single_f32": 1},
           "expected_launches: phi='s' fp32")
     check(expected_launches("s", 4, "int8") == {**zero, "flash_mha_int8_sm90": 4, "qmm": 16,
                                                 "quant_rows": 12}, "expected_launches: int8")
@@ -2990,9 +3135,12 @@ def scale_kernel_phase() -> dict:
         f32 = dt == torch.float32
         scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
         faults = {}
-        sm90 = (packed and A._packed_heads(cq, heads)
-                and A.packed_fwd_form(cq // heads, dt) == "sm90")
+        # the Hopper kernels: bf16 packed heads on flash_fwd_sm90.cu, every
+        # fp32 call on flash_fwd_f32_sm90.cu (with its split's and layout's faults)
+        sm90 = f32 or (packed and A._packed_heads(cq, heads)
+                       and A.packed_fwd_form(cq // heads, dt) == "sm90")
         ring = ("key_tile_used_twice",) + (("keys_past_n_scored_zero",) if n % 64 else ())
+        ring += tuple(F32_FAULTS) if f32 else ()
         spreads = [(std, 0.0) for std in SCORE_STDS]
         if sm90 and n % 64:  # the zero-fill trap shows on shifted scores
             spreads.append(SHIFTED_SPREAD)
@@ -3160,13 +3308,14 @@ def scale_kernel_phase() -> dict:
             if route == "int8":
                 variants = packed and (cq // heads) % 128 == 0
                 int8_case(tag, b, n, cq, cv, heads, bk, bf, variants)
-    # fp32: the packed, single-head and folded forms, int8 with fp32 q
+    # fp32 (csrc/flash_fwd_f32_sm90.cu): the packed, single-head and folded
+    # forms, int8 with fp32 q
+    for phi, name, b in (("m", "h4", 2), ("m", "h2", 2), ("m", "dark3", 1), ("n", "h2", 2),
+                         ("n", "dark3", 2), ("n", "h1", 2), ("m", "h1", 2)):
+        n, cq, cv, heads, packed = scale_sites(phi)[name]
+        folded = " (folded)" if packed and not A._packed_heads(cq, heads) else ""
+        flash_case(f"phi={phi} {name} fp32{folded}", b, n, cq, cv, heads, packed, f32)
     n, cq, _, heads, _ = scale_sites("m")["h4"]
-    flash_case("phi=m h4 fp32", 2, n, cq, cq, heads, True, f32)
-    n, cq, cv, _, _ = scale_sites("m")["dark3"]
-    flash_case("phi=m dark3 fp32", 1, n, cq, cv, 1, False, f32)
-    n, cq, _, heads, _ = scale_sites("n")["h1"]
-    flash_case("phi=n h1 fp32 (folded)", 2, n, cq, cq, heads, True, f32)
     n, cq, _, heads, _ = scale_sites("m")["h4"]
     int8_case("phi=m h4 fp32", 2, n, cq, cq, heads, A8.pick_blocks(n, cq, heads)[1], f32, True)
 
@@ -3233,7 +3382,7 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             out = kernel(*args)
             calls.append((name, args, out))
             return out
-        launch.launches = launch.sm90_launches = 0
+        launch.launches = launch.sm90_launches = launch.f32_launches = 0
         return launch
 
     for name, (kernel, _) in real.items():
@@ -3246,10 +3395,13 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             setattr(A, name, kernel)
     rows = {name: [] for name in real}
     bar = _f32_bar_used if f32 else bar_used
-    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
+    peak = F32_FWD_FLOPS if f32 else PEAK_BF16_FLOPS
     for i, (name, args, out) in enumerate(calls):
         kernel, plain = real[name]
         with torch.inference_mode():
+            if f32:  # the f32_sm90 kernel: a second launch, the same bits
+                check(torch.equal(kernel(*args), out),
+                      f"{name} launch {i}: two launches gave different bits")
             ref = plain(*args)
             used = bar(out, ref)
             check(used <= 1.0, f"{name} launch {i} on the path's activations: {used:.3g}x the bar")
@@ -3269,7 +3421,7 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             plain_ms = timed_ms(lambda: plain(*args), 1, 1)
             lib = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 1)
             form = (A.packed_fwd_form(cq // h, out.dtype) if name == "flash_mha_packed"
-                    else ("f32" if f32 else "mma_sync"))
+                    else ("f32_sm90" if f32 else "mma_sync"))
         rows[name].append({"launch": i, "b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
                            "form": form, "bar_used": used,
                            "max_abs_err": float((out.float() - ref.float()).abs().max()),
@@ -3450,8 +3602,9 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
     want = expected_launches(phi, 2, "int8" if int8 else "bf16", f32=True)
     check(counts == want, f"phi={phi} {tag}: launches {counts}, expected {want}")
     parity = _parity(model, predictor, images[:2], raw[:2], shapes[:2], pcfg, tag)
-    rows = (int8_path_calls(model, images[:2]) if int8
-            else bf16_path_calls(model, images[:2], f32=True))
+    rows = bf16_path_calls(model, images[:2], f32=True)  # the fp32 flash launches
+    if int8:
+        rows = {**int8_path_calls(model, images[:2]), "flash_single": rows["flash_single"]}
     results[tag] = {"launches": {2: counts}, "parity": parity, "rows": rows}
     del model, predictor, base
     torch.cuda.empty_cache()
@@ -3753,8 +3906,9 @@ def train_scale_kernel_phase() -> dict:
             sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 5, 1) - sdpa_fwd, 0.0)
             library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                        "flash_bwd_dkv": sdpa_bwd}
-            peak = PEAK_F32_FLOPS if is32 else PEAK_BF16_FLOPS
             for kname in TRAIN_KERNELS:
+                peak = ((F32_FWD_FLOPS if kname == "flash_fwd_lse" else PEAK_F32_FLOPS)
+                        if is32 else PEAK_BF16_FLOPS)
                 ops, nbytes = costs[kname]
                 nbytes *= q.element_size() / 2
                 t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
@@ -3916,6 +4070,7 @@ def main() -> int:
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
     sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
+    f32_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_f32_sm90.cu"
     bsrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
@@ -3991,10 +4146,13 @@ def main() -> int:
                                                   r["launches"][batch],
                                                   scale_err.get(name + suffix, 0.0), replaces)
                 continue
-            sm90 = name == "flash_mha_packed" and not suffix  # bf16 packed: the sm90 kernel
+            # bf16 packed: the sm90 kernel; fp32 flash: the f32_sm90 kernel
+            sm90 = name == "flash_mha_packed" and not suffix
+            f32 = suffix and name in ("flash_mha_packed", "flash_single")
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", sm90_src if sm90 else source, replaces, r["rows"][name],
-                r["launches"][batch][name + ("_sm90" if sm90 else "")],
+                f"{name} {label}", sm90_src if sm90 else f32_src if f32 else source, replaces,
+                r["rows"][name],
+                r["launches"][batch][name + ("_sm90" if sm90 else "_f32" if f32 else "")],
                 scale_err.get(name + suffix, 0.0)))
     # rows 9-11 at the other scales: phi='m' 640x640 bf16 (launches of the
     # counted batch-2 remat step, times of its four sites at batch 2) and
@@ -4010,8 +4168,10 @@ def main() -> int:
                     f"{name} sm90 {label}", sm90_source, f"{jv}:{line}", form_rows(rows, True),
                     run["launches"][name + "_sm90"], train_scale["err"][name + suffix + " sm90"]))
                 rows = form_rows(rows, False)
+            f32 = suffix and name == "flash_fwd_lse"  # every fp32 forward: f32_sm90
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", source, f"{jv}:{line}", rows, run["launches"][name],
+                f"{name} {label}", f32_src if f32 else source, f"{jv}:{line}", rows,
+                run["launches"][name + ("_f32" if f32 else "")],
                 train_scale["err"].get(name + suffix, 0.0)))
     check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),

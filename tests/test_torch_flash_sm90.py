@@ -4,9 +4,10 @@ The kernel cannot run here; what is held here is what surrounds it:
   * the dispatch rule (`attention.packed_fwd_form`, `attention_vjp.
     lse_fwd_form`): at every scale (phi 'n' to 'x') and at 640x640 and
     480x576, every packed serving and training site takes the sm90 kernel
-    in bf16 and the FFMA form in fp32; widths that are multiples of 8 but
-    not of 64 stay on the mma_sync template; single-head and folded sites
-    keep their routes and, in training, the template;
+    in bf16 and the fp32 Hopper kernel (csrc/flash_fwd_f32_sm90.cu) in
+    fp32; widths that are multiples of 8 but not of 64 stay on the mma_sync
+    template; single-head and folded sites keep their routes and, in bf16
+    training, the template;
   * the launch plan (`attention.sm90_plan`), computed in Python and handed
     to the launcher, at every routed site: it fits the card's 227 KB of
     dynamic shared memory, its slabs cover q/k exactly and its v slices (or
@@ -79,17 +80,18 @@ def _packed_sites(phi):
 
 @pytest.mark.parametrize("phi", PHIS)
 def test_dispatch_rule_routes_every_packed_site(phi):
-    """Every packed site takes the sm90 kernel in bf16 and the FFMA form in
-    fp32, serving and training; the single-head and folded sites keep their
-    routes and, in training, the mma_sync template."""
+    """Every packed site takes the sm90 kernel in bf16 and the fp32 Hopper
+    kernel (f32_sm90) in fp32, serving and training; the single-head and
+    folded sites keep their routes and, in bf16 training, the mma_sync
+    template."""
     packed = _packed_sites(phi)
     assert packed, f"phi={phi}: no packed site"
     for tag, _, dqk, dv, heads in packed:
         assert dqk % tattn.PACKED_HEAD_MULTIPLE == 0, tag
         assert tattn.packed_fwd_form(dqk, torch.bfloat16) == "sm90", tag
-        assert tattn.packed_fwd_form(dqk, torch.float32) == "f32", tag
+        assert tattn.packed_fwd_form(dqk, torch.float32) == "f32_sm90", tag
         assert tvjp.lse_fwd_form(dqk, dv, heads, torch.bfloat16) == "sm90", tag
-        assert tvjp.lse_fwd_form(dqk, dv, heads, torch.float32) == "f32", tag
+        assert tvjp.lse_fwd_form(dqk, dv, heads, torch.float32) == "f32_sm90", tag
     for hw in INPUTS:
         for name, (n, cq, cv, heads, packed_in) in sites(phi, hw).items():
             route = tattn.train_route(n, cq, heads, cv)

@@ -1,6 +1,7 @@
-// Flash-attention forward for Hopper (sm_90a): exp2-domain online softmax
-// with fp32 softmax state, in bf16 on the tensor cores or in fp32 on the CUDA
-// cores. One kernel template per type serves three ports:
+// Flash-attention forward for Hopper (sm_90a) in bf16: exp2-domain online
+// softmax with fp32 softmax state on the tensor cores (mma.sync). One kernel
+// template serves three ports, at the widths the Hopper kernel of
+// csrc/flash_fwd_sm90.cu does not take (ops/attention.py::packed_fwd_form):
 //
 //   * flash_mha_packed: replaces the TPU kernel
 //     transparent_object_detection_tpu/ops/attention.py::_mha_flash_kernel
@@ -16,19 +17,20 @@
 //     h1's 3 x 283 and phi='m' h1's 8 x 599, zero-padded by the wrapper).
 //   * flash_fwd_lse (training): replaces
 //     transparent_object_detection_tpu/ops/attention_vjp.py::_fwd_lse_kernel
-//     (flash_fwd_lse), both its packed multi-head and its single-head form,
-//     at every width and in both types: the same kernels with one more output, the per-(batch, head, query)
+//     (flash_fwd_lse), both its packed multi-head and its single-head form:
+//     the same kernel with one more output, the per-(batch, head, query)
 //     logsumexp in the natural-log domain, lse = (m + log2 l) * ln 2 from the
 //     exp2-domain state, which the backward (flash_attn_bwd.cu) recomputes
 //     P from. q/k/v are given by pointer and strides, so the packed form
 //     reads them as column views of the qkv projection output.
+// fp32 inputs go to csrc/flash_fwd_f32_sm90.cu (3xTF32 on the tensor cores).
 //
 // All compute, per query row i, out_i = sum_j p_ij v_j / sum_j p_ij with
 //   s_ij = (q_i . k_j) * scale * log2(e)   (fp32 accumulation)
 //   m    = running row max, starting at -1e30 (not -inf: no inf - inf NaN)
-//   p_ij = exp2(s_ij - m), cast to the input type before the P.V product
-//   l, acc in fp32, output acc * (1 / l) in the input type
-// which is the arithmetic of the Pallas kernels (on fp32 inputs p stays fp32).
+//   p_ij = exp2(s_ij - m), cast to bf16 before the P.V product
+//   l, acc in fp32, output acc * (1 / l) in bf16
+// which is the arithmetic of the Pallas kernels.
 //
 // Bound. At phi='s' 640x640, per image, the four launches of the serving
 // forward do 2*N^2*(Cq + Cv) operations: h2 (N=6400, C=1536) ~251.7 GFLOP,
@@ -37,9 +39,9 @@
 // GFLOP. Inputs and outputs are a few tens of MB, so they are bound by the
 // tensor cores, not by memory: at the H100 SXM data sheet's 989 TFLOP/s
 // bf16 the phi='s' four take at least ~0.34 ms per image (derived, not
-// measured). The fp32 form is bound by the 67 TFLOP/s of fp32 FMA.
+// measured).
 //
-// Design of the bf16 kernel. The N x N score matrix never leaves the SM: a
+// Design. The N x N score matrix never leaves the SM: a
 // block owns 64 query rows (16 per warp, 4 warps) and walks the keys in
 // tiles of 64 inside the block (blocks share nothing, so the sequential kv
 // grid axis of the TPU kernel becomes this loop). Both products run on the
@@ -56,12 +58,6 @@
 // blocks and q.k^T is recomputed per slice; the last slice is masked where
 // dv is not a multiple of 256. Ragged N is masked: keys past N score -inf,
 // query rows past N are computed on zeros and not stored.
-//
-// Design of the fp32 kernel (compute_dtype="float32" models): 32 query rows
-// a block, keys in tiles of 32, q/k in 32-column slabs, v in 128-column
-// slices, all in shared memory, each thread owning 8 scores and 32
-// accumulator columns of one row; plain FFMA, no tensor cores, so that the
-// products are fp32 as the Pallas kernel computes them on fp32 inputs.
 #include "flash_common.cuh"
 
 namespace {
@@ -303,108 +299,6 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 form: CUDA-core FFMA throughout
-// ---------------------------------------------------------------------------
-constexpr int FBM = 32;    // query rows per block
-constexpr int FBN = 32;    // keys per tile
-constexpr int FSL = 32;    // q/k columns per slab
-constexpr int FDVT = 128;  // v columns per block
-
-__global__ void __launch_bounds__(THREADS) flash_fwd_f32_kernel(const Params p) {
-  __shared__ float sQ[FBM][FSL + 1];
-  __shared__ float sK[FBN][FSL + 1];
-  __shared__ float sP[FBM][FBN + 1];
-  __shared__ float sV[FBN][FDVT];
-  const int tid = threadIdx.x;
-  const int r = tid >> 2, qd = tid & 3;  // row of the block; quarter of its keys / columns
-  const int m0 = blockIdx.x * FBM;
-  const int head = blockIdx.y / p.dv_splits;
-  const int split = blockIdx.y % p.dv_splits;
-  const int b = blockIdx.z;
-  const float* qg = static_cast<const float*>(p.q) + b * p.q_batch + p.q_col + head * p.dq_head;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_batch + p.k_col + head * p.dq_head;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_batch + p.v_col +
-                    head * p.dv_head + split * FDVT;
-  float* og = static_cast<float*>(p.o) + b * p.o_batch + head * p.dv_head + split * FDVT;
-  const int n = p.n, dq = p.dq;
-  const int v_cols = p.dv - split * FDVT;
-
-  float m_run = -1e30f, l_run = 0.f;
-  float acc[FDVT / 4];  // columns qd + 4 * c of the slice
-#pragma unroll
-  for (int c = 0; c < FDVT / 4; ++c) acc[c] = 0.f;
-
-  for (int n0 = 0; n0 < n; n0 += FBN) {
-    float s[FBN / 4];
-#pragma unroll
-    for (int jj = 0; jj < FBN / 4; ++jj) s[jj] = 0.f;
-    for (int c0 = 0; c0 < dq; c0 += FSL) {
-      __syncthreads();
-      for (int i = tid; i < FBM * FSL; i += THREADS) {
-        const int rr = i / FSL, cc = i % FSL;
-        const bool col_ok = c0 + cc < dq;
-        sQ[rr][cc] = (m0 + rr < n && col_ok) ? qg[(long long)(m0 + rr) * p.q_row + c0 + cc] : 0.f;
-        sK[rr][cc] = (n0 + rr < n && col_ok) ? kg[(long long)(n0 + rr) * p.k_row + c0 + cc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < FSL; ++cc) {
-        const float qv = sQ[r][cc];
-#pragma unroll
-        for (int jj = 0; jj < FBN / 4; ++jj) s[jj] = fmaf(qv, sK[qd * (FBN / 4) + jj][cc], s[jj]);
-      }
-    }
-    // online softmax in the exp2 domain; a row's 32 scores lie in one quad
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < FBN / 4; ++jj) {
-      float x = s[jj] * p.scale_log2;
-      if (n0 + qd * (FBN / 4) + jj >= n) x = -INFINITY;
-      s[jj] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffff, tmax, 1));
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffff, tmax, 2));
-    const float m_new = fmaxf(m_run, tmax);
-    const float corr = exp2f(m_run - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < FBN / 4; ++jj) {
-      const float pe = exp2f(s[jj] - m_new);
-      sP[r][qd * (FBN / 4) + jj] = pe;
-      psum += pe;
-    }
-    psum += __shfl_xor_sync(0xffffffff, psum, 1);
-    psum += __shfl_xor_sync(0xffffffff, psum, 2);
-    l_run = l_run * corr + psum;
-    m_run = m_new;
-    for (int i = tid; i < FBN * FDVT; i += THREADS) {
-      const int rr = i / FDVT, cc = i % FDVT;
-      sV[rr][cc] = (n0 + rr < n && cc < v_cols) ? vg[(long long)(n0 + rr) * p.v_row + cc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < FDVT / 4; ++c) acc[c] *= corr;
-    for (int jj = 0; jj < FBN; ++jj) {
-      const float pj = sP[r][jj];
-#pragma unroll
-      for (int c = 0; c < FDVT / 4; ++c) acc[c] = fmaf(pj, sV[jj][qd + 4 * c], acc[c]);
-    }
-  }
-  if (m0 + r >= n) return;
-  // training: lse = (m + log2 l) * ln 2, once per row, as the bf16 kernel
-  if (p.lse != nullptr && split == 0 && qd == 0)
-    p.lse[((long long)b * (gridDim.y / p.dv_splits) + head) * n + m0 + r] =
-        (m_run + log2f(l_run)) * LN2;
-  const float inv = 1.f / l_run;
-#pragma unroll
-  for (int c = 0; c < FDVT / 4; ++c) {
-    const int col = qd + 4 * c;
-    if (col < v_cols) og[(long long)(m0 + r) * p.o_row + col] = acc[c] * inv;
-  }
-}
-
 template <int SL, bool QRES>
 cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
   constexpr int stages = QRES ? 1 : 2;
@@ -420,14 +314,8 @@ cudaError_t launch(const Params& p, int batch, int heads, cudaStream_t stream) {
 
 // widths are multiples of 8 (16-byte rows); q/k widths up to 256 stay
 // resident in shared memory, wider ones stream in SLAB-column slabs
-cudaError_t run(Params& p, int batch, int heads, bool f32, cudaStream_t stream) {
+cudaError_t run(Params& p, int batch, int heads, cudaStream_t stream) {
   if (p.dq <= 0 || p.dv <= 0 || p.dq % 8 || p.dv % 8) return cudaErrorInvalidValue;
-  if (f32) {
-    p.dv_splits = (p.dv + FDVT - 1) / FDVT;
-    dim3 grid((p.n + FBM - 1) / FBM, heads * p.dv_splits, batch);
-    flash_fwd_f32_kernel<<<grid, THREADS, 0, stream>>>(p);
-    return cudaGetLastError();
-  }
   p.dv_splits = (p.dv + DVT - 1) / DVT;
   if (p.dq <= 64) return launch<64, true>(p, batch, heads, stream);
   if (p.dq <= 128) return launch<128, true>(p, batch, heads, stream);
@@ -440,10 +328,9 @@ cudaError_t run(Params& p, int batch, int heads, bool f32, cudaStream_t stream) 
 extern "C" {
 
 // Packed multi-head forward: qkv (B, N, 3C) -> out (B, N, C), C = heads * dh,
-// bf16 (f32 = 0) or fp32 (f32 = 1). dh % 8 == 0. Returns the cudaError_t of
-// the launch.
+// bf16. dh % 8 == 0. Returns the cudaError_t of the launch.
 int flash_mha_packed(const void* qkv, void* out, int batch, int n, int heads, int dh,
-                     float scale, int f32, void* stream) {
+                     float scale, void* stream) {
   const int c = heads * dh;
   Params p;
   p.q = p.k = p.v = qkv;
@@ -460,13 +347,13 @@ int flash_mha_packed(const void* qkv, void* out, int batch, int n, int heads, in
   p.dq = p.dv = dh;
   p.n = n;
   p.scale_log2 = scale * LOG2E;
-  return static_cast<int>(run(p, batch, heads, f32 != 0, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(p, batch, heads, static_cast<cudaStream_t>(stream)));
 }
 
-// Single-head forward: q, k (B, N, dq), v (B, N, dv) -> out (B, N, dv), bf16
-// or fp32. dq % 8 == 0, dv % 8 == 0.
+// Single-head forward: q, k (B, N, dq), v (B, N, dv) -> out (B, N, dv), bf16.
+// dq % 8 == 0, dv % 8 == 0.
 int flash_single(const void* q, const void* k, const void* v, void* out, int batch, int n,
-                 int dq, int dv, float scale, int f32, void* stream) {
+                 int dq, int dv, float scale, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -483,18 +370,18 @@ int flash_single(const void* q, const void* k, const void* v, void* out, int bat
   p.dv = dv;
   p.n = n;
   p.scale_log2 = scale * LOG2E;
-  return static_cast<int>(run(p, batch, 1, f32 != 0, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(p, batch, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // Forward with logsumexp (training): q, k (B, N, heads * dqk) and v (B, N,
 // heads * dv) given by pointer, batch stride and row stride (so q/k/v may be
 // column views of one packed qkv array; head h at column h * dqk or h * dv)
-// -> out (B, N, heads * dv) in the input type, lse (B, heads, N) fp32. bf16
-// (f32 = 0) or fp32 (f32 = 1); dqk % 8 == 0, dv % 8 == 0.
+// -> out (B, N, heads * dv) bf16, lse (B, heads, N) fp32; dqk % 8 == 0,
+// dv % 8 == 0.
 int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, float* lse,
                   int batch, int n, int heads, int dqk, int dv, long long q_batch, int q_row,
                   long long k_batch, int k_row, long long v_batch, int v_row, float scale,
-                  int f32, void* stream) {
+                  void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -516,7 +403,7 @@ int flash_fwd_lse(const void* q, const void* k, const void* v, void* out, float*
   p.dv = dv;
   p.n = n;
   p.scale_log2 = scale * LOG2E;
-  return static_cast<int>(run(p, batch, heads, f32 != 0, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(run(p, batch, heads, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@ the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 and
 JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads | --train-step]
+        [--forward | --wide-heads | --train-step | --f32]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -21,6 +21,16 @@ With --train-step it times only two training steps of `make_train_step`
 (SGD nesterov, EMA; seeded weights, synthetic batches like chip_smoke.py's):
 phi='s' 640x640 at batch 16 and phi='m' 640x640 with remat at batch 16,
 each on CUDA events, the median of 3 steps after 1 warm-up.
+With --f32 it times only the fp32 forms of rows 1, 2 and 9 (fp32 compute)
+beside SDPA's fp32 call on the same operands (and names the kernel that call
+spends most of its time in, by torch.profiler): rows 1 and 2 at the phi='m'
+640x640 serving sites (h2 and h4, 8 heads of 384; dark3, q/k 128 and v
+1,024; the folded h1, 16 heads of 600 at batch 2), row 9 at the phi='n'
+training sites (h2 and h4, 6 heads of 128; dark3, 32 and 256; the folded
+h1, 6 heads of 288), batch 2; then the fp32-compute phi='m' forward at batch
+2 and the fp32 phi='n' training step at batch 16 (CUDA events, median of 3
+after 1 warm-up). A checkout before csrc/flash_fwd_f32_sm90.cu times the
+same calls on the CUDA-core FFMA kernel of csrc/flash_attn_fwd.cu.
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
@@ -61,6 +71,17 @@ TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)
                ("phi=m h2", (2, 6400, 3072, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 3072, 8)))
 # the --train-step configurations: (label, ModelConfig keywords, batch)
 TRAIN_STEPS = (("phi=s", {}, 16), ("phi=m remat", {"phi": "m", "remat": True}, 16))
+# the --f32 sites: (name, entry point, (batch, tokens, q/k width, v width,
+# heads)); packed heads read q/k/v as column views of one packed qkv, the
+# folded ones run as single heads on the widths the fold copy pads to 8
+F32_SITES = (("row 1 phi=m h2", "flash_mha_packed", (2, 6400, 3072, 3072, 8)),
+             ("row 1 phi=m h4", "flash_mha_packed", (2, 1600, 3072, 3072, 8)),
+             ("row 2 phi=m dark3", "flash_single", (2, 6400, 128, 1024, 1)),
+             ("row 2 phi=m h1 folded", "flash_single", (16, 1600, 600, 600, 1)),
+             ("row 9 phi=n h2", "flash_fwd_lse", (2, 6400, 768, 768, 6)),
+             ("row 9 phi=n h4", "flash_fwd_lse", (2, 1600, 768, 768, 6)),
+             ("row 9 phi=n dark3", "flash_fwd_lse", (2, 6400, 32, 256, 1)),
+             ("row 9 phi=n h1 folded", "flash_fwd_lse", (6, 1600, 288, 288, 1)))
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -97,10 +118,10 @@ def time_training_kernels(randn) -> dict:
     return out
 
 
-def time_train_steps() -> dict:
+def time_train_steps(configs=TRAIN_STEPS) -> dict:
     """ms of one training step (forward, loss, backward, SGD, EMA) of each
-    TRAIN_STEPS configuration on CUDA events: 1 warm-up, then the median of
-    3 steps."""
+    configuration (default TRAIN_STEPS) on CUDA events: 1 warm-up, then the
+    median of 3 steps."""
     import numpy as np
 
     from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
@@ -113,7 +134,7 @@ def time_train_steps() -> dict:
     )
 
     out = {}
-    for label, kw, b in TRAIN_STEPS:
+    for label, kw, b in configs:
         cfg = ModelConfig(**kw)
         tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
         model = build_model(cfg, device="cuda", seed=0)
@@ -144,6 +165,66 @@ def time_train_steps() -> dict:
         out[f"train step {label} batch {b} all"] = times
         del model, opt, state, step, batch
         torch.cuda.empty_cache()
+    return out
+
+
+def time_f32(randn) -> dict:
+    """ms of the fp32 forms of rows 1, 2 and 9 at F32_SITES beside SDPA's
+    fp32 call on the same operands (heads first, contiguous) and the name of
+    the kernel that call spends most of its device time in (torch.profiler),
+    then of the fp32-compute phi='m' forward at batch 2 and the fp32 phi='n'
+    training step at batch 16."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+
+    out = {}
+    for name, entry, (b, n, cq, cv, h) in F32_SITES:
+        scale = (cq // h) ** -0.5 if h > 1 else 1.0
+        if h > 1:
+            qkv = randn(b, n, 3 * cq)
+            q, k, v = qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+        else:
+            q, k, v = randn(b, n, cq), randn(b, n, cq), randn(b, n, cv)
+        if entry == "flash_mha_packed":
+            run = lambda: A.flash_mha_packed(qkv, h, scale)
+        elif entry == "flash_single":
+            run = lambda: A.flash_single(q, k, v, scale)
+        else:
+            run = lambda: V.flash_fwd_lse(q, k, v, scale, h)
+        out[name] = timed_ms(run, 10, 2)
+        qh, kh, vh = (A._heads_first(t, h).contiguous() for t in (q, k, v))
+        out[f"{name} sdpa"] = timed_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10, 2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        out[f"{name} sdpa kernel"] = max(kernels, key=lambda e: e.self_device_time_total).key
+        del q, k, v, qh, kh, vh
+        torch.cuda.empty_cache()
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    model = build_model(ModelConfig(phi="m", compute_dtype="float32"), device="cuda", seed=0)
+    images = torch.rand(2, 640, 640, 3, device="cuda")
+    times = []
+    with torch.inference_mode():
+        for i in range(4):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(images)
+            end.record()
+            torch.cuda.synchronize()
+            if i:
+                times.append(start.elapsed_time(end))
+    out["forward fp32 phi=m batch 2"] = sorted(times)[1]
+    out["forward fp32 phi=m batch 2 all"] = times
+    del model
+    torch.cuda.empty_cache()
+    out.update(time_train_steps((("phi=n fp32", {"phi": "n", "compute_dtype": "float32"},
+                                  16),)))
     return out
 
 
@@ -260,6 +341,12 @@ def main() -> int:
         return 0
     if "--train-step" in sys.argv[1:]:
         print(json.dumps({**result, "ms": time_train_steps()}))
+        return 0
+    if "--f32" in sys.argv[1:]:
+        # fp32 as chip_smoke.py runs it: no TF32 in SDPA, matmuls or convolutions
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps({**result, "ms": time_f32(randn)}))
         return 0
     training = time_training_kernels(randn)
     out = {}

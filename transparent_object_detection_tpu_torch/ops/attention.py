@@ -37,13 +37,15 @@ route is kept on purpose, in serving and in training: where the TPU's VMEM
 fit fails (phi='l' h1, phi='x' h1 and h4) JAX falls to its bf16-scored
 `chunked` route; the port keeps its kernels, which score in fp32 (ROADMAP
 section 3).
-The kernels take bf16 or fp32 (the fp32 models: fp32 products on the CUDA
-cores, as the Pallas kernel computes on fp32 inputs). A packed call takes
-one of three kernels, by one rule (`packed_fwd_form`): bf16 heads whose
-widths are multiples of 64 (every packed site a route reaches) the Hopper
-kernel of csrc/flash_fwd_sm90.cu (wgmma fed by a TMA ring, launched with the
-plan of `sm90_plan`), other bf16 widths the mma.sync template of
-csrc/flash_attn_fwd.cu, fp32 that source's FFMA form.
+The kernels take bf16 or fp32 (the fp32 models: fp32-accurate products, as
+the Pallas kernel computes on fp32 inputs). A call takes one of three
+kernels, by one rule (`packed_fwd_form`): bf16 packed heads whose widths are
+multiples of 64 (every packed site a route reaches) the Hopper kernel of
+csrc/flash_fwd_sm90.cu (wgmma fed by a TMA ring, launched with the plan of
+`sm90_plan`), other bf16 widths and one head the mma.sync template of
+csrc/flash_attn_fwd.cu, fp32 at every width and head count the Hopper
+kernel of csrc/flash_fwd_f32_sm90.cu (3xTF32 wgmma fed by a TMA ring after a
+pre-pass, the plan of `f32_sm90_plan`).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
 and runs its plain version only for a CPU tensor. `impl="plain"` runs the
@@ -85,6 +87,29 @@ SM90_Q_RESIDENT_BYTES = 96 * 1024  # q heads up to 384 wide stay in shared memor
 SM90_SPLIT_V_SLICES = (192, 256)
 SM90_PLAN_KEYS = ("rows", "keys", "slab", "v_slice", "stages", "q_resident", "dv_splits",
                   "wg_split", "smem_bytes")
+# The fp32 Hopper kernel (csrc/flash_fwd_f32_sm90.cu) and its plans: 64-key
+# tiles, 16-column (64-byte) q/k slabs through a ring of 2-8 stages, each
+# operand as tf32 hi and lo, Q resident or streamed with K; either 128 query
+# rows a block with v in slices of 64-256 columns across blocks and two
+# 32-key (128-byte) V^T chunks a tile (sliced), or, for v wider than 256
+# and q/k wider than 128, 64 rows a block whose two consumer warpgroups
+# split 2 x 192 or 2 x 256 columns of v and share one S, V^T in 16-key
+# chunks through a ring of 2-4 stages (wg_split); shared memory within the
+# card's 227 KB.
+F32_SM90_KEYS, F32_SM90_SLAB = 64, 16
+F32_SM90_V_CHUNK, F32_SM90_SPLIT_V_CHUNK = 32, 16
+F32_SM90_V_SLICES = (64, 128, 192, 256)
+F32_SM90_SPLIT_V_SLICES = (192, 256)
+F32_SM90_MAX_V_STAGES = 4
+# the split form's hand-over of P's fragments, the row rescale and row sums
+F32_SM90_XCHG_BYTES = (64 // 8) * 2 * 128 * 16 + 2 * 128 * 8
+# the split form is offered where q/k is wider than this: measured faster
+# than the sliced form at heads of 288, 384 and 600, slower at dark3's q/k
+# of 64 and 128 (v 512, 1,024), whose S is cheap beside twice the K and V
+# reads of 64-row blocks (PERF.md)
+F32_SM90_SPLIT_MIN_QK = 129
+F32_SM90_PLAN_KEYS = ("rows", "keys", "slab", "v_slice", "stages", "q_resident", "dv_splits",
+                      "wg_split", "v_stages", "smem_bytes")
 
 
 # ---------------------------------------------------------------------------
@@ -168,9 +193,9 @@ def _lib():
     lib = _build.load("flash_attn_fwd")
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, ci, vp]
+        lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
         lib.flash_mha_packed.restype = ci
-        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, ci, vp]
+        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
         lib.flash_single.restype = ci
         lib._argtypes_set = True
     return lib
@@ -203,14 +228,15 @@ def single_kernel_supports(dq: int, dv: int) -> bool:
 
 def packed_fwd_form(dh: int, dtype: torch.dtype, dv: Optional[int] = None) -> str:
     """The kernel of a packed multi-head forward (serving, or training with
-    lse) on heads of q/k width `dh` and v width `dv` (default `dh`): "f32"
-    for fp32 (csrc/flash_attn_fwd.cu, CUDA-core FFMA); "sm90" for bf16 when
-    both widths are multiples of 64, which every packed site a route reaches
-    is (csrc/flash_fwd_sm90.cu); "mma_sync" for the other bf16 widths that
-    are multiples of 8 (csrc/flash_attn_fwd.cu)."""
+    lse) on heads of q/k width `dh` and v width `dv` (default `dh`):
+    "f32_sm90" for fp32 at every width (csrc/flash_fwd_f32_sm90.cu, which
+    the single-head forms take too); "sm90" for bf16 when both widths are
+    multiples of 64, which every packed site a route reaches is
+    (csrc/flash_fwd_sm90.cu); "mma_sync" for the other bf16 widths that are
+    multiples of 8 (csrc/flash_attn_fwd.cu)."""
     dv = dh if dv is None else dv
     if dtype == torch.float32:
-        return "f32"
+        return "f32_sm90"
     if dh % SM90_WIDTH_MULTIPLE == 0 and dv % SM90_WIDTH_MULTIPLE == 0:
         return "sm90"
     return "mma_sync"
@@ -284,6 +310,117 @@ def sm90_plan(dqk: int, dv: int) -> dict:
     return _sm90_layout(dqk, dv, sm90_split_fits(dqk, dv))
 
 
+def f32_sm90_smem_bytes(dqk: int, v_slice: int, stages: int, q_resident: bool,
+                        wg_split: bool = False, v_stages: int = 2) -> int:
+    """Dynamic shared memory of an f32_sm90 plan (as csrc/flash_fwd_f32_sm90.cu
+    computes it): 1024 bytes of alignment slack, 1024 of barriers, the split
+    form's hand-over, Q hi and lo (the block's rows of every 16-column slab)
+    when resident, the ring of q/k stages (K hi and lo of 64 keys, and Q hi
+    and lo when Q streams) and the V ring (sliced: two 32-key V^T chunks of
+    the slice; split: `v_stages` 16-key chunks of both warpgroups' halves;
+    hi and lo); 4 bytes an element."""
+    rows = 64 if wg_split else 128
+    slabs = -(-dqk // F32_SM90_SLAB)
+    row = 4 * F32_SM90_SLAB
+    q_slab = 2 * rows * row
+    stage = 2 * F32_SM90_KEYS * row + (0 if q_resident else q_slab)
+    v_stage = (2 if wg_split else 1) * 2 * v_slice * 4 * (
+        F32_SM90_SPLIT_V_CHUNK if wg_split else F32_SM90_V_CHUNK)
+    return (2048 + (F32_SM90_XCHG_BYTES if wg_split else 0)
+            + (slabs * q_slab if q_resident else 0) + stages * stage + v_stages * v_stage)
+
+
+def _f32_sm90_layout(dqk: int, dv: int, v_slice: int, q_resident: bool, wg_split: bool):
+    """The plan of one (form, v slice, Q residency) choice, or None if fewer
+    than two q/k stages fit; two V stages."""
+    stages = next((st for st in range(SM90_MAX_STAGES, 1, -1)
+                   if f32_sm90_smem_bytes(dqk, v_slice, st, q_resident, wg_split)
+                   <= SM90_SMEM_LIMIT), 0)
+    if not stages:
+        return None
+    return {"rows": 64 if wg_split else 128, "keys": F32_SM90_KEYS, "slab": F32_SM90_SLAB,
+            "v_slice": v_slice, "stages": stages, "q_resident": int(q_resident),
+            "dv_splits": -(-dv // ((2 if wg_split else 1) * v_slice)),
+            "wg_split": int(wg_split), "v_stages": 2,
+            "smem_bytes": f32_sm90_smem_bytes(dqk, v_slice, stages, q_resident, wg_split)}
+
+
+def f32_sm90_plan(dqk: int, dv: int) -> dict:
+    """Launch plan of csrc/flash_fwd_f32_sm90.cu for q/k width `dqk` and v
+    width `dv` (multiples of 8): of the forms (sliced; for v wider than 256
+    and q/k of F32_SM90_SPLIT_MIN_QK or more also wg_split), the v slices
+    and the two ways of holding Q (resident, or
+    streamed with K from L2 every key tile) whose shared memory fits two q/k
+    stages or more, the one whose work for 128 rows costs least, splits *
+    (q/k slab columns, twice when Q streams + the columns a block covers):
+    every block recomputes S for its rows, a streamed Q is read again each
+    tile, and wg_split blocks cover twice the slice with one S; ties to
+    fewer slices, then to Q resident, then to the sliced form. The most q/k
+    stages (up to 8) that fit."""
+    if dqk <= 0 or dv <= 0 or dqk % KERNEL_WIDTH_MULTIPLE or dv % KERNEL_WIDTH_MULTIPLE:
+        raise ValueError(f"the f32_sm90 kernel takes widths that are multiples of "
+                         f"{KERNEL_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    cols = -(-dqk // F32_SM90_SLAB) * F32_SM90_SLAB
+    forms = [(False, v) for v in F32_SM90_V_SLICES]
+    if dv > F32_SM90_V_SLICES[-1] and dqk >= F32_SM90_SPLIT_MIN_QK:
+        forms += [(True, v) for v in F32_SM90_SPLIT_V_SLICES]
+    best = None
+    for wg_split, v_slice in forms:
+        for q_resident in (True, False):
+            plan = _f32_sm90_layout(dqk, dv, v_slice, q_resident, wg_split)
+            if plan is None:
+                continue
+            cover = (2 if wg_split else 1) * v_slice
+            cost = (plan["dv_splits"] * (cols * (1 if q_resident else 2) + cover),
+                    plan["dv_splits"], not q_resident, wg_split)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    return best[1]
+
+
+def _f32_sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_fwd_f32_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_fwd_f32_sm90.argtypes = [vp] * 11 + [ci] * 6 + [cl] * 6 + [cf, vp, vp]
+        lib.flash_fwd_f32_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def launch_f32_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                    scale: float, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One call of csrc/flash_fwd_f32_sm90.cu (its pre-pass, then the
+    attention kernel) on checked fp32 CUDA operands: q, k (B, N, H*dqk) and
+    v (B, N, H*dv), each a view whose last axis is contiguous and whose row
+    and batch strides are multiples of 8, widths multiples of 8, with
+    `f32_sm90_plan`'s plan; writes lse (B, H, N[, 1]) fp32 when given.
+    Allocates the pre-pass's scratch (q and k hi and lo, V^T hi and lo with
+    the keys padded to 64). Returns out (B, N, H*dv). Raises if the launch
+    fails; never falls back."""
+    b, n, cq = q.shape
+    cv = v.shape[-1]
+    dqk, dv = cq // num_heads, cv // num_heads
+    plan = f32_sm90_plan(dqk, dv)
+    plan_arr = (ctypes.c_int * len(F32_SM90_PLAN_KEYS))(*(plan[key] for key in F32_SM90_PLAN_KEYS))
+    n_pad = -(-n // F32_SM90_KEYS) * F32_SM90_KEYS
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)
+    scratch = (empty(b, n, cq), empty(b, n, cq), empty(b, n, cq), empty(b, n, cq),
+               empty(b, num_heads, dv, n_pad), empty(b, num_heads, dv, n_pad))
+    out = empty(b, n, cv)
+    err = _f32_sm90_lib().flash_fwd_f32_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), *(t.data_ptr() for t in scratch),
+        b, n, num_heads, dqk, dv, n_pad, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), scale, ctypes.cast(plan_arr, ctypes.c_void_p),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_fwd_f32_sm90")
+    return out
+
+
 def _sm90_lib():
     from transparent_object_detection_tpu_torch.kernels import _build
 
@@ -344,7 +481,8 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     Port of ops/attention.py::_mha_flash_kernel via flash_attention_mha_packed
     (JAX). A CUDA tensor launches the kernel of `packed_fwd_form`; a CPU
     tensor runs `flash_mha_packed_plain`. `launches` counts launches of
-    csrc/flash_attn_fwd.cu, `sm90_launches` those of csrc/flash_fwd_sm90.cu."""
+    csrc/flash_attn_fwd.cu, `sm90_launches` those of csrc/flash_fwd_sm90.cu,
+    `f32_launches` those of csrc/flash_fwd_f32_sm90.cu."""
     if qkv.device.type == "cpu":
         return flash_mha_packed_plain(qkv, num_heads, scale)
     b, n, c3 = qkv.shape
@@ -352,14 +490,20 @@ def flash_mha_packed(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     _check_cuda_operand("qkv", qkv, qkv.dtype)
     if c3 % 3 or not packed_kernel_supports(c, num_heads):
         raise ValueError(f"packed flash kernel does not take C={c} with {num_heads} heads")
-    if packed_fwd_form(c // num_heads, qkv.dtype) == "sm90":
-        out = launch_sm90(qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:], num_heads, scale)
+    form = packed_fwd_form(c // num_heads, qkv.dtype)
+    views = (qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:])
+    if form == "sm90":
+        out = launch_sm90(*views, num_heads, scale)
         flash_mha_packed.sm90_launches += 1
+        return out
+    if form == "f32_sm90":
+        out = launch_f32_sm90(*views, num_heads, scale)
+        flash_mha_packed.f32_launches += 1
         return out
     out = torch.empty((b, n, c), dtype=qkv.dtype, device=qkv.device)
     err = _lib().flash_mha_packed(
         qkv.data_ptr(), out.data_ptr(), b, n, num_heads, c // num_heads, scale,
-        int(qkv.dtype == torch.float32), torch.cuda.current_stream(qkv.device).cuda_stream,
+        torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _raise_on(err, "flash_mha_packed")
     flash_mha_packed.launches += 1
@@ -372,9 +516,11 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k (B, N, dq), v (B, N, dv) -> (B, N, dv), bf16 or fp32.
 
     Port of ops/attention.py::_flash_kernel (flash_attention_pallas, JAX).
-    A CUDA tensor launches csrc/flash_attn_fwd.cu on contiguous copies
-    (widths not a multiple of 8 zero-padded; views such as folded heads are
-    copied once here); a CPU tensor runs `flash_single_plain`."""
+    A CUDA tensor launches, on contiguous copies (widths not a multiple of 8
+    zero-padded; views such as folded heads are copied once here),
+    csrc/flash_attn_fwd.cu in bf16 (counted in `launches`) or
+    csrc/flash_fwd_f32_sm90.cu in fp32 (`f32_launches`); a CPU tensor runs
+    `flash_single_plain`."""
     if q.device.type == "cpu":
         return flash_single_plain(q, k, v, scale)
     b, n, dq = q.shape
@@ -389,10 +535,14 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(name, t, q.dtype)
     dqp, dvp = q.shape[-1], v.shape[-1]
+    if q.dtype == torch.float32:
+        out = launch_f32_sm90(q, k, v, 1, scale)
+        flash_single.f32_launches += 1
+        return out if dvp == dv else out[..., :dv]
     out = torch.empty((b, n, dvp), dtype=v.dtype, device=v.device)
     err = _lib().flash_single(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, dqp, dvp, scale,
-        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _raise_on(err, "flash_single")
     flash_single.launches += 1
@@ -401,13 +551,17 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_mha_packed.launches = 0
 flash_mha_packed.sm90_launches = 0
+flash_mha_packed.f32_launches = 0
 flash_single.launches = 0
+flash_single.f32_launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_mha_packed.launches = 0
     flash_mha_packed.sm90_launches = 0
+    flash_mha_packed.f32_launches = 0
     flash_single.launches = 0
+    flash_single.f32_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,10 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
 
   flash_fwd_lse  replaces _fwd_lse_kernel (csrc/flash_fwd_sm90.cu for bf16
                  packed heads whose widths are multiples of 64, the rule
-                 of attention.packed_fwd_form; csrc/flash_attn_fwd.cu for
-                 one head, fp32 and other widths)
+                 of attention.packed_fwd_form; csrc/flash_fwd_f32_sm90.cu
+                 for fp32 at every width, packed heads or one;
+                 csrc/flash_attn_fwd.cu for one head and other widths in
+                 bf16)
   flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_bwd_sm90.cu for bf16
                  packed heads of equal widths that are multiples of 64 up to
                  384, the rule of `bwd_form`; csrc/flash_attn_bwd.cu for one
@@ -27,8 +29,9 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
 kernels take the Pallas kernels' whole domain (`kernel_supports`): any q/k
 and v head widths that are multiples of 8 (the folded odd heads are
-zero-padded by ops/attention.py), any N, bf16 (tensor cores) or fp32 (CUDA
-cores, nothing cast, as the Pallas kernels compute on fp32 inputs).
+zero-padded by ops/attention.py), any N, bf16 or fp32 (nothing cast, as the
+Pallas kernels compute on fp32 inputs: the forward as 3xTF32 on the tensor
+cores, the backward on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -140,7 +143,7 @@ def _fwd_lib():
     if not getattr(lib, "_lse_argtypes_set", False):
         vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.flash_fwd_lse.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                      cl, ci, cl, ci, cl, ci, cf, ci, vp]
+                                      cl, ci, cl, ci, cl, ci, cf, vp]
         lib.flash_fwd_lse.restype = ci
         lib._lse_argtypes_set = True
     return lib
@@ -287,10 +290,10 @@ def _widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
 
 
 def lse_fwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
-    """The kernel of a forward with logsumexp: packed heads (num_heads > 1)
-    follow `attention.packed_fwd_form` ("sm90" for bf16 widths that are
-    multiples of 64); one head (dark3, folded heads) stays on
-    csrc/flash_attn_fwd.cu ("mma_sync" in bf16, "f32")."""
+    """The kernel of a forward with logsumexp: `attention.packed_fwd_form`
+    ("f32_sm90" for fp32, packed heads or one; "sm90" for bf16 packed heads
+    whose widths are multiples of 64), except that one head in bf16 (dark3,
+    folded heads) stays on csrc/flash_attn_fwd.cu ("mma_sync")."""
     form = A.packed_fwd_form(dqk, dtype, dv)
     return "mma_sync" if form == "sm90" and num_heads == 1 else form
 
@@ -302,23 +305,28 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     (flash_fwd_lse, JAX). A CUDA tensor launches the kernel of
     `lse_fwd_form`; a CPU tensor runs `flash_fwd_lse_plain`. `launches`
     counts launches of csrc/flash_attn_fwd.cu, `sm90_launches` those of
-    csrc/flash_fwd_sm90.cu."""
+    csrc/flash_fwd_sm90.cu, `f32_launches` those of
+    csrc/flash_fwd_f32_sm90.cu."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale, num_heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_view(name, t, q.dtype)
     b, n, dqk, dv = _widths(q, k, v, num_heads)
     lse = torch.empty(_stat_shape(b, n, num_heads), dtype=torch.float32, device=q.device)
-    if lse_fwd_form(dqk, dv, num_heads, q.dtype) == "sm90":
+    form = lse_fwd_form(dqk, dv, num_heads, q.dtype)
+    if form == "sm90":
         out = A.launch_sm90(q, k, v, num_heads, scale, lse)
         flash_fwd_lse.sm90_launches += 1
+        return out, lse
+    if form == "f32_sm90":
+        out = A.launch_f32_sm90(q, k, v, num_heads, scale, lse)
+        flash_fwd_lse.f32_launches += 1
         return out, lse
     out = torch.empty((b, n, v.shape[-1]), dtype=v.dtype, device=v.device)
     err = _fwd_lib().flash_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         b, n, num_heads, dqk, dv, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), scale, int(q.dtype == torch.float32),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        v.stride(0), v.stride(1), scale, torch.cuda.current_stream(q.device).cuda_stream,
     )
     A._raise_on(err, "flash_fwd_lse")
     flash_fwd_lse.launches += 1
@@ -427,6 +435,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
 
 flash_fwd_lse.launches = 0
 flash_fwd_lse.sm90_launches = 0
+flash_fwd_lse.f32_launches = 0
 flash_bwd_dq.launches = 0
 flash_bwd_dq.sm90_launches = 0
 flash_bwd_dkv.launches = 0
@@ -436,6 +445,7 @@ flash_bwd_dkv.sm90_launches = 0
 def reset_launch_counts() -> None:
     flash_fwd_lse.launches = 0
     flash_fwd_lse.sm90_launches = 0
+    flash_fwd_lse.f32_launches = 0
     flash_bwd_dq.launches = 0
     flash_bwd_dq.sm90_launches = 0
     flash_bwd_dkv.launches = 0
