@@ -143,7 +143,11 @@
    forward and backward (packed bf16 heads of 128 to 384 on
    csrc/flash_bwd_sm90.cu; every fp32 forward on csrc/flash_fwd_f32_sm90.cu,
    with its faults as in 10 and lse written from the running max of the
-   tile before the last);
+   tile before the last; every fp32 backward on csrc/flash_bwd_f32_sm90.cu,
+   its f32 counters asserted at every site, with the sm90 backward's ring
+   and hand-over faults and its own: the low parts dropped from dS.K, dS^T.Q
+   or P^T.dO, each transposed copy's token order undone, lse or D read one
+   row off);
    the phi='s' faults (with the sm90 kernels' own where they run) and those
    of the width loop (a q/k slab left out of S, a v/dO slab left out of dP,
    the last dv pass unwritten, the tail key tile left out) each rejected on
@@ -159,7 +163,7 @@
    memory and step time with and without remat at that batch, a profile.
 16. phi='n' training, bf16 and fp32 compute: a counted batch-2 step each
    against plain within the same limits (the planted faults' readings
-   printed), every launch against its plain version (the fp32 forward's
+   printed), every launch against its plain version (the fp32 kernels'
    twice for the same bits).
    The sm90 kernel's sites everywhere above run twice for the same bits and
    hold its ring's faults.
@@ -170,8 +174,9 @@
    sm90 kernels; then the phi='m' and fp32 forms, rows 3-5 split by
    kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
    9-11 at phi='m' (split likewise) and in fp32 last; the fp32 forms of
-   rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu, their bound three
-   tf32 products at 495 TFLOP/s), then {"ok": true,
+   rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
+   under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
+   TFLOP/s), then {"ok": true,
    "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
@@ -2393,8 +2398,11 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
     if h > 1:  # dark3's scale is 1
         sound = both(q, k, v, do, lse, dcap)
         faults["scale_missing_from_dS"] = {"dq": sound["dq"] / scale, "dk": sound["dk"] / scale}
-    if V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype) == "sm90":
+    form = V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype)
+    if form in ("sm90", "f32_sm90"):  # the same ring and hand-over
         faults.update(_sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
+    if form == "f32_sm90":
+        faults.update(_f32_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
     return faults
 
 
@@ -2408,6 +2416,59 @@ def _sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
             tw(q), k, v, tw(do), tw(lse), tw(dcap), scale, h))),
         "dS_from_previous_P": {"dk": _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h)},
     }
+
+
+def _bwd_f32_variant(V, q, k, v, do, lse, dcap, scale, h, lo_dropped=(), order_undone=(),
+                     stat_off=None):
+    """The plain backward's arithmetic (fp32) with a planted fault of
+    csrc/flash_bwd_f32_sm90.cu -> {"dq", "dk", "dv"}: the gradient products
+    named in `lo_dropped` taken as one tf32 product (both factors
+    truncated); those in `order_undone` read from a transposed copy left in
+    the natural token order (K for dq, Q for dk, dO for dv, as the kernel
+    would meet them against P's fragments); `stat_off` "lse" or "D" read one
+    row (token) off."""
+    import torch
+
+    qh, kh, vh, doh = (V._split_heads(t, h).float() for t in (q, k, v, do))
+    lse4, d4 = V._stats4(lse, h).float(), V._stats4(dcap, h).float()
+    if stat_off == "lse":
+        lse4 = torch.roll(lse4, -1, dims=-2)
+    if stat_off == "D":
+        d4 = torch.roll(d4, -1, dims=-2)
+    y = {"dq": kh, "dk": qh, "dv": doh}
+    y = {g: _v_key_order_undone_of(t) if g in order_undone else t for g, t in y.items()}
+    mm = lambda g, a, b: (torch.matmul(_tf32(a), _tf32(b)) if g in lo_dropped
+                          else torch.matmul(a, b))
+    s_scale = scale * V.A.LOG2E
+    dq = torch.empty_like(qh)
+    dk, dv = torch.zeros_like(kh), torch.zeros_like(vh)
+    for i in range(0, qh.shape[-2], 1024):
+        rows = slice(i, i + 1024)
+        s = torch.matmul(qh[..., rows, :], kh.transpose(-1, -2))
+        p = torch.exp2(s * s_scale - lse4[..., rows, :] * V.A.LOG2E)
+        ds = p * (torch.matmul(doh[..., rows, :], vh.transpose(-1, -2)) - d4[..., rows, :]) * scale
+        dq[..., rows, :] = mm("dq", ds, y["dq"])
+        dk += mm("dk", ds.transpose(-1, -2), y["dk"][..., rows, :])
+        dv += mm("dv", p.transpose(-1, -2), y["dv"][..., rows, :])
+    return {g: V.A._heads_last(t) for g, t in (("dq", dq), ("dk", dk), ("dv", dv))}
+
+
+def _f32_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
+    """The fp32 Hopper backward's own faults (see `_bwd_faults`): the low
+    parts dropped from each gradient product, each transposed copy's token
+    order undone, lse or D read one row off. (P left unmasked in the tail
+    tile at a ragged N is no fault there: the zero-filled K, V, Q and dO
+    past N give it nothing to weigh.)"""
+    f = lambda **kw: _bwd_f32_variant(V, q, k, v, do, lse, dcap, scale, h, **kw)
+    faults = {}
+    for g, op in (("dq", "dS.K"), ("dk", "dS^T.Q"), ("dv", "P^T.dO")):
+        faults[f"lo_terms_dropped_from_{op}"] = {g: f(lo_dropped=(g,))[g]}
+    for g, copy in (("dq", "K^T"), ("dk", "Q^T"), ("dv", "dO^T")):
+        faults[f"{copy}_token_order_undone"] = {g: f(order_undone=(g,))[g]}
+    faults["lse_read_one_row_off"] = f(stat_off="lse")
+    d_off = f(stat_off="D")
+    faults["D_read_one_row_off"] = {"dq": d_off["dq"], "dk": d_off["dk"]}
+    return faults
 
 
 def _train_costs(b, n, cq, cv, h):
@@ -2683,8 +2744,15 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
                 r["bar_used"] = max(r["bar_used"], r["lse_max_abs_err"]
                                     / (F32_LSE_ATOL if f32 else LSE_ATOL))
             elif name == "flash_bwd_dq":
+                if f32:  # the f32_sm90 kernels: a second launch, the same bits
+                    check(torch.equal(real[name](*args, **kw), out),
+                          f"{name} launch {i}: two launches gave different bits")
                 r = grad_reading(out, V.flash_bwd_dq_plain(*args, **kw), f32)
             else:
+                if f32:
+                    again = real[name](*args, **kw)
+                    check(torch.equal(again[0], out[0]) and torch.equal(again[1], out[1]),
+                          f"{name} launch {i}: two launches gave different bits")
                 pk, pv = V.flash_bwd_dkv_plain(*args, **kw)
                 r = {"dk": grad_reading(out[0], pk, f32), "dv": grad_reading(out[1], pv, f32)}
                 r["bar_used"] = max(r["dk"]["bar_used"], r["dv"]["bar_used"])
@@ -2706,8 +2774,10 @@ def train_launch_counts():
                     "flash_fwd_lse_f32": V.flash_fwd_lse.f32_launches,
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
                     "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
+                    "flash_bwd_dq_f32": V.flash_bwd_dq.f32_launches,
                     "flash_bwd_dkv": V.flash_bwd_dkv.launches,
                     "flash_bwd_dkv_sm90": V.flash_bwd_dkv.sm90_launches,
+                    "flash_bwd_dkv_f32": V.flash_bwd_dkv.f32_launches,
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
@@ -2725,7 +2795,8 @@ def train_expected(cfg) -> dict:
     dk/dv launch a site that leaves the naive route, the forward of packed
     bf16 heads on the sm90 kernel and every fp32 forward on the f32_sm90
     kernel (`lse_fwd_form`), the backward of packed bf16 heads on the
-    sm90 kernels where `bwd_form` sends it (heads of 128 to 384); with
+    sm90 kernels where `bwd_form` sends it (heads of 128 to 384) and every
+    fp32 backward on the f32_sm90 kernels; with
     remat, every neck site's forward runs again in the backward's
     recompute; no serving kernel."""
     import torch
@@ -2734,8 +2805,8 @@ def train_expected(cfg) -> dict:
     from transparent_object_detection_tpu_torch.ops import attention_vjp as V
 
     counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_f32": 0,
-              "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": 0,
-              "flash_bwd_dkv_sm90": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
+              "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_f32": 0,
+              "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0, "flash_bwd_dkv_f32": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
               "flash_mha_packed_f32": 0, "flash_single": 0, "flash_single_f32": 0,
               "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
@@ -2747,8 +2818,8 @@ def train_expected(cfg) -> dict:
                               dtype)
         counts["flash_fwd_lse" + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")] += (
             2 if cfg.remat and name != "dark3" else 1)
-        bwd = "_sm90" if route == "packed" and V.bwd_form(cq // heads, cv // heads, heads,
-                                                          dtype) == "sm90" else ""
+        bwd = {"sm90": "_sm90", "f32_sm90": "_f32"}.get(
+            V.bwd_form(cq // heads, cv // heads, heads if route == "packed" else 1, dtype), "")
         counts["flash_bwd_dq" + bwd] += 1
         counts["flash_bwd_dkv" + bwd] += 1
     return counts
@@ -2962,9 +3033,10 @@ def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
 
 PEAK_F32_FLOPS = 67e12  # H100 SXM data sheet, fp32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM data sheet, dense tf32 on the tensor cores
-# the fp32 forward (csrc/flash_fwd_f32_sm90.cu) takes each fp32 product as
-# three tf32 products: its bound is the operations at a third of that rate
-F32_FWD_FLOPS = PEAK_TF32_FLOPS / 3
+# the fp32 flash kernels (csrc/flash_fwd_f32_sm90.cu, csrc/flash_bwd_f32_sm90.cu)
+# take each fp32 product as three tf32 products: their bound is the
+# operations at a third of that rate
+F32_FLASH_FLOPS = PEAK_TF32_FLOPS / 3
 # fp32 kernel bar, per element: kernel and plain version compute in fp32 and
 # differ in summation order (and exp2) only
 F32_RTOL, F32_ATOL_OF_MAX = 1e-4, 1e-4
@@ -3395,7 +3467,7 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             setattr(A, name, kernel)
     rows = {name: [] for name in real}
     bar = _f32_bar_used if f32 else bar_used
-    peak = F32_FWD_FLOPS if f32 else PEAK_BF16_FLOPS
+    peak = F32_FLASH_FLOPS if f32 else PEAK_BF16_FLOPS
     for i, (name, args, out) in enumerate(calls):
         kernel, plain = real[name]
         with torch.inference_mode():
@@ -3846,8 +3918,12 @@ def train_scale_kernel_phase() -> dict:
 
                 dcap = V.compute_dcap(pout, do, h)
                 args = (q, k, v, do, plse, dcap, scale, h)
+                V.reset_launch_counts()
                 got = {"dq": V.flash_bwd_dq(*args)}
                 got["dk"], got["dv"] = V.flash_bwd_dkv(*args)
+                if is32:  # every fp32 backward on csrc/flash_bwd_f32_sm90.cu
+                    check(V.flash_bwd_dq.f32_launches == 1 and V.flash_bwd_dkv.f32_launches == 1,
+                          f"{tag}: the fp32 backward did not run the f32_sm90 kernels")
                 again = {"dq": V.flash_bwd_dq(*args)}
                 again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
                 torch.cuda.synchronize()
@@ -3907,13 +3983,14 @@ def train_scale_kernel_phase() -> dict:
             library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                        "flash_bwd_dkv": sdpa_bwd}
             for kname in TRAIN_KERNELS:
-                peak = ((F32_FWD_FLOPS if kname == "flash_fwd_lse" else PEAK_F32_FLOPS)
-                        if is32 else PEAK_BF16_FLOPS)
+                peak = F32_FLASH_FLOPS if is32 else PEAK_BF16_FLOPS
                 ops, nbytes = costs[kname]
                 nbytes *= q.element_size() / 2
                 t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
                 extra = {"form": (V.lse_fwd_form if kname == "flash_fwd_lse" else V.bwd_form)(
                     cq_all // h, cv_all // h, h, q.dtype)}
+                if is32:  # the FFMA kernel's bound (fp32 on the CUDA cores), beside
+                    extra["bound_fp32_fma_ms"] = ops / PEAK_F32_FLOPS * 1e3
                 row = dict(node=name, route=route, b=b, n=n, cq=cq_all, cv=cv_all, heads=h,
                            **extra, readings=readings[kname],
                            max_abs_err=max(x["max_abs_err"] for x in readings[kname]),
@@ -4072,6 +4149,7 @@ def main() -> int:
     sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
     f32_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_f32_sm90.cu"
     bsrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_sm90.cu"
+    bf32_src = "transparent_object_detection_tpu_torch/csrc/flash_bwd_f32_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
@@ -4168,11 +4246,14 @@ def main() -> int:
                     f"{name} sm90 {label}", sm90_source, f"{jv}:{line}", form_rows(rows, True),
                     run["launches"][name + "_sm90"], train_scale["err"][name + suffix + " sm90"]))
                 rows = form_rows(rows, False)
-            f32 = suffix and name == "flash_fwd_lse"  # every fp32 forward: f32_sm90
+            # every fp32 call: the f32_sm90 kernels
+            f32_source = f32_src if name == "flash_fwd_lse" else bf32_src
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", f32_src if f32 else source, f"{jv}:{line}", rows,
-                run["launches"][name + ("_f32" if f32 else "")],
+                f"{name} {label}", f32_source if suffix else source, f"{jv}:{line}", rows,
+                run["launches"][name + ("_f32" if suffix else "")],
                 train_scale["err"].get(name + suffix, 0.0)))
+    check(all(n32_train["launches"][k + "_f32"] > 0 for k in TRAIN_KERNELS),
+          f"phi='n' fp32 training missed an f32_sm90 kernel: {n32_train['launches']}")
     check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),
           flush=True)

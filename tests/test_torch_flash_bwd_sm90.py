@@ -5,8 +5,9 @@ The kernels cannot run here; what is held here is what surrounds them:
   * the rule (`attention_vjp.bwd_form`): at every scale (phi 'n' to 'x')
     and at 640x640 and 480x576, every packed bf16 training site of phi 'n',
     's' and 'm' (heads of 128, 256 and 384) takes the sm90 kernels, the
-    wider packed heads of phi 'l' and 'x', the single-head and folded sites
-    and fp32 keep csrc/flash_attn_bwd.cu; widths off the grid follow the
+    wider packed heads of phi 'l' and 'x' and the single-head and folded
+    sites keep csrc/flash_attn_bwd.cu, fp32 takes csrc/flash_bwd_f32_sm90.cu
+    (tests/test_torch_flash_bwd_f32_sm90.py); widths off the grid follow the
     rule (equal multiples of 64 up to 384, two heads or more);
   * the launch plans (`attention_vjp.bwd_sm90_plan`), computed in Python
     and handed to the launcher, at every sm90 site: they fit the card's 227
@@ -80,8 +81,9 @@ def _sm90_sites():
 @pytest.mark.parametrize("phi", PHIS)
 def test_bwd_form_at_every_training_site(phi):
     """Packed bf16 heads of phi 'n', 's' and 'm' (128, 256, 384) take the
-    sm90 kernels; phi 'l' and 'x' packed heads (768 and wider), dark3, the
-    folded heads and every fp32 call keep the template."""
+    sm90 kernels; phi 'l' and 'x' packed heads (768 and wider), dark3 and
+    the folded heads keep the template; every fp32 call takes the fp32
+    Hopper backward."""
     widths = {"n": 128, "s": 256, "m": 384}
     for hw in INPUTS:
         calls = _training_calls(phi, hw)
@@ -92,7 +94,7 @@ def test_bwd_form_at_every_training_site(phi):
                 assert (dq, dv, form) == (widths[phi], widths[phi], "sm90"), (hw, name)
             else:
                 assert form == "mma_sync", (hw, name, route, dq, dv)
-            assert tvjp.bwd_form(dq, dv, heads, torch.float32) == "f32", (hw, name)
+            assert tvjp.bwd_form(dq, dv, heads, torch.float32) == "f32_sm90", (hw, name)
             assert tvjp.kernel_supports(n, dq, dv, heads, torch.bfloat16), (hw, name)
 
 

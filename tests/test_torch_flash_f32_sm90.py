@@ -191,15 +191,17 @@ def test_launch_plan_choices():
 
 
 def _kernel_orders():
-    """The kernel's choices, read from its source: the accumulator register
+    """The kernel's choices, read from its sources: the accumulator register
     (4i + e) each A-fragment register of k8 step i takes, and the key each
-    position of a group of 8 holds in V^T."""
+    position of a group of 8 holds in V^T (the pre-pass, tf32_split.cuh)."""
     src = KERNEL_SRC.read_text()
     regs = dict(re.findall(r"fh\[i\]\[(\d)\] = __float_as_uint\(s\[4 \* i(?: \+ (\d))?\]\);",
                            src))
     order = tuple(int(regs[str(r)] or 0) for r in range(4))
     assert sorted(order) == [0, 1, 2, 3]
-    assert re.search(r"\(p < 4 \? 2 \* p : 2 \* p - 7\)", src)
+    # the pre-pass the kernel shares with the fp32 backward
+    assert re.search(r"\(p < 4 \? 2 \* p : 2 \* p - 7\)",
+                     (KERNEL_SRC.parent / "tf32_split.cuh").read_text())
     perm = tuple(2 * p if p < 4 else 2 * p - 7 for p in range(8))
     return order, perm
 

@@ -1,12 +1,13 @@
-// Flash-attention backward with mma.sync (the template): fp32 accumulation,
-// P and dS recomputed from q, k and the forward's logsumexp. Replaces the
-// two TPU kernels of transparent_object_detection_tpu/ops/attention_vjp.py
-// (flash_bwd) over the part of their domain that csrc/flash_bwd_sm90.cu
-// does not take (ops/attention_vjp.py::bwd_form): one head (dark3 at every
-// scale, the folded heads of phi 'n' and 'm'), fp32, packed bf16 heads of
-// 448 and wider (phi 'l' and 'x': 768 to 3,584) and widths that are not
-// multiples of 64 (no route reaches those); any q/k and v head widths that
-// are multiples of 8, any N:
+// Flash-attention backward with mma.sync (the template), bf16 only: fp32
+// accumulation, P and dS recomputed from q, k and the forward's logsumexp.
+// Replaces the two TPU kernels of
+// transparent_object_detection_tpu/ops/attention_vjp.py (flash_bwd) over the
+// part of their bf16 domain that csrc/flash_bwd_sm90.cu does not take
+// (ops/attention_vjp.py::bwd_form): one head (dark3 at every scale, the
+// folded heads of phi 'n' and 'm'), packed heads of 448 and wider (phi 'l'
+// and 'x': 768 to 3,584) and widths that are not multiples of 64 (no route
+// reaches those); any q/k and v head widths that are multiples of 8, any N.
+// Every fp32 call runs csrc/flash_bwd_f32_sm90.cu.
 //
 //   * _bwd_dq_kernel:  dq = sum_k dS K          (one block per query block)
 //   * _bwd_dkv_kernel: dk = sum_q dS^T Q,  dv = sum_q P^T dO
@@ -17,10 +18,9 @@
 //   dP = dO V^T
 //   dS = P * (dP - D) * scale,  D = rowsum(dO * O) (computed in PyTorch)
 // and P and dS cast to the input type before their products, as the Pallas
-// kernels cast them (attention_vjp.py:187-189, 216-223): bf16, or nothing on
-// fp32 inputs. Both forms of the JAX launcher: packed multi-head (q/k/v and
-// dq/dk/dv as column views of packed (B, N, 3C) arrays, head h at column
-// h * dh) and single-head with q/k width != v width (the dark3
+// kernels cast them (attention_vjp.py:187-189, 216-223). Both forms of the
+// JAX launcher: packed multi-head (q/k/v and dq/dk/dv as column views of
+// packed (B, N, 3C) arrays, head h at column h * dh) and single-head with q/k width != v width (the dark3
 // SelfAttention, and folded heads, zero-padded by the wrapper's fold copy).
 // The packed bf16 heads of 128 to 384 (the neck of phi 'n', 's', 'm') run
 // csrc/flash_bwd_sm90.cu.
@@ -28,8 +28,7 @@
 // Bound. The backward does 2*N^2*(4*dq + 3*dv) operations per image and
 // head (the count attention.py logs for the Pallas backward) on inputs of
 // tens of MB, so it is bound by the tensor cores (989 TFLOP/s bf16; dark3
-// at phi='s' 640x640: 0.11 ms an image); fp32 by the 67 TFLOP/s of fp32
-// FMA.
+// at phi='s' 640x640: 0.11 ms an image).
 //
 // Design. Three modes, each a launch; a block owns 64 "rows" (4 warps x 16)
 // and walks the other axis in tiles of 32 inside the block, so nothing is
@@ -62,8 +61,6 @@
 //     for dk, (passes - 1) * 2*N^2*dq for dv, and 2*N^2*dq for the dv
 //     launch's own S: at phi='m' h1 (folded 600: two passes for dq and
 //     dk, three for dv) 2.0x the Pallas count.
-//   * fp32 (flash_bwd_f32_kernel): 32 rows a block, CUDA-core FFMA from
-//     shared-memory slabs, 128-column output passes.
 // P and dS go from the fp32 accumulator layout straight into the bf16 A
 // operand (registers, as P in the forward). Ragged N is masked: columns
 // past N get P = 0, rows past N are computed on zeros and not stored.
@@ -90,7 +87,7 @@ struct BwdParams {
   int qk_head, v_head;  // column step between heads: q/k/dq/dk, and v/dO/dv
   int n, dv_splits;     // dv_splits: DVT-wide slices of dv (MODE_DV), else 1
   int d1, d2;           // q/k and v widths of one head
-  int splits;           // output passes of the wide and fp32 kernels
+  int splits;           // output passes of the wide kernel
   float scale, scale_log2;
 };
 
@@ -621,132 +618,10 @@ cudaError_t run_wide(BwdParams& p, int batch, int heads, cudaStream_t stream) {
   return launch_pass<MODE, 512, 2>(p, batch, heads, stream);
 }
 
-// ---------------------------------------------------------------------------
-// fp32 form: CUDA-core FFMA throughout, nothing cast
-// ---------------------------------------------------------------------------
-constexpr int FBR = 32;   // rows per block
-constexpr int FBC = 32;   // columns per tile
-constexpr int FSL = 32;   // contraction columns per slab
-constexpr int FOW = 128;  // output columns per pass
-
-// The three modes in fp32 (compute_dtype="float32" models): each thread owns
-// one row (tid / 4) and a quarter of its 32 scores and FOW output columns;
-// row and column slabs, P or dS, and the Y slice pass through shared memory.
+// dark3's widths at phi='s', (q/k, v) = (64, 512), keep their own
+// instantiation; every other pair of multiples of 8 takes the wide kernel
 template <int MODE>
-__global__ void __launch_bounds__(THREADS) flash_bwd_f32_kernel(const BwdParams p) {
-  constexpr bool WITH_DP = MODE != MODE_DV;
-  __shared__ float sA[FBR][FSL + 1];
-  __shared__ float sB[FBC][FSL + 1];
-  __shared__ float sX[FBR][FBC + 1];
-  __shared__ float sY[FBC][FOW];
-  const int tid = threadIdx.x;
-  const int r = tid >> 2, qd = tid & 3;
-  const int r0 = blockIdx.x * FBR;
-  const int head = blockIdx.y / p.splits;
-  const int o0 = (blockIdx.y % p.splits) * FOW;
-  const int b = blockIdx.z;
-  const int n = p.n, d1 = p.d1, d2 = p.d2;
-
-  const float* qg = reinterpret_cast<const float*>(p.q) + b * p.q_batch + head * p.qk_head;
-  const float* kg = reinterpret_cast<const float*>(p.k) + b * p.k_batch + head * p.qk_head;
-  const float* vg = reinterpret_cast<const float*>(p.v) + b * p.v_batch + head * p.v_head;
-  const float* dog = reinterpret_cast<const float*>(p.dO) + b * p.do_batch + head * p.v_head;
-  const long long stat = ((long long)b * (gridDim.y / p.splits) + head) * n;
-  const float* lse_g = p.lse + stat;
-  const float* d_g = p.dcap + stat;
-  const float* r1 = MODE == MODE_DQ ? qg : kg;
-  const int r1_row = MODE == MODE_DQ ? p.q_row : p.k_row;
-  const float* r2 = MODE == MODE_DQ ? dog : vg;
-  const int r2_row = MODE == MODE_DQ ? p.do_row : p.v_row;
-  const float* c1 = MODE == MODE_DQ ? kg : qg;
-  const int c1_row = MODE == MODE_DQ ? p.k_row : p.q_row;
-  const float* c2 = MODE == MODE_DQ ? vg : dog;
-  const int c2_row = MODE == MODE_DQ ? p.v_row : p.do_row;
-  const float* yg = (MODE == MODE_DQ ? kg : MODE == MODE_DK ? qg : dog) + o0;
-  const int y_row = MODE == MODE_DQ ? p.k_row : MODE == MODE_DK ? p.q_row : p.do_row;
-  const int wout = MODE == MODE_DV ? d2 : d1;
-  float* og = reinterpret_cast<float*>(p.out) + b * p.out_batch +
-              (MODE == MODE_DV ? head * p.v_head : head * p.qk_head) + o0;
-
-  const int row = r0 + r;
-  float lse_r = 0.f, d_r = 0.f;
-  if (MODE == MODE_DQ && row < n) lse_r = lse_g[row] * LOG2E, d_r = d_g[row];
-  float acc[FOW / 4];  // columns qd + 4 * c of the pass
-#pragma unroll
-  for (int c = 0; c < FOW / 4; ++c) acc[c] = 0.f;
-
-  // x[jj] += R[row] . C[c0 + qd * 8 + jj] over width w, in FSL-column slabs
-  auto product = [&](float (&x)[FBC / 4], const float* rs, int rs_row, const float* cs,
-                     int cs_row, int w, int c0) {
-    for (int k0 = 0; k0 < w; k0 += FSL) {
-      __syncthreads();
-      for (int i = tid; i < FBR * FSL; i += THREADS) {
-        const int rr = i / FSL, cc = i % FSL;
-        const bool col_ok = k0 + cc < w;
-        sA[rr][cc] = (r0 + rr < n && col_ok) ? rs[(long long)(r0 + rr) * rs_row + k0 + cc] : 0.f;
-        sB[rr][cc] = (c0 + rr < n && col_ok) ? cs[(long long)(c0 + rr) * cs_row + k0 + cc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int cc = 0; cc < FSL; ++cc) {
-        const float a = sA[r][cc];
-#pragma unroll
-        for (int jj = 0; jj < FBC / 4; ++jj) x[jj] = fmaf(a, sB[qd * (FBC / 4) + jj][cc], x[jj]);
-      }
-    }
-  };
-
-  for (int c0 = 0; c0 < n; c0 += FBC) {
-    float s[FBC / 4], dp[FBC / 4];
-#pragma unroll
-    for (int jj = 0; jj < FBC / 4; ++jj) s[jj] = dp[jj] = 0.f;
-    product(s, r1, r1_row, c1, c1_row, d1, c0);
-    if constexpr (WITH_DP) product(dp, r2, r2_row, c2, c2_row, d2, c0);
-#pragma unroll
-    for (int jj = 0; jj < FBC / 4; ++jj) {
-      const int col = c0 + qd * (FBC / 4) + jj;
-      float l2 = lse_r, dd = d_r;
-      if constexpr (MODE != MODE_DQ) {
-        l2 = col < n ? lse_g[col] * LOG2E : 0.f;
-        dd = (WITH_DP && col < n) ? d_g[col] : 0.f;
-      }
-      const float pe = col < n ? exp2f(s[jj] * p.scale_log2 - l2) : 0.f;
-      sX[r][qd * (FBC / 4) + jj] = WITH_DP ? pe * (dp[jj] - dd) * p.scale : pe;
-    }
-    for (int i = tid; i < FBC * FOW; i += THREADS) {
-      const int rr = i / FOW, cc = i % FOW;
-      sY[rr][cc] = (c0 + rr < n && o0 + cc < wout) ? yg[(long long)(c0 + rr) * y_row + cc] : 0.f;
-    }
-    __syncthreads();
-    for (int jj = 0; jj < FBC; ++jj) {
-      const float x = sX[r][jj];
-#pragma unroll
-      for (int c = 0; c < FOW / 4; ++c) acc[c] = fmaf(x, sY[jj][qd + 4 * c], acc[c]);
-    }
-  }
-  if (row >= n) return;
-#pragma unroll
-  for (int c = 0; c < FOW / 4; ++c) {
-    const int col = qd + 4 * c;
-    if (o0 + col < wout) og[(long long)row * p.out_row + col] = acc[c];
-  }
-}
-
-template <int MODE>
-cudaError_t run_f32(BwdParams& p, int batch, int heads, cudaStream_t stream) {
-  p.splits = ((MODE == MODE_DV ? p.d2 : p.d1) + FOW - 1) / FOW;
-  dim3 grid((p.n + FBR - 1) / FBR, heads * p.splits, batch);
-  flash_bwd_f32_kernel<MODE><<<grid, THREADS, 0, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// bf16 dark3 at phi='s', (q/k, v) = (64, 512), keeps its own instantiation;
-// every other pair of multiples of 8 takes the wide kernel, fp32 the FFMA
-// kernel
-template <int MODE>
-cudaError_t run(BwdParams& p, int dqk, int dv, int batch, int heads, bool f32,
-                cudaStream_t stream) {
-  if (f32) return run_f32<MODE>(p, batch, heads, stream);
+cudaError_t run(BwdParams& p, int dqk, int dv, int batch, int heads, cudaStream_t stream) {
   if (dqk == 64 && dv == 512) return launch<MODE, 64, 512>(p, batch, heads, stream);
   return run_wide<MODE>(p, batch, heads, stream);
 }
@@ -758,14 +633,14 @@ extern "C" {
 // One gradient of the flash backward. mode 0: dq, 1: dk, 2: dv, written to
 // `out` (B, N, heads * width) through its batch and row strides (a column
 // view of a packed dqkv array is fine). q, k (heads * dqk wide), v, dO
-// (heads * dv wide) by pointer and strides, bf16 (f32 = 0) or fp32 (f32 =
-// 1); dqk and dv multiples of 8; lse and dcap (B, heads, N) fp32,
-// contiguous. Returns the cudaError_t of the launch.
+// (heads * dv wide) bf16 by pointer and strides; dqk and dv multiples of 8;
+// lse and dcap (B, heads, N) fp32, contiguous. Returns the cudaError_t of
+// the launch.
 int flash_bwd(int mode, const void* q, const void* k, const void* v, const void* dO,
               const float* lse, const float* dcap, void* out, int batch, int n, int heads,
               int dqk, int dv, long long q_batch, int q_row, long long k_batch, int k_row,
               long long v_batch, int v_row, long long do_batch, int do_row,
-              long long out_batch, int out_row, float scale, int f32, void* stream) {
+              long long out_batch, int out_row, float scale, void* stream) {
   if (batch <= 0 || n <= 0 || heads <= 0 || dqk <= 0 || dv <= 0 || dqk % 8 || dv % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
@@ -796,11 +671,10 @@ int flash_bwd(int mode, const void* q, const void* k, const void* v, const void*
   p.scale = scale;
   p.scale_log2 = scale * LOG2E;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool fp = f32 != 0;
   switch (mode) {
-    case MODE_DQ: return static_cast<int>(run<MODE_DQ>(p, dqk, dv, batch, heads, fp, s));
-    case MODE_DK: return static_cast<int>(run<MODE_DK>(p, dqk, dv, batch, heads, fp, s));
-    case MODE_DV: return static_cast<int>(run<MODE_DV>(p, dqk, dv, batch, heads, fp, s));
+    case MODE_DQ: return static_cast<int>(run<MODE_DQ>(p, dqk, dv, batch, heads, s));
+    case MODE_DK: return static_cast<int>(run<MODE_DK>(p, dqk, dv, batch, heads, s));
+    case MODE_DV: return static_cast<int>(run<MODE_DV>(p, dqk, dv, batch, heads, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -20,7 +20,7 @@
 // online softmax whose running max starts at -1e30; p_ij = exp2(s_ij - m)
 // kept in fp32, never rounded; l and acc in fp32; out = acc * (1 / l) in
 // fp32; with lse, lse_i = (m + log2 l) * ln 2, one per (batch, head, row),
-// the layout the backward (flash_attn_bwd.cu) reads. Each product a.b is
+// the layout the backward (flash_bwd_f32_sm90.cu) reads. Each product a.b is
 // taken as a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, where x_hi is x with the 13
 // low mantissa bits cleared (a tf32 value) and x_lo = x - x_hi (exact in
 // fp32, itself a tf32 value but for 2 bits): the dropped a_lo.b_lo and the
@@ -34,8 +34,8 @@
 // h2 + h4 (8 heads of 384): about 6.5 ms.
 //
 // Design.
-//   * The pre-pass (split_rows_kernel, split_vt_kernel, launched before the
-//     attention kernel on the same stream): writes q_hi, q_lo, k_hi, k_lo
+//   * The pre-pass (tf32_split.cuh's split_rows_kernel and split_vt_kernel,
+//     launched before the attention kernel on the same stream): writes q_hi, q_lo, k_hi, k_lo
 //     contiguous (B, N, heads * d) and V transposed, (B, heads, dv, N_pad)
 //     with the keys contiguous, hi and lo. hi is stored explicitly with its
 //     low bits cleared, so nothing rests on what the tensor core does with
@@ -91,7 +91,7 @@
 // Trouble spots, each handled where its tag appears below:
 //   [key-major V]   tf32 wgmma reads B from shared memory K-major only (the
 //                   transpose bit is for 16-bit types): V is transposed by
-//                   the pre-pass
+//                   the pre-pass (tf32_split.cuh, its [token order])
 //   [P fragments]   the accumulator of m64nNk8 gives a thread keys 2c, 2c + 1
 //                   of each 8-key chunk, the A fragment of m64nNk8 wants
 //                   columns c and c + 4: V^T stores each group of 8 keys in
@@ -108,11 +108,13 @@
 
 #include "flash_common.cuh"
 #include "sm90_common.cuh"
+#include "tf32_split.cuh"
 
 namespace {
 
 using namespace flash;
 using namespace sm90;
+using namespace tf32;
 
 constexpr int BM = 128;            // query rows a block, 64 a consumer warpgroup
 constexpr int KT = 64;             // keys a tile
@@ -131,8 +133,6 @@ constexpr int K_SLAB_BYTES = KT * QK_ROW;  // one of hi, lo: 4 KB
 // the split form's hand-over: P's fragments (hi and lo, 8 k8 steps, a float4
 // a thread each), the row rescale and the row sums (a float2 a thread each)
 constexpr int XCHG_BYTES = (KT / 8) * 2 * 128 * 16 + 2 * 128 * 8;
-constexpr uint32_t TF32_MASK = 0xffffe000u;  // clears the 13 low mantissa bits
-constexpr int PRE_THREADS = 256;
 
 struct F32Params {
   float* o;          // (B, N, heads * dv)
@@ -146,76 +146,9 @@ struct F32Params {
   float scale_log2;  // scale * log2(e)
 };
 
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & TF32_MASK);
-}
-
-// ---------------------------------------------------------------------------
-// the pre-pass
-// ---------------------------------------------------------------------------
-
-// hi and lo of a (B, N, w) view (row and batch strides in elements, multiples
-// of 4, base 16-byte aligned) into contiguous (B, N, w); w % 4 == 0.
-// Grid (ceil(w / 4 / PRE_THREADS), N, B).
-__global__ void __launch_bounds__(PRE_THREADS) split_rows_kernel(
-    const float* __restrict__ src, float* __restrict__ hi, float* __restrict__ lo, int n, int w,
-    long long src_batch, long long src_row) {
-  const int i = blockIdx.x * PRE_THREADS + threadIdx.x;
-  if (4 * i >= w) return;
-  const int row = blockIdx.y, b = blockIdx.z;
-  const float4 x = *reinterpret_cast<const float4*>(src + b * src_batch + row * src_row + 4 * i);
-  const float4 h = make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
-  const long long at = (static_cast<long long>(b) * n + row) * w + 4 * i;
-  *reinterpret_cast<float4*>(hi + at) = h;
-  *reinterpret_cast<float4*>(lo + at) = make_float4(x.x - h.x, x.y - h.y, x.z - h.z, x.w - h.w);
-}
-
-// [key-major V] [P fragments] V (B, N, heads * dv view) -> V^T hi and lo,
-// (B, heads, dv, n_pad) contiguous: row d of head h holds v[key][h * dv + d]
-// with the keys of each group of 8 in the order [0, 2, 4, 6, 1, 3, 5, 7];
-// keys at or past N are 0. Grid (n_pad / 32, ceil(dv / 32), B * heads), block
-// (32, 8): a 32-key x 32-column tile through shared memory.
-__global__ void __launch_bounds__(256) split_vt_kernel(
-    const float* __restrict__ v, float* __restrict__ vt_hi, float* __restrict__ vt_lo, int n,
-    int n_pad, int heads, int dv, long long v_batch, long long v_row) {
-  __shared__ float tile[32][33];
-  const int k0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
-  const int bh = blockIdx.z, b = bh / heads, h = bh % heads;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const float* src = v + b * v_batch + static_cast<long long>(h) * dv;
-#pragma unroll
-  for (int r = ty; r < 32; r += 8) {
-    const int key = k0 + r, d = d0 + tx;
-    tile[r][tx] = (key < n && d < dv) ? src[key * v_row + d] : 0.f;
-  }
-  __syncthreads();
-  // position tx of a group of 8 holds key 2 tx (tx < 4) or 2 (tx - 4) + 1
-  const int p = tx & 7;
-  const int key = (tx & ~7) + (p < 4 ? 2 * p : 2 * p - 7);
-#pragma unroll
-  for (int r = ty; r < 32; r += 8) {
-    const int d = d0 + r;
-    if (d >= dv) continue;
-    const float x = tile[key][r];
-    const float xh = tf32_hi(x);
-    const long long at = (static_cast<long long>(bh) * dv + d) * n_pad + k0 + tx;
-    vt_hi[at] = xh;
-    vt_lo[at] = x - xh;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // the attention kernel
 // ---------------------------------------------------------------------------
-
-template <int DV>
-__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[DV / 2], const uint32_t (&a)[4],
-                                              uint64_t db) {
-  if constexpr (DV == 64) wgmma_rs_tf32_n64(d, a, db);
-  if constexpr (DV == 128) wgmma_rs_tf32_n128(d, a, db);
-  if constexpr (DV == 192) wgmma_rs_tf32_n192(d, a, db);
-  if constexpr (DV == 256) wgmma_rs_tf32_n256(d, a, db);
-}
 
 // Named barriers of the split form (sm90_common.cuh's named_sync and
 // named_arrive, 256 threads: the two consumer warpgroups).
@@ -634,30 +567,6 @@ __global__ void __launch_bounds__(THREADS_F32, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-// [tensor maps] a 4-D fp32 map, dims innermost first with strides in
-// elements (each a multiple of 4: 16 bytes), boxes of box0 x box1 x box2 x 1
-// under the swizzle of the box row's width (64 or 128 bytes); TMA
-// zero-fills what lies outside the dims.
-bool make_map_f32(CUtensorMap* map, const void* base, const long long (&dims)[4],
-                  const long long (&strides)[3], int box0, int box1, int box2) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(base) % 16) return false;
-  cuuint64_t d[4], s[3];
-  for (int i = 0; i < 4; ++i) d[i] = static_cast<cuuint64_t>(dims[i]);
-  for (int i = 0; i < 3; ++i) {
-    if (strides[i] % 4) return false;
-    s[i] = static_cast<cuuint64_t>(strides[i]) * 4;
-  }
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box0), static_cast<cuuint32_t>(box1),
-                             static_cast<cuuint32_t>(box2), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), d, s, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                box0 * 4 == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // Dynamic shared memory of a plan: alignment slack, barriers, the split
 // form's hand-over, Q hi and lo (resident form), the q/k ring, the V ring
 // (sliced: two 32-key chunks of the slice; split: v_stages 16-key chunks of
@@ -734,11 +643,9 @@ int flash_fwd_f32_sm90(const float* q, const float* k, const float* v, float* ou
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // the pre-pass
   const int wq = heads * dqk;
-  const dim3 rows_grid((wq / 4 + PRE_THREADS - 1) / PRE_THREADS, n, batch);
-  split_rows_kernel<<<rows_grid, PRE_THREADS, 0, st>>>(q, q_hi, q_lo, n, wq, q_batch, q_row);
-  split_rows_kernel<<<rows_grid, PRE_THREADS, 0, st>>>(k, k_hi, k_lo, n, wq, k_batch, k_row);
-  split_vt_kernel<<<dim3(n_pad / 32, (dv + 31) / 32, batch * heads), dim3(32, 8), 0, st>>>(
-      v, vt_hi, vt_lo, n, n_pad, heads, dv, v_batch, v_row);
+  split_rows(q, q_hi, q_lo, batch, n, wq, q_batch, q_row, st);
+  split_rows(k, k_hi, k_lo, batch, n, wq, k_batch, k_row, st);
+  split_vt(v, vt_hi, vt_lo, batch, n, n_pad, heads, dv, v_batch, v_row, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // [tensor maps] Q, K hi and lo (dqk, heads, N, B), boxes of 16 columns x

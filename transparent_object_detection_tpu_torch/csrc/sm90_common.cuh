@@ -4,8 +4,9 @@
 // shared-memory descriptors, fences and groups, named barriers, setmaxnreg,
 // cuTensorMapEncodeTiled looked up at run time, for the bf16 kernels the
 // m64n64k16 SS product, the RS products of N 64 to 256 and the 4-D map of a
-// packed view, and for flash_fwd_f32_sm90.cu (fp32 as 3xTF32) the tf32
-// m64n64k8 SS product and the RS products of N 64 to 256.
+// packed view, and for flash_fwd_f32_sm90.cu and flash_bwd_f32_sm90.cu
+// (fp32 as 3xTF32) the tf32 m64n64k8 SS product and the RS products of N 64
+// to 256.
 #pragma once
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -261,10 +262,10 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// The tf32 products of flash_fwd_f32_sm90.cu (m64nNk8: each operand element
+// The tf32 products of the fp32 kernels (m64nNk8: each operand element
 // a 32-bit word, a k8 step 32 bytes of a K-major row; tf32 takes no
 // transpose bit, so both shared-memory operands are K-major): the SS
-// product of S and the RS products of P.V.
+// product of the scores and the RS products of P.V and of the gradients.
 // d[32] = A (64x8 tf32, smem, K-major) * B (64x8 tf32, smem, K-major)
 //         + (scale_d ? d : 0)
 __device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t da, uint64_t db,
@@ -397,6 +398,17 @@ __device__ __forceinline__ void wgmma_rs_tf32_n256(float (&d)[128], const uint32
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[N / 2] += A (64x8 tf32, registers) * B (Nx8 tf32, smem, K-major), N of
+// 64, 128, 192 or 256
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (N == 64) wgmma_rs_tf32_n64(d, a, db);
+  if constexpr (N == 128) wgmma_rs_tf32_n128(d, a, db);
+  if constexpr (N == 192) wgmma_rs_tf32_n192(d, a, db);
+  if constexpr (N == 256) wgmma_rs_tf32_n256(d, a, db);
 }
 
 // [columns] [ragged N] a bf16 (B, N, heads * width) view with its head width

@@ -27,10 +27,15 @@ spends most of its time in, by torch.profiler): rows 1 and 2 at the phi='m'
 640x640 serving sites (h2 and h4, 8 heads of 384; dark3, q/k 128 and v
 1,024; the folded h1, 16 heads of 600 at batch 2), row 9 at the phi='n'
 training sites (h2 and h4, 6 heads of 128; dark3, 32 and 256; the folded
-h1, 6 heads of 288), batch 2; then the fp32-compute phi='m' forward at batch
-2 and the fp32 phi='n' training step at batch 16 (CUDA events, median of 3
-after 1 warm-up). A checkout before csrc/flash_fwd_f32_sm90.cu times the
-same calls on the CUDA-core FFMA kernel of csrc/flash_attn_fwd.cu.
+h1, 6 heads of 288), batch 2; rows 10 and 11 (flash_bwd_dq, flash_bwd_dkv)
+at the same phi='n' training sites and phi='m' h4 (8 heads of 384) beside
+SDPA's fp32 backward on the same operands (its main kernel named likewise);
+then the fp32-compute phi='m' forward at batch 2 and the fp32 phi='n'
+training step at batch 16 (CUDA events, median of 3 after 1 warm-up, and
+its peak memory). A checkout before csrc/flash_fwd_f32_sm90.cu times the
+forward calls on the CUDA-core FFMA kernel of csrc/flash_attn_fwd.cu, one
+before csrc/flash_bwd_f32_sm90.cu the backward calls on the FFMA kernel of
+csrc/flash_attn_bwd.cu.
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
@@ -82,6 +87,12 @@ F32_SITES = (("row 1 phi=m h2", "flash_mha_packed", (2, 6400, 3072, 3072, 8)),
              ("row 9 phi=n h4", "flash_fwd_lse", (2, 1600, 768, 768, 6)),
              ("row 9 phi=n dark3", "flash_fwd_lse", (2, 6400, 32, 256, 1)),
              ("row 9 phi=n h1 folded", "flash_fwd_lse", (6, 1600, 288, 288, 1)))
+# the --f32 sites of rows 10 and 11: (name, (batch, tokens, q/k width, v
+# width, heads)), the phi='n' training sites and phi='m' h4
+F32_BWD_SITES = (("phi=n h2", (2, 6400, 768, 768, 6)), ("phi=n h4", (2, 1600, 768, 768, 6)),
+                 ("phi=n dark3", (2, 6400, 32, 256, 1)),
+                 ("phi=n h1 folded", (6, 1600, 288, 288, 1)),
+                 ("phi=m h4", (2, 1600, 3072, 3072, 8)))
 
 
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -153,6 +164,7 @@ def time_train_steps(configs=TRAIN_STEPS) -> dict:
                  "boxes": torch.as_tensor(boxes, device="cuda"),
                  "labels": torch.zeros((b, 64), dtype=torch.long, device="cuda")}
         times = []
+        torch.cuda.reset_peak_memory_stats()
         for i in range(4):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
@@ -163,20 +175,65 @@ def time_train_steps(configs=TRAIN_STEPS) -> dict:
                 times.append(start.elapsed_time(end))
         out[f"train step {label} batch {b}"] = sorted(times)[1]
         out[f"train step {label} batch {b} all"] = times
+        out[f"train step {label} batch {b} peak GiB"] = torch.cuda.max_memory_allocated() / 2**30
         del model, opt, state, step, batch
         torch.cuda.empty_cache()
     return out
+
+
+def _top_kernel(fn) -> str:
+    """The kernel `fn` spends most of its device time in (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return max(kernels, key=lambda e: e.self_device_time_total).key
+
+
+def time_f32_backward(randn, out) -> None:
+    """ms of flash_bwd_dq and flash_bwd_dkv in fp32 at F32_BWD_SITES (packed
+    heads as column views of one packed qkv; lse from flash_fwd_lse) beside
+    SDPA's fp32 backward on the same operands (heads first, contiguous: the
+    forward and backward less the forward) and the kernel that backward
+    spends most of its device time in."""
+    import torch.nn.functional as F
+
+    for name, (b, n, cq, cv, h) in F32_BWD_SITES:
+        scale = (cq // h) ** -0.5 if h > 1 else 1.0
+        if h > 1:
+            qkv = randn(b, n, 2 * cq + cv) * 0.5
+            q, k, v = qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+        else:
+            q, k, v = randn(b, n, cq) * 0.5, randn(b, n, cq) * 0.5, randn(b, n, cv)
+        do = randn(b, n, cv)
+        o, lse = V.flash_fwd_lse(q, k, v, scale, h)
+        args = (q, k, v, do, lse, V.compute_dcap(o, do, h), scale, h)
+        out[f"row 10 {name}"] = timed_ms(lambda: V.flash_bwd_dq(*args), 10, 2)
+        out[f"row 11 {name}"] = timed_ms(lambda: V.flash_bwd_dkv(*args), 10, 2)
+        qh, kh, vh, doh = (A._heads_first(t, h).contiguous() for t in (q, k, v, do))
+        qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+        fwd = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10, 2)
+        both = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+                        .backward(doh), 10, 2)
+        out[f"rows 10-11 {name} sdpa backward"] = both - fwd
+        res = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+        out[f"rows 10-11 {name} sdpa backward kernel"] = _top_kernel(
+            lambda: res.backward(doh, retain_graph=True))
+        del q, k, v, do, o, lse, args, qh, kh, vh, doh, res
+        torch.cuda.empty_cache()
 
 
 def time_f32(randn) -> dict:
     """ms of the fp32 forms of rows 1, 2 and 9 at F32_SITES beside SDPA's
     fp32 call on the same operands (heads first, contiguous) and the name of
     the kernel that call spends most of its device time in (torch.profiler),
-    then of the fp32-compute phi='m' forward at batch 2 and the fp32 phi='n'
-    training step at batch 16."""
+    of rows 10 and 11 at F32_BWD_SITES (`time_f32_backward`), then of the
+    fp32-compute phi='m' forward at batch 2 and the fp32 phi='n' training
+    step at batch 16."""
     import torch.nn.functional as F
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from transparent_object_detection_tpu_torch.config import ModelConfig
 
@@ -198,13 +255,11 @@ def time_f32(randn) -> dict:
         qh, kh, vh = (A._heads_first(t, h).contiguous() for t in (q, k, v))
         out[f"{name} sdpa"] = timed_ms(
             lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 10, 2)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        out[f"{name} sdpa kernel"] = max(kernels, key=lambda e: e.self_device_time_total).key
+        out[f"{name} sdpa kernel"] = _top_kernel(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
         del q, k, v, qh, kh, vh
         torch.cuda.empty_cache()
+    time_f32_backward(randn, out)
     from transparent_object_detection_tpu_torch.models.detector import build_model
 
     model = build_model(ModelConfig(phi="m", compute_dtype="float32"), device="cuda", seed=0)

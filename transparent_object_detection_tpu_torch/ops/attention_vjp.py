@@ -18,20 +18,23 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
                  bf16)
   flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_bwd_sm90.cu for bf16
                  packed heads of equal widths that are multiples of 64 up to
-                 384, the rule of `bwd_form`; csrc/flash_attn_bwd.cu for one
-                 head, fp32 and other widths)
-  flash_bwd_dkv  replaces _bwd_dkv_kernel (the same two sources: on the
-                 sm90 kernel one launch up to heads of 256 and two, a dv and
-                 a dk launch, at 320 and 384; on the template two, the dk
-                 pass and the dv pass; counted once, as the TPU kernel)
+                 384, the rule of `bwd_form`; csrc/flash_bwd_f32_sm90.cu for
+                 fp32 at every width, packed heads or one;
+                 csrc/flash_attn_bwd.cu for the other bf16 calls: one head
+                 and other widths)
+  flash_bwd_dkv  replaces _bwd_dkv_kernel (the same three sources: on the
+                 bf16 sm90 kernel one launch up to heads of 256 and two, a dv
+                 and a dk launch, at 320 and 384; on the fp32 kernel one
+                 launch; on the template two, the dk pass and the dv pass;
+                 counted once, as the TPU kernel)
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
 kernels take the Pallas kernels' whole domain (`kernel_supports`): any q/k
 and v head widths that are multiples of 8 (the folded odd heads are
 zero-padded by ops/attention.py), any N, bf16 or fp32 (nothing cast, as the
-Pallas kernels compute on fp32 inputs: the forward as 3xTF32 on the tensor
-cores, the backward on the CUDA cores).
+Pallas kernels compute on fp32 inputs: forward and backward as 3xTF32 on
+the tensor cores).
 """
 from __future__ import annotations
 
@@ -156,7 +159,7 @@ def _bwd_lib():
     if not getattr(lib, "_argtypes_set", False):
         vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         lib.flash_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                  cl, ci, cl, ci, cl, ci, cl, ci, cl, ci, cf, ci, vp]
+                                  cl, ci, cl, ci, cl, ci, cl, ci, cl, ci, cf, vp]
         lib.flash_bwd.restype = ci
         lib._argtypes_set = True
     return lib
@@ -173,15 +176,15 @@ SM90_BWD_PLAN_KEYS = ("rows", "slab", "stages", "split", "smem_bytes")
 
 
 def bwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
-    """The kernel of a flash backward (dq and dk/dv alike): "sm90"
-    (csrc/flash_bwd_sm90.cu) for bf16 packed heads (num_heads > 1) whose
-    q/k and v widths are equal multiples of 64 up to 384, which every
-    packed training site of phi 'n', 's' and 'm' is; else
-    csrc/flash_attn_bwd.cu: "f32" for fp32, "mma_sync" in bf16 (one head:
-    dark3 and the folded heads; packed heads of 448 and wider; widths that
-    are not multiples of 64)."""
+    """The kernel of a flash backward (dq and dk/dv alike): "f32_sm90"
+    (csrc/flash_bwd_f32_sm90.cu) for every fp32 call, packed heads or one;
+    "sm90" (csrc/flash_bwd_sm90.cu) for bf16 packed heads (num_heads > 1)
+    whose q/k and v widths are equal multiples of 64 up to 384, which every
+    packed training site of phi 'n', 's' and 'm' is; else "mma_sync",
+    csrc/flash_attn_bwd.cu (bf16: one head, dark3 and the folded heads;
+    packed heads of 448 and wider; widths that are not multiples of 64)."""
     if dtype == torch.float32:
-        return "f32"
+        return "f32_sm90"
     if (num_heads > 1 and dqk == dv and dqk % SM90_BWD_SLAB == 0
             and 0 < dqk <= SM90_BWD_MAX_WIDTH):
         return "sm90"
@@ -230,6 +233,116 @@ def bwd_sm90_plan(d: int) -> dict:
         out[kernel] = {"rows": rows, "slab": SM90_BWD_SLAB, "stages": stages, "split": split,
                        "smem_bytes": bwd_sm90_smem_bytes(kernel, d, stages)}
     return out
+
+
+# The fp32 Hopper backward (csrc/flash_bwd_f32_sm90.cu): 64-column tiles,
+# 16-column score slabs and 16-token chunks of the transposed copies, every
+# operand as tf32 hi and lo, streamed through rings of 2-8 stages; dq on
+# blocks of 128 query rows (64 a warpgroup, N0 = N1 gradient columns each),
+# dk/dv on blocks of 64 keys (dV N0 columns on one warpgroup, dK N1 on the
+# other); wider gradients in output passes. The (N0, N1) pairs are those
+# the library is built for.
+F32_BWD_ROWS = {"dq": 128, "dkv": 64}
+F32_BWD_KEYS, F32_BWD_SLAB = 64, 16
+F32_BWD_BOX = 64 * 16 * 4  # one of hi, lo of a 64-row slab
+# a stage of a slab: dq the 128 rows and the 64 columns, dk/dv the 64 rows
+# and the 64 columns, each hi and lo
+F32_BWD_SLAB_STAGE = {"dq": 6 * F32_BWD_BOX, "dkv": 4 * F32_BWD_BOX}
+F32_BWD_XCHG_BYTES = 64 * 64 * 4  # an fp32 64 x 64 P^T tile handed between the warpgroups
+F32_BWD_WIDTHS = {"dq": ((64, 64), (128, 128)), "dkv": ((128, 128), (128, 64))}
+F32_BWD_MAX_STAGES = 8
+F32_BWD_PLAN_KEYS = ("rows", "keys", "slab", "n0", "n1", "passes", "stages", "smem_bytes")
+
+
+def bwd_f32_sm90_smem_bytes(kernel: str, n0: int, n1: int, stages: int) -> int:
+    """Dynamic shared memory of an f32_sm90 backward plan (as
+    csrc/flash_bwd_f32_sm90.cu computes it): 1024 bytes of alignment slack,
+    1024 of barriers, then dq: `stages` slab stages of its one ring; dk/dv:
+    two P^T buffers and `stages` stages of each warpgroup's ring, a stage
+    the larger of a slab stage and a chunk of 16 tokens x n_w rows of a
+    transposed copy (hi and lo, 4 bytes an element)."""
+    if kernel == "dq":
+        return 2048 + stages * F32_BWD_SLAB_STAGE["dq"]
+    unit = lambda n_w: max(F32_BWD_SLAB_STAGE["dkv"], n_w * 16 * 4 * 2)
+    return 2048 + 2 * F32_BWD_XCHG_BYTES + stages * (unit(n0) + unit(n1))
+
+
+def _f32_bwd_passes(kernel: str, dqk: int, dv: int, n0: int, n1: int) -> int:
+    if kernel == "dq":  # each warpgroup all n0 columns of a pass, on its own rows
+        return -(-dqk // n0)
+    return max(-(-dv // n0), -(-dqk // n1))  # dV on warpgroup 0, dK on warpgroup 1
+
+
+def bwd_f32_sm90_plan(dqk: int, dv: int) -> dict:
+    """Launch plans of csrc/flash_bwd_f32_sm90.cu for q/k width `dqk` and v
+    width `dv` (multiples of 8): {"dq": plan, "dkv": plan}, each with `rows`
+    (dq 128, dk/dv 64), `keys` (64 columns a tile), `slab` (16), `n0`, `n1`
+    (the gradient columns of warpgroups 0 and 1: of the pairs the library
+    is built for, the one whose slower warpgroup does least work, passes x
+    (its score columns + its gradient columns), ties to the narrower),
+    `passes` (output passes, each recomputing S and dP), `stages` (the
+    most, up to 8, that fit) and `smem_bytes`. The library refuses any
+    other plan."""
+    if dqk <= 0 or dv <= 0 or dqk % A.KERNEL_WIDTH_MULTIPLE or dv % A.KERNEL_WIDTH_MULTIPLE:
+        raise ValueError(f"the f32_sm90 backward takes widths that are multiples of "
+                         f"{A.KERNEL_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    s0, s1 = (-(-d // F32_BWD_SLAB) * F32_BWD_SLAB for d in (dqk, dv))
+    out = {}
+    for kernel in ("dq", "dkv"):
+        def cost(pair):
+            n0, n1 = pair
+            per_pass = s0 + s1 + n0 if kernel == "dq" else max(s0 + n0, s1 + n1)
+            return _f32_bwd_passes(kernel, dqk, dv, n0, n1) * per_pass, n0 + n1
+        n0, n1 = min(F32_BWD_WIDTHS[kernel], key=cost)
+        stages = next(st for st in range(F32_BWD_MAX_STAGES, 1, -1)
+                      if bwd_f32_sm90_smem_bytes(kernel, n0, n1, st) <= A.SM90_SMEM_LIMIT)
+        out[kernel] = {"rows": F32_BWD_ROWS[kernel], "keys": F32_BWD_KEYS,
+                       "slab": F32_BWD_SLAB, "n0": n0, "n1": n1,
+                       "passes": _f32_bwd_passes(kernel, dqk, dv, n0, n1), "stages": stages,
+                       "smem_bytes": bwd_f32_sm90_smem_bytes(kernel, n0, n1, stages)}
+    return out
+
+
+def _bwd_f32_sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_bwd_f32_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_bwd_dq_f32_sm90.argtypes = [vp] * 8 + [ci] * 6 + [cl] * 10 + [cf, vp, vp]
+        lib.flash_bwd_dq_f32_sm90.restype = ci
+        lib.flash_bwd_dkv_f32_sm90.argtypes = [vp] * 9 + [ci] * 6 + [cl] * 12 + [cf, vp, vp]
+        lib.flash_bwd_dkv_f32_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _f32_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float, num_heads: int,
+                    widths) -> None:
+    """One call of csrc/flash_bwd_f32_sm90.cu (`kernel` "dq" or "dkv": its
+    pre-pass, then the kernel) with the plan of `bwd_f32_sm90_plan`.
+    Allocates the pre-pass's scratch: hi and lo of q, k, v and dO in their
+    row form, and of the kernel's transposed copies (dq: K^T; dk/dv: dO^T
+    and Q^T) with the tokens padded to 64. Raises if the launch fails, never
+    falls back."""
+    b, n, dqk, dv = widths
+    plan = bwd_f32_sm90_plan(dqk, dv)[kernel]
+    plan_arr = (ctypes.c_int * len(F32_BWD_PLAN_KEYS))(*(plan[key] for key in F32_BWD_PLAN_KEYS))
+    n_pad = -(-n // F32_BWD_KEYS) * F32_BWD_KEYS
+    h = num_heads
+    empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=q.device)
+    scratch = [empty(b, n, w) for w in (h * dqk,) * 4 + (h * dv,) * 4]
+    transposed = (dqk,) if kernel == "dq" else (dv, dqk)
+    scratch += [empty(b, h, w, n_pad) for w in transposed for _ in range(2)]
+    ptrs = (ctypes.c_void_p * len(scratch))(*(t.data_ptr() for t in scratch))
+    lib = _bwd_f32_sm90_lib()
+    fn = lib.flash_bwd_dq_f32_sm90 if kernel == "dq" else lib.flash_bwd_dkv_f32_sm90
+    strides = [s for t in (q, k, v, do, *outs) for s in (t.stride(0), t.stride(1))]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             dcap.data_ptr(), *(t.data_ptr() for t in outs), ctypes.cast(ptrs, ctypes.c_void_p),
+             b, n, h, dqk, dv, n_pad, *strides, scale, ctypes.cast(plan_arr, ctypes.c_void_p),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    A._raise_on(err, f"flash_bwd_{kernel}_f32_sm90")
 
 
 def _bwd_sm90_lib():
@@ -361,7 +474,7 @@ def _bwd_launch(mode: int, q, k, v, do, lse, dcap, out, scale: float, num_heads:
         dcap.data_ptr(), out.data_ptr(), b, n, num_heads, dqk, dv,
         q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         do.stride(0), do.stride(1), out.stride(0), out.stride(1), scale,
-        int(q.dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     A._raise_on(err, ("flash_bwd dq", "flash_bwd dk", "flash_bwd dv")[mode])
 
@@ -390,20 +503,24 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     """dq of the flash backward, written into `dq` (e.g. a column view of a
     packed gradient) when given. Port of ops/attention_vjp.py::_bwd_dq_kernel
     (JAX). A CUDA tensor launches the kernel of `bwd_form`
-    (csrc/flash_bwd_sm90.cu, counted in `sm90_launches`, or
-    csrc/flash_attn_bwd.cu, in `launches`); a CPU tensor runs
-    `flash_bwd_dq_plain`."""
+    (csrc/flash_bwd_sm90.cu, counted in `sm90_launches`;
+    csrc/flash_bwd_f32_sm90.cu, in `f32_launches`; or csrc/flash_attn_bwd.cu,
+    in `launches`); a CPU tensor runs `flash_bwd_dq_plain`."""
     if q.device.type == "cpu":
         res = flash_bwd_dq_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return res if dq is None else dq.copy_(res)
     widths = _check_bwd(q, k, v, do, lse, dcap, num_heads)
     dq = _out(dq, q, "dq")
-    if bwd_form(widths[2], widths[3], num_heads, q.dtype) == "sm90":
+    form = bwd_form(widths[2], widths[3], num_heads, q.dtype)
+    if form == "sm90":
         _sm90_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
         flash_bwd_dq.sm90_launches += 1
-        return dq
-    _bwd_launch(MODE_DQ, q, k, v, do, lse, dcap, dq, scale, num_heads, widths)
-    flash_bwd_dq.launches += 1
+    elif form == "f32_sm90":
+        _f32_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
+        flash_bwd_dq.f32_launches += 1
+    else:
+        _bwd_launch(MODE_DQ, q, k, v, do, lse, dcap, dq, scale, num_heads, widths)
+        flash_bwd_dq.launches += 1
     return dq
 
 
@@ -414,42 +531,36 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     ops/attention_vjp.py::_bwd_dkv_kernel (JAX). A CUDA tensor launches the
     kernel of `bwd_form`: csrc/flash_bwd_sm90.cu (one launch for heads up to
     256, a dv and a dk launch at 320 and 384; counted once in
-    `sm90_launches`) or csrc/flash_attn_bwd.cu, which keeps one head (dark3,
-    the folded heads), fp32 and the other widths (the dk pass and the dv
-    pass, counted once in `launches`); a CPU tensor runs
-    `flash_bwd_dkv_plain`."""
+    `sm90_launches`), csrc/flash_bwd_f32_sm90.cu (every fp32 call, one
+    launch after its pre-pass; `f32_launches`) or csrc/flash_attn_bwd.cu,
+    which keeps the other bf16 calls (one head: dark3, the folded heads;
+    other widths; the dk pass and the dv pass, counted once in `launches`);
+    a CPU tensor runs `flash_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
     widths = _check_bwd(q, k, v, do, lse, dcap, num_heads)
     dk, dv = _out(dk, k, "dk"), _out(dv, v, "dv")
-    if bwd_form(widths[2], widths[3], num_heads, q.dtype) == "sm90":
+    form = bwd_form(widths[2], widths[3], num_heads, q.dtype)
+    if form == "sm90":
         _sm90_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
         flash_bwd_dkv.sm90_launches += 1
-        return dk, dv
-    _bwd_launch(MODE_DK, q, k, v, do, lse, dcap, dk, scale, num_heads, widths)
-    _bwd_launch(MODE_DV, q, k, v, do, lse, dcap, dv, scale, num_heads, widths)
-    flash_bwd_dkv.launches += 1
+    elif form == "f32_sm90":
+        _f32_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
+        flash_bwd_dkv.f32_launches += 1
+    else:
+        _bwd_launch(MODE_DK, q, k, v, do, lse, dcap, dk, scale, num_heads, widths)
+        _bwd_launch(MODE_DV, q, k, v, do, lse, dcap, dv, scale, num_heads, widths)
+        flash_bwd_dkv.launches += 1
     return dk, dv
 
 
-flash_fwd_lse.launches = 0
-flash_fwd_lse.sm90_launches = 0
-flash_fwd_lse.f32_launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dq.sm90_launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dkv.sm90_launches = 0
-
-
 def reset_launch_counts() -> None:
-    flash_fwd_lse.launches = 0
-    flash_fwd_lse.sm90_launches = 0
-    flash_fwd_lse.f32_launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dq.sm90_launches = 0
-    flash_bwd_dkv.launches = 0
-    flash_bwd_dkv.sm90_launches = 0
+    for fn in (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
+        fn.launches = fn.sm90_launches = fn.f32_launches = 0
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
