@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all eight sources at once) and prints the card's name and power
+   nvcc (all ten sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -42,7 +42,13 @@
    and batch 32's split qkv and LN-handoff shapes), with the int8 bars
    (payloads equal but for +-1 on a tiny share, scales, values) and planted
    faults each bar must reject: a K slab of 32 dropped and a halved
-   quant_out group width (qmm), p rounded against a running 64-key max and
+   quant_out group width (qmm; every qmm runs csrc/qmm_sm90.cu, int8
+   wgmma fed by a TMA ring, twice for the same bits, and must also reject
+   the faults of its design: a 128-byte K slab read twice and its
+   neighbour never, one dropped, a group requantized with its neighbour's
+   ratio, the second consumer warpgroup's rows unwritten, the last column
+   tile of the plan's width shifted by one), p rounded against a running
+   64-key max and
    k/v scales per 64 keys (flash_mha_int8). Every phi='s' int8 attention
    site runs csrc/flash_int8_sm90.cu (int8 wgmma fed by a TMA ring; its
    launches counted in each entry point's `sm90_launches`): each case
@@ -56,8 +62,11 @@
    reset before and read after; `decoded` and detection sets against the
    same model on plain versions (limits between the sound reading and a
    planted fault's); every launch of one batch-2 forward against its plain
-   version, timed beside its bound and a library yardstick; launches per
-   forward at batch 1 and 32; timings beside the bf16 run's; a profile.
+   version, timed beside its bound and a library yardstick (qmm: each
+   launch twice for the same bits, its GEMM and row pass apart, beside
+   torch._int_mm alone and with the epilogue, on zero-padded copies where
+   K or N is not a multiple of 8); launches per forward at batch 1 and 32;
+   timings beside the bf16 run's; a profile.
 6. Variant kernel phase: flash_mha_int8_qout, flash_int8_handoff (int8 and
    bf16 output; q scale tables of one group a row and of groups of 512
    columns) and quant_rows(qmax=7) with the w4a4 qmm, against their plain
@@ -691,7 +700,7 @@ KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
     ("flash attention backward (ours)", ("flash_bwd_",)),  # sm90, template and fp32 forms
     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
     ("int8 flash attention (ours)", ("flash_int8_kernel", "flash_int8_sm90_kernel")),
-    ("int8 GEMM (ours)", ("qmm_kernel", "rows_out_kernel")),
+    ("int8 GEMM (ours)", ("qmm_sm90_kernel", "rows_out_kernel")),
     ("int8 row quantize (ours)", ("quant_rows_kernel",)),
     ("batch/layer norm", ("bn_fw", "batch_norm", "layer_norm")),
     ("convolution", ("conv", "implicit", "winograd", "fprop", "dgrad", "wgrad")),
@@ -1071,6 +1080,81 @@ QMM_FAULTS = {"qmm_k_slab_dropped": _k_slab_dropped, "qmm_group_width_halved": _
               "qmm_k_tail_dropped": _k_tail_dropped}
 
 
+# The faults of csrc/qmm_sm90.cu's design, planted in the plain version: its
+# 128-byte K slabs (a ring stage read twice and its neighbour never, or one
+# dropped), the per-tile requantize (a group's words on the next group's
+# ratio), its two consumer warpgroups (the second's 64 rows of every 128-row
+# tile left unwritten: zeros here) and the last column tile of the plan's
+# width written one column to the right. Each takes (module, plan).
+def _slab_read_twice(qm, plan):
+    real = qm._int_dot
+
+    def faulty(a, b):
+        a, b = a.clone(), b.clone()
+        a[..., 128:256] = a[..., :128]
+        b[..., 128:256] = b[..., :128]
+        return real(a, b)
+    return _patched(qm, "_int_dot", faulty)
+
+
+def _slab128_dropped(qm, plan):
+    real = qm._int_dot
+
+    def faulty(a, b):
+        a = a.clone()
+        a[..., 128:256] = 0
+        return real(a, b)
+    return _patched(qm, "_int_dot", faulty)
+
+
+def _group_neighbour_ratio(qm, plan):
+    import torch
+
+    real = qm._requant
+
+    def faulty(xq, x_scales):
+        groups = x_scales.shape[-1]
+        if groups == 1:
+            return real(xq, x_scales)
+        smax = torch.clamp(x_scales.amax(dim=-1, keepdim=True), min=1e-30)
+        ratio = (torch.roll(x_scales, -1, dims=-1) / smax)[..., None]
+        x3 = xq.reshape(*xq.shape[:-1], groups, -1).float()
+        return torch.round(x3 * ratio).reshape(xq.shape).to(torch.int8), smax
+    return _patched(qm, "_requant", faulty)
+
+
+def _second_warpgroup_rows(qm, plan):
+    import torch
+
+    real = qm._epilogue_plain
+
+    def faulty(acc, *args):
+        out = real(acc, *args)
+        rows = torch.arange(out.shape[0], device=out.device)
+        return torch.where(((rows % 128) >= 64)[:, None], torch.zeros_like(out), out)
+    return _patched(qm, "_epilogue_plain", faulty)
+
+
+def _last_tile_shifted(qm, plan):
+    import torch
+
+    real = qm._epilogue_plain
+
+    def faulty(acc, *args):
+        out = real(acc, *args)
+        n = out.shape[-1]
+        c0 = (n - 1) // plan["bn"] * plan["bn"]
+        return torch.cat([out[:, :c0 + 1], out[:, c0:n - 1]], dim=1)
+    return _patched(qm, "_epilogue_plain", faulty)
+
+
+QMM_SM90_FAULTS = {"qmm_slab_read_twice": _slab_read_twice,
+                   "qmm_slab128_dropped": _slab128_dropped,
+                   "qmm_group_neighbour_ratio": _group_neighbour_ratio,
+                   "qmm_second_warpgroup_rows_unwritten": _second_warpgroup_rows,
+                   "qmm_last_column_tile_shifted": _last_tile_shifted}
+
+
 def int8_attention_reference(q, k, v, heads, scale, scale_tile, max_tile, out_dtype=None,
                              key_keep=None):
     """The int8 attention function with the k/v scales taken per
@@ -1240,18 +1324,27 @@ def _qmm_case(name, x, xs, m, k, n, groups, act, residual, group=None, ln_out=Fa
                                  eps, dt)
     out = kern()
     torch.cuda.synchronize()
+    if x.is_cuda:  # csrc/qmm_sm90.cu: a second launch, the same bits
+        twice_same_bits(kern, out, f"qmm {name}")
     ref = plain()
     readings["qmm"] = int8_reading(out, ref)
+    plan = QM.qmm_sm90_plan(m, n, k, xs.shape[-1])
     faults = {}
     for fault, plant in QMM_FAULTS.items():
         if fault == "qmm_group_width_halved" and group is None:
             continue
         with plant(QM):
             faults[fault] = int8_reading(plain(), ref)["bar_used"]
+    for fault, plant in QMM_SM90_FAULTS.items():
+        if fault == "qmm_group_neighbour_ratio" and xs.shape[-1] == 1:
+            continue
+        with plant(QM, plan):
+            faults[fault] = int8_reading(plain(), ref)["bar_used"]
     readings["qmm_faults_bar_used"] = faults
     print(json.dumps({"check": f"qmm {name}", "m": m, "k": k, "n": n, "groups": groups,
                       "act": act, "residual": residual, "group": group, "ln_out": ln_out,
-                      "dtype": dtype, **readings}), flush=True)
+                      "dtype": dtype, "plan": {key: plan[key] for key in ("bn", "stages", "grid")},
+                      **readings}), flush=True)
     check(readings["qmm"]["bar_used"] <= 1.0, f"qmm {name}: kernel off the bar {readings['qmm']}")
     for fault, used in faults.items():
         check(used > 1.0, f"qmm {name}: the bar does not reject {fault} ({used:.3g}x)")
@@ -1409,19 +1502,26 @@ def _qmm_cost(args, out):
 
 
 def _library_qmm(args):
-    """One torch._int_mm (cuBLASLt int8 GEMM) plus the epilogue in PyTorch
-    ops: the yardstick of qmm (per-row x scales; the G > 1 requantize is
-    left out)."""
+    """The yardstick of qmm, two ways: one torch._int_mm (cuBLASLt's int8
+    GEMM) alone, and with the epilogue in PyTorch ops (per-row x scales;
+    the G > 1 requantize is left out). _int_mm takes K and N in multiples
+    of 8: other shapes (phi 'n' and 'm' h1 / h6, K = 849, 4,792, N =
+    2,547) run on copies zero-padded to them, made beforehand."""
     import torch
     import torch.nn.functional as F
 
     xq, xs, wq, ws, bias, act, res = args[:7]
-    if xq.shape[1] % 8 or wq.shape[0] % 8:
-        return None  # torch._int_mm takes K and N in multiples of 8
+    k, n = xq.shape[1], wq.shape[0]
+    k8, n8 = k + (-k % 8), n + (-n % 8)
+    a = F.pad(xq, (0, k8 - k)) if k8 != k else xq
+    b = F.pad(wq[:, :k8], (0, k8 - min(k8, wq.shape[1]), 0, n8 - n)).t()
     rs = xs if xs.shape[-1] == 1 else xs.amax(-1, keepdim=True)
 
-    def run():
-        out = torch._int_mm(xq, wq.t()).float() * rs * ws
+    def alone():
+        return torch._int_mm(a, b)
+
+    def with_epilogue():
+        out = torch._int_mm(a, b)[:, :n].float() * rs * ws
         if bias is not None:
             out = out + bias
         if act == "gelu":
@@ -1429,7 +1529,7 @@ def _library_qmm(args):
         if res is not None:
             out = out + res.float()
         return out.bfloat16()
-    return run
+    return alone, with_epilogue
 
 
 def int8_path_calls(model, images) -> dict:
@@ -1477,13 +1577,23 @@ def int8_path_calls(model, images) -> dict:
             ms = timed_ms(lambda: kernel(*args, **kw), 10, 2)
             plain_ms = timed_ms(lambda: plain(*args, **kw), 2, 1)
             if name == "qmm":
+                # csrc/qmm_sm90.cu: a second launch, the same bits
+                twice_same_bits(lambda: kernel(*args, **kw), out, f"qmm launch {i}")
                 bnd, by = _bound(*_qmm_cost(args, out))
-                lib = _library_qmm(args)
-                library_ms = None if lib is None else timed_ms(lib, 10, 2)
-                shape = {"m": args[0].shape[0], "k": args[0].shape[1], "n": args[2].shape[0],
-                         "groups": args[1].shape[-1], "act": args[5],
+                alone, with_epilogue = _library_qmm(args)
+                library_ms = timed_ms(with_epilogue, 5, 1)
+                rows_out = args[7] is not None or args[8] is not None
+                m, k, n = args[0].shape[0], args[0].shape[1], args[2].shape[0]
+                # the GEMM alone: the same call writing its fp32 workspace
+                # and no row pass
+                gemm_ms = (timed_ms(lambda: kernel(*args[:7], None, None, torch.float32), 5, 1)
+                           if rows_out else ms)
+                plan = QM.qmm_sm90_plan(m, n, k, args[1].shape[-1])
+                shape = {"m": m, "k": k, "n": n, "groups": args[1].shape[-1], "act": args[5],
                          "out": ("quant_out" if args[7] is not None
-                                 else "ln_out" if args[8] is not None else "bf16")}
+                                 else "ln_out" if args[8] is not None else "bf16"),
+                         "bn": plan["bn"], "gemm_ms": gemm_ms, "row_pass_ms": ms - gemm_ms,
+                         "int_mm_ms": timed_ms(alone, 5, 1)}
             elif name in ("quant_rows", "quant_rows_int4"):
                 x = args[0]
                 nbytes = x.numel() * (x.element_size() + 1) + x.shape[0] * 4
@@ -1680,10 +1790,10 @@ PERF_KEYS = ("batch1_latency_ms_p50", "batch1_latency_ms_p75", "batch32_imgs_per
              "batch32_forward_ms")
 
 
-def serving_timing(model, predictor, raw, shapes, images, rng) -> dict:
+def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3) -> dict:
     """Batch-1 latency (40 calls after 3 warm-ups, host clock) and forward;
-    batch-32 throughput (3 calls after 1, host clock), forward and peak
-    memory; a profile of one batch-32 forward, as the bf16 slice."""
+    batch-32 throughput (`iters` calls after 1, host clock), forward and
+    peak memory; a profile of one batch-32 forward, as the bf16 slice."""
     import numpy as np
     import torch
 
@@ -1706,13 +1816,12 @@ def serving_timing(model, predictor, raw, shapes, images, rng) -> dict:
         torch.cuda.reset_peak_memory_stats()
         predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
         t0 = time.perf_counter()
-        iters = 3
         for _ in range(iters):
             predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
         b32_s = (time.perf_counter() - t0) / iters
         img32 = letterbox_batch(torch.as_tensor(raw32, device="cuda").float() / 255.0,
                                 predictor.model_cfg.input_shape)
-        fwd32 = timed_ms(lambda: model(img32), 3, 1)
+        fwd32 = timed_ms(lambda: model(img32), iters, 1)
         peak = torch.cuda.max_memory_allocated() / 2**30
         profile = profile_forward(model, img32)
     return {"batch1_latency_ms_p50": lat[len(lat) // 2],
@@ -1737,6 +1846,10 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
                      else "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "mixed"),
         "library_ms": None if any(x is None for x in lib) else sum(lib),
     }
+    # qmm: its GEMM and row pass apart, and torch._int_mm alone
+    for key in ("gemm_ms", "row_pass_ms", "int_mm_ms"):
+        if rows and all(key in r for r in rows):
+            entry[key] = total(key)
     return {**entry, "shapes": rows}
 
 
@@ -3651,9 +3764,11 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
         if timed:
             record["rows"] = (bf16_path_calls(model, images[:2]) if not int8
                               else int8_path_calls(model, images[:2]))
+            # two timed batch-32 steps, not three: the smoke's time limit
             record["perf"] = {"card": card, "model": f"phi={phi} 640x640 {tag}",
                               "params": n_params,
-                              **serving_timing(model, predictor, raw, shapes, images, rng)}
+                              **serving_timing(model, predictor, raw, shapes, images, rng,
+                                               iters=2)}
             print(json.dumps({"scale_slice_perf": record["perf"]}), flush=True)
         results[tag] = record
         if model is not base:
@@ -4151,6 +4266,7 @@ def main() -> int:
     bsrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_sm90.cu"
     bf32_src = "transparent_object_detection_tpu_torch/csrc/flash_bwd_f32_sm90.cu"
     qsrc = "transparent_object_detection_tpu_torch/csrc/quant_matmul.cu"
+    qmm_src = "transparent_object_detection_tpu_torch/csrc/qmm_sm90.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
     # row 1 and rows 9-11's packed sites run the sm90 kernels; rows 9-11's
@@ -4165,8 +4281,8 @@ def main() -> int:
                      launches["flash_single"]),
         *int8_attention_entries("flash_mha_int8", "", int8_rows["flash_mha_int8"],
                                 int8_launches, int8_err["flash_mha_int8"], f"{ja8}:58"),
-        int8_kernel_entry("qmm", qsrc, f"{jq}:80", int8_rows["qmm"], int8_launches["qmm"],
-                          int8_err["qmm"]),
+        int8_kernel_entry("qmm sm90", qmm_src, f"{jq}:80", int8_rows["qmm"],
+                          int8_launches["qmm"], int8_err["qmm"]),
         int8_kernel_entry("quant_rows", qsrc, f"{jq}:408", int8_rows["quant_rows"],
                           int8_launches["quant_rows"], int8_err["quant_rows"]),
         # the variants: launches of the counted batch-32 forward, times of the
@@ -4208,7 +4324,7 @@ def main() -> int:
     ja = "transparent_object_detection_tpu/ops/attention.py"
     forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", src, f"{ja}:137"),
              ("flash_mha_int8", I8_SRC, f"{ja8}:58"), ("flash_mha_int8_qout", I8_SRC, f"{ja8}:184"),
-             ("flash_int8_handoff", I8_SRC, f"{ja8}:435"), ("qmm", qsrc, f"{jq}:80"),
+             ("flash_int8_handoff", I8_SRC, f"{ja8}:435"), ("qmm", qmm_src, f"{jq}:80"),
              ("quant_rows", qsrc, f"{jq}:408"), ("quant_rows_int4", qsrc, f"{jq}:408"))
     runs = (("phi=m", m_run, ("bf16", "int8", "A", "B"), 32, ""),
             ("fp32 phi=m", m_run, ("fp32",), 2, "_f32"),
@@ -4228,7 +4344,8 @@ def main() -> int:
             sm90 = name == "flash_mha_packed" and not suffix
             f32 = suffix and name in ("flash_mha_packed", "flash_single")
             kernels.append(int8_kernel_entry(
-                f"{name} {label}", sm90_src if sm90 else f32_src if f32 else source, replaces,
+                f"{'qmm sm90' if name == 'qmm' else name} {label}",
+                sm90_src if sm90 else f32_src if f32 else source, replaces,
                 r["rows"][name],
                 r["launches"][batch][name + ("_sm90" if sm90 else "_f32" if f32 else "")],
                 scale_err.get(name + suffix, 0.0)))

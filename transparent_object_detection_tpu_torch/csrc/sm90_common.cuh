@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that run a TMA ring
 // into wgmma (flash_fwd_sm90.cu and flash_bwd_sm90.cu, bf16;
-// flash_int8_sm90.cu, int8): mbarrier phases, 4-D TMA tile loads, wgmma
+// flash_int8_sm90.cu and qmm_sm90.cu, int8, whose products are in
+// wgmma_s8.cuh): mbarrier phases, 4-D and 2-D TMA tile loads, wgmma
 // shared-memory descriptors, fences and groups, named barriers, setmaxnreg,
 // cuTensorMapEncodeTiled looked up at run time, for the bf16 kernels the
 // m64n64k16 SS product, the RS products of N 64 to 256 and the 4-D map of a
@@ -50,6 +51,17 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(head), "r"(row), "r"(b)
+      : "memory");
+}
+
+// One box of a 2-D map into shared memory at (col, row), innermost first
+// (qmm_sm90.cu's K-major operands: byte column, row).
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
       : "memory");
 }
 

@@ -6,13 +6,23 @@ the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 and
 JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads | --train-step | --f32]
+        [--forward | --wide-heads | --train-step | --f32 | --qmm]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
 TEB's configurations A (attn_handoff + w4a4_mlp1) and B (attn_qout):
 batch 1 on the host clock (the latency path) and by the device's busy
-time, batch 32 with CUDA events. With --wide-heads
+time, batch 32 with CUDA events; then the phi='m' int8 forward at batch 32.
+With --qmm it times only qmm (row 6) at every distinct launch shape of one
+int8 forward of phi 's' and 'm' 640x640 at batch 2 and at batch 1 (the
+launches recorded from the model's own forward, then each shape's call
+repeated): the call, and for the quantized outputs its GEMM alone (the
+same call writing the fp32 workspace, no row pass), beside torch._int_mm
+alone and with the epilogue (on copies zero-padded to multiples of 8
+where K or N is not), the activations' pad copy where K % 16 != 0, and
+the sums over the forward by its launch counts. A checkout before
+csrc/qmm_sm90.cu times the mma.sync GEMM of csrc/quant_matmul.cu (with its
+per-call weight pad). With --wide-heads
 it times only the two forms csrc/flash_fwd_sm90.cu has for heads wider
 than 256, at phi='m' (8 heads of 384): the warpgroup split that
 `attention.sm90_plan` picks and the sliced form (v in two slices of 192
@@ -70,6 +80,8 @@ NECK = (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)), ("h4", (2, 1600,
 INT8_WIDE = (("phi=m h2", (2, 6400, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 8)))
 # configurations of the --forward timing
 FORWARDS = ("bf16", "int8", "A", "B")
+# the --qmm forwards: (phi, batches)
+QMM_FORWARDS = (("s", (2, 1)), ("m", (2, 1)))
 # (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training sites
 TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)),
                ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)),
@@ -330,6 +342,96 @@ def time_forward() -> dict:
                     f"{key}_batch32_ms": b32})
         del model
         torch.cuda.empty_cache()
+    model = build_model(ModelConfig(phi="m", int8_dense=True, int8_attn=True), device="cuda",
+                        seed=0)
+    with torch.inference_mode():
+        out["forward_int8_phi_m_batch32_ms"] = timed_ms(lambda: model(img32), 3, 1)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int_mm_yardstick(args):
+    """torch._int_mm alone, and with qmm's epilogue in PyTorch ops (per-row
+    x scales; the G > 1 requantize left out), on copies of xq and wq
+    zero-padded to multiples of 8 where K or N is not one."""
+    import torch.nn.functional as F
+
+    xq, xs, wq, ws, bias, act, res = args[:7]
+    k, n = xq.shape[1], wq.shape[0]
+    k8, n8 = k + (-k % 8), n + (-n % 8)
+    a = F.pad(xq, (0, k8 - k)) if k8 != k else xq
+    b = F.pad(wq[:, :k8], (0, k8 - min(k8, wq.shape[1]), 0, n8 - n)).t()
+    rs = xs if xs.shape[-1] == 1 else xs.amax(-1, keepdim=True)
+
+    def with_epilogue():
+        o = torch._int_mm(a, b)[:, :n].float() * rs * ws
+        if bias is not None:
+            o = o + bias
+        if act == "gelu":
+            o = F.gelu(o, approximate="tanh")
+        if res is not None:
+            o = o + res.float()
+        return o.bfloat16()
+    return timed_ms(lambda: torch._int_mm(a, b), 10, 2), timed_ms(with_epilogue, 10, 2)
+
+
+def time_qmm() -> dict:
+    """ms of qmm at every distinct launch shape of one int8 forward (phi
+    and batches of QMM_FORWARDS), from the launches of the model's own
+    forward: the call, its GEMM alone where it has a row pass, _int_mm
+    alone and with the epilogue, the activations' pad copy where K % 16 !=
+    0; and each forward's sums by launch counts."""
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    real = QM.qmm
+    for phi, batches in QMM_FORWARDS:
+        model = build_model(ModelConfig(phi=phi, int8_dense=True, int8_attn=True), device="cuda",
+                            seed=0)
+        for batch in batches:
+            calls = {}
+
+            def recording(*args):
+                m, k = args[0].shape
+                out = ("quant_out" if args[7] is not None else "ln_out" if args[8] is not None
+                       else str(args[9])[6:])
+                key = (f"M={m} K={k} N={args[2].shape[0]} G={args[1].shape[-1]} act={args[5]} "
+                       f"res={None if args[6] is None else str(args[6].dtype)[6:]} out={out}")
+                calls.setdefault(key, [0, args])[0] += 1
+                return real(*args)
+            recording.launches = 0
+            QM.qmm = recording
+            try:
+                with torch.inference_mode():
+                    model(torch.rand(batch, 640, 640, 3, generator=gen, device="cuda"))
+            finally:
+                QM.qmm = real
+            rows, sums = {}, {}
+            with torch.inference_mode():
+                for key, (count, args) in calls.items():
+                    row = {"launches": count, "ms": timed_ms(lambda: real(*args), 10, 2)}
+                    if args[7] is not None or args[8] is not None:
+                        row["gemm_ms"] = timed_ms(
+                            lambda: real(*args[:7], None, None, torch.float32), 10, 2)
+                        row["row_pass_ms"] = row["ms"] - row["gemm_ms"]
+                    k = args[0].shape[1]
+                    if k % 16:
+                        row["x_pad_ms"] = timed_ms(lambda: F.pad(args[0], (0, -k % 16)), 10, 2)
+                    row["int_mm_ms"], row["int_mm_epilogue_ms"] = _int_mm_yardstick(args)
+                    rows[key] = row
+                    for name, v in row.items():
+                        if name != "launches":
+                            sums[name] = sums.get(name, 0.0) + count * v
+            out[f"phi={phi} batch {batch}"] = {"shapes": rows, "forward_sums_ms": sums,
+                                               "launches": sum(c for c, _ in calls.values())}
+            del calls
+        del model
+        torch.cuda.empty_cache()
     return out
 
 
@@ -396,6 +498,9 @@ def main() -> int:
         return 0
     if "--train-step" in sys.argv[1:]:
         print(json.dumps({**result, "ms": time_train_steps()}))
+        return 0
+    if "--qmm" in sys.argv[1:]:
+        print(json.dumps({**result, "qmm": time_qmm()}))
         return 0
     if "--f32" in sys.argv[1:]:
         # fp32 as chip_smoke.py runs it: no TF32 in SDPA, matmuls or convolutions

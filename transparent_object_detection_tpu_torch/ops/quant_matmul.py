@@ -20,17 +20,23 @@ The function (the JAX kernel's, on its TPU dispatch):
     and its per-row scale (the attn_out -> mlp1 handoff).
   * Rounding is half to even throughout, as `jnp.round` rounds.
 
-Kernels (csrc/quant_matmul.cu): `quant_rows` (replaces `_quant_rows_kernel`)
-quantizes bf16 or fp32 rows of any width; `qmm` (replaces `_qmm_kernel`)
-takes int8 rows with 1 or G > 1 scale groups (G > 1: each group is
-requantized onto the row's largest scale first, the JAX prologue), any M, N
-and K, and writes bf16 or fp32 (with a bf16 or fp32 residual). A bf16 or
-fp32 input runs as quant_rows then qmm, the JAX split route (`_pquant_call`)
-on every shape. Where the JAX dispatch leaves its kernel for
-`_qmm_reference` (K not a multiple of 128, N not of 256: phi='n' and 'm'
-h1 / h6, every fp32-compute model's odd widths), that reference computes
-the same function with one quant_out scale a row; `quant_out_group_width`
-says G = 1 there, and the kernels compute it.
+Kernels: `quant_rows` (csrc/quant_matmul.cu; replaces `_quant_rows_kernel`)
+quantizes bf16 or fp32 rows of any width; `qmm` (csrc/qmm_sm90.cu, int8
+wgmma fed by a TMA ring, on the tiles of `qmm_sm90_plan`; replaces
+`_qmm_kernel`) takes int8 rows with 1 or G > 1 scale groups (G > 1: each
+group is requantized onto the row's largest scale first, the JAX prologue,
+in a pre-pass of the same source), any M, N and K, and writes bf16 or fp32
+(with a bf16 or fp32 residual); its quantized outputs add the row pass of
+csrc/quant_matmul.cu. A bf16 or fp32 input runs as quant_rows then qmm, the
+JAX split route (`_pquant_call`) on every shape. Where the JAX dispatch
+leaves its kernel for `_qmm_reference` (K not a multiple of 128, N not of
+256: phi='n' and 'm' h1 / h6, every fp32-compute model's odd widths), that
+reference computes the same function with one quant_out scale a row;
+`quant_out_group_width` says G = 1 there, and the kernels compute it.
+
+Weights are int8 (N, K) rows padded with zero columns to K % 16 = 0 once,
+in `prepare_weights` (TMA reads rows of 16-byte multiples); the plain
+version reads their first K columns.
 
 The quant_out group width is part of the numbers: the consumer (mlp2, or
 attention in the qkv handoff) sees G = N / group scale groups.
@@ -51,6 +57,7 @@ device, for comparison only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -61,6 +68,7 @@ from transparent_object_detection_tpu_torch.config import Int8Variants
 ACTS = (None, "gelu", "silu")
 IMPLS = (None, "plain")
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
+K_MULTIPLE = 16  # qmm's rows are read by TMA: row strides of 16-byte multiples
 
 
 # ---------------------------------------------------------------------------
@@ -83,6 +91,14 @@ def fold_ln(w: torch.Tensor, bias: Optional[torch.Tensor], ln_scale: torch.Tenso
     if bias is not None:
         bias_eff = bias_eff + bias.float()
     return w_eff, bias_eff
+
+
+def pad_k(wq: torch.Tensor) -> torch.Tensor:
+    """int8 (N, K) -> (N, K rounded up to K_MULTIPLE), the new columns 0:
+    the row stride the GEMM kernel's TMA loads need. Leaves every dot
+    product unchanged."""
+    pad = -wq.shape[-1] % K_MULTIPLE
+    return F.pad(wq, (0, pad)) if pad else wq
 
 
 def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -300,7 +316,9 @@ def _output_plain(out, out_dtype, quant_out_group, ln_out_eps):
 
 def qmm_plain(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
               quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
-    """Plain version of `qmm` (the JAX `_qmm_reference` on pre-quantized x)."""
+    """Plain version of `qmm` (the JAX `_qmm_reference` on pre-quantized x);
+    wq (N, K) or padded (`pad_k`): its first K columns."""
+    wq = wq[:, :xq.shape[-1]]
     xq, row_scale = _requant(xq, x_scales)
     out = _epilogue_plain(_int_dot(xq, wq), row_scale, w_scale, bias, act, residual)
     return _output_plain(out, out_dtype, quant_out_group, ln_out_eps)
@@ -319,10 +337,21 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp]
         lib.quant_rows.restype = ci
-        lib.qmm.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
-        lib.qmm.restype = ci
         lib.qmm_rows_out.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
         lib.qmm_rows_out.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def _sm90_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("qmm_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.qmm_sm90.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                 ci, vp, vp]
+        lib.qmm_sm90.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -352,7 +381,6 @@ def _stream(t: torch.Tensor) -> int:
 
 QMAX = (127, 7)
 FLOAT_DTYPES = (torch.bfloat16, torch.float32)
-K_MULTIPLE = 16  # qmm's rows are read in 16-byte chunks
 
 
 def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
@@ -393,20 +421,111 @@ def kernel_supports(m: int, k: int, n: int, groups: int = 1) -> bool:
             and (groups == 1 or (k // groups) % 4 == 0))
 
 
+# csrc/qmm_sm90.cu's tiles: 128 rows (64 a consumer warpgroup), a width of
+# QMM_SM90_WIDTHS columns (the wgmma N), K slabs of 128 bytes a ring stage
+QMM_SM90_ROWS = 128
+QMM_SM90_SLAB = 128
+QMM_SM90_WIDTHS = (128, 64)
+QMM_SM90_MAX_STAGES = 8
+QMM_SM90_SMEM_LIMIT = 232448  # dynamic shared memory a block may use (227 KB)
+H100_SMS = 132
+QMM_SM90_PLAN_KEYS = ("bm", "bn", "stages", "grid", "smem_bytes")
+# Work a tile width does per column, relative to 128: 64 re-reads A from
+# shared memory for fewer columns (m64n64k32 reads 4 KB for 32 clocks of
+# tensor-core work). No 256: see csrc/qmm_sm90.cu, [grid].
+_WIDTH_RATE = {128: 1.0, 64: 0.8}
+
+
+def qmm_sm90_smem_bytes(bn: int, stages: int) -> int:
+    """Dynamic shared memory of csrc/qmm_sm90.cu: alignment slack (1 KB),
+    the ring, each stage A (128 x 128 bytes) and B (bn x 128 bytes), the
+    epilogue's staging tile (128 x (bn + 8) floats), the barriers (256
+    bytes)."""
+    return (1024 + stages * (QMM_SM90_ROWS + bn) * QMM_SM90_SLAB
+            + QMM_SM90_ROWS * (bn + 8) * 4 + 256)
+
+
+@functools.lru_cache(maxsize=None)
+def qmm_sm90_plan(m: int, n: int, k: int, groups: int = 1, sms: int = H100_SMS) -> dict:
+    """Launch plan of csrc/qmm_sm90.cu for an (M, K) x (K, N) qmm with G
+    input scale groups on a card of `sms` SMs: 128-row tiles of the width
+    `bn` whose waves of `sms` tiles cost least (waves x bn over the width's
+    relative rate, `_WIDTH_RATE`; ties to the wider): 128 at the large
+    launches (M = 12,800 to 204,800: 1,200 to 153,600 tiles), 64 where 128
+    would leave most SMs idle (the small-M launches: phi='s' h6 attn_out at
+    batch 1, M = 400, N = 2,048, is 64 tiles of 128 columns but 128 of 64;
+    at batch 2, M = 800, 112 tiles of 128 beat two waves of 64). The most
+    ring stages (up to 8) that fit 227 KB: 4 at 128, 7 at 64. With more
+    tiles than SMs the grid is persistent (`sms` blocks walking the tiles,
+    the next tile's loads and products under this one's epilogue), else
+    one block a tile. G only decides the requantize pre-pass, not the tiles.
+    Cached: a forward repeats a few shapes, and its small launches take
+    tens of microseconds on the card, beside the wrapper's host time."""
+    if not kernel_supports(m, k, n, groups):
+        raise ValueError(f"qmm takes groups of a multiple of 4 columns, got M={m} K={k} N={n} "
+                         f"G={groups}")
+    tiles_m = -(-m // QMM_SM90_ROWS)
+    best = None
+    for bn in QMM_SM90_WIDTHS:
+        tiles = tiles_m * -(-n // bn)
+        cost = -(-tiles // sms) * bn / _WIDTH_RATE[bn]
+        if best is None or cost < best[0]:
+            best = (cost, bn, tiles)
+    _, bn, tiles = best
+    stages = max(st for st in range(1, QMM_SM90_MAX_STAGES + 1)
+                 if qmm_sm90_smem_bytes(bn, st) <= QMM_SM90_SMEM_LIMIT)
+    return {"bm": QMM_SM90_ROWS, "bn": bn, "stages": stages, "tiles": tiles,
+            "persistent": tiles > sms, "grid": min(tiles, sms),
+            "smem_bytes": qmm_sm90_smem_bytes(bn, stages)}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_arg(m: int, n: int, k: int, groups: int, device: int):
+    """The plan of `qmm_sm90_plan` on this card as the library takes it:
+    (the int array, a pointer to it), made once a shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = qmm_sm90_plan(m, n, k, groups, sms)
+    arr = (ctypes.c_int * len(QMM_SM90_PLAN_KEYS))(*(plan[key] for key in QMM_SM90_PLAN_KEYS))
+    return arr, ctypes.cast(arr, ctypes.c_void_p)
+
+
+def _sm90_operands(xq: torch.Tensor, wq: torch.Tensor,
+                   groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """The GEMM's int8 operands as csrc/qmm_sm90.cu's TMA reads them: rows
+    of K rounded up to 16 bytes. wq must arrive so (`prepare_weights` pads
+    it once) and passes through as it is. With one scale group xq (M, K)
+    is padded with zero columns in a copy where K % 16 != 0 (phi 'n' and
+    'm' h1 / h6); with G > 1 it passes as it is, beside the (M, K rounded
+    up) workspace the requantize pre-pass writes. Returns (xq, wq, xr)."""
+    k = xq.shape[1]
+    kp = k + (-k % K_MULTIPLE)
+    if wq.shape[1] != kp:
+        raise ValueError(f"wq must have K rounded up to {K_MULTIPLE} columns ({kp} for K={k}; "
+                         f"prepare_weights pads it once), got {wq.shape[1]}")
+    if groups > 1:
+        return xq, wq, torch.empty((xq.shape[0], kp), dtype=torch.int8, device=xq.device)
+    if kp != k:
+        xq = F.pad(xq, (0, kp - k))
+    return xq, wq, None
+
+
 def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
         quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
     """int8 GEMM with the dequant epilogue. xq int8 (M, K) with x_scales f32
-    (M, G); wq int8 (N, K), w_scale f32 (N,); bias f32 (N,); residual bf16
-    or fp32 (M, N). Returns (M, N) in out_dtype (bf16 or fp32); with
+    (M, G); wq int8 (N, K rounded up to 16: `pad_k`, as `prepare_weights`
+    gives it), w_scale f32 (N,); bias f32 (N,); residual bf16 or fp32
+    (M, N). Returns (M, N) in out_dtype (bf16 or fp32); with
     `quant_out_group`, int8 (M, N) and f32 (M, N / group); with
     `ln_out_eps`, the value (M, N) in out_dtype, int8 (M, N), f32 (M, 1).
     Any M, N and K (G > 1: groups of a multiple of 4 columns).
 
     Port of ops/quant_matmul.py::_qmm_kernel. A CUDA tensor launches
-    csrc/quant_matmul.cu (the quant_out and ln_out outputs as the GEMM into
-    an fp32 workspace plus a row pass, two CUDA launches counted as one; K
-    not a multiple of 16 zero-padded in a copy of xq and wq first, which
-    leaves every dot product unchanged); a CPU tensor runs `qmm_plain`."""
+    csrc/qmm_sm90.cu on the plan of `qmm_sm90_plan` (G > 1: its requantize
+    pre-pass first; the quant_out and ln_out outputs as the GEMM into an
+    fp32 workspace plus the row pass of csrc/quant_matmul.cu; the launches
+    of one call counted as one; xq zero-padded in a copy where K % 16 != 0,
+    which leaves every dot product unchanged) or raises; a CPU tensor runs
+    `qmm_plain`."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}; choose from {ACTS}")
     if quant_out_group is not None and ln_out_eps is not None:
@@ -421,33 +540,29 @@ def qmm(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
     groups = x_scales.shape[-1]
     _check("xq", xq, torch.int8)
     _check("x_scales", x_scales, torch.float32, (m, groups))
-    _check("wq", wq, torch.int8, (n, k))
+    _check("wq", wq, torch.int8)
     _check("w_scale", w_scale, torch.float32, (n,))
     if bias is not None:
         _check("bias", bias, torch.float32, (n,))
     if residual is not None:
         _check("residual", residual, FLOAT_DTYPES, (m, n))
-    if not kernel_supports(m, k, n, groups):
-        raise ValueError(f"qmm takes groups of a multiple of 4 columns, got M={m} K={k} N={n} "
-                         f"G={groups}")
     if quant_out_group is not None and (quant_out_group < 1 or n % quant_out_group):
         raise ValueError(f"quant_out group {quant_out_group} does not tile N={n}")
-    pad = -k % K_MULTIPLE
-    if pad:  # 16-byte rows; G > 1 implies groups of 4-byte multiples, K = G * g
-        xq = torch.nn.functional.pad(xq, (0, pad))
-        wq = torch.nn.functional.pad(wq, (0, pad))
+    _, plan = _plan_arg(m, n, k, groups, xq.device.index)  # raises outside kernel_supports
+    xq, wq, xr = _sm90_operands(xq, wq, groups)
     rows_out = quant_out_group is not None or ln_out_eps is not None
     dev = xq.device
     out_f32 = rows_out or out_dtype == torch.float32
     out = torch.empty((m, n), dtype=torch.float32 if out_f32 else torch.bfloat16, device=dev)
     null = lambda t: 0 if t is None else t.data_ptr()
-    lib = _lib()
-    err = lib.qmm(xq.data_ptr(), x_scales.data_ptr(), wq.data_ptr(), w_scale.data_ptr(),
-                  null(bias), null(residual), out.data_ptr(), m, n, k + pad, groups,
-                  _ACT_CODE[act], int(out_f32),
-                  int(residual is not None and residual.dtype == torch.float32), _stream(xq))
-    _raise_on(err, "qmm")
+    err = _sm90_lib().qmm_sm90(
+        xq.data_ptr(), x_scales.data_ptr(), wq.data_ptr(), w_scale.data_ptr(), null(bias),
+        null(residual), out.data_ptr(), null(xr), m, n, k, wq.shape[1], groups, _ACT_CODE[act],
+        int(out_f32), int(residual is not None and residual.dtype == torch.float32),
+        plan, _stream(xq))
+    _raise_on(err, "qmm_sm90")
     if rows_out:
+        lib = _lib()
         payload = torch.empty((m, n), dtype=torch.int8, device=dev)
         if quant_out_group is not None:
             scales = torch.empty((m, n // quant_out_group), dtype=torch.float32, device=dev)
@@ -488,11 +603,12 @@ def reset_launch_counts() -> None:
 def prepare_weights(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
                     ln_scale: Optional[torch.Tensor] = None,
                     ln_bias: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """The weight side of a projection: LN affine folded in, then int8."""
+    """The weight side of a projection: LN affine folded in, then int8,
+    the rows padded to K % 16 = 0 (`pad_k`) here, once, and not per call."""
     if ln_scale is not None:
         w, bias = fold_ln(w, bias, ln_scale, ln_bias)
     wq, w_scale = quantize_weights(w)
-    return {"wq": wq, "w_scale": w_scale,
+    return {"wq": pad_k(wq), "w_scale": w_scale,
             "bias": None if bias is None else bias.float().contiguous()}
 
 
@@ -571,11 +687,12 @@ def quantize_weights4(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def prepare_weights4(w: torch.Tensor, bias: Optional[torch.Tensor] = None,
                      ln_scale: Optional[torch.Tensor] = None,
                      ln_bias: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """`prepare_weights` for w4a4: LN affine folded in, then int4-range."""
+    """`prepare_weights` for w4a4: LN affine folded in, then int4-range,
+    padded as there."""
     if ln_scale is not None:
         w, bias = fold_ln(w, bias, ln_scale, ln_bias)
     wq, w_scale = quantize_weights4(w)
-    return {"wq": wq, "w_scale": w_scale,
+    return {"wq": pad_k(wq), "w_scale": w_scale,
             "bias": None if bias is None else bias.float().contiguous()}
 
 
