@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all ten sources at once) and prints the card's name and power
+   nvcc (all eleven sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -93,15 +93,19 @@
    must reject (a kv tile dropped, the scale 2% off, a query tile unwritten;
    a key tile skipped in the dq loop, a query tile skipped in the dk/dv
    loop, the -D term dropped, lse off by 0.01, the scale missing from dS;
-   at the packed sites, which run csrc/flash_bwd_sm90.cu, also a key tile
-   read twice in dq, a query tile read twice in dk/dv, each with its
-   neighbour never read, and dS^T formed with the previous query tile's
-   P^T); two runs of the backward must give the same bits. Times kernel,
-   plain version and SDPA forward / backward.
+   at the packed sites, which run csrc/flash_bwd_sm90.cu, and at dark3,
+   which runs csrc/flash_bwd_single_sm90.cu, also a key tile read twice in
+   dq, a query tile read twice in dk/dv, each with its neighbour never
+   read, and dS^T formed with the previous query tile's P^T; at dark3 also
+   one v slab left out of dP^T and a dV column slice built from another
+   slice's dO columns); two runs of the backward must give the same bits.
+   Times kernel, plain version and SDPA forward / backward.
 9. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
    (SGD nesterov, EMA), synthetic batches like the JAX bench_train.py's. One
    batch-2 step with the launch counts reset before and read after
-   (fwd-lse 3 sm90 + 1, dq and dk/dv 3 sm90 + 1 each, no serving kernel),
+   (fwd-lse 3 sm90 + 1, dq and dk/dv 3 sm90 + 1 single_sm90 each, no
+   serving kernel; every launch of the one-head backward again for the
+   same bits),
    held against the same step
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
@@ -156,12 +160,16 @@
    its f32 counters asserted at every site, with the sm90 backward's ring
    and hand-over faults and its own: the low parts dropped from dS.K, dS^T.Q
    or P^T.dO, each transposed copy's token order undone, lse or D read one
-   row off);
+   row off; every bf16 one-head site of phi 'n' and 'm' (dark3, the folded
+   288 and 600) on csrc/flash_bwd_single_sm90.cu, with the ring and
+   hand-over faults and its own: one v slab left out of dP^T, a dV column
+   slice built from another slice's dO columns, the zero-filled columns
+   past 288 or 600 (or dark3's q/k of 32) made nonzero);
    the phi='s' faults (with the sm90 kernels' own where they run) and those
    of the width loop (a q/k slab left out of S, a v/dO slab left out of dP,
    the last dv pass unwritten, the tail key tile left out) each rejected on
-   some input spread; phi='m' (bf16) and phi='n' (fp32) sites timed beside
-   bound, plain and SDPA.
+   some input spread; phi='m' (bf16), phi='n' (fp32) and phi='n' bf16's
+   one-head sites timed beside bound, plain and SDPA.
    Then the folded route through attention(..., train=True) at phi 'n' and
    'm' h1 against plain, and a padded fold column leaking into dq rejected.
 15. phi='m' 640x640 training at full width with remat (1.354 B parameters):
@@ -182,7 +190,10 @@
    3-5 on csrc/flash_int8_sm90.cu, then rows 9-11's packed sites on the
    sm90 kernels; then the phi='m' and fp32 forms, rows 3-5 split by
    kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
-   9-11 at phi='m' (split likewise) and in fp32 last; the fp32 forms of
+   9-11 at phi='m' (split likewise: rows 10 and 11 at dark3 and the
+   folded h1 under csrc/flash_bwd_single_sm90.cu, each site's time, bound,
+   plain and SDPA backward apart in `sites`), rows 10 and 11 at the one-head
+   sites of phi='n', and in fp32 last; the fp32 forms of
    rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
    under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
    TFLOP/s), then {"ok": true,
@@ -2468,11 +2479,11 @@ def _f32_fwd_faults(V, q, k, v, scale, h):
                                            * V.A.LN2)}
 
 
-def _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h):
-    """dk of the plain backward with each 64-query tile's dS^T formed from
-    the P^T of the tile before it (the first tile its own): what the sm90
-    dk/dv kernel computes if the hand-over of P^T between its warpgroups
-    lost a barrier."""
+def _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h, tile=64):
+    """dk of the plain backward with each query tile's dS^T formed from the
+    P^T of the tile before it (the first tile its own): what the sm90 dk/dv
+    kernel computes if the hand-over of P^T between its warpgroups lost a
+    barrier."""
     import torch
 
     qh, kh, vh, doh = (V._split_heads(t, h).float() for t in (q, k, v, do))
@@ -2481,7 +2492,7 @@ def _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h):
     dk = torch.zeros_like(kh)
     for i in range(0, n, 1024):
         rows = torch.arange(i, min(i + 1024, n), device=q.device)
-        prev = torch.where(rows >= 64, rows - 64, rows)
+        prev = torch.where(rows >= tile, rows - tile, rows)
         p_prev = torch.exp2(qh[..., prev, :] @ kh.transpose(-1, -2) * s_scale
                             - lse4[..., prev, :] * V.A.LOG2E)
         dp = doh[..., rows, :] @ vh.transpose(-1, -2)
@@ -2512,22 +2523,73 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
         sound = both(q, k, v, do, lse, dcap)
         faults["scale_missing_from_dS"] = {"dq": sound["dq"] / scale, "dk": sound["dk"] / scale}
     form = V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype)
-    if form in ("sm90", "f32_sm90"):  # the same ring and hand-over
-        faults.update(_sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
+    if form in ("sm90", "f32_sm90", "single_sm90"):  # the same ring and hand-over
+        tiles = (64, 64)
+        if form == "single_sm90":  # its plans' token tiles
+            plans = V.bwd_single_sm90_plan(q.shape[-1], v.shape[-1])
+            tiles = (plans["dq"]["tile"], plans["dkv"]["tile"])
+        faults.update(_sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h, *tiles))
     if form == "f32_sm90":
         faults.update(_f32_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
+    if form == "single_sm90":
+        faults.update(_single_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
     return faults
 
 
-def _sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
-    """The sm90 backward's own faults (see `_bwd_faults`)."""
-    tw = _tile_twice
+def _next_row_columns(t, width):
+    """(B, N, d) -> (B, N, width): each row continued past d by the next
+    row's first columns (zeros past the last), as a tensor map of the
+    rounded-up width would read a contiguous array."""
+    import torch
+
+    b, n, d = t.shape
+    flat = torch.cat([t.reshape(b, n * d), t.new_zeros(b, width)], dim=1)
+    idx = (torch.arange(n, device=t.device)[:, None] * d
+           + torch.arange(width, device=t.device)[None, :])
+    return flat[:, idx]
+
+
+def _single_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
+    """The faults of csrc/flash_bwd_single_sm90.cu's design (with those of
+    `_sm90_bwd_faults`): one v slab (columns 64..127) left out of the DK
+    block's dP^T; a dV column slice built from another slice's dO columns
+    (the second slice from the first one's, or with one slice warpgroup 1's
+    half from warpgroup 0's columns); where a width is not a multiple of
+    64, the zero-filled columns past it made nonzero (the next row's)."""
+    dqk, dv = q.shape[-1], v.shape[-1]
+    plan = V.bwd_single_sm90_plan(dqk, dv)["dkv"]
+    vf = _bwd_variant(q, k, v, do, lse, dcap, scale, h, v_cols=(64, 128))
+    faults = {"v_slab_left_out_of_dPT": {"dk": vf["dk"]}}
+    sw = plan["slice_slabs"]
+    w0 = 64 * (sw if plan["slices"] > 1 else -(-sw // 2))
+    w1 = min(dv, w0 + 64 * sw)
+    other = do.clone()
+    other[..., w0:w1] = do[..., :w1 - w0]
+    faults["dv_slice_from_other_slices_dO"] = {
+        "dv": V.flash_bwd_dkv_plain(q, k, v, other, lse, dcap, scale, h)[1]}
+    if dqk % 64 or dv % 64:
+        wq, wv = -(-dqk // 64) * 64, -(-dv // 64) * 64
+        qp, kp = (_next_row_columns(t, wq) for t in (q, k))
+        vp, dop = (_next_row_columns(t, wv) for t in (v, do))
+        dq = V.flash_bwd_dq_plain(qp, kp, vp, dop, lse, dcap, scale, h)
+        dk, dvv = V.flash_bwd_dkv_plain(qp, kp, vp, dop, lse, dcap, scale, h)
+        faults["zero_filled_columns_nonzero"] = {"dq": dq[..., :dqk], "dk": dk[..., :dqk],
+                                                 "dv": dvv[..., :dv]}
+    return faults
+
+
+def _sm90_bwd_faults(V, q, k, v, do, lse, dcap, scale, h, key_tile=64, query_tile=64):
+    """The sm90 backward's own faults (see `_bwd_faults`), on key tiles of
+    `key_tile` tokens in dq and query tiles of `query_tile` in dk/dv."""
+    tk = lambda t: _tile_twice(t, key_tile, 2 * key_tile)
+    tq = lambda t: _tile_twice(t, query_tile, 2 * query_tile)
     return {
-        "key_tile_read_twice_in_dq": {"dq": V.flash_bwd_dq_plain(q, tw(k), tw(v), do, lse, dcap,
+        "key_tile_read_twice_in_dq": {"dq": V.flash_bwd_dq_plain(q, tk(k), tk(v), do, lse, dcap,
                                                                  scale, h)},
         "query_tile_read_twice_in_dkv": dict(zip(("dk", "dv"), V.flash_bwd_dkv_plain(
-            tw(q), k, v, tw(do), tw(lse), tw(dcap), scale, h))),
-        "dS_from_previous_P": {"dk": _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h)},
+            tq(q), k, v, tq(do), tq(lse), tq(dcap), scale, h))),
+        "dS_from_previous_P": {"dk": _stale_p_dk(V, q, k, v, do, lse, dcap, scale, h,
+                                                 query_tile)},
     }
 
 
@@ -2826,6 +2888,7 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             return out
         # the wrapper counts on the name it is bound to
         launch.launches = launch.sm90_launches = launch.f32_launches = 0
+        launch.single_launches = 0
         return launch
 
     for name in real:
@@ -2846,6 +2909,10 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             kw = {k: v for k, v in kw.items() if k not in ("dq", "dk", "dv")}
             q, heads = args[0], (args[4] if name == "flash_fwd_lse" else args[7])
             f32 = q.dtype == torch.float32
+            # the f32_sm90 kernels and the one-head sm90 backward: a second
+            # launch, the same bits
+            twice = f32 or (name != "flash_fwd_lse" and V.bwd_form(
+                q.shape[-1] // heads, args[2].shape[-1] // heads, heads, q.dtype) == "single_sm90")
             if name == "flash_fwd_lse":
                 if f32:  # the f32_sm90 kernel: a second launch, the same bits
                     again = real[name](*args, **kw)
@@ -2857,12 +2924,12 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
                 r["bar_used"] = max(r["bar_used"], r["lse_max_abs_err"]
                                     / (F32_LSE_ATOL if f32 else LSE_ATOL))
             elif name == "flash_bwd_dq":
-                if f32:  # the f32_sm90 kernels: a second launch, the same bits
+                if twice:
                     check(torch.equal(real[name](*args, **kw), out),
                           f"{name} launch {i}: two launches gave different bits")
                 r = grad_reading(out, V.flash_bwd_dq_plain(*args, **kw), f32)
             else:
-                if f32:
+                if twice:
                     again = real[name](*args, **kw)
                     check(torch.equal(again[0], out[0]) and torch.equal(again[1], out[1]),
                           f"{name} launch {i}: two launches gave different bits")
@@ -2888,9 +2955,11 @@ def train_launch_counts():
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
                     "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
                     "flash_bwd_dq_f32": V.flash_bwd_dq.f32_launches,
+                    "flash_bwd_dq_single": V.flash_bwd_dq.single_launches,
                     "flash_bwd_dkv": V.flash_bwd_dkv.launches,
                     "flash_bwd_dkv_sm90": V.flash_bwd_dkv.sm90_launches,
                     "flash_bwd_dkv_f32": V.flash_bwd_dkv.f32_launches,
+                    "flash_bwd_dkv_single": V.flash_bwd_dkv.single_launches,
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
@@ -2909,9 +2978,10 @@ def train_expected(cfg) -> dict:
     bf16 heads on the sm90 kernel and every fp32 forward on the f32_sm90
     kernel (`lse_fwd_form`), the backward of packed bf16 heads on the
     sm90 kernels where `bwd_form` sends it (heads of 128 to 384) and every
-    fp32 backward on the f32_sm90 kernels; with
-    remat, every neck site's forward runs again in the backward's
-    recompute; no serving kernel."""
+    fp32 backward on the f32_sm90 kernels, the bf16 one-head backward
+    (dark3, folded heads) on the single_sm90 kernels where `bwd_form` sends
+    it (phi 'n', 's', 'm'); with remat, every neck site's forward runs
+    again in the backward's recompute; no serving kernel."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention as A
@@ -2919,7 +2989,9 @@ def train_expected(cfg) -> dict:
 
     counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_f32": 0,
               "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_f32": 0,
-              "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0, "flash_bwd_dkv_f32": 0, "flash_mha_packed": 0, "flash_mha_packed_sm90": 0,
+              "flash_bwd_dq_single": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
+              "flash_bwd_dkv_f32": 0, "flash_bwd_dkv_single": 0, "flash_mha_packed": 0,
+              "flash_mha_packed_sm90": 0,
               "flash_mha_packed_f32": 0, "flash_single": 0, "flash_single_f32": 0,
               "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
@@ -2931,8 +3003,12 @@ def train_expected(cfg) -> dict:
                               dtype)
         counts["flash_fwd_lse" + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")] += (
             2 if cfg.remat and name != "dark3" else 1)
-        bwd = {"sm90": "_sm90", "f32_sm90": "_f32"}.get(
-            V.bwd_form(cq // heads, cv // heads, heads if route == "packed" else 1, dtype), "")
+        # folded heads reach the backward as single heads of the widths the
+        # fold copy pads to a multiple of 8
+        pad8 = (lambda d: -(-d // 8) * 8) if route == "folded" else (lambda d: d)
+        bwd = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}.get(
+            V.bwd_form(pad8(cq // heads), pad8(cv // heads), heads if route == "packed" else 1,
+                       dtype), "")
         counts["flash_bwd_dq" + bwd] += 1
         counts["flash_bwd_dkv" + bwd] += 1
     return counts
@@ -4069,12 +4145,14 @@ def train_scale_kernel_phase() -> dict:
             suffix = " fp32" if is32 else ""
             for kname in TRAIN_KERNELS:  # by kernel: the sm90 ones' sites apart
                 rule = V.lse_fwd_form if kname == "flash_fwd_lse" else V.bwd_form
-                form = kname + suffix + (" sm90" if rule(q.shape[-1] // h, v.shape[-1] // h, h,
-                                                         q.dtype) == "sm90" else "")
+                form = kname + suffix + {"sm90": " sm90", "single_sm90": " single_sm90"}.get(
+                    rule(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype), "")
                 err[form] = max(err.get(form, 0.0),
                                 max(x["max_abs_err"] for x in readings[kname]))
+            # phi='m' bf16, phi='n' fp32 and phi='n' bf16's one-head sites
             timed = (phi == "m" and hw == (640, 640) and not is32) or \
-                (is32 and phi == "n" and hw == (640, 640) and name != "phi=m h4")
+                (is32 and phi == "n" and hw == (640, 640) and name != "phi=m h4") or \
+                (phi == "n" and hw == (640, 640) and not is32 and route != "packed")
             if not timed:
                 continue
             # time on the last (peaked) inputs
@@ -4113,7 +4191,7 @@ def train_scale_kernel_phase() -> dict:
                            plain_ms=timed_ms(plain[kname], 1, 1), library_ms=library[kname],
                            bound_ms=max(t_ops, t_bytes) * 1e3,
                            bound_by="operations" if t_ops >= t_bytes else "bytes")
-                rows.setdefault(kname + (" fp32 phi=n" if is32 else " phi=m"), []).append(row)
+                rows.setdefault(kname + (" fp32 phi=n" if is32 else f" phi={phi}"), []).append(row)
                 print(json.dumps({"kernel": kname + suffix, **row}), flush=True)
     print(json.dumps({"train_scale_kernel_max_abs_err": err}), flush=True)
     return {"rows": rows, "err": err}
@@ -4269,9 +4347,18 @@ def main() -> int:
     qmm_src = "transparent_object_detection_tpu_torch/csrc/qmm_sm90.cu"
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
-    # row 1 and rows 9-11's packed sites run the sm90 kernels; rows 9-11's
-    # single-head site (dark3) the mma_sync templates
+    ssrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_single_sm90.cu"
+    # row 1 and rows 9-11's packed sites run the sm90 kernels; row 9's
+    # single-head site (dark3) the mma_sync template, rows 10 and 11's the
+    # one-head sm90 kernels
     form_rows = lambda rows, sm90: [r for r in rows if (r.get("form") == "sm90") == sm90]
+    form_is = lambda rows, form: [r for r in rows if r.get("form") == form]
+
+    def by_site(entry):  # each site's time beside its bound, plain and SDPA's backward
+        entry["sites"] = {r["node"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms",
+                                                        "library_ms")}
+                          for r in entry["shapes"]}
+        return entry
     kernels = [
         kernel_entry("flash_mha_packed", sm90_src,
                      "transparent_object_detection_tpu/ops/attention.py:239", mha_rows,
@@ -4302,11 +4389,12 @@ def main() -> int:
         kernel_entry("flash_fwd_lse", src, f"{jv}:63",
                      form_rows(train_rows["flash_fwd_lse"], False),
                      train_launches["flash_fwd_lse"]),
-        kernel_entry("flash_bwd_dq", vsrc, f"{jv}:170",
-                     form_rows(train_rows["flash_bwd_dq"], False), train_launches["flash_bwd_dq"]),
-        kernel_entry("flash_bwd_dkv", vsrc, f"{jv}:197",
-                     form_rows(train_rows["flash_bwd_dkv"], False),
-                     train_launches["flash_bwd_dkv"]),
+        by_site(kernel_entry("flash_bwd_dq single_sm90", ssrc, f"{jv}:170",
+                             form_is(train_rows["flash_bwd_dq"], "single_sm90"),
+                             train_launches["flash_bwd_dq_single"])),
+        by_site(kernel_entry("flash_bwd_dkv single_sm90", ssrc, f"{jv}:197",
+                             form_is(train_rows["flash_bwd_dkv"], "single_sm90"),
+                             train_launches["flash_bwd_dkv_single"])),
         kernel_entry("flash_fwd_lse sm90", sm90_src, f"{jv}:63",
                      form_rows(train_rows["flash_fwd_lse"], True),
                      train_launches["flash_fwd_lse_sm90"]),
@@ -4350,19 +4438,30 @@ def main() -> int:
                 r["launches"][batch][name + ("_sm90" if sm90 else "_f32" if f32 else "")],
                 scale_err.get(name + suffix, 0.0)))
     # rows 9-11 at the other scales: phi='m' 640x640 bf16 (launches of the
-    # counted batch-2 remat step, times of its four sites at batch 2) and
-    # fp32 (launches of the phi='n' fp32 step, times of its sites); errors
-    # the largest of the train scale kernel phase
-    for label, run, suffix in (("phi=m", m_train, ""), ("fp32 phi=n", n32_train, " fp32")):
+    # counted batch-2 remat step, times of its four sites at batch 2),
+    # phi='n' bf16's one-head backward (launches of the phi='n' bf16 step,
+    # times of dark3 and the folded h1) and fp32 (launches of the phi='n'
+    # fp32 step, times of its sites); errors the largest of the train scale
+    # kernel phase
+    for label, run, suffix in (("phi=m", m_train, ""), ("phi=n", n_train, ""),
+                               ("fp32 phi=n", n32_train, " fp32")):
         for name, source, sm90_source, line in (("flash_fwd_lse", src, sm90_src, 63),
                                                 ("flash_bwd_dq", vsrc, bsrc, 170),
                                                 ("flash_bwd_dkv", vsrc, bsrc, 197)):
-            rows = train_scale["rows"][f"{name}{suffix} {label.split()[-1]}"]
+            rows = train_scale["rows"].get(f"{name}{suffix} {label.split()[-1]}", [])
             if form_rows(rows, True):  # packed bf16 sites: the sm90 kernels
                 kernels.append(int8_kernel_entry(
                     f"{name} sm90 {label}", sm90_source, f"{jv}:{line}", form_rows(rows, True),
                     run["launches"][name + "_sm90"], train_scale["err"][name + suffix + " sm90"]))
                 rows = form_rows(rows, False)
+            if form_is(rows, "single_sm90"):  # bf16 one head: dark3 and the folded h1 apart
+                kernels.append(by_site(int8_kernel_entry(
+                    f"{name} single_sm90 {label}", ssrc, f"{jv}:{line}",
+                    form_is(rows, "single_sm90"), run["launches"][name + "_single"],
+                    train_scale["err"][name + suffix + " single_sm90"])))
+                rows = [r for r in rows if r.get("form") != "single_sm90"]
+            if not rows:
+                continue
             # every fp32 call: the f32_sm90 kernels
             f32_source = f32_src if name == "flash_fwd_lse" else bf32_src
             kernels.append(int8_kernel_entry(

@@ -67,13 +67,14 @@ def _fp32_sites():
 def test_bwd_form_every_fp32_training_site(phi):
     """Every fp32 training call of `phi` (640x640 and 480x576: packed,
     single-head and folded) takes the fp32 Hopper backward, whatever its
-    widths; the bf16 rule is unchanged; the FFMA kernel and its fp32 flag
-    are gone from the template's source."""
+    widths; bf16 keeps its own three forms; the FFMA kernel and its fp32
+    flag are gone from the template's source."""
     calls = [s for s in _fp32_sites() if s[0] == phi]
     assert {s[3] for s in calls} >= {"packed", "single"}, phi
     for _, hw, name, route, n, dqk, dv, heads in calls:
         assert tvjp.bwd_form(dqk, dv, heads, torch.float32) == "f32_sm90", (hw, name)
-        assert tvjp.bwd_form(dqk, dv, heads, torch.bfloat16) in ("sm90", "mma_sync"), (hw, name)
+        assert tvjp.bwd_form(dqk, dv, heads, torch.bfloat16) in (
+            "sm90", "single_sm90", "mma_sync"), (hw, name)
         assert tvjp.kernel_supports(n, dqk, dv, heads, torch.float32), (hw, name)
     src = (CSRC / "flash_attn_bwd.cu").read_text()
     assert "flash_bwd_f32_kernel" not in src and "int f32" not in src

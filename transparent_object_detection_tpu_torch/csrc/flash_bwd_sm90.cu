@@ -9,8 +9,9 @@
 //   * _bwd_dq_kernel  -> flash_bwd_dq_sm90_kernel:  dq = sum_k dS K
 //   * _bwd_dkv_kernel -> flash_bwd_dkv_sm90_kernel: dk = sum_q dS^T Q,
 //                                                   dv = sum_q P^T dO
-// csrc/flash_attn_bwd.cu keeps one head (dark3, folded heads), fp32, packed
-// heads of 448 and wider and widths that are not multiples of 64;
+// csrc/flash_bwd_single_sm90.cu takes one head (dark3 of phi 'n' to 'm',
+// the folded heads), csrc/flash_bwd_f32_sm90.cu fp32, csrc/flash_attn_bwd.cu
+// packed heads of 448 and wider, phi 'l'/'x' dark3 and other widths;
 // ops/attention_vjp.py::bwd_form states the rule.
 //
 // Arithmetic, that of flash_attn_bwd.cu and of the Pallas kernels

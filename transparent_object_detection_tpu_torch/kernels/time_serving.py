@@ -2,8 +2,9 @@
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
 this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites and
 the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 and
-9-11 also at phi='m' h2 and h4, 8 heads of 384), on one GPU; prints one
-JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
+9-11 also at phi='m' h2 and h4, 8 heads of 384; rows 9-11 also at the
+one-head sites of phi='m' and 'n': dark3 and the folded h1), on one GPU;
+prints one JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
         [--forward | --wide-heads | --train-step | --f32 | --qmm]
@@ -82,10 +83,17 @@ INT8_WIDE = (("phi=m h2", (2, 6400, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 8)))
 FORWARDS = ("bf16", "int8", "A", "B")
 # the --qmm forwards: (phi, batches)
 QMM_FORWARDS = (("s", (2, 1)), ("m", (2, 1)))
-# (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training sites
+# (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training
+# sites, then phi='m' and phi='n' ones: the packed h2 and h4 of phi='m', and
+# the one-head sites of both (dark3; the folded h1 as the fold copy hands it
+# over, B * H single heads of the padded width)
 TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)),
                ("h4", (2, 1600, 1536, 1536, 6)), ("dark3", (2, 6400, 64, 512, 1)),
-               ("phi=m h2", (2, 6400, 3072, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 3072, 8)))
+               ("phi=m h2", (2, 6400, 3072, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 3072, 8)),
+               ("phi=m dark3", (2, 6400, 128, 1024, 1)),
+               ("phi=m h1 folded", (16, 1600, 600, 600, 1)),
+               ("phi=n dark3", (2, 6400, 32, 256, 1)),
+               ("phi=n h1 folded", (6, 1600, 288, 288, 1)))
 # the --train-step configurations: (label, ModelConfig keywords, batch)
 TRAIN_STEPS = (("phi=s", {}, 16), ("phi=m remat", {"phi": "m", "remat": True}, 16))
 # the --f32 sites: (name, entry point, (batch, tokens, q/k width, v width,
@@ -121,8 +129,9 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def time_training_kernels(randn) -> dict:
-    """ms of flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at each phi='s'
-    training site (q/k/v as column views of one packed qkv for the neck)."""
+    """ms of flash_fwd_lse, flash_bwd_dq and flash_bwd_dkv at each training
+    site of TRAIN_SITES (q/k/v as column views of one packed qkv for packed
+    heads), and the kernel `bwd_form` names for the backward."""
     out = {}
     for name, (b, n, cq, cv, h) in TRAIN_SITES:
         scale = (cq // h) ** -0.5 if h > 1 else 1.0
@@ -138,6 +147,7 @@ def time_training_kernels(randn) -> dict:
         out[f"flash_fwd_lse {name}"] = timed_ms(lambda: V.flash_fwd_lse(q, k, v, scale, h))
         out[f"flash_bwd_dq {name}"] = timed_ms(lambda: V.flash_bwd_dq(*args))
         out[f"flash_bwd_dkv {name}"] = timed_ms(lambda: V.flash_bwd_dkv(*args))
+        out[f"bwd_form {name}"] = V.bwd_form(cq // h, cv // h, h, q.dtype)
     return out
 
 

@@ -18,15 +18,18 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
                  bf16)
   flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_bwd_sm90.cu for bf16
                  packed heads of equal widths that are multiples of 64 up to
-                 384, the rule of `bwd_form`; csrc/flash_bwd_f32_sm90.cu for
-                 fp32 at every width, packed heads or one;
-                 csrc/flash_attn_bwd.cu for the other bf16 calls: one head
-                 and other widths)
-  flash_bwd_dkv  replaces _bwd_dkv_kernel (the same three sources: on the
+                 384, the rule of `bwd_form`; csrc/flash_bwd_single_sm90.cu
+                 for bf16 with one head: dark3 of phi 'n', 's' and 'm', the
+                 folded heads;
+                 csrc/flash_bwd_f32_sm90.cu for fp32 at every width, packed
+                 heads or one; csrc/flash_attn_bwd.cu for the other bf16
+                 calls: dark3 of phi 'l' and 'x', packed heads of 448 and
+                 wider, other widths)
+  flash_bwd_dkv  replaces _bwd_dkv_kernel (the same four sources: on the
                  bf16 sm90 kernel one launch up to heads of 256 and two, a dv
-                 and a dk launch, at 320 and 384; on the fp32 kernel one
-                 launch; on the template two, the dk pass and the dv pass;
-                 counted once, as the TPU kernel)
+                 and a dk launch, at 320 and 384; on the one-head and fp32
+                 kernels one launch; on the template two, the dk pass and the
+                 dv pass; counted once, as the TPU kernel)
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
@@ -180,14 +183,24 @@ def bwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
     (csrc/flash_bwd_f32_sm90.cu) for every fp32 call, packed heads or one;
     "sm90" (csrc/flash_bwd_sm90.cu) for bf16 packed heads (num_heads > 1)
     whose q/k and v widths are equal multiples of 64 up to 384, which every
-    packed training site of phi 'n', 's' and 'm' is; else "mma_sync",
-    csrc/flash_attn_bwd.cu (bf16: one head, dark3 and the folded heads;
-    packed heads of 448 and wider; widths that are not multiples of 64)."""
+    packed training site of phi 'n', 's' and 'm' is; "single_sm90"
+    (csrc/flash_bwd_single_sm90.cu) for bf16 with one head where
+    `bwd_single_sm90_plan` has a plan: dark3 of phi 'n', 's' and 'm' (q/k
+    32 to 128, v 256 to 1,024), the folded heads (288, 600) and widths
+    that share their forms; else "mma_sync", csrc/flash_attn_bwd.cu (bf16:
+    dark3 of phi 'l' and 'x', packed heads of 448 and wider, other
+    widths)."""
     if dtype == torch.float32:
         return "f32_sm90"
     if (num_heads > 1 and dqk == dv and dqk % SM90_BWD_SLAB == 0
             and 0 < dqk <= SM90_BWD_MAX_WIDTH):
         return "sm90"
+    if num_heads == 1:
+        try:
+            bwd_single_sm90_plan(dqk, dv)
+            return "single_sm90"
+        except ValueError:
+            pass
     return "mma_sync"
 
 
@@ -345,6 +358,118 @@ def _f32_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float, num
     A._raise_on(err, f"flash_bwd_{kernel}_f32_sm90")
 
 
+# The one-head Hopper backward (csrc/flash_bwd_single_sm90.cu): blocks of 64
+# rows, 64-column slabs (the last one zero-filled past a width that is not a
+# multiple of 64), tiles of 64 tokens (128 where the library has the form
+# and three ring stages fit), the contraction slabs (q/k's, then v's) split
+# between the two consumer warpgroups at `split`, the output slabs in two
+# (at most five a warpgroup), dk/dv's v in slices of at most ten slabs, each
+# warpgroup its own ring of 2 to 8 stages. The instantiations the library
+# is built for, by (output slabs a warpgroup, warpgroup 0 also in v's
+# slabs, tile): dq (g, y0, tile), dk/dv (dK's g, dV's g, y0, tile), the
+# forms of the training sites (dark3 of phi 'n' and 's' on tiles of 128,
+# of phi 'm' on 64; the folded heads of 288 and 600).
+SINGLE_BWD_SLAB = 64
+SINGLE_BWD_MAX_STAGES = 8
+SINGLE_BWD_SLICE_SLABS = 10
+SINGLE_BWD_FORMS = {
+    "dq": ((1, False, 128), (1, True, 128), (2, True, 64), (3, False, 64), (5, False, 64)),
+    "dkv": ((1, 2, False, 128), (1, 4, True, 128), (2, 4, True, 64), (3, 3, False, 64),
+            (5, 5, False, 64)),
+}
+SINGLE_BWD_PLAN_KEYS = ("rows", "slab", "qk_slabs", "v_slabs", "split", "out_slabs", "slices",
+                        "slice_slabs", "stages", "tile", "smem_bytes")
+
+
+def bwd_single_smem_bytes(qk_slabs: int, v_slabs: int, stages: int, tile: int = 64) -> int:
+    """Dynamic shared memory of a one-head plan, as
+    csrc/flash_bwd_single_sm90.cu computes it: 1024 bytes of alignment
+    slack and 2048 of barriers and statistics, the block's resident rows
+    (q/k's and v's slabs, 8 KB each), the hand-over between the warpgroups
+    (64 x tile fp32), and two rings of `stages` entries (tile rows of one
+    64-column slab)."""
+    slab = SINGLE_BWD_SLAB * SINGLE_BWD_SLAB * 2
+    return (3072 + (qk_slabs + v_slabs) * slab + 64 * tile * 4
+            + 2 * stages * tile * SINGLE_BWD_SLAB * 2)
+
+
+def single_out_slabs(qk_slabs: int) -> int:
+    """dQ's or dK's output slabs of warpgroup 0: all of them up to two (then
+    warpgroup 1 has none and runs ahead into its next tile's contraction),
+    else the larger half."""
+    return qk_slabs if qk_slabs <= 2 else -(-qk_slabs // 2)
+
+
+def single_split(qk_slabs: int, v_slabs: int) -> int:
+    """Contraction slabs (q/k's, then v's) that warpgroup 0 of a dq or DK
+    block sums: all of q/k's, and half of the rest less what its extra work
+    is worth (its elementwise pass, about one slab, and the output slabs it
+    has more than warpgroup 1); warpgroup 1 sums the others."""
+    g0 = single_out_slabs(qk_slabs)
+    g1 = qk_slabs - g0
+    return max(qk_slabs, (qk_slabs + v_slabs - 1 - (g0 - g1)) // 2)
+
+
+def bwd_single_sm90_plan(dqk: int, dv: int) -> dict:
+    """Launch plans of csrc/flash_bwd_single_sm90.cu for one head of q/k
+    width `dqk` and v width `dv` (multiples of 8, v's slabs at least q/k's):
+    {"dq": plan, "dkv": plan}, each with `rows` (64 a block), `slab` (64),
+    `qk_slabs` and `v_slabs` (ceil(width / 64)), `split` (the contraction
+    slabs, q/k's then v's, that warpgroup 0 sums: `single_split`),
+    `out_slabs` (dQ's or dK's slabs of warpgroup 0: `single_out_slabs`, at
+    most 5), `slices` and `slice_slabs` (dk/dv: v in ceil(v_slabs / 10)
+    slices of equal slabs, a DV block each; dq: 0), `tile` (tokens a
+    streamed tile: 128 where the library has that form and three stages a
+    ring fit, else 64 where it has that one), `stages` (each ring's: the
+    most, up to 8, that fit, at least 2) and `smem_bytes`. Raises
+    ValueError where no instantiation or no plan fits; the library refuses
+    any other plan."""
+    if dqk <= 0 or dv <= 0 or dqk % A.KERNEL_WIDTH_MULTIPLE or dv % A.KERNEL_WIDTH_MULTIPLE:
+        raise ValueError(f"the one-head sm90 backward takes widths that are multiples of "
+                         f"{A.KERNEL_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    qs, vs = -(-dqk // SINGLE_BWD_SLAB), -(-dv // SINGLE_BWD_SLAB)
+    split, g = single_split(qs, vs), single_out_slabs(qs)
+    slices = -(-vs // SINGLE_BWD_SLICE_SLABS)
+    slice_slabs = -(-vs // slices)
+    y0 = split > qs
+    stages_of = lambda tile: next((st for st in range(SINGLE_BWD_MAX_STAGES, 1, -1)
+                                   if bwd_single_smem_bytes(qs, vs, st, tile)
+                                   <= A.SM90_SMEM_LIMIT), 0)
+    forms = {"dq": (g, y0), "dkv": (g, -(-slice_slabs // 2), y0)}
+    tiles = {k: next((t for t, least in ((128, 3), (64, 2))
+                      if forms[k] + (t,) in SINGLE_BWD_FORMS[k] and stages_of(t) >= least), None)
+             for k in forms}
+    if vs < qs or None in tiles.values():
+        raise ValueError(f"no one-head sm90 backward plan for q/k {dqk}, v {dv}")
+    out = {}
+    for kernel in ("dq", "dkv"):
+        dkv = kernel == "dkv"
+        tile = tiles[kernel]
+        stages = stages_of(tile)
+        out[kernel] = {"rows": SINGLE_BWD_SLAB, "slab": SINGLE_BWD_SLAB, "qk_slabs": qs,
+                       "v_slabs": vs, "split": split, "out_slabs": g,
+                       "slices": slices if dkv else 0, "slice_slabs": slice_slabs if dkv else 0,
+                       "stages": stages, "tile": tile,
+                       "smem_bytes": bwd_single_smem_bytes(qs, vs, stages, tile)}
+    return out
+
+
+def _bwd_single_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_bwd_single_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_bwd_dq_single_sm90.argtypes = [vp] * 7 + [ci] * 4 + [vp] + [cl] * 2 + [
+            cf, vp, vp]
+        lib.flash_bwd_dq_single_sm90.restype = ci
+        lib.flash_bwd_dkv_single_sm90.argtypes = [vp] * 8 + [ci] * 4 + [vp] + [cl] * 4 + [
+            cf, vp, vp]
+        lib.flash_bwd_dkv_single_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
 def _bwd_sm90_lib():
     from transparent_object_detection_tpu_torch.kernels import _build
 
@@ -498,12 +623,35 @@ def _sm90_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float,
     A._raise_on(err, f"flash_bwd_{kernel}_sm90")
 
 
+def _single_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float,
+                       widths) -> None:
+    """One call of csrc/flash_bwd_single_sm90.cu (`kernel` "dq" or "dkv")
+    with the plan of `bwd_single_sm90_plan`; raises if the launch fails,
+    never falls back."""
+    b, n, dqk, dv = widths
+    plan = bwd_single_sm90_plan(dqk, dv)[kernel]
+    keys = SINGLE_BWD_PLAN_KEYS
+    plan_arr = (ctypes.c_int * len(keys))(*(plan[key] for key in keys))
+    strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, do)
+                                        for s in (t.stride(0), t.stride(1))))
+    lib = _bwd_single_lib()
+    fn = lib.flash_bwd_dq_single_sm90 if kernel == "dq" else lib.flash_bwd_dkv_single_sm90
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             dcap.data_ptr(), *(t.data_ptr() for t in outs), b, n, dqk, dv,
+             ctypes.cast(strides, ctypes.c_void_p),
+             *(s for t in outs for s in (t.stride(0), t.stride(1))), scale,
+             ctypes.cast(plan_arr, ctypes.c_void_p),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    A._raise_on(err, f"flash_bwd_{kernel}_single_sm90")
+
+
 def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
                  dq: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq of the flash backward, written into `dq` (e.g. a column view of a
     packed gradient) when given. Port of ops/attention_vjp.py::_bwd_dq_kernel
     (JAX). A CUDA tensor launches the kernel of `bwd_form`
     (csrc/flash_bwd_sm90.cu, counted in `sm90_launches`;
+    csrc/flash_bwd_single_sm90.cu, in `single_launches`;
     csrc/flash_bwd_f32_sm90.cu, in `f32_launches`; or csrc/flash_attn_bwd.cu,
     in `launches`); a CPU tensor runs `flash_bwd_dq_plain`."""
     if q.device.type == "cpu":
@@ -515,6 +663,9 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     if form == "sm90":
         _sm90_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
         flash_bwd_dq.sm90_launches += 1
+    elif form == "single_sm90":
+        _single_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, widths)
+        flash_bwd_dq.single_launches += 1
     elif form == "f32_sm90":
         _f32_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
         flash_bwd_dq.f32_launches += 1
@@ -531,11 +682,13 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     ops/attention_vjp.py::_bwd_dkv_kernel (JAX). A CUDA tensor launches the
     kernel of `bwd_form`: csrc/flash_bwd_sm90.cu (one launch for heads up to
     256, a dv and a dk launch at 320 and 384; counted once in
-    `sm90_launches`), csrc/flash_bwd_f32_sm90.cu (every fp32 call, one
-    launch after its pre-pass; `f32_launches`) or csrc/flash_attn_bwd.cu,
-    which keeps the other bf16 calls (one head: dark3, the folded heads;
-    other widths; the dk pass and the dv pass, counted once in `launches`);
-    a CPU tensor runs `flash_bwd_dkv_plain`."""
+    `sm90_launches`), csrc/flash_bwd_single_sm90.cu (bf16 one head: dark3
+    of phi 'n' to 'm', the folded heads; one launch, `single_launches`),
+    csrc/flash_bwd_f32_sm90.cu (every fp32 call, one launch after its
+    pre-pass; `f32_launches`) or csrc/flash_attn_bwd.cu, which keeps the
+    other bf16 calls (dark3 of phi 'l' and 'x', packed heads of 448 and
+    wider, other widths; the dk pass and the dv pass, counted once in
+    `launches`); a CPU tensor runs `flash_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
@@ -545,6 +698,9 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     if form == "sm90":
         _sm90_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
         flash_bwd_dkv.sm90_launches += 1
+    elif form == "single_sm90":
+        _single_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, widths)
+        flash_bwd_dkv.single_launches += 1
     elif form == "f32_sm90":
         _f32_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
         flash_bwd_dkv.f32_launches += 1
@@ -558,6 +714,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
 def reset_launch_counts() -> None:
     for fn in (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
         fn.launches = fn.sm90_launches = fn.f32_launches = 0
+    flash_bwd_dq.single_launches = flash_bwd_dkv.single_launches = 0
 
 
 reset_launch_counts()
