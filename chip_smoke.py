@@ -20,7 +20,11 @@
    shifted well below 0, the zero-filled keys past N scored 0), and at
    widths off the routed grid (64, 192, 320, 448 on the sm90 kernel; 72 on
    the mma_sync template, which the rule keeps for widths that are not
-   multiples of 64), serving and lse forms; and the backward at the same
+   multiples of 64), serving and lse forms; the single-head site (dark3, and
+   a ragged N) runs the one-head form of the same kernel: each input twice,
+   the ring's faults and its design's (a key tile of its plan's size read
+   twice, a q/k slab left out of S, a v slice written from another slice's
+   P.V; SINGLE_FAULTS), at batch 2 and 1; and the backward at the same
    widths on the kernels `bwd_form` names (two heads of 64, 192 and 320 on
    csrc/flash_bwd_sm90.cu, twice for the same bits; 448 and 72 on the
    template), within the gradient bar, every planted fault of phase 8
@@ -32,7 +36,9 @@
    class biases set so that about CANDIDATES_PER_IMAGE anchors an image pass
    the 0.5 confidence), runs Predictor.detect_raw_batch on 4 non-square
    uint8 images with the launch counts reset just before and read just
-   after. Compares `decoded` and the detection sets against the same model
+   after (3 packed launches of csrc/flash_fwd_sm90.cu, 1 of its one-head
+   form; the one-head launch of the path calls again for the same bits).
+   Compares `decoded` and the detection sets against the same model
    with the plain attention versions, and reads the same differences for
    the plain versions with each planted fault: the limits lie between the
    two readings. Times batch-1 latency (and its NMS share) and batch-32
@@ -93,6 +99,8 @@
    must reject (a kv tile dropped, the scale 2% off, a query tile unwritten;
    a key tile skipped in the dq loop, a query tile skipped in the dk/dv
    loop, the -D term dropped, lse off by 0.01, the scale missing from dS;
+   at dark3 the forward's one-head sm90 form with its design's faults
+   (SINGLE_FAULTS), twice for the same bits;
    at the packed sites, which run csrc/flash_bwd_sm90.cu, and at dark3,
    which runs csrc/flash_bwd_single_sm90.cu, also a key tile read twice in
    dq, a query tile read twice in dk/dv, each with its neighbour never
@@ -103,9 +111,9 @@
 9. Training slice: make_train_step on FocusModel phi='s' 640x640 bf16
    (SGD nesterov, EMA), synthetic batches like the JAX bench_train.py's. One
    batch-2 step with the launch counts reset before and read after
-   (fwd-lse 3 sm90 + 1, dq and dk/dv 3 sm90 + 1 single_sm90 each, no
-   serving kernel; every launch of the one-head backward again for the
-   same bits),
+   (fwd-lse, dq and dk/dv 3 sm90 + 1 single_sm90 each, no serving kernel;
+   every launch of the one-head forward and backward again for the same
+   bits),
    held against the same step
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
@@ -122,7 +130,13 @@
    per 256-column slice or, on the sm90 kernel, per warpgroup half, the K
    tail of qmm dropped; and at the sm90 kernel's int8 sites its ring and
    layout faults, each launch twice for the same bits) rejected on some
-   input spread. Every fp32 flash site (phi='m' h2, h4, dark3 and the
+   input spread. Every bf16 one-head site (dark3 at every scale, the
+   folded h1 of phi 'n' and 'm') runs the one-head form of
+   csrc/flash_fwd_sm90.cu: each launch twice for the same bits, the ring's
+   faults and its design's (SINGLE_FAULTS: with the zero-filled columns
+   past 288, 600 or dark3's q/k of 32 made nonzero) rejected on some
+   spread; phi='n''s one-head sites timed (row 2 at batch 2 and 1 beside
+   bound, plain and SDPA). Every fp32 flash site (phi='m' h2, h4, dark3 and the
    folded h1 of 600; phi='n' h2, dark3 and the folded h1 of 288) runs
    csrc/flash_fwd_f32_sm90.cu (3xTF32 wgmma fed by a TMA ring, after a
    pre-pass): each launch twice for the same bits, and the faults of its
@@ -160,8 +174,10 @@
    its f32 counters asserted at every site, with the sm90 backward's ring
    and hand-over faults and its own: the low parts dropped from dS.K, dS^T.Q
    or P^T.dO, each transposed copy's token order undone, lse or D read one
-   row off; every bf16 one-head site of phi 'n' and 'm' (dark3, the folded
-   288 and 600) on csrc/flash_bwd_single_sm90.cu, with the ring and
+   row off; every bf16 one-head forward (dark3 at every scale, the folded
+   288 and 600) on the one-head form of csrc/flash_fwd_sm90.cu, with its
+   design's faults; every bf16 one-head site of phi 'n' and 'm' (dark3, the
+   folded 288 and 600) on csrc/flash_bwd_single_sm90.cu, with the ring and
    hand-over faults and its own: one v slab left out of dP^T, a dV column
    slice built from another slice's dO columns, the zero-filled columns
    past 288 or 600 (or dark3's q/k of 32) made nonzero);
@@ -186,14 +202,18 @@
    hold its ring's faults.
 17. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
-   on the sm90 kernel, rows 2-11 with rows 9-11's single-head site, rows
-   3-5 on csrc/flash_int8_sm90.cu, then rows 9-11's packed sites on the
-   sm90 kernels; then the phi='m' and fp32 forms, rows 3-5 split by
+   on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
+   and 9 on the sm90 kernel's one-head form, each site's time, bound,
+   plain and SDPA apart in `sites`), rows 3-5 on csrc/flash_int8_sm90.cu,
+   then rows 9-11's packed sites on the sm90 kernels; then the phi='m' and
+   fp32 forms (row 2 at phi='m' and phi='n' dark3 and the folded h1 under
+   the one-head form, by site), rows 3-5 split by
    kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
-   9-11 at phi='m' (split likewise: rows 10 and 11 at dark3 and the
-   folded h1 under csrc/flash_bwd_single_sm90.cu, each site's time, bound,
-   plain and SDPA backward apart in `sites`), rows 10 and 11 at the one-head
-   sites of phi='n', and in fp32 last; the fp32 forms of
+   9-11 at phi='m' (split likewise: row 9 at dark3 and the folded h1 under
+   the one-head form of csrc/flash_fwd_sm90.cu, rows 10 and 11 under
+   csrc/flash_bwd_single_sm90.cu, each site's time, bound, plain and SDPA
+   apart in `sites`), rows 9-11 at the one-head sites of phi='n', and in
+   fp32 last; the fp32 forms of
    rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
    under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
    TFLOP/s), then {"ok": true,
@@ -444,6 +464,90 @@ F32_FAULTS = {"s_lo_terms_dropped": _s_lo_dropped, "pv_lo_terms_dropped": _pv_lo
               "v_key_order_undone": _v_key_order_undone}
 
 
+def _pad8(d: int) -> int:
+    return -(-d // 8) * 8
+
+
+def _single_plan(dqk: int, dv: int) -> dict:
+    """The one-head plan of csrc/flash_fwd_sm90.cu for the widths a call
+    hands the kernel (padded to a multiple of 8, as the wrapper and the fold
+    copy pad them)."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    return A.single_sm90_plan(_pad8(dqk), _pad8(dv))
+
+
+def _single_key_tile_twice(q, k, v):
+    """k, v with one of the one-head plan's key tiles read twice (tile 2 the
+    copy of tile 1), its neighbour never."""
+    keys = _single_plan(q.shape[-1], v.shape[-1])["keys"]
+    return _tile_twice(k, keys, 2 * keys), _tile_twice(v, keys, 2 * keys)
+
+
+def _single_slab_left_out(q, k):
+    """q, k with one 64-column slab zeroed: the second, or the only one."""
+    lo = 64 if q.shape[-1] > 64 else 0
+    q, k = q.clone(), k.clone()
+    q[..., lo:lo + 64] = 0
+    k[..., lo:lo + 64] = 0
+    return q, k
+
+
+def _single_pad_nonzero(q, k):
+    """q, k as a map of the rounded-up width would read them: past the width
+    the wrapper pads to (zeros to a multiple of 8), the next row's columns
+    up to the next multiple of 64."""
+    import torch
+
+    cols = -(-_pad8(q.shape[-1]) // 64) * 64
+    pad = lambda t: torch.nn.functional.pad(t, (0, _pad8(t.shape[-1]) - t.shape[-1]))
+    return _next_row_columns(pad(q), cols), _next_row_columns(pad(k), cols)
+
+
+def _single_v_from_other(q, v):
+    """v with the second v slice (or warpgroup half) of the one-head plan
+    holding the first one's columns: the output of that part written from
+    the other part's P V."""
+    w = _single_plan(q.shape[-1], v.shape[-1])["v_slice"]
+    end = min(v.shape[-1], 2 * w)
+    v = v.clone()
+    v[..., w:end] = v[..., :end - w]
+    return v
+
+
+def single_faults(dqk: int, dv: int) -> tuple:
+    """The faults of the one-head design that a plan of these widths can
+    commit (SINGLE_FAULTS): a key tile of its own size read twice, a q/k
+    slab left out, and where a width is not a multiple of 64 the
+    zero-filled columns made nonzero, where v takes two parts or more one
+    part written from another's P V."""
+    plan = _single_plan(dqk, dv)
+    out = ["key_tile_read_twice_at_plan_tile", "qk_slab_left_out"]
+    if _pad8(dqk) % 64:
+        out.append("zero_filled_columns_nonzero")
+    if (2 if plan["wg_split"] else 1) * plan["dv_splits"] > 1:
+        out.append("v_part_from_other_parts_PV")
+    return tuple(out)
+
+
+# faults of the one-head form of csrc/flash_fwd_sm90.cu (on top of
+# RING_FAULTS), as the plain attention with that fault computes them
+SINGLE_FAULTS = {
+    "key_tile_read_twice_at_plan_tile": lambda attend: (
+        lambda q, k, v, scale, block_k=1024: attend(q, *_single_key_tile_twice(q, k, v), scale,
+                                                    block_k)),
+    "qk_slab_left_out": lambda attend: (
+        lambda q, k, v, scale, block_k=1024: attend(*_single_slab_left_out(q, k), v, scale,
+                                                    block_k)),
+    "zero_filled_columns_nonzero": lambda attend: (
+        lambda q, k, v, scale, block_k=1024: attend(*_single_pad_nonzero(q, k), v, scale,
+                                                    block_k)),
+    "v_part_from_other_parts_PV": lambda attend: (
+        lambda q, k, v, scale, block_k=1024: attend(q, k, _single_v_from_other(q, v), scale,
+                                                    block_k)),
+}
+
+
 @contextlib.contextmanager
 def planted(fault: str):
     """The plain attention versions with a planted fault: what a kernel that
@@ -452,7 +556,7 @@ def planted(fault: str):
 
     real = A._online_softmax_attention
     A._online_softmax_attention = {**PLANTED_FAULTS, **SCALE_FAULTS, **RING_FAULTS,
-                                   **F32_FAULTS}[fault](real)
+                                   **F32_FAULTS, **SINGLE_FAULTS}[fault](real)
     try:
         yield
     finally:
@@ -620,7 +724,6 @@ def off_grid_backward(randn, qk_std) -> None:
 
 def kernel_phase():
     import torch
-    import torch.nn.functional as F
 
     from transparent_object_detection_tpu_torch.ops import attention as A
 
@@ -661,29 +764,55 @@ def kernel_phase():
         print(json.dumps({"kernel": "flash_mha_packed", **mha_rows[-1]}), flush=True)
     off_grid_phase(randn, qk_std)
 
-    # single head, dq = C/8, dv = C, scale 1.0: dark3 at 640x640, then ragged
+    # single head, dq = C/8, dv = C, scale 1.0: dark3 at 640x640, then
+    # ragged; the one-head form of the sm90 kernel, twice on every input,
+    # with the ring's faults and its design's (SINGLE_FAULTS); the zero-fill
+    # trap on the ragged N with scores shifted well below 0
     for name, (b, n, dq, dv) in (("dark3", (2, 6400, 64, 512)), ("ragged", (2, 3600, 64, 512))):
+        check(A.single_fwd_form(dq, dv, torch.bfloat16) == "single_sm90",
+              f"flash_single {name}: widths {dq}/{dv} do not take the one-head sm90 form")
         readings = []
-        for score_std in SCORE_STDS:
+        spreads = [(std, 0.0) for std in SCORE_STDS] + ([SHIFTED_SPREAD] if n % 64 else [])
+        for score_std, mean in spreads:
             std = qk_std(score_std, 1.0, dq)
-            q = (randn(b, n, dq) * std).to(torch.bfloat16)
-            k = (randn(b, n, dq) * std).to(torch.bfloat16)
+            q, k = randn(b, n, dq) * std, randn(b, n, dq) * std
+            if mean:
+                _score_shift(q, k, 1.0, mean, dq)
+            q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
             v = randn(b, n, dv).to(torch.bfloat16)
-            readings.append({"score_std": score_std, **hold_against_plain(
+            faults = (("keys_past_n_scored_zero",) if mean else
+                      (*PLANTED_FAULTS, "key_tile_used_twice", *single_faults(dq, dv)))
+            readings.append({"score_std": score_std, "score_mean": mean, **hold_against_plain(
                 lambda: A.flash_single(q, k, v, 1.0),
                 lambda: A.flash_single_plain(q, k, v, 1.0),
-                f"flash_single {name} score_std {score_std}")})
-        flops = 2.0 * b * n * n * (dq + dv)
-        bnd, by = bound_ms(flops, 2.0 * (b * n * (2 * dq + dv) + b * n * dv))
-        single_rows.append(dict(
-            node=name, b=b, n=n, dq=dq, dv=dv, readings=readings,
-            ms=timed_ms(lambda: A.flash_single(q, k, v, 1.0), 20),
-            plain_ms=timed_ms(lambda: A.flash_single_plain(q, k, v, 1.0), 3, 1),
-            library_ms=timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20),
-            bound_ms=bnd, bound_by=by,
-        ))
+                f"flash_single single_sm90 {name} score_std {score_std} mean {mean}",
+                faults=faults, twice=True)})
+        single_rows.append(dict(node=name, b=b, n=n, dq=dq, dv=dv, form="single_sm90",
+                                readings=readings, **_single_timing(q, k, v, 1.0)))
+        if name != "ragged":  # batch 1: the latency path's grid
+            single_rows[-1]["batch1"] = _single_timing(q[:1], k[:1], v[:1], 1.0, plain=False)
         print(json.dumps({"kernel": "flash_single", **single_rows[-1]}), flush=True)
     return mha_rows, single_rows
+
+
+def _single_timing(q, k, v, scale, plain: bool = True) -> dict:
+    """ms of flash_single (the one-head sm90 form), of the plain version
+    and of SDPA (the yardstick, never called by the port; on (B, 1, N, d)
+    views, one head, which its fused kernels take), beside the bound."""
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    b, n, dq = q.shape
+    dv = v.shape[-1]
+    bnd, by = bound_ms(2.0 * b * n * n * (dq + dv), 2.0 * (b * n * (2 * dq + dv) + b * n * dv))
+    row = dict(ms=timed_ms(lambda: A.flash_single(q, k, v, scale), 20),
+               library_ms=timed_ms(lambda: F.scaled_dot_product_attention(
+                   q[:, None], k[:, None], v[:, None], scale=scale), 20),
+               bound_ms=bnd, bound_by=by)
+    if plain:
+        row["plain_ms"] = timed_ms(lambda: A.flash_single_plain(q, k, v, scale), 3, 1)
+    return row
 
 
 def kernel_entry(name, source, replaces, rows, launches):
@@ -830,11 +959,11 @@ def slice_phase(card: str):
     torch.cuda.synchronize()
     launches = {"flash_mha_packed": A.flash_mha_packed.launches,
                 "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
-                "flash_single": A.flash_single.launches}
+                "flash_single_sm90": A.flash_single.sm90_launches}
     print(json.dumps({"main_path_launches": launches}), flush=True)
-    check(launches == {"flash_mha_packed": 0, "flash_mha_packed_sm90": 3, "flash_single": 1},
-          f"expected 3 packed launches of the sm90 kernel and 1 single-head launch per "
-          f"forward, got {launches}")
+    check(launches == {"flash_mha_packed": 0, "flash_mha_packed_sm90": 3, "flash_single_sm90": 1},
+          f"expected 3 packed launches of the sm90 kernel and 1 launch of its one-head form "
+          f"per forward, got {launches}")
     nd = dets["num_detections"].cpu()
     check(dets["boxes"].shape == (4, pcfg.max_detections, 4),
           f"boxes shape {tuple(dets['boxes'].shape)}")
@@ -914,6 +1043,10 @@ def slice_phase(card: str):
     check(len(calls) == 4, f"expected 4 kernel launches in one forward, got {len(calls)}")
     for i, (name, args, out, plain) in enumerate(calls):
         with torch.inference_mode():
+            # the one-head form: a second launch, the same bits
+            if name == "flash_single":
+                check(torch.equal(real[1](*args), out),
+                      f"{name} launch {i}: two launches gave different bits")
             hold_against_plain(lambda: out, lambda: plain(*args),
                                f"{name} launch {i} on the path's activations",
                                faults_must_fail=False)
@@ -1640,8 +1773,8 @@ def int8_path_calls(model, images) -> dict:
     return rows
 
 
-COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_mha_packed_f32", "flash_single",
-           "flash_single_f32", "flash_mha_int8",
+COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_mha_packed_f32",
+           "flash_single_sm90", "flash_single_f32", "flash_mha_int8",
            "flash_mha_int8_sm90", "flash_mha_int8_qout", "flash_mha_int8_qout_sm90",
            "flash_int8_handoff", "flash_int8_handoff_sm90", "qmm", "quant_rows",
            "quant_rows_int4")
@@ -1665,7 +1798,7 @@ def read_counts() -> dict:
     return {"flash_mha_packed": A.flash_mha_packed.launches,
             "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
             "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
-            "flash_single": A.flash_single.launches,
+            "flash_single_sm90": A.flash_single.sm90_launches,
             "flash_single_f32": A.flash_single.f32_launches,
             **{name + sm90: getattr(getattr(A8, name), "sm90_launches" if sm90 else "launches")
                for name in ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")
@@ -2425,7 +2558,7 @@ def _fwd_faults(V, q, k, v, scale, h):
     mistake would return (out, lse). The faults of the sm90 kernel's TMA
     ring too: a key tile read twice and its neighbour never, and (ragged N
     only) the zero-filled keys past N scored 0, which lse shows at any
-    spread."""
+    spread; on the f32_sm90 and one-head sm90 forms their own."""
     out_tile = V.flash_fwd_lse_plain(q, k, v, scale, h)
     out_tile[0][:, 64:128] = 0
     out_tile[1][..., 64:128, :] = 0
@@ -2438,8 +2571,16 @@ def _fwd_faults(V, q, k, v, scale, h):
     if q.shape[1] % 64:  # (B, N, C): keys on axis -2
         faults["keys_past_n_scored_zero"] = V.flash_fwd_lse_plain(q, _pad_keys(k), _pad_keys(v),
                                                                    scale, h)
-    if V.lse_fwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype) == "f32_sm90":
+    form = V.lse_fwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype)
+    if form == "f32_sm90":
         faults.update(_f32_fwd_faults(V, q, k, v, scale, h))
+    if form == "single_sm90":  # the one-head design's (SINGLE_FAULTS)
+        fwd = lambda q, k, v: V.flash_fwd_lse_plain(q, k, v, scale, h)
+        made = {"key_tile_read_twice_at_plan_tile": lambda: fwd(q, *_single_key_tile_twice(q, k, v)),
+                "qk_slab_left_out": lambda: fwd(*_single_slab_left_out(q, k), v),
+                "zero_filled_columns_nonzero": lambda: fwd(*_single_pad_nonzero(q, k), v),
+                "v_part_from_other_parts_PV": lambda: fwd(q, k, _single_v_from_other(q, v))}
+        faults.update((f, made[f]()) for f in single_faults(q.shape[-1], v.shape[-1]))
     return faults
 
 
@@ -2909,12 +3050,13 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             kw = {k: v for k, v in kw.items() if k not in ("dq", "dk", "dv")}
             q, heads = args[0], (args[4] if name == "flash_fwd_lse" else args[7])
             f32 = q.dtype == torch.float32
-            # the f32_sm90 kernels and the one-head sm90 backward: a second
+            # the f32_sm90 kernels and the one-head sm90 kernels: a second
             # launch, the same bits
-            twice = f32 or (name != "flash_fwd_lse" and V.bwd_form(
-                q.shape[-1] // heads, args[2].shape[-1] // heads, heads, q.dtype) == "single_sm90")
+            rule = V.lse_fwd_form if name == "flash_fwd_lse" else V.bwd_form
+            twice = f32 or rule(q.shape[-1] // heads, args[2].shape[-1] // heads, heads,
+                                q.dtype) == "single_sm90"
             if name == "flash_fwd_lse":
-                if f32:  # the f32_sm90 kernel: a second launch, the same bits
+                if twice:
                     again = real[name](*args, **kw)
                     check(torch.equal(again[0], out[0]) and torch.equal(again[1], out[1]),
                           f"{name} launch {i}: two launches gave different bits")
@@ -2951,6 +3093,7 @@ def train_launch_counts():
               V.reset_launch_counts)
     read = lambda: {"flash_fwd_lse": V.flash_fwd_lse.launches,
                     "flash_fwd_lse_sm90": V.flash_fwd_lse.sm90_launches,
+                    "flash_fwd_lse_single": V.flash_fwd_lse.single_launches,
                     "flash_fwd_lse_f32": V.flash_fwd_lse.f32_launches,
                     "flash_bwd_dq": V.flash_bwd_dq.launches,
                     "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
@@ -2963,7 +3106,7 @@ def train_launch_counts():
                     "flash_mha_packed": A.flash_mha_packed.launches,
                     "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
                     "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
-                    "flash_single": A.flash_single.launches,
+                    "flash_single_sm90": A.flash_single.sm90_launches,
                     "flash_single_f32": A.flash_single.f32_launches,
                     "flash_mha_int8": A8.flash_mha_int8.launches,
                     "flash_mha_int8_sm90": A8.flash_mha_int8.sm90_launches,
@@ -2975,8 +3118,9 @@ def train_expected(cfg) -> dict:
     """Launches of each kernel in one training step of `cfg` (its scale and
     input, remat or not), from the training route table: one forward, dq and
     dk/dv launch a site that leaves the naive route, the forward of packed
-    bf16 heads on the sm90 kernel and every fp32 forward on the f32_sm90
-    kernel (`lse_fwd_form`), the backward of packed bf16 heads on the
+    bf16 heads on the sm90 kernel, of one bf16 head (dark3, folded heads)
+    on its one-head form and every fp32 forward on the f32_sm90 kernel
+    (`lse_fwd_form`), the backward of packed bf16 heads on the
     sm90 kernels where `bwd_form` sends it (heads of 128 to 384) and every
     fp32 backward on the f32_sm90 kernels, the bf16 one-head backward
     (dark3, folded heads) on the single_sm90 kernels where `bwd_form` sends
@@ -2987,28 +3131,27 @@ def train_expected(cfg) -> dict:
     from transparent_object_detection_tpu_torch.ops import attention as A
     from transparent_object_detection_tpu_torch.ops import attention_vjp as V
 
-    counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_f32": 0,
+    counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_single": 0,
+              "flash_fwd_lse_f32": 0,
               "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_f32": 0,
               "flash_bwd_dq_single": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
               "flash_bwd_dkv_f32": 0, "flash_bwd_dkv_single": 0, "flash_mha_packed": 0,
               "flash_mha_packed_sm90": 0,
-              "flash_mha_packed_f32": 0, "flash_single": 0, "flash_single_f32": 0,
+              "flash_mha_packed_f32": 0, "flash_single_sm90": 0, "flash_single_f32": 0,
               "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
+    suffix = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
         route = A.train_route(n, cq, heads, cv)
         if route == "naive":
             continue
-        form = V.lse_fwd_form(cq // heads, cv // heads, heads if route == "packed" else 1,
-                              dtype)
-        counts["flash_fwd_lse" + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")] += (
-            2 if cfg.remat and name != "dark3" else 1)
-        # folded heads reach the backward as single heads of the widths the
+        # folded heads reach the kernels as single heads of the widths the
         # fold copy pads to a multiple of 8
-        pad8 = (lambda d: -(-d // 8) * 8) if route == "folded" else (lambda d: d)
-        bwd = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}.get(
-            V.bwd_form(pad8(cq // heads), pad8(cv // heads), heads if route == "packed" else 1,
-                       dtype), "")
+        pad8 = _pad8 if route == "folded" else (lambda d: d)
+        widths = (pad8(cq // heads), pad8(cv // heads), heads if route == "packed" else 1, dtype)
+        counts["flash_fwd_lse" + suffix.get(V.lse_fwd_form(*widths), "")] += (
+            2 if cfg.remat and name != "dark3" else 1)
+        bwd = suffix.get(V.bwd_form(*widths), "")
         counts["flash_bwd_dq" + bwd] += 1
         counts["flash_bwd_dkv" + bwd] += 1
     return counts
@@ -3259,8 +3402,10 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
     """Launches of every serving kernel in one forward of configuration
     `tag` ("bf16", "int8", "A", "B") at `phi` 640x640 and `batch` (`f32`:
     fp32 compute), from the route table (`serving_route`, `pick_blocks`,
-    the quant_out groups, `packed_fwd_form`: bf16 packed heads take the
-    sm90 kernel, fp32 calls the f32_sm90 kernel) and the int8 TEB's rules (models/blocks.py): each int8 TEB
+    the quant_out groups, `packed_fwd_form` and `single_fwd_form`: bf16
+    packed heads take the sm90 kernel, bf16 single and folded heads its
+    one-head form, fp32 calls the f32_sm90 kernel) and the int8 TEB's rules
+    (models/blocks.py): each int8 TEB
     runs 4 qmm and a quant_rows before each projection that takes bf16
     rows."""
     import torch
@@ -3283,8 +3428,8 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
         if kernel == "flash_mha_packed":
             form = A.packed_fwd_form(dq, dtype)
             return kernel + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")
-        if kernel == "flash_single":
-            return kernel + ("_f32" if f32 else "")
+        if kernel == "flash_single":  # one head: the one-head sm90 form, or fp32's
+            return kernel + ("_f32" if f32 else "_sm90")
         if kernel.startswith(("flash_mha_int8", "flash_int8")):
             return kernel + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
         return kernel
@@ -3328,7 +3473,7 @@ def check_launch_model() -> None:
     """`expected_launches` reproduces the phi='s' counts the slices assert."""
     zero = dict.fromkeys(COUNTED, 0)
     check(expected_launches("s", 4, "bf16") == {**zero, "flash_mha_packed_sm90": 3,
-                                                "flash_single": 1},
+                                                "flash_single_sm90": 1},
           "expected_launches: phi='s' bf16")
     check(expected_launches("s", 4, "bf16", f32=True) == {**zero, "flash_mha_packed_f32": 3,
                                                           "flash_single_f32": 1},
@@ -3387,7 +3532,7 @@ def scale_kernel_phase() -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
     randn = lambda *s: torch.randn(*s, generator=gen, device=DEVICE)
     qk_std = lambda score_std, scale, d: (score_std / (scale * d ** 0.5)) ** 0.5
-    err = {}
+    err, single_rows = {}, []
 
     def note(form, value):
         err[form] = max(err.get(form, 0.0), value)
@@ -3396,12 +3541,18 @@ def scale_kernel_phase() -> dict:
         f32 = dt == torch.float32
         scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
         faults = {}
-        # the Hopper kernels: bf16 packed heads on flash_fwd_sm90.cu, every
-        # fp32 call on flash_fwd_f32_sm90.cu (with its split's and layout's faults)
-        sm90 = f32 or (packed and A._packed_heads(cq, heads)
-                       and A.packed_fwd_form(cq // heads, dt) == "sm90")
+        # the Hopper kernels: bf16 packed heads on flash_fwd_sm90.cu, one
+        # bf16 head (dark3, folded heads) on its one-head form (with its
+        # design's faults), every fp32 call on flash_fwd_f32_sm90.cu (with
+        # its split's and layout's faults)
+        one_head = not (packed and A._packed_heads(cq, heads))
+        sm90 = f32 or one_head or A.packed_fwd_form(cq // heads, dt) == "sm90"
         ring = ("key_tile_used_twice",) + (("keys_past_n_scored_zero",) if n % 64 else ())
         ring += tuple(F32_FAULTS) if f32 else ()
+        if one_head and not f32:
+            check(A.single_fwd_form(_pad8(cq // heads), _pad8(cv // heads), dt) == "single_sm90",
+                  f"{tag}: not on the one-head sm90 form")
+            ring += single_faults(cq // heads, cv // heads)
         spreads = [(std, 0.0) for std in SCORE_STDS]
         if sm90 and n % 64:  # the zero-fill trap shows on shifted scores
             spreads.append(SHIFTED_SPREAD)
@@ -3423,7 +3574,10 @@ def scale_kernel_phase() -> dict:
                     plain = lambda: A.attention(q, k, v, scale, impl="plain", num_heads=heads)
                     form = "flash_single"
             else:
-                q, k = ((randn(b, n, cq) * std).to(dt) for _ in range(2))
+                q, k = randn(b, n, cq) * std, randn(b, n, cq) * std
+                if mean:
+                    _score_shift(q, k, scale, mean, cq)
+                q, k = q.to(dt), k.to(dt)
                 v = randn(b, n, cv).to(dt)
                 kern = lambda: A.flash_single(q, k, v, scale)
                 plain = lambda: A.flash_single_plain(q, k, v, scale)
@@ -3443,6 +3597,9 @@ def scale_kernel_phase() -> dict:
                 faults[f] = max(faults.get(f, 0.0), used)
         for f, used in faults.items():
             check(used > 1.0, f"{tag}: the bar rejects {f} on no input spread ({used:.3g}x)")
+        if one_head and not f32 and tag.startswith("phi=n 640x640"):
+            single_rows.append(_one_head_timing(tag.split()[-1], q, k, v, scale, heads,
+                                                packed, err[form]))
 
     def int8_case(tag, b, n, cq, cv, heads, bk, dt, variants):
         scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
@@ -3621,14 +3778,31 @@ def scale_kernel_phase() -> dict:
     run("qmm", f"{name} attn_out fp32 ln_out", rows(m, c, f32), None, m, c, c, 0, None, True,
         ln_out=True, ln=False, dtype="float32")
     print(json.dumps({"scale_kernel_max_abs_err": err}), flush=True)
-    return err
+    return err, single_rows
+
+
+def _one_head_timing(node, q, k, v, scale, heads, folded, max_abs_err) -> dict:
+    """Row 2 at a one-head site (the last, peaked inputs of its case):
+    `_single_timing` on the operands the route hands flash_single (the
+    folded heads as the fold copy makes them), at batch 2 and 1."""
+    from transparent_object_detection_tpu_torch.ops import attention as A
+
+    if folded:
+        q, k, v = (A._fold_heads(t, heads) for t in (q, k, v))
+    half = lambda t: t[:t.shape[0] // 2]  # one image of the two (its heads, folded)
+    row = {"node": node, "b": q.shape[0], "n": q.shape[1], "cq": q.shape[-1], "cv": v.shape[-1],
+           "form": "single_sm90", "max_abs_err": max_abs_err, **_single_timing(q, k, v, scale),
+           "batch1": _single_timing(half(q), half(k), half(v), scale, plain=False)}
+    print(json.dumps({"kernel": "flash_single one-head phi=n", **row}), flush=True)
+    return row
 
 
 def bf16_path_calls(model, images, f32: bool = False) -> dict:
     """Every flash_mha_packed / flash_single launch of one forward, recorded
     with its arguments, held against its plain version on the same
-    activations (the kernel bar; fp32: the fp32 bar) and timed beside its
-    bound, its plain version and SDPA on the same shapes."""
+    activations (the kernel bar; fp32: the fp32 bar; the one-head sm90 form
+    and fp32 kernels twice for the same bits) and timed beside its bound,
+    its plain version and SDPA on the same shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -3660,7 +3834,7 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
     for i, (name, args, out) in enumerate(calls):
         kernel, plain = real[name]
         with torch.inference_mode():
-            if f32:  # the f32_sm90 kernel: a second launch, the same bits
+            if f32 or name == "flash_single":  # a second launch, the same bits
                 check(torch.equal(kernel(*args), out),
                       f"{name} launch {i}: two launches gave different bits")
             ref = plain(*args)
@@ -3672,9 +3846,11 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
                 cq = cv = c3 // 3
                 q, k, v = (A._heads_first(t, h).contiguous() for t in qkv.chunk(3, dim=-1))
             else:
-                q, k, v, scale = args
-                b, n, cq = q.shape
-                cv, h = v.shape[-1], 1
+                scale = args[3]
+                b, n, cq = args[0].shape
+                cv, h = args[2].shape[-1], 1
+                # SDPA on (B, 1, N, d) views, one head, which its fused kernels take
+                q, k, v = (t[:, None] for t in args[:3])
             ops = 2.0 * b * n * n * (cq + cv)
             nbytes = out.element_size() * (b * n * (2 * cq + cv) + b * n * cv)
             t_ops, t_bytes = ops / peak, nbytes / PEAK_BYTES
@@ -3682,9 +3858,12 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
             plain_ms = timed_ms(lambda: plain(*args), 1, 1)
             lib = timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 5, 1)
             form = (A.packed_fwd_form(cq // h, out.dtype) if name == "flash_mha_packed"
-                    else ("f32_sm90" if f32 else "mma_sync"))
-        rows[name].append({"launch": i, "b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
-                           "form": form, "bar_used": used,
+                    else A.single_fwd_form(_pad8(cq), _pad8(cv), out.dtype))
+        # one head: dark3 (q/k narrower than v) or a folded head
+        node = f"launch {i}" if name == "flash_mha_packed" else (
+            "dark3" if cq < cv else "h1 folded")
+        rows[name].append({"launch": i, "node": node, "b": b, "n": n, "cq": cq, "cv": cv,
+                           "heads": h, "form": form, "bar_used": used,
                            "max_abs_err": float((out.float() - ref.float()).abs().max()),
                            "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": max(t_ops, t_bytes) * 1e3,
@@ -4320,7 +4499,7 @@ def main() -> int:
     del bf16_model
     torch.cuda.empty_cache()
     train_launches = phase("train slice", train_slice_phase, card)["launches"]
-    scale_err = phase("scale kernel", scale_kernel_phase)
+    scale_err, n_single_rows = phase("scale kernel", scale_kernel_phase)
     m_run = phase("phi=m slice", scale_slice_phase, card, "m", ("bf16", "int8", "A", "B"),
                   (32, 1), timed=True)
     n_run = phase("phi=n slice", scale_slice_phase, card, "n", ("bf16", "int8"), (2,),
@@ -4348,13 +4527,13 @@ def main() -> int:
     jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
     ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
     ssrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_single_sm90.cu"
-    # row 1 and rows 9-11's packed sites run the sm90 kernels; row 9's
-    # single-head site (dark3) the mma_sync template, rows 10 and 11's the
-    # one-head sm90 kernels
+    # row 1 and rows 9-11's packed sites run the sm90 kernels; rows 2 and
+    # 9's one-head sites (dark3, the folded heads) its one-head form, rows
+    # 10 and 11's the one-head sm90 backward
     form_rows = lambda rows, sm90: [r for r in rows if (r.get("form") == "sm90") == sm90]
     form_is = lambda rows, form: [r for r in rows if r.get("form") == form]
 
-    def by_site(entry):  # each site's time beside its bound, plain and SDPA's backward
+    def by_site(entry):  # each site's time beside its bound, plain and SDPA's call
         entry["sites"] = {r["node"]: {k: r[k] for k in ("ms", "bound_ms", "plain_ms",
                                                         "library_ms")}
                           for r in entry["shapes"]}
@@ -4363,9 +4542,9 @@ def main() -> int:
         kernel_entry("flash_mha_packed", sm90_src,
                      "transparent_object_detection_tpu/ops/attention.py:239", mha_rows,
                      launches["flash_mha_packed_sm90"]),
-        kernel_entry("flash_single", src,
-                     "transparent_object_detection_tpu/ops/attention.py:137", single_rows,
-                     launches["flash_single"]),
+        by_site(kernel_entry("flash_single single_sm90", sm90_src,
+                             "transparent_object_detection_tpu/ops/attention.py:137",
+                             single_rows, launches["flash_single_sm90"])),
         *int8_attention_entries("flash_mha_int8", "", int8_rows["flash_mha_int8"],
                                 int8_launches, int8_err["flash_mha_int8"], f"{ja8}:58"),
         int8_kernel_entry("qmm sm90", qmm_src, f"{jq}:80", int8_rows["qmm"],
@@ -4386,9 +4565,9 @@ def main() -> int:
                           variants["A"]["rows"]["quant_rows_int4"],
                           variants["A"]["launches"][32]["quant_rows_int4"],
                           variant_err["quant_rows_int4"]),
-        kernel_entry("flash_fwd_lse", src, f"{jv}:63",
-                     form_rows(train_rows["flash_fwd_lse"], False),
-                     train_launches["flash_fwd_lse"]),
+        by_site(kernel_entry("flash_fwd_lse single_sm90", sm90_src, f"{jv}:63",
+                             form_is(train_rows["flash_fwd_lse"], "single_sm90"),
+                             train_launches["flash_fwd_lse_single"])),
         by_site(kernel_entry("flash_bwd_dq single_sm90", ssrc, f"{jv}:170",
                              form_is(train_rows["flash_bwd_dq"], "single_sm90"),
                              train_launches["flash_bwd_dq_single"])),
@@ -4410,7 +4589,7 @@ def main() -> int:
     # (phi='m' flags off, phi='n' int8: launches and times of one batch-2
     # forward); errors the largest of those launches and the scale kernel phase
     ja = "transparent_object_detection_tpu/ops/attention.py"
-    forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", src, f"{ja}:137"),
+    forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", sm90_src, f"{ja}:137"),
              ("flash_mha_int8", I8_SRC, f"{ja8}:58"), ("flash_mha_int8_qout", I8_SRC, f"{ja8}:184"),
              ("flash_int8_handoff", I8_SRC, f"{ja8}:435"), ("qmm", qmm_src, f"{jq}:80"),
              ("quant_rows", qsrc, f"{jq}:408"), ("quant_rows_int4", qsrc, f"{jq}:408"))
@@ -4428,15 +4607,23 @@ def main() -> int:
                                                   r["launches"][batch],
                                                   scale_err.get(name + suffix, 0.0), replaces)
                 continue
-            # bf16 packed: the sm90 kernel; fp32 flash: the f32_sm90 kernel
-            sm90 = name == "flash_mha_packed" and not suffix
+            # bf16 packed: the sm90 kernel; bf16 one head: its one-head form
+            # (dark3 and the folded h1 apart); fp32 flash: the f32_sm90 kernel
+            sm90 = name in ("flash_mha_packed", "flash_single") and not suffix
             f32 = suffix and name in ("flash_mha_packed", "flash_single")
-            kernels.append(int8_kernel_entry(
-                f"{'qmm sm90' if name == 'qmm' else name} {label}",
-                sm90_src if sm90 else f32_src if f32 else source, replaces,
+            single = sm90 and name == "flash_single"
+            entry = int8_kernel_entry(
+                f"{'qmm sm90' if name == 'qmm' else name}{' single_sm90' if single else ''} "
+                f"{label}", sm90_src if sm90 else f32_src if f32 else source, replaces,
                 r["rows"][name],
                 r["launches"][batch][name + ("_sm90" if sm90 else "_f32" if f32 else "")],
-                scale_err.get(name + suffix, 0.0)))
+                scale_err.get(name + suffix, 0.0))
+            kernels.append(by_site(entry) if single else entry)
+    # row 2 at phi='n''s one-head sites (launches of the counted batch-2
+    # forward, times of the scale kernel phase)
+    kernels.append(by_site(int8_kernel_entry(
+        "flash_single single_sm90 phi=n", sm90_src, f"{ja}:137", n_single_rows,
+        n_run["bf16"]["launches"][2]["flash_single_sm90"], scale_err.get("flash_single", 0.0))))
     # rows 9-11 at the other scales: phi='m' 640x640 bf16 (launches of the
     # counted batch-2 remat step, times of its four sites at batch 2),
     # phi='n' bf16's one-head backward (launches of the phi='n' bf16 step,
@@ -4456,7 +4643,8 @@ def main() -> int:
                 rows = form_rows(rows, False)
             if form_is(rows, "single_sm90"):  # bf16 one head: dark3 and the folded h1 apart
                 kernels.append(by_site(int8_kernel_entry(
-                    f"{name} single_sm90 {label}", ssrc, f"{jv}:{line}",
+                    f"{name} single_sm90 {label}",
+                    sm90_src if name == "flash_fwd_lse" else ssrc, f"{jv}:{line}",
                     form_is(rows, "single_sm90"), run["launches"][name + "_single"],
                     train_scale["err"][name + suffix + " single_sm90"])))
                 rows = [r for r in rows if r.get("form") != "single_sm90"]
@@ -4470,7 +4658,8 @@ def main() -> int:
                 train_scale["err"].get(name + suffix, 0.0)))
     check(all(n32_train["launches"][k + "_f32"] > 0 for k in TRAIN_KERNELS),
           f"phi='n' fp32 training missed an f32_sm90 kernel: {n32_train['launches']}")
-    check(n_train["launches"]["flash_fwd_lse"] > 0, "phi='n' bf16 training ran no kernel")
+    check(n_train["launches"]["flash_fwd_lse_single"] > 0,
+          "phi='n' bf16 training ran no one-head forward kernel")
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),
           flush=True)
     print(card)

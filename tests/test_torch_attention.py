@@ -134,7 +134,7 @@ def test_wrappers_never_fall_back_off_cpu():
     v = torch.empty((1, 2048, 512), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         tattn.flash_single(q, q, v, 1.0)
-    assert tattn.flash_mha_packed.launches == 0 and tattn.flash_single.launches == 0
+    assert tattn.flash_mha_packed.launches == 0 and tattn.flash_single.sm90_launches == 0
     assert tattn.flash_mha_packed.sm90_launches == 0
 
 

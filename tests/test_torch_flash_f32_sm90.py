@@ -97,7 +97,8 @@ def test_form_rule_every_fp32_site(phi):
     480x576, takes the fp32 Hopper kernel: packed heads by
     `packed_fwd_form`, the forward with lse (packed, single-head, folded) by
     `lse_fwd_form`, the single-head serving kernel by its dtype; none is
-    left on another form, and the bf16 rule is unchanged."""
+    left on another form, and the bf16 rule sends packed heads to the sm90
+    kernel and one head to its one-head form."""
     calls = _fp32_calls(phi)
     assert {route for _, route, *_ in calls} >= {"packed", "single"}, phi
     for tag, route, dqk, dv, heads in calls:
@@ -105,7 +106,7 @@ def test_form_rule_every_fp32_site(phi):
             assert tattn.packed_fwd_form(dqk, torch.float32, dv) == "f32_sm90", tag
             assert tattn.packed_fwd_form(dqk, torch.bfloat16, dv) == "sm90", tag
         else:
-            assert tvjp.lse_fwd_form(dqk, dv, 1, torch.bfloat16) == "mma_sync", tag
+            assert tvjp.lse_fwd_form(dqk, dv, 1, torch.bfloat16) == "single_sm90", tag
         assert tvjp.lse_fwd_form(dqk, dv, heads, torch.float32) == "f32_sm90", tag
     # the FFMA kernel is gone: the bf16 source keeps no fp32 form
     src = (KERNEL_SRC.parent / "flash_attn_fwd.cu").read_text()

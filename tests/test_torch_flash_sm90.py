@@ -7,7 +7,8 @@ The kernel cannot run here; what is held here is what surrounds it:
     in bf16 and the fp32 Hopper kernel (csrc/flash_fwd_f32_sm90.cu) in
     fp32; widths that are multiples of 8 but not of 64 stay on the mma_sync
     template; single-head and folded sites keep their routes and, in bf16
-    training, the template;
+    training, the one-head form of the sm90 kernel
+    (tests/test_torch_flash_single_sm90.py);
   * the launch plan (`attention.sm90_plan`), computed in Python and handed
     to the launcher, at every routed site: it fits the card's 227 KB of
     dynamic shared memory, its slabs cover q/k exactly and its v slices (or
@@ -82,8 +83,8 @@ def _packed_sites(phi):
 def test_dispatch_rule_routes_every_packed_site(phi):
     """Every packed site takes the sm90 kernel in bf16 and the fp32 Hopper
     kernel (f32_sm90) in fp32, serving and training; the single-head and
-    folded sites keep their routes and, in bf16 training, the mma_sync
-    template."""
+    folded sites keep their routes and, in bf16 training, the one-head form
+    of the sm90 kernel (single_sm90)."""
     packed = _packed_sites(phi)
     assert packed, f"phi={phi}: no packed site"
     for tag, _, dqk, dv, heads in packed:
@@ -99,7 +100,7 @@ def test_dispatch_rule_routes_every_packed_site(phi):
                 # one head a call: the fold copy pads the width to a multiple of 8
                 d = -(-cq // heads // 8) * 8
                 dvh = -(-cv // heads // 8) * 8
-                assert tvjp.lse_fwd_form(d, dvh, 1, torch.bfloat16) == "mma_sync", (hw, name)
+                assert tvjp.lse_fwd_form(d, dvh, 1, torch.bfloat16) == "single_sm90", (hw, name)
                 assert tattn.serving_route(n, cq, heads, cv, packed=packed_in)[0] == route, \
                     (hw, name)
 

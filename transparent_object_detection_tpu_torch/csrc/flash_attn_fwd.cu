@@ -1,7 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a) in bf16: exp2-domain online
-// softmax with fp32 softmax state on the tensor cores (mma.sync). One kernel
-// template serves three ports, at the widths the Hopper kernel of
-// csrc/flash_fwd_sm90.cu does not take (ops/attention.py::packed_fwd_form):
+// Flash-attention forward in bf16 on the tensor cores through mma.sync: the
+// first kernel of the port, exp2-domain online softmax with fp32 softmax
+// state. What still routes here are packed bf16 heads whose q/k or v width
+// is a multiple of 8 but not of 64 (ops/attention.py::packed_fwd_form),
+// which no route of the model reaches; every other forward call runs a
+// Hopper kernel: packed bf16 heads of multiples of 64 and every bf16 call
+// with one head (dark3 at every scale, the folded heads) on
+// csrc/flash_fwd_sm90.cu, every fp32 call on csrc/flash_fwd_f32_sm90.cu.
 //
 //   * flash_mha_packed: replaces the TPU kernel
 //     transparent_object_detection_tpu/ops/attention.py::_mha_flash_kernel
@@ -9,21 +13,14 @@
 //     of ONE packed (B, N, 3C) qkv array: head h of q at column h*dh, of k at
 //     C + h*dh, of v at 2C + h*dh, row stride 3C. The output is the
 //     head-packed (B, N, C) array, head h at column h*dh. No split copies.
-//   * flash_single: replaces
-//     transparent_object_detection_tpu/ops/attention.py::_flash_kernel
-//     (flash_attention_pallas): one head, q/k width dq, v width dv (the
-//     dark3 SelfAttention: dq = C/8, dv = C, scale 1.0; and the multi-head
-//     shapes whose heads are folded into the batch axis, such as phi='n'
-//     h1's 3 x 283 and phi='m' h1's 8 x 599, zero-padded by the wrapper).
 //   * flash_fwd_lse (training): replaces
 //     transparent_object_detection_tpu/ops/attention_vjp.py::_fwd_lse_kernel
-//     (flash_fwd_lse), both its packed multi-head and its single-head form:
-//     the same kernel with one more output, the per-(batch, head, query)
-//     logsumexp in the natural-log domain, lse = (m + log2 l) * ln 2 from the
-//     exp2-domain state, which the backward (flash_attn_bwd.cu) recomputes
-//     P from. q/k/v are given by pointer and strides, so the packed form
-//     reads them as column views of the qkv projection output.
-// fp32 inputs go to csrc/flash_fwd_f32_sm90.cu (3xTF32 on the tensor cores).
+//     (flash_fwd_lse), its packed multi-head form at those widths: the same
+//     kernel with one more output, the per-(batch, head, query) logsumexp
+//     in the natural-log domain, lse = (m + log2 l) * ln 2 from the
+//     exp2-domain state, which the backward recomputes P from. q/k/v are
+//     given by pointer and strides, so it reads them as column views of the
+//     qkv projection output.
 //
 // All compute, per query row i, out_i = sum_j p_ij v_j / sum_j p_ij with
 //   s_ij = (q_i . k_j) * scale * log2(e)   (fp32 accumulation)
@@ -32,14 +29,8 @@
 //   l, acc in fp32, output acc * (1 / l) in bf16
 // which is the arithmetic of the Pallas kernels.
 //
-// Bound. At phi='s' 640x640, per image, the four launches of the serving
-// forward do 2*N^2*(Cq + Cv) operations: h2 (N=6400, C=1536) ~251.7 GFLOP,
-// dark3 (N=6400, 64 + 512) ~47.2, h1 (N=1600, C=2048) ~21.0, h4 (N=1600,
-// C=1536) ~15.7; at phi='m' the same sites do ~503, ~94.4, ~49 and ~31.5
-// GFLOP. Inputs and outputs are a few tens of MB, so they are bound by the
-// tensor cores, not by memory: at the H100 SXM data sheet's 989 TFLOP/s
-// bf16 the phi='s' four take at least ~0.34 ms per image (derived, not
-// measured).
+// Bound. 2*N^2*(dq + dv) operations a (batch, head) against a few tens of
+// MB of inputs and outputs: the tensor cores bound it (989 TFLOP/s bf16).
 //
 // Design. The N x N score matrix never leaves the SM: a
 // block owns 64 query rows (16 per warp, 4 warps) and walks the keys in
@@ -49,15 +40,15 @@
 // stays in registers between the two products (the S accumulator layout is
 // the A operand layout). The q/k width is a loop: up to 256 columns the q
 // tile stays in shared memory and one k tile of that width is refilled
-// while P.V runs (the phi='s' path: widths 64 and 256); wider heads stream q
-// and k together in 128-column slabs through a 2-stage cp.async ring, S
-// accumulating over the slabs in registers. Columns past dq (a multiple of
-// 8) are zero-filled, which leaves q.k^T unchanged. The fp32 accumulator of
-// a 64 x dv tile does not fit in registers for wide v, so v is split into
-// DVT = 256-wide column slices (128 accumulator registers a thread) across
-// blocks and q.k^T is recomputed per slice; the last slice is masked where
-// dv is not a multiple of 256. Ragged N is masked: keys past N score -inf,
-// query rows past N are computed on zeros and not stored.
+// while P.V runs; wider heads stream q and k together in 128-column slabs
+// through a 2-stage cp.async ring, S accumulating over the slabs in
+// registers. Columns past dq (a multiple of 8) are zero-filled, which
+// leaves q.k^T unchanged. The fp32 accumulator of a 64 x dv tile does not
+// fit in registers for wide v, so v is split into DVT = 256-wide column
+// slices (128 accumulator registers a thread) across blocks and q.k^T is
+// recomputed per slice; the last slice is masked where dv is not a
+// multiple of 256. Ragged N is masked: keys past N score -inf, query rows
+// past N are computed on zeros and not stored.
 #include "flash_common.cuh"
 
 namespace {
@@ -348,29 +339,6 @@ int flash_mha_packed(const void* qkv, void* out, int batch, int n, int heads, in
   p.n = n;
   p.scale_log2 = scale * LOG2E;
   return static_cast<int>(run(p, batch, heads, static_cast<cudaStream_t>(stream)));
-}
-
-// Single-head forward: q, k (B, N, dq), v (B, N, dv) -> out (B, N, dv), bf16.
-// dq % 8 == 0, dv % 8 == 0.
-int flash_single(const void* q, const void* k, const void* v, void* out, int batch, int n,
-                 int dq, int dv, float scale, void* stream) {
-  Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = out;
-  p.lse = nullptr;
-  p.q_batch = p.k_batch = (long long)n * dq;
-  p.v_batch = p.o_batch = (long long)n * dv;
-  p.q_row = p.k_row = dq;
-  p.v_row = p.o_row = dv;
-  p.q_col = p.k_col = p.v_col = 0;
-  p.dq_head = p.dv_head = 0;
-  p.dq = dq;
-  p.dv = dv;
-  p.n = n;
-  p.scale_log2 = scale * LOG2E;
-  return static_cast<int>(run(p, batch, 1, static_cast<cudaStream_t>(stream)));
 }
 
 // Forward with logsumexp (training): q, k (B, N, heads * dqk) and v (B, N,

@@ -1,9 +1,11 @@
-// Flash-attention forward for Hopper (sm_90a), bf16, the packed multi-head
-// form: wgmma fed by a TMA ring, one producer warpgroup and two consumer
-// warpgroups a block.
+// Flash-attention forward for Hopper (sm_90a), bf16: wgmma fed by a TMA
+// ring, one producer warpgroup and two consumer warpgroups a block. Two
+// forms of one kernel.
 //
-// Replaces, for bf16 heads whose q/k and v widths are multiples of 64 (every
-// packed site a route reaches: heads of 128 to 3,584, all multiples of 128):
+// Packed multi-head form, for bf16 heads whose q/k and v widths are
+// multiples of 64 (every packed site a route reaches: heads of 128 to
+// 3,584, all multiples of 128; ops/attention.py::packed_fwd_form and
+// sm90_plan):
 //   * transparent_object_detection_tpu/ops/attention.py::_mha_flash_kernel
 //     (flash_attention_mha_packed): serving, q/k/v read in place out of the
 //     packed (B, N, 3C) qkv array, out (B, N, C);
@@ -11,9 +13,18 @@
 //     (flash_fwd_lse), its packed multi-head form: training, the same kernel
 //     with the lse store enabled, q/k/v given by pointer and strides (column
 //     views of the qkv projection output).
-// csrc/flash_attn_fwd.cu keeps the single-head and folded forms, fp32, and
-// packed widths that are multiples of 8 but not of 64 (no route reaches
-// those); ops/attention.py::packed_fwd_form states the rule.
+// One-head form, for every bf16 call with one head (ops/attention.py::
+// single_fwd_form and single_sm90_plan; the library recomputes the plan):
+//   * transparent_object_detection_tpu/ops/attention.py::_flash_kernel
+//     (flash_attention_pallas; the port's flash_single): serving, dark3's
+//     SelfAttention (q/k C/8, v C: 32/256, 64/512, 128/1,024, 256/2,048,
+//     512/4,096 at phi 'n' to 'x', scale 1) and the heads the fold copy
+//     puts on the batch axis (phi='n' h1 3 x 283 and phi='m' h1 8 x 599,
+//     padded to 288 and 600);
+//   * _fwd_lse_kernel with one head (flash_fwd_lse): training, the same
+//     sites, lse (B, N).
+// csrc/flash_attn_fwd.cu keeps packed bf16 widths that are multiples of 8
+// but not of 64 (no route reaches them); fp32 runs csrc/flash_fwd_f32_sm90.cu.
 //
 // Arithmetic, that of flash_attn_fwd.cu and of the Pallas kernels, per query
 // row i: s_ij = (q_i . k_j) * scale * log2(e) with q.k^T accumulated in fp32;
@@ -25,15 +36,17 @@
 //
 // Bound. 2 * N^2 * (dqk + dv) operations a (batch, head) against a few tens
 // of MB of inputs and outputs: the tensor cores bound it (phi='s' 640x640
-// batch 2, h1 + h2 + h4: 0.58 ms at the data sheet's 989 TFLOP/s bf16).
+// batch 2, h1 + h2 + h4: 0.58 ms at the data sheet's 989 TFLOP/s bf16;
+// dark3 0.095 ms).
 //
 // Design.
 //   * TMA loads. One thread of the producer warpgroup loads Q once (heads up
 //     to 384 wide stay resident: 128 rows x 384 x 2 = 96 KB), then, per key
 //     tile, K in 64-column slabs through a ring of `stages` slabs (wider
 //     heads: each stage also carries the matching 64-column Q slab) and V
-//     (the block's v columns) through a 2-stage ring, each stage guarded by
-//     a full and an empty mbarrier. Every TMA box is 64 columns (128 bytes)
+//     (the block's v columns) through a ring of `v_stages` (2; 1 beside the
+//     folded 600's resident Q), each stage guarded by a full and an empty
+//     mbarrier. Every TMA box is 64 columns (128 bytes)
 //     wide with the 128-byte swizzle, the layout wgmma reads.
 //   * S = Q K^T: each consumer warpgroup owns 64 query rows and issues
 //     wgmma m64nKTk16 (KT, the key tile: 128 for v slices up to 128, else 64)
@@ -56,6 +69,22 @@
 //     across 128-row blocks, each recomputing S. The split is taken by
 //     measurement at phi='m' 8 x 384 (PERF.md; kernels/time_serving.py
 //     --wide-heads times both forms).
+//   * The one-head form differs in three ways. [columns] Widths are
+//     multiples of 8: the maps' inner dimension is the real width, so TMA
+//     zero-fills the columns of the last 64-column slab past it (q/k 32
+//     and the folded 288 and 600 need no pad copy beyond the fold's); zero
+//     q/k columns leave S unchanged and v columns past the width are never
+//     stored. The split form also takes 320 columns a warpgroup (the
+//     folded heads of 600: an N 256 and an N 64 product, 160 accumulator
+//     registers), and a V ring of one stage where two do not fit beside the
+//     resident Q (600: 80 KB of Q, one 80 KB V stage, six K stages); Q
+//     streams with K only where neither fits.
+//     dark3 (S cheap: q/k 32 to 512 against v eight times as wide) takes
+//     the sliced form, v in slices of 256 on 64-key tiles; the folded heads
+//     of 288 and 600 (S as dear as P V) the split form. Each measured
+//     against the other (PERF.md; kernels/time_serving.py --wide-heads).
+//   * [rescale] A warp whose rows all kept their running max (corr = 1
+//     exactly) skips the O rescale: past the first tiles most do.
 //   Tried and dropped, slower on the H100 at phi='s' h2: S of tile t + 1
 //   issued before the softmax of tile t, or the softmax of tile t under
 //   P V of tile t - 1 (each leaves a wgmma group in flight across the
@@ -64,11 +93,13 @@
 //
 // Trouble spots, each handled where its tag appears below:
 //   [ragged N]    keys and query rows past N
-//   [columns]     boxes that would run past a head inside the packed array
+//   [columns]     boxes that would run past a head inside the packed array,
+//                 or past a width that is not a multiple of 64
 //   [tensor maps] the driver call, the parameter space, alignment
 //   [lse]         the contract with the backward
 //   [small grids] rows a block against the card's 132 SMs
 //   [fences]      wgmma fences, groups and mbarrier phases
+//   [rescale]     the O rescale a warp may skip
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +123,7 @@ constexpr int SLAB = 64;           // q/k columns a ring stage (one 128-byte swi
 constexpr int CONSUMERS = 2;       // consumer warpgroups, 64 rows each
 constexpr int THREADS_SM90 = 128 * (CONSUMERS + 1);
 constexpr int MAX_STAGES = 8;
+constexpr int MAX_V_STAGES = 4;
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 constexpr int ALIGN = 1024;         // a swizzle atom: 8 rows of 128 bytes
 constexpr int BARRIER_BYTES = 1024;
@@ -105,9 +137,10 @@ struct Sm90Params {
   __nv_bfloat16* o;  // (B, N, heads * dv)
   float* lse;        // (B, heads, N), or null (serving)
   int n, heads, dqk, dv;
-  int slabs;         // dqk / SLAB
+  int slabs;         // q/k slabs, ceil(dqk / SLAB)
   int dv_splits;     // v slices a head, one a block
   int stages;        // K ring stages
+  int v_stages;      // V ring stages
   int q_resident;    // Q loaded once (else a Q slab in every K stage)
   float scale_log2;  // scale * log2(e)
 };
@@ -183,31 +216,6 @@ __device__ __forceinline__ void wgmma_sst_n256(float (&d)[128], uint64_t da, uin
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d[64] = A (64x16, smem, K-major) * B (128x16, smem, K-major) + (scale_d ? d : 0)
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 template <int KT>
 __device__ __forceinline__ void wgmma_ss(float (&d)[KT / 2], uint64_t da, uint64_t db,
                                          int scale_d) {
@@ -215,19 +223,42 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[KT / 2], uint64_t da, uint64
   if constexpr (KT == 128) wgmma_ss_n128(d, da, db, scale_d);
 }
 
-template <int DV>
-__device__ __forceinline__ void wgmma_sst(float (&d)[DV / 2], uint64_t da, uint64_t db) {
-  if constexpr (DV == 192) wgmma_sst_n192(d, da, db);
-  if constexpr (DV == 256) wgmma_sst_n256(d, da, db);
+// The first 128 and the last 32 of an accumulator of 160 (DV 320: an N 256
+// product, then an N 64 one on the fifth 64-column box)
+__device__ __forceinline__ float (&first256(float (&d)[160]))[128] {
+  return *reinterpret_cast<float(*)[128]>(d);
+}
+__device__ __forceinline__ float (&last64(float (&d)[160]))[32] {
+  return *reinterpret_cast<float(*)[32]>(d + 128);
 }
 
+// d[DV / 2] += A (64x16, smem, K-major) * V (16 keys x DV columns from `vb`,
+// smem, MN-major in 64-column boxes `box` bytes apart)
+template <int DV>
+__device__ __forceinline__ void wgmma_sst(float (&d)[DV / 2], uint64_t da, uint32_t vb,
+                                          uint32_t box) {
+  const uint64_t db = desc_sw128(vb, box, 1024);
+  if constexpr (DV == 192) wgmma_sst_n192(d, da, db);
+  if constexpr (DV == 256) wgmma_sst_n256(d, da, db);
+  if constexpr (DV == 320) {
+    wgmma_sst_n256(first256(d), da, db);
+    wgmma_ss_n64_tb(last64(d), da, desc_sw128(vb + 4 * box, box, 1024));
+  }
+}
+
+// d[DV / 2] += A (64x16 bf16, registers) * V (as wgmma_sst)
 template <int DV>
 __device__ __forceinline__ void wgmma_rs(float (&d)[DV / 2], const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint32_t vb, uint32_t box) {
+  const uint64_t db = desc_sw128(vb, box, 1024);
   if constexpr (DV == 64) wgmma_rs_n64(d, a, db);
   if constexpr (DV == 128) wgmma_rs_n128(d, a, db);
   if constexpr (DV == 192) wgmma_rs_n192(d, a, db);
   if constexpr (DV == 256) wgmma_rs_n256(d, a, db);
+  if constexpr (DV == 320) {
+    wgmma_rs_n256(first256(d), a, db);
+    wgmma_rs_n64(last64(d), a, desc_sw128(vb + 4 * box, box, 1024));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -254,7 +285,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
   const uint32_t base = (smem_u32(smem_raw) + ALIGN - 1) & ~static_cast<uint32_t>(ALIGN - 1);
   const uint32_t bar_q = base;
   const uint32_t bar_kfull = base + 8, bar_kempty = bar_kfull + 8 * MAX_STAGES;
-  const uint32_t bar_vfull = bar_kempty + 8 * MAX_STAGES, bar_vempty = bar_vfull + 16;
+  const uint32_t bar_vfull = bar_kempty + 8 * MAX_STAGES;
+  const uint32_t bar_vempty = bar_vfull + 8 * MAX_V_STAGES;
   // split form: the row rescale of two tiles and the final row sums
   float* corr_s = reinterpret_cast<float*>(smem_raw + (base - smem_u32(smem_raw)) + 256);
   float* l_s = corr_s + 2 * 64;
@@ -263,7 +295,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
   const uint32_t stage_bytes = KT * ROW_BYTES + (p.q_resident ? 0 : ROWS * ROW_BYTES);
   const uint32_t k_smem = q_smem + q_bytes;
   const uint32_t v_smem = k_smem + p.stages * stage_bytes;
-  const uint32_t p_smem = v_smem + 2 * V_BYTES;
+  const uint32_t p_smem = v_smem + p.v_stages * V_BYTES;
 
   const int m0 = blockIdx.x * ROWS;
   const int head = blockIdx.y / p.dv_splits;
@@ -280,7 +312,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
       mbar_init(bar_kfull + 8 * s, 1);
       mbar_init(bar_kempty + 8 * s, K_READERS);  // one arrival a reading warp
     }
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < p.v_stages; ++s) {
       mbar_init(bar_vfull + 8 * s, 1);
       mbar_init(bar_vempty + 8 * s, CONSUMERS * 4);
     }
@@ -315,8 +347,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
             ph ^= 1;
           }
         }
-        const int vs = t & 1;
-        mbar_wait(bar_vempty + 8 * vs, ((t >> 1) & 1) ^ 1);
+        const int vs = t % p.v_stages;  // tile t's V stage
+        mbar_wait(bar_vempty + 8 * vs, ((t / p.v_stages) & 1) ^ 1);
         mbar_expect_tx(bar_vfull + 8 * vs, V_BYTES);
         // [columns] a slice past dv (the last slice of a width that is not
         // a multiple of DV) reads zero-filled columns, not the next head's
@@ -363,7 +395,11 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(bar);
     };
+    // [rescale] a row whose max did not rise has corr exp2(0) = 1 exactly: a
+    // warp whose rows all kept their max skips the multiply by 1 (the
+    // result is the same bits; past the first few tiles most warps do)
     auto rescale = [&](const float(&corr)[2]) {
+      if (__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) return;
 #pragma unroll
       for (int i = 0; i < DV / 8; ++i) {
         o[4 * i] *= corr[0];
@@ -444,12 +480,12 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
     };
     // O += P(t) V(t), issued and committed, not waited for
     auto issue_pv = [&](int t, const uint32_t(&pa)[KT / 16][4]) {
-      mbar_wait(bar_vfull + 8 * (t & 1), (t >> 1) & 1);
-      const uint32_t vb = v_smem + (t & 1) * V_BYTES;
+      mbar_wait(bar_vfull + 8 * (t % p.v_stages), (t / p.v_stages) & 1);
+      const uint32_t vb = v_smem + (t % p.v_stages) * V_BYTES;
       wgmma_fence();  // [fences] o and pa were written by ordinary instructions
 #pragma unroll
       for (int kk = 0; kk < KT / 16; ++kk)
-        wgmma_rs<DV>(o, pa[kk], desc_sw128(vb + kk * 16 * ROW_BYTES, KT * ROW_BYTES, 1024));
+        wgmma_rs<DV>(o, pa[kk], vb + kk * 16 * ROW_BYTES, KT * ROW_BYTES);
       wgmma_commit();
     };
 
@@ -481,7 +517,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
         if (SPLIT) handoff(t, pa, corr);
         issue_pv(t, pa);
         wgmma_wait<0>();
-        release(bar_vempty + 8 * (t & 1));
+        release(bar_vempty + 8 * (t % p.v_stages));
       }
     } else if constexpr (SPLIT) {
       // warpgroup 1: O += P V on the second half, P from shared memory
@@ -490,18 +526,19 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
         named_sync(BAR_P_FULL + pb);
         const float corr[2] = {corr_s[pb * 64 + r0], corr_s[pb * 64 + r0 + 8]};
         rescale(corr);
-        mbar_wait(bar_vfull + 8 * pb, (t >> 1) & 1);
+        const int vs = t % p.v_stages;
+        mbar_wait(bar_vfull + 8 * vs, (t / p.v_stages) & 1);
         const uint32_t pt = p_smem + pb * P_BYTES;
-        const uint32_t vb = v_smem + pb * V_BYTES + v_half;
+        const uint32_t vb = v_smem + vs * V_BYTES + v_half;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KT / 16; ++kk)
           wgmma_sst<DV>(o, desc_sw128(pt + (kk / 4) * 64 * ROW_BYTES + (kk % 4) * 32, 16, 1024),
-                        desc_sw128(vb + kk * 16 * ROW_BYTES, KT * ROW_BYTES, 1024));
+                        vb + kk * 16 * ROW_BYTES, KT * ROW_BYTES);
         wgmma_commit();
         wgmma_wait<0>();
         if (t + 2 < n_tiles) named_arrive(BAR_P_EMPTY + pb);  // one arrival a sync
-        release(bar_vempty + 8 * pb);
+        release(bar_vempty + 8 * vs);
       }
     }
 
@@ -529,7 +566,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
     // [lse] the natural-log logsumexp of the scaled scores, (m + log2 l) *
     // ln 2, written once a row: by the first v slice (every slice computes
     // the same m and l) and, split, by warpgroup 0, which owns m; the
-    // backward (flash_attn_bwd.cu) recomputes P from it
+    // backward (flash_bwd_sm90.cu, flash_bwd_single_sm90.cu) recomputes P
+    // from it
     if (p.lse != nullptr && split == 0 && (!SPLIT || wg == 0) && (lane & 3) == 0) {
       float* lse = p.lse + (static_cast<long long>(b) * p.heads + head) * p.n;
 #pragma unroll
@@ -544,7 +582,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
 #pragma unroll
     for (int i = 0; i < DV / 8; ++i) {
       const int col = 8 * i + 2 * (lane & 3);
-      if (col >= v_cols) continue;  // dv is a multiple of 64: the pair is whole
+      if (col >= v_cols) continue;  // dv is a multiple of 8: the pair is whole
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         // [ragged N] query rows past N were computed on zero-filled q and
@@ -562,14 +600,17 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
 // ---------------------------------------------------------------------------
 
 // Dynamic shared memory of a plan: alignment slack, barriers, Q (resident
-// form), the K ring (each stage with a Q slab in the streamed form), the V
-// ring (both halves in the split form), P (split form, two tiles).
+// form: every q/k slab, the last one zero-filled past the width), the K ring
+// (each stage with a Q slab in the streamed form), the V ring (both halves
+// in the split form), P (split form, two tiles).
 // ops/attention.py::sm90_smem_bytes computes the same.
-int plan_smem(int dqk, int keys, int v_slice, int stages, int q_resident, int wg_split) {
+int plan_smem(int slabs, int keys, int v_slice, int stages, int q_resident, int wg_split,
+              int v_stages) {
   const int rows = wg_split ? 64 : BM;
   const int stage = keys * ROW_BYTES + (q_resident ? 0 : rows * ROW_BYTES);
-  return ALIGN + BARRIER_BYTES + (q_resident ? rows * dqk * 2 : 0) + stages * stage +
-         2 * (wg_split ? 2 : 1) * v_slice * keys * 2 + (wg_split ? 2 * 64 * keys * 2 : 0);
+  return ALIGN + BARRIER_BYTES + (q_resident ? slabs * rows * ROW_BYTES : 0) + stages * stage +
+         v_stages * (wg_split ? 2 : 1) * v_slice * keys * 2 +
+         (wg_split ? 2 * 64 * keys * 2 : 0);
 }
 
 template <int DV, bool SPLIT, int KT>
@@ -585,15 +626,20 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
   return cudaGetLastError();
 }
 
-// The instantiations, one a plan the rule picks: sliced v slices up to 128
-// on 128-key tiles, 192 and 256 on 64-key tiles (the S accumulator of
-// 128 keys no longer fits beside O); the split form on 64-key tiles.
+// The instantiations, one a plan the rules pick: sliced v slices up to 128
+// on 128-key tiles, 192 and 256 on 64-key tiles (the S accumulator of 128
+// keys beside O's 128 registers spills, measured slower); the split form on
+// 64-key tiles, 192 to 320 columns a warpgroup (320: the one-head form's
+// folded heads of 600).
 cudaError_t launch_plan(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                         const Sm90Params& p, int batch, int smem, int v_slice, int wg_split,
                         cudaStream_t st) {
   if (wg_split)
-    return v_slice == 192 ? launch<192, true, 64>(tq, tk, tv, p, batch, smem, st)
-                          : launch<256, true, 64>(tq, tk, tv, p, batch, smem, st);
+    switch (v_slice) {
+      case 192: return launch<192, true, 64>(tq, tk, tv, p, batch, smem, st);
+      case 256: return launch<256, true, 64>(tq, tk, tv, p, batch, smem, st);
+      default: return launch<320, true, 64>(tq, tk, tv, p, batch, smem, st);
+    }
   switch (v_slice) {
     case 64: return launch<64, false, 128>(tq, tk, tv, p, batch, smem, st);
     case 128: return launch<128, false, 128>(tq, tk, tv, p, batch, smem, st);
@@ -602,49 +648,103 @@ cudaError_t launch_plan(const CUtensorMap& tq, const CUtensorMap& tk, const CUte
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Indices of the launch plan, ops/attention.py::sm90_plan.
+// Indices of the launch plan, ops/attention.py::sm90_plan and single_sm90_plan.
 enum { PLAN_ROWS, PLAN_KEYS, PLAN_SLAB, PLAN_V_SLICE, PLAN_STAGES, PLAN_Q_RESIDENT,
-       PLAN_DV_SPLITS, PLAN_WG_SPLIT, PLAN_SMEM, PLAN_LEN };
+       PLAN_DV_SPLITS, PLAN_WG_SPLIT, PLAN_V_STAGES, PLAN_SMEM, PLAN_LEN };
 
-// bf16 forward of `heads` packed heads: q, k (B, N, heads * dqk) and v (B, N,
-// heads * dv) given by pointer, batch stride and row stride in elements (head
-// h at column h * dqk or h * dv; the packed qkv's sections are such views)
-// -> out (B, N, heads * dv) bf16 contiguous, and with lse non-null lse (B,
-// heads, N) fp32. `plan` (PLAN_LEN ints) must be one this library was built
-// for: 64-column slabs; either v in dv_splits slices of 64, 128, 192 or 256
-// columns across blocks of 128 rows (wg_split 0; 128-key tiles for slices
-// up to 128, else 64), or (wg_split 1, one slice, 64-key tiles) v split
-// between the two consumer warpgroups of a 64-row block, 192 or 256 columns
-// each, q resident; 1-8 stages; the shared memory it needs within the
-// card's 227 KB. Anything else returns
-// cudaErrorInvalidValue, as does a failed tensor-map encode.
-int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
-                   int batch, int n, int heads, int dqk, int dv, long long q_batch,
-                   long long q_row, long long k_batch, long long k_row, long long v_batch,
-                   long long v_row, float scale, const int* plan, void* stream) {
+// A plan this library was built for, at q/k and v widths that are
+// multiples of 8: 64-column slabs; either v in dv_splits slices of 64, 128,
+// 192 or 256 columns across blocks of 128 rows (wg_split 0; 128-key tiles
+// for slices up to 128, else 64), or (wg_split 1, one slice, 64-key tiles)
+// v split between the two consumer warpgroups of a 64-row block, 192 to 320
+// columns each; 1-8 K stages and 1-4 V stages; the shared memory it needs
+// within the card's 227 KB.
+bool plan_ok(const int* plan, int dqk, int dv) {
   const int vs = plan[PLAN_V_SLICE], stages = plan[PLAN_STAGES], splits = plan[PLAN_DV_SPLITS];
   const int q_res = plan[PLAN_Q_RESIDENT], wg_split = plan[PLAN_WG_SPLIT];
-  const int smem = plan[PLAN_SMEM], keys = plan[PLAN_KEYS];
+  const int v_stages = plan[PLAN_V_STAGES];
+  const int keys = plan[PLAN_KEYS];
   const int cover = (wg_split ? 2 : 1) * vs;  // v columns a block covers
   const bool sliced_ok = wg_split == 0 && plan[PLAN_ROWS] == BM &&
                          (vs == 64 || vs == 128 || vs == 192 || vs == 256);
-  const bool split_ok = wg_split == 1 && plan[PLAN_ROWS] == 64 && (vs == 192 || vs == 256) &&
-                        q_res == 1 && splits == 1;
+  const bool split_ok = wg_split == 1 && plan[PLAN_ROWS] == 64 &&
+                        (vs == 192 || vs == 256 || vs == 320) && splits == 1;
   const bool keys_ok = keys == (!wg_split && vs <= 128 ? 128 : 64);
-  if (!(sliced_ok || split_ok) || !keys_ok || plan[PLAN_SLAB] != SLAB ||
-      stages < 1 || stages > MAX_STAGES || (q_res != 0 && q_res != 1) || batch < 1 || n < 1 ||
-      heads < 1 || dqk < SLAB || dqk % SLAB || dv < SLAB || dv % SLAB || splits < 1 ||
-      splits * cover < dv || (splits - 1) * cover >= dv || (wg_split && vs >= dv) ||
-      smem != plan_smem(dqk, keys, vs, stages, q_res, wg_split) || smem > SMEM_LIMIT)
+  return (sliced_ok || split_ok) && keys_ok && plan[PLAN_SLAB] == SLAB && stages >= 1 &&
+         stages <= MAX_STAGES && v_stages >= 1 && v_stages <= MAX_V_STAGES &&
+         (q_res == 0 || q_res == 1) && dqk >= 8 && dqk % 8 == 0 &&
+         dv >= 8 && dv % 8 == 0 && splits >= 1 && splits * cover >= dv &&
+         (splits - 1) * cover < dv && (!wg_split || vs < dv) &&
+         plan[PLAN_SMEM] == plan_smem((dqk + SLAB - 1) / SLAB, keys, vs, stages, q_res, wg_split,
+                                      v_stages) &&
+         plan[PLAN_SMEM] <= SMEM_LIMIT;
+}
+
+// The most K stages (up to 8, at least `least`) whose plan fits, or 0.
+int most_stages(int slabs, int keys, int vs, int q_res, int split, int v_stages, int least) {
+  for (int st = MAX_STAGES; st >= least; --st)
+    if (plan_smem(slabs, keys, vs, st, q_res, split, v_stages) <= SMEM_LIMIT) return st;
+  return 0;
+}
+
+// The one-head plan of q/k width dqk and v width dv (multiples of 8), as
+// ops/attention.py::single_sm90_plan computes it. The split form where S
+// is dear (q/k wider than 128) and v wider than one warpgroup's 256 but
+// held by two of 320: S once for v's two halves (the folded heads of 288
+// and 600); Q resident beside two V stages where two K stages fit, else
+// beside one (600: 80 KB of Q, one 80 KB V stage, six K stages; measured
+// 1.5x faster than Q streamed with K beside two V stages, whose three-stage
+// K ring starved S), else Q streamed with K. Else the sliced form: v in the
+// fewest slices of at most 256 columns, Q resident while 128 rows of it fit
+// in 96 KB (dark3: S cheap beside the K and V reads a 64-row block would
+// double).
+constexpr int SPLIT_MIN_QK = 129;
+constexpr int Q_RESIDENT_BYTES = 96 * 1024;
+void single_plan(int dqk, int dv, int* plan) {
+  const int slabs = (dqk + SLAB - 1) / SLAB;
+  const int half = (dv + 2 * SLAB - 1) / (2 * SLAB) * SLAB;
+  const bool split = dqk >= SPLIT_MIN_QK && dv > 256 && half <= 320;
+  int splits, vs, rows, keys, q_res = 1, stages, v_stages = 2;
+  if (split) {
+    splits = 1, vs = half, rows = 64, keys = 64;
+    // Q resident beside two V stages, else beside one, else streamed
+    if (!most_stages(slabs, keys, vs, 1, 1, 2, 2)) {
+      v_stages = 1;
+      if (!most_stages(slabs, keys, vs, 1, 1, 1, 2)) q_res = 0, v_stages = 2;
+    }
+    stages = most_stages(slabs, keys, vs, q_res, 1, v_stages, 1);
+  } else {
+    splits = (dv + 255) / 256, rows = BM;
+    vs = (dv + splits * SLAB - 1) / (splits * SLAB) * SLAB;
+    keys = vs <= 128 ? 128 : 64;
+    q_res = slabs * SLAB * BM * 2 <= Q_RESIDENT_BYTES;
+    stages = most_stages(slabs, keys, vs, q_res, 0, v_stages, 1);
+  }
+  plan[PLAN_ROWS] = rows;
+  plan[PLAN_KEYS] = keys;
+  plan[PLAN_SLAB] = SLAB;
+  plan[PLAN_V_SLICE] = vs;
+  plan[PLAN_STAGES] = stages;
+  plan[PLAN_Q_RESIDENT] = q_res;
+  plan[PLAN_DV_SPLITS] = splits;
+  plan[PLAN_WG_SPLIT] = split;
+  plan[PLAN_V_STAGES] = v_stages;
+  plan[PLAN_SMEM] = plan_smem(slabs, keys, vs, stages, q_res, split, v_stages);
+}
+
+int run(const void* q, const void* k, const void* v, void* out, float* lse, int batch, int n,
+        int heads, int dqk, int dv, long long q_batch, long long q_row, long long k_batch,
+        long long k_row, long long v_batch, long long v_row, float scale, const int* plan,
+        void* stream) {
+  if (batch < 1 || n < 1 || heads < 1 || !plan_ok(plan, dqk, dv))
     return static_cast<int>(cudaErrorInvalidValue);
+  // [columns] the maps' inner dimension is the real width: TMA zero-fills
+  // the columns of the last slab past it (zero q/k columns add nothing to
+  // S, zero v columns are never stored)
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, dqk, heads, n, batch, q_row, q_batch, plan[PLAN_ROWS]) ||
-      !make_map(&tk, k, dqk, heads, n, batch, k_row, k_batch, keys) ||
-      !make_map(&tv, v, dv, heads, n, batch, v_row, v_batch, keys))
+      !make_map(&tk, k, dqk, heads, n, batch, k_row, k_batch, plan[PLAN_KEYS]) ||
+      !make_map(&tv, v, dv, heads, n, batch, v_row, v_batch, plan[PLAN_KEYS]))
     return static_cast<int>(cudaErrorInvalidValue);
   Sm90Params p;
   p.o = static_cast<__nv_bfloat16*>(out);
@@ -653,13 +753,52 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float
   p.heads = heads;
   p.dqk = dqk;
   p.dv = dv;
-  p.slabs = dqk / SLAB;
-  p.dv_splits = splits;
-  p.stages = stages;
-  p.q_resident = q_res;
+  p.slabs = (dqk + SLAB - 1) / SLAB;
+  p.dv_splits = plan[PLAN_DV_SPLITS];
+  p.stages = plan[PLAN_STAGES];
+  p.v_stages = plan[PLAN_V_STAGES];
+  p.q_resident = plan[PLAN_Q_RESIDENT];
   p.scale_log2 = scale * LOG2E;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(launch_plan(tq, tk, tv, p, batch, smem, vs, wg_split, st));
+  return static_cast<int>(launch_plan(tq, tk, tv, p, batch, plan[PLAN_SMEM],
+                                      plan[PLAN_V_SLICE], plan[PLAN_WG_SPLIT], st));
+}
+
+}  // namespace
+
+extern "C" {
+
+// bf16 forward of `heads` packed heads: q, k (B, N, heads * dqk) and v (B, N,
+// heads * dv) given by pointer, batch stride and row stride in elements (head
+// h at column h * dqk or h * dv; the packed qkv's sections are such views;
+// base and strides multiples of 16 bytes) -> out (B, N, heads * dv) bf16
+// contiguous, and with lse non-null lse (B, heads, N) fp32. Widths are
+// multiples of 8. `plan` (PLAN_LEN ints) must be one this library was built
+// for (`plan_ok`); anything else returns cudaErrorInvalidValue, as does a
+// failed tensor-map encode.
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
+                   int batch, int n, int heads, int dqk, int dv, long long q_batch,
+                   long long q_row, long long k_batch, long long k_row, long long v_batch,
+                   long long v_row, float scale, const int* plan, void* stream) {
+  return run(q, k, v, out, lse, batch, n, heads, dqk, dv, q_batch, q_row, k_batch, k_row,
+             v_batch, v_row, scale, plan, stream);
+}
+
+// The one-head form (flash_single; flash_fwd_lse with one head): the same
+// arguments with heads 1 (lse (B, N)), and `plan` exactly the one
+// `single_plan` computes from the widths; any other returns
+// cudaErrorInvalidValue.
+int flash_fwd_single_sm90(const void* q, const void* k, const void* v, void* out, float* lse,
+                          int batch, int n, int dqk, int dv, long long q_batch, long long q_row,
+                          long long k_batch, long long k_row, long long v_batch, long long v_row,
+                          float scale, const int* plan, void* stream) {
+  if (dqk < 8 || dqk % 8 || dv < 8 || dv % 8) return static_cast<int>(cudaErrorInvalidValue);
+  int want[PLAN_LEN];
+  single_plan(dqk, dv, want);
+  for (int i = 0; i < PLAN_LEN; ++i)
+    if (plan[i] != want[i]) return static_cast<int>(cudaErrorInvalidValue);
+  return run(q, k, v, out, lse, batch, n, 1, dqk, dv, q_batch, q_row, k_batch, k_row, v_batch,
+             v_row, scale, plan, stream);
 }
 
 }  // extern "C"

@@ -2,9 +2,10 @@
 flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv, `time_training_kernels`) of
 this checkout at the phi='s' 640x640 shapes, batch 2 (the packed sites and
 the int8 attention entry points, rows 3-5, also at batch 1; rows 3-5 and
-9-11 also at phi='m' h2 and h4, 8 heads of 384; rows 9-11 also at the
-one-head sites of phi='m' and 'n': dark3 and the folded h1), on one GPU;
-prints one JSON line (ms per call, CUDA events, 20 calls after 3 warm-ups).
+9-11 also at phi='m' h2 and h4, 8 heads of 384; row 2, flash_single, and
+rows 9-11 also at the one-head sites of phi='m' and 'n': dark3 and the
+folded h1, row 2 at batch 1 too), on one GPU; prints one JSON line (ms per
+call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
         [--forward | --wide-heads | --train-step | --f32 | --qmm]
@@ -13,7 +14,8 @@ With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
 TEB's configurations A (attn_handoff + w4a4_mlp1) and B (attn_qout):
 batch 1 on the host clock (the latency path) and by the device's busy
-time, batch 32 with CUDA events; then the phi='m' int8 forward at batch 32.
+time, batch 32 with CUDA events; then the phi='m' bf16 and int8 forwards at
+batch 32.
 With --qmm it times only qmm (row 6) at every distinct launch shape of one
 int8 forward of phi 's' and 'm' 640x640 at batch 2 and at batch 1 (the
 launches recorded from the model's own forward, then each shape's call
@@ -27,7 +29,9 @@ per-call weight pad). With --wide-heads
 it times only the two forms csrc/flash_fwd_sm90.cu has for heads wider
 than 256, at phi='m' (8 heads of 384): the warpgroup split that
 `attention.sm90_plan` picks and the sliced form (v in two slices of 192
-across blocks, S recomputed per slice), each held to 1e-2 of max|plain|.
+across blocks, S recomputed per slice), each held to 1e-2 of max|plain|;
+then its one-head form's (`attention.single_sm90_plan`) against the others
+at the one-head serving sites (SINGLE_SITES; `time_single_forms`).
 With --train-step it times only two training steps of `make_train_step`
 (SGD nesterov, EMA; seeded weights, synthetic batches like chip_smoke.py's):
 phi='s' 640x640 at batch 16 and phi='m' 640x640 with remat at batch 16,
@@ -94,6 +98,13 @@ TRAIN_SITES = (("h1", (2, 1600, 2048, 2048, 8)), ("h2", (2, 6400, 1536, 1536, 6)
                ("phi=m h1 folded", (16, 1600, 600, 600, 1)),
                ("phi=n dark3", (2, 6400, 32, 256, 1)),
                ("phi=n h1 folded", (6, 1600, 288, 288, 1)))
+# (name, (batch, tokens, q/k width, v width)) of the one-head serving sites
+# of row 2 (flash_single) at batch 2, timed at batch 1 too: dark3 of phi
+# 's', 'm' and 'n', and the folded h1 of phi 'm' and 'n' as the fold copy
+# hands it over (B * H single heads of the padded width, scale d ** -0.5)
+SINGLE_SITES = (("dark3", (2, 6400, 64, 512)), ("phi=m dark3", (2, 6400, 128, 1024)),
+                ("phi=m h1 folded", (16, 1600, 600, 600)), ("phi=n dark3", (2, 6400, 32, 256)),
+                ("phi=n h1 folded", (6, 1600, 288, 288)))
 # the --train-step configurations: (label, ModelConfig keywords, batch)
 TRAIN_STEPS = (("phi=s", {}, 16), ("phi=m remat", {"phi": "m", "remat": True}, 16))
 # the --f32 sites: (name, entry point, (batch, tokens, q/k width, v width,
@@ -352,12 +363,14 @@ def time_forward() -> dict:
                     f"{key}_batch32_ms": b32})
         del model
         torch.cuda.empty_cache()
-    model = build_model(ModelConfig(phi="m", int8_dense=True, int8_attn=True), device="cuda",
-                        seed=0)
-    with torch.inference_mode():
-        out["forward_int8_phi_m_batch32_ms"] = timed_ms(lambda: model(img32), 3, 1)
-    del model
-    torch.cuda.empty_cache()
+    for int8 in (False, True):  # phi='m' at batch 32, bf16 and int8
+        model = build_model(ModelConfig(phi="m", int8_dense=int8, int8_attn=int8), device="cuda",
+                            seed=0)
+        with torch.inference_mode():
+            out[f"forward{'_int8' if int8 else ''}_phi_m_batch32_ms"] = timed_ms(
+                lambda: model(img32), 3, 1)
+        del model
+        torch.cuda.empty_cache()
     return out
 
 
@@ -470,10 +483,74 @@ def time_int8_attention(randn, name, b, n, c, h, out) -> None:
             lambda: A8.flash_int8_handoff(*hargs))
 
 
+def _single_inputs(randn, b, n, dq, dv):
+    """q, k, v of a one-head site, bf16, and its scale: dark3's 1.0, a folded
+    head's (599 or 283 real columns, the rest zero) d ** -0.5."""
+    real = {600: 599, 288: 283}.get(dq, dq)
+    scale = 1.0 if dq == real else real ** -0.5
+    q, k, v = randn(b, n, dq), randn(b, n, dq), randn(b, n, dv)
+    for t in (q, k, v):
+        t[..., real:] = 0
+    return q.bfloat16(), k.bfloat16(), v.bfloat16(), scale
+
+
+def _single_variant(dq: int, dv: int, wg_split: bool, q_resident: bool = True,
+                    v_stages: int = 2, stages: int = 0) -> dict:
+    """A plan of the sm90 kernel for one head of these widths other than the
+    one-head form's own: the slices (Q resident as the packed layout of the
+    widths rounded up to 64 has it) or the halves (Q resident or streamed),
+    64-key tiles, `v_stages` V stages and `stages` K stages (0: the most
+    that fit)."""
+    r64 = lambda d: -(-d // 64) * 64
+    plan = dict(A._sm90_layout(r64(dq), r64(dv), False)) if not wg_split else {
+        "rows": 64, "keys": 64, "slab": 64, "v_slice": r64(-(-dv // 2)), "dv_splits": 1,
+        "wg_split": 1, "q_resident": int(q_resident)}
+    q_resident = bool(plan["q_resident"])
+    plan.update(keys=64, v_stages=v_stages)
+    plan["stages"] = stages or A._sm90_stages(dq, plan["v_slice"], q_resident, wg_split, 64,
+                                              v_stages=v_stages)
+    plan["smem_bytes"] = A.sm90_smem_bytes(dq, plan["v_slice"], plan["stages"], q_resident,
+                                           wg_split, 64, v_stages)
+    return plan
+
+
+def time_single_forms(randn) -> dict:
+    """ms of the one-head form's plan against the sm90 kernel's other forms
+    at SINGLE_SITES (serving, batch 2): at dark3 (sliced) the split form
+    where it fits and four V stages beside four K stages; at the folded
+    heads (split) v in slices and, at 600 (Q resident beside one V stage),
+    the split form with Q streamed beside two V stages. Each held to 1e-2
+    of max|plain| first."""
+    out = {}
+    for name, (b, n, dq, dv) in SINGLE_SITES:
+        q, k, v, scale = _single_inputs(randn, b, n, dq, dv)
+        ref = A.flash_single_plain(q, k, v, scale).float()
+        plans = {"plan": A.single_sm90_plan(dq, dv)}
+        if plans["plan"]["wg_split"]:
+            plans["sliced"] = _single_variant(dq, dv, False)
+            if plans["plan"]["v_stages"] == 1:
+                plans["split, Q streamed, 2 V stages"] = _single_variant(dq, dv, True, False)
+        else:
+            plans["sliced, 4 V stages, 4 K stages"] = _single_variant(dq, dv, False, v_stages=4,
+                                                                       stages=4)
+            if 256 < dv <= 512:
+                plans["split"] = _single_variant(dq, dv, True)
+        for form, plan in plans.items():
+            run = lambda: A._launch_sm90_plan(q, k, v, 1, scale, None, plan)
+            err = float((run().float() - ref).abs().max() / ref.abs().max())
+            if err > 1e-2:
+                raise RuntimeError(f"{form} plan at {name}: {err:.3g} of max|plain|")
+            out[f"flash_single {name} {form}"] = timed_ms(run)
+        del q, k, v, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_wide_heads(randn) -> dict:
     """ms of the sm90 kernel's two forms for heads of 384 (phi='m' 640x640
     h2 and h4 at batch 2, h4 at batch 1), serving: the plan's (split) and
-    the sliced one, each held to 1e-2 of max|plain| first."""
+    the sliced one, each held to 1e-2 of max|plain| first; then the
+    one-head form's alternatives (`time_single_forms`)."""
     out = {}
     for name, (b, n, c, h) in (("h2", (2, 6400, 3072, 8)), ("h4", (2, 1600, 3072, 8)),
                                ("h4 batch 1", (1, 1600, 3072, 8))):
@@ -487,6 +564,7 @@ def time_wide_heads(randn) -> dict:
             if err > 1e-2:
                 raise RuntimeError(f"{form} plan at phi=m {name}: {err:.3g} of max|plain|")
             out[f"flash_mha_packed phi=m {name} {form}"] = timed_ms(run)
+    out.update(time_single_forms(randn))
     return out
 
 
@@ -530,11 +608,16 @@ def main() -> int:
         time_int8_attention(randn, name, b, n, c, h, out)
     for name, (b, n, c, h) in INT8_WIDE:
         time_int8_attention(randn, name, b, n, c, h, out)
+    for name, (b, n, dq, dv) in SINGLE_SITES:  # row 2 at its one-head sites
+        q, k, v, scale = _single_inputs(randn, b, n, dq, dv)
+        out[f"flash_single {name}"] = timed_ms(lambda: A.flash_single(q, k, v, scale))
+        half = slice(0, b // 2)
+        out[f"flash_single {name} batch 1"] = timed_ms(
+            lambda: A.flash_single(q[half], k[half], v[half], scale))
     q, k = randn(2, 6400, 64).bfloat16(), randn(2, 6400, 64).bfloat16()
     v = randn(2, 6400, 512).bfloat16()
     kq, ks = A8.quantize_kv(k, 1, 6400)
     vq, vs = A8.quantize_kv(v, 1, 6400)
-    out["flash_single dark3"] = timed_ms(lambda: A.flash_single(q, k, v, 1.0))
     out["flash_mha_int8 dark3"] = timed_ms(lambda: A8.flash_mha_int8(q, kq, ks, vq, vs, 1, 1.0))
     out["flash_mha_int8 dark3 batch 1"] = timed_ms(
         lambda: A8.flash_mha_int8(q[:1], kq[:1], ks[:1], vq[:1], vs[:1], 1, 1.0))

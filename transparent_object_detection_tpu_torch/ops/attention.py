@@ -39,13 +39,16 @@ fit fails (phi='l' h1, phi='x' h1 and h4) JAX falls to its bf16-scored
 section 3).
 The kernels take bf16 or fp32 (the fp32 models: fp32-accurate products, as
 the Pallas kernel computes on fp32 inputs). A call takes one of three
-kernels, by one rule (`packed_fwd_form`): bf16 packed heads whose widths are
+kernels, by two rules (`packed_fwd_form` for packed heads,
+`single_fwd_form` for one head): bf16 packed heads whose widths are
 multiples of 64 (every packed site a route reaches) the Hopper kernel of
 csrc/flash_fwd_sm90.cu (wgmma fed by a TMA ring, launched with the plan of
-`sm90_plan`), other bf16 widths and one head the mma.sync template of
-csrc/flash_attn_fwd.cu, fp32 at every width and head count the Hopper
-kernel of csrc/flash_fwd_f32_sm90.cu (3xTF32 wgmma fed by a TMA ring after a
-pre-pass, the plan of `f32_sm90_plan`).
+`sm90_plan`), bf16 with one head (dark3, the folded heads) the one-head
+form of the same kernel (the plan of `single_sm90_plan`), other packed
+bf16 widths the mma.sync template of csrc/flash_attn_fwd.cu, fp32 at every
+width and head count the Hopper kernel of csrc/flash_fwd_f32_sm90.cu
+(3xTF32 wgmma fed by a TMA ring after a pre-pass, the plan of
+`f32_sm90_plan`).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
 and runs its plain version only for a CPU tensor. `impl="plain"` runs the
@@ -73,11 +76,12 @@ KERNEL_WIDTH_MULTIPLE = 8
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 IMPLS = (None, "plain")
 # The Hopper kernel (csrc/flash_fwd_sm90.cu) and the launch plans it is built
-# for: 64-column q/k slabs through a ring of 1-8 stages, and either 128 query
-# rows a block with v in one slice of 64-256 columns a block (sliced; 128-key
-# tiles for slices up to 128, else 64), or 64 rows a block with v split
-# between its two consumer warpgroups, 192 or 256 columns each (wg_split;
-# 64-key tiles); shared memory within the card's 227 KB.
+# for: 64-column q/k slabs through a ring of 1-8 stages, v through a ring of
+# 1-4 (the packed plans: 2), and either 128 query rows a block with v in
+# one slice of 64-256 columns a block (sliced; 128-key tiles for slices up
+# to 128, else 64), or 64 rows a block with v split between its two consumer
+# warpgroups, 192 or 256 columns each (wg_split; 64-key tiles; the one-head
+# form also 320); shared memory within the card's 227 KB.
 SM90_WIDTH_MULTIPLE = 64
 SM90_ROWS, SM90_SLAB = 128, 64
 SM90_V_SLICES = (64, 128, 192, 256)
@@ -86,7 +90,16 @@ SM90_SMEM_LIMIT = 232448
 SM90_Q_RESIDENT_BYTES = 96 * 1024  # q heads up to 384 wide stay in shared memory
 SM90_SPLIT_V_SLICES = (192, 256)
 SM90_PLAN_KEYS = ("rows", "keys", "slab", "v_slice", "stages", "q_resident", "dv_splits",
-                  "wg_split", "smem_bytes")
+                  "wg_split", "v_stages", "smem_bytes")
+# The one-head form of the same kernel (`single_sm90_plan`): q/k and v
+# widths that are multiples of 8 in 64-column slabs, the last one
+# zero-filled past the width; the split form for v of 257 to 640 columns
+# where q/k is wider than 128 (S dear: the folded heads of 288 and 600), up
+# to 320 columns a warpgroup and with Q resident beside one V stage where
+# two do not fit; else v in slices across 128-row blocks (dark3).
+SINGLE_SM90_SPLIT_MIN_QK = 129
+SINGLE_SM90_SPLIT_MIN_V = 257
+SINGLE_SM90_SPLIT_MAX_V_SLICE = 320
 # The fp32 Hopper kernel (csrc/flash_fwd_f32_sm90.cu) and its plans: 64-key
 # tiles, 16-column (64-byte) q/k slabs through a ring of 2-8 stages, each
 # operand as tf32 hi and lo, Q resident or streamed with K; either 128 query
@@ -195,8 +208,6 @@ def _lib():
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_mha_packed.argtypes = [vp, vp, ci, ci, ci, ci, cf, vp]
         lib.flash_mha_packed.restype = ci
-        lib.flash_single.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
-        lib.flash_single.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -243,24 +254,27 @@ def packed_fwd_form(dh: int, dtype: torch.dtype, dv: Optional[int] = None) -> st
 
 
 def sm90_smem_bytes(dqk: int, v_slice: int, stages: int, q_resident: bool,
-                    wg_split: bool = False, keys: int = 64) -> int:
+                    wg_split: bool = False, keys: int = 64, v_stages: int = 2) -> int:
     """Dynamic shared memory of an sm90 plan (as csrc/flash_fwd_sm90.cu
-    computes it): 1024 bytes of alignment slack, 1024 of barriers, q when
-    resident, the K ring (each stage a 64-key x 64-column slab, plus the q
-    slab when q streams), two v stages of `keys` keys x the v the block
-    covers, and with wg_split two 64-row bf16 P tiles."""
+    computes it): 1024 bytes of alignment slack, 1024 of barriers, q's
+    64-column slabs when resident, the K ring (each stage a 64-key x
+    64-column slab, plus the q slab when q streams), `v_stages` v stages of
+    `keys` keys x the v the block covers, and with wg_split two 64-row bf16
+    P tiles."""
     rows = 64 if wg_split else SM90_ROWS
+    cols = -(-dqk // SM90_SLAB) * SM90_SLAB
     stage = 2 * SM90_SLAB * (keys + (0 if q_resident else rows))
-    return (2048 + (2 * rows * dqk if q_resident else 0) + stages * stage
-            + 2 * 2 * keys * v_slice * (2 if wg_split else 1)
+    return (2048 + (2 * rows * cols if q_resident else 0) + stages * stage
+            + v_stages * 2 * keys * v_slice * (2 if wg_split else 1)
             + (2 * 2 * 64 * keys if wg_split else 0))
 
 
 def _sm90_stages(dqk: int, v_slice: int, q_resident: bool, wg_split: bool,
-                 keys: int = 64) -> int:
-    """The most K stages (up to 8) whose plan fits the shared memory, or 0."""
-    return next((st for st in range(SM90_MAX_STAGES, 0, -1)
-                 if sm90_smem_bytes(dqk, v_slice, st, q_resident, wg_split, keys)
+                 keys: int = 64, least: int = 1, v_stages: int = 2) -> int:
+    """The most K stages (up to 8, at least `least`) whose plan fits the
+    shared memory, or 0."""
+    return next((st for st in range(SM90_MAX_STAGES, least - 1, -1)
+                 if sm90_smem_bytes(dqk, v_slice, st, q_resident, wg_split, keys, v_stages)
                  <= SM90_SMEM_LIMIT), 0)
 
 
@@ -295,8 +309,60 @@ def _sm90_layout(dqk: int, dv: int, wg_split: bool) -> dict:
         raise ValueError(f"no sm90 plan fits q/k {dqk}, v {dv}")
     return {"rows": rows, "keys": keys, "slab": SM90_SLAB, "v_slice": v_slice,
             "stages": stages, "q_resident": int(q_resident), "dv_splits": splits,
-            "wg_split": int(wg_split),
+            "wg_split": int(wg_split), "v_stages": 2,
             "smem_bytes": sm90_smem_bytes(dqk, v_slice, stages, q_resident, wg_split, keys)}
+
+
+def single_sm90_plan(dqk: int, dv: int) -> dict:
+    """Launch plan of the one-head form of csrc/flash_fwd_sm90.cu (bf16
+    flash_single, and flash_fwd_lse with one head) for q/k width `dqk` and v
+    width `dv` (multiples of 8), a function of the widths alone that the
+    library recomputes and holds the call to (`single_plan` there): q/k in
+    ceil(dqk / 64) slabs of 64 columns, the last zero-filled past dqk.
+      * The split form (wg_split) where q/k is wider than 128 and v wider
+        than 256 but at most 640: 64-row blocks whose two consumer
+        warpgroups share one S and each take `v_slice` = ceil(dv / 128) * 64
+        columns of v (192 at 288, 320 at 600); 64-key tiles; Q resident
+        beside two V stages where two K stages fit, else beside one V stage
+        (600: six K stages), else streamed with K. These are the folded
+        heads, where S costs as much as P.V and slices would recompute it
+        (PERF.md: slices, and at 600 Q streamed beside two V stages,
+        measured slower).
+      * Else the sliced form: 128-row blocks, v in the fewest slices of at
+        most 256 columns (multiples of 64), one a block, the two
+        warpgroups sharing each K/V tile; Q resident while its 128 rows fit
+        in 96 KB; 128-key tiles for slices up to 128, else 64. These are
+        dark3's (q/k 32 to 512 against v 256 to 4,096: S is cheap beside
+        the K and V reads that 64-row blocks would double).
+    Two V stages but there; the most K stages (up to 8) that fit the
+    shared memory."""
+    if dqk <= 0 or dv <= 0 or dqk % KERNEL_WIDTH_MULTIPLE or dv % KERNEL_WIDTH_MULTIPLE:
+        raise ValueError(f"the one-head sm90 kernel takes widths that are multiples of "
+                         f"{KERNEL_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    v_slice = -(-dv // (2 * SM90_SLAB)) * SM90_SLAB  # a warpgroup's half
+    if not (dqk >= SINGLE_SM90_SPLIT_MIN_QK and dv >= SINGLE_SM90_SPLIT_MIN_V
+            and v_slice <= SINGLE_SM90_SPLIT_MAX_V_SLICE):
+        return _sm90_layout(dqk, dv, False)  # 128 rows of q fit in 96 KB as 64-column slabs too
+    # Q resident beside two V stages, else beside one, else streamed
+    q_resident, v_stages = next(((True, vst) for vst in (2, 1)
+                                 if _sm90_stages(dqk, v_slice, True, True, least=2, v_stages=vst)),
+                                (False, 2))
+    stages = _sm90_stages(dqk, v_slice, q_resident, True, v_stages=v_stages)
+    return {"rows": 64, "keys": 64, "slab": SM90_SLAB, "v_slice": v_slice, "stages": stages,
+            "q_resident": int(q_resident), "dv_splits": 1, "wg_split": 1, "v_stages": v_stages,
+            "smem_bytes": sm90_smem_bytes(dqk, v_slice, stages, q_resident, True, 64, v_stages)}
+
+
+def single_fwd_form(dqk: int, dv: int, dtype: torch.dtype) -> str:
+    """The kernel of a one-head forward (serving `flash_single`, or training
+    `flash_fwd_lse` with one head) of q/k width `dqk` and v width `dv`
+    (multiples of 8): "f32_sm90" for fp32 (csrc/flash_fwd_f32_sm90.cu);
+    "single_sm90" for bf16 wherever `single_sm90_plan` has a plan, which is
+    every such width (the one-head form of csrc/flash_fwd_sm90.cu)."""
+    if dtype == torch.float32:
+        return "f32_sm90"
+    single_sm90_plan(dqk, dv)  # raises where there is none
+    return "single_sm90"
 
 
 def sm90_plan(dqk: int, dv: int) -> dict:
@@ -430,6 +496,8 @@ def _sm90_lib():
         lib.flash_fwd_sm90.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        cl, cl, cl, cl, cl, cl, cf, vp, vp]
         lib.flash_fwd_sm90.restype = ci
+        lib.flash_fwd_single_sm90.argtypes = [vp] * 5 + [ci] * 4 + [cl] * 6 + [cf, vp, vp]
+        lib.flash_fwd_single_sm90.restype = ci
         lib._argtypes_set = True
     return lib
 
@@ -460,6 +528,30 @@ def launch_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: in
     fails; never falls back."""
     plan = sm90_plan(q.shape[-1] // num_heads, v.shape[-1] // num_heads)
     return _launch_sm90_plan(q, k, v, num_heads, scale, lse, plan)
+
+
+def launch_single_sm90(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                       lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the one-head form of csrc/flash_fwd_sm90.cu on checked
+    bf16 CUDA operands: q, k (B, N, dqk) and v (B, N, dv), views whose last
+    axis is contiguous and whose row and batch strides are multiples of 8,
+    widths multiples of 8, with `single_sm90_plan`'s plan (the library
+    recomputes it and refuses any other); writes lse (B, N[, 1]) fp32 when
+    given. Returns out (B, N, dv). Raises if the launch fails; never falls
+    back."""
+    b, n, dqk = q.shape
+    dv = v.shape[-1]
+    plan = single_sm90_plan(dqk, dv)
+    plan_arr = (ctypes.c_int * len(SM90_PLAN_KEYS))(*(plan[key] for key in SM90_PLAN_KEYS))
+    out = torch.empty((b, n, dv), dtype=v.dtype, device=v.device)
+    err = _sm90_lib().flash_fwd_single_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, n, dqk, dv, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), scale,
+        ctypes.cast(plan_arr, ctypes.c_void_p), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(err, "flash_fwd_single_sm90")
+    return out
 
 
 def _padded(t: torch.Tensor) -> torch.Tensor:
@@ -517,8 +609,9 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Port of ops/attention.py::_flash_kernel (flash_attention_pallas, JAX).
     A CUDA tensor launches, on contiguous copies (widths not a multiple of 8
-    zero-padded; views such as folded heads are copied once here),
-    csrc/flash_attn_fwd.cu in bf16 (counted in `launches`) or
+    zero-padded; the folded route hands over padded contiguous heads), the
+    kernel of `single_fwd_form`: the one-head form of
+    csrc/flash_fwd_sm90.cu in bf16 (counted in `sm90_launches`) or
     csrc/flash_fwd_f32_sm90.cu in fp32 (`f32_launches`); a CPU tensor runs
     `flash_single_plain`."""
     if q.device.type == "cpu":
@@ -534,34 +627,25 @@ def flash_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = _padded(q), _padded(k), _padded(v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check_cuda_operand(name, t, q.dtype)
-    dqp, dvp = q.shape[-1], v.shape[-1]
-    if q.dtype == torch.float32:
+    dvp = v.shape[-1]
+    if single_fwd_form(q.shape[-1], dvp, q.dtype) == "f32_sm90":
         out = launch_f32_sm90(q, k, v, 1, scale)
         flash_single.f32_launches += 1
-        return out if dvp == dv else out[..., :dv]
-    out = torch.empty((b, n, dvp), dtype=v.dtype, device=v.device)
-    err = _lib().flash_single(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, dqp, dvp, scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on(err, "flash_single")
-    flash_single.launches += 1
+    else:
+        out = launch_single_sm90(q, k, v, scale)
+        flash_single.sm90_launches += 1
     return out if dvp == dv else out[..., :dv]
-
-
-flash_mha_packed.launches = 0
-flash_mha_packed.sm90_launches = 0
-flash_mha_packed.f32_launches = 0
-flash_single.launches = 0
-flash_single.f32_launches = 0
 
 
 def reset_launch_counts() -> None:
     flash_mha_packed.launches = 0
     flash_mha_packed.sm90_launches = 0
     flash_mha_packed.f32_launches = 0
-    flash_single.launches = 0
+    flash_single.sm90_launches = 0
     flash_single.f32_launches = 0
+
+
+reset_launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -662,18 +746,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
     if route == "int8":
         return attention_int8.attention_int8(q, k, v, scale, num_heads, bk, impl=impl)
     if num_heads > 1:
-        out = attention(
-            _heads_first(q, num_heads).reshape(b * num_heads, n, -1),
-            _heads_first(k, num_heads).reshape(b * num_heads, n, -1),
-            _heads_first(v, num_heads).reshape(b * num_heads, n, -1),
-            scale, impl, train=train,
-        )
-        return _heads_last(out.reshape(b, num_heads, n, -1))
+        # "folded": the heads on the batch axis in one copy that also pads odd
+        # widths for the kernel (the padded output columns are cut off)
+        fold = _fold_heads if route == "folded" else (
+            lambda t, h: _heads_first(t, h).reshape(b * h, n, -1))
+        dv = v.shape[-1] // num_heads
+        out = attention(fold(q, num_heads), fold(k, num_heads), fold(v, num_heads), scale, impl,
+                        train=train)
+        return _heads_last(out[..., :dv].reshape(b, num_heads, n, dv))
     if n <= NAIVE_MAX_TOKENS:
         return reference_attention(q, k, v, scale)
     if impl == "plain":
         return flash_single_plain(q, k, v, scale)
-    return flash_single(q, k, v, scale)  # copies (and pads) the views once
+    return flash_single(q, k, v, scale)  # copies (and pads) other views once
 
 
 def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,

@@ -12,10 +12,12 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
 
   flash_fwd_lse  replaces _fwd_lse_kernel (csrc/flash_fwd_sm90.cu for bf16
                  packed heads whose widths are multiples of 64, the rule
-                 of attention.packed_fwd_form; csrc/flash_fwd_f32_sm90.cu
-                 for fp32 at every width, packed heads or one;
-                 csrc/flash_attn_fwd.cu for one head and other widths in
-                 bf16)
+                 of attention.packed_fwd_form, and, in its one-head form,
+                 for every bf16 call with one head (dark3, the folded
+                 heads; attention.single_fwd_form);
+                 csrc/flash_fwd_f32_sm90.cu for fp32 at every width,
+                 packed heads or one; csrc/flash_attn_fwd.cu for packed
+                 bf16 heads of other widths, which no route reaches)
   flash_bwd_dq   replaces _bwd_dq_kernel  (csrc/flash_bwd_sm90.cu for bf16
                  packed heads of equal widths that are multiples of 64 up to
                  384, the rule of `bwd_form`; csrc/flash_bwd_single_sm90.cu
@@ -528,12 +530,14 @@ def _widths(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int):
 
 
 def lse_fwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
-    """The kernel of a forward with logsumexp: `attention.packed_fwd_form`
-    ("f32_sm90" for fp32, packed heads or one; "sm90" for bf16 packed heads
-    whose widths are multiples of 64), except that one head in bf16 (dark3,
-    folded heads) stays on csrc/flash_attn_fwd.cu ("mma_sync")."""
-    form = A.packed_fwd_form(dqk, dtype, dv)
-    return "mma_sync" if form == "sm90" and num_heads == 1 else form
+    """The kernel of a forward with logsumexp: with one head (dark3, the
+    folded heads) `attention.single_fwd_form` ("single_sm90" in bf16, the
+    one-head form of csrc/flash_fwd_sm90.cu; "f32_sm90" in fp32); packed
+    heads `attention.packed_fwd_form` ("f32_sm90" for fp32; "sm90" for bf16
+    widths that are multiples of 64; else "mma_sync", csrc/flash_attn_fwd.cu)."""
+    if num_heads == 1:
+        return A.single_fwd_form(dqk, dv, dtype)
+    return A.packed_fwd_form(dqk, dtype, dv)
 
 
 def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -543,8 +547,8 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     (flash_fwd_lse, JAX). A CUDA tensor launches the kernel of
     `lse_fwd_form`; a CPU tensor runs `flash_fwd_lse_plain`. `launches`
     counts launches of csrc/flash_attn_fwd.cu, `sm90_launches` those of
-    csrc/flash_fwd_sm90.cu, `f32_launches` those of
-    csrc/flash_fwd_f32_sm90.cu."""
+    csrc/flash_fwd_sm90.cu on packed heads, `single_launches` those of its
+    one-head form, `f32_launches` those of csrc/flash_fwd_f32_sm90.cu."""
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v, scale, num_heads)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -555,6 +559,10 @@ def flash_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: floa
     if form == "sm90":
         out = A.launch_sm90(q, k, v, num_heads, scale, lse)
         flash_fwd_lse.sm90_launches += 1
+        return out, lse
+    if form == "single_sm90":
+        out = A.launch_single_sm90(q, k, v, scale, lse)
+        flash_fwd_lse.single_launches += 1
         return out, lse
     if form == "f32_sm90":
         out = A.launch_f32_sm90(q, k, v, num_heads, scale, lse)
@@ -713,8 +721,7 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
 
 def reset_launch_counts() -> None:
     for fn in (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
-        fn.launches = fn.sm90_launches = fn.f32_launches = 0
-    flash_bwd_dq.single_launches = flash_bwd_dkv.single_launches = 0
+        fn.launches = fn.sm90_launches = fn.single_launches = fn.f32_launches = 0
 
 
 reset_launch_counts()
