@@ -95,3 +95,32 @@ def test_build_model_on_cpu():
     assert remat.neck.remat and not model.neck.remat
     for a, b in zip(model.parameters(), remat.parameters()):
         assert torch.equal(a, b)
+
+
+def test_init_weights_draws_flax_lecun_normal():
+    """init_weights draws conv and dense kernels as flax's lecun_normal
+    does: a normal truncated at +-2 of its std, the std raised by
+    1/0.87962566 so that the variance is 1/fan_in. On a kernel of
+    (3, 3, 64, 4,096) the port's max |w| * sqrt(fan_in) stays within the
+    cut (2 / 0.87962566 = 2.2737), and its empirical std agrees with the
+    JAX draw's within 1%."""
+    from transparent_object_detection_tpu_torch.models.detector import (
+        TRUNCATED_NORMAL_STD,
+        init_weights,
+    )
+
+    kh, kw, cin, cout = 3, 3, 64, 4096
+    fan_in = kh * kw * cin
+    conv = torch.nn.Sequential(torch.nn.Conv2d(cin, cout, (kh, kw), bias=False))
+    w = init_weights(conv, seed=0)[0].weight.detach().numpy().astype(np.float64)
+    ref = np.asarray(jax.nn.initializers.lecun_normal()(jax.random.PRNGKey(0),
+                                                        (kh, kw, cin, cout)), np.float64)
+    cut = 2.0 / TRUNCATED_NORMAL_STD
+    assert cut == pytest.approx(2.2737, abs=1e-4)
+    assert np.abs(w).max() * fan_in ** 0.5 <= cut * (1 + 1e-6)
+    assert np.abs(ref).max() * fan_in ** 0.5 <= cut * (1 + 1e-6)
+    assert abs(w.std() / ref.std() - 1.0) <= 0.01
+    assert abs(w.mean()) * fan_in ** 0.5 <= 1e-2
+    # the cut is reached, as the JAX draw reaches it (an untruncated normal
+    # of this std would put ~2.3% of the kernel past it)
+    assert np.abs(w).max() * fan_in ** 0.5 > 0.999 * cut

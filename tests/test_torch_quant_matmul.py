@@ -94,21 +94,71 @@ def test_weights_fold_and_quantize_match_jax(data):
     np.testing.assert_allclose(port["bias"].numpy(), np.asarray(b_eff), rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("ln", [False, True])
-def test_quant_rows_matches_pallas(data, ln):
-    """Port of _quant_rows_kernel against the kernel in the interpreter."""
-    x = data["x"].astype(jnp.bfloat16)
-    jx = jnp.asarray(x)
+# (ln, rows' type, K, qmax): bf16 rows of the neck's widths (the first two,
+# ids kept), fp32 rows (the fp32 models), K off the 8 and 16 grids (phi='n''s
+# 849, rows starting at any byte) and the int4 range of w4a4 (qmax 7)
+QUANT_ROWS_CASES = [
+    pytest.param(False, "bfloat16", K, 127, id="False"),
+    pytest.param(True, "bfloat16", K, 127, id="True"),
+    pytest.param(False, "float32", K, 127, id="float32-False"),
+    pytest.param(True, "float32", K, 127, id="float32-True"),
+    pytest.param(True, "bfloat16", 849, 127, id="k849-True"),
+    pytest.param(False, "float32", 849, 127, id="float32-k849-False"),
+    pytest.param(True, "float32", 849, 127, id="float32-k849-True"),
+    pytest.param(True, "bfloat16", K, 7, id="qmax7-True"),
+    pytest.param(False, "float32", 849, 7, id="float32-k849-qmax7-False"),
+]
+
+
+@pytest.mark.parametrize("ln,dtype,k,qmax", QUANT_ROWS_CASES)
+def test_quant_rows_matches_pallas(data, ln, dtype, k, qmax):
+    """Port of _quant_rows_kernel against the kernel in the interpreter, on
+    bf16 or fp32 rows of K = 256 or 849, with qmax 127 or 7 (each time with
+    and without the LayerNorm on some case); the rows of the 849-wide cases
+    are drawn anew (same seed rule), the others are the module's."""
+    x = data["x"] if k == K else (
+        np.random.default_rng(k).standard_normal((M, k)).astype(np.float32) * 2 + 0.3)
+    jx = jnp.asarray(x.astype(jnp.bfloat16) if dtype == "bfloat16" else x)
     q, s = pl.pallas_call(
-        functools.partial(jq._quant_rows_kernel, ln=ln, ln_eps=1e-6),
-        out_shape=[jax.ShapeDtypeStruct((M, K), jnp.int8),
+        functools.partial(jq._quant_rows_kernel, ln=ln, ln_eps=1e-6, qmax=float(qmax)),
+        out_shape=[jax.ShapeDtypeStruct((M, k), jnp.int8),
                    jax.ShapeDtypeStruct((M, 1), jnp.float32)],
         interpret=True,
     )(jx)
-    tqq, ts = tq.quant_rows(torch.from_numpy(np.asarray(jx, np.float32)).bfloat16(), ln)
+    tx = torch.from_numpy(np.asarray(jx, np.float32)).to(getattr(torch, dtype))
+    tqq, ts = tq.quant_rows(tx, ln, qmax=qmax)
     assert tqq.dtype == torch.int8 and tuple(ts.shape) == (M, 1)
+    assert int(tqq.abs().max()) <= qmax
     assert_payload_close(tqq.numpy(), q)
     assert_scales_close(ts.numpy(), s)
+
+
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_quant_rows_team_covers_rows(elem_bytes):
+    """csrc/quant_matmul.cu's quant_rows team rule (`quant_rows_team`): for
+    every width from 1 to 9,000 columns and the widths of the int8 routes
+    (849 to 28,672), the team's threads hold every 16-element unit the row
+    spans, aligned in the flattened array (the rule counts one more than
+    the row's own where K is off the 16 grid): 4 units a thread in bf16, 2
+    in fp32, on the smallest team of 8 to 256 threads (a power of two) that
+    covers the row; past 256 threads more units, at most 64 registers of
+    row a thread; rows no team holds are streamed (0 units)."""
+    base, upt_max = (2, 4) if elem_bytes == 4 else (4, 8)
+    for k in [*range(1, 9001), 12288, 19168, 28672, 40000]:
+        team, upt = tq.quant_rows_team(k, elem_bytes)
+        # the units row r spans in the flat (m, k) array, worst case over r
+        span = max(((r + 1) * k - 1) // 16 - (r * k) // 16 + 1 for r in range(16))
+        units = -(-k // 16) + (k % 16 > 0)  # the rule's count, at least the span
+        assert span <= units, k
+        assert team in (8, 16, 32, 64, 128, 256), k
+        if upt == 0:
+            assert team == 256 and 256 * upt_max < units, k
+            continue
+        assert upt in (1, 2, 4, 8) and base <= upt <= upt_max and team * upt >= units, k
+        if upt == base:
+            assert team == 8 or (team // 2) * base < units, k
+        else:
+            assert team == 256 and 256 * (upt // 2) < units, k
 
 
 @pytest.mark.parametrize("ln,act,residual", [(True, None, False), (False, None, True),
@@ -259,3 +309,71 @@ def test_group_width_table():
     assert [g(32, nd, 1) for nd in ("h1", "h2", "h4")] + [g(32, "h6")] == [512, 6144, 6144, 512]
     assert [tq.ln_handoff(32 * t, c) for _, t, c in NECK] == [True, True, True, False]
     assert not any(tq.ln_handoff(2 * t, c) for _, t, c in NECK)
+
+
+def _quant_rows_emulated(x: np.ndarray, itemsize: int, ln: bool, qmax: int, eps: float = 1e-6):
+    """csrc/quant_matmul.cu's quant_rows walked as its threads walk the
+    flattened (m, k) array: each row's 16-element units (aligned in the flat
+    array, so a row off the 16 grid starts mid-unit), a unit's 16-byte
+    pieces (of `itemsize`-byte elements)
+    loaded only where they hold an element of the row, the row's
+    elements masked inside each unit, a whole unit stored at once and a
+    straddling one byte by byte. Returns the payload, the scales, the
+    number of times each output byte was written and the largest 16-byte
+    granule of x read."""
+    m, k = x.shape
+    per = 16 // itemsize  # elements a 16-byte piece
+    flat = x.reshape(-1)
+    out = np.zeros(m * k, np.int8)
+    writes = np.zeros(m * k, np.int64)
+    scales = np.zeros((m, 1), np.float32)
+    top_granule = -1
+    for r in range(m):
+        lo, hi = r * k, (r + 1) * k
+        units = []
+        for u in range(lo // 16, (hi - 1) // 16 + 1):
+            a, b = max(lo - 16 * u, 0), min(hi - 16 * u, 16)
+            vals = np.zeros(16, np.float32)
+            for p in range(16 // per):
+                if (p + 1) * per > a and p * per < b:
+                    g = (16 * u + p * per) * itemsize // 16
+                    top_granule = max(top_granule, g)
+                    vals[p * per:(p + 1) * per] = flat[16 * u + p * per:16 * u + (p + 1) * per]
+            units.append((u, a, b, vals))
+        row = np.concatenate([vals[a:b] for _, a, b, vals in units])
+        assert row.size == k
+        mu, rstd = np.float32(0), np.float32(1)
+        if ln:
+            mu = np.float32(row.sum(dtype=np.float32) / np.float32(k))
+            m2 = np.float32((row * row).sum(dtype=np.float32) / np.float32(k))
+            rstd = np.float32(1 / np.sqrt(max(m2 - mu * mu, 0) + eps))
+        amax = np.float32(max(np.abs(row - mu).max(), 1e-12))
+        inv = np.float32(qmax) / amax
+        for u, a, b, vals in units:
+            q = np.rint((vals - mu) * inv).astype(np.int8)
+            span = slice(0, 16) if (a, b) == (0, 16) else slice(a, b)
+            idx = 16 * u + np.arange(16)[span]
+            out[idx] = q[span]
+            writes[idx] += 1
+        scales[r] = amax * np.float32(1 / qmax) * rstd
+    return out.reshape(m, k), scales, writes, top_granule
+
+
+@pytest.mark.parametrize("dtype,k,ln,qmax", [("float32", 849, True, 127), ("bfloat16", 849, False, 7),
+                                             ("bfloat16", 40, True, 127), ("float32", 5, True, 127),
+                                             ("bfloat16", 256, True, 127)])
+def test_quant_rows_unit_walk_matches_plain(dtype, k, ln, qmax):
+    """The kernel's walk over aligned 16-element units (rows of K = 849, 40
+    and 5 starting mid-unit and mid-piece, and an aligned K = 256) writes
+    every output byte exactly once, reads no 16-byte granule past the
+    tensor's last, and gives quant_rows_plain's payload (+-1 on at most
+    1e-3 of it) and scales (1e-5)."""
+    m = 64
+    x = np.random.default_rng(k).standard_normal((m, k)).astype(np.float32) * 2 + 0.3
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    q, s, writes, top = _quant_rows_emulated(tx.float().numpy(), tx.element_size(), ln, qmax)
+    assert (writes == 1).all()
+    assert top == (m * k * tx.element_size() - 1) // 16
+    pq, ps = tq.quant_rows_plain(tx, ln, qmax=qmax)
+    assert_payload_close(q, pq.numpy())
+    assert_scales_close(s, ps.numpy())

@@ -1,9 +1,11 @@
 // int8 flash attention for Hopper (sm_90a): int8 wgmma fed by a TMA ring, one
 // producer warpgroup and two consumer warpgroups a block.
 //
-// Replaces, at every int8 site whose q/k and v head widths are multiples of
-// 64 up to 512 (ops/attention_int8.py::int8_fwd_form: phi 'n', 's', 'm'
-// neck heads of 128, 256 and 384, phi='s' dark3, any N and key block), the
+// Replaces, at every int8 site whose q/k head width is a multiple of 32 up to
+// 512 (ops/attention_int8.py::int8_fwd_form, a rule per entry point: v any
+// width of the domain for flash_mha_int8, v up to 512 for the two entries
+// with an int8 output; every int8 serving site of phi 'n', 's', 'm': the neck
+// heads of 128, 256 and 384, dark3 of all three, any N and key block), the
 // three TPU kernels of transparent_object_detection_tpu/ops/attention_int8.py:
 //   * _mha_flash_int8_kernel (flash_attention_mha_int8): entry flash_mha_int8,
 //     q bf16 or fp32 quantized per (row, head) first (quant_q_kernel,
@@ -13,7 +15,9 @@
 //   * _mha_flash_int8_handoff_kernel: entry flash_int8_handoff, q the int8
 //     qkv payload read in place (row stride 3C) with its per-(row, head)
 //     scales from a table; out int8 per (row, head), bf16 or fp32.
-// csrc/flash_attn_int8.cu (the mma.sync template) keeps the other sites.
+// csrc/flash_attn_int8.cu (the mma.sync template) keeps the other sites:
+// q/k wider than 512 (phi 'l'/'x' neck heads) and the int8-output entries at
+// v wider than 512.
 //
 // The function (flash_attn_int8.cu and the Pallas kernels compute the same):
 // per query row and key block j of bk keys, with rs = qs * (ks_j * scale *
@@ -81,6 +85,18 @@
 //     at phi='m' h2, h4 and phi='s' dark3 (PERF.md), the second
 //     warpgroup otherwise idling through both passes of q.k^T. Key tiles
 //     of 128 at dv 256 were measured too: their accumulators spill.
+//   * [v slices] v wider than 512 (dark3: 1,024 at phi='m', 2,048 and 4,096
+//     at phi 'l'/'x'): the grid's second dimension runs over heads x v
+//     slices; each block takes one slice of the plan's width (512 in the
+//     split form where 512 divides v: 4% faster than 256 in the rows form
+//     at phi='m', PERF.md) in one of the forms above, recomputes S (both passes) for its query tile and
+//     writes its slice of O. S is cheap beside P V where q/k is narrow (128
+//     against 1,024 at phi='m'); the int8 output's amax would span blocks,
+//     so the int8-output entries never slice (int8_fwd_form).
+//   * [narrow q/k] q/k of 32 (phi='n' dark3) is one k32 step: Q and K load
+//     in 64-byte boxes of which TMA zero-fills the 32 bytes past the width,
+//     and S issues one k step on the real 32 (a q/k width that is not a
+//     multiple of the box issues only the steps that hold real columns).
 //   * Accumulators. pv stays int32 in wgmma registers over a block. With one
 //     key block (every phi 'n' and 's' site) acc = float(pv) * vs at the
 //     end; with several (phi='m' h2) the fp32 acc lives in shared memory,
@@ -89,6 +105,13 @@
 //   * p127 = exp2 by ex2.approx (one MUFU instruction); exp2f's range
 //     handling for results below the normal floats cost 10-20% of the
 //     kernel (measured) and changes nothing that rounds to a nonzero p.
+//   * [conversions] pass 2 converts each int32 score to float and each p
+//     to an int: I2F and F2I run at a quarter of the fp32 rate, beside the
+//     one MUFU ex2 an element. rint(p) goes through the fp32 adder (a
+//     magic-number add, exact), and so does float(s) where q/k is at most
+//     256 (|s| <= 256 * 128^2 = 2^22: phi 'n', 's' and 'm' dark3, the neck
+//     heads of phi 'n' and 's'): the same bits, two quarter-rate
+//     instructions fewer an element.
 //   * Epilogues, all in the kernel: bf16 or fp32 values (o = acc * (1 / l)
 //     with _rn products); or int8 per (row, head), amax over the head's
 //     whole dv (a quad's reduction, and in the split form across the two
@@ -104,7 +127,9 @@
 //                 max, p = 0 and so no pv.
 //   [tensor maps] 4-D maps: q8 or the payload and kq as (width, heads, N, B)
 //                 with row strides heads * dq or 3C; V's key-major copy as
-//                 (N, dv, heads, B); every stride a multiple of 16 bytes.
+//                 (N, dv, heads, B); every stride a multiple of 16 bytes (a
+//                 one-head map at q/k 32: 32 bytes). A box wider than the
+//                 width (q/k 32 in 64 bytes) is zero-filled past it.
 //   [max pass]    the integer max, above; m starts at -1e30 as in the
 //                 template.
 //   [P layout]    above.
@@ -156,10 +181,11 @@ struct Params {
   void* o;              // (B, N, heads * dv): bf16, fp32 or int8
   float* os;            // int8 out: its scales (B, N, heads)
   int n, heads, dq, dv, bk, nk;
-  int swq;              // bytes of a q/k box row: 64 (dq 64) or 128
+  int swq;              // bytes of a q/k box row: 64 (dq up to 64) or 128
   int slabs;            // q/k boxes a row: ceil(dq / swq)
   int stages;           // K ring stages (one slab each)
   int v_stages;         // V ring stages
+  int slices;           // [v slices] blocks a head's v is cut into
   int out_mode;         // Out
   float scale_log2;     // scale * log2(e)
 };
@@ -173,6 +199,23 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// [conversions] int <-> float through the fp32 adder, exactly: I2F and F2I
+// run at a quarter of the fp32 rate, and pass 2 converts every score in
+// and every p out. 1.5 * 2^23 has an ulp of 1, so adding a float x with
+// |x| < 2^22 rounds it to the nearest integer, ties to even (rint), in the
+// low mantissa bits; an int s with |s| <= 2^22 added to its bit pattern is
+// 1.5 * 2^23 + s exactly.
+constexpr int MAGIC_BITS = 0x4B400000;  // 1.5 * 2^23
+constexpr float MAGIC = 12582912.f;
+// |s| <= 2^22: every score of q/k up to 256 (256 * 128^2)
+constexpr int SMALL_DQ = 256;
+__device__ __forceinline__ float small_int_to_float(int s) {
+  return __fsub_rn(__int_as_float(MAGIC_BITS + s), MAGIC);
+}
+__device__ __forceinline__ int rint_small(float x) {  // 0 <= x < 2^22
+  return __float_as_int(__fadd_rn(x, MAGIC)) - MAGIC_BITS;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -181,14 +224,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // the kernel
 // ---------------------------------------------------------------------------
 
-// Grid (ceil(N / rows), heads, B); block: consumer warpgroups 0 and 1,
+// Grid (ceil(N / rows), heads * slices, B); block: consumer warpgroups 0 and 1,
 // producer warpgroup 2. DVW: the v columns one consumer warpgroup owns; KT:
 // keys a tile. Rows form: 128 rows, warpgroup w on rows 64w .. 64w + 63, all
 // of v (DVW = dv). Split form: 64 rows, warpgroup w on v columns [w DVW,
-// (w + 1) DVW), both computing S of the same rows. Shared memory, from a
+// (w + 1) DVW), both computing S of the same rows; columns counted from the
+// block's v slice ([v slices]). Shared memory, from a
 // 1024-aligned base: barriers (and the split form's row amax) | Q | K ring |
-// V ring | fp32 acc (several key blocks).
-template <int DVW, bool SPLIT, int KT>
+// V ring | fp32 acc (several key blocks). SMALL: q/k up to SMALL_DQ, whose
+// scores convert to float through the adder ([conversions]).
+template <int DVW, bool SPLIT, int KT, bool SMALL>
 __global__ void __launch_bounds__(THREADS_SM90, 1)
     flash_int8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -212,7 +257,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
   const uint32_t acc_off = v_smem + p.v_stages * V_BYTES - base;
 
   const int m0 = blockIdx.x * ROWS;
-  const int head = blockIdx.y;
+  const int head = blockIdx.y / p.slices;
+  const int v0 = (blockIdx.y % p.slices) * VROWS;  // [v slices] the block's first v column
   const int b = blockIdx.z;
   const int tiles = (p.bk + KT - 1) / KT;  // key tiles a block
   const int wg = threadIdx.x / 128;
@@ -264,7 +310,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
               mbar_expect_tx(bar_vfull + 8 * vs, V_BYTES);
               for (int h = 0; h < VROWS / DVW; ++h)  // boxes of at most 256 rows
                 tma_load(v_smem + vs * V_BYTES + h * DVW * KT, &tv, bar_vfull + 8 * vs, key0,
-                         h * DVW, head, b);
+                         v0 + h * DVW, head, b);
               ++vt;
             }
           }
@@ -279,7 +325,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
     const int t4 = lane & 3;
     const int r0 = warp * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8 of the 64
     const int row_off = SPLIT ? 0 : wg * 64;  // this warpgroup's first row in the block
-    const int col_off = SPLIT ? wg * DVW : 0;  // and its first v column
+    const int col_off = v0 + (SPLIT ? wg * DVW : 0);  // and its first v column
     const int rows[2] = {m0 + row_off + r0, m0 + row_off + r0 + 8};
     const long long tab = (long long)b * p.n;
     float qs[2];
@@ -316,7 +362,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
         mbar_wait(bar_kfull + 8 * st, ph);
         const uint32_t kb = k_smem + st * k_slab;
         const uint32_t qb = q_smem + c * q_slab + row_off * p.swq;
-        const int ksteps = min(p.swq, p.dq - c * p.swq) / 32;  // past dq: zero-filled
+        // [narrow q/k] past dq the box is zero-filled: only real columns
+        const int ksteps = min(p.swq, p.dq - c * p.swq) / 32;
         wgmma_fence();
         for (int kk = 0; kk < ksteps; ++kk)
           wgmma_ss<KT>(s, desc_k_major(qb + kk * 32, p.swq), desc_k_major(kb + kk * 32, p.swq),
@@ -408,11 +455,13 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = e >> 1;
-              const float x = __fmul_rn(static_cast<float>(s[4 * i + e]), rs[r]);
+              const int si = s[4 * i + e];
+              const float x = __fmul_rn(SMALL ? small_int_to_float(si) : static_cast<float>(si),
+                                        rs[r]);
               // [tail] masked keys: p = 0, so no pv and nothing in l
               const float pe = 8 * i + 2 * t4 + (e & 1) < kv ? exp2_approx(x - sub[r]) : 0.f;
               lsum[r] += pe;
-              const uint32_t q8 = static_cast<uint32_t>(min(__float2int_rn(pe), 127));
+              const uint32_t q8 = static_cast<uint32_t>(min(rint_small(pe), 127));
               // [P layout] register 2h + r (h = c / 2), byte 2 (c % 2) + e % 2
               pa[kk][(c >> 1) * 2 + r] |= q8 << (8 * ((c & 1) * 2 + (e & 1)));
             }
@@ -562,17 +611,30 @@ int plan_smem(int rows, int keys, int swq, int slabs, int v_cols, int split, int
          v_stages * (split ? 2 : 1) * v_cols * keys + (multi ? CONSUMERS * 64 * v_cols * 4 : 0);
 }
 
-template <int DVW, bool SPLIT, int KT>
+template <int DVW, bool SPLIT, int KT, bool SMALL>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, int batch, int smem, cudaStream_t stream) {
   // per call, not cached: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(flash_int8_sm90_kernel<DVW, SPLIT, KT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rows = SPLIT ? 64 : 128;
-  const dim3 grid((p.n + rows - 1) / rows, p.heads, batch);
-  flash_int8_sm90_kernel<DVW, SPLIT, KT><<<grid, THREADS_SM90, smem, stream>>>(tq, tk, tv, p);
+  const dim3 grid((p.n + rows - 1) / rows, p.heads * p.slices, batch);
+  flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL><<<grid, THREADS_SM90, smem, stream>>>(tq, tk, tv,
+                                                                                     p);
   return cudaGetLastError();
+}
+
+// the instantiation of a plan: its form and v columns a warpgroup
+template <bool SMALL>
+cudaError_t launch_plan(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                        const Params& p, int v_cols, int split, int batch, int smem,
+                        cudaStream_t st) {
+  if (split)
+    return v_cols == 192 ? launch<192, true, 64, SMALL>(tq, tk, tv, p, batch, smem, st)
+                         : launch<256, true, 64, SMALL>(tq, tk, tv, p, batch, smem, st);
+  return v_cols == 128 ? launch<128, false, 128, SMALL>(tq, tk, tv, p, batch, smem, st)
+                       : launch<256, false, 64, SMALL>(tq, tk, tv, p, batch, smem, st);
 }
 
 }  // namespace
@@ -581,7 +643,7 @@ extern "C" {
 
 // Indices of the launch plan, ops/attention_int8.py::int8_sm90_plan.
 enum { PLAN_ROWS, PLAN_KEYS, PLAN_SWQ, PLAN_V_COLS, PLAN_SPLIT, PLAN_STAGES, PLAN_V_STAGES,
-       PLAN_MULTI, PLAN_SMEM, PLAN_LEN };
+       PLAN_MULTI, PLAN_SLICES, PLAN_SMEM, PLAN_LEN };
 
 // int8 flash attention of `heads` heads on Hopper. q: q_kind 0 (bf16) or 1
 // (fp32), (B, N, *) with row stride q_row elements, head h at column h * dq,
@@ -593,11 +655,13 @@ enum { PLAN_ROWS, PLAN_KEYS, PLAN_SWQ, PLAN_V_COLS, PLAN_SPLIT, PLAN_STAGES, PLA
 // f32. out (B, N, heads * dv): out_mode 0 bf16, 1 fp32, 2 int8 with
 // out_scales (B, N, heads) f32. scale_log2 = scale * log2(e), rounded to f32
 // from double as JAX rounds its weakly typed constant. `plan` (PLAN_LEN
-// ints) must be one this library was built for: the rows form (128 rows, v
-// 128 on 128-key tiles or 256 on 64-key tiles) or the split form (64 rows,
-// 192 or 256 v columns a warpgroup, 64-key tiles); q/k boxes of 64 bytes at
-// dq 64, else 128; 1-8 K stages and 1-2 V stages; multi == (nk > 1); the
-// shared memory it needs within the card's 227 KB. Anything else returns
+// ints) must be one this library was built for: v in `slices` slices of
+// dv / slices columns, each in the rows form (128 rows, slices of 128 on
+// 128-key tiles or of 256 on 64-key tiles) or the split form (64 rows, 192
+// or 256 v columns a warpgroup, 64-key tiles); an int8 output unsliced; q/k
+// a multiple of 32 up to 512 in boxes of 64 bytes at dq up to 64, else 128;
+// 1-8 K stages and 1-2 V stages; multi == (nk > 1); the shared memory it
+// needs within the card's 227 KB. Anything else returns
 // cudaErrorInvalidValue, as does a failed tensor-map encode. Returns the
 // cudaError_t of the launches.
 int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, const void* ks,
@@ -608,13 +672,15 @@ int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, c
   const int rows = plan[PLAN_ROWS], keys = plan[PLAN_KEYS], swq = plan[PLAN_SWQ];
   const int v_cols = plan[PLAN_V_COLS], split = plan[PLAN_SPLIT], stages = plan[PLAN_STAGES];
   const int v_stages = plan[PLAN_V_STAGES], multi = plan[PLAN_MULTI], smem = plan[PLAN_SMEM];
+  const int slices = plan[PLAN_SLICES];
   const int slabs = (dq + swq - 1) / swq;
-  const bool rows_ok = split == 0 && rows == 128 && v_cols == dv &&
-                       ((dv == 128 && keys == 128) || (dv == 256 && keys == 64));
-  const bool split_ok = split == 1 && rows == 64 && keys == 64 && dv > 256 && dv <= 512 &&
-                        v_cols == (dv + 127) / 128 * 64;
-  if (!(rows_ok || split_ok) || batch < 1 || heads < 1 || n <= 0 || n % 32 || bk <= 0 ||
-      bk % 32 || bk * nk != n || dq <= 0 || dq % 64 || dq > 512 || swq != (dq == 64 ? 64 : 128) ||
+  const bool rows_ok = split == 0 && rows == 128 &&
+                       ((v_cols == 128 && keys == 128) || (v_cols == 256 && keys == 64));
+  const bool split_ok = split == 1 && rows == 64 && keys == 64 && (v_cols == 192 || v_cols == 256);
+  if (!(rows_ok || split_ok) || slices < 1 || (split ? 2 : 1) * v_cols * slices != dv ||
+      (out_mode == OUT_I8 && slices != 1) || batch < 1 || heads < 1 || n <= 0 || n % 32 ||
+      bk <= 0 || bk % 32 || bk * nk != n || dq <= 0 || dq % 32 || dq > 512 ||
+      swq != (dq <= 64 ? 64 : 128) ||
       stages < 1 || stages > MAX_STAGES || v_stages < 1 || v_stages > 2 ||
       multi != (nk > 1 ? 1 : 0) || out_mode < OUT_BF16 || out_mode > OUT_I8 || q_kind < 0 ||
       q_kind > 2 || (q_kind == 2 && qs == nullptr) || (out_mode == OUT_I8 && !out_scales) ||
@@ -660,14 +726,13 @@ int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, c
   p.slabs = slabs;
   p.stages = stages;
   p.v_stages = v_stages;
+  p.slices = slices;
   p.out_mode = out_mode;
   p.scale_log2 = scale_log2;
-  // the instantiations, one a plan the rule picks
-  if (split)
-    return static_cast<int>(v_cols == 192 ? launch<192, true, 64>(tq, tk, tv, p, batch, smem, st)
-                                          : launch<256, true, 64>(tq, tk, tv, p, batch, smem, st));
-  return static_cast<int>(dv == 128 ? launch<128, false, 128>(tq, tk, tv, p, batch, smem, st)
-                                    : launch<256, false, 64>(tq, tk, tv, p, batch, smem, st));
+  // the instantiations, one a plan the rule picks, and the score conversion
+  return static_cast<int>(
+      dq <= SMALL_DQ ? launch_plan<true>(tq, tk, tv, p, v_cols, split, batch, smem, st)
+                     : launch_plan<false>(tq, tk, tv, p, v_cols, split, batch, smem, st));
 }
 
 }  // extern "C"

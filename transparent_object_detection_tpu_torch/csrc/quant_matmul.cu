@@ -7,9 +7,11 @@
 //     int4-range activations of the w4a4 mlp1 (via _w4a4_call). bf16 or
 //     fp32 (M, K) -> int8 (M, K) + f32 (M, 1), optionally
 //     LayerNorm-normalized first (d = x - mean, var = max(E[x^2] - mean^2,
-//     0), rsqrt folded into the scale). One warp per row; bf16 rows whose K
-//     is a multiple of 8 in 16-byte loads, any other row (K = 849, fp32)
-//     element by element.
+//     0), rsqrt folded into the scale). One kernel for both input types:
+//     a team of threads a row, the row read once into registers in 16-byte
+//     loads and written in 16-byte stores whatever K is (below): at parity
+//     with the first kernels at phi 'n' and 's' in device time, 21% faster
+//     at phi='m' (PERF.md).
 //   * the int8 GEMM itself (ops/quant_matmul.py::_qmm_kernel) is
 //     csrc/qmm_sm90.cu; it writes the quantized outputs' fp32 workspace.
 //   * qmm_rows_out is the quantized outputs' row pass over that workspace:
@@ -24,7 +26,12 @@
 // are quantized by a reciprocal multiply d * (qmax / amax), as in JAX.
 //
 // Bound: both kernels move bytes (each row read once, or twice where it does
-// not fit in registers, and written once as int8).
+// not fit in registers, and written once as int8). quant_rows' first kernels
+// (one warp a row, the row read two or three times, L1 serving the re-reads;
+// fp32 and K off the 8 grid element by element) ran at 65-87% of that
+// bound in device time at the phi 'n' and 's' shapes and 49-60% at phi='m';
+// the 14-20% once read on CUDA events was the host's time to enqueue a
+// launch (PERF.md).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,99 +54,242 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ int8_t q8(float v) { return static_cast<int8_t>(__float2int_rn(v)); }
 
 // ---------------------------------------------------------------------------
-// quant_rows: one warp per row, 8 rows per block; 8 bf16 per 16-byte load.
+// quant_rows: a team of 8 to 256 threads a row, the row read once.
+//
+// The row's elements are taken in units of 16 (32 bytes of bf16, 64 of
+// fp32: two or four 16-byte loads; one 16-byte int8 store), aligned in the
+// flattened (m, k) array rather than in the row, so that every load and
+// store is aligned whatever k is (k = 849 at phi='n': rows start at any
+// byte). A unit that straddles two rows is read by both teams, each masking
+// the other row's elements, and written byte by byte. Thread `tid` of a
+// team holds units tid, tid + team, ... of its row in registers (UPT of
+// them): the LN statistics, the amax and the payload all come from that
+// one copy; rows of a multiple of 16 (every route's but phi='n''s 849)
+// take a form with no masks. Team and units are the caller's
+// (ops/quant_matmul.py::quant_rows_team), picked by measurement at every
+// launch shape of the phi n/s/m int8 forwards: 4 units a thread in bf16, 2
+// in fp32, on the smallest team that covers the row (PERF.md). Rows too
+// wide for 8 (bf16) or 4 (fp32) units a thread of a 256-thread team (k past
+// 32,768 bf16 or 16,384 fp32, beyond every route) are streamed from memory
+// once per statistic (UPT = 0). One block of 256 threads a QR_THREADS /
+// team rows.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(256) quant_rows_kernel(const __nv_bfloat16* __restrict__ x,
-                                                         int8_t* __restrict__ xq,
-                                                         float* __restrict__ xs, int m, int k,
-                                                         int ln, float eps, float qmax,
-                                                         float inv_qmax) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= m) return;
-  const __nv_bfloat16* xr = x + (long long)row * k;
-  const int chunks = k / 8;
-  auto load8 = [&](int c, float (&f)[8]) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(xr + c * 8);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+constexpr int QR_THREADS = 256;
+constexpr int UNIT = 16;  // elements of a unit: one 16-byte int8 store
+
+template <typename T>
+__device__ __forceinline__ void unit_floats(const uint4 (&raw)[sizeof(T)], float (&f)[UNIT]) {
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 t = __bfloat1622float2(h[i]);
-      f[2 * i] = t.x;
-      f[2 * i + 1] = t.y;
+    for (int p = 0; p < 4; ++p) {
+      f[4 * p] = __uint_as_float(raw[p].x);
+      f[4 * p + 1] = __uint_as_float(raw[p].y);
+      f[4 * p + 2] = __uint_as_float(raw[p].z);
+      f[4 * p + 3] = __uint_as_float(raw[p].w);
     }
-  };
-  float mu = 0.f, rstd = 1.f, amax = 0.f;
-  if (ln) {
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < chunks; c += 32) {
-      float f[8];
-      load8(c, f);
+  } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s += f[i];
-        s2 += f[i] * f[i];
+    for (int p = 0; p < 2; ++p) {
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw[p]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 t = __bfloat1622float2(h[i]);
+        f[8 * p + 2 * i] = t.x;
+        f[8 * p + 2 * i + 1] = t.y;
       }
     }
-    mu = warp_sum(s) / k;
-    const float m2 = warp_sum(s2) / k;
-    rstd = rsqrtf(fmaxf(m2 - __fmul_rn(mu, mu), 0.f) + eps);
   }
-  for (int c = lane; c < chunks; c += 32) {
-    float f[8];
-    load8(c, f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(f[i] - mu));
-  }
-  amax = fmaxf(warp_max(amax), 1e-12f);
-  const float inv = qmax / amax;
-  for (int c = lane; c < chunks; c += 32) {
-    float f[8];
-    load8(c, f);
-    char4 lo, hi;
-    lo.x = q8((f[0] - mu) * inv); lo.y = q8((f[1] - mu) * inv);
-    lo.z = q8((f[2] - mu) * inv); lo.w = q8((f[3] - mu) * inv);
-    hi.x = q8((f[4] - mu) * inv); hi.y = q8((f[5] - mu) * inv);
-    hi.z = q8((f[6] - mu) * inv); hi.w = q8((f[7] - mu) * inv);
-    char4* dst = reinterpret_cast<char4*>(xq + (long long)row * k + c * 8);
-    dst[0] = lo;
-    dst[1] = hi;
-  }
-  if (lane == 0) xs[row] = amax * inv_qmax * rstd;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// Rows of k elements, team threads a row (8 to 256, a power of two), UPT
+// units a thread held in registers (0: streamed). d = x - mean (LN) or x;
+// amax = max(max |d|, 1e-12); payload rint(d * (qmax / amax)); scale amax *
+// inv_qmax * rstd (rstd = rsqrt(max(E[x^2] - mean^2, 0) + eps), else 1).
+// ALIGNED: k a multiple of UNIT, so that every unit lies whole in one row
+// and no element is masked.
+template <typename T, int UPT, bool ALIGNED>
+__global__ void __launch_bounds__(QR_THREADS) quant_rows_kernel(
+    const T* __restrict__ x, int8_t* __restrict__ xq, float* __restrict__ xs, long long m,
+    int k, int team, int ln, float eps, float qmax, float inv_qmax) {
+  constexpr int P = sizeof(T);          // 16-byte pieces a unit
+  constexpr int PER = UNIT / P;         // elements a piece
+  __shared__ float red[2][QR_THREADS / 32];
+  const int rpb = QR_THREADS / team;    // rows a block takes at a time
+  const int slot = threadIdx.x / team, tid = threadIdx.x % team;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int team_warps = team / 32, first_warp = slot * team_warps;
+  const int width = min(team, 32);      // lanes of a team within a warp
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
 
-// quant_rows on any row: element by element, bf16 or fp32.
-template <typename T>
-__global__ void __launch_bounds__(256) quant_rows_any_kernel(const T* __restrict__ x,
-                                                             int8_t* __restrict__ xq,
-                                                             float* __restrict__ xs, int m,
-                                                             int k, int ln, float eps,
-                                                             float qmax, float inv_qmax) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * 8 + (threadIdx.x >> 5);
-  if (row >= m) return;
-  const T* xr = x + (long long)row * k;
-  float mu = 0.f, rstd = 1.f, amax = 0.f;
-  if (ln) {
-    float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < k; c += 32) {
-      const float f = to_f32(xr[c]);
-      s += f;
-      s2 += f * f;
+  // within a warp: the team's lanes (a team of 8 or 16 is an aligned group
+  // of lanes, which xor offsets below its width never leave)
+  auto lanes_sum = [&](float v) {
+    for (int o = width / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffff, v, o);
+    return v;
+  };
+  auto lanes_max = [&](float v) {
+    for (int o = width / 2; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffff, v, o));
+    return v;
+  };
+  // the team's sum of a and of b (team > 32: through shared memory, in
+  // warp order, the same bits every run)
+  auto team_sum2 = [&](float& a, float& b) {
+    a = lanes_sum(a);
+    b = lanes_sum(b);
+    if (team > 32) {
+      __syncthreads();
+      if (lane == 0) {
+        red[0][warp] = a;
+        red[1][warp] = b;
+      }
+      __syncthreads();
+      a = b = 0.f;
+      for (int w = 0; w < team_warps; ++w) {
+        a += red[0][first_warp + w];
+        b += red[1][first_warp + w];
+      }
     }
-    mu = warp_sum(s) / k;
-    const float m2 = warp_sum(s2) / k;
-    rstd = rsqrtf(fmaxf(m2 - __fmul_rn(mu, mu), 0.f) + eps);
+  };
+  auto team_max = [&](float a) {
+    a = lanes_max(a);
+    if (team > 32) {
+      __syncthreads();
+      if (lane == 0) red[0][warp] = a;
+      __syncthreads();
+      a = 0.f;
+      for (int w = 0; w < team_warps; ++w) a = fmaxf(a, red[0][first_warp + w]);
+    }
+    return a;
+  };
+
+  // the loop runs the same number of turns in every thread of the block
+  // (the team reductions synchronise it)
+  for (long long base = (long long)blockIdx.x * rpb; base < m; base += (long long)gridDim.x * rpb) {
+    const long long row = base + slot;
+    const bool live = row < m;
+    const long long lo = row * k, hi = lo + k;  // the row's elements in the flat array
+    const long long u0 = lo / UNIT, u1 = live ? (hi - 1) / UNIT : u0 - 1;  // its units
+    // a unit's elements [a, b) that are the row's
+    auto span = [&](long long u, int& a, int& b) {
+      if constexpr (ALIGNED) {
+        a = 0;
+        b = UNIT;
+      } else {
+        a = static_cast<int>(max(lo - u * UNIT, 0ll));
+        b = static_cast<int>(min(hi - u * UNIT, (long long)UNIT));
+      }
+    };
+    // a unit's pieces, those that hold an element of the row (a piece that
+    // holds one lies in the tensor's 16-byte granules)
+    auto load = [&](long long u, uint4 (&r)[P]) {
+      int a, b;
+      span(u, a, b);
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+        r[p] = ((p + 1) * PER > a && p * PER < b) ? xv[u * P + p] : make_uint4(0, 0, 0, 0);
+    };
+    uint4 raw[UPT > 0 ? UPT : 1][P];
+    if constexpr (UPT > 0) {
+#pragma unroll
+      for (int j = 0; j < UPT; ++j) {
+        const long long u = u0 + tid + (long long)j * team;
+        if (u <= u1) load(u, raw[j]);
+      }
+    }
+    // fn(u, values, a, b) over this thread's units of the row
+    auto visit = [&](auto&& fn) {
+      if constexpr (UPT > 0) {
+#pragma unroll
+        for (int j = 0; j < UPT; ++j) {
+          const long long u = u0 + tid + (long long)j * team;
+          if (u > u1) break;
+          float f[UNIT];
+          unit_floats<T>(raw[j], f);
+          int a, b;
+          span(u, a, b);
+          fn(u, f, a, b);
+        }
+      } else {
+        for (long long u = u0 + tid; u <= u1; u += team) {
+          uint4 r[P];
+          load(u, r);
+          float f[UNIT];
+          unit_floats<T>(r, f);
+          int a, b;
+          span(u, a, b);
+          fn(u, f, a, b);
+        }
+      }
+    };
+
+    float mu = 0.f, rstd = 1.f;
+    if (ln) {
+      float s = 0.f, s2 = 0.f;
+      visit([&](long long, const float (&f)[UNIT], int a, int b) {
+#pragma unroll
+        for (int e = 0; e < UNIT; ++e)
+          if (e >= a && e < b) {
+            s += f[e];
+            s2 += f[e] * f[e];
+          }
+      });
+      team_sum2(s, s2);
+      mu = s / k;
+      rstd = rsqrtf(fmaxf(s2 / k - __fmul_rn(mu, mu), 0.f) + eps);
+    }
+    float amax = 0.f;
+    visit([&](long long, const float (&f)[UNIT], int a, int b) {
+#pragma unroll
+      for (int e = 0; e < UNIT; ++e)
+        if (e >= a && e < b) amax = fmaxf(amax, fabsf(f[e] - mu));
+    });
+    amax = fmaxf(team_max(amax), 1e-12f);
+    const float inv = qmax / amax;
+    visit([&](long long u, const float (&f)[UNIT], int a, int b) {
+      uint32_t w[UNIT / 4] = {0u, 0u, 0u, 0u};  // the unit's payload, 4 bytes a word
+#pragma unroll
+      for (int e = 0; e < UNIT; ++e)
+        w[e / 4] |= (static_cast<uint32_t>(q8((f[e] - mu) * inv)) & 0xFFu) << (8 * (e % 4));
+      if (a == 0 && b == UNIT) {
+        *reinterpret_cast<uint4*>(xq + u * UNIT) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < UNIT; ++e)
+          if (e >= a && e < b) xq[u * UNIT + e] = static_cast<int8_t>(w[e / 4] >> (8 * (e % 4)));
+      }
+    });
+    if (live && tid == 0) xs[row] = amax * inv_qmax * rstd;
   }
-  for (int c = lane; c < k; c += 32) amax = fmaxf(amax, fabsf(to_f32(xr[c]) - mu));
-  amax = fmaxf(warp_max(amax), 1e-12f);
-  const float inv = qmax / amax;
-  int8_t* dst = xq + (long long)row * k;
-  for (int c = lane; c < k; c += 32) dst[c] = q8((to_f32(xr[c]) - mu) * inv);
-  if (lane == 0) xs[row] = amax * inv_qmax * rstd;
+}
+
+template <typename T, int UPT>
+cudaError_t launch_quant_rows(const T* x, int8_t* q, float* s, long long m, int k, int team,
+                              int ln, float eps, float qmax, float inv_qmax, cudaStream_t st) {
+  const auto kernel = k % UNIT ? quant_rows_kernel<T, UPT, false> : quant_rows_kernel<T, UPT, true>;
+  // one block a QR_THREADS / team rows: the hardware keeps as many resident
+  // as fit and starts the next as one ends (a grid of the SMs' resident
+  // blocks walking the rows measured the same)
+  const long long rpb = QR_THREADS / team;
+  const long long blocks = (m + rpb - 1) / rpb;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  kernel<<<static_cast<unsigned>(blocks), QR_THREADS, 0, st>>>(x, q, s, m, k, team, ln, eps,
+                                                               qmax, inv_qmax);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t quant_rows_of(const T* x, int8_t* q, float* s, long long m, int k, int team, int upt,
+                          int ln, float eps, float qmax, float inv_qmax, cudaStream_t st) {
+  switch (upt) {
+    case 1: return launch_quant_rows<T, 1>(x, q, s, m, k, team, ln, eps, qmax, inv_qmax, st);
+    case 2: return launch_quant_rows<T, 2>(x, q, s, m, k, team, ln, eps, qmax, inv_qmax, st);
+    case 4: return launch_quant_rows<T, 4>(x, q, s, m, k, team, ln, eps, qmax, inv_qmax, st);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_quant_rows<T, 8>(x, q, s, m, k, team, ln, eps, qmax, inv_qmax, st);
+      return cudaErrorInvalidValue;
+    default: return launch_quant_rows<T, 0>(x, q, s, m, k, team, ln, eps, qmax, inv_qmax, st);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -295,26 +445,33 @@ __global__ void __launch_bounds__(ROW_THREADS) rows_out_any_kernel(
 
 extern "C" {
 
-// bf16 (x_f32 = 0) or fp32 (m, k) -> int8 (m, k) on [-qmax, qmax], f32
-// (m, 1). qmax 127 (int8) or 7 (the int4 range of w4a4), inv_qmax = 1 /
-// qmax rounded to f32 from double, as JAX rounds its weakly typed constant.
-int quant_rows(const void* x, void* xq, void* xs, int m, int k, int ln, float eps, float qmax,
-               float inv_qmax, int x_f32, void* stream) {
-  if (k <= 0 || !(qmax == 127.f || qmax == 7.f)) return static_cast<int>(cudaErrorInvalidValue);
+// bf16 (x_f32 = 0) or fp32 (m, k), any k, 16-byte aligned -> int8 (m, k) on
+// [-qmax, qmax], f32 (m, 1). qmax 127 (int8) or 7 (the int4 range of w4a4),
+// inv_qmax = 1 / qmax rounded to f32 from double, as JAX rounds its weakly
+// typed constant. `team` threads a row holding `upt` units each
+// (ops/quant_matmul.py::quant_rows_team: 8 to 256 threads, 1 to 8 units,
+// 4 at most for fp32, covering the units a row spans; upt 0 streams the row
+// from memory once per statistic). Anything else returns
+// cudaErrorInvalidValue.
+int quant_rows(const void* x, void* xq, void* xs, long long m, int k, int team, int upt, int ln,
+               float eps, float qmax, float inv_qmax, int x_f32, void* stream) {
+  const long long units = (k + UNIT - 1) / UNIT + (k % UNIT ? 1 : 0);  // a row spans at most
+  const bool team_ok = team >= 8 && team <= QR_THREADS && (team & (team - 1)) == 0;
+  const bool upt_ok = upt == 0 ||
+                      ((upt == 1 || upt == 2 || upt == 4 || (upt == 8 && !x_f32)) &&
+                       (long long)team * upt >= units);
+  if (k <= 0 || m < 0 || !team_ok || !upt_ok || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(xq) % 16 || !(qmax == 127.f || qmax == 7.f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (m == 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   int8_t* q = static_cast<int8_t*>(xq);
   float* s = static_cast<float*>(xs);
-  if (x_f32) {
-    quant_rows_any_kernel<float><<<(m + 7) / 8, 256, 0, st>>>(
-        static_cast<const float*>(x), q, s, m, k, ln, eps, qmax, inv_qmax);
-  } else if (k % 8 == 0) {
-    quant_rows_kernel<<<(m + 7) / 8, 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x), q, s,
-                                                   m, k, ln, eps, qmax, inv_qmax);
-  } else {
-    quant_rows_any_kernel<__nv_bfloat16><<<(m + 7) / 8, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), q, s, m, k, ln, eps, qmax, inv_qmax);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      x_f32 ? quant_rows_of(static_cast<const float*>(x), q, s, m, k, team, upt, ln, eps, qmax,
+                            inv_qmax, st)
+            : quant_rows_of(static_cast<const __nv_bfloat16*>(x), q, s, m, k, team, upt, ln, eps,
+                            qmax, inv_qmax, st));
 }
 
 // Row pass over the fp32 (m, n) GEMM output: ln = 0, quant_out (int8 payload,

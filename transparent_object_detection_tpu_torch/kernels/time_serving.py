@@ -8,14 +8,30 @@ folded h1, row 2 at batch 1 too), on one GPU; prints one JSON line (ms per
 call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads | --train-step | --f32 | --qmm]
+        [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
 TEB's configurations A (attn_handoff + w4a4_mlp1) and B (attn_qout):
 batch 1 on the host clock (the latency path) and by the device's busy
-time, batch 32 with CUDA events; then the phi='m' bf16 and int8 forwards at
-batch 32.
+time, batch 32 with CUDA events; then the phi='m' bf16, int8, A and B
+forwards at batch 32.
+With --int8 it times only int8 attention (row 3, flash_mha_int8) at dark3
+of phi 'm' (q/k 128, v 1,024, two key blocks) and 'n' (q/k 32, v 256; bf16
+and fp32 q), batch 2 and 1, each held to the int8 value bar against its
+plain version, and where the checkout's `int8_sm90_plan` takes a slice
+width, csrc/flash_int8_sm90.cu's forms at those sites (v in slices of 128,
+256 or 512 columns); then quant_rows (rows 7 and 8) at every launch shape
+of one batch-2 forward of the phi 'n' (bf16 and fp32 compute), 's' (and
+its configuration A, whose w4a4 mlp1 runs qmax 7) and 'm' int8 models
+(recorded from the model's own forward), each held to the int8 bars, on
+CUDA events and by its kernel's device time (torch.profiler: a launch is
+shorter than the host's time to enqueue it), its bytes bound beside it,
+and the forwards' sums by launch counts; and a
+torch.profiler reading of one quant_rows launch at the phi='s' h2 qkv
+shape (12,800 x 1,536 bf16, LN) and the phi='n' fp32 one. A checkout
+before this form times the dark3 sites on the mma_sync template of
+csrc/flash_attn_int8.cu and quant_rows on its first kernels.
 With --qmm it times only qmm (row 6) at every distinct launch shape of one
 int8 forward of phi 's' and 'm' 640x640 at batch 2 and at batch 1 (the
 launches recorded from the model's own forward, then each shape's call
@@ -85,6 +101,19 @@ NECK = (("h1", (2, 1600, 2048, 8)), ("h2", (2, 6400, 1536, 6)), ("h4", (2, 1600,
 INT8_WIDE = (("phi=m h2", (2, 6400, 3072, 8)), ("phi=m h4", (2, 1600, 3072, 8)))
 # configurations of the --forward timing
 FORWARDS = ("bf16", "int8", "A", "B")
+# the --int8 dark3 sites: (name, (batch, tokens, q/k width, v width, key
+# block, q's type)); and the v slice widths of the sm90 forms timed there
+INT8_DARK3 = (("phi=m dark3", (2, 6400, 128, 1024, 3200, torch.bfloat16)),
+              ("phi=n dark3", (2, 6400, 32, 256, 6400, torch.bfloat16)),
+              ("phi=n dark3 fp32 q", (2, 6400, 32, 256, 6400, torch.float32)))
+INT8_DARK3_FORMS = {"phi=m dark3": (128, 256, 512), "phi=n dark3": (128, 256),
+                    "phi=n dark3 fp32 q": (128, 256)}
+# the --int8 quant_rows forwards: (label, phi, compute type, configuration)
+QUANT_ROWS_FORWARDS = (("phi=n", "n", "bfloat16", "int8"), ("phi=n fp32", "n", "float32", "int8"),
+                       ("phi=s", "s", "bfloat16", "int8"), ("phi=s A", "s", "bfloat16", "A"),
+                       ("phi=m", "m", "bfloat16", "int8"))
+PEAK_INT8_OPS = 1979e12  # H100 SXM data sheet, dense int8
+PEAK_BYTES = 3.35e12
 # the --qmm forwards: (phi, batches)
 QMM_FORWARDS = (("s", (2, 1)), ("m", (2, 1)))
 # (name, (batch, tokens, q/k width, v width, heads)) of the phi='s' training
@@ -363,14 +392,175 @@ def time_forward() -> dict:
                     f"{key}_batch32_ms": b32})
         del model
         torch.cuda.empty_cache()
-    for int8 in (False, True):  # phi='m' at batch 32, bf16 and int8
+    for tag in FORWARDS:  # phi='m' at batch 32
+        int8 = tag != "bf16"
         model = build_model(ModelConfig(phi="m", int8_dense=int8, int8_attn=int8), device="cuda",
-                            seed=0)
+                            seed=0, int8_variants=variants.get(tag, Int8Variants()))
         with torch.inference_mode():
-            out[f"forward{'_int8' if int8 else ''}_phi_m_batch32_ms"] = timed_ms(
+            out[f"forward{'' if tag == 'bf16' else '_' + tag}_phi_m_batch32_ms"] = timed_ms(
                 lambda: model(img32), 3, 1)
         del model
         torch.cuda.empty_cache()
+    return out
+
+
+def device_kernels(fn, iters: int = 10) -> dict:
+    """{kernel name: device ms a launch}: the kernels' time under
+    torch.profiler over `iters` calls of fn, after a warm-up (for calls
+    shorter than the host's time to enqueue them, which CUDA events would
+    read), each over the launches the profiler recorded (late in a long run
+    it may record only some of them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key != "Command Buffer Full" and e.count}
+
+
+def device_ms(fn, iters: int = 10) -> float:
+    return sum(device_kernels(fn, iters).values())
+
+
+def _int8_values_bar(out, ref) -> float:
+    """Bar use of an int8 attention value output against its plain version
+    (chip_smoke.py's int8 value bar: 1e-2 |plain| + 1e-3 max|plain|)."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return float((diff / (1e-2 * mag + 1e-3 * mag.max())).max())
+
+
+def time_int8_dark3(randn) -> dict:
+    """Row 3 at the INT8_DARK3 sites: the route's kernel at batch 2 and 1
+    beside the three-product bound, then the sm90 forms of INT8_DARK3_FORMS
+    (where this checkout has them), each held to the int8 value bar."""
+    import inspect
+
+    sliced = "slice_cols" in inspect.signature(A8.int8_sm90_plan).parameters
+    out = {}
+    for name, (b, n, dq, dv, bk, dt) in INT8_DARK3:
+        q = (randn(b, n, dq) * 0.6).to(dt)
+        k, v = (randn(b, n, dq) * 0.6).to(dt), randn(b, n, dv).to(dt)
+        kq, ks = A8.quantize_kv(k, 1, bk)
+        vq, vs = A8.quantize_kv(v, 1, bk)
+        ref = A8.flash_mha_int8_plain(q, kq, ks, vq, vs, 1, 1.0)
+        row = {"form": A8.int8_fwd_form(dq, dv)}
+        got = A8.flash_mha_int8(q, kq, ks, vq, vs, 1, 1.0)
+        row["bar_used"] = _int8_values_bar(got, ref)
+        row["ms"] = timed_ms(lambda: A8.flash_mha_int8(q, kq, ks, vq, vs, 1, 1.0))
+        row["ms_b1"] = timed_ms(
+            lambda: A8.flash_mha_int8(q[:1], kq[:1], ks[:1], vq[:1], vs[:1], 1, 1.0))
+        ops = 2.0 * b * n * n * (2 * dq + dv)
+        nbytes = b * n * (dq * (q.element_size() + 1) + dv * (1 + q.element_size()))
+        row["bound_ms"] = max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3
+        if sliced and row["form"] == "sm90":
+            forms = {}
+            for width in INT8_DARK3_FORMS[name]:
+                plan = A8.int8_sm90_plan(dq, dv, n // bk, slice_cols=width)
+                fn = lambda: A8._launch_sm90(q, None, kq, ks, vq, vs, 1, 1.0, dt, plan=plan)
+                forms[f"slices of {width}"] = {
+                    "bar_used": _int8_values_bar(fn(), ref), "ms": timed_ms(fn),
+                    "plan": {key: plan[key] for key in ("rows", "keys", "split", "slices",
+                                                        "stages", "v_stages")},
+                    "bound_ms": max(2.0 * b * n * n * (2 * dq * plan["slices"] + dv)
+                                    / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3}
+            row["forms"] = forms
+        out[name] = row
+    return out
+
+
+def _team_sweep(real, args) -> dict:
+    """{"team x units": device ms} of quant_rows on args for each number of
+    units a thread (1, 2, 4; 8 for bf16) with the smallest team of 8 to 256
+    threads that covers the row, and streamed (0 units held) by teams of
+    16, 32 and 64, the rule's pick replaced for the call."""
+    x = args[0]
+    k, size = x.shape[1], x.element_size()
+    units = -(-k // QM.QR_UNIT) + (1 if k % QM.QR_UNIT else 0)
+    rule = QM.quant_rows_team
+    out = {}
+    picks = [(next((t for t in (8, 16, 32, 64, 128, 256) if t * upt >= units), None), upt)
+             for upt in (1, 2, 4) + ((8,) if size == 2 else ())]
+    picks += [(team, 0) for team in (16, 32, 64)]  # streamed: each statistic read again
+    for team, upt in picks:
+        if team is None:
+            continue
+        QM.quant_rows_team = lambda k_, e_, pick=(team, upt): pick
+        try:
+            out[f"{team}x{upt}"] = device_ms(lambda: real(*args))
+        finally:
+            QM.quant_rows_team = rule
+    return out
+
+
+def time_quant_rows() -> dict:
+    """quant_rows at every launch shape of one batch-2 forward of each of
+    QUANT_ROWS_FORWARDS (recorded from the model's forward, then each
+    shape's call repeated), held to the int8 bars against its plain
+    version, beside its bytes bound; the forwards' sums by launch counts;
+    and one launch at the phi='s' h2 qkv and phi='n' fp32 qkv shapes under
+    torch.profiler (kernel name and device time)."""
+    from transparent_object_detection_tpu_torch.config import Int8Variants, ModelConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    real = QM.quant_rows
+    out = {}
+    variants = {"int8": Int8Variants(), "A": Int8Variants(attn_handoff=True, w4a4_mlp1=True)}
+    for label, phi, dtype, tag in QUANT_ROWS_FORWARDS:
+        model = build_model(ModelConfig(phi=phi, compute_dtype=dtype, int8_dense=True,
+                                        int8_attn=True), device="cuda", seed=0,
+                            int8_variants=variants[tag])
+        calls = {}
+
+        def recording(x, ln, eps=1e-6, qmax=127):
+            key = f"M={x.shape[0]} K={x.shape[1]} {str(x.dtype)[6:]} ln={bool(ln)} qmax={qmax}"
+            calls.setdefault(key, [0, (x, ln, eps, qmax)])[0] += 1
+            return real(x, ln, eps, qmax)
+        recording.launches = recording.launches_int4 = 0
+        QM.quant_rows = recording
+        try:
+            with torch.inference_mode():
+                model(torch.rand(2, 640, 640, 3, generator=gen, device="cuda"))
+        finally:
+            QM.quant_rows = real
+        rows, sums = {}, {"ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+        with torch.inference_mode():
+            for key, (count, args) in calls.items():
+                x = args[0]
+                xq, xs = real(*args)
+                pq, ps = QM.quant_rows_plain(*args)
+                flips = (xq.int() - pq.int()).abs()
+                row = {"launches": count, "max_step": int(flips.max()),
+                       "flip_share": float((flips > 0).float().mean()),
+                       "scale_rel": float(((xs - ps).abs() / ps.abs()).max()),
+                       "ms": timed_ms(lambda: real(*args), 20, 3),
+                       "device_ms": device_ms(lambda: real(*args)),
+                       "bound_ms": (x.numel() * (x.element_size() + 1) + x.shape[0] * 4)
+                       / PEAK_BYTES * 1e3}
+                if hasattr(QM, "quant_rows_team"):  # the rule's team, and the others' device ms
+                    row["team"] = QM.quant_rows_team(x.shape[1], x.element_size())
+                    row["teams_device_ms"] = _team_sweep(real, args)
+                rows[key] = row
+                for name in sums:
+                    sums[name] += count * row[name]
+        out[label] = {"shapes": rows, "forward_sums_ms": sums,
+                      "launches": sum(c for c, _ in calls.values())}
+        del model, calls
+        torch.cuda.empty_cache()
+    profiles = {}
+    for name, (m, k, dt) in (("phi=s h2 qkv", (12800, 1536, torch.bfloat16)),
+                             ("phi=n fp32 h2 qkv", (12800, 768, torch.float32))):
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+        profiles[name] = {"kernels_ms": device_kernels(lambda: real(x, True)),
+                          "bound_ms": (x.numel() * (x.element_size() + 1) + m * 4)
+                          / PEAK_BYTES * 1e3}
+    out["profile_one_launch"] = profiles
     return out
 
 
@@ -589,6 +779,10 @@ def main() -> int:
         return 0
     if "--qmm" in sys.argv[1:]:
         print(json.dumps({**result, "qmm": time_qmm()}))
+        return 0
+    if "--int8" in sys.argv[1:]:
+        print(json.dumps({**result, "int8_dark3": time_int8_dark3(randn),
+                          "quant_rows": time_quant_rows()}))
         return 0
     if "--f32" in sys.argv[1:]:
         # fp32 as chip_smoke.py runs it: no TF32 in SDPA, matmuls or convolutions

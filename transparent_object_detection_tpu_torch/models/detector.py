@@ -108,17 +108,25 @@ def set_attention_impl(model: nn.Module, impl: Optional[str]) -> nn.Module:
     return model
 
 
+# std of a standard normal truncated at +-2 (flax's variance_scaling)
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation after the flax defaults: conv and dense kernels
-    LeCun-normal (std 1/sqrt(fan_in)), dense biases 0, norms at identity,
-    SelfAttention gamma 0, head output biases at their prior values."""
+    LeCun-normal as flax draws it (a normal truncated at +-2 of its std,
+    the std raised by 1/0.87962566 so the variance is 1/fan_in), dense biases
+    0, norms at identity, SelfAttention gamma 0, head output biases at their
+    prior values."""
     gen = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "weight" and p.dim() >= 2:
-            fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+            std = p[0].numel() ** -0.5 / TRUNCATED_NORMAL_STD
+            w = torch.empty(p.shape)
+            torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+            p.copy_(w)
         elif leaf == "weight":
             p.fill_(1.0)
         elif leaf == "gamma" or leaf == "bias":

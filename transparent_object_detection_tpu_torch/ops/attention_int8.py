@@ -30,13 +30,17 @@ that are multiples of 32, v head widths multiples of 128, N and bk multiples
 of 32 (a ragged last key tile is masked), q in bf16 or fp32 (the output in
 q's type); the int8 output at any v head width.
 
-The kernels, by one rule (`int8_fwd_form`): heads whose q/k and v widths
-are multiples of 64 up to 512 (phi 'n', 's', 'm' neck heads of 128 to 384,
-phi='s' dark3) run csrc/flash_int8_sm90.cu (int8 wgmma fed by a TMA ring,
-launched with the plan of `int8_sm90_plan`; V reaches it as the key-major
-copy of `vq_key_major`); the other sites (phi='n' dark3 with q/k 32, phi='m'
-dark3 with v 1,024, phi 'l' and 'x') the mma.sync template of
-csrc/flash_attn_int8.cu. All three entry points below follow the rule.
+The kernels, by one rule per entry point (`int8_fwd_form`): heads whose q/k
+width is a multiple of 32 up to 512 run csrc/flash_int8_sm90.cu (int8 wgmma
+fed by a TMA ring, launched with the plan of `int8_sm90_plan`; V reaches it
+as the key-major copy of `vq_key_major`) at any v width for
+`flash_mha_int8` (v wider than 512 in slices across blocks, S recomputed
+per slice: dark3 of phi 'm', 'l', 'x') and at v up to 512 for the two
+entries with an int8 output (its amax spans the head's whole v); the other
+sites (q/k wider than 512: the phi 'l' and 'x' neck heads; the int8-output
+entries at v wider than 512) the mma.sync template of
+csrc/flash_attn_int8.cu. Every int8 serving site of phi 'n', 's' and 'm'
+takes the sm90 kernel.
 
 The int8 TEB's handoff variants (`config.Int8Variants`) run the same
 function with other ends:
@@ -72,15 +76,20 @@ KERNEL_N_MULTIPLE = 32
 # pass (the amax is a head's whole row)
 KERNEL_DV_TILE = 256
 Q_DTYPES = (torch.bfloat16, torch.float32)
-# The Hopper kernel (csrc/flash_int8_sm90.cu): q/k and v head widths that
-# are multiples of 64 up to 512 (with the domain above: v 128 to 512), and
-# the launch plans it is built for (`int8_sm90_plan`).
-SM90_WIDTH_MULTIPLE = 64
+# The Hopper kernel (csrc/flash_int8_sm90.cu): q/k head widths that are
+# multiples of 32 up to 512; v any width of the domain (in slices of
+# SM90_SLICE, else 256 or 128 columns, past SM90_MAX_WIDTH), up to
+# SM90_MAX_WIDTH for an int8 output; and the launch plans it is built for
+# (`int8_sm90_plan`).
+SM90_QK_MULTIPLE = 32
 SM90_MAX_WIDTH = 512
+SM90_SLICE = 512
+SM90_SLICE_WIDTHS = (128, 256, 384, 512)  # rows form 128 / 256, split form 384 / 512
 SM90_MAX_STAGES = 8
 SM90_SMEM_LIMIT = 232448
 SM90_PLAN_KEYS = ("rows", "keys", "swq", "v_cols", "split", "stages", "v_stages", "multi",
-                  "smem_bytes")
+                  "slices", "smem_bytes")
+INT8_OUT_ENTRIES = ("flash_mha_int8_qout", "flash_int8_handoff")
 OUT_MODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
 
@@ -334,15 +343,22 @@ def _out_workspace(b: int, n: int, cv: int, device) -> torch.Tensor:
     return torch.empty((b, n, cv), dtype=torch.float32, device=device)
 
 
-def int8_fwd_form(dq: int, dv: int) -> str:
-    """The kernel of an int8 attention call on heads of q/k width `dq` and v
-    width `dv`, for all three entry points and every output form: "sm90"
-    (csrc/flash_int8_sm90.cu) when both are multiples of 64 up to 512 (every
-    int8 site of phi 'n', 's' and 'm' but two dark3s), else "mma_sync"
-    (csrc/flash_attn_int8.cu: phi='n' dark3 q/k 32, phi='m' dark3 v 1,024,
-    phi 'l' and 'x')."""
-    if (0 < dq <= SM90_MAX_WIDTH and 0 < dv <= SM90_MAX_WIDTH
-            and dq % SM90_WIDTH_MULTIPLE == 0 and dv % SM90_WIDTH_MULTIPLE == 0):
+def int8_fwd_form(dq: int, dv: int, entry: str = "flash_mha_int8") -> str:
+    """The kernel of an int8 attention call of entry point `entry` on heads of
+    q/k width `dq` and v width `dv` (the domain of `kernel_supports`), a rule
+    per entry point: "sm90" (csrc/flash_int8_sm90.cu) where q/k is a
+    multiple of 32 up to 512 and, for `flash_mha_int8` (bf16 or fp32 out),
+    at any v (past 512 in slices across blocks: dark3 of phi 'm', 'l', 'x'),
+    for `flash_mha_int8_qout` and `flash_int8_handoff` (whose int8 output
+    takes one amax over the head's whole v, which one block must hold) at v
+    up to 512; else "mma_sync" (csrc/flash_attn_int8.cu: q/k wider than 512,
+    the phi 'l'/'x' neck heads; the int8-output entries at v past 512).
+    Every int8 serving site of phi 'n', 's' and 'm' is "sm90"."""
+    if entry not in ("flash_mha_int8",) + INT8_OUT_ENTRIES:
+        raise ValueError(f"no int8 attention entry point {entry!r}")
+    max_v = SM90_MAX_WIDTH if entry in INT8_OUT_ENTRIES else None
+    if (0 < dq <= SM90_MAX_WIDTH and dq % SM90_QK_MULTIPLE == 0 and dv > 0
+            and dv % KERNEL_DV_MULTIPLE == 0 and (max_v is None or dv <= max_v)):
         return "sm90"
     return "mma_sync"
 
@@ -359,24 +375,35 @@ def int8_sm90_smem_bytes(plan: dict, dq: int) -> int:
             + (2 * 64 * plan["v_cols"] * 4 if plan["multi"] else 0))
 
 
-def int8_sm90_plan(dq: int, dv: int, nk: int) -> dict:
+def int8_sm90_plan(dq: int, dv: int, nk: int, slice_cols: Optional[int] = None) -> dict:
     """Launch plan of csrc/flash_int8_sm90.cu for heads of q/k width `dq`
-    and v width `dv` (the sm90 domain of `int8_fwd_form`, v a multiple of
-    128) in `nk` key blocks. v up to 256: 128 rows a block, each consumer
-    warpgroup on 64 of them with all of v (key tiles of 128 at dv 128, else
-    64). Wider v (phi='m' heads of 384, phi='s' dark3's 512): split, 64
-    rows a block, both warpgroups on the same rows, each computing S and
-    P.V on its half of v (192 or 256 columns) on 64-key tiles (measured
-    faster than sharing one S at the three sites, PERF.md). q/k boxes of 64 bytes
-    at dq 64, else 128. Two V stages where at least two K stages fit beside
-    them, else one; the most K stages (up to 8) that fit the card's 227 KB."""
-    if int8_fwd_form(dq, dv) != "sm90" or dv % KERNEL_DV_MULTIPLE or nk < 1:
-        raise ValueError(f"the sm90 int8 kernel takes q/k widths that are multiples of 64 and v "
-                         f"widths that are multiples of 128, up to 512, got q/k {dq}, v {dv}")
-    split = dv > 256
-    plan = {"rows": 64 if split else 128, "keys": 128 if dv <= 128 else 64,
-            "swq": 64 if dq == 64 else 128, "v_cols": dv // 2 if split else dv,
-            "split": int(split), "multi": int(nk > 1)}
+    and v width `dv` (the sm90 domain of `int8_fwd_form`) in `nk` key blocks.
+    v is cut into `slices` slices of `slice_cols` columns, one a block, each
+    block recomputing S for its query tile: none up to 512; past it slices of
+    512 in the split form (256, then 128, where 512 does not divide v;
+    measured 4% faster than slices of 256 and 30% faster than slices of 128
+    at phi='m' dark3, PERF.md; `slice_cols` picks another width of
+    SM90_SLICE_WIDTHS, for measurement). A slice (or v) up to 256: 128 rows a
+    block, each consumer warpgroup on 64 of them with all the slice's
+    columns (key tiles of 128 at 128 columns, else 64). 384 or 512: split,
+    64 rows a block, both warpgroups on the same rows, each computing S and
+    P.V on its half (192 or 256 columns) on 64-key tiles (measured faster
+    than sharing one S at phi='m' h2, h4 and phi='s' dark3, PERF.md). q/k
+    boxes of 64 bytes at q/k up to 64 (q/k 32 zero-filled past its width),
+    else 128. Two V stages where at least two K stages fit beside them,
+    else one; the most K stages (up to 8) that fit the card's 227 KB."""
+    if int8_fwd_form(dq, dv) != "sm90" or nk < 1:
+        raise ValueError(f"the sm90 int8 kernel takes q/k widths that are multiples of 32 up to "
+                         f"512 and v widths that are multiples of 128, got q/k {dq}, v {dv}")
+    if slice_cols is None:
+        slice_cols = dv if dv <= SM90_MAX_WIDTH else next(
+            w for w in (SM90_SLICE, 256, KERNEL_DV_MULTIPLE) if dv % w == 0)
+    if slice_cols not in SM90_SLICE_WIDTHS or dv % slice_cols:
+        raise ValueError(f"no sm90 int8 form takes v {dv} in slices of {slice_cols}")
+    split = slice_cols > 256
+    plan = {"rows": 64 if split else 128, "keys": 128 if slice_cols <= 128 else 64,
+            "swq": 64 if dq <= 64 else 128, "v_cols": slice_cols // 2 if split else slice_cols,
+            "split": int(split), "multi": int(nk > 1), "slices": dv // slice_cols}
     for v_stages, least in ((2, 2), (1, 1)):
         fits = [st for st in range(SM90_MAX_STAGES, 0, -1)
                 if int8_sm90_smem_bytes({**plan, "stages": st, "v_stages": v_stages}, dq)
@@ -417,19 +444,23 @@ def _sm90_lib():
 
 
 def _launch_sm90(q, qs, kq, ks, vq, vs, num_heads: int, scale: float, out_dtype,
-                 vt: Optional[torch.Tensor] = None):
+                 vt: Optional[torch.Tensor] = None, plan: Optional[dict] = None):
     """One launch of csrc/flash_int8_sm90.cu with the plan of
-    `int8_sm90_plan` on checked CUDA operands: q bf16 or fp32 (quantized per
-    (row, head) into a workspace first) or the int8 qkv payload with its
-    scale table qs; V as `vq_key_major(vq)` (`vt`: that layout made by the
-    caller, which chip_smoke.py's planted fault replaces). Returns out in
-    out_dtype (bf16, fp32, or int8 with its (B, N, H) scales). Raises if the
-    launch fails; never falls back."""
+    `int8_sm90_plan` (`plan`: another of its plans, for measurement) on
+    checked CUDA operands: q bf16 or fp32 (quantized per (row, head) into a
+    workspace first) or the int8 qkv payload with its scale table qs; V as
+    `vq_key_major(vq)` (`vt`: that layout made by the caller, which
+    chip_smoke.py's planted fault replaces). Returns out in out_dtype (bf16,
+    fp32, or int8 with its (B, N, H) scales; an int8 output takes an
+    unsliced plan). Raises if the launch fails; never falls back."""
     b, n, cq = kq.shape
     cv = vq.shape[-1]
     nk = ks.shape[-1]
     dq, dv = cq // num_heads, cv // num_heads
-    plan = int8_sm90_plan(dq, dv, nk)
+    plan = int8_sm90_plan(dq, dv, nk) if plan is None else plan
+    if out_dtype == torch.int8 and plan["slices"] != 1:
+        raise ValueError(f"an int8 output needs the whole v of a head in one block, got v {dv} "
+                         f"in {plan['slices']} slices")
     vt = vq_key_major(vq, num_heads) if vt is None else vt
     q_kind = 2 if q.dtype == torch.int8 else int(q.dtype == torch.float32)
     q8, q_scales = (None, None) if q_kind == 2 else _q_workspace(b, n, cq, num_heads, q.device)
@@ -506,7 +537,7 @@ def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
     b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
                                         kq, ks, vq, vs, num_heads)
-    if int8_fwd_form(dq, dv) == "sm90":
+    if int8_fwd_form(dq, dv, "flash_mha_int8_qout") == "sm90":
         out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, torch.int8)
         flash_mha_int8_qout.sm90_launches += 1
         return out
@@ -548,7 +579,7 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     if tuple(qs.shape) != (b, n, num_heads) or q_row < kq.shape[-1] or q_row % 16:
         raise ValueError(f"int8 handoff kernel does not take payload {tuple(payload.shape)} "
                          f"with q scales {tuple(qs.shape)}")
-    if int8_fwd_form(dq, dv) == "sm90":
+    if int8_fwd_form(dq, dv, "flash_int8_handoff") == "sm90":
         out = _launch_sm90(payload, qs, kq, ks, vq, vs, num_heads, scale,
                            torch.int8 if quant_out else out_dtype)
         flash_int8_handoff.sm90_launches += 1

@@ -21,7 +21,8 @@ The function (the JAX kernel's, on its TPU dispatch):
   * Rounding is half to even throughout, as `jnp.round` rounds.
 
 Kernels: `quant_rows` (csrc/quant_matmul.cu; replaces `_quant_rows_kernel`)
-quantizes bf16 or fp32 rows of any width; `qmm` (csrc/qmm_sm90.cu, int8
+quantizes bf16 or fp32 rows of any width, each row read once into registers
+by a team of threads (`quant_rows_team`); `qmm` (csrc/qmm_sm90.cu, int8
 wgmma fed by a TMA ring, on the tiles of `qmm_sm90_plan`; replaces
 `_qmm_kernel`) takes int8 rows with 1 or G > 1 scale groups (G > 1: each
 group is requantized onto the row's largest scale first, the JAX prologue,
@@ -329,17 +330,24 @@ def qmm_plain(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
 # ---------------------------------------------------------------------------
 
 
+_LIBS: Dict[str, ctypes.CDLL] = {}  # loaded once: quant_rows' launches are a few microseconds
+
+
 def _lib():
+    lib = _LIBS.get("quant_matmul")
+    if lib is not None:
+        return lib
     from transparent_object_detection_tpu_torch.kernels import _build
 
     lib = _build.load("quant_matmul")
     if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.quant_rows.argtypes = [vp, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp]
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.quant_rows.argtypes = [vp, vp, vp, cl, ci, ci, ci, ci, cf, cf, cf, ci, vp]
         lib.quant_rows.restype = ci
         lib.qmm_rows_out.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, vp]
         lib.qmm_rows_out.restype = ci
         lib._argtypes_set = True
+    _LIBS["quant_matmul"] = lib
     return lib
 
 
@@ -375,7 +383,15 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
 
 
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)  # CUDA builds only
+
+
 def _stream(t: torch.Tensor) -> int:
+    """The raw handle of t's device's current stream (where the build has
+    the call the stream object wraps: a few microseconds less host time a
+    launch)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -389,8 +405,10 @@ def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
     ops/quant_matmul.py::_quant_rows_kernel,
     which JAX launches with qmax 127 (`_pquant_call`; counted on
     `quant_rows.launches`) and with qmax 7 (`_w4a4_call`; counted on
-    `quant_rows.launches_int4`). A CUDA tensor launches csrc/quant_matmul.cu;
-    a CPU tensor runs `quant_rows_plain`."""
+    `quant_rows.launches_int4`). A CUDA tensor launches csrc/quant_matmul.cu
+    (one kernel for both input types: a team of threads a row, the row read
+    once, `quant_rows_team` says how); a CPU tensor runs
+    `quant_rows_plain`."""
     if qmax not in QMAX:
         raise ValueError(f"quant_rows takes qmax in {QMAX}, got {qmax}")
     if x.device.type == "cpu":
@@ -399,15 +417,43 @@ def quant_rows(x: torch.Tensor, ln: bool, eps: float = 1e-6, qmax: int = 127):
     _check("x", x, FLOAT_DTYPES)
     xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
     xs = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    err = _lib().quant_rows(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k, int(ln),
-                            eps, float(qmax), 1.0 / qmax, int(x.dtype == torch.float32),
-                            _stream(x))
+    err = _lib().quant_rows(x.data_ptr(), xq.data_ptr(), xs.data_ptr(), m, k,
+                            *quant_rows_team(k, x.element_size()), int(ln), eps, float(qmax),
+                            1.0 / qmax, int(x.dtype == torch.float32), _stream(x))
     _raise_on(err, "quant_rows")
     if qmax == 127:
         quant_rows.launches += 1
     else:
         quant_rows.launches_int4 += 1
     return xq, xs
+
+
+QR_UNIT = 16  # elements a thread of csrc/quant_matmul.cu's quant_rows takes at a time
+QR_THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def quant_rows_team(k: int, elem_bytes: int) -> Tuple[int, int]:
+    """(threads a row, 16-element units a thread) with which
+    csrc/quant_matmul.cu's quant_rows takes rows of k elements of
+    `elem_bytes` bytes (the library checks that they cover the row): units
+    aligned in the flattened array (a row off the 16-element grid spans one
+    more); 4 units a thread in bf16, 2 in fp32 (32 registers of row), on the
+    smallest team of 8 to 256 threads that covers the row; past 256 threads
+    more units (up to 8 bf16, 4 fp32: 64 registers of row); (256, 0) where
+    none holds it (streamed from memory). Measured against the other teams
+    and units at every launch shape of the phi n/s/m int8 forwards
+    (`kernels/time_serving.py --int8`, PERF.md)."""
+    units = -(-k // QR_UNIT) + (1 if k % QR_UNIT else 0)
+    upt, upt_max = (2, 4) if elem_bytes == 4 else (4, 8)
+    team = 8
+    while team < QR_THREADS and team * upt < units:
+        team *= 2
+    while team * upt < units and upt < upt_max:
+        upt *= 2
+    if team * upt < units:
+        return QR_THREADS, 0
+    return team, upt
 
 
 _ACT_CODE = {None: 0, "gelu": 1, "silu": 2}
