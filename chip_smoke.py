@@ -200,7 +200,27 @@
    twice for the same bits).
    The sm90 kernel's sites everywhere above run twice for the same bits and
    hold its ring's faults.
-17. Prints each phase's seconds and the smoke's total time, the card's name
+17. The training pipeline: Trainer.fit at phi='s' 640x640, full width, bf16
+   (seeded random weights) on a synthetic set of 48 training and 16
+   validation JPEGs at 480x640 and 720x1280 written from seed 0: one frozen
+   epoch at batch 16, one unfrozen at batch 8, mosaic and mixup, the
+   threaded DataLoader, device_prefetch, the validation loss, EvalCallback
+   every epoch (the port's Predictor on the EMA weights, class biases set
+   as the serving phases set them) and a CheckpointManager. The launch
+   counts, reset before the fit and read after it, equal the route table's
+   (rows 9-11 per step, rows 1-2 per validation and EvalCallback forward,
+   all on their sm90 forms). Then the callback's forward against the plain
+   versions (`decoded` within the slice limits, detection sets matched),
+   its stats against the same callback on the plain versions (within
+   0.01; at random weights both sides score AP near 0, so this holds the
+   callback's wiring and not the kernels, which the decoded and per-anchor
+   checks hold), AP 1 on the ground truths, the checkpoint
+   files and the last state read back bit for bit, a fit resumed from
+   epoch 1's state (its losses against the uninterrupted run's, within the
+   train slice's loss limit), each epoch's imgs/s beside the bare
+   make_train_step's at its batch, the loader's wait per batch, and the
+   checkpoints' bytes and seconds.
+18. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
    and 9 on the sm90 kernel's one-head form, each site's time, bound,
@@ -213,7 +233,8 @@
    the one-head form of csrc/flash_fwd_sm90.cu, rows 10 and 11 under
    csrc/flash_bwd_single_sm90.cu, each site's time, bound, plain and SDPA
    apart in `sites`), rows 9-11 at the one-head sites of phi='n', and in
-   fp32 last; the fp32 forms of
+   fp32 last; the phi='s' entries of rows 1, 2 and 9-11 also carry the
+   fit phase's launches as `fit_launches`; the fp32 forms of
    rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
    under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
    TFLOP/s), then {"ok": true,
@@ -4647,6 +4668,450 @@ def folded_route_check() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the training pipeline: annotations -> dataset -> threaded loader ->
+# device_prefetch -> the train step -> validation loss -> EvalCallback ->
+# checkpoints, through Trainer.fit, and an exact resume
+# ---------------------------------------------------------------------------
+
+FIT_TRAIN_IMAGES, FIT_VAL_IMAGES = 48, 16
+FIT_PHOTO_SIZES = ((480, 640), (720, 1280))  # (h, w) of the written JPEGs
+FIT_BATCHES = (16, 8)  # frozen epoch, unfrozen epoch
+FIT_EVAL_BATCH = 8
+FIT_WORKERS = 6  # loader threads (the card's machine has 8 cores)
+
+
+def write_fit_set(root: str, seed: int = SEED):
+    """A synthetic detection set made with numpy from `seed`: smooth
+    backgrounds (a coarse random grid resized), one to four filled
+    rectangles of one class with some noise, photo sizes, JPEG files and
+    annotation lines. Returns (train_lines, val_lines)."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(FIT_TRAIN_IMAGES + FIT_VAL_IMAGES):
+        h, w = FIT_PHOTO_SIZES[i % len(FIT_PHOTO_SIZES)]
+        coarse = rng.integers(40, 220, (6, 8, 3)).astype(np.uint8)
+        img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
+        tokens = []
+        for _ in range(int(rng.integers(1, 5))):
+            bw, bh = int(rng.integers(w // 12, w // 3)), int(rng.integers(h // 12, h // 3))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y1:y1 + bh, x1:x1 + bw] = rng.integers(0, 256, 3).astype(np.uint8)
+            tokens.append(f"{x1},{y1},{x1 + bw},{y1 + bh},0")
+        img = np.clip(img.astype(np.int16) + rng.integers(-12, 13, img.shape), 0, 255)
+        path = os.path.join(root, f"img{i:03d}.jpg")
+        check(cv2.imwrite(path, img.astype(np.uint8)), f"could not write {path}")
+        lines.append(" ".join([path] + tokens))
+    return lines[:FIT_TRAIN_IMAGES], lines[FIT_TRAIN_IMAGES:]
+
+
+class LoaderClock:
+    """Stands in for `device_prefetch` where Trainer.fit calls it (each
+    epoch the training loader, then the validation loader): the host time
+    each batch waited on it, and when each call began and ended."""
+
+    def __init__(self, prefetch):
+        self.prefetch = prefetch
+        self.calls = []
+
+    def __call__(self, iterator, **kw):
+        rec = {"start": time.perf_counter(), "waits": []}
+        self.calls.append(rec)
+        gen = self.prefetch(iterator, **kw)
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(gen)
+            except StopIteration:
+                rec["end"] = time.perf_counter()
+                return
+            rec["waits"].append(time.perf_counter() - t)
+            yield batch
+
+
+def _attention_impl_of(model):
+    return next(m.attention_impl for m in model.modules() if hasattr(m, "attention_impl"))
+
+
+def _smoke_eval_callback():
+    """EvalCallback whose variables get class biases, before each
+    evaluation, such that about CANDIDATES_PER_IMAGE anchors an image pass
+    its confidence (as a trained detector's few dozen would; the random
+    weights give none): the biases come from a plain-version forward on the
+    first two validation images (plain versions count no launch)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from transparent_object_detection_tpu_torch.data.annotations import parse_annotation_line
+    from transparent_object_detection_tpu_torch.eval.callbacks import EvalCallback
+    from transparent_object_detection_tpu_torch.models.detector import set_attention_impl
+    from transparent_object_detection_tpu_torch.utils.image import cvt_color, resize_image
+
+    class SmokeEval(EvalCallback):
+        def letterboxed(self, lines):
+            """The images of `lines` as evaluate letterboxes them."""
+            h, w = self.model_cfg.input_shape
+            return [np.asarray(resize_image(cvt_color(Image.open(parse_annotation_line(l)[0])),
+                                            (w, h), letterbox_image=True), np.float32) / 255.0
+                    for l in lines]
+
+        def evaluate(self, model, variables, write_dirs=None):
+            imgs = self.letterboxed(self.val_lines[:2])
+            params = dict(variables["params"])
+            names = [f"head.cls{i}.out.bias" for i in range(3)]
+            for n in names:
+                params[n] = torch.zeros_like(params[n])
+            prev = _attention_impl_of(model)
+            was_training = model.training
+            set_attention_impl(model, "plain")
+            model.eval()
+            try:
+                with torch.inference_mode():
+                    dec = torch.func.functional_call(
+                        model, {**params, **variables["batch_stats"]},
+                        (torch.as_tensor(np.stack(imgs), device=self.device),))["decoded"]
+                logits = torch.logit(dec[..., 4:].float().amax(-1), eps=1e-6).flatten()
+            finally:
+                set_attention_impl(model, prev)
+                model.train(was_training)
+            kth = float(logits.topk(CANDIDATES_PER_IMAGE * len(imgs)).values[-1])
+            conf = self.predict_cfg.confidence
+            bias = float(np.log(conf / (1 - conf))) - kth
+            for n in names:
+                params[n] = torch.full_like(params[n], bias)
+            self.class_bias = bias
+            return super().evaluate(model, {"params": params,
+                                            "batch_stats": variables["batch_stats"]}, write_dirs)
+
+    return SmokeEval
+
+
+def fit_phase(card: str) -> dict:
+    """Trainer.fit at phi='s' 640x640, full width and depth, bf16 (seeded
+    random weights, dark3's gamma 0.5 as in the train slice), on a synthetic
+    set written from seed 0 (FIT_TRAIN_IMAGES training and FIT_VAL_IMAGES
+    validation JPEGs at photo sizes): one frozen epoch at batch 16, one
+    unfrozen at batch 8, mosaic and mixup on, the threaded loader,
+    device_prefetch, the validation loss, EvalCallback every epoch (the
+    port's Predictor on the EMA weights, COCO and VOC mAP) and a
+    CheckpointManager. Launch counts reset just before the fit and read
+    just after, against the route table: rows 9-11 per step on their sm90
+    forms, rows 1-2 per validation and EvalCallback forward. Then: the
+    callback's forward on the weights it last evaluated against the plain
+    versions (`decoded` within the slice limits, the detection sets matched
+    anchor by anchor), its COCO and VOC stats against a run of the same
+    callback on the plain versions (within 0.01: with random weights both
+    score AP near 0, so this bar cannot tell a wrong kernel; the decoded
+    and per-anchor checks are what hold the kernels), the evaluators' AP 1 on the ground truths, the checkpoint files, the
+    last state read back bit for bit, a resumed fit from epoch 1's state
+    (its epoch's losses against the uninterrupted run's), and the bare
+    make_train_step's imgs/s at each batch beside the fit's (and with the
+    loader's threads running beside it; its profiled device time gives the
+    fit's estimated device idle share)."""
+    import os
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.data import loader as L
+    from transparent_object_detection_tpu_torch.eval.coco_map import coco_eval
+    from transparent_object_detection_tpu_torch.eval.voc_map import voc_map
+    from transparent_object_detection_tpu_torch.models.detector import set_attention_impl
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.checkpoints import CheckpointManager
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig()  # phi='s', 640x640, bf16
+    tc = TrainConfig(seed=SEED, freeze_epoch=1, unfreeze_epoch=2, freeze_batch_size=FIT_BATCHES[0],
+                     unfreeze_batch_size=FIT_BATCHES[1], mosaic=True, mixup=True,
+                     num_workers=FIT_WORKERS, save_period=2, eval_period=1)
+    SmokeEval = _smoke_eval_callback()
+
+    class Checkpoints(CheckpointManager):
+        """Times each save and keeps epoch 1's `last_state` for the resume
+        (a hard link: the next save replaces the name, not the file)."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.save_s = []
+
+        def save_epoch(self, state, epoch, is_best, period):
+            t = time.perf_counter()
+            super().save_epoch(state, epoch, is_best, period)
+            self.save_s.append(time.perf_counter() - t)
+            if epoch == 1:
+                src = os.path.join(self.save_dir, "last_state")
+                dst = os.path.join(self.save_dir, "ep001_state")
+                try:
+                    os.link(src, dst)
+                except OSError:  # a file system without hard links
+                    shutil.copyfile(src, dst)
+
+    with tempfile.TemporaryDirectory(prefix="fit_smoke_") as root:
+        t0 = time.perf_counter()
+        train_lines, val_lines = write_fit_set(root)
+        write_s = time.perf_counter() - t0
+        ckpt = Checkpoints(os.path.join(root, "ckpt"))
+        # confidence 0.5, as the serving phases: the class biases then sit
+        # near 0, where bf16 resolves the random head's logit spread (at the
+        # 0.05 default's bias of -2.9 a bf16 step is 0.016, the spread ~0.005)
+        cb = SmokeEval(cfg, val_lines, ["object"], os.path.join(root, "logs"), period=1,
+                       confidence=0.5, batch_size=FIT_EVAL_BATCH, device=DEVICE)
+        trainer = T.Trainer(cfg, tc, device=DEVICE, verbose=True)
+        with torch.no_grad():  # else dark3's attention gets a zero cotangent
+            trainer.model.backbone.dark3_attn.gamma.fill_(0.5)
+        resets, read = train_launch_counts()
+        clock = LoaderClock(L.device_prefetch)
+        torch.cuda.synchronize()
+        # the main path, counted: counts to 0 just before, read just after
+        for reset in resets:
+            reset()
+        t0 = time.perf_counter()
+        with mock.patch.object(T, "device_prefetch", clock):
+            history = trainer.fit(train_lines, val_lines, callbacks=[cb], checkpointer=ckpt)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = read()
+        fit_dets = cb.last_dets
+
+        # launches: rows 9-11 per step, rows 1-2 per validation / eval forward
+        steps = [FIT_TRAIN_IMAGES // b for b in FIT_BATCHES]
+        forwards = (sum(FIT_VAL_IMAGES // b for b in FIT_BATCHES)
+                    + len(history) * -(-FIT_VAL_IMAGES // FIT_EVAL_BATCH))
+        per_step, per_fwd = train_expected(cfg), expected_launches("s", 2, "bf16")
+        expected = {k: per_step.get(k, 0) * sum(steps) + per_fwd.get(k, 0) * forwards
+                    for k in launches}
+        print(json.dumps({"fit_main_path_launches": launches, "expected": expected,
+                          "steps": steps, "serving_forwards": forwards}), flush=True)
+        check(launches == expected, f"fit: launches {launches}, expected {expected}")
+        for k in ("flash_fwd_lse_sm90", "flash_fwd_lse_single", "flash_bwd_dq_sm90",
+                  "flash_bwd_dq_single", "flash_bwd_dkv_sm90", "flash_bwd_dkv_single",
+                  "flash_mha_packed_sm90", "flash_single_sm90"):
+            check(launches[k] > 0, f"fit: {k} never launched")
+
+        # history: one finite entry per epoch
+        check(len(history) == 2 and all(np.isfinite([h["loss"], h["val_loss"], h["map50"]]).all()
+                                        for h in history), f"fit: history {history}")
+
+        # the loader: host wait per batch, each epoch's training span
+        epochs = []
+        for e, bs in enumerate(FIT_BATCHES):
+            tr, va = clock.calls[2 * e], clock.calls[2 * e + 1]
+            span = va["start"] - tr["start"]  # the steps and the loss's host copy
+            waits = np.asarray(tr["waits"]) * 1e3
+            epochs.append({"epoch": e, "batch": bs, "steps": len(waits),
+                           "train_span_s": span, "imgs_per_s": len(waits) * bs / span,
+                           "loader_wait_ms_mean": float(waits.mean()),
+                           "loader_wait_ms_median": float(np.median(waits)),
+                           "loader_wait_ms_max": float(waits.max()),
+                           "loader_wait_share": float(waits.sum() / 1e3 / span),
+                           "first_batch_wait_ms": float(waits[0]),
+                           "val_wait_ms_mean": float(np.mean(va["waits"]) * 1e3),
+                           "epoch_seconds": history[e]["epoch_seconds"]})
+            check(len(waits) == steps[e], f"fit: epoch {e} ran {len(waits)} steps")
+
+        # EvalCallback: non-empty detections; its forward's `decoded` and
+        # detection sets (as detect_step forms them) against the plain
+        # versions under the slice limits, on the weights it last evaluated
+        n_dets = [len(d) for d in fit_dets]
+        check(all(n > 0 for n in n_dets), f"fit: EvalCallback found no detection: {n_dets}")
+        check(max(n_dets) < cb.predict_cfg.max_detections,
+              f"fit: max_detections cut the detections: {n_dets}")
+        view = cb._predictor.model  # the model's graph on the evaluated variables
+        images = torch.as_tensor(np.stack(cb.letterboxed(val_lines)), device=DEVICE)
+
+        def decoded():
+            with torch.inference_mode():
+                return torch.cat([view(images[i:i + FIT_EVAL_BATCH])["decoded"]
+                                  for i in range(0, len(images), FIT_EVAL_BATCH)])
+
+        dec_k = decoded()
+        set_attention_impl(trainer.model, "plain")
+        try:
+            dec_p = decoded()
+        finally:
+            set_attention_impl(trainer.model, None)
+        dec_diff = {"decoded_box_max_abs_px": float((dec_k[..., :4] - dec_p[..., :4]).abs().max()),
+                    "decoded_score_max_abs": float((dec_k[..., 4:] - dec_p[..., 4:]).abs().max())}
+        match = {"matched_in_plain": match_per_anchor(dec_k, dec_p, cb.predict_cfg),
+                 "plain_matched_here": match_per_anchor(dec_p, dec_k, cb.predict_cfg)}
+        del images, dec_k, dec_p
+        # the callback's scores: the last epoch's run against a run on the
+        # plain versions of the same weights
+        gts = cb.last_gts
+        stats_k = coco_eval(fit_dets, gts, 1)  # what the last epoch's evaluate scored
+        stats_k["voc_map"] = voc_map(fit_dets, gts, 1, cb.min_overlap)[0]
+        check(abs(stats_k["AP50"] - history[-1]["map50"]) < 1e-12,
+              f"fit: the scores of the last evaluation moved: {stats_k}, {history[-1]}")
+        ema = {g: {k: v.to(DEVICE) for k, v in trainer.ema_variables[g].items()}
+               for g in ("params", "batch_stats")}
+        set_attention_impl(trainer.model, "plain")
+        try:
+            stats_p = cb.evaluate(trainer.model, ema)
+        finally:
+            set_attention_impl(trainer.model, None)
+        del ema
+        stat_keys = [k for k in stats_k if k != "stats"]
+        stat_diff = {k: abs(stats_k[k] - stats_p[k]) for k in stat_keys}
+        perfect = [np.concatenate([g[:, :4], np.ones((len(g), 1)), g[:, 4:5]], 1) for g in gts]
+        ap_of_gts = {"coco_AP": coco_eval(perfect, gts, 1)["AP"],
+                     "voc_map": voc_map(perfect, gts, 1)[0]}
+        print(json.dumps({"fit_eval_parity": {
+            "card": card, "detections_per_image": n_dets,
+            "detections_per_image_plain": [len(d) for d in cb.last_dets],
+            "class_bias": cb.class_bias, "confidence": cb.predict_cfg.confidence,
+            "decoded": dec_diff, "match": match,
+            "stats_kernels": {k: stats_k[k] for k in stat_keys},
+            "stats_plain": {k: stats_p[k] for k in stat_keys}, "stat_abs_diff": stat_diff,
+            "ap_of_ground_truths": ap_of_gts,
+            "limits": {"box_px": BOX_LIMIT_PX, "score": SCORE_LIMIT, "stats": 0.01}}}),
+            flush=True)
+        check(dec_diff["decoded_box_max_abs_px"] <= BOX_LIMIT_PX
+              and dec_diff["decoded_score_max_abs"] <= SCORE_LIMIT,
+              f"fit: EvalCallback's decoded differs from plain by {dec_diff}")
+        for key, m in match.items():
+            check(m["compared"] > 0 and m["unmatched"] == 0, f"fit: detection sets differ: {m}")
+        check(max(stat_diff.values()) <= 0.01, f"fit: COCO/VOC stats differ from plain: "
+                                               f"{stat_diff}")
+        check(abs(ap_of_gts["coco_AP"] - 1) < 1e-9 and abs(ap_of_gts["voc_map"] - 1) < 1e-9,
+              f"fit: the evaluators do not give AP 1 on the ground truths: {ap_of_gts}")
+
+        # checkpoints: the files, their bytes, the last state read back bit for bit
+        names = sorted(os.listdir(ckpt.save_dir))
+        check({"ep002_weights", "best_weights", "last_weights", "last_state"} <= set(names),
+              f"fit: checkpoint files {names}")
+        sizes = {n: os.path.getsize(os.path.join(ckpt.save_dir, n)) for n in names}
+        t0 = time.perf_counter()
+        last = ckpt.load_tree("last_state")
+        load_s = time.perf_counter() - t0
+        same = all(torch.equal(last[g][k], trainer.variables[g][k])
+                   for g in ("params", "batch_stats") for k in trainer.variables[g])
+        same &= all(torch.equal(last["ema_" + g][k], trainer.ema_variables[g][k])
+                    for g in ("params", "batch_stats") for k in trainer.ema_variables[g])
+        check(same and last["step"] == sum(steps) and last["ema_updates"] == 2 * steps[1],
+              f"fit: last_state does not read back the trained state (step {last['step']}, "
+              f"ema_updates {last['ema_updates']})")
+        del last
+        ckpt_info = {"card": card, "bytes": sizes, "save_s_per_epoch": ckpt.save_s,
+                     "last_state_load_s": load_s,
+                     "last_state_gb_per_s_read": sizes["last_state"] / load_s / 1e9}
+        print(json.dumps({"fit_checkpoints": ckpt_info}), flush=True)
+
+        # resume from epoch 1's state: the unfrozen epoch again
+        resumed = T.Trainer(cfg, dataclasses.replace(tc, init_epoch=1), device=DEVICE,
+                            verbose=True)
+        t0 = time.perf_counter()
+        rhist = resumed.fit(train_lines, val_lines,
+                            checkpointer=CheckpointManager(os.path.join(root, "resumed")),
+                            resume_from=os.path.join(ckpt.save_dir, "ep001_state"))
+        resume_s = time.perf_counter() - t0
+        a, b = history[1], rhist[0]
+        resume = {"uninterrupted": {k: a[k] for k in ("loss", "val_loss", "lr")},
+                  "resumed": {k: b[k] for k in ("loss", "val_loss", "lr")},
+                  "equal_bits": a["loss"] == b["loss"] and a["val_loss"] == b["val_loss"],
+                  "loss_rel": abs(a["loss"] - b["loss"]) / abs(a["loss"]),
+                  "val_loss_rel": abs(a["val_loss"] - b["val_loss"]) / abs(a["val_loss"]),
+                  "limit": TRAIN_LOSS_LIMIT, "resume_fit_s": resume_s}
+        print(json.dumps({"fit_resume": resume}), flush=True)
+        check(len(rhist) == 1 and b["lr"] == a["lr"] and resume["loss_rel"] <= TRAIN_LOSS_LIMIT
+              and resume["val_loss_rel"] <= TRAIN_LOSS_LIMIT, f"fit: resume differs: {resume}")
+        del resumed
+
+        # the bare make_train_step at each batch, on a batch of the fit's
+        # loader: alone, profiled (its device time), and with the loader's
+        # threads assembling batches beside it (the host they share)
+        import threading
+
+        bare = {}
+        model = trainer.model
+        for bs, frozen in zip(FIT_BATCHES, (True, False)):
+            opt = build_optimizer(tc, model, freeze_backbone=frozen)
+            state = T.create_train_state(model, opt)
+            step = T.make_train_step(model, opt, trainer.loss_cfg, tc, freeze_backbone=frozen)
+            loader = trainer._make_loader(train_lines, bs, train=True)
+            loader.set_epoch(0)
+            batch = next(L.device_prefetch(iter(loader), device=DEVICE))
+
+            def timed(n=4):
+                nonlocal state
+                times = []
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, comps = step(state, batch, 1e-3)
+                    float(comps["loss"])  # synchronises
+                    times.append(time.perf_counter() - t0)
+                return sorted(times[1:])[1] * 1e3  # median of 3 after a warm-up
+
+            ms = timed()
+            stop = threading.Event()
+
+            def assemble():  # the loader alone, as many epochs as the steps take
+                while not stop.is_set():
+                    for _ in loader:
+                        if stop.is_set():
+                            break
+
+            side = threading.Thread(target=assemble, daemon=True)
+            side.start()
+            time.sleep(0.5)
+            try:
+                ms_loaded = timed()
+            finally:
+                stop.set()
+                side.join(timeout=60)
+            check(not side.is_alive(), "fit: the loader thread did not stop")
+            prof = profile_call(lambda: step(state, batch, 1e-3), bs)
+            bare[bs] = {"step_ms": ms, "imgs_per_s": bs / ms * 1e3, "frozen": frozen,
+                        "step_ms_beside_loader": ms_loaded,
+                        "device_busy_ms": prof["device_busy_ms"],
+                        "idle_share": prof["idle_share"]}
+            del state, step, opt, batch
+        for e in epochs:
+            b = bare[e["batch"]]
+            e["bare_step_imgs_per_s"] = b["imgs_per_s"]
+            e["fit_over_bare"] = e["imgs_per_s"] / e["bare_step_imgs_per_s"]
+            # the fit's steps do the bare step's device work: the device's
+            # idle share of the training span, estimated from it
+            e["device_idle_share_est"] = 1 - e["steps"] * b["device_busy_ms"] / 1e3 / (
+                e["train_span_s"])
+        del trainer, model
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    perf = {"card": card, "model": "phi=s 640x640 bf16 Trainer.fit (SGD nesterov, EMA)",
+            "train_images": FIT_TRAIN_IMAGES, "val_images": FIT_VAL_IMAGES,
+            "photo_sizes": FIT_PHOTO_SIZES, "loader_threads": FIT_WORKERS,
+            "write_set_s": write_s, "fit_s": fit_s, "epochs": epochs, "bare_step": bare,
+            "history": history, "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"fit_perf": perf}), flush=True)
+    # the readings of the pipeline, each on its own line beside the card
+    for e in epochs:
+        print(json.dumps({"fit_epoch_imgs_per_s": e["imgs_per_s"], "epoch": e["epoch"],
+                          "batch": e["batch"], "bare_step_imgs_per_s": e["bare_step_imgs_per_s"],
+                          "card": card}), flush=True)
+        print(json.dumps({"fit_loader_wait_ms_per_batch": e["loader_wait_ms_mean"],
+                          "median": e["loader_wait_ms_median"], "max": e["loader_wait_ms_max"],
+                          "epoch": e["epoch"], "card": card}), flush=True)
+    print(json.dumps({"fit_checkpoint_file_bytes": sum(v for k, v in ckpt_info["bytes"].items()
+                                                       if k != "ep001_state"),
+                      "save_s": sum(ckpt_info["save_s_per_epoch"]), "card": card}), flush=True)
+    print(json.dumps({"fit_phase_s": perf["phase_s"], "card": card}), flush=True)
+    return {"launches": launches, "perf": perf}
+
+
 def main() -> int:
     import torch
 
@@ -4709,6 +5174,7 @@ def main() -> int:
                     timed=False)
     n32_train = phase("phi=n fp32 train", train_slice_phase, card,
                       ModelConfig(phi="n", compute_dtype="float32"), rejects=(), timed=False)
+    fit = phase("fit", fit_phase, card)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
@@ -4851,6 +5317,18 @@ def main() -> int:
                 f"{name} {label}", f32_source if suffix else source, f"{jv}:{line}", rows,
                 run["launches"][name + ("_f32" if suffix else "")],
                 train_scale["err"].get(name + suffix, 0.0)))
+    # the training pipeline (Trainer.fit): its launches of rows 1, 2 and 9-11
+    # as `fit_launches` on the same kernels' phi='s' entries
+    by_name = {k["name"]: k for k in kernels}
+    for name, counter in (("flash_mha_packed", "flash_mha_packed_sm90"),
+                          ("flash_single single_sm90", "flash_single_sm90"),
+                          ("flash_fwd_lse sm90", "flash_fwd_lse_sm90"),
+                          ("flash_fwd_lse single_sm90", "flash_fwd_lse_single"),
+                          ("flash_bwd_dq sm90", "flash_bwd_dq_sm90"),
+                          ("flash_bwd_dq single_sm90", "flash_bwd_dq_single"),
+                          ("flash_bwd_dkv sm90", "flash_bwd_dkv_sm90"),
+                          ("flash_bwd_dkv single_sm90", "flash_bwd_dkv_single")):
+        by_name[name]["fit_launches"] = fit["launches"][counter]
     check(all(n32_train["launches"][k + "_f32"] > 0 for k in TRAIN_KERNELS),
           f"phi='n' fp32 training missed an f32_sm90 kernel: {n32_train['launches']}")
     check(n_train["launches"]["flash_fwd_lse_single"] > 0,

@@ -6,5 +6,6 @@ NVIDIA Hopper card, and replaces the TPU's Pallas kernels with hand-written
 CUDA kernels (`csrc/`). It imports neither JAX nor the JAX package.
 
 Entry points: `models.detector.build_model`, `inference.Predictor`,
+`train.trainer.Trainer` (`fit`: data/, the train step, eval/, checkpoints),
 `weights.load_jax_variables`.
 """

@@ -118,9 +118,9 @@ class Int8Variants:
 
 @dataclass(frozen=True)
 class TrainConfig:
-    """Training knobs (the reference trainer's constant block). The data,
-    augmentation and io fields serve the epoch loop, which is not ported
-    yet; they are kept so a configuration reads the same in both packages."""
+    """Training knobs (the reference trainer's constant block): the same
+    fields and defaults as the JAX package's, read by the train step and by
+    `train.trainer.Trainer.fit` (schedule, data, augmentation, io)."""
 
     seed: int = 11
     # -- schedule ---------------------------------------------------------

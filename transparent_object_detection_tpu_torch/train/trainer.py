@@ -1,11 +1,20 @@
-"""The training step of the PyTorch port: forward in training mode (batch
-statistics, BatchNorm running statistics updated) -> detection loss ->
-backward -> [backbone gradients zeroed] -> clip -> masked weight decay ->
-nesterov SGD or Adam -> p <- p - lr * update -> EMA of the parameters and
-the BatchNorm statistics. Counterpart of TrainState, create_train_state,
-loss_config_from, make_train_step and make_eval_step in
-transparent_object_detection_tpu/train/trainer.py; the epoch loop
-(`Trainer.fit`) and its data pipeline are not ported.
+"""Training engine of the PyTorch port: the train and eval steps and the
+epoch loop. Counterpart of transparent_object_detection_tpu/train/trainer.py
+(TrainState, create_train_state, loss_config_from, make_train_step,
+make_eval_step, Trainer).
+
+The step: forward in training mode (batch statistics, BatchNorm running
+statistics updated) -> detection loss -> backward -> [backbone gradients
+zeroed] -> clip -> masked weight decay -> nesterov SGD or Adam -> p <- p -
+lr * update -> EMA of the parameters and the BatchNorm statistics.
+
+`Trainer.fit`: annotations -> augmented DetectionDataset -> threaded
+DataLoader -> device_prefetch -> the step; validation loss on the EMA
+weights; callbacks (LossHistory, EvalCallback); checkpoints with an exact
+resume. Freeze phase: backbone updates are zeroed with the same optimizer
+state structure, so the state carries across the unfreeze boundary, where
+the loaders and lr schedule are rebuilt and the EMA update counter resyncs
+to steps_per_epoch * epoch.
 
 Compute policy, as in JAX: parameters are fp32 and cast to the compute type
 at each use (gradients flow back through the casts to fp32), norms run in
@@ -16,19 +25,26 @@ a frozen backbone).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+from transparent_object_detection_tpu_torch.data.dataset import DetectionDataset
+from transparent_object_detection_tpu_torch.data.loader import DataLoader, device_prefetch
+from transparent_object_detection_tpu_torch.models.detector import build_model, resolve_device
+from transparent_object_detection_tpu_torch.train.checkpoints import load_state_tree, state_tree
 from transparent_object_detection_tpu_torch.train.ema import ema_init, ema_update
 from transparent_object_detection_tpu_torch.train.loss import LossConfig, detection_loss
 from transparent_object_detection_tpu_torch.train.optimizer import (
     Optimizer,
     backbone_frozen_mask,
+    build_optimizer,
 )
+from transparent_object_detection_tpu_torch.train.schedule import get_lr_scheduler
 
 
 @dataclass
@@ -133,3 +149,165 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True)
         return comps
 
     return step
+
+
+def _host_copy(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {n: t.detach().to("cpu", copy=True) for n, t in tensors.items()}
+
+
+class Trainer:
+    """Epoch loop. The model is built at `model_cfg` (seeded with
+    train_cfg.seed) unless given, and runs on `device`: CUDA unless the
+    caller names another; without a card this raises unless device="cpu"."""
+
+    def __init__(
+        self,
+        model_cfg: ModelConfig,
+        train_cfg: TrainConfig,
+        model: Optional[nn.Module] = None,
+        verbose: bool = True,
+        device=None,
+    ):
+        self.model_cfg = model_cfg
+        self.train_cfg = train_cfg
+        self.verbose = verbose
+        self.device = resolve_device(device)
+        self.model = (model if model is not None
+                      else build_model(model_cfg, device=self.device, seed=train_cfg.seed))
+        self.model.to(self.device)
+        self.loss_cfg = loss_config_from(model_cfg, train_cfg)
+        self.history: List[Dict[str, float]] = []
+        # host copies of {"params", "batch_stats"} ({name: tensor}), set by fit
+        self.variables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.ema_variables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+
+    # -- loaders -------------------------------------------------------------
+
+    def _make_loader(self, lines: Sequence[str], batch_size: int, train: bool) -> DataLoader:
+        tc = self.train_cfg
+        ds = DetectionDataset(
+            list(lines),
+            input_shape=self.model_cfg.input_shape,
+            num_classes=self.model_cfg.num_classes,
+            epoch_length=tc.unfreeze_epoch,
+            mosaic=tc.mosaic if train else False,
+            mosaic_prob=tc.mosaic_prob if train else 0.0,
+            mixup=tc.mixup if train else False,
+            mixup_prob=tc.mixup_prob if train else 0.0,
+            train=train,
+            special_aug_ratio=tc.special_aug_ratio if train else 0.0,
+            max_boxes=tc.max_boxes,
+            seed=tc.seed,
+        )
+        return DataLoader(
+            ds,
+            batch_size=batch_size,
+            shuffle=train,
+            num_workers=tc.num_workers,
+            drop_last=True,
+            seed=tc.seed,
+        )
+
+    # -- main loop -------------------------------------------------------------
+
+    def fit(
+        self,
+        train_lines: Sequence[str],
+        val_lines: Sequence[str],
+        callbacks: Sequence[Any] = (),
+        checkpointer: Optional[Any] = None,
+        resume_from: Optional[str] = None,
+    ) -> List[Dict[str, float]]:
+        tc = self.train_cfg
+        model = self.model
+        opt = build_optimizer(tc, model)
+        state = create_train_state(model, opt)
+        if resume_from is not None:
+            # Exact resume: the whole train state, optimizer and EMA counters
+            # included. Set train_cfg.init_epoch to match.
+            if checkpointer is None:
+                raise ValueError("resume_from requires a checkpointer")
+            load_state_tree(state, checkpointer.restore_like(resume_from, state_tree(state)))
+
+        frozen_phase = tc.freeze_train and tc.init_epoch < tc.freeze_epoch
+        batch_size = tc.freeze_batch_size if frozen_phase else tc.unfreeze_batch_size
+
+        def build_phase(bs: int, frozen: bool):
+            init_lr, min_lr = tc.fit_lr(bs)
+            sched = get_lr_scheduler(tc.lr_decay_type, init_lr, min_lr, tc.unfreeze_epoch)
+            # The freeze-phase optimizer differs only in its weight-decay
+            # mask: the same state structure, so opt_state carries across.
+            phase_opt = build_optimizer(tc, model, freeze_backbone=True) if frozen else opt
+            step_fn = make_train_step(model, phase_opt, self.loss_cfg, tc, freeze_backbone=frozen)
+            tl = self._make_loader(train_lines, bs, train=True)
+            vl = self._make_loader(val_lines, bs, train=False)
+            return sched, step_fn, tl, vl
+
+        sched, train_step, train_loader, val_loader = build_phase(batch_size, frozen_phase)
+        eval_step = make_eval_step(model, self.loss_cfg, use_ema=tc.ema)
+        steps_per_epoch = len(train_loader)
+        if steps_per_epoch == 0 or len(val_loader) == 0:
+            raise ValueError("dataset too small for the batch size")
+        if tc.init_epoch:
+            state.ema_updates = steps_per_epoch * tc.init_epoch
+
+        best_val = float("inf")
+        unfroze = not frozen_phase
+        for epoch in range(tc.init_epoch, tc.unfreeze_epoch):
+            if tc.freeze_train and not unfroze and epoch >= tc.freeze_epoch:
+                batch_size = tc.unfreeze_batch_size
+                sched, train_step, train_loader, val_loader = build_phase(batch_size, False)
+                steps_per_epoch = len(train_loader)
+                state.ema_updates = steps_per_epoch * epoch
+                unfroze = True
+
+            train_loader.set_epoch(epoch)
+            val_loader.set_epoch(epoch)
+            lr = float(sched(epoch))
+
+            t0 = time.time()
+            # Per-step losses stay on the device: one stack + sum, and one
+            # host synchronisation, per epoch.
+            tr_losses = []
+            for batch in device_prefetch(iter(train_loader), device=self.device):
+                state, comps = train_step(state, batch, lr)
+                tr_losses.append(comps["loss"])
+            n_tr = len(tr_losses)
+            tr_loss = float(torch.stack(tr_losses).sum()) if tr_losses else 0.0
+
+            va_losses = []
+            for batch in device_prefetch(iter(val_loader), device=self.device):
+                comps = eval_step(state, batch)
+                va_losses.append(comps["loss"])
+            n_va = len(va_losses)
+            va_loss = float(torch.stack(va_losses).sum()) if va_losses else 0.0
+
+            logs = {
+                "epoch": epoch,
+                "loss": tr_loss / max(n_tr, 1),
+                "val_loss": va_loss / max(n_va, 1),
+                "lr": lr,
+                "epoch_seconds": time.time() - t0,
+            }
+            self.history.append(logs)
+            if self.verbose:
+                print(
+                    f"epoch {epoch + 1}/{tc.unfreeze_epoch} "
+                    f"loss={logs['loss']:.4f} val_loss={logs['val_loss']:.4f} "
+                    f"lr={lr:.2e} ({logs['epoch_seconds']:.1f}s, "
+                    f"{n_tr * batch_size / max(logs['epoch_seconds'], 1e-9):.1f} imgs/s)"
+                )
+            for cb in callbacks:
+                cb.on_epoch_end(epoch + 1, logs, self, state)
+
+            if checkpointer is not None:
+                is_best = logs["val_loss"] < best_val
+                best_val = min(best_val, logs["val_loss"])
+                checkpointer.save_epoch(state, epoch + 1, is_best=is_best,
+                                        period=tc.save_period)
+
+        self.variables = {"params": _host_copy(state.params),
+                          "batch_stats": _host_copy(state.batch_stats)}
+        self.ema_variables = {"params": _host_copy(state.ema_params),
+                              "batch_stats": _host_copy(state.ema_batch_stats)}
+        return self.history
