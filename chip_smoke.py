@@ -220,7 +220,26 @@
    train slice's loss limit), each epoch's imgs/s beside the bare
    make_train_step's at its batch, the loader's wait per batch, and the
    checkpoints' bytes and seconds.
-18. Prints each phase's seconds and the smoke's total time, the card's name
+18. The user surface (`api_phase`): FOCUS at phi='s' 640x640 on CUDA, bf16
+   and int8 (seeded init_weights, dark3's gamma 0.5, BatchNorm statistics
+   drawn from the seed, class biases as above): detect_image, predict_dir,
+   predict_video (an MJPG .avi written with cv2), detect_heatmap and
+   get_fps (batch 1 and 32), each call's launches equal to the route
+   table's; `decoded`, the detection sets and the heatmap against the same
+   FOCUS on the plain versions within the slice limits; fuse against the
+   unfused model (a fold without its mean term rejected); save_weights and
+   load_weights bit for bit; export of both models, each .pt2 loaded in a
+   fresh interpreter and run on the card: `decoded` equal to the eager
+   bits, launches equal to the route table's (the program calls the
+   kernels through their focus:: operators); summary's params against
+   JAX's count and its flops on CUDA against the CPU plain path; FOCUS.train
+   for one epoch with evaluation on a subset of the fit set on loader
+   threads; the training loader over the fit set in threads against
+   processes (equal batches, each turn's seconds); the predict and summary
+   drivers as subprocesses;
+   and the host time the operator layer adds to a launch (quant_rows on a
+   small tensor, its launcher against its operator, in turns).
+19. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
    and 9 on the sm90 kernel's one-head form, each site's time, bound,
@@ -234,7 +253,9 @@
    csrc/flash_bwd_single_sm90.cu, each site's time, bound, plain and SDPA
    apart in `sites`), rows 9-11 at the one-head sites of phi='n', and in
    fp32 last; the phi='s' entries of rows 1, 2 and 9-11 also carry the
-   fit phase's launches as `fit_launches`; the fp32 forms of
+   fit phase's launches as `fit_launches`, rows 1 and 2 the launches of
+   the api phase's bf16 detect_image calls as `api_launches`; the fp32
+   forms of
    rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
    under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
    TFLOP/s), then {"ok": true,
@@ -5112,6 +5133,483 @@ def fit_phase(card: str) -> dict:
     return {"launches": launches, "perf": perf}
 
 
+# ---------------------------------------------------------------------------
+# the user surface: FOCUS, its export, fuse, summary and train, the drivers
+# ---------------------------------------------------------------------------
+
+
+PHI_S_PARAMS = 259_642_024  # JAX's `count_params` of phi='s' (jax.eval_shape of its init)
+API_IMAGE_SIZES = ((480, 640), (720, 1280), (480, 640))  # (h, w) of the written JPEGs
+API_TRAIN_IMAGES, API_VAL_IMAGES, API_TRAIN_BATCH, API_WORKERS = 16, 8, 8, 4
+
+# run in a fresh interpreter: each exported program loaded from its .pt2 file
+# and run on the card on the saved input, its launch counts reset just before
+# and read just after, its output saved beside it
+_EXPORT_CHECK = r"""
+import json, sys
+import torch
+import chip_smoke as S
+from transparent_object_detection_tpu_torch.api import load_exported
+x = torch.load(sys.argv[1]).cuda()
+out = {}
+for tag, path in json.loads(sys.argv[2]).items():
+    program = load_exported(path)
+    ops = [str(n.target) for n in program.graph.nodes if str(n.target).startswith("focus.")]
+    S.reset_counts()
+    with torch.no_grad():
+        dec = program(x)
+    torch.cuda.synchronize()
+    out[tag] = {"launches": S.read_counts(), "ops": {o: ops.count(o) for o in sorted(set(ops))}}
+    torch.save(dec.cpu(), path + ".decoded")
+print(json.dumps(out))
+"""
+
+
+def _rows_as_dets(rows_per_image) -> dict:
+    """FOCUS's per-image detection lists as the padded struct of
+    `batched_nms` (for `match_detections`)."""
+    import torch
+
+    m = max([len(r) for r in rows_per_image] + [1])
+    b = len(rows_per_image)
+    dets = {"boxes": torch.zeros(b, m, 4), "scores": torch.zeros(b, m),
+            "classes": torch.zeros(b, m, dtype=torch.int64),
+            "valid": torch.zeros(b, m, dtype=torch.bool)}
+    for i, rows in enumerate(rows_per_image):
+        for j, r in enumerate(rows):
+            dets["boxes"][i, j] = torch.tensor(r["box"])
+            dets["scores"][i, j], dets["classes"][i, j] = r["score"], r["class"]
+            dets["valid"][i, j] = True
+    dets["num_detections"] = dets["valid"].sum(-1)
+    return dets
+
+
+def op_dispatch_us(calls: int = 2000) -> dict:
+    """Host microseconds a call of quant_rows on a small bf16 (128, 256)
+    tensor (a launch the host's enqueue bounds): its launcher called
+    directly and through its registered operator (torch.ops.focus), in
+    turns (launcher, operator, operator, launcher), `calls` calls each
+    ending in a synchronise; and their difference, what the operator layer
+    adds to a launch."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+
+    x = torch.randn(128, 256, device=DEVICE, dtype=torch.bfloat16)
+    ways = {"launcher": lambda: QM.quant_rows(x, True, 1e-6, 127),
+            "operator": lambda: torch.ops.focus.quant_rows(x, True, 1e-6, 127)}
+    for fn in ways.values():
+        fn()
+    us = {k: [] for k in ways}
+    for way in ("launcher", "operator", "operator", "launcher"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            ways[way]()
+        torch.cuda.synchronize()
+        us[way].append((time.perf_counter() - t0) / calls * 1e6)
+    out = {k: sum(v) / len(v) for k, v in us.items()}
+    out["turns"] = us
+    out["operator_adds_us"] = out["operator"] - out["launcher"]
+    return out
+
+
+def _api_images(root: str):
+    """API_IMAGE_SIZES JPEGs of smooth backgrounds and filled rectangles
+    from seed SEED; returns their paths."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    paths = []
+    for i, (h, w) in enumerate(API_IMAGE_SIZES):
+        img = cv2.resize(rng.integers(40, 220, (6, 8, 3)).astype(np.uint8), (w, h),
+                         interpolation=cv2.INTER_CUBIC)
+        for _ in range(3):
+            bw, bh = int(rng.integers(w // 10, w // 3)), int(rng.integers(h // 10, h // 3))
+            x1, y1 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y1:y1 + bh, x1:x1 + bw] = rng.integers(0, 256, 3).astype(np.uint8)
+        paths.append(os.path.join(root, f"api{i}.jpg"))
+        check(cv2.imwrite(paths[-1], img), f"could not write {paths[-1]}")
+    return paths
+
+
+def _api_focus(classes: str, tag: str, images_of):
+    """FOCUS at phi='s' 640x640 on CUDA (tag "bf16" or "int8"), its seeded
+    init_weights from seed SEED; for random weights to reach the
+    detections: dark3's gamma 0.5, BatchNorm statistics drawn from seed SEED
+    (mean N(0, 0.2), var U(0.5, 1.5), so that a fold's mean term matters),
+    and class biases so that about CANDIDATES_PER_IMAGE (int8:
+    INT8_CANDIDATES_PER_IMAGE) anchors an image pass 0.5."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.api import FOCUS
+    from transparent_object_detection_tpu_torch.config import PredictConfig
+    from transparent_object_detection_tpu_torch.models.blocks import BatchNorm
+
+    f = FOCUS(phi="s", classes_path=classes, int8=tag == "int8", predict_cfg=PredictConfig(),
+              seed=SEED, verbose=False, device=DEVICE)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        f.model.backbone.dark3_attn.gamma.fill_(0.5)
+        for m in f.model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.running_mean.numel()
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    images = images_of(f)
+    _set_class_biases(f.model, images, INT8_CANDIDATES_PER_IMAGE if tag == "int8"
+                      else CANDIDATES_PER_IMAGE)
+    return f, images
+
+
+def loader_turns(train_lines) -> dict:
+    """The training loader as Trainer builds it (`Trainer._make_loader`) over
+    the fit set's training lines at the fit's settings (640x640, mosaic and
+    mixup, FIT_WORKERS workers, batch FIT_BATCHES[1]), epoch 0, in turns
+    threads, processes, processes, threads (`Trainer(loader_processes=...)`:
+    a process pool forked from the fork server). Each turn: the host seconds
+    of the epoch and of its first batch; every turn's batches equal to the
+    first's, bit for bit. The loader alone: no step shares the interpreter
+    with it."""
+    import types
+
+    import numpy as np
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.train.trainer import Trainer
+
+    tc = TrainConfig(seed=SEED, freeze_epoch=1, unfreeze_epoch=2, mosaic=True, mixup=True,
+                     num_workers=FIT_WORKERS)
+    turns, first = {"threads": [], "processes": []}, None
+    for way in ("threads", "processes", "processes", "threads"):
+        host = types.SimpleNamespace(train_cfg=tc, model_cfg=ModelConfig(phi="s"),
+                                     loader_processes=way == "processes")
+        loader = Trainer._make_loader(host, train_lines, FIT_BATCHES[1], True)
+        loader.set_epoch(0)
+        t0 = time.perf_counter()
+        batches, first_s = [], None
+        for batch in loader:
+            first_s = first_s or time.perf_counter() - t0
+            batches.append(batch)
+        epoch_s = time.perf_counter() - t0
+        if first is None:
+            first = batches
+        check(len(batches) == len(first) and all(
+            a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+            for a, b in zip(batches, first)), f"loader {way}: batches differ from threads'")
+        turns[way].append({"epoch_s": epoch_s, "first_batch_s": first_s,
+                           "imgs_per_s": len(batches) * FIT_BATCHES[1] / epoch_s})
+    return {"workers": FIT_WORKERS, "batch": FIT_BATCHES[1], "batches": len(first),
+            "turns": turns}
+
+
+def api_phase(card: str) -> dict:
+    """The port's user surface at phi='s' 640x640, bf16 and int8: FOCUS
+    (`transparent_object_detection_tpu_torch.api`) built on CUDA, its calls
+    with the launch counts reset just before and read just after each, held
+    against the route table (`expected_launches`, batch 1 a forward; the
+    int8 model through every kernel of its route). detect_image and
+    predict_dir on three synthetic JPEGs (480x640, 720x1280): `decoded` and
+    the detection sets against the same FOCUS on the plain versions
+    (`set_attention_impl`) within the slice limits; predict_video on an MJPG
+    .avi written with cv2; detect_heatmap; get_fps at batch 1 and 32 (the
+    calls enqueued back to back, one host read at the end); fuse (bf16:
+    `decoded` against the unfused model within the bf16 limits, and a fold
+    without its mean term rejected by them); save_weights then load_weights
+    bit for bit; export of both models, each .pt2 loaded and run in a fresh
+    interpreter: its `decoded` equal to the eager model's bits, its launches
+    equal to the route table's (a program traced on the plain versions
+    launches nothing) and its graph holding the focus:: operators; summary:
+    params equal to JAX's count, flops equal on CUDA and on the CPU plain
+    path; FOCUS.train for one epoch with evaluation on a subset of the fit
+    phase's synthetic JPEGs on API_WORKERS loader threads; the training
+    loader over the fit set in threads and in processes (`loader_turns`);
+    and the predict and summary drivers as subprocesses (rc 0)."""
+    import copy
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from transparent_object_detection_tpu_torch.api import _Decoded
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.blocks import fuse_conv_bn
+    from transparent_object_detection_tpu_torch.models.detector import (
+        build_model,
+        count_params,
+        set_attention_impl,
+    )
+    from transparent_object_detection_tpu_torch.utils.profiling import cost_analysis
+
+    # first, before the phase's other processes start: the host's cost
+    out = {"card": card, "op_dispatch_us": op_dispatch_us()}
+    print(json.dumps({"api_op_dispatch_us": out["op_dispatch_us"]}), flush=True)
+    seconds = {}
+    tmp = tempfile.TemporaryDirectory(prefix="api_phase_")
+    root = tmp.name
+    classes = os.path.join(root, "classes.txt")
+    with open(classes, "w") as fh:
+        fh.write("glass\n")
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir)
+    paths = _api_images(img_dir)
+    pil = [Image.open(p) for p in paths]
+    # the drivers beside the phase: predict (one image, the seeded weights)
+    # and summary, each in its own interpreter on the card
+    mod = "transparent_object_detection_tpu_torch.tools"
+    drivers = {
+        "predict": subprocess.Popen(
+            [sys.executable, "-m", f"{mod}.predict", "predict", "--source", paths[0],
+             "--output", os.path.join(root, "cli.png"), "--classes", classes, "--seed", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+        "summary": subprocess.Popen([sys.executable, "-m", f"{mod}.summary", "--phi", "s"],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)}
+    loader = None  # the fresh interpreter of the export check
+    try:
+        models = {}
+        for tag in ("bf16", "int8"):
+            t0 = time.perf_counter()
+            limits = SCALE_LIMITS[tag]
+            f, images = _api_focus(
+                classes, tag, lambda f: torch.from_numpy(np.stack(
+                    [f._letterboxed(im)[1] for im in pil])).to(DEVICE))
+            pcfg = f.predict_cfg
+            rec = {}
+            launched = {}  # each counted call's launches, read in this run
+
+            def counted(fn, forwards, what, batch=1):
+                reset_counts()
+                result = fn()
+                torch.cuda.synchronize()
+                got = launched[what] = read_counts()
+                want = {k: v * forwards for k, v in expected_launches("s", batch, tag).items()}
+                check(got == want, f"api {tag} {what}: launches {got}, expected {want}")
+                return result
+
+            # detect_image, each image one counted forward; then the plain route
+            rows = [counted(lambda: f.detect_image(im), 1, f"detect_image {i}")
+                    for i, im in enumerate(pil)]
+            set_attention_impl(f.model, "plain")
+            try:
+                rows_p = [f.detect_image(im) for im in pil]
+                with torch.inference_mode():
+                    dec_p = f.model(images)["decoded"]
+                    heat_p = f.detect_heatmap(pil[0])
+            finally:
+                set_attention_impl(f.model, None)
+            with torch.inference_mode():
+                dec_k = f.model(images)["decoded"]
+            box_d = float((dec_k[..., :4] - dec_p[..., :4]).abs().max())
+            score_d = float((dec_k[..., 4:] - dec_p[..., 4:]).abs().max())
+            check(box_d <= limits[0] and score_d <= limits[1],
+                  f"api {tag}: decoded {box_d} px, {score_d} from plain (limits {limits[:2]})")
+            dets, dets_p = _rows_as_dets(rows), _rows_as_dets(rows_p)
+            m_k = match_detections(dets, dets_p, pcfg, score_d, limits[0])
+            m_p = match_detections(dets_p, dets, pcfg, score_d, limits[0])
+            for m in (m_k, m_p):
+                check(m["compared"] > 0 and m["unmatched"] == 0,
+                      f"api {tag}: detection sets differ from plain: {m}")
+            check(all(0 < len(r) < pcfg.max_detections for r in rows),
+                  f"api {tag}: detections an image {[len(r) for r in rows]}")
+            rec["detect_image"] = {"detections": [len(r) for r in rows],
+                                   "launches": {k: sum(launched[f"detect_image {i}"][k]
+                                                       for i in range(len(pil)))
+                                                for k in launched["detect_image 0"]},
+                                   "decoded_box_max_abs_px": box_d,
+                                   "decoded_score_max_abs": score_d,
+                                   "matched_in_plain": {k: m_k[k] for k in
+                                                        ("compared", "identical", "unmatched")},
+                                   "plain_matched_here": {k: m_p[k] for k in
+                                                          ("compared", "identical",
+                                                           "unmatched")}}
+            # predict_dir: the same rows as detect_image, one forward an image
+            res = counted(lambda: f.predict_dir(img_dir, os.path.join(root, f"out_{tag}")),
+                          len(pil), "predict_dir")
+            check([res[p] for p in paths] == rows, f"api {tag}: predict_dir != detect_image")
+            # predict_video on an MJPG .avi of 4 frames
+            import cv2
+
+            avi = os.path.join(root, "clip.avi")
+            writer = cv2.VideoWriter(avi, cv2.VideoWriter_fourcc(*"MJPG"), 10.0, (640, 480))
+            frame = cv2.imread(paths[0])
+            for k in range(4):
+                writer.write(np.roll(frame, 16 * k, axis=1))
+            writer.release()
+            video_out = os.path.join(root, f"clip_{tag}.mp4")
+            fps = counted(lambda: f.predict(avi, output_path=video_out), 4, "predict_video")
+            check(fps > 0 and os.path.getsize(video_out) > 0, f"api {tag}: predict_video")
+            heat = counted(lambda: f.detect_heatmap(pil[0], os.path.join(root, "heat.png")), 1,
+                           "detect_heatmap")
+            heat_d = float(np.abs(heat - heat_p).max())
+            check(heat.shape == (80, 80) and np.isfinite(heat).all() and heat_d <= limits[1],
+                  f"api {tag}: heatmap {heat.shape}, {heat_d} from plain")
+            rec["video_fps"], rec["heatmap_max_abs_vs_plain"] = fps, heat_d
+            # get_fps: 1 warm-up call and test_interval timed calls
+            rec["get_fps"] = {}
+            for b, calls in ((1, 20), (32, 5)):
+                sec = counted(lambda: f.get_fps(pil[0], calls, b), calls + 1,
+                              f"get_fps batch {b}", b)
+                rec["get_fps"][b] = {"s_per_call": sec, "imgs_per_s": b / sec}
+            # save_weights -> load_weights: bit for bit
+            ts = time.perf_counter()
+            before = {k: v.clone() for k, v in f.model.state_dict().items()}
+            wpath = f.save_weights(os.path.join(root, f"w_{tag}"))
+            with torch.no_grad():
+                for v in f.model.state_dict().values():
+                    v.zero_()
+            f.load_weights(wpath)
+            check(all(torch.equal(v, before[k]) for k, v in f.model.state_dict().items()),
+                  f"api {tag}: load_weights did not give back the saved bits")
+            rec["weights"] = {"bytes": os.path.getsize(wpath),
+                              "save_load_s": time.perf_counter() - ts}
+            os.remove(wpath)
+            # fuse (bf16): decoded within the bf16 limits of the unfused, and a
+            # fold without its mean term outside them
+            if tag == "bf16":
+                g = copy.copy(f)
+                g.model = copy.deepcopy(f.model)
+                g.fuse()
+                fused = g.model.state_dict()
+                with torch.inference_mode():
+                    dec_f = g.model(images)["decoded"]
+                    bad = dict(fused)
+                    for k in fused:
+                        if k.endswith(".bn.running_mean") and k[:-15] + "conv.weight" in fused:
+                            bad[k[:-12] + "bias"] = before[k[:-12] + "bias"]
+                    g.model.load_state_dict(bad)
+                    dec_bad = g.model(images)["decoded"]
+                reading = lambda d: (float((d[..., :4] - dec_k[..., :4]).abs().max()),
+                                     float((d[..., 4:] - dec_k[..., 4:]).abs().max()))
+                sound, fault = reading(dec_f), reading(dec_bad)
+                check(sound[0] <= limits[0] and sound[1] <= limits[1],
+                      f"api fuse: decoded {sound} from the unfused model (limits {limits[:2]})")
+                check(fault[0] > limits[0] or fault[1] > limits[1],
+                      f"api fuse: the limits do not reject a fold without its mean term {fault}")
+                rec["fuse"] = {"sound": sound, "mean_term_dropped": fault}
+                del g
+            # summary on CUDA (counted from shapes: no launch)
+            rec["summary"] = counted(f.summary, 0, "summary")
+            check(rec["summary"]["params"] == PHI_S_PARAMS,
+                  f"api {tag}: summary params {rec['summary']['params']} != {PHI_S_PARAMS}")
+            seconds[tag] = time.perf_counter() - t0
+            out[tag] = rec
+            models[tag] = f
+            print(json.dumps({"api": tag, **rec}), flush=True)
+
+        # the CPU plain path's count for the same configurations: one model
+        # on the CPU on the plain versions (FlopCounterMode counts their aten
+        # products, not the focus:: formulas), its int8 flags switched for
+        # the int8 count
+        t0 = time.perf_counter()
+        cpu_model = set_attention_impl(build_model(ModelConfig(phi="s"), device="cpu",
+                                                   seed=None), "plain")
+        for tag in ("bf16", "int8"):
+            for m in cpu_model.modules():
+                for flag in ("int8_dense", "int8_attn"):
+                    if hasattr(m, flag):
+                        setattr(m, flag, tag == "int8")
+            cpu = cost_analysis(_Decoded(cpu_model), torch.zeros((1, 640, 640, 3)))
+            check(count_params(cpu_model) == PHI_S_PARAMS and
+                  cpu["flops"] == out[tag]["summary"]["flops"],
+                  f"api {tag}: summary on CUDA {out[tag]['summary']} != CPU {cpu}")
+            out[tag]["summary_cpu_flops"] = cpu["flops"]
+        del cpu_model
+        seconds["summary_cpu"] = time.perf_counter() - t0
+
+        # export both models; each program loaded and run in a fresh interpreter
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.random.default_rng(SEED).random((1, 640, 640, 3),
+                                                                dtype=np.float32))
+        xpath = os.path.join(root, "x.pt")
+        torch.save(x, xpath)
+        programs, eager = {}, {}
+        for tag, f in models.items():
+            with torch.no_grad():
+                eager[tag] = f.model(x.to(DEVICE))["decoded"].cpu()
+            te = time.perf_counter()
+            programs[tag] = f.export(os.path.join(root, f"focus_{tag}.pt2"))
+            out[tag]["export"] = {"export_s": time.perf_counter() - te,
+                                  "bytes": os.path.getsize(programs[tag])}
+        # the fresh interpreter loads and runs the programs beside the train below
+        loader = subprocess.Popen([sys.executable, "-c", _EXPORT_CHECK, xpath,
+                                   json.dumps(programs)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True,
+                                  cwd=os.path.dirname(os.path.abspath(__file__)))
+        seconds["export"] = time.perf_counter() - t0
+
+        # FOCUS.train: one epoch with evaluation, API_WORKERS loader threads
+        t0 = time.perf_counter()
+        f = models["bf16"]
+        del models["int8"]
+        torch.cuda.empty_cache()
+        train_lines, val_lines = write_fit_set(root)
+        resets, read_train = train_launch_counts()
+        for reset in resets:
+            reset()
+        hist = f.train(train_lines=train_lines[:API_TRAIN_IMAGES],
+                       val_lines=val_lines[:API_VAL_IMAGES], epochs=1,
+                       batch_size=API_TRAIN_BATCH, save_dir=os.path.join(root, "logs"),
+                       eval_period=1, num_workers=API_WORKERS)
+        torch.cuda.synchronize()
+        counts = read_train()
+        check(len(hist) == 1 and np.isfinite(hist[0]["loss"]) and "map50" in hist[0],
+              f"api train: history {hist}")
+        check(all(counts[k] > 0 for k in ("flash_fwd_lse_sm90", "flash_bwd_dq_sm90",
+                                          "flash_bwd_dkv_sm90", "flash_mha_packed_sm90")),
+              f"api train: launches {counts}")
+        check(os.path.exists(os.path.join(root, "logs", "last_weights")), "api train: no weights")
+        out["train"] = {"history": hist, "launches": {k: v for k, v in counts.items() if v},
+                        "workers": API_WORKERS, "loader": "threads"}
+        seconds["train"] = time.perf_counter() - t0
+        print(json.dumps({"api_train": out["train"]}), flush=True)
+        # the training loader on the fit set: threads against processes
+        t0 = time.perf_counter()
+        out["loader"] = loader_turns(train_lines)
+        seconds["loader"] = time.perf_counter() - t0
+        print(json.dumps({"api_loader": out["loader"]}), flush=True)
+
+        t0 = time.perf_counter()
+        stdout, stderr = loader.communicate(timeout=600)
+        check(loader.returncode == 0, f"api export: the fresh interpreter failed: "
+                                      f"{stderr[-3000:]}")
+        loaded = json.loads(stdout.strip().splitlines()[-1])
+        for tag, path in programs.items():
+            want = expected_launches("s", 1, tag)
+            got = loaded[tag]["launches"]
+            check(got == want and sum(got.values()) > 0,
+                  f"api export {tag}: the loaded program launched {got}, expected {want}")
+            same = torch.equal(torch.load(path + ".decoded"), eager[tag])
+            check(same, f"api export {tag}: the loaded program's decoded differs from eager")
+            out[tag]["export"].update(loaded[tag], decoded_bits_equal=same)
+        seconds["export_check_wait"] = time.perf_counter() - t0
+        print(json.dumps({"api_export": {t: out[t]["export"] for t in programs}}), flush=True)
+    finally:
+        if loader is not None and loader.poll() is None:
+            loader.kill()
+            loader.communicate()
+        for name, proc in drivers.items():
+            try:
+                stdout, stderr = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+            out.setdefault("drivers", {})[name] = {"rc": proc.returncode,
+                                                   "tail": stdout.strip().splitlines()[-3:]}
+            if proc.returncode:
+                print(stderr[-2000:], file=sys.stderr)
+        tmp.cleanup()
+    for name, d in out["drivers"].items():
+        check(d["rc"] == 0, f"api driver {name}: rc {d['rc']}")
+    out["seconds"] = seconds
+    print(json.dumps({"api_drivers": out["drivers"], "api_seconds": seconds}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5175,6 +5673,8 @@ def main() -> int:
     n32_train = phase("phi=n fp32 train", train_slice_phase, card,
                       ModelConfig(phi="n", compute_dtype="float32"), rejects=(), timed=False)
     fit = phase("fit", fit_phase, card)
+    torch.cuda.empty_cache()
+    api = phase("api", api_phase, card)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
@@ -5333,8 +5833,14 @@ def main() -> int:
           f"phi='n' fp32 training missed an f32_sm90 kernel: {n32_train['launches']}")
     check(n_train["launches"]["flash_fwd_lse_single"] > 0,
           "phi='n' bf16 training ran no one-head forward kernel")
-    print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s}),
-          flush=True)
+    # the user surface (FOCUS): the launches of rows 1 and 2 that the bf16
+    # model's three detect_image calls made, read in the api phase, as
+    # `api_launches`
+    for name, counter in (("flash_mha_packed", "flash_mha_packed_sm90"),
+                          ("flash_single single_sm90", "flash_single_sm90")):
+        by_name[name]["api_launches"] = api["bf16"]["detect_image"]["launches"][counter]
+    print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s,
+                      "api_s": api["seconds"]}), flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

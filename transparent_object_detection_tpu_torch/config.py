@@ -8,9 +8,10 @@ configuration reads the same in both packages; `build_model` refuses it.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 # (base_channels, base_depth, deep_mul) per model scale.
 SCALE_TABLE: Dict[str, Tuple[int, int, float]] = {
@@ -193,3 +194,34 @@ class PredictConfig:
     letterbox_image: bool = True
     nms_mode: str = "exact"  # "exact" greedy | "fast" YOLACT-style
     class_agnostic: bool = False
+
+
+def _from_dict(cls, d: Dict[str, Any]):
+    """A `cls` dataclass from one section of a config file: unknown keys
+    refused, lists read as tuples."""
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"unknown {cls.__name__} keys: {sorted(unknown)}")
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+
+
+def load_config(path: str) -> Tuple[ModelConfig, "TrainConfig", PredictConfig]:
+    """(ModelConfig, TrainConfig, PredictConfig) from the {model: ...,
+    train: ..., predict: ...} sections of a JSON or YAML file (YAML through
+    `yaml.safe_load`, imported only for a file that is not JSON)."""
+    import json
+
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    try:
+        data = json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        data = yaml.safe_load(text)
+    return (
+        _from_dict(ModelConfig, data.get("model", {})),
+        _from_dict(TrainConfig, data.get("train", {})),
+        _from_dict(PredictConfig, data.get("predict", {})),
+    )

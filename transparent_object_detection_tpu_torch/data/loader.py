@@ -7,11 +7,19 @@ A thread pool assembles batches ahead of consumption; cv2/numpy release the
 GIL in the hot paths, making threads the default concurrency primitive — no
 pickling, shared memory for free. The GIL-bound sections (python-level box
 math, mosaic bookkeeping) cap the threaded loader near one core's rate, so
-`use_processes=True` adds a fork-based process pool for multi-core hosts:
-workers inherit the dataset (including the decoded-image cache) copy-on-
-write at fork, assemble WHOLE batches in-process, and ship them back with
-the image payload re-packed as uint8 (exact: pixel values are k/255) to
-quarter the IPC bytes.
+`use_processes=True` adds a process pool for multi-core hosts: workers
+are forked from a fresh interpreter (the `forkserver` start method, this
+module preloaded there, so that a pool after the first starts in
+milliseconds), receive the dataset (including the decoded-image cache)
+pickled once through the pool's initializer, assemble WHOLE batches
+in-process, and ship them back with the image payload re-packed as uint8
+(exact: pixel values are k/255) to quarter the IPC bytes. The JAX package's
+loader forks its workers from the calling process instead; a worker forked
+from a thread that has run one of the native library's OpenMP regions waits
+forever in its own first region (libgomp's pool state survives the fork),
+which the fork server, having run none, never hands on. The fork server
+imports the main script, whose entry point must therefore sit under `if
+__name__ == "__main__":`.
 
 `device_prefetch` copies each batch to the device ahead of the step that
 reads it: pinned host memory and `non_blocking` copies on a side CUDA
@@ -34,10 +42,14 @@ import torch
 from transparent_object_detection_tpu_torch.data.dataset import DetectionDataset, collate
 from transparent_object_detection_tpu_torch.models.detector import resolve_device
 
-# Fork-inherited dataset handle for process-pool workers (set just before
-# the pool forks in DataLoader.__iter__; never pickled — the decoded-image
-# cache rides copy-on-write pages).
+# The dataset of a process-pool worker, set once in each worker by
+# `_init_worker` (the pool's initializer); never set in the parent.
 _WORKER_DATASET: Optional[DetectionDataset] = None
+
+
+def _init_worker(dataset: DetectionDataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
 
 
 def _process_batch(batch_idx) -> Dict[str, np.ndarray]:
@@ -125,40 +137,35 @@ class DataLoader:
                 yield collate(samples)
 
     def _iter_processes(self) -> Iterator[Dict[str, np.ndarray]]:
-        """Fork-based process pool: one task per BATCH (amortizes IPC),
-        2x workers of batches in flight. The pool is created per epoch so
-        forked workers see the current epoch_now (mosaic phase-out state).
+        """Process pool forked from the fork server (a fresh interpreter):
+        one task per BATCH (amortizes IPC), 2x workers of batches in
+        flight. The pool is created per epoch and each worker is handed the
+        dataset as it stands (epoch_now: the mosaic phase-out state) by its
+        initializer.
         Same batches as the threaded path for a given (seed, epoch): the
         per-sample RNG is keyed on (seed, epoch, index), not on worker
         identity."""
-        global _WORKER_DATASET
         indices = self._epoch_indices()
         nb = len(self)
-        _WORKER_DATASET = self.dataset
-        ctx = multiprocessing.get_context("fork")
-        try:
-            with ProcessPoolExecutor(
-                max_workers=self.num_workers, mp_context=ctx
-            ) as pool:
-                window = max(2, 2 * self.num_workers)
-                futures = []
+        ctx = multiprocessing.get_context("forkserver")
+        ctx.set_forkserver_preload([__name__])  # read when the server starts
+        with ProcessPoolExecutor(max_workers=self.num_workers, mp_context=ctx,
+                                 initializer=_init_worker, initargs=(self.dataset,)) as pool:
+            window = max(2, 2 * self.num_workers)
+            futures = []
 
-                def submit(bi):
-                    batch_idx = indices[
-                        bi * self.batch_size : (bi + 1) * self.batch_size
-                    ]
-                    return pool.submit(_process_batch, list(map(int, batch_idx)))
+            def submit(bi):
+                batch_idx = indices[bi * self.batch_size : (bi + 1) * self.batch_size]
+                return pool.submit(_process_batch, list(map(int, batch_idx)))
 
-                for bi in range(min(window, nb)):
-                    futures.append(submit(bi))
-                for bi in range(nb):
-                    batch = futures.pop(0).result()
-                    nxt = bi + window
-                    if nxt < nb:
-                        futures.append(submit(nxt))
-                    yield _unpack_batch(batch)
-        finally:
-            _WORKER_DATASET = None
+            for bi in range(min(window, nb)):
+                futures.append(submit(bi))
+            for bi in range(nb):
+                batch = futures.pop(0).result()
+                nxt = bi + window
+                if nxt < nb:
+                    futures.append(submit(nxt))
+                yield _unpack_batch(batch)
 
 
 def device_prefetch(iterator, size: int = 2, device=None):

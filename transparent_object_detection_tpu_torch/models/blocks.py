@@ -37,6 +37,14 @@ from transparent_object_detection_tpu_torch.ops.quant_matmul import (
 )
 
 
+def _tracing() -> bool:
+    """True while a tracer runs the module (torch.export, torch.compile, a
+    fake-tensor mode): tensors hold no data to key a cache on."""
+    from torch._guards import detect_fake_mode
+
+    return torch.compiler.is_compiling() or detect_fake_mode() is not None
+
+
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     """'same'-output padding for odd kernels, dilation included."""
     if d > 1:
@@ -368,25 +376,31 @@ class TransformerEncoderBlock(nn.Module):
     def _int8_weights(self):
         """The projections' int8 weights (LN1 folded into qkv, LN2 into
         mlp1; with w4a4, also mlp1's int4-range weights), made once and again
-        whenever a parameter changes."""
+        whenever a parameter changes. While a tracer runs (torch.export,
+        fake tensors) they are made in the traced program and not cached."""
+        if _tracing():
+            return self._prepare_int8()
         params = [p for m in (self.norm1, self.qkv, self.attn_out, self.norm2, self.mlp1,
                               self.mlp2) for p in m.parameters()]
         key = tuple((p.data_ptr(), p._version) for p in params)
         if self._int8_cache is None or self._int8_cache[0] != key:
-            with torch.no_grad():
-                prep = {
-                    "qkv": prepare_weights(self.qkv.weight, self.qkv.bias, self.norm1.weight,
-                                           self.norm1.bias),
-                    "attn_out": prepare_weights(self.attn_out.weight, self.attn_out.bias),
-                    "mlp1": prepare_weights(self.mlp1.weight, self.mlp1.bias,
-                                            self.norm2.weight, self.norm2.bias),
-                    "mlp2": prepare_weights(self.mlp2.weight, self.mlp2.bias),
-                }
-                if self.int8_variants.w4a4_mlp1:
-                    prep["mlp1_w4"] = prepare_weights4(self.mlp1.weight, self.mlp1.bias,
-                                                       self.norm2.weight, self.norm2.bias)
-            self._int8_cache = (key, prep)
+            self._int8_cache = (key, self._prepare_int8())
         return self._int8_cache[1]
+
+    @torch.no_grad()
+    def _prepare_int8(self):
+        prep = {
+            "qkv": prepare_weights(self.qkv.weight, self.qkv.bias, self.norm1.weight,
+                                   self.norm1.bias),
+            "attn_out": prepare_weights(self.attn_out.weight, self.attn_out.bias),
+            "mlp1": prepare_weights(self.mlp1.weight, self.mlp1.bias, self.norm2.weight,
+                                    self.norm2.bias),
+            "mlp2": prepare_weights(self.mlp2.weight, self.mlp2.bias),
+        }
+        if self.int8_variants.w4a4_mlp1:
+            prep["mlp1_w4"] = prepare_weights4(self.mlp1.weight, self.mlp1.bias,
+                                               self.norm2.weight, self.norm2.bias)
+        return prep
 
     def _forward_int8(self, tokens: torch.Tensor) -> torch.Tensor:
         """The JAX int8 TEB branch (blocks.py:566-747) with its routes as
@@ -448,3 +462,31 @@ class TransformerEncoderBlock(nn.Module):
             z8 = qmm(tokens, "mlp1", ln=True, ln_eps=self.norm2.eps, act="gelu",
                      quant_out=True)
         return qmm(None, "mlp2", residual=tokens, x_quant=z8)
+
+
+@torch.no_grad()
+def fuse_conv_bn(state_dict, eps: float = 1e-5):
+    """Fold every {conv, bn} ConvBNAct pair of a state_dict: a transform of
+    the names and tensors only (JAX `fuse_conv_bn`, a pytree transform of
+    {params, batch_stats}). The conv weight absorbs gamma / sqrt(var + eps)
+    per output channel; the BN collapses to a per-channel bias (weight 1,
+    bias beta - mean * factor, running_mean 0, running_var 1 - eps). The
+    keys are unchanged, so the same modules run the fused state. Returns a
+    new dict; other entries are passed through."""
+    out = dict(state_dict)
+    for key in state_dict:
+        if not key.endswith(".bn.running_mean"):
+            continue
+        prefix = key[: -len("bn.running_mean")]
+        conv = prefix + "conv.weight"
+        if conv not in state_dict:
+            continue
+        gamma, beta = state_dict[prefix + "bn.weight"], state_dict[prefix + "bn.bias"]
+        mean, var = state_dict[key], state_dict[prefix + "bn.running_var"]
+        factor = gamma / torch.sqrt(var + eps)
+        out[conv] = state_dict[conv] * factor[:, None, None, None]
+        out[prefix + "bn.weight"] = torch.ones_like(gamma)
+        out[prefix + "bn.bias"] = beta - mean * factor
+        out[key] = torch.zeros_like(mean)
+        out[prefix + "bn.running_var"] = torch.ones_like(var) - eps
+    return out

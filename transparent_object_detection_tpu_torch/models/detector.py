@@ -135,3 +135,10 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         if isinstance(m, BranchTower):
             m.out.bias.fill_(m.bias_init_value)
     return model
+
+
+def count_params(model: nn.Module) -> int:
+    """Number of parameters: conv, dense and norm weights and biases, not
+    the BatchNorm running statistics (JAX's `params` collection, without
+    `batch_stats`)."""
+    return sum(p.numel() for p in model.parameters())

@@ -51,7 +51,10 @@ width and head count the Hopper kernel of csrc/flash_fwd_f32_sm90.cu
 `f32_sm90_plan`).
 
 Each kernel wrapper launches its CUDA kernel for a CUDA tensor (or raises),
-and runs its plain version only for a CPU tensor. `impl="plain"` runs the
+and runs its plain version only for a CPU tensor. The dispatch reaches the
+kernels through their registered operators (`torch.ops.focus.*`,
+ops/library.py), whose implementations on either device are these
+wrappers. `impl="plain"` runs the
 plain versions on any device, so the same model can be compared on the card
 with and without the kernels; it is never the default.
 """
@@ -758,7 +761,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 
         return reference_attention(q, k, v, scale)
     if impl == "plain":
         return flash_single_plain(q, k, v, scale)
-    return flash_single(q, k, v, scale)  # copies (and pads) other views once
+    # the registered operator (ops/library.py): the kernel on CUDA, which
+    # copies (and pads) other views once
+    return torch.ops.focus.flash_single(q, k, v, scale)
 
 
 def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = None,
@@ -784,6 +789,6 @@ def attention_qkv(qkv: torch.Tensor, scale: float = 1.0, impl: Optional[str] = N
     if route == "packed":
         if impl == "plain":
             return flash_mha_packed_plain(qkv, num_heads, scale)
-        return flash_mha_packed(qkv.contiguous(), num_heads, scale)
+        return torch.ops.focus.flash_mha_packed(qkv.contiguous(), num_heads, scale)
     q, k, v = qkv.chunk(3, dim=-1)
     return attention(q, k, v, scale, impl, num_heads, int8 and not train, train)

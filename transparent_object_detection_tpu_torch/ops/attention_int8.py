@@ -56,6 +56,8 @@ function with other ends:
     requantized onto per-(batch, head, key block) scalars by
     `requantize_section` (plain PyTorch: XLA in JAX); the output int8 as
     above or bf16.
+The front ends reach the kernels through their registered operators
+(`torch.ops.focus.*`, ops/library.py).
 """
 from __future__ import annotations
 
@@ -631,7 +633,8 @@ def attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: flo
     vq, vs = quantize_kv(v, num_heads, block_k)
     if impl == "plain":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
-    return flash_mha_int8(q.contiguous(), kq, ks, vq, vs, num_heads, scale, q_width)
+    return torch.ops.focus.flash_mha_int8(q.contiguous(), kq, ks, vq, vs, num_heads, scale,
+                                          q_width)
 
 
 def attention_int8_quant_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
@@ -651,7 +654,8 @@ def attention_int8_quant_out(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     vq, vs = quantize_kv(v, num_heads, blocks[1])
     if impl == "plain":
         return flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
-    return flash_mha_int8_qout(q.contiguous(), kq, ks, vq, vs, num_heads, scale, q_width)
+    return torch.ops.focus.flash_mha_int8_qout(q.contiguous(), kq, ks, vq, vs, num_heads,
+                                               scale, q_width)
 
 
 def q_scale_table(scales: torch.Tensor, c: int, num_heads: int) -> torch.Tensor:
@@ -693,5 +697,7 @@ def teb_attention_handoff(payload: torch.Tensor, scales: torch.Tensor, num_heads
     if impl == "plain":
         return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, h, scale, quant_out,
                                         out_dtype)
-    return flash_int8_handoff(payload.contiguous(), qs, kq, ks, vq, vs, h, scale, quant_out,
-                              out_dtype)
+    args = (payload.contiguous(), qs, kq, ks, vq, vs, h, scale)
+    if quant_out:
+        return torch.ops.focus.flash_int8_handoff_qout(*args)
+    return torch.ops.focus.flash_int8_handoff(*args, out_dtype)

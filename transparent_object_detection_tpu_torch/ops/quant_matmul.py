@@ -52,8 +52,10 @@ On the card `quant_rows(qmax=7)` (the JAX `_w4a4_call` launch of
 `_quant_rows_kernel`) then `qmm`.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
-plain version for CPU tensors; `impl="plain"` runs the plain versions on any
-device, for comparison only.
+plain version for CPU tensors; the front ends reach them through their
+registered operators (`torch.ops.focus.*`, ops/library.py; `qmm_op` picks
+the operator of qmm's output form). `impl="plain"` runs the plain versions
+on any device, for comparison only.
 """
 from __future__ import annotations
 
@@ -641,6 +643,21 @@ def reset_launch_counts() -> None:
     qmm.launches = 0
 
 
+def qmm_op(xq, x_scales, wq, w_scale, bias=None, act=None, residual=None,
+           quant_out_group=None, ln_out_eps=None, out_dtype=torch.bfloat16):
+    """`qmm` through its registered operator of the output form asked for
+    (ops/library.py: focus::qmm, qmm_quant_out, qmm_ln_out): the kernel for
+    CUDA tensors, `qmm_plain` for CPU ones."""
+    ops = torch.ops.focus
+    if quant_out_group is not None:
+        return ops.qmm_quant_out(xq, x_scales, wq, w_scale, bias, act, residual,
+                                 quant_out_group, out_dtype)
+    if ln_out_eps is not None:
+        return ops.qmm_ln_out(xq, x_scales, wq, w_scale, bias, act, residual, ln_out_eps,
+                              out_dtype)
+    return ops.qmm(xq, x_scales, wq, w_scale, bias, act, residual, out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # front end
 # ---------------------------------------------------------------------------
@@ -697,14 +714,14 @@ def quant_matmul(x: Optional[torch.Tensor], weights: Dict[str, torch.Tensor], ln
     n = wq.shape[0]
     plain = impl == "plain"
     if groups == 0:
-        rows = quant_rows_plain if plain else quant_rows
-        xq, scales = rows(x.reshape(m, k).contiguous(), ln, ln_eps)
+        rows = quant_rows_plain if plain else torch.ops.focus.quant_rows
+        xq, scales = rows(x.reshape(m, k).contiguous(), ln, ln_eps, 127)
     else:
         xq, scales = x.reshape(m, k).contiguous(), x_scales.reshape(m, groups).contiguous()
     group = (quant_out_group_width(m, k, n, groups, residual is not None, quant_out_align)
              if quant_out else None)
     res2d = None if residual is None else residual.reshape(m, n).contiguous()
-    out = (qmm_plain if plain else qmm)(
+    out = (qmm_plain if plain else qmm_op)(
         xq, scales, wq, weights["w_scale"], weights["bias"], act, res2d, group,
         ln_eps if ln_quant_out else None, out_dtype)
     if quant_out:
@@ -765,9 +782,9 @@ def quant_matmul_w4a4(x: torch.Tensor, weights4: Dict[str, torch.Tensor], ln: bo
     m = x.numel() // k
     n = weights4["wq"].shape[0]
     plain = impl == "plain"
-    xq, xs = (quant_rows_plain if plain else quant_rows)(x.reshape(m, k).contiguous(), ln,
-                                                         ln_eps, 7)
-    out = (qmm_plain if plain else qmm)(
+    xq, xs = (quant_rows_plain if plain else torch.ops.focus.quant_rows)(
+        x.reshape(m, k).contiguous(), ln, ln_eps, 7)
+    out = (qmm_plain if plain else qmm_op)(
         xq, xs, weights4["wq"], weights4["w_scale"], weights4["bias"], act, None,
         n if quant_out else None, None, out_dtype)
     if quant_out:

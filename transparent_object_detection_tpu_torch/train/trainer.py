@@ -158,7 +158,11 @@ def _host_copy(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 class Trainer:
     """Epoch loop. The model is built at `model_cfg` (seeded with
     train_cfg.seed) unless given, and runs on `device`: CUDA unless the
-    caller names another; without a card this raises unless device="cpu"."""
+    caller names another; without a card this raises unless device="cpu".
+    `loader_processes`: the loaders assemble batches in a process pool of
+    train_cfg.num_workers workers instead of threads (the same batches;
+    data/loader.py); the pool's fork server imports the calling script, so
+    its entry point must sit under `if __name__ == "__main__":`."""
 
     def __init__(
         self,
@@ -167,8 +171,10 @@ class Trainer:
         model: Optional[nn.Module] = None,
         verbose: bool = True,
         device=None,
+        loader_processes: bool = False,
     ):
         self.model_cfg = model_cfg
+        self.loader_processes = loader_processes
         self.train_cfg = train_cfg
         self.verbose = verbose
         self.device = resolve_device(device)
@@ -206,6 +212,7 @@ class Trainer:
             num_workers=tc.num_workers,
             drop_last=True,
             seed=tc.seed,
+            use_processes=self.loader_processes,
         )
 
     # -- main loop -------------------------------------------------------------
