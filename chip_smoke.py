@@ -239,7 +239,37 @@
    drivers as subprocesses;
    and the host time the operator layer adds to a launch (quant_rows on a
    small tensor, its launcher against its operator, in turns).
-19. Prints each phase's seconds and the smoke's total time, the card's name
+19. Parallel execution (`parallel_phase`): phi='s' 640x640 at full width
+   with the api phase's weights, the kernels already built. Four ranks
+   share the card on gloo with CUDA tensors (`parallel/launch.py`), a world
+   of one rank runs on NCCL beside them, and this process serves the same
+   weights without a mesh (the references). Each rank serves a global batch
+   of 4 through Predictor(mesh=...) at dp1xtp2, dp1xtp4 (h2 and h4 ragged:
+   their sections all-gathered) and dp2xtp2, bf16 and int8: its launches,
+   counts reset just before and read just after, equal to the TP route
+   table (`tp_expected`); its parameter bytes those of its shards; the
+   global `decoded` and detections against the single process (bf16: the
+   slice limits, the detection sets matched; int8: JAX's TP bar of 2e-2 of
+   the largest magnitude); its TP program against the same program on the
+   plain versions within the slice limits, which reject one row-parallel
+   all-reduce left out. Ranks 2 and 3 train data-parallel in bf16 beside
+   dp1xtp2's serving on ranks 0 and 1, then 0 and 1 in fp32, on a global
+   batch of 4 (each rank's rows from another range of values), each step
+   against one process's step on the whole batch from the same state: one
+   fp32 step within the train slice's global limits, which reject
+   BatchNorm on local statistics; three bf16 steps printed beside what the
+   same process's first step reads on the rows in another order (the floor
+   of bf16 rounding, already at those limits), BatchNorm on local
+   statistics read past both; the ranks' parameters, EMA, statistics and
+   momenta equal bit for bit. The NCCL rank: the data-parallel Predictor's
+   detections equal to no mesh's, one bf16 data-parallel step within the
+   limits or its floor. Then rows 1, 3, 6 and 7 at their TP-local shapes
+   (tp 2 and 4, batch 2) timed in this process beside bound, plain version
+   and library, each launch held against plain. The ranks' seconds are
+   printed as those of ranks sharing one card (no scaling figure).
+   `python3 chip_smoke.py parallel` runs this phase alone (after the
+   build), without the result line.
+20. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
    and 9 on the sm90 kernel's one-head form, each site's time, bound,
@@ -258,7 +288,10 @@
    forms of
    rows 1, 2 and 9 under csrc/flash_fwd_f32_sm90.cu and of rows 10 and 11
    under csrc/flash_bwd_f32_sm90.cu, their bound three tf32 products at 495
-   TFLOP/s), then {"ok": true,
+   TFLOP/s; rows 1, 3, 6 and 7's phi='s' entries also carry rank 0's
+   launches of each mesh of phase 19 as `parallel_launches`, and those rows
+   at their TP-local shapes are entries of their own, "... tp=2" and
+   "... tp=4"), then {"ok": true,
    "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
@@ -272,6 +305,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -5610,6 +5644,674 @@ def api_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# parallel execution (parallel/, ops/teb_tp.py): ranks sharing the one card
+# on gloo, a world of one rank on NCCL
+# ---------------------------------------------------------------------------
+
+# name -> (tp, ranks of the world of PARALLEL_WORLD): dp1xtp4 and dp2xtp2 on
+# all four ranks, dp1xtp2 on ranks 0 and 1 (2 and 3 make its groups too)
+PARALLEL_MESHES = {"dp2xtp2": (2, (0, 1, 2, 3)), "dp1xtp4": (4, (0, 1, 2, 3)),
+                   "dp1xtp2": (2, (0, 1))}
+PARALLEL_WORLD = 4
+PARALLEL_CFG = dict(phi="s")  # at the default 640x640
+PARALLEL_BATCH = 4           # the global batch of serving and training
+PARALLEL_TRAIN_STEPS = 3
+# compute type -> (ranks, steps) of the data-parallel training: bf16 beside
+# dp1xtp2's serving on ranks 0 and 1, fp32 on ranks 0 and 1 after it
+PARALLEL_TRAIN = {"bfloat16": ((2, 3), PARALLEL_TRAIN_STEPS), "float32": ((0, 1), 1)}
+# int8 TP against the single-device int8 Predictor: JAX's own bar,
+# 2e-2 * max|decoded| (tests/test_tp.py:169-190): the row-parallel
+# projections quantize each rank's K/tp columns
+PARALLEL_INT8_REL = 2e-2
+PARALLEL_RANK_TIMEOUT = 900.0
+
+
+def _parallel_model(images):
+    """phi='s' 640x640 bf16 at full width on the card, with the api phase's
+    weights: seeded init_weights, dark3's gamma 0.5, BatchNorm statistics
+    drawn from seed SEED, class biases for about CANDIDATES_PER_IMAGE
+    anchors an image."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.blocks import BatchNorm
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    model = build_model(ModelConfig(**PARALLEL_CFG), device=DEVICE, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        model.backbone.dark3_attn.gamma.fill_(0.5)
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                c = m.running_mean.numel()
+                m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
+                m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+    _set_class_biases(model, images, CANDIDATES_PER_IMAGE)
+    return model
+
+
+def _parallel_inputs(cfg):
+    """The phase's global batch: PARALLEL_BATCH uint8 480x640 images from
+    seed SEED + 7, and a training batch whose two halves (each training
+    rank's rows) are drawn from uniform(0, 0.5) and uniform(0.5, 1), so
+    each rank's own BatchNorm statistics are far from the global batch's."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 7)
+    raw = rng.integers(0, 256, size=(PARALLEL_BATCH, 480, 640, 3), dtype=np.uint8)
+    shapes = np.tile(np.array([[480, 640]], np.float32), (PARALLEL_BATCH, 1))
+    h, w = cfg.input_shape
+    half = PARALLEL_BATCH // 2
+    image = np.concatenate([rng.uniform(0.0, 0.5, (half, h, w, 3)),
+                            rng.uniform(0.5, 1.0, (half, h, w, 3))]).astype(np.float32)
+    boxes = np.zeros((PARALLEL_BATCH, 64, 4), np.float32)
+    boxes[:, 0] = [0.5, 0.5, 0.4, 0.4]
+    boxes[:, 1] = [0.25, 0.3, 0.2, 0.2]
+    return raw, shapes, {"image": image, "boxes": boxes,
+                         "labels": np.zeros((PARALLEL_BATCH, 64), np.int64)}
+
+
+def _tp_counter(route: str, dq: int, dv: int, int8: bool) -> str:
+    """The launch counter a serving route reaches at these head widths."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+
+    if route == "int8":
+        return "flash_mha_int8" + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
+    if route == "packed":
+        form = A.packed_fwd_form(dq, torch.bfloat16)
+        return "flash_mha_packed" + ("_sm90" if form == "sm90" else "")
+    return "flash_single_sm90"  # single and folded: the one-head form
+
+
+def tp_expected(tp: int, int8: bool) -> dict:
+    """Launches of one rank's forward of the phi='s' 640x640 model serving
+    at tp on the route table: dark3 as on one device; each neck TEB's
+    attention by `teb_tp.local_route` (head-local at heads/tp heads, or
+    the all-gathered heads); with int8, four qmm a TEB, each after a
+    quant_rows (JAX's TP routes: no handoffs)."""
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import teb_tp
+
+    counts = dict.fromkeys(COUNTED, 0)
+    cfg = ModelConfig(**PARALLEL_CFG)
+    sites = scale_sites(cfg.phi, cfg.input_shape)
+    n, cq, cv, _, _ = sites["dark3"]
+    route = A.serving_route(n, cq, 1, cv, int8)[0]
+    if route != "naive":
+        counts[_tp_counter(route, cq, cv, int8)] += 1
+    for name in ("h1", "h2", "h4", "h6"):
+        n, c, _, heads, _ = sites[name]
+        route = teb_tp.local_route(n, c, heads, tp, int8)[0]
+        cl, h = (c // tp, heads // tp) if heads % tp == 0 else (c, heads)
+        if route != "naive":
+            counts[_tp_counter(route, cl // h, cl // h, int8)] += 1
+        if int8:
+            counts["qmm"] += 4
+            counts["quant_rows"] += 4
+    return counts
+
+
+@contextlib.contextmanager
+def skipped_all_reduce(which: int = 0):
+    """The planted fault of the TP TEB: the `which`-th all-reduce of a
+    row-parallel projection in a forward left out (every rank of the model
+    group leaves out the same one, so no rank waits)."""
+    from transparent_object_detection_tpu_torch.ops import teb_tp
+
+    real, seen = teb_tp.all_reduce_sum, [0]
+
+    def faulty(t, mesh, axis):
+        seen[0] += 1
+        return t if seen[0] - 1 == which else real(t, mesh, axis)
+
+    teb_tp.all_reduce_sum = faulty
+    try:
+        yield
+    finally:
+        teb_tp.all_reduce_sum = real
+
+
+def _decoded_reading(dec, ref) -> dict:
+    return {"box_px": float((dec[..., :4] - ref[..., :4]).abs().max()),
+            "score": float((dec[..., 4:] - ref[..., 4:]).abs().max())}
+
+
+def _parallel_serve(model, mesh, name: str, tag: str, raw, shapes, images) -> dict:
+    """One rank's Predictor on `mesh` (tag "bf16" or "int8"): parameter
+    bytes, the counted main path (detect_raw_batch on the global batch,
+    counts reset just before and read just after), its global detections
+    and `decoded`, and the TP program against the same program on the plain
+    versions, sound and with one row-parallel all-reduce left out."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import set_attention_impl
+    from transparent_object_detection_tpu_torch.parallel.tp import per_rank_param_bytes
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**PARALLEL_CFG)
+    tp = mesh.size("model")
+    pred = Predictor(model, cfg, PredictConfig(), device=DEVICE, mesh=mesh)
+    out = {"bytes": sum(p.numel() * p.element_size() for p in pred.model.parameters()),
+           "bytes_want": per_rank_param_bytes(model, tp) if tp > 1 else
+           sum(p.numel() * p.element_size() for p in model.parameters()),
+           "whole_bytes": sum(p.numel() * 4 for p in model.parameters()),
+           "coords": mesh.coords, "setup_s": time.perf_counter() - t0}
+    reset_counts()
+    dets = pred.detect_raw_batch(raw, shapes)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    out["expected"] = tp_expected(tp, tag == "int8")
+    out["dets"] = dets
+    with torch.inference_mode():
+        out["decoded"] = dec = pred.model(images)["decoded"]
+        set_attention_impl(pred.model, "plain")
+        try:
+            dec_p = pred.model(images)["decoded"]
+            with skipped_all_reduce():
+                dec_f = pred.model(images)["decoded"]
+        finally:
+            set_attention_impl(pred.model, None)
+    out["against_plain"] = _decoded_reading(dec, dec_p)
+    out["fault_against_plain"] = _decoded_reading(dec_f, dec_p)
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"parallel_serve": name, "tag": tag, "rank": mesh.coords,
+                      **{k: out[k] for k in ("bytes", "launches", "against_plain",
+                                             "fault_against_plain", "s")}}), flush=True)
+    del pred
+    return out
+
+
+def _equal_across(tensors, mesh) -> int:
+    """Elements of `tensors` on which this rank differs from the mesh's
+    first rank (its values broadcast into copies), summed over the mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from transparent_object_detection_tpu_torch.parallel.mesh import all_reduce_sum, coalesced
+
+    copies = [t.detach().clone() for t in tensors]
+    coalesced(copies, lambda t: dist.broadcast(t, src=mesh.ranks[0], group=mesh.group_all))
+    diff = torch.zeros(1, device=DEVICE)
+    for a, b in zip(copies, tensors):
+        diff += (a != b).sum()
+    return int(all_reduce_sum(diff, mesh))
+
+
+def _parallel_train(mesh, state_dict, batch_np, compute_dtype: str, steps: int) -> dict:
+    """`steps` data-parallel steps in `compute_dtype` on the ranks of `mesh`
+    (each on its rows of the global batch), from the first rank's weights
+    (`replicate_state`). Before each, the first rank runs one process's
+    step on the whole global batch from the same state (`steps`: the
+    data-parallel step against it), before the first also the same step on
+    the batch's rows in another order (`floor`: an exact implementation of
+    the same step whose sums round otherwise); after them, the elements in
+    which the ranks'
+    parameters, EMA, BatchNorm statistics and momenta differ; then one step
+    from the first weights with BatchNorm on each rank's own rows (`fault`,
+    the planted fault, against the first reference step)."""
+    import copy
+
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.models import blocks
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.parallel.mesh import replicate_state, shard_batch
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+
+    t0 = time.perf_counter()
+    cfg = ModelConfig(**PARALLEL_CFG, compute_dtype=compute_dtype)
+    tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+    lc = T.loss_config_from(cfg, tcfg)
+    first = mesh.index("data") == 0
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch_np.items()}
+    local = shard_batch(batch, mesh)
+    perm = torch.tensor([1, 0, 3, 2], device=DEVICE)  # rows swapped within each rank's half
+    permuted = {k: v[perm] for k, v in batch.items()}
+    record = _step_record  # on the host: two ranks train at once beside the serving ranks
+
+    def fresh():
+        model = build_model(cfg, device=DEVICE, seed=None)
+        if first:
+            model.load_state_dict(state_dict)
+        replicate_state(model, mesh)
+        model.train()
+        opt = build_optimizer(tcfg, model)
+        return model, T.create_train_state(model, opt), T.make_train_step(model, opt, lc, tcfg,
+                                                                           mesh=mesh)
+
+    out = {"steps": []}
+    model, state, step = fresh()
+    if first:  # one process on the global batch, from each step's state
+        ref_model = copy.deepcopy(model)
+        ref_opt = build_optimizer(tcfg, ref_model)
+        ref_state = T.create_train_state(ref_model, ref_opt)
+        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg)
+    dp_s = 0.0
+    for k in range(steps):
+        if first:
+            snap = _model_snapshot(model, state)
+            _restore(ref_model, ref_state, snap)
+            old = record(ref_model, ref_state)
+            ref_state, comps = ref_step(ref_state, batch, TRAIN_LR)
+            ref = record(ref_model, ref_state, comps)
+            if k == 0:
+                _restore(ref_model, ref_state, snap)
+                ref_state, comps = ref_step(ref_state, permuted, TRAIN_LR)
+                out["floor"] = compare_steps(record(ref_model, ref_state, comps), ref, old)
+                old0, ref0 = old, ref
+            del snap
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, comps = step(state, local, TRAIN_LR)
+        torch.cuda.synchronize()
+        dp_s += time.perf_counter() - t1
+        if first:
+            out["steps"].append(compare_steps(record(model, state, comps), ref, old))
+            del ref, old
+    out["dp_steps_s"] = dp_s
+    out["mismatched_elements"] = _equal_across(
+        [*state.params.values(), *state.batch_stats.values(), *state.ema_params.values(),
+         *state.ema_batch_stats.values(), *state.opt_state["trace"].values()], mesh)
+    if first:
+        del ref_model, ref_state, ref_step
+    del model, state, step
+    torch.cuda.empty_cache()
+    model, state, step = fresh()  # the planted fault: BatchNorm on this rank's rows only
+    T.global_batchnorm = lambda m, mesh_: blocks.global_batchnorm(m, None)
+    try:
+        state, comps = step(state, local, TRAIN_LR)
+    finally:
+        T.global_batchnorm = blocks.global_batchnorm
+    if first:
+        out["fault"] = compare_steps(record(model, state, comps), ref0, old0)
+        del ref0, old0
+    del model, state, step
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_rank(path: str) -> dict:
+    """One of PARALLEL_WORLD ranks sharing the card on gloo (CUDA tensors):
+    every mesh of PARALLEL_MESHES serving bf16 and int8 (`_parallel_serve`,
+    this rank's meshes), and its part of the data-parallel training of
+    PARALLEL_TRAIN (`_parallel_train`). Only each
+    mesh's first rank loads the weights; the Predictor and
+    `replicate_state` broadcast them."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+    from transparent_object_detection_tpu_torch.parallel import (
+        make_2d_mesh,
+        make_mesh,
+        process_index,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as in the smoke's own process
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    data = torch.load(path, weights_only=False)
+    rank = process_index()
+    cfg = ModelConfig(**PARALLEL_CFG)
+    meshes = {name: make_2d_mesh(tp, devices) for name, (tp, devices) in PARALLEL_MESHES.items()}
+    train_meshes = {dtype: make_mesh(devices=ranks)
+                    for dtype, (ranks, _) in PARALLEL_TRAIN.items()}
+    firsts = {mesh.ranks[0] for mesh in (*meshes.values(), *train_meshes.values())}
+    state = (torch.load(data["state_path"], map_location=DEVICE, weights_only=True)
+             if rank in firsts else None)
+    images = letterbox_batch(torch.as_tensor(data["raw"], device=DEVICE).float() / 255.0,
+                             cfg.input_shape)
+    out = {"rank": rank, "serve": {}, "start_s": time.perf_counter() - t0}
+    # the meshes over all ranks first; then dp1xtp2 on its ranks beside the
+    # training on the others
+    for group in ([n for n, m in meshes.items() if len(m.ranks) == PARALLEL_WORLD],
+                  [n for n, m in meshes.items() if len(m.ranks) < PARALLEL_WORLD]):
+        mine = [n for n in group if meshes[n].member]
+        for tag in ("bf16", "int8") if mine else ():
+            int8 = tag == "int8"
+            model = build_model(ModelConfig(**PARALLEL_CFG, int8_dense=int8, int8_attn=int8),
+                                device=DEVICE, seed=None)
+            if state is not None:
+                model.load_state_dict(state)
+            for name in mine:
+                out["serve"][name, tag] = _parallel_serve(model, meshes[name], name, tag,
+                                                          data["raw"], data["shapes"], images)
+            del model
+            torch.cuda.empty_cache()
+    out["train"] = {dtype: _parallel_train(mesh, state, data["train_batch"], dtype,
+                                           PARALLEL_TRAIN[dtype][1])
+                    for dtype, mesh in train_meshes.items() if mesh.member}
+    out["s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def nccl_rank(path: str) -> dict:
+    """A world of one rank on NCCL: the data-parallel Predictor (its
+    detections equal, bit for bit, to the same model's without a mesh) and
+    one data-parallel step (against the same step without a mesh: within the
+    train slice's limits, or the same step's on the rows in another order),
+    so that the NCCL path runs."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.parallel import make_mesh
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    data = torch.load(path, weights_only=False)
+    cfg = ModelConfig(**PARALLEL_CFG)
+    mesh = make_mesh()
+    model = build_model(cfg, device=DEVICE, seed=None)
+    state = torch.load(data["state_path"], map_location=DEVICE, weights_only=True)
+    model.load_state_dict(state)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    ref = Predictor(model, cfg, PredictConfig(), device=DEVICE).detect_raw_batch(
+        data["raw"], data["shapes"])
+    got = Predictor(model, cfg, PredictConfig(), device=DEVICE,
+                    mesh=mesh).detect_raw_batch(data["raw"], data["shapes"])
+    out["dets_equal"] = all(torch.equal(got[k], ref[k]) for k in ref)
+    tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in data["train_batch"].items()}
+    perm = torch.tensor([1, 0, 3, 2], device=DEVICE)
+    records = []
+    for mesh_, rows in ((None, batch), (None, {k: v[perm] for k, v in batch.items()}),
+                        (mesh, batch)):
+        model.load_state_dict(state)
+        model.train()
+        opt = build_optimizer(tcfg, model)
+        st = T.create_train_state(model, opt)
+        old = _step_record(model, st)
+        st, comps = T.make_train_step(model, opt, T.loss_config_from(cfg, tcfg), tcfg,
+                                      mesh=mesh_)(st, rows, TRAIN_LR)
+        records.append(_step_record(model, st, comps))
+    out["step"] = compare_steps(records[2], records[0], old)
+    out["floor"] = compare_steps(records[1], records[0], old)
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+class _LocalModelAxis:
+    """A model axis of `tp` in one process, for timing a rank's kernels at
+    their TP-local shapes: rank 0's shards, every collective the identity
+    (an all-gather repeats this rank's part, so shapes hold)."""
+
+    distributed = False
+
+    def __init__(self, tp: int):
+        self.tp = tp
+
+    def size(self, axis: str) -> int:
+        return self.tp if axis == "model" else 1
+
+    def index(self, axis: str) -> int:
+        return 0
+
+
+def tp_local_timing(model, int8_model) -> dict:
+    """Rows 1, 3, 6 and 7 at the TP-local shapes of phi='s' 640x640 (tp 2
+    and 4, batch 2), in this process alone (after the ranks): each neck TEB
+    of rank 0 at tp (`tp_serving_copy` on a one-process model axis) run on
+    random tokens; every int8 launch recorded, held against its plain
+    version on its own activations and timed beside its bound, plain
+    version and library yardstick (`int8_path_calls`); each head-local
+    packed attention site's flash_mha_packed timed beside its bound, plain
+    version and SDPA, held against plain with the kernel bar."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import teb_tp
+    from transparent_object_detection_tpu_torch.parallel.tp import tp_serving_copy
+
+    cfg = ModelConfig(**PARALLEL_CFG)
+    sites = scale_sites(cfg.phi, cfg.input_shape)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    real_gather = teb_tp.all_gather_list
+    teb_tp.all_gather_list = lambda t, mesh, axis: [t] * mesh.size(axis)
+    out = {}
+    try:
+        for tp in (2, 4):
+            axis = _LocalModelAxis(tp)
+            sim = tp_serving_copy(int8_model, axis)
+            tokens = {name: torch.randn(2, sites[name][0], sites[name][1], generator=gen,
+                                        device=DEVICE).bfloat16()
+                      for name in ("h1", "h2", "h4", "h6")}
+            tebs = {name: getattr(sim.neck, name).teb for name in tokens}
+            rows = int8_path_calls(
+                lambda _: [teb_tp.teb_tp_forward(tokens[n], tebs[n]) for n in tokens], None)
+            del sim
+            packed = []
+            for name in ("h1", "h2", "h4"):
+                n, c, _, heads, _ = sites[name]
+                if heads % tp or teb_tp.local_route(n, c, heads, tp, False)[0] != "packed":
+                    continue
+                cl, h = c // tp, heads // tp
+                qkv = (torch.randn(2, n, 3 * cl, generator=gen, device=DEVICE) * 0.5).bfloat16()
+                scale = (cl // h) ** -0.5
+                o = A.flash_mha_packed(qkv, h, scale)
+                ref = A.flash_mha_packed_plain(qkv, h, scale)
+                used = bar_used(o, ref)
+                check(used <= 1.0, f"flash_mha_packed at tp={tp} {name}: {used}")
+                packed.append({"node": f"{name} {h}x{cl // h}", "n": n, "heads": h,
+                               "width": cl // h, "bar_used": used,
+                               "max_abs_err": float((o.float() - ref.float()).abs().max()),
+                               **_packed_timing(qkv, h, scale)})
+                print(json.dumps({"tp_local_packed": tp, **packed[-1]}), flush=True)
+            out[tp] = {"packed": packed, **rows}
+    finally:
+        teb_tp.all_gather_list = real_gather
+    return out
+
+
+def parallel_kernel_entries(par: dict) -> list:
+    """The kernels-line entries of rows 1, 3, 6 and 7 at their TP-local
+    shapes (`tp_local_timing`, batch 2), "... tp=2" and "... tp=4": their
+    launches rank 0's in the counted forward of dp1xtp2 and dp1xtp4."""
+    ja = "transparent_object_detection_tpu/ops/attention.py"
+    jq = "transparent_object_detection_tpu/ops/quant_matmul.py"
+    ja8 = "transparent_object_detection_tpu/ops/attention_int8.py"
+    src = "transparent_object_detection_tpu_torch/csrc/"
+    out = []
+    for tp, mesh in ((2, "dp1xtp2"), (4, "dp1xtp4")):
+        rows = par["timing"][tp]
+        bf16, int8 = par["launches"][mesh, "bf16"], par["launches"][mesh, "int8"]
+        out.append(int8_kernel_entry(f"flash_mha_packed tp={tp}", src + "flash_fwd_sm90.cu",
+                                     f"{ja}:239", rows["packed"], bf16["flash_mha_packed_sm90"],
+                                     0.0))
+        out += int8_attention_entries("flash_mha_int8", f" tp={tp}", rows["flash_mha_int8"],
+                                      int8, 0.0, f"{ja8}:58")
+        out.append(int8_kernel_entry(f"qmm sm90 tp={tp}", src + "qmm_sm90.cu", f"{jq}:80",
+                                     rows["qmm"], int8["qmm"], 0.0))
+        out.append(int8_kernel_entry(f"quant_rows tp={tp}", src + "quant_matmul.cu",
+                                     f"{jq}:408", rows["quant_rows"], int8["quant_rows"], 0.0))
+    return out
+
+
+def parallel_phase(card: str) -> dict:
+    """Parallel execution on the card (parallel/, ops/teb_tp.py):
+    PARALLEL_WORLD ranks sharing it on gloo (`parallel_rank`) and a world of
+    one rank on NCCL (`nccl_rank`), started together after the kernels are
+    built; meanwhile this process serves the same weights without a mesh
+    (bf16 and int8, the references). Checks: every rank's launches equal
+    `tp_expected`; its parameter bytes those of its shards; the global
+    `decoded` and detections of every mesh against the single-process
+    Predictor (bf16: the slice limits and detection sets matched; int8:
+    PARALLEL_INT8_REL of the largest magnitude); each rank's TP program
+    against its plain versions within the slice limits, and the planted
+    fault (one row-parallel all-reduce left out) rejected by them; the
+    data-parallel training of PARALLEL_TRAIN (`_parallel_train`: fp32
+    within the train slice's limits, bf16 beside its reordering floor,
+    BatchNorm on local statistics rejected, the ranks equal bit for bit);
+    the NCCL rank's checks. Then rows 1, 3, 6 and 7 timed at their TP-local
+    shapes in this process (`tp_local_timing`)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+    from transparent_object_detection_tpu_torch.parallel.launch import Ranks
+
+    t0 = time.perf_counter()
+    cfg, pcfg = ModelConfig(**PARALLEL_CFG), PredictConfig()
+    raw, shapes, train_batch = _parallel_inputs(cfg)
+    images = letterbox_batch(torch.as_tensor(raw, device=DEVICE).float() / 255.0,
+                             cfg.input_shape)
+    model = _parallel_model(images)
+    tmp = tempfile.TemporaryDirectory(prefix="parallel_phase_")
+    state_path = os.path.join(tmp.name, "state.pt")
+    torch.save(model.state_dict(), state_path)
+    path = os.path.join(tmp.name, "inputs.pt")
+    torch.save({"state_path": state_path, "raw": raw, "shapes": shapes,
+                "train_batch": train_batch}, path)
+    setup_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    gloo = Ranks("chip_smoke:parallel_rank", PARALLEL_WORLD, {"path": path},
+                 timeout=PARALLEL_RANK_TIMEOUT, device=DEVICE, backend="gloo")
+    nccl = Ranks("chip_smoke:nccl_rank", 1, {"path": path}, timeout=PARALLEL_RANK_TIMEOUT,
+                 device=DEVICE)
+    int8_model = build_model(ModelConfig(**PARALLEL_CFG, int8_dense=True, int8_attn=True),
+                             device=DEVICE, seed=None)
+    int8_model.load_state_dict(model.state_dict())
+    ref = {}
+    with torch.inference_mode():
+        for tag, m in (("bf16", model), ("int8", int8_model)):
+            ref[tag] = {"decoded": m(images)["decoded"],
+                        "dets": Predictor(m, cfg, pcfg, device=DEVICE).detect_raw_batch(raw,
+                                                                                      shapes)}
+    ranks = gloo.join()
+    one = nccl.join()
+    ranks_s = time.perf_counter() - t1
+    print(json.dumps({"parallel_ranks_sharing_one_card_s": ranks_s,
+                      "rank_s": [r["s"] for r in ranks], "rank_start_s": [r["start_s"]
+                                                                        for r in ranks],
+                      "rank_peak_gib": [r["peak_gib"] for r in ranks],
+                      "nccl_rank_s": one[0]["s"]}), flush=True)
+
+    launches = {}
+    for r in ranks:
+        for (name, tag), s in r["serve"].items():
+            check(s["launches"] == s["expected"],
+                  f"{name} {tag} rank {r['rank']}: launches {s['launches']}, route table "
+                  f"{s['expected']}")
+            check(s["bytes"] == s["bytes_want"] and s["bytes"] < s["whole_bytes"],
+                  f"{name} {tag} rank {r['rank']}: {s['bytes']} parameter bytes, shards "
+                  f"{s['bytes_want']}, whole model {s['whole_bytes']}")
+            box, score, _ = SCALE_LIMITS[tag]
+            sound, fault = s["against_plain"], s["fault_against_plain"]
+            check(sound["box_px"] <= box and sound["score"] <= score,
+                  f"{name} {tag} rank {r['rank']}: TP kernels against plain {sound}")
+            check(fault["box_px"] > box or fault["score"] > score,
+                  f"{name} {tag} rank {r['rank']}: the limits do not reject a row-parallel "
+                  f"all-reduce left out: {fault}")
+            # the global result, on every rank, against the single process
+            dec, want = s["decoded"].to(DEVICE), ref[tag]["decoded"]
+            if tag == "bf16":
+                reading = _decoded_reading(dec, want)
+                check(reading["box_px"] <= BOX_LIMIT_PX and reading["score"] <= SCORE_LIMIT,
+                      f"{name} bf16 rank {r['rank']}: decoded against one process {reading}")
+                d = {k: v.to(DEVICE) for k, v in s["dets"].items()}
+                for a, b in ((d, ref[tag]["dets"]), (ref[tag]["dets"], d)):
+                    m = match_detections(a, b, pcfg, reading["score"], BOX_LIMIT_PX)
+                    check(m["compared"] > 0 and m["unmatched"] == 0,
+                          f"{name} bf16 rank {r['rank']}: detection sets differ {m}")
+            else:
+                rel = float((dec - want).abs().max() / want.abs().max())
+                reading = {"rel": rel}
+                check(rel <= PARALLEL_INT8_REL and bool(torch.isfinite(dec).all()),
+                      f"{name} int8 rank {r['rank']}: decoded {rel} of max from one process")
+            s["against_one_process"] = reading
+            if r["rank"] == 0:
+                launches[name, tag] = s["launches"]
+    summary = {f"{name} {tag}": {"launches": launches[name, tag],
+                                 **{f"rank{r['rank']}": {k: r["serve"][name, tag][k] for k in (
+                                     "against_plain", "fault_against_plain",
+                                     "against_one_process", "bytes", "s", "setup_s")}
+                                    for r in ranks if (name, tag) in r["serve"]}}
+               for name, tag in launches}
+    print(json.dumps({"parallel_serving": summary}), flush=True)
+
+    train = {dtype: ranks[rs[0]]["train"][dtype] for dtype, (rs, _) in PARALLEL_TRAIN.items()}
+    limits = {"grads": TRAIN_GRAD_LIMIT, "param_change": TRAIN_UPDATE_LIMIT,
+              "ema_change": TRAIN_UPDATE_LIMIT, "bn_stats_change": TRAIN_STATS_LIMIT,
+              "loss_rel": TRAIN_LOSS_LIMIT}
+    readings = lambda c: {"grads": c["grads"]["all"], "param_change": c["param_change"],
+                          "ema_change": c["ema_change"], "bn_stats_change": c["bn_stats_change"],
+                          "loss_rel": max(c["loss_rel"].values())}
+    report = {}
+    for dtype, t in train.items():
+        report[dtype] = {"steps": [readings(c) for c in t["steps"]],
+                         "floor_rows_reordered": readings(t["floor"]),
+                         "fault_local_batchnorm": readings(t["fault"]),
+                         "mismatched_elements": [ranks[r]["train"][dtype]["mismatched_elements"]
+                                                 for r in PARALLEL_TRAIN[dtype][0]],
+                         "dp_steps_s": t["dp_steps_s"], "s": t["s"]}
+    print(json.dumps({"parallel_training": {**report, "limits": limits}}), flush=True)
+    # fp32: the data-parallel step is one process's step on the global batch
+    # but for the order of its sums (the floor reads the same size): within
+    # the train slice's limits, as the smoke holds its fp32 steps, which
+    # reject BatchNorm on local statistics
+    f32 = report["float32"]
+    check(all(r[k] <= limits[k] for r in f32["steps"] for k in limits),
+          f"fp32 data-parallel step against one process: {f32['steps']} (limits {limits})")
+    check(any(f32["fault_local_batchnorm"][k] > limits[k] for k in limits),
+          f"the limits do not reject BatchNorm on local statistics: {f32}")
+    # bf16 (three steps): the same code in the compute type of the main path.
+    # One process's step on the same rows in another order already reads
+    # at these limits (bf16 sums rounded otherwise through every BatchNorm of
+    # a random-weight model): the readings are printed beside that floor,
+    # and BatchNorm on local statistics must read past both
+    b16 = report["bfloat16"]
+    bar = {k: max(limits[k], b16["floor_rows_reordered"][k]) for k in limits}
+    check(len(b16["steps"]) == PARALLEL_TRAIN_STEPS and all(
+        math.isfinite(v) for r in b16["steps"] for v in r.values()),
+        f"bf16 data-parallel steps: {b16['steps']}")
+    check(any(b16["fault_local_batchnorm"][k] > bar[k] for k in limits),
+          f"bf16: BatchNorm on local statistics within the limits and the floor: {b16}")
+    check(all(m == 0 for d in report.values() for m in d["mismatched_elements"]),
+          "the training ranks' parameters, EMA, statistics or momenta differ")
+    nccl_step, nccl_floor = readings(one[0]["step"]), readings(one[0]["floor"])
+    print(json.dumps({"parallel_nccl": {**{k: one[0][k] for k in ("backend", "world",
+                                                                    "dets_equal", "s")},
+                                        "step": nccl_step, "floor": nccl_floor}}), flush=True)
+    check(one[0]["backend"] == "nccl" and one[0]["world"] == 1 and one[0]["dets_equal"],
+          f"NCCL world of one: {one[0]}")
+    check(all(nccl_step[k] <= max(limits[k], nccl_floor[k]) for k in limits),
+          f"NCCL data-parallel step against one process: {nccl_step} (floor {nccl_floor})")
+
+    t2 = time.perf_counter()
+    timing = tp_local_timing(model, int8_model)
+    del model, int8_model
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    out = {"launches": launches, "timing": timing, "ranks_s": ranks_s,
+           "timing_s": time.perf_counter() - t2, "setup_s": setup_s}
+    print(json.dumps({"parallel_phase_s": {k: out[k] for k in ("setup_s", "ranks_s",
+                                                               "timing_s")}}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5643,6 +6345,11 @@ def main() -> int:
         print(json.dumps({"phase": name, "s": phase_s[name]}), flush=True)
         return out
 
+    if sys.argv[1:] == ["parallel"]:  # the parallel phase alone, no result line
+        print(json.dumps({"parallel_kernels": parallel_kernel_entries(
+            phase("parallel", parallel_phase, card))}))
+        return 0
+
     mha_rows, single_rows = phase("kernel", kernel_phase)
     int8_err = phase("int8 kernel", int8_kernel_phase)
     variant_err = phase("variant kernel", variant_kernel_phase)
@@ -5675,6 +6382,8 @@ def main() -> int:
     fit = phase("fit", fit_phase, card)
     torch.cuda.empty_cache()
     api = phase("api", api_phase, card)
+    torch.cuda.empty_cache()
+    par = phase("parallel", parallel_phase, card)
     vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
@@ -5839,6 +6548,16 @@ def main() -> int:
     for name, counter in (("flash_mha_packed", "flash_mha_packed_sm90"),
                           ("flash_single single_sm90", "flash_single_sm90")):
         by_name[name]["api_launches"] = api["bf16"]["detect_image"]["launches"][counter]
+    # parallel execution: rank 0's launches of the counted forward of each
+    # mesh as `parallel_launches` on rows 1, 3, 6 and 7's phi='s' entries,
+    # and those rows at their TP-local shapes (tp 2 and 4, batch 2, timed
+    # in one process) as entries of their own
+    for name, counter, tag in (("flash_mha_packed", "flash_mha_packed_sm90", "bf16"),
+                               ("flash_mha_int8", "flash_mha_int8_sm90", "int8"),
+                               ("qmm sm90", "qmm", "int8"), ("quant_rows", "quant_rows", "int8")):
+        by_name[name]["parallel_launches"] = {mesh: par["launches"][mesh, tag][counter]
+                                              for mesh in PARALLEL_MESHES}
+    kernels += parallel_kernel_entries(par)
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s,
                       "api_s": api["seconds"]}), flush=True)
     print(card)

@@ -1,0 +1,236 @@
+"""Rank functions of the port's parallel tests (tests/test_torch_tp.py,
+test_torch_parallel.py, test_torch_distributed.py): each runs in one of the
+processes that `parallel.launch.Ranks` starts on the CPU (gloo, one thread
+a rank), after the process group is up, and returns what its test holds
+against the JAX package. This module imports neither JAX nor the JAX
+package, so a rank starts in a few seconds."""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
+from transparent_object_detection_tpu_torch.inference import Predictor
+from transparent_object_detection_tpu_torch.models import blocks
+from transparent_object_detection_tpu_torch.models.detector import FocusModel
+from transparent_object_detection_tpu_torch.parallel import (
+    make_2d_mesh,
+    make_mesh,
+    process_count,
+    process_index,
+    shard_batch,
+)
+from transparent_object_detection_tpu_torch.parallel.mesh import all_reduce_sum
+from transparent_object_detection_tpu_torch.train import trainer as trainer_mod
+from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+from transparent_object_detection_tpu_torch.train.trainer import (
+    create_train_state,
+    loss_config_from,
+    make_train_step,
+)
+
+# tests/test_tp.py's serving setup: base_channels 32 at 128 x 128, 8 heads
+# requested (4 at h1 and h6, a ragged 3 at h2 and h4)
+TP_MODEL = dict(num_classes=1, base_channels=32, base_depth=1, deep_mul=0.5, num_heads=8,
+                dtype=torch.float32)
+TP_CFG = ModelConfig(num_classes=1, input_shape=(128, 128), compute_dtype="float32")
+TP_PREDICT = PredictConfig(confidence=0.01, max_detections=16, pre_nms_topk=64)
+# tests/test_parallel.py's tiny model
+TINY_MODEL = dict(num_classes=1, base_channels=8, base_depth=1, deep_mul=0.5, num_heads=2,
+                  dtype=torch.float32)
+TINY_CFG = ModelConfig(num_classes=1, input_shape=(64, 64), compute_dtype="float32")
+TINY_PREDICT = PredictConfig(confidence=0.01, max_detections=8, pre_nms_topk=32)
+
+
+def _param_bytes(model: torch.nn.Module) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tp_serving(path: str, tp: int) -> dict:
+    """The TP Predictor on make_2d_mesh(tp) over the world, fp32 and int8
+    (int8_dense + int8_attn) on the same weights: the global `decoded` of
+    the Predictor's model, its detections (fp32), its parameter bytes."""
+    data = torch.load(path)
+    mesh = make_2d_mesh(tp)
+    out = {"coords": mesh.coords}
+    for int8 in (False, True):
+        model = FocusModel(**TP_MODEL, int8_dense=int8, int8_attn=int8)
+        model.load_state_dict(data["state"])
+        pred = Predictor(model, TP_CFG, TP_PREDICT, device="cpu", mesh=mesh)
+        with torch.no_grad():
+            decoded = pred.model(data["images"])["decoded"]
+        key = "int8" if int8 else "fp32"
+        out[key] = {"decoded": decoded, "bytes": _param_bytes(pred.model),
+                    "tp_serving": pred.model.tp_serving and model.tp_serving is False}
+        if not int8:
+            out["dets"] = pred.detect_letterboxed(data["images"], data["shapes"])
+    return out
+
+
+def predictors(path: str) -> dict:
+    """Two Predictors with different meshes in one process (a data mesh and
+    a (data 1, model 2) mesh), called in turns, beside the Predictor with no
+    mesh; and the indivisible batch refused by the data mesh."""
+    data = torch.load(path)
+    model = FocusModel(**TINY_MODEL)
+    model.load_state_dict(data["state"])
+    images, shapes = data["images"], data["shapes"]
+    ref = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu").detect_letterboxed(images, shapes)
+    p_dp = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=make_mesh())
+    p_tp = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=make_2d_mesh(2))
+    runs = [p_dp.detect_letterboxed(images, shapes), p_tp.detect_letterboxed(images, shapes),
+            p_dp.detect_letterboxed(images, shapes)]
+    refused = None
+    try:
+        p_dp.detect_letterboxed(images[:3], shapes[:3])
+    except ValueError as exc:
+        refused = str(exc)
+    return {"ref": ref, "runs": runs, "refused": refused,
+            "shards": (p_dp.data_shards, p_tp.data_shards),
+            "tp_three": p_tp.detect_letterboxed(images[:3], shapes[:3])["num_detections"]}
+
+
+def dp_steps(path: str) -> dict:
+    """One data-parallel step (make_mesh over the world) from the same
+    weights on each global batch of `path`; and, for the planted fault,
+    the same step with BatchNorm on each rank's own statistics."""
+    data = torch.load(path)
+    tc = TrainConfig(**data["train_cfg"])
+    mesh = make_mesh()
+    out = {}
+    for name, batch in data["batches"].items():
+        for fault in (False, True):
+            model = FocusModel(**TINY_MODEL)
+            model.load_state_dict(data["state"])
+            opt = build_optimizer(tc, model)
+            step = make_train_step(model, opt, loss_config_from(TINY_CFG, tc), tc, mesh=mesh)
+            state = create_train_state(model, opt)
+            if fault:  # the step's BatchNorm context without the mesh
+                trainer_mod.global_batchnorm = lambda m, mesh: blocks.global_batchnorm(m, None)
+            try:
+                state, comps = step(state, shard_batch(batch, mesh), data["lr"])
+            finally:
+                trainer_mod.global_batchnorm = blocks.global_batchnorm
+            out[name, fault] = {
+                "comps": {k: float(v) for k, v in comps.items()},
+                "params": {k: v.detach().clone() for k, v in state.params.items()},
+                "batch_stats": {k: v.clone() for k, v in state.batch_stats.items()},
+                "ema_params": state.ema_params, "ema_batch_stats": state.ema_batch_stats,
+                "trace": state.opt_state["trace"],
+            }
+    return out
+
+
+def fit_with_eval(root: str, lines: list) -> dict:
+    """tests/test_parallel.py's --data-parallel path: Trainer.fit on a data
+    mesh over the world with an EvalCallback whose batch (5) does not
+    divide it, a LossHistory and a CheckpointManager in one directory
+    shared by the ranks."""
+    from transparent_object_detection_tpu_torch.eval.callbacks import EvalCallback, LossHistory
+    from transparent_object_detection_tpu_torch.train.checkpoints import CheckpointManager
+    from transparent_object_detection_tpu_torch.train.trainer import Trainer
+
+    tc = TrainConfig(init_epoch=0, freeze_epoch=0, unfreeze_epoch=1, freeze_train=False,
+                     unfreeze_batch_size=8, num_workers=2, mosaic=False, mixup=False,
+                     max_boxes=8, optimizer_type="sgd", save_dir=os.path.join(root, "logs"),
+                     eval_period=1, save_period=1)
+    model = FocusModel(**TINY_MODEL)
+    trainer = Trainer(TINY_CFG, tc, model=model, verbose=False, device="cpu")
+    cb = EvalCallback(TINY_CFG, lines, ["Transparent"], tc.save_dir, period=1, eval_flag=True,
+                      batch_size=5, device="cpu")
+    history = trainer.fit(lines, lines, callbacks=[LossHistory(tc.save_dir), cb],
+                          checkpointer=CheckpointManager(tc.save_dir), mesh=make_mesh())
+    return {"history": history, "data_shards": cb._predictor.data_shards,
+            "dets": cb.last_dets,
+            "params": {k: v.detach().clone() for k, v in model.named_parameters()}}
+
+
+def collectives(n_items: int) -> dict:
+    """tests/test_distributed.py's bring-up: the process group's rank and
+    size, an all-reduce of ones, the loader's file shards and its row
+    shards of each global batch."""
+    from transparent_object_detection_tpu_torch.data.loader import DataLoader
+
+    class _Stub:
+        epoch_now = 0
+
+        def __len__(self):
+            return n_items
+
+        def __getitem__(self, i):
+            return {"index": np.asarray(i)}
+
+    rank, world = process_index(), process_count()
+    total = all_reduce_sum(torch.ones(4, 4), make_mesh())
+    files = DataLoader(_Stub(), batch_size=2, shuffle=False, num_workers=1, shard_id=rank,
+                       num_shards=world)
+    rows = DataLoader(_Stub(), batch_size=4, shuffle=True, num_workers=1, seed=3,
+                      row_shard=rank, row_shards=world)
+    rows.set_epoch(1)
+    return {"rank": rank, "world": world, "total": float(total.sum()), "files": sorted(int(i) for i in files._epoch_indices()),
+            "rows": [b["index"].tolist() for b in rows]}
+
+
+def one_rank_fails() -> None:
+    """Rank 1 raises while rank 0 waits in a collective: the launcher must
+    stop rank 0 and report rank 1's error."""
+    if process_index() == 1:
+        raise RuntimeError("planted failure on rank 1")
+    all_reduce_sum(torch.ones(1), make_mesh())
+
+
+def hangs() -> None:
+    """Every rank waits in a collective that one rank never joins."""
+    if process_index() == 0:
+        all_reduce_sum(torch.ones(1), make_mesh())
+    else:
+        import time
+
+        time.sleep(3600)
+
+
+def focus_serve_mesh(root: str) -> dict:
+    """FOCUS.serve_mesh at phi='n' 64 x 64 on the CPU: the data-parallel
+    Predictor's detections against FOCUS's own Predictor, and tp=2, which
+    phi='n''s TEB widths (849 at h1) refuse as JAX's canonicalization does."""
+    from transparent_object_detection_tpu_torch.api import FOCUS
+
+    classes = os.path.join(root, "classes.txt")
+    if process_index() == 0:
+        with open(classes, "w") as fh:
+            fh.write("glass\n")
+    all_reduce_sum(torch.zeros(1), make_mesh())  # the file is written before rank 1 reads it
+    f = FOCUS(phi="n", classes_path=classes, input_shape=(64, 64), verbose=False, device="cpu")
+    images = torch.from_numpy(np.random.default_rng(4).uniform(size=(4, 64, 64, 3))
+                              .astype(np.float32))
+    shapes = torch.full((4, 2), 64.0)
+    ref = f.predictor.detect_letterboxed(images, shapes)
+    pred = f.serve_mesh()
+    got = pred.detect_letterboxed(images, shapes)
+    refused = None
+    try:
+        f.serve_mesh(tp=2)
+    except ValueError as exc:
+        refused = str(exc)
+    return {"ref": ref, "got": got, "data_shards": pred.data_shards, "refused": refused}
+
+
+def train_tool(root: str, train: str, val: str) -> list:
+    """tools/train.py --data-parallel on the ranks of this world (phi='n'
+    64 x 64, one unfrozen epoch at a global batch of 4, evaluation on)."""
+    from transparent_object_detection_tpu_torch.tools import train as train_cli
+
+    classes = os.path.join(root, "classes.txt")
+    with open(classes, "w") as fh:
+        fh.write("glass\n")
+    train_cli.main(["--classes", classes, "--phi", "n", "--input-shape", "64", "64",
+                 "--train-annotations", train, "--val-annotations", val,
+                 "--save-dir", os.path.join(root, "logs"), "--no-freeze-train",
+                 "--init-epoch", "0", "--freeze-epoch", "0", "--unfreeze-epoch", "1",
+                 "--unfreeze-batch-size", "4", "--no-mosaic", "--no-mixup", "--eval-period", "1",
+                 "--save-period", "1", "--num-workers", "1", "--compute-dtype", "float32",
+                 "--device", "cpu", "--data-parallel"])
+    all_reduce_sum(torch.zeros(1), make_mesh())  # rank 0's files are written
+    return sorted(os.listdir(os.path.join(root, "logs")))

@@ -12,8 +12,9 @@ videos, times, evaluates, exports, fuses and summarizes.
 It runs on CUDA unless given `device` (`device="cpu"` runs the kernels'
 plain versions). The weights live in `model` (an nn.Module); `variables`
 gives them in the JAX package's two collections, {"params": {name:
-tensor}, "batch_stats": {name: tensor}}. Serving on a device mesh
-(`serve_mesh`) is not ported yet.
+tensor}, "batch_stats": {name: tensor}}. `serve_mesh` serves on the ranks
+of a process group (parallel/): data-parallel, or with the neck TEBs
+tensor-parallel.
 """
 from __future__ import annotations
 
@@ -259,6 +260,28 @@ class FOCUS:
 
             self._predictor = Predictor(self.model, self.model_cfg, self.predict_cfg,
                                         device=self.device)
+        return self._predictor
+
+    def serve_mesh(self, devices=None, axis_name: str = "data", tp: int = 1):
+        """Switch serving to a mesh of ranks (every rank of a torchrun launch
+        makes this call, after `parallel.initialize_multihost()`; `devices`
+        names ranks, None every rank of the world).
+
+        tp=1: a 1-D mesh on `axis_name`: data parallelism, the weights
+        replicated, each call's batch split over the ranks and the results
+        gathered on each. tp>1: a (data, model) mesh with a tp-way model axis:
+        the neck TEBs run Megatron tensor-parallel (ops/teb_tp.py) on the
+        Predictor's own sharded copy of the weights; batch sizes must divide
+        the data axis (ranks / tp).
+
+        Returns the mesh-aware Predictor."""
+        from transparent_object_detection_tpu_torch.inference import Predictor
+        from transparent_object_detection_tpu_torch.parallel.mesh import make_mesh
+        from transparent_object_detection_tpu_torch.parallel.tp import make_2d_mesh
+
+        mesh = make_2d_mesh(tp, devices) if tp > 1 else make_mesh(devices, axis_name)
+        self._predictor = Predictor(self.model, self.model_cfg, self.predict_cfg,
+                                    device=self.device, mesh=mesh)
         return self._predictor
 
     def predict(self, source: str, **kwargs):

@@ -26,7 +26,10 @@ reads it: pinned host memory and `non_blocking` copies on a side CUDA
 stream, `size` batches deep.
 
 Shuffling is seeded per epoch (the DistributedSampler.set_epoch analog);
-pass shard_id/num_shards to give each data-parallel process its slice.
+pass shard_id/num_shards to give each host its slice of the files. For
+data-parallel training on one set of files, row_shard/row_shards give each
+rank its rows of every global batch: the same shuffled indices and samples
+(keyed on seed, epoch and index) as one process loading the whole batch.
 """
 from __future__ import annotations
 
@@ -80,7 +83,11 @@ class DataLoader:
         shard_id: int = 0,
         num_shards: int = 1,
         use_processes: bool = False,
+        row_shard: int = 0,
+        row_shards: int = 1,
     ):
+        if batch_size % row_shards:
+            raise ValueError(f"global batch {batch_size} not divisible by {row_shards} row shards")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -90,6 +97,7 @@ class DataLoader:
         self.shard_id = shard_id
         self.num_shards = num_shards
         self.use_processes = use_processes
+        self.row_shard, self.row_shards = row_shard, row_shards
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -110,6 +118,12 @@ class DataLoader:
         per = len(idx) // self.num_shards
         return idx[self.shard_id * per : (self.shard_id + 1) * per]
 
+    def _batch_indices(self, indices: np.ndarray, bi: int) -> np.ndarray:
+        """This loader's rows of global batch `bi`."""
+        batch = indices[bi * self.batch_size : (bi + 1) * self.batch_size]
+        per = len(batch) // self.row_shards
+        return batch[self.row_shard * per : (self.row_shard + 1) * per]
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         if self.use_processes:
             yield from self._iter_processes()
@@ -123,7 +137,7 @@ class DataLoader:
             futures = []
 
             def submit(bi):
-                batch_idx = indices[bi * self.batch_size : (bi + 1) * self.batch_size]
+                batch_idx = self._batch_indices(indices, bi)
                 return [pool.submit(self.dataset.__getitem__, int(i)) for i in batch_idx]
 
             for bi in range(min(window, nb)):
@@ -155,7 +169,7 @@ class DataLoader:
             futures = []
 
             def submit(bi):
-                batch_idx = indices[bi * self.batch_size : (bi + 1) * self.batch_size]
+                batch_idx = self._batch_indices(indices, bi)
                 return pool.submit(_process_batch, list(map(int, batch_idx)))
 
             for bi in range(min(window, nb)):

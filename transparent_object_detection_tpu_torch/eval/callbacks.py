@@ -66,6 +66,8 @@ class LossHistory:
             pass
 
     def on_epoch_end(self, epoch: int, logs: Dict[str, float], trainer=None, state=None):
+        if not getattr(trainer, "is_main", True):  # data-parallel: rank 0 writes
+            return
         self.append_loss(epoch, logs["loss"], logs["val_loss"])
 
     def append_loss(self, epoch: int, loss: float, val_loss: float):
@@ -156,6 +158,9 @@ class EvalCallback:
             letterbox_image=True,
         )
         self._predictor = None  # reused across epochs, given fresh weights
+        # a data-parallel mesh to evaluate on (every rank of it calls
+        # evaluate); on_epoch_end adopts the trainer's
+        self.mesh = None
         # populated by evaluate(): per-image (N,6) dets / (M,5) gts, so
         # callers can cache raw detections
         self.last_dets: List[np.ndarray] = []
@@ -174,12 +179,17 @@ class EvalCallback:
             variables = {"params": state.params, "batch_stats": state.batch_stats}
         else:
             variables = trainer.variables
+        # under a data-parallel fit every rank evaluates (the Predictor
+        # splits each batch over the training mesh); rank 0 writes
+        self.mesh = getattr(trainer, "mesh", None)
         stats = self.evaluate(trainer.model, variables)
         map50 = stats["AP50"] if stats["AP50"] >= 0 else stats["voc_map"]
         self.maps.append(float(map50))
         self.epochs.append(epoch)
         logs["map50"] = float(map50)
         logs["coco_ap"] = float(stats["AP"])
+        if not getattr(trainer, "is_main", True):
+            return
         with open(os.path.join(self.log_dir, "epoch_map.txt"), "a") as f:
             f.write(f"{map50}\n")
         _plot(
@@ -218,23 +228,30 @@ class EvalCallback:
         tensor}}) and score with COCO + VOC. Images are decoded and
         letterboxed with PIL on the host, as the Predictor's single-image
         path does; a last batch shorter than batch_size runs at its own size
-        (per-image results do not depend on the batch)."""
+        (per-image results do not depend on the batch). On a data-parallel
+        `self.mesh` (every rank calls this) the Predictor splits each batch
+        over the ranks: the batch size is rounded up to a multiple of
+        `data_shards` and the last batch is padded to it with blank
+        images, whose detections are dropped."""
         from PIL import Image
 
         from transparent_object_detection_tpu_torch.inference import Predictor
         from transparent_object_detection_tpu_torch.utils.image import cvt_color, resize_image
 
-        if self._predictor is None or self._predictor.model.wrapped is not model:
+        if (self._predictor is None or self._predictor.model.wrapped is not model
+                or self._predictor.mesh is not self.mesh):
             self._predictor = Predictor(_ModelOn(model), self.model_cfg, self.predict_cfg,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
         predictor = self._predictor
         predictor.model.variables = {**variables["params"], **variables["batch_stats"]}
         h, w = self.model_cfg.input_shape
         dets_all: List[np.ndarray] = []
         gts_all: List[np.ndarray] = []
+        n_shards = predictor.data_shards
+        bs = -(-self.batch_size // n_shards) * n_shards
 
-        for start in range(0, len(self.val_lines), self.batch_size):
-            chunk = self.val_lines[start : start + self.batch_size]
+        for start in range(0, len(self.val_lines), bs):
+            chunk = self.val_lines[start : start + bs]
             images, shapes, gts = [], [], []
             for line in chunk:
                 path, boxes = parse_annotation_line(line)
@@ -248,12 +265,16 @@ class EvalCallback:
                     if len(boxes)
                     else np.zeros((0, 5))
                 )
+            n = len(images)
+            if n_shards > 1:  # pad the tail batch to the split batch size
+                images += [np.zeros((h, w, 3), np.float32)] * (bs - n)
+                shapes += [[h, w]] * (bs - n)
             out = predictor.detect_letterboxed(np.stack(images), np.asarray(shapes, np.float32))
             boxes_np = out["boxes"].float().cpu().numpy()
             scores_np = out["scores"].float().cpu().numpy()
             cls_np = out["classes"].cpu().numpy()
             valid_np = out["valid"].cpu().numpy()
-            for i in range(len(images)):
+            for i in range(n):
                 v = valid_np[i]
                 dets_all.append(
                     np.concatenate(

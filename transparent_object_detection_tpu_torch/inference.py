@@ -7,6 +7,12 @@ transparent_object_detection_tpu/inference.py):
 All of it runs on the Predictor's device; the only transfers are the input
 batch and the fixed-shape detection struct (plus one count read by the exact
 NMS loop). PyTorch runs eagerly: there is no compiled program to cache.
+
+On a mesh (parallel/) every rank is handed the global batch, as the JAX
+caller hands one global array: each data index runs its rows, and the
+fixed-shape results are all-gathered over the data axis, so every rank
+returns the global result. With a model axis the neck TEBs run tensor-
+parallel on the Predictor's own sharded copy of the weights.
 """
 from __future__ import annotations
 
@@ -23,6 +29,14 @@ from transparent_object_detection_tpu_torch.ops.preprocess import (
     letterbox_batch,
     unletterbox_boxes,
 )
+from transparent_object_detection_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    Mesh,
+    all_gather_cat,
+    replicate_state,
+    rows_of,
+)
+from transparent_object_detection_tpu_torch.parallel.tp import MODEL_AXIS, tp_serving_copy
 
 
 def detect_step(model: FocusModel, images: torch.Tensor, image_shapes: torch.Tensor,
@@ -50,33 +64,80 @@ def detect_step(model: FocusModel, images: torch.Tensor, image_shapes: torch.Ten
 
 class Predictor:
     """Batch detector front end on one device (CUDA unless `device` names
-    another)."""
+    another).
+
+    mesh: an optional `parallel.Mesh` (`make_mesh`, `make_2d_mesh`) this
+    process is a rank of. The mesh's first rank's weights are broadcast to
+    every rank (one replicated copy, as JAX places it); each call takes the
+    global batch, runs this rank's rows of it (batch sizes must be a
+    multiple of `data_shards`, else ValueError) and returns the global
+    result, all-gathered over the data axis. A mesh with a model axis of
+    tp > 1 serves tensor-parallel: `model` becomes the Predictor's own copy
+    (`parallel.tp.tp_serving_copy`: this rank's shards of the TEB
+    projections and of the big kernels, qkv rows canonicalized, weights of
+    two or more dimensions in the compute type), the caller's model left as
+    it was. Every rank of the mesh makes the same calls in the same order."""
 
     def __init__(self, model: FocusModel, model_cfg: ModelConfig,
-                 predict_cfg: Optional[PredictConfig] = None, device=None):
+                 predict_cfg: Optional[PredictConfig] = None, device=None,
+                 mesh: Optional[Mesh] = None):
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        model = model.to(self.device)
+        if mesh is not None:
+            replicate_state(model, mesh)
+            if mesh.size(MODEL_AXIS) > 1:
+                model = tp_serving_copy(model, mesh)
+        self.model = model.eval()
         self.model_cfg = model_cfg
         self.predict_cfg = predict_cfg or PredictConfig()
+
+    @property
+    def data_shards(self) -> int:
+        """Size of the data axis the Predictor splits a batch over (1 with no
+        mesh). Batch sizes must be a multiple of it; callers that batch
+        lists of any length (EvalCallback) pad to it."""
+        return 1 if self.mesh is None else self.mesh.size(DATA_AXIS)
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, dtype=dtype)
 
+    def _rows(self, *arrays):
+        """This rank's rows of each global batch array, on the device."""
+        n = self.data_shards
+        if n > 1 and arrays[0].shape[0] % n:
+            raise ValueError(
+                f"batch size {arrays[0].shape[0]} does not divide the mesh data axis ({n}); "
+                f"pad the batch to a multiple of Predictor.data_shards")
+        if self.mesh is None:
+            return arrays
+        return tuple(rows_of(a, self.mesh) for a in arrays)
+
+    def _gathered(self, out):
+        """The global result: each tensor's rows from every data rank."""
+        if self.mesh is None:
+            return out
+        if isinstance(out, torch.Tensor):
+            return all_gather_cat(out, self.mesh, DATA_AXIS, 0)
+        return {k: all_gather_cat(v, self.mesh, DATA_AXIS, 0) for k, v in out.items()}
+
     @torch.inference_mode()
     def detect_letterboxed(self, images, image_shapes) -> Dict[str, torch.Tensor]:
         """images already letterboxed to input_shape, float32 in [0, 1]."""
-        return detect_step(self.model, self._tensor(images, torch.float32),
-                           self._tensor(image_shapes, torch.float32),
-                           self.model_cfg.input_shape, self.predict_cfg)
+        images, image_shapes = self._rows(self._tensor(images, torch.float32),
+                                          self._tensor(image_shapes, torch.float32))
+        return self._gathered(detect_step(self.model, images, image_shapes,
+                                          self.model_cfg.input_shape, self.predict_cfg))
 
     @torch.inference_mode()
     def detect_raw_batch(self, raw_images, image_shapes) -> Dict[str, torch.Tensor]:
         """Uniform-size uint8 batch (B, H, W, 3); letterboxing runs on the
         device (the uint8 batch is what crosses to it)."""
-        raw = self._tensor(raw_images)
+        raw, shapes = self._rows(self._tensor(raw_images),
+                                 self._tensor(image_shapes, torch.float32))
         images = letterbox_batch(raw.float() / 255.0, self.model_cfg.input_shape)
-        return detect_step(self.model, images, self._tensor(image_shapes, torch.float32),
-                           self.model_cfg.input_shape, self.predict_cfg)
+        return self._gathered(detect_step(self.model, images, shapes,
+                                          self.model_cfg.input_shape, self.predict_cfg))
 
     def predict_image(self, image) -> List[Dict[str, Any]]:
         """One PIL image -> list of {box, score, class} in original pixels."""
@@ -94,9 +155,10 @@ class Predictor:
     def class_activation_map(self, images) -> torch.Tensor:
         """Max class-probability heatmap per image at stride-8 resolution:
         (B, H/8, W/8) from letterboxed float images (B, H, W, 3)."""
-        raw = self.model(self._tensor(images, torch.float32), decode=False)["raw"]
+        (images,) = self._rows(self._tensor(images, torch.float32))
+        raw = self.model(images, decode=False)["raw"]
         cls = raw[0][..., 4 * self.model_cfg.reg_max:]
-        return torch.sigmoid(cls.float()).amax(dim=-1)
+        return self._gathered(torch.sigmoid(cls.float()).amax(dim=-1))
 
     @staticmethod
     def to_host_detections(dets: Dict[str, torch.Tensor]) -> List[List[Dict[str, Any]]]:

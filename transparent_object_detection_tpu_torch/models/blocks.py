@@ -35,6 +35,12 @@ from transparent_object_detection_tpu_torch.ops.quant_matmul import (
     quant_matmul,
     quant_matmul_w4a4,
 )
+from transparent_object_detection_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_gather_cat,
+    all_reduce_sum,
+)
+from transparent_object_detection_tpu_torch.parallel.tp import MODEL_AXIS
 
 
 def _tracing() -> bool:
@@ -64,34 +70,71 @@ class _BatchNormTrain(torch.autograd.Function):
     (no gradient)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps: float):
+    def forward(ctx, x, weight, bias, eps: float, mesh=None):
         xf = x.float()
         dims = (0, 2, 3)
-        mean = xf.mean(dims)
-        var_raw = (xf * xf).mean(dims) - mean * mean
+        count = x.numel() // x.shape[1]
+        if mesh is None:
+            mean = xf.mean(dims)
+            var_raw = (xf * xf).mean(dims) - mean * mean
+        else:
+            # the global batch's statistics: sums and counts over the data
+            # axis (float64 on the wire: the count stays exact)
+            stats = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                               xf.new_full((1,), float(count))]).double()
+            all_reduce_sum(stats, mesh, DATA_AXIS)
+            c = x.shape[1]
+            count = stats[-1]
+            mean = (stats[:c] / count).float()
+            var_raw = (stats[c:2 * c] / count).float() - mean * mean
+            count = int(count)
         var = var_raw.clamp(min=0.0)
         r = torch.rsqrt(var + eps)
         mul = r * weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
         ctx.save_for_backward(x, mean, r, weight, var_raw > 0)
         ctx.mark_non_differentiable(mean, var)
+        ctx.mesh, ctx.count = mesh, count
         return y, mean, var
 
     @staticmethod
     def backward(ctx, dy, _dmean, _dvar):
         x, mean, r, weight, var_live = ctx.saved_tensors
         dims = (0, 2, 3)
-        count = x.numel() // x.shape[1]
+        count = ctx.count
         xc = x.float() - mean[:, None, None]
         dyf = dy.float()
         sum_dy = dyf.sum(dims)
         sum_dy_xc = (dyf * xc).sum(dims)
+        # dx takes the global sums (the statistics depend on every rank's
+        # rows); the weight and bias gradients stay this rank's share, which
+        # the gradient all-reduce sums
+        g_dy, g_dy_xc = sum_dy, sum_dy_xc
+        if ctx.mesh is not None:
+            sums = all_reduce_sum(torch.cat([sum_dy, sum_dy_xc]), ctx.mesh, DATA_AXIS)
+            g_dy, g_dy_xc = sums.chunk(2)
         k1 = weight * r
         # the variance term carries no gradient where the clip at 0 held
         k3 = torch.where(var_live, weight * r ** 3, torch.zeros_like(r))
-        dx = (dyf * k1[:, None, None] - (k1 * sum_dy / count)[:, None, None]
-              - xc * (k3 * sum_dy_xc / count)[:, None, None])
-        return dx.to(x.dtype), sum_dy_xc * r, sum_dy, None
+        dx = (dyf * k1[:, None, None] - (k1 * g_dy / count)[:, None, None]
+              - xc * (k3 * g_dy_xc / count)[:, None, None])
+        return dx.to(x.dtype), sum_dy_xc * r, sum_dy, None, None
+
+
+@contextlib.contextmanager
+def global_batchnorm(module: nn.Module, mesh):
+    """Training-mode BatchNorm of `module` on the statistics of the global
+    batch: each BatchNorm sums its statistics (and, in the backward, its
+    gradient sums) over the mesh's data axis while the context is open. A
+    no-op for mesh None."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.mesh = mesh
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.mesh = None
 
 
 @contextlib.contextmanager
@@ -117,7 +160,8 @@ class BatchNorm(nn.Module):
     running statistics. Training mode normalises with the batch statistics
     (`_BatchNormTrain`) and updates r <- 0.9 r + 0.1 batch with the biased
     batch variance, as flax does (F.batch_norm would update running_var with
-    the unbiased one), except inside a remat recompute (`recomputing`)."""
+    the unbiased one), except inside a remat recompute (`recomputing`).
+    Under `global_batchnorm` the batch is the global one of the data axis."""
 
     MOMENTUM = 0.9  # flax's running-average decay
 
@@ -129,12 +173,13 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.recomputing = False  # set by `recomputing`
+        self.mesh = None  # set by `global_batchnorm`
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
-        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps)
+        y, mean, var = _BatchNormTrain.apply(x, self.weight, self.bias, self.eps, self.mesh)
         if self.recomputing:
             return y
         with torch.no_grad():
@@ -142,6 +187,15 @@ class BatchNorm(nn.Module):
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * var)
         return y
+
+
+def gather_outputs(y: torch.Tensor, layer: nn.Module, dim: int) -> torch.Tensor:
+    """`layer`'s output with its channels (`dim`) all-gathered over the
+    model axis, where tensor-parallel serving keeps only this rank's output
+    channels of its weight (parallel/tp.py's generic rule; `tp_mesh` set);
+    else `y` itself."""
+    mesh = getattr(layer, "tp_mesh", None)
+    return y if mesh is None else all_gather_cat(y, mesh, MODEL_AXIS, dim)
 
 
 class ConvBNAct(nn.Module):
@@ -162,7 +216,7 @@ class ConvBNAct(nn.Module):
         c = self.conv
         x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), None, c.stride, c.padding,
                      c.dilation, c.groups)
-        x = self.bn(x).to(self.dtype)
+        x = self.bn(gather_outputs(x, c, 1)).to(self.dtype)
         return F.silu(x) if self.act else x
 
 
@@ -235,6 +289,9 @@ def dfl_expectation(dist_logits: torch.Tensor, reg_max: int = 16) -> torch.Tenso
 
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    if getattr(layer, "tp_mesh", None) is not None:  # outputs sharded: bias after the gather
+        y = gather_outputs(F.linear(x.to(dtype), layer.weight.to(dtype)), layer, -1)
+        return y if bias is None else y + bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
 
@@ -332,17 +389,24 @@ class TransformerEncoderBlock(nn.Module):
     switched on). None reads `Int8Variants.from_env()` once, here. The
     parameters are the bf16 branch's, so one checkpoint serves both.
     int8_attn: the int8 flash route. Both int8 flags are serving-only:
-    training mode runs the bf16 branch, as JAX does."""
+    training mode runs the bf16 branch, as JAX does.
+
+    tp_serving: the block runs tensor-parallel (ops/teb_tp.py) on the mesh
+    in `tp_mesh`, its parameters holding this rank's shards with the qkv
+    rows canonicalized (parallel/tp.py). Only `inference.Predictor` sets it
+    up; without a mesh the forward raises."""
 
     def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
                  int8_dense: bool = False, int8_attn: bool = False,
-                 int8_variants: Optional[Int8Variants] = None):
+                 int8_variants: Optional[Int8Variants] = None, tp_serving: bool = False):
         super().__init__()
         c = features
         self.dtype, self.norm_dtype, self.attention_impl = dtype, norm_dtype, attention_impl
         self.int8_dense, self.int8_attn = int8_dense, int8_attn
+        self.mlp_ratio = mlp_ratio
+        self.tp_serving, self.tp_mesh = tp_serving, None
         self.int8_variants = int8_variants or Int8Variants.from_env()
         self.heads = _pick_num_heads(c, num_heads, lane_align_heads)
         self.scale = 1.0 / math.sqrt(c // self.heads)
@@ -363,6 +427,10 @@ class TransformerEncoderBlock(nn.Module):
         dt = self.dtype
         h, w = x.shape[2:]
         tokens = _to_tokens(x)
+        if self.tp_serving and not self.training:
+            from transparent_object_detection_tpu_torch.ops.teb_tp import teb_tp_forward
+
+            return _from_tokens(teb_tp_forward(tokens, self), h, w)
         if self.int8_dense and not self.training:
             return _from_tokens(self._forward_int8(tokens), h, w)
         qkv = _linear(self._norm(tokens, self.norm1), self.qkv, dt)
@@ -389,6 +457,18 @@ class TransformerEncoderBlock(nn.Module):
 
     @torch.no_grad()
     def _prepare_int8(self):
+        if self.tp_serving:
+            # JAX's TP routes: the LN folds into the column-parallel qkv and
+            # mlp1 shards; the row-parallel shards carry no bias (it is added
+            # after the all-reduce) and quantize their rows over K/tp
+            return {
+                "qkv": prepare_weights(self.qkv.weight, self.qkv.bias, self.norm1.weight,
+                                       self.norm1.bias),
+                "attn_out": prepare_weights(self.attn_out.weight),
+                "mlp1": prepare_weights(self.mlp1.weight, self.mlp1.bias, self.norm2.weight,
+                                        self.norm2.bias),
+                "mlp2": prepare_weights(self.mlp2.weight),
+            }
         prep = {
             "qkv": prepare_weights(self.qkv.weight, self.qkv.bias, self.norm1.weight,
                                    self.norm1.bias),

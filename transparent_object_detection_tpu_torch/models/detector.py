@@ -41,14 +41,19 @@ class FocusModel(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
                  int8_dense: bool = False, int8_attn: bool = False,
-                 int8_variants: Optional[Int8Variants] = None, remat: bool = False):
+                 int8_variants: Optional[Int8Variants] = None, remat: bool = False,
+                 tp_serving: bool = False):
         super().__init__()
         self.dtype = dtype
+        # tensor-parallel serving of the neck TEBs (ops/teb_tp.py): set, with
+        # the mesh and the sharded weights, on a Predictor's own copy
+        # (parallel.tp.tp_serving_copy); a model built with it alone raises
+        self.tp_serving = tp_serving
         self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl,
                                  int8_attn)
         self.neck = Neck(base_channels, base_depth, deep_mul, num_heads, dtype, norm_dtype,
                          lane_align_heads, attention_impl, int8_dense, int8_attn,
-                         int8_variants, remat)
+                         int8_variants, remat, tp_serving)
         filters = (base_channels * 4, base_channels * 8, int(base_channels * 16 * deep_mul))
         self.head = Head(num_classes, filters, strides, reg_max, dtype)
 

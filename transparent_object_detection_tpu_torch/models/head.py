@@ -14,7 +14,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from transparent_object_detection_tpu_torch.models.blocks import CBAM, ConvBNAct, dfl_expectation
+from transparent_object_detection_tpu_torch.models.blocks import (
+    CBAM,
+    ConvBNAct,
+    dfl_expectation,
+    gather_outputs,
+)
 from transparent_object_detection_tpu_torch.ops.geometry import make_anchors
 
 
@@ -36,8 +41,11 @@ class BranchTower(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.cbam2(self.conv2(self.cbam1(self.conv1(x))))
-        dt = self.dtype
-        return F.conv2d(x, self.out.weight.to(dt), self.out.bias.to(dt))
+        dt, out = self.dtype, self.out
+        if getattr(out, "tp_mesh", None) is not None:  # outputs sharded: bias after the gather
+            y = gather_outputs(F.conv2d(x, out.weight.to(dt)), out, 1)
+            return y + out.bias.to(dt)[:, None, None]
+        return F.conv2d(x, out.weight.to(dt), out.bias.to(dt))
 
 
 class Head(nn.Module):

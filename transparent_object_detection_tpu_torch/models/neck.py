@@ -35,12 +35,13 @@ class FusionNode(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
                  int8_dense: bool = False, int8_attn: bool = False,
-                 int8_variants: Optional[Int8Variants] = None):
+                 int8_variants: Optional[Int8Variants] = None, tp_serving: bool = False):
         super().__init__()
         self.teb = TransformerEncoderBlock(
             in_features, num_heads, dtype=dtype, attention_impl=attention_impl,
             norm_dtype=norm_dtype, lane_align_heads=lane_align_heads,
             int8_dense=int8_dense, int8_attn=int8_attn, int8_variants=int8_variants,
+            tp_serving=tp_serving,
         )
         self.reduce = ConvBNAct(in_features, out_features, 1, dtype=dtype)
         self.cbam = CBAM(out_features, dtype=dtype)
@@ -61,14 +62,14 @@ class Neck(nn.Module):
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
                  attention_impl: Optional[str] = None, int8_dense: bool = False,
                  int8_attn: bool = False, int8_variants: Optional[Int8Variants] = None,
-                 remat: bool = False):
+                 remat: bool = False, tp_serving: bool = False):
         super().__init__()
         self.remat = remat
         c = base_channels
         c5 = int(c * 16 * deep_mul)
         node = lambda cin, cout: FusionNode(cin, cout, num_heads, dtype, norm_dtype,
                                             lane_align_heads, attention_impl, int8_dense,
-                                            int8_attn, int8_variants)
+                                            int8_attn, int8_variants, tp_serving)
         self.h1 = node(c5 + c * 8, c * 8)   # top-down, /16
         self.h2 = node(c * 8 + c * 4, c * 4)  # top-down, /8 == P3 out
         self.h3 = ConvBNAct(c * 4, c * 4, 3, strides=2, dtype=dtype)

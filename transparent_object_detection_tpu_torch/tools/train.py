@@ -5,7 +5,12 @@ YAML/JSON file with {model, train, predict} sections.
         --classes model_data/coco_classes.txt \
         --train-annotations train.txt --val-annotations val.txt [--device cpu]
 
-One device; data-parallel training is not ported yet.
+Data-parallel over every rank of a torchrun launch (one rank a card, NCCL;
+each rank steps on its rows of every global batch, rank 0 writes the logs
+and checkpoints):
+
+    torchrun --nproc-per-node 4 -m transparent_object_detection_tpu_torch.tools.train \
+        ... --data-parallel
 """
 from __future__ import annotations
 
@@ -55,6 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--compute-dtype", default="bfloat16")
     p.add_argument("--no-ema", action="store_true")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="train data-parallel over the ranks of a torchrun launch (the batch "
+                        "sizes are global and must divide the number of ranks)")
     return p.parse_args(argv)
 
 
@@ -120,6 +128,19 @@ def main(argv=None) -> None:
             val_annotation_path=args.val_annotations,
         )
 
+    mesh = None
+    if args.data_parallel:
+        from transparent_object_detection_tpu_torch.parallel import (
+            initialize_multihost,
+            make_mesh,
+            process_index,
+        )
+
+        initialize_multihost(device=args.device)  # before anything is made on a card
+        mesh = make_mesh()
+        if process_index() == 0:
+            print(f"data-parallel over {mesh.shape['data']} ranks")
+
     seed_everything(train_cfg.seed)
     train_lines = read_annotation_file(train_cfg.train_annotation_path)
     val_lines = read_annotation_file(train_cfg.val_annotation_path)
@@ -139,13 +160,13 @@ def main(argv=None) -> None:
         print(f"pretrained: loaded {len(loaded)}, skipped {len(skipped)} tensors")
 
     callbacks = [
-        LossHistory(train_cfg.save_dir),
+        *([LossHistory(train_cfg.save_dir)] if trainer.is_main else []),  # rank 0 logs
         EvalCallback(model_cfg, val_lines, class_names, train_cfg.save_dir,
                      period=train_cfg.eval_period, eval_flag=train_cfg.eval_flag,
                      device=trainer.device),
     ]
     ckpt = CheckpointManager(train_cfg.save_dir, save_ema=train_cfg.ema)
-    trainer.fit(train_lines, val_lines, callbacks=callbacks, checkpointer=ckpt)
+    trainer.fit(train_lines, val_lines, callbacks=callbacks, checkpointer=ckpt, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ from transparent_object_detection_tpu_torch.ops.geometry import (
     make_anchors,
     xywh2xyxy,
 )
+from transparent_object_detection_tpu_torch.parallel.mesh import all_reduce_sum
 from transparent_object_detection_tpu_torch.train.assigner import task_aligned_assign
 
 
@@ -56,12 +57,15 @@ def sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def detection_loss(raw_maps: Sequence[torch.Tensor], target_boxes: torch.Tensor,
-                   target_labels: torch.Tensor,
-                   cfg: LossConfig = LossConfig()) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                   target_labels: torch.Tensor, cfg: LossConfig = LossConfig(),
+                   mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """raw_maps: per level (B, H_l, W_l, 4*reg_max + nc); target_boxes
     (B, M, 4) normalised (cx, cy, w, h), padded slots all zero;
     target_labels (B, M) int. Returns (total, components), 0-d fp32 tensors;
-    the assigner sees detached predictions."""
+    the assigner sees detached predictions. With a data-parallel `mesh`
+    the rows are this rank's share of the global batch and the terms are
+    normalised by the global target score mass, so the ranks' totals (and
+    gradients) sum to the global batch's."""
     nc, reg_max = cfg.num_classes, cfg.reg_max
     b = raw_maps[0].shape[0]
     feat_shapes = tuple((m.shape[1], m.shape[2]) for m in raw_maps)
@@ -90,7 +94,7 @@ def detection_loss(raw_maps: Sequence[torch.Tensor], target_boxes: torch.Tensor,
     target_bboxes = assign.target_bboxes / stride_tensor[None]
     target_scores = assign.target_scores
     fg = assign.fg_mask.float()
-    target_scores_sum = target_scores.sum().clamp(min=1.0)
+    target_scores_sum = all_reduce_sum(target_scores.sum(), mesh).clamp(min=1.0)
 
     cls_targets = target_scores
     if cfg.label_smoothing > 0:

@@ -16,6 +16,14 @@ state structure, so the state carries across the unfreeze boundary, where
 the loaders and lr schedule are rebuilt and the EMA update counter resyncs
 to steps_per_epoch * epoch.
 
+Data parallelism (`mesh`, a 1-D data mesh of parallel/): every rank runs
+the step on its rows of the same global batch, and the step equals JAX's
+step on the global batch: BatchNorm takes the global batch's statistics
+(`models.blocks.global_batchnorm`), the loss is normalised by the global
+target score mass, the gradients are summed over the ranks before the clip,
+and the parameters, optimizer state and EMA stay bit-identical on every
+rank. Rank 0 alone writes checkpoints and logs.
+
 Compute policy, as in JAX: parameters are fp32 and cast to the compute type
 at each use (gradients flow back through the casts to fp32), norms run in
 fp32, and there is no autocast and no loss scaling. The step updates the
@@ -35,7 +43,17 @@ from torch import nn
 from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
 from transparent_object_detection_tpu_torch.data.dataset import DetectionDataset
 from transparent_object_detection_tpu_torch.data.loader import DataLoader, device_prefetch
+from transparent_object_detection_tpu_torch.models.blocks import global_batchnorm
 from transparent_object_detection_tpu_torch.models.detector import build_model, resolve_device
+from transparent_object_detection_tpu_torch.parallel.distributed import process_index
+from transparent_object_detection_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    all_reduce_sum,
+    coalesced,
+    local_batch_slice,
+    replicate_state,
+)
+from transparent_object_detection_tpu_torch.parallel.tp import MODEL_AXIS
 from transparent_object_detection_tpu_torch.train.checkpoints import load_state_tree, state_tree
 from transparent_object_detection_tpu_torch.train.ema import ema_init, ema_update
 from transparent_object_detection_tpu_torch.train.loss import LossConfig, detection_loss
@@ -87,14 +105,37 @@ def loss_config_from(model_cfg: ModelConfig, train_cfg: TrainConfig) -> LossConf
     )
 
 
+def _data_mesh(mesh):
+    """`mesh` for a training step: None, or a mesh without a model axis
+    (tensor-parallel training is not ported)."""
+    if mesh is not None and mesh.size(MODEL_AXIS) > 1:
+        raise NotImplementedError("tensor-parallel training is not ported; train on a "
+                                  "data-parallel mesh (parallel.make_mesh)")
+    return mesh
+
+
+def _global_components(comps: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The ranks' loss components summed: the global batch's (one
+    all-reduce)."""
+    if mesh is None:
+        return comps
+    keys = list(comps)
+    vals = all_reduce_sum(torch.stack([comps[k].detach().float() for k in keys]), mesh)
+    return dict(zip(keys, vals.unbind()))
+
+
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig,
-                    train_cfg: TrainConfig, freeze_backbone: bool = False) -> Callable:
+                    train_cfg: TrainConfig, freeze_backbone: bool = False,
+                    mesh=None) -> Callable:
     """(state, batch, lr) -> (state, components). batch: {"image" (B, H, W, 3)
     float in [0, 1], "boxes" (B, M, 4) normalised cxcywh (padded slots zero),
     "labels" (B, M) int}; lr a float. Components are 0-d fp32 tensors on the
     device (no host synchronisation). With freeze_backbone the backbone's
     gradients are zeroed before the clip and its parameters do not move;
-    its BatchNorm statistics still update."""
+    its BatchNorm statistics still update. With a data-parallel `mesh`,
+    batch holds this rank's rows of the global batch, and the step (and
+    its components) is the global batch's."""
+    mesh = _data_mesh(mesh)
     frozen = ([n for n, f in backbone_frozen_mask(model).items() if f]
               if freeze_backbone else [])
 
@@ -103,10 +144,15 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        out = model(batch["image"])
-        total, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg)
-        total.backward()
+        with global_batchnorm(model, mesh):
+            out = model(batch["image"])
+            total, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg,
+                                          mesh)
+            total.backward()
         with torch.no_grad():
+            if mesh is not None:  # the global batch's gradient: the ranks' sum
+                coalesced([p.grad for p in params.values()],
+                          lambda t: all_reduce_sum(t, mesh, DATA_AXIS))
             if frozen:
                 torch._foreach_zero_([params[n].grad for n in frozen])
             grads = {n: p.grad for n, p in params.items()}
@@ -123,14 +169,17 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
                 ema_update(state.ema_batch_stats, dict(model.named_buffers()),
                            state.ema_updates, train_cfg.ema_decay, train_cfg.ema_tau)
         state.step += 1
-        return state, {k: v.detach() for k, v in comps.items()}
+        return state, _global_components({k: v.detach() for k, v in comps.items()}, mesh)
 
     return step
 
 
-def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True) -> Callable:
+def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True,
+                   mesh=None) -> Callable:
     """(state, batch) -> components: the validation loss in evaluation mode
-    (running statistics) on the raw maps, with the EMA weights by default."""
+    (running statistics) on the raw maps, with the EMA weights by default;
+    with a data-parallel `mesh`, the global batch's from this rank's rows."""
+    mesh = _data_mesh(mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         was_training = model.training
@@ -143,10 +192,11 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True)
                         (batch["image"],), {"decode": False})
                 else:
                     out = model(batch["image"], decode=False)
-                _, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg)
+                _, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg,
+                                          mesh)
         finally:
             model.train(was_training)
-        return comps
+        return _global_components(comps, mesh)
 
     return step
 
@@ -162,7 +212,9 @@ class Trainer:
     `loader_processes`: the loaders assemble batches in a process pool of
     train_cfg.num_workers workers instead of threads (the same batches;
     data/loader.py); the pool's fork server imports the calling script, so
-    its entry point must sit under `if __name__ == "__main__":`."""
+    its entry point must sit under `if __name__ == "__main__":`.
+    `fit(..., mesh=...)` trains data-parallel (every rank of the mesh calls
+    it with the same arguments)."""
 
     def __init__(
         self,
@@ -182,6 +234,7 @@ class Trainer:
                       else build_model(model_cfg, device=self.device, seed=train_cfg.seed))
         self.model.to(self.device)
         self.loss_cfg = loss_config_from(model_cfg, train_cfg)
+        self.mesh = None  # the data-parallel mesh of the running `fit`
         self.history: List[Dict[str, float]] = []
         # host copies of {"params", "batch_stats"} ({name: tensor}), set by fit
         self.variables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
@@ -189,8 +242,14 @@ class Trainer:
 
     # -- loaders -------------------------------------------------------------
 
+    @property
+    def is_main(self) -> bool:
+        """Whether this process writes checkpoints and logs (rank 0)."""
+        return process_index() == 0
+
     def _make_loader(self, lines: Sequence[str], batch_size: int, train: bool) -> DataLoader:
         tc = self.train_cfg
+        mesh = getattr(self, "mesh", None)
         ds = DetectionDataset(
             list(lines),
             input_shape=self.model_cfg.input_shape,
@@ -213,6 +272,8 @@ class Trainer:
             drop_last=True,
             seed=tc.seed,
             use_processes=self.loader_processes,
+            row_shard=0 if mesh is None else mesh.index(DATA_AXIS),
+            row_shards=1 if mesh is None else mesh.size(DATA_AXIS),
         )
 
     # -- main loop -------------------------------------------------------------
@@ -224,9 +285,18 @@ class Trainer:
         callbacks: Sequence[Any] = (),
         checkpointer: Optional[Any] = None,
         resume_from: Optional[str] = None,
+        mesh=None,
     ) -> List[Dict[str, float]]:
+        """mesh: a data-parallel mesh (parallel.make_mesh) to train on: each
+        rank assembles and steps on its rows of every global batch (the
+        batch sizes must divide the mesh), the EvalCallback's Predictor
+        adopts the mesh, and rank 0 alone writes checkpoints and logs."""
         tc = self.train_cfg
         model = self.model
+        self.mesh = mesh = _data_mesh(mesh)
+        if mesh is not None:
+            for bs in {tc.freeze_batch_size, tc.unfreeze_batch_size}:
+                local_batch_slice(bs, mesh)
         opt = build_optimizer(tc, model)
         state = create_train_state(model, opt)
         if resume_from is not None:
@@ -235,6 +305,8 @@ class Trainer:
             if checkpointer is None:
                 raise ValueError("resume_from requires a checkpointer")
             load_state_tree(state, checkpointer.restore_like(resume_from, state_tree(state)))
+        if mesh is not None:  # every rank starts from rank 0's state
+            replicate_state(state, mesh)
 
         frozen_phase = tc.freeze_train and tc.init_epoch < tc.freeze_epoch
         batch_size = tc.freeze_batch_size if frozen_phase else tc.unfreeze_batch_size
@@ -245,13 +317,14 @@ class Trainer:
             # The freeze-phase optimizer differs only in its weight-decay
             # mask: the same state structure, so opt_state carries across.
             phase_opt = build_optimizer(tc, model, freeze_backbone=True) if frozen else opt
-            step_fn = make_train_step(model, phase_opt, self.loss_cfg, tc, freeze_backbone=frozen)
+            step_fn = make_train_step(model, phase_opt, self.loss_cfg, tc, freeze_backbone=frozen,
+                                      mesh=mesh)
             tl = self._make_loader(train_lines, bs, train=True)
             vl = self._make_loader(val_lines, bs, train=False)
             return sched, step_fn, tl, vl
 
         sched, train_step, train_loader, val_loader = build_phase(batch_size, frozen_phase)
-        eval_step = make_eval_step(model, self.loss_cfg, use_ema=tc.ema)
+        eval_step = make_eval_step(model, self.loss_cfg, use_ema=tc.ema, mesh=mesh)
         steps_per_epoch = len(train_loader)
         if steps_per_epoch == 0 or len(val_loader) == 0:
             raise ValueError("dataset too small for the batch size")
@@ -297,7 +370,7 @@ class Trainer:
                 "epoch_seconds": time.time() - t0,
             }
             self.history.append(logs)
-            if self.verbose:
+            if self.verbose and self.is_main:
                 print(
                     f"epoch {epoch + 1}/{tc.unfreeze_epoch} "
                     f"loss={logs['loss']:.4f} val_loss={logs['val_loss']:.4f} "
@@ -307,7 +380,7 @@ class Trainer:
             for cb in callbacks:
                 cb.on_epoch_end(epoch + 1, logs, self, state)
 
-            if checkpointer is not None:
+            if checkpointer is not None and self.is_main:
                 is_best = logs["val_loss"] < best_val
                 best_val = min(best_val, logs["val_loss"])
                 checkpointer.save_epoch(state, epoch + 1, is_best=is_best,
