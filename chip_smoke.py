@@ -265,10 +265,34 @@
    detections equal to no mesh's, one bf16 data-parallel step within the
    limits or its floor. Then rows 1, 3, 6 and 7 at their TP-local shapes
    (tp 2 and 4, batch 2) timed in this process beside bound, plain version
-   and library, each launch held against plain. The ranks' seconds are
-   printed as those of ranks sharing one card (no scaling figure).
-   `python3 chip_smoke.py parallel` runs this phase alone (after the
-   build), without the result line.
+   and library, each launch held against plain. Last on the ranks,
+   tensor-parallel training (`_parallel_tp_train`, PARALLEL_TP_TRAIN):
+   make_train_step on a (data, model) mesh after shard_train_state_tp, at
+   dp2xtp2 (one fp32 step, two bf16), dp1xtp4 (fp32 and bf16) and dp1xtp2
+   (fp32), a clip of TP_TRAIN_CLIP that bites, each step against one
+   process's step from the whole state gathered back (fp32 within the
+   train slice's limits; bf16 printed beside the reordering floor); each
+   rank's launches of rows 9-11 in its first step against the TP training
+   route table (`tp_train_expected`), the replicated leaves equal across
+   each model group, its peak memory; two planted faults rejected (the
+   backward all-reduce of copy_to_model skipped, the clip without the model
+   axis's sum): past a limit or with the replicated leaves differing. Then
+   rows 9-11 at the bf16 TP steps' local shapes (TP_TRAIN_SHAPES) held
+   against plain with the train kernel phase's faults and timed. The
+   ranks' seconds are printed as those of ranks sharing one card (no
+   scaling figure). `python3 chip_smoke.py parallel` runs this phase alone
+   (after the build), without the result line; `python3 chip_smoke.py
+   int8_1x1` the int8 1x1 phases alone (after the variant slice in the
+   full run): qmm and quant_rows at the routed convs' shapes against plain
+   with their planted faults; ModelConfig(int8_1x1=True) alone and with
+   int8_dense + int8_attn at phi='s' on the bf16 run's weights: launches of
+   the counted main path at batch 32, 16, 2 and 1 against
+   `expected_launches` plus `int8_1x1_routes`; `decoded` and the detection
+   sets at batch 16 against plain within the int8 slice limits, which
+   reject a qmm K slab dropped; every launch of the batch-16 int8_1x1
+   forward against plain, timed beside bound, plain and torch._int_mm with
+   the epilogue; batch-32 imgs/s of bf16, int8, int8_1x1 and both, two
+   rounds; QuantDense's launches against plain.
 20. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
@@ -291,7 +315,8 @@
    TFLOP/s; rows 1, 3, 6 and 7's phi='s' entries also carry rank 0's
    launches of each mesh of phase 19 as `parallel_launches`, and those rows
    at their TP-local shapes are entries of their own, "... tp=2" and
-   "... tp=4"), then {"ok": true,
+   "... tp=4", as are rows 9-11 at the TP training's local shapes and rows
+   6 and 7 at the int8 1x1 convs ("... int8_1x1")), then {"ok": true,
    "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
@@ -1854,6 +1879,8 @@ def _library_qmm(args):
             out = out + bias
         if act == "gelu":
             out = F.gelu(out, approximate="tanh")
+        elif act == "silu":
+            out = F.silu(out)
         if res is not None:
             out = out + res.float()
         return out.bfloat16()
@@ -2728,6 +2755,203 @@ def variant_slice_phase(card: str, bf16_model, same_run: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the int8 1x1 route (ModelConfig(int8_1x1=True)) and QuantDense
+# ---------------------------------------------------------------------------
+
+# The routed convs' qmm / quant_rows launch shapes at phi='s' 640x640,
+# batch 32 (rows, K, N): dark4_c2f.cv2; dark5_c2f.cv2, dark5_sppf.cv2 and
+# neck.h6.reduce; neck.h1.reduce; neck.h4.reduce (`int8_1x1_routes`)
+INT8_1X1_SHAPES = (("dark4 cv2", 51200, 3072, 1024), ("dark5 cv2 / sppf cv2 / h6 reduce",
+                                                     12800, 2048, 1024),
+                   ("h1 reduce", 51200, 2048, 1024), ("h4 reduce", 51200, 1536, 1024))
+INT8_1X1_CONFIGS = {"int8_1x1": dict(int8_1x1=True),
+                    "int8_1x1+int8": dict(int8_1x1=True, int8_dense=True, int8_attn=True)}
+INT8_1X1_BATCHES = (32, 16, 2, 1)
+INT8_1X1_PARITY_BATCH = 16  # every routed conv takes the route (batch 4: 3 of 6)
+QUANT_DENSE_SHAPE = (4096, 1024, 1024)  # rows, in, out
+
+
+def int8_1x1_kernel_phase(shrink: int = 1) -> dict:
+    """quant_rows and qmm (SiLU epilogue, no residual, bf16 out) at the
+    routed convs' shapes (INT8_1X1_SHAPES) against their plain versions,
+    every planted fault of both rejected (`_qmm_case`). Returns the largest
+    value error per kernel."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    err = {"quant_rows": 0.0, "qmm": 0.0}
+    for name, m, k, n in INT8_1X1_SHAPES:
+        m //= shrink
+        x = (torch.randn(m, k, generator=gen, device=DEVICE) * 2 + 0.5).bfloat16()
+        r, _ = _qmm_case(f"int8_1x1 {name}", x, None, m, k, n, 0, "silu", False, ln=False)
+        for key in err:
+            err[key] = max(err[key], r[key]["max_abs_err"])
+    return err
+
+
+def _batch_imgs_per_s(predictor, raw, shapes, iters: int = 3) -> float:
+    import torch
+
+    with torch.inference_mode():
+        predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
+    return raw.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def int8_1x1_phase(card: str, bf16_model) -> dict:
+    """The int8 1x1 route at phi='s' 640x640 on the bf16 run's weights, alone
+    and beside int8_dense + int8_attn (INT8_1X1_CONFIGS): each model's
+    counted main path (Predictor.detect_raw_batch, counts reset just before
+    and read just after) at batch 32, 16, 2 and 1 against the route table
+    (`expected_launches` plus one quant_rows and one qmm a conv of
+    `int8_1x1_routes`: six convs from batch 16 up, none at 2 and 1);
+    `decoded` and the detection sets at batch 16 against the same model on
+    plain versions within the int8 slice's limits, which must reject a K
+    slab dropped from qmm; every launch of the int8 1x1 model's batch-16
+    forward against its plain version, timed beside its bound, plain
+    version and torch._int_mm with the epilogue (`int8_path_calls`); the
+    batch-32 imgs/s of bf16, int8, int8_1x1 and int8_1x1 + int8 on the same
+    weights and class biases, two rounds in turned order (read, not
+    claimed: JAX turned the route off after a TPU reading); QuantDense's
+    one launch pair against its plain version."""
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.models.blocks import QuantDense
+    from transparent_object_detection_tpu_torch.models.detector import (
+        build_model,
+        int8_1x1_routes,
+        set_attention_impl,
+    )
+    from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
+    pcfg = PredictConfig()
+    rng = np.random.default_rng(SEED + 9)
+    raw = rng.integers(0, 256, size=(32, 480, 640, 3), dtype=np.uint8)
+    shapes = np.tile(np.array([[480, 640]], np.float32), (32, 1))
+    models = {"bf16": bf16_model}
+    for tag, flags in (("int8", dict(int8_dense=True, int8_attn=True)), *INT8_1X1_CONFIGS.items()):
+        m = build_model(ModelConfig(**flags), device=DEVICE, seed=None,
+                        int8_variants=Int8Variants())
+        m.load_state_dict(bf16_model.state_dict())  # the bf16 run's weights and class biases
+        models[tag] = m
+    cfg = ModelConfig()
+    preds = {tag: Predictor(m, cfg, pcfg, device=DEVICE) for tag, m in models.items()}
+
+    # batch-32 imgs/s on the same weights and class biases, two rounds
+    order = list(models)
+    rates = {tag: [] for tag in order}
+    for turn in (order, order[::-1]):
+        for tag in turn:
+            rates[tag].append(_batch_imgs_per_s(preds[tag], raw, shapes))
+    perf = {"card": card, "batch32_imgs_per_s": rates}
+    print(json.dumps({"int8_1x1_batch32_imgs_per_s": perf}), flush=True)
+
+    out = {"perf": perf, "launches": {}}
+    routes = {b: int8_1x1_routes(cfg, b) for b in INT8_1X1_BATCHES}
+    print(json.dumps({"int8_1x1_route_table": {b: sorted(r) for b, r in routes.items()}}),
+          flush=True)
+    check(len(routes[32]) == len(routes[16]) == 6 and not routes[2] and not routes[1],
+          f"int8_1x1 route table at phi='s': {routes}")
+    for tag in INT8_1X1_CONFIGS:
+        base = "int8" if tag.endswith("+int8") else "bf16"
+        got = {}
+        for b in INT8_1X1_BATCHES:
+            reset_counts()
+            preds[tag].detect_raw_batch(raw[:b], shapes[:b])
+            torch.cuda.synchronize()
+            got[b] = read_counts()
+            want = expected_launches("s", b, base)
+            want["qmm"] += len(routes[b])
+            want["quant_rows"] += len(routes[b])
+            check(got[b] == want, f"{tag} batch {b}: launches {got[b]}, route table {want}")
+        out["launches"][tag] = got
+        print(json.dumps({"int8_1x1_main_path_launches": tag, "per_batch": got}), flush=True)
+
+    # parity at batch 16, with class biases for INT8_CANDIDATES_PER_IMAGE
+    b = INT8_1X1_PARITY_BATCH
+    images = letterbox_batch(torch.as_tensor(raw[:b], device=DEVICE).float() / 255.0,
+                             cfg.input_shape)
+    out["parity"] = {}
+    for tag in INT8_1X1_CONFIGS:
+        model, pred = models[tag], preds[tag]
+        _set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE)
+
+        def run_plain():
+            set_attention_impl(model, "plain")
+            try:
+                return model(images)["decoded"], pred.detect_raw_batch(raw[:b], shapes[:b])
+            finally:
+                set_attention_impl(model, None)
+
+        with torch.inference_mode():
+            dec_k = model(images)["decoded"]
+            dets = pred.detect_raw_batch(raw[:b], shapes[:b])
+            dec_p, dets_p = run_plain()
+            with QMM_FAULTS["qmm_k_slab_dropped"](QM):
+                dec_f, dets_f = run_plain()
+        check(bool(torch.isfinite(dec_k).all()), f"{tag}: non-finite decoded")
+
+        def against_plain(dec, d):
+            score = float((dec[..., 4:] - dec_p[..., 4:]).abs().max())
+            return {"decoded_box_max_abs_px": float((dec[..., :4] - dec_p[..., :4]).abs().max()),
+                    "decoded_score_max_abs": score,
+                    "matched_in_plain": match_detections(d, dets_p, pcfg, score,
+                                                         INT8_BOX_LIMIT_PX),
+                    "plain_matched_here": match_detections(dets_p, d, pcfg, score,
+                                                           INT8_BOX_LIMIT_PX)}
+        sound, fault = against_plain(dec_k, dets), against_plain(dec_f, dets_f)
+        out["parity"][tag] = {"kernels": sound, "qmm_k_slab_dropped": fault}
+        print(json.dumps({"int8_1x1_parity": tag, **out["parity"][tag],
+                          "limits": {"box_px": INT8_BOX_LIMIT_PX, "score": INT8_SCORE_LIMIT}}),
+              flush=True)
+        check(sound["decoded_box_max_abs_px"] <= INT8_BOX_LIMIT_PX
+              and sound["decoded_score_max_abs"] <= INT8_SCORE_LIMIT,
+              f"{tag}: decoded against plain {sound}")
+        for key in ("matched_in_plain", "plain_matched_here"):
+            check(sound[key]["compared"] > 0 and sound[key]["unmatched"] == 0,
+                  f"{tag}: detection sets differ {sound[key]}")
+        check(fault["decoded_box_max_abs_px"] > INT8_BOX_LIMIT_PX
+              or fault["decoded_score_max_abs"] > INT8_SCORE_LIMIT,
+              f"{tag}: the limits do not reject qmm_k_slab_dropped: {fault}")
+    out["rows"] = int8_path_calls(models["int8_1x1"], images)
+
+    # QuantDense: one quant_rows and one qmm launch against its plain version
+    m, k, n = QUANT_DENSE_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    with torch.device(DEVICE):
+        qd = QuantDense(k, n)
+    x = torch.randn(m, k, generator=gen, device=DEVICE).bfloat16()
+    with torch.inference_mode():
+        reset_counts()
+        y = qd(x)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        qd.attention_impl = "plain"
+        y_p = qd(x)
+        qd.attention_impl = None
+    reading = int8_reading(y, y_p)
+    out["quant_dense"] = {"m": m, "k": k, "n": n, "qmm": counts["qmm"],
+                          "quant_rows": counts["quant_rows"], **reading}
+    print(json.dumps({"quant_dense": out["quant_dense"]}), flush=True)
+    check(counts["qmm"] == 1 and counts["quant_rows"] == 1 and reading["bar_used"] <= 1.0,
+          f"QuantDense: {out['quant_dense']}")
+    for tag in ("int8", *INT8_1X1_CONFIGS):
+        del models[tag], preds[tag]
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # training: flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv and the train step
 # ---------------------------------------------------------------------------
 
@@ -3361,7 +3585,7 @@ def train_launch_counts():
     return resets, read
 
 
-def train_expected(cfg) -> dict:
+def train_expected(cfg, tp: int = 1) -> dict:
     """Launches of each kernel in one training step of `cfg` (its scale and
     input, remat or not), from the training route table: one forward, dq and
     dk/dv launch a site that leaves the naive route, the forward of packed
@@ -3372,7 +3596,9 @@ def train_expected(cfg) -> dict:
     fp32 backward on the f32_sm90 kernels, the bf16 one-head backward
     (dark3, folded heads) on the single_sm90 kernels where `bwd_form` sends
     it (phi 'n', 's', 'm'); with remat, every neck site's forward runs
-    again in the backward's recompute; no serving kernel."""
+    again in the backward's recompute; no serving kernel. With tp > 1, a
+    tensor-parallel rank's: each neck TEB on heads / tp heads where tp
+    divides its head count."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention as A
@@ -3389,6 +3615,8 @@ def train_expected(cfg) -> dict:
     dtype = getattr(torch, cfg.compute_dtype)
     suffix = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
+        if tp > 1 and name != "dark3" and heads % tp == 0:  # a TP rank's local heads
+            cq, cv, heads = cq // tp, cv // tp, heads // tp
         route = A.train_route(n, cq, heads, cv)
         if route == "naive":
             continue
@@ -5940,11 +6168,231 @@ def _parallel_train(mesh, state_dict, batch_np, compute_dtype: str, steps: int) 
     return out
 
 
+# tensor-parallel training: (mesh of PARALLEL_MESHES, compute type, steps,
+# planted faults, reordering floor) in this order, every rank of the mesh
+# taking part; phi='s' at the global batch of PARALLEL_BATCH, with a clip of
+# TP_TRAIN_CLIP that bites (the random-weight model's gradient norm is far
+# above it). dp1xtp4 (ragged h2/h4) and dp1xtp2 read their steps beside
+# dp2xtp2's floors: one process's step does not depend on the mesh
+PARALLEL_TP_TRAIN = (("dp2xtp2", "float32", 1, True, True), ("dp2xtp2", "bfloat16", 1, False, True),
+                     ("dp1xtp4", "bfloat16", 1, False, False),
+                     ("dp1xtp2", "float32", 1, False, False))
+TP_TRAIN_CLIP = 1.0
+# rows 9-11 at the TP-local shapes of the bf16 TP steps (B, N, q/k, v,
+# heads): dp2xtp2's ranks hold 2 rows and half the heads; dp1xtp4's 4 rows
+# and a quarter of h1's, every head of the ragged h2 and h4
+TP_TRAIN_SHAPES = {2: {"h1 tp=2": (2, 1600, 1024, 1024, 4), "h2 tp=2": (2, 6400, 768, 768, 3),
+                       "h4 tp=2": (2, 1600, 768, 768, 3)},
+                   4: {"h1 tp=4": (4, 1600, 512, 512, 2),
+                       "h2 tp=4 gathered": (4, 6400, 1536, 1536, 6),
+                       "h4 tp=4 gathered": (4, 1600, 1536, 1536, 6)}}
+
+
+def tp_train_expected(tp: int, cfg) -> dict:
+    """Launches of rows 9-11 a rank makes in one tensor-parallel training
+    step at tp: `train_expected` with each neck TEB on its local heads
+    (heads / tp of the same width) where tp divides its head count, on every
+    head where it does not (ragged: all-gathered); dark3 as on one device."""
+    return train_expected(cfg, tp)
+
+
+@contextlib.contextmanager
+def tp_train_fault(fault: str):
+    """The planted faults of tensor-parallel training: the gradient of a
+    column-parallel layer's input left unsummed over the model axis
+    (copy_to_model's backward all-reduce skipped), or the clip's global norm
+    without the model axis's sum of the sharded leaves' squares."""
+    from transparent_object_detection_tpu_torch.parallel import mesh as M
+    from transparent_object_detection_tpu_torch.train import optimizer as O
+
+    if fault == "copy_to_model_grad_not_reduced":
+        real = M._CopyToModel.backward
+        M._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+        try:
+            yield
+        finally:
+            M._CopyToModel.backward = real
+    else:
+        real = O.all_reduce_sum
+        O.all_reduce_sum = lambda t, mesh, axis=None: t
+        try:
+            yield
+        finally:
+            O.all_reduce_sum = real
+
+
+TP_TRAIN_FAULTS = ("copy_to_model_grad_not_reduced", "clip_without_model_axis_sum")
+
+
+def _model_group_mismatches(state, mesh) -> dict:
+    """{kind: leaves in which this rank differs from another rank of its
+    model group} over the replicated leaves (parameters, gradients,
+    momenta, EMA, BatchNorm statistics and their EMA), summed over the
+    group: each leaf's bits compared through two checksums of its 32-bit
+    words, gathered over the model axis."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+        all_gather_list,
+        all_reduce_sum,
+    )
+
+    params = dict(state.model.named_parameters())
+    rep = [n for n, spec in state.model.tp_specs.items() if MODEL_AXIS not in spec]
+    kinds = {"params": [params[n] for n in rep], "grads": [params[n].grad for n in rep],
+             "momenta": [state.opt_state["trace"][n] for n in rep],
+             "ema": [state.ema_params[n] for n in rep],
+             "batch_stats": list(state.model.buffers()),
+             "ema_batch_stats": list(state.ema_batch_stats.values())}
+
+    def sums(t):
+        bits = t.detach().float().contiguous().view(torch.int32).reshape(-1).long()
+        weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+        return torch.stack([bits.sum(), (bits * weights).sum()])
+    names = list(kinds)
+    mine = torch.stack([sums(t) for k in names for t in kinds[k]])
+    owner = torch.tensor([i for i, k in enumerate(names) for _ in kinds[k]], device=mine.device)
+    bad = torch.zeros(len(names), dtype=torch.long, device=mine.device)
+    for other in all_gather_list(mine, mesh, MODEL_AXIS):
+        differs = (other != mine).any(dim=1)
+        bad.index_add_(0, owner, differs.long())
+    bad = all_reduce_sum(bad, mesh, MODEL_AXIS)
+    return dict(zip(names, (int(b) for b in bad.tolist())))
+
+
+def _parallel_tp_train(mesh, state_dict, batch_np, compute_dtype: str, steps: int,
+                       faults: bool, floor: bool) -> dict:
+    """`steps` tensor-parallel steps in `compute_dtype` on the ranks of
+    `mesh` (parallel.tp.shard_train_state_tp after replicate_state; each
+    data index on its rows of the global batch). Before each, the mesh's
+    first rank runs one process's step on the whole global batch from the
+    same state (after the first, the whole state gathered back,
+    `gather_train_state_tp`), with `floor` before the first also on the
+    batch's rows in another order; each TP step's gathered state against it
+    (`compare_steps`). The first step's launches of rows 9-11 on this rank;
+    the replicated leaves differing across the model group; this rank's
+    peak memory. With `faults`, one step from the first weights under each
+    of TP_TRAIN_FAULTS against the first reference step, with the leaves
+    differing."""
+    import copy
+
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.parallel.mesh import replicate_state, shard_batch
+    from transparent_object_detection_tpu_torch.parallel.tp import (
+        gather_train_state_tp,
+        shard_train_state_tp,
+    )
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig(**PARALLEL_CFG, compute_dtype=compute_dtype)
+    tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True, grad_clip_norm=TP_TRAIN_CLIP)
+    lc = T.loss_config_from(cfg, tcfg)
+    first = mesh.ranks[0] == torch.distributed.get_rank()
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch_np.items()}
+    local = shard_batch(batch, mesh)
+    perm = torch.tensor([1, 0, 3, 2], device=DEVICE)  # rows swapped within each data half
+    permuted = {k: v[perm] for k, v in batch.items()}
+    resets, read = train_launch_counts()
+
+    def fresh():
+        model = build_model(cfg, device=DEVICE, seed=None)
+        if first:
+            model.load_state_dict(state_dict)
+        replicate_state(model, mesh)
+        model.train()
+        opt = build_optimizer(tcfg, model)
+        return model, opt, T.create_train_state(model, opt)
+
+    def tp_layout(model, opt, state):
+        shard_train_state_tp(state, mesh)
+        return T.make_train_step(model, opt, lc, tcfg, mesh=mesh)
+
+    out = {"steps": [], "coords": mesh.coords}
+    model, opt, state = fresh()
+    if first:
+        ref_model = copy.deepcopy(model)
+        ref_opt = build_optimizer(tcfg, ref_model)
+        ref_state = T.create_train_state(ref_model, ref_opt)
+        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg)
+    step = tp_layout(model, opt, state)
+    tp_s = 0.0
+    for k in range(steps):
+        whole = gather_train_state_tp(state, mesh) if k else None  # first: ref_model's state
+        if first:
+            snap = _model_snapshot(*((whole.model, whole) if k else (ref_model, ref_state)))
+            _restore(ref_model, ref_state, snap)
+            old = _step_record(ref_model, ref_state)
+            ref_state, comps = ref_step(ref_state, batch, TRAIN_LR)
+            ref = _step_record(ref_model, ref_state, comps)
+            if k == 0:
+                if floor:
+                    _restore(ref_model, ref_state, snap)
+                    ref_state, comps = ref_step(ref_state, permuted, TRAIN_LR)
+                    out["floor"] = compare_steps(_step_record(ref_model, ref_state, comps), ref,
+                                                 old)
+                out["grad_norm"] = float(sum(float(g.double().square().sum())
+                                             for g in ref["grads"].values()) ** 0.5)
+                old0, ref0 = old, ref
+            del snap
+        del whole
+        torch.cuda.synchronize()
+        if k == 0:
+            for reset in resets:
+                reset()
+        t1 = time.perf_counter()
+        state, comps = step(state, local, TRAIN_LR)
+        torch.cuda.synchronize()
+        tp_s += time.perf_counter() - t1
+        if k == 0:
+            out["launches"] = read()
+        whole = gather_train_state_tp(state, mesh)
+        if first:
+            out["steps"].append(compare_steps(_step_record(whole.model, whole, comps), ref, old))
+            del ref, old
+        del whole
+        torch.cuda.empty_cache()
+    out["tp_steps_s"] = tp_s
+    out["mismatched_leaves"] = _model_group_mismatches(state, mesh)
+    out["expected"] = tp_train_expected(mesh.size("model"), cfg)
+    if first:
+        del ref_model, ref_state, ref_step
+    del model, state, step
+    torch.cuda.empty_cache()
+    out["faults"] = {}
+    for fault in TP_TRAIN_FAULTS if faults else ():
+        model, opt, state = fresh()
+        step = tp_layout(model, opt, state)
+        with tp_train_fault(fault):
+            state, comps = step(state, local, TRAIN_LR)
+        whole = gather_train_state_tp(state, mesh)
+        reading = {"mismatched_leaves": _model_group_mismatches(state, mesh)}
+        if first:
+            reading.update(compare_steps(_step_record(whole.model, whole, comps), ref0, old0))
+        out["faults"][fault] = reading
+        del model, state, step, whole
+        torch.cuda.empty_cache()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"parallel_tp_train": compute_dtype, "rank": mesh.coords,
+                      "mesh": dict(mesh.shape), "s": out["s"], "peak_gib": out["peak_gib"],
+                      "tp_steps_s": tp_s, "launches_match": out["launches"] == out["expected"]}),
+          flush=True)
+    return out
+
+
 def parallel_rank(path: str) -> dict:
     """One of PARALLEL_WORLD ranks sharing the card on gloo (CUDA tensors):
     every mesh of PARALLEL_MESHES serving bf16 and int8 (`_parallel_serve`,
-    this rank's meshes), and its part of the data-parallel training of
-    PARALLEL_TRAIN (`_parallel_train`). Only each
+    this rank's meshes), its part of the data-parallel training of
+    PARALLEL_TRAIN (`_parallel_train`) and of the tensor-parallel training
+    of PARALLEL_TP_TRAIN (`_parallel_tp_train`). Only each
     mesh's first rank loads the weights; the Predictor and
     `replicate_state` broadcast them."""
     import torch
@@ -5992,8 +6440,12 @@ def parallel_rank(path: str) -> dict:
     out["train"] = {dtype: _parallel_train(mesh, state, data["train_batch"], dtype,
                                            PARALLEL_TRAIN[dtype][1])
                     for dtype, mesh in train_meshes.items() if mesh.member}
-    out["s"] = time.perf_counter() - t0
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["tp_train"] = {(name, dtype): _parallel_tp_train(meshes[name], state, data["train_batch"],
+                                                         dtype, steps, faults, floor)
+                       for name, dtype, steps, faults, floor in PARALLEL_TP_TRAIN
+                       if meshes[name].member}
+    out["s"] = time.perf_counter() - t0
     return out
 
 
@@ -6121,6 +6573,24 @@ def tp_local_timing(model, int8_model) -> dict:
     return out
 
 
+def tp_train_kernel_entries(par: dict) -> list:
+    """The kernels-line entries of rows 9-11 at the bf16 TP steps' local
+    shapes ("... sm90 tp=2", "... sm90 tp=4"; timed in one process after the
+    ranks, TP_TRAIN_SHAPES): their launches rank 0's in the first counted
+    bf16 step of dp2xtp2 (tp 2) and dp1xtp4 (tp 4)."""
+    jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
+    src = "transparent_object_detection_tpu_torch/csrc/"
+    out = []
+    for tp, rows in par["tp_train_rows"].items():
+        launches = par["tp_train_launches"][tp]
+        for name, source, line in (("flash_fwd_lse", "flash_fwd_sm90.cu", 63),
+                                   ("flash_bwd_dq", "flash_bwd_sm90.cu", 170),
+                                   ("flash_bwd_dkv", "flash_bwd_sm90.cu", 197)):
+            out.append(kernel_entry(f"{name} sm90 tp={tp}", src + source, f"{jv}:{line}",
+                                    rows[name], launches[name + "_sm90"]))
+    return out
+
+
 def parallel_kernel_entries(par: dict) -> list:
     """The kernels-line entries of rows 1, 3, 6 and 7 at their TP-local
     shapes (`tp_local_timing`, batch 2), "... tp=2" and "... tp=4": their
@@ -6143,6 +6613,62 @@ def parallel_kernel_entries(par: dict) -> list:
         out.append(int8_kernel_entry(f"quant_rows tp={tp}", src + "quant_matmul.cu",
                                      f"{jq}:408", rows["quant_rows"], int8["quant_rows"], 0.0))
     return out
+
+
+def _tp_train_report(ranks, limits, readings) -> dict:
+    """The checks of the tensor-parallel training (PARALLEL_TP_TRAIN) on the
+    ranks' results, printed first: every rank's first-step launches of rows
+    9-11 equal to `tp_train_expected`; no replicated leaf differing across
+    a model group; the clip biting (the reference's gradient norm above
+    TP_TRAIN_CLIP); fp32 steps within the train slice's limits against one
+    process's step from the same state, bf16 steps printed beside one
+    process's step on the rows reordered; each planted fault rejected (past
+    a limit, or replicated leaves differing). Returns rank 0's launches of
+    the bf16 steps by tp."""
+    report, launches, floors, failed = {}, {}, {}, []
+    for name, dtype, steps, faults, floor in PARALLEL_TP_TRAIN:
+        mine = [r for r in ranks if (name, dtype) in r["tp_train"]]
+        first = mine[0]["tp_train"][name, dtype]
+        if floor:
+            floors[dtype] = readings(first["floor"])
+        rep = {"steps": [readings(c) for c in first["steps"]],
+               "floor_rows_reordered": floors[dtype], "grad_norm": first["grad_norm"],
+               "launches": first["launches"], "expected": first["expected"],
+               "leaves_differing": {r["rank"]: r["tp_train"][name, dtype]["mismatched_leaves"]
+                                    for r in mine},
+               "peak_gib": {r["rank"]: r["tp_train"][name, dtype]["peak_gib"] for r in mine},
+               "tp_steps_s": first["tp_steps_s"], "s": first["s"], "faults": {}}
+        for r in mine:
+            t = r["tp_train"][name, dtype]
+            if t["launches"] != t["expected"]:
+                failed.append(f"TP train {name} {dtype} rank {r['rank']}: launches "
+                              f"{t['launches']}, route table {t['expected']}")
+            if any(t["mismatched_leaves"].values()):
+                failed.append(f"TP train {name} {dtype} rank {r['rank']}: replicated leaves "
+                              f"differ across the model group {t['mismatched_leaves']}")
+        if first["grad_norm"] <= TP_TRAIN_CLIP:
+            failed.append(f"TP train {name} {dtype}: the clip does not bite "
+                          f"({first['grad_norm']})")
+        for fault, f in first["faults"].items():
+            differing = sum(sum(r["tp_train"][name, dtype]["faults"][fault]["mismatched_leaves"]
+                                .values()) for r in mine)
+            rep["faults"][fault] = {**readings(f), "leaves_differing": differing}
+            if not (differing or any(readings(f)[k] > limits[k] for k in limits)):
+                failed.append(f"TP train {name} {dtype}: {fault} not rejected: "
+                              f"{rep['faults'][fault]}")
+        if dtype == "float32":
+            if not all(r[k] <= limits[k] for r in rep["steps"] for k in limits):
+                failed.append(f"TP train {name} fp32 against one process: {rep['steps']} "
+                              f"(limits {limits})")
+        else:
+            if not (len(rep["steps"]) == steps and all(
+                    math.isfinite(v) for r in rep["steps"] for v in r.values())):
+                failed.append(f"TP train {name} bf16 steps: {rep['steps']}")
+            launches[PARALLEL_MESHES[name][0]] = first["launches"]  # by tp
+        report[f"{name} {dtype}"] = rep
+    print(json.dumps({"parallel_tp_training": report, "limits": limits}), flush=True)
+    check(not failed, "; ".join(failed))
+    return launches
 
 
 def parallel_phase(card: str) -> dict:
@@ -6300,13 +6826,26 @@ def parallel_phase(card: str) -> dict:
     check(all(nccl_step[k] <= max(limits[k], nccl_floor[k]) for k in limits),
           f"NCCL data-parallel step against one process: {nccl_step} (floor {nccl_floor})")
 
+    tp_launches = _tp_train_report(ranks, limits, readings)
+
     t2 = time.perf_counter()
     timing = tp_local_timing(model, int8_model)
     del model, int8_model
     torch.cuda.empty_cache()
     tmp.cleanup()
+    # rows 9-11 at the bf16 TP steps' local shapes, held against plain with
+    # their planted faults and timed (the train kernel phase's checks)
+    tp_train_rows = {tp: train_kernel_phase(shapes) for tp, shapes in TP_TRAIN_SHAPES.items()}
+    # the fp32 training state a rank holds at phi 'l' and 'x' (from shapes on
+    # the meta device: parameters, gradients, momentum, EMA; no activations)
+    from transparent_object_detection_tpu_torch.tools import tp_memory
+
+    print(json.dumps({"tp_train_state_bytes_per_rank": {
+        r["phi"]: {tp: r[f"tp{tp}_train_bytes"] for tp in (1, 2, 4, 8)}
+        for r in tp_memory.rows() if r["phi"] in ("l", "x")}}), flush=True)
     out = {"launches": launches, "timing": timing, "ranks_s": ranks_s,
-           "timing_s": time.perf_counter() - t2, "setup_s": setup_s}
+           "timing_s": time.perf_counter() - t2, "setup_s": setup_s,
+           "tp_train_launches": tp_launches, "tp_train_rows": tp_train_rows}
     print(json.dumps({"parallel_phase_s": {k: out[k] for k in ("setup_s", "ranks_s",
                                                                "timing_s")}}), flush=True)
     return out
@@ -6346,8 +6885,18 @@ def main() -> int:
         return out
 
     if sys.argv[1:] == ["parallel"]:  # the parallel phase alone, no result line
-        print(json.dumps({"parallel_kernels": parallel_kernel_entries(
-            phase("parallel", parallel_phase, card))}))
+        par = phase("parallel", parallel_phase, card)
+        print(json.dumps({"parallel_kernels": parallel_kernel_entries(par)
+                          + tp_train_kernel_entries(par)}))
+        return 0
+    if sys.argv[1:] == ["int8_1x1"]:  # the int8 1x1 route alone (bf16 weights), no result line
+        from transparent_object_detection_tpu_torch.config import ModelConfig
+        from transparent_object_detection_tpu_torch.models.detector import build_model
+
+        phase("int8 1x1 kernel", int8_1x1_kernel_phase)
+        m = build_model(ModelConfig(), device=DEVICE, seed=SEED)
+        m.backbone.dark3_attn.gamma.data.fill_(0.5)
+        phase("int8 1x1", int8_1x1_phase, card, m)
         return 0
 
     mha_rows, single_rows = phase("kernel", kernel_phase)
@@ -6360,6 +6909,8 @@ def main() -> int:
     same_run = {"bf16": {k: bf16_perf[k] for k in PERF_KEYS},
                 "int8": {k: int8_perf[k] for k in PERF_KEYS}}
     variants = phase("variant slice", variant_slice_phase, card, bf16_model, same_run)
+    i1x1_err = phase("int8 1x1 kernel", int8_1x1_kernel_phase)
+    i1x1 = phase("int8 1x1", int8_1x1_phase, card, bf16_model)
     del bf16_model
     torch.cuda.empty_cache()
     train_launches = phase("train slice", train_slice_phase, card)["launches"]
@@ -6558,6 +7109,14 @@ def main() -> int:
         by_name[name]["parallel_launches"] = {mesh: par["launches"][mesh, tag][counter]
                                               for mesh in PARALLEL_MESHES}
     kernels += parallel_kernel_entries(par)
+    kernels += tp_train_kernel_entries(par)
+    # the int8 1x1 convs: launches of the int8_1x1 model's counted batch-32
+    # main path, times of its batch-16 forward's launches (every routed conv)
+    for name, source, counter in (("qmm sm90", qmm_src, "qmm"), ("quant_rows", qsrc,
+                                                                 "quant_rows")):
+        kernels.append(int8_kernel_entry(
+            f"{name} int8_1x1", source, f"{jq}:{80 if counter == 'qmm' else 408}",
+            i1x1["rows"][counter], i1x1["launches"]["int8_1x1"][32][counter], i1x1_err[counter]))
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s,
                       "api_s": api["seconds"]}), flush=True)
     print(card)

@@ -234,3 +234,135 @@ def train_tool(root: str, train: str, val: str) -> list:
                  "--device", "cpu", "--data-parallel"])
     all_reduce_sum(torch.zeros(1), make_mesh())  # rank 0's files are written
     return sorted(os.listdir(os.path.join(root, "logs")))
+
+
+# tensor-parallel training cases of tests/test_torch_tp_train.py: name ->
+# (TrainConfig overrides, make_train_step's freeze_backbone, FocusModel's
+# remat, GENERIC_SHARD_MIN_SIZE or None for the package's own)
+TP_TRAIN_CASES = {
+    "default": ({}, False, False, None),
+    "clip": ({"grad_clip_norm": 1.0}, False, False, None),
+    "freeze": ({}, True, False, None),
+    "remat": ({}, False, True, None),
+    "generic": ({}, False, False, 2048),
+}
+
+
+def _replicated_mismatches(state, mesh) -> int:
+    """Elements of the replicated leaves (parameters, their gradients, the
+    momenta, EMA, BatchNorm statistics) in which this rank differs from
+    another rank of its model group."""
+    from transparent_object_detection_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather_list
+
+    specs = state.model.tp_specs
+    rep = [n for n, spec in specs.items() if MODEL_AXIS not in spec]
+    params = dict(state.model.named_parameters())
+    tensors = ([params[n] for n in rep] + [params[n].grad for n in rep]
+               + [state.opt_state["trace"][n] for n in rep] + [state.ema_params[n] for n in rep]
+               + list(state.model.buffers()) + list(state.ema_batch_stats.values()))
+    bad = 0
+    for t in tensors:
+        for other in all_gather_list(t.detach(), mesh, MODEL_AXIS):
+            bad += int((other != t).sum())
+    return bad
+
+
+def tp_train(path: str, tp: int) -> dict:
+    """Every case of TP_TRAIN_CASES as one step on make_2d_mesh(tp) over the
+    world, from the weights in `path` on its global batch (each rank of a
+    model group on its data index's rows): the loss components, the whole
+    state gathered back (`gather_train_state_tp`), the replicated leaves'
+    mismatches across the model group; for the default case also the eval
+    step on the TP state against the eval step on the gathered one."""
+    from transparent_object_detection_tpu_torch.parallel import tp as ttp
+    from transparent_object_detection_tpu_torch.train.trainer import make_eval_step
+
+    data = torch.load(path)
+    mesh = make_2d_mesh(tp)
+    batch = shard_batch(data["batch"], mesh)
+    out = {"coords": mesh.coords}
+    default_min = ttp.GENERIC_SHARD_MIN_SIZE
+    for name, (overrides, freeze, remat, min_size) in TP_TRAIN_CASES.items():
+        tc = TrainConfig(**{**data["train_cfg"], **overrides})
+        model = FocusModel(**TINY_MODEL, remat=remat)
+        model.load_state_dict(data["state"])
+        opt = build_optimizer(tc, model, freeze_backbone=freeze)
+        state = create_train_state(model, opt)
+        ttp.GENERIC_SHARD_MIN_SIZE = min_size or default_min  # this rank's process only
+        try:
+            ttp.shard_train_state_tp(state, mesh)
+        finally:
+            ttp.GENERIC_SHARD_MIN_SIZE = default_min
+        lc = loss_config_from(TINY_CFG, tc)
+        step = make_train_step(model, opt, lc, tc, freeze_backbone=freeze, mesh=mesh)
+        state, comps = step(state, batch, data["lr"])
+        whole = ttp.gather_train_state_tp(state, mesh)
+        rec = {"comps": {k: float(v) for k, v in comps.items()},
+               "sharded": sorted(n for n, s in model.tp_specs.items() if "model" in s),
+               "params": {k: v.detach() for k, v in whole.params.items()},
+               "batch_stats": dict(whole.batch_stats), "ema_params": whole.ema_params,
+               "ema_batch_stats": whole.ema_batch_stats, "trace": whole.opt_state["trace"],
+               "replicated_mismatches": _replicated_mismatches(state, mesh)}
+        if name == "default":
+            ev = make_eval_step(model, lc, mesh=mesh)(state, batch)
+            ref = make_eval_step(whole.model, lc)(whole, data["batch"])
+            rec["eval"] = {k: float(v) for k, v in ev.items()}
+            rec["eval_whole"] = {k: float(v) for k, v in ref.items()}
+        out[name] = rec
+    try:
+        from transparent_object_detection_tpu_torch.train.trainer import Trainer
+
+        Trainer(TINY_CFG, TrainConfig(), model=FocusModel(**TINY_MODEL), verbose=False,
+                device="cpu").fit([], [], mesh=mesh)
+    except NotImplementedError as exc:
+        out["fit_refused"] = str(exc)
+    return out
+
+
+def int8_1x1_ranks(path: str) -> dict:
+    """The int8 1x1 route on 2 ranks: a ConvBNAct(1,536 -> 1,024) on a data
+    mesh, each rank on its half of the global batch (128 rows a rank, not
+    a multiple of 256; the global batch's 256 are): its own route off,
+    under `global_rows` on; the same conv column-sharded over a model axis
+    of 2 (its route on this rank's output columns, all-gathered); and the
+    Predictor on a data mesh opening `global_rows` around its forward (the
+    tiny model's int8 convs see `data_shards` 2)."""
+    from transparent_object_detection_tpu_torch.parallel.mesh import MODEL_AXIS, all_gather_cat
+
+    data = torch.load(path)
+    conv = blocks.ConvBNAct(1536, 1024, 1, dtype=torch.float32, int8_1x1=True).eval()
+    conv.load_state_dict(data["conv"])
+    x = data["x"]
+    mesh = make_mesh()
+    local = shard_batch({"x": x}, mesh)["x"]
+    out = {"local_route": conv.int8_route(local)}
+    with torch.no_grad():
+        with blocks.global_rows(conv, mesh.size("data")):
+            out["global_route"] = conv.int8_route(local)
+            y = conv(local)
+        out["dp"] = all_gather_cat(y, mesh, "data", 0)
+        tp_mesh = make_2d_mesh(2)
+        r, n = tp_mesh.index(MODEL_AXIS), 512
+        conv.conv.weight = torch.nn.Parameter(conv.conv.weight[r * n:(r + 1) * n].clone())
+        conv.conv.tp_mesh = tp_mesh
+        out["tp"] = conv(x)
+    seen = []
+    real = blocks.ConvBNAct.int8_route
+
+    def spy(self, x):
+        if self.int8_1x1:
+            seen.append(self.data_shards)
+        return real(self, x)
+
+    model = FocusModel(**TINY_MODEL, int8_1x1=True)
+    model.load_state_dict(data["tiny"])
+    pred = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=mesh)
+    blocks.ConvBNAct.int8_route = spy
+    try:
+        pred.detect_letterboxed(data["images"], data["shapes"])
+    finally:
+        blocks.ConvBNAct.int8_route = real
+    out["predictor_shards"] = sorted(set(seen))
+    out["after"] = sorted({m.data_shards for m in model.modules()
+                           if isinstance(m, blocks.ConvBNAct)})
+    return out

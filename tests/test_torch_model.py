@@ -88,8 +88,12 @@ def test_build_model_on_cpu():
     int8 = build_model(ModelConfig(phi="n", input_shape=(64, 64), int8_dense=True,
                                    int8_attn=True), device="cpu", seed=3)
     assert int8.neck.h1.teb.int8_dense and int8.backbone.dark3_attn.int8_attn
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(int8_1x1=True), device="cpu")
+    i1x1 = build_model(ModelConfig(phi="n", input_shape=(64, 64), int8_1x1=True), device="cpu",
+                       seed=3)
+    flagged = {n for n, m in i1x1.named_modules() if getattr(m, "int8_1x1", False)}
+    assert {"backbone.dark2_c2f.cv1", "backbone.dark5_sppf.cv2", "neck.h6.reduce"} <= flagged
+    assert not {"backbone.stem", "backbone.dark2_c2f.m0.cv1", "neck.h3"} & flagged
+    assert not i1x1.neck.h1.teb.int8_dense and not i1x1.backbone.dark3_attn.int8_attn
     remat = build_model(ModelConfig(phi="n", input_shape=(64, 64), compute_dtype="float32",
                                     remat=True), device="cpu", seed=3)
     assert remat.neck.remat and not model.neck.remat

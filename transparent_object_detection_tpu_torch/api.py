@@ -231,7 +231,7 @@ class FOCUS:
             cfg = dataclasses.replace(cfg, int8_dense=False, int8_attn=False, int8_1x1=False)
             model = copy.deepcopy(self.model)
             for m in model.modules():
-                for flag in ("int8_dense", "int8_attn"):
+                for flag in ("int8_dense", "int8_attn", "int8_1x1"):
                     if getattr(m, flag, False):
                         setattr(m, flag, False)
         trainer = Trainer(cfg, tc, model=model, device=self.device)

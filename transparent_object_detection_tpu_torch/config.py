@@ -2,9 +2,6 @@
 the model, training and predict settings of
 transparent_object_detection_tpu/config.py (the port imports nothing of the
 JAX package).
-
-The field the port does not implement yet (`int8_1x1`) is kept so a
-configuration reads the same in both packages; `build_model` refuses it.
 """
 from __future__ import annotations
 
@@ -40,10 +37,11 @@ class ModelConfig:
     # Prefer head counts whose head width is a multiple of 128 (6 x 256 on the
     # phi='s' 1536-channel TEBs); part of the function being computed.
     lane_align_heads: bool = True
-    # int8 serving: the TEB projections as int8 GEMMs (ops/quant_matmul.py)
-    # and int8 flash attention on large maps (ops/attention_int8.py); each
-    # works alone or with the other. int8_1x1 (fused int8 1x1 convs) is not
-    # ported yet and `build_model` refuses it.
+    # int8 serving: the TEB projections as int8 GEMMs (ops/quant_matmul.py),
+    # int8 flash attention on large maps (ops/attention_int8.py), and the
+    # eligible 1x1 convs as one int8 GEMM with BatchNorm folded in
+    # (models/blocks.ConvBNAct, `int8_1x1_profitable`); each works alone or
+    # with the others.
     int8_dense: bool = False
     int8_attn: bool = False
     int8_1x1: bool = False
@@ -96,6 +94,9 @@ class Int8Variants:
     ln_handoff (TOD_LN_HANDOFF) and ln_handoff_min_rows
         (TOD_LN_HANDOFF_MIN_ROWS): attn_out emits the LN2-normalized payload
         for mlp1 from this many rows (B * N) up.
+    int8_1x1_narrow (TOD_INT8_1X1_NARROW): with `int8_1x1`, also route the
+        512 -> 256 1x1 convs of 100,000 rows and more
+        (`models.blocks.int8_1x1_profitable`); nothing else reads it.
     """
 
     attn_handoff: bool = False
@@ -103,6 +104,7 @@ class Int8Variants:
     w4a4_mlp1: bool = False
     ln_handoff: bool = True
     ln_handoff_min_rows: int = 51200
+    int8_1x1_narrow: bool = False
 
     @classmethod
     def from_env(cls, environ: Optional[Mapping[str, str]] = None) -> "Int8Variants":
@@ -114,6 +116,7 @@ class Int8Variants:
             w4a4_mlp1=on("TOD_W4A4_MLP1", "0"),
             ln_handoff=on("TOD_LN_HANDOFF", "1"),
             ln_handoff_min_rows=int(env.get("TOD_LN_HANDOFF_MIN_ROWS", "51200")),
+            int8_1x1_narrow=on("TOD_INT8_1X1_NARROW", "0"),
         )
 
 

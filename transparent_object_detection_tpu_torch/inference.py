@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
+from transparent_object_detection_tpu_torch.models.blocks import global_rows
 from transparent_object_detection_tpu_torch.models.detector import FocusModel, resolve_device
 from transparent_object_detection_tpu_torch.ops.geometry import xywh2xyxy
 from transparent_object_detection_tpu_torch.ops.nms import batched_nms
@@ -76,7 +77,9 @@ class Predictor:
     (`parallel.tp.tp_serving_copy`: this rank's shards of the TEB
     projections and of the big kernels, qkv rows canonicalized, weights of
     two or more dimensions in the compute type), the caller's model left as
-    it was. Every rank of the mesh makes the same calls in the same order."""
+    it was. The int8 1x1 convs gate on the global batch's rows, as JAX's do
+    on its global array (`blocks.global_rows`). Every rank of the mesh
+    makes the same calls in the same order."""
 
     def __init__(self, model: FocusModel, model_cfg: ModelConfig,
                  predict_cfg: Optional[PredictConfig] = None, device=None,
@@ -126,8 +129,10 @@ class Predictor:
         """images already letterboxed to input_shape, float32 in [0, 1]."""
         images, image_shapes = self._rows(self._tensor(images, torch.float32),
                                           self._tensor(image_shapes, torch.float32))
-        return self._gathered(detect_step(self.model, images, image_shapes,
-                                          self.model_cfg.input_shape, self.predict_cfg))
+        with global_rows(self.model, self.data_shards):
+            dets = detect_step(self.model, images, image_shapes, self.model_cfg.input_shape,
+                               self.predict_cfg)
+        return self._gathered(dets)
 
     @torch.inference_mode()
     def detect_raw_batch(self, raw_images, image_shapes) -> Dict[str, torch.Tensor]:
@@ -136,8 +141,10 @@ class Predictor:
         raw, shapes = self._rows(self._tensor(raw_images),
                                  self._tensor(image_shapes, torch.float32))
         images = letterbox_batch(raw.float() / 255.0, self.model_cfg.input_shape)
-        return self._gathered(detect_step(self.model, images, shapes,
-                                          self.model_cfg.input_shape, self.predict_cfg))
+        with global_rows(self.model, self.data_shards):
+            dets = detect_step(self.model, images, shapes, self.model_cfg.input_shape,
+                               self.predict_cfg)
+        return self._gathered(dets)
 
     def predict_image(self, image) -> List[Dict[str, Any]]:
         """One PIL image -> list of {box, score, class} in original pixels."""
@@ -156,7 +163,8 @@ class Predictor:
         """Max class-probability heatmap per image at stride-8 resolution:
         (B, H/8, W/8) from letterboxed float images (B, H, W, 3)."""
         (images,) = self._rows(self._tensor(images, torch.float32))
-        raw = self.model(images, decode=False)["raw"]
+        with global_rows(self.model, self.data_shards):
+            raw = self.model(images, decode=False)["raw"]
         cls = raw[0][..., 4 * self.model_cfg.reg_max:]
         return self._gathered(torch.sigmoid(cls.float()).amax(dim=-1))
 

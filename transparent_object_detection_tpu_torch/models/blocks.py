@@ -37,10 +37,11 @@ from transparent_object_detection_tpu_torch.ops.quant_matmul import (
 )
 from transparent_object_detection_tpu_torch.parallel.mesh import (
     DATA_AXIS,
-    all_gather_cat,
+    MODEL_AXIS,
     all_reduce_sum,
+    copy_to_model,
+    gather_from_model,
 )
-from transparent_object_detection_tpu_torch.parallel.tp import MODEL_AXIS
 
 
 def _tracing() -> bool:
@@ -49,6 +50,32 @@ def _tracing() -> bool:
     from torch._guards import detect_fake_mode
 
     return torch.compiler.is_compiling() or detect_fake_mode() is not None
+
+
+def _cached(module: nn.Module, tensors, make):
+    """`make()` (a module's int8 weights) made once and again whenever one
+    of `tensors` changes (its storage or its version), kept in
+    `module._int8_cache`. While a tracer runs (torch.export, fake tensors)
+    it is made in the traced program and not cached."""
+    if _tracing():
+        return make()
+    key = tuple((t.data_ptr(), t._version) for t in tensors)
+    if module._int8_cache is None or module._int8_cache[0] != key:
+        module._int8_cache = (key, make())
+    return module._int8_cache[1]
+
+
+def int8_1x1_profitable(m: int, cin: int, cout: int, narrow: bool = False) -> bool:
+    """Which eligible 1x1 convs the int8 route takes: the JAX package's
+    per-shape table (`_int8_1x1_profitable`, models/blocks.py:36-58), kept
+    as a numerics contract (the routed set is part of the function
+    computed), not as a tuning for this card. K >= 1,536 with N >= 1,024
+    (the C2f cv2, SPPF cv2 and fusion-node reduce family); with `narrow`
+    (TOD_INT8_1X1_NARROW) also 512 -> 256 at 100,000 rows and more. `m` is
+    the global batch's rows."""
+    if cin >= 1536 and cout >= 1024:
+        return True
+    return narrow and cin == 512 and cout == 256 and m >= 100_000
 
 
 def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
@@ -189,35 +216,117 @@ class BatchNorm(nn.Module):
         return y
 
 
+def model_input(x: torch.Tensor, layer: nn.Module) -> torch.Tensor:
+    """The input of `layer` where it is column-parallel (parallel/tp.py's
+    generic rule; `tp_mesh` set): its gradient summed over the model axis
+    in training; else, and in the forward, `x` itself."""
+    mesh = getattr(layer, "tp_mesh", None)
+    return x if mesh is None else copy_to_model(x, mesh)
+
+
 def gather_outputs(y: torch.Tensor, layer: nn.Module, dim: int) -> torch.Tensor:
     """`layer`'s output with its channels (`dim`) all-gathered over the
-    model axis, where tensor-parallel serving keeps only this rank's output
-    channels of its weight (parallel/tp.py's generic rule; `tp_mesh` set);
-    else `y` itself."""
+    model axis, where tensor parallelism keeps only this rank's output
+    channels of its weight (parallel/tp.py's generic rule; `tp_mesh` set;
+    in training this rank's slice of the gradient passes back); else `y`
+    itself."""
     mesh = getattr(layer, "tp_mesh", None)
-    return y if mesh is None else all_gather_cat(y, mesh, MODEL_AXIS, dim)
+    return y if mesh is None else gather_from_model(y, mesh, dim)
 
 
 class ConvBNAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm + SiLU with explicit symmetric k//2
-    padding."""
+    padding.
+
+    int8_1x1 (serving): an eligible conv (evaluation mode, 1x1, stride 1,
+    no groups or dilation, C_in % 128 == 0, C_out % 256 == 0, rows % 256 ==
+    0 and `int8_1x1_profitable`) runs as one int8 GEMM (ops/quant_matmul.py)
+    with BatchNorm folded into its weights and bias (eps 1e-5) and SiLU in
+    its epilogue: the JAX route (blocks.py:101-137). The rows are the global
+    batch's, this rank's times `data_shards` (set by `global_rows` for a
+    Predictor on a data mesh). `int8_variants.int8_1x1_narrow` is read
+    once, here (None reads `Int8Variants.from_env()`). The int8 weights are
+    made once and again whenever a parameter changes. Where tensor
+    parallelism shards the conv (`tp_mesh`), the route runs on this rank's
+    output columns (per-column weight scales, row scales over the whole K:
+    those columns of the whole product) and all-gathers them.
+    `attention_impl` "plain" runs the route's plain versions
+    (`set_attention_impl`)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  strides: int = 1, groups: int = 1, dilation: int = 1, act: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, int8_1x1: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         self.dtype, self.act = dtype, act
         self.conv = nn.Conv2d(in_features, features, kernel_size, strides,
                               autopad(kernel_size, None, dilation), dilation, groups,
                               bias=False)
         self.bn = BatchNorm(features)
+        self.int8_1x1 = int8_1x1
+        self.int8_narrow = int8_1x1 and (int8_variants or Int8Variants.from_env()).int8_1x1_narrow
+        self.data_shards = 1  # set by `global_rows`
+        self.attention_impl = None
+        self._int8_cache = None
+
+    def int8_route(self, x: torch.Tensor) -> bool:
+        """Whether this call takes the int8 route (the gates above)."""
+        c = self.conv
+        if not (self.int8_1x1 and not self.training and c.kernel_size == (1, 1)
+                and c.stride == (1, 1) and c.groups == 1 and c.dilation == (1, 1)):
+            return False
+        b, cin, h, w = x.shape
+        m = b * h * w * self.data_shards
+        return (cin % 128 == 0 and c.out_channels % 256 == 0 and m % 256 == 0
+                and int8_1x1_profitable(m, cin, c.out_channels, self.int8_narrow))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.int8_route(x):
+            return self._forward_int8(x)
         c = self.conv
-        x = F.conv2d(x.to(self.dtype), c.weight.to(self.dtype), None, c.stride, c.padding,
-                     c.dilation, c.groups)
+        x = F.conv2d(model_input(x, c).to(self.dtype), c.weight.to(self.dtype), None, c.stride,
+                     c.padding, c.dilation, c.groups)
         x = self.bn(gather_outputs(x, c, 1)).to(self.dtype)
         return F.silu(x) if self.act else x
+
+    @torch.no_grad()
+    def _prepare_int8(self):
+        c, bn = self.conv, self.bn
+        w = c.weight.float().reshape(c.weight.shape[0], -1)
+        # the fold of `fuse_conv_bn` (gamma / sqrt(var + eps); JAX takes
+        # gamma * rsqrt, an ulp away): a fused model, whose BatchNorm holds
+        # weight 1, mean 0 and var 1 - eps, folds to the same bits
+        factor = bn.weight / torch.sqrt(bn.running_var + bn.eps)
+        bias = bn.bias - bn.running_mean * factor
+        n = w.shape[0]
+        if n != factor.numel():  # a tensor-parallel shard: this rank's output columns
+            r = c.tp_mesh.index(MODEL_AXIS)
+            factor, bias = factor[r * n:(r + 1) * n], bias[r * n:(r + 1) * n]
+        return prepare_weights(w * factor[:, None], bias)
+
+    def _forward_int8(self, x: torch.Tensor) -> torch.Tensor:
+        bn = self.bn
+        wts = _cached(self, (self.conv.weight, bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var), self._prepare_int8)
+        y = quant_matmul(x.permute(0, 2, 3, 1), wts, act="silu" if self.act else None,
+                         out_dtype=self.dtype, impl=self.attention_impl)
+        return gather_outputs(y, self.conv, -1).permute(0, 3, 1, 2)
+
+
+@contextlib.contextmanager
+def global_rows(module: nn.Module, shards: int):
+    """The int8 1x1 route of `module`'s convs gated on the global batch's
+    rows while the context is open: `shards` data ranks, each running its
+    rows (a Predictor on a data mesh). A no-op for one shard."""
+    convs = ([m for m in module.modules() if isinstance(m, ConvBNAct) and m.int8_1x1]
+             if shards > 1 else [])
+    for m in convs:
+        m.data_shards = shards
+    try:
+        yield
+    finally:
+        for m in convs:
+            m.data_shards = 1
 
 
 class Bottleneck(nn.Module):
@@ -239,19 +348,22 @@ class Bottleneck(nn.Module):
 
 class C2f(nn.Module):
     """CSP bottleneck, 2-conv variant: 1x1 conv -> split halves -> chain n
-    Bottlenecks (m0, m1, ...) on the running half -> concat -> 1x1 conv."""
+    Bottlenecks (m0, m1, ...) on the running half -> concat -> 1x1 conv.
+    int8_1x1: the int8 route for cv1 and cv2 (see ConvBNAct)."""
 
     def __init__(self, in_features: int, features: int, n: int = 1,
                  shortcut: bool = False, groups: int = 1, expansion: float = 0.5,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, int8_1x1: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         self.hidden = hidden = int(features * expansion)
         self.n = n
-        self.cv1 = ConvBNAct(in_features, 2 * hidden, 1, dtype=dtype)
+        i8 = dict(int8_1x1=int8_1x1, int8_variants=int8_variants)
+        self.cv1 = ConvBNAct(in_features, 2 * hidden, 1, dtype=dtype, **i8)
         for i in range(n):
             setattr(self, f"m{i}", Bottleneck(hidden, hidden, shortcut, groups, (3, 3), 1.0,
                                               dtype=dtype))
-        self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype)
+        self.cv2 = ConvBNAct((2 + n) * hidden, features, 1, dtype=dtype, **i8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.cv1(x)
@@ -262,14 +374,17 @@ class C2f(nn.Module):
 
 
 class SPPF(nn.Module):
-    """Spatial pyramid pooling, fast variant (max pools pad with -inf)."""
+    """Spatial pyramid pooling, fast variant (max pools pad with -inf).
+    int8_1x1: the int8 route for cv1 and cv2 (see ConvBNAct)."""
 
     def __init__(self, in_features: int, features: int, pool_size: int = 5,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, int8_1x1: bool = False,
+                 int8_variants: Optional[Int8Variants] = None):
         super().__init__()
         self.pool_size = pool_size
-        self.cv1 = ConvBNAct(in_features, in_features // 2, 1, dtype=dtype)
-        self.cv2 = ConvBNAct(in_features // 2 * 4, features, 1, dtype=dtype)
+        i8 = dict(int8_1x1=int8_1x1, int8_variants=int8_variants)
+        self.cv1 = ConvBNAct(in_features, in_features // 2, 1, dtype=dtype, **i8)
+        self.cv2 = ConvBNAct(in_features // 2 * 4, features, 1, dtype=dtype, **i8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k = self.pool_size
@@ -290,7 +405,8 @@ def dfl_expectation(dist_logits: torch.Tensor, reg_max: int = 16) -> torch.Tenso
 def _linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     bias = None if layer.bias is None else layer.bias.to(dtype)
     if getattr(layer, "tp_mesh", None) is not None:  # outputs sharded: bias after the gather
-        y = gather_outputs(F.linear(x.to(dtype), layer.weight.to(dtype)), layer, -1)
+        y = F.linear(model_input(x, layer).to(dtype), layer.weight.to(dtype))
+        y = gather_outputs(y, layer, -1)
         return y if bias is None else y + bias
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -393,8 +509,10 @@ class TransformerEncoderBlock(nn.Module):
 
     tp_serving: the block runs tensor-parallel (ops/teb_tp.py) on the mesh
     in `tp_mesh`, its parameters holding this rank's shards with the qkv
-    rows canonicalized (parallel/tp.py). Only `inference.Predictor` sets it
-    up; without a mesh the forward raises."""
+    rows canonicalized (parallel/tp.py): the serving form in evaluation
+    mode, the training form in training mode. Only `inference.Predictor`
+    (`tp_serving_copy`) and `parallel.tp.shard_train_state_tp` set it up;
+    without a mesh the forward raises."""
 
     def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
                  dtype: torch.dtype = torch.bfloat16, attention_impl: Optional[str] = None,
@@ -427,10 +545,11 @@ class TransformerEncoderBlock(nn.Module):
         dt = self.dtype
         h, w = x.shape[2:]
         tokens = _to_tokens(x)
-        if self.tp_serving and not self.training:
-            from transparent_object_detection_tpu_torch.ops.teb_tp import teb_tp_forward
+        if self.tp_serving:
+            from transparent_object_detection_tpu_torch.ops import teb_tp
 
-            return _from_tokens(teb_tp_forward(tokens, self), h, w)
+            fn = teb_tp.teb_tp_train_forward if self.training else teb_tp.teb_tp_forward
+            return _from_tokens(fn(tokens, self), h, w)
         if self.int8_dense and not self.training:
             return _from_tokens(self._forward_int8(tokens), h, w)
         qkv = _linear(self._norm(tokens, self.norm1), self.qkv, dt)
@@ -446,14 +565,9 @@ class TransformerEncoderBlock(nn.Module):
         mlp1; with w4a4, also mlp1's int4-range weights), made once and again
         whenever a parameter changes. While a tracer runs (torch.export,
         fake tensors) they are made in the traced program and not cached."""
-        if _tracing():
-            return self._prepare_int8()
         params = [p for m in (self.norm1, self.qkv, self.attn_out, self.norm2, self.mlp1,
                               self.mlp2) for p in m.parameters()]
-        key = tuple((p.data_ptr(), p._version) for p in params)
-        if self._int8_cache is None or self._int8_cache[0] != key:
-            self._int8_cache = (key, self._prepare_int8())
-        return self._int8_cache[1]
+        return _cached(self, params, self._prepare_int8)
 
     @torch.no_grad()
     def _prepare_int8(self):
@@ -542,6 +656,39 @@ class TransformerEncoderBlock(nn.Module):
             z8 = qmm(tokens, "mlp1", ln=True, ln_eps=self.norm2.eps, act="gelu",
                      quant_out=True)
         return qmm(None, "mlp2", residual=tokens, x_quant=z8)
+
+
+class QuantDense(nn.Module):
+    """Dense layer on int8 weights and activations (JAX `QuantDense`,
+    blocks.py:347-395), with nn.Linear's parameters (`weight` (out, in) and
+    `bias`, fp32), so one checkpoint serves it and a Dense: the weight
+    bridge maps a JAX Dense or QuantDense tree onto it. Weights per output
+    channel at absmax / 127, rows of x per token at absmax / 127, int32
+    products, then acc * x_scale * w_scale + bias in `dtype`. It runs
+    `quant_matmul` (quant_rows then qmm on the card): the weights are
+    quantized as JAX does; a row is quantized by a multiply with 127 / amax
+    where JAX divides by amax / 127, so a value on a rounding boundary may
+    land one step away. The int8 weights are made once and again whenever a
+    parameter changes. No gradient reaches the weights (JAX's has no
+    training form either). `attention_impl` "plain" runs the plain
+    versions."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        self.attention_impl = None
+        self._int8_cache = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        params = [p for p in (self.weight, self.bias) if p is not None]
+        wts = _cached(self, params, lambda: prepare_weights(self.weight.detach(),
+                                                            None if self.bias is None
+                                                            else self.bias.detach()))
+        return quant_matmul(x, wts, out_dtype=self.dtype, impl=self.attention_impl)
 
 
 @torch.no_grad()

@@ -4,6 +4,7 @@ transparent_object_detection_tpu/models/detector.py): FocusModel = Backbone
 the training forward (`model.train()`) in the raw maps."""
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -11,6 +12,7 @@ from torch import nn
 
 from transparent_object_detection_tpu_torch.config import Int8Variants, ModelConfig
 from transparent_object_detection_tpu_torch.models.backbone import Backbone
+from transparent_object_detection_tpu_torch.models.blocks import ConvBNAct
 from transparent_object_detection_tpu_torch.models.head import BranchTower, Head
 from transparent_object_detection_tpu_torch.models.neck import Neck
 
@@ -42,7 +44,7 @@ class FocusModel(nn.Module):
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
                  int8_dense: bool = False, int8_attn: bool = False,
                  int8_variants: Optional[Int8Variants] = None, remat: bool = False,
-                 tp_serving: bool = False):
+                 tp_serving: bool = False, int8_1x1: bool = False):
         super().__init__()
         self.dtype = dtype
         # tensor-parallel serving of the neck TEBs (ops/teb_tp.py): set, with
@@ -50,10 +52,10 @@ class FocusModel(nn.Module):
         # (parallel.tp.tp_serving_copy); a model built with it alone raises
         self.tp_serving = tp_serving
         self.backbone = Backbone(base_channels, base_depth, deep_mul, dtype, attention_impl,
-                                 int8_attn)
+                                 int8_attn, int8_1x1, int8_variants)
         self.neck = Neck(base_channels, base_depth, deep_mul, num_heads, dtype, norm_dtype,
                          lane_align_heads, attention_impl, int8_dense, int8_attn,
-                         int8_variants, remat, tp_serving)
+                         int8_variants, remat, tp_serving, int8_1x1)
         filters = (base_channels * 4, base_channels * 8, int(base_channels * 16 * deep_mul))
         self.head = Head(num_classes, filters, strides, reg_max, dtype)
 
@@ -72,6 +74,45 @@ class FocusModel(nn.Module):
         return out
 
 
+def _model_of(cfg: ModelConfig, attention_impl: Optional[str] = None,
+              int8_variants: Optional[Int8Variants] = None) -> FocusModel:
+    return FocusModel(
+        num_classes=cfg.num_classes, base_channels=cfg.base_channels,
+        base_depth=cfg.base_depth, deep_mul=cfg.deep_mul, num_heads=cfg.num_heads,
+        reg_max=cfg.reg_max, strides=cfg.strides, dtype=getattr(torch, cfg.compute_dtype),
+        norm_dtype=getattr(torch, cfg.norm_dtype), lane_align_heads=cfg.lane_align_heads,
+        attention_impl=attention_impl, int8_dense=cfg.int8_dense, int8_attn=cfg.int8_attn,
+        int8_variants=int8_variants or Int8Variants.from_env(), remat=cfg.remat,
+        int8_1x1=cfg.int8_1x1,
+    )
+
+
+def int8_1x1_routes(cfg: ModelConfig, batch: int,
+                    int8_variants: Optional[Int8Variants] = None) -> Dict[str, Tuple[int, int, int]]:
+    """The route table of the int8 1x1 convs: {module name: (rows, K, N)} of
+    the convs that take the int8 route in one serving forward of `cfg` (with
+    int8_1x1 on) at `batch` on one device, each one quant_rows and one qmm
+    launch. From shapes alone: the model runs on the meta device."""
+    cfg = dataclasses.replace(cfg, int8_1x1=True)
+    with torch.device("meta"):
+        model = _model_of(cfg, int8_variants=int8_variants).eval()
+    routes: Dict[str, Tuple[int, int, int]] = {}
+
+    def record(name):
+        def hook(conv, args):
+            x = args[0]
+            if conv.int8_route(x):
+                b, k, h, w = x.shape
+                routes[name] = (b * h * w, k, conv.conv.out_channels)
+        return hook
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBNAct) and m.int8_1x1:
+            m.register_forward_pre_hook(record(name))
+    with torch.no_grad():
+        model(torch.zeros(batch, *cfg.input_shape, 3, device="meta"))
+    return routes
+
+
 def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = None,
                 seed: Optional[int] = 0,
                 int8_variants: Optional[Int8Variants] = None) -> FocusModel:
@@ -80,33 +121,27 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
     seeded initialisation of `init_weights` (seed=None keeps PyTorch's
     defaults); load a JAX checkpoint with
     weights.load_jax_variables. attention_impl="plain" runs the attention
-    kernels' plain PyTorch versions (comparison only). int8_dense and
-    int8_attn select the int8 serving paths, alone or together;
-    `int8_variants` their TEB handoff variants (None reads
+    kernels' plain PyTorch versions (comparison only). int8_dense,
+    int8_attn and int8_1x1 select the int8 serving paths, alone or
+    together; `int8_variants` their variants (None reads
     `Int8Variants.from_env()`, the JAX package's TOD_* variables, once
-    here); they change nothing with both int8 flags off. `cfg.remat`
+    here); they change nothing with the int8 flags off. `cfg.remat`
     recomputes each neck fusion node's activations in the backward."""
-    if cfg.int8_1x1:
-        raise NotImplementedError("int8_1x1 is not ported yet")
     device = resolve_device(device)
     with device:  # parameters made where they live (1.35 B at phi='m')
-        model = FocusModel(
-            num_classes=cfg.num_classes, base_channels=cfg.base_channels,
-            base_depth=cfg.base_depth, deep_mul=cfg.deep_mul, num_heads=cfg.num_heads,
-            reg_max=cfg.reg_max, strides=cfg.strides, dtype=getattr(torch, cfg.compute_dtype),
-            norm_dtype=getattr(torch, cfg.norm_dtype), lane_align_heads=cfg.lane_align_heads,
-            attention_impl=attention_impl, int8_dense=cfg.int8_dense, int8_attn=cfg.int8_attn,
-            int8_variants=int8_variants or Int8Variants.from_env(), remat=cfg.remat,
-        )
+        model = _model_of(cfg, attention_impl, int8_variants)
     if seed is not None:
         init_weights(model, seed)
+    if attention_impl is not None:  # the int8 1x1 convs too
+        set_attention_impl(model, attention_impl)
     return model.eval()
 
 
 def set_attention_impl(model: nn.Module, impl: Optional[str]) -> nn.Module:
-    """Switch every kernel of `model` (attention forward and backward, and
-    the int8 projections of the TEBs) between the kernels (None) and their
-    plain versions ("plain"), weights untouched."""
+    """Switch every kernel of `model` (attention forward and backward, the
+    int8 projections of the TEBs, the int8 1x1 convs, QuantDense) between
+    the kernels (None) and their plain versions ("plain"), weights
+    untouched."""
     for m in model.modules():
         if hasattr(m, "attention_impl"):
             m.attention_impl = impl

@@ -19,6 +19,7 @@ from transparent_object_detection_tpu_torch.models.blocks import (
     ConvBNAct,
     dfl_expectation,
     gather_outputs,
+    model_input,
 )
 from transparent_object_detection_tpu_torch.ops.geometry import make_anchors
 
@@ -43,7 +44,7 @@ class BranchTower(nn.Module):
         x = self.cbam2(self.conv2(self.cbam1(self.conv1(x))))
         dt, out = self.dtype, self.out
         if getattr(out, "tp_mesh", None) is not None:  # outputs sharded: bias after the gather
-            y = gather_outputs(F.conv2d(x, out.weight.to(dt)), out, 1)
+            y = gather_outputs(F.conv2d(model_input(x, out), out.weight.to(dt)), out, 1)
             return y + out.bias.to(dt)[:, None, None]
         return F.conv2d(x, out.weight.to(dt), out.bias.to(dt))
 

@@ -29,13 +29,15 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 
 class FusionNode(nn.Module):
-    """TEB over the concatenated features -> reduce to out_features -> CBAM."""
+    """TEB over the concatenated features -> reduce to out_features -> CBAM.
+    int8_1x1: the int8 route for `reduce` (see ConvBNAct)."""
 
     def __init__(self, in_features: int, out_features: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.bfloat16, norm_dtype: torch.dtype = torch.float32,
                  lane_align_heads: bool = True, attention_impl: Optional[str] = None,
                  int8_dense: bool = False, int8_attn: bool = False,
-                 int8_variants: Optional[Int8Variants] = None, tp_serving: bool = False):
+                 int8_variants: Optional[Int8Variants] = None, tp_serving: bool = False,
+                 int8_1x1: bool = False):
         super().__init__()
         self.teb = TransformerEncoderBlock(
             in_features, num_heads, dtype=dtype, attention_impl=attention_impl,
@@ -43,7 +45,8 @@ class FusionNode(nn.Module):
             int8_dense=int8_dense, int8_attn=int8_attn, int8_variants=int8_variants,
             tp_serving=tp_serving,
         )
-        self.reduce = ConvBNAct(in_features, out_features, 1, dtype=dtype)
+        self.reduce = ConvBNAct(in_features, out_features, 1, dtype=dtype, int8_1x1=int8_1x1,
+                                int8_variants=int8_variants)
         self.cbam = CBAM(out_features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,14 +65,14 @@ class Neck(nn.Module):
                  norm_dtype: torch.dtype = torch.float32, lane_align_heads: bool = True,
                  attention_impl: Optional[str] = None, int8_dense: bool = False,
                  int8_attn: bool = False, int8_variants: Optional[Int8Variants] = None,
-                 remat: bool = False, tp_serving: bool = False):
+                 remat: bool = False, tp_serving: bool = False, int8_1x1: bool = False):
         super().__init__()
         self.remat = remat
         c = base_channels
         c5 = int(c * 16 * deep_mul)
         node = lambda cin, cout: FusionNode(cin, cout, num_heads, dtype, norm_dtype,
                                             lane_align_heads, attention_impl, int8_dense,
-                                            int8_attn, int8_variants, tp_serving)
+                                            int8_attn, int8_variants, tp_serving, int8_1x1)
         self.h1 = node(c5 + c * 8, c * 8)   # top-down, /16
         self.h2 = node(c * 8 + c * 4, c * 4)  # top-down, /8 == P3 out
         self.h3 = ConvBNAct(c * 4, c * 4, 3, strides=2, dtype=dtype)

@@ -21,6 +21,18 @@ no mlp1 -> mlp2 int8 output, no LN or attention handoff, no w4a4. Each rank
 quantizes its own weight shards; on the row-parallel shards the activation
 rows are quantized over this rank's K/tp columns, so int8 TP serving is not
 bit-equal to single-device int8 (the same quantization-noise class).
+The training form (`teb_tp_train_forward`, bf16 and fp32; int8 is
+serving-only) is the same Megatron block with its gradients
+(parallel/mesh.py's collectives): the LayerNorm outputs enter the
+column-parallel qkv and mlp1 through `copy_to_model` (their gradient summed
+over the model axis); attention runs on the local heads through the
+differentiable flash route, or, with a ragged head count, on every head
+after `gather_from_model`, each rank's output columns split off by
+`scatter_to_model`; attn_out and mlp2 run row-parallel into fp32 partial
+products summed by `reduce_from_model`. It rounds where the single-device
+training TEB rounds (LayerNorm as `F.layer_norm`, each projection's value
+in the compute type once, the residual added in it), so the step is the
+single-device step but for the order of the sums.
 """
 from __future__ import annotations
 
@@ -34,10 +46,14 @@ from transparent_object_detection_tpu_torch.ops.attention import (
 )
 from transparent_object_detection_tpu_torch.ops.quant_matmul import quant_matmul
 from transparent_object_detection_tpu_torch.parallel.mesh import (
+    MODEL_AXIS,
     all_gather_list,
     all_reduce_sum,
+    copy_to_model,
+    gather_from_model,
+    reduce_from_model,
+    scatter_to_model,
 )
-from transparent_object_detection_tpu_torch.parallel.tp import MODEL_AXIS
 
 
 def _layernorm(x: torch.Tensor, ln, norm_dtype: torch.dtype) -> torch.Tensor:
@@ -68,23 +84,65 @@ def _attend(qkv: torch.Tensor, heads: int, teb) -> torch.Tensor:
     return attention(q, k, v, teb.scale, teb.attention_impl, 1, teb.int8_attn)
 
 
+def _tp_size(teb) -> int:
+    mesh = teb.tp_mesh
+    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
+    if tp <= 1:
+        raise RuntimeError(
+            "tp_serving TEB requires a (data, model) mesh with model-axis size > 1: build it "
+            "through FOCUS.serve_mesh(tp=...) or Predictor(mesh=make_2d_mesh(tp)) for "
+            "serving, or parallel.tp.shard_train_state_tp for training. A tp_serving model "
+            "never runs outside them: its qkv weights are TP-canonicalized.")
+    c = teb.qkv.in_features
+    if c % tp or (c * teb.mlp_ratio) % tp:
+        raise ValueError(f"TEB channel width {c} (mlp {c * teb.mlp_ratio}) not divisible by "
+                         f"tp={tp}")
+    return tp
+
+
+def teb_tp_train_forward(tokens: torch.Tensor, teb) -> torch.Tensor:
+    """tokens (B, N, C) -> (B, N, C) through `teb` in training mode (its
+    parameters this rank's shards, qkv rows canonicalized:
+    parallel.tp.shard_train_state_tp) on the mesh in `teb.tp_mesh`, with
+    its gradients; every rank of a model group passes the same tokens and
+    gets the same output."""
+    mesh = teb.tp_mesh
+    tp = _tp_size(teb)
+    heads, dt, impl = teb.heads, teb.dtype, teb.attention_impl
+    fp32 = torch.float32
+
+    def col_parallel(x, layer):
+        return F.linear(copy_to_model(x, mesh), layer.weight.to(dt), layer.bias.to(dt))
+
+    def row_parallel(x, layer):
+        """The bias-added sum of the ranks' fp32 partial products of the
+        compute-type operands, in the compute type: the single device's
+        projection value."""
+        part = torch.matmul(x.to(dt).to(fp32), layer.weight.to(dt).to(fp32).t())
+        return (reduce_from_model(part, mesh) + layer.bias.to(dt).to(fp32)).to(dt)
+
+    qkv_l = col_parallel(teb._norm(tokens, teb.norm1), teb.qkv)  # (q_r | k_r | v_r)
+    if heads % tp == 0:
+        o_l = attention_qkv(qkv_l, scale=teb.scale, impl=impl, num_heads=heads // tp,
+                            train=True)
+    else:  # ragged: every head on every rank, this rank's output columns split off
+        qkv = torch.cat([gather_from_model(sec, mesh, -1) for sec in qkv_l.chunk(3, dim=-1)],
+                        dim=-1)
+        o = attention_qkv(qkv, scale=teb.scale, impl=impl, num_heads=heads, train=True)
+        o_l = scatter_to_model(o, mesh, -1)
+    tokens = tokens + row_parallel(o_l, teb.attn_out)
+    z = F.gelu(col_parallel(teb._norm(tokens, teb.norm2), teb.mlp1), approximate="tanh")
+    return tokens + row_parallel(z, teb.mlp2)
+
+
 def teb_tp_forward(tokens: torch.Tensor, teb) -> torch.Tensor:
     """tokens (B, N, C) -> (B, N, C) through `teb` (a TransformerEncoderBlock
     set up by parallel.tp.tp_serving_copy: its projections hold this rank's
     shards, its qkv rows canonicalized) on the mesh in `teb.tp_mesh`. Every
     rank of a model group passes the same tokens and gets the same output."""
     mesh = teb.tp_mesh
-    tp = 1 if mesh is None else mesh.size(MODEL_AXIS)
-    if tp <= 1:
-        raise RuntimeError(
-            "tp_serving TEB requires a (data, model) mesh with model-axis size > 1: build it "
-            "through FOCUS.serve_mesh(tp=...) or Predictor(mesh=make_2d_mesh(tp)). A "
-            "tp_serving model never runs outside the Predictor: its qkv weights are "
-            "TP-canonicalized.")
+    tp = _tp_size(teb)
     b, n, c = tokens.shape
-    ratio = teb.mlp_ratio
-    if c % tp or (c * ratio) % tp:
-        raise ValueError(f"TEB channel width {c} (mlp {c * ratio}) not divisible by tp={tp}")
     cl = c // tp
     heads = teb.heads
     dt, nd, impl = teb.dtype, teb.norm_dtype, teb.attention_impl

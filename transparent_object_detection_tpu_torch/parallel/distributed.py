@@ -33,8 +33,10 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     """Join the process group when running as one of several processes.
 
     Returns False, and does nothing, in a single process with no
-    coordinator named. The arguments default to torchrun's environment:
-    coordinator_address to MASTER_ADDR:MASTER_PORT, num_processes to
+    coordinator named. coordinator_address is host:port, or a URL
+    torch.distributed takes as its init method (file://path: a rendezvous
+    file of this group alone). The arguments default to torchrun's
+    environment: coordinator_address to MASTER_ADDR:MASTER_PORT, num_processes to
     WORLD_SIZE, process_id to RANK. `device`: CUDA unless the caller names
     another (without a card this raises unless device="cpu"); on CUDA each
     rank selects card LOCAL_RANK before anything is made on it (with an
@@ -64,8 +66,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
                 f"LOCAL_RANK {local} has no card of its own ({cards} visible): NCCL needs one "
                 "card a rank; ranks that share a card need backend='gloo'")
         torch.cuda.set_device(local % cards)
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
-                            world_size=num_processes, rank=process_id, timeout=timeout)
+    init = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+    dist.init_process_group(backend, init_method=init, world_size=num_processes,
+                            rank=process_id, timeout=timeout)
     return True
 
 

@@ -1,7 +1,8 @@
 """Start a function on N ranks of a fresh process group and collect what
-each returns: one process a rank on this host, with torchrun's environment
-(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), joined through
-`initialize_multihost` before the function runs.
+each returns: one process a rank on this host, with torchrun's RANK,
+WORLD_SIZE and LOCAL_RANK, joined through `initialize_multihost` on a
+rendezvous file in the run's own temporary directory before the function
+runs (no port is taken: runs started side by side cannot meet).
 
     from transparent_object_detection_tpu_torch.parallel.launch import run_ranks
     results = run_ranks("mypkg.mymod:fn", 2, {"x": 1}, timeout=120, device="cpu")
@@ -18,7 +19,6 @@ from __future__ import annotations
 
 import importlib
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -32,12 +32,6 @@ PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(_
 
 class RankFailure(RuntimeError):
     pass
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 class Ranks:
@@ -60,8 +54,7 @@ class Ranks:
         base = dict(os.environ)
         base["PYTHONPATH"] = os.pathsep.join(
             [PACKAGE_ROOT, *paths] + ([base["PYTHONPATH"]] if base.get("PYTHONPATH") else []))
-        base.update(WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1",
-                    MASTER_PORT=str(free_port()))
+        base["WORLD_SIZE"] = str(world_size)
         self.procs, self.logs = [], []
         for rank in range(world_size):
             log = open(os.path.join(self.dir.name, f"rank{rank}.log"), "w+")
@@ -141,7 +134,7 @@ def _rank_main(spec_path: str, rank: int) -> None:
         torch.set_num_threads(spec["threads"])
     module, _, name = spec["target"].partition(":")
     fn = getattr(importlib.import_module(module), name)
-    initialize_multihost(f"{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
+    initialize_multihost("file://" + os.path.join(os.path.dirname(spec_path), "rendezvous"),
                          backend=spec["backend"], device=spec["device"],
                          timeout=datetime.timedelta(seconds=spec["timeout_s"]))
     try:

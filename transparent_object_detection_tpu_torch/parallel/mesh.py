@@ -21,6 +21,20 @@ Without a process group a mesh is a world of one rank and every collective
 is the identity. With one, the collectives run even along axes of size 1,
 so a world of one rank still goes through its backend. Gathers use the list
 form of `all_gather`, which gloo also runs on CUDA tensors.
+
+Tensor-parallel training differentiates through the model axis's
+collectives (Megatron's regions), as `torch.autograd.Function`s:
+
+  copy_to_model      identity forward; the gradient all-reduced backward
+                     (the input of a column-parallel layer);
+  reduce_from_model  all-reduce forward; identity backward (the output of a
+                     row-parallel layer);
+  gather_from_model  all-gather forward; this rank's slice of the gradient
+                     backward (the outputs of a column-parallel layer, used
+                     alike on every rank after it);
+  scatter_to_model   this rank's slice forward; the gradients all-gathered
+                     backward (a replicated value split for row-parallel
+                     use).
 """
 from __future__ import annotations
 
@@ -39,6 +53,7 @@ from transparent_object_detection_tpu_torch.parallel.distributed import (
 )
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 
 
 def _distributed() -> bool:
@@ -103,6 +118,13 @@ class Mesh:
             raise ValueError(f"rank {process_index()} is not in the mesh of ranks {self.ranks}")
         return self.coords.get(axis, 0)
 
+    def first_rank(self, axis: str) -> int:
+        """The rank at index 0 along `axis` on this rank's line of the grid."""
+        grid = np.asarray(self.ranks).reshape(tuple(self.shape.values()))
+        at = [self.coords[name] for name in self.axis_names]
+        at[self.axis_names.index(axis)] = 0
+        return int(grid[tuple(at)])
+
     def group(self, axis: str):
         """This rank's process group along `axis`; None without a process
         group, or along an axis the mesh lacks."""
@@ -149,6 +171,14 @@ def all_reduce_sum(t: torch.Tensor, mesh: Optional[Mesh], axis: str = DATA_AXIS)
     """Sum `t` in place over `axis`; returns it."""
     if mesh is not None and mesh.distributed:
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    return t
+
+
+def broadcast_first(t: torch.Tensor, mesh: Optional[Mesh], axis: str) -> torch.Tensor:
+    """`t` of the first rank along `axis` on every rank of this rank's line,
+    in place; returns it."""
+    if mesh is not None and mesh.distributed:
+        dist.broadcast(t, src=mesh.first_rank(axis), group=mesh.group(axis))
     return t
 
 
@@ -240,3 +270,79 @@ def replicate_state(state: Any, mesh: Mesh) -> Any:
         coalesced(list(_state_tensors(state)),
                   lambda t: dist.broadcast(t, src=src, group=mesh.group_all))
     return state
+
+
+# ---------------------------------------------------------------------------
+# the model axis's collectives with their gradients (tensor-parallel training)
+# ---------------------------------------------------------------------------
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.contiguous().clone(), ctx.mesh, MODEL_AXIS), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce_sum(x.contiguous().clone(), mesh, MODEL_AXIS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _own_slice(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    tp = mesh.size(MODEL_AXIS)
+    width = t.shape[dim] // tp
+    return t.narrow(dim, mesh.index(MODEL_AXIS) * width, width)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather_cat(x, mesh, MODEL_AXIS, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_slice(grad, ctx.mesh, ctx.dim), None, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _own_slice(x, mesh, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_gather_cat(grad.contiguous(), ctx.mesh, MODEL_AXIS, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`x`; its gradient summed over the model axis."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`x` summed over the model axis (a new tensor); the gradient passes."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every rank's `x` along the model axis, concatenated on `dim`; the
+    gradient's slice of this rank passes back."""
+    return _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def scatter_to_model(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """This rank's slice of `x` on `dim` (tp equal parts); the ranks'
+    gradients are all-gathered back."""
+    return _ScatterToModel.apply(x, mesh, dim % x.dim())

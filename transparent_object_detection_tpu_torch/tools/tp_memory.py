@@ -1,9 +1,11 @@
-"""Per-rank parameter bytes of tensor-parallel serving at every scale, from
-shapes on the meta device (no weights are made): phi n/s/m/l/x at tp 1, 2,
-4 and 8, bf16 serving (`parallel.tp.per_rank_param_bytes`: this rank's
-shards, weights of two or more dimensions in bf16), beside the fp32 model.
-A scale whose TEB widths tp does not divide prints null there (it cannot
-serve at that tp).
+"""Per-rank bytes of tensor parallelism at every scale, from shapes on the
+meta device (no weights are made): phi n/s/m/l/x at tp 1, 2, 4 and 8, bf16
+serving parameters (`parallel.tp.per_rank_param_bytes`: this rank's
+shards, weights of two or more dimensions in bf16) beside the fp32 model,
+and the fp32 training state (`parallel.tp.train_state_bytes`: parameters,
+gradients, SGD momentum and EMA in the layout of `shard_train_state_tp`,
+no activations). A scale whose TEB widths tp does not divide prints null
+there (it cannot run at that tp).
 
     python -m transparent_object_detection_tpu_torch.tools.tp_memory
 """
@@ -15,7 +17,10 @@ import torch
 
 from transparent_object_detection_tpu_torch.config import SCALE_TABLE, ModelConfig
 from transparent_object_detection_tpu_torch.models.detector import FocusModel
-from transparent_object_detection_tpu_torch.parallel.tp import per_rank_param_bytes
+from transparent_object_detection_tpu_torch.parallel.tp import (
+    per_rank_param_bytes,
+    train_state_bytes,
+)
 
 
 def rows():
@@ -27,10 +32,12 @@ def rows():
         row = {"phi": phi, "params": sum(p.numel() for p in model.parameters()),
                "fp32_bytes": per_rank_param_bytes(model, 1, torch.float32)}
         for tp in (1, 2, 4, 8):
-            try:
-                row[f"tp{tp}_bf16_bytes"] = per_rank_param_bytes(model, tp, torch.bfloat16)
-            except ValueError:
-                row[f"tp{tp}_bf16_bytes"] = None
+            for key, fn in (("bf16", lambda: per_rank_param_bytes(model, tp, torch.bfloat16)),
+                            ("train", lambda: train_state_bytes(model, tp))):
+                try:
+                    row[f"tp{tp}_{key}_bytes"] = fn()
+                except ValueError:
+                    row[f"tp{tp}_{key}_bytes"] = None
         yield row
 
 

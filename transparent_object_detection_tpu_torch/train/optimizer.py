@@ -19,13 +19,14 @@ place; the state is a dict of tensors keyed by parameter name.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from transparent_object_detection_tpu_torch.config import TrainConfig
+from transparent_object_detection_tpu_torch.parallel.mesh import MODEL_AXIS, all_reduce_sum
 
 ADAM_B2, ADAM_EPS = 0.999, 1e-8
 
@@ -65,12 +66,25 @@ class Optimizer:
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
-               params: Dict[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+               params: Dict[str, torch.Tensor], mesh=None,
+               sharded: Iterable[str] = ()) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+        """`sharded`: the names of leaves that hold this rank's shard over
+        the model axis of `mesh` (tensor-parallel training): the global norm
+        sums their squares over that axis and counts the replicated leaves
+        once. Everything after the clip is elementwise, so it runs on shards
+        unchanged."""
         cfg = self.cfg
         names = list(grads)
         g = [grads[n] for n in names]
         # clip by the global norm, as optax: (g / |g|) * c unless |g| < c
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+        sharded = set(sharded)
+        if sharded:
+            sq = torch.stack(torch._foreach_norm(g)).square()
+            split = torch.tensor([n in sharded for n in names], device=sq.device)
+            part = all_reduce_sum(sq[split].sum(), mesh, MODEL_AXIS)
+            g_norm = (sq[~split].sum() + part).sqrt()
+        else:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         keep = g_norm < cfg.grad_clip_norm
         u = [torch.where(keep, t, t / g_norm * cfg.grad_clip_norm) for t in g]
         if cfg.weight_decay:

@@ -16,6 +16,10 @@ state structure, so the state carries across the unfreeze boundary, where
 the loaders and lr schedule are rebuilt and the EMA update counter resyncs
 to steps_per_epoch * epoch.
 
+Tensor parallelism (a (data, model) mesh, on a state from
+`parallel.tp.shard_train_state_tp`) runs in `make_train_step` and
+`make_eval_step`; `Trainer.fit` trains data-parallel only, as JAX's fit.
+
 Data parallelism (`mesh`, a 1-D data mesh of parallel/): every rank runs
 the step on its rows of the same global batch, and the step equals JAX's
 step on the global batch: BatchNorm takes the global batch's statistics
@@ -49,6 +53,7 @@ from transparent_object_detection_tpu_torch.parallel.distributed import process_
 from transparent_object_detection_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     all_reduce_sum,
+    broadcast_first,
     coalesced,
     local_batch_slice,
     replicate_state,
@@ -105,13 +110,18 @@ def loss_config_from(model_cfg: ModelConfig, train_cfg: TrainConfig) -> LossConf
     )
 
 
-def _data_mesh(mesh):
-    """`mesh` for a training step: None, or a mesh without a model axis
-    (tensor-parallel training is not ported)."""
-    if mesh is not None and mesh.size(MODEL_AXIS) > 1:
-        raise NotImplementedError("tensor-parallel training is not ported; train on a "
-                                  "data-parallel mesh (parallel.make_mesh)")
-    return mesh
+def _sharded(model: nn.Module, mesh) -> List[str]:
+    """The parameters of `model` that hold this rank's shard over the model
+    axis of `mesh` (empty without one). A model axis of tp > 1 needs the
+    model in the tensor-parallel layout (`parallel.tp.shard_train_state_tp`
+    on its state, on this mesh)."""
+    if mesh is None or mesh.size(MODEL_AXIS) <= 1:
+        return []
+    specs = getattr(model, "tp_specs", None)
+    if specs is None or not getattr(model, "tp_serving", False):
+        raise ValueError("a (data, model) mesh trains a state in the tensor-parallel layout: "
+                         "call parallel.tp.shard_train_state_tp(state, mesh) first")
+    return [n for n, spec in specs.items() if MODEL_AXIS in spec]
 
 
 def _global_components(comps: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
@@ -134,12 +144,19 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
     gradients are zeroed before the clip and its parameters do not move;
     its BatchNorm statistics still update. With a data-parallel `mesh`,
     batch holds this rank's rows of the global batch, and the step (and
-    its components) is the global batch's."""
-    mesh = _data_mesh(mesh)
+    its components) is the global batch's. With a (data, model) mesh
+    (`parallel.tp.make_2d_mesh`), the state is in the tensor-parallel layout
+    (`parallel.tp.shard_train_state_tp`): each rank of a model group takes
+    the same rows, the sharded layers' collectives run in the forward and
+    backward, the gradients are summed over the data axis only (each
+    replicated leaf's then taken from the model group's first rank), the clip
+    takes the global norm over the shards, and the optimizer and the EMA
+    run on the shards (JAX's step on `shard_params_tp`'s state)."""
     frozen = ([n for n, f in backbone_frozen_mask(model).items() if f]
               if freeze_backbone else [])
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float):
+        sharded = _sharded(model, mesh)
         model.train()
         params = dict(model.named_parameters())
         for p in params.values():
@@ -153,10 +170,18 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
             if mesh is not None:  # the global batch's gradient: the ranks' sum
                 coalesced([p.grad for p in params.values()],
                           lambda t: all_reduce_sum(t, mesh, DATA_AXIS))
+            if sharded:
+                # a replicated leaf's gradient is computed on every rank of the
+                # model group, and on a card not to the same bits (atomics in
+                # its backward kernels): every rank takes the first rank's
+                keep = set(sharded)
+                coalesced([p.grad for n, p in params.items() if n not in keep],
+                          lambda t: broadcast_first(t, mesh, MODEL_AXIS))
             if frozen:
                 torch._foreach_zero_([params[n].grad for n in frozen])
             grads = {n: p.grad for n, p in params.items()}
-            updates, state.opt_state = optimizer.update(grads, state.opt_state, params)
+            updates, state.opt_state = optimizer.update(grads, state.opt_state, params, mesh,
+                                                        sharded)
             if frozen:
                 torch._foreach_zero_([updates[n] for n in frozen])
             names = list(params)
@@ -178,10 +203,12 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True,
                    mesh=None) -> Callable:
     """(state, batch) -> components: the validation loss in evaluation mode
     (running statistics) on the raw maps, with the EMA weights by default;
-    with a data-parallel `mesh`, the global batch's from this rank's rows."""
-    mesh = _data_mesh(mesh)
+    with a data-parallel `mesh`, the global batch's from this rank's rows;
+    with a (data, model) mesh, on a state in the tensor-parallel layout (the
+    sharded layers' serving forms)."""
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        _sharded(model, mesh)
         was_training = model.training
         model.eval()
         try:
@@ -293,7 +320,13 @@ class Trainer:
         adopts the mesh, and rank 0 alone writes checkpoints and logs."""
         tc = self.train_cfg
         model = self.model
-        self.mesh = mesh = _data_mesh(mesh)
+        if mesh is not None and mesh.size(MODEL_AXIS) > 1:
+            raise NotImplementedError(
+                "Trainer.fit trains on a data-parallel mesh (parallel.make_mesh); train "
+                "tensor-parallel through make_train_step on a state from "
+                "parallel.tp.shard_train_state_tp, as JAX's make_train_step on "
+                "shard_params_tp's state")
+        self.mesh = mesh
         if mesh is not None:
             for bs in {tc.freeze_batch_size, tc.unfreeze_batch_size}:
                 local_batch_slice(bs, mesh)

@@ -5,7 +5,9 @@ The port's modules are named one to one after the flax tree
 bottlenecks `m0`, `m1`, ...), so the map is mechanical. Per leaf:
 
   conv kernel (kh, kw, in, out)  -> weight (out, in, kh, kw)
-  dense kernel (in, out)         -> weight (out, in)
+  dense kernel (in, out)         -> weight (out, in) (nn.Linear, and
+                                    models.blocks.QuantDense from a JAX
+                                    Dense or QuantDense)
   LayerNorm / BatchNorm scale    -> weight;  bias -> bias
   batch_stats mean / var         -> running_mean / running_var
   gamma                          -> gamma
