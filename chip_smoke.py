@@ -124,14 +124,19 @@
    of 128 to 3,584, dark3 q/k 32 to 512 and v 256 to 4,096, key blocks of
    320 to 6,400; qmm K = 849 and 4,792 and one quant_out scale a row where
    JAX takes its reference route), at the 480x576 input (N = 4,320, key
-   blocks of 4,320 and 1,440) and in fp32, each against its plain version
-   with the bars above; each planted fault (those above, a q/k slab of the
-   width loop dropped, the tail key tile dropped, an int8 output quantized
-   per 256-column slice or, on the sm90 kernel, per warpgroup half, the K
-   tail of qmm dropped; and at the sm90 kernel's int8 sites its ring and
-   layout faults, each launch twice for the same bits) rejected on some
-   input spread. Every bf16 one-head site (dark3 at every scale, the
-   folded h1 of phi 'n' and 'm') runs the one-head form of
+   blocks of 4,320 and 1,440; the int8 sites of phi 'l' and 'x' there, at
+   batch 1) and in fp32, each against its plain version with the bars
+   above; each planted fault (those above, a q/k slab of the width loop
+   dropped, the tail key tile dropped, an int8 output quantized per
+   warpgroup half or per v slice of a cluster (a peer's amax ignored), one
+   slice's P from another query tile, the K tail of qmm dropped; and the
+   int8 kernel's ring and layout faults, each launch twice for the same
+   bits) rejected on some input spread. The phi 'l'/'x' neck heads (q/k
+   768 to 3,584) run csrc/flash_int8_sm90.cu's wide form: Q streamed
+   beside K where a resident tile does not fit, v in slices, the int8
+   outputs' slices one thread-block cluster. Every bf16 one-head site
+   (dark3 at every scale, the folded h1 of phi 'n' and 'm') runs the
+   one-head form of
    csrc/flash_fwd_sm90.cu: each launch twice for the same bits, the ring's
    faults and its design's (SINGLE_FAULTS: with the zero-filled columns
    past 288, 600 or dark3's q/k of 32 made nonzero) rejected on some
@@ -160,7 +165,13 @@
    fp32 flash launches, the folded h1, as in 11).
 13. Serve matrix: phi 'n', 's', 'm' in bf16 and fp32 compute, each in
    bf16, int8, A and B: one counted batch-1 detection each, launches
-   asserted against the route table.
+   asserted against the route table. Then the phi='l' slice: phi='l'
+   640x640 at full width and depth (8.33 B parameters, drawn on the card
+   from the seed; the int8 models built on the meta device and given the
+   bf16 model's parameter tensors, so one fp32 copy is alive), bf16, int8,
+   A and B as in 11, counted at batch 2 and 1, parity at batch 2, its
+   throughput at the largest of batch 32, 16 and 8 that fits (from the
+   peaks of a batch-1 and a batch-2 forward), peak memory and a profile.
 14. Train scale kernel phase: rows 9-11 (flash_fwd_lse, flash_bwd_dq,
    flash_bwd_dkv) at every training site of phi 'n', 'm', 'l' and 'x'
    640x640 (packed heads of 128 to 1,536 and 3,584, dark3 q/k 32 to 512 and
@@ -300,9 +311,9 @@
    plain and SDPA apart in `sites`), rows 3-5 on csrc/flash_int8_sm90.cu,
    then rows 9-11's packed sites on the sm90 kernels; then the phi='m' and
    fp32 forms (row 2 at phi='m' and phi='n' dark3 and the folded h1 under
-   the one-head form, by site), rows 3-5 split by
-   kernel: the sm90 one's sites and the mma_sync template's (dark3), rows
-   9-11 at phi='m' (split likewise: row 9 at dark3 and the folded h1 under
+   the one-head form, by site), the phi='l' forms likewise (rows 3-5 at
+   its dark3 and neck heads on csrc/flash_int8_sm90.cu), rows
+   9-11 at phi='m' (split: row 9 at dark3 and the folded h1 under
    the one-head form of csrc/flash_fwd_sm90.cu, rows 10 and 11 under
    csrc/flash_bwd_single_sm90.cu, each site's time, bound, plain and SDPA
    apart in `sites`), rows 9-11 at the one-head sites of phi='n', and in
@@ -1781,9 +1792,7 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
             kern = lambda: A8.flash_mha_int8(q, kq, ks, vq, vs, h, scale, q_width)
             out = kern()
             torch.cuda.synchronize()
-            sm90 = q.is_cuda and A8.int8_fwd_form(cq // h, cv // h) == "sm90"
-            if sm90:
-                twice_same_bits(kern, out, f"flash_mha_int8 {name}")
+            twice_same_bits(kern, out, f"flash_mha_int8 {name}")
             ref = A8.flash_mha_int8_plain(q, kq, ks, vq, vs, h, scale, q_width)
             qc = q[..., :cq]
             reading = int8_reading(out, ref)
@@ -1792,10 +1801,9 @@ def int8_kernel_phase(shrink: int = 1) -> dict:
             reading["faults_bar_used"] = {
                 f: int8_reading(fn(qc, k, v, h, scale, bk), ref)["bar_used"]
                 for f, fn in faults.items()}
-            if sm90:  # and the faults of the sm90 kernel's ring and layout
-                reading["faults_bar_used"].update(
-                    (f, int8_reading(fn(), ref)["bar_used"])
-                    for f, fn in sm90_ring_faults(q, kq, ks, vq, vs, h, scale, k, v, bk).items())
+            reading["faults_bar_used"].update(  # and those of the kernel's ring and layout
+                (f, int8_reading(fn(), ref)["bar_used"])
+                for f, fn in sm90_ring_faults(q, kq, ks, vq, vs, h, scale, k, v, bk).items())
             for f, used in reading["faults_bar_used"].items():
                 rejected[f] = rejected.get(f, False) or used > 1.0
             print(json.dumps({"check": f"flash_mha_int8 {name} score_std {score_std}",
@@ -2022,7 +2030,11 @@ def int8_path_calls(model, images) -> dict:
                 one = _int8_attention_batch1(name, args)
                 shape = {"b": b, "n": n, "cq": cq, "cv": cv, "heads": h,
                          "bk": n // args[3 if handoff else 2].shape[-1],
-                         "form": A8.int8_fwd_form(cq // h, cv // h), "int8_out": int8_out,
+                         "form": A8.int8_fwd_form(cq // h, cv // h, name), "int8_out": int8_out,
+                         **{key: A8.int8_sm90_plan(cq // h, cv // h,
+                                                   args[3 if handoff else 2].shape[-1],
+                                                   int8_out=int8_out)[key]
+                            for key in ("slices", "q_stream", "cluster")},
                          "packed_q": not handoff and len(args) > 7 and args[7] is not None,
                          "bound2_ms": _bound(_two_product_ops(b, n, cq, cv), nbytes)[0],
                          "ms_b1": timed_ms(lambda: kernel(*one, **kw), 10, 2),
@@ -2039,13 +2051,11 @@ def int8_path_calls(model, images) -> dict:
     return rows
 
 
-# the mma_sync template's counters: no serving route of phi 'n', 's', 'm'
-# launches it (every int8 site there is on csrc/flash_int8_sm90.cu)
-TEMPLATE_COUNTED = ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")
+# every int8 attention launch is csrc/flash_int8_sm90.cu's (`sm90_launches`):
+# the entry points have no other kernel and no other counter
 COUNTED = ("flash_mha_packed", "flash_mha_packed_sm90", "flash_mha_packed_f32",
-           "flash_single_sm90", "flash_single_f32", "flash_mha_int8",
-           "flash_mha_int8_sm90", "flash_mha_int8_qout", "flash_mha_int8_qout_sm90",
-           "flash_int8_handoff", "flash_int8_handoff_sm90", "qmm", "quant_rows",
+           "flash_single_sm90", "flash_single_f32", "flash_mha_int8_sm90",
+           "flash_mha_int8_qout_sm90", "flash_int8_handoff_sm90", "qmm", "quant_rows",
            "quant_rows_int4")
 
 
@@ -2069,9 +2079,8 @@ def read_counts() -> dict:
             "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
             "flash_single_sm90": A.flash_single.sm90_launches,
             "flash_single_f32": A.flash_single.f32_launches,
-            **{name + sm90: getattr(getattr(A8, name), "sm90_launches" if sm90 else "launches")
-               for name in ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")
-               for sm90 in ("", "_sm90")},
+            **{name + "_sm90": getattr(A8, name).sm90_launches
+               for name in ("flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff")},
             "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches,
             "quant_rows_int4": QM.quant_rows.launches_int4}
 
@@ -2205,10 +2214,11 @@ PERF_KEYS = ("batch1_latency_ms_p50", "batch1_latency_ms_p75", "batch32_imgs_per
              "batch32_forward_ms")
 
 
-def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3) -> dict:
+def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3,
+                   big: int = 32) -> dict:
     """Batch-1 latency (40 calls after 3 warm-ups, host clock) and forward;
-    batch-32 throughput (`iters` calls after 1, host clock), forward and
-    peak memory; a profile of one batch-32 forward, as the bf16 slice."""
+    batch-`big` throughput (`iters` calls after 1, host clock), forward and
+    peak memory; a profile of one batch-`big` forward, as the bf16 slice."""
     import numpy as np
     import torch
 
@@ -2226,8 +2236,8 @@ def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3) -
             lat.append((time.perf_counter() - t0) * 1e3)
         lat.sort()
         fwd1 = timed_ms(lambda: model(images[:1]), 20, 3)
-        raw32 = rng.integers(0, 256, size=(32, 480, 640, 3), dtype=np.uint8)
-        shapes32 = np.tile(np.array([[480, 640]], np.float32), (32, 1))
+        raw32 = rng.integers(0, 256, size=(big, 480, 640, 3), dtype=np.uint8)
+        shapes32 = np.tile(np.array([[480, 640]], np.float32), (big, 1))
         torch.cuda.reset_peak_memory_stats()
         predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
         t0 = time.perf_counter()
@@ -2242,8 +2252,8 @@ def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3) -
     return {"batch1_latency_ms_p50": lat[len(lat) // 2],
             "batch1_latency_ms_p75": lat[3 * len(lat) // 4],
             "batch1_latency_ms_min": lat[0], "batch1_forward_ms": fwd1,
-            "batch32_imgs_per_s": 32 / b32_s, "batch32_step_ms": b32_s * 1e3,
-            "batch32_forward_ms": fwd32, "peak_mem_gib_batch32": peak,
+            f"batch{big}_imgs_per_s": big / b32_s, f"batch{big}_step_ms": b32_s * 1e3,
+            f"batch{big}_forward_ms": fwd32, f"peak_mem_gib_batch{big}": peak,
             "profile": {k: profile[k] for k in ("device_busy_ms", "idle_share",
                                                 "by_class_ms")}}
 
@@ -2269,23 +2279,17 @@ def int8_kernel_entry(name, source, replaces, rows, launches, max_err):
     return {**entry, "shapes": rows}
 
 
-I8_SRC = "transparent_object_detection_tpu_torch/csrc/flash_attn_int8.cu"
 I8_SM90_SRC = "transparent_object_detection_tpu_torch/csrc/flash_int8_sm90.cu"
 
 
 def int8_attention_entries(name, label, rows, launches, max_err, replaces):
-    """The kernels-line entries of one int8 attention entry point: one for
-    each kernel its launches took (`int8_fwd_form`): the sm90 kernel's rows
-    and counter under csrc/flash_int8_sm90.cu, the mma_sync template's under
-    csrc/flash_attn_int8.cu."""
-    out = []
-    for form, source, counter, tag in (("sm90", I8_SM90_SRC, name + "_sm90", ""),
-                                       ("mma_sync", I8_SRC, name, " mma_sync")):
-        mine = [r for r in rows if r["form"] == form]
-        if mine:
-            out.append(int8_kernel_entry(f"{name}{tag}{label}", source, replaces, mine,
-                                         launches[counter], max_err))
-    return out
+    """The kernels-line entry of one int8 attention entry point: its launches
+    (csrc/flash_int8_sm90.cu, the only kernel of the three entry points)
+    with their rows and counter."""
+    if not rows:
+        return []
+    return [int8_kernel_entry(f"{name}{label}", I8_SM90_SRC, replaces, rows,
+                              launches[name + "_sm90"], max_err)]
 
 
 # ---------------------------------------------------------------------------
@@ -2501,9 +2505,8 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
             args = (qkv, kq, ks, vq, vs, h, scale, c)
             out = A8.flash_mha_int8_qout(*args)
             torch.cuda.synchronize()
-            if A8.int8_fwd_form(c // h, c // h) == "sm90":
-                twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
-                                f"flash_mha_int8_qout {name}")
+            twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
+                            f"flash_mha_int8_qout {name}")
             ref = A8.flash_mha_int8_qout_plain(*args)
             qc = qkv[..., :c]
             faults = {
@@ -2550,9 +2553,8 @@ def variant_kernel_phase(shrink: int = 1) -> dict:
                     hargs = (payload, qs, kq, ks, vq, vs, h, scale, quant_out)
                     out = A8.flash_int8_handoff(*hargs)
                     torch.cuda.synchronize()
-                    if A8.int8_fwd_form(c // h, c // h) == "sm90":
-                        twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
-                                        f"flash_int8_handoff {name} quant_out={quant_out}")
+                    twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
+                                    f"flash_int8_handoff {name} quant_out={quant_out}")
                     ref = A8.flash_int8_handoff_plain(*hargs)
                     faults = {
                         "kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
@@ -3579,7 +3581,6 @@ def train_launch_counts():
                     "flash_mha_packed_f32": A.flash_mha_packed.f32_launches,
                     "flash_single_sm90": A.flash_single.sm90_launches,
                     "flash_single_f32": A.flash_single.f32_launches,
-                    "flash_mha_int8": A8.flash_mha_int8.launches,
                     "flash_mha_int8_sm90": A8.flash_mha_int8.sm90_launches,
                     "qmm": QM.qmm.launches, "quant_rows": QM.quant_rows.launches}
     return resets, read
@@ -3611,7 +3612,7 @@ def train_expected(cfg, tp: int = 1) -> dict:
               "flash_bwd_dkv_f32": 0, "flash_bwd_dkv_single": 0, "flash_mha_packed": 0,
               "flash_mha_packed_sm90": 0,
               "flash_mha_packed_f32": 0, "flash_single_sm90": 0, "flash_single_f32": 0,
-              "flash_mha_int8": 0, "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
+              "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
     suffix = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
@@ -3905,8 +3906,9 @@ def expected_launches(phi: str, batch: int, tag: str, f32: bool = False) -> dict
             return kernel + {"sm90": "_sm90", "f32_sm90": "_f32"}.get(form, "")
         if kernel == "flash_single":  # one head: the one-head sm90 form, or fp32's
             return kernel + ("_f32" if f32 else "_sm90")
-        if kernel.startswith(("flash_mha_int8", "flash_int8")):
-            return kernel + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
+        if kernel.startswith(("flash_mha_int8", "flash_int8")):  # the one int8 kernel
+            check(A8.int8_fwd_form(dq, dv, kernel) == "sm90", f"{kernel}: no form")
+            return kernel + "_sm90"
         return kernel
 
     def attend(route, dq, dv):
@@ -3970,9 +3972,9 @@ def _f32_bar_used(out, ref) -> float:
 
 def _amax_per_slice(o, heads, width=256):
     """Planted fault: the int8 output quantized per `width`-column slice of
-    a head (each slice on its own amax: the template's 256-column blocks, or
-    the sm90 kernel's warpgroup halves without their exchange), the last
-    slice's scale written."""
+    a head (each slice on its own amax: the sm90 kernel's warpgroup halves
+    without their exchange, or its v slices with a cluster peer's amax
+    ignored), the last slice's scale written."""
     import torch
 
     b, n, c = o.shape
@@ -3989,14 +3991,35 @@ def _amax_per_slice(o, heads, width=256):
     return payload.reshape(b, n, c), scale.contiguous()
 
 
+def _int8_out_faults(o32, heads, plan) -> dict:
+    """{fault: thunk} of the int8-output form's own faults, from the sound
+    fp32 output `o32()` (B, N, heads * dv) and the int8-output plan: the
+    split form's warpgroup halves quantized apart (their amax not
+    exchanged), the cluster's v slices quantized apart (a peer's amax
+    ignored), one slice's P from another query tile (its rows those of the
+    next query tile)."""
+    out = {}
+    if plan["split"]:
+        out["amax_per_warpgroup_half"] = lambda: _amax_per_slice(o32(), heads, plan["v_cols"])
+    if plan["slices"] > 1:
+        width = plan["v_cols"] * (2 if plan["split"] else 1)
+        out["cluster_peer_amax_ignored"] = lambda: _amax_per_slice(o32(), heads, width)
+        out["slice_p_from_other_query_tile"] = lambda: _quant_per_head(
+            _v_slice_faults(o32(), heads, plan)["v_slice_from_other_tile_S"], heads)
+    return out
+
+
 def scale_kernel_phase() -> dict:
     """Rows 1-8 at every site of phi 'n', 'm', 'l' and 'x' 640x640 (batch 2,
     batch 1 at 'l' and 'x'), at the 480x576 input (N = 4,320) of phi 's'
-    and 'm', and in fp32: each kernel against its plain version with the
-    existing bars, each planted fault rejected on some input spread (the
-    phi='s' faults, a dropped q/k slab of the width loop, a dropped tail key
-    tile, an int8 output quantized per 256-column slice, a dropped K tail
-    in qmm). Returns per kernel form the largest value error."""
+    and 'm' and at the int8 sites of 'l' and 'x' there, and in fp32: each
+    kernel against its plain version with the existing bars, each planted
+    fault rejected on some input spread (the phi='s' faults, a dropped q/k
+    slab of the width loop, a dropped tail key tile; for the int8 outputs
+    the warpgroup halves or a cluster's v slices quantized apart and one
+    slice's P from another query tile; a dropped K tail in qmm), every int8
+    form twice for the same bits. Returns per kernel form the largest value
+    error."""
     import torch
 
     from transparent_object_detection_tpu_torch.ops import attention as A
@@ -4079,6 +4102,8 @@ def scale_kernel_phase() -> dict:
     def int8_case(tag, b, n, cq, cv, heads, bk, dt, variants):
         scale = (cq // heads) ** -0.5 if heads > 1 else 1.0
         dv = cv // heads
+        # the plan of the int8-output entries: v slices as one cluster
+        oplan = A8.int8_sm90_plan(cq // heads, dv, n // bk, int8_out=True) if variants else None
         rejected = {}
         for score_std in SCORE_STDS:
             std = qk_std(score_std, scale, cq // heads)
@@ -4108,15 +4133,11 @@ def scale_kernel_phase() -> dict:
             args = (q, kq, ks, vq, vs, heads, scale)
             out = A8.flash_mha_int8(*args)
             torch.cuda.synchronize()
-            sm90 = A8.int8_fwd_form(cq // heads, dv) == "sm90"
-            # the width over which a faulty int8 output would take its amax:
-            # the template's 256-column slices, the sm90 kernel's warpgroup halves
-            slice_w = A8.int8_sm90_plan(cq // heads, dv, n // bk)["v_cols"] if sm90 else \
-                A8.KERNEL_DV_TILE
-            if sm90:  # the second launch's bits, and the faults of its ring and layout
-                twice_same_bits(lambda: A8.flash_mha_int8(*args), out, f"flash_mha_int8 {tag}")
-                faults.update((f, lambda od=None, fn=fn: fn()) for f, fn in sm90_ring_faults(
-                    q, kq, ks, vq, vs, heads, scale, k, v, bk).items())
+            # the second launch's bits, and the faults of the ring, the layout
+            # and the v slices (one slice's P from another query tile)
+            twice_same_bits(lambda: A8.flash_mha_int8(*args), out, f"flash_mha_int8 {tag}")
+            faults.update((f, lambda od=None, fn=fn: fn()) for f, fn in sm90_ring_faults(
+                q, kq, ks, vq, vs, heads, scale, k, v, bk).items())
             ref = A8.flash_mha_int8_plain(*args)
             check(int8_reading(ref_fn()(), ref)["bar_used"] <= 1.0,
                   f"flash_mha_int8 {tag}: the fault reference is not the plain function")
@@ -4131,16 +4152,14 @@ def scale_kernel_phase() -> dict:
             # qout: the same inputs, the output quantized per (row, head)
             out = A8.flash_mha_int8_qout(*args)
             torch.cuda.synchronize()
-            if sm90:
-                twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
-                                f"flash_mha_int8_qout {tag}")
+            twice_same_bits(lambda: A8.flash_mha_int8_qout(*args), out,
+                            f"flash_mha_int8_qout {tag}")
             ref = A8.flash_mha_int8_qout_plain(*args)
             o32 = lambda: int8_attention_reference(q, k, v, heads, scale, bk, bk, torch.float32)
             qfaults = {"out_scale_per_row": lambda: _out_scale_per_row(o32(), heads),
                        "p_rounded_on_running_64_key_max": lambda: _quant_per_head(
                            faults["p_rounded_on_running_64_key_max"](torch.float32), heads)}
-            if dv > slice_w:
-                qfaults["amax_per_slice"] = lambda: _amax_per_slice(o32(), heads, slice_w)
+            qfaults.update(_int8_out_faults(o32, heads, oplan))
             r = _hold(f"flash_mha_int8_qout {tag}", out, ref, qfaults, record,
                       spread_faults=("p_rounded_on_running_64_key_max",))
             note("flash_mha_int8_qout", r["max_abs_err"])
@@ -4161,9 +4180,8 @@ def scale_kernel_phase() -> dict:
                     hargs = (payload, qs, *hk, *hv, heads, scale, quant_out, dt)
                     out = A8.flash_int8_handoff(*hargs)
                     torch.cuda.synchronize()
-                    if sm90:
-                        twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
-                                        f"flash_int8_handoff {tag} quant_out={quant_out}")
+                    twice_same_bits(lambda: A8.flash_int8_handoff(*hargs), out,
+                                    f"flash_int8_handoff {tag} quant_out={quant_out}")
                     ref = A8.flash_int8_handoff_plain(*hargs)
                     hfaults = {"kv_requantize_ratio_dropped": lambda: A8.flash_int8_handoff_plain(
                         payload, qs, *k_fault, *hv, heads, scale, quant_out, dt)}
@@ -4171,9 +4189,7 @@ def scale_kernel_phase() -> dict:
                                                                scale, False, torch.float32)
                     if quant_out:
                         hfaults["out_scale_per_row"] = lambda: _out_scale_per_row(o32h(), heads)
-                        if dv > slice_w:
-                            hfaults["amax_per_slice"] = lambda: _amax_per_slice(o32h(), heads,
-                                                                                slice_w)
+                        hfaults.update(_int8_out_faults(o32h, heads, oplan))
                     r = _hold(f"flash_int8_handoff {tag} quant_out={quant_out}", out, ref,
                               hfaults, {**record, "groups": scales.shape[-1],
                                         "quant_out": quant_out})
@@ -4182,7 +4198,8 @@ def scale_kernel_phase() -> dict:
             check(ok, f"{tag}: the int8 bar rejects {f} on no input spread")
 
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [(phi, (640, 640)) for phi in SCALE_PHIS] + [("s", (480, 576)), ("m", (480, 576))]
+    cases = [(phi, (640, 640)) for phi in SCALE_PHIS] + [
+        (phi, (480, 576)) for phi in ("s", "m", "l", "x")]
     for phi, hw in cases:
         b = 1 if phi in ("l", "x") else 2
         for name, (n, cq, cv, heads, packed) in scale_sites(phi, hw).items():
@@ -4193,7 +4210,9 @@ def scale_kernel_phase() -> dict:
             if n <= A.NAIVE_MAX_TOKENS or (other and not packed_site):
                 continue
             tag = f"phi={phi} {hw[0]}x{hw[1]} {name}"
-            if hw == (640, 640) or name == "h2" or packed_site:
+            # 480x576 at phi 'l' and 'x': their int8 sites (dark3, h2) alone
+            if (hw == (640, 640) or name == "h2" or packed_site) and (
+                    hw == (640, 640) or phi not in ("l", "x")):
                 flash_case(tag, b, n, cq, cv, heads, packed, bf)
             if other:
                 continue
@@ -4439,7 +4458,38 @@ def _parity(model, predictor, images, raw, shapes, pcfg, tag) -> dict:
     return reading
 
 
-def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
+def _fitting_batch(model, images, candidates, headroom_gib: float = 12.0) -> dict:
+    """The largest batch of `candidates` whose forward fits the card: the
+    peaks of a batch-1 and a batch-2 forward (after `reset_peak_memory_stats`)
+    give the weights' and one image's share, a batch fits if its predicted
+    peak leaves `headroom_gib` of the card free (the predictor's letterbox
+    and NMS beside the forward, the allocator's fragmentation: phi='l' A at
+    batch 32, predicted 70.9 GiB, failed on a 4.7 GiB block with 68.0 GiB
+    allocated and 9.0 reserved). The allocator's cache is emptied first."""
+    import torch
+
+    torch.cuda.empty_cache()
+    peaks = {}
+    with torch.inference_mode():
+        for b in (1, 2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            model(images[:b])
+            torch.cuda.synchronize()
+            peaks[b] = torch.cuda.max_memory_allocated() / 2**30
+    per_image = max(peaks[2] - peaks[1], 0.0)
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    fits = [b for b in candidates if peaks[1] + (b - 1) * per_image + headroom_gib <= total]
+    check(bool(fits), f"no batch of {candidates} fits: peaks {peaks} of {total:.1f} GiB")
+    reading = {"batch": max(fits), "peak_gib_batch1": peaks[1], "peak_gib_batch2": peaks[2],
+               "card_gib": total, "predicted_gib": {b: peaks[1] + (b - 1) * per_image
+                                                    for b in candidates}}
+    print(json.dumps({"fitting_batch": reading}), flush=True)
+    return reading
+
+
+def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool, shared: bool = False,
+                      fp32: bool = True, big=(32,)) -> dict:
     """FocusModel at `phi` 640x640, full width, seeded random weights, served
     through Predictor.detect_raw_batch in each configuration of `tags`
     ("bf16", "int8", "A", "B") from the bf16 model's weights: the launches of
@@ -4447,7 +4497,12 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
     and the detection sets against the same configuration on plain versions
     (batch 4, or 2 when 2 is the largest counted batch); with `timed`, every
     launch of a batch-2 forward against its plain version and timed, batch-1
-    latency, batch-32 throughput and a profile. Then one fp32 forward at
+    latency, throughput at the largest batch of `big` that fits, peak
+    memory and a profile. With `shared` (phi='l': 33.3 GB of fp32
+    parameters) the weights are drawn on the card and each int8 model takes
+    the bf16 model's parameter tensors themselves (built on the meta device,
+    loaded with assign): one fp32 copy at a time, each int8 model (its int8
+    weight caches) freed before the next. With `fp32`, one fp32 forward at
     batch 2 (every int8 flag off at phi='m', int8 at phi='n') against plain,
     its launches counted."""
     import numpy as np
@@ -4464,10 +4519,13 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
 
     pcfg = PredictConfig()
     t0 = time.perf_counter()
-    base = build_model(ModelConfig(phi=phi), device=DEVICE, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    base = build_model(ModelConfig(phi=phi), device=DEVICE, seed=SEED, init_on_device=shared)
+    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in base.parameters())
     print(json.dumps({"scale_model": phi, "params": n_params,
-                      "build_s": time.perf_counter() - t0}), flush=True)
+                      "build_s": time.perf_counter() - t0,
+                      "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
     rng = np.random.default_rng(SEED)
     nimg = 4 if max(batches) > 2 else 2
     raw = rng.integers(0, 256, size=(nimg, 480, 640, 3), dtype=np.uint8)
@@ -4479,12 +4537,17 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
         base.backbone.dark3_attn.gamma.fill_(0.5)
 
     def clone(cfg, variants=None):
+        if shared:  # the bf16 model's parameter tensors, no copy
+            model = build_model(cfg, device="meta", seed=None, int8_variants=variants)
+            model.load_state_dict(base.state_dict(), assign=True)
+            return model
         model = build_model(cfg, device=DEVICE, seed=None, int8_variants=variants)
         model.load_state_dict(base.state_dict())
         return model
 
     results = {}
     for tag in tags:
+        t_tag = time.perf_counter()
         int8 = tag != "bf16"
         cfg = ModelConfig(phi=phi, int8_dense=int8, int8_attn=int8)
         model = clone(cfg, Int8Variants(**VARIANT_CONFIGS.get(tag, {}))) if int8 else base
@@ -4501,8 +4564,6 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
             want = expected_launches(phi, b, tag)
             check(launches[b] == want, f"phi={phi} {tag} batch {b}: launches {launches[b]}, "
                                        f"expected {want}")
-            check(all(launches[b][k] == 0 for k in TEMPLATE_COUNTED),
-                  f"phi={phi} {tag} batch {b}: the mma_sync template served {launches[b]}")
             check(bool(torch.isfinite(dets_b["boxes"]).all()), f"phi={phi} {tag}: non-finite")
         print(json.dumps({"scale_main_path_launches": {"phi": phi, "config": tag,
                                                        "per_forward": launches}}), flush=True)
@@ -4513,38 +4574,39 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool) -> dict:
         if timed:
             record["rows"] = (bf16_path_calls(model, images[:2]) if not int8
                               else int8_path_calls(model, images[:2]))
-            # two timed batch-32 steps, not three: the smoke's time limit
+            fit = _fitting_batch(model, images, big) if big != (32,) else {"batch": 32}
+            # two timed big-batch steps, not three: the smoke's time limit
             record["perf"] = {"card": card, "model": f"phi={phi} 640x640 {tag}",
-                              "params": n_params,
+                              "params": n_params, "fitting_batch": fit,
                               **serving_timing(model, predictor, raw, shapes, images, rng,
-                                               iters=2)}
+                                               iters=2, big=fit["batch"])}
             print(json.dumps({"scale_slice_perf": record["perf"]}), flush=True)
+        record["seconds"] = time.perf_counter() - t_tag
         results[tag] = record
         if model is not base:
             del model, predictor
             torch.cuda.empty_cache()
 
-    # one fp32 forward at batch 2, counted, against plain
-    tag = "fp32" if phi != "n" else "fp32 int8"
-    int8 = tag == "fp32 int8"
-    cfg = ModelConfig(phi=phi, compute_dtype="float32", int8_dense=int8, int8_attn=int8)
-    model = clone(cfg, Int8Variants())
-    predictor = Predictor(model, cfg, pcfg, device=DEVICE)
-    reset_counts()
-    with torch.inference_mode():
-        model(images[:2])
-    torch.cuda.synchronize()
-    counts = read_counts()
-    want = expected_launches(phi, 2, "int8" if int8 else "bf16", f32=True)
-    check(counts == want, f"phi={phi} {tag}: launches {counts}, expected {want}")
-    check(all(counts[k] == 0 for k in TEMPLATE_COUNTED),
-          f"phi={phi} {tag}: the mma_sync template served {counts}")
-    parity = _parity(model, predictor, images[:2], raw[:2], shapes[:2], pcfg, tag)
-    rows = bf16_path_calls(model, images[:2], f32=True)  # the fp32 flash launches
-    if int8:
-        rows = {**int8_path_calls(model, images[:2]), "flash_single": rows["flash_single"]}
-    results[tag] = {"launches": {2: counts}, "parity": parity, "rows": rows}
-    del model, predictor, base
+    if fp32:  # one fp32 forward at batch 2, counted, against plain
+        tag = "fp32" if phi != "n" else "fp32 int8"
+        int8 = tag == "fp32 int8"
+        cfg = ModelConfig(phi=phi, compute_dtype="float32", int8_dense=int8, int8_attn=int8)
+        model = clone(cfg, Int8Variants())
+        predictor = Predictor(model, cfg, pcfg, device=DEVICE)
+        reset_counts()
+        with torch.inference_mode():
+            model(images[:2])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = expected_launches(phi, 2, "int8" if int8 else "bf16", f32=True)
+        check(counts == want, f"phi={phi} {tag}: launches {counts}, expected {want}")
+        parity = _parity(model, predictor, images[:2], raw[:2], shapes[:2], pcfg, tag)
+        rows = bf16_path_calls(model, images[:2], f32=True)  # the fp32 flash launches
+        if int8:
+            rows = {**int8_path_calls(model, images[:2]), "flash_single": rows["flash_single"]}
+        results[tag] = {"launches": {2: counts}, "parity": parity, "rows": rows}
+        del model, predictor
+    del base
     torch.cuda.empty_cache()
     return results
 
@@ -4589,8 +4651,6 @@ def serve_matrix_phase(card: str) -> dict:
                 want = expected_launches(phi, 1, tag, f32=dtype == "float32")
                 what = f"phi={phi} {dtype} {tag}"
                 check(counts == want, f"{what}: launches {counts}, expected {want}")
-                check(all(counts[k] == 0 for k in TEMPLATE_COUNTED),
-                      f"{what}: the mma_sync template served {counts}")
                 check(bool(torch.isfinite(dets["boxes"]).all()), f"{what}: non-finite boxes")
                 served[what] = {k: v for k, v in counts.items() if v}
                 del model, predictor
@@ -5947,8 +6007,9 @@ def _tp_counter(route: str, dq: int, dv: int, int8: bool) -> str:
     from transparent_object_detection_tpu_torch.ops import attention as A
     from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
 
-    if route == "int8":
-        return "flash_mha_int8" + ("_sm90" if A8.int8_fwd_form(dq, dv) == "sm90" else "")
+    if route == "int8":  # the one int8 kernel
+        check(A8.int8_fwd_form(dq, dv) == "sm90", f"int8 heads of {dq}/{dv}: no form")
+        return "flash_mha_int8_sm90"
     if route == "packed":
         form = A.packed_fwd_form(dq, torch.bfloat16)
         return "flash_mha_packed" + ("_sm90" if form == "sm90" else "")
@@ -6920,6 +6981,10 @@ def main() -> int:
     n_run = phase("phi=n slice", scale_slice_phase, card, "n", ("bf16", "int8"), (2,),
                   timed=False)
     phase("serve matrix", serve_matrix_phase, card)
+    # phi='l' (8.33 B parameters) served end to end: bf16, int8, A, B from
+    # one fp32 copy of the weights, throughput at the largest batch that fits
+    l_run = phase("phi=l slice", scale_slice_phase, card, "l", ("bf16", "int8", "A", "B"),
+                  (2, 1), timed=True, shared=True, fp32=False, big=(32, 16, 8))
     train_scale = phase("train scale kernel", train_scale_kernel_phase)
     phase("folded route", folded_route_check)
     from transparent_object_detection_tpu_torch.config import ModelConfig
@@ -7010,10 +7075,12 @@ def main() -> int:
     # forward); errors the largest of those launches and the scale kernel phase
     ja = "transparent_object_detection_tpu/ops/attention.py"
     forms = (("flash_mha_packed", src, f"{ja}:239"), ("flash_single", sm90_src, f"{ja}:137"),
-             ("flash_mha_int8", I8_SRC, f"{ja8}:58"), ("flash_mha_int8_qout", I8_SRC, f"{ja8}:184"),
-             ("flash_int8_handoff", I8_SRC, f"{ja8}:435"), ("qmm", qmm_src, f"{jq}:80"),
+             ("flash_mha_int8", I8_SM90_SRC, f"{ja8}:58"),
+             ("flash_mha_int8_qout", I8_SM90_SRC, f"{ja8}:184"),
+             ("flash_int8_handoff", I8_SM90_SRC, f"{ja8}:435"), ("qmm", qmm_src, f"{jq}:80"),
              ("quant_rows", qsrc, f"{jq}:408"), ("quant_rows_int4", qsrc, f"{jq}:408"))
     runs = (("phi=m", m_run, ("bf16", "int8", "A", "B"), 32, ""),
+            ("phi=l", l_run, ("bf16", "int8", "A", "B"), 2, ""),
             ("phi=n", n_run, ("int8",), 2, ""),
             ("fp32 phi=m", m_run, ("fp32",), 2, "_f32"),
             ("fp32 phi=n", n_run, ("fp32 int8",), 2, "_f32"))
@@ -7023,7 +7090,7 @@ def main() -> int:
             if tag is None:
                 continue
             r = run[tag]
-            if name.startswith(("flash_mha_int8", "flash_int8")):  # by each call's kernel
+            if name.startswith(("flash_mha_int8", "flash_int8")):  # the int8 kernel
                 kernels += int8_attention_entries(name, f" {label}", r["rows"][name],
                                                   r["launches"][batch],
                                                   scale_err.get(name + suffix, 0.0), replaces)

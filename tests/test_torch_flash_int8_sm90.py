@@ -3,17 +3,15 @@
 The kernel cannot run here; what is held here is what surrounds it:
   * the form rule (`attention_int8.int8_fwd_form`, one per entry point): at
     every int8 site of phi 'n' to 'x' at 640x640 and 480x576 (the route
-    table's widths and `pick_blocks`'s key blocks), heads whose q/k width is
-    a multiple of 32 up to 512 take the sm90 kernel, flash_mha_int8 at any
-    v (every serving site of phi 'n', 's', 'm', dark3 included; dark3 of
-    'l' and 'x'), the int8-output entries at v up to 512; the rest the
-    mma.sync template;
-  * the launch plan (`attention_int8.int8_sm90_plan`) at every sm90 site and
-    over the whole domain: its shared memory (recomputed here) within the
-    card's 227 KB, at least two K stages at phi='m' dark3 (v in two slices
-    of 512 beside the fp32 acc of two key blocks), legal wgmma N, v slices
-    that cover v, key tiles that cover each key block with the tail the
-    kernel masks;
+    table's widths and `pick_blocks`'s key blocks) all three entry points
+    take the sm90 kernel, the phi 'l'/'x' neck heads (q/k 768 to 3,584) and
+    the int8 outputs at v past 512 included; there is no other kernel;
+  * the launch plan (`attention_int8.int8_sm90_plan`) at every site and over
+    the whole domain: its shared memory (recomputed here) within the card's
+    227 KB, legal wgmma N, v slices that cover v, key tiles that cover each
+    key block with the tail the kernel masks, the int8 Q tile resident where
+    it fits and streamed beside K where it does not (the neck heads of phi
+    'l' and 'x'), an int8 output's slices one cluster of at most 8;
   * the integer max of pass 1: the largest __fmul_rn(float(S), rs) of a
     block is __fmul_rn(float(max S), rs), on random int32 scores with
     scales down to the quantizers' floors; and pass 2's exact conversions
@@ -27,13 +25,19 @@ The kernel cannot run here; what is held here is what surrounds it:
     at N = 1,216 in two key blocks of 608 (a tail tile in each), with the
     int8 tests' fp32 bar (5e-3 of max|ref|), which a key tile left out, a
     tile read twice or a tail tile's next-block keys left unmasked misses;
-    and the sliced form of dark3 (q/k 32 zero-padded to 64, v 1,024 in the
+    the sliced form of dark3 (q/k 32 zero-padded to 64, v 1,024 in the
     plan's slices of 512, S recomputed for each, two key blocks) against the
     same interpreter, which a v slice from another slice's columns, the
     second key block's acc dropped, the zero-filled q/k columns made
-    nonzero or the tail key tile read twice misses;
+    nonzero or the tail key tile read twice misses; and the wide form (q/k
+    768 summed over its 128-column slabs, v 768 in three slices of a
+    cluster, the int8 outputs quantized on the amax the cluster exchanges)
+    against all three Pallas kernels in the interpreter under the int8 bars
+    of PERF.md, which a q/k slab left out, a cluster peer's amax ignored, a
+    slice's P from another query tile or a tail tile's next-block keys
+    unmasked misses;
   * the wrappers raise off the CPU before anything launches, and
-    reset_launch_counts clears both counters of every entry point.
+    reset_launch_counts clears the counter of every entry point.
 """
 from __future__ import annotations
 
@@ -54,12 +58,12 @@ PHIS = ("n", "s", "m", "l", "x")
 INPUTS = ((640, 640), (480, 576))
 FP32_REL = 5e-3  # tests/test_torch_attention_int8.py's fp32 bar
 WGMMA_S8_N = (8, 16, 24, 32, 48, 64, 80, 96, 112, 128, 144, 160, 176, 192, 208, 224, 240, 256)
-# the sites the rule sends to the sm90 kernel for flash_mha_int8 (every
-# serving site of phi 'n', 's', 'm'; dark3 of 'l' and 'x'); the template
-# keeps the phi 'l'/'x' neck heads (q/k wider than 512)
-SM90_SITES = {("n", "dark3"), ("n", "h2"), ("n", "h4"), ("s", "dark3"), ("s", "h1"), ("s", "h2"),
-              ("s", "h4"), ("m", "dark3"), ("m", "h2"), ("m", "h4"), ("l", "dark3"),
-              ("x", "dark3")}
+# the int8 bars of PERF.md: payloads equal but for +-1 on <= 1e-3 of the
+# elements, scales <= 1e-5 relative, values <= 1e-2 |ref| + 1e-3 max|ref|
+PAYLOAD_FLIPS, SCALE_RTOL, RTOL8, ATOL8_OF_MAX = 1e-3, 1e-5, 1e-2, 1e-3
+# the int8 sites of phi 'l' and 'x' (the neck heads beside dark3)
+WIDE_SITES = {("l", "dark3"), ("l", "h1"), ("l", "h2"), ("l", "h4"), ("x", "dark3"),
+              ("x", "h1"), ("x", "h2"), ("x", "h4")}
 
 
 def sites(phi: str, hw=(640, 640)):
@@ -89,37 +93,37 @@ def int8_sites(phi: str):
 
 @pytest.mark.parametrize("phi", PHIS)
 def test_form_rule_routes_every_int8_site(phi):
-    """The rule per entry point: flash_mha_int8 takes the sm90 kernel
-    wherever q/k is a multiple of 32 up to 512, at any v: every int8 site
-    of phi 'n', 's', 'm', dark3 of 'n' (q/k 32) and 'm' (v 1,024) included,
-    and dark3 of 'l', 'x' (v 2,048, 4,096); flash_mha_int8_qout and
-    flash_int8_handoff (an int8 output, one amax over the head's whole v)
-    only at v up to 512, so at v past 512 they keep the template; the phi
-    'l'/'x' neck heads (q/k 768 to 3,584) keep it for every entry. Every
-    such site is one `pick_blocks` tiles and the kernels take."""
+    """One kernel for every int8 site and entry point: flash_mha_int8,
+    flash_mha_int8_qout and flash_int8_handoff take the sm90 kernel at every
+    int8 site of every scale and input (dark3 of 'n' at q/k 32 and of 'm',
+    'l', 'x' at v 1,024 to 4,096; the phi 'l'/'x' neck heads at q/k 768 to
+    3,584, the int8 outputs there at v past 512), each a shape
+    `kernel_supports` admits for that entry point; outside the domain the
+    rule raises (no other route)."""
     found = int8_sites(phi)
     assert found, phi
     for hw, name, n, dq, dv, bk in found:
-        form = t8.int8_fwd_form(dq, dv)
-        assert form == ("sm90" if dq % 32 == 0 and dq <= 512 else "mma_sync"), (hw, name)
-        assert form == ("sm90" if (phi, name) in SM90_SITES else "mma_sync"), (hw, name, form)
-        assert t8.int8_fwd_form(dq, dv, "flash_mha_int8") == form
-        for entry in t8.INT8_OUT_ENTRIES:
-            assert t8.int8_fwd_form(dq, dv, entry) == (
-                "sm90" if form == "sm90" and dv <= 512 else "mma_sync"), (hw, name, entry)
-        assert t8.kernel_supports(n, dq, dv, bk) and n % bk == 0, (hw, name)
-    if phi in ("n", "s", "m"):  # no serving site of these scales on the template
-        assert all(t8.int8_fwd_form(dq, dv) == "sm90" for _, _, _, dq, dv, _ in found)
-    if phi in ("l", "x"):
-        for _, name, _, dq, dv, _ in found:
-            assert (t8.int8_fwd_form(dq, dv) == "sm90") == (name == "dark3"), name
-            assert all(t8.int8_fwd_form(dq, dv, e) == "mma_sync" for e in t8.INT8_OUT_ENTRIES)
+        for entry in ("flash_mha_int8",) + t8.INT8_OUT_ENTRIES:
+            assert t8.int8_fwd_form(dq, dv, entry) == "sm90", (hw, name, entry)
+            assert t8.kernel_supports(n, dq, dv, bk, entry) and n % bk == 0, (hw, name, entry)
+    if phi in ("l", "x"):  # the wide sites, at both inputs
+        assert {(phi, name) for _, name, *_ in found} == {s for s in WIDE_SITES if s[0] == phi}
+        assert max(dq for *_, dq, _, _ in found) == (1536 if phi == "l" else 3584)
     with pytest.raises(ValueError, match="entry point"):
         t8.int8_fwd_form(64, 128, "flash_single")
+    for dq, dv in ((48, 256), (64, 200)):
+        assert not t8.kernel_supports(64, dq, dv, 32)
+        with pytest.raises(ValueError, match="multiples of 32"):
+            t8.int8_fwd_form(dq, dv)
+    # an int8 output on v in more slices than a cluster holds (31 of 128)
+    assert t8.kernel_supports(64, 128, 3968, 32)
+    assert not t8.kernel_supports(64, 128, 3968, 32, "flash_mha_int8_qout")
+    with pytest.raises(ValueError, match="slices"):
+        t8.int8_fwd_form(128, 3968, "flash_int8_handoff")
 
 
-def _plan_checks(tag, dq, dv, nk, bk, slice_cols=None):
-    plan = t8.int8_sm90_plan(dq, dv, nk, slice_cols)
+def _plan_checks(tag, dq, dv, nk, bk, slice_cols=None, int8_out=False):
+    plan = t8.int8_sm90_plan(dq, dv, nk, slice_cols, int8_out)
     assert set(plan) == set(t8.SM90_PLAN_KEYS), tag
     split, keys = plan["split"], plan["keys"]
     block_v = (2 if split else 1) * plan["v_cols"]  # a block's v slice
@@ -134,37 +138,53 @@ def _plan_checks(tag, dq, dv, nk, bk, slice_cols=None):
     # together the warpgroups cover a slice, the slices v, nothing left over
     assert keys in WGMMA_S8_N and plan["v_cols"] in WGMMA_S8_N, tag
     assert plan["slices"] * block_v == dv, tag
+    # an int8 output's slices are one cluster (its amax exchange), at most 8
+    assert plan["cluster"] == (plan["slices"] if int8_out else 1) <= t8.SM90_MAX_CLUSTER, tag
     # key tiles cover each block; the last one's keys past bk are masked
     tiles = -(-bk // keys)
     assert (tiles - 1) * keys < bk <= tiles * keys, tag
     assert plan["multi"] == int(nk > 1), tag
     assert 1 <= plan["stages"] <= t8.SM90_MAX_STAGES and plan["v_stages"] in (1, 2), tag
     slabs = -(-dq // plan["swq"])
-    smem = (2048 + plan["rows"] * slabs * plan["swq"] + plan["stages"] * keys * plan["swq"]
-            + plan["v_stages"] * block_v * keys + (2 * 64 * plan["v_cols"] * 4 if nk > 1 else 0))
+    q_slab = plan["rows"] * plan["swq"]
+    # Q resident (all its slabs), or one slab a ring stage beside K's
+    q_bytes, stage = ((0, keys * plan["swq"] + q_slab) if plan["q_stream"]
+                      else (slabs * q_slab, keys * plan["swq"]))
+    smem = (2048 + q_bytes + plan["stages"] * stage + plan["v_stages"] * block_v * keys
+            + (2 * 64 * plan["v_cols"] * 4 if nk > 1 else 0))
     assert plan["smem_bytes"] == smem <= t8.SM90_SMEM_LIMIT, tag
+    if plan["q_stream"]:  # only where no resident plan fits
+        resident = 2048 + slabs * q_slab + keys * plan["swq"] + block_v * keys + (
+            2 * 64 * plan["v_cols"] * 4 if nk > 1 else 0)
+        assert resident > t8.SM90_SMEM_LIMIT and plan["swq"] == 128, tag
     return plan, tiles
 
 
 def test_launch_plan_fits_every_sm90_site():
-    """Every sm90 site of every scale and input, and the rule's whole
-    domain (q/k 32 to 512, v 128 to 4,096, one or several key blocks): the
-    plan fits, its products are legal, its slices cover v and its tiles the
-    block; the tail tiles of the routed sites are those the kernel masks
-    (1,600 in 128-key tiles: 64; 4,320, 3,200 and 1,440 in 64-key tiles:
-    32, 0 and 32). phi='m' dark3 (v 1,024 in two slices of 512 in the split
-    form, two key blocks: the fp32 acc of 128 KB in shared memory) keeps two
-    V stages and three K stages; its alternative forms (slices of 128 or
-    256 in the rows form) fit too, with at least two K stages; phi='n'
-    dark3 (q/k 32) takes 64-byte q/k boxes."""
+    """Every int8 site of every scale and input, for flash_mha_int8 and the
+    int8-output entries, and the rule's whole domain (q/k 32 to 3,584, v
+    128 to 4,096, one or several key blocks): the plan fits, its products
+    are legal, its slices cover v and its tiles the block, an int8 output's
+    slices are one cluster; the tail tiles of the routed sites are those the
+    kernel masks (1,600 in 128-key tiles: 64; 4,320, 3,200 and 1,440 in
+    64-key tiles: 32, 0 and 32). phi='m' dark3 (v 1,024 in two slices of 512
+    in the split form, two key blocks: the fp32 acc of 128 KB in shared
+    memory) keeps two V stages and three K stages; its alternative forms
+    (slices of 128 or 256 in the rows form) fit too, with at least two K
+    stages; phi='n' dark3 (q/k 32) takes 64-byte q/k boxes. The phi 'l'/'x'
+    neck heads: h4 of 'l' (768, one key block) keeps Q resident at 128
+    rows, h2 (768, four key blocks) and every head of 1,536 and 3,584 stream
+    it; 768 in three slices of 256 (rows form), 1,536 in three of 512 and
+    3,584 in seven (split form), a cluster of as many for the int8 outputs."""
     tails, plans = {}, {}
     for phi in PHIS:
         for hw, name, n, dq, dv, bk in int8_sites(phi):
-            if t8.int8_fwd_form(dq, dv) != "sm90":
-                continue
             plan, tiles = _plan_checks((phi, hw, name), dq, dv, n // bk, bk)
             tails[phi, hw, name] = bk - (tiles - 1) * plan["keys"]
             plans[phi, hw, name] = plan
+            if name != "dark3":  # the int8-output entries at the neck heads
+                plans[phi, hw, name, "out"] = _plan_checks((phi, hw, name, "out"), dq, dv,
+                                                           n // bk, bk, int8_out=True)[0]
     assert tails["n", (640, 640), "h4"] == 64  # 1,600 keys in 128-key tiles
     assert tails["s", (480, 576), "h2"] == 32  # 4,320 in 64-key tiles
     assert tails["m", (640, 640), "h2"] == 64  # 3,200 in 64-key tiles: whole
@@ -177,19 +197,33 @@ def test_launch_plan_fits_every_sm90_site():
     assert (n3["swq"], n3["slices"], n3["v_cols"], n3["multi"]) == (64, 1, 256, 0)
     assert plans["l", (640, 640), "dark3"]["slices"] == 4
     assert plans["x", (640, 640), "dark3"]["slices"] == 8
+    wide = lambda key: tuple(plans[key][k] for k in ("slices", "split", "q_stream", "multi"))
+    assert wide(("l", (640, 640), "h4")) == (3, 0, 0, 0)
+    assert wide(("l", (640, 640), "h2")) == wide(("l", (480, 576), "h2")) == (3, 0, 1, 1)
+    assert wide(("l", (640, 640), "h1")) == (3, 1, 1, 1)
+    assert wide(("x", (640, 640), "h1")) == (7, 1, 1, 1)
+    for name in ("h2", "h4"):
+        assert wide(("x", (640, 640), name)) == (3, 1, 1, 1)
+    assert plans["x", (640, 640), "h1", "out"]["cluster"] == 7
+    assert plans["l", (640, 640), "h2", "out"]["cluster"] == 3
+    assert all(p["cluster"] == 1 for k, p in plans.items() if k[-1] != "out")
+    for phi in ("n", "s", "m"):  # no slice, and no cluster, at the narrower necks
+        assert all(p["cluster"] == 1 and not p["q_stream"] for k, p in plans.items()
+                   if k[0] == phi), phi
     for slice_cols in (128, 256, 512):  # the forms measured at phi='m' dark3
         alt, _ = _plan_checks(("m dark3", slice_cols), 128, 1024, 2, 3200, slice_cols)
         assert alt["stages"] >= 2, slice_cols
-    for dq in range(32, 513, 32):
-        for dv in (128, 256, 384, 512, 640, 1024, 2048, 4096):
+    for dq in (*range(32, 513, 32), 544, 640, 768, 1024, 1536, 2048, 3584):
+        for dv in (128, 256, 384, 512, 640, 768, 1024, 1536, 2048, 3584, 4096):
             for nk, bk in ((1, 1216), (2, 608)):
                 _plan_checks((dq, dv, nk), dq, dv, nk, bk)
+                _plan_checks((dq, dv, nk, "out"), dq, dv, nk, bk, int8_out=True)
     with pytest.raises(ValueError, match="multiples of 32"):
         t8.int8_sm90_plan(48, 256, 1)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        t8.int8_sm90_plan(544, 256, 1)
     with pytest.raises(ValueError, match="no sm90 int8 form"):
         t8.int8_sm90_plan(128, 1024, 2, slice_cols=384)
+    with pytest.raises(ValueError, match="slices"):  # 31 slices of 128: no cluster
+        t8.int8_sm90_plan(128, 3968, 1, int8_out=True)
 
 
 def test_integer_max_identity():
@@ -429,14 +463,161 @@ def test_sliced_form_matches_pallas(monkeypatch):
     assert rel(t8.flash_mha_int8(tq, kq, ks, vq, vs, 1, 1.0)) <= FP32_REL
 
 
+def _wide_form(qq, qs, kq, ks, vq, vs, heads, scale, plan, bk, fault=None, int8_out=False):
+    """csrc/flash_int8_sm90.cu's form for wide heads in plain torch, from
+    quantized operands: qq (B, H, N, dq) int8 with scales qs (B, H, N, 1), kq
+    and vq (B, N, H * d) int8 with scales (B, H, N / bk). Each v slice of the
+    plan (one block of the cluster) computes, for its query tile, S summed
+    over the q/k slabs of `swq` columns (int64, exact), pass 1's integer max
+    over the key block's tiles (keys past the block's end masked), pass 2's
+    p127, l and pv tile by tile; with `int8_out` the output is quantized per
+    (row, head) on the amax the cluster exchanges (each slice's rows' amax,
+    the largest over the slices), the head's first slice writing the scale.
+    Faults: "slab_dropped" (q/k slab 1 left out of S), "other_tile" (slice 1
+    from the next query tile's Q rows and scales: P of another tile),
+    "peer_amax_ignored" (each slice quantized on its own amax),
+    "tail_unmasked" (the tail tile's next-block keys scored; zero keys past
+    N). Returns fp32 (B, N, H * dv), or int8 (B, N, H * dv) and (B, N, H)."""
+    b, h, n, dq = qq.shape
+    kh, vh = t8._split_heads(kq, heads).long(), t8._split_heads(vq, heads).long()
+    width = plan["v_cols"] * (2 if plan["split"] else 1)
+    rows, keys, swq = plan["rows"], plan["keys"], plan["swq"]
+    sl2 = torch.tensor(np.float32(scale * t8.LOG2E))
+    tiles = -(-bk // keys)
+    outs = []
+    for sl in range(plan["slices"]):
+        q_sl, qs_sl = qq.long(), qs
+        if fault == "other_tile" and sl == 1:
+            q_sl, qs_sl = torch.roll(q_sl, -rows, dims=2), torch.roll(qs, -rows, dims=2)
+        cols = slice(sl * width, (sl + 1) * width)
+
+        def scores(lo, hi):
+            idx = torch.arange(lo, hi)
+            valid = idx < n
+            kt = torch.zeros(b, h, hi - lo, dq, dtype=torch.long)
+            kt[:, :, valid] = kh[:, :, idx[valid]]
+            vt = torch.zeros(b, h, hi - lo, width, dtype=torch.long)
+            vt[:, :, valid] = vh[:, :, idx[valid], cols]
+            s32 = torch.zeros(b, h, n, hi - lo, dtype=torch.long)
+            for c in range(-(-dq // swq)):  # the slabs that stream through the ring
+                if fault == "slab_dropped" and c == 1:
+                    continue
+                slab = slice(c * swq, (c + 1) * swq)
+                s32 = s32 + q_sl[..., slab] @ kt[..., slab].transpose(-1, -2)
+            return s32, vt
+
+        m = torch.full(qs.shape, -1e30)
+        l = torch.zeros(qs.shape)
+        acc = torch.zeros(b, h, n, width)
+        for j in range(ks.shape[-1]):
+            rs = qs_sl.float() * (ks[:, :, j] * sl2)[..., None, None]
+            spans = []
+            for t in range(tiles):
+                lo = j * bk + t * keys
+                spans.append((lo, lo + keys if fault == "tail_unmasked"
+                              else min(lo + keys, (j + 1) * bk)))
+            imax = torch.stack([scores(lo, hi)[0].amax(-1, keepdim=True)
+                                for lo, hi in spans]).amax(0)
+            m_new = torch.maximum(m, imax.float() * rs)
+            corr = torch.exp2(m - m_new)
+            lsum = torch.zeros(qs.shape)
+            pv = torch.zeros(b, h, n, width, dtype=torch.long)
+            for lo, hi in spans:
+                s32, vt = scores(lo, hi)
+                p127 = torch.exp2(s32.float() * rs - (m_new - t8.LOG2_127))
+                lsum = lsum + p127.sum(-1, keepdim=True)
+                pv = pv + torch.round(p127).long() @ vt
+            l = l * corr + lsum
+            acc = acc * corr + pv.float() * vs[:, :, j][..., None, None]
+            m = m_new
+        outs.append(acc * (1.0 / l))
+    if not int8_out:
+        return t8._merge_heads(torch.cat(outs, -1))
+    amax = [o.abs().amax(-1, keepdim=True) for o in outs]  # each slice's rows
+    if fault != "peer_amax_ignored":  # the cluster's exchange
+        amax = [torch.stack(amax).amax(0)] * len(outs)
+    amax = [torch.clamp(a, min=1e-30) for a in amax]
+    payload = torch.cat([torch.round(o * (torch.full_like(a, 127.0) / a)).to(torch.int8)
+                         for o, a in zip(outs, amax)], -1)
+    return t8._merge_heads(payload), (amax[0][..., 0] * (1.0 / 127.0)).transpose(1, 2)
+
+
+def _int8_bar(out, ref) -> float:
+    """The largest share of the int8 bars of PERF.md that `out` uses against
+    `ref` (numpy): values, or an int8 payload with its scales."""
+    if isinstance(out, tuple):
+        diff = np.abs(out[0].numpy().astype(np.int32) - np.asarray(ref[0], np.int32))
+        flips = float((diff > 0).mean()) / PAYLOAD_FLIPS
+        rel = np.abs(out[1].numpy() - np.asarray(ref[1])) / np.abs(np.asarray(ref[1]))
+        return max(flips, float(diff.max()) if diff.max() > 1 else 0.0,
+                   float(rel.max()) / SCALE_RTOL)
+    ref = np.asarray(ref, np.float32)
+    bar = RTOL8 * np.abs(ref) + ATOL8_OF_MAX * np.abs(ref).max()
+    return float((np.abs(out.numpy() - ref) / bar).max())
+
+
+@pytest.mark.parametrize("entry", ["flash_mha_int8", "flash_mha_int8_qout", "flash_int8_handoff"])
+@pytest.mark.parametrize("dq,dv", [(768, 768), (640, 1024)])
+def test_wide_form_matches_pallas(monkeypatch, entry, dq, dv):
+    """The form of the phi 'l'/'x' neck heads against the Pallas kernel of
+    `entry` in the interpreter (two heads, N = 192 in two key blocks of 96,
+    each ending in a partial 64-key tile that runs into the next block; two
+    query tiles): q/k 768 streamed beside K (four key blocks' worth of acc
+    would not fit beside a resident Q at phi='l' h2) in 128-column slabs, v
+    768 in three slices of 256 (rows form, a cluster of three for the int8
+    outputs); q/k 640 resident, v 1,024 in two slices of 512 (split form).
+    Under the int8 bars of PERF.md; a q/k slab left out of S, one slice's P
+    from another query tile and the tail tile's next-block keys scored miss
+    them, and for the int8 outputs a cluster peer's amax ignored. The
+    wrapper's CPU path (the plain version) agrees."""
+    monkeypatch.setattr(a8, "INTERPRET", True)
+    b, n, heads, bk = 1, 192, 2, 96
+    int8_out = entry != "flash_mha_int8"
+    plan = t8.int8_sm90_plan(dq, dv, n // bk, int8_out=int8_out)
+    assert plan["slices"] > 1 and plan["cluster"] == (plan["slices"] if int8_out else 1)
+    assert n > plan["rows"] and bk % plan["keys"]  # another query tile; a tail tile
+    if (dq, dv) == (768, 768):
+        assert plan["split"] == 0 and t8.int8_sm90_plan(dq, dv, 4)["q_stream"] == 1
+    rng = np.random.default_rng(11)
+    q, k = (rng.standard_normal((b, n, heads * dq)).astype(np.float32) * 1.5 for _ in range(2))
+    v = rng.standard_normal((b, n, heads * dv)).astype(np.float32)
+    scale = dq ** -0.5
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    kq, ks = t8.quantize_kv(tk, heads, bk)
+    vq, vs = t8.quantize_kv(tv, heads, bk)
+    qq, qs = t8._quantize_q(t8._split_heads(tq, heads))
+    j = lambda t: jnp.asarray(t.numpy())
+    if entry == "flash_mha_int8":
+        ref = a8.flash_attention_mha_int8(j(tq), j(tk), j(tv), heads, scale, 64, bk)
+        cpu = t8.flash_mha_int8(tq, kq, ks, vq, vs, heads, scale)
+    elif entry == "flash_mha_int8_qout":
+        ref = a8.flash_attention_mha_int8_qout(j(tq), j(tk), j(tv), heads, scale, 64, bk)
+        cpu = t8.flash_mha_int8_qout(tq, kq, ks, vq, vs, heads, scale)
+    else:  # q as an int8 payload read in place, with its (row, head) scale table
+        payload = t8._merge_heads(qq).contiguous()
+        table = qs[..., 0].transpose(1, 2).contiguous()
+        ref = a8.flash_attention_int8_handoff(j(payload), j(table), j(kq), j(ks), j(vq), j(vs),
+                                              heads, scale, 64, bk, quant_out=True)
+        cpu = t8.flash_int8_handoff(payload, table, kq, ks, vq, vs, heads, scale, True)
+    form = lambda fault=None: _wide_form(qq, qs, kq, ks, vq, vs, heads, scale, plan, bk, fault,
+                                         int8_out)
+    assert _int8_bar(form(), ref) <= 1.0
+    assert _int8_bar(cpu, ref) <= 1.0
+    faults = ("slab_dropped", "other_tile", "tail_unmasked") + (
+        ("peer_amax_ignored",) if int8_out else ())
+    for fault in faults:
+        assert _int8_bar(form(fault), ref) > 1.0, fault
+
+
 def test_wrappers_raise_off_cpu_and_counters_clear():
-    """All three entry points at an sm90 shape, on a tensor that is neither
+    """All three entry points at a kernel shape, on a tensor that is neither
     on the CPU nor on a card: each raises before anything is built and
-    counts nothing; reset_launch_counts clears both counters of each."""
+    counts nothing; reset_launch_counts clears the counter of each (the
+    kernel's `sm90_launches`, the only one)."""
     for fn in t8.ENTRY_POINTS:
-        fn.launches, fn.sm90_launches = 3, 4
+        fn.sm90_launches = 4
     t8.reset_launch_counts()
-    assert all(fn.launches == 0 and fn.sm90_launches == 0 for fn in t8.ENTRY_POINTS)
+    assert all(fn.sm90_launches == 0 and not hasattr(fn, "launches") for fn in t8.ENTRY_POINTS)
     b, n, heads, d = 1, 1600, 2, 256
     meta = lambda *s, dt=torch.bfloat16: torch.empty(*s, dtype=dt, device="meta")
     q, kq, vq = meta(b, n, heads * d), meta(b, n, heads * d, dt=torch.int8), \
@@ -451,9 +632,12 @@ def test_wrappers_raise_off_cpu_and_counters_clear():
     with pytest.raises(ValueError, match="CUDA tensor"):
         t8.flash_int8_handoff(payload, meta(b, n, heads, dt=torch.float32), kq, ks, vq, vs,
                               heads, 0.1, True)
-    assert all(fn.launches == 0 and fn.sm90_launches == 0 for fn in t8.ENTRY_POINTS)
-    # an int8 output takes one amax over the head's whole v: no sliced plan
+    assert all(fn.sm90_launches == 0 for fn in t8.ENTRY_POINTS)
+    # an int8 output takes one amax over the head's whole v: its v slices
+    # one cluster, which a plan without the cluster breaks
     wide = meta(b, n, 1024, dt=torch.int8)
-    with pytest.raises(ValueError, match="whole v"):
+    plan = t8.int8_sm90_plan(128, 1024, 1, int8_out=True)
+    assert (plan["slices"], plan["cluster"]) == (2, 2)
+    with pytest.raises(ValueError, match="one cluster"):
         t8._launch_sm90(meta(b, n, 128), None, meta(b, n, 128, dt=torch.int8), ks, wide, vs, 1,
-                        1.0, torch.int8)
+                        1.0, torch.int8, plan={**plan, "cluster": 1})

@@ -128,3 +128,18 @@ def test_init_weights_draws_flax_lecun_normal():
     # the cut is reached, as the JAX draw reaches it (an untruncated normal
     # of this std would put ~2.3% of the kernel past it)
     assert np.abs(w).max() * fan_in ** 0.5 > 0.999 * cut
+
+
+def test_init_weights_on_device_draws_where_the_parameters_live():
+    """`init_on_device` (phi='l''s 8.33 B parameters drawn on the card) takes
+    the generator of the parameters' device: on a model on the CPU that is
+    the CPU's, so the same bits as the default draws from the same seed,
+    through build_model as through init_weights."""
+    from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+
+    cfg = ModelConfig(phi="n", input_shape=(64, 64))
+    a = build_model(cfg, device="cpu", seed=3)
+    b = build_model(cfg, device="cpu", seed=3, init_on_device=True)
+    for (name, pa), pb in zip(a.named_parameters(), b.parameters()):
+        assert torch.equal(pa, pb), name

@@ -182,6 +182,35 @@ def test_route_at_480x576_matches_jax(monkeypatch):
     assert (blocks["m", "dark3"], blocks["x", "h2"]) == (1440, 864)
 
 
+def test_wide_int8_sites_take_the_sm90_form(monkeypatch):
+    """Every int8 site of phi 'l' and 'x', at 640x640 and 480x576 (the neck
+    heads of 768 to 3,584 and dark3), is on JAX's int8 route with its key
+    block, and the port sends it, for all three int8 entry points, to the
+    one Hopper kernel (csrc/flash_int8_sm90.cu) with a plan that fits: the
+    neck heads' q/k wider than a resident Q tile allows stream through the
+    ring, an int8 output's v slices are one cluster."""
+    found = []
+    for phi in ("l", "x"):
+        for hw in ((640, 640), (480, 576)):
+            for name, (n, cq, cv, heads, packed) in sites(phi, hw).items():
+                route, bk = tattn.serving_route(n, cq, heads, cv, True, packed)
+                if route != "int8":
+                    continue
+                assert (route, bk) == _jax_route(monkeypatch, n, cq, cv, heads, True, packed)
+                dq, dv = cq // heads, cv // heads
+                for entry in ("flash_mha_int8",) + t8.INT8_OUT_ENTRIES:
+                    assert t8.int8_fwd_form(dq, dv, entry) == "sm90", (phi, hw, name, entry)
+                    plan = t8.int8_sm90_plan(dq, dv, n // bk,
+                                             int8_out=entry != "flash_mha_int8")
+                    assert plan["smem_bytes"] <= t8.SM90_SMEM_LIMIT
+                    assert plan["cluster"] in (1, plan["slices"])
+                found.append((phi, hw, name, dq))
+    # the neck heads at 640x640, dark3 and h2 at 480x576 (N = 1,080 is no
+    # multiple of 32: h1 and h4 there take the bf16 route)
+    assert len(found) == 12
+    assert {dq for *_, dq in found} == {256, 512, 768, 1536, 3584}
+
+
 def _kernel_admits(route, bk, n, cq, cv, heads):
     if route == "packed":
         return tattn.packed_kernel_supports(cq, heads)

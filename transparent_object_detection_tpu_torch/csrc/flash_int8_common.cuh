@@ -1,7 +1,6 @@
-// Building blocks shared by the int8 flash-attention sources
-// (flash_attn_int8.cu, the mma.sync template; flash_int8_sm90.cu, the Hopper
-// kernel): the constants of the function and the q quantize pass that
-// flash_mha_int8 and flash_mha_int8_qout run before either attention kernel.
+// Building blocks of the int8 flash-attention kernel (flash_int8_sm90.cu):
+// the constants of the function and the q quantize pass that flash_mha_int8
+// and flash_mha_int8_qout run before the attention kernel.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

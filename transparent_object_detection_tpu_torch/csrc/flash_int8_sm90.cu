@@ -1,12 +1,10 @@
 // int8 flash attention for Hopper (sm_90a): int8 wgmma fed by a TMA ring, one
 // producer warpgroup and two consumer warpgroups a block.
 //
-// Replaces, at every int8 site whose q/k head width is a multiple of 32 up to
-// 512 (ops/attention_int8.py::int8_fwd_form, a rule per entry point: v any
-// width of the domain for flash_mha_int8, v up to 512 for the two entries
-// with an int8 output; every int8 serving site of phi 'n', 's', 'm': the neck
-// heads of 128, 256 and 384, dark3 of all three, any N and key block), the
-// three TPU kernels of transparent_object_detection_tpu/ops/attention_int8.py:
+// Replaces, at every int8 attention shape of the port (ops/attention_int8.py
+// ::int8_fwd_form: q/k widths multiples of 32, v multiples of 128, any N and
+// key block; every int8 site of phi 'n' to 'x'), the three TPU kernels of
+// transparent_object_detection_tpu/ops/attention_int8.py:
 //   * _mha_flash_int8_kernel (flash_attention_mha_int8): entry flash_mha_int8,
 //     q bf16 or fp32 quantized per (row, head) first (quant_q_kernel,
 //     flash_int8_common.cuh; the two launches count as one), out in q's type;
@@ -15,11 +13,9 @@
 //   * _mha_flash_int8_handoff_kernel: entry flash_int8_handoff, q the int8
 //     qkv payload read in place (row stride 3C) with its per-(row, head)
 //     scales from a table; out int8 per (row, head), bf16 or fp32.
-// csrc/flash_attn_int8.cu (the mma.sync template) keeps the other sites:
-// q/k wider than 512 (phi 'l'/'x' neck heads) and the int8-output entries at
-// v wider than 512.
+// No other kernel serves these entry points.
 //
-// The function (flash_attn_int8.cu and the Pallas kernels compute the same):
+// The function (the Pallas kernels compute the same):
 // per query row and key block j of bk keys, with rs = qs * (ks_j * scale *
 // log2 e):
 //   s = float(qq . kq) * rs                          (the int32 dot is exact)
@@ -35,8 +31,9 @@
 //     row within a block, and int-to-float conversion and a round-to-nearest
 //     multiply by a positive number are both monotone, so the largest
 //     __fmul_rn(float(S), rs) over a block is __fmul_rn(float(max S), rs),
-//     the float the template takes its max of. No float work and no exp in
-//     pass 1. The function costs three int8 products (S twice, P.V) where a
+//     the float the plain version takes its max of (at q/k past 1,040 float(S)
+//     rounds, monotonically too). No float work and no exp in pass 1.
+//     The function costs three int8 products (S twice, P.V) where a
 //     bf16 flash costs two.
 //   [exact pv] pv is an exact int32 sum: any key order gives the same bits,
 //     so the keys of a 32-key group may sit in any order in V's layout (the
@@ -45,7 +42,10 @@
 // Bound. 2 * N^2 * (2 dq + dv) int8 operations a (batch, head) against
 // inputs and outputs of tens of MB: the tensor cores bound it (phi='s'
 // 640x640 batch 2, h1 + h2 + h4: 0.44 ms at the data sheet's 1,979 int8
-// TOPS; the two-product count 0.29 ms).
+// TOPS; the two-product count 0.29 ms). With v in `slices` slices ([v
+// slices]) the kernel runs 2 N^2 (2 slices dq + dv) a head: at the phi 'l'
+// neck heads (768 in 3 slices, 1,536 in 3) 7/3 and 13/3 of the bound's
+// operations, at phi='x' h1 (3,584 in 7) 29/3.
 //
 // Design.
 //   * Warpgroups. One thread of the producer warpgroup loads the int8 Q tile
@@ -53,6 +53,13 @@
 //     tiles: K (pass 1 and 2) in slabs of 64 or 128 columns through a ring
 //     of `stages` slabs, and V (pass 2) through a ring of 1 or 2 stages,
 //     each stage guarded by a full and an empty mbarrier.
+//   * [q stream] Where the resident Q tile leaves no room (q/k 768 at 128
+//     rows beside several key blocks' acc, 1,536 and 3,584 at 64 rows: the
+//     phi 'l'/'x' neck heads), each ring stage carries the Q slab beside
+//     the K slab it multiplies, both on the stage's barrier: Q is read from
+//     L2 once per key tile and pass instead of once, and S is summed over
+//     the q/k slabs in the accumulator (exact: |S| <= 3,584 * 127^2 <
+//     2^31).
 //   * S = Q K^T: wgmma m64nKTk32 .s32.s8.s8, both operands K-major in
 //     shared memory under the TMA swizzle of their row: 128 bytes where dq
 //     >= 128, 64 bytes at dq 64. Each slab's group stays in flight while the
@@ -86,13 +93,21 @@
 //     warpgroup otherwise idling through both passes of q.k^T. Key tiles
 //     of 128 at dv 256 were measured too: their accumulators spill.
 //   * [v slices] v wider than 512 (dark3: 1,024 at phi='m', 2,048 and 4,096
-//     at phi 'l'/'x'): the grid's second dimension runs over heads x v
-//     slices; each block takes one slice of the plan's width (512 in the
-//     split form where 512 divides v: 4% faster than 256 in the rows form
-//     at phi='m', PERF.md) in one of the forms above, recomputes S (both passes) for its query tile and
-//     writes its slice of O. S is cheap beside P V where q/k is narrow (128
-//     against 1,024 at phi='m'); the int8 output's amax would span blocks,
-//     so the int8-output entries never slice (int8_fwd_form).
+//     at phi 'l'/'x'; the phi 'l'/'x' neck heads of 768 to 3,584): the
+//     grid's second dimension runs over heads x v slices; each block takes
+//     one slice of the plan's width (512 in the split form where 512
+//     divides v: 4% faster than 256 in the rows form at phi='m', PERF.md;
+//     else 256 in the rows form) in one of the forms above, recomputes S
+//     (both passes) for its query tile and writes its slice of O. S is
+//     cheap beside P V where q/k is narrow (128 against 1,024 at phi='m');
+//     at the neck heads, where q/k equals v, it is most of the work (Bound).
+//   * [cluster] An int8 output takes one amax over the head's whole v. With
+//     v in slices, the head's slices run as one thread-block cluster (at
+//     most 8 blocks): each block writes its rows' slice amax into its
+//     shared memory, the cluster barrier publishes it, each block reads
+//     every block's entries over distributed shared memory (mapa), and a
+//     second cluster barrier keeps each block's shared memory alive until
+//     its peers have read it. No fp32 workspace, no row pass.
 //   * [narrow q/k] q/k of 32 (phi='n' dark3) is one k32 step: Q and K load
 //     in 64-byte boxes of which TMA zero-fills the 32 bytes past the width,
 //     and S issues one k step on the real 32 (a q/k width that is not a
@@ -114,9 +129,9 @@
 //     instructions fewer an element.
 //   * Epilogues, all in the kernel: bf16 or fp32 values (o = acc * (1 / l)
 //     with _rn products); or int8 per (row, head), amax over the head's
-//     whole dv (a quad's reduction, and in the split form across the two
-//     warpgroups through shared memory), __float2int_rn(o * (127 / amax)),
-//     amax / 127: no fp32 workspace, no row pass.
+//     whole dv (a quad's reduction, in the split form across the two
+//     warpgroups through shared memory, with slices across the cluster),
+//     __float2int_rn(o * (127 / amax)), amax / 127.
 //
 // Trouble spots, each handled where its tag appears below:
 //   [tail]        bk is a multiple of 32 but not always of the key tile
@@ -125,25 +140,26 @@
 //                 does not zero; only past N does it zero-fill (and a zero
 //                 key scores 0, not -inf). Both passes mask them: out of the
 //                 max, p = 0 and so no pv.
+//   [cluster]     above; the producer warpgroup arrives at both cluster
+//                 barriers too (every thread of the cluster must).
 //   [tensor maps] 4-D maps: q8 or the payload and kq as (width, heads, N, B)
 //                 with row strides heads * dq or 3C; V's key-major copy as
 //                 (N, dv, heads, B); every stride a multiple of 16 bytes (a
 //                 one-head map at q/k 32: 32 bytes). A box wider than the
 //                 width (q/k 32 in 64 bytes) is zero-filled past it.
 //   [max pass]    the integer max, above; m starts at -1e30 as in the
-//                 template.
+//                 Pallas kernel.
 //   [P layout]    above.
-//   [bits]        pv is exact and l, acc and the epilogues take the
-//                 template's arithmetic (__float2int_rn, _rn products, l
-//                 summed in the template's order); p's exp2 may differ from
+//   [bits]        pv is exact and l, acc and the epilogues take the plain
+//                 version's arithmetic (__float2int_rn, _rn products); l
+//                 is summed in another order, and p's exp2 may differ from
 //                 exp2f in its last bit, which can move a rounded p by one
 //                 (the int8 bars' +-1 flips). A missing wgmma wait or an
 //                 mbarrier parity error shows as a run-to-run difference,
 //                 which chip_smoke.py checks (every case runs twice).
 //   [small grids] 128 rows a block in the rows form: phi='s' h4 at batch 1
-//                 is 78 blocks on 132 SMs, the same rows an SM as the
-//                 template's two 64-row blocks an SM; time_serving.py times
-//                 batch 1 and 2.
+//                 is 78 blocks on 132 SMs; time_serving.py times batch 1
+//                 and 2.
 //   [fences]      no wgmma group is in flight across the softmax's register
 //                 writes (each product is waited for before them): a group
 //                 left in flight there makes ptxas serialize every wgmma of
@@ -168,6 +184,7 @@ using namespace sm90;
 constexpr int CONSUMERS = 2;  // consumer warpgroups, 64 rows each
 constexpr int THREADS_SM90 = 128 * (CONSUMERS + 1);
 constexpr int MAX_STAGES = 8;
+constexpr int MAX_CLUSTER = 8;      // [cluster] the portable cluster size
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may use
 constexpr int ALIGN = 1024;         // a 128-byte swizzle atom: 8 rows of 128 bytes
 constexpr int BARRIER_BYTES = 1024;
@@ -186,6 +203,7 @@ struct Params {
   int stages;           // K ring stages (one slab each)
   int v_stages;         // V ring stages
   int slices;           // [v slices] blocks a head's v is cut into
+  int cluster;          // [cluster] blocks exchanging the int8 output's amax (1 or slices)
   int out_mode;         // Out
   float scale_log2;     // scale * log2(e)
 };
@@ -231,9 +249,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 // (w + 1) DVW), both computing S of the same rows; columns counted from the
 // block's v slice ([v slices]). Shared memory, from a
 // 1024-aligned base: barriers (and the split form's row amax) | Q | K ring |
-// V ring | fp32 acc (several key blocks). SMALL: q/k up to SMALL_DQ, whose
-// scores convert to float through the adder ([conversions]).
-template <int DVW, bool SPLIT, int KT, bool SMALL>
+// V ring | fp32 acc (several key blocks); with [q stream] no Q, each ring
+// stage a Q slab then a K slab. SMALL: q/k up to SMALL_DQ, whose
+// scores convert to float through the adder ([conversions]). QS: [q stream];
+// CL: [cluster] (an int8 output on sliced v). Both are template flags, so
+// the forms without them compile as they did before them.
+template <int DVW, bool SPLIT, int KT, bool SMALL, bool QS, bool CL>
 __global__ void __launch_bounds__(THREADS_SM90, 1)
     flash_int8_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -250,10 +271,13 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
   const uint32_t bar_vfull = bar_kempty + 8 * MAX_STAGES, bar_vempty = bar_vfull + 16;
   float* amax_s = reinterpret_cast<float*>(gbase + AMAX_OFFSET);  // [2][64]
   const uint32_t q_slab = ROWS * p.swq;       // one Q box
-  const uint32_t k_slab = KT * p.swq;         // one K ring stage
+  const uint32_t k_slab = KT * p.swq;         // one K box
+  // [q stream] a ring stage: the K slab, after the Q slab when Q streams
+  const uint32_t k_off = QS ? q_slab : 0;
+  const uint32_t stage_bytes = k_off + k_slab;
   const uint32_t q_smem = base + BARRIER_BYTES;
-  const uint32_t k_smem = q_smem + p.slabs * q_slab;
-  const uint32_t v_smem = k_smem + p.stages * k_slab;
+  const uint32_t k_smem = q_smem + (QS ? 0 : p.slabs * q_slab);
+  const uint32_t v_smem = k_smem + p.stages * stage_bytes;
   const uint32_t acc_off = v_smem + p.v_stages * V_BYTES - base;
 
   const int m0 = blockIdx.x * ROWS;
@@ -285,9 +309,11 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
     // ------------------------------ producer ------------------------------
     setmaxnreg_dec<24>();
     if (threadIdx.x == CONSUMERS * 128) {
-      mbar_expect_tx(bar_q, p.slabs * q_slab);
-      for (int c = 0; c < p.slabs; ++c)
-        tma_load(q_smem + c * q_slab, &tq, bar_q, c * p.swq, head, m0, b);
+      if constexpr (!QS) {
+        mbar_expect_tx(bar_q, p.slabs * q_slab);
+        for (int c = 0; c < p.slabs; ++c)
+          tma_load(q_smem + c * q_slab, &tq, bar_q, c * p.swq, head, m0, b);
+      }
       int st = 0, ph = 0, vt = 0;  // K ring position; V tiles loaded
       for (int blk = 0; blk < p.nk; ++blk) {
         for (int pass = 0; pass < 2; ++pass) {
@@ -297,8 +323,11 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
             const int key0 = blk * p.bk + t * KT;
             for (int c = 0; c < p.slabs; ++c) {
               mbar_wait(bar_kempty + 8 * st, ph ^ 1);
-              mbar_expect_tx(bar_kfull + 8 * st, k_slab);
-              tma_load(k_smem + st * k_slab, &tk, bar_kfull + 8 * st, c * p.swq, head, key0, b);
+              const uint32_t stage = k_smem + st * stage_bytes;
+              mbar_expect_tx(bar_kfull + 8 * st, stage_bytes);
+              if constexpr (QS)  // [q stream] Q's slab c beside K's
+                tma_load(stage, &tq, bar_kfull + 8 * st, c * p.swq, head, m0, b);
+              tma_load(stage + k_off, &tk, bar_kfull + 8 * st, c * p.swq, head, key0, b);
               if (++st == p.stages) {
                 st = 0;
                 ph ^= 1;
@@ -316,6 +345,10 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
           }
         }
       }
+    }
+    if constexpr (CL) {  // [cluster] every thread arrives at both phases
+      cluster_sync();
+      cluster_sync();
     }
   } else {
     // ------------------------------ consumers -----------------------------
@@ -339,13 +372,13 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
     if (multi)
       for (int i = 0; i < DVW / 2; ++i) acc_s[i * 128] = 0.f;  // this thread's own entries
 
-    float m_run[2] = {-1e30f, -1e30f};  // [max pass] the template's start
+    float m_run[2] = {-1e30f, -1e30f};  // [max pass] the Pallas kernel's start
     float l_run[2] = {0.f, 0.f};        // summed over the quad at each block's end
     float corr[2] = {0.f, 0.f};
     int pv[DVW / 2];
     int st = 0, ph = 0;  // K ring position
     int vt = 0;          // V tiles consumed
-    mbar_wait(bar_q, 0);  // Q has landed
+    if constexpr (!QS) mbar_wait(bar_q, 0);  // Q has landed
 
     // one arrival a warp, after the warp's wgmma.wait_group covered the reads
     auto release = [&](uint32_t bar) {
@@ -360,8 +393,11 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
       for (int c = 0; c < p.slabs; ++c) {
         const int cur = st;
         mbar_wait(bar_kfull + 8 * st, ph);
-        const uint32_t kb = k_smem + st * k_slab;
-        const uint32_t qb = q_smem + c * q_slab + row_off * p.swq;
+        const uint32_t stage = k_smem + st * stage_bytes;
+        const uint32_t kb = stage + k_off;
+        // [q stream] this warpgroup's rows of the stage's Q slab, or of the
+        // resident tile's slab c
+        const uint32_t qb = (QS ? stage : q_smem + c * q_slab) + row_off * p.swq;
         // [narrow q/k] past dq the box is zero-filled: only real columns
         const int ksteps = min(p.swq, p.dq - c * p.swq) / 32;
         wgmma_fence();
@@ -431,7 +467,7 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
       for (int r = 0; r < 2; ++r) {
         imax[r] = max(imax[r], __shfl_xor_sync(0xffffffff, imax[r], 1));
         imax[r] = max(imax[r], __shfl_xor_sync(0xffffffff, imax[r], 2));
-        // [max pass] the float the template's max over __fmul_rn(float(S),
+        // [max pass] the float the plain version's max over __fmul_rn(float(S),
         // rs) gives: both maps are monotone (rs > 0)
         const float m_new = fmaxf(m_run[r], __fmul_rn(static_cast<float>(imax[r]), rs[r]));
         corr[r] = exp2f(m_run[r] - m_new);
@@ -513,14 +549,32 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
         amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 1));
         amax[r] = fmaxf(amax[r], __shfl_xor_sync(0xffffffff, amax[r], 2));
       }
-      if constexpr (SPLIT) {  // the other warpgroup's half of the row
+      if constexpr (SPLIT || CL) {
+        // the other warpgroup's half of the row (split form) and the other
+        // slices' columns ([cluster]): each row's entries in every block's
+        // amax_s (rows form: [wg][row]; split form: both [0][row] and
+        // [1][row])
         if (t4 == 0) {
           amax_s[wg * 64 + r0] = amax[0];
           amax_s[wg * 64 + r0 + 8] = amax[1];
         }
-        named_sync(BAR_AMAX);
-        amax[0] = fmaxf(amax[0], amax_s[(1 - wg) * 64 + r0]);
-        amax[1] = fmaxf(amax[1], amax_s[(1 - wg) * 64 + r0 + 8]);
+        if constexpr (CL) {
+          cluster_sync();
+          const uint32_t own = smem_addr(amax_s);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            for (int rank = 0; rank < p.cluster; ++rank)
+#pragma unroll
+              for (int h = 0; h < (SPLIT ? 2 : 1); ++h) {
+                const int idx = (SPLIT ? h : wg) * 64 + r0 + 8 * r;
+                amax[r] = fmaxf(amax[r], ld_cluster_f32(own + 4 * idx, rank));
+              }
+          cluster_sync();  // peers have read this block's amax_s
+        } else {
+          named_sync(BAR_AMAX);
+          amax[0] = fmaxf(amax[0], amax_s[(1 - wg) * 64 + r0]);
+          amax[1] = fmaxf(amax[1], amax_s[(1 - wg) * 64 + r0 + 8]);
+        }
       }
       float qmul[2];
 #pragma unroll
@@ -542,7 +596,8 @@ __global__ void __launch_bounds__(THREADS_SM90, 1)
           *reinterpret_cast<char2*>(o8 + rows[r] * o_row + col) = v;
         }
       }
-      if (t4 == 0 && (!SPLIT || wg == 0)) {
+      // one block of the cluster (the head's first slice) writes the scale
+      if (t4 == 0 && (!SPLIT || wg == 0) && (!CL || blockIdx.y % p.slices == 0)) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
           if (rows[r] < p.n) p.os[(tab + rows[r]) * p.heads + head] = amax[r] * INV127;
@@ -602,39 +657,74 @@ bool make_map(CUtensorMap* map, const void* base, const long long (&dims)[4],
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// Dynamic shared memory of a plan: alignment slack, barriers, Q, the K ring
-// (one slab a stage), the V ring, the fp32 acc (several key blocks).
+// Dynamic shared memory of a plan: alignment slack, barriers, the resident Q
+// tile, the ring (a K slab a stage, after a Q slab with q_stream), the V
+// ring, the fp32 acc (several key blocks).
 // ops/attention_int8.py::int8_sm90_smem_bytes computes the same.
 int plan_smem(int rows, int keys, int swq, int slabs, int v_cols, int split, int stages,
-              int v_stages, int multi) {
-  return ALIGN + BARRIER_BYTES + rows * slabs * swq + stages * keys * swq +
+              int v_stages, int multi, int q_stream) {
+  return ALIGN + BARRIER_BYTES + (q_stream ? 0 : rows * slabs * swq) +
+         stages * (keys * swq + (q_stream ? rows * swq : 0)) +
          v_stages * (split ? 2 : 1) * v_cols * keys + (multi ? CONSUMERS * 64 * v_cols * 4 : 0);
 }
 
-template <int DVW, bool SPLIT, int KT, bool SMALL>
+template <int DVW, bool SPLIT, int KT, bool SMALL, bool QS, bool CL>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, int batch, int smem, cudaStream_t stream) {
   // per call, not cached: the attribute belongs to the current device
-  cudaError_t err = cudaFuncSetAttribute(flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto* kernel = flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL, QS, CL>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rows = SPLIT ? 64 : 128;
   const dim3 grid((p.n + rows - 1) / rows, p.heads * p.slices, batch);
-  flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL><<<grid, THREADS_SM90, smem, stream>>>(tq, tk, tv,
-                                                                                     p);
+  if constexpr (!CL) {
+    flash_int8_sm90_kernel<DVW, SPLIT, KT, SMALL, QS, CL><<<grid, THREADS_SM90, smem, stream>>>(
+        tq, tk, tv, p);
+    return cudaGetLastError();
+  }
+  // [cluster] a head's v slices, consecutive in grid y, one cluster
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS_SM90);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.cluster;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* args[] = {const_cast<CUtensorMap*>(&tq), const_cast<CUtensorMap*>(&tk),
+                  const_cast<CUtensorMap*>(&tv), const_cast<Params*>(&p)};
+  err = cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(kernel), args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 // the instantiation of a plan: its form and v columns a warpgroup
-template <bool SMALL>
-cudaError_t launch_plan(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+template <bool SMALL, bool QS, bool CL>
+cudaError_t launch_form(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                         const Params& p, int v_cols, int split, int batch, int smem,
                         cudaStream_t st) {
   if (split)
-    return v_cols == 192 ? launch<192, true, 64, SMALL>(tq, tk, tv, p, batch, smem, st)
-                         : launch<256, true, 64, SMALL>(tq, tk, tv, p, batch, smem, st);
-  return v_cols == 128 ? launch<128, false, 128, SMALL>(tq, tk, tv, p, batch, smem, st)
-                       : launch<256, false, 64, SMALL>(tq, tk, tv, p, batch, smem, st);
+    return v_cols == 192 ? launch<192, true, 64, SMALL, QS, CL>(tq, tk, tv, p, batch, smem, st)
+                         : launch<256, true, 64, SMALL, QS, CL>(tq, tk, tv, p, batch, smem, st);
+  return v_cols == 128 ? launch<128, false, 128, SMALL, QS, CL>(tq, tk, tv, p, batch, smem, st)
+                       : launch<256, false, 64, SMALL, QS, CL>(tq, tk, tv, p, batch, smem, st);
+}
+
+// and its score conversion, Q resident or streamed (only past q/k 512: the
+// plain conversion), and cluster
+template <bool CL>
+cudaError_t launch_plan(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                        const Params& p, int v_cols, int split, int q_stream, int batch,
+                        int smem, cudaStream_t st) {
+  if (q_stream) return launch_form<false, true, CL>(tq, tk, tv, p, v_cols, split, batch, smem, st);
+  return p.dq <= SMALL_DQ
+             ? launch_form<true, false, CL>(tq, tk, tv, p, v_cols, split, batch, smem, st)
+             : launch_form<false, false, CL>(tq, tk, tv, p, v_cols, split, batch, smem, st);
 }
 
 }  // namespace
@@ -643,7 +733,7 @@ extern "C" {
 
 // Indices of the launch plan, ops/attention_int8.py::int8_sm90_plan.
 enum { PLAN_ROWS, PLAN_KEYS, PLAN_SWQ, PLAN_V_COLS, PLAN_SPLIT, PLAN_STAGES, PLAN_V_STAGES,
-       PLAN_MULTI, PLAN_SLICES, PLAN_SMEM, PLAN_LEN };
+       PLAN_MULTI, PLAN_SLICES, PLAN_Q_STREAM, PLAN_CLUSTER, PLAN_SMEM, PLAN_LEN };
 
 // int8 flash attention of `heads` heads on Hopper. q: q_kind 0 (bf16) or 1
 // (fp32), (B, N, *) with row stride q_row elements, head h at column h * dq,
@@ -658,10 +748,12 @@ enum { PLAN_ROWS, PLAN_KEYS, PLAN_SWQ, PLAN_V_COLS, PLAN_SPLIT, PLAN_STAGES, PLA
 // ints) must be one this library was built for: v in `slices` slices of
 // dv / slices columns, each in the rows form (128 rows, slices of 128 on
 // 128-key tiles or of 256 on 64-key tiles) or the split form (64 rows, 192
-// or 256 v columns a warpgroup, 64-key tiles); an int8 output unsliced; q/k
-// a multiple of 32 up to 512 in boxes of 64 bytes at dq up to 64, else 128;
-// 1-8 K stages and 1-2 V stages; multi == (nk > 1); the shared memory it
-// needs within the card's 227 KB. Anything else returns
+// or 256 v columns a warpgroup, 64-key tiles); cluster 1, or for an int8
+// output on sliced v cluster == slices (at most 8); q/k a multiple of 32
+// in boxes of 64 bytes at dq up to 64, else 128, Q resident or streamed
+// (q_stream 0 or 1; streamed in 128-byte boxes); 1-8 ring stages and 1-2 V
+// stages; multi == (nk > 1); the shared memory it needs within the card's
+// 227 KB. Anything else returns
 // cudaErrorInvalidValue, as does a failed tensor-map encode. Returns the
 // cudaError_t of the launches.
 int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, const void* ks,
@@ -672,19 +764,23 @@ int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, c
   const int rows = plan[PLAN_ROWS], keys = plan[PLAN_KEYS], swq = plan[PLAN_SWQ];
   const int v_cols = plan[PLAN_V_COLS], split = plan[PLAN_SPLIT], stages = plan[PLAN_STAGES];
   const int v_stages = plan[PLAN_V_STAGES], multi = plan[PLAN_MULTI], smem = plan[PLAN_SMEM];
-  const int slices = plan[PLAN_SLICES];
+  const int slices = plan[PLAN_SLICES], q_stream = plan[PLAN_Q_STREAM];
+  const int cluster = plan[PLAN_CLUSTER];
   const int slabs = (dq + swq - 1) / swq;
   const bool rows_ok = split == 0 && rows == 128 &&
                        ((v_cols == 128 && keys == 128) || (v_cols == 256 && keys == 64));
   const bool split_ok = split == 1 && rows == 64 && keys == 64 && (v_cols == 192 || v_cols == 256);
   if (!(rows_ok || split_ok) || slices < 1 || (split ? 2 : 1) * v_cols * slices != dv ||
-      (out_mode == OUT_I8 && slices != 1) || batch < 1 || heads < 1 || n <= 0 || n % 32 ||
-      bk <= 0 || bk % 32 || bk * nk != n || dq <= 0 || dq % 32 || dq > 512 ||
+      cluster != (out_mode == OUT_I8 ? slices : 1) || cluster > MAX_CLUSTER ||
+      q_stream < 0 || q_stream > 1 || (q_stream && swq != 128) ||
+      batch < 1 || heads < 1 || n <= 0 || n % 32 ||
+      bk <= 0 || bk % 32 || bk * nk != n || dq <= 0 || dq % 32 ||
       swq != (dq <= 64 ? 64 : 128) ||
       stages < 1 || stages > MAX_STAGES || v_stages < 1 || v_stages > 2 ||
       multi != (nk > 1 ? 1 : 0) || out_mode < OUT_BF16 || out_mode > OUT_I8 || q_kind < 0 ||
       q_kind > 2 || (q_kind == 2 && qs == nullptr) || (out_mode == OUT_I8 && !out_scales) ||
-      smem != plan_smem(rows, keys, swq, slabs, v_cols, split, stages, v_stages, multi) ||
+      smem != plan_smem(rows, keys, swq, slabs, v_cols, split, stages, v_stages, multi,
+                        q_stream) ||
       smem > SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -727,12 +823,13 @@ int flash_int8_sm90(const void* q, int q_kind, const void* qs, const void* kq, c
   p.stages = stages;
   p.v_stages = v_stages;
   p.slices = slices;
+  p.cluster = cluster;
   p.out_mode = out_mode;
   p.scale_log2 = scale_log2;
-  // the instantiations, one a plan the rule picks, and the score conversion
+  // the instantiations, one a plan the rule picks
   return static_cast<int>(
-      dq <= SMALL_DQ ? launch_plan<true>(tq, tk, tv, p, v_cols, split, batch, smem, st)
-                     : launch_plan<false>(tq, tk, tv, p, v_cols, split, batch, smem, st));
+      cluster > 1 ? launch_plan<true>(tq, tk, tv, p, v_cols, split, q_stream, batch, smem, st)
+                  : launch_plan<false>(tq, tk, tv, p, v_cols, split, q_stream, batch, smem, st));
 }
 
 }  // extern "C"

@@ -3,7 +3,8 @@
 // flash_bwd_single_sm90.cu, bf16;
 // flash_int8_sm90.cu and qmm_sm90.cu, int8, whose products are in
 // wgmma_s8.cuh): mbarrier phases, 4-D and 2-D TMA tile loads, wgmma
-// shared-memory descriptors, fences and groups, named barriers, setmaxnreg,
+// shared-memory descriptors, fences and groups, named barriers, the
+// thread-block cluster's barrier and distributed shared memory, setmaxnreg,
 // cuTensorMapEncodeTiled looked up at run time, for the bf16 kernels the
 // m64n64k16 and m64n128k16 SS products, the m64n64k16 SS product with B
 // MN-major, the RS products of N 64 to 256 and the 4-D map of a packed
@@ -107,6 +108,30 @@ __device__ __forceinline__ void named_sync(int id) {
 }
 __device__ __forceinline__ void named_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+// Thread-block clusters. The cluster barrier: every thread of every block
+// of the cluster arrives once per phase (not aligned: the roles of a
+// warp-specialised block reach it at different points); release/acquire
+// make the shared-memory writes before the arrival visible to the cluster's
+// reads after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// A float in the shared memory of the cluster's block `rank`, at the offset
+// that the shared::cta address `addr` has in this block (mapa).
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr, int rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 template <int R>
 __device__ __forceinline__ void setmaxnreg_inc() {

@@ -8,7 +8,7 @@ folded h1, row 2 at batch 1 too), on one GPU; prints one JSON line (ms per
 call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8]
+        [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8 | --int8-wide]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -30,8 +30,18 @@ shorter than the host's time to enqueue it), its bytes bound beside it,
 and the forwards' sums by launch counts; and a
 torch.profiler reading of one quant_rows launch at the phi='s' h2 qkv
 shape (12,800 x 1,536 bf16, LN) and the phi='n' fp32 one. A checkout
-before this form times the dark3 sites on the mma_sync template of
-csrc/flash_attn_int8.cu and quant_rows on its first kernels.
+before the sliced form times the dark3 sites on the mma_sync template
+(that checkout's csrc/flash_attn_int8.cu) and quant_rows on its first
+kernels.
+With --int8-wide it times only rows 3-5 (flash_mha_int8, flash_mha_int8_qout,
+flash_int8_handoff with its int8 output) at the int8 sites of phi 'l' and
+'x' 640x640 (INT8_LX: the neck heads of 768 to 3,584, dark3 row 3 alone), at
+batch 2 and 1, each held to the int8 bars against its plain version, beside
+the three-product bound (the two-product one too), the plain version's time
+and bf16 SDPA on the same shapes (a reference point: it computes another
+function), with the kernel each call took (`int8_fwd_form`, and the plan
+where the checkout has one). A checkout before the wide form times the neck
+heads on the mma_sync template of csrc/flash_attn_int8.cu.
 With --qmm it times only qmm (row 6) at every distinct launch shape of one
 int8 forward of phi 's' and 'm' 640x640 at batch 2 and at batch 1 (the
 launches recorded from the model's own forward, then each shape's call
@@ -108,6 +118,13 @@ INT8_DARK3 = (("phi=m dark3", (2, 6400, 128, 1024, 3200, torch.bfloat16)),
               ("phi=n dark3 fp32 q", (2, 6400, 32, 256, 6400, torch.float32)))
 INT8_DARK3_FORMS = {"phi=m dark3": (128, 256, 512), "phi=n dark3": (128, 256),
                     "phi=n dark3 fp32 q": (128, 256)}
+# the --int8-wide sites: (name, (tokens, q/k channels, v channels, heads, key
+# block)) of phi 'l' and 'x' 640x640, key blocks from `pick_blocks`
+INT8_LX = (("phi=l dark3", (6400, 256, 2048, 1, 1600)), ("phi=l h1", (1600, 12288, 12288, 8, 800)),
+           ("phi=l h2", (6400, 6144, 6144, 8, 1600)), ("phi=l h4", (1600, 6144, 6144, 8, 1600)),
+           ("phi=x dark3", (6400, 512, 4096, 1, 800)), ("phi=x h1", (1600, 28672, 28672, 8, 320)),
+           ("phi=x h2", (6400, 12288, 12288, 8, 1280)),
+           ("phi=x h4", (1600, 12288, 12288, 8, 800)))
 # the --int8 quant_rows forwards: (label, phi, compute type, configuration)
 QUANT_ROWS_FORWARDS = (("phi=n", "n", "bfloat16", "int8"), ("phi=n fp32", "n", "float32", "int8"),
                        ("phi=s", "s", "bfloat16", "int8"), ("phi=s A", "s", "bfloat16", "A"),
@@ -474,6 +491,77 @@ def time_int8_dark3(randn) -> dict:
     return out
 
 
+def _int8_bar(out, ref) -> float:
+    """Bar use of an int8 attention output against its plain version: the
+    value bar, or for an int8 output its payload (+-1 on <= 1e-3 of the
+    elements) and scales (1e-5 relative), as chip_smoke.py holds them."""
+    if not isinstance(out, tuple):
+        return _int8_values_bar(out, ref)
+    diff = (out[0].int() - ref[0].int()).abs()
+    flips = float((diff > 0).float().mean()) / 1e-3
+    rel = float(((out[1] - ref[1]).abs() / ref[1].abs().clamp(min=1e-30)).max()) / 1e-5
+    return max(flips, rel, float(diff.max()) if int(diff.max()) > 1 else 0.0)
+
+
+def time_int8_wide(randn) -> dict:
+    """Rows 3-5 at the INT8_LX sites, batch 2 and 1 (see the module's
+    docstring)."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, (n, cq, cv, h, bk) in INT8_LX:
+        dq, dv = cq // h, cv // h
+        scale = dq ** -0.5 if h > 1 else 1.0
+        std = (4.0 / (scale * dq ** 0.5)) ** 0.5  # logits of std 4: peaked
+        q, k = ((randn(2, n, cq) * std).bfloat16() for _ in range(2))
+        v = randn(2, n, cv).bfloat16()
+        kq, ks = A8.quantize_kv(k, h, bk)
+        vq, vs = A8.quantize_kv(v, h, bk)
+        entries = {"flash_mha_int8": (A8.flash_mha_int8, A8.flash_mha_int8_plain)}
+        if h > 1:  # the neck heads: the int8-output entries too
+            entries["flash_mha_int8_qout"] = (A8.flash_mha_int8_qout,
+                                              A8.flash_mha_int8_qout_plain)
+            payload, scales = QM._output_plain(torch.cat([q, k, v], -1).float(), None, 3 * cq,
+                                               None)
+            qs = A8.q_scale_table(scales, cq, h)
+            hk = A8.requantize_section(payload, scales, cq, cq, h, bk)
+            hv = A8.requantize_section(payload, scales, 2 * cq, cq, h, bk)
+            entries["flash_int8_handoff"] = (
+                lambda *a: A8.flash_int8_handoff(*a, True),
+                lambda *a: A8.flash_int8_handoff_plain(*a, True))
+        qh, kh, vh = (t.reshape(2, n, h, -1).transpose(1, 2) for t in (q, k, v))
+        for bname, sl in (("batch 2", slice(None)), ("batch 1", slice(0, 1))):
+            b = 2 if bname == "batch 2" else 1
+            ops3 = 2.0 * b * h * n * n * (2 * dq + dv)
+            ops2 = 2.0 * b * h * n * n * (dq + dv)
+            nbytes = b * n * (cq * 3 + cv * 2)
+            sdpa = timed_ms(lambda: F.scaled_dot_product_attention(
+                qh[sl], kh[sl], vh[sl], scale=scale), 5, 1)
+            for entry, (kernel, plain) in entries.items():
+                args = ((payload[sl], qs[sl], hk[0][sl], hk[1][sl], hv[0][sl], hv[1][sl], h,
+                         scale) if entry == "flash_int8_handoff"
+                        else (q[sl], kq[sl], ks[sl], vq[sl], vs[sl], h, scale))
+                got = kernel(*args)
+                torch.cuda.synchronize()
+                row = {"bar_used": _int8_bar(got, plain(*args)),
+                       "ms": timed_ms(lambda: kernel(*args), 10, 2),
+                       "bound_ms": max(ops3 / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
+                       "bound2_ms": max(ops2 / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
+                       "sdpa_bf16_ms": sdpa}
+                if b == 2:
+                    row["plain_ms"] = timed_ms(lambda: plain(*args), 1, 0)
+                row["form"] = A8.int8_fwd_form(dq, dv, entry)  # this checkout's rule
+                try:  # and plan, where it has the wide form
+                    plan = A8.int8_sm90_plan(dq, dv, n // bk, int8_out=entry != "flash_mha_int8")
+                    row["plan"] = {key: plan[key] for key in ("rows", "slices", "split",
+                                                              "q_stream", "cluster", "stages")}
+                except TypeError:  # a checkout before it: the template's sites
+                    pass
+                out[f"{entry} {name} {bname}"] = row
+                print(json.dumps({f"{entry} {name} {bname}": row}), flush=True)
+    return out
+
+
 def _team_sweep(real, args) -> dict:
     """{"team x units": device ms} of quant_rows on args for each number of
     units a thread (1, 2, 4; 8 for bf16) with the smallest team of 8 to 256
@@ -779,6 +867,9 @@ def main() -> int:
         return 0
     if "--qmm" in sys.argv[1:]:
         print(json.dumps({**result, "qmm": time_qmm()}))
+        return 0
+    if "--int8-wide" in sys.argv[1:]:
+        print(json.dumps({**result, "int8_wide": time_int8_wide(randn)}))
         return 0
     if "--int8" in sys.argv[1:]:
         print(json.dumps({**result, "int8_dark3": time_int8_dark3(randn),

@@ -115,11 +115,14 @@ def int8_1x1_routes(cfg: ModelConfig, batch: int,
 
 def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = None,
                 seed: Optional[int] = 0,
-                int8_variants: Optional[Int8Variants] = None) -> FocusModel:
+                int8_variants: Optional[Int8Variants] = None,
+                init_on_device: bool = False) -> FocusModel:
     """FocusModel at `cfg`'s scale, in evaluation mode on `device` (CUDA
     unless given; a trainer puts it in training mode). Weights are the
     seeded initialisation of `init_weights` (seed=None keeps PyTorch's
-    defaults); load a JAX checkpoint with
+    defaults; `init_on_device` draws them on the device, as phi='l''s 8.33 B
+    parameters want, from the device's generator: other numbers than the
+    CPU's from the same seed); load a JAX checkpoint with
     weights.load_jax_variables. attention_impl="plain" runs the attention
     kernels' plain PyTorch versions (comparison only). int8_dense,
     int8_attn and int8_1x1 select the int8 serving paths, alone or
@@ -131,7 +134,7 @@ def build_model(cfg: ModelConfig, device=None, attention_impl: Optional[str] = N
     with device:  # parameters made where they live (1.35 B at phi='m')
         model = _model_of(cfg, attention_impl, int8_variants)
     if seed is not None:
-        init_weights(model, seed)
+        init_weights(model, seed, on_device=init_on_device)
     if attention_impl is not None:  # the int8 1x1 convs too
         set_attention_impl(model, attention_impl)
     return model.eval()
@@ -153,18 +156,20 @@ TRUNCATED_NORMAL_STD = 0.87962566103423978
 
 
 @torch.no_grad()
-def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+def init_weights(model: nn.Module, seed: int = 0, on_device: bool = False) -> nn.Module:
     """Seeded initialisation after the flax defaults: conv and dense kernels
     LeCun-normal as flax draws it (a normal truncated at +-2 of its std,
     the std raised by 1/0.87962566 so the variance is 1/fan_in), dense biases
     0, norms at identity, SelfAttention gamma 0, head output biases at their
-    prior values."""
-    gen = torch.Generator().manual_seed(seed)
+    prior values. The draws come from a CPU generator, or with `on_device`
+    from one on the parameters' device, where they are made."""
+    device = next(model.parameters()).device if on_device else torch.device("cpu")
+    gen = torch.Generator(device=device).manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "weight" and p.dim() >= 2:
             std = p[0].numel() ** -0.5 / TRUNCATED_NORMAL_STD
-            w = torch.empty(p.shape)
+            w = torch.empty(p.shape, device=device)
             torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
             p.copy_(w)
         elif leaf == "weight":

@@ -28,19 +28,19 @@ quarter of it at the wider heads of phi='m', 'l', 'x' (3,200, 1,600, 800,
 320). The kernels take every shape `pick_blocks` tiles: q/k head widths
 that are multiples of 32, v head widths multiples of 128, N and bk multiples
 of 32 (a ragged last key tile is masked), q in bf16 or fp32 (the output in
-q's type); the int8 output at any v head width.
+q's type); the int8 output at v up to 8 slices (4,096 columns in slices
+of 512).
 
-The kernels, by one rule per entry point (`int8_fwd_form`): heads whose q/k
-width is a multiple of 32 up to 512 run csrc/flash_int8_sm90.cu (int8 wgmma
-fed by a TMA ring, launched with the plan of `int8_sm90_plan`; V reaches it
-as the key-major copy of `vq_key_major`) at any v width for
-`flash_mha_int8` (v wider than 512 in slices across blocks, S recomputed
-per slice: dark3 of phi 'm', 'l', 'x') and at v up to 512 for the two
-entries with an int8 output (its amax spans the head's whole v); the other
-sites (q/k wider than 512: the phi 'l' and 'x' neck heads; the int8-output
-entries at v wider than 512) the mma.sync template of
-csrc/flash_attn_int8.cu. Every int8 serving site of phi 'n', 's' and 'm'
-takes the sm90 kernel.
+One kernel serves every shape of that domain for all three entry points
+(`int8_fwd_form` answers "sm90" throughout): csrc/flash_int8_sm90.cu, int8
+wgmma fed by a TMA ring, launched with the plan of `int8_sm90_plan`, V
+reaching it as the key-major copy of `vq_key_major`. v wider than 512 goes
+in slices across blocks, each recomputing S for its query tile (dark3 of
+phi 'm', 'l', 'x'; the phi 'l'/'x' neck heads of 768 to 3,584); an int8
+output whose v is sliced exchanges each row's amax across a thread-block
+cluster of the head's slices (at most 8: `kernel_supports`). q/k wider than
+the resident Q tile allows (the phi 'l'/'x' neck heads) streams Q beside K
+through the ring, S summed over the q/k slabs.
 
 The int8 TEB's handoff variants (`config.Int8Variants`) run the same
 function with other ends:
@@ -62,6 +62,7 @@ The front ends reach the kernels through their registered operators
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -73,24 +74,19 @@ LOG2_127 = 6.988684686772166
 KERNEL_DQ_MULTIPLE = 32
 KERNEL_DV_MULTIPLE = 128
 KERNEL_N_MULTIPLE = 32
-# v columns one block of the mma.sync template holds (wider heads split
-# across blocks); its int8 outputs go through an fp32 workspace and a row
-# pass (the amax is a head's whole row)
-KERNEL_DV_TILE = 256
 Q_DTYPES = (torch.bfloat16, torch.float32)
-# The Hopper kernel (csrc/flash_int8_sm90.cu): q/k head widths that are
-# multiples of 32 up to 512; v any width of the domain (in slices of
-# SM90_SLICE, else 256 or 128 columns, past SM90_MAX_WIDTH), up to
-# SM90_MAX_WIDTH for an int8 output; and the launch plans it is built for
-# (`int8_sm90_plan`).
-SM90_QK_MULTIPLE = 32
+# The Hopper kernel (csrc/flash_int8_sm90.cu): v past SM90_MAX_WIDTH in
+# slices across blocks (SM90_SLICE columns, else 256 or 128), an int8
+# output's slices one thread-block cluster of at most SM90_MAX_CLUSTER
+# blocks; and the launch plans it is built for (`int8_sm90_plan`).
 SM90_MAX_WIDTH = 512
 SM90_SLICE = 512
 SM90_SLICE_WIDTHS = (128, 256, 384, 512)  # rows form 128 / 256, split form 384 / 512
 SM90_MAX_STAGES = 8
+SM90_MAX_CLUSTER = 8  # the portable cluster size
 SM90_SMEM_LIMIT = 232448
 SM90_PLAN_KEYS = ("rows", "keys", "swq", "v_cols", "split", "stages", "v_stages", "multi",
-                  "slices", "smem_bytes")
+                  "slices", "q_stream", "cluster", "smem_bytes")
 INT8_OUT_ENTRIES = ("flash_mha_int8_qout", "flash_int8_handoff")
 OUT_MODES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 _VMEM_BUDGET = 15 * 1024 * 1024 + 512 * 1024
@@ -271,25 +267,6 @@ def requantize_section(payload: torch.Tensor, scales: torch.Tensor, col0: int, c
 # ---------------------------------------------------------------------------
 
 
-def _lib():
-    from transparent_object_detection_tpu_torch.kernels import _build
-
-    lib = _build.load("flash_attn_int8")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_mha_int8.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       ci, ci, ci, cf, vp]
-        lib.flash_mha_int8.restype = ci
-        lib.flash_mha_int8_qout.argtypes = [vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci,
-                                            ci, ci, ci, ci, ci, ci, cf, vp]
-        lib.flash_mha_int8_qout.restype = ci
-        lib.flash_int8_handoff.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci,
-                                           ci, ci, ci, ci, cf, ci, vp]
-        lib.flash_int8_handoff.restype = ci
-        lib._argtypes_set = True
-    return lib
-
-
 def _check(name: str, t: torch.Tensor, dtype) -> None:
     dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device.type != "cuda":
@@ -302,15 +279,29 @@ def _check(name: str, t: torch.Tensor, dtype) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def kernel_supports(n: int, dq: int, dv: int, bk: int) -> bool:
-    """Shapes the int8 kernels take: those `pick_blocks` tiles."""
+def _slice_cols(dv: int) -> int:
+    """The rule's v slice: all of v up to 512, past it slices of 512 in the
+    split form (256, then 128, where 512 does not divide v; measured 4%
+    faster than slices of 256 and 30% faster than slices of 128 at phi='m'
+    dark3, PERF.md)."""
+    if dv <= SM90_MAX_WIDTH:
+        return dv
+    return next(w for w in (SM90_SLICE, 256, KERNEL_DV_MULTIPLE) if dv % w == 0)
+
+
+def kernel_supports(n: int, dq: int, dv: int, bk: int, entry: str = "flash_mha_int8") -> bool:
+    """Shapes the int8 kernel takes: those `pick_blocks` tiles (q/k widths
+    multiples of 32, v of 128, N and bk of 32); for the two entries with an
+    int8 output, v in at most SM90_MAX_CLUSTER slices (the cluster that
+    exchanges each row's amax: v up to 4,096 in slices of 512)."""
     return (dq > 0 and dq % KERNEL_DQ_MULTIPLE == 0 and dv > 0
             and dv % KERNEL_DV_MULTIPLE == 0 and n > 0 and n % KERNEL_N_MULTIPLE == 0
-            and bk > 0 and bk % KERNEL_N_MULTIPLE == 0 and n % bk == 0)
+            and bk > 0 and bk % KERNEL_N_MULTIPLE == 0 and n % bk == 0
+            and (entry not in INT8_OUT_ENTRIES or dv // _slice_cols(dv) <= SM90_MAX_CLUSTER))
 
 
-def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs,
-              num_heads: int) -> Tuple[int, int, int, int, int, int]:
+def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs, num_heads: int,
+              entry: str) -> Tuple[int, int, int, int, int, int]:
     """Device, type and shape checks shared by the three wrappers; returns
     (b, n, dq, dv, nk, q_row)."""
     b, n, cq = kq.shape
@@ -325,7 +316,7 @@ def _check_kv(q, q_dtype, q_row_expected: int, kq, ks, vq, vs,
     if (q.shape[:2] != (b, n) or q_row != q_row_expected or vq.shape[:2] != (b, n)
             or tuple(ks.shape) != (b, num_heads, nk) or ks.shape != vs.shape
             or n % nk or cq % num_heads or cv % num_heads
-            or not kernel_supports(n, dq, dv, n // nk)):
+            or not kernel_supports(n, dq, dv, n // nk, entry)):
         raise ValueError(f"int8 flash kernel does not take q {tuple(q.shape)}, "
                          f"kq {tuple(kq.shape)}, vq {tuple(vq.shape)}, scales "
                          f"{tuple(ks.shape)} with {num_heads} heads")
@@ -339,79 +330,83 @@ def _q_workspace(b: int, n: int, cq: int, num_heads: int, device):
             torch.empty((b, n, num_heads), dtype=torch.float32, device=device))
 
 
-def _out_workspace(b: int, n: int, cv: int, device) -> torch.Tensor:
-    """fp32 (B, N, Cv): the mma.sync template's o before its row pass
-    quantizes each (row, head) over all the head's columns."""
-    return torch.empty((b, n, cv), dtype=torch.float32, device=device)
-
-
 def int8_fwd_form(dq: int, dv: int, entry: str = "flash_mha_int8") -> str:
     """The kernel of an int8 attention call of entry point `entry` on heads of
-    q/k width `dq` and v width `dv` (the domain of `kernel_supports`), a rule
-    per entry point: "sm90" (csrc/flash_int8_sm90.cu) where q/k is a
-    multiple of 32 up to 512 and, for `flash_mha_int8` (bf16 or fp32 out),
-    at any v (past 512 in slices across blocks: dark3 of phi 'm', 'l', 'x'),
-    for `flash_mha_int8_qout` and `flash_int8_handoff` (whose int8 output
-    takes one amax over the head's whole v, which one block must hold) at v
-    up to 512; else "mma_sync" (csrc/flash_attn_int8.cu: q/k wider than 512,
-    the phi 'l'/'x' neck heads; the int8-output entries at v past 512).
-    Every int8 serving site of phi 'n', 's' and 'm' is "sm90"."""
+    q/k width `dq` and v width `dv`: "sm90" (csrc/flash_int8_sm90.cu) for
+    every width of the domain of `kernel_supports`, all three entry points;
+    raises outside it. One kernel, no other route: the phi 'l'/'x' neck heads
+    stream Q through the ring, an int8 output on sliced v exchanges its amax
+    across a cluster (`int8_sm90_plan`)."""
     if entry not in ("flash_mha_int8",) + INT8_OUT_ENTRIES:
         raise ValueError(f"no int8 attention entry point {entry!r}")
-    max_v = SM90_MAX_WIDTH if entry in INT8_OUT_ENTRIES else None
-    if (0 < dq <= SM90_MAX_WIDTH and dq % SM90_QK_MULTIPLE == 0 and dv > 0
-            and dv % KERNEL_DV_MULTIPLE == 0 and (max_v is None or dv <= max_v)):
-        return "sm90"
-    return "mma_sync"
+    if not kernel_supports(KERNEL_N_MULTIPLE, dq, dv, KERNEL_N_MULTIPLE, entry):
+        raise ValueError(f"the int8 kernel takes q/k widths that are multiples of 32 and v "
+                         f"widths that are multiples of 128 ({entry}: in at most "
+                         f"{SM90_MAX_CLUSTER} slices), got q/k {dq}, v {dv}")
+    return "sm90"
 
 
 def int8_sm90_smem_bytes(plan: dict, dq: int) -> int:
     """Dynamic shared memory of an sm90 plan (as csrc/flash_int8_sm90.cu
     computes it): 1024 bytes of alignment slack, 1024 of barriers, the int8
-    q tile, the K ring (one `swq`-byte slab of `keys` keys a stage), the V
-    ring (stages of `keys` keys x the v columns a block covers), and with
-    several key blocks the fp32 acc of both warpgroups."""
+    Q tile where it is resident, the ring (each stage one `swq`-byte slab of
+    `keys` keys, and with `q_stream` the same slab of the block's `rows` q
+    rows before it), the V ring (stages of `keys` keys x the v columns a
+    block covers), and with several key blocks the fp32 acc of both
+    warpgroups."""
     slabs = -(-dq // plan["swq"])
-    return (2048 + plan["rows"] * slabs * plan["swq"] + plan["stages"] * plan["keys"] * plan["swq"]
+    q_slab = plan["rows"] * plan["swq"]
+    return (2048 + (0 if plan["q_stream"] else slabs * q_slab)
+            + plan["stages"] * (plan["keys"] * plan["swq"] + (q_slab if plan["q_stream"] else 0))
             + plan["v_stages"] * (2 if plan["split"] else 1) * plan["v_cols"] * plan["keys"]
             + (2 * 64 * plan["v_cols"] * 4 if plan["multi"] else 0))
 
 
-def int8_sm90_plan(dq: int, dv: int, nk: int, slice_cols: Optional[int] = None) -> dict:
+@functools.lru_cache(maxsize=None)
+def int8_sm90_plan(dq: int, dv: int, nk: int, slice_cols: Optional[int] = None,
+                   int8_out: bool = False) -> dict:
     """Launch plan of csrc/flash_int8_sm90.cu for heads of q/k width `dq`
-    and v width `dv` (the sm90 domain of `int8_fwd_form`) in `nk` key blocks.
-    v is cut into `slices` slices of `slice_cols` columns, one a block, each
-    block recomputing S for its query tile: none up to 512; past it slices of
-    512 in the split form (256, then 128, where 512 does not divide v;
-    measured 4% faster than slices of 256 and 30% faster than slices of 128
-    at phi='m' dark3, PERF.md; `slice_cols` picks another width of
-    SM90_SLICE_WIDTHS, for measurement). A slice (or v) up to 256: 128 rows a
+    and v width `dv` (the domain of `kernel_supports`) in `nk` key blocks.
+    v is cut into `slices` slices of `slice_cols` columns (`_slice_cols`'s
+    rule; another width of SM90_SLICE_WIDTHS for measurement), one a block,
+    each block recomputing S for its query tile: 2 * slices q.k^T products
+    and one P.V where the bound counts two and one (PERF.md). With
+    `int8_out` (the int8-output entries) the slices of a head are one
+    thread-block cluster (`cluster` = slices, at most 8) that exchanges each
+    row's amax over distributed shared memory. A slice up to 256: 128 rows a
     block, each consumer warpgroup on 64 of them with all the slice's
     columns (key tiles of 128 at 128 columns, else 64). 384 or 512: split,
     64 rows a block, both warpgroups on the same rows, each computing S and
     P.V on its half (192 or 256 columns) on 64-key tiles (measured faster
     than sharing one S at phi='m' h2, h4 and phi='s' dark3, PERF.md). q/k
     boxes of 64 bytes at q/k up to 64 (q/k 32 zero-filled past its width),
-    else 128. Two V stages where at least two K stages fit beside them,
-    else one; the most K stages (up to 8) that fit the card's 227 KB."""
-    if int8_fwd_form(dq, dv) != "sm90" or nk < 1:
-        raise ValueError(f"the sm90 int8 kernel takes q/k widths that are multiples of 32 up to "
-                         f"512 and v widths that are multiples of 128, got q/k {dq}, v {dv}")
-    if slice_cols is None:
-        slice_cols = dv if dv <= SM90_MAX_WIDTH else next(
-            w for w in (SM90_SLICE, 256, KERNEL_DV_MULTIPLE) if dv % w == 0)
+    else 128. The int8 Q tile resident where a plan with it fits; else
+    (`q_stream`: the phi 'l'/'x' neck heads) each ring stage carries the Q
+    slab beside the K slab. Two V stages where at least two ring stages fit
+    beside them, else one; the most ring stages (up to 8) that fit the
+    card's 227 KB. Cached, as each launch asks for its plan: the dict is
+    shared and not to be changed."""
+    int8_fwd_form(dq, dv, INT8_OUT_ENTRIES[0] if int8_out else "flash_mha_int8")  # the domain
+    if nk < 1:
+        raise ValueError(f"no sm90 int8 plan for {nk} key blocks")
+    slice_cols = _slice_cols(dv) if slice_cols is None else slice_cols
     if slice_cols not in SM90_SLICE_WIDTHS or dv % slice_cols:
         raise ValueError(f"no sm90 int8 form takes v {dv} in slices of {slice_cols}")
     split = slice_cols > 256
+    slices = dv // slice_cols
+    if int8_out and slices > SM90_MAX_CLUSTER:
+        raise ValueError(f"an int8 output takes v in at most {SM90_MAX_CLUSTER} slices (one "
+                         f"cluster), got {slices} slices of {slice_cols}")
     plan = {"rows": 64 if split else 128, "keys": 128 if slice_cols <= 128 else 64,
             "swq": 64 if dq <= 64 else 128, "v_cols": slice_cols // 2 if split else slice_cols,
-            "split": int(split), "multi": int(nk > 1), "slices": dv // slice_cols}
-    for v_stages, least in ((2, 2), (1, 1)):
+            "split": int(split), "multi": int(nk > 1), "slices": slices,
+            "cluster": slices if int8_out else 1}
+    for q_stream, v_stages, least in ((0, 2, 2), (0, 1, 1), (1, 2, 2), (1, 1, 1)):
+        trial = {**plan, "q_stream": q_stream, "v_stages": v_stages}
         fits = [st for st in range(SM90_MAX_STAGES, 0, -1)
-                if int8_sm90_smem_bytes({**plan, "stages": st, "v_stages": v_stages}, dq)
-                <= SM90_SMEM_LIMIT]
+                if int8_sm90_smem_bytes({**trial, "stages": st}, dq) <= SM90_SMEM_LIMIT]
         if fits and fits[0] >= least:
-            plan.update(stages=fits[0], v_stages=v_stages)
+            plan = {**trial, "stages": fits[0]}
             plan["smem_bytes"] = int8_sm90_smem_bytes(plan, dq)
             return plan
     raise ValueError(f"no sm90 int8 plan fits q/k {dq}, v {dv}, {nk} key blocks")
@@ -453,22 +448,24 @@ def _launch_sm90(q, qs, kq, ks, vq, vs, num_heads: int, scale: float, out_dtype,
     workspace first) or the int8 qkv payload with its scale table qs; V as
     `vq_key_major(vq)` (`vt`: that layout made by the caller, which
     chip_smoke.py's planted fault replaces). Returns out in out_dtype (bf16,
-    fp32, or int8 with its (B, N, H) scales; an int8 output takes an
-    unsliced plan). Raises if the launch fails; never falls back."""
+    fp32, or int8 with its (B, N, H) scales; an int8 output on sliced v
+    takes a plan whose cluster spans the slices). Raises if the launch
+    fails; never falls back."""
     b, n, cq = kq.shape
     cv = vq.shape[-1]
     nk = ks.shape[-1]
     dq, dv = cq // num_heads, cv // num_heads
-    plan = int8_sm90_plan(dq, dv, nk) if plan is None else plan
-    if out_dtype == torch.int8 and plan["slices"] != 1:
-        raise ValueError(f"an int8 output needs the whole v of a head in one block, got v {dv} "
-                         f"in {plan['slices']} slices")
+    int8_out = out_dtype == torch.int8
+    plan = int8_sm90_plan(dq, dv, nk, int8_out=int8_out) if plan is None else plan
+    if int8_out and plan["cluster"] != plan["slices"]:
+        raise ValueError(f"an int8 output takes one amax over the head's whole v: its "
+                         f"{plan['slices']} v slices must be one cluster, got {plan['cluster']}")
     vt = vq_key_major(vq, num_heads) if vt is None else vt
     q_kind = 2 if q.dtype == torch.int8 else int(q.dtype == torch.float32)
     q8, q_scales = (None, None) if q_kind == 2 else _q_workspace(b, n, cq, num_heads, q.device)
     out = torch.empty((b, n, cv), dtype=out_dtype, device=q.device)
     out_scales = (torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
-                  if out_dtype == torch.int8 else None)
+                  if int8_out else None)
     plan_arr = (ctypes.c_int * len(SM90_PLAN_KEYS))(*(plan[key] for key in SM90_PLAN_KEYS))
     ptr = lambda t: None if t is None else t.data_ptr()
     err = _sm90_lib().flash_int8_sm90(
@@ -477,7 +474,7 @@ def _launch_sm90(q, qs, kq, ks, vq, vs, num_heads: int, scale: float, out_dtype,
         OUT_MODES[out_dtype], b, n, num_heads, dq, dv, q.shape[-1], n // nk, nk, scale * LOG2E,
         ctypes.cast(plan_arr, ctypes.c_void_p), _stream(q))
     _raise_on(err, "flash_int8_sm90")
-    return (out, out_scales) if out_dtype == torch.int8 else out
+    return (out, out_scales) if int8_out else out
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -496,29 +493,18 @@ def flash_mha_int8(q, kq, ks, vq, vs, num_heads: int, scale: float,
     (B, N, Cv) int8 with f32 scales (B, H, N / bk) -> (B, N, Cv) in q's type.
 
     Port of ops/attention_int8.py::_mha_flash_int8_kernel. A CUDA tensor
-    quantizes q per (row, head) into a workspace, then runs the attention
-    kernel of `int8_fwd_form` (two launches counted as one): `sm90_launches`
-    counts csrc/flash_int8_sm90.cu, `launches` csrc/flash_attn_int8.cu. A CPU
-    tensor runs `flash_mha_int8_plain`."""
+    quantizes q per (row, head) into a workspace, then runs
+    csrc/flash_int8_sm90.cu (two launches counted as one in
+    `sm90_launches`). A CPU tensor runs `flash_mha_int8_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     cq = kq.shape[-1]
     if q_width is not None and q_width != cq:
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
-    b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
-                                        kq, ks, vq, vs, num_heads)
-    if int8_fwd_form(dq, dv) == "sm90":
-        out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, q.dtype)
-        flash_mha_int8.sm90_launches += 1
-        return out
-    q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
-    out = torch.empty((b, n, vq.shape[-1]), dtype=q.dtype, device=q.device)
-    err = _lib().flash_mha_int8(
-        q.data_ptr(), int(q.dtype == torch.float32), kq.data_ptr(), ks.data_ptr(),
-        vq.data_ptr(), vs.data_ptr(), q8.data_ptr(), q_scales.data_ptr(), out.data_ptr(), b, n,
-        num_heads, dq, dv, q_row, n // nk, nk, scale * LOG2E, _stream(q))
-    _raise_on(err, "flash_mha_int8")
-    flash_mha_int8.launches += 1
+    _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq, kq, ks, vq, vs, num_heads,
+              "flash_mha_int8")
+    out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, q.dtype)
+    flash_mha_int8.sm90_launches += 1
     return out
 
 
@@ -528,34 +514,18 @@ def flash_mha_int8_qout(q, kq, ks, vq, vs, num_heads: int, scale: float,
     (B, N, Cv) and f32 scales (B, N, H), for attn_out's x_quant input.
 
     Port of ops/attention_int8.py::_mha_flash_int8_qout_kernel. A CUDA
-    tensor runs the kernel of `int8_fwd_form` (`sm90_launches`: the
-    quantization in csrc/flash_int8_sm90.cu's epilogue; `launches`:
-    csrc/flash_attn_int8.cu with an fp32 workspace and a row pass); a CPU
-    tensor runs `flash_mha_int8_qout_plain`."""
+    tensor runs csrc/flash_int8_sm90.cu, the quantization in its epilogue
+    (`sm90_launches`); a CPU tensor runs `flash_mha_int8_qout_plain`."""
     if q.device.type == "cpu":
         return flash_mha_int8_qout_plain(q, kq, ks, vq, vs, num_heads, scale, q_width)
     cq = kq.shape[-1]
     if q_width is not None and q_width != cq:
         raise ValueError(f"q_width {q_width} is not the q/k width {cq}")
-    b, n, dq, dv, nk, q_row = _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq,
-                                        kq, ks, vq, vs, num_heads)
-    if int8_fwd_form(dq, dv, "flash_mha_int8_qout") == "sm90":
-        out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, torch.int8)
-        flash_mha_int8_qout.sm90_launches += 1
-        return out
-    cv = vq.shape[-1]
-    q8, q_scales = _q_workspace(b, n, cq, num_heads, q.device)
-    work = _out_workspace(b, n, cv, q.device)
-    out = torch.empty((b, n, cv), dtype=torch.int8, device=q.device)
-    out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=q.device)
-    err = _lib().flash_mha_int8_qout(
-        q.data_ptr(), int(q.dtype == torch.float32), kq.data_ptr(), ks.data_ptr(),
-        vq.data_ptr(), vs.data_ptr(), q8.data_ptr(), q_scales.data_ptr(), out.data_ptr(),
-        out_scales.data_ptr(), work.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
-        scale * LOG2E, _stream(q))
-    _raise_on(err, "flash_mha_int8_qout")
-    flash_mha_int8_qout.launches += 1
-    return out, out_scales
+    _check_kv(q, Q_DTYPES, cq if q_width is None else 3 * cq, kq, ks, vq, vs, num_heads,
+              "flash_mha_int8_qout")
+    out = _launch_sm90(q, None, kq, ks, vq, vs, num_heads, scale, torch.int8)
+    flash_mha_int8_qout.sm90_launches += 1
+    return out
 
 
 def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float,
@@ -567,44 +537,24 @@ def flash_int8_handoff(payload, qs, kq, ks, vq, vs, num_heads: int, scale: float
     quant_out, else (B, N, Cv) in out_dtype (bf16 or fp32).
 
     Port of ops/attention_int8.py::_mha_flash_int8_handoff_kernel (both its
-    output forms count as launches of it). A CUDA tensor runs the kernel of
-    `int8_fwd_form` (`sm90_launches`: csrc/flash_int8_sm90.cu; `launches`:
-    csrc/flash_attn_int8.cu); a CPU tensor runs `flash_int8_handoff_plain`."""
+    output forms count as launches of it). A CUDA tensor runs
+    csrc/flash_int8_sm90.cu (`sm90_launches`); a CPU tensor runs
+    `flash_int8_handoff_plain`."""
     if payload.device.type == "cpu":
         return flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads, scale,
                                         quant_out, out_dtype)
     if not quant_out and out_dtype not in Q_DTYPES:
         raise ValueError(f"the int8 handoff kernel writes {Q_DTYPES} or int8, not {out_dtype}")
-    b, n, dq, dv, nk, q_row = _check_kv(payload, torch.int8, payload.shape[-1], kq, ks, vq, vs,
-                                        num_heads)
+    b, n, _, _, _, q_row = _check_kv(payload, torch.int8, payload.shape[-1], kq, ks, vq, vs,
+                                     num_heads, "flash_int8_handoff")
     _check("qs", qs, torch.float32)
     if tuple(qs.shape) != (b, n, num_heads) or q_row < kq.shape[-1] or q_row % 16:
         raise ValueError(f"int8 handoff kernel does not take payload {tuple(payload.shape)} "
                          f"with q scales {tuple(qs.shape)}")
-    if int8_fwd_form(dq, dv, "flash_int8_handoff") == "sm90":
-        out = _launch_sm90(payload, qs, kq, ks, vq, vs, num_heads, scale,
-                           torch.int8 if quant_out else out_dtype)
-        flash_int8_handoff.sm90_launches += 1
-        return out
-    cv = vq.shape[-1]
-    work = None
-    if quant_out:
-        out = torch.empty((b, n, cv), dtype=torch.int8, device=payload.device)
-        out_scales = torch.empty((b, n, num_heads), dtype=torch.float32, device=payload.device)
-        work = _out_workspace(b, n, cv, payload.device)
-        mode = 2
-    else:
-        out = torch.empty((b, n, cv), dtype=out_dtype, device=payload.device)
-        out_scales = None
-        mode = int(out_dtype == torch.float32)
-    err = _lib().flash_int8_handoff(
-        payload.data_ptr(), qs.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), out.data_ptr(), 0 if out_scales is None else out_scales.data_ptr(),
-        0 if work is None else work.data_ptr(), b, n, num_heads, dq, dv, q_row, n // nk, nk,
-        scale * LOG2E, mode, _stream(payload))
-    _raise_on(err, "flash_int8_handoff")
-    flash_int8_handoff.launches += 1
-    return (out, out_scales) if quant_out else out
+    out = _launch_sm90(payload, qs, kq, ks, vq, vs, num_heads, scale,
+                       torch.int8 if quant_out else out_dtype)
+    flash_int8_handoff.sm90_launches += 1
+    return out
 
 
 ENTRY_POINTS = (flash_mha_int8, flash_mha_int8_qout, flash_int8_handoff)
@@ -612,7 +562,6 @@ ENTRY_POINTS = (flash_mha_int8, flash_mha_int8_qout, flash_int8_handoff)
 
 def reset_launch_counts() -> None:
     for fn in ENTRY_POINTS:
-        fn.launches = 0
         fn.sm90_launches = 0
 
 
