@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all eleven sources at once) and prints the card's name and power
+   nvcc (all ten sources at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -26,11 +26,11 @@
    twice, a q/k slab left out of S, a v slice written from another slice's
    P.V; SINGLE_FAULTS), at batch 2 and 1; and the backward at the same
    widths on the kernels `bwd_form` names (two heads of 64, 192 and 320 on
-   csrc/flash_bwd_sm90.cu, twice for the same bits; 448 and 72 on the
-   template), within the gradient bar, every planted fault of phase 8
-   rejected. Times kernel (the packed sites at batch 2 and batch 1), plain
-   version, and as a yardstick only F.scaled_dot_product_attention (which
-   the port never calls).
+   csrc/flash_bwd_sm90.cu, 448 and 72 on csrc/flash_bwd_wide_sm90.cu, each
+   twice for the same bits), within the gradient bar, every planted fault
+   of phase 8 (with each kernel's own) rejected. Times kernel (the packed
+   sites at batch 2 and batch 1), plain version, and as a yardstick only
+   F.scaled_dot_product_attention (which the port never calls).
 3. Slice phase: builds FocusModel at phi='s' 640x640 (bf16, seeded random
    weights, dark3 gamma 0.5 so the attention output reaches the detections,
    class biases set so that about CANDIDATES_PER_IMAGE anchors an image pass
@@ -176,9 +176,9 @@
    flash_bwd_dkv) at every training site of phi 'n', 'm', 'l' and 'x'
    640x640 (packed heads of 128 to 1,536 and 3,584, dark3 q/k 32 to 512 and
    v 256 to 4,096, folded heads of 283 and 599 as the fold copy pads them),
-   at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and peaked
-   inputs, with the bars of phase 8 (fp32: 1e-4) and a bit-identical
-   forward and backward (packed bf16 heads of 128 to 384 on
+   at 480x576 (N = 4,320; phi 's', 'm', 'l') and in fp32, batch 2,
+   near-flat and peaked inputs, with the bars of phase 8 (fp32: 1e-4) and
+   a bit-identical forward and backward (packed bf16 heads of 128 to 384 on
    csrc/flash_bwd_sm90.cu; every fp32 forward on csrc/flash_fwd_f32_sm90.cu,
    with its faults as in 10 and lse written from the running max of the
    tile before the last; every fp32 backward on csrc/flash_bwd_f32_sm90.cu,
@@ -191,12 +191,22 @@
    folded 288 and 600) on csrc/flash_bwd_single_sm90.cu, with the ring and
    hand-over faults and its own: one v slab left out of dP^T, a dV column
    slice built from another slice's dO columns, the zero-filled columns
-   past 288 or 600 (or dark3's q/k of 32) made nonzero);
+   past 288 or 600 (or dark3's q/k of 32) made nonzero); every bf16 site
+   of phi 'l' and 'x' (the neck heads of 768 to 3,584, dark3 256 / 2,048
+   and 512 / 4,096, also at 480x576) on csrc/flash_bwd_wide_sm90.cu, its
+   `wide_launches` asserted at every site, with the ring faults on 64-token
+   tiles and its own: the last 256-column block of a gradient unwritten, a
+   workspace row tile taken from another head (or, one head, another
+   query or key tile);
    the phi='s' faults (with the sm90 kernels' own where they run) and those
    of the width loop (a q/k slab left out of S, a v/dO slab left out of dP,
    the last dv pass unwritten, the tail key tile left out) each rejected on
    some input spread; phi='m' (bf16), phi='n' (fp32) and phi='n' bf16's
-   one-head sites timed beside bound, plain and SDPA.
+   one-head sites timed beside bound, plain and SDPA, and phi='l''s
+   backward at every site (the wide kernels) likewise. Then rows 10 and 11
+   at phi='l''s tensor-parallel local shapes (WIDE_TP_SHAPES: tp 4, two
+   heads of 1,536 and 768; tp 8, one head of each; batch 2) on the wide
+   kernels, checked and timed the same way (`wide_tp_phase`).
    Then the folded route through attention(..., train=True) at phi 'n' and
    'm' h1 against plain, and a padded fold column leaking into dq rejected.
 15. phi='m' 640x640 training at full width with remat (1.354 B parameters):
@@ -303,7 +313,10 @@
    reject a qmm K slab dropped; every launch of the batch-16 int8_1x1
    forward against plain, timed beside bound, plain and torch._int_mm with
    the epilogue; batch-32 imgs/s of bf16, int8, int8_1x1 and both, two
-   rounds; QuantDense's launches against plain.
+   rounds; QuantDense's launches against plain. `python3 chip_smoke.py
+   wide` runs, after the build, the off-grid backward of 2, the train
+   scale kernel phase of 14 and the wide TP phase alone, without the
+   result line.
 20. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
@@ -316,8 +329,11 @@
    9-11 at phi='m' (split: row 9 at dark3 and the folded h1 under
    the one-head form of csrc/flash_fwd_sm90.cu, rows 10 and 11 under
    csrc/flash_bwd_single_sm90.cu, each site's time, bound, plain and SDPA
-   apart in `sites`), rows 9-11 at the one-head sites of phi='n', and in
-   fp32 last; the phi='s' entries of rows 1, 2 and 9-11 also carry the
+   apart in `sites`), rows 9-11 at the one-head sites of phi='n', rows 10
+   and 11 at phi='l''s sites and its tensor-parallel local shapes on
+   csrc/flash_bwd_wide_sm90.cu ("... wide_sm90 phi=l", "... tp=4", "...
+   tp=8"; launches those the phase counted, one a site), and in fp32 last;
+   the phi='s' entries of rows 1, 2 and 9-11 also carry the
    fit phase's launches as `fit_launches`, rows 1 and 2 the launches of
    the api phase's bf16 detect_image calls as `api_launches`; the fp32
    forms of
@@ -804,7 +820,7 @@ def off_grid_phase(randn, qk_std) -> None:
 def off_grid_backward(randn, qk_std) -> None:
     """flash_bwd_dq and flash_bwd_dkv at the OFF_GRID widths, each launch
     counted on the kernel `bwd_form` names (two heads of 64, 192 and 320 on
-    the sm90 kernels, 448 and 72 on the template): against their plain
+    the sm90 kernels, 448 and 72 on the wide kernels): against their plain
     versions within the gradient bar, twice for the same bits, each planted
     fault of `_bwd_faults` (with the sm90 kernels' own) rejected on some
     input spread."""
@@ -815,7 +831,7 @@ def off_grid_backward(randn, qk_std) -> None:
     for b, n, c, h in OFF_GRID:
         d, scale = c // h, (c // h) ** -0.5
         form = V.bwd_form(d, d, h, torch.bfloat16)
-        check(form == ("sm90" if d % 64 == 0 and d <= 384 else "mma_sync"),
+        check(form == ("sm90" if d % 64 == 0 and d <= 384 else "wide_sm90"),
               f"backward, heads of {d}: form {form}")
         sm90 = form == "sm90"
         rejected = {}
@@ -835,7 +851,7 @@ def off_grid_backward(randn, qk_std) -> None:
             again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
             torch.cuda.synchronize()
             counts = ((V.flash_bwd_dq.sm90_launches, V.flash_bwd_dkv.sm90_launches) if sm90
-                      else (V.flash_bwd_dq.launches, V.flash_bwd_dkv.launches))
+                      else (V.flash_bwd_dq.wide_launches, V.flash_bwd_dkv.wide_launches))
             check(counts == (2, 2), f"{what}: launches {counts}")
             check(all(torch.equal(got[g], again[g]) for g in got),
                   f"{what}: two runs gave different bits")
@@ -970,7 +986,7 @@ def kernel_entry(name, source, replaces, rows, launches):
 
 KERNEL_CLASSES = (  # first match wins: convolutions run as implicit GEMMs
     ("flash attention (ours)", ("flash_fwd_",)),   # bf16 and fp32 forms
-    ("flash attention backward (ours)", ("flash_bwd_",)),  # sm90, template and fp32 forms
+    ("flash attention backward (ours)", ("flash_bwd_", "wide_")),  # sm90, wide and fp32 forms
     ("optimizer and EMA (foreach)", ("multi_tensor", "foreach")),
     ("int8 flash attention (ours)", ("flash_int8_kernel", "flash_int8_sm90_kernel")),
     ("int8 GEMM (ours)", ("qmm_sm90_kernel", "rows_out_kernel")),
@@ -3120,7 +3136,8 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
     Where `bwd_form` sends the call to the sm90 kernels, also the faults
     their ring and hand-over can commit: a key tile read twice in dq and a
     query tile read twice in dk/dv, each with its neighbour never read, and
-    dS^T formed with the previous query tile's P^T."""
+    dS^T formed with the previous query tile's P^T; on the wide kernels
+    those on 64-token tiles (the GEMM's ring) and `_wide_bwd_faults`."""
     import torch
 
     dq = lambda *a: {"dq": V.flash_bwd_dq_plain(*a, scale, h)}
@@ -3137,7 +3154,7 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
         sound = both(q, k, v, do, lse, dcap)
         faults["scale_missing_from_dS"] = {"dq": sound["dq"] / scale, "dk": sound["dk"] / scale}
     form = V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype)
-    if form in ("sm90", "f32_sm90", "single_sm90"):  # the same ring and hand-over
+    if form in ("sm90", "f32_sm90", "single_sm90", "wide_sm90"):  # the same ring and hand-over
         tiles = (64, 64)
         if form == "single_sm90":  # its plans' token tiles
             plans = V.bwd_single_sm90_plan(q.shape[-1], v.shape[-1])
@@ -3147,7 +3164,53 @@ def _bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
         faults.update(_f32_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
     if form == "single_sm90":
         faults.update(_single_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
+    if form == "wide_sm90":
+        faults.update(_wide_bwd_faults(V, q, k, v, do, lse, dcap, scale, h))
     return faults
+
+
+def _wide_bwd_faults(V, q, k, v, do, lse, dcap, scale, h):
+    """The faults of csrc/flash_bwd_wide_sm90.cu's design: the last
+    256-column block of a GEMM's output unwritten (each gradient of each
+    head from the last multiple of 256 on), and the workspace's row tile 1
+    (rows 64..127: queries in dq, keys in dk/dv) taken from another head's
+    (packed heads: the next one's P and dS against this head's K, Q, dO)
+    or, with one head, from row tile 2's."""
+    import torch
+
+    sound = {"dq": V.flash_bwd_dq_plain(q, k, v, do, lse, dcap, scale, h)}
+    sound["dk"], sound["dv"] = V.flash_bwd_dkv_plain(q, k, v, do, lse, dcap, scale, h)
+    cut = {}
+    for g, t in sound.items():
+        x = t.clone().reshape(*t.shape[:2], h, t.shape[-1] // h)
+        x[..., (x.shape[-1] - 1) // 256 * 256:] = 0
+        cut[g] = x.reshape(t.shape)
+    rows = slice(64, 128)
+    if h == 1:
+        other = {g: t.clone() for g, t in sound.items()}
+        for g, t in other.items():
+            t[:, rows] = sound[g][:, 128:192]
+        return {"last_column_block_unwritten": cut, "workspace_tile_from_other": other}
+    qh, kh, vh, doh = (V._split_heads(t, h).float() for t in (q, k, v, do))
+    lse4, d4 = V._stats4(lse, h).float(), V._stats4(dcap, h).float()
+    nxt = lambda t: torch.roll(t, -1, dims=1)
+    s_scale, log2e = scale * V.A.LOG2E, V.A.LOG2E
+    # dq's query rows from the next head's dS
+    p = torch.exp2(nxt(qh)[..., rows, :] @ nxt(kh).transpose(-1, -2) * s_scale
+                   - nxt(lse4)[..., rows, :] * log2e)
+    ds = p * (nxt(doh)[..., rows, :] @ nxt(vh).transpose(-1, -2) - nxt(d4)[..., rows, :]) * scale
+    got = {"dq": ds.to(q.dtype).float() @ kh}
+    # dk's and dv's key rows from the next head's dS^T and P^T
+    pt = torch.exp2(nxt(qh) @ nxt(kh)[..., rows, :].transpose(-1, -2) * s_scale - nxt(lse4) * log2e)
+    dst = pt * (nxt(doh) @ nxt(vh)[..., rows, :].transpose(-1, -2) - nxt(d4)) * scale
+    got["dk"] = dst.to(q.dtype).float().transpose(-1, -2) @ qh
+    got["dv"] = pt.to(do.dtype).float().transpose(-1, -2) @ doh
+    other = {}
+    for g, r in got.items():
+        x = V._split_heads(sound[g], h).clone()
+        x[..., rows, :] = r.to(x.dtype)
+        other[g] = V.A._heads_last(x)
+    return {"last_column_block_unwritten": cut, "workspace_tile_from_other": other}
 
 
 def _next_row_columns(t, width):
@@ -3502,7 +3565,7 @@ def train_path_calls(step, state, batch, restore, expected_counts) -> None:
             return out
         # the wrapper counts on the name it is bound to
         launch.launches = launch.sm90_launches = launch.f32_launches = 0
-        launch.single_launches = 0
+        launch.single_launches = launch.wide_launches = 0
         return launch
 
     for name in real:
@@ -3568,11 +3631,11 @@ def train_launch_counts():
                     "flash_fwd_lse_sm90": V.flash_fwd_lse.sm90_launches,
                     "flash_fwd_lse_single": V.flash_fwd_lse.single_launches,
                     "flash_fwd_lse_f32": V.flash_fwd_lse.f32_launches,
-                    "flash_bwd_dq": V.flash_bwd_dq.launches,
+                    "flash_bwd_dq_wide": V.flash_bwd_dq.wide_launches,
                     "flash_bwd_dq_sm90": V.flash_bwd_dq.sm90_launches,
                     "flash_bwd_dq_f32": V.flash_bwd_dq.f32_launches,
                     "flash_bwd_dq_single": V.flash_bwd_dq.single_launches,
-                    "flash_bwd_dkv": V.flash_bwd_dkv.launches,
+                    "flash_bwd_dkv_wide": V.flash_bwd_dkv.wide_launches,
                     "flash_bwd_dkv_sm90": V.flash_bwd_dkv.sm90_launches,
                     "flash_bwd_dkv_f32": V.flash_bwd_dkv.f32_launches,
                     "flash_bwd_dkv_single": V.flash_bwd_dkv.single_launches,
@@ -3607,14 +3670,15 @@ def train_expected(cfg, tp: int = 1) -> dict:
 
     counts = {"flash_fwd_lse": 0, "flash_fwd_lse_sm90": 0, "flash_fwd_lse_single": 0,
               "flash_fwd_lse_f32": 0,
-              "flash_bwd_dq": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_f32": 0,
-              "flash_bwd_dq_single": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": 0,
+              "flash_bwd_dq_wide": 0, "flash_bwd_dq_sm90": 0, "flash_bwd_dq_f32": 0,
+              "flash_bwd_dq_single": 0, "flash_bwd_dkv_wide": 0, "flash_bwd_dkv_sm90": 0,
               "flash_bwd_dkv_f32": 0, "flash_bwd_dkv_single": 0, "flash_mha_packed": 0,
               "flash_mha_packed_sm90": 0,
               "flash_mha_packed_f32": 0, "flash_single_sm90": 0, "flash_single_f32": 0,
               "flash_mha_int8_sm90": 0, "qmm": 0, "quant_rows": 0}
     dtype = getattr(torch, cfg.compute_dtype)
-    suffix = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single"}
+    suffix = {"sm90": "_sm90", "f32_sm90": "_f32", "single_sm90": "_single",
+              "wide_sm90": "_wide"}
     for name, (n, cq, cv, heads, _) in scale_sites(cfg.phi, cfg.input_shape).items():
         if tp > 1 and name != "dark3" and heads % tp == 0:  # a TP rank's local heads
             cq, cv, heads = cq // tp, cv // tp, heads // tp
@@ -3627,7 +3691,7 @@ def train_expected(cfg, tp: int = 1) -> dict:
         widths = (pad8(cq // heads), pad8(cv // heads), heads if route == "packed" else 1, dtype)
         counts["flash_fwd_lse" + suffix.get(V.lse_fwd_form(*widths), "")] += (
             2 if cfg.remat and name != "dark3" else 1)
-        bwd = suffix.get(V.bwd_form(*widths), "")
+        bwd = suffix[V.bwd_form(*widths)]
         counts["flash_bwd_dq" + bwd] += 1
         counts["flash_bwd_dkv" + bwd] += 1
     return counts
@@ -4786,21 +4850,25 @@ def _scale_train_faults(q, k, v, do, lse, dcap, scale, h, sound):
 
 
 TRAIN_SCALE_CASES = tuple((phi, (640, 640), "bfloat16") for phi in SCALE_PHIS) + (
-    ("s", (480, 576), "bfloat16"), ("m", (480, 576), "bfloat16"),
+    ("s", (480, 576), "bfloat16"), ("m", (480, 576), "bfloat16"), ("l", (480, 576), "bfloat16"),
     ("n", (640, 640), "float32"), ("n", (480, 576), "float32"))
 
 
 def train_scale_kernel_phase() -> dict:
     """Rows 9-11 at every training site of phi 'n', 'm', 'l' and 'x'
-    640x640, at 480x576 (N = 4,320) and in fp32, batch 2, near-flat and
-    peaked inputs: the forward's out within the kernel bar (fp32: the fp32
-    bar) and lse within LSE_ATOL (fp32: 1e-4), the gradients within the
-    gradient bar, the backward bit-identical over two runs; each planted
+    640x640, at 480x576 (N = 4,320; phi 's', 'm' and 'l') and in fp32,
+    batch 2, near-flat and peaked inputs: the forward's out within the
+    kernel bar (fp32: the fp32 bar) and lse within LSE_ATOL (fp32: 1e-4),
+    the gradients within the gradient bar, the backward bit-identical over two runs; each planted
     fault (those of the phi='s' phase, a q/k slab left out of S, a v/dO
     slab left out of dP, the last dv pass unwritten, the tail key tile
-    left out) rejected on some input spread. Times the phi='m' sites (bf16)
-    and the phi='n' sites (fp32) beside bound, plain and SDPA forward /
-    backward. Returns {"rows": {form: [site rows]}, "err": {form: max abs}}."""
+    left out) rejected on some input spread; the wide kernels' launches
+    counted at every site of phi 'l' and 'x', with their design's faults.
+    Times the phi='m' sites (bf16) and the phi='n' sites (fp32) beside
+    bound, plain and SDPA forward / backward, and the backward at every
+    phi='l' site (640x640, bf16). Returns {"rows": {form: [site rows]},
+    "err": {form: max abs}, "wide_launches": {kernel: the wide kernels'
+    counted launches at phi='l' 640x640, one a site}}."""
     import torch
     import torch.nn.functional as F
 
@@ -4809,6 +4877,7 @@ def train_scale_kernel_phase() -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
     rows = {}
     err = {}
+    wide_launches = {"flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     for phi, hw, dtype in TRAIN_SCALE_CASES:
         dt = getattr(torch, dtype)
         is32 = dt == torch.float32
@@ -4852,6 +4921,14 @@ def train_scale_kernel_phase() -> dict:
                 if is32:  # every fp32 backward on csrc/flash_bwd_f32_sm90.cu
                     check(V.flash_bwd_dq.f32_launches == 1 and V.flash_bwd_dkv.f32_launches == 1,
                           f"{tag}: the fp32 backward did not run the f32_sm90 kernels")
+                if phi in ("l", "x") and not is32:  # every bf16 call on the wide kernels
+                    check(V.bwd_form(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype)
+                          == "wide_sm90" and V.flash_bwd_dq.wide_launches == 1
+                          and V.flash_bwd_dkv.wide_launches == 1,
+                          f"{tag}: the backward did not run the wide_sm90 kernels")
+                    if phi == "l" and hw == (640, 640) and score_std == SCORE_STDS[0]:
+                        for kname in wide_launches:
+                            wide_launches[kname] += getattr(V, kname).wide_launches
                 again = {"dq": V.flash_bwd_dq(*args)}
                 again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
                 torch.cuda.synchronize()
@@ -4882,14 +4959,17 @@ def train_scale_kernel_phase() -> dict:
             suffix = " fp32" if is32 else ""
             for kname in TRAIN_KERNELS:  # by kernel: the sm90 ones' sites apart
                 rule = V.lse_fwd_form if kname == "flash_fwd_lse" else V.bwd_form
-                form = kname + suffix + {"sm90": " sm90", "single_sm90": " single_sm90"}.get(
+                form = kname + suffix + {"sm90": " sm90", "single_sm90": " single_sm90",
+                                         "wide_sm90": " wide_sm90"}.get(
                     rule(q.shape[-1] // h, v.shape[-1] // h, h, q.dtype), "")
                 err[form] = max(err.get(form, 0.0),
                                 max(x["max_abs_err"] for x in readings[kname]))
-            # phi='m' bf16, phi='n' fp32 and phi='n' bf16's one-head sites
+            # phi='m' bf16, phi='n' fp32 and phi='n' bf16's one-head sites;
+            # phi='l''s backward (the wide kernels)
+            wide = phi == "l" and hw == (640, 640) and not is32
             timed = (phi == "m" and hw == (640, 640) and not is32) or \
                 (is32 and phi == "n" and hw == (640, 640) and name != "phi=m h4") or \
-                (phi == "n" and hw == (640, 640) and not is32 and route != "packed")
+                (phi == "n" and hw == (640, 640) and not is32 and route != "packed") or wide
             if not timed:
                 continue
             # time on the last (peaked) inputs
@@ -4912,7 +4992,7 @@ def train_scale_kernel_phase() -> dict:
             sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 5, 1) - sdpa_fwd, 0.0)
             library = {"flash_fwd_lse": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
                        "flash_bwd_dkv": sdpa_bwd}
-            for kname in TRAIN_KERNELS:
+            for kname in TRAIN_KERNELS[1:] if wide else TRAIN_KERNELS:
                 peak = F32_FLASH_FLOPS if is32 else PEAK_BF16_FLOPS
                 ops, nbytes = costs[kname]
                 nbytes *= q.element_size() / 2
@@ -4930,8 +5010,114 @@ def train_scale_kernel_phase() -> dict:
                            bound_by="operations" if t_ops >= t_bytes else "bytes")
                 rows.setdefault(kname + (" fp32 phi=n" if is32 else f" phi={phi}"), []).append(row)
                 print(json.dumps({"kernel": kname + suffix, **row}), flush=True)
-    print(json.dumps({"train_scale_kernel_max_abs_err": err}), flush=True)
-    return {"rows": rows, "err": err}
+    print(json.dumps({"train_scale_kernel_max_abs_err": err,
+                      "wide_launches_phi_l": wide_launches}), flush=True)
+    return {"rows": rows, "err": err, "wide_launches": wide_launches}
+
+
+# rows 10 and 11 at phi='l''s tensor-parallel local shapes (B, N, q/k, v,
+# heads on a rank; the neck sites' 8 heads divided by tp): tp 4 holds two
+# heads of 1,536 (h1) and of 768 (h2, h4), tp 8 one; dark3, not sharded, is
+# the one-device site of the train scale kernel phase
+WIDE_TP_SHAPES = {4: {"h1 tp=4": (2, 1600, 3072, 3072, 2), "h2 tp=4": (2, 6400, 1536, 1536, 2),
+                      "h4 tp=4": (2, 1600, 1536, 1536, 2)},
+                  8: {"h1 tp=8": (2, 1600, 1536, 1536, 1), "h2 tp=8": (2, 6400, 768, 768, 1),
+                      "h4 tp=8": (2, 1600, 768, 768, 1)}}
+
+
+def wide_tp_phase() -> dict:
+    """flash_bwd_dq and flash_bwd_dkv at WIDE_TP_SHAPES (batch 2; the local
+    heads as column views of one packed qkv, scale d ** -0.5), near-flat and
+    peaked inputs: every call on the wide kernels (counted in
+    `wide_launches`), twice for the same bits, within the gradient bar of
+    plain, every fault of `_bwd_faults` (the wide kernels' own included) and
+    of `_scale_train_faults` rejected on some input spread; timed on the
+    peaked inputs beside bound, plain and SDPA's backward. -> {tp: {"rows":
+    {kernel: [site rows]}, "launches": {kernel: counted launches, one a
+    site}}}"""
+    import torch
+    import torch.nn.functional as F
+
+    from transparent_object_detection_tpu_torch.ops import attention_vjp as V
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+    kernels = TRAIN_KERNELS[1:]
+    out = {}
+    for tp, shapes in WIDE_TP_SHAPES.items():
+        rows = {kname: [] for kname in kernels}
+        launches = {kname: 0 for kname in kernels}
+        for node, (b, n, cq, cv, h) in shapes.items():
+            scale = (cq // h) ** -0.5
+            tag = f"phi=l {node} ({h} x {cq // h})"
+            check(V.bwd_form(cq // h, cv // h, h, torch.bfloat16) == "wide_sm90",
+                  f"{tag}: not on the wide kernels")
+            readings = {kname: [] for kname in kernels}
+            rejected = {}
+            for score_std in SCORE_STDS:
+                q, k, v, do, _ = _train_call_inputs(gen, b, "packed", n, cq, cv, h, scale,
+                                                    score_std, torch.bfloat16)
+                pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+                args = (q, k, v, do, plse, V.compute_dcap(pout, do, h), scale, h)
+                V.reset_launch_counts()
+                got = {"dq": V.flash_bwd_dq(*args)}
+                got["dk"], got["dv"] = V.flash_bwd_dkv(*args)
+                counted = {kname: getattr(V, kname).wide_launches for kname in kernels}
+                check(all(c == 1 for c in counted.values()),
+                      f"{tag}: wide launches {counted}")
+                if score_std == SCORE_STDS[0]:
+                    for kname, c in counted.items():
+                        launches[kname] += c
+                again = {"dq": V.flash_bwd_dq(*args)}
+                again["dk"], again["dv"] = V.flash_bwd_dkv(*args)
+                torch.cuda.synchronize()
+                check(all(torch.equal(got[g], again[g]) for g in got),
+                      f"flash backward {tag}: two runs gave different bits")
+                ref = {"dq": V.flash_bwd_dq_plain(*args)}
+                ref["dk"], ref["dv"] = V.flash_bwd_dkv_plain(*args)
+                faults = {**_bwd_faults(V, *args), **_scale_train_faults(*args, sound=ref)}
+                for kname, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+                    r = {"score_std": score_std, "bitwise_repeat": True}
+                    for g in grads:
+                        r[g] = grad_reading(got[g], ref[g])
+                        check(r[g]["bar_used"] <= 1.0, f"{kname} {tag} {g}: {r[g]}")
+                    r["bar_used"] = max(r[g]["bar_used"] for g in grads)
+                    r["max_abs_err"] = max(r[g]["max_abs_err"] for g in grads)
+                    readings[kname].append(r)
+                    for f, fg in faults.items():
+                        used = [grad_reading(fg[g], ref[g])["bar_used"] for g in grads if g in fg]
+                        if used:
+                            key = f"{kname} {f}"
+                            rejected[key] = max(rejected.get(key, 0.0), max(used))
+            for f, used in rejected.items():
+                check(used > 1.0, f"{tag}: the bar rejects {f} on no input spread ({used:.3g}x)")
+            print(json.dumps({"wide_tp_case": tag, "n": n, "cq": cq, "cv": cv, "heads": h,
+                              "readings": readings, "faults_rejected_by": rejected}), flush=True)
+            # time on the last (peaked) inputs
+            costs = _train_costs(b, n, cq, cv, h)
+            qh, kh, vh, doh = (V._split_heads(t, h).detach().contiguous() for t in (q, k, v, do))
+            qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+            sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                                5, 1)
+
+            def sdpa_fwd_bwd():
+                F.scaled_dot_product_attention(qh, kh, vh, scale=scale).backward(doh)
+            sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 5, 1) - sdpa_fwd, 0.0)
+            kern = {"flash_bwd_dq": lambda: V.flash_bwd_dq(*args),
+                    "flash_bwd_dkv": lambda: V.flash_bwd_dkv(*args)}
+            plain = {"flash_bwd_dq": lambda: V.flash_bwd_dq_plain(*args),
+                     "flash_bwd_dkv": lambda: V.flash_bwd_dkv_plain(*args)}
+            for kname in kernels:
+                bnd, by = bound_ms(*costs[kname])
+                rows[kname].append(dict(
+                    node=node, b=b, n=n, cq=cq, cv=cv, heads=h, form="wide_sm90",
+                    readings=readings[kname],
+                    max_abs_err=max(x["max_abs_err"] for x in readings[kname]),
+                    ms=timed_ms(kern[kname], 5, 1), plain_ms=timed_ms(plain[kname], 1, 1),
+                    library_ms=sdpa_bwd, bound_ms=bnd, bound_by=by))
+                print(json.dumps({"kernel": kname + f" wide_sm90 tp={tp}", **rows[kname][-1]}),
+                      flush=True)
+        out[tp] = {"rows": rows, "launches": launches}
+    return out
 
 
 def _leaky_fold(real_fold):
@@ -6950,6 +7136,14 @@ def main() -> int:
         print(json.dumps({"parallel_kernels": parallel_kernel_entries(par)
                           + tp_train_kernel_entries(par)}))
         return 0
+    if sys.argv[1:] == ["wide"]:  # the wide backward's checks alone, no result line
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+        qk_std = lambda score_std, scale, d: (score_std / (scale * d ** 0.5)) ** 0.5
+        phase("off grid backward", off_grid_backward, randn, qk_std)
+        phase("train scale kernel", train_scale_kernel_phase)
+        phase("wide tp", wide_tp_phase)
+        return 0
     if sys.argv[1:] == ["int8_1x1"]:  # the int8 1x1 route alone (bf16 weights), no result line
         from transparent_object_detection_tpu_torch.config import ModelConfig
         from transparent_object_detection_tpu_torch.models.detector import build_model
@@ -6986,6 +7180,7 @@ def main() -> int:
     l_run = phase("phi=l slice", scale_slice_phase, card, "l", ("bf16", "int8", "A", "B"),
                   (2, 1), timed=True, shared=True, fp32=False, big=(32, 16, 8))
     train_scale = phase("train scale kernel", train_scale_kernel_phase)
+    wide_tp = phase("wide tp", wide_tp_phase)
     phase("folded route", folded_route_check)
     from transparent_object_detection_tpu_torch.config import ModelConfig
 
@@ -7000,7 +7195,7 @@ def main() -> int:
     api = phase("api", api_phase, card)
     torch.cuda.empty_cache()
     par = phase("parallel", parallel_phase, card)
-    vsrc = "transparent_object_detection_tpu_torch/csrc/flash_attn_bwd.cu"
+    vsrc = "transparent_object_detection_tpu_torch/csrc/flash_bwd_wide_sm90.cu"
     jv = "transparent_object_detection_tpu/ops/attention_vjp.py"
     src = "transparent_object_detection_tpu_torch/csrc/flash_attn_fwd.cu"
     sm90_src = "transparent_object_detection_tpu_torch/csrc/flash_fwd_sm90.cu"
@@ -7144,6 +7339,17 @@ def main() -> int:
                 f"{name} {label}", f32_source if suffix else source, f"{jv}:{line}", rows,
                 run["launches"][name + ("_f32" if suffix else "")],
                 train_scale["err"].get(name + suffix, 0.0)))
+    # rows 10 and 11 on the wide kernels: phi='l''s sites (the train scale
+    # kernel phase's timed backward, by site) and its tensor-parallel local
+    # shapes (wide_tp_phase); launches those the phases counted, one a site
+    for name, line in (("flash_bwd_dq", 170), ("flash_bwd_dkv", 197)):
+        kernels.append(by_site(int8_kernel_entry(
+            f"{name} wide_sm90 phi=l", vsrc, f"{jv}:{line}", train_scale["rows"][f"{name} phi=l"],
+            train_scale["wide_launches"][name], train_scale["err"][name + " wide_sm90"])))
+        for tp, r in wide_tp.items():
+            kernels.append(by_site(int8_kernel_entry(
+                f"{name} wide_sm90 phi=l tp={tp}", vsrc, f"{jv}:{line}", r["rows"][name],
+                r["launches"][name], 0.0)))
     # the training pipeline (Trainer.fit): its launches of rows 1, 2 and 9-11
     # as `fit_launches` on the same kernels' phi='s' entries
     by_name = {k["name"]: k for k in kernels}

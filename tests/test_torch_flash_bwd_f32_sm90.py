@@ -5,8 +5,8 @@ The kernels cannot run here; what is held here is what surrounds them:
   * the form rule (`attention_vjp.bwd_form`): at every scale (phi 'n' to
     'x') and at 640x640 and 480x576, every fp32 training site, packed,
     single-head or folded, takes the fp32 Hopper backward ("f32_sm90"); no
-    fp32 site is left on another form, and the CUDA-core FFMA kernel is gone
-    from csrc/flash_attn_bwd.cu;
+    fp32 site is left on another form, and no source holds the CUDA-core
+    FFMA kernel;
   * the launch plans (`attention_vjp.bwd_f32_sm90_plan`) at every site: the
     shared memory recomputed here within the card's 227 KB, every wgmma N a
     multiple of 8 and at most 256, the output passes and the warpgroups'
@@ -67,17 +67,20 @@ def _fp32_sites():
 def test_bwd_form_every_fp32_training_site(phi):
     """Every fp32 training call of `phi` (640x640 and 480x576: packed,
     single-head and folded) takes the fp32 Hopper backward, whatever its
-    widths; bf16 keeps its own three forms; the FFMA kernel and its fp32
-    flag are gone from the template's source."""
+    widths; bf16 keeps its own three forms; no backward source holds the
+    FFMA kernel or its fp32 flag (the mma.sync template that held them is
+    deleted)."""
     calls = [s for s in _fp32_sites() if s[0] == phi]
     assert {s[3] for s in calls} >= {"packed", "single"}, phi
     for _, hw, name, route, n, dqk, dv, heads in calls:
         assert tvjp.bwd_form(dqk, dv, heads, torch.float32) == "f32_sm90", (hw, name)
         assert tvjp.bwd_form(dqk, dv, heads, torch.bfloat16) in (
-            "sm90", "single_sm90", "mma_sync"), (hw, name)
+            "sm90", "single_sm90", "wide_sm90"), (hw, name)
         assert tvjp.kernel_supports(n, dqk, dv, heads, torch.float32), (hw, name)
-    src = (CSRC / "flash_attn_bwd.cu").read_text()
-    assert "flash_bwd_f32_kernel" not in src and "int f32" not in src
+    assert not (CSRC / "flash_attn_bwd.cu").exists()
+    for path in CSRC.glob("flash_bwd_*.cu"):
+        src = path.read_text()
+        assert "flash_bwd_f32_kernel" not in src and "int f32" not in src, path.name
 
 
 def _smem(kernel, plan) -> int:

@@ -63,8 +63,8 @@ def _single_sites():
 @pytest.mark.parametrize("phi", PHIS)
 def test_single_form_at_every_training_site(phi):
     """bf16 one-head sites of phi 'n', 's' and 'm' (dark3 and the folded
-    heads) take the one-head kernels; dark3 of phi 'l' and 'x' keeps the
-    template; packed heads keep the packed sm90 kernels or the template;
+    heads) take the one-head kernels; dark3 of phi 'l' and 'x' takes the
+    wide kernels; packed heads the packed sm90 kernels or the wide ones;
     fp32 takes the fp32 kernels."""
     dark3 = {"n": (32, 256), "s": (64, 512), "m": (128, 1024), "l": (256, 2048),
              "x": (512, 4096)}
@@ -75,12 +75,12 @@ def test_single_form_at_every_training_site(phi):
             tag = (hw, name, route, dq, dv, heads)
             if route == "single":
                 assert (dq, dv) == dark3[phi], tag
-                assert form == ("mma_sync" if phi in ("l", "x") else "single_sm90"), tag
+                assert form == ("wide_sm90" if phi in ("l", "x") else "single_sm90"), tag
             elif route == "folded":
                 assert (dq, dv, heads) == (folded[phi], folded[phi], 1), tag
                 assert form == "single_sm90", tag
             else:
-                assert heads > 1 and form in ("sm90", "mma_sync"), tag
+                assert heads > 1 and form in ("sm90", "wide_sm90"), tag
             assert tvjp.bwd_form(dq, dv, heads, torch.float32) == "f32_sm90", tag
 
 
@@ -88,14 +88,14 @@ def test_single_form_off_the_routed_widths():
     """Widths that share the forms of the training sites (dark3's of phi
     'n' to 'm', the folded heads') take the one-head kernels with one head
     only; v narrower than q/k, plans that do not fit (phi 'l' dark3) or
-    that the library has no instantiation for keep the template; the plan
-    refuses what the rule refuses."""
+    that the library has no instantiation for take the wide kernels; the
+    plan refuses what the rule refuses."""
     for dq, dv in ((64, 256), (128, 512), (296, 296), (576, 576), (640, 640)):
         assert tvjp.bwd_form(dq, dv, 1, torch.bfloat16) == "single_sm90", (dq, dv)
         assert tvjp.bwd_form(dq, dv, 2, torch.bfloat16) != "single_sm90", (dq, dv)
     for dq, dv in ((648, 648), (256, 128), (256, 2048), (64, 320), (0, 64), (60, 64),
                    (8, 8), (256, 256)):
-        assert tvjp.bwd_form(dq, dv, 1, torch.bfloat16) == "mma_sync", (dq, dv)
+        assert tvjp.bwd_form(dq, dv, 1, torch.bfloat16) == "wide_sm90", (dq, dv)
         with pytest.raises(ValueError):
             tvjp.bwd_single_sm90_plan(dq, dv)
 
@@ -395,4 +395,4 @@ def test_single_wrappers_never_fall_back_off_cpu():
             with pytest.raises(ValueError, match="CUDA tensor"):
                 fn(q, k, v, do, lse, dcap, 1.0, 1)
     for fn in (tvjp.flash_bwd_dq, tvjp.flash_bwd_dkv):
-        assert fn.single_launches == 0 and fn.launches == 0
+        assert fn.single_launches == 0 and fn.wide_launches == 0

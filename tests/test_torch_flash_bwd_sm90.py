@@ -5,7 +5,8 @@ The kernels cannot run here; what is held here is what surrounds them:
   * the rule (`attention_vjp.bwd_form`): at every scale (phi 'n' to 'x')
     and at 640x640 and 480x576, every packed bf16 training site of phi 'n',
     's' and 'm' (heads of 128, 256 and 384) takes the sm90 kernels, the
-    wider packed heads of phi 'l' and 'x' keep csrc/flash_attn_bwd.cu, the
+    wider packed heads of phi 'l' and 'x' take csrc/flash_bwd_wide_sm90.cu
+    (tests/test_torch_flash_bwd_wide_sm90.py), the
     single-head and folded sites of phi 'n' to 'm' take
     csrc/flash_bwd_single_sm90.cu (tests/test_torch_flash_bwd_single_sm90.py),
     fp32 takes csrc/flash_bwd_f32_sm90.cu
@@ -83,11 +84,11 @@ def _sm90_sites():
 @pytest.mark.parametrize("phi", PHIS)
 def test_bwd_form_at_every_training_site(phi):
     """Packed bf16 heads of phi 'n', 's' and 'm' (128, 256, 384) take the
-    sm90 kernels; phi 'l' and 'x' packed heads (768 and wider) keep the
-    template; dark3 and the folded heads of phi 'n', 's' and 'm' take the
-    one-head kernels (tests/test_torch_flash_bwd_single_sm90.py), dark3 of
-    phi 'l' and 'x' the template; every fp32 call takes the fp32 Hopper
-    backward."""
+    sm90 kernels; phi 'l' and 'x' packed heads (768 and wider) take the
+    wide kernels; dark3 and the folded heads of phi 'n', 's' and 'm' take
+    the one-head kernels (tests/test_torch_flash_bwd_single_sm90.py), dark3
+    of phi 'l' and 'x' the wide kernels; every fp32 call takes the fp32
+    Hopper backward."""
     widths = {"n": 128, "s": 256, "m": 384}
     for hw in INPUTS:
         calls = _training_calls(phi, hw)
@@ -99,23 +100,24 @@ def test_bwd_form_at_every_training_site(phi):
             elif route != "packed" and phi in widths:
                 assert (heads, form) == (1, "single_sm90"), (hw, name, route, dq, dv)
             else:
-                assert form == "mma_sync", (hw, name, route, dq, dv)
+                assert form == "wide_sm90", (hw, name, route, dq, dv)
             assert tvjp.bwd_form(dq, dv, heads, torch.float32) == "f32_sm90", (hw, name)
             assert tvjp.kernel_supports(n, dq, dv, heads, torch.bfloat16), (hw, name)
 
 
 def test_bwd_form_off_the_routed_widths():
     """The rule off the routed grid: two heads of 64, 192 and 320 take the
-    sm90 kernels; 448, 72 and unequal widths do not (the template), nor does
-    one head (phi='s' dark3's widths the one-head kernels, other one-head
-    widths the template); the plan refuses what the rule refuses."""
+    sm90 kernels; 448, 72 and unequal widths do not (the wide kernels), nor
+    does one head (phi='s' dark3's widths the one-head kernels, other
+    one-head widths the wide kernels); the plan refuses what the rule
+    refuses."""
     for d in (64, 192, 320):
         assert tvjp.bwd_form(d, d, 2, torch.bfloat16) == "sm90"
         assert tvjp.bwd_sm90_plan(d)["dq"]["split"] == int(d >= 320)
     for dq, dv, heads in ((448, 448, 2), (72, 72, 2), (128, 256, 2), (256, 128, 2),
                           (256, 256, 1), (64, 512, 1)):
         assert tvjp.bwd_form(dq, dv, heads, torch.bfloat16) == \
-            ("single_sm90" if (dq, dv, heads) == (64, 512, 1) else "mma_sync"), (dq, dv, heads)
+            ("single_sm90" if (dq, dv, heads) == (64, 512, 1) else "wide_sm90"), (dq, dv, heads)
     for d in (448, 72, 0):
         with pytest.raises(ValueError, match="multiples of 64 up to 384"):
             tvjp.bwd_sm90_plan(d)
@@ -292,14 +294,15 @@ def test_kernel_tiling_matches_pallas_bwd(dh, dtype):
 def test_bwd_wrappers_never_fall_back_off_cpu():
     """flash_bwd_dq and flash_bwd_dkv on tensors that are neither on the CPU
     nor on a card raise before any library is built, on the sm90 route
-    (packed heads of 256) and on the template's (packed heads of 448); they
-    count nothing, and reset_launch_counts clears both counters of each."""
+    (packed heads of 256) and on the wide kernels' (packed heads of 448);
+    they count nothing, and reset_launch_counts clears both counters of
+    each."""
     for fn in (tvjp.flash_bwd_dq, tvjp.flash_bwd_dkv):
-        fn.launches = fn.sm90_launches = 5
+        fn.wide_launches = fn.sm90_launches = 5
     tvjp.reset_launch_counts()
     for fn in (tvjp.flash_bwd_dq, tvjp.flash_bwd_dkv):
-        assert fn.launches == 0 and fn.sm90_launches == 0
-    for d, form in ((256, "sm90"), (448, "mma_sync")):
+        assert fn.wide_launches == 0 and fn.sm90_launches == 0
+    for d, form in ((256, "sm90"), (448, "wide_sm90")):
         c = 2 * d
         qkv = torch.empty((1, 2048, 3 * c), dtype=torch.bfloat16, device="meta")
         q, k, v = qkv[..., :c], qkv[..., c:2 * c], qkv[..., 2 * c:]
@@ -310,4 +313,4 @@ def test_bwd_wrappers_never_fall_back_off_cpu():
             with pytest.raises(ValueError, match="CUDA tensor"):
                 fn(q, k, v, do, lse, dcap, 0.1, 2)
     for fn in (tvjp.flash_bwd_dq, tvjp.flash_bwd_dkv):
-        assert fn.launches == 0 and fn.sm90_launches == 0
+        assert fn.wide_launches == 0 and fn.sm90_launches == 0

@@ -12,8 +12,8 @@
 //                                                     dv = sum_q P^T dO
 // ops/attention_vjp.py::bwd_form states the rule and bwd_single_sm90_plan
 // the plans; csrc/flash_bwd_sm90.cu keeps packed heads of 128 to 384,
-// csrc/flash_bwd_f32_sm90.cu fp32, csrc/flash_attn_bwd.cu the rest (phi 'l'
-// and 'x' dark3, packed heads of 448 and wider).
+// csrc/flash_bwd_f32_sm90.cu fp32, csrc/flash_bwd_wide_sm90.cu the rest
+// (phi 'l' and 'x' dark3, packed heads of 448 and wider).
 //
 // Arithmetic, that of flash_bwd_dq_plain / flash_bwd_dkv_plain and of the
 // Pallas kernels (_recompute_p_ds and its two callers), per (query, key)

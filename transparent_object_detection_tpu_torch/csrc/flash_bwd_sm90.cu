@@ -10,11 +10,11 @@
 //   * _bwd_dkv_kernel -> flash_bwd_dkv_sm90_kernel: dk = sum_q dS^T Q,
 //                                                   dv = sum_q P^T dO
 // csrc/flash_bwd_single_sm90.cu takes one head (dark3 of phi 'n' to 'm',
-// the folded heads), csrc/flash_bwd_f32_sm90.cu fp32, csrc/flash_attn_bwd.cu
-// packed heads of 448 and wider, phi 'l'/'x' dark3 and other widths;
-// ops/attention_vjp.py::bwd_form states the rule.
+// the folded heads), csrc/flash_bwd_f32_sm90.cu fp32,
+// csrc/flash_bwd_wide_sm90.cu packed heads of 448 and wider, phi 'l'/'x'
+// dark3 and other widths; ops/attention_vjp.py::bwd_form states the rule.
 //
-// Arithmetic, that of flash_attn_bwd.cu and of the Pallas kernels
+// Arithmetic, that of the plain versions and of the Pallas kernels
 // (_recompute_p_ds and its two callers), per (query, key) tile: S = Q K^T in
 // fp32; P = exp2(S * scale * log2 e - lse * log2 e); dP = dO V^T; dS = P *
 // (dP - D) * scale with D = rowsum(dO * O) (computed in PyTorch); P and dS

@@ -1,8 +1,8 @@
-// Building blocks shared by the bf16 flash-attention kernels
-// (flash_attn_fwd.cu, flash_attn_bwd.cu): cp.async tile loads into padded
-// shared-memory tiles, ldmatrix fragment loads and the mma.sync m16n8k16
-// bf16 product with fp32 accumulation. Both sources run 128 threads (4 warps
-// of 16 rows) a block.
+// Building blocks shared by the bf16 flash-attention kernels: cp.async tile
+// loads into padded shared-memory tiles, ldmatrix fragment loads and the
+// mma.sync m16n8k16 bf16 product with fp32 accumulation (flash_attn_fwd.cu,
+// 128 threads, 4 warps of 16 rows, a block), and the bf16 packing, exp2 and
+// shared-address helpers the Hopper sources use too.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -8,7 +8,8 @@ folded h1, row 2 at batch 1 too), on one GPU; prints one JSON line (ms per
 call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
-        [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8 | --int8-wide]
+        [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8 | --int8-wide |
+         --wide-bwd]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -42,6 +43,16 @@ and bf16 SDPA on the same shapes (a reference point: it computes another
 function), with the kernel each call took (`int8_fwd_form`, and the plan
 where the checkout has one). A checkout before the wide form times the neck
 heads on the mma_sync template of csrc/flash_attn_int8.cu.
+With --wide-bwd it times only rows 10 and 11 (flash_bwd_dq, flash_bwd_dkv)
+in bf16 at the sites csrc/flash_bwd_wide_sm90.cu takes (WIDE_BWD_SITES:
+every training site of phi 'l' 640x640, its tensor-parallel local shapes
+at tp 4 and tp 8, and the sites of phi 'x'), batch 2, each held to the
+gradient bar (1e-2 |plain| + 1e-2 max|plain| an element) against its
+plain version, beside the bound (the Pallas count of operations at 989
+TFLOP/s, or the bytes at 3.35 TB/s), the plain version's time (one call)
+and SDPA's backward on the same operands (a yardstick), with the kernel
+each call took (`bwd_form`). A checkout before the wide kernels times the
+same sites on the mma.sync template of csrc/flash_attn_bwd.cu.
 With --qmm it times only qmm (row 6) at every distinct launch shape of one
 int8 forward of phi 's' and 'm' 640x640 at batch 2 and at batch 1 (the
 launches recorded from the model's own forward, then each shape's call
@@ -172,6 +183,24 @@ F32_BWD_SITES = (("phi=n h2", (2, 6400, 768, 768, 6)), ("phi=n h4", (2, 1600, 76
                  ("phi=m h4", (2, 1600, 3072, 3072, 8)))
 
 
+# the --wide-bwd sites: (name, (batch, tokens, q/k channels, v channels,
+# heads, score scale d ** -0.5 or none)): phi='l' 640x640's training sites,
+# its tensor-parallel local shapes (the neck's 8 heads divided by tp), then
+# phi='x''s sites
+WIDE_BWD_SITES = (
+    ("phi=l dark3", (2, 6400, 256, 2048, 1, False)), ("phi=l h1", (2, 1600, 12288, 12288, 8, True)),
+    ("phi=l h2", (2, 6400, 6144, 6144, 8, True)), ("phi=l h4", (2, 1600, 6144, 6144, 8, True)),
+    ("phi=l h1 tp=4", (2, 1600, 3072, 3072, 2, True)),
+    ("phi=l h2 tp=4", (2, 6400, 1536, 1536, 2, True)),
+    ("phi=l h4 tp=4", (2, 1600, 1536, 1536, 2, True)),
+    ("phi=l h1 tp=8", (2, 1600, 1536, 1536, 1, True)),
+    ("phi=l h2 tp=8", (2, 6400, 768, 768, 1, True)),
+    ("phi=l h4 tp=8", (2, 1600, 768, 768, 1, True)),
+    ("phi=x dark3", (2, 6400, 512, 4096, 1, False)), ("phi=x h1", (2, 1600, 28672, 28672, 8, True)),
+    ("phi=x h2", (2, 6400, 12288, 12288, 8, True)), ("phi=x h4", (2, 1600, 12288, 12288, 8, True)))
+PEAK_BF16_FLOPS = 989e12  # H100 SXM data sheet, dense bf16
+
+
 def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -183,6 +212,61 @@ def timed_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _grad_bar(out, ref) -> float:
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    return float((diff / (1e-2 * mag + 1e-2 * mag.max())).max())
+
+
+def time_wide_bwd(randn) -> dict:
+    """Rows 10 and 11 at WIDE_BWD_SITES, batch 2 (see the module's
+    docstring); inputs with logits of std 2, q/k/v column views of one
+    packed array."""
+    import torch.nn.functional as F
+
+    out = {}
+    for name, (b, n, cq, cv, h, scaled) in WIDE_BWD_SITES:
+        d = cq // h
+        scale = d ** -0.5 if scaled else 1.0
+        std = (2.0 / (scale * d ** 0.5)) ** 0.5
+        qkv = randn(b, n, 2 * cq + cv)
+        qkv[..., :2 * cq] *= std
+        qkv = qkv.bfloat16()
+        q, k, v = qkv[..., :cq], qkv[..., cq:2 * cq], qkv[..., 2 * cq:]
+        do = randn(b, n, cv).bfloat16()
+        pout, plse = V.flash_fwd_lse_plain(q, k, v, scale, h)
+        args = (q, k, v, do, plse, V.compute_dcap(pout, do, h), scale, h)
+        stats, operands = 4 * b * h * n, 2 * b * n * (2 * cq + 2 * cv)
+        costs = {"flash_bwd_dq": (2.0 * b * n * n * (2 * cq + cv),
+                                  operands + 2 * stats + 2 * b * n * cq),
+                 "flash_bwd_dkv": (2.0 * b * n * n * (2 * cq + 2 * cv),
+                                   operands + 2 * stats + 2 * b * n * (cq + cv))}
+        kernels = {"flash_bwd_dq": (lambda: (V.flash_bwd_dq(*args),),
+                                    lambda: (V.flash_bwd_dq_plain(*args),)),
+                   "flash_bwd_dkv": (lambda: V.flash_bwd_dkv(*args),
+                                     lambda: V.flash_bwd_dkv_plain(*args))}
+        qh, kh, vh, doh = (t.reshape(b, n, h, -1).transpose(1, 2).contiguous()
+                           for t in (q, k, v, do))
+        qh, kh, vh = (t.requires_grad_() for t in (qh, kh, vh))
+        sdpa_fwd = timed_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale), 3, 1)
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(qh, kh, vh, scale=scale).backward(doh)
+        sdpa_bwd = max(timed_ms(sdpa_fwd_bwd, 3, 1) - sdpa_fwd, 0.0)
+        for kname, (kernel, plain) in kernels.items():
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            ops, nbytes = costs[kname]
+            row = {"form": V.bwd_form(d, cv // h, h, q.dtype),
+                   "bar_used": max(_grad_bar(g, r) for g, r in zip(got, ref)),
+                   "ms": timed_ms(kernel, 5, 1),
+                   "bound_ms": max(ops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+                   "plain_ms": timed_ms(plain, 1, 0), "sdpa_bwd_ms": sdpa_bwd}
+            out[f"{kname} {name}"] = row
+            print(json.dumps({f"{kname} {name}": row}), flush=True)
+    return out
 
 
 def time_training_kernels(randn) -> dict:
@@ -867,6 +951,9 @@ def main() -> int:
         return 0
     if "--qmm" in sys.argv[1:]:
         print(json.dumps({**result, "qmm": time_qmm()}))
+        return 0
+    if "--wide-bwd" in sys.argv[1:]:
+        print(json.dumps({**result, "wide_bwd": time_wide_bwd(randn)}))
         return 0
     if "--int8-wide" in sys.argv[1:]:
         print(json.dumps({**result, "int8_wide": time_int8_wide(randn)}))

@@ -24,14 +24,15 @@ Function given the packed array writes one packed (B, N, 3C) gradient.
                  for bf16 with one head: dark3 of phi 'n', 's' and 'm', the
                  folded heads;
                  csrc/flash_bwd_f32_sm90.cu for fp32 at every width, packed
-                 heads or one; csrc/flash_attn_bwd.cu for the other bf16
-                 calls: dark3 of phi 'l' and 'x', packed heads of 448 and
-                 wider, other widths)
+                 heads or one; csrc/flash_bwd_wide_sm90.cu for the other
+                 bf16 calls: dark3 of phi 'l' and 'x', packed heads of 448
+                 and wider, other widths)
   flash_bwd_dkv  replaces _bwd_dkv_kernel (the same four sources: on the
                  bf16 sm90 kernel one launch up to heads of 256 and two, a dv
                  and a dk launch, at 320 and 384; on the one-head and fp32
-                 kernels one launch; on the template two, the dk pass and the
-                 dv pass; counted once, as the TPU kernel)
+                 kernels one launch; on the wide kernels three a group of
+                 (batch, head) pairs, the scores, dk and dv; counted once,
+                 as the TPU kernel)
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version only for CPU tensors; `launches` counts kernel launches. The
@@ -49,8 +50,6 @@ from typing import Optional, Tuple
 import torch
 
 from transparent_object_detection_tpu_torch.ops import attention as A
-
-MODE_DQ, MODE_DK, MODE_DV = 0, 1, 2
 
 
 # ---------------------------------------------------------------------------
@@ -157,19 +156,6 @@ def _fwd_lib():
     return lib
 
 
-def _bwd_lib():
-    from transparent_object_detection_tpu_torch.kernels import _build
-
-    lib = _build.load("flash_attn_bwd")
-    if not getattr(lib, "_argtypes_set", False):
-        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.flash_bwd.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                  cl, ci, cl, ci, cl, ci, cl, ci, cl, ci, cf, vp]
-        lib.flash_bwd.restype = ci
-        lib._argtypes_set = True
-    return lib
-
-
 # The Hopper backward (csrc/flash_bwd_sm90.cu): heads up to six 64-column
 # slabs wide, streamed as operand tiles through one ring; from five slabs
 # (320) the split forms.
@@ -189,9 +175,11 @@ def bwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
     (csrc/flash_bwd_single_sm90.cu) for bf16 with one head where
     `bwd_single_sm90_plan` has a plan: dark3 of phi 'n', 's' and 'm' (q/k
     32 to 128, v 256 to 1,024), the folded heads (288, 600) and widths
-    that share their forms; else "mma_sync", csrc/flash_attn_bwd.cu (bf16:
-    dark3 of phi 'l' and 'x', packed heads of 448 and wider, other
-    widths)."""
+    that share their forms; else "wide_sm90" (csrc/flash_bwd_wide_sm90.cu,
+    the plan of `bwd_wide_sm90_plan`): dark3 of phi 'l' and 'x', packed
+    heads of 448 and wider (the neck heads of phi 'l' and 'x' and their
+    tensor-parallel local shapes), every other width that is a multiple of
+    8."""
     if dtype == torch.float32:
         return "f32_sm90"
     if (num_heads > 1 and dqk == dv and dqk % SM90_BWD_SLAB == 0
@@ -203,7 +191,7 @@ def bwd_form(dqk: int, dv: int, num_heads: int, dtype: torch.dtype) -> str:
             return "single_sm90"
         except ValueError:
             pass
-    return "mma_sync"
+    return "wide_sm90"
 
 
 def bwd_sm90_smem_bytes(kernel: str, d: int, stages: int) -> int:
@@ -248,6 +236,79 @@ def bwd_sm90_plan(d: int) -> dict:
         out[kernel] = {"rows": rows, "slab": SM90_BWD_SLAB, "stages": stages, "split": split,
                        "smem_bytes": bwd_sm90_smem_bytes(kernel, d, stages)}
     return out
+
+
+# The wide Hopper backward (csrc/flash_bwd_wide_sm90.cu): a score kernel
+# on 128 x 128 tiles of one (batch, head) forms S and dP once (its ring
+# stages a 128-row slab of the rows' operand and one of the tokens', 32 KB)
+# and writes bf16 dS (and P) into a workspace in wgmma's fragment order, 8
+# KB a 64 x 64 tile; then a GEMM kernel on blocks of 128 rows x 256 gradient
+# columns (its stages the two row tiles' fragments and 64 tokens of K, Q or
+# dO, 48 KB) sums dq = dS K, dk = dS^T Q, dv = P^T dO over all tokens. The
+# (batch, head) pairs go in groups whose workspace stays within
+# WIDE_BWD_WORKSPACE_LIMIT bytes (at least one pair a group).
+WIDE_BWD_TILE, WIDE_BWD_TOK, WIDE_BWD_SLAB, WIDE_BWD_GCOLS = 128, 64, 64, 256
+WIDE_BWD_MAX_STAGES = 8
+WIDE_BWD_SCORE_STAGE = 2 * WIDE_BWD_TILE * 128
+WIDE_BWD_GRAD_STAGE = (2 + WIDE_BWD_GCOLS // WIDE_BWD_SLAB) * WIDE_BWD_TOK * 128
+WIDE_BWD_WORKSPACE_LIMIT = 1 << 31
+WIDE_BWD_PLAN_KEYS = ("tile", "tok", "slab", "gcols", "stages", "grad_stages", "group",
+                      "smem_bytes", "grad_smem_bytes")
+
+
+def bwd_wide_sm90_plan(dqk: int, dv: int, n: int, pairs: int) -> dict:
+    """Launch plans of csrc/flash_bwd_wide_sm90.cu for q/k width `dqk` and v
+    width `dv` (multiples of 8), N tokens and `pairs` (batch, head) pairs:
+    {"dq": plan, "dkv": plan}, each with `tile` (128 rows and tokens a
+    score block), `tok` (64 tokens a workspace tile and a GEMM stage),
+    `slab` (64 columns), `gcols` (256 gradient columns a GEMM block),
+    `stages` and `grad_stages` (the most, up to 8, that fit each kernel's
+    227 KB: 7 and 4), `group` (pairs a group: the most whose workspace,
+    `mats` matrices of N padded to 128 squared bf16 a pair, dq 1 (dS), dk/dv
+    2 (P^T, dS^T), stays within WIDE_BWD_WORKSPACE_LIMIT, at least one, then
+    balanced over the groups), `smem_bytes` and `grad_smem_bytes` (1024
+    bytes of alignment slack and 1024 of barriers beside the ring), and,
+    not handed to the library, `tiles` (64-token tiles of the padded N),
+    `groups` and `workspace_bytes` (the group's, which the launcher
+    allocates). The library refuses any other plan."""
+    if dqk <= 0 or dv <= 0 or dqk % A.KERNEL_WIDTH_MULTIPLE or dv % A.KERNEL_WIDTH_MULTIPLE:
+        raise ValueError(f"the wide sm90 backward takes widths that are multiples of "
+                         f"{A.KERNEL_WIDTH_MULTIPLE}, got q/k {dqk}, v {dv}")
+    if n < 1 or pairs < 1:
+        raise ValueError(f"no wide sm90 backward plan for N {n}, {pairs} (batch, head) pairs")
+    room = A.SM90_SMEM_LIMIT - 2048
+    stages = min(WIDE_BWD_MAX_STAGES, room // WIDE_BWD_SCORE_STAGE)
+    grad_stages = min(WIDE_BWD_MAX_STAGES, room // WIDE_BWD_GRAD_STAGE)
+    tiles = -(-n // WIDE_BWD_TILE) * (WIDE_BWD_TILE // WIDE_BWD_TOK)
+    out = {}
+    for kernel, mats in (("dq", 1), ("dkv", 2)):
+        pair_bytes = mats * tiles * tiles * WIDE_BWD_TOK * 128
+        most = min(max(WIDE_BWD_WORKSPACE_LIMIT // pair_bytes, 1), pairs)
+        groups = -(-pairs // most)
+        group = -(-pairs // groups)
+        out[kernel] = {"tile": WIDE_BWD_TILE, "tok": WIDE_BWD_TOK, "slab": WIDE_BWD_SLAB,
+                       "gcols": WIDE_BWD_GCOLS, "stages": stages, "grad_stages": grad_stages,
+                       "group": group, "smem_bytes": 2048 + stages * WIDE_BWD_SCORE_STAGE,
+                       "grad_smem_bytes": 2048 + grad_stages * WIDE_BWD_GRAD_STAGE,
+                       "tiles": tiles, "groups": -(-pairs // group),
+                       "workspace_bytes": group * pair_bytes}
+    return out
+
+
+def _bwd_wide_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_bwd_wide_sm90")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci, cl, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        lib.flash_bwd_dq_wide_sm90.argtypes = [vp] * 8 + [ci] * 5 + [vp] + [cl] * 2 + [
+            cf, vp, vp]
+        lib.flash_bwd_dq_wide_sm90.restype = ci
+        lib.flash_bwd_dkv_wide_sm90.argtypes = [vp] * 9 + [ci] * 5 + [vp] + [cl] * 4 + [
+            cf, vp, vp]
+        lib.flash_bwd_dkv_wide_sm90.restype = ci
+        lib._argtypes_set = True
+    return lib
 
 
 # The fp32 Hopper backward (csrc/flash_bwd_f32_sm90.cu): 64-column tiles,
@@ -599,17 +660,29 @@ def _out(t: Optional[torch.Tensor], like: torch.Tensor, name: str) -> torch.Tens
     return t
 
 
-def _bwd_launch(mode: int, q, k, v, do, lse, dcap, out, scale: float, num_heads: int,
-                widths) -> None:
+def _wide_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float,
+                     num_heads: int, widths) -> None:
+    """One call of csrc/flash_bwd_wide_sm90.cu (`kernel` "dq" or "dkv": a
+    score launch and one or two GEMM launches a group of (batch, head)
+    pairs) with the plan of `bwd_wide_sm90_plan`. Allocates the group's
+    workspace (bf16 dS, and P^T before dS^T for dk/dv, in fragment order).
+    Raises if a launch fails, never falls back."""
     b, n, dqk, dv = widths
-    err = _bwd_lib().flash_bwd(
-        mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        dcap.data_ptr(), out.data_ptr(), b, n, num_heads, dqk, dv,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        do.stride(0), do.stride(1), out.stride(0), out.stride(1), scale,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    A._raise_on(err, ("flash_bwd dq", "flash_bwd dk", "flash_bwd dv")[mode])
+    plan = bwd_wide_sm90_plan(dqk, dv, n, b * num_heads)[kernel]
+    plan_arr = (ctypes.c_int * len(WIDE_BWD_PLAN_KEYS))(*(plan[key]
+                                                          for key in WIDE_BWD_PLAN_KEYS))
+    ws = torch.empty(plan["workspace_bytes"] // 2, dtype=torch.bfloat16, device=q.device)
+    strides = (ctypes.c_longlong * 8)(*(s for t in (q, k, v, do)
+                                        for s in (t.stride(0), t.stride(1))))
+    lib = _bwd_wide_lib()
+    fn = lib.flash_bwd_dq_wide_sm90 if kernel == "dq" else lib.flash_bwd_dkv_wide_sm90
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+             dcap.data_ptr(), *(t.data_ptr() for t in outs), ws.data_ptr(), b, n, num_heads,
+             dqk, dv, ctypes.cast(strides, ctypes.c_void_p),
+             *(s for t in outs for s in (t.stride(0), t.stride(1))), scale,
+             ctypes.cast(plan_arr, ctypes.c_void_p),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    A._raise_on(err, f"flash_bwd_{kernel}_wide_sm90")
 
 
 def _sm90_bwd_launch(kernel: str, q, k, v, do, lse, dcap, outs, scale: float,
@@ -660,8 +733,9 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     (JAX). A CUDA tensor launches the kernel of `bwd_form`
     (csrc/flash_bwd_sm90.cu, counted in `sm90_launches`;
     csrc/flash_bwd_single_sm90.cu, in `single_launches`;
-    csrc/flash_bwd_f32_sm90.cu, in `f32_launches`; or csrc/flash_attn_bwd.cu,
-    in `launches`); a CPU tensor runs `flash_bwd_dq_plain`."""
+    csrc/flash_bwd_f32_sm90.cu, in `f32_launches`; or
+    csrc/flash_bwd_wide_sm90.cu, in `wide_launches`); a CPU tensor runs
+    `flash_bwd_dq_plain`."""
     if q.device.type == "cpu":
         res = flash_bwd_dq_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return res if dq is None else dq.copy_(res)
@@ -678,8 +752,8 @@ def flash_bwd_dq(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
         _f32_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
         flash_bwd_dq.f32_launches += 1
     else:
-        _bwd_launch(MODE_DQ, q, k, v, do, lse, dcap, dq, scale, num_heads, widths)
-        flash_bwd_dq.launches += 1
+        _wide_bwd_launch("dq", q, k, v, do, lse, dcap, (dq,), scale, num_heads, widths)
+        flash_bwd_dq.wide_launches += 1
     return dq
 
 
@@ -693,10 +767,11 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
     `sm90_launches`), csrc/flash_bwd_single_sm90.cu (bf16 one head: dark3
     of phi 'n' to 'm', the folded heads; one launch, `single_launches`),
     csrc/flash_bwd_f32_sm90.cu (every fp32 call, one launch after its
-    pre-pass; `f32_launches`) or csrc/flash_attn_bwd.cu, which keeps the
-    other bf16 calls (dark3 of phi 'l' and 'x', packed heads of 448 and
-    wider, other widths; the dk pass and the dv pass, counted once in
-    `launches`); a CPU tensor runs `flash_bwd_dkv_plain`."""
+    pre-pass; `f32_launches`) or csrc/flash_bwd_wide_sm90.cu, which takes
+    the other bf16 calls (dark3 of phi 'l' and 'x', packed heads of 448 and
+    wider, other widths; the score launch, the dk and the dv launch a group
+    of (batch, head) pairs, counted once in `wide_launches`); a CPU tensor
+    runs `flash_bwd_dkv_plain`."""
     if q.device.type == "cpu":
         rk, rv = flash_bwd_dkv_plain(q, k, v, do, lse, dcap, scale, num_heads)
         return (rk if dk is None else dk.copy_(rk)), (rv if dv is None else dv.copy_(rv))
@@ -713,15 +788,17 @@ def flash_bwd_dkv(q, k, v, do, lse, dcap, scale: float, num_heads: int = 1,
         _f32_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
         flash_bwd_dkv.f32_launches += 1
     else:
-        _bwd_launch(MODE_DK, q, k, v, do, lse, dcap, dk, scale, num_heads, widths)
-        _bwd_launch(MODE_DV, q, k, v, do, lse, dcap, dv, scale, num_heads, widths)
-        flash_bwd_dkv.launches += 1
+        _wide_bwd_launch("dkv", q, k, v, do, lse, dcap, (dk, dv), scale, num_heads, widths)
+        flash_bwd_dkv.wide_launches += 1
     return dk, dv
 
 
 def reset_launch_counts() -> None:
+    flash_fwd_lse.launches = 0  # csrc/flash_attn_fwd.cu
     for fn in (flash_fwd_lse, flash_bwd_dq, flash_bwd_dkv):
-        fn.launches = fn.sm90_launches = fn.single_launches = fn.f32_launches = 0
+        fn.sm90_launches = fn.single_launches = fn.f32_launches = 0
+    for fn in (flash_bwd_dq, flash_bwd_dkv):
+        fn.wide_launches = 0
 
 
 reset_launch_counts()
