@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds every kernel in transparent_object_detection_tpu_torch/csrc/ with
-   nvcc (all ten sources at once) and prints the card's name and power
+   nvcc (every source at once) and prints the card's name and power
    limit.
 2. Kernel phase: holds each flash-attention kernel against its plain PyTorch
    version on the card, in bf16, at the shapes the phi='s' 640x640 serving
@@ -229,8 +229,9 @@
    every epoch (the port's Predictor on the EMA weights, class biases set
    as the serving phases set them) and a CheckpointManager. The launch
    counts, reset before the fit and read after it, equal the route table's
-   (rows 9-11 per step, rows 1-2 per validation and EvalCallback forward,
-   all on their sm90 forms). Then the callback's forward against the plain
+   (rows 9-11 per step, rows 1-2 per validation and EvalCallback forward
+   but those replayed from the callback's graphs, all on their sm90
+   forms). Then the callback's forward against the plain
    versions (`decoded` within the slice limits, detection sets matched),
    its stats against the same callback on the plain versions (within
    0.01; at random weights both sides score AP near 0, so this holds the
@@ -317,6 +318,34 @@
    wide` runs, after the build, the off-grid backward of 2, the train
    scale kernel phase of 14 and the wide TP phase alone, without the
    result line.
+   Serving runs through the Predictor's program cache (inference.py: one
+   captured CUDA graph per batch shape; a shape's first call eager, its
+   second captured). So every check that runs the plain versions or a
+   planted fault through the serving path (the run_plain of phases 3, 5,
+   7, 11, 12 and the int8 1x1 phase) calls eager `raw_detect_step`
+   (`eager_detect`): a replayed graph would run the kernels it was captured
+   on and hide both; each timed throughput loop takes two warm-up calls
+   (the eager one and the capture) before its clock starts; a batch whose
+   graph would not fit whole (phi='l' bf16 at 32) replays one graph over
+   parts of it, and the phase prints the parts.
+   After the int8 1x1 phases, the exact NMS kernel (`nms_kernel_phase`,
+   csrc/nms_exact.cu) against its plain loop at K = 1,024 (every candidate
+   valid and none, chains, ties, IoU at the threshold, valid prefixes; B = 1
+   and 32), twice for the same bits, its planted faults (a suppressed box
+   suppressing, >= for >, the last valid row skipped) each changing some
+   case's keep set, the plain loop raising under
+   torch.cuda.set_sync_debug_mode("error"), times at batch 1 and 32 beside
+   its bytes bound; then the graphs phase (`graphs_phase`): phi='s' in bf16
+   and int8 through the graphs at batch 1, 4 and 32 against eager on the
+   same kernels bit for bit, the launches counted into a capture and the
+   graph's kernel nodes by name against `expected_launches` (a replay runs
+   no wrapper and counts none), a batch replayed over two parts, two raw
+   sizes alternated in one pool, new images into a graph and a stale input
+   buffer rejected, weights fused in place and replaced by new tensors,
+   eager detect_step on device tensors under the sync debug mode.
+   `python3 chip_smoke.py graphs` runs these two alone (after the build),
+   without the result line; `python3 chip_smoke.py l` the phi='l' serving
+   phase alone.
 20. Prints each phase's seconds and the smoke's total time, the card's name
    and power limit, a JSON line of the kernels (the phi='s' entries: row 1
    on the sm90 kernel, rows 2-11 with rows 9-11's single-head site (rows 2
@@ -343,8 +372,12 @@
    launches of each mesh of phase 19 as `parallel_launches`, and those rows
    at their TP-local shapes are entries of their own, "... tp=2" and
    "... tp=4", as are rows 9-11 at the TP training's local shapes and rows
-   6 and 7 at the int8 1x1 convs ("... int8_1x1")), then {"ok": true,
-   "device": ...} last.
+   6 and 7 at the int8 1x1 convs ("... int8_1x1"), and last `nms_exact`
+   (csrc/nms_exact.cu: launches of the bf16 slice's counted call, ms at
+   batch 32 with batch 1 apart, every candidate valid, beside its bytes
+   bound and the plain loop; no library call computes it; the nms_exact
+   kernel nodes of each graph of the graphs phase as `graph_nodes`)), then
+   {"ok": true, "device": ...} last.
    Every int8 attention launch of a counted forward is timed at batch 2
    and 1 beside its bound (three int8 products, and two), plain version
    and bf16 SDPA.
@@ -710,6 +743,22 @@ def planted(fault: str):
         yield
     finally:
         A._online_softmax_attention = real
+
+
+def eager_detect(predictor, raw, shapes) -> dict:
+    """Predictor.detect_raw_batch's function run eagerly
+    (inference.raw_detect_step) on the Predictor's model and settings. The
+    plain versions and the planted faults run here and never through the
+    Predictor: a monkeypatched function is in no key of its program cache,
+    and a replayed graph runs the kernels it was captured on."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.inference import raw_detect_step
+
+    with torch.inference_mode():
+        return raw_detect_step(predictor.model, torch.as_tensor(raw, device=DEVICE),
+                               torch.as_tensor(shapes, dtype=torch.float32, device=DEVICE),
+                               predictor.model_cfg.input_shape, predictor.predict_cfg)
 
 
 def hold_against_plain(kernel, plain, what: str, faults_must_fail: bool = True,
@@ -1082,12 +1131,13 @@ def slice_phase(card: str):
     import torch
 
     from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
-    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.inference import Predictor, release_programs
     from transparent_object_detection_tpu_torch.models.detector import (
         build_model,
         set_attention_impl,
     )
     from transparent_object_detection_tpu_torch.ops import attention as A
+    from transparent_object_detection_tpu_torch.ops import nms as N
     from transparent_object_detection_tpu_torch.ops.geometry import xywh2xyxy
     from transparent_object_detection_tpu_torch.ops.nms import batched_nms
     from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
@@ -1122,15 +1172,18 @@ def slice_phase(card: str):
 
     # the main path, counted: counts to 0 just before, read just after
     A.reset_launch_counts()
+    N.reset_launch_counts()
     dets = predictor.detect_raw_batch(raw, shapes)
     torch.cuda.synchronize()
     launches = {"flash_mha_packed": A.flash_mha_packed.launches,
                 "flash_mha_packed_sm90": A.flash_mha_packed.sm90_launches,
-                "flash_single_sm90": A.flash_single.sm90_launches}
+                "flash_single_sm90": A.flash_single.sm90_launches,
+                "nms_exact": N.nms_exact.launches}
     print(json.dumps({"main_path_launches": launches}), flush=True)
-    check(launches == {"flash_mha_packed": 0, "flash_mha_packed_sm90": 3, "flash_single_sm90": 1},
-          f"expected 3 packed launches of the sm90 kernel and 1 launch of its one-head form "
-          f"per forward, got {launches}")
+    check(launches == {"flash_mha_packed": 0, "flash_mha_packed_sm90": 3, "flash_single_sm90": 1,
+                       "nms_exact": 1},
+          f"expected 3 packed launches of the sm90 kernel, 1 launch of its one-head form and "
+          f"1 of nms_exact per call, got {launches}")
     nd = dets["num_detections"].cpu()
     check(dets["boxes"].shape == (4, pcfg.max_detections, 4),
           f"boxes shape {tuple(dets['boxes'].shape)}")
@@ -1142,7 +1195,7 @@ def slice_phase(card: str):
     def run_plain():
         set_attention_impl(model, "plain")
         try:
-            return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+            return model(images)["decoded"], eager_detect(predictor, raw, shapes)
         finally:
             set_attention_impl(model, None)
 
@@ -1238,7 +1291,8 @@ def slice_phase(card: str):
         raw32 = rng.integers(0, 256, size=(32, 480, 640, 3), dtype=np.uint8)
         shapes32 = np.tile(np.array([[480, 640]], np.float32), (32, 1))
         torch.cuda.reset_peak_memory_stats()
-        predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
+        for _ in range(2):  # the shape's eager call and its capture
+            predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
         t0 = time.perf_counter()
         iters = 3
         for _ in range(iters):
@@ -1266,6 +1320,7 @@ def slice_phase(card: str):
                  f"class biases set for ~{CANDIDATES_PER_IMAGE} candidates an image",
     }
     print(json.dumps({"slice_perf": perf}), flush=True)
+    release_programs(model)  # the model serves the later phases' weights, not their calls
     return launches, model, perf
 
 
@@ -2164,7 +2219,7 @@ def int8_slice_phase(card: str, bf16_model, bf16_perf: dict):
     def run_plain():
         set_attention_impl(model, "plain")
         try:
-            return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+            return model(images)["decoded"], eager_detect(predictor, raw, shapes)
         finally:
             set_attention_impl(model, None)
 
@@ -2232,15 +2287,40 @@ PERF_KEYS = ("batch1_latency_ms_p50", "batch1_latency_ms_p75", "batch32_imgs_per
 
 def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3,
                    big: int = 32) -> dict:
-    """Batch-1 latency (40 calls after 3 warm-ups, host clock) and forward;
-    batch-`big` throughput (`iters` calls after 1, host clock), forward and
-    peak memory; a profile of one batch-`big` forward, as the bf16 slice."""
+    """The batch-`big` forward (CUDA events) and a profile of one, then
+    batch-`big` throughput (`iters` calls after 2: the shape's eager call
+    and its capture; host clock) and peak memory, then batch-1 latency (40
+    calls after 3 warm-ups, host clock) and forward, as the bf16 slice; the
+    parts the big batch's graph replays over (1 unless its graph would not
+    fit whole: inference._parts)."""
     import numpy as np
     import torch
 
+    from transparent_object_detection_tpu_torch.inference import programs_of
     from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
 
     with torch.inference_mode():
+        # the big batch first, its eager forward before the predictor's
+        # calls: they run before any graph pool of the model holds memory,
+        # and the smaller shapes' captures reuse the big batch's pool
+        # (phi='l')
+        raw32 = rng.integers(0, 256, size=(big, 480, 640, 3), dtype=np.uint8)
+        shapes32 = np.tile(np.array([[480, 640]], np.float32), (big, 1))
+        torch.cuda.reset_peak_memory_stats()
+        img32 = letterbox_batch(torch.as_tensor(raw32, device="cuda").float() / 255.0,
+                                predictor.model_cfg.input_shape)
+        fwd32 = timed_ms(lambda: model(img32), iters, 1)
+        profile = profile_forward(model, img32)
+        del img32
+        for _ in range(2):  # the shape's eager call and its capture
+            predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
+        b32_s = (time.perf_counter() - t0) / iters
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        parts = [p["parts"] for p in programs_of(predictor.model)
+                 if p["key"][3][0][0][0] == big]
         one, one_shape = raw[:1], shapes[:1]
         for _ in range(3):
             predictor.detect_raw_batch(one, one_shape)
@@ -2252,24 +2332,12 @@ def serving_timing(model, predictor, raw, shapes, images, rng, iters: int = 3,
             lat.append((time.perf_counter() - t0) * 1e3)
         lat.sort()
         fwd1 = timed_ms(lambda: model(images[:1]), 20, 3)
-        raw32 = rng.integers(0, 256, size=(big, 480, 640, 3), dtype=np.uint8)
-        shapes32 = np.tile(np.array([[480, 640]], np.float32), (big, 1))
-        torch.cuda.reset_peak_memory_stats()
-        predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            predictor.detect_raw_batch(raw32, shapes32)["num_detections"].cpu()
-        b32_s = (time.perf_counter() - t0) / iters
-        img32 = letterbox_batch(torch.as_tensor(raw32, device="cuda").float() / 255.0,
-                                predictor.model_cfg.input_shape)
-        fwd32 = timed_ms(lambda: model(img32), iters, 1)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        profile = profile_forward(model, img32)
     return {"batch1_latency_ms_p50": lat[len(lat) // 2],
             "batch1_latency_ms_p75": lat[3 * len(lat) // 4],
             "batch1_latency_ms_min": lat[0], "batch1_forward_ms": fwd1,
             f"batch{big}_imgs_per_s": big / b32_s, f"batch{big}_step_ms": b32_s * 1e3,
             f"batch{big}_forward_ms": fwd32, f"peak_mem_gib_batch{big}": peak,
+            f"batch{big}_graph_parts": parts,
             "profile": {k: profile[k] for k in ("device_busy_ms", "idle_share",
                                                 "by_class_ms")}}
 
@@ -2698,7 +2766,7 @@ def variant_slice_phase(card: str, bf16_model, same_run: dict) -> dict:
         def run_plain():
             set_attention_impl(model, "plain")
             try:
-                return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+                return model(images)["decoded"], eager_detect(predictor, raw, shapes)
             finally:
                 set_attention_impl(model, None)
 
@@ -2811,7 +2879,8 @@ def _batch_imgs_per_s(predictor, raw, shapes, iters: int = 3) -> float:
     import torch
 
     with torch.inference_mode():
-        predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
+        for _ in range(2):  # the shape's eager call and its capture
+            predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
         t0 = time.perf_counter()
         for _ in range(iters):
             predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
@@ -2842,7 +2911,8 @@ def int8_1x1_phase(card: str, bf16_model) -> dict:
         ModelConfig,
         PredictConfig,
     )
-    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.inference import Predictor, release_programs
+    from transparent_object_detection_tpu_torch.kernels.time_serving import set_class_biases
     from transparent_object_detection_tpu_torch.models.blocks import QuantDense
     from transparent_object_detection_tpu_torch.models.detector import (
         build_model,
@@ -2873,6 +2943,9 @@ def int8_1x1_phase(card: str, bf16_model) -> dict:
             rates[tag].append(_batch_imgs_per_s(preds[tag], raw, shapes))
     perf = {"card": card, "batch32_imgs_per_s": rates}
     print(json.dumps({"int8_1x1_batch32_imgs_per_s": perf}), flush=True)
+    for m in models.values():  # four batch-32 graph pools: not beside the checks below
+        release_programs(m)
+    torch.cuda.empty_cache()
 
     out = {"perf": perf, "launches": {}}
     routes = {b: int8_1x1_routes(cfg, b) for b in INT8_1X1_BATCHES}
@@ -2902,12 +2975,12 @@ def int8_1x1_phase(card: str, bf16_model) -> dict:
     out["parity"] = {}
     for tag in INT8_1X1_CONFIGS:
         model, pred = models[tag], preds[tag]
-        _set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE)
+        set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE)
 
         def run_plain():
             set_attention_impl(model, "plain")
             try:
-                return model(images)["decoded"], pred.detect_raw_batch(raw[:b], shapes[:b])
+                return model(images)["decoded"], eager_detect(pred, raw[:b], shapes[:b])
             finally:
                 set_attention_impl(model, None)
 
@@ -2965,6 +3038,7 @@ def int8_1x1_phase(card: str, bf16_model) -> dict:
           f"QuantDense: {out['quant_dense']}")
     for tag in ("int8", *INT8_1X1_CONFIGS):
         del models[tag], preds[tag]
+    release_programs(bf16_model)  # it outlives the phase: its graphs' pool must not
     torch.cuda.empty_cache()
     return out
 
@@ -4447,21 +4521,6 @@ def bf16_path_calls(model, images, f32: bool = False) -> dict:
     return rows
 
 
-def _set_class_biases(model, images, candidates):
-    """Class biases so that about `candidates` anchors an image pass the 0.5
-    confidence (as a trained detector's few dozen would)."""
-    import torch
-
-    with torch.no_grad():
-        towers = [getattr(model.head, f"cls{i}") for i in range(3)]
-        for t in towers:
-            t.out.bias.zero_()
-        logits = torch.logit(model(images)["decoded"][..., 4:].amax(-1), eps=1e-6).flatten()
-        shift = float(logits.topk(candidates * images.shape[0]).values[-1])
-        for t in towers:
-            t.out.bias.fill_(-shift)
-
-
 SCALE_LIMITS = {"bf16": (BOX_LIMIT_PX, SCORE_LIMIT, SLICE_REJECTS[0]),
                 "int8": (INT8_BOX_LIMIT_PX, INT8_SCORE_LIMIT, INT8_SLICE_REJECTS[0]),
                 "A": (VARIANT_BOX_LIMIT_PX["A"], VARIANT_SCORE_LIMIT["A"],
@@ -4486,7 +4545,7 @@ def _parity(model, predictor, images, raw, shapes, pcfg, tag) -> dict:
     def run_plain():
         set_attention_impl(model, "plain")
         try:
-            return model(images)["decoded"], predictor.detect_raw_batch(raw, shapes)
+            return model(images)["decoded"], eager_detect(predictor, raw, shapes)
         finally:
             set_attention_impl(model, None)
 
@@ -4577,7 +4636,8 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool, shared: b
         ModelConfig,
         PredictConfig,
     )
-    from transparent_object_detection_tpu_torch.inference import Predictor
+    from transparent_object_detection_tpu_torch.inference import Predictor, release_programs
+    from transparent_object_detection_tpu_torch.kernels.time_serving import set_class_biases
     from transparent_object_detection_tpu_torch.models.detector import build_model
     from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
 
@@ -4615,8 +4675,8 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool, shared: b
         int8 = tag != "bf16"
         cfg = ModelConfig(phi=phi, int8_dense=int8, int8_attn=int8)
         model = clone(cfg, Int8Variants(**VARIANT_CONFIGS.get(tag, {}))) if int8 else base
-        _set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE if int8
-                          else CANDIDATES_PER_IMAGE)
+        set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE if int8
+                         else CANDIDATES_PER_IMAGE)
         predictor = Predictor(model, cfg, pcfg, device=DEVICE)
         launches = {}
         for b in batches:  # the main path, counted: counts to 0 just before, read just after
@@ -4638,6 +4698,7 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool, shared: b
         if timed:
             record["rows"] = (bf16_path_calls(model, images[:2]) if not int8
                               else int8_path_calls(model, images[:2]))
+            release_programs(model)  # the big batch's eager call runs beside no pool
             fit = _fitting_batch(model, images, big) if big != (32,) else {"batch": 32}
             # two timed big-batch steps, not three: the smoke's time limit
             record["perf"] = {"card": card, "model": f"phi={phi} 640x640 {tag}",
@@ -4647,6 +4708,7 @@ def scale_slice_phase(card: str, phi: str, tags, batches, timed: bool, shared: b
             print(json.dumps({"scale_slice_perf": record["perf"]}), flush=True)
         record["seconds"] = time.perf_counter() - t_tag
         results[tag] = record
+        release_programs(model)  # base outlives its tag: its graphs' pool must not
         if model is not base:
             del model, predictor
             torch.cuda.empty_cache()
@@ -5331,7 +5393,8 @@ def fit_phase(card: str) -> dict:
     port's Predictor on the EMA weights, COCO and VOC mAP) and a
     CheckpointManager. Launch counts reset just before the fit and read
     just after, against the route table: rows 9-11 per step on their sm90
-    forms, rows 1-2 per validation and EvalCallback forward. Then: the
+    forms, rows 1-2 per validation and EvalCallback forward (less the
+    callback's graph replays, which run no wrapper). Then: the
     callback's forward on the weights it last evaluated against the plain
     versions (`decoded` within the slice limits, the detection sets matched
     anchor by anchor), its COCO and VOC stats against a run of the same
@@ -5355,6 +5418,7 @@ def fit_phase(card: str) -> dict:
     from transparent_object_detection_tpu_torch.data import loader as L
     from transparent_object_detection_tpu_torch.eval.coco_map import coco_eval
     from transparent_object_detection_tpu_torch.eval.voc_map import voc_map
+    from transparent_object_detection_tpu_torch.inference import programs_of
     from transparent_object_detection_tpu_torch.models.detector import set_attention_impl
     from transparent_object_detection_tpu_torch.train import trainer as T
     from transparent_object_detection_tpu_torch.train.checkpoints import CheckpointManager
@@ -5415,14 +5479,18 @@ def fit_phase(card: str) -> dict:
         fit_dets = cb.last_dets
 
         # launches: rows 9-11 per step, rows 1-2 per validation / eval forward
+        # but those the EvalCallback's Predictor replayed from its graphs
+        # (a replay runs no wrapper)
         steps = [FIT_TRAIN_IMAGES // b for b in FIT_BATCHES]
+        replayed = sum(p["replayed_calls"] for p in programs_of(cb._predictor.model))
         forwards = (sum(FIT_VAL_IMAGES // b for b in FIT_BATCHES)
-                    + len(history) * -(-FIT_VAL_IMAGES // FIT_EVAL_BATCH))
+                    + len(history) * -(-FIT_VAL_IMAGES // FIT_EVAL_BATCH) - replayed)
         per_step, per_fwd = train_expected(cfg), expected_launches("s", 2, "bf16")
         expected = {k: per_step.get(k, 0) * sum(steps) + per_fwd.get(k, 0) * forwards
                     for k in launches}
         print(json.dumps({"fit_main_path_launches": launches, "expected": expected,
-                          "steps": steps, "serving_forwards": forwards}), flush=True)
+                          "steps": steps, "serving_forwards": forwards,
+                          "eval_replays": replayed}), flush=True)
         check(launches == expected, f"fit: launches {launches}, expected {expected}")
         for k in ("flash_fwd_lse_sm90", "flash_fwd_lse_single", "flash_bwd_dq_sm90",
                   "flash_bwd_dq_single", "flash_bwd_dkv_sm90", "flash_bwd_dkv_single",
@@ -5768,8 +5836,10 @@ def _api_focus(classes: str, tag: str, images_of):
                 m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
                 m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
     images = images_of(f)
-    _set_class_biases(f.model, images, INT8_CANDIDATES_PER_IMAGE if tag == "int8"
-                      else CANDIDATES_PER_IMAGE)
+    from transparent_object_detection_tpu_torch.kernels.time_serving import set_class_biases
+
+    set_class_biases(f.model, images, INT8_CANDIDATES_PER_IMAGE if tag == "int8"
+                     else CANDIDATES_PER_IMAGE)
     return f, images
 
 
@@ -5818,7 +5888,8 @@ def api_phase(card: str) -> dict:
     """The port's user surface at phi='s' 640x640, bf16 and int8: FOCUS
     (`transparent_object_detection_tpu_torch.api`) built on CUDA, its calls
     with the launch counts reset just before and read just after each, held
-    against the route table (`expected_launches`, batch 1 a forward; the
+    against the route table (`expected_launches`, batch 1 a forward, less
+    the forwards replayed from a captured graph, which run no wrapper; the
     int8 model through every kernel of its route). detect_image and
     predict_dir on three synthetic JPEGs (480x640, 720x1280): `decoded` and
     the detection sets against the same FOCUS on the plain versions
@@ -5846,6 +5917,7 @@ def api_phase(card: str) -> dict:
 
     from transparent_object_detection_tpu_torch.api import _Decoded
     from transparent_object_detection_tpu_torch.config import ModelConfig
+    from transparent_object_detection_tpu_torch.inference import programs_of, release_programs
     from transparent_object_detection_tpu_torch.models.blocks import fuse_conv_bn
     from transparent_object_detection_tpu_torch.models.detector import (
         build_model,
@@ -5889,14 +5961,23 @@ def api_phase(card: str) -> dict:
             pcfg = f.predict_cfg
             rec = {}
             launched = {}  # each counted call's launches, read in this run
+            replayed = {}  # each counted call's graph replays (programs_of)
 
             def counted(fn, forwards, what, batch=1):
+                """fn()'s launches: `forwards` forwards of `batch`, less the
+                calls answered by a captured graph's replay alone (a replay
+                runs no wrapper)."""
+                replays = lambda: sum(p["replayed_calls"] for p in programs_of(f.model))
                 reset_counts()
+                before = replays()
                 result = fn()
                 torch.cuda.synchronize()
                 got = launched[what] = read_counts()
-                want = {k: v * forwards for k, v in expected_launches("s", batch, tag).items()}
-                check(got == want, f"api {tag} {what}: launches {got}, expected {want}")
+                n = replayed[what] = replays() - before
+                want = {k: v * (forwards - n)
+                        for k, v in expected_launches("s", batch, tag).items()}
+                check(got == want and 0 <= n <= forwards,
+                      f"api {tag} {what}: launches {got} and {n} replays, expected {want}")
                 return result
 
             # detect_image, each image one counted forward; then the plain route
@@ -5957,12 +6038,13 @@ def api_phase(card: str) -> dict:
             check(heat.shape == (80, 80) and np.isfinite(heat).all() and heat_d <= limits[1],
                   f"api {tag}: heatmap {heat.shape}, {heat_d} from plain")
             rec["video_fps"], rec["heatmap_max_abs_vs_plain"] = fps, heat_d
-            # get_fps: 1 warm-up call and test_interval timed calls
+            # get_fps: 2 warm-up calls (eager, capture) and test_interval timed replays
             rec["get_fps"] = {}
             for b, calls in ((1, 20), (32, 5)):
-                sec = counted(lambda: f.get_fps(pil[0], calls, b), calls + 1,
+                sec = counted(lambda: f.get_fps(pil[0], calls, b), calls + 2,
                               f"get_fps batch {b}", b)
                 rec["get_fps"][b] = {"s_per_call": sec, "imgs_per_s": b / sec}
+            rec["graph_replays"] = dict(replayed)
             # save_weights -> load_weights: bit for bit
             ts = time.perf_counter()
             before = {k: v.clone() for k, v in f.model.state_dict().items()}
@@ -6006,6 +6088,8 @@ def api_phase(card: str) -> dict:
                   f"api {tag}: summary params {rec['summary']['params']} != {PHI_S_PARAMS}")
             seconds[tag] = time.perf_counter() - t0
             out[tag] = rec
+            release_programs(f.model)  # kept for export and train: not its graphs' pool
+            torch.cuda.empty_cache()
             models[tag] = f
             print(json.dumps({"api": tag, **rec}), flush=True)
 
@@ -6161,7 +6245,9 @@ def _parallel_model(images):
                 c = m.running_mean.numel()
                 m.running_mean.copy_(torch.randn(c, generator=gen) * 0.2)
                 m.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
-    _set_class_biases(model, images, CANDIDATES_PER_IMAGE)
+    from transparent_object_detection_tpu_torch.kernels.time_serving import set_class_biases
+
+    set_class_biases(model, images, CANDIDATES_PER_IMAGE)
     return model
 
 
@@ -7098,6 +7184,482 @@ def parallel_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# serving as captured CUDA graphs (inference.py's program cache) and the
+# exact NMS kernel (csrc/nms_exact.cu)
+# ---------------------------------------------------------------------------
+
+NMS_SRC = "transparent_object_detection_tpu_torch/csrc/nms_exact.cu"
+NMS_THRES = 0.4  # PredictConfig().nms_iou
+NMS_K = 1024     # PredictConfig().pre_nms_topk
+NMS_FAULTS = ("suppressed_box_suppresses", "ge_for_gt", "last_valid_row_skipped")
+
+
+def _nms_iou_of(gen, b, k, chain: bool = False, dup: bool = False):
+    """Pairwise IoU (B, K, K) fp32 on the card of a crowded scene (boxes of
+    10-80 px in 300 px), of suppression chains (40 px boxes 12 px apart:
+    IoU 0.54 with the last, 0.25 with the one before) or of boxes each
+    three times over (ties)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops.geometry import pairwise_iou
+
+    u = lambda *s: torch.rand(*s, generator=gen, device=DEVICE)
+    if chain:
+        start = u(b, k // 32, 1, 2) * 2000
+        steps = torch.arange(32, device=DEVICE)[None, None, :, None] * torch.tensor(
+            [12.0, 0.0], device=DEVICE)
+        xy, wh = (start + steps).reshape(b, k, 2), torch.full((b, k, 2), 40.0, device=DEVICE)
+    elif dup:
+        xy = (u(b, k // 3 + 1, 2) * 400).repeat_interleave(3, dim=1)[:, :k]
+        wh = torch.full((b, k, 2), 30.0, device=DEVICE)
+    else:
+        xy, wh = u(b, k, 2) * 300, 10 + u(b, k, 2) * 70
+    boxes = torch.cat([xy, xy + wh], dim=-1)
+    return pairwise_iou(boxes, boxes).contiguous()
+
+
+def nms_cases(gen) -> dict:
+    """{case: (iou, valid)} on the card: K = 1,024 with every candidate valid
+    and with none, chains, ties, IoU exactly at the threshold, valid
+    prefixes of random lengths; B = 1 and 32."""
+    import torch
+
+    k = NMS_K
+    ar = torch.arange(k, device=DEVICE)
+    full = lambda b: torch.ones(b, k, dtype=torch.bool, device=DEVICE)
+    at = torch.rand(2, k, k, generator=gen, device=DEVICE) * 0.8
+    at[torch.rand(2, k, k, generator=gen, device=DEVICE) < 1 / 3] = float(
+        torch.tensor(NMS_THRES, dtype=torch.float32))
+    counts = torch.randint(0, k + 1, (32, 1), generator=gen, device=DEVICE)
+    return {
+        "all_valid_b1": (_nms_iou_of(gen, 1, k), full(1)),
+        "all_valid_b32": (_nms_iou_of(gen, 32, k), full(32)),
+        "none_valid_b32": (_nms_iou_of(gen, 32, k), ~full(32)),
+        "chains_b1": (_nms_iou_of(gen, 1, k, chain=True), full(1)),
+        "chains_b32": (_nms_iou_of(gen, 32, k, chain=True), full(32)),
+        "ties_b32": (_nms_iou_of(gen, 32, k, dup=True), full(32)),
+        "at_threshold_b2": (at.contiguous(), ar[None, :] < torch.tensor([[k], [700]],
+                                                                         device=DEVICE)),
+        "prefixes_b32": (_nms_iou_of(gen, 32, k), ar[None, :] < counts),
+    }
+
+
+def nms_planted(iou, valid, fault: str):
+    """The plain loop with one of the kernel's possible mistakes (NMS_FAULTS):
+    a suppressed box allowed to suppress, `>=` for `>`, or the scan
+    stopping before the last valid row, which is then never kept."""
+    import torch
+
+    k = iou.shape[-1]
+    idx = torch.arange(k, device=iou.device)
+    over = ((iou >= NMS_THRES) if fault == "ge_for_gt" else (iou > NMS_THRES)) & (
+        idx[None, :] > idx[:, None])
+    keep = torch.ones_like(valid)
+    counts = valid.sum(dim=-1)
+    for i in range(int(counts.max())):
+        alive = valid[:, i] & (True if fault == "suppressed_box_suppresses" else keep[:, i])
+        keep &= ~(over[:, i, :] & alive[:, None])
+    keep &= valid
+    if fault == "last_valid_row_skipped":
+        keep &= idx[None, :] < (counts[:, None] - 1)
+    return keep
+
+
+def nms_kernel_phase() -> dict:
+    """csrc/nms_exact.cu against its plain version (ops/nms.py::
+    nms_exact_plain) on every case of `nms_cases`: identical keep sets, two
+    launches the same bits; each planted fault of NMS_FAULTS gives another
+    keep set on some case (else the comparison would be blind to it); the
+    kernel and the plain loop timed at batch 1 and 32 with every candidate
+    valid (K = 1,024), beside the bytes bound (the IoU entries above the
+    diagonal of the valid rows, valid and keep) and the whole IoU's B x K^2 x 4
+    bytes; the plain loop under torch.cuda.set_sync_debug_mode("error")
+    raises (its count read), the kernel does not."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import nms as N
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    cases = nms_cases(gen)
+    readings, moved = {}, {f: [] for f in NMS_FAULTS}
+    N.reset_launch_counts()
+    for name, (iou, valid) in cases.items():
+        keep = N.nms_exact(iou, valid, NMS_THRES)
+        again = N.nms_exact(iou, valid, NMS_THRES)
+        ref = N.nms_exact_plain(iou, valid, NMS_THRES)
+        torch.cuda.synchronize()
+        diff = int((keep != ref).sum())
+        readings[name] = {"kept": int(keep.sum()), "valid": int(valid.sum()),
+                          "differing": diff, "same_bits_twice": bool(torch.equal(keep, again))}
+        check(diff == 0, f"nms_exact {name}: {diff} keep bits differ from the plain version")
+        check(torch.equal(keep, again), f"nms_exact {name}: two launches gave different bits")
+        for fault in NMS_FAULTS:
+            if not torch.equal(nms_planted(iou, valid, fault), ref):
+                moved[fault].append(name)
+    check(N.nms_exact.launches == 2 * len(cases), f"nms_exact launches {N.nms_exact.launches}")
+    for fault, names in moved.items():
+        check(bool(names), f"nms_exact: no case rejects the planted fault {fault}")
+    # no host read on the kernel's path; the plain loop reads its count
+    iou, valid = cases["chains_b32"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        N.nms_exact(iou, valid, NMS_THRES)
+        try:
+            N.nms_exact_plain(iou, valid, NMS_THRES)
+            plain_raised = False
+        except RuntimeError:
+            plain_raised = True
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(plain_raised, "the plain NMS loop ran under sync debug mode 'error' without raising")
+    timing = {}
+    for b, name in ((1, "all_valid_b1"), (32, "all_valid_b32")):
+        iou, valid = cases[name]
+        k = iou.shape[-1]
+        counts = valid.sum(dim=-1).tolist()
+        need = sum(c * k - c * (c + 1) // 2 for c in counts) * 4 + 2 * b * k
+        ms = timed_ms(lambda: N.nms_exact(iou, valid, NMS_THRES), 20)
+        timing[b] = {"ms": ms, "plain_ms": timed_ms(
+            lambda: N.nms_exact_plain(iou, valid, NMS_THRES), 3, 1),
+            "bound_ms": need / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "bound_full_iou_ms": (b * k * k * 4 + 2 * b * k) / PEAK_BYTES * 1e3,
+            "device_ms": device_ms(lambda: N.nms_exact(iou, valid, NMS_THRES)),
+            "library_ms": None}
+    out = {"cases": readings, "faults_rejected_on": moved, "plain_raised_under_sync_debug":
+           plain_raised, "timing": timing}
+    print(json.dumps({"nms_exact": out}), flush=True)
+    return out
+
+
+# each csrc/ kernel function a serving graph holds, and the launch counters
+# (read_counts) of the wrappers that launch it once a call
+GRAPH_NODE_COUNTERS = {
+    "flash_fwd_sm90_kernel": ("flash_mha_packed_sm90", "flash_single_sm90"),
+    "flash_fwd_kernel": ("flash_mha_packed",),
+    "flash_fwd_f32_sm90_kernel": ("flash_mha_packed_f32", "flash_single_f32"),
+    "flash_int8_sm90_kernel": ("flash_mha_int8_sm90", "flash_mha_int8_qout_sm90",
+                               "flash_int8_handoff_sm90"),
+    "qmm_sm90_kernel": ("qmm",),
+    "quant_rows_kernel": ("quant_rows", "quant_rows_int4"),
+    "nms_exact_kernel": ("nms_exact",),
+}
+GRAPH_BATCHES = ((1, (480, 640)), (4, (480, 640)), (32, (480, 640)))
+GRAPH_ALTERNATED = ((4, (480, 640)), (4, (720, 1280)))  # shapes A and B
+GRAPH_PARTS = (16, (480, 640))  # a batch replayed over two parts
+# scale_slice_phase's arguments at phi='l' (tags, counted batches, timed,
+# shared weights, no fp32 forward, the throughput batches to fit)
+PHI_L_SLICE = (("bf16", "int8", "A", "B"), (2, 1), True, True, False, (32, 16, 8))
+
+
+def graph_kernel_nodes(graph, path: str) -> dict:
+    """{kernel: nodes} of GRAPH_NODE_COUNTERS' kernels in a graph captured in
+    debug mode (CUDAGraph.debug_dump's DOT file: a kernel node's label holds
+    its function's name), and the graph's kernel nodes in all."""
+    import re
+
+    graph.debug_dump(path)
+    with open(path) as fh:  # a node's label may span lines: split at each node
+        nodes = [n for n in re.split(r'\n(?="?graph_\d+_node_\d+"?\s*\[)', fh.read())
+                 if "KERNEL" in n]
+    # the name, not a longer name's tail: quant_rows_kernel is not
+    # requant_rows_kernel (mangled names run on into their arguments)
+    count = lambda name: sum(bool(re.search(r"(?<![A-Za-z_])" + name, n)) for n in nodes)
+    return {**{name: count(name) for name in GRAPH_NODE_COUNTERS}, "kernel_nodes": len(nodes)}
+
+
+def graphs_phase(card: str, bf16_model) -> dict:
+    """phi='s' 640x640 served through the Predictor's captured CUDA graphs,
+    in bf16 and int8 (int8_dense + int8_attn) on the bf16 slice's weights,
+    with class biases for ~CANDIDATES_PER_IMAGE detections an image:
+      * batch 1, 4 and 32 of 480x640 raw images: the graphed call (the
+        shape's second, its capture, and a replay) against eager
+        `raw_detect_step` on the same kernels, the same bits; the launches
+        the wrappers count into the capture and the graph's kernel nodes by
+        name (debug_dump) against `expected_launches` (nms_exact once), a
+        replay counting none (it runs no wrapper; the entry counts it);
+        capture seconds and the pool's growth;
+      * batch 16 replayed over two parts of 8 (one graph of 8, forced): its
+        kernel nodes against batch 8's launches, the result against eager
+        on each half bit for bit, and eager on the halves against eager on
+        the whole batch within the slice's limits (`decoded`, detection sets
+        matched anchor by anchor: cuDNN's convs differ in their last bf16
+        bits from one batch to another);
+      * shapes A and B (batch 4 of 480x640 and of 720x1280, one memory pool)
+        alternated A, B, A, B, each against eager;
+      * new images into the same graph against eager on them; the planted
+        fault, a replay whose static input buffer was not refreshed, must
+        differ from eager;
+      * the weights updated in place (FOCUS.fuse's load_state_dict of the
+        BatchNorms folded into the convs; the class towers' weights scaled),
+        then every tensor replaced by a new one (load_state_dict(
+        assign=True)), each against eager on the new weights (an int8
+        model's weight caches make an in-place update a new warm-up and
+        capture; bf16 replays it);
+      * eager raw_detect_step on device tensors under
+        torch.cuda.set_sync_debug_mode("error"): it raises nothing.
+    Times are kernels/time_serving.py --graphs' (E, G, G, E)."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.kernels.time_serving import set_class_biases
+    from transparent_object_detection_tpu_torch.models.blocks import fuse_conv_bn
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops import nms as N
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
+    pcfg = PredictConfig()
+    rng = np.random.default_rng(SEED + 23)
+    raws = {}
+
+    def raw_of(b, hw, seed=0):
+        key = (b, hw, seed)
+        if key not in raws:
+            r = np.random.default_rng(1000 * seed + b + hw[1])
+            raws[key] = (r.integers(0, 256, size=(b, *hw, 3), dtype=np.uint8),
+                         np.tile(np.array([hw], np.float32), (b, 1)))
+        return raws[key]
+
+    def same_bits(a, b):
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    def differs(a, b):
+        return {"boxes_max_abs_px": float((a["boxes"] - b["boxes"]).abs().max()),
+                "scores_max_abs": float((a["scores"] - b["scores"]).abs().max()),
+                "num_detections": [a["num_detections"].tolist(), b["num_detections"].tolist()]}
+
+    def program(model, b, hw):
+        return next(p for key, p in I._SERVED[model].programs.items()
+                    if key[0] == "detect_raw_batch" and key[3][0][0] == (b, *hw, 3))
+
+    def node_want(b, tag):
+        want = {**expected_launches("s", b, tag), "nms_exact": 1}
+        return want, {k: sum(want[c] for c in cs) for k, cs in GRAPH_NODE_COUNTERS.items()}
+
+    def launches_of(fn):  # the wrappers' counts over one call, from 0
+        reset_counts()
+        N.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        return got, {**read_counts(), "nms_exact": N.nms_exact.launches}
+
+    real_graph = torch.cuda.CUDAGraph
+
+    class DebugGraph(real_graph):
+        """A graph that keeps its cudaGraph_t for debug_dump (keep_graph) and
+        is instantiated at the end of its capture, as an unkept graph is."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(keep_graph=True)
+            self.enable_debug_mode()
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    out = {"card": card}
+    tmp = tempfile.TemporaryDirectory()
+    torch.cuda.CUDAGraph = DebugGraph
+    try:
+        for tag in ("bf16", "int8"):
+            int8 = tag == "int8"
+            cfg = ModelConfig(int8_dense=int8, int8_attn=int8)
+            model = build_model(cfg, device=DEVICE, seed=None, int8_variants=Int8Variants())
+            model.load_state_dict(bf16_model.state_dict())
+            images = letterbox_batch(torch.as_tensor(raw_of(4, (480, 640))[0], device=DEVICE)
+                                     .float() / 255.0, cfg.input_shape)
+            set_class_biases(model, images, INT8_CANDIDATES_PER_IMAGE if int8
+                             else CANDIDATES_PER_IMAGE)
+            predictor = I.Predictor(model, cfg, pcfg, device=DEVICE)
+            rec = {"shapes": {}}
+            for b, hw in GRAPH_BATCHES:
+                raw, shapes = raw_of(b, hw)
+                eager = eager_detect(predictor, raw, shapes)
+                first = predictor.detect_raw_batch(raw, shapes)  # eager, through the cache
+                captured, counts = launches_of(lambda: predictor.detect_raw_batch(raw, shapes))
+                replayed, replay_counts = launches_of(
+                    lambda: predictor.detect_raw_batch(raw, shapes))
+                want, nodes_want = node_want(b, tag)
+                prog = program(model, b, hw)
+                nodes = graph_kernel_nodes(prog.graph, os.path.join(tmp.name, f"{tag}_{b}.dot"))
+                r = rec["shapes"][b] = {
+                    "raw_hw": hw, "eager_first_same_bits": same_bits(first, eager),
+                    "captured_same_bits": same_bits(captured, eager),
+                    "replayed_same_bits": same_bits(replayed, eager),
+                    "differs": differs(replayed, eager), "capture_launches": counts,
+                    "replay_launches": {k: v for k, v in replay_counts.items() if v},
+                    "replays": prog.replays, "kernel_nodes": nodes,
+                    "capture_s": prog.capture_s, "pool_gib": prog.pool_bytes / 2**30,
+                    "num_detections": replayed["num_detections"].tolist()}
+                print(json.dumps({"graph_shape": tag, "batch": b, **r}), flush=True)
+                check(r["eager_first_same_bits"] and r["captured_same_bits"]
+                      and r["replayed_same_bits"],
+                      f"graphs {tag} batch {b}: graphed != eager: {r['differs']}")
+                check(counts == want, f"graphs {tag} batch {b}: launches into the graph {counts}, "
+                                      f"expected {want}")
+                check(not r["replay_launches"] and prog.parts == 1 and prog.replays == 2,
+                      f"graphs {tag} batch {b}: a replay ran wrappers {r['replay_launches']}, "
+                      f"or replayed {prog.replays} times in {prog.parts} parts")
+                check(all(nodes[k] == nodes_want[k] for k in nodes_want),
+                      f"graphs {tag} batch {b}: kernel nodes {nodes}, expected {nodes_want}")
+                check(bool((replayed["num_detections"] > 0).all()),
+                      f"graphs {tag} batch {b}: empty detections")
+            # a batch whose graph would not fit whole: one graph of half of it
+            # replayed over both halves (the decision, inference._parts, is
+            # held on the CPU; here it is forced), against eager on each half
+            # (the same bits); eager on the halves against eager on the whole
+            # within the slice's limits, `decoded` and the detection sets
+            # matched anchor by anchor: a conv (cuDNN) picks another algorithm
+            # at another batch, so the bf16 bits differ from neck.h1.reduce on
+            b, hw = GRAPH_PARTS
+            raw, shapes = raw_of(b, hw, seed=4)
+            eager = eager_detect(predictor, raw, shapes)
+            halves = [eager_detect(predictor, raw[i:i + b // 2], shapes[i:i + b // 2])
+                      for i in (0, b // 2)]
+            by_halves = {k: torch.cat([h[k] for h in halves]) for k in halves[0]}
+            with torch.inference_mode():
+                imgs = letterbox_batch(torch.as_tensor(raw, device=DEVICE).float() / 255.0,
+                                       cfg.input_shape)
+                dec_whole = model(imgs)["decoded"]
+                dec_halves = torch.cat([model(imgs[:b // 2])["decoded"],
+                                        model(imgs[b // 2:])["decoded"]])
+                del imgs
+            first = predictor.detect_raw_batch(raw, shapes)  # the whole batch's eager call
+            real_parts = I._parts
+            I._parts = lambda batch, peak, free: 2
+            try:
+                captured = predictor.detect_raw_batch(raw, shapes)
+            finally:
+                I._parts = real_parts
+            replayed = predictor.detect_raw_batch(raw, shapes)
+            prog = program(model, b, hw)
+            nodes = graph_kernel_nodes(prog.graph, os.path.join(tmp.name, f"{tag}_parts.dot"))
+            nodes_want = node_want(b // 2, tag)[1]
+            box_limit, score_limit = SCALE_LIMITS[tag][:2]
+            r = rec["parts"] = {
+                "batch": b, "parts": prog.parts, "replays": prog.replays,
+                "eager_first_same_bits": same_bits(first, eager),
+                "captured_same_bits_as_halves": same_bits(captured, by_halves),
+                "replayed_same_bits_as_halves": same_bits(replayed, by_halves),
+                "replayed_differs_from_halves": differs(replayed, by_halves),
+                "halves_same_bits_as_whole": same_bits(by_halves, eager),
+                "decoded_halves_vs_whole": {
+                    "box_max_abs_px": float((dec_halves - dec_whole)[..., :4].abs().max()),
+                    "score_max_abs": float((dec_halves - dec_whole)[..., 4:].abs().max())},
+                "matched_in_whole": match_per_anchor(dec_halves, dec_whole, pcfg),
+                "whole_matched_here": match_per_anchor(dec_whole, dec_halves, pcfg),
+                "kernel_nodes": nodes, "limits": {"box_px": box_limit, "score": score_limit}}
+            print(json.dumps({"graph_parts": tag, **r}), flush=True)
+            check(prog.parts == 2 and prog.replays == 4 and prog.inputs[0].shape[0] == b // 2,
+                  f"graphs {tag}: batch {b} in {prog.parts} parts, {prog.replays} replays")
+            check(all(nodes[k] == nodes_want[k] for k in nodes_want),
+                  f"graphs {tag} parts: kernel nodes {nodes}, expected {nodes_want}")
+            check(r["eager_first_same_bits"] and r["captured_same_bits_as_halves"]
+                  and r["replayed_same_bits_as_halves"],
+                  f"graphs {tag}: batch {b} in parts against eager on its halves: {r}")
+            d = r["decoded_halves_vs_whole"]
+            check(d["box_max_abs_px"] <= box_limit and d["score_max_abs"] <= score_limit
+                  and all(r[m]["compared"] > 0 and r[m]["unmatched"] == 0
+                          for m in ("matched_in_whole", "whole_matched_here")),
+                  f"graphs {tag}: eager on the halves of batch {b} against eager on the whole: "
+                  f"{r}")
+            # shapes A and B alternated: one pool, each replay against eager
+            alt = []
+            for b, hw in GRAPH_ALTERNATED * 2:
+                raw, shapes = raw_of(b, hw, seed=1)
+                if hw not in [a["raw_hw"] for a in alt]:  # B's warm-up and capture
+                    for _ in range(2):
+                        predictor.detect_raw_batch(raw, shapes)
+                got = predictor.detect_raw_batch(raw, shapes)
+                alt.append({"raw_hw": hw, "same_bits": same_bits(got, eager_detect(
+                    predictor, raw, shapes))})
+            rec["alternated"] = alt
+            check(all(a["same_bits"] for a in alt), f"graphs {tag}: alternated shapes {alt}")
+            # new images into the same graph; a replay on a stale buffer rejected
+            a_b, a_hw = GRAPH_ALTERNATED[0]
+            raw, shapes = raw_of(a_b, a_hw, seed=2)
+            fresh = eager_detect(predictor, raw, shapes)
+            got = predictor.detect_raw_batch(raw, shapes)
+            new_raw, _ = raw_of(a_b, a_hw, seed=3)
+            stale = program(model, a_b, a_hw)
+            with torch.inference_mode():
+                stale.graph.replay()  # the new images never copied in
+                stale_out = I._cloned(stale.output)
+            rec["new_images_same_bits"] = same_bits(got, fresh)
+            newer = eager_detect(predictor, new_raw, shapes)
+            rec["stale_buffer_fault"] = differs(stale_out, newer)
+            check(rec["new_images_same_bits"], f"graphs {tag}: new images != eager")
+            check(not same_bits(stale_out, newer),
+                  f"graphs {tag}: a stale input buffer gave eager's bits on new images")
+            # weights scaled in place, then replaced by new tensors
+            raw, shapes = raw_of(a_b, a_hw)
+            weights = {}
+            # in place: FOCUS.fuse's fold of each BatchNorm into its conv, then
+            # the class towers' weights scaled
+            def update(change):
+                change()
+                before = program(model, a_b, a_hw).replayed_calls
+                got = predictor.detect_raw_batch(raw, shapes)
+                if int8:  # the int8 weight caches: a new warm-up, then a capture
+                    got = predictor.detect_raw_batch(raw, shapes)
+                return {"same_bits": same_bits(got, eager_detect(predictor, raw, shapes)),
+                        "replayed_without_capture": program(model, a_b, a_hw).replayed_calls
+                        == before + 1}
+
+            weights["fused_in_place"] = update(
+                lambda: model.load_state_dict(fuse_conv_bn(model.state_dict())))
+
+            @torch.no_grad()
+            def scale():
+                for i in range(3):
+                    getattr(model.head, f"cls{i}").out.weight.mul_(1.25)
+            weights["scaled_in_place"] = update(scale)
+            model.load_state_dict({k: v.clone() for k, v in model.state_dict().items()},
+                                  assign=True)
+            for _ in range(2):  # a warm-up on the new tensors, then their capture
+                got = predictor.detect_raw_batch(raw, shapes)
+            weights["replaced"] = {"same_bits": same_bits(got, eager_detect(predictor, raw,
+                                                                            shapes))}
+            rec["weights"] = weights
+            check(all(w["same_bits"] for w in weights.values()),
+                  f"graphs {tag}: weight changes not followed: {weights}")
+            for how in ("fused_in_place", "scaled_in_place"):
+                check(weights[how]["replayed_without_capture"] != int8,
+                      f"graphs {tag}: {how} {weights[how]}")
+            # no host read on the eager path either
+            dev_raw = torch.as_tensor(raw, device=DEVICE)
+            dev_shapes = torch.as_tensor(shapes, device=DEVICE)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.inference_mode():
+                    I.raw_detect_step(model, dev_raw, dev_shapes, cfg.input_shape, pcfg)
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            rec["sync_debug_error_raised"] = False
+            rec["pool_gib"] = sum(p["pool_bytes"] for p in I.programs_of(model)) / 2**30
+            print(json.dumps({"graphs": tag, **{k: v for k, v in rec.items()
+                                                if k != "shapes"}}), flush=True)
+            out[tag] = rec
+            del model, predictor
+            torch.cuda.empty_cache()
+    finally:
+        torch.cuda.CUDAGraph = real_graph
+        tmp.cleanup()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7144,6 +7706,18 @@ def main() -> int:
         phase("train scale kernel", train_scale_kernel_phase)
         phase("wide tp", wide_tp_phase)
         return 0
+    if sys.argv[1:] == ["graphs"]:  # the exact NMS kernel and the graphs phase, no result line
+        from transparent_object_detection_tpu_torch.config import ModelConfig
+        from transparent_object_detection_tpu_torch.models.detector import build_model
+
+        phase("nms kernel", nms_kernel_phase)
+        m = build_model(ModelConfig(), device=DEVICE, seed=SEED)
+        m.backbone.dark3_attn.gamma.data.fill_(0.5)
+        phase("graphs", graphs_phase, card, m)
+        return 0
+    if sys.argv[1:] == ["l"]:  # the phi='l' serving phase alone, no result line
+        phase("phi=l slice", scale_slice_phase, card, "l", *PHI_L_SLICE)
+        return 0
     if sys.argv[1:] == ["int8_1x1"]:  # the int8 1x1 route alone (bf16 weights), no result line
         from transparent_object_detection_tpu_torch.config import ModelConfig
         from transparent_object_detection_tpu_torch.models.detector import build_model
@@ -7166,6 +7740,8 @@ def main() -> int:
     variants = phase("variant slice", variant_slice_phase, card, bf16_model, same_run)
     i1x1_err = phase("int8 1x1 kernel", int8_1x1_kernel_phase)
     i1x1 = phase("int8 1x1", int8_1x1_phase, card, bf16_model)
+    nms = phase("nms kernel", nms_kernel_phase)
+    graphs = phase("graphs", graphs_phase, card, bf16_model)
     del bf16_model
     torch.cuda.empty_cache()
     train_launches = phase("train slice", train_slice_phase, card)["launches"]
@@ -7177,8 +7753,7 @@ def main() -> int:
     phase("serve matrix", serve_matrix_phase, card)
     # phi='l' (8.33 B parameters) served end to end: bf16, int8, A, B from
     # one fp32 copy of the weights, throughput at the largest batch that fits
-    l_run = phase("phi=l slice", scale_slice_phase, card, "l", ("bf16", "int8", "A", "B"),
-                  (2, 1), timed=True, shared=True, fp32=False, big=(32, 16, 8))
+    l_run = phase("phi=l slice", scale_slice_phase, card, "l", *PHI_L_SLICE)
     train_scale = phase("train scale kernel", train_scale_kernel_phase)
     wide_tp = phase("wide tp", wide_tp_phase)
     phase("folded route", folded_route_check)
@@ -7390,6 +7965,21 @@ def main() -> int:
         kernels.append(int8_kernel_entry(
             f"{name} int8_1x1", source, f"{jq}:{80 if counter == 'qmm' else 408}",
             i1x1["rows"][counter], i1x1["launches"]["int8_1x1"][32][counter], i1x1_err[counter]))
+    # the exact NMS kernel: launches of the counted main path (the bf16
+    # slice's detect_raw_batch), times at batch 32 (batch 1 apart) with
+    # every candidate valid; the kernel nodes of the graphs phase's graphs
+    t32, t1 = nms["timing"][32], nms["timing"][1]
+    kernels.append({
+        "name": "nms_exact", "route": "cuda", "source": NMS_SRC,
+        "replaces": "transparent_object_detection_tpu/ops/nms.py:35",
+        "launches": launches["nms_exact"],
+        "max_abs_err": float(max(r["differing"] for r in nms["cases"].values())),
+        "ms": t32["ms"], "plain_ms": t32["plain_ms"], "bound_ms": t32["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "batch1": {k: t1[k] for k in ("ms", "plain_ms", "bound_ms", "device_ms")},
+        "device_ms": t32["device_ms"],
+        "graph_nodes": {tag: {b: graphs[tag]["shapes"][b]["kernel_nodes"]["nms_exact_kernel"]
+                              for b in graphs[tag]["shapes"]} for tag in ("bf16", "int8")}})
     print(json.dumps({"smoke_total_s": time.perf_counter() - t_start, "phase_s": phase_s,
                       "api_s": api["seconds"]}), flush=True)
     print(card)

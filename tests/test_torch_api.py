@@ -45,6 +45,7 @@ from transparent_object_detection_tpu_torch.models.detector import FocusModel, c
 from transparent_object_detection_tpu_torch.ops import attention as A
 from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
 from transparent_object_detection_tpu_torch.ops import library
+from transparent_object_detection_tpu_torch.ops import nms as NMS
 from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
 from transparent_object_detection_tpu_torch.utils import common as tcommon
 from transparent_object_detection_tpu_torch.utils import profiling
@@ -394,6 +395,7 @@ def _op_cases():
         "qmm_quant_out": (xq, xs, w["wq"], w["w_scale"], w["bias"], None, None, 16,
                           torch.float32),
         "qmm_ln_out": (xq, xs, w["wq"], w["w_scale"], None, "silu", res, 1e-6, torch.float32),
+        "nms_exact": (torch.rand(b, n, n, generator=g), torch.arange(n).expand(b, n) < 40, 0.4),
     }
     plain = {
         "flash_mha_packed": lambda a: A.flash_mha_packed_plain(*a),
@@ -406,6 +408,7 @@ def _op_cases():
         "qmm": lambda a: QM.qmm_plain(*a[:7], None, None, a[7]),
         "qmm_quant_out": lambda a: QM.qmm_plain(*a[:7], a[7], None, a[8]),
         "qmm_ln_out": lambda a: QM.qmm_plain(*a[:7], None, a[7], a[8]),
+        "nms_exact": lambda a: NMS.nms_exact_plain(*a),
     }
     return {name: (getattr(torch.ops.focus, name), args[name], plain[name])
             for name in library.OPS}
@@ -427,7 +430,7 @@ def test_op_formula_counts_plain_flops(name):
     with FlopCounterMode(display=False) as via_plain:
         ref = plain(args)
     assert via_op.get_total_flops() == via_plain.get_total_flops()
-    assert (via_op.get_total_flops() > 0) == (name != "quant_rows")
+    assert (via_op.get_total_flops() > 0) == (name not in ("quant_rows", "nms_exact"))
     for a, b in zip(*(x if isinstance(x, tuple) else (x,) for x in (out, ref))):
         assert a.dtype == b.dtype and torch.equal(a, b)
 

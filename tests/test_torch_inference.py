@@ -46,11 +46,42 @@ def _nms_inputs(seed: int, b: int = 2, a: int = 300, nc: int = 3):
     return boxes, scores
 
 
-@pytest.mark.parametrize("mode", ["exact", "fast"])
-@pytest.mark.parametrize("class_agnostic", [False, True])
-def test_batched_nms_keep_sets_match(mode, class_agnostic):
-    boxes, scores = _nms_inputs(0)
-    kw = dict(conf_thres=0.3, iou_thres=0.4, max_detections=50, pre_nms_topk=128,
+def _nms_chain_inputs(seed: int, b: int = 2, chains: int = 40, length: int = 20,
+                      loose: int = 500, nc: int = 3):
+    """Every candidate above the confidence, K = 1,024 of 1,300: chains of
+    40 x 40 boxes of one class, each 12 px right of the last (IoU 0.54 with
+    it, 0.25 with the one before) at falling scores, so the greedy loop keeps
+    every other box, beside loose boxes; scores on a grid of 1/80, so there
+    are ties within and across chains."""
+    rng = np.random.default_rng(seed)
+    start = rng.uniform(0, 500, (b, chains, 1, 2))
+    steps = np.arange(length)[None, None, :, None] * np.array([12.0, 0.0])
+    xy = np.concatenate([(start + steps).reshape(b, -1, 2),
+                         rng.uniform(0, 600, (b, loose, 2))], axis=1)
+    wh = np.concatenate([np.full((b, chains * length, 2), 40.0),
+                         rng.uniform(5, 60, (b, loose, 2))], axis=1)
+    boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    top = rng.integers(40, 81, (b, chains, 1))
+    chain_scores = np.maximum(top - np.arange(length)[None, None, :], 28).reshape(b, -1)
+    best = np.concatenate([chain_scores, rng.integers(28, 81, (b, loose))], axis=1) / 80.0
+    cls = np.concatenate([np.repeat(rng.integers(0, nc, (b, chains)), length, axis=1),
+                          rng.integers(0, nc, (b, loose))], axis=1)
+    scores = np.where(np.arange(nc) == cls[..., None], best[..., None], 0.5 * best[..., None])
+    return boxes, scores.astype(np.float32)
+
+
+NMS_CASES = {"mixed": (lambda: _nms_inputs(0), 128, 50),
+             "k1024_all_valid_chains": (lambda: _nms_chain_inputs(7), 1024, 1024)}
+
+
+@pytest.mark.parametrize("class_agnostic,mode,case", [
+    pytest.param(agnostic, mode, case, id="-".join([str(agnostic), mode]
+                                                   + ([case] if case != "mixed" else [])))
+    for case in NMS_CASES for agnostic in (False, True) for mode in ("exact", "fast")])
+def test_batched_nms_keep_sets_match(mode, class_agnostic, case):
+    make, topk, max_det = NMS_CASES[case]
+    boxes, scores = make()
+    kw = dict(conf_thres=0.3, iou_thres=0.4, max_detections=max_det, pre_nms_topk=topk,
               mode=mode, class_agnostic=class_agnostic)
     ref = jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores), **kw)
     out = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)

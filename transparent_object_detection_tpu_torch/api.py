@@ -413,8 +413,10 @@ class FOCUS:
     def get_fps(self, image=None, test_interval: int = 100, batch_size: int = 1) -> float:
         """Mean seconds per detection call of `batch_size` letterboxed images
         over test_interval calls enqueued back to back, ending in one read of
-        the detection counts on the host (the first call, outside the timed
-        loop, warms up)."""
+        the detection counts on the host. Two calls outside the timed loop
+        warm up: on CUDA the first runs eagerly and the second captures the
+        shape's CUDA graph, so the loop times replays, as JAX's times its
+        compiled program."""
         from PIL import Image
 
         if image is None:
@@ -423,7 +425,8 @@ class FOCUS:
         arr = torch.from_numpy(np.tile(self._letterboxed(image)[1][None], (batch_size, 1, 1, 1)))
         arr = arr.to(self.device)
         shapes = torch.tensor([[h, w]] * batch_size, dtype=torch.float32, device=self.device)
-        dets = self.predictor.detect_letterboxed(arr, shapes)
+        for _ in range(2):
+            dets = self.predictor.detect_letterboxed(arr, shapes)
         float(dets["num_detections"].sum())
         t0 = time.time()
         for _ in range(test_interval):

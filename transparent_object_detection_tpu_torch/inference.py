@@ -4,9 +4,48 @@ transparent_object_detection_tpu/inference.py):
     device letterbox -> FocusModel forward -> DFL decode -> batched NMS ->
     unletterbox
 
-All of it runs on the Predictor's device; the only transfers are the input
-batch and the fixed-shape detection struct (plus one count read by the exact
-NMS loop). PyTorch runs eagerly: there is no compiled program to cache.
+All of it runs on the Predictor's device, and nothing is read back to the
+host between preprocessing and final detections: the only transfers are
+the input batch and the fixed-shape detection struct (the exact NMS is one
+kernel whose loop is bounded on the device, ops/nms.py).
+
+On CUDA, with no mesh, each entry (`detect_letterboxed`, `detect_raw_batch`,
+`class_activation_map`) runs as one captured CUDA graph per batch shape,
+the counterpart of the JAX Predictor's one compiled XLA program per batch
+shape (JAX `_jitted`). The graphs live in a process-wide cache keyed on
+everything a call reads while it is traced: the model object (held weakly:
+its graphs go with it), the entry, `input_shape`, `predict_cfg`, each
+input's shape and dtype, and each module's kernel switch
+(`set_attention_impl`), int8 variants, compute dtype, mode and data
+shards, so two Predictors on one model and config share one graph. The
+first call of a key runs eagerly: the warm-up a capture needs (kernel
+builds, shared-memory attributes, cuBLAS and cuDNN first use, the int8
+weight caches). The second call captures and replays; later calls copy
+their inputs into the graph's static buffers and replay. Outputs are
+cloned, so a later call never overwrites an earlier result.
+
+A graph reads the weights at replay, so weights updated in place (an
+optimizer or EMA step, `FOCUS.fuse`'s load_state_dict) are seen. A graph
+reads the tensors it was captured on, so every call compares the
+`data_ptr()`s of the model's parameters and buffers (and of a wrapper's
+`variables`, eval/callbacks.py's _ModelOn) with those the graph was
+captured on; where one differs (`.to()`, `load_state_dict(assign=True)`,
+an EvalCallback's new variables), the call runs eagerly again and the next
+one captures anew. A model with int8 weight caches (made once from the
+weights, outside the graph: models/blocks.py `_cached`) also compares the
+tensors' versions, so an in-place update there is a new warm-up too. What
+the key reads of the modules is models/detector.py's TRACED_ATTRS.
+
+A capture's memory pool takes more than its eager call (PERF.md), so a
+batch whose graph is predicted not to fit beside what the card holds (phi
+'l' at batch 32) is captured at a part of it and replayed over its equal
+parts, the int8 1x1 convs gated on the whole batch's rows as eagerly.
+
+A failed capture raises; nothing falls back to eager. On the CPU, and on a
+mesh (gloo's host-staged collectives cannot be captured), the Predictor runs
+eagerly. The kernels' launch counters move where a wrapper launches its
+kernel, eagerly or into a graph being captured; a replay runs no wrapper,
+and `programs_of` counts the replays and the calls answered by them alone.
 
 On a mesh (parallel/) every rank is handed the global batch, as the JAX
 caller hands one global array: each data index runs its rows, and the
@@ -16,14 +55,22 @@ parallel on the Predictor's own sharded copy of the weights.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import dataclasses
+import time
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
 from transparent_object_detection_tpu_torch.models.blocks import global_rows
-from transparent_object_detection_tpu_torch.models.detector import FocusModel, resolve_device
+from transparent_object_detection_tpu_torch.models.detector import (
+    FocusModel,
+    TracedModules,
+    resolve_device,
+)
 from transparent_object_detection_tpu_torch.ops.geometry import xywh2xyxy
 from transparent_object_detection_tpu_torch.ops.nms import batched_nms
 from transparent_object_detection_tpu_torch.ops.preprocess import (
@@ -63,9 +110,224 @@ def detect_step(model: FocusModel, images: torch.Tensor, image_shapes: torch.Ten
     return dets
 
 
+def raw_detect_step(model: FocusModel, raw_images: torch.Tensor, image_shapes: torch.Tensor,
+                    input_shape: Tuple[int, int],
+                    predict_cfg: PredictConfig) -> Dict[str, torch.Tensor]:
+    """`detect_step` on a uniform-size batch (B, H, W, 3) of 0-255 pixels,
+    letterboxed on the device first (JAX `_letterbox_detect_step`)."""
+    images = letterbox_batch(raw_images.float() / 255.0, input_shape)
+    return detect_step(model, images, image_shapes, input_shape, predict_cfg)
+
+
+def cam_step(model: FocusModel, images: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """Max class-probability heatmap (B, H/8, W/8) of letterboxed images."""
+    raw = model(images, decode=False)["raw"]
+    return torch.sigmoid(raw[0][..., 4 * reg_max:].float()).amax(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# the program cache: one captured CUDA graph per key
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Program:
+    """One key's entry: the fingerprint of the tensors it was warmed up or
+    captured on (models.detector.TracedModules.fingerprint) and its warm-up's
+    peak bytes above the memory allocated before it; once captured, the
+    number of equal parts a call's batch runs in (1 unless the whole batch's
+    graph would not fit), the graph of one part, its static input buffers
+    and output, the capture's seconds and the bytes the graph pool grew by.
+    The key's counts go on across its captures: the graphs' replays, and
+    the calls answered by replays alone (no wrapper ran in them)."""
+
+    fingerprint: tuple
+    peak_bytes: int = 0
+    parts: int = 1
+    graph: Any = None
+    inputs: Tuple[torch.Tensor, ...] = ()
+    output: Any = None
+    capture_s: float = 0.0
+    pool_bytes: int = 0
+    replays: int = 0
+    replayed_calls: int = 0
+
+
+@dataclasses.dataclass
+class _Served:
+    """A model's record in the program cache: its programs by key, the memory
+    pool its graphs share and its flattened modules."""
+
+    programs: Dict[tuple, Program] = dataclasses.field(default_factory=dict)
+    pool: Any = None
+    modules: Optional[TracedModules] = None
+
+
+_SERVED: "weakref.WeakKeyDictionary[nn.Module, _Served]" = weakref.WeakKeyDictionary()
+
+# the bytes a captured graph's pool takes, as a multiple of its eager call's
+# peak above the memory allocated before it: measured 1.24-1.50 at phi 's'
+# and 'l' (kernels/time_serving.py --graphs; PERF.md), the cause not measured
+GRAPH_POOL_OVER_EAGER = 1.6
+
+
+def _traced(model: nn.Module) -> Tuple[_Served, TracedModules]:
+    served = _SERVED.get(model)
+    if served is None:
+        served = _SERVED[model] = _Served()
+    if served.modules is None or not served.modules.current():
+        served.modules = TracedModules(model)
+    return served, served.modules
+
+
+def _warm_up(step: Callable, model: nn.Module, inputs: Tuple[torch.Tensor, ...]):
+    """`step(model, *inputs)` eagerly: (its output, its peak bytes above the
+    memory allocated before it; 0 off CUDA). It resets the card's peak
+    memory statistic."""
+    device = inputs[0].device
+    if device.type != "cuda":
+        return step(model, *inputs), 0
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = step(model, *inputs)
+    return out, torch.cuda.max_memory_allocated(device) - before
+
+
+def _free_bytes(device: torch.device) -> int:
+    """What a capture on `device` may take: the card's free memory and the
+    allocator's cached blocks (a capture empties the cache first)."""
+    if device.type != "cuda":
+        return 1 << 62
+    return (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def _parts(batch: int, peak_bytes: int, free: int) -> int:
+    """The fewest equal parts of `batch` whose graph is predicted to fit in
+    `free` bytes (GRAPH_POOL_OVER_EAGER times its share of the whole
+    batch's peak)."""
+    return next(n for n in range(1, batch + 1)
+                if batch % n == 0 and (GRAPH_POOL_OVER_EAGER * peak_bytes / n <= free
+                                       or n == batch))
+
+
+def _pool(served: _Served):
+    """The memory pool of a model's graphs: one handle while any of its
+    graphs lives, a new one once none does. PyTorch refuses a capture into
+    a pool whose graphs are all gone while it still holds a block (an
+    allocation made during a capture and kept past it: seen when an
+    EvalCallback's new variables replaced the process's first graph)."""
+    if served.pool is None or all(p.graph is None for p in served.programs.values()):
+        served.pool = torch.cuda.graph_pool_handle()
+    return served.pool
+
+
+def _capture_graph(step: Callable, model: nn.Module, inputs: Tuple[torch.Tensor, ...]):
+    """Capture `step(model, *inputs)` into a CUDA graph in the model's
+    memory pool: (graph, static output, bytes the pool grew by). One pool
+    serves all of a model's graphs, so it holds the largest shape's
+    intermediates rather than the sum of its shapes' (phi='l'). That is
+    safe because replays run one after another on one stream, inputs are
+    copied in before a replay and outputs cloned out after it: no graph
+    reads another's intermediates. Captured with
+    capture_error_mode="thread_local", so that other threads (the fit's
+    loader threads) may call CUDA meanwhile."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=_pool(_SERVED[model]), capture_error_mode="thread_local"):
+        reserved = torch.cuda.memory_reserved()  # after the context emptied the cache
+        out = step(model, *inputs)
+    return graph, out, torch.cuda.memory_reserved() - reserved
+
+
+def _cloned(out):
+    return {k: v.clone() for k, v in out.items()} if isinstance(out, dict) else out.clone()
+
+
+def _replayed(prog: Program, inputs: Tuple[torch.Tensor, ...]):
+    """The program's graph replayed on each of its parts of `inputs` (copied
+    into its static buffers), the outputs cloned out and joined."""
+    rows = prog.inputs[0].shape[0]
+    outs = []
+    for i in range(prog.parts):
+        for buf, t in zip(prog.inputs, inputs):
+            buf.copy_(t[i * rows:(i + 1) * rows])
+        prog.graph.replay()
+        prog.replays += 1
+        outs.append(_cloned(prog.output))
+    if prog.parts == 1:
+        return outs[0]
+    if isinstance(outs[0], dict):
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+    return torch.cat(outs)
+
+
+def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torch.Tensor, ...],
+                key: tuple):
+    """`step(model, *inputs)` through the program cache (inputs on the
+    model's device, batch first): eagerly on a key's first call and after
+    any tensor it reads changed, captured on the next call, replayed after
+    that. A batch whose graph is predicted not to fit beside what the card
+    holds runs as replays of one graph over equal parts of it (`_parts`),
+    the int8 1x1 convs gated on the whole batch's rows, as eagerly."""
+    served, modules = _traced(model)
+    key = (entry, key, modules.traced(), tuple((tuple(t.shape), t.dtype) for t in inputs))
+    prog = served.programs.get(key)
+    if prog is None or prog.fingerprint != modules.fingerprint():
+        out, peak = _warm_up(step, model, inputs)
+        # the fingerprint after the warm-up: it made the int8 weight caches
+        served.programs[key] = Program(modules.fingerprint(), peak,
+                                       replays=prog.replays if prog else 0,
+                                       replayed_calls=prog.replayed_calls if prog else 0)
+        return out
+    if prog.graph is None:
+        batch = inputs[0].shape[0]
+        parts = _parts(batch, prog.peak_bytes, _free_bytes(inputs[0].device))
+        static = tuple(t[:batch // parts].clone() for t in inputs)
+        t0 = time.perf_counter()
+        try:
+            with global_rows(nn.ModuleList([model, *modules.wrapped]), parts):
+                if parts > 1:  # a warm-up at the part's shape
+                    step(model, *static)
+                graph, out, grown = _capture_graph(step, model, static)
+        except Exception as e:
+            del served.programs[key]
+            raise RuntimeError(f"CUDA graph capture of Predictor.{entry} failed") from e
+        prog.graph, prog.inputs, prog.output, prog.parts = graph, static, out, parts
+        prog.capture_s, prog.pool_bytes = time.perf_counter() - t0, grown
+    else:
+        prog.replayed_calls += 1
+    return _replayed(prog, inputs)
+
+
+def release_programs(model: nn.Module) -> None:
+    """Drop `model`'s graphs and their memory pool (the pool's memory goes
+    back to the allocator; `torch.cuda.empty_cache()` returns it to the
+    card): each key's next call runs eagerly again. A model's graphs go with
+    the model in any case; this is for a model that outlives its serving."""
+    _SERVED.pop(model, None)
+
+
+def programs_of(model: nn.Module) -> List[Dict[str, Any]]:
+    """The program cache's entries of `model`: entry, key, whether it is
+    captured, the parts a call runs in, capture seconds, pool bytes grown at
+    capture, the warm-up's peak bytes, the graphs' replays and the calls
+    answered by replays alone."""
+    served = _SERVED.get(model)
+    return [{"entry": key[0], "key": key, "captured": p.graph is not None, "parts": p.parts,
+             "capture_s": p.capture_s, "pool_bytes": p.pool_bytes,
+             "peak_bytes": p.peak_bytes, "replays": p.replays,
+             "replayed_calls": p.replayed_calls}
+            for key, p in (served.programs.items() if served else ())]
+
+
 class Predictor:
     """Batch detector front end on one device (CUDA unless `device` names
     another).
+
+    On CUDA with no mesh every call runs through the program cache above:
+    one captured CUDA graph per batch shape, the first call of a shape
+    eager, a failed capture raising. On the CPU, and on a mesh, calls run
+    eagerly.
 
     mesh: an optional `parallel.Mesh` (`make_mesh`, `make_2d_mesh`) this
     process is a rank of. The mesh's first rank's weights are broadcast to
@@ -79,7 +341,9 @@ class Predictor:
     two or more dimensions in the compute type), the caller's model left as
     it was. The int8 1x1 convs gate on the global batch's rows, as JAX's do
     on its global array (`blocks.global_rows`). Every rank of the mesh
-    makes the same calls in the same order."""
+    makes the same calls in the same order. A mesh Predictor runs eagerly:
+    its collectives go through gloo, whose host-staged transfers a CUDA
+    graph cannot capture."""
 
     def __init__(self, model: FocusModel, model_cfg: ModelConfig,
                  predict_cfg: Optional[PredictConfig] = None, device=None,
@@ -94,6 +358,7 @@ class Predictor:
         self.model = model.eval()
         self.model_cfg = model_cfg
         self.predict_cfg = predict_cfg or PredictConfig()
+        self._graphs = self.device.type == "cuda" and mesh is None
 
     @property
     def data_shards(self) -> int:
@@ -124,27 +389,28 @@ class Predictor:
             return all_gather_cat(out, self.mesh, DATA_AXIS, 0)
         return {k: all_gather_cat(v, self.mesh, DATA_AXIS, 0) for k, v in out.items()}
 
+    def _call(self, entry: str, step: Callable, inputs: Tuple[torch.Tensor, ...], key: tuple):
+        """step(model, *inputs, *key): through the program cache on CUDA with
+        no mesh, else eagerly on this rank's rows, all-gathered."""
+        if self._graphs:
+            return run_program(self.model, entry, lambda m, *t: step(m, *t, *key), inputs, key)
+        with global_rows(self.model, self.data_shards):
+            return self._gathered(step(self.model, *self._rows(*inputs), *key))
+
     @torch.inference_mode()
     def detect_letterboxed(self, images, image_shapes) -> Dict[str, torch.Tensor]:
         """images already letterboxed to input_shape, float32 in [0, 1]."""
-        images, image_shapes = self._rows(self._tensor(images, torch.float32),
-                                          self._tensor(image_shapes, torch.float32))
-        with global_rows(self.model, self.data_shards):
-            dets = detect_step(self.model, images, image_shapes, self.model_cfg.input_shape,
-                               self.predict_cfg)
-        return self._gathered(dets)
+        inputs = (self._tensor(images, torch.float32), self._tensor(image_shapes, torch.float32))
+        return self._call("detect_letterboxed", detect_step, inputs,
+                          (self.model_cfg.input_shape, self.predict_cfg))
 
     @torch.inference_mode()
     def detect_raw_batch(self, raw_images, image_shapes) -> Dict[str, torch.Tensor]:
         """Uniform-size uint8 batch (B, H, W, 3); letterboxing runs on the
         device (the uint8 batch is what crosses to it)."""
-        raw, shapes = self._rows(self._tensor(raw_images),
-                                 self._tensor(image_shapes, torch.float32))
-        images = letterbox_batch(raw.float() / 255.0, self.model_cfg.input_shape)
-        with global_rows(self.model, self.data_shards):
-            dets = detect_step(self.model, images, shapes, self.model_cfg.input_shape,
-                               self.predict_cfg)
-        return self._gathered(dets)
+        inputs = (self._tensor(raw_images), self._tensor(image_shapes, torch.float32))
+        return self._call("detect_raw_batch", raw_detect_step, inputs,
+                          (self.model_cfg.input_shape, self.predict_cfg))
 
     def predict_image(self, image) -> List[Dict[str, Any]]:
         """One PIL image -> list of {box, score, class} in original pixels."""
@@ -162,11 +428,8 @@ class Predictor:
     def class_activation_map(self, images) -> torch.Tensor:
         """Max class-probability heatmap per image at stride-8 resolution:
         (B, H/8, W/8) from letterboxed float images (B, H, W, 3)."""
-        (images,) = self._rows(self._tensor(images, torch.float32))
-        with global_rows(self.model, self.data_shards):
-            raw = self.model(images, decode=False)["raw"]
-        cls = raw[0][..., 4 * self.model_cfg.reg_max:]
-        return self._gathered(torch.sigmoid(cls.float()).amax(dim=-1))
+        return self._call("class_activation_map", cam_step,
+                          (self._tensor(images, torch.float32),), (self.model_cfg.reg_max,))
 
     @staticmethod
     def to_host_detections(dets: Dict[str, torch.Tensor]) -> List[List[Dict[str, Any]]]:

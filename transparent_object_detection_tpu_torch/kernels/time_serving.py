@@ -9,7 +9,7 @@ call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
         [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8 | --int8-wide |
-         --wide-bwd]
+         --wide-bwd | --graphs [s] [m] [l]]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -88,6 +88,24 @@ its peak memory). A checkout before csrc/flash_fwd_f32_sm90.cu times the
 forward calls on the CUDA-core FFMA kernel of csrc/flash_attn_fwd.cu, one
 before csrc/flash_bwd_f32_sm90.cu the backward calls on the FFMA kernel of
 csrc/flash_attn_bwd.cu.
+
+With --graphs it times serving through the Predictor's captured CUDA graphs
+(inference.py's program cache) against the same call run eagerly
+(`inference.raw_detect_step` on the same kernels) on 480x640 uint8 images,
+class biases set for ~50 candidates an image (200 in int8), seeded weights:
+phi='s' in bf16, int8, A and B, phi='m' and phi='l' in bf16 (the phis
+named after --graphs, else all), each in four rounds E, G, G, E: batch-1
+p50 / p75 / min of 40 calls and batch-32 imgs/s of 3 calls (phi='l': 2),
+each call ending in a host read of the detection counts, a round's shapes
+warmed up (and, for G, captured) before its clock starts and the graphs
+dropped before each E round, so that phi='l' holds one pool or the eager
+run's memory, not both; each capture's seconds, the parts its batch runs
+in (phi='l' at 32: its graph is captured at a part of the batch), the
+pool's growth and the peaks of the eager call and the capture, the
+weights' GiB, and the per-call check of the tensors a graph reads
+(`TracedModules.traced` and `.fingerprint`) in µs; then csrc/nms_exact.cu
+against its plain loop at K = 1,024, every candidate valid, batch 1 and
+32, beside its bytes bound and its device time by torch.profiler.
 
 The package is imported from the checkout this file lies in, so two
 checkouts (say a parent commit unpacked with `git archive` into a directory
@@ -930,6 +948,161 @@ def time_wide_heads(randn) -> dict:
     return out
 
 
+GRAPH_CONFIGS = (("s", "bf16"), ("s", "int8"), ("s", "A"), ("s", "B"), ("m", "bf16"),
+                 ("l", "bf16"))
+GRAPH_VARIANTS = {"A": {"attn_handoff": True, "w4a4_mlp1": True}, "B": {"attn_qout": True}}
+
+
+def set_class_biases(model, images, candidates: int) -> None:
+    """Class biases so that about `candidates` anchors an image of `images`
+    pass the 0.5 confidence (as a trained detector's few dozen would)."""
+    with torch.no_grad():
+        towers = [getattr(model.head, f"cls{i}") for i in range(3)]
+        for t in towers:
+            t.out.bias.zero_()
+        logits = torch.logit(model(images)["decoded"][..., 4:].amax(-1), eps=1e-6).flatten()
+        shift = float(logits.topk(candidates * images.shape[0]).values[-1])
+        for t in towers:
+            t.out.bias.fill_(-shift)
+
+
+def _host_ms(fn, calls: int) -> list:
+    import time
+
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()["num_detections"].cpu()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)
+
+
+def time_graphs(phis=("s", "m", "l")) -> dict:
+    """Eager against graphed serving (GRAPH_CONFIGS, rounds E, G, G, E), then
+    nms_exact against its plain loop; see --graphs above."""
+    import gc
+    import time
+
+    import numpy as np
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.config import (
+        Int8Variants,
+        ModelConfig,
+        PredictConfig,
+    )
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops.preprocess import letterbox_batch
+
+    rng = np.random.default_rng(0)
+    raws = {b: (rng.integers(0, 256, (b, 480, 640, 3), dtype=np.uint8),
+                np.tile(np.array([[480, 640]], np.float32), (b, 1))) for b in (1, 32)}
+    pcfg = PredictConfig()
+    out = {}
+    for phi, tag in [c for c in GRAPH_CONFIGS if c[0] in phis]:
+        int8 = tag != "bf16"
+        cfg = ModelConfig(phi=phi, int8_dense=int8, int8_attn=int8)
+        model = build_model(cfg, device="cuda", seed=0, init_on_device=phi == "l",
+                            int8_variants=Int8Variants(**GRAPH_VARIANTS.get(tag, {})))
+        with torch.no_grad():
+            model.backbone.dark3_attn.gamma.fill_(0.5)
+        images = letterbox_batch(torch.as_tensor(raws[32][0][:4], device="cuda").float()
+                                 / 255.0, cfg.input_shape)
+        set_class_biases(model, images, 200 if int8 else 50)
+        del images
+        predictor = I.Predictor(model, cfg, pcfg, device="cuda")
+        big, calls = 32, 2 if phi == "l" else 3
+
+        def eager(b):
+            raw, shapes = raws[b]
+            with torch.inference_mode():
+                return I.raw_detect_step(model, torch.as_tensor(raw, device="cuda"),
+                                         torch.as_tensor(shapes, device="cuda"),
+                                         cfg.input_shape, pcfg)
+
+        rec = {"rounds": [], "captures": []}
+        for kind in ("E", "G", "G", "E"):
+            if kind == "E":  # the graphs and their pool gone: eager alone in memory
+                I.release_programs(model)
+                gc.collect()
+                torch.cuda.empty_cache()
+                call = eager
+            else:
+                call = lambda b: predictor.detect_raw_batch(*raws[b])
+            # warm-up; for G the shape's eager call and its capture, the big
+            # batch first: its eager call beside no pool, batch 1's capture in
+            # the big batch's pool
+            mem = {}
+            for b in (big, 1):
+                for i in range(2):
+                    torch.cuda.reset_peak_memory_stats()
+                    call(b)["num_detections"].cpu()
+                    mem[b, i] = torch.cuda.max_memory_allocated() / 2**30
+            if kind == "G":
+                rec["captures"].append({p["key"][3][0][0][0]: {
+                    "capture_s": p["capture_s"], "parts": p["parts"],
+                    "pool_gib": p["pool_bytes"] / 2**30,
+                    "warm_up_peak_gib": p["peak_bytes"] / 2**30,
+                    "eager_peak_gib": mem[p["key"][3][0][0][0], 0],
+                    "capture_peak_gib": mem[p["key"][3][0][0][0], 1]}
+                    for p in I.programs_of(model)})
+            lat = _host_ms(lambda: call(1), 40)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call(big)["num_detections"].cpu()
+            rec["rounds"].append({"kind": kind, "batch1_ms_p50": lat[20], "batch1_ms_p75": lat[30],
+                                  "batch1_ms_min": lat[0],
+                                  f"batch{big}_imgs_per_s": big * calls / (time.perf_counter()
+                                                                           - t0)})
+        t0 = time.perf_counter()
+        for _ in range(100):
+            modules = I._traced(model)[1]
+            modules.traced(), modules.fingerprint()
+        rec["fingerprint_us"] = (time.perf_counter() - t0) / 100 * 1e6
+        rec["weights_gib"] = sum(t.numel() * t.element_size() for t in
+                                 [*model.parameters(), *model.buffers()]) / 2**30
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out[f"phi={phi} {tag}"] = rec
+        print(json.dumps({"graphs": f"phi={phi} {tag}", **rec}), flush=True)
+        I.release_programs(model)
+        del model, predictor
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out["nms_exact"] = time_nms_exact()
+    return out
+
+
+def time_nms_exact() -> dict:
+    """nms_exact against its plain loop at K = 1,024, every candidate valid
+    (boxes of 10-80 px in 300 px), batch 1 and 32: CUDA events, the kernel's
+    device time, the bytes bound (the IoU triangle of the valid rows, valid
+    and keep) and B x K^2 x 4 bytes beside it."""
+    from transparent_object_detection_tpu_torch.ops import nms as N
+    from transparent_object_detection_tpu_torch.ops.geometry import pairwise_iou
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for b in (1, 32):
+        k = 1024
+        xy = torch.rand(b, k, 2, generator=gen, device="cuda") * 300
+        wh = 10 + torch.rand(b, k, 2, generator=gen, device="cuda") * 70
+        boxes = torch.cat([xy, xy + wh], dim=-1)
+        iou = pairwise_iou(boxes, boxes).contiguous()
+        valid = torch.ones(b, k, dtype=torch.bool, device="cuda")
+        keep = N.nms_exact(iou, valid, 0.4)
+        assert torch.equal(keep, N.nms_exact_plain(iou, valid, 0.4))
+        need = b * (k * (k - 1) // 2 * 4 + 2 * k)
+        out[b] = {"ms": timed_ms(lambda: N.nms_exact(iou, valid, 0.4)),
+                  "device_ms": device_ms(lambda: N.nms_exact(iou, valid, 0.4)),
+                  "plain_ms": timed_ms(lambda: N.nms_exact_plain(iou, valid, 0.4), 3, 1),
+                  "bound_ms": need / PEAK_BYTES * 1e3,
+                  "bound_full_iou_ms": b * (k * k * 4 + 2 * k) / PEAK_BYTES * 1e3,
+                  "kept": int(keep.sum())}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("time_serving: no CUDA device", file=sys.stderr)
@@ -940,6 +1113,10 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(*s, generator=gen, device="cuda")
     result = {"checkout": str(ROOT), "card": card}
+    if "--graphs" in sys.argv[1:]:
+        phis = [a for a in sys.argv[1:] if a in ("s", "m", "l")]
+        print(json.dumps({**result, "graphs": time_graphs(phis or ("s", "m", "l"))}))
+        return 0
     if "--forward" in sys.argv[1:]:
         print(json.dumps({**result, "forward": time_forward()}))
         return 0

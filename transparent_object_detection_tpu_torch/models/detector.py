@@ -5,6 +5,7 @@ the training forward (`model.train()`) in the raw maps."""
 from __future__ import annotations
 
 import dataclasses
+import operator
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -149,6 +150,63 @@ def set_attention_impl(model: nn.Module, impl: Optional[str]) -> nn.Module:
         if hasattr(m, "attention_impl"):
             m.attention_impl = impl
     return model
+
+
+# what a module's forward reads besides its tensors and its input's shape to
+# choose the kernels it launches: the kernel switch (`set_attention_impl`),
+# the int8 variants, the compute dtype, the data shards (blocks.global_rows)
+# and the mode. The Predictor's captured CUDA graphs (inference.py) are keyed
+# on them, so an attribute that changes a forward's launches belongs here.
+TRACED_ATTRS = ("attention_impl", "int8_variants", "dtype", "data_shards", "training")
+
+
+class TracedModules:
+    """A model's modules (and a wrapper's wrapped model's: eval/callbacks.py's
+    _ModelOn) flattened once, so that a call reads what its forward reads at
+    trace time without walking the module tree: each module's TRACED_ATTRS,
+    the dict slot of each parameter and buffer, the modules whose int8
+    weight caches are made from them (blocks._cached), and each module's
+    children (`current` is false once a child is replaced or added). It
+    holds no reference to `model` itself, so that a cache keyed weakly on the
+    model may keep it."""
+
+    def __init__(self, model: nn.Module):
+        wrapped = model.__dict__.get("wrapped")
+        self.wrapped = [wrapped] if isinstance(wrapped, nn.Module) else []
+        mods, stack = [], [model, *self.wrapped]
+        while stack:
+            m = stack.pop()
+            mods.append(m)
+            stack += [c for c in m._modules.values() if c is not None]
+        self._children = [(m._modules, tuple(m._modules.values())) for m in mods if m._modules]
+        self._attrs = []
+        for m in mods:
+            keys = [a for a in TRACED_ATTRS if a in m.__dict__]
+            if keys:
+                self._attrs.append((m.__dict__, operator.itemgetter(*keys)))
+        self._slots = [(d, k) for m in mods for d in (m._parameters, m._buffers)
+                       for k, t in d.items() if t is not None]
+        self._caches = [m.__dict__ for m in mods if "_int8_cache" in m.__dict__]
+        self._root = model.__dict__
+
+    def current(self) -> bool:
+        return all(tuple(d.values()) == kids for d, kids in self._children)
+
+    def traced(self) -> tuple:
+        """Every module's TRACED_ATTRS."""
+        return tuple(get(d) for d, get in self._attrs)
+
+    def fingerprint(self) -> tuple:
+        """The tensors a forward reads: the pointers of the parameters,
+        buffers and a wrapper's `variables`, and, once any int8 weight cache
+        is made, their versions (a cache is made from them outside a captured
+        graph, so an update in place must make it again)."""
+        tensors = [d[k] for d, k in self._slots]
+        tensors += self._root.get("variables", {}).values()
+        out = [t.data_ptr() for t in tensors]
+        if any(d["_int8_cache"] is not None for d in self._caches):
+            out += [t._version for t in tensors if not t.is_inference()]
+        return tuple(out)
 
 
 # std of a standard normal truncated at +-2 (flax's variance_scaling)

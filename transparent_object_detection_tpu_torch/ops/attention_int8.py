@@ -237,6 +237,17 @@ def flash_int8_handoff_plain(payload, qs, kq, ks, vq, vs, num_heads: int, scale:
     return _quantize_heads(o) if quant_out else _merge_heads(o.to(out_dtype))
 
 
+def _head_scales(scales: torch.Tensor, col0: int, dh: int, g: int,
+                 num_heads: int) -> torch.Tensor:
+    """fp32 scales (B, N, H) of each head's covering group of per-(row,
+    group) scales (B, N, G), head hh's first column at col0 + hh * dh. The
+    index is made on the scales' device: a host list would be a copy to the
+    card, which a CUDA graph capture refuses."""
+    idx = torch.div(col0 + torch.arange(num_heads, device=scales.device) * dh, g,
+                    rounding_mode="floor")
+    return scales.float().index_select(-1, idx)
+
+
 def requantize_section(payload: torch.Tensor, scales: torch.Tensor, col0: int, c: int,
                        num_heads: int, block_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Columns [col0, col0 + c) of an int8 qkv payload (B, N, Ctot) with
@@ -253,7 +264,7 @@ def requantize_section(payload: torch.Tensor, scales: torch.Tensor, col0: int, c
     if groups == 1:
         s_head = scales.float().expand(b, n, num_heads)
     else:
-        s_head = scales.float()[..., [(col0 + hh * dh) // g for hh in range(num_heads)]]
+        s_head = _head_scales(scales, col0, dh, g, num_heads)
     s4 = s_head.reshape(b, nk, block_k, num_heads)
     s_blk = s4.amax(dim=2)  # (B, nk, H)
     ratio = s4 / torch.clamp(s_blk[:, :, None, :], min=1e-30)
@@ -614,7 +625,7 @@ def q_scale_table(scales: torch.Tensor, c: int, num_heads: int) -> torch.Tensor:
     if groups == 1:
         return scales.float().expand(b, n, num_heads).contiguous()
     g, dh = 3 * c // groups, c // num_heads
-    return scales.float()[..., [(hh * dh) // g for hh in range(num_heads)]].contiguous()
+    return _head_scales(scales, 0, dh, g, num_heads).contiguous()
 
 
 def teb_attention_handoff(payload: torch.Tensor, scales: torch.Tensor, num_heads: int,

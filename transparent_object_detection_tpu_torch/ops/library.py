@@ -1,14 +1,14 @@
 """The serving kernels as registered PyTorch operators, `torch.ops.focus.*`.
 
-The model's evaluation forward calls these operators, never the launchers
-or the plain versions directly, so that `torch.export` (and any other
-tracer) sees each kernel as one operator of the program instead of a ctypes
-call it cannot follow. Each operator has
+The model's evaluation forward (and `detect_step`'s exact NMS) calls these
+operators, never the launchers or the plain versions directly, so that
+`torch.export` (and any other tracer) sees each kernel as one operator of
+the program instead of a ctypes call it cannot follow. Each operator has
 
   * one implementation for the CUDA and CPU keys: the kernel's launcher as
     it stands (ops/attention.py, ops/attention_int8.py,
-    ops/quant_matmul.py), looked up by name at each call, which launches
-    the kernel for CUDA tensors and counts the launch, and runs the
+    ops/quant_matmul.py, ops/nms.py), looked up by name at each call, which
+    launches the kernel for CUDA tensors and counts the launch, and runs the
     kernel's plain PyTorch version for CPU tensors;
   * a fake implementation: the output shapes and dtypes (int8 payloads and
     their scales too), for tracing and for `utils.profiling.cost_analysis`;
@@ -32,6 +32,8 @@ replaces (the file and line of the Pallas kernel in the JAX package):
   flash_int8_handoff_qout  the same launcher, int8 output
   quant_rows               quant_matmul.quant_rows       ops/quant_matmul.py:408
   qmm, qmm_quant_out, qmm_ln_out   quant_matmul.qmm, by output form   ops/quant_matmul.py:80
+  nms_exact                nms.nms_exact     none: JAX runs this loop in its program
+                           (ops/nms.py::_exact_greedy_keep, a lax.fori_loop)
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from transparent_object_detection_tpu_torch.ops import attention as A
 from transparent_object_detection_tpu_torch.ops import attention_int8 as A8
+from transparent_object_detection_tpu_torch.ops import nms as N
 from transparent_object_detection_tpu_torch.ops import quant_matmul as QM
 
 NAMESPACE = "focus"
@@ -62,6 +65,7 @@ SCHEMAS = {
     "qmm": f"({_QMM}, ScalarType out_dtype) -> Tensor",
     "qmm_quant_out": f"({_QMM}, int group, ScalarType out_dtype) -> (Tensor, Tensor)",
     "qmm_ln_out": f"({_QMM}, float eps, ScalarType out_dtype) -> (Tensor, Tensor, Tensor)",
+    "nms_exact": "(Tensor iou, Tensor valid, float iou_thres) -> Tensor",
 }
 OPS = tuple(SCHEMAS)
 
@@ -80,6 +84,7 @@ _LAUNCHERS = {
     "qmm": lambda *a: QM.qmm(*a[:7], None, None, a[7]),
     "qmm_quant_out": lambda *a: QM.qmm(*a[:8], None, a[8]),
     "qmm_ln_out": lambda *a: QM.qmm(*a[:7], None, a[7], a[8]),
+    "nms_exact": lambda *a: N.nms_exact(*a),
 }
 
 for _name, _schema in SCHEMAS.items():
@@ -158,6 +163,11 @@ def _(xq, x_scales, wq, w_scale, bias, act, residual, eps, out_dtype):
             xq.new_empty((m, 1), dtype=torch.float32))
 
 
+@_fake("nms_exact")
+def _(iou, valid, iou_thres):
+    return valid.new_empty(valid.shape)
+
+
 # ---------------------------------------------------------------------------
 # FLOP formulas: 2 per multiply-add of the products (arguments as shapes)
 # ---------------------------------------------------------------------------
@@ -193,6 +203,11 @@ def _(payload, qs, kq, ks, vq, vs, *rest, out_shape=None, **kw) -> int:
 @register_flop_formula(torch.ops.focus.quant_rows)
 def _(x, *rest, out_shape=None, **kw) -> int:
     return 0  # no product: a LayerNorm, an amax and a rounding per row
+
+
+@register_flop_formula(torch.ops.focus.nms_exact)
+def _(iou, *rest, out_shape=None, **kw) -> int:
+    return 0  # no product: comparisons and bit operations
 
 
 @register_flop_formula([torch.ops.focus.qmm, torch.ops.focus.qmm_quant_out,

@@ -4,7 +4,10 @@
 Per-class separation by the coordinate-offset trick (class * 8192). Two
 suppression modes:
   * "exact": sequential greedy NMS over the score-sorted candidates (the
-    keep set of torchvision's nms), a device loop over candidate rows;
+    keep set of torchvision's nms): on the card one launch of
+    csrc/nms_exact.cu (`nms_exact`, the operator focus::nms_exact), whose
+    loop runs on the device and reads nothing back to the host; on the CPU
+    its plain version, `nms_exact_plain`;
   * "fast": YOLACT-style one-shot suppression.
 
 Ordering: `jax.lax.top_k` breaks score ties lower-index-first; `torch.topk`
@@ -12,6 +15,7 @@ promises no order on CUDA, so ranking is a stable descending sort.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict
 
 import torch
@@ -29,13 +33,17 @@ def _top_k_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _exact_greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+NMS_EXACT_MAX_K = 1024  # csrc/nms_exact.cu: one thread a candidate, a block of 1,024
+
+
+def nms_exact_plain(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
     """Greedy suppression over score-sorted candidates: iou (B, K, K),
     valid (B, K) -> keep (B, K). A box suppressed by an already-suppressed box
     is not removed. Valid candidates come first (they are sorted by score and
     invalid ones score -1), so rows past the largest valid count cannot
     suppress anything and the loop stops there: one host read of that count,
-    the same keep set as the full K-step loop."""
+    the same keep set as the full K-step loop. The plain version of
+    `nms_exact`."""
     k = iou.shape[-1]
     idx = torch.arange(k, device=iou.device)
     over = (iou > iou_thres) & (idx[None, :] > idx[:, None])  # (B, K, K), j after i
@@ -44,6 +52,60 @@ def _exact_greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float)
         alive = keep[:, i] & valid[:, i]
         keep &= ~(over[:, i, :] & alive[:, None])
     return keep & valid
+
+
+def _nms_lib():
+    from transparent_object_detection_tpu_torch.kernels import _build
+
+    lib = _build.load("nms_exact")
+    if not getattr(lib, "_argtypes_set", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.nms_exact.argtypes = [vp, vp, vp, ci, ci, ctypes.c_float, vp]
+        lib.nms_exact.restype = ci
+        lib._argtypes_set = True
+    return lib
+
+
+def nms_exact(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The exact keep set (`nms_exact_plain`'s, bit for bit) of iou (B, K, K)
+    fp32 and valid (B, K) bool, valid candidates first in each row. A CUDA
+    tensor launches csrc/nms_exact.cu (K <= NMS_EXACT_MAX_K, else
+    ValueError), counted in `launches`; its loop is bounded on the device,
+    so nothing is read back to the host and the call can be captured in a
+    CUDA graph. A CPU tensor runs `nms_exact_plain`."""
+    if iou.device.type == "cpu":
+        return nms_exact_plain(iou, valid, iou_thres)
+    b, k = valid.shape
+    if iou.shape != (b, k, k) or iou.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise ValueError(f"nms_exact takes fp32 iou (B, K, K) and bool valid (B, K), got "
+                         f"{iou.dtype} {tuple(iou.shape)} and {valid.dtype} {tuple(valid.shape)}")
+    if k > NMS_EXACT_MAX_K:
+        raise ValueError(f"nms_exact takes at most {NMS_EXACT_MAX_K} candidates an image "
+                         f"(pre_nms_topk), got {k}")
+    if iou.device.type != "cuda" or valid.device != iou.device:
+        raise ValueError(f"nms_exact: iou on {iou.device}, valid on {valid.device}")
+    iou, valid = iou.contiguous(), valid.contiguous()
+    keep = torch.empty_like(valid)
+    err = _nms_lib().nms_exact(iou.data_ptr(), valid.data_ptr(), keep.data_ptr(), b, k,
+                               iou_thres, torch.cuda.current_stream(iou.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nms_exact: CUDA launch failed with cudaError_t {err}")
+    nms_exact.launches += 1
+    return keep
+
+
+def reset_launch_counts() -> None:
+    nms_exact.launches = 0
+
+
+reset_launch_counts()
+
+
+def _exact_greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """The exact keep set through the registered operator (ops/library.py:
+    focus::nms_exact): the kernel for CUDA tensors, `nms_exact_plain` for
+    CPU ones."""
+    return torch.ops.focus.nms_exact(iou, valid, float(iou_thres))
 
 
 def _fast_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:

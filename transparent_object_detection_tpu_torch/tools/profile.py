@@ -1,7 +1,9 @@
 """Profile the serving or the training step: a torch.profiler trace
 (Chrome format, `<out>/trace.json`) of --steps steps after one warm-up
-step, then the step's time on CUDA events (median of --steps; on the CPU,
-the host clock), beside the forward's FLOPs counted from shapes.
+step (serving on CUDA: two, the shape's eager call and its CUDA graph's
+capture, so that the trace and the clock see replays), then the step's
+time on CUDA events (median of --steps; on the CPU, the host clock),
+beside the forward's FLOPs counted from shapes.
 
     python -m transparent_object_detection_tpu_torch.tools.profile serve --phi s --batch 32
     python -m transparent_object_detection_tpu_torch.tools.profile train --phi s --batch 16
@@ -83,7 +85,8 @@ def main(argv=None) -> None:
 
     cuda = device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    run()
+    for _ in range(2 if cuda and args.mode == "serve" else 1):
+        run()
     sync()
     with trace(args.out):
         for _ in range(args.steps):
