@@ -117,7 +117,17 @@
    held against the same step
    on the plain versions from the same weights (gradients, parameters, BN
    statistics, EMA, losses), and the plain step with planted faults; then
-   timed steps at batch 16 (launches per step asserted) and a profile.
+   timed steps at batch 16 (launches per step asserted) and a profile, all
+   on the eager step; then the compiled step (one captured CUDA graph a
+   key) against the eager one over five steps from one state, the lr
+   changed after each capture, the EMA counter written between a capture
+   and its replay, frozen then unfrozen (`train_graph_checks`: the same
+   bits or within twice the eager floor, each capture's call counting the
+   route table's launches and a replay none, three planted faults
+   rejected: lr baked, EMA decay baked, batch not copied), and Adam's
+   compiled step against its eager one over three steps (the same bits or
+   within twice the eager floor); the same but Adam at phi='m' remat at the
+   first of batch 16 and 8 whose graph fits.
 10. Scale kernel phase: rows 1-8 at every attention site and int8 TEB
    projection of phi 'n', 'm', 'l' and 'x' 640x640 (the widths and key
    blocks the JAX dispatch gives them: folded heads of 283 and 599, heads
@@ -227,11 +237,13 @@
    epoch at batch 16, one unfrozen at batch 8, mosaic and mixup, the
    threaded DataLoader, device_prefetch, the validation loss, EvalCallback
    every epoch (the port's Predictor on the EMA weights, class biases set
-   as the serving phases set them) and a CheckpointManager. The launch
-   counts, reset before the fit and read after it, equal the route table's
-   (rows 9-11 per step, rows 1-2 per validation and EvalCallback forward
-   but those replayed from the callback's graphs, all on their sm90
-   forms). Then the callback's forward against the plain
+   as the serving phases set them) and a CheckpointManager. The fit runs
+   its train and eval steps as captured CUDA graphs (`programs_of`: each
+   phase's train step captured and replayed, the batch-8 eval step too).
+   The launch counts, reset before the fit and read after it, equal the
+   route table's (rows 9-11 per step, rows 1-2 per validation and
+   EvalCallback forward, but for the calls answered by a replay alone, all
+   on their sm90 forms). Then the callback's forward against the plain
    versions (`decoded` within the slice limits, detection sets matched),
    its stats against the same callback on the plain versions (within
    0.01; at random weights both sides score AP near 0, so this holds the
@@ -3512,7 +3524,8 @@ def _model_snapshot(model, state):
     """Copies of everything a train step changes."""
     clone = lambda d: {k: v.detach().clone() for k, v in d.items()}
     return (clone(model.state_dict()), {k: clone(v) for k, v in state.opt_state.items()},
-            clone(state.ema_params), clone(state.ema_batch_stats), state.ema_updates, state.step)
+            clone(state.ema_params), clone(state.ema_batch_stats), int(state.ema_updates),
+            state.step)
 
 
 def _restore(model, state, snap):
@@ -3773,7 +3786,7 @@ def train_expected(cfg, tp: int = 1) -> dict:
 
 def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
                       faults=TRAIN_SLICE_FAULTS, rejects=TRAIN_SLICE_REJECTS,
-                      timed: bool = True) -> dict:
+                      timed: bool = True, adam: bool = False) -> dict:
     """The port's make_train_step on FocusModel at `cfg` (default phi='s'
     640x640 bf16; SGD, EMA on), on seeded synthetic batches like the JAX
     bench_train.py's: the counted main path (launches equal to
@@ -3785,7 +3798,9 @@ def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
     launch of a step against its plain version; then, with
     `timed`, steps at the first batch of `train_batches` that fits on the
     card (the choice printed), with remat the same batch's peak memory and
-    step time without it, and a profile. Returns {"launches", "perf"}."""
+    step time without it, and a profile; then the compiled step against
+    the eager one (`train_graph_checks`; with `adam`, Adam's too). Returns
+    {"launches", "perf", "graphs"}."""
     import gc
 
     import numpy as np
@@ -3817,7 +3832,10 @@ def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
         model.backbone.dark3_attn.gamma.fill_(0.5)
     opt = build_optimizer(tcfg, model)
     state = create_train_state(model, opt)
-    step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg)
+    # eager: the comparisons with plain versions and planted faults below
+    # need the kernels each call runs (a replayed graph runs those it was
+    # captured on); the compiled step is held to it in train_graph_checks
+    step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg, graphs=False)
 
     def batch_of(b, seed):
         rng = np.random.default_rng(seed)
@@ -3965,10 +3983,404 @@ def train_slice_phase(card: str, cfg=None, train_batches=(TRAIN_BATCH,),
             "profile_idle_share": profile["idle_share"], "profile_by_class_ms":
             profile["by_class_ms"]}
     print(json.dumps({"train_slice_perf": perf}), flush=True)
-    del model, state, opt, step, batch
+    del step, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return {"launches": launches, "perf": perf}
+    graphs = train_graph_checks(card, model, state, cfg, tcfg, batch_of, label, train_batches,
+                                adam)
+    del model, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "perf": perf, "graphs": graphs}
+
+
+# the compiled train step against the eager one: lr a step (it changes after
+# each capture), the EMA counter written between a capture and its replay
+# (as Trainer.fit writes it at the unfreeze boundary) and again at the switch
+TRAIN_GRAPH_LRS = (1e-3, 1e-3, 2e-3, 5e-4, 1e-3)
+TRAIN_GRAPH_RESETS = {2: 2000, 3: 2 * 2000}  # step index -> counter written before it
+TRAIN_GRAPH_FROZEN = 3  # F1 (warm-up), F2 (capture), F3 (replay), then U1 (warm-up), U2 (capture)
+TRAIN_GRAPH_FAULTS = ("lr_baked", "ema_decay_baked", "batch_not_copied")
+# a planted fault must move the parameters or the EMA by at least this much
+# of their change over the steps (and past the sound limit)
+TRAIN_GRAPH_FAULT_MIN = 1e-2
+
+
+def _host_copies(tensors, pinned: bool = False):
+    """Host copies (in page-locked memory with `pinned`: a state restored
+    many times)."""
+    import torch
+
+    out = []
+    for t in tensors:
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=pinned)
+        h.copy_(t.detach())
+        out.append(h)
+    return out
+
+
+def _train_groups(model, state) -> dict:
+    """Every tensor a train step writes, by group."""
+    params = list(model.parameters())
+    return {"params": [p.detach() for p in params],
+            "grads": [p.grad for p in params if p.grad is not None],
+            "stats": list(model.buffers()),
+            **{k: (list(v.values()) if isinstance(v, dict) else [v])  # SGD's trace; Adam's
+               for k, v in state.opt_state.items()},                   # mu, nu and count
+            "ema": list(state.ema_params.values()),
+            "ema_stats": list(state.ema_batch_stats.values()), "counter": [state.ema_updates]}
+
+
+def _bits_digest(tensors):
+    """Two int64 sums a tensor over its bits (plain and position-weighted),
+    on the card: equal digests, equal bits (to a vanishing chance)."""
+    import torch
+
+    out = []
+    for t in tensors:
+        flat = t.detach().reshape(-1)
+        bits = flat.view({8: torch.int64, 4: torch.int32, 2: torch.int16}[flat.element_size()])
+        bits = bits.to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device, dtype=torch.int64) % 65521 + 1
+        out.append(torch.stack([bits.sum(), (bits * w).sum()]))
+    return torch.stack(out).cpu()
+
+
+def _graph_record(model, state, start) -> dict:
+    """The digests of every group, and host copies of the parameters and the
+    EMA with each leaf's squared change from `start`."""
+    import torch
+
+    groups = _train_groups(model, state)
+    rec = {"digest": {g: _bits_digest(ts) for g, ts in groups.items()}, "host": {},
+           "change_sq": {}}
+    for g in ("params", "ema"):
+        rec["host"][g] = _host_copies(groups[g])
+        rec["change_sq"][g] = [float((a.double() - s.to(DEVICE).double()).square().sum())
+                               for a, s in zip(groups[g], start[g])]
+    return rec
+
+
+def _graph_reading(model, state, ref) -> dict:
+    """Against a record: whether each group's bits are equal, and sqrt(sum
+    |x - a|^2 / sum |a - start|^2) over the parameters and over the EMA (0
+    where the group's bits are equal)."""
+    groups = _train_groups(model, state)
+    out = {"bit_equal": {g: bool((_bits_digest(ts) == ref["digest"][g]).all())
+                         for g, ts in groups.items()}}
+    for g in ("params", "ema"):
+        num = 0.0 if out["bit_equal"][g] else sum(
+            float((x.double() - a.to(DEVICE).double()).square().sum())
+            for x, a in zip(groups[g], ref["host"][g]))
+        out[g] = (num / max(sum(ref["change_sq"][g]), 1e-300)) ** 0.5
+    return out
+
+
+@contextlib.contextmanager
+def planted_graph_fault(fault: str, state):
+    """The compiled train step with a planted fault: `lr_baked` (a replay
+    reads the lr the capture's call copied in), `ema_decay_baked` (the decay
+    computed on the host from a host count of the steps, a float in the
+    graph), `batch_not_copied` (a replay reads the batch the capture's call
+    copied in)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.ema import ema_decay
+
+    saved = {"_replayed": I._replayed, "ema_update": T.ema_update}
+    real = I._replayed
+    if fault == "lr_baked":
+        I._replayed = lambda prog, inputs: real(prog, (*inputs[:-1], prog.inputs[-1]))
+    elif fault == "batch_not_copied":
+        I._replayed = lambda prog, inputs: real(prog, (*prog.inputs[:-1], inputs[-1]))
+    else:
+        host = {"u": int(state.ema_updates)}
+
+        @torch.no_grad()
+        def baked(ema, new, updates, decay=0.9999, tau=2000):
+            if ema is state.ema_params:
+                host["u"] += 1
+            d = ema_decay(host["u"], decay, tau)
+            names = list(ema)
+            shadows = [ema[n] for n in names]
+            torch._foreach_mul_(shadows, d)
+            torch._foreach_add_(shadows, [new[n].detach().float() for n in names], alpha=1 - d)
+            return ema
+        T.ema_update = baked
+    try:
+        yield
+    finally:
+        I._replayed, T.ema_update = saved["_replayed"], saved["ema_update"]
+
+
+def _ema_identity(state, model, old_stats) -> float:
+    """max |new - (d old + (1 - d) p)| / max |p - old| over the EMA of the
+    BatchNorm statistics after a step, d from the device counter: the decay
+    the step used against the one its counter gives."""
+    from transparent_object_detection_tpu_torch.train.ema import ema_decay
+
+    d = ema_decay(int(state.ema_updates))
+    num = den = 0.0
+    for (n, new), p in zip(state.ema_batch_stats.items(), model.buffers()):
+        old, pf = old_stats[n].double(), p.double()
+        num = max(num, float((new.double() - (d * old + (1 - d) * pf)).abs().max()))
+        den = max(den, float((pf - old).abs().max()))
+    return num / max(den, 1e-300)
+
+
+TRAIN_GRAPH_ADAM_LRS = TRAIN_GRAPH_LRS[1:4]  # warm-up; capture and replay; replay
+
+
+def adam_graph_check(model, cfg, tcfg, data, start, restore, drop_graphs, label) -> dict:
+    """Adam (its count and bias corrections on the device) through the
+    compiled step against the eager step on `model`, unfrozen: from the
+    weights `restore` puts back and a fresh Adam state, three steps at
+    TRAIN_GRAPH_ADAM_LRS (the key's warm-up, its capture and a replay, a
+    replay at another lr). Two eager runs give the floor; the graphed run
+    must equal the first eager run's bits in every group (parameters,
+    gradients, statistics, mu, nu, count, EMA, counter), or, where the eager
+    runs differ, stay within twice the floor; its losses likewise; each
+    capture's call counts `train_expected`'s launches and a replay none."""
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    from transparent_object_detection_tpu_torch.train.trainer import (
+        create_train_state,
+        loss_config_from,
+        make_train_step,
+    )
+
+    t0 = time.perf_counter()
+    adam_cfg = dataclasses.replace(tcfg, optimizer_type="adam")
+    lc = loss_config_from(cfg, adam_cfg)
+    resets, read = train_launch_counts()
+    expected = train_expected(cfg)
+    origin = {"params": start["params"], "ema": start["params"]}  # the EMA starts at the weights
+
+    def run(graphs, record=None):
+        drop_graphs()
+        restore()
+        opt = build_optimizer(adam_cfg, model)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, lc, adam_cfg, graphs=graphs)
+        out = {"losses": [], "launches": []}
+        for batch, lr in zip(data, TRAIN_GRAPH_ADAM_LRS):
+            for reset in resets:
+                reset()
+            state, comps = step(state, batch, lr)
+            out["losses"].append(float(comps["loss"]))
+            out["launches"].append(read())
+        out["count"] = int(state.opt_state["count"])
+        out["at_end"] = (_graph_record(model, state, origin) if record is None
+                         else _graph_reading(model, state, record["at_end"]))
+        return out
+
+    ref = run(False)
+    floor = run(False, ref)
+    graphed = run(None, ref)
+    drop_graphs()
+    keys = ("params", "ema")
+    limit = {k: 2 * floor["at_end"][k] for k in keys}
+    loss_rel = lambda r: max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"]))
+    summary = {"model": label, "lrs": TRAIN_GRAPH_ADAM_LRS, "floor": floor["at_end"],
+               "graphed": graphed["at_end"], "limit": limit, "loss_rel": loss_rel(graphed),
+               "floor_loss_rel": loss_rel(floor), "count": graphed["count"],
+               "s": time.perf_counter() - t0}
+    print(json.dumps({"train_graphs_adam": summary}), flush=True)
+    n = len(TRAIN_GRAPH_ADAM_LRS)
+    zero = {k: 0 for k in expected}
+    check(graphed["launches"] == [expected, expected, zero] and ref["launches"] == [expected] * n,
+          f"{label} Adam: launches a call through the graph {graphed['launches']}")
+    check(ref["count"] == floor["count"] == graphed["count"] == n,
+          f"{label} Adam: the step count {ref['count']}, {graphed['count']}, not {n}")
+    g, f = graphed["at_end"], floor["at_end"]
+    bits = all(g["bit_equal"].values())
+    check(bits or all(g[k] <= limit[k] for k in keys),
+          f"{label} Adam: the graphed steps differ from eager past twice the floor: {g} "
+          f"against {f}")
+    if all(f["bit_equal"].values()):
+        check(bits, f"{label} Adam: eager runs agree bit for bit, the graphed run does not: "
+                    f"{g['bit_equal']}")
+    check(loss_rel(graphed) <= 2 * loss_rel(floor) or graphed["losses"] == ref["losses"],
+          f"{label} Adam: graphed losses {graphed['losses']} against eager {ref['losses']}")
+    return summary
+
+
+def train_graph_checks(card, model, state, cfg, tcfg, batch_of, label, batches,
+                       adam: bool = False) -> dict:
+    """make_train_step compiled (one captured CUDA graph a key, the program
+    cache of inference.py) against the eager step on `model` (SGD, EMA): at
+    the first of `batches` whose graph fits (the cache's own memory
+    decision), five steps from one state: frozen F1 (the key's warm-up), F2
+    (its capture and a replay), the counter written, F3 (a replay, another
+    lr and batch), the counter written (the unfreeze boundary), then
+    unfrozen U1 (warm-up) and U2 (capture and replay). Two eager runs give
+    the floor (the parameters' and the EMA's distance over their change;
+    bits by digest); the graphed run must equal the first eager run's bits
+    or stay within twice the floor, each call's loss too; each capture's
+    call counts `train_expected`'s launches (the capture records them), a
+    replay none; the EMA of the statistics after F3 obeys new = d old +
+    (1 - d) p with d from the counter. Each planted fault of
+    TRAIN_GRAPH_FAULTS, run to F3, must move the parameters or the EMA past
+    the limit and TRAIN_GRAPH_FAULT_MIN. With `adam`, Adam's compiled step
+    against eager too (`adam_graph_check`). Prints the captures' seconds,
+    the pool's GiB and each key's memory decision."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    from transparent_object_detection_tpu_torch.train.trainer import (
+        loss_config_from,
+        make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    lc = loss_config_from(cfg, tcfg)
+    opts = {True: build_optimizer(tcfg, model, freeze_backbone=True),
+            False: build_optimizer(tcfg, model)}
+    steps = lambda graphs: {f: make_train_step(model, opts[f], lc, tcfg, freeze_backbone=f,
+                                               graphs=graphs) for f in (True, False)}
+    resets, read = train_launch_counts()
+    expected = train_expected(cfg)
+    zero = {k: 0 for k in expected}
+
+    def drop_graphs():
+        I.release_programs(model)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the batch: the first whose graph the cache predicts to fit
+    decisions = {}
+    for b in batches:
+        drop_graphs()
+        fn = steps(None)[True]
+        for i in range(2):
+            fn(state, batch_of(b, SEED + 10), TRAIN_GRAPH_LRS[0])
+        (entry,) = [p for p in I.programs_of(model) if p["entry"] == "trainer.train_step"]
+        decisions[b] = {"eager": entry["eager"], "predicted_gib": entry["predicted_bytes"] / 2**30,
+                        "free_gib": entry["free_bytes"] / 2**30,
+                        "warm_up_peak_gib": entry["peak_bytes"] / 2**30}
+        if not entry["eager"]:
+            break
+    else:
+        raise SmokeFailure(f"{label}: no batch of {batches} has a train graph that fits")
+    print(json.dumps({"train_graph_batch": label, "decisions": decisions, "chosen": b}),
+          flush=True)
+    drop_graphs()
+    seconds = {"batch_choice": time.perf_counter() - t_phase}
+    t0 = time.perf_counter()
+    data = [batch_of(b, SEED + 20 + i) for i in range(len(TRAIN_GRAPH_LRS))]
+    with torch.no_grad():
+        start = {"model": _host_copies(list(model.parameters()) + list(model.buffers()), True),
+                 "trace": _host_copies(state.opt_state["trace"].values(), True),
+                 "ema": _host_copies(state.ema_params.values(), True),
+                 "ema_stats": _host_copies(state.ema_batch_stats.values(), True),
+                 "counter": int(state.ema_updates)}
+    start["params"] = start["model"][:len(list(model.parameters()))]
+    seconds["snapshot"] = time.perf_counter() - t0
+
+    def restore():
+        with torch.no_grad():
+            for t, h in zip(list(model.parameters()) + list(model.buffers()), start["model"]):
+                t.copy_(h, non_blocking=True)
+            for group, tensors in (("trace", state.opt_state["trace"].values()),
+                                   ("ema", state.ema_params.values()),
+                                   ("ema_stats", state.ema_batch_stats.values())):
+                for t, h in zip(tensors, start[group]):
+                    t.copy_(h, non_blocking=True)
+        state.ema_updates = start["counter"]
+        torch.cuda.synchronize()
+
+    def run(kind, n_steps=len(TRAIN_GRAPH_LRS), record=None):
+        """The sequence from the start state; returns its losses, its
+        readings against `record` (or the records it made), its launches a
+        call and the EMA identity after F3."""
+        t_run = time.perf_counter()
+        drop_graphs()
+        restore()
+        fns = steps(False if kind == "eager" else None)
+        out = {"losses": [], "launches": [], "step_s": []}
+        fault = planted_graph_fault(kind, state) if kind in TRAIN_GRAPH_FAULTS else \
+            contextlib.nullcontext()
+        with fault:
+            for i in range(n_steps):
+                if i in TRAIN_GRAPH_RESETS:
+                    state.ema_updates = TRAIN_GRAPH_RESETS[i]
+                if i == 2:
+                    old_stats = {n: t.clone() for n, t in state.ema_batch_stats.items()}
+                for reset in resets:
+                    reset()
+                t0 = time.perf_counter()
+                _, comps = fns[i < TRAIN_GRAPH_FROZEN](state, data[i], TRAIN_GRAPH_LRS[i])
+                out["losses"].append(float(comps["loss"]))
+                out["step_s"].append(time.perf_counter() - t0)
+                out["launches"].append(read())
+                if i == 2:
+                    out["ema_identity"] = _ema_identity(state, model, old_stats)
+                    del old_stats
+                    out["at_f3"] = (_graph_record(model, state, start) if record is None
+                                    else _graph_reading(model, state, record["at_f3"]))
+        if n_steps == len(TRAIN_GRAPH_LRS):
+            out["at_end"] = (_graph_record(model, state, start) if record is None
+                             else _graph_reading(model, state, record["at_end"]))
+        out["programs"] = [{k: p[k] for k in ("entry", "captured", "capture_s", "pool_bytes",
+                                              "peak_bytes", "replays", "eager")}
+                           for p in I.programs_of(model)]
+        seconds.setdefault(kind, []).append(time.perf_counter() - t_run)
+        return out
+
+    ref = run("eager")
+    floor = run("eager", record=ref)
+    graphed = run("graphed", record=ref)
+    faults = {f: run(f, n_steps=3, record=ref) for f in TRAIN_GRAPH_FAULTS}
+    adam_summary = (adam_graph_check(model, cfg, tcfg, data, start, restore, drop_graphs, label)
+                    if adam else None)
+    drop_graphs()
+    restore()
+    keys = ("params", "ema")
+    limit = {k: 2 * max(floor["at_f3"][k], floor["at_end"][k]) for k in keys}
+    loss_rel = lambda r: max(abs(a - b) / abs(b) for a, b in zip(r["losses"], ref["losses"]))
+    summary = {
+        "model": label, "card": card, "batch": b, "lrs": TRAIN_GRAPH_LRS,
+        "floor": {"at_f3": floor["at_f3"], "at_end": floor["at_end"], "loss_rel": loss_rel(floor)},
+        "graphed": {"at_f3": graphed["at_f3"], "at_end": graphed["at_end"],
+                    "loss_rel": loss_rel(graphed), "ema_identity": graphed["ema_identity"]},
+        "eager_ema_identity": ref["ema_identity"], "limit": limit,
+        "faults": {f: {"at_f3": r["at_f3"], "ema_identity": r["ema_identity"]}
+                   for f, r in faults.items()},
+        "launches_per_call": [{k: v for k, v in c.items() if v} for c in graphed["launches"]],
+        "programs": graphed["programs"], "graphed_step_s": graphed["step_s"],
+        "eager_step_s": ref["step_s"], "seconds": seconds, "adam": adam_summary,
+        "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"train_graphs": summary}), flush=True)
+    # launches: each warm-up and each capture's call counts the route table, a replay none
+    want = [expected, expected, zero, expected, expected]
+    check(graphed["launches"] == want and ref["launches"] == [expected] * len(want),
+          f"{label}: launches a call through the graphs {graphed['launches']}, expected {want}")
+    for where in ("at_f3", "at_end"):
+        g, f = graphed[where], floor[where]
+        bits = all(g["bit_equal"].values())
+        check(bits or all(g[k] <= limit[k] for k in keys),
+              f"{label}: the graphed steps differ from eager past twice the floor {where}: "
+              f"{g} against {f}")
+        if all(f["bit_equal"].values()):  # a deterministic floor: the same bits are owed
+            check(bits, f"{label}: eager runs agree bit for bit, the graphed run does not "
+                        f"{where}: {g['bit_equal']}")
+    check(loss_rel(graphed) <= 2 * loss_rel(floor) or graphed["losses"] == ref["losses"],
+          f"{label}: graphed losses {graphed['losses']} against eager {ref['losses']}")
+    check(graphed["ema_identity"] < 1e-3 and ref["ema_identity"] < 1e-3,
+          f"{label}: the EMA does not follow its counter's decay: {graphed['ema_identity']}")
+    for f, r in faults.items():
+        moved = max(r["at_f3"][k] - max(limit[k], TRAIN_GRAPH_FAULT_MIN) for k in keys)
+        check(moved > 0, f"{label}: planted fault {f} not rejected: {r['at_f3']}, limit {limit}")
+    check(faults["ema_decay_baked"]["ema_identity"] > 1e-2,
+          f"{label}: the EMA identity does not see a baked decay")
+    for p in graphed["programs"]:
+        check(p["captured"] and not p["eager"], f"{label}: a train key was not captured: {p}")
+    return summary
 
 
 # ---------------------------------------------------------------------------
@@ -5272,7 +5684,8 @@ FIT_EVAL_BATCH = 8
 FIT_WORKERS = 6  # loader threads (the card's machine has 8 cores)
 
 
-def write_fit_set(root: str, seed: int = SEED):
+def write_fit_set(root: str, seed: int = SEED, train_images: int = FIT_TRAIN_IMAGES,
+                  val_images: int = FIT_VAL_IMAGES):
     """A synthetic detection set made with numpy from `seed`: smooth
     backgrounds (a coarse random grid resized), one to four filled
     rectangles of one class with some noise, photo sizes, JPEG files and
@@ -5284,7 +5697,7 @@ def write_fit_set(root: str, seed: int = SEED):
 
     rng = np.random.default_rng(seed)
     lines = []
-    for i in range(FIT_TRAIN_IMAGES + FIT_VAL_IMAGES):
+    for i in range(train_images + val_images):
         h, w = FIT_PHOTO_SIZES[i % len(FIT_PHOTO_SIZES)]
         coarse = rng.integers(40, 220, (6, 8, 3)).astype(np.uint8)
         img = cv2.resize(coarse, (w, h), interpolation=cv2.INTER_CUBIC)
@@ -5298,20 +5711,21 @@ def write_fit_set(root: str, seed: int = SEED):
         path = os.path.join(root, f"img{i:03d}.jpg")
         check(cv2.imwrite(path, img.astype(np.uint8)), f"could not write {path}")
         lines.append(" ".join([path] + tokens))
-    return lines[:FIT_TRAIN_IMAGES], lines[FIT_TRAIN_IMAGES:]
+    return lines[:train_images], lines[train_images:]
 
 
 class LoaderClock:
     """Stands in for `device_prefetch` where Trainer.fit calls it (each
     epoch the training loader, then the validation loader): the host time
-    each batch waited on it, and when each call began and ended."""
+    each batch waited on it, when each batch was handed over, and when each
+    call began and ended."""
 
     def __init__(self, prefetch):
         self.prefetch = prefetch
         self.calls = []
 
     def __call__(self, iterator, **kw):
-        rec = {"start": time.perf_counter(), "waits": []}
+        rec = {"start": time.perf_counter(), "waits": [], "handed": []}
         self.calls.append(rec)
         gen = self.prefetch(iterator, **kw)
         while True:
@@ -5321,8 +5735,19 @@ class LoaderClock:
             except StopIteration:
                 rec["end"] = time.perf_counter()
                 return
-            rec["waits"].append(time.perf_counter() - t)
+            rec["handed"].append(time.perf_counter())
+            rec["waits"].append(rec["handed"][-1] - t)
             yield batch
+
+
+def steady_imgs_per_s(train_call: dict, val_call: dict, batch: int):
+    """An epoch's imgs/s past its first two steps (a compiled step's warm-up
+    and capture): from the third batch's hand-over to the validation
+    loader's start; None with fewer than three steps."""
+    handed = train_call["handed"]
+    if len(handed) < 3:
+        return None
+    return (len(handed) - 2) * batch / (val_call["start"] - handed[2])
 
 
 def _attention_impl_of(model):
@@ -5478,18 +5903,38 @@ def fit_phase(card: str) -> dict:
         launches = read()
         fit_dets = cb.last_dets
 
-        # launches: rows 9-11 per step, rows 1-2 per validation / eval forward
-        # but those the EvalCallback's Predictor replayed from its graphs
-        # (a replay runs no wrapper)
+        # the fit on the programs: each phase's train step captured and
+        # replayed, the validation step captured where a phase makes more
+        # than one call of it (batch 8)
         steps = [FIT_TRAIN_IMAGES // b for b in FIT_BATCHES]
+        programs = {(p["entry"], p["key"][-1][0][0][0]): p for p in programs_of(trainer.model)}
+        print(json.dumps({"fit_programs": {f"{e} {b}": {
+            k: p[k] for k in ("captured", "capture_s", "pool_bytes", "peak_bytes", "replays",
+                              "replayed_calls", "eager", "predicted_bytes", "free_bytes")}
+            for (e, b), p in programs.items()}}), flush=True)
+        for b, n in zip(FIT_BATCHES, steps):
+            p = programs.get(("trainer.train_step", b))
+            check(p is not None and p["captured"] and p["replays"] == n - 1,
+                  f"fit: the train step at batch {b} did not run on its graph: {p}")
+        p = programs.get(("trainer.eval_step", FIT_BATCHES[1]))
+        check(p is not None and p["captured"] and p["replays"] >= 1,
+              f"fit: the eval step at batch {FIT_BATCHES[1]} did not run on its graph: {p}")
+        # launches: rows 9-11 per step, rows 1-2 per validation / eval forward,
+        # but for the calls answered by a replay alone (a replay runs no
+        # wrapper): the train and eval steps' and the EvalCallback Predictor's
+        train_replayed = sum(p["replayed_calls"] for (e, _), p in programs.items()
+                             if e == "trainer.train_step")
+        eval_replayed = sum(p["replayed_calls"] for (e, _), p in programs.items()
+                            if e == "trainer.eval_step")
         replayed = sum(p["replayed_calls"] for p in programs_of(cb._predictor.model))
-        forwards = (sum(FIT_VAL_IMAGES // b for b in FIT_BATCHES)
+        forwards = (sum(FIT_VAL_IMAGES // b for b in FIT_BATCHES) - eval_replayed
                     + len(history) * -(-FIT_VAL_IMAGES // FIT_EVAL_BATCH) - replayed)
         per_step, per_fwd = train_expected(cfg), expected_launches("s", 2, "bf16")
-        expected = {k: per_step.get(k, 0) * sum(steps) + per_fwd.get(k, 0) * forwards
-                    for k in launches}
+        expected = {k: per_step.get(k, 0) * (sum(steps) - train_replayed)
+                    + per_fwd.get(k, 0) * forwards for k in launches}
         print(json.dumps({"fit_main_path_launches": launches, "expected": expected,
                           "steps": steps, "serving_forwards": forwards,
+                          "train_replays": train_replayed, "val_replays": eval_replayed,
                           "eval_replays": replayed}), flush=True)
         check(launches == expected, f"fit: launches {launches}, expected {expected}")
         for k in ("flash_fwd_lse_sm90", "flash_fwd_lse_single", "flash_bwd_dq_sm90",
@@ -5509,6 +5954,7 @@ def fit_phase(card: str) -> dict:
             waits = np.asarray(tr["waits"]) * 1e3
             epochs.append({"epoch": e, "batch": bs, "steps": len(waits),
                            "train_span_s": span, "imgs_per_s": len(waits) * bs / span,
+                           "imgs_per_s_past_capture": steady_imgs_per_s(tr, va, bs),
                            "loader_wait_ms_mean": float(waits.mean()),
                            "loader_wait_ms_median": float(np.median(waits)),
                            "loader_wait_ms_max": float(waits.max()),
@@ -5626,7 +6072,8 @@ def fit_phase(card: str) -> dict:
         del resumed
 
         # the bare make_train_step at each batch, on a batch of the fit's
-        # loader: alone, profiled (its device time), and with the loader's
+        # loader, compiled as the fit runs it (its warm-up and capture first):
+        # alone, profiled (a replay's device time), and with the loader's
         # threads assembling batches beside it (the host they share)
         import threading
 
@@ -5639,17 +6086,21 @@ def fit_phase(card: str) -> dict:
             loader = trainer._make_loader(train_lines, bs, train=True)
             loader.set_epoch(0)
             batch = next(L.device_prefetch(iter(loader), device=DEVICE))
+            lr = torch.tensor(1e-3, device=DEVICE)
+            for _ in range(2):  # the key's warm-up, then its capture
+                state, comps = step(state, batch, lr)
+            float(comps["loss"])
 
-            def timed(n=4):
+            def timed(n=3):
                 nonlocal state
                 times = []
                 for _ in range(n):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    state, comps = step(state, batch, 1e-3)
+                    state, comps = step(state, batch, lr)
                     float(comps["loss"])  # synchronises
                     times.append(time.perf_counter() - t0)
-                return sorted(times[1:])[1] * 1e3  # median of 3 after a warm-up
+                return sorted(times)[1] * 1e3  # median of 3 replays
 
             ms = timed()
             stop = threading.Event()
@@ -5669,9 +6120,26 @@ def fit_phase(card: str) -> dict:
                 stop.set()
                 side.join(timeout=60)
             check(not side.is_alive(), "fit: the loader thread did not stop")
-            prof = profile_call(lambda: step(state, batch, 1e-3), bs)
+            prof = profile_call(lambda: step(state, batch, lr), bs)
+            # a replay's device time on CUDA events (one graph launch: the
+            # events bracket its kernels; the profiler may see the graph
+            # launch alone)
+            replay_ms = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                state, _ = step(state, batch, lr)
+                end.record()
+                torch.cuda.synchronize()
+                replay_ms.append(start.elapsed_time(end))
+            graph = next(p for p in programs_of(model) if p["entry"] == "trainer.train_step"
+                         and p["key"][-1][0][0][0] == bs and p["captured"])
             bare[bs] = {"step_ms": ms, "imgs_per_s": bs / ms * 1e3, "frozen": frozen,
+                        "graphed": True, "capture_s": graph["capture_s"],
+                        "pool_gib": graph["pool_bytes"] / 2**30,
                         "step_ms_beside_loader": ms_loaded,
+                        "device_ms_events": sorted(replay_ms)[1],
                         "device_busy_ms": prof["device_busy_ms"],
                         "idle_share": prof["idle_share"]}
             del state, step, opt, batch
@@ -5681,7 +6149,9 @@ def fit_phase(card: str) -> dict:
             e["fit_over_bare"] = e["imgs_per_s"] / e["bare_step_imgs_per_s"]
             # the fit's steps do the bare step's device work: the device's
             # idle share of the training span, estimated from it
-            e["device_idle_share_est"] = 1 - e["steps"] * b["device_busy_ms"] / 1e3 / (
+            e["device_idle_share_est"] = 1 - e["steps"] * b["device_ms_events"] / 1e3 / (
+                e["train_span_s"])
+            e["device_idle_share_est_profiled"] = 1 - e["steps"] * b["device_busy_ms"] / 1e3 / (
                 e["train_span_s"])
         del trainer, model
     import gc
@@ -5697,7 +6167,10 @@ def fit_phase(card: str) -> dict:
     # the readings of the pipeline, each on its own line beside the card
     for e in epochs:
         print(json.dumps({"fit_epoch_imgs_per_s": e["imgs_per_s"], "epoch": e["epoch"],
-                          "batch": e["batch"], "bare_step_imgs_per_s": e["bare_step_imgs_per_s"],
+                          "batch": e["batch"],
+                          "imgs_per_s_past_capture": e["imgs_per_s_past_capture"],
+                          "bare_graphed_step_imgs_per_s": e["bare_step_imgs_per_s"],
+                          "device_idle_share_est": e["device_idle_share_est"],
                           "card": card}), flush=True)
         print(json.dumps({"fit_loader_wait_ms_per_batch": e["loader_wait_ms_mean"],
                           "median": e["loader_wait_ms_median"], "max": e["loader_wait_ms_max"],
@@ -6455,7 +6928,7 @@ def _parallel_train(mesh, state_dict, batch_np, compute_dtype: str, steps: int) 
         ref_model = copy.deepcopy(model)
         ref_opt = build_optimizer(tcfg, ref_model)
         ref_state = T.create_train_state(ref_model, ref_opt)
-        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg)
+        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg, graphs=False)
     dp_s = 0.0
     for k in range(steps):
         if first:
@@ -6470,6 +6943,8 @@ def _parallel_train(mesh, state_dict, batch_np, compute_dtype: str, steps: int) 
                 out["floor"] = compare_steps(record(ref_model, ref_state, comps), ref, old)
                 old0, ref0 = old, ref
             del snap
+            for p in ref_model.parameters():  # recorded: off the card the ranks share
+                p.grad = None
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         state, comps = step(state, local, TRAIN_LR)
@@ -6653,7 +7128,7 @@ def _parallel_tp_train(mesh, state_dict, batch_np, compute_dtype: str, steps: in
         ref_model = copy.deepcopy(model)
         ref_opt = build_optimizer(tcfg, ref_model)
         ref_state = T.create_train_state(ref_model, ref_opt)
-        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg)
+        ref_step = T.make_train_step(ref_model, ref_opt, lc, tcfg, graphs=False)
     step = tp_layout(model, opt, state)
     tp_s = 0.0
     for k in range(steps):
@@ -6825,7 +7300,7 @@ def nccl_rank(path: str) -> dict:
         st = T.create_train_state(model, opt)
         old = _step_record(model, st)
         st, comps = T.make_train_step(model, opt, T.loss_config_from(cfg, tcfg), tcfg,
-                                      mesh=mesh_)(st, rows, TRAIN_LR)
+                                      mesh=mesh_, graphs=False)(st, rows, TRAIN_LR)
         records.append(_step_record(model, st, comps))
     out["step"] = compare_steps(records[2], records[0], old)
     out["floor"] = compare_steps(records[1], records[0], old)
@@ -7059,6 +7534,7 @@ def parallel_phase(card: str) -> dict:
             ref[tag] = {"decoded": m(images)["decoded"],
                         "dets": Predictor(m, cfg, pcfg, device=DEVICE).detect_raw_batch(raw,
                                                                                       shapes)}
+    torch.cuda.empty_cache()  # the card is the ranks' while they run
     ranks = gloo.join()
     one = nccl.join()
     ranks_s = time.perf_counter() - t1
@@ -7715,6 +8191,14 @@ def main() -> int:
         m.backbone.dark3_attn.gamma.data.fill_(0.5)
         phase("graphs", graphs_phase, card, m)
         return 0
+    if sys.argv[1:] == ["train"]:  # the training phases alone, no result line
+        from transparent_object_detection_tpu_torch.config import ModelConfig
+
+        phase("train slice", train_slice_phase, card, adam=True)
+        phase("phi=m train", train_slice_phase, card, ModelConfig(phi="m", remat=True),
+              train_batches=(16, 8), faults=(), rejects=())
+        phase("fit", fit_phase, card)
+        return 0
     if sys.argv[1:] == ["l"]:  # the phi='l' serving phase alone, no result line
         phase("phi=l slice", scale_slice_phase, card, "l", *PHI_L_SLICE)
         return 0
@@ -7744,7 +8228,7 @@ def main() -> int:
     graphs = phase("graphs", graphs_phase, card, bf16_model)
     del bf16_model
     torch.cuda.empty_cache()
-    train_launches = phase("train slice", train_slice_phase, card)["launches"]
+    train_launches = phase("train slice", train_slice_phase, card, adam=True)["launches"]
     scale_err, n_single_rows = phase("scale kernel", scale_kernel_phase)
     m_run = phase("phi=m slice", scale_slice_phase, card, "m", ("bf16", "int8", "A", "B"),
                   (32, 1), timed=True)

@@ -41,6 +41,14 @@ batch whose graph is predicted not to fit beside what the card holds (phi
 'l' at batch 32) is captured at a part of it and replayed over its equal
 parts, the int8 1x1 convs gated on the whole batch's rows as eagerly.
 
+The same cache holds train/trainer.py's train and eval steps (entries
+"trainer.train_step" and "trainer.eval_step", the counterpart of JAX's two
+`jax.jit`s), in the model's record and pool. Their fingerprint adds the
+tensors they read and write beside the model (gradients, optimizer state,
+EMA shadows, counter); a train step's warm-up runs on a side stream, its
+batch is never split, and a key whose graph is predicted not to fit runs
+eagerly instead.
+
 A failed capture raises; nothing falls back to eager. On the CPU, and on a
 mesh (gloo's host-staged collectives cannot be captured), the Predictor runs
 eagerly. The kernels' launch counters move where a wrapper launches its
@@ -133,11 +141,14 @@ def cam_step(model: FocusModel, images: torch.Tensor, reg_max: int) -> torch.Ten
 @dataclasses.dataclass
 class Program:
     """One key's entry: the fingerprint of the tensors it was warmed up or
-    captured on (models.detector.TracedModules.fingerprint) and its warm-up's
-    peak bytes above the memory allocated before it; once captured, the
-    number of equal parts a call's batch runs in (1 unless the whole batch's
-    graph would not fit), the graph of one part, its static input buffers
-    and output, the capture's seconds and the bytes the graph pool grew by.
+    captured on (models.detector.TracedModules.fingerprint, and the pointers
+    of the step's own tensors) and its warm-up's peak bytes above the memory
+    allocated before it; once captured, the number of equal parts a call's
+    batch runs in (1 unless the whole batch's graph would not fit), the
+    graph of one part, its static input buffers and output, the capture's
+    seconds and the bytes the graph pool grew by. A training key whose
+    graph is predicted not to fit is not captured: `eager` is set, with the
+    bytes predicted and free at the decision, and its calls run eagerly.
     The key's counts go on across its captures: the graphs' replays, and
     the calls answered by replays alone (no wrapper ran in them)."""
 
@@ -151,6 +162,9 @@ class Program:
     pool_bytes: int = 0
     replays: int = 0
     replayed_calls: int = 0
+    eager: bool = False
+    predicted_bytes: int = 0
+    free_bytes: int = 0
 
 
 @dataclasses.dataclass
@@ -180,16 +194,34 @@ def _traced(model: nn.Module) -> Tuple[_Served, TracedModules]:
     return served, served.modules
 
 
-def _warm_up(step: Callable, model: nn.Module, inputs: Tuple[torch.Tensor, ...]):
+_SIDE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _warm_up(step: Callable, model: nn.Module, inputs: Tuple[torch.Tensor, ...],
+             side_stream: bool = False):
     """`step(model, *inputs)` eagerly: (its output, its peak bytes above the
     memory allocated before it; 0 off CUDA). It resets the card's peak
-    memory statistic."""
+    memory statistic. With `side_stream` (a step with a backward, as
+    PyTorch's whole-network capture recipe asks) it runs on a side stream
+    that waits for the current one, which then waits for it: one stream a
+    device, so that the blocks a warm-up frees (cached by the allocator for
+    their stream) serve the next warm-up."""
     device = inputs[0].device
     if device.type != "cuda":
         return step(model, *inputs), 0
     before = torch.cuda.memory_allocated(device)
     torch.cuda.reset_peak_memory_stats(device)
-    out = step(model, *inputs)
+    if side_stream:
+        current = torch.cuda.current_stream(device)
+        side = _SIDE_STREAMS.get(current.device)
+        if side is None:
+            side = _SIDE_STREAMS[current.device] = torch.cuda.Stream(current.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = step(model, *inputs)
+        current.wait_stream(side)
+    else:
+        out = step(model, *inputs)
     return out, torch.cuda.max_memory_allocated(device) - before
 
 
@@ -245,12 +277,13 @@ def _cloned(out):
 
 def _replayed(prog: Program, inputs: Tuple[torch.Tensor, ...]):
     """The program's graph replayed on each of its parts of `inputs` (copied
-    into its static buffers), the outputs cloned out and joined."""
+    into its static buffers; a 0-d input, a train step's lr, whole), the
+    outputs cloned out and joined."""
     rows = prog.inputs[0].shape[0]
     outs = []
     for i in range(prog.parts):
         for buf, t in zip(prog.inputs, inputs):
-            buf.copy_(t[i * rows:(i + 1) * rows])
+            buf.copy_(t if prog.parts == 1 else t[i * rows:(i + 1) * rows])
         prog.graph.replay()
         prog.replays += 1
         outs.append(_cloned(prog.output))
@@ -262,27 +295,52 @@ def _replayed(prog: Program, inputs: Tuple[torch.Tensor, ...]):
 
 
 def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torch.Tensor, ...],
-                key: tuple):
+                key: tuple, tensors: Callable[[], Tuple[torch.Tensor, ...]] = tuple,
+                training: bool = False):
     """`step(model, *inputs)` through the program cache (inputs on the
     model's device, batch first): eagerly on a key's first call and after
     any tensor it reads changed, captured on the next call, replayed after
     that. A batch whose graph is predicted not to fit beside what the card
     holds runs as replays of one graph over equal parts of it (`_parts`),
-    the int8 1x1 convs gated on the whole batch's rows, as eagerly."""
+    the int8 1x1 convs gated on the whole batch's rows, as eagerly.
+
+    `tensors()`: what the step reads or writes besides the model's
+    parameters and buffers (a train step's gradients, optimizer state, EMA
+    shadows and counter); their pointers join the fingerprint, so a
+    replaced one warms up and captures anew. `training` (a step with a
+    backward): the warm-up runs on a side stream; the batch is never split
+    (BatchNorm's batch statistics are the whole batch's), and a key whose
+    graph is predicted not to fit (GRAPH_POOL_OVER_EAGER times the warm-up's
+    peak against the free bytes) runs eagerly on every call until its
+    tensors change, the decision kept in its Program. The step must have no
+    host-side effect: a capture runs its Python once without its work, and
+    a replay runs no Python."""
     served, modules = _traced(model)
     key = (entry, key, modules.traced(), tuple((tuple(t.shape), t.dtype) for t in inputs))
+    fingerprint = lambda: modules.fingerprint() + tuple(t.data_ptr() for t in tensors())
     prog = served.programs.get(key)
-    if prog is None or prog.fingerprint != modules.fingerprint():
-        out, peak = _warm_up(step, model, inputs)
+    if prog is None or prog.fingerprint != fingerprint():
+        out, peak = _warm_up(step, model, inputs, training)
         # the fingerprint after the warm-up: it made the int8 weight caches
-        served.programs[key] = Program(modules.fingerprint(), peak,
+        served.programs[key] = Program(fingerprint(), peak,
                                        replays=prog.replays if prog else 0,
                                        replayed_calls=prog.replayed_calls if prog else 0)
         return out
+    if prog.eager:
+        return step(model, *inputs)
     if prog.graph is None:
         batch = inputs[0].shape[0]
-        parts = _parts(batch, prog.peak_bytes, _free_bytes(inputs[0].device))
-        static = tuple(t[:batch // parts].clone() for t in inputs)
+        free = _free_bytes(inputs[0].device)
+        if training:
+            prog.predicted_bytes = int(GRAPH_POOL_OVER_EAGER * prog.peak_bytes)
+            prog.free_bytes = free
+            if prog.predicted_bytes > free:
+                prog.eager = True
+                return step(model, *inputs)
+            parts = 1
+        else:
+            parts = _parts(batch, prog.peak_bytes, free)
+        static = tuple((t if parts == 1 else t[:batch // parts]).clone() for t in inputs)
         t0 = time.perf_counter()
         try:
             with global_rows(nn.ModuleList([model, *modules.wrapped]), parts):
@@ -291,7 +349,8 @@ def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torc
                 graph, out, grown = _capture_graph(step, model, static)
         except Exception as e:
             del served.programs[key]
-            raise RuntimeError(f"CUDA graph capture of Predictor.{entry} failed") from e
+            owner = "" if "." in entry else "Predictor."  # the train steps' are "trainer.*"
+            raise RuntimeError(f"CUDA graph capture of {owner}{entry} failed") from e
         prog.graph, prog.inputs, prog.output, prog.parts = graph, static, out, parts
         prog.capture_s, prog.pool_bytes = time.perf_counter() - t0, grown
     else:
@@ -311,12 +370,15 @@ def programs_of(model: nn.Module) -> List[Dict[str, Any]]:
     """The program cache's entries of `model`: entry, key, whether it is
     captured, the parts a call runs in, capture seconds, pool bytes grown at
     capture, the warm-up's peak bytes, the graphs' replays and the calls
-    answered by replays alone."""
+    answered by replays alone; for a training key, whether it runs eagerly
+    for want of memory, with the bytes predicted and free at that
+    decision."""
     served = _SERVED.get(model)
     return [{"entry": key[0], "key": key, "captured": p.graph is not None, "parts": p.parts,
              "capture_s": p.capture_s, "pool_bytes": p.pool_bytes,
              "peak_bytes": p.peak_bytes, "replays": p.replays,
-             "replayed_calls": p.replayed_calls}
+             "replayed_calls": p.replayed_calls, "eager": p.eager,
+             "predicted_bytes": p.predicted_bytes, "free_bytes": p.free_bytes}
             for key, p in (served.programs.items() if served else ())]
 
 

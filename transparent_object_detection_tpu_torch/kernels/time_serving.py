@@ -9,7 +9,7 @@ call, CUDA events, 20 calls after 3 warm-ups).
 
     python3 transparent_object_detection_tpu_torch/kernels/time_serving.py \
         [--forward | --wide-heads | --train-step | --f32 | --qmm | --int8 | --int8-wide |
-         --wide-bwd | --graphs [s] [m] [l]]
+         --wide-bwd | --graphs [s] [m] [l] | --train-graphs [--fit]]
 
 With --forward it times only the phi='s' 640x640 FocusModel forward
 (seeded weights) in bf16, int8 (int8_dense + int8_attn) and the int8
@@ -69,10 +69,19 @@ than 256, at phi='m' (8 heads of 384): the warpgroup split that
 across blocks, S recomputed per slice), each held to 1e-2 of max|plain|;
 then its one-head form's (`attention.single_sm90_plan`) against the others
 at the one-head serving sites (SINGLE_SITES; `time_single_forms`).
-With --train-step it times only two training steps of `make_train_step`
-(SGD nesterov, EMA; seeded weights, synthetic batches like chip_smoke.py's):
-phi='s' 640x640 at batch 16 and phi='m' 640x640 with remat at batch 16,
-each on CUDA events, the median of 3 steps after 1 warm-up.
+With --train-step it times only two eager training steps of
+`make_train_step` (SGD nesterov, EMA; seeded weights, synthetic batches like
+chip_smoke.py's): phi='s' 640x640 at batch 16 and phi='m' 640x640 with
+remat at batch 16, each on CUDA events, the median of 3 steps after 1
+warm-up.
+With --train-graphs it times the train step eager against compiled (one
+captured CUDA graph a key, train/trainer.py), rounds E, G, G, E: phi='s'
+640x640 at batch 16 with the backbone frozen and at batch 8 (the fit's two
+phases), phi='m' with remat at the first of batch 16 and 8 whose graph fits
+(`time_train_graphs`: ms a step and imgs/s, device ms, each capture's
+seconds, pool GiB and memory decision); with --fit also Trainer.fit eager
+against compiled on chip_smoke.py's fit set (`time_fit_graphs`: each
+epoch's training span and imgs/s).
 With --f32 it times only the fp32 forms of rows 1, 2 and 9 (fp32 compute)
 beside SDPA's fp32 call on the same operands (and names the kernel that call
 spends most of its time in, by torch.profiler): rows 1 and 2 at the phi='m'
@@ -182,6 +191,11 @@ SINGLE_SITES = (("dark3", (2, 6400, 64, 512)), ("phi=m dark3", (2, 6400, 128, 10
                 ("phi=n h1 folded", (6, 1600, 288, 288)))
 # the --train-step configurations: (label, ModelConfig keywords, batch)
 TRAIN_STEPS = (("phi=s", {}, 16), ("phi=m remat", {"phi": "m", "remat": True}, 16))
+# the --train-graphs steps: (label, ModelConfig keywords, batches tried in
+# turn until the graph fits, frozen backbone): the fit's two phases, and
+# phi='m' with remat
+TRAIN_GRAPHS = (("phi=s", {}, (16,), True), ("phi=s", {}, (8,), False),
+                ("phi=m remat", {"phi": "m", "remat": True}, (16, 8), False))
 # the --f32 sites: (name, entry point, (batch, tokens, q/k width, v width,
 # heads)); packed heads read q/k/v as column views of one packed qkv, the
 # folded ones run as single heads on the widths the fold copy pads to 8
@@ -310,10 +324,183 @@ def time_training_kernels(randn) -> dict:
     return out
 
 
+def _eager() -> dict:
+    """make_train_step's keywords for the eager step: a checkout before the
+    compiled steps has no `graphs` and runs eagerly anyway."""
+    import inspect
+
+    from transparent_object_detection_tpu_torch.train.trainer import make_train_step
+
+    return {"graphs": False} if "graphs" in inspect.signature(make_train_step).parameters else {}
+
+
+def _train_batch(cfg, b: int, seed: int = 1) -> dict:
+    """A synthetic batch like chip_smoke.py's: two boxes an image."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    boxes = np.zeros((b, 64, 4), np.float32)
+    boxes[:, 0] = [0.5, 0.5, 0.4, 0.4]
+    boxes[:, 1] = [0.25, 0.3, 0.2, 0.2]
+    h, w = cfg.input_shape
+    return {"image": torch.as_tensor(rng.uniform(size=(b, h, w, 3)).astype(np.float32),
+                                     device="cuda"),
+            "boxes": torch.as_tensor(boxes, device="cuda"),
+            "labels": torch.zeros((b, 64), dtype=torch.long, device="cuda")}
+
+
+def time_train_graphs(configs=TRAIN_GRAPHS, steps: int = 6) -> dict:
+    """The train step eager against compiled (one captured CUDA graph a key,
+    train/trainer.py), rounds E, G, G, E, on each configuration of
+    TRAIN_GRAPHS (phi, remat, the batches tried, frozen): the first batch
+    whose graph the program cache predicts to fit, then per round the
+    key's warm-up (and, for G, its capture) before the clock, `steps` steps
+    enqueued back to back and one host read of the last loss: ms a step and
+    imgs/s on the host clock, a step's device ms on CUDA events (the median
+    of 3 more); each G round's capture seconds, pool GiB and memory
+    decision, the eager step's peak GiB."""
+    import gc
+    import time
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+    from transparent_object_detection_tpu_torch.train.trainer import (
+        create_train_state,
+        loss_config_from,
+        make_train_step,
+    )
+
+    out = {}
+    for label, kw, batches, frozen in configs:
+        cfg = ModelConfig(**kw)
+        tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+        model = build_model(cfg, device="cuda", seed=0)
+        with torch.no_grad():  # as chip_smoke.py: dark3's attention gets a gradient
+            model.backbone.dark3_attn.gamma.fill_(0.5)
+        opt = build_optimizer(tcfg, model, freeze_backbone=frozen)
+        state = create_train_state(model, opt)
+        lc = loss_config_from(cfg, tcfg)
+        lr = torch.tensor(1e-3, device="cuda")
+        step_of = lambda graphs: make_train_step(model, opt, lc, tcfg, freeze_backbone=frozen,
+                                                 graphs=graphs)
+        decisions = {}
+        for b in batches:  # the first batch whose graph fits
+            I.release_programs(model)
+            gc.collect()
+            torch.cuda.empty_cache()
+            step, batch = step_of(None), _train_batch(cfg, b)
+            for _ in range(2):
+                state, _ = step(state, batch, lr)
+            (p,) = [p for p in I.programs_of(model) if p["entry"] == "trainer.train_step"]
+            decisions[b] = {k: p[k] for k in ("eager", "predicted_bytes", "free_bytes",
+                                               "peak_bytes")}
+            if not p["eager"]:
+                break
+        rec = {"batch": b, "decisions": decisions, "rounds": []}
+        for kind in ("E", "G", "G", "E"):
+            I.release_programs(model)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = step_of(None if kind == "G" else False)
+            for _ in range(2 if kind == "G" else 1):
+                state, comps = step(state, batch, lr)
+            float(comps["loss"])
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, comps = step(state, batch, lr)
+            float(comps["loss"])
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            device = []
+            for _ in range(3):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                state, comps = step(state, batch, lr)
+                end.record()
+                torch.cuda.synchronize()
+                device.append(start.elapsed_time(end))
+            r = {"kind": kind, "step_ms": ms, "imgs_per_s": b / ms * 1e3,
+                 "device_ms": sorted(device)[1],
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            if kind == "G":
+                (p,) = [p for p in I.programs_of(model) if p["entry"] == "trainer.train_step"]
+                r.update(capture_s=p["capture_s"], pool_gib=p["pool_bytes"] / 2**30,
+                         warm_up_peak_gib=p["peak_bytes"] / 2**30, replays=p["replays"])
+            rec["rounds"].append(r)
+        out[f"{label} batch {b}{' frozen' if frozen else ''}"] = rec
+        print(json.dumps({"train_graphs": label, **rec}), flush=True)
+        I.release_programs(model)
+        del model, opt, state, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_fit_graphs(train_images: int = 192) -> dict:
+    """Trainer.fit eager against compiled, rounds E, G, G, E: chip_smoke.py's
+    fit at phi='s' 640x640 bf16 (its synthetic set from seed 0, here with
+    `train_images` training images so that an epoch holds 12 and 24 steps,
+    a frozen epoch at batch 16 and an unfrozen one at batch 8, mosaic,
+    mixup, its loader threads; no EvalCallback, no checkpoints), each round
+    from the same weights: each epoch's training span (chip_smoke.LoaderClock:
+    the first batch asked for to the validation loader's start), its imgs/s
+    and its imgs/s past the first two steps (a compiled step's warm-up and
+    capture), and the fit's seconds."""
+    import tempfile
+    import time
+    from unittest import mock
+
+    import chip_smoke as S
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.data import loader as L
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.train import trainer as T
+
+    cfg = ModelConfig()
+    tc = TrainConfig(seed=S.SEED, freeze_epoch=1, unfreeze_epoch=2,
+                     freeze_batch_size=S.FIT_BATCHES[0], unfreeze_batch_size=S.FIT_BATCHES[1],
+                     mosaic=True, mixup=True, num_workers=S.FIT_WORKERS)
+    model = build_model(cfg, device="cuda", seed=S.SEED)
+    with torch.no_grad():
+        model.backbone.dark3_attn.gamma.fill_(0.5)
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    rounds = []
+    with tempfile.TemporaryDirectory(prefix="fit_graphs_") as root:
+        train_lines, val_lines = S.write_fit_set(root, train_images=train_images)
+        for kind in ("E", "G", "G", "E"):
+            I.release_programs(model)
+            torch.cuda.empty_cache()
+            model.load_state_dict(weights)
+            trainer = T.Trainer(cfg, tc, model=model, device="cuda", verbose=False)
+            trainer.graphs = kind == "G"
+            clock = S.LoaderClock(L.device_prefetch)
+            t0 = time.perf_counter()
+            with mock.patch.object(T, "device_prefetch", clock):
+                history = trainer.fit(train_lines, val_lines)
+            fit_s = time.perf_counter() - t0
+            epochs = []
+            for e, bs in enumerate(S.FIT_BATCHES):
+                tr, va = clock.calls[2 * e], clock.calls[2 * e + 1]
+                span = va["start"] - tr["start"]
+                epochs.append({"batch": bs, "steps": len(tr["waits"]), "train_span_s": span,
+                               "imgs_per_s": len(tr["waits"]) * bs / span,
+                               "imgs_per_s_past_capture": S.steady_imgs_per_s(tr, va, bs),
+                               "loader_wait_share": sum(tr["waits"]) / span,
+                               "first_batch_wait_s": tr["waits"][0],
+                               "loss": history[e]["loss"]})
+            rounds.append({"kind": kind, "fit_s": fit_s, "epochs": epochs})
+            print(json.dumps({"fit_graphs": rounds[-1]}), flush=True)
+    return {"rounds": rounds}
+
+
 def time_train_steps(configs=TRAIN_STEPS) -> dict:
-    """ms of one training step (forward, loss, backward, SGD, EMA) of each
-    configuration (default TRAIN_STEPS) on CUDA events: 1 warm-up, then the
-    median of 3 steps."""
+    """ms of one eager training step (forward, loss, backward, SGD, EMA) of
+    each configuration (default TRAIN_STEPS) on CUDA events: 1 warm-up, then
+    the median of 3 steps."""
     import numpy as np
 
     from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
@@ -334,7 +521,7 @@ def time_train_steps(configs=TRAIN_STEPS) -> dict:
             model.backbone.dark3_attn.gamma.fill_(0.5)
         opt = build_optimizer(tcfg, model)
         state = create_train_state(model, opt)
-        step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg)
+        step = make_train_step(model, opt, loss_config_from(cfg, tcfg), tcfg, **_eager())
         rng = np.random.default_rng(1)
         boxes = np.zeros((b, 64, 4), np.float32)
         boxes[:, 0] = [0.5, 0.5, 0.4, 0.4]
@@ -1122,6 +1309,12 @@ def main() -> int:
         return 0
     if "--wide-heads" in sys.argv[1:]:
         print(json.dumps({**result, "ms": time_wide_heads(randn)}))
+        return 0
+    if "--train-graphs" in sys.argv[1:]:
+        out = {"train_graphs": time_train_graphs()}
+        if "--fit" in sys.argv[1:]:
+            out["fit"] = time_fit_graphs()
+        print(json.dumps({**result, **out}))
         return 0
     if "--train-step" in sys.argv[1:]:
         print(json.dumps({**result, "ms": time_train_steps()}))

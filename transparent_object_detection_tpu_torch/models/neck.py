@@ -82,9 +82,11 @@ class Neck(nn.Module):
 
     def _node(self, node: FusionNode, x: torch.Tensor) -> torch.Tensor:
         """A fusion node; in training with `remat`, checkpointed: only its
-        input is kept, and the backward reruns its forward."""
+        input is kept, and the backward reruns its forward. The forward
+        draws no random numbers, so no RNG state is stashed for the rerun
+        (a CUDA graph capture refuses to read the card's RNG state)."""
         if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(node, x, use_reentrant=False,
+            return checkpoint(node, x, use_reentrant=False, preserve_rng_state=False,
                               context_fn=functools.partial(_remat_contexts, node))
         return node(x)
 

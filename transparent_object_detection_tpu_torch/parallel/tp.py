@@ -271,11 +271,11 @@ def gather_train_state_tp(state, mesh: Mesh):
         owner._buffers[leaf] = b.detach().clone()
     _point_at(out, specs, None)
     del out.tp_specs
-    opt_state = {k: (whole(v) if k in ("trace", "mu", "nu") else v)
+    opt_state = {k: (whole(v) if k in ("trace", "mu", "nu") else v.clone())
                  for k, v in state.opt_state.items()}
     return type(state)(model=out, opt_state=opt_state, ema_params=whole(state.ema_params),
                        ema_batch_stats={n: t.clone() for n, t in state.ema_batch_stats.items()},
-                       ema_updates=state.ema_updates, step=state.step)
+                       ema_updates=state.ema_updates.clone(), step=state.step)
 
 
 def train_state_bytes(model: nn.Module, tp: int, optimizer_type: str = "sgd",

@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from transparent_object_detection_tpu_torch.ops.geometry import bbox_iou
 
@@ -48,12 +47,19 @@ def topk_membership(metrics: torch.Tensor, topk: int, topk_mask: torch.Tensor) -
     return torch.where(counts > 1, torch.zeros_like(counts), counts)
 
 
+def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """F.one_hot(idx, n) in `dtype` as a comparison: F.one_hot checks its
+    range with two host reads off CUDA, and a train step reads nothing
+    back."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
 def resolve_multi_gt(mask_pos: torch.Tensor, overlaps: torch.Tensor):
     """Anchors claimed by several GTs go to the highest-IoU GT. (B, M, A)
     each -> target_gt_idx (B, A), fg_mask (B, A), mask_pos (B, M, A)."""
     m = mask_pos.shape[1]
     fg_count = mask_pos.sum(dim=-2)
-    is_max = F.one_hot(overlaps.argmax(dim=1), m).permute(0, 2, 1).to(mask_pos.dtype)
+    is_max = _one_hot(overlaps.argmax(dim=1), m, mask_pos.dtype).permute(0, 2, 1)
     mask_pos = torch.where(fg_count[:, None, :] > 1, is_max, mask_pos)
     fg_mask = mask_pos.sum(dim=-2)
     target_gt_idx = mask_pos.argmax(dim=-2)
@@ -87,7 +93,7 @@ def task_aligned_assign(pd_scores: torch.Tensor, pd_bboxes: torch.Tensor,
 
     target_labels = torch.gather(labels_safe, 1, target_gt_idx)
     target_bboxes = torch.gather(gt_bboxes, 1, target_gt_idx[..., None].expand(b, a, 4))
-    target_scores = F.one_hot(target_labels, c).to(pd_scores.dtype)
+    target_scores = _one_hot(target_labels, c, pd_scores.dtype)
     target_scores = target_scores * (fg_mask > 0)[..., None]
 
     align_metric = align_metric * mask_pos

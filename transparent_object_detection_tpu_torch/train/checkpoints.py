@@ -107,11 +107,13 @@ class CheckpointManager:
 
 
 def state_tree(state) -> Dict[str, Any]:
-    """The whole train state as the tree `last_state` holds."""
+    """The whole train state as the tree `last_state` holds: the counters
+    (`ema_updates`, `step`, Adam's `count`) as numbers, whatever device
+    tensor holds them."""
     return {
         "params": {n: p.detach() for n, p in state.params.items()},
         "batch_stats": state.batch_stats,
-        "opt_state": state.opt_state,
+        "opt_state": {k: (int(v) if k == "count" else v) for k, v in state.opt_state.items()},
         "ema_params": state.ema_params,
         "ema_batch_stats": state.ema_batch_stats,
         "ema_updates": int(state.ema_updates),
@@ -123,12 +125,18 @@ def state_tree(state) -> Dict[str, Any]:
 def load_state_tree(state, tree: Dict[str, Any]):
     """Put a tree of `state_tree`'s structure (restored on the state's
     devices and dtypes) into the train state: the parameters and BatchNorm
-    statistics into its model in place, the rest replaced."""
+    statistics into its model in place, the EMA counter into its tensor, the
+    rest replaced (Adam's count as a 0-d int32 tensor on the parameters'
+    device), so that a compiled step warms up and captures anew."""
     for name, p in state.model.named_parameters():
         p.copy_(tree["params"][name])
     for name, b in state.model.named_buffers():
         b.copy_(tree["batch_stats"][name])
-    state.opt_state = tree["opt_state"]
+    opt = dict(tree["opt_state"])
+    if "count" in opt:
+        device = next(state.model.parameters()).device
+        opt["count"] = torch.tensor(int(opt["count"]), dtype=torch.int32, device=device)
+    state.opt_state = opt
     state.ema_params = tree["ema_params"]
     state.ema_batch_stats = tree["ema_batch_stats"]
     state.ema_updates = int(tree["ema_updates"])

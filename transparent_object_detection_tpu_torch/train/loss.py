@@ -79,7 +79,9 @@ def detection_loss(raw_maps: Sequence[torch.Tensor], target_boxes: torch.Tensor,
     anchor_points, stride_tensor = make_anchors(feat_shapes, strides, 0.5, device=dev)
     img_h = feat_shapes[0][0] * strides[0]
     img_w = feat_shapes[0][1] * strides[0]
-    scale = torch.tensor([img_w, img_h, img_w, img_h], dtype=torch.float32, device=dev)
+    # filled on the device (a copy from host memory cannot be captured)
+    scale = torch.full((4,), float(img_w), dtype=torch.float32, device=dev)
+    scale[1::2].fill_(img_h)
     gt_bboxes = xywh2xyxy(target_boxes.float() * scale)
     mask_gt = gt_bboxes.sum(dim=-1) > 0
 

@@ -15,7 +15,10 @@ Decay applies to what JAX calls `kernel` leaves: the weights of
 convolutions and dense layers. In torch the norms' weights, every bias and
 SelfAttention's gamma are parameters too, so the mask is built from the
 module types, never from the parameter's name. Tensors are updated in
-place; the state is a dict of tensors keyed by parameter name.
+place; the state is a dict of tensors keyed by parameter name, and Adam's
+step count is a 0-d int32 tensor on the parameters' device, its bias
+corrections computed there in float32 (as optax does), so that a captured
+train step reads the count at each replay.
 """
 from __future__ import annotations
 
@@ -33,8 +36,16 @@ ADAM_B2, ADAM_EPS = 0.999, 1e-8
 
 def _bias_correction(decay: float, count: int) -> float:
     """1 - decay^count in float32, as optax computes it (for b2 = 0.999 the
-    float32 cancellation is part of the update's value)."""
+    float32 cancellation is part of the update's value): the host reference
+    of `_bias_correction_device`."""
     return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
+def _bias_correction_device(decay: float, count: torch.Tensor) -> torch.Tensor:
+    """`_bias_correction` on the device: a 0-d float32 tensor from the 0-d
+    integer count, with no host read."""
+    return 1.0 - torch.pow(torch.full((), decay, dtype=torch.float32, device=count.device),
+                           count.float())
 
 
 def weight_decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -62,7 +73,9 @@ class Optimizer:
                          for n, p in params.items()}
         if self.cfg.optimizer_type == "sgd":
             return {"trace": zeros()}
-        return {"mu": zeros(), "nu": zeros(), "count": 0}
+        return {"mu": zeros(), "nu": zeros(),
+                "count": torch.zeros((), dtype=torch.int32,
+                                     device=next(iter(params.values())).device)}
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], state: Dict[str, Any],
@@ -104,9 +117,9 @@ class Optimizer:
             torch._foreach_add_(mu, u, alpha=1.0 - m)
             torch._foreach_mul_(nu, ADAM_B2)
             torch._foreach_addcmul_(nu, u, u, value=1.0 - ADAM_B2)
-            state["count"] += 1
-            mu_hat = torch._foreach_div(mu, _bias_correction(m, state["count"]))
-            nu_hat = torch._foreach_div(nu, _bias_correction(ADAM_B2, state["count"]))
+            count = state["count"].add_(1)
+            mu_hat = torch._foreach_div(mu, _bias_correction_device(m, count))
+            nu_hat = torch._foreach_div(nu, _bias_correction_device(ADAM_B2, count))
             torch._foreach_sqrt_(nu_hat)
             torch._foreach_add_(nu_hat, ADAM_EPS)
             u = torch._foreach_div(mu_hat, nu_hat)

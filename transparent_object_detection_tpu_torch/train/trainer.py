@@ -34,12 +34,28 @@ fp32, and there is no autocast and no loss scaling. The step updates the
 model and the state in place (the counterpart of JAX's donated state) and
 leaves each parameter's `.grad` holding this step's loss gradient (zero on
 a frozen backbone).
+
+Compiled steps, as JAX's `jax.jit(step, donate_argnums=(0,))` and
+`jax.jit(eval_step)`: on CUDA with no mesh, both steps run through the
+program cache of inference.py, one captured CUDA graph a key (the entry,
+its configuration, the batch's shapes and dtypes, the model's traced
+attributes), the first call of a key eager, the second captured, later
+ones replayed. The learning rate is an input of the program (a 0-d float32
+tensor copied in with the batch), the EMA decay and Adam's bias corrections
+are computed on the device from device counters, and nothing is read back
+to the host inside a step, so one graph serves every epoch of a phase.
+A graph reads and writes the tensors it was captured on: the model's, the
+gradients (zeroed and accumulated in place, never reallocated), the
+optimizer state, the EMA shadows and the counter; a step whose tensors
+changed (a resume's `load_state_tree`, a new state) warms up and captures
+anew. On the CPU, and on a mesh (gloo's collectives cannot be captured),
+the steps run eagerly.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -47,6 +63,7 @@ from torch import nn
 from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
 from transparent_object_detection_tpu_torch.data.dataset import DetectionDataset
 from transparent_object_detection_tpu_torch.data.loader import DataLoader, device_prefetch
+from transparent_object_detection_tpu_torch.inference import programs_of, run_program
 from transparent_object_detection_tpu_torch.models.blocks import global_batchnorm
 from transparent_object_detection_tpu_torch.models.detector import build_model, resolve_device
 from transparent_object_detection_tpu_torch.parallel.distributed import process_index
@@ -74,14 +91,35 @@ from transparent_object_detection_tpu_torch.train.schedule import get_lr_schedul
 class TrainState:
     """The model holds the parameters and the BatchNorm statistics; beside
     it, the optimizer state, the fp32 EMA shadows and two counters. All
-    tensors live on the model's device."""
+    tensors live on the model's device. `ema_updates` is a 0-d int32 tensor
+    there (JAX's device int32), which the step advances in place; assigning
+    a number or a tensor writes its value into that tensor (never aliasing
+    another state's counter) and `int(state.ema_updates)` reads it. `step`
+    is a host int, advanced once a call outside any graph."""
 
     model: nn.Module
     opt_state: Dict[str, Any]
     ema_params: Dict[str, torch.Tensor]
     ema_batch_stats: Dict[str, torch.Tensor]
-    ema_updates: int = 0
+    ema_updates: Any = 0
     step: int = 0
+
+    def __post_init__(self):
+        if not isinstance(self.ema_updates, torch.Tensor):
+            device = next(self.model.parameters()).device
+            self.__dict__["ema_updates"] = torch.tensor(int(self.ema_updates),
+                                                        dtype=torch.int32, device=device)
+
+    def __setattr__(self, name, value):
+        counter = self.__dict__.get(name)
+        if name == "ema_updates" and isinstance(counter, torch.Tensor):
+            with torch.no_grad():
+                if isinstance(value, torch.Tensor):
+                    counter.copy_(value)
+                else:
+                    counter.fill_(int(value))
+        else:
+            super().__setattr__(name, value)
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -90,6 +128,17 @@ class TrainState:
     @property
     def batch_stats(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_buffers())
+
+    def tensors(self) -> Tuple[torch.Tensor, ...]:
+        """What a step reads and writes besides the model's parameters and
+        buffers: the gradients, the optimizer state, the EMA shadows and
+        the counter (a compiled step's fingerprint)."""
+        opt = [t for v in self.opt_state.values()
+               for t in (v.values() if isinstance(v, dict) else (v,))
+               if isinstance(t, torch.Tensor)]
+        grads = [p.grad for p in self.model.parameters() if p.grad is not None]
+        return (*grads, *opt, *self.ema_params.values(), *self.ema_batch_stats.values(),
+                self.ema_updates)
 
 
 def create_train_state(model: nn.Module, optimizer: Optimizer, ema_updates: int = 0) -> TrainState:
@@ -134,37 +183,59 @@ def _global_components(comps: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.
     return dict(zip(keys, vals.unbind()))
 
 
+def _compiled(graphs: Optional[bool], mesh, image: torch.Tensor) -> bool:
+    """Whether a step runs through the program cache: on CUDA with no mesh
+    unless `graphs` says otherwise."""
+    if graphs is not None:
+        return graphs
+    return mesh is None and image.device.type == "cuda"
+
+
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig,
                     train_cfg: TrainConfig, freeze_backbone: bool = False,
-                    mesh=None) -> Callable:
+                    mesh=None, graphs: Optional[bool] = None) -> Callable:
     """(state, batch, lr) -> (state, components). batch: {"image" (B, H, W, 3)
     float in [0, 1], "boxes" (B, M, 4) normalised cxcywh (padded slots zero),
-    "labels" (B, M) int}; lr a float. Components are 0-d fp32 tensors on the
-    device (no host synchronisation). With freeze_backbone the backbone's
-    gradients are zeroed before the clip and its parameters do not move;
-    its BatchNorm statistics still update. With a data-parallel `mesh`,
-    batch holds this rank's rows of the global batch, and the step (and
-    its components) is the global batch's. With a (data, model) mesh
-    (`parallel.tp.make_2d_mesh`), the state is in the tensor-parallel layout
-    (`parallel.tp.shard_train_state_tp`): each rank of a model group takes
-    the same rows, the sharded layers' collectives run in the forward and
-    backward, the gradients are summed over the data axis only (each
-    replicated leaf's then taken from the model group's first rank), the clip
-    takes the global norm over the shards, and the optimizer and the EMA
-    run on the shards (JAX's step on `shard_params_tp`'s state)."""
+    "labels" (B, M) int}; lr a float or a 0-d float32 tensor on the device
+    (JAX's `jnp.asarray(lr, jnp.float32)`). Components are 0-d fp32 tensors
+    on the device (no host synchronisation), each call's its own. With
+    freeze_backbone the backbone's gradients are zeroed before the clip and
+    its parameters do not move; its BatchNorm statistics still update. With
+    a data-parallel `mesh`, batch holds this rank's rows of the global
+    batch, and the step (and its components) is the global batch's. With a
+    (data, model) mesh (`parallel.tp.make_2d_mesh`), the state is in the
+    tensor-parallel layout (`parallel.tp.shard_train_state_tp`): each rank
+    of a model group takes the same rows, the sharded layers' collectives
+    run in the forward and backward, the gradients are summed over the data
+    axis only (each replicated leaf's then taken from the model group's
+    first rank), the clip takes the global norm over the shards, and the
+    optimizer and the EMA run on the shards (JAX's step on
+    `shard_params_tp`'s state).
+
+    On CUDA with no mesh the step is compiled: a captured CUDA graph a batch
+    shape (module docstring); `graphs` forces that path (True) or the eager
+    one (False), as comparisons of kernels against plain versions or of
+    planted faults need (a replayed graph runs the kernels it was captured
+    on)."""
     frozen = ([n for n, f in backbone_frozen_mask(model).items() if f]
               if freeze_backbone else [])
+    # what the graph bakes in besides the tensors it reads: never the lr
+    config = repr((freeze_backbone, train_cfg, optimizer.cfg,
+                   sorted(n for n, f in optimizer.decay_mask.items() if f), loss_cfg))
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float):
+    def run(state: TrainState, image, boxes, labels, lr):
+        """The step's device work, with no host-side effect (a capture runs
+        it once without running its kernels, and a replay runs no Python)."""
         sharded = _sharded(model, mesh)
-        model.train()
         params = dict(model.named_parameters())
-        for p in params.values():
-            p.grad = None
+        # gradients zeroed and accumulated in place: a graph writes the
+        # tensors it was captured on
+        held = [p.grad for p in params.values() if p.grad is not None]
+        if held:
+            torch._foreach_zero_(held)
         with global_batchnorm(model, mesh):
-            out = model(batch["image"])
-            total, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg,
-                                          mesh)
+            out = model(image)
+            total, comps = detection_loss(out["raw"], boxes, labels, loss_cfg, mesh)
             total.backward()
         with torch.no_grad():
             if mesh is not None:  # the global batch's gradient: the ranks' sum
@@ -185,45 +256,71 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
             if frozen:
                 torch._foreach_zero_([updates[n] for n in frozen])
             names = list(params)
-            torch._foreach_add_([params[n] for n in names], [updates[n] for n in names],
-                                alpha=-lr)
+            # p + (-lr * u), as JAX's apply_updates of -lr * updates
+            scaled = torch._foreach_mul([updates[n] for n in names], -lr)
+            del updates
+            torch._foreach_add_([params[n] for n in names], scaled)
+            del scaled
             if train_cfg.ema:
-                state.ema_updates += 1
+                state.ema_updates.add_(1)
                 ema_update(state.ema_params, params, state.ema_updates, train_cfg.ema_decay,
                            train_cfg.ema_tau)
                 ema_update(state.ema_batch_stats, dict(model.named_buffers()),
                            state.ema_updates, train_cfg.ema_decay, train_cfg.ema_tau)
+        return _global_components({k: v.detach() for k, v in comps.items()}, mesh)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], lr):
+        model.train()
+        image = batch["image"]
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=image.device)
+        inputs = (image, batch["boxes"], batch["labels"], lr)
+        if _compiled(graphs, mesh, image):
+            comps = run_program(model, "trainer.train_step",
+                                lambda m, *t: run(state, *t), inputs, (config,),
+                                tensors=state.tensors, training=True)
+        else:
+            comps = run(state, *inputs)
         state.step += 1
-        return state, _global_components({k: v.detach() for k, v in comps.items()}, mesh)
+        return state, comps
 
     return step
 
 
 def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True,
-                   mesh=None) -> Callable:
+                   mesh=None, graphs: Optional[bool] = None) -> Callable:
     """(state, batch) -> components: the validation loss in evaluation mode
     (running statistics) on the raw maps, with the EMA weights by default;
     with a data-parallel `mesh`, the global batch's from this rank's rows;
     with a (data, model) mesh, on a state in the tensor-parallel layout (the
-    sharded layers' serving forms)."""
+    sharded layers' serving forms). On CUDA with no mesh, one captured CUDA
+    graph a batch shape, reading the EMA shadows in place; `graphs` as in
+    `make_train_step`."""
+
+    def run(state: TrainState, image, boxes, labels):
+        with torch.no_grad():
+            if use_ema:
+                out = torch.func.functional_call(
+                    model, {**state.ema_params, **state.ema_batch_stats}, (image,),
+                    {"decode": False})
+            else:
+                out = model(image, decode=False)
+            _, comps = detection_loss(out["raw"], boxes, labels, loss_cfg, mesh)
+        return _global_components(comps, mesh)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]):
         _sharded(model, mesh)
+        inputs = (batch["image"], batch["boxes"], batch["labels"])
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
-                if use_ema:
-                    out = torch.func.functional_call(
-                        model, {**state.ema_params, **state.ema_batch_stats},
-                        (batch["image"],), {"decode": False})
-                else:
-                    out = model(batch["image"], decode=False)
-                _, comps = detection_loss(out["raw"], batch["boxes"], batch["labels"], loss_cfg,
-                                          mesh)
+            if _compiled(graphs, mesh, inputs[0]):
+                shadows = lambda: ((*state.ema_params.values(), *state.ema_batch_stats.values())
+                                   if use_ema else ())
+                return run_program(model, "trainer.eval_step", lambda m, *t: run(state, *t),
+                                   inputs, (use_ema, repr(loss_cfg)), tensors=shadows)
+            return run(state, *inputs)
         finally:
             model.train(was_training)
-        return _global_components(comps, mesh)
 
     return step
 
@@ -241,7 +338,9 @@ class Trainer:
     data/loader.py); the pool's fork server imports the calling script, so
     its entry point must sit under `if __name__ == "__main__":`.
     `fit(..., mesh=...)` trains data-parallel (every rank of the mesh calls
-    it with the same arguments)."""
+    it with the same arguments). On CUDA with no mesh `fit` runs the train
+    and eval steps as captured CUDA graphs (module docstring); `graphs`
+    forces that path (True) or the eager one (False)."""
 
     def __init__(
         self,
@@ -266,6 +365,8 @@ class Trainer:
         # host copies of {"params", "batch_stats"} ({name: tensor}), set by fit
         self.variables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
         self.ema_variables: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
+        self.graphs: Optional[bool] = None
+        self._reported = set()  # the train keys whose eager decision was printed
 
     # -- loaders -------------------------------------------------------------
 
@@ -302,6 +403,17 @@ class Trainer:
             row_shard=0 if mesh is None else mesh.index(DATA_AXIS),
             row_shards=1 if mesh is None else mesh.size(DATA_AXIS),
         )
+
+    def _report_eager_keys(self) -> None:
+        """Print, once a key, each train step the program cache runs eagerly
+        because its graph was predicted not to fit."""
+        for p in programs_of(self.model):
+            if p["eager"] and p["key"] not in self._reported:
+                self._reported.add(p["key"])
+                shapes = p["key"][-1]
+                print(f"{p['entry']} at batch {shapes[0][0][0]} runs eagerly: its graph is "
+                      f"predicted at {p['predicted_bytes'] / 2**30:.2f} GiB, "
+                      f"{p['free_bytes'] / 2**30:.2f} GiB free")
 
     # -- main loop -------------------------------------------------------------
 
@@ -351,13 +463,14 @@ class Trainer:
             # mask: the same state structure, so opt_state carries across.
             phase_opt = build_optimizer(tc, model, freeze_backbone=True) if frozen else opt
             step_fn = make_train_step(model, phase_opt, self.loss_cfg, tc, freeze_backbone=frozen,
-                                      mesh=mesh)
+                                      mesh=mesh, graphs=self.graphs)
             tl = self._make_loader(train_lines, bs, train=True)
             vl = self._make_loader(val_lines, bs, train=False)
             return sched, step_fn, tl, vl
 
         sched, train_step, train_loader, val_loader = build_phase(batch_size, frozen_phase)
-        eval_step = make_eval_step(model, self.loss_cfg, use_ema=tc.ema, mesh=mesh)
+        eval_step = make_eval_step(model, self.loss_cfg, use_ema=tc.ema, mesh=mesh,
+                                   graphs=self.graphs)
         steps_per_epoch = len(train_loader)
         if steps_per_epoch == 0 or len(val_loader) == 0:
             raise ValueError("dataset too small for the batch size")
@@ -377,13 +490,16 @@ class Trainer:
             train_loader.set_epoch(epoch)
             val_loader.set_epoch(epoch)
             lr = float(sched(epoch))
+            # an input of the compiled step, as JAX's jnp.asarray(lr, jnp.float32)
+            lr_t = torch.tensor(lr, dtype=torch.float32, device=self.device)
 
             t0 = time.time()
-            # Per-step losses stay on the device: one stack + sum, and one
-            # host synchronisation, per epoch.
+            # Per-step losses stay on the device (each step's own tensor,
+            # cloned out of a graph's output): one stack + sum, and one host
+            # synchronisation, per epoch.
             tr_losses = []
             for batch in device_prefetch(iter(train_loader), device=self.device):
-                state, comps = train_step(state, batch, lr)
+                state, comps = train_step(state, batch, lr_t)
                 tr_losses.append(comps["loss"])
             n_tr = len(tr_losses)
             tr_loss = float(torch.stack(tr_losses).sum()) if tr_losses else 0.0
@@ -404,6 +520,7 @@ class Trainer:
             }
             self.history.append(logs)
             if self.verbose and self.is_main:
+                self._report_eager_keys()
                 print(
                     f"epoch {epoch + 1}/{tc.unfreeze_epoch} "
                     f"loss={logs['loss']:.4f} val_loss={logs['val_loss']:.4f} "
