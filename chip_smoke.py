@@ -276,7 +276,7 @@
 19. Parallel execution (`parallel_phase`): phi='s' 640x640 at full width
    with the api phase's weights, the kernels already built. Four ranks
    share the card on gloo with CUDA tensors (`parallel/launch.py`), a world
-   of one rank runs on NCCL beside them, and this process serves the same
+   of one rank runs on NCCL after them, and this process serves the same
    weights without a mesh (the references). Each rank serves a global batch
    of 4 through Predictor(mesh=...) at dp1xtp2, dp1xtp4 (h2 and h4 ragged:
    their sections all-gathered) and dp2xtp2, bf16 and int8: its launches,
@@ -295,11 +295,30 @@
    same process's first step reads on the rows in another order (the floor
    of bf16 rounding, already at those limits), BatchNorm on local
    statistics read past both; the ranks' parameters, EMA, statistics and
-   momenta equal bit for bit. The NCCL rank: the data-parallel Predictor's
+   momenta equal bit for bit; the gloo ranks run eagerly (a gloo mesh is
+   not capturable). The NCCL rank: the data-parallel Predictor's
    detections equal to no mesh's, one bf16 data-parallel step within the
-   limits or its floor. Then rows 1, 3, 6 and 7 at their TP-local shapes
-   (tp 2 and 4, batch 2) timed in this process beside bound, plain version
-   and library, each launch held against plain. Last on the ranks,
+   limits or its floor; then the mesh programs as captured CUDA graphs
+   (inference.py's program cache with the mesh in the key): the mesh
+   Predictor in bf16 and int8 at batch 4 and 1 (its capture and replays
+   equal to the same Predictor forced eager and to the no-mesh graphs in
+   bits; the launches counted into the capture against the route table; a
+   replay's device events under torch.profiler, and its graph holding one
+   memcpy node more than the no-mesh graph a gathered output: in a world of
+   one rank NCCL's all-gather is a device copy and its in-place all-reduce
+   and broadcast record nothing; the planted faults, a mesh key without the
+   mesh and a replay without its input copy, rejected; batch-1 p50/p75 and
+   batch-4 imgs/s eager against graphed, E, G, G, E), the data-parallel
+   train and eval steps (three compiled steps equal to three eager ones in
+   every group's bits, the eval step too, the capture's launches against
+   `train_expected`, the step E, G, G, E) and Trainer.fit(mesh=...) on
+   graphs (steps, validation and EvalCallback replayed on mesh keys). Then
+   rows 1, 3, 6 and 7 at their TP-local shapes (tp 2 and 4, batch 2) timed
+   in this process beside bound, plain version and library, each launch
+   held against plain; and the TP programs captured on a one-process model
+   axis of 2 whose collectives are the identity (`tp_graph_checks`: the TP
+   Predictor bf16 and int8, the TP train step, each against eager in bits;
+   the replicated gradients' broadcast captured alone and timed). Last on the ranks,
    tensor-parallel training (`_parallel_tp_train`, PARALLEL_TP_TRAIN):
    make_train_step on a (data, model) mesh after shard_train_state_tp, at
    dp2xtp2 (one fp32 step, two bf16), dp1xtp4 (fp32 and bf16) and dp1xtp2
@@ -7258,11 +7277,15 @@ def parallel_rank(path: str) -> dict:
 
 
 def nccl_rank(path: str) -> dict:
-    """A world of one rank on NCCL: the data-parallel Predictor (its
-    detections equal, bit for bit, to the same model's without a mesh) and
-    one data-parallel step (against the same step without a mesh: within the
-    train slice's limits, or the same step's on the rows in another order),
-    so that the NCCL path runs."""
+    """A world of one rank on NCCL, started once the gloo ranks have ended
+    (the card its own, so that its times are the program's): the
+    data-parallel Predictor's first call (eager; its detections equal, bit
+    for bit, to the same model's without a mesh) and one eager
+    data-parallel step (against the same step without a mesh: within the
+    train slice's limits, or the same step's on the rows in another order);
+    then the mesh programs as captured CUDA graphs: the mesh Predictor in
+    bf16 and int8 (`mesh_serving_graphs`), the data-parallel train and eval
+    steps (`mesh_train_graphs`) and Trainer.fit(mesh=...) (`mesh_fit`)."""
     import torch
 
     from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
@@ -7282,7 +7305,8 @@ def nccl_rank(path: str) -> dict:
     model = build_model(cfg, device=DEVICE, seed=None)
     state = torch.load(data["state_path"], map_location=DEVICE, weights_only=True)
     model.load_state_dict(state)
-    out = {"backend": dist.get_backend(), "world": dist.get_world_size()}
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "capturable": mesh.capturable}
     ref = Predictor(model, cfg, PredictConfig(), device=DEVICE).detect_raw_batch(
         data["raw"], data["shapes"])
     got = Predictor(model, cfg, PredictConfig(), device=DEVICE,
@@ -7304,19 +7328,385 @@ def nccl_rank(path: str) -> dict:
         records.append(_step_record(model, st, comps))
     out["step"] = compare_steps(records[2], records[0], old)
     out["floor"] = compare_steps(records[1], records[0], old)
+    out["eager_s"] = time.perf_counter() - t0
+    del model, st, opt, records, ref, got
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["serving_graphs"] = {tag: mesh_serving_graphs(state, mesh, data, tag)
+                             for tag in ("bf16", "int8")}
+    out["serving_graphs_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["train_graphs"] = mesh_train_graphs(state, mesh, data)
+    out["train_graphs_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["fit"] = mesh_fit(mesh)
+    out["fit_s"] = time.perf_counter() - t1
     out["s"] = time.perf_counter() - t0
+    return out
+
+
+# the mesh Predictor's batches on the NCCL world of one, and Trainer.fit on
+# it: training and validation images (three steps, three validation steps
+# and three EvalCallback calls at MESH_FIT_BATCH: warm-up, capture, replay)
+MESH_GRAPH_BATCHES = (4, 1)
+MESH_FIT_IMAGES = (12, 12)
+MESH_FIT_BATCH = 4
+MESH_STEP_LRS = (TRAIN_LR, 0.5 * TRAIN_LR, 2.0 * TRAIN_LR)  # one graph serves them all
+
+
+def device_events(fn) -> dict:
+    """One call of fn under torch.profiler: the device's events as {name:
+    (count, ms)}, and the NCCL kernels and memcpys among them (count, ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = {e.key: (e.count, e.device_time_total / 1e3) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count}
+    total = lambda word: [sum(v[i] for k, v in events.items() if word in k.lower())
+                          for i in (0, 1)]
+    return {"nccl": total("nccl"), "memcpy": total("memcpy"),
+            "device_ms": sum(v[1] for v in events.values())}
+
+
+def _is_mesh_key(key) -> bool:
+    """Whether a program cache key is a mesh program's (inference._program_key)."""
+    last = key[1][-1]
+    return isinstance(last, tuple) and len(last) == 2 and last[0] == "mesh"
+
+
+def _serving_latency(predictor, raw, shapes) -> dict:
+    """Batch-1 p50 and p75 of 40 calls after 3 (host clock, each call ending
+    in a host read of the counts) and batch-4 imgs/s over 5 calls after 2,
+    as serving_timing reads them."""
+    import torch
+
+    one, one_shape = raw[:1], shapes[:1]
+    for _ in range(3):
+        predictor.detect_raw_batch(one, one_shape)
+    torch.cuda.synchronize()
+    lat = []
+    for _ in range(40):
+        t0 = time.perf_counter()
+        predictor.detect_raw_batch(one, one_shape)["num_detections"].cpu()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat.sort()
+    for _ in range(2):
+        predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        predictor.detect_raw_batch(raw, shapes)["num_detections"].cpu()
+    return {"batch1_p50_ms": lat[len(lat) // 2], "batch1_p75_ms": lat[3 * len(lat) // 4],
+            f"batch{raw.shape[0]}_imgs_per_s": 5 * raw.shape[0] / (time.perf_counter() - t0)}
+
+
+def mesh_serving_graphs(state, mesh, data, tag: str) -> dict:
+    """The mesh Predictor on NCCL (a world of one) as captured CUDA graphs,
+    phi='s' 640x640 in `tag` ("bf16", "int8") on the phase's weights, at
+    MESH_GRAPH_BATCHES of 480x640 images: its eager first call, its capture
+    and a replay against the same Predictor forced eager and the no-mesh
+    Predictor's graphs, the same bits; the launches the wrappers count into
+    the capture against `expected_launches` (nms_exact once), a replay
+    counting none; the mesh key replayed (`programs_of`), its graph holding
+    one memcpy node more than the no-mesh graph a gathered output (NCCL's
+    all-gather in a world of one rank: a device copy, no kernel) and a
+    replay's device events (NCCL kernels, memcpys) under torch.profiler.
+    bf16 also: new images through the graph; the planted faults, a mesh key
+    that omits the mesh (the no-mesh graph then answers the mesh call: no
+    gather in it) and a replay whose input copy is skipped (held against
+    eager on new images), each rejected; batch-1 p50/p75 and batch-4 imgs/s
+    eager against graphed, E, G, G, E."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from transparent_object_detection_tpu_torch import inference as I
+    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.ops import nms as N
+
+    int8 = tag == "int8"
+    cfg = ModelConfig(**PARALLEL_CFG, int8_dense=int8, int8_attn=int8)
+    pcfg = PredictConfig()
+    real_graph = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = debug_graph_class()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        model = build_model(cfg, device=DEVICE, seed=None)
+        model.load_state_dict(state)
+        # every Predictor made before any call (each broadcasts the weights in
+        # place, which an int8 model's weight caches would read as new)
+        graphed = I.Predictor(model, cfg, pcfg, device=DEVICE, mesh=mesh)
+        eager = I.Predictor(model, cfg, pcfg, device=DEVICE, mesh=mesh)
+        eager._graphs = False
+        single = I.Predictor(model, cfg, pcfg, device=DEVICE)
+        check(graphed._graphs, f"mesh Predictor {tag} on NCCL: not on the program cache")
+        same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)
+
+        def program(b, meshed):
+            return next(p for key, p in I._SERVED[model].programs.items()
+                        if key[0] == "detect_raw_batch" and key[3][0][0][0] == b
+                        and _is_mesh_key(key) == meshed)
+
+        def launches_of(fn):
+            reset_counts()
+            N.reset_launch_counts()
+            got = fn()
+            torch.cuda.synchronize()
+            return got, {**read_counts(), "nms_exact": N.nms_exact.launches}
+
+        def nodes(prog, name):
+            return graph_kernel_nodes(prog.graph, os.path.join(tmp.name, name + ".dot"))
+
+        rec = {"batches": {}}
+        for b in MESH_GRAPH_BATCHES:
+            raw, shapes = data["raw"][:b], data["shapes"][:b]
+            want = eager.detect_raw_batch(raw, shapes)
+            singles = [single.detect_raw_batch(raw, shapes) for _ in range(3)]
+            first = graphed.detect_raw_batch(raw, shapes)
+            captured, counts = launches_of(lambda: graphed.detect_raw_batch(raw, shapes))
+            replayed, replay_counts = launches_of(lambda: graphed.detect_raw_batch(raw, shapes))
+            pm, ps = program(b, True), program(b, False)
+            nm, ns = nodes(pm, f"{tag}{b}_mesh"), nodes(ps, f"{tag}{b}_single")
+            expected = {**expected_launches("s", b, tag), "nms_exact": 1}
+            r = rec["batches"][b] = {
+                "same_bits": {"eager_first": same(first, want), "captured": same(captured, want),
+                              "replayed": same(replayed, want),
+                              "no_mesh_graphs": all(same(x, want) for x in singles)},
+                "capture_launches": counts, "expected": expected,
+                "replay_launches": {k: v for k, v in replay_counts.items() if v},
+                "replayed_calls": pm.replayed_calls, "gathered": len(want),
+                "memcpy_nodes": {"mesh": nm["memcpy_nodes"], "no_mesh": ns["memcpy_nodes"]},
+                "kernel_nodes": {"mesh": nm["kernel_nodes"], "no_mesh": ns["kernel_nodes"]},
+                "replay_device": {"mesh": device_events(
+                    lambda: graphed.detect_raw_batch(raw, shapes)),
+                    "no_mesh": device_events(lambda: single.detect_raw_batch(raw, shapes))},
+                "capture_s": pm.capture_s, "pool_gib": pm.pool_bytes / 2**30,
+                "num_detections": replayed["num_detections"].tolist()}
+            check(all(r["same_bits"].values()),
+                  f"mesh graphs {tag} batch {b}: not eager's bits {r['same_bits']}")
+            check(counts == expected, f"mesh graphs {tag} batch {b}: launches into the capture "
+                                      f"{counts}, expected {expected}")
+            check(not r["replay_launches"] and pm.replayed_calls >= 1,
+                  f"mesh graphs {tag} batch {b}: replay launches {r['replay_launches']}, "
+                  f"{pm.replayed_calls} calls answered by replays")
+            check(nm["memcpy_nodes"] - ns["memcpy_nodes"] == len(want),
+                  f"mesh graphs {tag} batch {b}: {nm['memcpy_nodes']} memcpy nodes against "
+                  f"{ns['memcpy_nodes']} without the mesh, {len(want)} outputs gathered")
+            check(bool((replayed["num_detections"] > 0).all()),
+                  f"mesh graphs {tag} batch {b}: empty detections")
+        if not int8:
+            b = MESH_GRAPH_BATCHES[0]
+            shapes = data["shapes"][:b]
+            raw2 = np.random.default_rng(SEED + 29).integers(0, 256, size=data["raw"][:b].shape,
+                                                             dtype=np.uint8)
+            want2 = eager.detect_raw_batch(raw2, shapes)
+            rec["new_images_same_bits"] = same(graphed.detect_raw_batch(raw2, shapes), want2)
+            # planted: the mesh's layout left out of the key
+            progs = I._SERVED[model].programs
+            before = {id(p): p.replays for p in progs.values()}
+            real_key = I._program_key
+            I._program_key = lambda key, mesh_: key
+            try:
+                graphed.detect_raw_batch(data["raw"][:b], shapes)
+            finally:
+                I._program_key = real_key
+            answered = [p for p in progs.values() if p.replays != before[id(p)]]
+            gathers = [nodes(p, f"fault{i}")["memcpy_nodes"] - rec["batches"][b]["memcpy_nodes"]
+                       ["no_mesh"] for i, p in enumerate(answered)]
+            rec["fault_mesh_key_omitted"] = {"graphs_answering": len(answered),
+                                             "gather_nodes": gathers,
+                                             "rejected": gathers != [len(want2)]}
+            # planted: a replay on the static input buffer left as it was
+            real_replayed = I._replayed
+
+            def stale(prog, inputs):
+                prog.graph.replay()
+                prog.replays += 1
+                return I._cloned(prog.output)
+
+            raw3 = np.random.default_rng(SEED + 31).integers(0, 256, size=raw2.shape,
+                                                             dtype=np.uint8)
+            want3 = eager.detect_raw_batch(raw3, shapes)
+            I._replayed = stale
+            try:
+                got3 = graphed.detect_raw_batch(raw3, shapes)
+            finally:
+                I._replayed = real_replayed
+            rec["fault_input_copy_skipped"] = {"rejected": not same(got3, want3),
+                                               "boxes_max_abs_px": float(
+                                                   (got3["boxes"] - want3["boxes"]).abs().max())}
+            check(rec["new_images_same_bits"], "mesh graphs bf16: new images != eager")
+            check(rec["fault_mesh_key_omitted"]["rejected"],
+                  f"a mesh key without the mesh not rejected: {rec['fault_mesh_key_omitted']}")
+            check(rec["fault_input_copy_skipped"]["rejected"],
+                  "a replay without its input copy gave eager's bits on new images")
+            raw, shapes = data["raw"], data["shapes"]
+            rec["timing"] = [{"path": name, **_serving_latency(p, raw, shapes)}
+                             for name, p in (("eager", eager), ("graphed", graphed),
+                                             ("graphed", graphed), ("eager", eager))]
+        del graphed, eager, single, model
+        torch.cuda.empty_cache()
+    finally:
+        torch.cuda.CUDAGraph = real_graph
+        tmp.cleanup()
+    return rec
+
+
+def mesh_train_graphs(state_dict, mesh, data) -> dict:
+    """The data-parallel train and eval steps on NCCL (a world of one) as
+    captured CUDA graphs, phi='s' 640x640 bf16 at the phase's global batch:
+    three eager steps (lr changed each step), then from the same state three
+    compiled ones (warm-up, capture and replay, replay) held against them in
+    every group's bits (parameters, gradients, statistics, momenta, EMA,
+    counter) and the components; the eval step graphed (three calls)
+    against eager; the launches counted into the capture against
+    `train_expected`; a replay's device events (NCCL kernels, memcpys);
+    then the step eager against graphed, E, G, G, E (five steps enqueued
+    back to back, one host read)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.inference import programs_of
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+
+    cfg = ModelConfig(**PARALLEL_CFG)
+    tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+    lc = T.loss_config_from(cfg, tcfg)
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in data["train_batch"].items()}
+    lrs = [torch.tensor(lr, dtype=torch.float32, device=DEVICE) for lr in MESH_STEP_LRS]
+    model = build_model(cfg, device=DEVICE, seed=None)
+    model.load_state_dict(state_dict)
+    model.train()
+    opt = build_optimizer(tcfg, model)
+    st = T.create_train_state(model, opt)
+    snap = _model_snapshot(model, st)
+    groups = _train_groups(model, st)
+    start = {g: _host_copies(groups[g]) for g in ("params", "ema")}
+    eager_step = T.make_train_step(model, opt, lc, tcfg, mesh=mesh, graphs=False)
+    eager_eval = T.make_eval_step(model, lc, mesh=mesh, graphs=False)
+    refs = []
+    for lr in lrs:
+        st, comps = eager_step(st, batch, lr)
+        refs.append((_graph_record(model, st, start), {k: v.clone() for k, v in comps.items()}))
+    eval_ref = eager_eval(st, batch)
+    _restore(model, st, snap)
+    step = T.make_train_step(model, opt, lc, tcfg, mesh=mesh)
+    eval_step = T.make_eval_step(model, lc, mesh=mesh)
+    check(T._compiled(None, mesh, batch["image"]), "the NCCL mesh's steps are not compiled")
+    resets, read = train_launch_counts()
+    out = {"steps": []}
+    for i, lr in enumerate(lrs):
+        if i == 1:  # the capture's call, counted
+            for reset in resets:
+                reset()
+        st, comps = step(st, batch, lr)
+        torch.cuda.synchronize()
+        if i == 1:
+            out["capture_launches"] = read()
+        reading = _graph_reading(model, st, refs[i][0])
+        reading["comps_equal"] = all(torch.equal(comps[k], refs[i][1][k]) for k in comps)
+        out["steps"].append(reading)
+    out["expected"] = train_expected(cfg)
+    evals = [eval_step(st, batch) for _ in range(3)]
+    out["eval_same_bits"] = all(torch.equal(e[k], eval_ref[k]) for e in evals for k in e)
+    entries = {p["entry"]: p for p in programs_of(model)}
+    out["entries"] = {k: {f: entries[k][f] for f in ("captured", "replays", "capture_s",
+                                                      "pool_bytes", "eager")}
+                      for k in ("trainer.train_step", "trainer.eval_step")}
+    out["mesh_keys"] = all(_is_mesh_key(p["key"]) for p in entries.values())
+    out["replay_device"] = device_events(lambda: step(st, batch, lrs[0]))
+    check(all(all(r["bit_equal"].values()) and r["comps_equal"] for r in out["steps"]),
+          f"mesh train graphs: graphed steps differ from eager {out['steps']}")
+    check(out["eval_same_bits"], "mesh eval graph differs from eager")
+    check(out["capture_launches"] == out["expected"],
+          f"mesh train capture launches {out['capture_launches']}, expected {out['expected']}")
+    check(out["mesh_keys"] and all(e["captured"] and e["replays"] >= 2
+                                   for e in out["entries"].values()),
+          f"mesh steps not replayed on mesh keys: {out['entries']}")
+    timing = []
+    for name, fn in (("eager", eager_step), ("graphed", step), ("graphed", step),
+                     ("eager", eager_step)):
+        fn(st, batch, lrs[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            st, comps = fn(st, batch, lrs[0])
+        float(comps["loss"])
+        timing.append({"path": name, "step_ms": (time.perf_counter() - t0) / 5 * 1e3})
+    out["timing"] = timing
+    del model, st, opt, step, eval_step, eager_step, eager_eval
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_fit(mesh) -> dict:
+    """Trainer.fit(mesh=...) on NCCL (a world of one) at phi='s' 640x640
+    bf16: one unfrozen epoch on MESH_FIT_IMAGES synthetic JPEGs at
+    MESH_FIT_BATCH, the validation loss and EvalCallback (its Predictor on
+    the fit's mesh), each on captured graphs: the train and eval steps and
+    the callback's detect calls captured on mesh keys and replayed, the
+    losses finite."""
+    import os
+    import tempfile
+
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.inference import programs_of
+    from transparent_object_detection_tpu_torch.train import trainer as T
+
+    cfg = ModelConfig(**PARALLEL_CFG)
+    tc = TrainConfig(seed=SEED, init_epoch=0, freeze_epoch=0, unfreeze_epoch=1,
+                     freeze_train=False, unfreeze_batch_size=MESH_FIT_BATCH, mosaic=False,
+                     mixup=False, num_workers=4, eval_period=1, save_period=1)
+    SmokeEval = _smoke_eval_callback()
+    with tempfile.TemporaryDirectory(prefix="mesh_fit_") as root:
+        train_lines, val_lines = write_fit_set(root, SEED + 3, *MESH_FIT_IMAGES)
+        cb = SmokeEval(cfg, val_lines, ["object"], os.path.join(root, "logs"), period=1,
+                       confidence=0.5, batch_size=MESH_FIT_BATCH, device=DEVICE)
+        trainer = T.Trainer(cfg, tc, device=DEVICE, verbose=False)
+        with torch.no_grad():  # else dark3's attention gets a zero cotangent
+            trainer.model.backbone.dark3_attn.gamma.fill_(0.5)
+        t0 = time.perf_counter()
+        history = trainer.fit(train_lines, val_lines, callbacks=[cb], mesh=mesh)
+        fit_s = time.perf_counter() - t0
+        entries = [*programs_of(trainer.model), *programs_of(cb._predictor.model)]
+    out = {"history": history, "fit_s": fit_s, "callback_mesh": cb._predictor.mesh is mesh,
+           "entries": [{k: e[k] for k in ("entry", "captured", "replays", "eager")}
+                       for e in entries],
+           "mesh_keys": all(_is_mesh_key(e["key"]) for e in entries)}
+    kinds = {e["entry"] for e in entries if e["captured"] and e["replays"] >= 2}
+    check(kinds == {"trainer.train_step", "trainer.eval_step", "detect_letterboxed"}
+          and out["mesh_keys"] and out["callback_mesh"],
+          f"Trainer.fit(mesh=...) not on mesh graphs: {out['entries']}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["val_loss"]) for h in history),
+          f"Trainer.fit(mesh=...) losses: {history}")
+    del trainer, cb
+    torch.cuda.empty_cache()
     return out
 
 
 class _LocalModelAxis:
     """A model axis of `tp` in one process, for timing a rank's kernels at
-    their TP-local shapes: rank 0's shards, every collective the identity
-    (an all-gather repeats this rank's part, so shapes hold)."""
+    their TP-local shapes and capturing its programs: rank 0's shards,
+    every collective the identity (an all-gather repeats this rank's part,
+    `_repeated_gathers`, so shapes hold), so a CUDA graph captures it."""
 
     distributed = False
+    capturable = True
 
     def __init__(self, tp: int):
         self.tp = tp
+        self.layout = ((0,), (("model", tp),))
 
     def size(self, axis: str) -> int:
         return self.tp if axis == "model" else 1
@@ -7378,6 +7768,128 @@ def tp_local_timing(model, int8_model) -> dict:
             out[tp] = {"packed": packed, **rows}
     finally:
         teb_tp.all_gather_list = real_gather
+    return out
+
+
+@contextlib.contextmanager
+def _repeated_gathers():
+    """The model axis's all-gathers repeating this rank's part while the
+    context is open (ops/teb_tp.py's list form, parallel/mesh.py's
+    concatenated form that the column-parallel layers and their gradients
+    take), for a one-process `_LocalModelAxis`."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.ops import teb_tp
+    from transparent_object_detection_tpu_torch.parallel import mesh as M
+
+    real = teb_tp.all_gather_list, M.all_gather_cat
+    teb_tp.all_gather_list = lambda t, mesh, axis: [t] * mesh.size(axis)
+    M.all_gather_cat = lambda t, mesh, axis, dim: torch.cat([t] * mesh.size(axis), dim=dim)
+    try:
+        yield
+    finally:
+        teb_tp.all_gather_list, M.all_gather_cat = real
+
+
+def tp_graph_checks(state_dict, raw, shapes, train_batch) -> dict:
+    """The tensor-parallel programs captured, in this process, on a model
+    axis of 2 whose collectives are the identity (`_LocalModelAxis`: rank
+    0's shards), phi='s' 640x640: the TP Predictor (its own serving copy,
+    bf16 and int8) at the phase's batch, three calls (warm-up, capture,
+    replay) against the same Predictor forced eager, the same bits; the TP
+    train step (bf16, batch 2 of the phase's training rows) three compiled
+    steps against three eager ones from the same state, every group's bits;
+    then the replicated gradients' broadcast over the model axis captured
+    alone and replayed (CUDA events): its device time without the wire (the
+    flatten into one buffer and the copy back; NCCL's transfer needs more
+    than one card)."""
+    import torch
+
+    from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig, TrainConfig
+    from transparent_object_detection_tpu_torch.inference import Predictor, programs_of
+    from transparent_object_detection_tpu_torch.models.detector import build_model
+    from transparent_object_detection_tpu_torch.parallel.mesh import (
+        MODEL_AXIS,
+        broadcast_first,
+        coalesced,
+    )
+    from transparent_object_detection_tpu_torch.parallel.tp import shard_train_state_tp
+    from transparent_object_detection_tpu_torch.train import trainer as T
+    from transparent_object_detection_tpu_torch.train.optimizer import build_optimizer
+
+    t0 = time.perf_counter()
+    axis = _LocalModelAxis(2)
+    out = {"serving": {}}
+    same = lambda a, b: all(torch.equal(a[k], b[k]) for k in a)
+    with _repeated_gathers():
+        for tag in ("bf16", "int8"):
+            int8 = tag == "int8"
+            cfg = ModelConfig(**PARALLEL_CFG, int8_dense=int8, int8_attn=int8)
+            model = build_model(cfg, device=DEVICE, seed=None)
+            model.load_state_dict(state_dict)
+            graphed = Predictor(model, cfg, PredictConfig(), device=DEVICE, mesh=axis)
+            eager = Predictor(model, cfg, PredictConfig(), device=DEVICE, mesh=axis)
+            eager._graphs = False
+            want = eager.detect_raw_batch(raw, shapes)
+            got = [graphed.detect_raw_batch(raw, shapes) for _ in range(3)]
+            (entry,) = programs_of(graphed.model)
+            out["serving"][tag] = {"graphs": graphed._graphs,
+                                   "same_bits": [same(g, want) for g in got],
+                                   "captured": entry["captured"], "replays": entry["replays"],
+                                   "tp_serving": graphed.model.tp_serving}
+            del model, graphed, eager, want, got
+            torch.cuda.empty_cache()
+        cfg = ModelConfig(**PARALLEL_CFG)
+        tcfg = TrainConfig(max_boxes=64, optimizer_type="sgd", ema=True)
+        lc = T.loss_config_from(cfg, tcfg)
+        batch = {k: torch.as_tensor(v[:2], device=DEVICE) for k, v in train_batch.items()}
+        lrs = [torch.tensor(lr, dtype=torch.float32, device=DEVICE) for lr in MESH_STEP_LRS]
+        model = build_model(cfg, device=DEVICE, seed=None)
+        model.load_state_dict(state_dict)
+        model.train()
+        opt = build_optimizer(tcfg, model)
+        st = shard_train_state_tp(T.create_train_state(model, opt), axis)
+        snap = _model_snapshot(model, st)
+        digests = []
+        eager_step = T.make_train_step(model, opt, lc, tcfg, mesh=axis, graphs=False)
+        for lr in lrs:
+            st, _ = eager_step(st, batch, lr)
+            digests.append({g: _bits_digest(ts) for g, ts in _train_groups(model, st).items()})
+        _restore(model, st, snap)
+        step = T.make_train_step(model, opt, lc, tcfg, mesh=axis)
+        train = []
+        for lr, ref in zip(lrs, digests):
+            st, _ = step(st, batch, lr)
+            train.append({g: bool((_bits_digest(ts) == ref[g]).all())
+                          for g, ts in _train_groups(model, st).items()})
+        (entry,) = programs_of(model)
+        out["train"] = {"same_bits": train, "captured": entry["captured"],
+                        "replays": entry["replays"], "mesh_key": _is_mesh_key(entry["key"])}
+        sharded = set(T._sharded(model, axis))
+        grads = [p.grad for n, p in model.named_parameters() if n not in sharded]
+        broadcast = lambda: coalesced(grads, lambda t: broadcast_first(t, axis, MODEL_AXIS))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            broadcast()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            broadcast()
+        nbytes = sum(g.numel() * g.element_size() for g in grads)
+        ms = timed_ms(graph.replay, 10)
+        out["broadcast"] = {"leaves": len(grads), "bytes": nbytes, "ms": ms,
+                            "gb_per_s": 2 * 2 * nbytes / ms / 1e6}
+        del model, st, opt, step, eager_step, graph, grads
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print(json.dumps({"tp_graphs": out}), flush=True)
+    for tag, r in out["serving"].items():
+        check(r["graphs"] and r["tp_serving"] and all(r["same_bits"]) and r["captured"]
+              and r["replays"] == 2, f"TP serving graph {tag} on the identity axis: {r}")
+    check(all(all(r.values()) for r in out["train"]["same_bits"]) and out["train"]["captured"]
+          and out["train"]["replays"] == 2 and out["train"]["mesh_key"],
+          f"TP train graph on the identity axis: {out['train']}")
     return out
 
 
@@ -7480,22 +7992,24 @@ def _tp_train_report(ranks, limits, readings) -> dict:
 
 
 def parallel_phase(card: str) -> dict:
-    """Parallel execution on the card (parallel/, ops/teb_tp.py):
-    PARALLEL_WORLD ranks sharing it on gloo (`parallel_rank`) and a world of
-    one rank on NCCL (`nccl_rank`), started together after the kernels are
-    built; meanwhile this process serves the same weights without a mesh
-    (bf16 and int8, the references). Checks: every rank's launches equal
-    `tp_expected`; its parameter bytes those of its shards; the global
-    `decoded` and detections of every mesh against the single-process
-    Predictor (bf16: the slice limits and detection sets matched; int8:
-    PARALLEL_INT8_REL of the largest magnitude); each rank's TP program
-    against its plain versions within the slice limits, and the planted
-    fault (one row-parallel all-reduce left out) rejected by them; the
-    data-parallel training of PARALLEL_TRAIN (`_parallel_train`: fp32
+    """Parallel execution on the card (parallel/, ops/teb_tp.py): PARALLEL_WORLD
+    ranks sharing it on gloo (`parallel_rank`), started after the kernels
+    are built, then a world of one rank on NCCL (`nccl_rank`: the card its
+    own for its graphs' times); meanwhile this process serves the same
+    weights without a mesh (bf16 and int8, the references). Checks: every
+    rank's launches equal `tp_expected`; its parameter bytes those of its
+    shards; the global `decoded` and detections of every mesh against the
+    single-process Predictor (bf16: the slice limits and detection sets
+    matched; int8: PARALLEL_INT8_REL of the largest magnitude); each rank's
+    TP program against its plain versions within the slice limits, and the
+    planted fault (one row-parallel all-reduce left out) rejected by them;
+    the data-parallel training of PARALLEL_TRAIN (`_parallel_train`: fp32
     within the train slice's limits, bf16 beside its reordering floor,
     BatchNorm on local statistics rejected, the ranks equal bit for bit);
-    the NCCL rank's checks. Then rows 1, 3, 6 and 7 timed at their TP-local
-    shapes in this process (`tp_local_timing`)."""
+    the NCCL rank's checks (its mesh graphs checked in the rank). Then rows
+    1, 3, 6 and 7 timed at their TP-local shapes in this process
+    (`tp_local_timing`), and the TP programs captured on a one-process model
+    axis (`tp_graph_checks`)."""
     import os
     import tempfile
 
@@ -7523,8 +8037,6 @@ def parallel_phase(card: str) -> dict:
     t1 = time.perf_counter()
     gloo = Ranks("chip_smoke:parallel_rank", PARALLEL_WORLD, {"path": path},
                  timeout=PARALLEL_RANK_TIMEOUT, device=DEVICE, backend="gloo")
-    nccl = Ranks("chip_smoke:nccl_rank", 1, {"path": path}, timeout=PARALLEL_RANK_TIMEOUT,
-                 device=DEVICE)
     int8_model = build_model(ModelConfig(**PARALLEL_CFG, int8_dense=True, int8_attn=True),
                              device=DEVICE, seed=None)
     int8_model.load_state_dict(model.state_dict())
@@ -7536,13 +8048,20 @@ def parallel_phase(card: str) -> dict:
                                                                                       shapes)}
     torch.cuda.empty_cache()  # the card is the ranks' while they run
     ranks = gloo.join()
-    one = nccl.join()
     ranks_s = time.perf_counter() - t1
+    # the NCCL world of one after them, alone on the card: its graphs' times
+    # are read there
+    t3 = time.perf_counter()
+    one = Ranks("chip_smoke:nccl_rank", 1, {"path": path}, timeout=PARALLEL_RANK_TIMEOUT,
+                device=DEVICE).join()
+    nccl_s = time.perf_counter() - t3
     print(json.dumps({"parallel_ranks_sharing_one_card_s": ranks_s,
                       "rank_s": [r["s"] for r in ranks], "rank_start_s": [r["start_s"]
                                                                         for r in ranks],
                       "rank_peak_gib": [r["peak_gib"] for r in ranks],
-                      "nccl_rank_s": one[0]["s"]}), flush=True)
+                      "nccl_rank_s": nccl_s, "nccl_rank_parts_s": {k: one[0][k] for k in (
+                          "eager_s", "serving_graphs_s", "train_graphs_s", "fit_s")}}),
+          flush=True)
 
     launches = {}
     for r in ranks:
@@ -7628,10 +8147,23 @@ def parallel_phase(card: str) -> dict:
           "the training ranks' parameters, EMA, statistics or momenta differ")
     nccl_step, nccl_floor = readings(one[0]["step"]), readings(one[0]["floor"])
     print(json.dumps({"parallel_nccl": {**{k: one[0][k] for k in ("backend", "world",
-                                                                    "dets_equal", "s")},
+                                                                    "capturable", "dets_equal",
+                                                                    "s")},
                                         "step": nccl_step, "floor": nccl_floor}}), flush=True)
-    check(one[0]["backend"] == "nccl" and one[0]["world"] == 1 and one[0]["dets_equal"],
-          f"NCCL world of one: {one[0]}")
+    check(one[0]["backend"] == "nccl" and one[0]["world"] == 1 and one[0]["dets_equal"]
+          and one[0]["capturable"], f"NCCL world of one: {one[0]['backend']}, "
+                                    f"{one[0]['world']}, {one[0]['capturable']}")
+    # the NCCL rank's mesh graphs, checked in the rank
+    for tag, r in one[0]["serving_graphs"].items():
+        for b, rb in r["batches"].items():
+            print(json.dumps({"mesh_graph": tag, "batch": b,
+                              **{k: v for k, v in rb.items() if k != "expected"}}), flush=True)
+        print(json.dumps({"mesh_graph_faults_timing": tag,
+                          **{k: v for k, v in r.items() if k != "batches"}}), flush=True)
+    print(json.dumps({"mesh_train_graph": {k: v for k, v in one[0]["train_graphs"].items()
+                                           if k != "expected"},
+                      "batch": PARALLEL_BATCH}), flush=True)
+    print(json.dumps({"mesh_fit": one[0]["fit"]}), flush=True)
     check(all(nccl_step[k] <= max(limits[k], nccl_floor[k]) for k in limits),
           f"NCCL data-parallel step against one process: {nccl_step} (floor {nccl_floor})")
 
@@ -7639,7 +8171,10 @@ def parallel_phase(card: str) -> dict:
 
     t2 = time.perf_counter()
     timing = tp_local_timing(model, int8_model)
-    del model, int8_model
+    del int8_model
+    torch.cuda.empty_cache()
+    tp_graphs = tp_graph_checks(model.state_dict(), raw, shapes, train_batch)
+    del model
     torch.cuda.empty_cache()
     tmp.cleanup()
     # rows 9-11 at the bf16 TP steps' local shapes, held against plain with
@@ -7652,10 +8187,14 @@ def parallel_phase(card: str) -> dict:
     print(json.dumps({"tp_train_state_bytes_per_rank": {
         r["phi"]: {tp: r[f"tp{tp}_train_bytes"] for tp in (1, 2, 4, 8)}
         for r in tp_memory.rows() if r["phi"] in ("l", "x")}}), flush=True)
-    out = {"launches": launches, "timing": timing, "ranks_s": ranks_s,
+    out = {"launches": launches, "timing": timing, "ranks_s": ranks_s, "nccl_s": nccl_s,
            "timing_s": time.perf_counter() - t2, "setup_s": setup_s,
-           "tp_train_launches": tp_launches, "tp_train_rows": tp_train_rows}
-    print(json.dumps({"parallel_phase_s": {k: out[k] for k in ("setup_s", "ranks_s",
+           "tp_train_launches": tp_launches, "tp_train_rows": tp_train_rows,
+           "mesh_graphs": {"serving": {tag: r["batches"] for tag, r in
+                                       one[0]["serving_graphs"].items()},
+                           "train": one[0]["train_graphs"]},
+           "tp_graphs": tp_graphs}
+    print(json.dumps({"parallel_phase_s": {k: out[k] for k in ("setup_s", "ranks_s", "nccl_s",
                                                                "timing_s")}}), flush=True)
     return out
 
@@ -7832,17 +8371,38 @@ PHI_L_SLICE = (("bf16", "int8", "A", "B"), (2, 1), True, True, False, (32, 16, 8
 def graph_kernel_nodes(graph, path: str) -> dict:
     """{kernel: nodes} of GRAPH_NODE_COUNTERS' kernels in a graph captured in
     debug mode (CUDAGraph.debug_dump's DOT file: a kernel node's label holds
-    its function's name), and the graph's kernel nodes in all."""
+    its function's name), the graph's kernel nodes in all and its memcpy
+    nodes (NCCL's all-gather in a world of one rank is one)."""
     import re
 
     graph.debug_dump(path)
     with open(path) as fh:  # a node's label may span lines: split at each node
-        nodes = [n for n in re.split(r'\n(?="?graph_\d+_node_\d+"?\s*\[)', fh.read())
-                 if "KERNEL" in n]
+        split = re.split(r'\n(?="?graph_\d+_node_\d+"?\s*\[)', fh.read())
+    nodes = [n for n in split if "KERNEL" in n]
     # the name, not a longer name's tail: quant_rows_kernel is not
     # requant_rows_kernel (mangled names run on into their arguments)
     count = lambda name: sum(bool(re.search(r"(?<![A-Za-z_])" + name, n)) for n in nodes)
-    return {**{name: count(name) for name in GRAPH_NODE_COUNTERS}, "kernel_nodes": len(nodes)}
+    return {**{name: count(name) for name in GRAPH_NODE_COUNTERS}, "kernel_nodes": len(nodes),
+            "memcpy_nodes": sum("MEMCPY" in n for n in split)}
+
+
+def debug_graph_class():
+    """torch.cuda.CUDAGraph as a graph that keeps its cudaGraph_t for
+    debug_dump (keep_graph) and is instantiated at the end of its capture,
+    as an unkept graph is: installed as torch.cuda.CUDAGraph while a phase
+    reads its graphs' nodes."""
+    import torch
+
+    class DebugGraph(torch.cuda.CUDAGraph):
+        def __init__(self, *args, **kw):
+            super().__init__(keep_graph=True)
+            self.enable_debug_mode()
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    return DebugGraph
 
 
 def graphs_phase(card: str, bf16_model) -> dict:
@@ -7930,19 +8490,7 @@ def graphs_phase(card: str, bf16_model) -> dict:
         return got, {**read_counts(), "nms_exact": N.nms_exact.launches}
 
     real_graph = torch.cuda.CUDAGraph
-
-    class DebugGraph(real_graph):
-        """A graph that keeps its cudaGraph_t for debug_dump (keep_graph) and
-        is instantiated at the end of its capture, as an unkept graph is."""
-
-        def __init__(self, *args, **kw):
-            super().__init__(keep_graph=True)
-            self.enable_debug_mode()
-
-        def capture_end(self):
-            super().capture_end()
-            self.instantiate()
-
+    DebugGraph = debug_graph_class()
     out = {"card": card}
     tmp = tempfile.TemporaryDirectory()
     torch.cuda.CUDAGraph = DebugGraph
@@ -8012,7 +8560,7 @@ def graphs_phase(card: str, bf16_model) -> dict:
                 del imgs
             first = predictor.detect_raw_batch(raw, shapes)  # the whole batch's eager call
             real_parts = I._parts
-            I._parts = lambda batch, peak, free: 2
+            I._parts = lambda batch, peak, free, unit: 2
             try:
                 captured = predictor.detect_raw_batch(raw, shapes)
             finally:
@@ -8442,6 +8990,24 @@ def main() -> int:
                                               for mesh in PARALLEL_MESHES}
     kernels += parallel_kernel_entries(par)
     kernels += tp_train_kernel_entries(par)
+    # the mesh programs on NCCL (a world of one): the launches the wrappers
+    # counted into the mesh Predictor's captures (by batch) and into the
+    # data-parallel train step's capture, as `mesh_graph_launches` (a
+    # replay runs no wrapper)
+    mesh_serving, mesh_train = par["mesh_graphs"]["serving"], par["mesh_graphs"]["train"]
+    for name, counter, tag in (("flash_mha_packed", "flash_mha_packed_sm90", "bf16"),
+                               ("flash_single single_sm90", "flash_single_sm90", "bf16"),
+                               ("flash_mha_int8", "flash_mha_int8_sm90", "int8"),
+                               ("qmm sm90", "qmm", "int8"), ("quant_rows", "quant_rows", "int8")):
+        by_name[name]["mesh_graph_launches"] = {
+            b: mesh_serving[tag][b]["capture_launches"][counter] for b in MESH_GRAPH_BATCHES}
+    for name, counter in (("flash_fwd_lse sm90", "flash_fwd_lse_sm90"),
+                          ("flash_fwd_lse single_sm90", "flash_fwd_lse_single"),
+                          ("flash_bwd_dq sm90", "flash_bwd_dq_sm90"),
+                          ("flash_bwd_dq single_sm90", "flash_bwd_dq_single"),
+                          ("flash_bwd_dkv sm90", "flash_bwd_dkv_sm90"),
+                          ("flash_bwd_dkv single_sm90", "flash_bwd_dkv_single")):
+        by_name[name]["mesh_graph_launches"] = mesh_train["capture_launches"][counter]
     # the int8 1x1 convs: launches of the int8_1x1 model's counted batch-32
     # main path, times of its batch-16 forward's launches (every routed conv)
     for name, source, counter in (("qmm sm90", qmm_src, "qmm"), ("quant_rows", qsrc,

@@ -366,3 +366,187 @@ def int8_1x1_ranks(path: str) -> dict:
     out["after"] = sorted({m.data_shards for m in model.modules()
                            if isinstance(m, blocks.ConvBNAct)})
     return out
+
+
+# ---------------------------------------------------------------------------
+# mesh programs through the program cache (tests/test_torch_mesh_graphs.py)
+# ---------------------------------------------------------------------------
+
+MESH_GRAPH_LRS = (1e-3, 5e-4, 2e-3)  # one lr a step: one graph serves them all
+
+
+def _leaves(model, state, comps=None) -> dict:
+    """Every leaf a step reads or writes, copied (this rank's shards)."""
+    out = {f"param {n}": p.detach().clone() for n, p in model.named_parameters()}
+    out.update({f"grad {n}": p.grad.clone() for n, p in model.named_parameters()
+                if p.grad is not None})
+    out.update({f"stat {n}": b.clone() for n, b in model.named_buffers()})
+    out.update({f"trace {n}": t.clone() for n, t in state.opt_state["trace"].items()})
+    out.update({f"ema {n}": t.clone() for n, t in state.ema_params.items()})
+    out.update({f"ema stat {n}": t.clone() for n, t in state.ema_batch_stats.items()})
+    out["ema_updates"] = state.ema_updates.clone()
+    out.update({f"comp {k}": v.clone() for k, v in (comps or {}).items()})
+    return out
+
+
+def _mesh_step_setup(data, mesh, graphs, tp: bool = False):
+    from transparent_object_detection_tpu_torch.parallel import tp as ttp
+    from transparent_object_detection_tpu_torch.train.trainer import make_eval_step
+
+    tc = TrainConfig(**data["train_cfg"])
+    model = FocusModel(**TINY_MODEL)
+    model.load_state_dict(data["state"])
+    opt = build_optimizer(tc, model)
+    state = create_train_state(model, opt)
+    if tp:
+        ttp.shard_train_state_tp(state, mesh)
+    lc = loss_config_from(TINY_CFG, tc)
+    return (model, state, make_train_step(model, opt, lc, tc, mesh=mesh, graphs=graphs),
+            make_eval_step(model, lc, mesh=mesh, graphs=graphs))
+
+
+def _mesh_steps(data, mesh, batch, graphs: bool, tp: bool = False) -> dict:
+    """Three steps at MESH_GRAPH_LRS (warm-up, capture and replay, replay
+    when graphed), then three eval steps, from the weights in `data`."""
+    from transparent_object_detection_tpu_torch.inference import programs_of
+
+    model, state, step, eval_step = _mesh_step_setup(data, mesh, graphs, tp)
+    records = []
+    for lr in MESH_GRAPH_LRS:
+        state, comps = step(state, batch, lr)
+        records.append(_leaves(model, state, comps))
+    evals = [eval_step(state, batch) for _ in range(3)]
+    return {"records": records, "evals": evals,
+            "entries": [{k: e[k] for k in ("entry", "captured", "replays", "parts", "eager")}
+                        for e in programs_of(model)]}
+
+
+def _from_start(data, mesh, batch) -> list:
+    """Three graphed data-parallel steps, each from the weights in `data`
+    (the state written back in place, so the graph reads it): the loss, the
+    parameters and the BatchNorm statistics after each."""
+    model, state, step, _ = _mesh_step_setup(data, mesh, True)
+    tensors = [*(p.detach() for p in model.parameters()), *model.buffers(),
+               *state.opt_state["trace"].values(), *state.ema_params.values(),
+               *state.ema_batch_stats.values(), state.ema_updates]
+    start = [t.clone() for t in tensors]
+    out = []
+    for lr in MESH_GRAPH_LRS:
+        state, comps = step(state, batch, lr)
+        out.append({"loss": float(comps["loss"]),
+                    "params": {n: p.detach().clone() for n, p in model.named_parameters()},
+                    "stats": {n: b.clone() for n, b in model.named_buffers()}})
+        with torch.no_grad():
+            for t, t0 in zip(tensors, start):
+                t.copy_(t0)
+    return out
+
+
+def mesh_graphs(path: str) -> dict:
+    """The mesh programs through the program cache on these gloo ranks, the
+    capture stubbed (tests/_torch_graph_stubs.py), as the CUDA path runs
+    them on NCCL:
+      * the data-mesh Predictor forced onto the cache: warm-up, capture and
+        replays on two batches, beside the eager mesh Predictor; a
+        no-mesh Predictor and a Predictor on a mesh of the ranks in the
+        other order on the same model (each its own entry);
+      * the memory decision with each rank given other free bytes;
+      * the data-parallel and the (data 1, model 2) train and eval steps
+        graphed and eager, the eager steps under HostReads, and three
+        graphed data-parallel steps each from the starting weights;
+      * the capturability predicate and `_compiled` on this gloo mesh."""
+    from types import SimpleNamespace
+
+    from _torch_graph_stubs import HostReads, install
+
+    from transparent_object_detection_tpu_torch import inference
+    from transparent_object_detection_tpu_torch.parallel.mesh import Mesh
+
+    data = torch.load(path)
+    mesh = make_mesh()
+    cuda_image = SimpleNamespace(device=SimpleNamespace(type="cuda"))
+    out = {"capturable": mesh.capturable,
+           "compiled": trainer_mod._compiled(None, mesh, cuda_image)}
+    images, shapes = data["images"], data["shapes"]
+
+    # serving: the mesh Predictor on the cache, against eager
+    made = install(inference)
+    model = FocusModel(**TINY_MODEL)
+    model.load_state_dict(data["state"])
+    graphed = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=mesh)
+    out["eager_graphs_flag"] = graphed._graphs
+    graphed._graphs = True  # the CUDA path, on the stubbed capture
+    eager = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=mesh)
+    calls = [graphed.detect_letterboxed(images, shapes) for _ in range(3)]
+    calls.append(graphed.detect_letterboxed(data["images2"], shapes))
+    out["serve"] = {"graphed": calls, "eager": [eager.detect_letterboxed(images, shapes),
+                                                eager.detect_letterboxed(data["images2"], shapes)],
+                    "captures": len(made)}
+    # keys: the same model with no mesh, and on the ranks in the other order
+    single = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu")
+    single._graphs = True
+    reversed_mesh = Mesh(list(reversed(range(process_count()))), (process_count(),), ("data",))
+    other = Predictor(model, TINY_CFG, TINY_PREDICT, device="cpu", mesh=reversed_mesh)
+    other._graphs = True
+    out["keys"] = {"single": [single.detect_letterboxed(images, shapes) for _ in range(3)],
+                   "single_eager": Predictor(model, TINY_CFG, TINY_PREDICT,
+                                             device="cpu").detect_letterboxed(images, shapes),
+                   "reversed": [other.detect_letterboxed(images, shapes) for _ in range(3)],
+                   "entries": [{k: e[k] for k in ("key", "captured", "replays")}
+                               for e in inference.programs_of(model)],
+                   "captures": len(made)}
+
+    # the memory decision: every rank given other free bytes (a warm-up
+    # peak of 1,000 bytes; GRAPH_POOL_OVER_EAGER 1.6)
+    rank = process_index()
+    decisions = {}
+    real_warm_up, real_free = inference._warm_up, inference._free_bytes
+    inference._warm_up = lambda *a: (real_warm_up(*a)[0], 1000)
+    try:
+        for case, free in data["free_bytes"].items():
+            inference._free_bytes = lambda device, f=free[rank]: f
+            m = FocusModel(**TINY_MODEL)
+            m.load_state_dict(data["state"])
+            pred = Predictor(m, TINY_CFG, TINY_PREDICT, device="cpu", mesh=mesh)
+            pred._graphs = True
+            got = [pred.detect_letterboxed(images, shapes) for _ in range(3)]
+            (entry,) = inference.programs_of(m)
+            decisions[case] = {k: entry[k] for k in ("parts", "eager", "captured", "free_bytes",
+                                                     "peak_bytes")}
+            decisions[case]["dets"] = got[-1]
+        inference._free_bytes = lambda device: data["train_free_bytes"][rank]
+        install(inference, train=True)
+        m, state, step, _ = _mesh_step_setup(data, mesh, True)
+        for lr in MESH_GRAPH_LRS:
+            state, _ = step(state, shard_batch(data["batch"], mesh), lr)
+        (entry,) = inference.programs_of(m)
+        decisions["train"] = {k: entry[k] for k in ("eager", "captured", "free_bytes",
+                                                     "predicted_bytes")}
+    finally:
+        inference._warm_up, inference._free_bytes = real_warm_up, real_free
+    out["decisions"] = decisions
+
+    # the steps: data-parallel and (data 1, model 2), graphed against eager
+    made = install(inference, train=True)
+    tp_mesh = make_2d_mesh(2)
+    local = shard_batch(data["batch"], mesh)
+    tp_rows = shard_batch(data["batch"], tp_mesh)
+    cases = (("dp", mesh, local, False), ("tp", tp_mesh, tp_rows, True))
+    out["steps"] = {name: {"eager": _mesh_steps(data, m_, rows, False, tp),
+                           "graphed": _mesh_steps(data, m_, rows, True, tp)}
+                    for name, m_, rows, tp in cases}
+    out["step_captures"] = len(made)
+    reads = {}
+    for name, m_, rows, tp in cases:
+        _, state, step, eval_step = _mesh_step_setup(data, m_, False, tp)
+        state, _ = step(state, rows, MESH_GRAPH_LRS[0])  # the gradients exist
+        lr = torch.tensor(MESH_GRAPH_LRS[1])  # a device tensor, as Trainer.fit passes it
+        with HostReads() as guard:
+            step(state, rows, lr)
+        reads[name] = guard.reads
+        with HostReads() as guard:
+            eval_step(state, rows)
+        reads[name + " eval"] = guard.reads
+    out["host_reads"] = reads
+    out["from_start"] = _from_start(data, mesh, local)
+    return out

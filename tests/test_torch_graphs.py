@@ -49,28 +49,14 @@ from transparent_object_detection_tpu_torch.models.detector import (
 )
 from transparent_object_detection_tpu_torch.ops import nms as tnms
 
+from _torch_graph_stubs import FakeGraph
+
 torch.set_num_threads(1)
 
 KW = dict(num_classes=2, base_channels=8, base_depth=1, deep_mul=0.5, num_heads=2)
 HW = (64, 64)
 CFG = ModelConfig(num_classes=2, input_shape=HW, compute_dtype="float32")
 PCFG = PredictConfig(confidence=0.3, max_detections=20)
-
-
-class FakeGraph:
-    """A CUDA graph's part on the CPU: `replay` runs the captured step on the
-    static inputs and writes the static output in place."""
-
-    def __init__(self, step, model, inputs):
-        self.step, self.model, self.inputs = step, weakref.ref(model), inputs
-        self.output = step(model, *inputs)
-
-    def replay(self):
-        fresh = self.step(self.model(), *self.inputs)
-        pairs = (zip(self.output.values(), fresh.values()) if isinstance(fresh, dict)
-                 else [(self.output, fresh)])
-        for static, new in pairs:
-            static.copy_(new)
 
 
 @pytest.fixture

@@ -42,15 +42,15 @@ from __future__ import annotations
 
 import os
 import sys
-import weakref
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_graph_stubs import FakeTrainGraph
+from _torch_graph_stubs import HostReads as _HostReads
 from _torch_parity import random_variables, to_jax
 from transparent_object_detection_tpu import config as jcfg
 from transparent_object_detection_tpu.models import FocusModel as JFocusModel
@@ -98,50 +98,6 @@ def _standard_profile_module():
     finally:
         sys.path[:] = saved
     yield
-
-
-class _UndoWrites(TorchDispatchMode):
-    """Keeps the value of every tensor an op writes in place, before its
-    first write, and puts them all back on exit."""
-
-    def __init__(self):
-        super().__init__()
-        self.saved, self.seen = [], set()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        for i, arg in enumerate(func._schema.arguments):
-            if arg.alias_info is None or not arg.alias_info.is_write:
-                continue
-            value = args[i] if i < len(args) else kwargs.get(arg.name)
-            for t in (value if isinstance(value, (list, tuple)) else [value]):
-                if isinstance(t, torch.Tensor) and id(t) not in self.seen:
-                    self.seen.add(id(t))
-                    self.saved.append((t, t.clone()))
-        return func(*args, **kwargs)
-
-    def __exit__(self, *exc):
-        out = super().__exit__(*exc)
-        with torch.no_grad():
-            for t, value in reversed(self.saved):
-                t.copy_(value)
-        return out
-
-
-class FakeTrainGraph:
-    """A CUDA graph's part on the CPU for a step that writes state: the
-    capture runs the step's Python and undoes its writes; `replay` runs the
-    step on the static inputs and writes the static output in place."""
-
-    def __init__(self, step, model, inputs):
-        self.step, self.model, self.inputs = step, weakref.ref(model), inputs
-        with _UndoWrites():
-            self.output = step(model, *inputs)
-
-    def replay(self):
-        fresh = self.step(self.model(), *self.inputs)
-        for static, new in zip(self.output.values(), fresh.values()):
-            static.copy_(new)
 
 
 @pytest.fixture
@@ -255,22 +211,6 @@ def test_graphed_steps_equal_eager_bit_for_bit(tiny_vars, captures, case):
         for (n, p), q in zip(model.named_parameters(), first.parameters()):
             if n.startswith("backbone."):
                 assert torch.equal(p.detach(), q.detach()), n
-
-
-class _HostReads(TorchDispatchMode):
-    """Records every op that reads a tensor back to the host or makes one
-    from host data."""
-
-    READS = ("aten::_local_scalar_dense", "aten::lift_fresh", "aten::lift_fresh_copy")
-
-    def __init__(self):
-        super().__init__()
-        self.reads = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func._schema.name in self.READS:
-            self.reads.append(func._schema.name)
-        return func(*args, **(kwargs or {}))
 
 
 @pytest.mark.parametrize("opt", ["sgd", "adam"])

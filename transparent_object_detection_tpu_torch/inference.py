@@ -9,15 +9,17 @@ host between preprocessing and final detections: the only transfers are
 the input batch and the fixed-shape detection struct (the exact NMS is one
 kernel whose loop is bounded on the device, ops/nms.py).
 
-On CUDA, with no mesh, each entry (`detect_letterboxed`, `detect_raw_batch`,
+On CUDA each entry (`detect_letterboxed`, `detect_raw_batch`,
 `class_activation_map`) runs as one captured CUDA graph per batch shape,
 the counterpart of the JAX Predictor's one compiled XLA program per batch
-shape (JAX `_jitted`). The graphs live in a process-wide cache keyed on
-everything a call reads while it is traced: the model object (held weakly:
-its graphs go with it), the entry, `input_shape`, `predict_cfg`, each
-input's shape and dtype, and each module's kernel switch
-(`set_attention_impl`), int8 variants, compute dtype, mode and data
-shards, so two Predictors on one model and config share one graph. The
+shape (JAX `_jitted`), with no mesh or on a mesh whose collectives NCCL
+runs (parallel/mesh.py `Mesh.capturable`). The graphs live in a
+process-wide cache keyed on everything a call reads while it is traced:
+the model object (held weakly: its graphs go with it), the entry,
+`input_shape`, `predict_cfg`, the mesh's layout, each input's shape and
+dtype, and each module's kernel switch (`set_attention_impl`), int8
+variants, compute dtype, mode and data shards, so two Predictors on one
+model, config and mesh share one graph. The
 first call of a key runs eagerly: the warm-up a capture needs (kernel
 builds, shared-memory attributes, cuBLAS and cuDNN first use, the int8
 weight caches). The second call captures and replays; later calls copy
@@ -50,16 +52,24 @@ batch is never split, and a key whose graph is predicted not to fit runs
 eagerly instead.
 
 A failed capture raises; nothing falls back to eager. On the CPU, and on a
-mesh (gloo's host-staged collectives cannot be captured), the Predictor runs
-eagerly. The kernels' launch counters move where a wrapper launches its
-kernel, eagerly or into a graph being captured; a replay runs no wrapper,
-and `programs_of` counts the replays and the calls answered by them alone.
+mesh with a gloo group (gloo stages its transfers through the host, which a
+capture cannot record), the Predictor runs eagerly. The kernels' launch
+counters move where a wrapper launches its kernel, eagerly or into a graph
+being captured; a replay runs no wrapper, and `programs_of` counts the
+replays and the calls answered by them alone.
 
 On a mesh (parallel/) every rank is handed the global batch, as the JAX
 caller hands one global array: each data index runs its rows, and the
 fixed-shape results are all-gathered over the data axis, so every rank
 returns the global result. With a model axis the neck TEBs run tensor-
-parallel on the Predictor's own sharded copy of the weights.
+parallel on the Predictor's own sharded copy of the weights. On NCCL the
+whole call (this rank's rows, the step, the all-gather) is one graph, whose
+replay launches the collectives. Every rank must launch each collective
+once a call in the same order, so the ranks take each decision alike: a
+key's first call (eager: it makes every NCCL communicator the graph uses)
+ends in one all-reduce of the ranks' warm-up peaks and free bytes, and the
+capture and the number of parts are decided from the largest peak and the
+least free memory of the mesh.
 """
 from __future__ import annotations
 
@@ -70,6 +80,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from transparent_object_detection_tpu_torch.config import ModelConfig, PredictConfig
@@ -142,13 +153,14 @@ def cam_step(model: FocusModel, images: torch.Tensor, reg_max: int) -> torch.Ten
 class Program:
     """One key's entry: the fingerprint of the tensors it was warmed up or
     captured on (models.detector.TracedModules.fingerprint, and the pointers
-    of the step's own tensors) and its warm-up's peak bytes above the memory
-    allocated before it; once captured, the number of equal parts a call's
-    batch runs in (1 unless the whole batch's graph would not fit), the
-    graph of one part, its static input buffers and output, the capture's
+    of the step's own tensors), its warm-up's peak bytes above the memory
+    allocated before it and the bytes free after it (on a mesh the largest
+    peak and the least free bytes of its ranks); once captured, the number
+    of equal parts a call's batch runs in (1 unless the whole batch's graph
+    would not fit), the graph of one part, its static input buffers and output, the capture's
     seconds and the bytes the graph pool grew by. A training key whose
     graph is predicted not to fit is not captured: `eager` is set, with the
-    bytes predicted and free at the decision, and its calls run eagerly.
+    bytes predicted, and its calls run eagerly.
     The key's counts go on across its captures: the graphs' replays, and
     the calls answered by replays alone (no wrapper ran in them)."""
 
@@ -234,13 +246,28 @@ def _free_bytes(device: torch.device) -> int:
             - torch.cuda.memory_allocated(device))
 
 
-def _parts(batch: int, peak_bytes: int, free: int) -> int:
+def _parts(batch: int, peak_bytes: int, free: int, unit: int = 1) -> Optional[int]:
     """The fewest equal parts of `batch` whose graph is predicted to fit in
     `free` bytes (GRAPH_POOL_OVER_EAGER times its share of the whole
-    batch's peak)."""
-    return next(n for n in range(1, batch + 1)
-                if batch % n == 0 and (GRAPH_POOL_OVER_EAGER * peak_bytes / n <= free
-                                       or n == batch))
+    batch's peak), each part a multiple of `unit` rows (a mesh's data
+    shards). With one-row units, one row a part when nothing fits; with
+    larger units, None when no part fits (the key then runs eagerly)."""
+    return next((n for n in range(1, batch + 1)
+                 if batch % n == 0 and (batch // n) % unit == 0
+                 and (GRAPH_POOL_OVER_EAGER * peak_bytes / n <= free
+                      or n == batch)), None)
+
+
+def _agreed(mesh: Optional[Mesh], peak_bytes: int, free: int, device) -> Tuple[int, int]:
+    """The largest warm-up peak and the least free bytes over the ranks of
+    `mesh` (one eager all-reduce), so that every rank decides alike; this
+    rank's own without a process group."""
+    if mesh is None or not mesh.distributed:
+        return peak_bytes, free
+    t = torch.tensor([-peak_bytes, free], dtype=torch.int64, device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group_all)
+    neg_peak, least = t.tolist()
+    return -neg_peak, least
 
 
 def _pool(served: _Served):
@@ -296,13 +323,20 @@ def _replayed(prog: Program, inputs: Tuple[torch.Tensor, ...]):
 
 def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torch.Tensor, ...],
                 key: tuple, tensors: Callable[[], Tuple[torch.Tensor, ...]] = tuple,
-                training: bool = False):
+                training: bool = False, mesh: Optional[Mesh] = None):
     """`step(model, *inputs)` through the program cache (inputs on the
     model's device, batch first): eagerly on a key's first call and after
     any tensor it reads changed, captured on the next call, replayed after
     that. A batch whose graph is predicted not to fit beside what the card
     holds runs as replays of one graph over equal parts of it (`_parts`),
     the int8 1x1 convs gated on the whole batch's rows, as eagerly.
+
+    `mesh`: the mesh whose collectives the step issues (a `capturable`
+    one: NCCL, or none). Its layout joins the key; the first call of a key
+    agrees the memory decision over its ranks (`_agreed`), and a serving
+    batch is split only into parts that each divide its data axis, else
+    the key runs eagerly. Every rank must make the same calls and change
+    the same tensors, so that each takes the same path.
 
     `tensors()`: what the step reads or writes besides the model's
     parameters and buffers (a train step's gradients, optimizer state, EMA
@@ -316,30 +350,38 @@ def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torc
     host-side effect: a capture runs its Python once without its work, and
     a replay runs no Python."""
     served, modules = _traced(model)
-    key = (entry, key, modules.traced(), tuple((tuple(t.shape), t.dtype) for t in inputs))
+    key = (entry, _program_key(key, mesh), modules.traced(),
+           tuple((tuple(t.shape), t.dtype) for t in inputs))
     fingerprint = lambda: modules.fingerprint() + tuple(t.data_ptr() for t in tensors())
     prog = served.programs.get(key)
     if prog is None or prog.fingerprint != fingerprint():
         out, peak = _warm_up(step, model, inputs, training)
+        # the memory the capture may take, read now: on a mesh agreed over
+        # the ranks in this eager call, never inside a capture
+        peak, free = _agreed(mesh, peak, _free_bytes(inputs[0].device), inputs[0].device)
         # the fingerprint after the warm-up: it made the int8 weight caches
-        served.programs[key] = Program(fingerprint(), peak,
+        served.programs[key] = Program(fingerprint(), peak, free_bytes=free,
                                        replays=prog.replays if prog else 0,
                                        replayed_calls=prog.replayed_calls if prog else 0)
         return out
     if prog.eager:
         return step(model, *inputs)
     if prog.graph is None:
-        batch = inputs[0].shape[0]
-        free = _free_bytes(inputs[0].device)
+        batch, free = inputs[0].shape[0], prog.free_bytes
         if training:
             prog.predicted_bytes = int(GRAPH_POOL_OVER_EAGER * prog.peak_bytes)
-            prog.free_bytes = free
             if prog.predicted_bytes > free:
                 prog.eager = True
                 return step(model, *inputs)
             parts = 1
         else:
-            parts = _parts(batch, prog.peak_bytes, free)
+            parts = _parts(batch, prog.peak_bytes, free,
+                           1 if mesh is None else mesh.size(DATA_AXIS))
+            if parts is None:  # not even a part of one row a rank fits
+                unit = mesh.size(DATA_AXIS)
+                prog.predicted_bytes = int(GRAPH_POOL_OVER_EAGER * prog.peak_bytes * unit / batch)
+                prog.eager = True
+                return step(model, *inputs)
         static = tuple((t if parts == 1 else t[:batch // parts]).clone() for t in inputs)
         t0 = time.perf_counter()
         try:
@@ -358,6 +400,12 @@ def run_program(model: nn.Module, entry: str, step: Callable, inputs: Tuple[torc
     return _replayed(prog, inputs)
 
 
+def _program_key(key: tuple, mesh: Optional[Mesh]) -> tuple:
+    """The caller's key, with the mesh's layout where there is a mesh (a
+    mesh program issues collectives a program without one lacks)."""
+    return key if mesh is None else (*key, ("mesh", mesh.layout))
+
+
 def release_programs(model: nn.Module) -> None:
     """Drop `model`'s graphs and their memory pool (the pool's memory goes
     back to the allocator; `torch.cuda.empty_cache()` returns it to the
@@ -370,9 +418,9 @@ def programs_of(model: nn.Module) -> List[Dict[str, Any]]:
     """The program cache's entries of `model`: entry, key, whether it is
     captured, the parts a call runs in, capture seconds, pool bytes grown at
     capture, the warm-up's peak bytes, the graphs' replays and the calls
-    answered by replays alone; for a training key, whether it runs eagerly
-    for want of memory, with the bytes predicted and free at that
-    decision."""
+    answered by replays alone; whether the key runs eagerly for want of
+    memory (a training key, or a mesh serving key with no part that
+    fits), with the bytes predicted and those free after the warm-up."""
     served = _SERVED.get(model)
     return [{"entry": key[0], "key": key, "captured": p.graph is not None, "parts": p.parts,
              "capture_s": p.capture_s, "pool_bytes": p.pool_bytes,
@@ -382,14 +430,29 @@ def programs_of(model: nn.Module) -> List[Dict[str, Any]]:
             for key, p in (served.programs.items() if served else ())]
 
 
+def _rows(arrays, mesh: Optional[Mesh]):
+    """This rank's rows of each global batch array."""
+    return arrays if mesh is None else tuple(rows_of(a, mesh) for a in arrays)
+
+
+def _gathered(out, mesh: Optional[Mesh]):
+    """The global result: each tensor's rows from every data rank."""
+    if mesh is None:
+        return out
+    if isinstance(out, torch.Tensor):
+        return all_gather_cat(out, mesh, DATA_AXIS, 0)
+    return {k: all_gather_cat(v, mesh, DATA_AXIS, 0) for k, v in out.items()}
+
+
 class Predictor:
     """Batch detector front end on one device (CUDA unless `device` names
     another).
 
-    On CUDA with no mesh every call runs through the program cache above:
-    one captured CUDA graph per batch shape, the first call of a shape
-    eager, a failed capture raising. On the CPU, and on a mesh, calls run
-    eagerly.
+    On CUDA every call runs through the program cache above: one captured
+    CUDA graph per batch shape, the first call of a shape eager, a failed
+    capture raising; on a mesh too where its collectives go through NCCL
+    (`Mesh.capturable`). On the CPU, and on a mesh with a gloo group, calls
+    run eagerly.
 
     mesh: an optional `parallel.Mesh` (`make_mesh`, `make_2d_mesh`) this
     process is a rank of. The mesh's first rank's weights are broadcast to
@@ -403,9 +466,11 @@ class Predictor:
     two or more dimensions in the compute type), the caller's model left as
     it was. The int8 1x1 convs gate on the global batch's rows, as JAX's do
     on its global array (`blocks.global_rows`). Every rank of the mesh
-    makes the same calls in the same order. A mesh Predictor runs eagerly:
-    its collectives go through gloo, whose host-staged transfers a CUDA
-    graph cannot capture."""
+    makes the same calls in the same order. On NCCL a call is one captured
+    graph: this rank's rows, the step and the all-gather, keyed on the
+    mesh's layout as JAX's `_jitted` keys its mesh; on gloo, whose
+    host-staged transfers a CUDA graph cannot capture, calls run
+    eagerly."""
 
     def __init__(self, model: FocusModel, model_cfg: ModelConfig,
                  predict_cfg: Optional[PredictConfig] = None, device=None,
@@ -420,7 +485,7 @@ class Predictor:
         self.model = model.eval()
         self.model_cfg = model_cfg
         self.predict_cfg = predict_cfg or PredictConfig()
-        self._graphs = self.device.type == "cuda" and mesh is None
+        self._graphs = self.device.type == "cuda" and (mesh is None or mesh.capturable)
 
     @property
     def data_shards(self) -> int:
@@ -432,32 +497,25 @@ class Predictor:
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device, dtype=dtype)
 
-    def _rows(self, *arrays):
-        """This rank's rows of each global batch array, on the device."""
-        n = self.data_shards
-        if n > 1 and arrays[0].shape[0] % n:
-            raise ValueError(
-                f"batch size {arrays[0].shape[0]} does not divide the mesh data axis ({n}); "
-                f"pad the batch to a multiple of Predictor.data_shards")
-        if self.mesh is None:
-            return arrays
-        return tuple(rows_of(a, self.mesh) for a in arrays)
-
-    def _gathered(self, out):
-        """The global result: each tensor's rows from every data rank."""
-        if self.mesh is None:
-            return out
-        if isinstance(out, torch.Tensor):
-            return all_gather_cat(out, self.mesh, DATA_AXIS, 0)
-        return {k: all_gather_cat(v, self.mesh, DATA_AXIS, 0) for k, v in out.items()}
-
     def _call(self, entry: str, step: Callable, inputs: Tuple[torch.Tensor, ...], key: tuple):
-        """step(model, *inputs, *key): through the program cache on CUDA with
-        no mesh, else eagerly on this rank's rows, all-gathered."""
+        """step(model, *inputs, *key) on this rank's rows of the global
+        batch, all-gathered over the data axis: through the program cache
+        where the Predictor captures (one program, collectives included),
+        else eagerly. The program holds no reference to the Predictor or
+        its model (a graph holds no Python object)."""
+        mesh, shards = self.mesh, self.data_shards
+        if shards > 1 and inputs[0].shape[0] % shards:
+            raise ValueError(
+                f"batch size {inputs[0].shape[0]} does not divide the mesh data axis ({shards}); "
+                f"pad the batch to a multiple of Predictor.data_shards")
+
+        def body(model, *t):
+            with global_rows(model, shards):
+                return _gathered(step(model, *_rows(t, mesh), *key), mesh)
+
         if self._graphs:
-            return run_program(self.model, entry, lambda m, *t: step(m, *t, *key), inputs, key)
-        with global_rows(self.model, self.data_shards):
-            return self._gathered(step(self.model, *self._rows(*inputs), *key))
+            return run_program(self.model, entry, body, inputs, key, mesh=mesh)
+        return body(self.model, *inputs)
 
     @torch.inference_mode()
     def detect_letterboxed(self, images, image_shapes) -> Dict[str, torch.Tensor]:

@@ -111,10 +111,9 @@ class _BatchNormTrain(torch.autograd.Function):
                                xf.new_full((1,), float(count))]).double()
             all_reduce_sum(stats, mesh, DATA_AXIS)
             c = x.shape[1]
-            count = stats[-1]
+            count = stats[-1]  # kept on the device: a compiled step reads no host value
             mean = (stats[:c] / count).float()
             var_raw = (stats[c:2 * c] / count).float() - mean * mean
-            count = int(count)
         var = var_raw.clamp(min=0.0)
         r = torch.rsqrt(var + eps)
         mul = r * weight
@@ -317,16 +316,19 @@ class ConvBNAct(nn.Module):
 def global_rows(module: nn.Module, shards: int):
     """The int8 1x1 route of `module`'s convs gated on the global batch's
     rows while the context is open: `shards` data ranks, each running its
-    rows (a Predictor on a data mesh). A no-op for one shard."""
+    rows (a Predictor on a data mesh), or `shards` equal parts of a batch
+    (inference.run_program). Nested contexts multiply (a mesh batch in
+    parts). A no-op for one shard."""
     convs = ([m for m in module.modules() if isinstance(m, ConvBNAct) and m.int8_1x1]
              if shards > 1 else [])
+    before = [m.data_shards for m in convs]
     for m in convs:
-        m.data_shards = shards
+        m.data_shards *= shards
     try:
         yield
     finally:
-        for m in convs:
-            m.data_shards = 1
+        for m, n in zip(convs, before):
+            m.data_shards = n
 
 
 class Bottleneck(nn.Module):

@@ -19,8 +19,15 @@ collective calls one:
 
 Without a process group a mesh is a world of one rank and every collective
 is the identity. With one, the collectives run even along axes of size 1,
-so a world of one rank still goes through its backend. Gathers use the list
-form of `all_gather`, which gloo also runs on CUDA tensors.
+so a world of one rank still goes through its backend. Gathers on NCCL
+gather into one tensor (`all_gather_into_tensor`); gloo, which also runs on
+CUDA tensors, takes the list form of `all_gather`. The values are the same.
+
+A mesh is `capturable` when a CUDA graph can record its collectives: every
+group it holds is NCCL's (one card a rank), or it has no process group.
+gloo stages its transfers through the host, which a capture cannot record,
+so a mesh with a gloo group runs its programs eagerly (inference.py,
+train/trainer.py).
 
 Tensor-parallel training differentiates through the model axis's
 collectives (Megatron's regions), as `torch.autograd.Function`s:
@@ -58,6 +65,11 @@ MODEL_AXIS = "model"
 
 def _distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def _nccl(group) -> bool:
+    """Whether `group`'s collectives go through NCCL."""
+    return dist.get_backend(group) == dist.Backend.NCCL
 
 
 class Mesh:
@@ -130,6 +142,22 @@ class Mesh:
         group, or along an axis the mesh lacks."""
         return self._groups.get(axis)
 
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can capture the mesh's collectives: true
+        without a process group (each collective the identity) and when the
+        whole mesh's group and every axis's group are NCCL's; false when any
+        is gloo's."""
+        if not self.distributed:
+            return True
+        return all(_nccl(g) for g in (self.group_all, *self._groups.values()))
+
+    @property
+    def layout(self) -> tuple:
+        """The ranks and the named axes' sizes: what a compiled program of
+        the mesh is keyed on (JAX keys its jitted programs on the mesh)."""
+        return self.ranks, tuple(self.shape.items())
+
     def __repr__(self) -> str:
         return f"Mesh(shape={self.shape}, ranks={self.ranks})"
 
@@ -186,9 +214,19 @@ def all_gather_list(t: torch.Tensor, mesh: Optional[Mesh], axis: str) -> List[to
     """Every rank's `t` along `axis`, in the axis's order."""
     if mesh is None or not mesh.distributed:
         return [t]
+    return list(_gathered(t, mesh, axis).unbind(0))
+
+
+def _gathered(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """Every rank's `t` along `axis`, stacked on a new first dimension: on
+    NCCL gathered into that tensor, on gloo through the list form."""
     t = t.contiguous()
-    out = [torch.empty_like(t) for _ in range(mesh.size(axis))]
-    dist.all_gather(out, t, group=mesh.group(axis))
+    group = mesh.group(axis)
+    out = torch.empty((mesh.size(axis), *t.shape), dtype=t.dtype, device=t.device)
+    if _nccl(group):
+        dist.all_gather_into_tensor(out, t, group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), t, group=group)
     return out
 
 
@@ -201,8 +239,15 @@ def all_gather_cat(t: torch.Tensor, mesh: Optional[Mesh], axis: str, dim: int) -
     dim = dim % t.dim()
     moved = t.movedim(dim, -1)
     if moved.is_contiguous() and not t.is_contiguous():
-        return torch.cat(all_gather_list(moved, mesh, axis), dim=-1).movedim(-1, dim)
-    return torch.cat(all_gather_list(t, mesh, axis), dim=dim)
+        return _cat_gathered(_gathered(moved, mesh, axis), -1).movedim(-1, dim)
+    return _cat_gathered(_gathered(t, mesh, axis), dim)
+
+
+def _cat_gathered(stacked: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' tensors stacked on the first dimension, concatenated on
+    `dim` of each (torch.cat of the list, in rank order)."""
+    dim = dim % (stacked.dim() - 1)
+    return stacked.movedim(0, dim).flatten(dim, dim + 1)
 
 
 def _buckets(tensors: Sequence[torch.Tensor], max_bytes: int) -> Iterator[List[torch.Tensor]]:

@@ -92,10 +92,12 @@ class Optimizer:
         # clip by the global norm, as optax: (g / |g|) * c unless |g| < c
         sharded = set(sharded)
         if sharded:
-            sq = torch.stack(torch._foreach_norm(g)).square()
-            split = torch.tensor([n in sharded for n in names], device=sq.device)
-            part = all_reduce_sum(sq[split].sum(), mesh, MODEL_AXIS)
-            g_norm = (sq[~split].sum() + part).sqrt()
+            # the squares split by names on the host: a compiled step makes
+            # no tensor from host data and reads none back
+            norms = torch._foreach_norm(g)
+            sq = lambda own: torch.stack([t for t, n in zip(norms, names)
+                                          if (n in sharded) == own]).square().sum()
+            g_norm = (sq(False) + all_reduce_sum(sq(True), mesh, MODEL_AXIS)).sqrt()
         else:
             g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
         keep = g_norm < cfg.grad_clip_norm

@@ -36,20 +36,27 @@ leaves each parameter's `.grad` holding this step's loss gradient (zero on
 a frozen backbone).
 
 Compiled steps, as JAX's `jax.jit(step, donate_argnums=(0,))` and
-`jax.jit(eval_step)`: on CUDA with no mesh, both steps run through the
-program cache of inference.py, one captured CUDA graph a key (the entry,
-its configuration, the batch's shapes and dtypes, the model's traced
-attributes), the first call of a key eager, the second captured, later
-ones replayed. The learning rate is an input of the program (a 0-d float32
-tensor copied in with the batch), the EMA decay and Adam's bias corrections
-are computed on the device from device counters, and nothing is read back
-to the host inside a step, so one graph serves every epoch of a phase.
+`jax.jit(eval_step)`, whatever the sharding of their inputs: on CUDA, with
+no mesh or on a mesh whose collectives NCCL runs (`Mesh.capturable`), both
+steps run through the program cache of inference.py, one captured CUDA
+graph a key (the entry, its configuration, the mesh's layout, the batch's
+shapes and dtypes, the model's traced attributes), the first call of a key
+eager, the second captured, later ones replayed. On a mesh the graph holds
+the step's collectives: the global BatchNorm's statistic sums, the loss's
+normaliser, the gradient all-reduce, the replicated gradients' broadcast
+over the model axis, the clip's sum over shards and the components' sum;
+a replay launches each once. The learning rate is an input of the program
+(a 0-d float32 tensor copied in with the batch), the EMA decay and Adam's
+bias corrections are computed on the device from device counters, and
+nothing is read back to the host inside a step, so one graph serves every
+epoch of a phase.
 A graph reads and writes the tensors it was captured on: the model's, the
 gradients (zeroed and accumulated in place, never reallocated), the
 optimizer state, the EMA shadows and the counter; a step whose tensors
 changed (a resume's `load_state_tree`, a new state) warms up and captures
-anew. On the CPU, and on a mesh (gloo's collectives cannot be captured),
-the steps run eagerly.
+anew. On the CPU, and on a mesh with a gloo group (gloo stages its
+transfers through the host, which a capture cannot record), the steps run
+eagerly.
 """
 from __future__ import annotations
 
@@ -185,10 +192,10 @@ def _global_components(comps: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.
 
 def _compiled(graphs: Optional[bool], mesh, image: torch.Tensor) -> bool:
     """Whether a step runs through the program cache: on CUDA with no mesh
-    unless `graphs` says otherwise."""
+    or a capturable one (NCCL's), unless `graphs` says otherwise."""
     if graphs is not None:
         return graphs
-    return mesh is None and image.device.type == "cuda"
+    return image.device.type == "cuda" and (mesh is None or mesh.capturable)
 
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig,
@@ -212,8 +219,9 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
     optimizer and the EMA run on the shards (JAX's step on
     `shard_params_tp`'s state).
 
-    On CUDA with no mesh the step is compiled: a captured CUDA graph a batch
-    shape (module docstring); `graphs` forces that path (True) or the eager
+    On CUDA with no mesh, or on a mesh whose collectives NCCL runs, the
+    step is compiled: a captured CUDA graph a batch shape, its collectives
+    in it (module docstring); `graphs` forces that path (True) or the eager
     one (False), as comparisons of kernels against plain versions or of
     planted faults need (a replayed graph runs the kernels it was captured
     on)."""
@@ -277,7 +285,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: LossConfig
         if _compiled(graphs, mesh, image):
             comps = run_program(model, "trainer.train_step",
                                 lambda m, *t: run(state, *t), inputs, (config,),
-                                tensors=state.tensors, training=True)
+                                tensors=state.tensors, training=True, mesh=mesh)
         else:
             comps = run(state, *inputs)
         state.step += 1
@@ -292,9 +300,9 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True,
     (running statistics) on the raw maps, with the EMA weights by default;
     with a data-parallel `mesh`, the global batch's from this rank's rows;
     with a (data, model) mesh, on a state in the tensor-parallel layout (the
-    sharded layers' serving forms). On CUDA with no mesh, one captured CUDA
-    graph a batch shape, reading the EMA shadows in place; `graphs` as in
-    `make_train_step`."""
+    sharded layers' serving forms). On CUDA with no mesh or a capturable
+    one, one captured CUDA graph a batch shape, reading the EMA shadows in
+    place; `graphs` as in `make_train_step`."""
 
     def run(state: TrainState, image, boxes, labels):
         with torch.no_grad():
@@ -317,7 +325,7 @@ def make_eval_step(model: nn.Module, loss_cfg: LossConfig, use_ema: bool = True,
                 shadows = lambda: ((*state.ema_params.values(), *state.ema_batch_stats.values())
                                    if use_ema else ())
                 return run_program(model, "trainer.eval_step", lambda m, *t: run(state, *t),
-                                   inputs, (use_ema, repr(loss_cfg)), tensors=shadows)
+                                   inputs, (use_ema, repr(loss_cfg)), tensors=shadows, mesh=mesh)
             return run(state, *inputs)
         finally:
             model.train(was_training)
@@ -338,9 +346,11 @@ class Trainer:
     data/loader.py); the pool's fork server imports the calling script, so
     its entry point must sit under `if __name__ == "__main__":`.
     `fit(..., mesh=...)` trains data-parallel (every rank of the mesh calls
-    it with the same arguments). On CUDA with no mesh `fit` runs the train
-    and eval steps as captured CUDA graphs (module docstring); `graphs`
-    forces that path (True) or the eager one (False)."""
+    it with the same arguments). On CUDA, with no mesh or on an NCCL mesh,
+    `fit` runs the train and eval steps as captured CUDA graphs, and its
+    EvalCallback's Predictor serves from them (module docstring); on a gloo
+    mesh they run eagerly. `graphs` forces that path (True) or the eager
+    one (False)."""
 
     def __init__(
         self,
